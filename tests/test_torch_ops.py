@@ -1,0 +1,199 @@
+"""The port's ops (xotorch_tpu_torch.ops) against the JAX package's, on the CPU.
+
+The same numpy inputs, made from a seed, go through both. The JAX Pallas kernels
+run in interpret mode (selected off-TPU, as tests/test_flash_attention.py runs
+them); the port's wrappers take their plain PyTorch versions because the tensors
+lie on the CPU. Everything is fp32 with JAX's matmul precision pinned to
+'highest', so the two sides differ only by the order of fp32 sums: the attention
+tolerance is 2e-5 absolute on outputs of magnitude ~1, rope's 1e-5 covers
+cos/sin of the same fp32 angles from two libms. Sampling must pick the very same
+tokens: greedy is an argmax of identical logits, and the random picks use JAX's
+own Gumbel noise injected into the port.
+"""
+import jax
+import jax.numpy as jnp
+import numpy as np
+import pytest
+import torch
+
+from xotorch_tpu.models.config import RopeScaling as JRopeScaling
+from xotorch_tpu.ops import attention as j_attention
+from xotorch_tpu.ops import flash_attention as j_flash
+from xotorch_tpu.ops import flash_decode as j_decode
+from xotorch_tpu.ops import rope as j_rope
+from xotorch_tpu.ops import sampling as j_sampling
+from xotorch_tpu_torch.models.config import RopeScaling
+from xotorch_tpu_torch.ops import attention, flash_attention, flash_decode, rope, sampling
+
+torch.set_num_threads(2)
+
+ATOL = 2e-5
+
+
+@pytest.fixture(autouse=True)
+def _highest_precision():
+  with jax.default_matmul_precision("highest"):
+    yield
+
+
+def _randn(rng, *shape):
+  return rng.standard_normal(shape).astype(np.float32)
+
+
+def _t(a):
+  return torch.from_numpy(np.array(a))
+
+
+@pytest.mark.parametrize("scaling", [None, "llama3"])
+def test_rope_matches_jax(scaling):
+  rng = np.random.default_rng(0)
+  D, theta = 64, 500000.0
+  sc = (dict(factor=32.0, low_freq_factor=1.0, high_freq_factor=4.0,
+             original_max_position_embeddings=8192) if scaling else None)
+  inv_j = np.asarray(j_rope.rope_frequencies(D, theta, JRopeScaling(**sc) if sc else None))
+  inv_t = rope.rope_frequencies(D, theta, RopeScaling(**sc) if sc else None)
+  np.testing.assert_allclose(inv_t.numpy(), inv_j, rtol=1e-6)
+  x = _randn(rng, 2, 5, 4, D)
+  pos = np.array([[0, 1, 2, 3, 4], [1000, 1001, 1002, 1003, 70000]], np.int32)
+  out_j = np.asarray(j_rope.apply_rope(jnp.asarray(x), jnp.asarray(pos), jnp.asarray(inv_j)))
+  out_t = rope.apply_rope(_t(x), _t(pos), inv_t).numpy()
+  np.testing.assert_allclose(out_t, out_j, atol=1e-5, rtol=1e-5)
+
+
+@pytest.mark.parametrize("window,softcap,scale,valid", [
+  (None, 0.0, None, None), (4, 0.0, None, [9, 6]), (0, 30.0, 0.2, None), (3, 20.0, None, [7, 9])])
+def test_gqa_attention_matches_jax(window, softcap, scale, valid):
+  rng = np.random.default_rng(1)
+  B, T, S, Hq, Hkv, D = 2, 3, 9, 4, 2, 8
+  q, k, v = _randn(rng, B, T, Hq, D), _randn(rng, B, S, Hkv, D), _randn(rng, B, S, Hkv, D)
+  pos = np.array([[4, 5, 6], [6, 7, 8]], np.int32)
+  kvl = None if valid is None else np.array(valid, np.int32)
+  out_j = j_attention.gqa_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), jnp.asarray(pos),
+                                    None if kvl is None else jnp.asarray(kvl), scale=scale,
+                                    softcap=softcap, window=window)
+  out_t = attention.gqa_attention(_t(q), _t(k), _t(v), _t(pos).long(),
+                                  None if kvl is None else _t(kvl).long(), scale=scale,
+                                  softcap=softcap, window=window)
+  np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=ATOL, rtol=1e-5)
+
+
+@pytest.mark.parametrize("Hq,Hkv,window,softcap,scale", [
+  (4, 2, 0, 0.0, None), (8, 2, 0, 0.0, None), (4, 4, 5, 0.0, None), (4, 2, 7, 50.0, 0.3)])
+def test_flash_attention_ref_matches_jax_kernel(Hq, Hkv, window, softcap, scale):
+  rng = np.random.default_rng(2)
+  B, T, D = 2, 32, 16
+  q, k, v = _randn(rng, B, T, Hq, D), _randn(rng, B, T, Hkv, D), _randn(rng, B, T, Hkv, D)
+  out_j = j_flash.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=16,
+                                  block_k=16, window=jnp.int32(window) if window else None,
+                                  softcap=softcap, scale=scale)
+  out_t = flash_attention.flash_attention(_t(q), _t(k), _t(v), window=window, softcap=softcap,
+                                          scale=scale)
+  np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=ATOL, rtol=1e-5)
+
+
+@pytest.mark.parametrize("T,starts,window,softcap", [
+  (1, [0, 17, 40, 63], 0, 0.0),  # decode steps, per-row q_start
+  (1, [5, 33, 48, 63], 6, 0.0),  # decode steps under a sliding window
+  (8, [9, 24, 40, 56], 0, 0.0),  # chunked-prefill segments at q_start > 0
+  (8, [9, 24, 40, 56], 5, 30.0),  # ... with a window and a softcap
+])
+def test_flash_cached_attention_ref_matches_jax_kernel(T, starts, window, softcap):
+  rng = np.random.default_rng(3)
+  B, S, Hq, Hkv, D = 4, 64, 4, 2, 16
+  q = _randn(rng, B, T, Hq, D)
+  kc, vc = _randn(rng, B, S, Hkv, D), _randn(rng, B, S, Hkv, D)
+  q_start = np.array(starts, np.int32)
+  out_j = j_decode.flash_cached_attention(
+    jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc), jnp.asarray(q_start), block_q=8,
+    block_k=16, window=jnp.int32(window) if window else None, softcap=softcap)
+  out_t = flash_decode.flash_cached_attention(_t(q), _t(kc), _t(vc), _t(q_start),
+                                              window=window, softcap=softcap)
+  np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=ATOL, rtol=1e-5)
+
+
+def test_flash_decode_attention_is_the_t1_case():
+  rng = np.random.default_rng(4)
+  q = _randn(rng, 2, 1, 4, 16)
+  kc, vc = _randn(rng, 2, 32, 2, 16), _randn(rng, 2, 32, 2, 16)
+  valid = np.array([3, 32], np.int32)
+  out_j = j_decode.flash_decode_attention(jnp.asarray(q), jnp.asarray(kc), jnp.asarray(vc),
+                                          jnp.asarray(valid), block_k=16)
+  out_t = flash_decode.flash_decode_attention(_t(q), _t(kc), _t(vc), _t(valid))
+  np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=ATOL, rtol=1e-5)
+
+
+def _sampling_inputs(seed, B=4, V=512):
+  rng = np.random.default_rng(seed)
+  logits = (rng.standard_normal((B, V)) * 3).astype(np.float32)
+  bias = np.zeros((B, V), np.float32)
+  bias[:, rng.integers(0, V, 8)] = 5.0
+  counts = rng.integers(0, 3, (B, V)).astype(np.int32)
+  return logits, bias, counts
+
+
+def test_sample_greedy_matches_jax():
+  logits, bias, counts = _sampling_inputs(5)
+  key = jax.random.PRNGKey(0)
+  for kw in ({}, {"bias": bias}, {"counts": counts, "presence": 0.5, "frequency": 0.3}):
+    want = np.asarray(j_sampling.sample_logits(jnp.asarray(logits), key, temp=0.0,
+                                               **{k: jnp.asarray(v) if isinstance(v, np.ndarray)
+                                                  else v for k, v in kw.items()}))
+    got = sampling.sample_logits(_t(logits), temp=0.0,
+                                 **{k: _t(v) if isinstance(v, np.ndarray) else v
+                                    for k, v in kw.items()})
+    np.testing.assert_array_equal(got.numpy(), want)
+
+
+@pytest.mark.parametrize("temp,top_k,top_p,min_p,extras", [
+  (1.0, 0, 0.0, None, False),
+  (0.7, 35, 0.0, None, False),
+  (0.9, 0, 0.8, None, False),
+  (1.2, 50, 0.9, 0.05, True),
+  ([0.0, 0.5, 1.0, 1.5], 20, 0.0, None, True),  # per-row temperatures, one greedy row
+])
+def test_sample_with_injected_gumbel_matches_jax(temp, top_k, top_p, min_p, extras):
+  logits, bias, counts = _sampling_inputs(6)
+  picks_j, picks_t = [], []
+  for step in range(8):
+    key = jax.random.PRNGKey(step)
+    noise = np.asarray(jax.random.gumbel(key, logits.shape, jnp.float32))
+    jkw = dict(bias=jnp.asarray(bias), counts=jnp.asarray(counts), presence=0.4,
+               frequency=0.2) if extras else {}
+    tkw = dict(bias=_t(bias), counts=_t(counts), presence=0.4, frequency=0.2) if extras else {}
+    t_arg = temp if isinstance(temp, float) else np.array(temp, np.float32)
+    picks_j.append(np.asarray(j_sampling.sample_logits(
+      jnp.asarray(logits), key, temp=t_arg if isinstance(t_arg, float) else jnp.asarray(t_arg),
+      top_k=top_k, top_p=top_p, min_p=min_p, **jkw)))
+    picks_t.append(sampling.sample_logits(
+      _t(logits), temp=t_arg if isinstance(t_arg, float) else _t(t_arg), top_k=top_k,
+      top_p=top_p, min_p=min_p, gumbel=_t(noise), **tkw).numpy())
+  np.testing.assert_array_equal(np.stack(picks_t), np.stack(picks_j))
+
+
+def test_sample_logprobs_match_jax():
+  logits, bias, counts = _sampling_inputs(7)
+  key = jax.random.PRNGKey(3)
+  noise = np.asarray(jax.random.gumbel(key, logits.shape, jnp.float32))
+  tok_j, lp_j, ids_j, lps_j = j_sampling.sample_logits_logprobs(
+    jnp.asarray(logits), key, temp=0.8, top_k=10, bias=jnp.asarray(bias),
+    counts=jnp.asarray(counts), presence=0.3, frequency=0.1, top_lp=5)
+  tok_t, lp_t, ids_t, lps_t = sampling.sample_logits_logprobs(
+    _t(logits), temp=0.8, top_k=10, bias=_t(bias), counts=_t(counts), presence=0.3,
+    frequency=0.1, top_lp=5, gumbel=_t(noise))
+  np.testing.assert_array_equal(tok_t.numpy(), np.asarray(tok_j))
+  np.testing.assert_array_equal(ids_t.numpy(), np.asarray(ids_j))
+  np.testing.assert_allclose(lp_t.numpy(), np.asarray(lp_j), atol=1e-5)
+  np.testing.assert_allclose(lps_t.numpy(), np.asarray(lps_j), atol=1e-5)
+
+
+def test_kernel_wrappers_refuse_what_they_cannot_launch():
+  """Off the CPU a wrapper launches its kernel or raises: a meta tensor (no data,
+  no card) is refused rather than sent to the plain version."""
+  q = torch.empty(1, 16, 4, 16, device="meta")
+  k = torch.empty(1, 16, 2, 16, device="meta")
+  with pytest.raises(ValueError):
+    flash_attention.flash_attention(q, k, k)
+  with pytest.raises(ValueError):
+    flash_decode.flash_cached_attention(q, k, k, torch.zeros(1, dtype=torch.int32, device="meta"))
+  assert flash_attention.flash_attention.launches == 0
+  assert flash_decode.flash_cached_attention.launches == 0

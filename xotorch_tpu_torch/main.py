@@ -1,0 +1,114 @@
+"""The port's CLI: serve OpenAI chat completions, or run one completion.
+
+    python -m xotorch_tpu_torch.main [--device cuda|cpu] [--chatgpt-api-port N]
+    python -m xotorch_tpu_torch.main run synthetic-llama-1b --prompt "..."
+
+The names follow xotorch_tpu/main.py. One node owns the whole model on one device:
+`cuda` by default; with no GPU the engine raises unless `--device cpu` is given.
+"""
+from __future__ import annotations
+
+import argparse
+import asyncio
+import sys
+import time
+import uuid
+
+from xotorch_tpu_torch import VERSION
+from xotorch_tpu_torch.api.chatgpt_api import ChatGPTAPI
+from xotorch_tpu_torch.inference.engine import get_inference_engine
+from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer
+from xotorch_tpu_torch.models.registry import build_base_shard
+from xotorch_tpu_torch.orchestration.node import Node
+
+
+def build_parser() -> argparse.ArgumentParser:
+  parser = argparse.ArgumentParser(prog="xot-torch",
+                                   description="xotorch_tpu_torch: the PyTorch/CUDA port of xot")
+  parser.add_argument("command", nargs="?", choices=["run"], help="one-shot command")
+  parser.add_argument("model_name", nargs="?", help="model id (see models registry)")
+  parser.add_argument("--version", action="version", version=f"xot-torch {VERSION}")
+  parser.add_argument("--node-id", type=str, default=None)
+  parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
+  parser.add_argument("--inference-engine", type=str, default="torch")
+  parser.add_argument("--chatgpt-api-host", type=str, default="0.0.0.0")
+  parser.add_argument("--chatgpt-api-port", type=int, default=52415)
+  parser.add_argument("--chatgpt-api-response-timeout", type=int, default=90)
+  parser.add_argument("--max-generate-tokens", type=int, default=1024)
+  parser.add_argument("--default-temp", type=float, default=0.6)
+  parser.add_argument("--default-top-k", type=int, default=35)
+  parser.add_argument("--system-prompt", type=str, default=None)
+  parser.add_argument("--default-model", type=str, default=None)
+  parser.add_argument("--prompt", type=str, default="Who are you?")
+  return parser
+
+
+def build_node(args) -> tuple:
+  """Engine, node and API for `args`; the engine raises here when the device is
+  missing."""
+  engine = get_inference_engine(args.inference_engine, device=args.device)
+  engine_classname = type(engine).__name__
+  node = Node(args.node_id or str(uuid.uuid4()), engine,
+              max_generate_tokens=args.max_generate_tokens,
+              default_sample_temp=args.default_temp,
+              default_sample_top_k=args.default_top_k)
+  api = ChatGPTAPI(node, engine_classname, response_timeout=args.chatgpt_api_response_timeout,
+                   default_model=args.default_model, system_prompt=args.system_prompt)
+  return node, engine, engine_classname, api
+
+
+async def run_model_cli(node: Node, engine_classname: str, model_name: str, prompt: str) -> list:
+  """One completion of `prompt`, printed; returns the tokens."""
+  shard = build_base_shard(model_name, engine_classname)
+  if shard is None:
+    raise SystemExit(f"Error: unsupported model '{model_name}' for engine {engine_classname}")
+  request_id = str(uuid.uuid4())
+  done = asyncio.Event()
+  out = {"tokens": []}
+
+  def on_token(req_id, tokens, is_finished):
+    if req_id == request_id:
+      out["tokens"] = list(tokens)
+      if is_finished:
+        done.set()
+
+  node.on_token.register("cli-wait-response").on_next(on_token)
+  started = time.monotonic()
+  await node.process_prompt(shard, prompt, request_id)
+  await asyncio.wait_for(done.wait(), timeout=300)
+  elapsed = time.monotonic() - started
+  error = node.request_errors.pop(request_id, None)
+  if error is not None:
+    raise SystemExit(f"Error: {error}")
+  tokens = out["tokens"]
+  print(DummyTokenizer().decode(tokens) if model_name.startswith("synthetic") else tokens)
+  print(f"\n[{len(tokens)} tokens in {elapsed:.1f}s = {len(tokens) / max(elapsed, 1e-9):.1f} tok/s]",
+        file=sys.stderr)
+  return tokens
+
+
+async def async_main(args) -> None:
+  node, engine, engine_classname, api = build_node(args)
+  try:
+    if args.command == "run":
+      await run_model_cli(node, engine_classname, args.model_name or args.default_model
+                          or "synthetic-llama-1b", args.prompt)
+      return
+    server = await api.start(args.chatgpt_api_host, args.chatgpt_api_port)
+    async with server:
+      await server.serve_forever()
+  finally:
+    await node.stop()
+    engine.executor.shutdown(wait=False)
+
+
+def run() -> None:
+  args = build_parser().parse_args()
+  try:
+    asyncio.run(async_main(args))
+  except KeyboardInterrupt:
+    pass
+
+
+if __name__ == "__main__":
+  run()

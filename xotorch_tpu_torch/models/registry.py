@@ -1,0 +1,106 @@
+"""Model registry: short name -> layer count + repo per engine classname.
+
+The port's subset of xotorch_tpu/models/registry.py: the llama cards and the
+synthetic cards, keyed by the port's engine classname. Synthetic cards carry their
+config and get random weights from a seed; the others need safetensors loading,
+which the port does not have yet.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Optional
+
+from xotorch_tpu_torch.inference.shard import Shard
+
+TORCH = "TorchShardInferenceEngine"
+
+model_cards: Dict[str, Dict] = {
+  ### llama 3 family
+  "llama-3.3-70b": {"layers": 80, "repo": {TORCH: "unsloth/Llama-3.3-70B-Instruct"}},
+  "llama-3.2-1b": {"layers": 16, "repo": {TORCH: "unsloth/Llama-3.2-1B-Instruct"}},
+  "llama-3.2-3b": {"layers": 28, "repo": {TORCH: "unsloth/Llama-3.2-3B-Instruct"}},
+  "llama-3.1-8b": {"layers": 32, "repo": {TORCH: "mlx-community/Meta-Llama-3.1-8B-Instruct-bf16"}},
+  "llama-3.1-70b": {"layers": 80, "repo": {TORCH: "mlx-community/Meta-Llama-3.1-70B-Instruct-bf16"}},
+  "llama-3.1-405b": {"layers": 126, "repo": {TORCH: "mlx-community/Meta-Llama-3.1-405B-bf16"}},
+  "llama-3-8b": {"layers": 32, "repo": {TORCH: "mlx-community/Meta-Llama-3-8B-Instruct-bf16"}},
+  "llama-3-70b": {"layers": 80, "repo": {TORCH: "mlx-community/Meta-Llama-3-70B-Instruct-bf16"}},
+  ### synthetic (random weights from a seed, no download;
+  ### shapes match the corresponding real models)
+  "synthetic-llama-1b": {
+    "layers": 16, "repo": {TORCH: "synthetic"},
+    "synthetic_config": {
+      "model_type": "llama", "hidden_size": 2048, "intermediate_size": 8192,
+      "num_attention_heads": 32, "num_key_value_heads": 8, "head_dim": 64,
+      "num_hidden_layers": 16, "vocab_size": 128256, "max_position_embeddings": 131072,
+      "rope_theta": 500000.0, "tie_word_embeddings": True, "eos_token_id": 128001,
+    },
+  },
+  "synthetic-llama-8b": {
+    "layers": 32, "repo": {TORCH: "synthetic"},
+    "synthetic_config": {
+      "model_type": "llama", "hidden_size": 4096, "intermediate_size": 14336,
+      "num_attention_heads": 32, "num_key_value_heads": 8,
+      "num_hidden_layers": 32, "vocab_size": 128256, "max_position_embeddings": 131072,
+      "rope_theta": 500000.0, "tie_word_embeddings": False, "eos_token_id": 128001,
+    },
+  },
+  "synthetic-tiny": {
+    "layers": 4, "repo": {TORCH: "synthetic"},
+    "synthetic_config": {
+      "model_type": "llama", "hidden_size": 64, "intermediate_size": 128,
+      "num_attention_heads": 4, "num_key_value_heads": 2,
+      "num_hidden_layers": 4, "vocab_size": 256, "max_position_embeddings": 2048,
+      "rope_theta": 10000.0, "tie_word_embeddings": False, "eos_token_id": 2,
+    },
+  },
+  "synthetic-tiny-moe": {
+    "layers": 4, "repo": {TORCH: "synthetic"}, "moe": True,
+    "synthetic_config": {
+      "model_type": "qwen3_moe", "hidden_size": 64, "intermediate_size": 128,
+      "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 16,
+      "num_hidden_layers": 4, "vocab_size": 256, "max_position_embeddings": 2048,
+      "rope_theta": 10000.0, "tie_word_embeddings": False, "eos_token_id": 2,
+      "num_experts": 4, "num_experts_per_tok": 2, "moe_intermediate_size": 64,
+      "norm_topk_prob": True,
+    },
+  },
+  # Gemma2 architecture knobs (sandwich norms, soft-caps, alternating sliding
+  # window): the port's model raises NotImplementedError for them until that slice.
+  "synthetic-tiny-gemma2": {
+    "layers": 4, "repo": {TORCH: "synthetic"},
+    "synthetic_config": {
+      "model_type": "gemma2", "hidden_size": 64, "intermediate_size": 128,
+      "num_attention_heads": 4, "num_key_value_heads": 2, "head_dim": 16,
+      "num_hidden_layers": 4, "vocab_size": 256, "max_position_embeddings": 2048,
+      "rope_theta": 10000.0, "eos_token_id": 2,
+      "sliding_window": 8, "attn_logit_softcapping": 50.0,
+      "final_logit_softcapping": 30.0, "query_pre_attn_scalar": 16.0,
+    },
+  },
+}
+
+
+def get_model_card(model_id: str) -> Optional[Dict]:
+  return model_cards.get(model_id)
+
+
+def get_repo(model_id: str, inference_engine_classname: str) -> Optional[str]:
+  return model_cards.get(model_id, {}).get("repo", {}).get(inference_engine_classname)
+
+
+def build_base_shard(model_id: str, inference_engine_classname: str) -> Optional[Shard]:
+  """start=end=0 sentinel shard used to address a model before its layer range is
+  known."""
+  n_layers = (get_model_card(model_id) or {}).get("layers", 0)
+  if n_layers < 1 or get_repo(model_id, inference_engine_classname) is None:
+    return None
+  return Shard(model_id, 0, 0, n_layers)
+
+
+def build_full_shard(model_id: str, inference_engine_classname: str) -> Optional[Shard]:
+  base = build_base_shard(model_id, inference_engine_classname)
+  return Shard(model_id, 0, base.n_layers - 1, base.n_layers) if base else None
+
+
+def get_supported_models(engine_classname: str = TORCH) -> List[str]:
+  return [m for m, card in model_cards.items() if engine_classname in card.get("repo", {})]
+

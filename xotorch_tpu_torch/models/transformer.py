@@ -1,0 +1,215 @@
+"""The shard transformer: plain functions over a stacked-layer parameter dictionary.
+
+The port of the dense-llama path of xotorch_tpu/models/transformer.py. Parameters
+keep the JAX package's layout (`params["layers"][name]` stacked along a leading layer
+axis, weights [in, out]) so the two packages' tensors map one to one
+(models/weights.params_from_jax). The KV cache is a [L, B, S, Hkv, D] buffer per
+leaf, written IN PLACE at the segment's position — where JAX donated the cache to the
+compiled step and got a new one back, the port updates the one buffer.
+
+Attention on the card goes through the hand-written kernels: a prefill from
+position 0 (`use_flash`) through K1 (ops/flash_attention.py), decode steps and
+segments at pos > 0 (`use_flash_decode`) through K2 (ops/flash_decode.py). The plain
+`gqa_attention` path runs only on the CPU. Config flags this slice does not
+implement raise NotImplementedError instead of returning a wrong answer.
+"""
+from __future__ import annotations
+
+from typing import Any, Dict, Tuple
+
+import torch
+import torch.nn.functional as F
+
+from xotorch_tpu_torch.models.config import ModelConfig
+from xotorch_tpu_torch.ops.attention import gqa_attention
+from xotorch_tpu_torch.ops.flash_attention import flash_attention
+from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention
+from xotorch_tpu_torch.ops.rope import apply_rope, rope_frequencies
+
+Params = Dict[str, Any]
+
+
+def check_supported(cfg: ModelConfig) -> None:
+  """Raise for config features the port's model does not implement yet."""
+  unsupported = {
+    "MoE": cfg.is_moe,
+    "sandwich norms": cfg.sandwich_norms,
+    "qk-norm": cfg.qk_norm,
+    "attention bias": cfg.attention_bias,
+    "sliding windows": cfg.uses_sliding_window,
+    "attention softcap": bool(cfg.attn_logit_softcap),
+    "final logit softcap": bool(cfg.final_logit_softcap),
+    "query_pre_attn_scalar": bool(cfg.query_pre_attn_scalar),
+    "norm offset": cfg.norm_offset,
+    "embedding scale": cfg.scale_embedding,
+    "vision": cfg.is_multimodal,
+    f"activation {cfg.hidden_act}": cfg.hidden_act != "silu",
+  }
+  missing = [name for name, used in unsupported.items() if used]
+  if missing:
+    raise NotImplementedError(
+      f"{cfg.model_family} config uses {', '.join(missing)}: not ported to xotorch_tpu_torch yet")
+
+
+def _check_params(layer: Params) -> None:
+  for slot in layer:
+    if slot.endswith(("_scale", "_gscale")) or slot.startswith("lora_"):
+      raise NotImplementedError(f"parameter slot {slot!r} (quantized weights / LoRA) is not ported yet")
+
+
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+  x32 = x.to(torch.float32)
+  norm = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
+  return (norm * weight.to(torch.float32)).to(x.dtype)
+
+
+def _mlp_act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+  return F.silu(x)
+
+
+def _dense_mlp(layer: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+  gate = _mlp_act(cfg, h @ layer["w_gate"])
+  return (gate * (h @ layer["w_up"])) @ layer["w_down"]
+
+
+def init_kv_cache(cfg: ModelConfig, num_layers: int, batch: int, max_seq: int,
+                  dtype=torch.bfloat16, device="cpu") -> Dict[str, torch.Tensor]:
+  """KV buffers [L, B, S, Hkv, D]."""
+  shape = (num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
+  return {"k": torch.zeros(shape, dtype=dtype, device=device),
+          "v": torch.zeros(shape, dtype=dtype, device=device)}
+
+
+def _cache_write(cache: Dict[str, torch.Tensor], layer_idx: int, k: torch.Tensor, v: torch.Tensor,
+                 start_pos: int) -> None:
+  """Insert fresh K/V at start_pos, in place."""
+  T, S = k.shape[1], cache["k"].shape[2]
+  if start_pos < 0 or start_pos + T > S:
+    raise ValueError(f"cache write [{start_pos}, {start_pos + T}) outside the {S}-slot cache")
+  cache["k"][layer_idx, :, start_pos:start_pos + T] = k.to(cache["k"].dtype)
+  cache["v"][layer_idx, :, start_pos:start_pos + T] = v.to(cache["v"].dtype)
+
+
+def _cache_read(cache: Dict[str, torch.Tensor], layer_idx: int, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+  return cache["k"][layer_idx].to(dtype), cache["v"][layer_idx].to(dtype)
+
+
+def _attention_block(layer: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor], layer_idx: int,
+                     positions: torch.Tensor, kv_valid_len: torch.Tensor, start_pos: int,
+                     q_start: torch.Tensor, cfg: ModelConfig, inv_freq: torch.Tensor,
+                     use_flash: bool, use_flash_decode: bool) -> torch.Tensor:
+  B, T, _ = x.shape
+  h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
+  q = (h @ layer["wq"]).reshape(B, T, cfg.num_heads, cfg.head_dim)
+  k = (h @ layer["wk"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+  v = (h @ layer["wv"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+  q = apply_rope(q, positions, inv_freq)
+  k = apply_rope(k, positions, inv_freq)
+  _cache_write(cache, layer_idx, k, v, start_pos)
+  if use_flash:
+    # Prefill from position 0: the fresh segment is the whole visible context, so
+    # the kernel attends over the fresh k/v and never reads the cache.
+    attn = flash_attention(q, k.contiguous(), v.contiguous())
+  elif use_flash_decode:
+    # Decode steps and segments at pos > 0: the cache up to each row's last
+    # visible position.
+    attn = flash_cached_attention(q, cache["k"][layer_idx], cache["v"][layer_idx], q_start)
+  elif x.device.type == "cpu":
+    k_all, v_all = _cache_read(cache, layer_idx, q.dtype)
+    attn = gqa_attention(q, k_all, v_all, positions, kv_valid_len)
+  else:
+    raise ValueError("attention on the card goes through a kernel: pass use_flash "
+                     "(prefill from 0) or use_flash_decode")
+  return attn.reshape(B, T, cfg.num_heads * cfg.head_dim) @ layer["wo"]
+
+
+def forward_shard(
+  params: Params,
+  x: torch.Tensor,  # [B, T] int tokens (first shard) or [B, T, H] hidden
+  cache: Dict[str, torch.Tensor],
+  start_pos: int,  # absolute position of x[:, 0]
+  cfg: ModelConfig,
+  is_first: bool,
+  is_last: bool,
+  use_flash: bool = False,
+  use_flash_decode: bool = False,
+  start_layer: int = 0,
+) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+  """Run one shard. Returns (hidden, or fp32 logits on the last shard; the cache,
+  updated in place). `use_flash` is valid only when start_pos == 0."""
+  check_supported(cfg)
+  if use_flash and start_pos != 0:
+    raise ValueError("use_flash serves a prefill from position 0 only")
+  h = params["embed"]["embedding"][x] if is_first else x
+  B, T = h.shape[0], h.shape[1]
+  device = h.device
+  positions = (start_pos + torch.arange(T, device=device))[None, :].expand(B, T)
+  kv_valid_len = torch.full((B,), start_pos + T, device=device)
+  q_start = torch.full((B,), start_pos, dtype=torch.int32, device=device)
+  inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling, device=device)
+  stacked = params["layers"]
+  _check_params(stacked)
+  for i in range(stacked["wq"].shape[0]):
+    layer = {name: w[i] for name, w in stacked.items()}
+    h = h + _attention_block(layer, h, cache, i, positions, kv_valid_len, start_pos, q_start,
+                             cfg, inv_freq, use_flash, use_flash_decode)
+    h = h + _dense_mlp(layer, rms_norm(h, layer["mlp_norm"], cfg.rms_norm_eps), cfg)
+  if not is_last:
+    return h, cache
+  return unembed(params, h, cfg), cache
+
+
+def unembed(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+  """Final norm + (tied-embedding or lm_head) unembedding -> fp32 logits."""
+  h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
+  if cfg.tie_word_embeddings and "lm_head" not in params:
+    logits = h @ params["embed"]["embedding"].T
+  else:
+    logits = h @ params["lm_head"]
+  return logits.to(torch.float32)
+
+
+def init_random_params(
+  cfg: ModelConfig, num_local_layers: int, is_first: bool, is_last: bool, seed: int = 0,
+  dtype=torch.float32, device="cpu", scale: float = 0.02, start_layer: int = 0,
+) -> Params:
+  """Random shard params in the stacked layout, drawn on `device`.
+
+  Each tensor has its own generator, seeded from (seed, absolute layer index, slot),
+  so a shard holding layers [a, b] gets the same weights as those layers of a
+  full-model init. The draws differ from the JAX package's jax.random ones; to hold
+  the two packages on the same weights, carry JAX's params across with
+  models/weights.params_from_jax."""
+  check_supported(cfg)
+  H, D, I = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
+
+  def rnd(abs_idx: int, slot: int, *shape):
+    g = torch.Generator(device=device)
+    g.manual_seed((seed * 1_000_003 + abs_idx) * 16 + slot)
+    w = torch.randn(shape, generator=g, device=device, dtype=torch.float32) * scale
+    return w.to(dtype)
+
+  def layer_params(a: int) -> Params:
+    return {
+      "attn_norm": torch.ones(H, dtype=dtype, device=device),
+      "mlp_norm": torch.ones(H, dtype=dtype, device=device),
+      "wq": rnd(a, 0, H, cfg.num_heads * D),
+      "wk": rnd(a, 1, H, cfg.num_kv_heads * D),
+      "wv": rnd(a, 2, H, cfg.num_kv_heads * D),
+      "wo": rnd(a, 3, cfg.num_heads * D, H),
+      "w_gate": rnd(a, 4, H, I),
+      "w_up": rnd(a, 5, H, I),
+      "w_down": rnd(a, 6, I, H),
+    }
+
+  per_layer = [layer_params(start_layer + i) for i in range(num_local_layers)]
+  params: Params = {"layers": {name: torch.stack([p[name] for p in per_layer])
+                               for name in per_layer[0]}}
+  del per_layer
+  if is_first or cfg.tie_word_embeddings:
+    params["embed"] = {"embedding": rnd(1_000_000, 0, cfg.vocab_size, H)}
+  if is_last:
+    params["final_norm"] = torch.ones(H, dtype=dtype, device=device)
+    if not cfg.tie_word_embeddings:
+      params["lm_head"] = rnd(1_000_001, 0, H, cfg.vocab_size)
+  return params

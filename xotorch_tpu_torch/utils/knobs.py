@@ -1,0 +1,99 @@
+"""Registry of the `XOT_*` environment knobs the port reads.
+
+The port's own copy of xotorch_tpu/utils/knobs.py: the same accessors (`raw`,
+`get_str`, `get_int`, `get_float`, `get_bool`) with the same names and defaults, over
+only the knobs this package reads. A name missing here raises `UnknownKnobError` at
+the read site instead of silently returning a default.
+"""
+from __future__ import annotations
+
+import os
+from dataclasses import dataclass
+from typing import Dict, Optional, Tuple
+
+
+class UnknownKnobError(KeyError):
+  """An env read referenced an `XOT_*` name that is not registered."""
+
+
+@dataclass(frozen=True)
+class Knob:
+  name: str
+  kind: str  # "int" | "float" | "bool" | "str"
+  default: Optional[str]  # env-string form; None = unset
+  doc: str
+
+
+_DEFS: Tuple[Knob, ...] = (
+  Knob("XOT_DTYPE", "str", "bfloat16", "Model compute/weight dtype."),
+  Knob("XOT_CACHE_LEN", "int", "2048", "Initial per-request KV-cache length (tokens); grows geometrically when exceeded."),
+  Knob("XOT_MAX_CACHE_LEN", "int", "32768", "Hard ceiling for per-request KV-cache growth (tokens)."),
+  Knob("XOT_PREFILL_CHUNK", "int", "4096", "Prefill chunk length (tokens): prompts longer than this prefill in chunks."),
+  Knob("XOT_DECODE_CHUNK", "int", "8", "Tokens per fused decode dispatch on a single-partition ring; 1 = per-token ring."),
+  Knob("XOT_DECODE_CHUNK_MAX", "int", "64", "Adaptive fused-decode chunk ceiling (doubles per dispatch up to this)."),
+  Knob("XOT_FLASH_BLOCK_Q", "int", "128", "Flash-attention query block size."),
+  Knob("XOT_FLASH_BLOCK_K", "int", "128", "Flash-attention key/value block size."),
+  Knob("XOT_FD_BLOCK_Q", "int", "128", "Flash-decode query-position block size."),
+  Knob("XOT_FD_BLOCK_K", "int", "256", "Flash-decode key/value block size."),
+)
+
+REGISTRY: Dict[str, Knob] = {k.name: k for k in _DEFS}
+
+_UNSET = object()
+_FALSE_STRINGS = frozenset(("", "0", "false", "no", "off"))
+
+
+def _lookup(name: str) -> Knob:
+  try:
+    return REGISTRY[name]
+  except KeyError:
+    raise UnknownKnobError(
+      f"{name} is not a registered knob — add it to xotorch_tpu_torch/utils/knobs.py"
+    ) from None
+
+
+def raw(name: str, default=_UNSET) -> Optional[str]:
+  """The env value as a string, or the registered default. A set-but-empty value is
+  returned verbatim; the numeric accessors map it to the default."""
+  knob = _lookup(name)
+  value = os.environ.get(name)
+  if value is None:
+    return knob.default if default is _UNSET else default
+  return value
+
+
+def get_str(name: str, default=_UNSET) -> Optional[str]:
+  return raw(name, default)
+
+
+def _numeric(name: str, default, cast):
+  value = raw(name, default)
+  if isinstance(value, str) and value.strip() == "":
+    knob = _lookup(name)
+    value = knob.default if default is _UNSET else default
+  if value is None:
+    if default is not _UNSET:
+      return None
+    raise RuntimeError(f"knob {name} has no default and is not set in the environment")
+  return cast(value)
+
+
+def get_int(name: str, default=_UNSET) -> Optional[int]:
+  return _numeric(name, default, int)
+
+
+def get_float(name: str, default=_UNSET) -> Optional[float]:
+  return _numeric(name, default, float)
+
+
+def get_bool(name: str, default=_UNSET) -> Optional[bool]:
+  """"0"/"false"/"no"/"off" (any case) and set-but-empty are False; any other set
+  value is True."""
+  value = raw(name, default)
+  if value is None:
+    if default is not _UNSET:
+      return None
+    raise RuntimeError(f"knob {name} has no default and is not set in the environment")
+  if isinstance(value, bool):
+    return value
+  return str(value).strip().lower() not in _FALSE_STRINGS
