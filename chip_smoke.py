@@ -10,17 +10,27 @@ Phases, in order; any failure exits nonzero and prints no result line:
   2. build: compiles csrc/*.cu with nvcc for sm_90a, one process per source;
   3. kernels: each kernel at synthetic-llama-1b widths (Hq 32, Hkv 8, D 64) in bf16
      against its plain PyTorch version on the same inputs, with times of the kernel,
-     the plain version and torch's scaled_dot_product_attention as a yardstick;
+     the plain version and torch's scaled_dot_product_attention as a yardstick (the
+     paged kernels K3/K4 over shuffled page tables, page 128);
   4. model: a two-layer cut of synthetic-llama-1b at full width, prefill and decode
-     through the kernels in bf16 on the card against the plain path in fp32 on the CPU;
+     through the kernels in bf16 on the card against the plain path in fp32 on the
+     CPU: contiguous (K1, K2), then paged (K4 prefill, K3 decode at B=3);
   5. main path: the port's server (main.py) serving synthetic-llama-1b at full width
-     and depth answers three /v1/chat/completions requests over HTTP, with both
-     kernels' launch counters read around that run;
-  6. the {"kernels": [...]} line, then the {"ok": true, ...} line last.
+     and depth answers three /v1/chat/completions requests over HTTP, with K1's and
+     K2's launch counters read around that run, then one decode under the profiler;
+  6. concurrent, paged: a fresh server with XOT_PAGED_KV=1 answers eight concurrent
+     streaming requests (64-2000 words, 64 tokens each) through the batcher and the
+     page pool: per-request TTFT and decode rate, aggregate tok/s, batch widths, K3's
+     and K4's launches against decode steps and prefill segments, pool pages (0 left
+     in use), then one B=8 decode chunk under the profiler;
+  7. concurrent, contiguous: the same with XOT_PAGED_KV=0 (stacked caches, K1/K2),
+     and the share of greedy tokens that agree with the paged phase;
+  8. the {"kernels": [...]} line, then the {"ok": true, ...} line last.
 """
 from __future__ import annotations
 
 import argparse
+import asyncio
 import json
 import math
 import os
@@ -78,6 +88,20 @@ def visible(p: int, window: int) -> int:
   return p + 1 if window <= 0 else min(p + 1, window)
 
 
+def report(name, case, out, ref, ms, plain_ms, lib_ms, b_ms, b_by):
+  err = (out.float() - ref.float()).abs().max().item()
+  rel = err / max(ref.float().abs().max().item(), 1e-12)
+  ok = math.isfinite(err) and err <= ATOL
+  print(f"[{name}] {case}: max_abs_err={err:.3e} max_rel_err={rel:.3e} (atol {ATOL}) "
+        f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
+        f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
+        f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}", flush=True)
+  if not ok:
+    raise AssertionError(f"{name} {case}: kernel disagrees with its plain version ({err})")
+  return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
+          "bound_ms": b_ms, "bound_by": b_by}
+
+
 def check_kernels(torch, results: dict) -> None:
   import torch.nn.functional as F
   from xotorch_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
@@ -89,19 +113,6 @@ def check_kernels(torch, results: dict) -> None:
 
   def randn(*shape):
     return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32).to(torch.bfloat16)
-
-  def report(name, case, out, ref, ms, plain_ms, lib_ms, b_ms, b_by):
-    err = (out.float() - ref.float()).abs().max().item()
-    rel = err / max(ref.float().abs().max().item(), 1e-12)
-    ok = math.isfinite(err) and err <= ATOL
-    print(f"[{name}] {case}: max_abs_err={err:.3e} max_rel_err={rel:.3e} (atol {ATOL}) "
-          f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
-          f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
-          f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}", flush=True)
-    if not ok:
-      raise AssertionError(f"{name} {case}: kernel disagrees with its plain version ({err})")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, "library_ms": lib_ms,
-            "bound_ms": b_ms, "bound_by": b_by}
 
   # K1: prefill from position 0. T=1024 is the main path's first segment below.
   for T, window, softcap in ((512, 0, 0.0), (1024, 0, 0.0), (2048, 0, 0.0), (2048, 256, 50.0)):
@@ -163,6 +174,8 @@ def check_kernels(torch, results: dict) -> None:
     if (B, T, S, window) == (1, 1, 2048, 0):
       results["flash_cached_attention"] = r
 
+  check_paged_kernels(torch, results, randn)
+
   # The other head widths the kernels are built for, at the registry's other
   # llama shapes (synthetic-llama-8b: D 128; synthetic-tiny: Hq 4, Hkv 2, D 16),
   # with ragged lengths, windows and softcaps: correctness only.
@@ -182,6 +195,110 @@ def check_kernels(torch, results: dict) -> None:
       ref = flash_cached_attention_ref(q, kc, vc, q_start, window=window, softcap=20.0)
       check_only("flash_cached_attention", f"Hq={hq} Hkv={hkv} D={d} B=3 T={T} "
                  f"q_start={starts} window={window} softcap=20.0", out, ref)
+
+
+def paged_inputs(torch, randn, kv_rows, page, hq, hkv, d, T=1):
+  """One layer's arena [P, page, Hkv, D] whose rows' pages are shuffled across it (page
+  0, the scratch page, holds garbage too), the int32 page table and row lengths, and
+  q [B, T, Hq, D]. kv_rows[b] is row b's occupied length."""
+  B = len(kv_rows)
+  maxp = max(-(-n // page) for n in kv_rows)
+  P = sum(-(-n // page) for n in kv_rows) + 8
+  perm = (torch.randperm(P - 1, generator=torch.Generator().manual_seed(P)) + 1).tolist()
+  table = torch.zeros(B, maxp, dtype=torch.int32)
+  used = 0
+  for b, n in enumerate(kv_rows):
+    k = -(-n // page)
+    table[b, :k] = torch.tensor(perm[used:used + k], dtype=torch.int32)
+    used += k
+  dev = torch.device("cuda")
+  return (randn(B, T, hq, d), randn(P, page, hkv, d), randn(P, page, hkv, d), table.to(dev),
+          torch.tensor(kv_rows, dtype=torch.int32, device=dev))
+
+
+def check_paged_kernels(torch, results: dict, randn) -> None:
+  """K3 and K4 at synthetic-llama-1b widths (page 128) over shuffled page tables
+  against their plain versions, timed beside one SDPA call over a pre-gathered
+  contiguous view (the gather excluded); then the other head widths and page 16."""
+  import torch.nn.functional as F
+  from xotorch_tpu_torch.ops.paged_attention import (gather_paged_view, paged_decode_attention,
+                                                     paged_decode_attention_ref,
+                                                     paged_prefill_attention,
+                                                     paged_prefill_attention_ref)
+  dev = torch.device("cuda")
+  page = 128
+
+  def library_ms(q, kp, vp, table, q_pos, lens, window):
+    """One SDPA call over each row's pages gathered beforehand, masked to the same
+    visible positions (a yardstick: the port never calls it)."""
+    kv, vv = gather_paged_view(kp, vp, table)
+    kvp = torch.arange(kv.shape[1], device=dev)
+    mask = (kvp[None, None, :] <= q_pos[:, :, None]) & (kvp[None, None, :] < lens[:, None, None])
+    if window:
+      mask = mask & (kvp[None, None, :] > q_pos[:, :, None] - window)
+    qt, kt, vt, m = q.transpose(1, 2), kv.transpose(1, 2), vv.transpose(1, 2), mask[:, None]
+    return time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m, enable_gqa=True))
+
+  # K3: decode steps. (lengths per row, window, softcap); the second case is the
+  # concurrent phase's shape (eight rows at ragged depths).
+  ragged = [100, 300, 700, 1000, 1500, 2200, 3000, 4000]
+  for lengths, window, softcap in (([640], 0, 0.0), (ragged, 0, 0.0), (ragged, 512, 50.0)):
+    q, kp, vp, table, lens = paged_inputs(torch, randn, lengths, page, HQ, HKV, D)
+    call = lambda: paged_decode_attention(q, kp, vp, table, lens, window=window, softcap=softcap)
+    out = call()
+    torch.cuda.synchronize()
+    ref = paged_decode_attention_ref(q, kp, vp, table, lens, window=window, softcap=softcap)
+    ms = time_ms(call)
+    plain_ms = time_ms(lambda: paged_decode_attention_ref(q, kp, vp, table, lens, window=window,
+                                                          softcap=softcap), iters=5)
+    lib = None if softcap else library_ms(q, kp, vp, table, (lens.long() - 1)[:, None], lens, window)
+    vis = sum(visible(n - 1, window) for n in lengths)
+    b_ms, b_by = bound(4.0 * HQ * D * vis, 2.0 * 2 * q.numel() + 2.0 * 2 * vis * HKV * D)
+    case = (f"B={len(lengths)} lengths={lengths if len(lengths) == 1 else '100-4000'} "
+            f"page={page} window={window} softcap={softcap}")
+    r = report("paged_decode_attention", case, out, ref, ms, plain_ms, lib, b_ms, b_by)
+    if lengths is ragged and not window:
+      results["paged_decode_attention"] = r
+
+  # K4: prefill segments. (T, kv_valid per row, window); the first is the concurrent
+  # phase's first segment of a long prompt.
+  for T, valid, window in ((1024, [1024], 0), (512, [1536], 0), (300, [700, 1900], 0),
+                           (512, [1536], 256)):
+    q, kp, vp, table, lens = paged_inputs(torch, randn, valid, page, HQ, HKV, D, T=T)
+    call = lambda: paged_prefill_attention(q, kp, vp, table, lens, window=window)
+    out = call()
+    torch.cuda.synchronize()
+    ref = paged_prefill_attention_ref(q, kp, vp, table, lens, window=window)
+    ms = time_ms(call)
+    plain_ms = time_ms(lambda: paged_prefill_attention_ref(q, kp, vp, table, lens, window=window),
+                       iters=5)
+    q_pos = (lens.long() - T)[:, None] + torch.arange(T, device=dev)[None, :]
+    lib = library_ms(q, kp, vp, table, q_pos, lens, window)
+    pairs = sum(visible(n - T + t, window) for n in valid for t in range(T))
+    rows = sum(n - (max(0, n - T - window + 1) if window else 0) for n in valid)
+    b_ms, b_by = bound(4.0 * HQ * D * pairs, 2.0 * 2 * q.numel() + 2.0 * 2 * rows * HKV * D)
+    case = f"B={len(valid)} T={T} kv_valid={valid} page={page} window={window}"
+    r = report("paged_prefill_attention", case, out, ref, ms, plain_ms, lib, b_ms, b_by)
+    if (T, window) == (1024, 0):
+      results["paged_prefill_attention"] = r
+
+  # The other head widths (synthetic-llama-8b: D 128; synthetic-tiny: Hq 4, Hkv 2,
+  # D 16) at both page sizes, with windows and softcaps: correctness only.
+  for hq, hkv, d in ((32, 8, 128), (4, 2, 16)):
+    for pg in (16, 128):
+      for window, softcap in ((0, 0.0), (50, 20.0)):
+        q, kp, vp, table, lens = paged_inputs(torch, randn, [1, 200, 511], pg, hq, hkv, d)
+        out = paged_decode_attention(q, kp, vp, table, lens, window=window, softcap=softcap)
+        torch.cuda.synchronize()
+        ref = paged_decode_attention_ref(q, kp, vp, table, lens, window=window, softcap=softcap)
+        check_only("paged_decode_attention", f"Hq={hq} Hkv={hkv} D={d} page={pg} "
+                   f"lengths=[1, 200, 511] window={window} softcap={softcap}", out, ref)
+        q, kp, vp, table, lens = paged_inputs(torch, randn, [20, 137, 420], pg, hq, hkv, d, T=20)
+        out = paged_prefill_attention(q, kp, vp, table, lens, window=window, softcap=softcap)
+        torch.cuda.synchronize()
+        ref = paged_prefill_attention_ref(q, kp, vp, table, lens, window=window, softcap=softcap)
+        check_only("paged_prefill_attention", f"Hq={hq} Hkv={hkv} D={d} page={pg} T=20 "
+                   f"kv_valid=[20, 137, 420] window={window} softcap={softcap}", out, ref)
 
 
 def check_only(name, case, out, ref) -> None:
@@ -237,6 +354,71 @@ def check_model(torch) -> None:
     raise AssertionError(f"model: card logits disagree with the CPU reference ({worst})")
 
 
+def check_paged_model(torch) -> None:
+  """The same two-layer full-width cut through the paged path: three requests at
+  different depths (prompts of 100, 37 and 260 tokens) prefill into one page arena
+  over shuffled page tables (one K4 segment each), then decode 8 tokens together,
+  B=3 at per-row positions (K3), in bf16 on the card against the plain path in fp32
+  on the CPU, same weights."""
+  import dataclasses
+  import numpy as np
+  from xotorch_tpu_torch.models.config import config_from_hf_dict
+  from xotorch_tpu_torch.models.registry import get_model_card
+  from xotorch_tpu_torch.models.transformer import forward_shard, init_random_params
+  from xotorch_tpu_torch.ops.paged_attention import paged_decode_attention, paged_prefill_attention
+
+  cfg = dataclasses.replace(
+    config_from_hf_dict(get_model_card("synthetic-llama-1b")["synthetic_config"]), num_layers=2)
+  dev = torch.device("cuda")
+  params = init_random_params(cfg, 2, True, True, seed=0, dtype=torch.bfloat16, device=dev)
+  params_cpu = {k: ({kk: vv.float().cpu() for kk, vv in v.items()} if isinstance(v, dict)
+                    else v.float().cpu()) for k, v in params.items()}
+  rng = np.random.default_rng(1)
+  lengths, steps, page, P = (100, 37, 260), 8, 128, 16
+  prompts = [rng.integers(0, cfg.vocab_size, size=(1, n)) for n in lengths]
+  ids = (rng.permutation(P - 1) + 1).tolist()
+  table = np.zeros((3, 4), np.int32)
+  for b, n in enumerate(lengths):
+    k = -(-(n + steps) // page)
+    table[b, :k], ids = ids[:k], ids[k:]
+  shape = (2, P, page, cfg.num_kv_heads, cfg.head_dim)
+  arena = {n: torch.zeros(shape, dtype=torch.bfloat16, device=dev) for n in ("k", "v")}
+  arena_cpu = {n: torch.zeros(shape) for n in ("k", "v")}
+  table_dev, table_cpu = torch.as_tensor(table, device=dev), torch.as_tensor(table)
+  k3, k4 = paged_decode_attention.launches, paged_prefill_attention.launches
+  pairs, toks = [], []
+  with torch.inference_mode():
+    for b, x in enumerate(prompts):
+      got, _ = forward_shard(params, torch.as_tensor(x, device=dev), arena, 0, cfg, True, True,
+                             page_table=table_dev[b:b + 1])
+      want, _ = forward_shard(params_cpu, torch.as_tensor(x), arena_cpu, 0, cfg, True, True,
+                              page_table=table_cpu[b:b + 1])
+      pairs.append((got[0, -8:].float().cpu(), want[0, -8:]))
+      toks.append(int(want[0, -1].argmax()))
+    pos = torch.tensor(lengths, dtype=torch.int32)
+    for i in range(steps):
+      step = torch.tensor(toks)[:, None]
+      got, _ = forward_shard(params, step.to(dev), arena, pos.to(dev) + i, cfg, True, True,
+                             page_table=table_dev)
+      want, _ = forward_shard(params_cpu, step, arena_cpu, pos + i, cfg, True, True,
+                              page_table=table_cpu)
+      pairs.extend((got[b, -1].float().cpu(), want[b, -1]) for b in range(3))
+      toks = [int(want[b, -1].argmax()) for b in range(3)]
+  worst = 0.0
+  for got, want in pairs:
+    if not bool(torch.isfinite(got).all()):
+      raise AssertionError("paged model: non-finite logits on the card")
+    worst = max(worst, ((got - want).abs().max() / want.abs().max()).item())
+  k3, k4 = paged_decode_attention.launches - k3, paged_prefill_attention.launches - k4
+  ok = worst < 5e-2 and k3 == 2 * steps and k4 == 2 * 3
+  print(f"[model] 2-layer synthetic-llama-1b cut, paged (page 128): prefill 100/37/260 (K4 x{k4}) "
+        f"+ decode 8 at B=3 (K3 x{k3}): max logit error {worst:.3e} of the logits' range "
+        f"(limit 5e-2) {'ok' if ok else 'FAIL'}", flush=True)
+  if not ok:
+    raise AssertionError(f"paged model: card logits disagree with the CPU reference ({worst}) "
+                         f"or the kernels did not run (K3 {k3}, K4 {k4})")
+
+
 def http_json(url: str, body=None, timeout: float = 300.0):
   import urllib.request
   req = urllib.request.Request(url, data=None if body is None else json.dumps(body).encode(),
@@ -270,10 +452,12 @@ def http_stream(url: str, body, timeout: float = 300.0):
   return events, first, last
 
 
-async def profile_decode(torch, engine, model: str, classname: str, card: str) -> None:
-  """Where a decode chunk's time goes: 32 greedy tokens after a 514-token prompt,
-  under torch.profiler (CUDA activity). Prints the wall time, the share of it the
-  card spent in kernels, and the kernels by device time."""
+async def profile_decode(torch, engine, model: str, classname: str, card: str,
+                         batch: int = 1) -> None:
+  """Where a decode chunk's time goes: 32 greedy tokens for each of `batch` requests
+  after a 514-token prompt (one batched dispatch when batch > 1), timed once alone
+  and once under torch.profiler (CUDA activity). Prints both wall times, the share
+  of the profiled one the card spent in kernels, and the kernels by device time."""
   if engine.device.type != "cuda":
     print("[profile] no card: busy share not measured", flush=True)
     return
@@ -282,15 +466,31 @@ async def profile_decode(torch, engine, model: str, classname: str, card: str) -
   from xotorch_tpu_torch.models.registry import build_full_shard
 
   shard = build_full_shard(model, classname)
-  tok, _ = await engine.infer_sample_tensor("profile", shard, np.ones((1, 514), np.int64),
-                                            temp=0.0, top_k=0)
-  toks = await engine.generate_chunk("profile", shard, tok, 8, temp=0.0)  # warm
+  rids = [f"profile{i}" for i in range(batch)]
+  toks = {}
+  for rid in rids:
+    toks[rid], _ = await engine.infer_sample_tensor(rid, shard, np.ones((1, 514), np.int64),
+                                                    temp=0.0, top_k=0)
+
+  async def chunk(n):  # every row in the same event-loop pass: one batched dispatch
+    outs = await asyncio.gather(*(engine.generate_chunk(rid, shard, int(toks[rid]), n, temp=0.0)
+                                  for rid in rids))
+    toks.update((rid, int(o[-1])) for rid, o in zip(rids, outs))
+
+  await chunk(8)  # warm
   n = 32
+  t0 = time.perf_counter()
+  await chunk(n)  # the same chunk without the profiler, and with no HTTP client running
+  plain_ms = (time.perf_counter() - t0) * 1e3
+  batcher = engine._ctx.batcher
+  before = (batcher.dispatches, batcher.rows)
   with profile(activities=[ProfilerActivity.CUDA]) as prof:
     t0 = time.perf_counter()
-    await engine.generate_chunk("profile", shard, int(toks[-1]), n, temp=0.0)
+    await chunk(n)
     wall_ms = (time.perf_counter() - t0) * 1e3
-  await engine.clear_request("profile")
+  widths = f"{batcher.dispatches - before[0]} dispatch(es), {batcher.rows - before[1]} rows"
+  for rid in rids:
+    await engine.clear_request(rid)
   rows = []
   for evt in prof.key_averages():
     us = getattr(evt, "self_device_time_total", None)
@@ -304,10 +504,12 @@ async def profile_decode(torch, engine, model: str, classname: str, card: str) -
   rows.sort(reverse=True)
   busy = sum(r[0] for r in rows)
   launches = sum(r[2] for r in rows)
-  print(f"[profile] decode {n} tokens after a 514-token prompt: wall {wall_ms:.2f} ms "
-        f"({n / wall_ms * 1e3:.1f} tok/s under the profiler), kernels {busy:.2f} ms = "
-        f"{100 * busy / wall_ms:.1f}% busy, {100 - 100 * busy / wall_ms:.1f}% idle, "
-        f"{launches / n:.0f} device kernels per token ({card})", flush=True)
+  print(f"[profile] B={batch} ({widths}), decode {n} tokens per row after a 514-token prompt: "
+        f"{plain_ms:.2f} ms without the profiler ({batch * n / plain_ms * 1e3:.1f} tok/s); "
+        f"wall {wall_ms:.2f} ms ({batch * n / wall_ms * 1e3:.1f} tok/s under the profiler), "
+        f"kernels {busy:.2f} ms = {100 * busy / wall_ms:.1f}% busy, "
+        f"{100 - 100 * busy / wall_ms:.1f}% idle, {launches / n:.0f} device kernels per step "
+        f"({card})", flush=True)
   for ms, name, count in rows[:10]:
     print(f"[profile]   {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{count:<5d} {name[:90]}", flush=True)
 
@@ -318,12 +520,12 @@ def drive_main_path(torch, card: str, device: str = "cuda",
   on the card) answers three chat completions over HTTP. Returns the kernels'
   launch counts. (`device` and `model` let the same phase be rehearsed on the CPU
   with a small card.)"""
-  import asyncio
   from xotorch_tpu_torch import main as port_main
   from xotorch_tpu_torch.models.registry import build_full_shard, get_model_card
   from xotorch_tpu_torch.ops.flash_attention import flash_attention
   from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention
 
+  os.environ["XOT_PAGED_KV"] = "0"
   os.environ["XOT_PREFILL_CHUNK"] = "1024"  # so the long prompt runs K2's T > 1 path
   args = port_main.build_parser().parse_args(
     ["--device", device, "--default-model", model, "--chatgpt-api-host", "127.0.0.1",
@@ -406,6 +608,133 @@ def drive_main_path(torch, card: str, device: str = "cuda",
   return {"flash_attention": k1, "flash_cached_attention": k2}
 
 
+CONCURRENT_WORDS = (64, 128, 256, 300, 514, 1000, 1502, 2000)
+
+
+def drive_concurrent(torch, card: str, paged: bool, device: str = "cuda",
+                     model: str = "synthetic-llama-1b", max_tokens: int = 64) -> dict:
+  """A fresh server (XOT_PAGED_KV as `paged`, XOT_PREFILL_CHUNK 1024) answers eight
+  concurrent streaming chat completions of 64 to 2000 words, half at temperature 0
+  and half at 0.6, after one unmeasured warm-up pass of the same eight. The batcher
+  coalesces their decode chunks. Then one B=8 decode chunk under the profiler.
+  Returns the kernels' launch counts over the measured pass and each temperature-0
+  request's tokens."""
+  from concurrent.futures import ThreadPoolExecutor
+  from xotorch_tpu_torch import main as port_main
+  from xotorch_tpu_torch.models.registry import build_full_shard, get_model_card
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention
+  from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention
+  from xotorch_tpu_torch.ops.paged_attention import paged_decode_attention, paged_prefill_attention
+
+  tag = "paged" if paged else "contiguous"
+  os.environ["XOT_PAGED_KV"] = "1" if paged else "0"
+  os.environ["XOT_PREFILL_CHUNK"] = "1024"
+  args = port_main.build_parser().parse_args(
+    ["--device", device, "--default-model", model, "--chatgpt-api-host", "127.0.0.1",
+     "--chatgpt-api-port", "0", "--chatgpt-api-response-timeout", "600"])
+  node, engine, classname, api = port_main.build_node(args)
+  layers = get_model_card(model)["layers"]
+  bodies = [{"model": model, "max_tokens": max_tokens, "stream": True,
+             "temperature": 0.0 if i % 2 == 0 else 0.6, "stream_options": {"include_usage": True},
+             "messages": [{"role": "user", "content": " ".join(f"w{j % 97}" for j in range(n))}]}
+            for i, n in enumerate(CONCURRENT_WORDS)]
+  # The request id the API gives each prompt, and the tokens the node streams for it.
+  prompt_of, tokens_of = {}, {}
+  serve_prompt = node.process_prompt
+
+  async def traced(base_shard, prompt, request_id=None, *a, **kw):
+    prompt_of[request_id] = prompt
+    return await serve_prompt(base_shard, prompt, request_id, *a, **kw)
+  node.process_prompt = traced
+  node.on_token.register("chip-smoke").on_next(
+    lambda rid, toks, finished: tokens_of.__setitem__(rid, list(toks)))
+  kernels = (flash_attention, flash_cached_attention, paged_decode_attention,
+             paged_prefill_attention)
+
+  async def drive():
+    server = await api.start("127.0.0.1", 0)
+    url = f"http://127.0.0.1:{server.sockets[0].getsockname()[1]}/v1/chat/completions"
+    loop = asyncio.get_running_loop()
+    pool = ThreadPoolExecutor(max_workers=len(bodies))
+    try:
+      await engine.ensure_shard(build_full_shard(model, classname))
+
+      async def all_at_once(bs):
+        return await asyncio.gather(*(loop.run_in_executor(pool, http_stream, url, b) for b in bs))
+
+      t0 = time.perf_counter()
+      await all_at_once([{**b, "max_tokens": 8} for b in bodies])
+      print(f"[{tag}] warm-up: 8 concurrent requests in {time.perf_counter() - t0:.2f} s", flush=True)
+      await wait_idle(engine)
+      batcher = engine._ctx.batcher
+      batcher.dispatches = batcher.rows = batcher.steps = 0
+      if paged:
+        engine._ctx.page_pool.peak_pages_in_use = engine._ctx.page_pool.pages_in_use
+      prompt_of.clear()
+      for k in kernels:
+        k.launches = 0
+      t0 = time.perf_counter()
+      results = await all_at_once(bodies)
+      wall = time.perf_counter() - t0
+      counts = {k.__name__: k.launches for k in kernels}
+      dispatches, rows, steps = batcher.dispatches, batcher.rows, batcher.steps
+      total, segments = 0, 0
+      for body, (events, first, last) in zip(bodies, results):
+        usage = events[-1].get("usage") or {}
+        finish = [c["finish_reason"] for e in events for c in e.get("choices", [])
+                  if c.get("finish_reason")]
+        n = usage.get("completion_tokens", 0)
+        total += n
+        segments += -(-usage.get("prompt_tokens", 0) // 1024)
+        rate = (n - 1) / (last - first) if n > 1 and last > first else float("nan")
+        ok = n == max_tokens and finish == ["length"]
+        words = len(body["messages"][0]["content"].split())
+        print(f"[{tag}] {words}-word prompt ({usage.get('prompt_tokens')} tokens), temperature "
+              f"{body['temperature']}: {n} tokens, finish {finish}, TTFT {first * 1e3:.1f} ms, "
+              f"decode {rate:.1f} tok/s ({card}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+          raise AssertionError(f"{tag}: {words}-word request returned {n} tokens ({finish})")
+      await wait_idle(engine)
+      stats = engine.page_pool_stats()
+      print(f"[{tag}] 8 concurrent requests: {total} tokens in {wall:.3f} s = {total / wall:.1f} "
+            f"tok/s aggregate; batcher {dispatches} dispatches, mean width {rows / dispatches:.2f}, "
+            f"{steps} decode steps; launches {counts}; pool {stats} ({card})", flush=True)
+      if rows / dispatches <= 1:
+        raise AssertionError(f"{tag}: the batcher never coalesced (mean width {rows / dispatches})")
+      if paged:
+        k3, k4 = counts["paged_decode_attention"], counts["paged_prefill_attention"]
+        if k3 != steps * layers or k4 != segments * layers or counts["flash_cached_attention"]:
+          raise AssertionError(f"paged: launches {counts} disagree with {steps} decode steps and "
+                               f"{segments} prefill segments x {layers} layers")
+        if stats["pages_in_use"] != 0:
+          raise AssertionError(f"paged: {stats['pages_in_use']} pool pages left in use")
+      elif counts["flash_cached_attention"] < steps * layers or counts["paged_decode_attention"]:
+        raise AssertionError(f"contiguous: launches {counts} disagree with {steps} decode steps")
+      await profile_decode(torch, engine, model, classname, card, batch=len(bodies))
+      by_words = sorted(prompt_of, key=lambda rid: len(prompt_of[rid].split()))
+      greedy = {CONCURRENT_WORDS[i]: tokens_of[rid] for i, rid in enumerate(by_words)
+                if bodies[i]["temperature"] == 0.0}
+      return counts, greedy
+    finally:
+      pool.shutdown(wait=True)
+      server.close()
+      await server.wait_closed()
+      await node.stop()
+
+  counts, greedy = asyncio.run(drive())
+  engine.executor.shutdown(wait=True)
+  return {"launches": counts, "greedy": greedy}
+
+
+async def wait_idle(engine, timeout: float = 30.0) -> None:
+  """Wait until the node's end-of-request cleanups have run on the engine (the
+  client sees a stream end before its request's state is cleared)."""
+  t_end = time.perf_counter() + timeout
+  while engine._ctx.states and time.perf_counter() < t_end:
+    await asyncio.sleep(0.05)
+  await engine._run(lambda: None)
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--kernels-only", action="store_true",
@@ -443,16 +772,36 @@ def main(argv=None) -> int:
 
   # Phase 4: the model through the kernels against the plain path.
   check_model(torch)
+  check_paged_model(torch)
 
   # Phase 5: the main path, with the launch counters read around it.
   launches = drive_main_path(torch, card)
 
-  # Phase 6: results.
+  # Phases 6 and 7: eight concurrent requests on the page pool (K4 prefill, K3
+  # decode), then on stacked contiguous caches (K1/K2).
+  paged = drive_concurrent(torch, card, paged=True)
+  launches.update((k, paged["launches"][k])
+                  for k in ("paged_decode_attention", "paged_prefill_attention"))
+  contiguous = drive_concurrent(torch, card, paged=False)
+  same = total = 0
+  for words, toks in paged["greedy"].items():
+    other = contiguous["greedy"][words]
+    same += sum(a == b for a, b in zip(toks, other))
+    total += len(toks)
+  print(f"[concurrent] temperature-0 tokens the paged and contiguous phases agree on: "
+        f"{same}/{total} = {100 * same / max(total, 1):.1f}% (bf16: streams may part at a "
+        f"near-tie; not asserted)", flush=True)
+
+  # Phase 8: results.
   meta = {
     "flash_attention": ("xotorch_tpu_torch/csrc/flash_attention.cu",
                         "xotorch_tpu/ops/flash_attention.py:54"),
     "flash_cached_attention": ("xotorch_tpu_torch/csrc/flash_decode.cu",
                                "xotorch_tpu/ops/flash_decode.py:62"),
+    "paged_decode_attention": ("xotorch_tpu_torch/csrc/paged_attention.cu",
+                               "xotorch_tpu/ops/paged_attention.py:129"),
+    "paged_prefill_attention": ("xotorch_tpu_torch/csrc/paged_attention.cu",
+                                "xotorch_tpu/ops/paged_attention.py:276"),
   }
   kernels = []
   for name, (source, replaces) in meta.items():

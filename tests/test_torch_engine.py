@@ -240,6 +240,10 @@ def _imports(path: Path):
 def test_port_imports_neither_jax_nor_the_jax_package():
   files = sorted((ROOT / "xotorch_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
   assert len(files) > 20
+  walked = {str(f.relative_to(ROOT)) for f in files}
+  assert {"xotorch_tpu_torch/ops/paged_attention.py",
+          "xotorch_tpu_torch/inference/torch_engine/paged_cache.py",
+          "xotorch_tpu_torch/inference/torch_engine/vkv.py"} <= walked
   bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
          if name.split(".")[0] in ("jax", "jaxlib", "xotorch_tpu")]
   assert bad == []

@@ -1,23 +1,29 @@
 """TorchShardInferenceEngine: the port's compute backend for one NVIDIA GPU.
 
-The port of the contiguous single-shard subset of
-xotorch_tpu/inference/jax_engine/engine.py:
+The port of the single-shard subset of xotorch_tpu/inference/jax_engine/engine.py:
 
 - `ensure_shard` loads a shard (synthetic cards: random weights from a seed);
 - `infer_sample_tensor` prefills in XOT_PREFILL_CHUNK segments, each padded to a
-  power-of-two bucket, and samples the first token on the device. The first segment
-  of a fresh request goes to the prefill kernel (K1), later segments to the cached
-  kernel (K2);
-- `generate_chunk` decodes K tokens per call with sampling on the device (K2 for
-  every step), with the same CacheExhausted semantics at XOT_MAX_CACHE_LEN and the
-  same power-of-two cache growth;
+  power-of-two bucket, and samples the first token on the device. On a contiguous
+  cache the first segment of a fresh request goes to the prefill kernel (K1), later
+  segments to the cached kernel (K2); on the page arena every segment goes to K4;
+- `generate_chunk` decodes K tokens per call with sampling on the device, with the
+  same CacheExhausted semantics at XOT_MAX_CACHE_LEN. With XOT_DECODE_BATCH > 1 the
+  call goes through the continuous batcher (`_DecodeBatcher`), which coalesces
+  concurrent requests' chunks into one batched dispatch: over stacked contiguous
+  caches through K2 (XOT_PAGED_KV=0, the default), or over the shared page arena
+  through K3 (XOT_PAGED_KV=1);
 - `infer_tensor` / `sample` keep the per-token contract.
 
-Per-request state is a contiguous [L, 1, S, Hkv, D] KV cache plus a position. Every
-device computation runs on one executor thread, so requests are served one call at a
-time; an asyncio lock serialises shard loads. The engine runs on `cuda` unless the
-caller passes device="cpu" (the tests do), and raises when no GPU is present
-rather than falling back to the CPU.
+Per-request state is either a contiguous [L, 1, S, Hkv, D] KV cache that grows by
+powers of two, or (XOT_PAGED_KV=1) a VirtualKV handle of pages in the context's
+PagePool, plus a position. Every device computation runs on one executor thread; an
+asyncio lock serialises shard loads. The engine reads its knobs when it is built.
+It runs on `cuda` unless the caller passes device="cpu" (the tests do), and raises
+when no GPU is present rather than falling back to the CPU.
+
+Left out of this slice: the prefix cache, the host KV tier, co-scheduled prefill,
+speculative and overlapped chunks, sampling extras and the ring paths.
 """
 from __future__ import annotations
 
@@ -26,7 +32,7 @@ import time
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
 import torch
@@ -34,17 +40,17 @@ import torch
 from xotorch_tpu_torch.inference.engine import CacheExhausted, InferenceEngine, RequestStateLost
 from xotorch_tpu_torch.inference.shard import Shard
 from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer
+from xotorch_tpu_torch.inference.torch_engine import vkv
+from xotorch_tpu_torch.inference.torch_engine.paged_cache import PagePool, commit_pages, migrate_pages
+from xotorch_tpu_torch.inference.torch_engine.vkv import VirtualKV
 from xotorch_tpu_torch.models.config import ModelConfig, config_from_hf_dict
-from xotorch_tpu_torch.models.generate import decode_chunk, forward_sample
+from xotorch_tpu_torch.models.generate import (decode_chunk, decode_chunk_batched, decode_chunk_paged,
+                                               forward_sample)
 from xotorch_tpu_torch.models.registry import get_model_card
 from xotorch_tpu_torch.models.transformer import forward_shard, init_kv_cache, init_random_params
 from xotorch_tpu_torch.ops.sampling import DEFAULT_TEMP, DEFAULT_TOP_K, sample_logits
 from xotorch_tpu_torch.utils import knobs
-from xotorch_tpu_torch.utils.helpers import DEBUG
-
-# Request states kept per shard before the least recently used is dropped (the JAX
-# engine's XOT_MAX_RESIDENT_REQUESTS default).
-MAX_RESIDENT_REQUESTS = 8
+from xotorch_tpu_torch.utils.helpers import DEBUG, spawn_detached
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
 
@@ -69,9 +75,10 @@ def resolve_device(device: Optional[str]) -> torch.device:
 
 @dataclass
 class _RequestState:
-  cache: Dict[str, torch.Tensor]  # {"k", "v"}: [L, 1, S, Hkv, D]
+  cache: Optional[Dict[str, torch.Tensor]]  # {"k", "v"}: [L, 1, S, Hkv, D]; None when paged
   pos: int  # tokens already resident in the cache
   last_used: float
+  pages: Optional[VirtualKV] = None  # the request's pool pages (XOT_PAGED_KV=1)
 
 
 @dataclass
@@ -83,6 +90,110 @@ class _ShardContext:
   max_cache_len: int
   tokenizer: Any
   states: "OrderedDict[str, _RequestState]"
+  batcher: Optional["_DecodeBatcher"] = None
+  page_pool: Optional[PagePool] = None
+
+
+class _Pending(NamedTuple):
+  """One request's decode chunk waiting for a dispatch."""
+  request_id: str
+  state: _RequestState
+  prev_token: int
+  num_tokens: int
+  temp: float
+  top_k: int
+  top_p: float
+  future: Optional[asyncio.Future]
+
+
+class _DecodeBatcher:
+  """Continuous batching at chunk granularity (the port of the JAX engine's
+  _DecodeBatcher, without its prefill lane, ring dispatch and speculative slot).
+
+  Concurrent requests each drive their own decode loop; this collector coalesces
+  their generate_chunk calls into ONE batched dispatch per drain cycle. Coalescing
+  comes from the drain loop, not a timer: while one batch computes on the engine's
+  executor, every request that becomes ready queues into `pending`, and the next
+  cycle takes them all, so the batch width follows the load. Rows are grouped by
+  (top_k, top_p); temperature is per row. A group runs at its smallest requested
+  size (bigger requesters loop again) and is cut at XOT_DECODE_BATCH rows. When the
+  queue drains, the idle slot goes to one bounded page-pool defrag pass."""
+
+  def __init__(self, engine: "TorchShardInferenceEngine", ctx: _ShardContext):
+    self.engine = engine
+    self.ctx = ctx
+    self.pending: List[_Pending] = []
+    self._draining = False
+    self._drain_task = None  # strong ref: the loop only weakly holds tasks
+    # Dispatches run, rows over all of them (mean width = rows / dispatches), and
+    # decode steps over all of them.
+    self.dispatches = 0
+    self.rows = 0
+    self.steps = 0
+
+  async def submit(self, request_id: str, state: _RequestState, prev_token: int,
+                   num_tokens: int, temp: float, top_k: int, top_p: float) -> np.ndarray:
+    fut = asyncio.get_running_loop().create_future()
+    self.pending.append(_Pending(request_id, state, prev_token, num_tokens, temp, top_k, top_p,
+                                 fut))
+    if not self._draining:
+      self._draining = True
+      self._drain_task = spawn_detached(self._drain())
+    return await fut
+
+  async def _drain(self) -> None:
+    batch: List[_Pending] = []
+    try:
+      # One wait before the first take (an event-loop tick at XOT_BATCH_WINDOW_MS=0):
+      # loops woken in the same pass coalesce at once.
+      await asyncio.sleep(self.engine.batch_window_s)
+      while self.pending:
+        batch, self.pending = self.pending, []
+        groups: Dict[Tuple[int, float], List[_Pending]] = {}
+        for item in batch:
+          groups.setdefault((item.top_k, item.top_p), []).append(item)
+        cap = max(1, self.engine.decode_batch)
+        for (top_k, top_p), items in groups.items():
+          items.sort(key=lambda it: it.request_id)
+          num_tokens = min(it.num_tokens for it in items)
+          for off in range(0, len(items), cap):
+            chunk = items[off:off + cap]
+            try:
+              results = await self.engine._run(self.engine._decode_batch_sync, self.ctx, chunk,
+                                               num_tokens, top_k, top_p)
+              self.dispatches += 1
+              self.rows += len(chunk)
+              self.steps += len(results[0])
+              for it, toks in zip(chunk, results):
+                if not it.future.done():
+                  it.future.set_result(toks)
+            except Exception as e:  # fails this dispatch's requests, not the loop
+              for it in chunk:
+                if not it.future.done():
+                  it.future.set_exception(e)
+        # Let the resolved requests' loops take their tokens and submit again before
+        # the next take, so steady-state batches stay wide.
+        await asyncio.sleep(0)
+      pool = self.ctx.page_pool
+      if pool is not None and self.engine.defrag and pool.fragmentation() > 0:
+        try:
+          await self.engine._run(self.engine._defrag_sync, self.ctx)
+        except Exception as e:  # an idle pass: a failure must not fail a request
+          if DEBUG >= 1:
+            print(f"idle defrag pass failed (ignored): {e!r}")
+    except Exception as e:
+      # A failure outside a dispatch must fail every waiting submitter: a future
+      # nobody resolves would hang its request forever.
+      failed, self.pending = self.pending, []
+      for it in batch + failed:
+        if not it.future.done():
+          it.future.set_exception(e)
+    finally:
+      self._draining = False
+      if self.pending:
+        # A submit slipped in after the last take and saw _draining set.
+        self._draining = True
+        self._drain_task = spawn_detached(self._drain())
 
 
 class TorchShardInferenceEngine(InferenceEngine):
@@ -96,6 +207,13 @@ class TorchShardInferenceEngine(InferenceEngine):
     self._shard_lock = asyncio.Lock()
     self._configured_cache_len = knobs.get_int("XOT_CACHE_LEN")
     self._configured_max_cache_len = knobs.get_int("XOT_MAX_CACHE_LEN")
+    self.max_resident = knobs.get_int("XOT_MAX_RESIDENT_REQUESTS")
+    self.decode_batch = knobs.get_int("XOT_DECODE_BATCH")
+    self.batch_window_s = knobs.get_float("XOT_BATCH_WINDOW_MS") / 1000.0
+    self.paged = knobs.get_bool("XOT_PAGED_KV")
+    self.paged_prefill = knobs.get_bool("XOT_PAGED_PREFILL")
+    self.defrag = knobs.get_bool("XOT_KV_DEFRAG")
+    self.defrag_moves = 0
     self.generator = torch.Generator(device=self.device)
     self.generator.manual_seed(int(time.time()) if seed is None else int(seed))
 
@@ -152,7 +270,7 @@ class TorchShardInferenceEngine(InferenceEngine):
       tokenizer.eos_token_id = cfg.eos_token_ids[0]
     if DEBUG >= 1:
       print(f"torch engine ready for {shard} on {self.device} "
-            f"(dtype={self.dtype}, cache_len={cache_len})")
+            f"(dtype={self.dtype}, cache_len={cache_len}, paged={self.paged})")
     return _ShardContext(shard=shard, cfg=cfg, params=params, cache_len=cache_len,
                          max_cache_len=max_cache_len, tokenizer=tokenizer,
                          states=OrderedDict())
@@ -199,31 +317,59 @@ class TorchShardInferenceEngine(InferenceEngine):
   def _prefill_chunk(self) -> int:
     return knobs.get_int("XOT_PREFILL_CHUNK")
 
+  def _paged_segment(self, ctx: _ShardContext, request_id: str, x: torch.Tensor) -> bool:
+    """A segment runs on the page arena when its request already lives there, or
+    when it starts a request under XOT_PAGED_KV with paged-native prefill: token
+    input for one request on a shard that spans the whole model."""
+    state = ctx.states.get(request_id)
+    if state is not None:
+      return state.pages is not None
+    return (self.paged and self.paged_prefill and ctx.shard.is_first_layer
+            and ctx.shard.is_last_layer and x.ndim == 2 and x.shape[0] == 1)
+
   def _segment_setup(self, ctx: _ShardContext, request_id: str, input_data: np.ndarray):
-    """Device transfer, bucket padding, state and capacity, and the kernel choice:
-    a fresh request's multi-token segment goes to K1, everything else to K2."""
+    """Device transfer, bucket padding, state and capacity, and the attention path.
+    Returns (x, true length, state, the cache or arena, forward keywords): a page
+    table on the arena (K4 or K3); on a contiguous cache a fresh request's
+    multi-token segment goes to K1, everything else to K2."""
     x = self._to_device_input(input_data)
     true_t = x.shape[1]
     bucket = 1 if true_t == 1 else _bucket(true_t)
-    state = self._prep_state(ctx, request_id, bucket)
+    if self._paged_segment(ctx, request_id, x):
+      state = self._prep_state_paged(ctx, request_id, bucket)
+      cache, kw = ctx.page_pool.arena, {"page_table": self._paged_table_for(ctx, state)}
+    else:
+      state = self._prep_state(ctx, request_id, bucket)
+      use_flash = true_t > 1 and state.pos == 0
+      cache, kw = state.cache, {"use_flash": use_flash, "use_flash_decode": not use_flash}
     if bucket != true_t:
       pad = torch.zeros((x.shape[0], bucket - true_t) + tuple(x.shape[2:]), dtype=x.dtype,
                         device=x.device)
       x = torch.cat([x, pad], dim=1)
-    use_flash = true_t > 1 and state.pos == 0
-    return x, true_t, state, use_flash, not use_flash
+    return x, true_t, state, cache, kw
+
+  def _advance(self, ctx: _ShardContext, state: _RequestState, n: int) -> None:
+    """Move a request past `n` tokens it just wrote. A paged request gives back the
+    pages that only its bucket padding reached (they hold garbage and are its own),
+    then whatever its window slid past."""
+    state.pos += n
+    state.last_used = time.monotonic()
+    if state.pages is not None:
+      pool = ctx.page_pool
+      freed = state.pages.trim_to(pool.pages_for(state.pos))
+      if freed:
+        pool.decref(freed)
+      self._vkv_window_release(ctx, state)
 
   def _forward_segment(self, ctx: _ShardContext, request_id: str, input_data: np.ndarray,
                        fill: bool = False):
     """One segment's forward; returns (device output, true length). `fill` skips the
     unembedding (cache-fill segments whose logits nobody reads)."""
-    x, true_t, state, use_flash, use_fd = self._segment_setup(ctx, request_id, input_data)
-    out, state.cache = forward_shard(
-      ctx.params, x, state.cache, state.pos, ctx.cfg, is_first=x.ndim == 2,
-      is_last=ctx.shard.is_last_layer and not fill, use_flash=use_flash,
-      use_flash_decode=use_fd, start_layer=ctx.shard.start_layer)
-    state.pos += true_t
-    state.last_used = time.monotonic()
+    x, true_t, state, cache, kw = self._segment_setup(ctx, request_id, input_data)
+    out, _ = forward_shard(ctx.params, x, cache, state.pos, ctx.cfg, is_first=x.ndim == 2,
+                           is_last=ctx.shard.is_last_layer and not fill,
+                           start_layer=ctx.shard.start_layer, **kw)
+    self._advance(ctx, state, true_t)
     return out, true_t
 
   def _infer_sync(self, ctx: _ShardContext, request_id: str, input_data: np.ndarray) -> np.ndarray:
@@ -258,19 +404,25 @@ class TorchShardInferenceEngine(InferenceEngine):
                          temp: float, top_k: int, top_p: float) -> int:
     true_t = input_data.shape[1]
     chunk = self._prefill_chunk()
-    if true_t > chunk:
-      # Leading full segments fill the cache without the unembedding.
-      split = ((true_t - 1) // chunk) * chunk
-      for off in range(0, split, chunk):
-        self._forward_segment(ctx, request_id, input_data[:, off:off + chunk], fill=True)
-      input_data = input_data[:, split:]
-    x, seg_t, state, use_flash, use_fd = self._segment_setup(ctx, request_id, input_data)
-    tok, state.cache = forward_sample(
-      ctx.params, x, state.cache, state.pos, seg_t - 1, ctx.cfg, x.ndim == 2, temp, top_k,
-      top_p, use_flash=use_flash, use_flash_decode=use_fd, start_layer=ctx.shard.start_layer,
-      generator=self.generator)
-    state.pos += seg_t
-    state.last_used = time.monotonic()
+    is_fresh = request_id not in ctx.states
+    try:
+      if true_t > chunk:
+        # Leading full segments fill the cache without the unembedding.
+        split = ((true_t - 1) // chunk) * chunk
+        for off in range(0, split, chunk):
+          self._forward_segment(ctx, request_id, input_data[:, off:off + chunk], fill=True)
+        input_data = input_data[:, split:]
+      x, seg_t, state, cache, kw = self._segment_setup(ctx, request_id, input_data)
+      tok, _ = forward_sample(ctx.params, x, cache, state.pos, seg_t - 1, ctx.cfg, x.ndim == 2,
+                              temp, top_k, top_p, start_layer=ctx.shard.start_layer,
+                              generator=self.generator, **kw)
+    except CacheExhausted:
+      if is_fresh:
+        # The request can never produce a token: what it holds (pool pages above
+        # all, which co-resident streams need) goes back at once.
+        self._drop_state(ctx, request_id)
+      raise
+    self._advance(ctx, state, seg_t)
     return int(tok.reshape(-1)[0].item())
 
   async def generate_chunk(
@@ -280,8 +432,9 @@ class TorchShardInferenceEngine(InferenceEngine):
   ) -> Optional[np.ndarray]:
     """Up to `num_tokens` decoded tokens with sampling on the device, for a request
     whose prompt is already prefilled. None when the shard does not span the whole
-    model. `next_size` (the caller's next chunk) is accepted for the Node's contract;
-    this engine dispatches nothing ahead."""
+    model. A coalesced batch runs at the smallest size its rows asked for, so the
+    returned length is authoritative. `next_size` (the caller's next chunk) is
+    accepted for the Node's contract; this engine dispatches nothing ahead."""
     if not (shard.is_first_layer and shard.is_last_layer) or num_tokens < 1:
       return None
     ctx = self._ctx
@@ -297,27 +450,226 @@ class TorchShardInferenceEngine(InferenceEngine):
       # Shrink to the cache tail: the largest power of two that still fits.
       tail = ctx.max_cache_len - state.pos
       num_tokens = min(num_tokens, 1 << (tail.bit_length() - 1))
+    if self.decode_batch > 1:
+      # Continuous batching: a lone request flows through as a batch of one.
+      if ctx.batcher is None:
+        ctx.batcher = _DecodeBatcher(self, ctx)
+      return await ctx.batcher.submit(request_id, state, int(prev_token), num_tokens,
+                                      float(temp), int(top_k), float(top_p))
+    item = _Pending(request_id, state, int(prev_token), num_tokens, float(temp), int(top_k),
+                    float(top_p), None)
+    out = await self._run(self._decode_batch_sync, ctx, [item], num_tokens, int(top_k),
+                          float(top_p))
+    return out[0]
 
-    def _chunk() -> np.ndarray:
+  def _decode_batch_sync(self, ctx: _ShardContext, items: List[_Pending], num_tokens: int,
+                         top_k: int, top_p: float) -> List[np.ndarray]:
+    """One decode chunk for 1..B requests in a single dispatch. B == 1 decodes the
+    request's own cache. B > 1 grows every member to a common cache length, then
+    stacks, decodes with per-row positions and temperatures, and splits back
+    (models/generate.decode_chunk_batched). Under XOT_PAGED_KV the chunk indexes
+    the shared page arena instead (_decode_batch_paged_sync)."""
+    for it in items:
+      if ctx.states.get(it.request_id) is not it.state:
+        raise RequestStateLost(f"request {it.request_id}: device state evicted mid-generation")
+    if self.paged:
+      return self._decode_batch_paged_sync(ctx, items, num_tokens, top_k, top_p)
+    states = [it.state for it in items]
+    toks_in = torch.tensor([[it.prev_token] for it in items], dtype=torch.int64, device=self.device)
+    if len(items) == 1:
+      state = states[0]
       if state.pos + num_tokens > state.cache["k"].shape[2]:
         self._grow_cache(ctx, state, state.pos + num_tokens)
-      tok = torch.tensor([[int(prev_token)]], dtype=torch.int64, device=self.device)
-      toks, state.cache = decode_chunk(ctx.params, tok, state.cache, state.pos, ctx.cfg,
-                                       num_tokens, float(temp), int(top_k), float(top_p),
-                                       use_flash_decode=True, generator=self.generator)
-      state.pos += num_tokens
-      state.last_used = time.monotonic()
-      return toks[0].cpu().numpy().astype(np.int64)
+      toks, _ = decode_chunk(ctx.params, toks_in, state.cache, state.pos, ctx.cfg, num_tokens,
+                             items[0].temp, top_k, top_p, use_flash_decode=True,
+                             generator=self.generator)
+    else:
+      target = max(max(s.pos + num_tokens for s in states),
+                   max(s.cache["k"].shape[2] for s in states))
+      for state in states:
+        if state.cache["k"].shape[2] < target:
+          self._grow_cache(ctx, state, target)
+      if len({s.cache["k"].shape for s in states}) != 1:
+        raise AssertionError(f"batched decode needs one cache shape, got "
+                             f"{sorted({tuple(s.cache['k'].shape) for s in states})}")
+      B = len(states)
+      toks, caches = decode_chunk_batched(
+        ctx.params, [s.cache for s in states], toks_in,
+        torch.tensor([s.pos for s in states], dtype=torch.int32, device=self.device), ctx.cfg,
+        num_tokens, torch.tensor([it.temp for it in items], dtype=torch.float32, device=self.device),
+        top_k, top_p, use_flash_decode=True, pad_rows=_bucket(B, 1) - B, generator=self.generator)
+      for state, cache in zip(states, caches):
+        state.cache = cache
+    host = toks.cpu().numpy().astype(np.int64)
+    for state in states:
+      self._advance(ctx, state, num_tokens)
+    return [host[i] for i in range(len(states))]
 
-    return await self._run(_chunk)
+  # ------------------------------------------------------------ paged KV
+  #
+  # XOT_PAGED_KV=1: requests' KV lives as fixed-size pages in ONE shared arena per
+  # context (paged_cache.PagePool). With paged-native prefill (XOT_PAGED_PREFILL, on
+  # by default) every prompt segment writes straight into pool pages, so the arena
+  # is a request's home for its whole life; with it off a request prefills into a
+  # contiguous buffer and is committed to pages at its first decode chunk. Decode
+  # chunks index the arena through per-request page tables resolved from VirtualKV
+  # handles at each dispatch: batch membership is metadata, appends allocate pages
+  # instead of grow-copying, and attention reads only each row's occupied pages.
+
+  def _ensure_page_pool(self, ctx: _ShardContext) -> PagePool:
+    if ctx.page_pool is None:
+      page = knobs.get_int("XOT_KV_PAGE")
+      tokens = knobs.get_int("XOT_KV_POOL_TOKENS")
+      if tokens <= 0:
+        # Room for one max-length context plus a resident set of initial-size ones.
+        tokens = ctx.max_cache_len + self.max_resident * ctx.cache_len
+      num_pages = -(-tokens // page) + 1  # +1: the scratch page 0
+      ctx.page_pool = PagePool(ctx.cfg, ctx.shard.get_layer_count(), num_pages, page,
+                               dtype=self.dtype, device=self.device)
+      if DEBUG >= 1:
+        print(f"KV page pool ready: {num_pages - 1} pages x {page} tokens")
+    return ctx.page_pool
+
+  def _commit_state_to_pages(self, ctx: _ShardContext, state: _RequestState) -> None:
+    """Move a request prefilled into a contiguous buffer (XOT_PAGED_PREFILL=0) into
+    fresh pool pages and free the buffer."""
+    pool = self._ensure_page_pool(ctx)
+    fresh = pool.alloc(pool.pages_for(state.pos))
+    commit_pages(pool.arena, state.cache, fresh, start_page=0)
+    state.pages = VirtualKV(fresh)
+    state.cache = None
+
+  def _prep_state_paged(self, ctx: _ShardContext, request_id: str, bucket: int) -> _RequestState:
+    """Page-backed twin of _prep_state: capacity for `bucket` more tokens is pages.
+    The table covers the padded bucket, whose garbage lands in pages this request
+    owns (_advance trims them afterwards). Pool exhaustion raises CacheExhausted
+    before any device work, for this request only."""
+    pool = self._ensure_page_pool(ctx)
+    state = ctx.states.get(request_id)
+    if state is None:
+      state = self._admit(ctx, request_id, _RequestState(cache=None, pos=0,
+                                                         last_used=time.monotonic(),
+                                                         pages=VirtualKV()))
+    ctx.states.move_to_end(request_id)
+    needed = state.pos + bucket
+    if needed > ctx.max_cache_len:
+      raise CacheExhausted(
+        f"Request {request_id}: {bucket} new tokens at pos {state.pos} "
+        f"exceed max cache length {ctx.max_cache_len}")
+    need_pages = pool.pages_for(needed)
+    if need_pages > len(state.pages):
+      state.pages.extend(pool.alloc(need_pages - len(state.pages)))
+    return state
+
+  def _paged_table_for(self, ctx: _ShardContext, state: _RequestState) -> torch.Tensor:
+    """The request's [1, maxp] page table on the device, the width bucketed to a
+    power of two (0-padded: the scratch page, masked)."""
+    maxp = _bucket(max(len(state.pages), 1), 1)
+    return torch.as_tensor(vkv.resolve_page_table([state.pages], maxp), device=self.device)
+
+  def _decode_batch_paged_sync(self, ctx: _ShardContext, items: List[_Pending], num_tokens: int,
+                               top_k: int, top_p: float) -> List[np.ndarray]:
+    """Paged twin of the batched chunk: commit any member still on its prefill
+    buffer, append pages to cover the chunk, and run ONE decode_chunk_paged dispatch
+    over the shared arena. The table width is bucketed to a power of two."""
+    pool = self._ensure_page_pool(ctx)
+    states = [it.state for it in items]
+    for it in items:
+      if it.state.pos + 1 > ctx.max_cache_len:
+        raise CacheExhausted(f"request {it.request_id}: cache full at "
+                             f"{it.state.pos}/{ctx.max_cache_len}")
+    tail = min(ctx.max_cache_len - s.pos for s in states)
+    if num_tokens > tail:
+      num_tokens = 1 << (tail.bit_length() - 1)
+    for state in states:
+      if state.pages is None:
+        self._commit_state_to_pages(ctx, state)
+      need = pool.pages_for(state.pos + num_tokens)
+      if need > len(state.pages):
+        state.pages.extend(pool.alloc(need - len(state.pages)))
+    B = len(states)
+    maxp = _bucket(max(len(s.pages) for s in states), 1)
+    table = torch.as_tensor(vkv.resolve_page_table([s.pages for s in states], maxp),
+                            device=self.device)
+    toks, _ = decode_chunk_paged(
+      ctx.params, pool.arena, table,
+      torch.tensor([[it.prev_token] for it in items], dtype=torch.int64, device=self.device),
+      torch.tensor([s.pos for s in states], dtype=torch.int32, device=self.device), ctx.cfg,
+      num_tokens, torch.tensor([it.temp for it in items], dtype=torch.float32, device=self.device),
+      top_k, top_p, pad_rows=_bucket(B, 1) - B, generator=self.generator)
+    host = toks.cpu().numpy().astype(np.int64)
+    for state in states:
+      self._advance(ctx, state, num_tokens)
+    return [host[i] for i in range(B)]
+
+  def _release_state_pages(self, ctx: _ShardContext, state: _RequestState) -> None:
+    """Return a finished or evicted request's page references to the pool."""
+    if ctx.page_pool is not None and state.pages is not None:
+      ctx.page_pool.decref(state.pages.live())
+      state.pages = None
+
+  def _vkv_window_release(self, ctx: _ShardContext, state: _RequestState) -> None:
+    """Sliding-window page reclamation: once every layer of the shard is windowed,
+    pages wholly behind the widest window can never be read again; their slots go to
+    the scratch page and the pages back to the pool. (No config the port serves yet
+    has a window: check_supported refuses them.)"""
+    w = vkv.freeable_window(ctx.cfg, ctx.shard.start_layer, ctx.shard.get_layer_count())
+    if w <= 0:
+      return
+    freed = state.pages.release_below(vkv.dead_page_count(state.pos, w, ctx.page_pool.page_size))
+    if freed:
+      ctx.page_pool.decref(freed)
+
+  def _defrag_sync(self, ctx: _ShardContext) -> int:
+    """One bounded compaction pass (batcher-idle slots, on the executor): copy the
+    highest used pages into the lowest free holes, then rewrite only the virtual
+    maps. Tables are resolved afresh at every dispatch, so no request sees the move.
+    Returns the pages moved."""
+    pool = ctx.page_pool
+    plan = pool.defrag_plan(max(1, knobs.get_int("XOT_KV_DEFRAG_MAX_MOVES")))
+    if not plan:
+      return 0
+    migrate_pages(pool.arena, [s for s, _ in plan], [d for _, d in plan])
+    mapping = dict(plan)
+    for st in ctx.states.values():
+      if st.pages is not None:
+        st.pages.remap(mapping)
+    pool.apply_moves(plan)
+    self.defrag_moves += len(plan)
+    return len(plan)
+
+  def page_pool_stats(self) -> Optional[Dict[str, int]]:
+    """Page-pool occupancy, or None when no pool exists."""
+    pool = self._ctx.page_pool if self._ctx is not None else None
+    if pool is None:
+      return None
+    return {"pages_in_use": pool.pages_in_use, "free_pages": pool.free_pages,
+            "peak_pages_in_use": pool.peak_pages_in_use,
+            "fragmentation": pool.fragmentation(), "defrag_moves": self.defrag_moves}
+
+  # ------------------------------------------------------------ KV state
 
   async def clear_request(self, request_id: str) -> None:
     def _clear() -> None:
       if self._ctx is not None:
-        self._ctx.states.pop(request_id, None)
+        self._drop_state(self._ctx, request_id)
     await self._run(_clear)
 
-  # ------------------------------------------------------------ KV state
+  def _drop_state(self, ctx: _ShardContext, request_id: str) -> None:
+    state = ctx.states.pop(request_id, None)
+    if state is not None:
+      self._release_state_pages(ctx, state)
+
+  def _admit(self, ctx: _ShardContext, request_id: str, state: _RequestState) -> _RequestState:
+    """Make `state` resident, evicting the least recently used states past
+    XOT_MAX_RESIDENT_REQUESTS (their pages go back to the pool)."""
+    ctx.states[request_id] = state
+    while len(ctx.states) > self.max_resident:
+      evicted, est = ctx.states.popitem(last=False)
+      self._release_state_pages(ctx, est)
+      if DEBUG >= 2:
+        print(f"Evicted request state {evicted}")
+    return state
 
   def _prep_state(self, ctx: _ShardContext, request_id: str, bucket: int) -> _RequestState:
     """State + capacity for `bucket` more tokens (the padded bucket, since the
@@ -357,14 +709,9 @@ class TorchShardInferenceEngine(InferenceEngine):
       while length < min_len and length < ctx.max_cache_len:
         length *= 2
       length = min(length, ctx.max_cache_len)
-      state = _RequestState(
+      state = self._admit(ctx, request_id, _RequestState(
         cache=init_kv_cache(ctx.cfg, ctx.shard.get_layer_count(), 1, length, self.dtype,
                             self.device),
-        pos=0, last_used=time.monotonic())
-      ctx.states[request_id] = state
-      while len(ctx.states) > MAX_RESIDENT_REQUESTS:
-        evicted, _ = ctx.states.popitem(last=False)
-        if DEBUG >= 2:
-          print(f"Evicted request state {evicted}")
+        pos=0, last_used=time.monotonic()))
     ctx.states.move_to_end(request_id)
     return state

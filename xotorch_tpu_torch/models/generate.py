@@ -1,14 +1,15 @@
-"""Forward + on-device sampling, and multi-token decode.
+"""Forward + on-device sampling, and multi-token decode, alone or batched.
 
-The port of xotorch_tpu/models/generate.py (`forward_sample`, `decode_chunk`).
-Where JAX ran the K decode steps under one `lax.scan`, the port runs a Python loop of
-K steps; sampled tokens stay on the device and feed the next step, so the host sees
-the chunk's tokens once, at its end. (Capturing the loop as a CUDA graph is later
-work.) The cache is updated in place where JAX donated it.
+The port of xotorch_tpu/models/generate.py (`forward_sample`, `decode_chunk`,
+`decode_chunk_batched`, `decode_chunk_paged`). Where JAX ran the K decode steps under
+one `lax.scan`, the port runs a Python loop of K steps; sampled tokens stay on the
+device and feed the next step, so the host sees the chunk's tokens once, at its end.
+(Capturing the loop as a CUDA graph is later work.) The cache, or the page arena, is
+updated in place where JAX donated it.
 """
 from __future__ import annotations
 
-from typing import Dict, Optional
+from typing import Dict, List, Optional, Sequence, Union
 
 import torch
 
@@ -39,13 +40,16 @@ def forward_sample(
   min_p: Optional[float] = None,
   generator: Optional[torch.Generator] = None,
   gumbel: Optional[torch.Tensor] = None,  # [B, V] noise for the sample
+  page_table: Optional[torch.Tensor] = None,  # [B, max_pages]: `cache` is the page arena
 ):
   """Last-shard forward + sampling: returns ([B] sampled token on the device, the
   cache), or ((tok, lp, top_ids, top_lps), cache) with `top_lp >= 0`. The
-  unembedding runs on the one position `last_index`, not the segment."""
+  unembedding runs on the one position `last_index`, not the segment. With
+  `page_table` the segment's K/V go straight into the request's pool pages."""
   h, cache = forward_shard(params, x, cache, start_pos, cfg=cfg, is_first=is_first,
                            is_last=False, use_flash=use_flash,
-                           use_flash_decode=use_flash_decode, start_layer=start_layer)
+                           use_flash_decode=use_flash_decode, start_layer=start_layer,
+                           page_table=page_table)
   logits = unembed(params, h[:, last_index:last_index + 1], cfg)[:, -1, :]
   kw = dict(temp=temp, top_k=top_k, top_p=top_p, bias=bias, counts=counts, presence=presence,
             frequency=frequency, min_p=min_p, generator=generator, gumbel=gumbel)
@@ -58,10 +62,10 @@ def decode_chunk(
   params,
   tok: torch.Tensor,  # [B, 1] last sampled token, on the device
   cache: Dict[str, torch.Tensor],
-  start_pos: int,  # absolute position of `tok`
+  start_pos: Union[int, torch.Tensor],  # absolute position of `tok`: int, or [B] per row
   cfg: ModelConfig,
   num_tokens: int,
-  temp: float,
+  temp: Union[float, torch.Tensor],  # one temperature, or [B] per row
   top_k: int,
   top_p: float = 0.0,
   use_flash_decode: bool = False,
@@ -73,6 +77,7 @@ def decode_chunk(
   min_p: Optional[float] = None,
   generator: Optional[torch.Generator] = None,
   gumbel: Optional[torch.Tensor] = None,  # [num_tokens, B, V] noise, one slice per step
+  page_table: Optional[torch.Tensor] = None,  # [B, max_pages]: `cache` is the page arena
 ):
   """Generate `num_tokens` tokens. The shard must span the whole model. Returns
   ([B, num_tokens] tokens on the device, the cache), plus the updated counts when
@@ -87,7 +92,8 @@ def decode_chunk(
   rows = torch.arange(tok.shape[0], device=tok.device)
   for i in range(num_tokens):
     logits, cache = forward_shard(params, tok, cache, start_pos + i, cfg=cfg, is_first=True,
-                                  is_last=True, use_flash_decode=use_flash_decode)
+                                  is_last=True, use_flash_decode=use_flash_decode,
+                                  page_table=page_table)
     kw = dict(temp=temp, top_k=top_k, top_p=top_p, bias=bias, counts=counts, presence=presence,
               frequency=frequency, min_p=min_p, generator=generator,
               gumbel=None if gumbel is None else gumbel[i])
@@ -107,3 +113,77 @@ def decode_chunk(
     lp, top_ids, top_lps = (torch.stack(r, dim=1) for r in zip(*reports))
     out.append((lp, top_ids, top_lps))
   return tuple(out)
+
+
+def _pad_rows(x: torch.Tensor, n: int, fill: Optional[torch.Tensor] = None) -> torch.Tensor:
+  """x with n more rows along dim 0: copies of `fill` (a one-row tensor), or zeros."""
+  if n == 0:
+    return x
+  pad = (fill.expand(n, *x.shape[1:]) if fill is not None
+         else torch.zeros((n,) + tuple(x.shape[1:]), dtype=x.dtype, device=x.device))
+  return torch.cat([x, pad], dim=0)
+
+
+def decode_chunk_batched(
+  params,
+  caches: Sequence[Dict[str, torch.Tensor]],  # B per-request caches, UNIFORM shapes
+  toks: torch.Tensor,  # [B, 1] each request's last sampled token
+  pos_vec: torch.Tensor,  # [B] per-request positions
+  cfg: ModelConfig,
+  num_tokens: int,
+  temps: torch.Tensor,  # [B] per-request temperatures
+  top_k: int,
+  top_p: float = 0.0,
+  use_flash_decode: bool = False,
+  pad_rows: int = 0,  # dummy rows padding B to a power of two
+  generator: Optional[torch.Generator] = None,
+  gumbel: Optional[torch.Tensor] = None,  # [num_tokens, B + pad_rows, V]
+):
+  """Batched decode for continuous batching: stack the requests' contiguous caches
+  along the batch axis, decode with per-row positions and temperatures, split the
+  updated caches back per request. Pad rows are zero caches replicating row 0's
+  token, position and temperature; their outputs are dropped. The stack and the
+  split each copy every member's cache (the JAX design, where one compiled program
+  fused them). Returns ([B, num_tokens] tokens, list of B updated caches)."""
+  B = len(caches)
+  stacked = {name: torch.cat([c[name] for c in caches]
+                             + [torch.zeros_like(caches[0][name])] * pad_rows, dim=1)
+             for name in caches[0]}
+  out, stacked = decode_chunk(
+    params, _pad_rows(toks, pad_rows, toks[:1]), stacked,
+    _pad_rows(pos_vec, pad_rows, pos_vec[:1]), cfg, num_tokens,
+    _pad_rows(temps, pad_rows, temps[:1]), top_k, top_p, use_flash_decode=use_flash_decode,
+    generator=generator, gumbel=gumbel)
+  split: List[Dict[str, torch.Tensor]] = [
+    {name: stacked[name][:, i:i + 1].clone() for name in stacked} for i in range(B)]
+  return out[:B], split
+
+
+def decode_chunk_paged(
+  params,
+  arena: Dict[str, torch.Tensor],  # shared page arena: [L, P, page, Hkv, D] leaves
+  page_table: torch.Tensor,  # [B, max_pages] int32 physical page ids (0-padded)
+  toks: torch.Tensor,  # [B, 1] each request's last sampled token
+  pos_vec: torch.Tensor,  # [B] per-request positions
+  cfg: ModelConfig,
+  num_tokens: int,
+  temps: torch.Tensor,  # [B] per-request temperatures
+  top_k: int,
+  top_p: float = 0.0,
+  pad_rows: int = 0,  # dummy rows padding B to a power of two
+  generator: Optional[torch.Generator] = None,
+  gumbel: Optional[torch.Tensor] = None,  # [num_tokens, B + pad_rows, V]
+):
+  """Batched decode over the PAGED KV pool: rows index the one shared arena through
+  their page tables, writes land in each row's current page, and reads stop at each
+  row's own occupied pages (K3). Batch membership is metadata: no stack, no split,
+  no common-length growth. Pad rows carry an all-zero table and position 0: their
+  writes land in the pool's scratch page 0 and their outputs are dropped. Returns
+  ([B, num_tokens] tokens, the arena, updated in place)."""
+  B = toks.shape[0]
+  table = _pad_rows(page_table, pad_rows)
+  out, arena = decode_chunk(
+    params, _pad_rows(toks, pad_rows, toks[:1]), arena, _pad_rows(pos_vec, pad_rows), cfg,
+    num_tokens, _pad_rows(temps, pad_rows, temps[:1]), top_k, top_p, generator=generator,
+    gumbel=gumbel, page_table=table.contiguous())
+  return out[:B], arena

@@ -4,18 +4,21 @@ The port of the dense-llama path of xotorch_tpu/models/transformer.py. Parameter
 keep the JAX package's layout (`params["layers"][name]` stacked along a leading layer
 axis, weights [in, out]) so the two packages' tensors map one to one
 (models/weights.params_from_jax). The KV cache is a [L, B, S, Hkv, D] buffer per
-leaf, written IN PLACE at the segment's position — where JAX donated the cache to the
-compiled step and got a new one back, the port updates the one buffer.
+leaf, or with a page table the shared page arena [L, P, page, Hkv, D]; either is
+written IN PLACE at each row's position — where JAX donated the cache to the compiled
+step and got a new one back, the port updates the one buffer.
 
 Attention on the card goes through the hand-written kernels: a prefill from
 position 0 (`use_flash`) through K1 (ops/flash_attention.py), decode steps and
-segments at pos > 0 (`use_flash_decode`) through K2 (ops/flash_decode.py). The plain
-`gqa_attention` path runs only on the CPU. Config flags this slice does not
-implement raise NotImplementedError instead of returning a wrong answer.
+segments at pos > 0 (`use_flash_decode`) through K2 (ops/flash_decode.py); over the
+page arena, decode steps through K3 and prefill segments through K4
+(ops/paged_attention.py). The plain `gqa_attention` path runs only on the CPU. Config
+flags this slice does not implement raise NotImplementedError instead of returning a
+wrong answer.
 """
 from __future__ import annotations
 
-from typing import Any, Dict, Tuple
+from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
 import torch.nn.functional as F
@@ -24,6 +27,7 @@ from xotorch_tpu_torch.models.config import ModelConfig
 from xotorch_tpu_torch.ops.attention import gqa_attention
 from xotorch_tpu_torch.ops.flash_attention import flash_attention
 from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention
+from xotorch_tpu_torch.ops.paged_attention import paged_decode_attention, paged_prefill_attention
 from xotorch_tpu_torch.ops.rope import apply_rope, rope_frequencies
 
 Params = Dict[str, Any]
@@ -81,13 +85,19 @@ def init_kv_cache(cfg: ModelConfig, num_layers: int, batch: int, max_seq: int,
 
 
 def _cache_write(cache: Dict[str, torch.Tensor], layer_idx: int, k: torch.Tensor, v: torch.Tensor,
-                 start_pos: int) -> None:
-  """Insert fresh K/V at start_pos, in place."""
+                 start_pos: Union[int, torch.Tensor], slots: Optional[torch.Tensor]) -> None:
+  """Insert fresh K/V at each row's position, in place: one slice for an int
+  `start_pos`, per-row [B, T] `slots` (already inside the cache) for a [B] tensor."""
   T, S = k.shape[1], cache["k"].shape[2]
-  if start_pos < 0 or start_pos + T > S:
-    raise ValueError(f"cache write [{start_pos}, {start_pos + T}) outside the {S}-slot cache")
-  cache["k"][layer_idx, :, start_pos:start_pos + T] = k.to(cache["k"].dtype)
-  cache["v"][layer_idx, :, start_pos:start_pos + T] = v.to(cache["v"].dtype)
+  if not torch.is_tensor(start_pos):
+    if start_pos < 0 or start_pos + T > S:
+      raise ValueError(f"cache write [{start_pos}, {start_pos + T}) outside the {S}-slot cache")
+    cache["k"][layer_idx, :, start_pos:start_pos + T] = k.to(cache["k"].dtype)
+    cache["v"][layer_idx, :, start_pos:start_pos + T] = v.to(cache["v"].dtype)
+    return
+  rows = torch.arange(k.shape[0], device=k.device)[:, None]
+  cache["k"][layer_idx][rows, slots] = k.to(cache["k"].dtype)
+  cache["v"][layer_idx][rows, slots] = v.to(cache["v"].dtype)
 
 
 def _cache_read(cache: Dict[str, torch.Tensor], layer_idx: int, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -95,9 +105,11 @@ def _cache_read(cache: Dict[str, torch.Tensor], layer_idx: int, dtype) -> Tuple[
 
 
 def _attention_block(layer: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor], layer_idx: int,
-                     positions: torch.Tensor, kv_valid_len: torch.Tensor, start_pos: int,
-                     q_start: torch.Tensor, cfg: ModelConfig, inv_freq: torch.Tensor,
-                     use_flash: bool, use_flash_decode: bool) -> torch.Tensor:
+                     positions: torch.Tensor, kv_valid_len: torch.Tensor,
+                     start_pos: Union[int, torch.Tensor], q_start: torch.Tensor, cfg: ModelConfig,
+                     inv_freq: torch.Tensor, use_flash: bool, use_flash_decode: bool,
+                     page_table: Optional[torch.Tensor] = None,
+                     slots: Any = None) -> torch.Tensor:
   B, T, _ = x.shape
   h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
   q = (h @ layer["wq"]).reshape(B, T, cfg.num_heads, cfg.head_dim)
@@ -105,7 +117,20 @@ def _attention_block(layer: Params, x: torch.Tensor, cache: Dict[str, torch.Tens
   v = (h @ layer["wv"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
   q = apply_rope(q, positions, inv_freq)
   k = apply_rope(k, positions, inv_freq)
-  _cache_write(cache, layer_idx, k, v, start_pos)
+  if page_table is not None:
+    # Paged KV: `cache` is the shared page arena. Position p of row b lands at
+    # (table[b, p // page], p % page) (`slots`); reads stop at each row's own
+    # occupied pages.
+    k_pages, v_pages = cache["k"][layer_idx], cache["v"][layer_idx]
+    pidx, off = slots
+    k_pages[pidx, off] = k.reshape(B * T, *k.shape[2:]).to(k_pages.dtype)
+    v_pages[pidx, off] = v.reshape(B * T, *v.shape[2:]).to(v_pages.dtype)
+    if T == 1:
+      attn = paged_decode_attention(q, k_pages, v_pages, page_table, kv_valid_len)
+    else:
+      attn = paged_prefill_attention(q, k_pages, v_pages, page_table, kv_valid_len)
+    return attn.reshape(B, T, cfg.num_heads * cfg.head_dim) @ layer["wo"]
+  _cache_write(cache, layer_idx, k, v, start_pos, slots)
   if use_flash:
     # Prefill from position 0: the fresh segment is the whole visible context, so
     # the kernel attends over the fresh k/v and never reads the cache.
@@ -123,36 +148,67 @@ def _attention_block(layer: Params, x: torch.Tensor, cache: Dict[str, torch.Tens
   return attn.reshape(B, T, cfg.num_heads * cfg.head_dim) @ layer["wo"]
 
 
+def _page_slots(page_table: torch.Tensor, positions: torch.Tensor, page: int):
+  """(physical page, slot) of every [B, T] position, flattened. Page indices are
+  clamped into the table, as JAX's mode="clip" scatter does: a batch's pad rows
+  (all-zero table, positions stepping from 0) then stay on the scratch page."""
+  B, T = positions.shape
+  if T > 1 and B != 1:
+    raise ValueError(f"paged prefill serves per-request segments (B == 1), got B={B}")
+  logical = torch.clamp(positions // page, max=page_table.shape[1] - 1)
+  pidx = torch.gather(page_table.to(torch.int64), 1, logical)
+  return pidx.reshape(-1), (positions % page).reshape(-1)
+
+
 def forward_shard(
   params: Params,
   x: torch.Tensor,  # [B, T] int tokens (first shard) or [B, T, H] hidden
   cache: Dict[str, torch.Tensor],
-  start_pos: int,  # absolute position of x[:, 0]
+  start_pos: Union[int, torch.Tensor],  # position of x[:, 0]: an int, or [B] per row
   cfg: ModelConfig,
   is_first: bool,
   is_last: bool,
   use_flash: bool = False,
   use_flash_decode: bool = False,
   start_layer: int = 0,
+  page_table: Optional[torch.Tensor] = None,  # [B, max_pages] int32: `cache` is the arena
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
   """Run one shard. Returns (hidden, or fp32 logits on the last shard; the cache,
-  updated in place). `use_flash` is valid only when start_pos == 0."""
+  updated in place). `use_flash` is valid only when start_pos == 0.
+
+  A [B] `start_pos` puts each row at its own depth (continuous batching): per-row
+  RoPE positions, cache slots and visible lengths. With `page_table`, `cache` is the
+  shared page arena (paged_cache.PagePool): decode steps (T == 1) attend through K3,
+  segments (T > 1, B == 1) through K4; `use_flash`/`use_flash_decode` are ignored."""
   check_supported(cfg)
-  if use_flash and start_pos != 0:
+  if use_flash and not (isinstance(start_pos, int) and start_pos == 0):
     raise ValueError("use_flash serves a prefill from position 0 only")
   h = params["embed"]["embedding"][x] if is_first else x
   B, T = h.shape[0], h.shape[1]
   device = h.device
-  positions = (start_pos + torch.arange(T, device=device))[None, :].expand(B, T)
-  kv_valid_len = torch.full((B,), start_pos + T, device=device)
-  q_start = torch.full((B,), start_pos, dtype=torch.int32, device=device)
+  steps = torch.arange(T, device=device)
+  if torch.is_tensor(start_pos):
+    q_start = start_pos.to(device=device, dtype=torch.int32)
+    positions = q_start.to(torch.int64)[:, None] + steps[None, :]
+    kv_valid_len = q_start + T
+  else:
+    positions = (start_pos + steps)[None, :].expand(B, T)
+    kv_valid_len = torch.full((B,), start_pos + T, dtype=torch.int32, device=device)
+    q_start = torch.full((B,), start_pos, dtype=torch.int32, device=device)
+  slots = None  # where the fresh K/V go, for the tensor-indexed writes
+  if page_table is not None:
+    slots = _page_slots(page_table, positions, cache["k"].shape[2])
+  elif torch.is_tensor(start_pos):
+    # Per-row writes stay inside the buffer (JAX's dynamic_update_slice clamps too);
+    # the engine sizes the cache so that real rows never reach the clamp.
+    slots = torch.clamp(positions, max=cache["k"].shape[2] - 1)
   inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling, device=device)
   stacked = params["layers"]
   _check_params(stacked)
   for i in range(stacked["wq"].shape[0]):
     layer = {name: w[i] for name, w in stacked.items()}
     h = h + _attention_block(layer, h, cache, i, positions, kv_valid_len, start_pos, q_start,
-                             cfg, inv_freq, use_flash, use_flash_decode)
+                             cfg, inv_freq, use_flash, use_flash_decode, page_table, slots)
     h = h + _dense_mlp(layer, rms_norm(h, layer["mlp_norm"], cfg.rms_norm_eps), cfg)
   if not is_last:
     return h, cache

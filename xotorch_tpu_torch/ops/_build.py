@@ -23,7 +23,7 @@ from typing import Dict, Iterable, List
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-KERNELS = ("flash_attention", "flash_decode")
+KERNELS = ("flash_attention", "flash_decode", "paged_attention")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC"]
 
@@ -35,6 +35,10 @@ SIGNATURES = {
   },
   "flash_decode": {
     "xot_flash_cached_attention_bf16": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, F, P],
+  },
+  "paged_attention": {
+    "xot_paged_decode_attention_bf16": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, P],
+    "xot_paged_prefill_attention_bf16": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, F, P],
   },
 }
 

@@ -1,0 +1,159 @@
+"""K3 and K4: grouped-query attention over the shared paged KV arena.
+
+The port of xotorch_tpu/ops/paged_attention.py (`paged_decode_attention`, K3, and
+the ragged path of `paged_prefill_attention`, K4). The paged pool
+(inference/torch_engine/paged_cache.py) stores every resident request's cache as
+fixed-size pages in ONE arena per layer; each batch row reaches its tokens through a
+page table and is read only up to its own occupied pages, not the batch maximum.
+
+The kernels are hand-written CUDA for Hopper (csrc/paged_attention.cu) and read each
+layer's arena [P, page, Hkv, D] in place. The plain PyTorch versions sit beside them:
+gather each row's pages into a contiguous view, then the shared masked attention
+(`gqa_attention`), as the JAX package's XLA path does. The wrappers take the plain
+version only for tensors on the CPU. Not ported: the int8 scale-page operands (with
+K2q, the KV-quant slice) and the per-shard tensor-parallel call.
+"""
+from __future__ import annotations
+
+import math
+from typing import Optional
+
+import torch
+
+from xotorch_tpu_torch.ops import _build
+from xotorch_tpu_torch.ops.attention import gqa_attention
+
+HEAD_DIMS = (16, 64, 128)
+PAGE_SIZES = (16, 128)
+MAX_GROUPS = 8  # K3: q heads per kv head one block holds
+MAX_ROWS = 64  # K4: q rows (positions x groups) per block
+
+
+def gather_paged_view(k_pages: torch.Tensor, v_pages: torch.Tensor, page_table: torch.Tensor):
+  """Each row's pages as a contiguous [B, maxp * page, Hkv, D] view (a copy). Padded
+  table slots gather the scratch page; their positions are masked downstream."""
+  B, maxp = page_table.shape
+  idx = page_table.to(torch.int64)
+  k = k_pages[idx].reshape(B, maxp * k_pages.shape[1], *k_pages.shape[2:])
+  v = v_pages[idx].reshape(B, maxp * v_pages.shape[1], *v_pages.shape[2:])
+  return k, v
+
+
+def paged_decode_attention_ref(q, k_pages, v_pages, page_table, lengths, window: int = 0,
+                               softcap: float = 0.0, scale: Optional[float] = None):
+  """Plain version of K3: row b's query, at position lengths[b] - 1, attends
+  positions [0, lengths[b]) of its pages (the last `window` of them when window > 0)."""
+  k, v = gather_paged_view(k_pages, v_pages, page_table)
+  lens = lengths.to(torch.int64)
+  return gqa_attention(q, k, v, (lens - 1)[:, None], kv_valid_len=lens, scale=scale,
+                       softcap=softcap, window=window)
+
+
+def paged_prefill_attention_ref(q, k_pages, v_pages, page_table, kv_valid_len, window: int = 0,
+                                softcap: float = 0.0, scale: Optional[float] = None):
+  """Plain version of K4: query t of row b, at position kv_valid_len[b] - T + t,
+  attends every occupied position at or before its own (above its own minus the
+  window when window > 0)."""
+  T = q.shape[1]
+  k, v = gather_paged_view(k_pages, v_pages, page_table)
+  lens = kv_valid_len.to(torch.int64)
+  pos = (lens - T)[:, None] + torch.arange(T, device=q.device)[None, :]
+  return gqa_attention(q, k, v, pos, kv_valid_len=lens, scale=scale, softcap=softcap,
+                       window=window)
+
+
+def _check(name: str, q, k_pages, v_pages, page_table, rows):
+  """Shapes, types and devices a kernel takes; raises ValueError on anything else."""
+  B, T, Hq, D = q.shape
+  P, page, Hkv = k_pages.shape[0], k_pages.shape[1], k_pages.shape[2]
+  if (k_pages.shape != (P, page, Hkv, D) or v_pages.shape != k_pages.shape or Hq % Hkv
+      or page_table.ndim != 2 or page_table.shape[0] != B or rows.shape != (B,)):
+    raise ValueError(f"{name}: shapes q{tuple(q.shape)} pages{tuple(k_pages.shape)} "
+                     f"v{tuple(v_pages.shape)} table{tuple(page_table.shape)} "
+                     f"rows{tuple(rows.shape)}")
+  for what, t in (("q", q), ("k_pages", k_pages), ("v_pages", v_pages)):
+    if t.dtype != torch.bfloat16 or t.device != q.device or not t.is_contiguous():
+      raise ValueError(f"{name}: {what} must be contiguous bf16 on {q.device}, "
+                       f"got {t.dtype} on {t.device}")
+  for what, t in (("page_table", page_table), ("lengths", rows)):
+    if t.dtype != torch.int32 or t.device != q.device or not t.is_contiguous():
+      raise ValueError(f"{name}: {what} must be contiguous int32 on {q.device}")
+  if D not in HEAD_DIMS or page not in PAGE_SIZES:
+    raise ValueError(f"{name}: built for head_dim {HEAD_DIMS} and page {PAGE_SIZES}, "
+                     f"got head_dim {D}, page {page}")
+  return B, T, Hq, D, P, page, Hkv
+
+
+def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                           page_table: torch.Tensor, lengths: torch.Tensor, window: int = 0,
+                           softcap: float = 0.0, scale: Optional[float] = None) -> torch.Tensor:
+  """K3. q [B, 1, Hq, D] over one layer's arena k/v [P, page, Hkv, D] through
+  page_table [B, maxp] int32; lengths [B] int32 counts each row's occupied positions
+  including this step. Returns [B, 1, Hq, D] in q's dtype.
+
+  CPU tensors take the plain version. CUDA tensors launch the kernel (bf16,
+  contiguous, int32 table and lengths on the same card) or raise. The caller
+  guarantees lengths[b] <= maxp * page."""
+  if q.device.type == "cpu":
+    return paged_decode_attention_ref(q, k_pages, v_pages, page_table, lengths, window=window,
+                                      softcap=softcap, scale=scale)
+  if q.device.type != "cuda":
+    raise ValueError(f"paged_decode_attention runs on cuda or cpu tensors, got {q.device}")
+  B, T, Hq, D, P, page, Hkv = _check("paged_decode_attention", q, k_pages, v_pages,
+                                     page_table, lengths)
+  if T != 1:
+    raise ValueError(f"paged_decode_attention: one query per row, got T={T}")
+  if Hq // Hkv > MAX_GROUPS:
+    raise ValueError(f"paged_decode_attention: {Hq // Hkv} q heads per kv head exceed {MAX_GROUPS}")
+  scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+  out = torch.empty_like(q)
+  lib = _build.load("paged_attention")
+  rc = lib.xot_paged_decode_attention_bf16(
+    q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
+    lengths.data_ptr(), out.data_ptr(), B, page_table.shape[1], P, page, Hq, Hkv, D,
+    int(window or 0), scale, float(softcap or 0.0), torch.cuda.current_stream(q.device).cuda_stream)
+  _build.check(rc, f"paged_decode_attention (B={B} maxp={page_table.shape[1]} P={P} "
+                   f"page={page} Hq={Hq} Hkv={Hkv} D={D})")
+  paged_decode_attention.launches += 1
+  return out
+
+
+paged_decode_attention.launches = 0
+
+
+def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
+                            page_table: torch.Tensor, kv_valid_len: torch.Tensor,
+                            window: int = 0, softcap: float = 0.0,
+                            scale: Optional[float] = None) -> torch.Tensor:
+  """K4. q [B, T, Hq, D], a ragged segment per row whose query t sits at absolute
+  position kv_valid_len[b] - T + t, over one layer's arena through page_table
+  [B, maxp] int32 (the segment's K/V already written). Returns [B, T, Hq, D].
+
+  CPU tensors take the plain version. CUDA tensors launch the kernel or raise. The
+  caller guarantees T <= kv_valid_len[b] <= maxp * page."""
+  if q.device.type == "cpu":
+    return paged_prefill_attention_ref(q, k_pages, v_pages, page_table, kv_valid_len,
+                                       window=window, softcap=softcap, scale=scale)
+  if q.device.type != "cuda":
+    raise ValueError(f"paged_prefill_attention runs on cuda or cpu tensors, got {q.device}")
+  B, T, Hq, D, P, page, Hkv = _check("paged_prefill_attention", q, k_pages, v_pages,
+                                     page_table, kv_valid_len)
+  groups = Hq // Hkv
+  if groups > MAX_ROWS:
+    raise ValueError(f"paged_prefill_attention: {groups} q heads per kv head exceed {MAX_ROWS}")
+  block_q = max(1, min(T, MAX_ROWS // groups))
+  scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+  out = torch.empty_like(q)
+  lib = _build.load("paged_attention")
+  rc = lib.xot_paged_prefill_attention_bf16(
+    q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
+    kv_valid_len.data_ptr(), out.data_ptr(), B, T, page_table.shape[1], P, page, Hq, Hkv, D,
+    block_q, int(window or 0), scale, float(softcap or 0.0),
+    torch.cuda.current_stream(q.device).cuda_stream)
+  _build.check(rc, f"paged_prefill_attention (B={B} T={T} maxp={page_table.shape[1]} P={P} "
+                   f"page={page} Hq={Hq} Hkv={Hkv} D={D} block_q={block_q})")
+  paged_prefill_attention.launches += 1
+  return out
+
+
+paged_prefill_attention.launches = 0

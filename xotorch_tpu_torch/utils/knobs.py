@@ -35,6 +35,15 @@ _DEFS: Tuple[Knob, ...] = (
   Knob("XOT_FLASH_BLOCK_K", "int", "128", "Flash-attention key/value block size."),
   Knob("XOT_FD_BLOCK_Q", "int", "128", "Flash-decode query-position block size."),
   Knob("XOT_FD_BLOCK_K", "int", "256", "Flash-decode key/value block size."),
+  Knob("XOT_MAX_RESIDENT_REQUESTS", "int", "8", "Max request states resident per shard context before LRU eviction."),
+  Knob("XOT_DECODE_BATCH", "int", "8", "Max concurrent requests fused into one batched decode dispatch."),
+  Knob("XOT_BATCH_WINDOW_MS", "float", "0", "Batching window (ms) the decode batcher waits to coalesce submitters; 0 = one event-loop tick."),
+  Knob("XOT_PAGED_KV", "bool", "0", "Serve decode from the shared paged KV pool instead of contiguous per-request caches."),
+  Knob("XOT_KV_PAGE", "int", "128", "Page size (tokens) of the paged KV pool."),
+  Knob("XOT_KV_POOL_TOKENS", "int", "0", "Total paged-pool capacity in tokens; 0 sizes it automatically."),
+  Knob("XOT_PAGED_PREFILL", "bool", "1", "Prefill straight into pool pages under XOT_PAGED_KV (no contiguous commit copy)."),
+  Knob("XOT_KV_DEFRAG", "bool", "1", "Page-pool defragmentation in batcher-idle slots: migrate high pages into low free holes and rewrite only the virtual maps."),
+  Knob("XOT_KV_DEFRAG_MAX_MOVES", "int", "8", "Max page migrations per idle defrag pass."),
 )
 
 REGISTRY: Dict[str, Knob] = {k.name: k for k in _DEFS}
