@@ -11,10 +11,13 @@ Phases, in order; any failure exits nonzero and prints no result line:
   3. kernels: each kernel at synthetic-llama-1b widths (Hq 32, Hkv 8, D 64) in bf16
      against its plain PyTorch version on the same inputs, with times of the kernel,
      the plain version and torch's scaled_dot_product_attention as a yardstick (the
-     paged kernels K3/K4 over shuffled page tables, page 128);
+     paged kernels K3/K4 over shuffled page tables, page 128); the quantized GEMVs
+     K5, K5v4 and K6 at the four projection shapes, rows 1 and 8, with one bf16
+     torch.matmul over the pre-dequantized weight as their yardstick;
   4. model: a two-layer cut of synthetic-llama-1b at full width, prefill and decode
      through the kernels in bf16 on the card against the plain path in fp32 on the
-     CPU: contiguous (K1, K2), then paged (K4 prefill, K3 decode at B=3);
+     CPU: contiguous (K1, K2), then paged (K4 prefill, K3 decode at B=3), then with
+     int4 weights through K5 and K5v4 and int8 weights through K6;
   5. main path: the port's server (main.py) serving synthetic-llama-1b at full width
      and depth answers three /v1/chat/completions requests over HTTP, with K1's and
      K2's launch counters read around that run, then one decode under the profiler;
@@ -25,12 +28,18 @@ Phases, in order; any failure exits nonzero and prints no result line:
      in use), then one B=8 decode chunk under the profiler;
   7. concurrent, contiguous: the same with XOT_PAGED_KV=0 (stacked caches, K1/K2),
      and the share of greedy tokens that agree with the paged phase;
-  8. the {"kernels": [...]} line, then the {"ok": true, ...} line last.
+  8. quantized serving: fresh servers with XOT_QUANTIZE=int4 (K5), int4 with
+     XOT_INT4_V=4 (K5v4) and int8 with XOT_INT8_KERNEL=1 (K6) answer the main path's
+     three requests, each kernel's launches equal to 7 projections x 16 layers x the
+     decode steps; each then decodes 32 steps at B=1 and B=8 under the profiler, as
+     does the engine alone on the int8 default path (no kernel);
+  9. the {"kernels": [...]} line, then the {"ok": true, ...} line last.
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
+import contextlib
 import json
 import math
 import os
@@ -42,6 +51,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 
 # Published dense peaks of one H100 SXM (NVIDIA data sheet) at its 700 W limit.
 PEAK_BF16_FLOPS = 989e12
+PEAK_INT8_OPS = 1979e12
 PEAK_HBM_BYTES = 3.35e12
 
 HQ, HKV, D = 32, 8, 64  # synthetic-llama-1b attention widths
@@ -55,13 +65,30 @@ def smi_line() -> str:
   return out.stdout.strip().splitlines()[0]
 
 
+@contextlib.contextmanager
+def phase_env(**env):
+  """Set XOT_* knobs for one phase and restore the environment after it."""
+  saved = {k: os.environ.get(k) for k in env}
+  os.environ.update(env)
+  try:
+    yield
+  finally:
+    for k, v in saved.items():
+      if v is None:
+        os.environ.pop(k, None)
+      else:
+        os.environ[k] = v
+
+
 _L2_FLUSH = []
 
 
 def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
   """Mean device time of one call, from CUDA events around each call, with the
   50 MB L2 flushed before each: on the main path a layer's operands arrive cold,
-  after the rest of the model's weights have streamed through."""
+  after the rest of the model's weights have streamed through. A short spin on the
+  card after the flush keeps it busy while the host enqueues the call, so a kernel
+  of a few microseconds is not timed with the host's launch latency."""
   import torch
   if not _L2_FLUSH:
     _L2_FLUSH.append(torch.empty(64 << 20, dtype=torch.uint8, device="cuda"))
@@ -71,6 +98,7 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
             for _ in range(iters)]
   for start, end in events:
     _L2_FLUSH[0].zero_()
+    torch.cuda._sleep(1_000_000)  # ~0.5 ms at the H100's clock
     start.record()
     fn()
     end.record()
@@ -78,8 +106,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
   return sum(start.elapsed_time(end) for start, end in events) / iters
 
 
-def bound(flops: float, nbytes: float):
-  t_ops, t_bytes = flops / PEAK_BF16_FLOPS, nbytes / PEAK_HBM_BYTES
+def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
+  t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
   return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -88,11 +116,11 @@ def visible(p: int, window: int) -> int:
   return p + 1 if window <= 0 else min(p + 1, window)
 
 
-def report(name, case, out, ref, ms, plain_ms, lib_ms, b_ms, b_by):
+def report(name, case, out, ref, ms, plain_ms, lib_ms, b_ms, b_by, atol=ATOL):
   err = (out.float() - ref.float()).abs().max().item()
   rel = err / max(ref.float().abs().max().item(), 1e-12)
-  ok = math.isfinite(err) and err <= ATOL
-  print(f"[{name}] {case}: max_abs_err={err:.3e} max_rel_err={rel:.3e} (atol {ATOL}) "
+  ok = math.isfinite(err) and err <= atol
+  print(f"[{name}] {case}: max_abs_err={err:.3e} max_rel_err={rel:.3e} (atol {atol:.3e}) "
         f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
         f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}", flush=True)
@@ -310,12 +338,83 @@ def check_only(name, case, out, ref) -> None:
     raise AssertionError(f"{name} {case}: kernel disagrees with its plain version ({err})")
 
 
-def check_model(torch) -> None:
+# synthetic-llama-1b's projections: (slot, in, out).
+QUANT_SHAPES = (("wq/wo", 2048, 2048), ("wk/wv", 2048, 512), ("w_gate/w_up", 2048, 8192),
+                ("w_down", 8192, 2048))
+QUANT_REL_TOL = 2.0 ** -7  # two bf16 roundings at the top of the output's range
+
+
+def check_quant_kernels(torch, results: dict) -> None:
+  """K5, K5v4 and K6 at the four projection shapes of synthetic-llama-1b, rows 1 and
+  8, against their plain versions on the same card inputs. Tolerance: 2^-7 of the
+  output's largest magnitude. The plain versions compute in fp32 and round to bf16
+  once; K6 and K5v4 quantize the activations with the same recipe bit for bit, so
+  only the order of fp32 sums (K5, K5v4) and the final rounding can differ. The
+  library yardstick is one torch.matmul of h by the same weight dequantized to bf16
+  beforehand: it reads 2x (int8) or 4x (int4) the weight bytes, and the port never
+  calls it."""
+  from xotorch_tpu_torch.models.quantize import (dequantize_tensor, dequantize_tensor_grouped,
+                                                 quantize_tensor, quantize_tensor_grouped)
+  from xotorch_tpu_torch.ops.int4_matmul import (int4_w4a8_matmul, int4_w4a8_matmul_ref,
+                                                 int4_w4a16_matmul, int4_w4a16_matmul_ref)
+  from xotorch_tpu_torch.ops.int8_matmul import int8_rowquant_matmul, int8_rowquant_matmul_ref
+
+  dev = torch.device("cuda")
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(3)
+  for slot, K, N in QUANT_SHAPES:
+    w = torch.randn(1, K, N, generator=gen, device=dev) * 0.02
+    q8, s8 = quantize_tensor(w[0], 0)
+    q4, s4 = quantize_tensor_grouped(w)
+    q4, s4 = q4[0], s4[0]
+    dense8 = dequantize_tensor(q8, s8, 0)
+    dense4 = dequantize_tensor_grouped(q4[None], s4[None])[0]
+    del w
+    G = s4.shape[0]
+    for rows in (1, 8):
+      h = torch.randn(rows, K, generator=gen, device=dev).to(torch.bfloat16)
+      io = 2 * rows * (K + N)  # h read, out written (bf16)
+      cases = (  # name, kernel, plain, operands, bytes, peak, yardstick weight
+        ("int4_w4a16_matmul", int4_w4a16_matmul, int4_w4a16_matmul_ref, (q4, s4),
+         io + K * N // 2 + 2 * G * N, PEAK_BF16_FLOPS, dense4),
+        ("int4_w4a8_matmul", int4_w4a8_matmul, int4_w4a8_matmul_ref, (q4, s4),
+         io + K * N // 2 + 2 * G * N, PEAK_INT8_OPS, dense4),
+        ("int8_rowquant_matmul", int8_rowquant_matmul, int8_rowquant_matmul_ref, (q8, s8),
+         io + K * N + 2 * N, PEAK_INT8_OPS, dense8),
+      )
+      for name, fn, ref_fn, ops, nbytes, peak, dense in cases:
+        out = fn(h, *ops)
+        torch.cuda.synchronize()
+        ref = ref_fn(h, *ops)
+        ms = time_ms(lambda: fn(h, *ops))
+        plain_ms = time_ms(lambda: ref_fn(h, *ops), iters=5)
+        lib_ms = time_ms(lambda: torch.matmul(h, dense))
+        b_ms, b_by = bound(2.0 * rows * K * N, nbytes, peak)
+        atol = QUANT_REL_TOL * ref.float().abs().max().item()
+        r = report(name, f"{slot} {K}->{N} rows={rows}", out, ref, ms, plain_ms, lib_ms, b_ms, b_by,
+                   atol=atol)
+        if (slot, rows) == ("w_gate/w_up", 1):
+          results[name] = r
+
+
+def cpu_copy(torch, params):
+  """The same tree on the CPU, floating leaves in fp32, quantized codes as they are."""
+  if isinstance(params, dict):
+    return {k: cpu_copy(torch, v) for k, v in params.items()}
+  return params.float().cpu() if params.is_floating_point() else params.cpu()
+
+
+def check_model(torch, fmt=None, env=None, kernel=None, limit=5e-2) -> None:
   """A two-layer cut of synthetic-llama-1b at full width: prefill (K1) and decode
-  (K2) in bf16 on the card against the plain path in fp32 on the CPU, same weights."""
+  (K2) in bf16 on the card against the plain path in fp32 on the CPU, same weights.
+  With `fmt` the weights are quantized on the card first and `env` routes the decode
+  projections: on the card through `kernel`, whose launches are counted (7 a layer
+  a step), on the CPU through the same function's plain version. `limit` bounds the
+  largest logit error as a share of the logits' range."""
   import dataclasses
   import numpy as np
   from xotorch_tpu_torch.models.config import config_from_hf_dict
+  from xotorch_tpu_torch.models.quantize import quantize_params
   from xotorch_tpu_torch.models.registry import get_model_card
   from xotorch_tpu_torch.models.transformer import forward_shard, init_kv_cache, init_random_params
 
@@ -323,19 +422,21 @@ def check_model(torch) -> None:
     config_from_hf_dict(get_model_card("synthetic-llama-1b")["synthetic_config"]), num_layers=2)
   dev = torch.device("cuda")
   params = init_random_params(cfg, 2, True, True, seed=0, dtype=torch.bfloat16, device=dev)
-  params_cpu = {k: ({kk: vv.float().cpu() for kk, vv in v.items()} if isinstance(v, dict)
-                    else v.float().cpu()) for k, v in params.items()}
+  if fmt:
+    params = quantize_params(params, fmt, scale_dtype=torch.bfloat16, inplace=True)
+  params_cpu = cpu_copy(torch, params)
   tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(1, 100))
   x = torch.as_tensor(tokens, device=dev)
   x_cpu = torch.as_tensor(tokens)
   cache = init_kv_cache(cfg, 2, 1, 256, torch.bfloat16, dev)
   cache_cpu = init_kv_cache(cfg, 2, 1, 256, torch.float32, "cpu")
   worst = 0.0
-  with torch.inference_mode():
+  with phase_env(**(env or {})), torch.inference_mode():
     logits, _ = forward_shard(params, x, cache, 0, cfg, True, True, use_flash=True)
     ref, _ = forward_shard(params_cpu, x_cpu, cache_cpu, 0, cfg, True, True)
     steps = [(logits[0, -8:].float().cpu(), ref[0, -8:])]
     tok = int(ref[0, -1].argmax())
+    before = kernel.launches if kernel else 0
     for i in range(8):
       step = torch.tensor([[tok]])
       logits, _ = forward_shard(params, step.to(dev), cache, 100 + i, cfg, True, True,
@@ -343,15 +444,19 @@ def check_model(torch) -> None:
       ref, _ = forward_shard(params_cpu, step, cache_cpu, 100 + i, cfg, True, True)
       steps.append((logits[0].float().cpu(), ref[0]))
       tok = int(ref[0, -1].argmax())
+    launched = kernel.launches - before if kernel else 0
   for got, want in steps:
     if not bool(torch.isfinite(got).all()):
       raise AssertionError("model: non-finite logits on the card")
     worst = max(worst, ((got - want).abs().max() / want.abs().max()).item())
   # bf16 weights are shared; the card keeps activations in bf16 over two layers.
-  print(f"[model] 2-layer synthetic-llama-1b cut, prefill 100 + decode 8: max logit error "
-        f"{worst:.3e} of the logits' range (limit 5e-2) {'ok' if worst < 5e-2 else 'FAIL'}", flush=True)
-  if not worst < 5e-2:
-    raise AssertionError(f"model: card logits disagree with the CPU reference ({worst})")
+  what = "" if not fmt else f", {fmt} weights, {env} ({kernel.__name__} x{launched})"
+  ok = worst < limit and (not kernel or launched == 7 * 2 * 8)
+  print(f"[model] 2-layer synthetic-llama-1b cut{what}, prefill 100 + decode 8: max logit error "
+        f"{worst:.3e} of the logits' range (limit {limit:g}) {'ok' if ok else 'FAIL'}", flush=True)
+  if not ok:
+    raise AssertionError(f"model: card logits disagree with the CPU reference ({worst}) or the "
+                         f"kernel ran {launched} times, not 112")
 
 
 def check_paged_model(torch) -> None:
@@ -371,8 +476,7 @@ def check_paged_model(torch) -> None:
     config_from_hf_dict(get_model_card("synthetic-llama-1b")["synthetic_config"]), num_layers=2)
   dev = torch.device("cuda")
   params = init_random_params(cfg, 2, True, True, seed=0, dtype=torch.bfloat16, device=dev)
-  params_cpu = {k: ({kk: vv.float().cpu() for kk, vv in v.items()} if isinstance(v, dict)
-                    else v.float().cpu()) for k, v in params.items()}
+  params_cpu = cpu_copy(torch, params)
   rng = np.random.default_rng(1)
   lengths, steps, page, P = (100, 37, 260), 8, 128, 16
   prompts = [rng.integers(0, cfg.vocab_size, size=(1, n)) for n in lengths]
@@ -453,14 +557,15 @@ def http_stream(url: str, body, timeout: float = 300.0):
 
 
 async def profile_decode(torch, engine, model: str, classname: str, card: str,
-                         batch: int = 1) -> None:
+                         batch: int = 1, tag: str = "profile", focus: str = "") -> dict:
   """Where a decode chunk's time goes: 32 greedy tokens for each of `batch` requests
   after a 514-token prompt (one batched dispatch when batch > 1), timed once alone
   and once under torch.profiler (CUDA activity). Prints both wall times, the share
-  of the profiled one the card spent in kernels, and the kernels by device time."""
+  of the profiled one the card spent in kernels, the share of kernels whose name
+  holds `focus`, and the kernels by device time. Returns the numbers."""
   if engine.device.type != "cuda":
-    print("[profile] no card: busy share not measured", flush=True)
-    return
+    print(f"[{tag}] no card: busy share not measured", flush=True)
+    return {}
   import numpy as np
   from torch.profiler import ProfilerActivity, profile
   from xotorch_tpu_torch.models.registry import build_full_shard
@@ -499,40 +604,30 @@ async def profile_decode(torch, engine, model: str, classname: str, card: str,
     if us > 0:
       rows.append((us / 1e3, evt.key, evt.count))
   if not rows:
-    print("[profile] the trace holds no device time: busy share not measured", flush=True)
-    return
+    print(f"[{tag}] the trace holds no device time: busy share not measured", flush=True)
+    return {}
   rows.sort(reverse=True)
   busy = sum(r[0] for r in rows)
   launches = sum(r[2] for r in rows)
-  print(f"[profile] B={batch} ({widths}), decode {n} tokens per row after a 514-token prompt: "
-        f"{plain_ms:.2f} ms without the profiler ({batch * n / plain_ms * 1e3:.1f} tok/s); "
+  focus_ms = sum(r[0] for r in rows if focus and focus in r[1])
+  out = {"tok_s": batch * n / plain_ms * 1e3, "step_ms": plain_ms / n, "busy_pct": 100 * busy / wall_ms,
+         "kernels_per_step": launches / n, "focus_pct": 100 * focus_ms / busy}
+  print(f"[{tag}] B={batch} ({widths}), decode {n} tokens per row after a 514-token prompt: "
+        f"{plain_ms:.2f} ms without the profiler ({out['tok_s']:.1f} tok/s); "
         f"wall {wall_ms:.2f} ms ({batch * n / wall_ms * 1e3:.1f} tok/s under the profiler), "
-        f"kernels {busy:.2f} ms = {100 * busy / wall_ms:.1f}% busy, "
-        f"{100 - 100 * busy / wall_ms:.1f}% idle, {launches / n:.0f} device kernels per step "
-        f"({card})", flush=True)
+        f"kernels {busy:.2f} ms = {out['busy_pct']:.1f}% busy, "
+        f"{100 - out['busy_pct']:.1f}% idle, {out['kernels_per_step']:.0f} device kernels per step"
+        + (f", {focus} {focus_ms:.3f} ms = {out['focus_pct']:.1f}% of device time" if focus else "")
+        + f" ({card})", flush=True)
   for ms, name, count in rows[:10]:
-    print(f"[profile]   {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{count:<5d} {name[:90]}", flush=True)
+    print(f"[{tag}]   {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{count:<5d} {name[:90]}", flush=True)
+  return out
 
 
-def drive_main_path(torch, card: str, device: str = "cuda",
-                    model: str = "synthetic-llama-1b") -> dict:
-  """The port's server on `model` (synthetic-llama-1b: bf16, full width and depth,
-  on the card) answers three chat completions over HTTP. Returns the kernels'
-  launch counts. (`device` and `model` let the same phase be rehearsed on the CPU
-  with a small card.)"""
-  from xotorch_tpu_torch import main as port_main
-  from xotorch_tpu_torch.models.registry import build_full_shard, get_model_card
-  from xotorch_tpu_torch.ops.flash_attention import flash_attention
-  from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention
-
-  os.environ["XOT_PAGED_KV"] = "0"
-  os.environ["XOT_PREFILL_CHUNK"] = "1024"  # so the long prompt runs K2's T > 1 path
-  args = port_main.build_parser().parse_args(
-    ["--device", device, "--default-model", model, "--chatgpt-api-host", "127.0.0.1",
-     "--chatgpt-api-port", "0", "--chatgpt-api-response-timeout", "600"])
-  node, engine, classname, api = port_main.build_node(args)
+def main_requests(model: str):
+  """The main path's three chat completions: (label, body)."""
   words = lambda n: " ".join(f"w{i % 97}" for i in range(n))
-  requests = [  # (label, body)
+  return [
     ("512-word prompt, 64 tokens", {"model": model, "temperature": 0, "max_tokens": 64,
                                     "messages": [{"role": "user", "content": words(512)}]}),
     ("streaming, 64 tokens", {"model": model, "max_tokens": 64, "stream": True,
@@ -543,69 +638,147 @@ def drive_main_path(torch, card: str, device: str = "cuda",
       "messages": [{"role": "user", "content": words(1500)}]}),
   ]
 
-  async def drive():
-    server = await api.start("127.0.0.1", 0)
-    port = server.sockets[0].getsockname()[1]
-    base = f"http://127.0.0.1:{port}"
-    loop = asyncio.get_running_loop()
-    try:
-      t0 = time.perf_counter()
-      await engine.ensure_shard(build_full_shard(model, classname))
-      print(f"[main] {model} loaded (random {engine.dtype} weights on {device}) in "
-            f"{time.perf_counter() - t0:.1f} s", flush=True)
-      health = await loop.run_in_executor(None, http_json, base + "/healthcheck")
-      listed = await loop.run_in_executor(None, http_json, base + "/v1/models")
-      if health.get("status") != "ok" or model not in [m["id"] for m in listed["data"]]:
-        raise AssertionError(f"main: healthcheck {health} / models {listed}")
-      # Warm-up: each request once with 2 tokens, so the measured run below pays no
-      # first-use costs (lazy CUDA module loading, cuBLAS heuristics per shape).
-      t0 = time.perf_counter()
-      for _, body in requests:
-        warm = {**body, "max_tokens": 2, "stream": False}
-        await loop.run_in_executor(None, http_json, base + "/v1/chat/completions", warm)
-      print(f"[main] warm-up: 3 requests in {time.perf_counter() - t0:.2f} s", flush=True)
-      flash_attention.launches = 0
-      flash_cached_attention.launches = 0
-      decoded = 0
-      for label, body in requests:
-        url = base + "/v1/chat/completions"
-        t0 = time.perf_counter()
-        if body.get("stream"):
-          events, first, last = await loop.run_in_executor(None, http_stream, url, body)
-          usage = events[-1].get("usage") or {}
-          finish = [c["finish_reason"] for e in events for c in e.get("choices", [])
-                    if c.get("finish_reason")]
-          n = usage.get("completion_tokens", 0)
-          rate = (n - 1) / (last - first) if n > 1 and last > first else float("nan")
-          timing = f"TTFT {first * 1e3:.1f} ms, decode {rate:.1f} tok/s"
-        else:
-          resp = await loop.run_in_executor(None, http_json, url, body)
-          n = resp["usage"]["completion_tokens"]
-          finish = [resp["choices"][0]["finish_reason"]]
-          timing = f"end to end {(time.perf_counter() - t0) * 1e3:.1f} ms"
-        want = body["max_tokens"]
-        ok = n == want and finish == ["length"]
-        print(f"[main] {label}: {n} tokens, finish {finish}, {timing} ({card}) "
-              f"{'ok' if ok else 'FAIL'}", flush=True)
-        if not ok:
-          raise AssertionError(f"main: {label} returned {n} tokens ({finish}), wanted {want}")
-        decoded += n - 1  # the first token comes from the prefill
-      counts = (decoded, flash_attention.launches, flash_cached_attention.launches)
-      await profile_decode(torch, engine, model, classname, card)
-      return counts
-    finally:
-      server.close()
-      await server.wait_closed()
-      await node.stop()
 
-  decoded, k1, k2 = asyncio.run(drive())
-  engine.executor.shutdown(wait=True)
+def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthetic-llama-1b",
+                    kernels=None, env=None, tag: str = "main", profiles=(1,),
+                    focus: str = "") -> dict:
+  """The port's server on `model` (synthetic-llama-1b: full width and depth, on the
+  card) answers three chat completions over HTTP, with `env` (XOT_* knobs, e.g. the
+  quantized formats) set for the phase. Every counter of `kernels` (default K1, K2)
+  is set to 0 just before the three requests and read just after; then a decode
+  chunk runs under the profiler at each batch size of `profiles`. Returns the
+  launch counts, the decode steps the batcher ran for the three requests and the
+  profiles. (`device` and `model` let the same phase be rehearsed on the CPU with a
+  small card.)"""
+  from xotorch_tpu_torch import main as port_main
+  from xotorch_tpu_torch.models.registry import build_full_shard
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention
+  from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention
+
+  kernels = kernels or (flash_attention, flash_cached_attention)
+  env = {"XOT_PAGED_KV": "0",
+         "XOT_PREFILL_CHUNK": "1024",  # so the long prompt runs K2's T > 1 path
+         **(env or {})}
+  with phase_env(**env):
+    args = port_main.build_parser().parse_args(
+      ["--device", device, "--default-model", model, "--chatgpt-api-host", "127.0.0.1",
+       "--chatgpt-api-port", "0", "--chatgpt-api-response-timeout", "600"])
+    node, engine, classname, api = port_main.build_node(args)
+    requests = main_requests(model)
+
+    async def drive():
+      server = await api.start("127.0.0.1", 0)
+      port = server.sockets[0].getsockname()[1]
+      base = f"http://127.0.0.1:{port}"
+      loop = asyncio.get_running_loop()
+      try:
+        t0 = time.perf_counter()
+        await engine.ensure_shard(build_full_shard(model, classname))
+        print(f"[{tag}] {model} loaded (random {engine.dtype} weights, quantize={engine.quantize}, "
+              f"on {device}) in {time.perf_counter() - t0:.1f} s", flush=True)
+        health = await loop.run_in_executor(None, http_json, base + "/healthcheck")
+        listed = await loop.run_in_executor(None, http_json, base + "/v1/models")
+        if health.get("status") != "ok" or model not in [m["id"] for m in listed["data"]]:
+          raise AssertionError(f"{tag}: healthcheck {health} / models {listed}")
+        # Warm-up: each request once with 2 tokens, so the measured run below pays no
+        # first-use costs (lazy CUDA module loading, cuBLAS heuristics per shape).
+        t0 = time.perf_counter()
+        for _, body in requests:
+          warm = {**body, "max_tokens": 2, "stream": False}
+          await loop.run_in_executor(None, http_json, base + "/v1/chat/completions", warm)
+        print(f"[{tag}] warm-up: 3 requests in {time.perf_counter() - t0:.2f} s", flush=True)
+        batcher = engine._ctx.batcher
+        batcher.dispatches = batcher.rows = batcher.steps = 0
+        for k in kernels:
+          k.launches = 0
+        decoded = 0
+        for label, body in requests:
+          url = base + "/v1/chat/completions"
+          t0 = time.perf_counter()
+          if body.get("stream"):
+            events, first, last = await loop.run_in_executor(None, http_stream, url, body)
+            usage = events[-1].get("usage") or {}
+            finish = [c["finish_reason"] for e in events for c in e.get("choices", [])
+                      if c.get("finish_reason")]
+            n = usage.get("completion_tokens", 0)
+            rate = (n - 1) / (last - first) if n > 1 and last > first else float("nan")
+            timing = f"TTFT {first * 1e3:.1f} ms, decode {rate:.1f} tok/s"
+          else:
+            resp = await loop.run_in_executor(None, http_json, url, body)
+            n = resp["usage"]["completion_tokens"]
+            finish = [resp["choices"][0]["finish_reason"]]
+            timing = f"end to end {(time.perf_counter() - t0) * 1e3:.1f} ms"
+          want = body["max_tokens"]
+          ok = n == want and finish == ["length"]
+          print(f"[{tag}] {label}: {n} tokens, finish {finish}, {timing} ({card}) "
+                f"{'ok' if ok else 'FAIL'}", flush=True)
+          if not ok:
+            raise AssertionError(f"{tag}: {label} returned {n} tokens ({finish}), wanted {want}")
+          decoded += n - 1  # the first token comes from the prefill
+        counts = {k.__name__: k.launches for k in kernels}
+        steps = batcher.steps
+        profiled = {}
+        for b in profiles:
+          profiled[b] = await profile_decode(torch, engine, model, classname, card, batch=b,
+                                             tag=tag, focus=focus)
+        return counts, decoded, steps, profiled
+      finally:
+        server.close()
+        await server.wait_closed()
+        await node.stop()
+
+    try:
+      counts, decoded, steps, profiled = asyncio.run(drive())
+    finally:
+      engine.executor.shutdown(wait=True)
+  print(f"[{tag}] launches: {counts} ({decoded} decoded tokens, {steps} decode steps)", flush=True)
+  return {"launches": counts, "decoded": decoded, "steps": steps, "profiles": profiled}
+
+
+def quant_phases():
+  """(format, knobs, kernel wrapper, kernel name in the profile) of each quantized
+  serving phase: int4 through K5, int4 with XOT_INT4_V=4 through K5v4, int8 with
+  XOT_INT8_KERNEL=1 through K6."""
+  from xotorch_tpu_torch.ops.int4_matmul import int4_w4a8_matmul, int4_w4a16_matmul
+  from xotorch_tpu_torch.ops.int8_matmul import int8_rowquant_matmul
+  return (("int4", {}, int4_w4a16_matmul, "w4a16_kernel"),
+          ("int4", {"XOT_INT4_V": "4"}, int4_w4a8_matmul, "w4a8_kernel"),
+          ("int8", {"XOT_INT8_KERNEL": "1"}, int8_rowquant_matmul, "w8a8_kernel"))
+
+
+def drive_quantized(torch, card: str, fmt: str, env: dict, kernel, focus: str,
+                    device: str = "cuda", model: str = "synthetic-llama-1b") -> dict:
+  """A fresh server with XOT_QUANTIZE=`fmt` and `env` answers the main path's three
+  requests; every decode step's 7 projections a layer go through `kernel`, so its
+  launches must equal 7 x layers x the decode steps. Then B=1 and B=8 profiles."""
+  from xotorch_tpu_torch.models.registry import get_model_card
+  tag = f"{fmt} {kernel.__name__}" + (" XOT_INT4_V=4" if env.get("XOT_INT4_V") == "4" else "")
+  run = drive_main_path(torch, card, device=device, model=model, kernels=(kernel,),
+                        env={"XOT_QUANTIZE": fmt, **env}, tag=tag, profiles=(1, 8), focus=focus)
   layers = get_model_card(model)["layers"]
-  print(f"[main] launches: flash_attention {k1}, flash_cached_attention {k2} "
-        f"({decoded} decoded tokens x {layers} layers = {decoded * layers})", flush=True)
-  if k1 < 3 * layers or k2 < layers * decoded:
-    raise AssertionError(f"main: kernel launches too few (K1 {k1}, K2 {k2})")
-  return {"flash_attention": k1, "flash_cached_attention": k2}
+  launched, want = run["launches"][kernel.__name__], 7 * layers * run["steps"]
+  ok = launched == want and run["steps"] >= run["decoded"]
+  print(f"[{tag}] {kernel.__name__} launches {launched} = 7 projections x {layers} layers x "
+        f"{run['steps']} decode steps ({want}) {'ok' if ok else 'FAIL'}", flush=True)
+  if not ok:
+    raise AssertionError(f"{tag}: {launched} launches of {kernel.__name__}, wanted {want}")
+  return run
+
+
+def drive_engine_alone(torch, card: str, env: dict, tag: str, focus: str = "",
+                       model: str = "synthetic-llama-1b") -> dict:
+  """The engine without a server, built under `env`: B=1 and B=8 profiles only."""
+  from xotorch_tpu_torch.inference.torch_engine.engine import TorchShardInferenceEngine
+  from xotorch_tpu_torch.models.registry import TORCH
+  with phase_env(**env):
+    engine = TorchShardInferenceEngine(device="cuda", seed=0)
+    try:
+      async def drive():
+        return {b: await profile_decode(torch, engine, model, TORCH, card, batch=b, tag=tag,
+                                        focus=focus) for b in (1, 8)}
+      return asyncio.run(drive())
+    finally:
+      engine.executor.shutdown(wait=True)
 
 
 CONCURRENT_WORDS = (64, 128, 256, 300, 514, 1000, 1502, 2000)
@@ -710,20 +883,20 @@ def drive_concurrent(torch, card: str, paged: bool, device: str = "cuda",
           raise AssertionError(f"paged: {stats['pages_in_use']} pool pages left in use")
       elif counts["flash_cached_attention"] < steps * layers or counts["paged_decode_attention"]:
         raise AssertionError(f"contiguous: launches {counts} disagree with {steps} decode steps")
-      await profile_decode(torch, engine, model, classname, card, batch=len(bodies))
+      profiled = await profile_decode(torch, engine, model, classname, card, batch=len(bodies))
       by_words = sorted(prompt_of, key=lambda rid: len(prompt_of[rid].split()))
       greedy = {CONCURRENT_WORDS[i]: tokens_of[rid] for i, rid in enumerate(by_words)
                 if bodies[i]["temperature"] == 0.0}
-      return counts, greedy
+      return counts, greedy, profiled
     finally:
       pool.shutdown(wait=True)
       server.close()
       await server.wait_closed()
       await node.stop()
 
-  counts, greedy = asyncio.run(drive())
+  counts, greedy, profiled = asyncio.run(drive())
   engine.executor.shutdown(wait=True)
-  return {"launches": counts, "greedy": greedy}
+  return {"launches": counts, "greedy": greedy, "profile": profiled}
 
 
 async def wait_idle(engine, timeout: float = 30.0) -> None:
@@ -766,6 +939,7 @@ def main(argv=None) -> int:
   # Phase 3: kernels against their plain versions.
   results: dict = {}
   check_kernels(torch, results)
+  check_quant_kernels(torch, results)
   if args.kernels_only:
     print(f"kernels ok on {card}", flush=True)
     return 0
@@ -773,9 +947,22 @@ def main(argv=None) -> int:
   # Phase 4: the model through the kernels against the plain path.
   check_model(torch)
   check_paged_model(torch)
+  for fmt, env, kernel, _ in quant_phases():
+    # force: the card's decode rows through the kernel, the CPU's through its plain
+    # version. K5v4 and K6 quantize their activations to int8, bf16 ones on the card
+    # and fp32 ones on the CPU: a value near a step of the int8 grid takes another
+    # code on each side, an error of max|a|/127 where bf16 alone rounds at 2^-9 of
+    # the value, so their cuts get twice the exact kernels' limit.
+    knob = "XOT_INT4_KERNEL" if fmt == "int4" else "XOT_INT8_KERNEL"
+    a8 = kernel.__name__ != "int4_w4a16_matmul"
+    check_model(torch, fmt, {**env, knob: "force"}, kernel, limit=1e-1 if a8 else 5e-2)
 
   # Phase 5: the main path, with the launch counters read around it.
-  launches = drive_main_path(torch, card)
+  main_run = drive_main_path(torch, card)
+  launches = dict(main_run["launches"])
+  k1, k2 = launches["flash_attention"], launches["flash_cached_attention"]
+  if k1 < 3 * 16 or k2 < 16 * main_run["decoded"]:
+    raise AssertionError(f"main: kernel launches too few (K1 {k1}, K2 {k2})")
 
   # Phases 6 and 7: eight concurrent requests on the page pool (K4 prefill, K3
   # decode), then on stacked contiguous caches (K1/K2).
@@ -792,7 +979,23 @@ def main(argv=None) -> int:
         f"{same}/{total} = {100 * same / max(total, 1):.1f}% (bf16: streams may part at a "
         f"near-tie; not asserted)", flush=True)
 
-  # Phase 8: results.
+  # Phase 8: quantized serving. Fresh servers under XOT_QUANTIZE answer the main
+  # path's three requests through K5, K5v4 and K6 (launches = 7 x 16 x decode steps),
+  # then the int8 default path (no kernel) runs in the engine alone.
+  rates = {"bf16": {**main_run["profiles"], 8: contiguous["profile"]}}
+  for fmt, env, kernel, focus in quant_phases():
+    run = drive_quantized(torch, card, fmt, env, kernel, focus)
+    launches.update(run["launches"])
+    rates[f"{fmt} {kernel.__name__}"] = run["profiles"]
+  rates["int8 default path"] = drive_engine_alone(
+    torch, card, {"XOT_QUANTIZE": "int8", "XOT_INT8_KERNEL": "0"}, "int8 default path")
+  for label, prof in rates.items():
+    cells = ", ".join(f"B={b}: {p['tok_s']:.1f} tok/s ({p['step_ms']:.2f} ms a step, "
+                      f"{100 - p['busy_pct']:.1f}% idle, kernel {p['focus_pct']:.1f}%)"
+                      for b, p in prof.items() if p)
+    print(f"[quantized] {label}: {cells or 'not measured'} ({card})", flush=True)
+
+  # Phase 9: results.
   meta = {
     "flash_attention": ("xotorch_tpu_torch/csrc/flash_attention.cu",
                         "xotorch_tpu/ops/flash_attention.py:54"),
@@ -802,6 +1005,12 @@ def main(argv=None) -> int:
                                "xotorch_tpu/ops/paged_attention.py:129"),
     "paged_prefill_attention": ("xotorch_tpu_torch/csrc/paged_attention.cu",
                                 "xotorch_tpu/ops/paged_attention.py:276"),
+    "int4_w4a16_matmul": ("xotorch_tpu_torch/csrc/quant_matvec.cu",
+                          "xotorch_tpu/ops/int4_matmul.py:46"),
+    "int4_w4a8_matmul": ("xotorch_tpu_torch/csrc/quant_matvec.cu",
+                         "xotorch_tpu/ops/int4_matmul.py:122"),
+    "int8_rowquant_matmul": ("xotorch_tpu_torch/csrc/quant_matvec.cu",
+                             "xotorch_tpu/ops/int8_matmul.py:43"),
   }
   kernels = []
   for name, (source, replaces) in meta.items():

@@ -2,7 +2,10 @@
 
 The port of the single-shard subset of xotorch_tpu/inference/jax_engine/engine.py:
 
-- `ensure_shard` loads a shard (synthetic cards: random weights from a seed);
+- `ensure_shard` loads a shard (synthetic cards: random weights from a seed),
+  quantized on the device under `quantize=` / XOT_QUANTIZE (int8 or int4): decode
+  projections then run the quantized GEMV kernels K5, K5v4 and K6
+  (models/transformer._linear);
 - `infer_sample_tensor` prefills in XOT_PREFILL_CHUNK segments, each padded to a
   power-of-two bucket, and samples the first token on the device. On a contiguous
   cache the first segment of a fresh request goes to the prefill kernel (K1), later
@@ -22,8 +25,9 @@ asyncio lock serialises shard loads. The engine reads its knobs when it is built
 It runs on `cuda` unless the caller passes device="cpu" (the tests do), and raises
 when no GPU is present rather than falling back to the CPU.
 
-Left out of this slice: the prefix cache, the host KV tier, co-scheduled prefill,
-speculative and overlapped chunks, sampling extras and the ring paths.
+Left out of this slice: the int8 KV cache (XOT_KV_QUANT raises), the prefix cache,
+the host KV tier, co-scheduled prefill, speculative and overlapped chunks, sampling
+extras and the ring paths.
 """
 from __future__ import annotations
 
@@ -46,6 +50,7 @@ from xotorch_tpu_torch.inference.torch_engine.vkv import VirtualKV
 from xotorch_tpu_torch.models.config import ModelConfig, config_from_hf_dict
 from xotorch_tpu_torch.models.generate import (decode_chunk, decode_chunk_batched, decode_chunk_paged,
                                                forward_sample)
+from xotorch_tpu_torch.models.quantize import QUANT_DTYPES, quantize_params
 from xotorch_tpu_torch.models.registry import get_model_card
 from xotorch_tpu_torch.models.transformer import forward_shard, init_kv_cache, init_random_params
 from xotorch_tpu_torch.ops.sampling import DEFAULT_TEMP, DEFAULT_TOP_K, sample_logits
@@ -198,10 +203,22 @@ class _DecodeBatcher:
 
 class TorchShardInferenceEngine(InferenceEngine):
   def __init__(self, shard_downloader=None, dtype: Optional[str] = None,
-               device: Optional[str] = None, seed: Optional[int] = None):
+               device: Optional[str] = None, seed: Optional[int] = None,
+               quantize: Optional[str] = None):
     self.device = resolve_device(device)
     self.shard_downloader = shard_downloader
     self.dtype = DTYPES[dtype or knobs.get_str("XOT_DTYPE")]
+    # Weight-only quantization (models/quantize.py), applied on the device right after
+    # the weights are made: `quantize=` or XOT_QUANTIZE (CLI --quantize).
+    self.quantize = (quantize or knobs.get_str("XOT_QUANTIZE", "")).lower() or None
+    if self.quantize is not None and self.quantize not in QUANT_DTYPES:
+      raise ValueError(f"Unsupported quantization {self.quantize!r}; have {sorted(QUANT_DTYPES)}")
+    kv_quant = knobs.get_str("XOT_KV_QUANT", "")
+    if kv_quant:
+      # Serving a bf16 cache in its place would silently change the tokens and the
+      # memory a request takes.
+      raise NotImplementedError(f"XOT_KV_QUANT={kv_quant!r}: the int8 KV cache is not ported to "
+                                "xotorch_tpu_torch yet")
     self.executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="torch-engine")
     self._ctx: Optional[_ShardContext] = None
     self._shard_lock = asyncio.Lock()
@@ -263,6 +280,8 @@ class TorchShardInferenceEngine(InferenceEngine):
     params = init_random_params(cfg, shard.get_layer_count(), shard.is_first_layer,
                                 shard.is_last_layer, seed=0, dtype=self.dtype,
                                 device=self.device, start_layer=shard.start_layer)
+    if self.quantize:
+      params = quantize_params(params, self.quantize, scale_dtype=self.dtype, inplace=True)
     cache_len = min(self._configured_cache_len, cfg.max_seq_len)
     max_cache_len = max(cache_len, min(self._configured_max_cache_len, cfg.max_seq_len))
     tokenizer = DummyTokenizer()
@@ -270,7 +289,8 @@ class TorchShardInferenceEngine(InferenceEngine):
       tokenizer.eos_token_id = cfg.eos_token_ids[0]
     if DEBUG >= 1:
       print(f"torch engine ready for {shard} on {self.device} "
-            f"(dtype={self.dtype}, cache_len={cache_len}, paged={self.paged})")
+            f"(dtype={self.dtype}, quantize={self.quantize}, cache_len={cache_len}, "
+            f"paged={self.paged})")
     return _ShardContext(shard=shard, cfg=cfg, params=params, cache_len=cache_len,
                          max_cache_len=max_cache_len, tokenizer=tokenizer,
                          states=OrderedDict())

@@ -2,6 +2,7 @@
 
     python -m xotorch_tpu_torch.main [--device cuda|cpu] [--chatgpt-api-port N]
     python -m xotorch_tpu_torch.main run synthetic-llama-1b --prompt "..."
+    python -m xotorch_tpu_torch.main --quantize int4   # or int8: quantized weights
 
 The names follow xotorch_tpu/main.py. One node owns the whole model on one device:
 `cuda` by default; with no GPU the engine raises unless `--device cpu` is given.
@@ -10,6 +11,7 @@ from __future__ import annotations
 
 import argparse
 import asyncio
+import os
 import sys
 import time
 import uuid
@@ -40,12 +42,16 @@ def build_parser() -> argparse.ArgumentParser:
   parser.add_argument("--system-prompt", type=str, default=None)
   parser.add_argument("--default-model", type=str, default=None)
   parser.add_argument("--prompt", type=str, default="Who are you?")
+  parser.add_argument("--quantize", type=str, default=None, choices=["int8", "int4"],
+                      help="weight-only quantization of the served model (sets XOT_QUANTIZE)")
   return parser
 
 
 def build_node(args) -> tuple:
   """Engine, node and API for `args`; the engine raises here when the device is
   missing."""
+  if getattr(args, "quantize", None):
+    os.environ["XOT_QUANTIZE"] = args.quantize
   engine = get_inference_engine(args.inference_engine, device=args.device)
   engine_classname = type(engine).__name__
   node = Node(args.node_id or str(uuid.uuid4()), engine,

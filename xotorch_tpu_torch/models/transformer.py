@@ -12,7 +12,10 @@ Attention on the card goes through the hand-written kernels: a prefill from
 position 0 (`use_flash`) through K1 (ops/flash_attention.py), decode steps and
 segments at pos > 0 (`use_flash_decode`) through K2 (ops/flash_decode.py); over the
 page arena, decode steps through K3 and prefill segments through K4
-(ops/paged_attention.py). The plain `gqa_attention` path runs only on the CPU. Config
+(ops/paged_attention.py). The plain `gqa_attention` path runs only on the CPU.
+Weight-quantized slots (models/quantize.py) go through `_linear`: decode-sized
+projections through the GEMV kernels K5, K5v4 and K6 (ops/int4_matmul.py,
+ops/int8_matmul.py), prefill through the dequantized product. Config
 flags this slice does not implement raise NotImplementedError instead of returning a
 wrong answer.
 """
@@ -24,11 +27,15 @@ import torch
 import torch.nn.functional as F
 
 from xotorch_tpu_torch.models.config import ModelConfig
+from xotorch_tpu_torch.models.quantize import unpack_int4
 from xotorch_tpu_torch.ops.attention import gqa_attention
 from xotorch_tpu_torch.ops.flash_attention import flash_attention
 from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention
+from xotorch_tpu_torch.ops.int4_matmul import int4_grouped_matmul
+from xotorch_tpu_torch.ops.int8_matmul import int8_rowquant_matmul
 from xotorch_tpu_torch.ops.paged_attention import paged_decode_attention, paged_prefill_attention
 from xotorch_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from xotorch_tpu_torch.utils import knobs
 
 Params = Dict[str, Any]
 
@@ -57,8 +64,42 @@ def check_supported(cfg: ModelConfig) -> None:
 
 def _check_params(layer: Params) -> None:
   for slot in layer:
-    if slot.endswith(("_scale", "_gscale")) or slot.startswith("lora_"):
-      raise NotImplementedError(f"parameter slot {slot!r} (quantized weights / LoRA) is not ported yet")
+    if slot.startswith("lora_"):
+      raise NotImplementedError(f"parameter slot {slot!r} (LoRA) is not ported yet")
+
+
+def _kernel_on(knob: str, h: torch.Tensor, on_card_default: bool) -> bool:
+  """Whether a decode-sized projection goes to a quantized GEMV kernel's function:
+  `force` always (on the CPU through its plain version), `0` never, otherwise on
+  the card when the knob's mode enables it (XOT_INT4_KERNEL anything but `0`,
+  XOT_INT8_KERNEL `1`)."""
+  mode = knobs.get_str(knob)
+  return mode == "force" or (h.is_cuda and (mode != "0" if on_card_default else mode == "1"))
+
+
+def _linear(layer: Params, slot: str, h: torch.Tensor) -> torch.Tensor:
+  """h [B, T, in] @ layer[slot], dequantizing weight-quantized slots
+  (models/quantize.py): `<slot>_gscale` marks int4 (packed [G, gs/2, out]),
+  `<slot>_scale` int8 per output channel. Decode-sized inputs (B*T <= 8) go to the
+  kernels by XOT_INT4_KERNEL / XOT_INT4_V (K5, K5v4) and XOT_INT8_KERNEL (K6);
+  larger ones run the plain dequantized product (JAX leaves that einsum to XLA)."""
+  w = layer[slot]
+  gscale = layer.get(slot + "_gscale")
+  B, T, _ = h.shape
+  if gscale is not None:
+    if B * T <= 8 and _kernel_on("XOT_INT4_KERNEL", h, on_card_default=True):
+      out = int4_grouped_matmul(h.reshape(B * T, h.shape[-1]).contiguous(), w, gscale)
+      return out.reshape(B, T, -1).to(h.dtype)
+    G, gs_half, d_out = w.shape
+    dense = (unpack_int4(w).to(h.dtype) * gscale.to(h.dtype)[:, None, :]).reshape(G * gs_half * 2, d_out)
+    return h @ dense
+  scale = layer.get(slot + "_scale")
+  if scale is None:
+    return h @ w
+  if B * T <= 8 and _kernel_on("XOT_INT8_KERNEL", h, on_card_default=False):
+    out = int8_rowquant_matmul(h.reshape(B * T, h.shape[-1]).contiguous(), w, scale)
+    return out.reshape(B, T, -1).to(h.dtype)
+  return (h @ w.to(h.dtype)) * scale.to(h.dtype)
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
@@ -72,8 +113,8 @@ def _mlp_act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _dense_mlp(layer: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-  gate = _mlp_act(cfg, h @ layer["w_gate"])
-  return (gate * (h @ layer["w_up"])) @ layer["w_down"]
+  gate = _mlp_act(cfg, _linear(layer, "w_gate", h))
+  return _linear(layer, "w_down", gate * _linear(layer, "w_up", h))
 
 
 def init_kv_cache(cfg: ModelConfig, num_layers: int, batch: int, max_seq: int,
@@ -112,9 +153,9 @@ def _attention_block(layer: Params, x: torch.Tensor, cache: Dict[str, torch.Tens
                      slots: Any = None) -> torch.Tensor:
   B, T, _ = x.shape
   h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
-  q = (h @ layer["wq"]).reshape(B, T, cfg.num_heads, cfg.head_dim)
-  k = (h @ layer["wk"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-  v = (h @ layer["wv"]).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+  q = _linear(layer, "wq", h).reshape(B, T, cfg.num_heads, cfg.head_dim)
+  k = _linear(layer, "wk", h).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+  v = _linear(layer, "wv", h).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
   q = apply_rope(q, positions, inv_freq)
   k = apply_rope(k, positions, inv_freq)
   if page_table is not None:
@@ -129,7 +170,7 @@ def _attention_block(layer: Params, x: torch.Tensor, cache: Dict[str, torch.Tens
       attn = paged_decode_attention(q, k_pages, v_pages, page_table, kv_valid_len)
     else:
       attn = paged_prefill_attention(q, k_pages, v_pages, page_table, kv_valid_len)
-    return attn.reshape(B, T, cfg.num_heads * cfg.head_dim) @ layer["wo"]
+    return _linear(layer, "wo", attn.reshape(B, T, cfg.num_heads * cfg.head_dim))
   _cache_write(cache, layer_idx, k, v, start_pos, slots)
   if use_flash:
     # Prefill from position 0: the fresh segment is the whole visible context, so
@@ -145,7 +186,7 @@ def _attention_block(layer: Params, x: torch.Tensor, cache: Dict[str, torch.Tens
   else:
     raise ValueError("attention on the card goes through a kernel: pass use_flash "
                      "(prefill from 0) or use_flash_decode")
-  return attn.reshape(B, T, cfg.num_heads * cfg.head_dim) @ layer["wo"]
+  return _linear(layer, "wo", attn.reshape(B, T, cfg.num_heads * cfg.head_dim))
 
 
 def _page_slots(page_table: torch.Tensor, positions: torch.Tensor, page: int):
@@ -183,7 +224,7 @@ def forward_shard(
   check_supported(cfg)
   if use_flash and not (isinstance(start_pos, int) and start_pos == 0):
     raise ValueError("use_flash serves a prefill from position 0 only")
-  h = params["embed"]["embedding"][x] if is_first else x
+  h = embed(params, x) if is_first else x
   B, T = h.shape[0], h.shape[1]
   device = h.device
   steps = torch.arange(T, device=device)
@@ -219,10 +260,30 @@ def unembed(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
   """Final norm + (tied-embedding or lm_head) unembedding -> fp32 logits."""
   h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
   if cfg.tie_word_embeddings and "lm_head" not in params:
-    logits = h @ params["embed"]["embedding"].T
+    emb = params["embed"]["embedding"]
+    row_scale = params["embed"].get("embedding_scale")
+    if row_scale is None:
+      logits = h @ emb.T
+    else:
+      # Tied int8 table: the per-row scale becomes a per-vocab-column scale.
+      logits = (h @ emb.to(h.dtype).T) * row_scale.to(h.dtype)[None, None, :]
   else:
-    logits = h @ params["lm_head"]
+    head_scale = params.get("lm_head_scale")
+    if head_scale is None:
+      logits = h @ params["lm_head"]
+    else:
+      logits = (h @ params["lm_head"].to(h.dtype)) * head_scale.to(h.dtype)[None, None, :]
   return logits.to(torch.float32)
+
+
+def embed(params: Params, x: torch.Tensor) -> torch.Tensor:
+  """Token rows of the embedding; an int8 table rescales each looked-up row by its
+  own scale, in the scale's (compute) dtype."""
+  emb = params["embed"]["embedding"]
+  row_scale = params["embed"].get("embedding_scale")
+  if row_scale is None:
+    return emb[x]
+  return emb[x].to(row_scale.dtype) * row_scale[x][..., None]
 
 
 def init_random_params(

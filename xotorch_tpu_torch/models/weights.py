@@ -2,8 +2,8 @@
 
 `params_from_jax` takes the JAX package's stacked parameter tree (from its
 init_random_params or load_shard_params), as nested dictionaries of numpy arrays,
-and returns the same tree of torch tensors. The layouts are the same, so this is a
-dtype and device move. Loading safetensors checkpoints directly is a later slice.
+and returns the same tree of torch tensors. The layouts are the same, quantized
+trees included (models/quantize.py), so this is a dtype and device move. Loading safetensors checkpoints directly is a later slice.
 """
 from __future__ import annotations
 
@@ -27,14 +27,18 @@ def _tensor(a) -> torch.Tensor:
 
 def params_from_jax(np_params: Dict[str, Any], cfg: ModelConfig, device="cpu",
                     dtype: Optional[torch.dtype] = None) -> Dict[str, Any]:
-  """Nested dict of arrays -> the same nested dict of tensors on `device`, cast to
-  `dtype` when given (else kept in each array's own type)."""
+  """Nested dict of arrays -> the same nested dict of tensors on `device`, floating
+  leaves cast to `dtype` when given (else kept in each array's own type). Integer
+  leaves (int8 / packed-uint8 quantized weights) keep their type: a cast would turn
+  the stored codes into values."""
   check_supported(cfg)
 
   def convert(node):
     if isinstance(node, dict):
       return {k: convert(v) for k, v in node.items()}
     t = _tensor(node)
-    return t.to(device=device, dtype=dtype) if dtype is not None else t.to(device=device)
+    if dtype is not None and t.is_floating_point():
+      return t.to(device=device, dtype=dtype)
+    return t.to(device=device)
 
   return convert(np_params)

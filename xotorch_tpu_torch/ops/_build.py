@@ -23,7 +23,7 @@ from typing import Dict, Iterable, List
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-KERNELS = ("flash_attention", "flash_decode", "paged_attention")
+KERNELS = ("flash_attention", "flash_decode", "paged_attention", "quant_matvec")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC"]
 
@@ -39,6 +39,11 @@ SIGNATURES = {
   "paged_attention": {
     "xot_paged_decode_attention_bf16": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, P],
     "xot_paged_prefill_attention_bf16": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, F, P],
+  },
+  "quant_matvec": {
+    "xot_w8a8_matvec_bf16": [P, P, P, P, I, I, I, P],
+    "xot_w4a8_matvec_bf16": [P, P, P, P, I, I, I, I, P],
+    "xot_w4a16_matvec_bf16": [P, P, P, P, I, I, I, I, P],
   },
 }
 

@@ -44,6 +44,11 @@ _DEFS: Tuple[Knob, ...] = (
   Knob("XOT_PAGED_PREFILL", "bool", "1", "Prefill straight into pool pages under XOT_PAGED_KV (no contiguous commit copy)."),
   Knob("XOT_KV_DEFRAG", "bool", "1", "Page-pool defragmentation in batcher-idle slots: migrate high pages into low free holes and rewrite only the virtual maps."),
   Knob("XOT_KV_DEFRAG_MAX_MOVES", "int", "8", "Max page migrations per idle defrag pass."),
+  Knob("XOT_QUANTIZE", "str", None, "Weight quantization mode (`int8` or `int4`); unset serves full precision."),
+  Knob("XOT_KV_QUANT", "str", None, "KV-cache quantization mode (`int8`); not ported yet: the engine raises when it is set."),
+  Knob("XOT_INT4_KERNEL", "str", "1", "int4 decode GEMV kernel: `1` on the card, `0` off, `force` its function on the CPU too (plain version)."),
+  Knob("XOT_INT4_V", "int", "1", "int4 kernel variant: 1-3 the exact W4A16 kernel (K5), 4 the W4A8 kernel (K5v4)."),
+  Knob("XOT_INT8_KERNEL", "str", "0", "W8A8 decode GEMV kernel (K6): `1` on the card, `0` off, `force` its function on the CPU too (plain version)."),
 )
 
 REGISTRY: Dict[str, Knob] = {k.name: k for k in _DEFS}
