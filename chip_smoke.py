@@ -17,7 +17,9 @@ Phases, in order; any failure exits nonzero and prints no result line:
   4. model: a two-layer cut of synthetic-llama-1b at full width, prefill and decode
      through the kernels in bf16 on the card against the plain path in fp32 on the
      CPU: contiguous (K1, K2), then paged (K4 prefill, K3 decode at B=3), then with
-     int4 weights through K5 and K5v4 and int8 weights through K6;
+     int4 weights through K5 and K5v4 and int8 weights through K6, each kernel call
+     also held against its plain version on its own inputs, and a control with one
+     group of every contraction dropped that the limit must catch;
   5. main path: the port's server (main.py) serving synthetic-llama-1b at full width
      and depth answers three /v1/chat/completions requests over HTTP, with K1's and
      K2's launch counters read around that run, then one decode under the profiler;
@@ -32,7 +34,10 @@ Phases, in order; any failure exits nonzero and prints no result line:
      XOT_INT4_V=4 (K5v4) and int8 with XOT_INT8_KERNEL=1 (K6) answer the main path's
      three requests, each kernel's launches equal to 7 projections x 16 layers x the
      decode steps; each then decodes 32 steps at B=1 and B=8 under the profiler, as
-     does the engine alone on the int8 default path (no kernel);
+     does the engine alone on the int8 default path (no kernel); then the concurrent
+     paged phase's eight requests with int4 weights (K5 launches against decode
+     steps), one projection's host time by route, and the five formats' B=1 decode
+     steps taken in turn;
   9. the {"kernels": [...]} line, then the {"ok": true, ...} line last.
 """
 from __future__ import annotations
@@ -404,19 +409,43 @@ def cpu_copy(torch, params):
   return params.float().cpu() if params.is_floating_point() else params.cpu()
 
 
+def _drop_first_group(torch, params):
+  """A control: `params` with the first 128 values of every projection's contraction
+  dropped (int4: group 0's scale zeroed; int8: the first 128 weight rows zeroed), as
+  a GEMV kernel that lost one of its k-slices would compute. Other leaves shared."""
+  layers = dict(params["layers"])
+  for slot in ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down"):
+    if slot + "_gscale" in layers:
+      layers[slot + "_gscale"] = layers[slot + "_gscale"].clone()
+      layers[slot + "_gscale"][:, 0] = 0
+    else:
+      layers[slot] = layers[slot].clone()
+      layers[slot][:, :128] = 0
+  return {**params, "layers": layers}
+
+
 def check_model(torch, fmt=None, env=None, kernel=None, limit=5e-2) -> None:
   """A two-layer cut of synthetic-llama-1b at full width: prefill (K1) and decode
   (K2) in bf16 on the card against the plain path in fp32 on the CPU, same weights.
   With `fmt` the weights are quantized on the card first and `env` routes the decode
   projections: on the card through `kernel`, whose launches are counted (7 a layer
   a step), on the CPU through the same function's plain version. `limit` bounds the
-  largest logit error as a share of the logits' range."""
+  largest logit error as a share of the logits' range.
+
+  With `fmt` two more checks hold the kernel itself: each of its 112 calls in the
+  decode steps matches its plain version on the same card inputs, the model's own
+  activations, within 2^-7 of the output's range (as in the kernel phase); and a
+  control decodes the same steps with one 128-value group of every contraction
+  dropped (`_drop_first_group`), which must exceed `limit`."""
   import dataclasses
   import numpy as np
+  from xotorch_tpu_torch.models import transformer
   from xotorch_tpu_torch.models.config import config_from_hf_dict
   from xotorch_tpu_torch.models.quantize import quantize_params
   from xotorch_tpu_torch.models.registry import get_model_card
   from xotorch_tpu_torch.models.transformer import forward_shard, init_kv_cache, init_random_params
+  from xotorch_tpu_torch.ops.int4_matmul import int4_w4a8_matmul_ref, int4_w4a16_matmul_ref
+  from xotorch_tpu_torch.ops.int8_matmul import int8_rowquant_matmul_ref
 
   cfg = dataclasses.replace(
     config_from_hf_dict(get_model_card("synthetic-llama-1b")["synthetic_config"]), num_layers=2)
@@ -428,35 +457,70 @@ def check_model(torch, fmt=None, env=None, kernel=None, limit=5e-2) -> None:
   tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(1, 100))
   x = torch.as_tensor(tokens, device=dev)
   x_cpu = torch.as_tensor(tokens)
-  cache = init_kv_cache(cfg, 2, 1, 256, torch.bfloat16, dev)
   cache_cpu = init_kv_cache(cfg, 2, 1, 256, torch.float32, "cpu")
-  worst = 0.0
-  with phase_env(**(env or {})), torch.inference_mode():
+  plain = {"int4_w4a16_matmul": int4_w4a16_matmul_ref, "int4_w4a8_matmul": int4_w4a8_matmul_ref,
+           "int8_rowquant_matmul": int8_rowquant_matmul_ref}.get(getattr(kernel, "__name__", ""))
+  wrapper = "int8_rowquant_matmul" if fmt == "int8" else "int4_grouped_matmul"
+  call_err, original = [], getattr(transformer, wrapper)
+
+  def held(h, w, scale, *variant):
+    out = original(h, w, scale, *variant)
+    ref = plain(h, w, scale).float()
+    call_err.append(((out.float() - ref).abs().max() / ref.abs().max()).item())
+    return out
+
+  def card_run(decode_params):
+    """Card logits of the prefill's last 8 positions, then of 8 decode steps that
+    feed the reference's greedy tokens; the kernel's launches in the steps."""
+    cache = init_kv_cache(cfg, 2, 1, 256, torch.bfloat16, dev)
     logits, _ = forward_shard(params, x, cache, 0, cfg, True, True, use_flash=True)
-    ref, _ = forward_shard(params_cpu, x_cpu, cache_cpu, 0, cfg, True, True)
-    steps = [(logits[0, -8:].float().cpu(), ref[0, -8:])]
-    tok = int(ref[0, -1].argmax())
+    out = [logits[0, -8:].float().cpu()]
     before = kernel.launches if kernel else 0
+    for i, tok in enumerate(fed):
+      logits, _ = forward_shard(decode_params, torch.tensor([[tok]], device=dev), cache, 100 + i,
+                                cfg, True, True, use_flash_decode=True)
+      out.append(logits[0].float().cpu())
+    return out, (kernel.launches - before if kernel else 0)
+
+  with phase_env(**(env or {})), torch.inference_mode():
+    ref, _ = forward_shard(params_cpu, x_cpu, cache_cpu, 0, cfg, True, True)
+    want, fed = [ref[0, -8:]], []
     for i in range(8):
-      step = torch.tensor([[tok]])
-      logits, _ = forward_shard(params, step.to(dev), cache, 100 + i, cfg, True, True,
-                                use_flash_decode=True)
-      ref, _ = forward_shard(params_cpu, step, cache_cpu, 100 + i, cfg, True, True)
-      steps.append((logits[0].float().cpu(), ref[0]))
-      tok = int(ref[0, -1].argmax())
-    launched = kernel.launches - before if kernel else 0
-  for got, want in steps:
-    if not bool(torch.isfinite(got).all()):
+      fed.append(int(want[-1][-1].argmax()))
+      ref, _ = forward_shard(params_cpu, torch.tensor([[fed[-1]]]), cache_cpu, 100 + i, cfg,
+                             True, True)
+      want.append(ref[0])
+    if fmt:
+      setattr(transformer, wrapper, held)
+    try:
+      got, launched = card_run(params)
+    finally:
+      setattr(transformer, wrapper, original)
+    control = card_run(_drop_first_group(torch, params))[0] if fmt else None
+
+  def error(logits):
+    if not all(bool(torch.isfinite(g).all()) for g in logits):
       raise AssertionError("model: non-finite logits on the card")
-    worst = max(worst, ((got - want).abs().max() / want.abs().max()).item())
+    return max(((g - w).abs().max() / w.abs().max()).item() for g, w in zip(logits, want))
+
+  worst = error(got)
+  caught = control is None or error(control) > limit
+  calls_ok = not fmt or (len(call_err) == 7 * 2 * 8 and max(call_err) <= QUANT_REL_TOL)
   # bf16 weights are shared; the card keeps activations in bf16 over two layers.
   what = "" if not fmt else f", {fmt} weights, {env} ({kernel.__name__} x{launched})"
-  ok = worst < limit and (not kernel or launched == 7 * 2 * 8)
+  ok = worst < limit and caught and calls_ok and (not kernel or launched == 7 * 2 * 8)
   print(f"[model] 2-layer synthetic-llama-1b cut{what}, prefill 100 + decode 8: max logit error "
-        f"{worst:.3e} of the logits' range (limit {limit:g}) {'ok' if ok else 'FAIL'}", flush=True)
+        f"{worst:.3e} of the logits' range (limit {limit:g})"
+        + ("" if not fmt else
+           f"; {len(call_err)} kernel calls against the plain version on their card inputs: "
+           f"worst {max(call_err):.3e} of the output's range (limit 2^-7); control, one 128-value "
+           f"group of every decode contraction dropped: {error(control):.3e} "
+           f"({'caught' if caught else 'NOT caught'})")
+        + f" {'ok' if ok else 'FAIL'}", flush=True)
   if not ok:
-    raise AssertionError(f"model: card logits disagree with the CPU reference ({worst}) or the "
-                         f"kernel ran {launched} times, not 112")
+    raise AssertionError(f"model: card logits disagree with the CPU reference ({worst}), a kernel "
+                         f"call with its plain version, the control passed, or the kernel ran "
+                         f"{launched} times, not 112")
 
 
 def check_paged_model(torch) -> None:
@@ -781,17 +845,110 @@ def drive_engine_alone(torch, card: str, env: dict, tag: str, focus: str = "",
       engine.executor.shutdown(wait=True)
 
 
+def projection_host_us(torch, card: str) -> dict:
+  """Host time of one decode projection (rows 1, synthetic-llama-1b's wk, 2048->512)
+  through transformer._linear, by route: the microseconds the host takes to enqueue
+  200 calls while the card sleeps (so it neither drains nor waits), per call."""
+  from xotorch_tpu_torch.models.quantize import quantize_tensor, quantize_tensor_grouped
+  from xotorch_tpu_torch.models.transformer import QuantRoute, _linear
+
+  dev = torch.device("cuda")
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(5)
+  w = torch.randn(2048, 512, generator=gen, device=dev) * 0.02
+  q8, s8 = quantize_tensor(w, 0)
+  q4, s4 = quantize_tensor_grouped(w[None])
+  h = torch.randn(1, 1, 2048, generator=gen, device=dev).to(torch.bfloat16)
+  int4 = {"wk": q4[0], "wk_gscale": s4[0]}
+  int8 = {"wk": q8, "wk_scale": s8}
+  cases = {"bf16 (h @ w)": ({"wk": w.to(torch.bfloat16)}, QuantRoute()),
+           "int4 K5": (int4, QuantRoute(int4_kernel=True)),
+           "int4 K5v4": (int4, QuantRoute(int4_kernel=True, int4_variant=4)),
+           "int8 K6": (int8, QuantRoute(int8_kernel=True)),
+           "int8 default path": (int8, QuantRoute())}
+  out = {}
+  with torch.inference_mode():
+    for label, (layer, route) in cases.items():
+      best = float("inf")
+      for _ in range(5):
+        _linear(layer, "wk", h, route)
+        torch.cuda.synchronize()
+        torch.cuda._sleep(50_000_000)  # ~25 ms of work ahead of the 200 calls
+        t0 = time.perf_counter()
+        for _ in range(200):
+          _linear(layer, "wk", h, route)
+        best = min(best, (time.perf_counter() - t0) / 200 * 1e6)
+        torch.cuda.synchronize()
+      out[label] = best
+  print("[host] one decode projection's host time, best of 5 x 200 calls: "
+        + ", ".join(f"{k} {v:.1f} us" for k, v in out.items())
+        + f"; x112 a step: " + ", ".join(f"{k} {v * 112 / 1e3:.2f} ms" for k, v in out.items())
+        + f" ({card})", flush=True)
+  return out
+
+
+def alternate_formats(torch, card: str, rounds: int = 4, n: int = 32,
+                      model: str = "synthetic-llama-1b") -> dict:
+  """The engine alone in each weight format, all resident at once, decoding `n`
+  greedy tokens at B=1 after a 514-token prompt, the formats taking turns for
+  `rounds` rounds, so that host drift over the call falls on every format alike.
+  Returns each format's wall ms per step, round by round."""
+  import numpy as np
+  from xotorch_tpu_torch.inference.torch_engine.engine import TorchShardInferenceEngine
+  from xotorch_tpu_torch.models.registry import TORCH, build_full_shard
+
+  formats = {"bf16": {}, "int4 K5": {"XOT_QUANTIZE": "int4"},
+             "int4 K5v4": {"XOT_QUANTIZE": "int4", "XOT_INT4_V": "4"},
+             "int8 K6": {"XOT_QUANTIZE": "int8", "XOT_INT8_KERNEL": "1"},
+             "int8 default path": {"XOT_QUANTIZE": "int8", "XOT_INT8_KERNEL": "0"}}
+  shard = build_full_shard(model, TORCH)
+  engines = {}
+  for label, env in formats.items():
+    with phase_env(XOT_PAGED_KV="0", **env):
+      engines[label] = TorchShardInferenceEngine(device="cuda", seed=0)
+
+  async def drive():
+    last, steps = {}, {label: [] for label in engines}
+    for label, engine in engines.items():
+      last[label], _ = await engine.infer_sample_tensor("alt", shard, np.ones((1, 514), np.int64),
+                                                        temp=0.0, top_k=0)
+      out = await engine.generate_chunk("alt", shard, int(last[label]), 8, temp=0.0)  # warm
+      last[label] = int(np.asarray(out).reshape(-1)[-1])
+    for _ in range(rounds):
+      for label, engine in engines.items():
+        t0 = time.perf_counter()
+        out = await engine.generate_chunk("alt", shard, last[label], n, temp=0.0)
+        steps[label].append((time.perf_counter() - t0) * 1e3 / n)
+        last[label] = int(np.asarray(out).reshape(-1)[-1])
+    for engine in engines.values():
+      await engine.clear_request("alt")
+    return steps
+
+  try:
+    steps = asyncio.run(drive())
+  finally:
+    for engine in engines.values():
+      engine.executor.shutdown(wait=True)
+  for label, ms in steps.items():
+    print(f"[alternate] {label}: B=1 wall ms a step, {rounds} rounds of {n} taken in turn: "
+          + ", ".join(f"{m:.2f}" for m in ms) + f"; median {sorted(ms)[len(ms) // 2]:.2f} ({card})",
+          flush=True)
+  return steps
+
+
 CONCURRENT_WORDS = (64, 128, 256, 300, 514, 1000, 1502, 2000)
 
 
 def drive_concurrent(torch, card: str, paged: bool, device: str = "cuda",
-                     model: str = "synthetic-llama-1b", max_tokens: int = 64) -> dict:
-  """A fresh server (XOT_PAGED_KV as `paged`, XOT_PREFILL_CHUNK 1024) answers eight
-  concurrent streaming chat completions of 64 to 2000 words, half at temperature 0
-  and half at 0.6, after one unmeasured warm-up pass of the same eight. The batcher
-  coalesces their decode chunks. Then one B=8 decode chunk under the profiler.
-  Returns the kernels' launch counts over the measured pass and each temperature-0
-  request's tokens."""
+                     model: str = "synthetic-llama-1b", max_tokens: int = 64,
+                     env=None, quant_kernel=None) -> dict:
+  """A fresh server (XOT_PAGED_KV as `paged`, XOT_PREFILL_CHUNK 1024, and `env`, e.g.
+  XOT_QUANTIZE, while it is built) answers eight concurrent streaming chat
+  completions of 64 to 2000 words, half at temperature 0 and half at 0.6, after one
+  unmeasured warm-up pass of the same eight. The batcher coalesces their decode
+  chunks; with `quant_kernel` every decode step's 7 projections a layer must go
+  through it. Then one B=8 decode chunk under the profiler. Returns the kernels'
+  launch counts over the measured pass and each temperature-0 request's tokens."""
   from concurrent.futures import ThreadPoolExecutor
   from xotorch_tpu_torch import main as port_main
   from xotorch_tpu_torch.models.registry import build_full_shard, get_model_card
@@ -799,13 +956,15 @@ def drive_concurrent(torch, card: str, paged: bool, device: str = "cuda",
   from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention
   from xotorch_tpu_torch.ops.paged_attention import paged_decode_attention, paged_prefill_attention
 
-  tag = "paged" if paged else "contiguous"
+  env = env or {}
+  tag = ("paged" if paged else "contiguous") + (f" {env['XOT_QUANTIZE']}" if "XOT_QUANTIZE" in env else "")
   os.environ["XOT_PAGED_KV"] = "1" if paged else "0"
   os.environ["XOT_PREFILL_CHUNK"] = "1024"
   args = port_main.build_parser().parse_args(
     ["--device", device, "--default-model", model, "--chatgpt-api-host", "127.0.0.1",
      "--chatgpt-api-port", "0", "--chatgpt-api-response-timeout", "600"])
-  node, engine, classname, api = port_main.build_node(args)
+  with phase_env(**env):  # the engine reads its knobs when it is built
+    node, engine, classname, api = port_main.build_node(args)
   layers = get_model_card(model)["layers"]
   bodies = [{"model": model, "max_tokens": max_tokens, "stream": True,
              "temperature": 0.0 if i % 2 == 0 else 0.6, "stream_options": {"include_usage": True},
@@ -822,7 +981,7 @@ def drive_concurrent(torch, card: str, paged: bool, device: str = "cuda",
   node.on_token.register("chip-smoke").on_next(
     lambda rid, toks, finished: tokens_of.__setitem__(rid, list(toks)))
   kernels = (flash_attention, flash_cached_attention, paged_decode_attention,
-             paged_prefill_attention)
+             paged_prefill_attention) + ((quant_kernel,) if quant_kernel else ())
 
   async def drive():
     server = await api.start("127.0.0.1", 0)
@@ -883,6 +1042,9 @@ def drive_concurrent(torch, card: str, paged: bool, device: str = "cuda",
           raise AssertionError(f"paged: {stats['pages_in_use']} pool pages left in use")
       elif counts["flash_cached_attention"] < steps * layers or counts["paged_decode_attention"]:
         raise AssertionError(f"contiguous: launches {counts} disagree with {steps} decode steps")
+      if quant_kernel and counts[quant_kernel.__name__] != 7 * layers * steps:
+        raise AssertionError(f"{tag}: {quant_kernel.__name__} ran {counts[quant_kernel.__name__]} "
+                             f"times, not 7 x {layers} layers x {steps} decode steps")
       profiled = await profile_decode(torch, engine, model, classname, card, batch=len(bodies))
       by_words = sorted(prompt_of, key=lambda rid: len(prompt_of[rid].split()))
       greedy = {CONCURRENT_WORDS[i]: tokens_of[rid] for i, rid in enumerate(by_words)
@@ -952,7 +1114,9 @@ def main(argv=None) -> int:
     # version. K5v4 and K6 quantize their activations to int8, bf16 ones on the card
     # and fp32 ones on the CPU: a value near a step of the int8 grid takes another
     # code on each side, an error of max|a|/127 where bf16 alone rounds at 2^-9 of
-    # the value, so their cuts get twice the exact kernels' limit.
+    # the value. Rounding the CPU's activations to bf16 first did not narrow it
+    # (PERF.md), so their cuts get twice the exact kernels' limit; the kernel calls
+    # themselves are held at 2^-7 and the control reads far above the limit.
     knob = "XOT_INT4_KERNEL" if fmt == "int4" else "XOT_INT8_KERNEL"
     a8 = kernel.__name__ != "int4_w4a16_matmul"
     check_model(torch, fmt, {**env, knob: "force"}, kernel, limit=1e-1 if a8 else 5e-2)
@@ -994,6 +1158,15 @@ def main(argv=None) -> int:
                       f"{100 - p['busy_pct']:.1f}% idle, kernel {p['focus_pct']:.1f}%)"
                       for b, p in prof.items() if p)
     print(f"[quantized] {label}: {cells or 'not measured'} ({card})", flush=True)
+  # The concurrent paged phase's eight requests with int4 weights: K4 prefill, K3
+  # decode and K5 on several live rows and pad rows of the page pool.
+  from xotorch_tpu_torch.ops.int4_matmul import int4_w4a16_matmul
+  drive_concurrent(torch, card, paged=True, env={"XOT_QUANTIZE": "int4"},
+                   quant_kernel=int4_w4a16_matmul)
+  # Where a quantized step's host time goes: one projection's host cost by route,
+  # then the formats' B=1 steps taken in turn.
+  projection_host_us(torch, card)
+  alternate_formats(torch, card)
 
   # Phase 9: results.
   meta = {

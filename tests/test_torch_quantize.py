@@ -413,13 +413,59 @@ def test_params_from_jax_keeps_quantized_leaves(fmt):
       assert got[name].dtype == torch.float32, name
 
 
-def test_cli_quantize_flag_sets_the_engine_knob(monkeypatch):
+def test_cli_quantize_flag_sets_the_engine_knob():
+  """--quantize reaches the engine as its argument and leaves the process's
+  XOT_QUANTIZE alone, so an engine built later in the process is not quantized."""
   args = port_main.build_parser().parse_args(["--device", "cpu", "--quantize", "int4"])
   node, engine, _, _ = port_main.build_node(args)
+  later = TorchShardInferenceEngine(device="cpu")
   try:
-    assert engine.quantize == "int4" and knobs.get_str("XOT_QUANTIZE") == "int4"
+    assert engine.quantize == "int4" and knobs.get_str("XOT_QUANTIZE") is None
+    assert later.quantize is None
   finally:
-    engine.executor.shutdown(wait=True)
-    monkeypatch.delenv("XOT_QUANTIZE", raising=False)
+    for e in (engine, later):
+      e.executor.shutdown(wait=True)
   with pytest.raises(SystemExit):
     port_main.build_parser().parse_args(["--quantize", "int2"])
+
+
+# (XOT_INT4_KERNEL, XOT_INT8_KERNEL) -> (int4, int8) kernels taken (on the card, on the CPU)
+ROUTES = {
+  "defaults": ({}, (True, False), (False, False)),
+  "int4-0": ({"XOT_INT4_KERNEL": "0"}, (True, False), (False, False)),
+  "force": ({"XOT_INT4_KERNEL": "force", "XOT_INT8_KERNEL": "force"}, (True, True), (True, True)),
+  "int8-1": ({"XOT_INT8_KERNEL": "1"}, (True, True), (False, False)),
+}
+
+
+@pytest.mark.parametrize("name", list(ROUTES))
+def test_quant_route_never_sends_the_card_to_the_plain_int4_product(name, monkeypatch):
+  """On the card int4 decode projections always take K5/K5v4 (`0` included); the
+  CPU takes a kernel's function only under `force`; K6 only when asked for."""
+  env, card, cpu = ROUTES[name]
+  for knob, value in env.items():
+    monkeypatch.setenv(knob, value)
+  for on_card, want in ((True, card), (False, cpu)):
+    route = transformer.quant_route(on_card)
+    assert (route.int4_kernel, route.int8_kernel) == want, (name, on_card)
+
+
+async def test_engine_reads_the_quant_route_once_when_built(monkeypatch):
+  """The knobs are read when the engine is built: changing them afterwards moves no
+  projection, and the variant reaches int4_grouped_matmul explicitly."""
+  monkeypatch.setenv("XOT_DTYPE", "float32")
+  monkeypatch.setenv("XOT_QUANTIZE", "int4")
+  monkeypatch.setenv("XOT_INT4_KERNEL", "force")
+  monkeypatch.setenv("XOT_INT4_V", "4")
+  eng = TorchShardInferenceEngine(device="cpu", seed=0)
+  monkeypatch.setenv("XOT_INT4_KERNEL", "0")
+  monkeypatch.setenv("XOT_INT4_V", "1")
+  variants = []
+  real = transformer.int4_grouped_matmul
+  monkeypatch.setattr(transformer, "int4_grouped_matmul",
+                      lambda h, w, s, variant: variants.append(variant) or real(h, w, s, variant))
+  prompt = np.random.default_rng(9).integers(3, 256, size=(1, 7))
+  await _greedy(eng, Shard(MODEL, 0, 3, 4), "r", prompt, n=4)
+  eng.executor.shutdown(wait=True)
+  # 3 decode steps (the 7-token prefill takes the dequantized product), 7 a layer.
+  assert variants == [4] * (7 * 4 * 3)

@@ -52,7 +52,8 @@ from xotorch_tpu_torch.models.generate import (decode_chunk, decode_chunk_batche
                                                forward_sample)
 from xotorch_tpu_torch.models.quantize import QUANT_DTYPES, quantize_params
 from xotorch_tpu_torch.models.registry import get_model_card
-from xotorch_tpu_torch.models.transformer import forward_shard, init_kv_cache, init_random_params
+from xotorch_tpu_torch.models.transformer import (forward_shard, init_kv_cache, init_random_params,
+                                                  quant_route)
 from xotorch_tpu_torch.ops.sampling import DEFAULT_TEMP, DEFAULT_TOP_K, sample_logits
 from xotorch_tpu_torch.utils import knobs
 from xotorch_tpu_torch.utils.helpers import DEBUG, spawn_detached
@@ -213,6 +214,8 @@ class TorchShardInferenceEngine(InferenceEngine):
     self.quantize = (quantize or knobs.get_str("XOT_QUANTIZE", "")).lower() or None
     if self.quantize is not None and self.quantize not in QUANT_DTYPES:
       raise ValueError(f"Unsupported quantization {self.quantize!r}; have {sorted(QUANT_DTYPES)}")
+    # Which kernels the quantized decode projections take, decided here once.
+    self.quant_route = quant_route(self.device.type == "cuda")
     kv_quant = knobs.get_str("XOT_KV_QUANT", "")
     if kv_quant:
       # Serving a bf16 cache in its place would silently change the tokens and the
@@ -357,11 +360,13 @@ class TorchShardInferenceEngine(InferenceEngine):
     bucket = 1 if true_t == 1 else _bucket(true_t)
     if self._paged_segment(ctx, request_id, x):
       state = self._prep_state_paged(ctx, request_id, bucket)
-      cache, kw = ctx.page_pool.arena, {"page_table": self._paged_table_for(ctx, state)}
+      cache, kw = ctx.page_pool.arena, {"page_table": self._paged_table_for(ctx, state),
+                                        "route": self.quant_route}
     else:
       state = self._prep_state(ctx, request_id, bucket)
       use_flash = true_t > 1 and state.pos == 0
-      cache, kw = state.cache, {"use_flash": use_flash, "use_flash_decode": not use_flash}
+      cache, kw = state.cache, {"use_flash": use_flash, "use_flash_decode": not use_flash,
+                                "route": self.quant_route}
     if bucket != true_t:
       pad = torch.zeros((x.shape[0], bucket - true_t) + tuple(x.shape[2:]), dtype=x.dtype,
                         device=x.device)
@@ -502,7 +507,7 @@ class TorchShardInferenceEngine(InferenceEngine):
         self._grow_cache(ctx, state, state.pos + num_tokens)
       toks, _ = decode_chunk(ctx.params, toks_in, state.cache, state.pos, ctx.cfg, num_tokens,
                              items[0].temp, top_k, top_p, use_flash_decode=True,
-                             generator=self.generator)
+                             generator=self.generator, route=self.quant_route)
     else:
       target = max(max(s.pos + num_tokens for s in states),
                    max(s.cache["k"].shape[2] for s in states))
@@ -517,7 +522,8 @@ class TorchShardInferenceEngine(InferenceEngine):
         ctx.params, [s.cache for s in states], toks_in,
         torch.tensor([s.pos for s in states], dtype=torch.int32, device=self.device), ctx.cfg,
         num_tokens, torch.tensor([it.temp for it in items], dtype=torch.float32, device=self.device),
-        top_k, top_p, use_flash_decode=True, pad_rows=_bucket(B, 1) - B, generator=self.generator)
+        top_k, top_p, use_flash_decode=True, pad_rows=_bucket(B, 1) - B, generator=self.generator,
+        route=self.quant_route)
       for state, cache in zip(states, caches):
         state.cache = cache
     host = toks.cpu().numpy().astype(np.int64)
@@ -616,7 +622,7 @@ class TorchShardInferenceEngine(InferenceEngine):
       torch.tensor([[it.prev_token] for it in items], dtype=torch.int64, device=self.device),
       torch.tensor([s.pos for s in states], dtype=torch.int32, device=self.device), ctx.cfg,
       num_tokens, torch.tensor([it.temp for it in items], dtype=torch.float32, device=self.device),
-      top_k, top_p, pad_rows=_bucket(B, 1) - B, generator=self.generator)
+      top_k, top_p, pad_rows=_bucket(B, 1) - B, generator=self.generator, route=self.quant_route)
     host = toks.cpu().numpy().astype(np.int64)
     for state in states:
       self._advance(ctx, state, num_tokens)

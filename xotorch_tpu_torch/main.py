@@ -11,7 +11,6 @@ from __future__ import annotations
 
 import argparse
 import asyncio
-import os
 import sys
 import time
 import uuid
@@ -43,16 +42,15 @@ def build_parser() -> argparse.ArgumentParser:
   parser.add_argument("--default-model", type=str, default=None)
   parser.add_argument("--prompt", type=str, default="Who are you?")
   parser.add_argument("--quantize", type=str, default=None, choices=["int8", "int4"],
-                      help="weight-only quantization of the served model (sets XOT_QUANTIZE)")
+                      help="weight-only quantization of the served model (as XOT_QUANTIZE)")
   return parser
 
 
 def build_node(args) -> tuple:
   """Engine, node and API for `args`; the engine raises here when the device is
   missing."""
-  if getattr(args, "quantize", None):
-    os.environ["XOT_QUANTIZE"] = args.quantize
-  engine = get_inference_engine(args.inference_engine, device=args.device)
+  engine = get_inference_engine(args.inference_engine, device=args.device,
+                                quantize=getattr(args, "quantize", None))
   engine_classname = type(engine).__name__
   node = Node(args.node_id or str(uuid.uuid4()), engine,
               max_generate_tokens=args.max_generate_tokens,

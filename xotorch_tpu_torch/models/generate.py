@@ -14,7 +14,7 @@ from typing import Dict, List, Optional, Sequence, Union
 import torch
 
 from xotorch_tpu_torch.models.config import ModelConfig
-from xotorch_tpu_torch.models.transformer import forward_shard, unembed
+from xotorch_tpu_torch.models.transformer import QuantRoute, forward_shard, unembed
 from xotorch_tpu_torch.ops.sampling import sample_logits, sample_logits_logprobs
 
 
@@ -41,6 +41,7 @@ def forward_sample(
   generator: Optional[torch.Generator] = None,
   gumbel: Optional[torch.Tensor] = None,  # [B, V] noise for the sample
   page_table: Optional[torch.Tensor] = None,  # [B, max_pages]: `cache` is the page arena
+  route: Optional[QuantRoute] = None,  # quantized decode projections (transformer.quant_route)
 ):
   """Last-shard forward + sampling: returns ([B] sampled token on the device, the
   cache), or ((tok, lp, top_ids, top_lps), cache) with `top_lp >= 0`. The
@@ -49,7 +50,7 @@ def forward_sample(
   h, cache = forward_shard(params, x, cache, start_pos, cfg=cfg, is_first=is_first,
                            is_last=False, use_flash=use_flash,
                            use_flash_decode=use_flash_decode, start_layer=start_layer,
-                           page_table=page_table)
+                           page_table=page_table, route=route)
   logits = unembed(params, h[:, last_index:last_index + 1], cfg)[:, -1, :]
   kw = dict(temp=temp, top_k=top_k, top_p=top_p, bias=bias, counts=counts, presence=presence,
             frequency=frequency, min_p=min_p, generator=generator, gumbel=gumbel)
@@ -78,6 +79,7 @@ def decode_chunk(
   generator: Optional[torch.Generator] = None,
   gumbel: Optional[torch.Tensor] = None,  # [num_tokens, B, V] noise, one slice per step
   page_table: Optional[torch.Tensor] = None,  # [B, max_pages]: `cache` is the page arena
+  route: Optional[QuantRoute] = None,
 ):
   """Generate `num_tokens` tokens. The shard must span the whole model. Returns
   ([B, num_tokens] tokens on the device, the cache), plus the updated counts when
@@ -93,7 +95,7 @@ def decode_chunk(
   for i in range(num_tokens):
     logits, cache = forward_shard(params, tok, cache, start_pos + i, cfg=cfg, is_first=True,
                                   is_last=True, use_flash_decode=use_flash_decode,
-                                  page_table=page_table)
+                                  page_table=page_table, route=route)
     kw = dict(temp=temp, top_k=top_k, top_p=top_p, bias=bias, counts=counts, presence=presence,
               frequency=frequency, min_p=min_p, generator=generator,
               gumbel=None if gumbel is None else gumbel[i])
@@ -138,6 +140,7 @@ def decode_chunk_batched(
   pad_rows: int = 0,  # dummy rows padding B to a power of two
   generator: Optional[torch.Generator] = None,
   gumbel: Optional[torch.Tensor] = None,  # [num_tokens, B + pad_rows, V]
+  route: Optional[QuantRoute] = None,
 ):
   """Batched decode for continuous batching: stack the requests' contiguous caches
   along the batch axis, decode with per-row positions and temperatures, split the
@@ -153,7 +156,7 @@ def decode_chunk_batched(
     params, _pad_rows(toks, pad_rows, toks[:1]), stacked,
     _pad_rows(pos_vec, pad_rows, pos_vec[:1]), cfg, num_tokens,
     _pad_rows(temps, pad_rows, temps[:1]), top_k, top_p, use_flash_decode=use_flash_decode,
-    generator=generator, gumbel=gumbel)
+    generator=generator, gumbel=gumbel, route=route)
   split: List[Dict[str, torch.Tensor]] = [
     {name: stacked[name][:, i:i + 1].clone() for name in stacked} for i in range(B)]
   return out[:B], split
@@ -173,6 +176,7 @@ def decode_chunk_paged(
   pad_rows: int = 0,  # dummy rows padding B to a power of two
   generator: Optional[torch.Generator] = None,
   gumbel: Optional[torch.Tensor] = None,  # [num_tokens, B + pad_rows, V]
+  route: Optional[QuantRoute] = None,
 ):
   """Batched decode over the PAGED KV pool: rows index the one shared arena through
   their page tables, writes land in each row's current page, and reads stop at each
@@ -185,5 +189,5 @@ def decode_chunk_paged(
   out, arena = decode_chunk(
     params, _pad_rows(toks, pad_rows, toks[:1]), arena, _pad_rows(pos_vec, pad_rows), cfg,
     num_tokens, _pad_rows(temps, pad_rows, temps[:1]), top_k, top_p, generator=generator,
-    gumbel=gumbel, page_table=table.contiguous())
+    gumbel=gumbel, page_table=table.contiguous(), route=route)
   return out[:B], arena

@@ -21,6 +21,7 @@ wrong answer.
 """
 from __future__ import annotations
 
+import dataclasses
 from typing import Any, Dict, Optional, Tuple, Union
 
 import torch
@@ -68,27 +69,44 @@ def _check_params(layer: Params) -> None:
       raise NotImplementedError(f"parameter slot {slot!r} (LoRA) is not ported yet")
 
 
-def _kernel_on(knob: str, h: torch.Tensor, on_card_default: bool) -> bool:
-  """Whether a decode-sized projection goes to a quantized GEMV kernel's function:
-  `force` always (on the CPU through its plain version), `0` never, otherwise on
-  the card when the knob's mode enables it (XOT_INT4_KERNEL anything but `0`,
-  XOT_INT8_KERNEL `1`)."""
-  mode = knobs.get_str(knob)
-  return mode == "force" or (h.is_cuda and (mode != "0" if on_card_default else mode == "1"))
+@dataclasses.dataclass(frozen=True)
+class QuantRoute:
+  """Where decode-sized projections (B*T <= 8) over quantized weights go: int4
+  through K5 or K5v4 (`int4_variant` 4) when `int4_kernel`, int8 through K6 when
+  `int8_kernel`. Decided once, by `quant_route`; on the CPU a kernel's function
+  runs through its plain version."""
+  int4_kernel: bool = False
+  int4_variant: int = 1
+  int8_kernel: bool = False
 
 
-def _linear(layer: Params, slot: str, h: torch.Tensor) -> torch.Tensor:
+def quant_route(on_card: bool) -> QuantRoute:
+  """The route the knobs ask for, read once (the engine does so when it is built).
+  On the card int4 decode projections always take K5/K5v4, whatever
+  XOT_INT4_KERNEL says: the dequantized product is K5's own function, and `0`,
+  which the JAX package sets only for a tensor-parallel mesh, is reserved until
+  the port has one. Elsewhere `force` takes the kernels' functions. K6 rounds the
+  activations to int8, so int8 takes it only when XOT_INT8_KERNEL asks (`1` on the
+  card, `force` anywhere)."""
+  k8 = knobs.get_str("XOT_INT8_KERNEL")
+  return QuantRoute(int4_kernel=on_card or knobs.get_str("XOT_INT4_KERNEL") == "force",
+                    int4_variant=knobs.get_int("XOT_INT4_V"),
+                    int8_kernel=k8 == "force" or (on_card and k8 == "1"))
+
+
+def _linear(layer: Params, slot: str, h: torch.Tensor, route: QuantRoute) -> torch.Tensor:
   """h [B, T, in] @ layer[slot], dequantizing weight-quantized slots
   (models/quantize.py): `<slot>_gscale` marks int4 (packed [G, gs/2, out]),
   `<slot>_scale` int8 per output channel. Decode-sized inputs (B*T <= 8) go to the
-  kernels by XOT_INT4_KERNEL / XOT_INT4_V (K5, K5v4) and XOT_INT8_KERNEL (K6);
-  larger ones run the plain dequantized product (JAX leaves that einsum to XLA)."""
+  kernels by `route` (K5, K5v4, K6); larger ones run the plain dequantized product
+  (JAX leaves that einsum to XLA)."""
   w = layer[slot]
   gscale = layer.get(slot + "_gscale")
   B, T, _ = h.shape
   if gscale is not None:
-    if B * T <= 8 and _kernel_on("XOT_INT4_KERNEL", h, on_card_default=True):
-      out = int4_grouped_matmul(h.reshape(B * T, h.shape[-1]).contiguous(), w, gscale)
+    if B * T <= 8 and route.int4_kernel:
+      out = int4_grouped_matmul(h.reshape(B * T, h.shape[-1]).contiguous(), w, gscale,
+                                route.int4_variant)
       return out.reshape(B, T, -1).to(h.dtype)
     G, gs_half, d_out = w.shape
     dense = (unpack_int4(w).to(h.dtype) * gscale.to(h.dtype)[:, None, :]).reshape(G * gs_half * 2, d_out)
@@ -96,7 +114,7 @@ def _linear(layer: Params, slot: str, h: torch.Tensor) -> torch.Tensor:
   scale = layer.get(slot + "_scale")
   if scale is None:
     return h @ w
-  if B * T <= 8 and _kernel_on("XOT_INT8_KERNEL", h, on_card_default=False):
+  if B * T <= 8 and route.int8_kernel:
     out = int8_rowquant_matmul(h.reshape(B * T, h.shape[-1]).contiguous(), w, scale)
     return out.reshape(B, T, -1).to(h.dtype)
   return (h @ w.to(h.dtype)) * scale.to(h.dtype)
@@ -112,9 +130,9 @@ def _mlp_act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
   return F.silu(x)
 
 
-def _dense_mlp(layer: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-  gate = _mlp_act(cfg, _linear(layer, "w_gate", h))
-  return _linear(layer, "w_down", gate * _linear(layer, "w_up", h))
+def _dense_mlp(layer: Params, h: torch.Tensor, cfg: ModelConfig, route: QuantRoute) -> torch.Tensor:
+  gate = _mlp_act(cfg, _linear(layer, "w_gate", h, route))
+  return _linear(layer, "w_down", gate * _linear(layer, "w_up", h, route), route)
 
 
 def init_kv_cache(cfg: ModelConfig, num_layers: int, batch: int, max_seq: int,
@@ -149,13 +167,13 @@ def _attention_block(layer: Params, x: torch.Tensor, cache: Dict[str, torch.Tens
                      positions: torch.Tensor, kv_valid_len: torch.Tensor,
                      start_pos: Union[int, torch.Tensor], q_start: torch.Tensor, cfg: ModelConfig,
                      inv_freq: torch.Tensor, use_flash: bool, use_flash_decode: bool,
-                     page_table: Optional[torch.Tensor] = None,
+                     route: QuantRoute, page_table: Optional[torch.Tensor] = None,
                      slots: Any = None) -> torch.Tensor:
   B, T, _ = x.shape
   h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
-  q = _linear(layer, "wq", h).reshape(B, T, cfg.num_heads, cfg.head_dim)
-  k = _linear(layer, "wk", h).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-  v = _linear(layer, "wv", h).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+  q = _linear(layer, "wq", h, route).reshape(B, T, cfg.num_heads, cfg.head_dim)
+  k = _linear(layer, "wk", h, route).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+  v = _linear(layer, "wv", h, route).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
   q = apply_rope(q, positions, inv_freq)
   k = apply_rope(k, positions, inv_freq)
   if page_table is not None:
@@ -170,7 +188,7 @@ def _attention_block(layer: Params, x: torch.Tensor, cache: Dict[str, torch.Tens
       attn = paged_decode_attention(q, k_pages, v_pages, page_table, kv_valid_len)
     else:
       attn = paged_prefill_attention(q, k_pages, v_pages, page_table, kv_valid_len)
-    return _linear(layer, "wo", attn.reshape(B, T, cfg.num_heads * cfg.head_dim))
+    return _linear(layer, "wo", attn.reshape(B, T, cfg.num_heads * cfg.head_dim), route)
   _cache_write(cache, layer_idx, k, v, start_pos, slots)
   if use_flash:
     # Prefill from position 0: the fresh segment is the whole visible context, so
@@ -186,7 +204,7 @@ def _attention_block(layer: Params, x: torch.Tensor, cache: Dict[str, torch.Tens
   else:
     raise ValueError("attention on the card goes through a kernel: pass use_flash "
                      "(prefill from 0) or use_flash_decode")
-  return _linear(layer, "wo", attn.reshape(B, T, cfg.num_heads * cfg.head_dim))
+  return _linear(layer, "wo", attn.reshape(B, T, cfg.num_heads * cfg.head_dim), route)
 
 
 def _page_slots(page_table: torch.Tensor, positions: torch.Tensor, page: int):
@@ -213,6 +231,7 @@ def forward_shard(
   use_flash_decode: bool = False,
   start_layer: int = 0,
   page_table: Optional[torch.Tensor] = None,  # [B, max_pages] int32: `cache` is the arena
+  route: Optional[QuantRoute] = None,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
   """Run one shard. Returns (hidden, or fp32 logits on the last shard; the cache,
   updated in place). `use_flash` is valid only when start_pos == 0.
@@ -220,7 +239,9 @@ def forward_shard(
   A [B] `start_pos` puts each row at its own depth (continuous batching): per-row
   RoPE positions, cache slots and visible lengths. With `page_table`, `cache` is the
   shared page arena (paged_cache.PagePool): decode steps (T == 1) attend through K3,
-  segments (T > 1, B == 1) through K4; `use_flash`/`use_flash_decode` are ignored."""
+  segments (T > 1, B == 1) through K4; `use_flash`/`use_flash_decode` are ignored.
+  `route` sends quantized decode projections to their kernels; by default the
+  knobs' route (`quant_route`) for the device of `x`."""
   check_supported(cfg)
   if use_flash and not (isinstance(start_pos, int) and start_pos == 0):
     raise ValueError("use_flash serves a prefill from position 0 only")
@@ -244,13 +265,15 @@ def forward_shard(
     # the engine sizes the cache so that real rows never reach the clamp.
     slots = torch.clamp(positions, max=cache["k"].shape[2] - 1)
   inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling, device=device)
+  if route is None:
+    route = quant_route(device.type == "cuda")
   stacked = params["layers"]
   _check_params(stacked)
   for i in range(stacked["wq"].shape[0]):
     layer = {name: w[i] for name, w in stacked.items()}
     h = h + _attention_block(layer, h, cache, i, positions, kv_valid_len, start_pos, q_start,
-                             cfg, inv_freq, use_flash, use_flash_decode, page_table, slots)
-    h = h + _dense_mlp(layer, rms_norm(h, layer["mlp_norm"], cfg.rms_norm_eps), cfg)
+                             cfg, inv_freq, use_flash, use_flash_decode, route, page_table, slots)
+    h = h + _dense_mlp(layer, rms_norm(h, layer["mlp_norm"], cfg.rms_norm_eps), cfg, route)
   if not is_last:
     return h, cache
   return unembed(params, h, cfg), cache

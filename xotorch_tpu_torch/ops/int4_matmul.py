@@ -24,13 +24,12 @@ on the CPU.
 """
 from __future__ import annotations
 
-from typing import Optional, Tuple
+from typing import Tuple
 
 import torch
 
 from xotorch_tpu_torch.ops import _build
 from xotorch_tpu_torch.ops.int8_matmul import check_operands, rowquant_int8
-from xotorch_tpu_torch.utils import knobs
 
 
 def _nibbles(w_packed: torch.Tensor) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -129,11 +128,10 @@ int4_w4a8_matmul.launches = 0
 
 
 def int4_grouped_matmul(h: torch.Tensor, w_packed: torch.Tensor, gscale: torch.Tensor,
-                        variant: Optional[int] = None) -> torch.Tensor:
+                        variant: int = 1) -> torch.Tensor:
   """h @ dequant(w) with the nibble unpack fused: [rows, out] in h's dtype.
-  `variant` (default XOT_INT4_V): 4 takes K5v4, any other K5."""
-  if variant is None:
-    variant = knobs.get_int("XOT_INT4_V")
+  `variant` (XOT_INT4_V, read by models/transformer.quant_route): 4 takes K5v4,
+  any other K5."""
   if variant == 4:
     return int4_w4a8_matmul(h, w_packed, gscale)
   return int4_w4a16_matmul(h, w_packed, gscale)
