@@ -11,15 +11,19 @@ Phases, in order; any failure exits nonzero and prints no result line:
   3. kernels: each kernel at synthetic-llama-1b widths (Hq 32, Hkv 8, D 64) in bf16
      against its plain PyTorch version on the same inputs, with times of the kernel,
      the plain version and torch's scaled_dot_product_attention as a yardstick (the
-     paged kernels K3/K4 over shuffled page tables, page 128); the quantized GEMVs
-     K5, K5v4 and K6 at the four projection shapes, rows 1 and 8, with one bf16
+     paged kernels K3/K4 over shuffled page tables, page 128); their int8-cache
+     variants K2q, K3q and K4q at the same cases over K/V quantized with the port's
+     quantizer (SDPA over the pre-dequantized view as the yardstick); the quantized
+     GEMVs K5, K5v4 and K6 at the four projection shapes, rows 1 and 8, with one bf16
      torch.matmul over the pre-dequantized weight as their yardstick;
   4. model: a two-layer cut of synthetic-llama-1b at full width, prefill and decode
      through the kernels in bf16 on the card against the plain path in fp32 on the
      CPU: contiguous (K1, K2), then paged (K4 prefill, K3 decode at B=3), then with
      int4 weights through K5 and K5v4 and int8 weights through K6, each kernel call
      also held against its plain version on its own inputs, and a control with one
-     group of every contraction dropped that the limit must catch;
+     group of every contraction dropped that the limit must catch; then with an int8
+     KV cache, contiguous (K1, K2q) and paged (K4q, K3q), every K2q/K3q/K4q call held
+     against its plain version, and a control with the K and V scales swapped;
   5. main path: the port's server (main.py) serving synthetic-llama-1b at full width
      and depth answers three /v1/chat/completions requests over HTTP, with K1's and
      K2's launch counters read around that run, then one decode under the profiler;
@@ -37,8 +41,14 @@ Phases, in order; any failure exits nonzero and prints no result line:
      does the engine alone on the int8 default path (no kernel); then the concurrent
      paged phase's eight requests with int4 weights (K5 launches against decode
      steps), one projection's host time by route, and the five formats' B=1 decode
-     steps taken in turn;
-  9. the {"kernels": [...]} line, then the {"ok": true, ...} line last.
+     steps taken in turn, with bf16 weights over an int8 KV cache as a sixth;
+  9. int8 KV cache: a fresh server with --kv-quantize int8 answers the main path's
+     three requests (K1 = 16 x fresh prefills, K2q = 16 x (decode steps + segments at
+     pos > 0), no K2), decodes 32 steps at B=1 and B=8 under the profiler beside bf16
+     (the kernels a step the quantizing writes add), then the eight concurrent
+     requests on an int8 page arena (K4q, K3q launches against segments and steps,
+     0 pages left, bytes a token against bf16's);
+  10. the {"kernels": [...]} line, then the {"ok": true, ...} line last.
 """
 from __future__ import annotations
 
@@ -208,6 +218,7 @@ def check_kernels(torch, results: dict) -> None:
       results["flash_cached_attention"] = r
 
   check_paged_kernels(torch, results, randn)
+  check_int8_kv_kernels(torch, results, randn)
 
   # The other head widths the kernels are built for, at the registry's other
   # llama shapes (synthetic-llama-8b: D 128; synthetic-tiny: Hq 4, Hkv 2, D 16),
@@ -331,6 +342,163 @@ def check_paged_kernels(torch, results: dict, randn) -> None:
         torch.cuda.synchronize()
         ref = paged_prefill_attention_ref(q, kp, vp, table, lens, window=window, softcap=softcap)
         check_only("paged_prefill_attention", f"Hq={hq} Hkv={hkv} D={d} page={pg} T=20 "
+                   f"kv_valid=[20, 137, 420] window={window} softcap={softcap}", out, ref)
+
+
+def kv8_bytes(rows: int, hkv: int = HKV, d: int = D) -> float:
+  """Bytes an int8 cache holds for `rows` positions: K and V codes plus their bf16
+  scales."""
+  return 2.0 * rows * hkv * (d + 2)
+
+
+def check_int8_kv_kernels(torch, results: dict, randn) -> None:
+  """K2q, K3q and K4q at K2's, K3's and K4's cases over random bf16 K/V quantized
+  with the port's quantizer, against their plain versions (dequantize, then attend)
+  on the same inputs at ATOL; timed beside one SDPA call over the pre-dequantized
+  bf16 view (a yardstick the port never calls). Bound bytes: the visible rows' int8
+  codes and bf16 scales, q and o. K2q also against K2 over the dequantized cache:
+  its tiles hold the same bf16 values, so the two should agree bit for bit (printed,
+  not asserted). Then the other head widths and page 16, correctness only."""
+  import torch.nn.functional as F
+  from xotorch_tpu_torch.models.transformer import _quantize_kv
+  from xotorch_tpu_torch.ops.flash_decode import (dequantize_kv, flash_cached_attention,
+                                                  flash_cached_attention_int8,
+                                                  flash_cached_attention_ref)
+  from xotorch_tpu_torch.ops.paged_attention import (gather_paged_view, paged_decode_attention_int8,
+                                                     paged_decode_attention_ref,
+                                                     paged_prefill_attention_int8,
+                                                     paged_prefill_attention_ref)
+  dev = torch.device("cuda")
+  bf = torch.bfloat16
+  quantize_kv = lambda x: _quantize_kv(x, bf)  # as the engine writes an int8 cache
+
+  def sdpa_ms(q, k, v, q_pos, lens, window):
+    """One SDPA call over bf16 K/V [B, S, Hkv, D], masked to the visible positions."""
+    kv = torch.arange(k.shape[1], device=dev)
+    mask = (kv[None, None, :] <= q_pos[:, :, None]) & (kv[None, None, :] < lens[:, None, None])
+    if window:
+      mask = mask & (kv[None, None, :] > q_pos[:, :, None] - window)
+    qt, kt, vt, m = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask[:, None]
+    return time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m, enable_gqa=True))
+
+  # K2q: the main path's decode shape first, then K2's other cases.
+  varied = [17, 300, 1023, 1024, 2047, 2500, 3333, 4095]
+  for B, T, S, starts, window, softcap in ((1, 1, 2048, [640], 0, 0.0),
+                                           (8, 1, 4096, varied, 0, 0.0),
+                                           (1, 64, 4096, [1000], 0, 0.0),
+                                           (8, 1, 4096, varied, 512, 50.0)):
+    q = randn(B, T, HQ, D)
+    (kc, ks), (vc, vs) = quantize_kv(randn(B, S, HKV, D)), quantize_kv(randn(B, S, HKV, D))
+    q_start = torch.tensor(starts, dtype=torch.int32, device=dev)
+    call = lambda: flash_cached_attention_int8(q, kc, vc, ks, vs, q_start, window=window,
+                                               softcap=softcap)
+    out = call()
+    torch.cuda.synchronize()
+    ref = flash_cached_attention_ref(q, kc, vc, q_start, window=window, softcap=softcap,
+                                     k_scale=ks, v_scale=vs)
+    kd, vd = dequantize_kv(kc, vc, ks, vs, bf)
+    same = torch.equal(out, flash_cached_attention(q, kd, vd, q_start, window=window,
+                                                   softcap=softcap))
+    ms = time_ms(call)
+    plain_ms = time_ms(lambda: flash_cached_attention_ref(q, kc, vc, q_start, window=window,
+                                                          softcap=softcap, k_scale=ks,
+                                                          v_scale=vs), iters=5)
+    pos = q_start.long()[:, None] + torch.arange(T, device=dev)[None, :]
+    lib = None if softcap else sdpa_ms(q, kd, vd, pos, pos[:, -1] + 1, window)
+    pairs = sum(visible(s + t, window) for s in starts for t in range(T))
+    rows = sum(s + T - (max(0, s - window + 1) if window else 0) for s in starts)
+    b_ms, b_by = bound(4.0 * HQ * D * pairs, 2.0 * 2 * q.numel() + kv8_bytes(rows))
+    case = (f"B={B} T={T} S={S} q_start={starts if B == 1 else 'varied'} window={window} "
+            f"softcap={softcap} (bit-identical to K2 over the dequantized cache: {same})")
+    r = report("flash_cached_attention_int8", case, out, ref, ms, plain_ms, lib, b_ms, b_by)
+    if (B, T, S, window) == (1, 1, 2048, 0):
+      results["flash_cached_attention_int8"] = r
+
+  def paged_int8(lengths, pg, hq, hkv, d, T=1):
+    q, kp, vp, table, lens = paged_inputs(torch, randn, lengths, pg, hq, hkv, d, T=T)
+    (kq, ks), (vq, vs) = quantize_kv(kp), quantize_kv(vp)
+    return q, kq, vq, ks, vs, table, lens
+
+  # K3q: (lengths per row, window, softcap) at page 128; the second case is the
+  # concurrent phase's shape.
+  ragged = [100, 300, 700, 1000, 1500, 2200, 3000, 4000]
+  for lengths, window, softcap in (([640], 0, 0.0), (ragged, 0, 0.0), (ragged, 512, 50.0)):
+    q, kq, vq, ks, vs, table, lens = paged_int8(lengths, 128, HQ, HKV, D)
+    call = lambda: paged_decode_attention_int8(q, kq, vq, ks, vs, table, lens, window=window,
+                                               softcap=softcap)
+    out = call()
+    torch.cuda.synchronize()
+    ref = paged_decode_attention_ref(q, kq, vq, table, lens, window=window, softcap=softcap,
+                                     k_scale_pages=ks, v_scale_pages=vs)
+    ms = time_ms(call)
+    plain_ms = time_ms(lambda: paged_decode_attention_ref(q, kq, vq, table, lens, window=window,
+                                                          softcap=softcap, k_scale_pages=ks,
+                                                          v_scale_pages=vs), iters=5)
+    lib = None
+    if not softcap:
+      kd, vd = gather_paged_view(kq, vq, table, ks, vs, bf)
+      lib = sdpa_ms(q, kd, vd, (lens.long() - 1)[:, None], lens, window)
+    vis = sum(visible(n - 1, window) for n in lengths)
+    b_ms, b_by = bound(4.0 * HQ * D * vis, 2.0 * 2 * q.numel() + kv8_bytes(vis))
+    case = (f"B={len(lengths)} lengths={lengths if len(lengths) == 1 else '100-4000'} page=128 "
+            f"window={window} softcap={softcap}")
+    r = report("paged_decode_attention_int8", case, out, ref, ms, plain_ms, lib, b_ms, b_by)
+    if lengths is ragged and not window:
+      results["paged_decode_attention_int8"] = r
+
+  # K4q: (T, kv_valid per row, window); the first is the concurrent phase's first
+  # segment of a long prompt.
+  for T, valid, window in ((1024, [1024], 0), (512, [1536], 256)):
+    q, kq, vq, ks, vs, table, lens = paged_int8(valid, 128, HQ, HKV, D, T=T)
+    call = lambda: paged_prefill_attention_int8(q, kq, vq, ks, vs, table, lens, window=window)
+    out = call()
+    torch.cuda.synchronize()
+    ref = paged_prefill_attention_ref(q, kq, vq, table, lens, window=window, k_scale_pages=ks,
+                                      v_scale_pages=vs)
+    ms = time_ms(call)
+    plain_ms = time_ms(lambda: paged_prefill_attention_ref(q, kq, vq, table, lens, window=window,
+                                                           k_scale_pages=ks, v_scale_pages=vs),
+                       iters=5)
+    kd, vd = gather_paged_view(kq, vq, table, ks, vs, bf)
+    q_pos = (lens.long() - T)[:, None] + torch.arange(T, device=dev)[None, :]
+    lib = sdpa_ms(q, kd, vd, q_pos, lens, window)
+    pairs = sum(visible(n - T + t, window) for n in valid for t in range(T))
+    rows = sum(n - (max(0, n - T - window + 1) if window else 0) for n in valid)
+    b_ms, b_by = bound(4.0 * HQ * D * pairs, 2.0 * 2 * q.numel() + kv8_bytes(rows))
+    case = f"B={len(valid)} T={T} kv_valid={valid} page=128 window={window}"
+    r = report("paged_prefill_attention_int8", case, out, ref, ms, plain_ms, lib, b_ms, b_by)
+    if (T, window) == (1024, 0):
+      results["paged_prefill_attention_int8"] = r
+
+  # The other head widths (synthetic-llama-8b: D 128; synthetic-tiny: Hq 4, Hkv 2,
+  # D 16), both page sizes, windows and softcaps: correctness only.
+  for hq, hkv, d in ((32, 8, 128), (4, 2, 16)):
+    q = randn(3, 20, hq, d)
+    (kc, ks), (vc, vs) = quantize_kv(randn(3, 544, hkv, d)), quantize_kv(randn(3, 544, hkv, d))
+    q_start = torch.tensor([100, 37, 400], dtype=torch.int32, device=dev)
+    out = flash_cached_attention_int8(q, kc, vc, ks, vs, q_start, window=50, softcap=20.0)
+    torch.cuda.synchronize()
+    ref = flash_cached_attention_ref(q, kc, vc, q_start, window=50, softcap=20.0, k_scale=ks,
+                                     v_scale=vs)
+    check_only("flash_cached_attention_int8", f"Hq={hq} Hkv={hkv} D={d} B=3 T=20 "
+               f"q_start=[100, 37, 400] window=50 softcap=20.0", out, ref)
+    for pg in (16, 128):
+      for window, softcap in ((0, 0.0), (50, 20.0)):
+        q, kq, vq, ks, vs, table, lens = paged_int8([1, 200, 511], pg, hq, hkv, d)
+        out = paged_decode_attention_int8(q, kq, vq, ks, vs, table, lens, window=window,
+                                          softcap=softcap)
+        torch.cuda.synchronize()
+        ref = paged_decode_attention_ref(q, kq, vq, table, lens, window=window, softcap=softcap,
+                                         k_scale_pages=ks, v_scale_pages=vs)
+        check_only("paged_decode_attention_int8", f"Hq={hq} Hkv={hkv} D={d} page={pg} "
+                   f"lengths=[1, 200, 511] window={window} softcap={softcap}", out, ref)
+        q, kq, vq, ks, vs, table, lens = paged_int8([20, 137, 420], pg, hq, hkv, d, T=20)
+        out = paged_prefill_attention_int8(q, kq, vq, ks, vs, table, lens, window=window,
+                                           softcap=softcap)
+        torch.cuda.synchronize()
+        ref = paged_prefill_attention_ref(q, kq, vq, table, lens, window=window, softcap=softcap,
+                                          k_scale_pages=ks, v_scale_pages=vs)
+        check_only("paged_prefill_attention_int8", f"Hq={hq} Hkv={hkv} D={d} page={pg} T=20 "
                    f"kv_valid=[20, 137, 420] window={window} softcap={softcap}", out, ref)
 
 
@@ -587,6 +755,155 @@ def check_paged_model(torch) -> None:
                          f"or the kernels did not run (K3 {k3}, K4 {k4})")
 
 
+KV8_LIMIT = 1e-1  # the int8-KV cuts: see check_int8_kv_model
+
+
+def check_int8_kv_model(torch, limit: float = KV8_LIMIT, device: str = "cuda",
+                        model: str = "synthetic-llama-1b") -> None:
+  """The two-layer full-width cut with an int8 KV cache, in bf16 on the card against
+  the plain path in fp32 on the CPU (same weights, same flags, so the CPU's first
+  segment also attends its fresh K/V): contiguous, a 100-token prefill from 0 (K1), a
+  40-token segment at 100 and 8 decode steps (K2q); paged, prompts of 100, 37 and 260
+  tokens into one int8 arena over shuffled page tables (K4q), then 8 decode steps at
+  B=3 (K3q). Every K2q/K3q/K4q call is held against its plain version on its own card
+  inputs at ATOL. `limit` bounds the largest logit error as a share of the logits'
+  largest magnitude: the card's bf16 K/V and the CPU's fp32 K/V take different int8
+  codes where a value sits near a step of the grid (as the A8 activations did), so
+  the cuts get the A8 cuts' 1e-1; a control decodes the same steps with each call's K
+  and V scales swapped, which must exceed it. (`device` and `model` let it be rehearsed
+  on the CPU with a small card.)"""
+  import dataclasses
+  import numpy as np
+  from xotorch_tpu_torch.inference.torch_engine.paged_cache import PagePool
+  from xotorch_tpu_torch.models import transformer
+  from xotorch_tpu_torch.models.config import config_from_hf_dict
+  from xotorch_tpu_torch.models.registry import get_model_card
+  from xotorch_tpu_torch.models.transformer import forward_shard, init_kv_cache, init_random_params
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention
+  from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention_int8, flash_cached_attention_ref
+  from xotorch_tpu_torch.ops.paged_attention import (paged_decode_attention_int8,
+                                                     paged_decode_attention_ref,
+                                                     paged_prefill_attention_int8,
+                                                     paged_prefill_attention_ref)
+
+  cfg = dataclasses.replace(config_from_hf_dict(get_model_card(model)["synthetic_config"]),
+                            num_layers=2)
+  dev = torch.device(device)
+  params = init_random_params(cfg, 2, True, True, seed=0, dtype=torch.bfloat16, device=dev)
+  params_cpu = cpu_copy(torch, params)
+  rng = np.random.default_rng(2)
+  x = rng.integers(0, cfg.vocab_size, size=(1, 140))
+  lengths, steps, page, P = (100, 37, 260), 8, 128, 16
+  prompts = [rng.integers(0, cfg.vocab_size, size=(1, n)) for n in lengths]
+  ids = (rng.permutation(P - 1) + 1).tolist()
+  table = np.zeros((3, 4), np.int32)
+  for b, n in enumerate(lengths):
+    k = -(-(n + steps) // page)
+    table[b, :k], ids = ids[:k], ids[k:]
+
+  # Each attention call of the transformer, wrapped: its int8 operands held against
+  # the plain version on the same inputs (card runs), or its scales swapped (control).
+  plain = {"flash_cached_attention": (flash_cached_attention_ref, "k_scale", "v_scale"),
+           "paged_decode_attention": (paged_decode_attention_ref, "k_scale_pages", "v_scale_pages"),
+           "paged_prefill_attention": (paged_prefill_attention_ref, "k_scale_pages", "v_scale_pages")}
+  original = {name: getattr(transformer, name) for name in plain}
+  mode = {"swap": False, "hold": False}
+  call_err = []
+
+  def wrapped(name):
+    ref_fn, ks, vs = plain[name]
+
+    def call(*a, **kw):
+      if mode["swap"]:
+        kw = {**kw, ks: kw[vs], vs: kw[ks]}
+      out = original[name](*a, **kw)
+      if mode["hold"]:
+        ref = ref_fn(*a, **{k: v for k, v in kw.items() if k != "ragged"})
+        call_err.append((out.float() - ref.float()).abs().max().item())
+      return out
+    return call
+
+  def contiguous(p, dev_, dtype, fed):
+    """Logits of the prefill's last 8 positions, the segment's last 8, then 8 decode
+    steps that feed `fed` (the reference's greedy tokens, taken as it runs)."""
+    cache = init_kv_cache(cfg, 2, 1, 256, dtype, dev_, kv_quant=True)
+    xs = torch.as_tensor(x, device=dev_)
+    logits, _ = forward_shard(p, xs[:, :100], cache, 0, cfg, True, True, use_flash=True)
+    out = [logits[0, -8:].float().cpu()]
+    logits, _ = forward_shard(p, xs[:, 100:], cache, 100, cfg, True, True, use_flash_decode=True)
+    out.append(logits[0, -8:].float().cpu())
+    for i in range(steps):
+      if len(fed) == i:
+        fed.append(int(out[-1][-1].argmax()))
+      logits, _ = forward_shard(p, torch.tensor([[fed[i]]], device=dev_), cache, 140 + i, cfg, True,
+                                True, use_flash_decode=True)
+      out.append(logits[0].float().cpu())
+    return out
+
+  def paged(p, dev_, dtype, fed):
+    arena = PagePool(cfg, 2, P, page, dtype=dtype, device=dev_, kv_quant=True).arena
+    tb = torch.as_tensor(table, device=dev_)
+    out, last = [], []
+    for b, prompt in enumerate(prompts):
+      logits, _ = forward_shard(p, torch.as_tensor(prompt, device=dev_), arena, 0, cfg, True, True,
+                                page_table=tb[b:b + 1])
+      out.append(logits[0, -8:].float().cpu())
+      last.append(int(logits[0, -1].argmax()))
+    pos = torch.tensor(lengths, dtype=torch.int32, device=dev_)
+    for i in range(steps):
+      if len(fed) == i:
+        fed.append(last)
+      logits, _ = forward_shard(p, torch.tensor(fed[i], device=dev_)[:, None], arena, pos + i, cfg,
+                                True, True, page_table=tb)
+      out.extend(logits[b, -1].float().cpu() for b in range(3))
+      last = [int(logits[b, -1].argmax()) for b in range(3)]
+    return out
+
+  def error(got, want):
+    if not all(bool(torch.isfinite(g).all()) for g in got):
+      raise AssertionError("int8-KV model: non-finite logits on the card")
+    return max(((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want))
+
+  kernels = (flash_attention, flash_cached_attention_int8, paged_decode_attention_int8,
+             paged_prefill_attention_int8)
+  with torch.inference_mode():
+    for name in plain:
+      setattr(transformer, name, wrapped(name))
+    try:
+      for label, run, want_launches in (
+          ("contiguous", contiguous, {"flash_attention": 2, "flash_cached_attention_int8": 2 * (1 + steps)}),
+          ("paged", paged, {"paged_prefill_attention_int8": 2 * 3,
+                            "paged_decode_attention_int8": 2 * steps})):
+        fed = []
+        want = run(params_cpu, "cpu", torch.float32, fed)
+        before = {k.__name__: k.launches for k in kernels}
+        mode["hold"], call_err[:] = True, []
+        got = run(params, dev, torch.bfloat16, fed)
+        mode["hold"] = False
+        launched = {k.__name__: k.launches - before[k.__name__] for k in kernels
+                    if k.launches != before[k.__name__]}
+        mode["swap"] = True
+        control = run(params, dev, torch.bfloat16, fed)
+        mode["swap"] = False
+        worst, caught = error(got, want), error(control, want)
+        ok = (worst < limit and caught > limit and launched == want_launches
+              and len(call_err) == sum(want_launches.values()) - want_launches.get("flash_attention", 0)
+              and max(call_err) <= ATOL)
+        print(f"[model] 2-layer {model} cut, int8 KV, {label}: max logit error "
+              f"{worst:.3e} of the logits' range (limit {limit:g}); launches {launched}; "
+              f"{len(call_err)} int8 kernel calls against their plain versions on their card inputs: "
+              f"worst {max(call_err):.3e} (atol {ATOL}); control, K and V scales swapped: "
+              f"{caught:.3e} ({'caught' if caught > limit else 'NOT caught'}) "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+          raise AssertionError(f"int8-KV model ({label}): card logits disagree with the CPU reference "
+                               f"({worst}), a kernel call with its plain version, the control "
+                               f"passed ({caught}), or the launches were {launched}")
+    finally:
+      for name, fn in original.items():
+        setattr(transformer, name, fn)
+
+
 def http_json(url: str, body=None, timeout: float = 300.0):
   import urllib.request
   req = urllib.request.Request(url, data=None if body is None else json.dumps(body).encode(),
@@ -675,7 +992,8 @@ async def profile_decode(torch, engine, model: str, classname: str, card: str,
   launches = sum(r[2] for r in rows)
   focus_ms = sum(r[0] for r in rows if focus and focus in r[1])
   out = {"tok_s": batch * n / plain_ms * 1e3, "step_ms": plain_ms / n, "busy_pct": 100 * busy / wall_ms,
-         "kernels_per_step": launches / n, "focus_pct": 100 * focus_ms / busy}
+         "kernels_per_step": launches / n, "focus_pct": 100 * focus_ms / busy,
+         "device_ms": busy / n}
   print(f"[{tag}] B={batch} ({widths}), decode {n} tokens per row after a 514-token prompt: "
         f"{plain_ms:.2f} ms without the profiler ({out['tok_s']:.1f} tok/s); "
         f"wall {wall_ms:.2f} ms ({batch * n / wall_ms * 1e3:.1f} tok/s under the profiler), "
@@ -705,15 +1023,16 @@ def main_requests(model: str):
 
 def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthetic-llama-1b",
                     kernels=None, env=None, tag: str = "main", profiles=(1,),
-                    focus: str = "") -> dict:
+                    focus: str = "", cli=()) -> dict:
   """The port's server on `model` (synthetic-llama-1b: full width and depth, on the
   card) answers three chat completions over HTTP, with `env` (XOT_* knobs, e.g. the
-  quantized formats) set for the phase. Every counter of `kernels` (default K1, K2)
-  is set to 0 just before the three requests and read just after; then a decode
-  chunk runs under the profiler at each batch size of `profiles`. Returns the
-  launch counts, the decode steps the batcher ran for the three requests and the
-  profiles. (`device` and `model` let the same phase be rehearsed on the CPU with a
-  small card.)"""
+  quantized formats) set for the phase and `cli` (e.g. `--kv-quantize int8`) added
+  to its command line. Every counter of `kernels` (default K1, K2) is set to 0 just
+  before the three requests and read just after; then a decode chunk runs under the
+  profiler at each batch size of `profiles`. Returns the launch counts, the decode
+  steps the batcher ran for the three requests, the tokens each request streamed
+  and the profiles. (`device` and `model` let the same phase be rehearsed on the CPU
+  with a small card.)"""
   from xotorch_tpu_torch import main as port_main
   from xotorch_tpu_torch.models.registry import build_full_shard
   from xotorch_tpu_torch.ops.flash_attention import flash_attention
@@ -726,9 +1045,19 @@ def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthe
   with phase_env(**env):
     args = port_main.build_parser().parse_args(
       ["--device", device, "--default-model", model, "--chatgpt-api-host", "127.0.0.1",
-       "--chatgpt-api-port", "0", "--chatgpt-api-response-timeout", "600"])
+       "--chatgpt-api-port", "0", "--chatgpt-api-response-timeout", "600", *cli])
     node, engine, classname, api = port_main.build_node(args)
     requests = main_requests(model)
+    # The request ids the node serves, in order, and the tokens it streams for each.
+    served, tokens_of = [], {}
+    serve_prompt = node.process_prompt
+
+    async def traced(base_shard, prompt, request_id=None, *a, **kw):
+      served.append(request_id)
+      return await serve_prompt(base_shard, prompt, request_id, *a, **kw)
+    node.process_prompt = traced
+    node.on_token.register("chip-smoke-main").on_next(
+      lambda rid, toks, finished: tokens_of.__setitem__(rid, list(toks)))
 
     async def drive():
       server = await api.start("127.0.0.1", 0)
@@ -739,7 +1068,7 @@ def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthe
         t0 = time.perf_counter()
         await engine.ensure_shard(build_full_shard(model, classname))
         print(f"[{tag}] {model} loaded (random {engine.dtype} weights, quantize={engine.quantize}, "
-              f"on {device}) in {time.perf_counter() - t0:.1f} s", flush=True)
+              f"kv_quant={engine.kv_quant}, on {device}) in {time.perf_counter() - t0:.1f} s", flush=True)
         health = await loop.run_in_executor(None, http_json, base + "/healthcheck")
         listed = await loop.run_in_executor(None, http_json, base + "/v1/models")
         if health.get("status") != "ok" or model not in [m["id"] for m in listed["data"]]:
@@ -753,6 +1082,7 @@ def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthe
         print(f"[{tag}] warm-up: 3 requests in {time.perf_counter() - t0:.2f} s", flush=True)
         batcher = engine._ctx.batcher
         batcher.dispatches = batcher.rows = batcher.steps = 0
+        served.clear()
         for k in kernels:
           k.launches = 0
         decoded = 0
@@ -781,22 +1111,24 @@ def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthe
           decoded += n - 1  # the first token comes from the prefill
         counts = {k.__name__: k.launches for k in kernels}
         steps = batcher.steps
+        streamed = [tokens_of.get(rid, []) for rid in served]
         profiled = {}
         for b in profiles:
           profiled[b] = await profile_decode(torch, engine, model, classname, card, batch=b,
                                              tag=tag, focus=focus)
-        return counts, decoded, steps, profiled
+        return counts, decoded, steps, streamed, profiled
       finally:
         server.close()
         await server.wait_closed()
         await node.stop()
 
     try:
-      counts, decoded, steps, profiled = asyncio.run(drive())
+      counts, decoded, steps, streamed, profiled = asyncio.run(drive())
     finally:
       engine.executor.shutdown(wait=True)
   print(f"[{tag}] launches: {counts} ({decoded} decoded tokens, {steps} decode steps)", flush=True)
-  return {"launches": counts, "decoded": decoded, "steps": steps, "profiles": profiled}
+  return {"launches": counts, "decoded": decoded, "steps": steps, "tokens": streamed,
+          "profiles": profiled}
 
 
 def quant_phases():
@@ -889,7 +1221,8 @@ def projection_host_us(torch, card: str) -> dict:
 
 def alternate_formats(torch, card: str, rounds: int = 4, n: int = 32,
                       model: str = "synthetic-llama-1b") -> dict:
-  """The engine alone in each weight format, all resident at once, decoding `n`
+  """The engine alone in each weight format, and with bf16 weights over an int8 KV
+  cache, all resident at once, decoding `n`
   greedy tokens at B=1 after a 514-token prompt, the formats taking turns for
   `rounds` rounds, so that host drift over the call falls on every format alike.
   Returns each format's wall ms per step, round by round."""
@@ -900,7 +1233,8 @@ def alternate_formats(torch, card: str, rounds: int = 4, n: int = 32,
   formats = {"bf16": {}, "int4 K5": {"XOT_QUANTIZE": "int4"},
              "int4 K5v4": {"XOT_QUANTIZE": "int4", "XOT_INT4_V": "4"},
              "int8 K6": {"XOT_QUANTIZE": "int8", "XOT_INT8_KERNEL": "1"},
-             "int8 default path": {"XOT_QUANTIZE": "int8", "XOT_INT8_KERNEL": "0"}}
+             "int8 default path": {"XOT_QUANTIZE": "int8", "XOT_INT8_KERNEL": "0"},
+             "bf16, int8 KV (K2q)": {"XOT_KV_QUANT": "int8"}}
   shard = build_full_shard(model, TORCH)
   engines = {}
   for label, env in formats.items():
@@ -956,8 +1290,14 @@ def drive_concurrent(torch, card: str, paged: bool, device: str = "cuda",
   from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention
   from xotorch_tpu_torch.ops.paged_attention import paged_decode_attention, paged_prefill_attention
 
+  from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention_int8
+  from xotorch_tpu_torch.ops.paged_attention import (paged_decode_attention_int8,
+                                                     paged_prefill_attention_int8)
+
   env = env or {}
-  tag = ("paged" if paged else "contiguous") + (f" {env['XOT_QUANTIZE']}" if "XOT_QUANTIZE" in env else "")
+  kv8 = env.get("XOT_KV_QUANT") == "int8"
+  tag = (("paged" if paged else "contiguous") + (f" {env['XOT_QUANTIZE']}" if "XOT_QUANTIZE" in env else "")
+         + (" int8-KV" if kv8 else ""))
   os.environ["XOT_PAGED_KV"] = "1" if paged else "0"
   os.environ["XOT_PREFILL_CHUNK"] = "1024"
   args = port_main.build_parser().parse_args(
@@ -981,7 +1321,11 @@ def drive_concurrent(torch, card: str, paged: bool, device: str = "cuda",
   node.on_token.register("chip-smoke").on_next(
     lambda rid, toks, finished: tokens_of.__setitem__(rid, list(toks)))
   kernels = (flash_attention, flash_cached_attention, paged_decode_attention,
-             paged_prefill_attention) + ((quant_kernel,) if quant_kernel else ())
+             paged_prefill_attention, flash_cached_attention_int8, paged_decode_attention_int8,
+             paged_prefill_attention_int8) + ((quant_kernel,) if quant_kernel else ())
+  # The attention kernels of this cache format, and the counters that must stay 0.
+  own = "_int8" if kv8 else ""
+  other = "" if kv8 else "_int8"
 
   async def drive():
     server = await api.start("127.0.0.1", 0)
@@ -1033,32 +1377,46 @@ def drive_concurrent(torch, card: str, paged: bool, device: str = "cuda",
             f"{steps} decode steps; launches {counts}; pool {stats} ({card})", flush=True)
       if rows / dispatches <= 1:
         raise AssertionError(f"{tag}: the batcher never coalesced (mean width {rows / dispatches})")
+      idle = [n + other for n in ("flash_cached_attention", "paged_decode_attention",
+                                  "paged_prefill_attention")]
+      idle += (["flash_cached_attention" + own] if paged
+               else ["paged_decode_attention" + own, "paged_prefill_attention" + own])
+      if any(counts[n] for n in idle):
+        raise AssertionError(f"{tag}: launches {counts}: {idle} should not run")
       if paged:
-        k3, k4 = counts["paged_decode_attention"], counts["paged_prefill_attention"]
-        if k3 != steps * layers or k4 != segments * layers or counts["flash_cached_attention"]:
-          raise AssertionError(f"paged: launches {counts} disagree with {steps} decode steps and "
+        k3, k4 = counts["paged_decode_attention" + own], counts["paged_prefill_attention" + own]
+        if k3 != steps * layers or k4 != segments * layers:
+          raise AssertionError(f"{tag}: launches {counts} disagree with {steps} decode steps and "
                                f"{segments} prefill segments x {layers} layers")
         if stats["pages_in_use"] != 0:
-          raise AssertionError(f"paged: {stats['pages_in_use']} pool pages left in use")
-      elif counts["flash_cached_attention"] < steps * layers or counts["paged_decode_attention"]:
-        raise AssertionError(f"contiguous: launches {counts} disagree with {steps} decode steps")
+          raise AssertionError(f"{tag}: {stats['pages_in_use']} pool pages left in use")
+      elif counts["flash_cached_attention" + own] < steps * layers:
+        raise AssertionError(f"{tag}: launches {counts} disagree with {steps} decode steps")
       if quant_kernel and counts[quant_kernel.__name__] != 7 * layers * steps:
         raise AssertionError(f"{tag}: {quant_kernel.__name__} ran {counts[quant_kernel.__name__]} "
                              f"times, not 7 x {layers} layers x {steps} decode steps")
+      bytes_per_token = None
+      if paged:
+        arena_pool = engine._ctx.page_pool
+        bytes_per_token = (sum(t.numel() * t.element_size() for t in arena_pool.arena.values())
+                           / (arena_pool.num_pages * arena_pool.page_size))
+        print(f"[{tag}] page arena: {bytes_per_token:.0f} bytes per token over {layers} layers "
+              f"({', '.join(f'{n} {t.dtype}' for n, t in arena_pool.arena.items())})", flush=True)
       profiled = await profile_decode(torch, engine, model, classname, card, batch=len(bodies))
       by_words = sorted(prompt_of, key=lambda rid: len(prompt_of[rid].split()))
       greedy = {CONCURRENT_WORDS[i]: tokens_of[rid] for i, rid in enumerate(by_words)
                 if bodies[i]["temperature"] == 0.0}
-      return counts, greedy, profiled
+      return counts, greedy, profiled, bytes_per_token
     finally:
       pool.shutdown(wait=True)
       server.close()
       await server.wait_closed()
       await node.stop()
 
-  counts, greedy, profiled = asyncio.run(drive())
+  counts, greedy, profiled, bytes_per_token = asyncio.run(drive())
   engine.executor.shutdown(wait=True)
-  return {"launches": counts, "greedy": greedy, "profile": profiled}
+  return {"launches": counts, "greedy": greedy, "profile": profiled,
+          "bytes_per_token": bytes_per_token}
 
 
 async def wait_idle(engine, timeout: float = 30.0) -> None:
@@ -1109,6 +1467,7 @@ def main(argv=None) -> int:
   # Phase 4: the model through the kernels against the plain path.
   check_model(torch)
   check_paged_model(torch)
+  check_int8_kv_model(torch)
   for fmt, env, kernel, _ in quant_phases():
     # force: the card's decode rows through the kernel, the CPU's through its plain
     # version. K5v4 and K6 quantize their activations to int8, bf16 ones on the card
@@ -1168,7 +1527,53 @@ def main(argv=None) -> int:
   projection_host_us(torch, card)
   alternate_formats(torch, card)
 
-  # Phase 9: results.
+  # Phase 9: the int8 KV cache. A fresh server with --kv-quantize int8 answers the main
+  # path's three requests: K1 for each fresh prefill (over the fresh K/V), K2q for every
+  # decode step and for the 1502-token prompt's second segment, no K2. Then the engine
+  # alone decodes 32 steps at B=1 and B=8 under the profiler, and the eight concurrent
+  # requests run on an int8 page arena (K4q prefill, K3q decode).
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention
+  from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention, flash_cached_attention_int8
+  kv = drive_main_path(torch, card, kernels=(flash_attention, flash_cached_attention,
+                                             flash_cached_attention_int8),
+                       tag="int8 kv", profiles=(1, 8), focus="flash_cached_kernel",
+                       cli=("--kv-quantize", "int8"))
+  counted = kv["launches"]
+  want = {"flash_attention": 16 * 3, "flash_cached_attention": 0,
+          "flash_cached_attention_int8": 16 * (kv["steps"] + 1)}
+  ok = counted == want and kv["steps"] >= kv["decoded"]
+  print(f"[int8 kv] launches {counted}: K1 = 16 layers x 3 fresh prefills, K2q = 16 x "
+        f"({kv['steps']} decode steps + 1 segment at pos > 0), no K2 ({want}) "
+        f"{'ok' if ok else 'FAIL'}", flush=True)
+  if not ok:
+    raise AssertionError(f"int8 kv: launches {counted}, wanted {want}")
+  launches["flash_cached_attention_int8"] = counted["flash_cached_attention_int8"]
+  same = total = 0
+  for i, body in enumerate(main_requests("synthetic-llama-1b")):
+    if body[1].get("temperature") == 0:
+      a, b = main_run["tokens"][i], kv["tokens"][i]
+      same += sum(x == y for x, y in zip(a, b))
+      total += max(len(a), len(b))
+  print(f"[int8 kv] temperature-0 tokens the int8-KV server shares with the bf16 main path: "
+        f"{same}/{total} = {100 * same / max(total, 1):.1f}% (not asserted)", flush=True)
+  for label, prof in (("bf16 KV", rates["bf16"]), ("int8 KV", kv["profiles"])):
+    cells = ", ".join(f"B={b}: {p['device_ms']:.3f} device ms a step, {p['kernels_per_step']:.0f} "
+                      f"kernels a step, {100 - p['busy_pct']:.1f}% idle, {p['step_ms']:.2f} wall ms"
+                      for b, p in sorted(prof.items()) if p)
+    print(f"[int8 kv] {label}: {cells or 'not measured'} ({card})", flush=True)
+  # K2q replaces K2 one for one, so the kernels a step int8 KV adds are its writes':
+  # the quantizer's eager ops and two more copies a layer.
+  added = {b: kv["profiles"][b]["kernels_per_step"] - rates["bf16"][b]["kernels_per_step"]
+           for b in (1, 8) if kv["profiles"].get(b) and rates["bf16"].get(b)}
+  print(f"[int8 kv] quantize on write: {added} more device kernels a step than bf16 KV "
+        f"({card})", flush=True)
+  paged8 = drive_concurrent(torch, card, paged=True, env={"XOT_KV_QUANT": "int8"})
+  launches.update((k, paged8["launches"][k])
+                  for k in ("paged_decode_attention_int8", "paged_prefill_attention_int8"))
+  print(f"[int8 kv] page arena bytes per token: int8 {paged8['bytes_per_token']:.0f} against bf16 "
+        f"{paged['bytes_per_token']:.0f} ({card})", flush=True)
+
+  # Phase 10: results.
   meta = {
     "flash_attention": ("xotorch_tpu_torch/csrc/flash_attention.cu",
                         "xotorch_tpu/ops/flash_attention.py:54"),
@@ -1184,6 +1589,12 @@ def main(argv=None) -> int:
                          "xotorch_tpu/ops/int4_matmul.py:122"),
     "int8_rowquant_matmul": ("xotorch_tpu_torch/csrc/quant_matvec.cu",
                              "xotorch_tpu/ops/int8_matmul.py:43"),
+    "flash_cached_attention_int8": ("xotorch_tpu_torch/csrc/flash_decode.cu",
+                                    "xotorch_tpu/ops/flash_decode.py:62 (quant=True)"),
+    "paged_decode_attention_int8": ("xotorch_tpu_torch/csrc/paged_attention.cu",
+                                    "xotorch_tpu/ops/paged_attention.py:129 (quant=True)"),
+    "paged_prefill_attention_int8": ("xotorch_tpu_torch/csrc/paged_attention.cu",
+                                     "xotorch_tpu/ops/paged_attention.py:276 (quant=True)"),
   }
   kernels = []
   for name, (source, replaces) in meta.items():

@@ -384,11 +384,24 @@ def test_knobs_are_registered_with_the_jax_defaults():
     assert knobs.REGISTRY[name].kind == j_knobs.REGISTRY[name].kind, name
 
 
-@pytest.mark.parametrize("value", ["int8", "INT8"])
-def test_kv_quant_raises_rather_than_serving_a_bf16_cache(value, monkeypatch):
+@pytest.mark.parametrize("value", ["int8", "INT8", "int4"])
+async def test_kv_quant_serves_an_int8_cache_rather_than_a_bf16_one(value, monkeypatch):
+  """XOT_KV_QUANT=int8 (any case) builds an int8 cache with its scales; a format the
+  JAX engine refuses (int4) raises ValueError, as it does there."""
   monkeypatch.setenv("XOT_KV_QUANT", value)
-  with pytest.raises(NotImplementedError, match="XOT_KV_QUANT"):
-    TorchShardInferenceEngine(device="cpu")
+  if value == "int4":
+    with pytest.raises(ValueError, match="int4"):
+      TorchShardInferenceEngine(device="cpu")
+    with pytest.raises(ValueError, match="int4"):
+      JAXShardInferenceEngine(dtype="float32")
+    return
+  eng = TorchShardInferenceEngine(device="cpu", dtype="float32", seed=0)
+  await eng.infer_tensor("r", Shard(MODEL, 0, 3, 4), np.ones((1, 5), np.int64))
+  eng.executor.shutdown(wait=True)
+  cache = eng._ctx.states["r"].cache
+  assert eng.kv_quant == "int8" and sorted(cache) == ["k", "k_scale", "v", "v_scale"]
+  assert cache["k"].dtype == cache["v"].dtype == torch.int8
+  assert cache["k_scale"].dtype == torch.float32 and cache["k_scale"][:, :, :5].all()
 
 
 @pytest.mark.parametrize("how", ["argument", "env"])

@@ -1,11 +1,18 @@
-// K2: cached grouped-query attention of a query segment over the resident KV cache, for
-// Hopper (sm_90a).
+// K2 and K2q: cached grouped-query attention of a query segment over the resident KV
+// cache, for Hopper (sm_90a).
 //
 // Replaces xotorch_tpu/ops/flash_decode.py::_cached_kernel and its windowed twin
 // _cached_kernel_windowed: T queries at absolute positions q_start[b] + [0, T) attend the
 // contiguous cache [B, S, Hkv, D]; query position p sees cache positions
 // [max(0, p - window + 1), p] (window 0 = the whole prefix). T == 1 is a decode step,
 // T > 1 a chunked-prefill segment that starts at q_start > 0.
+//
+// K2q (KV8 = true) replaces the same kernels with quant=True: the cache is int8 with one
+// bf16 scale per (position, head), k/v_scale [B, S, Hkv]. The staging loop reads int8
+// words (four codes a word) and the row's scale and writes code x scale, rounded once to
+// bf16, into the same shared-memory tiles K2 fills: the product of an 8-bit integer and
+// a bf16 significand is exact in fp32, so this equals the bf16 multiply of JAX's _load_kv
+// bit for bit. Scoring, softmax and P.V are K2's. The cache then streams half the bytes.
 //
 // What bounds it: a decode step must stream the visible cache once, 2 * Lvis * Hkv * D * 2
 // bytes per (batch row, layer), for about 4 * Hq * Lvis * D FLOPs, so decode is bound by
@@ -30,6 +37,8 @@
 #include <math.h>
 #include <stdint.h>
 
+#include <type_traits>
+
 namespace {
 
 constexpr int WARPS = 8;
@@ -49,10 +58,23 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-template <int D>
+// Four int8 codes (one 32-bit word) times a scale, each product rounded once to bf16,
+// stored as two bf16 pairs at `dst` (4-byte aligned).
+__device__ __forceinline__ void dequant4(uint32_t word, float sc, __nv_bfloat16* dst) {
+  const float c0 = (float)(int8_t)(word & 0xffu);
+  const float c1 = (float)(int8_t)((word >> 8) & 0xffu);
+  const float c2 = (float)(int8_t)((word >> 16) & 0xffu);
+  const float c3 = (float)(int8_t)(word >> 24);
+  __nv_bfloat162* d2 = reinterpret_cast<__nv_bfloat162*>(dst);
+  d2[0] = __halves2bfloat162(__float2bfloat16_rn(c0 * sc), __float2bfloat16_rn(c1 * sc));
+  d2[1] = __halves2bfloat162(__float2bfloat16_rn(c2 * sc), __float2bfloat16_rn(c3 * sc));
+}
+
+template <int D, bool KV8>
 __global__ void __launch_bounds__(WARPS * 32) flash_cached_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kc,
-    const __nv_bfloat16* __restrict__ vc, const int* __restrict__ q_start,
+    const __nv_bfloat16* __restrict__ q, const void* __restrict__ kc,
+    const void* __restrict__ vc, const __nv_bfloat16* __restrict__ k_scale,
+    const __nv_bfloat16* __restrict__ v_scale, const int* __restrict__ q_start,
     __nv_bfloat16* __restrict__ o, int T, int S, int Hq, int Hkv, int block_q, int block_k,
     int window, float scale, float softcap) {
   constexpr int DP = D + 2;              // padded K row stride (bf16): conflict-free reads
@@ -96,24 +118,47 @@ __global__ void __launch_bounds__(WARPS * 32) flash_cached_kernel(
   const int hi = min(S, start + t_end);
   int lo = window > 0 ? max(0, start + t0 - window + 1) : 0;
   lo = (lo / block_k) * block_k;
-  const size_t row_stride = (size_t)Hkv * D;
-  const __nv_bfloat16* kb = kc + (size_t)b * S * row_stride + (size_t)kvh * D;
-  const __nv_bfloat16* vb = vc + (size_t)b * S * row_stride + (size_t)kvh * D;
+  const size_t row_stride = (size_t)Hkv * D;  // elements (bf16) or bytes (int8)
+  using Elem = typename std::conditional<KV8, int8_t, __nv_bfloat16>::type;
+  const Elem* kb = static_cast<const Elem*>(kc) + (size_t)b * S * row_stride + (size_t)kvh * D;
+  const Elem* vb = static_cast<const Elem*>(vc) + (size_t)b * S * row_stride + (size_t)kvh * D;
 
   for (int k0 = lo; k0 < hi; k0 += block_k) {
     __syncthreads();  // the previous tile is consumed (and q is staged, first time)
-    const int words = D / 2;
-    for (int i = threadIdx.x; i < block_k * words; i += blockDim.x) {
-      const int j = i / words;
-      const int w = i % words;
-      const int kp = k0 + j;
-      uint32_t kw = 0u, vw = 0u;
-      if (kp < hi) {
-        kw = reinterpret_cast<const uint32_t*>(kb + (size_t)kp * row_stride)[w];
-        vw = reinterpret_cast<const uint32_t*>(vb + (size_t)kp * row_stride)[w];
+    if constexpr (KV8) {
+      // Four codes a word; the (position, head) scale sits at (b*S + kp)*Hkv + kvh.
+      constexpr int words = D / 4;
+      const __nv_bfloat16* ksb = k_scale + (size_t)b * S * Hkv + kvh;
+      const __nv_bfloat16* vsb = v_scale + (size_t)b * S * Hkv + kvh;
+      for (int i = threadIdx.x; i < block_k * words; i += blockDim.x) {
+        const int j = i / words;
+        const int w = i % words;
+        const int kp = k0 + j;
+        uint32_t kw = 0u, vw = 0u;
+        float kscl = 0.f, vscl = 0.f;
+        if (kp < hi) {
+          kw = reinterpret_cast<const uint32_t*>(kb + (size_t)kp * row_stride)[w];
+          vw = reinterpret_cast<const uint32_t*>(vb + (size_t)kp * row_stride)[w];
+          kscl = __bfloat162float(ksb[(size_t)kp * Hkv]);
+          vscl = __bfloat162float(vsb[(size_t)kp * Hkv]);
+        }
+        dequant4(kw, kscl, ks + (size_t)j * DP + 4 * w);
+        dequant4(vw, vscl, vs + (size_t)j * D + 4 * w);
       }
-      reinterpret_cast<uint32_t*>(ks + (size_t)j * DP)[w] = kw;
-      reinterpret_cast<uint32_t*>(vs + (size_t)j * D)[w] = vw;
+    } else {
+      constexpr int words = D / 2;
+      for (int i = threadIdx.x; i < block_k * words; i += blockDim.x) {
+        const int j = i / words;
+        const int w = i % words;
+        const int kp = k0 + j;
+        uint32_t kw = 0u, vw = 0u;
+        if (kp < hi) {
+          kw = reinterpret_cast<const uint32_t*>(kb + (size_t)kp * row_stride)[w];
+          vw = reinterpret_cast<const uint32_t*>(vb + (size_t)kp * row_stride)[w];
+        }
+        reinterpret_cast<uint32_t*>(ks + (size_t)j * DP)[w] = kw;
+        reinterpret_cast<uint32_t*>(vs + (size_t)j * D)[w] = vw;
+      }
     }
     __syncthreads();
 
@@ -187,23 +232,42 @@ __global__ void __launch_bounds__(WARPS * 32) flash_cached_kernel(
   }
 }
 
-template <int D>
-int launch(const void* q, const void* kc, const void* vc, const int* q_start, void* o, int B,
-           int T, int S, int Hq, int Hkv, int block_q, int block_k, int window, float scale,
-           float softcap, cudaStream_t stream) {
+template <int D, bool KV8>
+int launch(const void* q, const void* kc, const void* vc, const void* ks, const void* vs,
+           const int* q_start, void* o, int B, int T, int S, int Hq, int Hkv, int block_q,
+           int block_k, int window, float scale, float softcap, cudaStream_t stream) {
   const size_t smem = (size_t)MAX_ROWS * D * sizeof(float) +
                       (size_t)block_k * (D + 2) * sizeof(__nv_bfloat16) +
                       (size_t)block_k * D * sizeof(__nv_bfloat16);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      flash_cached_kernel<D>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      flash_cached_kernel<D, KV8>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T + block_q - 1) / block_q, Hkv, B);
-  flash_cached_kernel<D><<<grid, WARPS * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kc),
-      static_cast<const __nv_bfloat16*>(vc), q_start, static_cast<__nv_bfloat16*>(o), T, S, Hq,
+  flash_cached_kernel<D, KV8><<<grid, WARPS * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), kc, vc, static_cast<const __nv_bfloat16*>(ks),
+      static_cast<const __nv_bfloat16*>(vs), q_start, static_cast<__nv_bfloat16*>(o), T, S, Hq,
       Hkv, block_q, block_k, window, scale, softcap);
   return (int)cudaGetLastError();
+}
+
+template <bool KV8>
+int dispatch(const void* q, const void* kc, const void* vc, const void* ks, const void* vs,
+             const void* q_start, void* o, int B, int T, int S, int Hq, int Hkv, int D,
+             int block_q, int block_k, int window, float scale, float softcap, void* stream) {
+  if (B < 1 || T < 1 || S < 1 || Hkv < 1 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+  if (block_q < 1 || block_q * (Hq / Hkv) > MAX_ROWS) return (int)cudaErrorInvalidValue;
+  if (block_k % 32 != 0 || block_k < 32) return (int)cudaErrorInvalidValue;
+  if (Hkv > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
+  const int* qs = static_cast<const int*>(q_start);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  switch (D) {
+    case 16: return launch<16, KV8>(q, kc, vc, ks, vs, qs, o, B, T, S, Hq, Hkv, block_q, block_k, window, scale, softcap, s);
+    case 32: return launch<32, KV8>(q, kc, vc, ks, vs, qs, o, B, T, S, Hq, Hkv, block_q, block_k, window, scale, softcap, s);
+    case 64: return launch<64, KV8>(q, kc, vc, ks, vs, qs, o, B, T, S, Hq, Hkv, block_q, block_k, window, scale, softcap, s);
+    case 128: return launch<128, KV8>(q, kc, vc, ks, vs, qs, o, B, T, S, Hq, Hkv, block_q, block_k, window, scale, softcap, s);
+    default: return (int)cudaErrorInvalidValue;
+  }
 }
 
 }  // namespace
@@ -218,17 +282,18 @@ extern "C" int xot_flash_cached_attention_bf16(const void* q, const void* kc, co
                                                int S, int Hq, int Hkv, int D, int block_q,
                                                int block_k, int window, float scale,
                                                float softcap, void* stream) {
-  if (B < 1 || T < 1 || S < 1 || Hkv < 1 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
-  if (block_q < 1 || block_q * (Hq / Hkv) > MAX_ROWS) return (int)cudaErrorInvalidValue;
-  if (block_k % 32 != 0 || block_k < 32) return (int)cudaErrorInvalidValue;
-  if (Hkv > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
-  const int* qs = static_cast<const int*>(q_start);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  switch (D) {
-    case 16: return launch<16>(q, kc, vc, qs, o, B, T, S, Hq, Hkv, block_q, block_k, window, scale, softcap, s);
-    case 32: return launch<32>(q, kc, vc, qs, o, B, T, S, Hq, Hkv, block_q, block_k, window, scale, softcap, s);
-    case 64: return launch<64>(q, kc, vc, qs, o, B, T, S, Hq, Hkv, block_q, block_k, window, scale, softcap, s);
-    case 128: return launch<128>(q, kc, vc, qs, o, B, T, S, Hq, Hkv, block_q, block_k, window, scale, softcap, s);
-    default: return (int)cudaErrorInvalidValue;
-  }
+  return dispatch<false>(q, kc, vc, nullptr, nullptr, q_start, o, B, T, S, Hq, Hkv, D, block_q,
+                         block_k, window, scale, softcap, stream);
+}
+
+// K2q: as above over an int8 cache k/v [B, S, Hkv, D] with bf16 scales k/v_scale
+// [B, S, Hkv], all contiguous on the device.
+extern "C" int xot_flash_cached_attention_kv8(const void* q, const void* kc, const void* vc,
+                                              const void* k_scale, const void* v_scale,
+                                              const void* q_start, void* o, int B, int T, int S,
+                                              int Hq, int Hkv, int D, int block_q, int block_k,
+                                              int window, float scale, float softcap,
+                                              void* stream) {
+  return dispatch<true>(q, kc, vc, k_scale, v_scale, q_start, o, B, T, S, Hq, Hkv, D, block_q,
+                        block_k, window, scale, softcap, stream);
 }

@@ -42,12 +42,23 @@
 //   j of a 32-key chunk, and the kv loop stops at the tile's last causal position: the
 //   design of K2 (flash_decode.cu) with the cache rows reached through pages.
 //
+// K3q and K4q (KV8 = true) replace the same Pallas kernels with quant=True: the arena is
+// int8 with one bf16 scale per (position, head) in scale pages [P, PAGE, Hkv], indexed by
+// the same page id and slot as the payload (offset / D). K3q's lane reads its key's D
+// codes with 16-byte loads and its scale; the V loop reads one code per lane and the
+// key's scale. K4q's tile gather writes code x scale into K4's shared-memory tiles.
+// Every dequantized value is code x scale rounded once to bf16, which equals JAX's bf16
+// multiply bit for bit (an 8-bit code times a bf16 significand is exact in fp32); the
+// rest is K3's and K4's arithmetic. The arena streams half the bytes.
+//
 // Known limits: K3 at B=1 runs Hkv blocks (8 for Llama-3.2-1B) on 132 SMs; K4 uses
 // CUDA-core FMAs, no tensor cores. Both are later work.
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <math.h>
 #include <stdint.h>
+
+#include <type_traits>
 
 namespace {
 
@@ -81,10 +92,28 @@ __device__ __forceinline__ size_t page_offset(const int* tb, int pos, int num_pa
   return ((size_t)phys * PAGE + pos % PAGE) * (size_t)Hkv * D + (size_t)kvh * D;
 }
 
-template <int D, int PAGE>
+// An int8 code times its scale, rounded once to bf16, back in fp32.
+__device__ __forceinline__ float dq(int code, float sc) {
+  return __bfloat162float(__float2bfloat16_rn((float)code * sc));
+}
+
+// Four int8 codes (one 32-bit word) dequantized, stored as two bf16 pairs at `dst`.
+__device__ __forceinline__ void dequant4(uint32_t word, float sc, __nv_bfloat16* dst) {
+  __nv_bfloat162* d2 = reinterpret_cast<__nv_bfloat162*>(dst);
+  d2[0] = __halves2bfloat162(__float2bfloat16_rn((float)(int8_t)(word & 0xffu) * sc),
+                             __float2bfloat16_rn((float)(int8_t)((word >> 8) & 0xffu) * sc));
+  d2[1] = __halves2bfloat162(__float2bfloat16_rn((float)(int8_t)((word >> 16) & 0xffu) * sc),
+                             __float2bfloat16_rn((float)(int8_t)(word >> 24) * sc));
+}
+
+template <bool KV8>
+using ArenaElem = typename std::conditional<KV8, int8_t, __nv_bfloat16>::type;
+
+template <int D, int PAGE, bool KV8>
 __global__ void __launch_bounds__(WARPS * 32) paged_decode_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
-    const __nv_bfloat16* __restrict__ vp, const int* __restrict__ table,
+    const __nv_bfloat16* __restrict__ q, const ArenaElem<KV8>* __restrict__ kp,
+    const ArenaElem<KV8>* __restrict__ vp, const __nv_bfloat16* __restrict__ ksp,
+    const __nv_bfloat16* __restrict__ vsp, const int* __restrict__ table,
     const int* __restrict__ lengths, __nv_bfloat16* __restrict__ o, int maxp, int num_pages,
     int Hq, int Hkv, int window, float scale, float softcap) {
   constexpr int DL = (D + 31) / 32;      // output dimensions per lane
@@ -124,28 +153,53 @@ __global__ void __launch_bounds__(WARPS * 32) paged_decode_kernel(
     const int pos = c * 32 + lane;
     const bool vis = pos >= lo && pos < len;
     const size_t off = vis ? page_offset<D, PAGE>(tb, pos, num_pages, Hkv, kvh) : 0;
+    // The key's V scale (int8 arenas): its scale page slot is off / D.
+    float vscl = 0.f;
     float s[MAX_GROUPS];
 #pragma unroll
     for (int r = 0; r < MAX_GROUPS; ++r) s[r] = 0.f;
     if (vis) {
-      const uint4* krow = reinterpret_cast<const uint4*>(kp + off);
+      if constexpr (KV8) {
+        // D int8 codes, 16 to a load; each dequantized with the key's scale.
+        const float kscl = __bfloat162float(ksp[off / D]);
+        vscl = __bfloat162float(vsp[off / D]);
+        const uint4* krow = reinterpret_cast<const uint4*>(kp + off);
 #pragma unroll
-      for (int w = 0; w < D / VEC; ++w) {
-        const uint4 raw = krow[w];
-        const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-        float kf[VEC];
+        for (int w = 0; w < D / 16; ++w) {
+          const uint4 raw = krow[w];
+          const int8_t* codes = reinterpret_cast<const int8_t*>(&raw);
+          float kf[16];
 #pragma unroll
-        for (int e = 0; e < VEC / 2; ++e) {
-          const float2 f = __bfloat1622float2(h2[e]);
-          kf[2 * e] = f.x;
-          kf[2 * e + 1] = f.y;
+          for (int e = 0; e < 16; ++e) kf[e] = dq(codes[e], kscl);
+#pragma unroll
+          for (int r = 0; r < MAX_GROUPS; ++r) {
+            if (r < groups) {
+              const float* qr = qs + r * D + w * 16;
+#pragma unroll
+              for (int e = 0; e < 16; ++e) s[r] = fmaf(qr[e], kf[e], s[r]);
+            }
+          }
         }
+      } else {
+        const uint4* krow = reinterpret_cast<const uint4*>(kp + off);
 #pragma unroll
-        for (int r = 0; r < MAX_GROUPS; ++r) {
-          if (r < groups) {
-            const float* qr = qs + r * D + w * VEC;
+        for (int w = 0; w < D / VEC; ++w) {
+          const uint4 raw = krow[w];
+          const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
+          float kf[VEC];
 #pragma unroll
-            for (int e = 0; e < VEC; ++e) s[r] = fmaf(qr[e], kf[e], s[r]);
+          for (int e = 0; e < VEC / 2; ++e) {
+            const float2 f = __bfloat1622float2(h2[e]);
+            kf[2 * e] = f.x;
+            kf[2 * e + 1] = f.y;
+          }
+#pragma unroll
+          for (int r = 0; r < MAX_GROUPS; ++r) {
+            if (r < groups) {
+              const float* qr = qs + r * D + w * VEC;
+#pragma unroll
+              for (int e = 0; e < VEC; ++e) s[r] = fmaf(qr[e], kf[e], s[r]);
+            }
           }
         }
       }
@@ -170,13 +224,19 @@ __global__ void __launch_bounds__(WARPS * 32) paged_decode_kernel(
     for (int j = 0; j < 32; ++j) {
       const int vis_j = __shfl_sync(FULL, (int)vis, j);
       const unsigned long long off_j = __shfl_sync(FULL, (unsigned long long)off, j);
+      float vscl_j = 0.f;
+      if constexpr (KV8) vscl_j = __shfl_sync(FULL, vscl, j);
       if (!vis_j) continue;
-      const __nv_bfloat16* vrow = vp + off_j;
+      const ArenaElem<KV8>* vrow = vp + off_j;
       float vf[DL];
 #pragma unroll
       for (int kk = 0; kk < DL; ++kk) {
         const int d = lane + kk * 32;
-        vf[kk] = d < D ? __bfloat162float(vrow[d]) : 0.f;
+        if constexpr (KV8) {
+          vf[kk] = d < D ? dq(vrow[d], vscl_j) : 0.f;
+        } else {
+          vf[kk] = d < D ? __bfloat162float(vrow[d]) : 0.f;
+        }
       }
 #pragma unroll
       for (int r = 0; r < MAX_GROUPS; ++r) {
@@ -224,10 +284,11 @@ __global__ void __launch_bounds__(WARPS * 32) paged_decode_kernel(
   }
 }
 
-template <int D, int PAGE>
+template <int D, int PAGE, bool KV8>
 __global__ void __launch_bounds__(WARPS * 32) paged_prefill_kernel(
-    const __nv_bfloat16* __restrict__ q, const __nv_bfloat16* __restrict__ kp,
-    const __nv_bfloat16* __restrict__ vp, const int* __restrict__ table,
+    const __nv_bfloat16* __restrict__ q, const ArenaElem<KV8>* __restrict__ kp,
+    const ArenaElem<KV8>* __restrict__ vp, const __nv_bfloat16* __restrict__ ksp,
+    const __nv_bfloat16* __restrict__ vsp, const int* __restrict__ table,
     const int* __restrict__ kv_valid, __nv_bfloat16* __restrict__ o, int T, int maxp,
     int num_pages, int Hq, int Hkv, int block_q, int window, float scale, float softcap) {
   constexpr int DP = D + 2;              // padded K row stride (bf16): conflict-free reads
@@ -275,19 +336,40 @@ __global__ void __launch_bounds__(WARPS * 32) paged_prefill_kernel(
 
   for (int k0 = lo; k0 < hi; k0 += KT) {
     __syncthreads();  // the previous tile is consumed (and q is staged, first time)
-    constexpr int words = D / 2;
-    for (int i = threadIdx.x; i < KT * words; i += blockDim.x) {
-      const int j = i / words;
-      const int w = i % words;
-      const int pos = k0 + j;
-      uint32_t kw = 0u, vw = 0u;
-      if (pos < hi) {
-        const size_t off = page_offset<D, PAGE>(tb, pos, num_pages, Hkv, kvh);
-        kw = reinterpret_cast<const uint32_t*>(kp + off)[w];
-        vw = reinterpret_cast<const uint32_t*>(vp + off)[w];
+    if constexpr (KV8) {
+      // Four codes a word, dequantized with the key's scale (scale page slot off / D).
+      constexpr int words = D / 4;
+      for (int i = threadIdx.x; i < KT * words; i += blockDim.x) {
+        const int j = i / words;
+        const int w = i % words;
+        const int pos = k0 + j;
+        uint32_t kw = 0u, vw = 0u;
+        float kscl = 0.f, vscl = 0.f;
+        if (pos < hi) {
+          const size_t off = page_offset<D, PAGE>(tb, pos, num_pages, Hkv, kvh);
+          kw = reinterpret_cast<const uint32_t*>(kp + off)[w];
+          vw = reinterpret_cast<const uint32_t*>(vp + off)[w];
+          kscl = __bfloat162float(ksp[off / D]);
+          vscl = __bfloat162float(vsp[off / D]);
+        }
+        dequant4(kw, kscl, ks + (size_t)j * DP + 4 * w);
+        dequant4(vw, vscl, vs + (size_t)j * D + 4 * w);
       }
-      reinterpret_cast<uint32_t*>(ks + (size_t)j * DP)[w] = kw;
-      reinterpret_cast<uint32_t*>(vs + (size_t)j * D)[w] = vw;
+    } else {
+      constexpr int words = D / 2;
+      for (int i = threadIdx.x; i < KT * words; i += blockDim.x) {
+        const int j = i / words;
+        const int w = i % words;
+        const int pos = k0 + j;
+        uint32_t kw = 0u, vw = 0u;
+        if (pos < hi) {
+          const size_t off = page_offset<D, PAGE>(tb, pos, num_pages, Hkv, kvh);
+          kw = reinterpret_cast<const uint32_t*>(kp + off)[w];
+          vw = reinterpret_cast<const uint32_t*>(vp + off)[w];
+        }
+        reinterpret_cast<uint32_t*>(ks + (size_t)j * DP)[w] = kw;
+        reinterpret_cast<uint32_t*>(vs + (size_t)j * D)[w] = vw;
+      }
     }
     __syncthreads();
 
@@ -362,52 +444,85 @@ __global__ void __launch_bounds__(WARPS * 32) paged_prefill_kernel(
   }
 }
 
-template <int D, int PAGE>
-int launch_decode(const void* q, const void* kp, const void* vp, const int* table,
-                  const int* lengths, void* o, int B, int maxp, int num_pages, int Hq, int Hkv,
-                  int window, float scale, float softcap, cudaStream_t stream) {
+template <int D, int PAGE, bool KV8>
+int launch_decode(const void* q, const void* kp, const void* vp, const void* ksp,
+                  const void* vsp, const int* table, const int* lengths, void* o, int B,
+                  int maxp, int num_pages, int Hq, int Hkv, int window, float scale,
+                  float softcap, cudaStream_t stream) {
   const int groups = Hq / Hkv;
   const size_t smem = ((size_t)groups * D + 2 * WARPS * groups + (size_t)WARPS * groups * D) *
                       sizeof(float);
   if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
   dim3 grid(Hkv, B);
-  paged_decode_kernel<D, PAGE><<<grid, WARPS * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
-      static_cast<const __nv_bfloat16*>(vp), table, lengths, static_cast<__nv_bfloat16*>(o),
+  paged_decode_kernel<D, PAGE, KV8><<<grid, WARPS * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const ArenaElem<KV8>*>(kp),
+      static_cast<const ArenaElem<KV8>*>(vp), static_cast<const __nv_bfloat16*>(ksp),
+      static_cast<const __nv_bfloat16*>(vsp), table, lengths, static_cast<__nv_bfloat16*>(o),
       maxp, num_pages, Hq, Hkv, window, scale, softcap);
   return (int)cudaGetLastError();
 }
 
-template <int D, int PAGE>
-int launch_prefill(const void* q, const void* kp, const void* vp, const int* table,
-                   const int* kv_valid, void* o, int B, int T, int maxp, int num_pages, int Hq,
-                   int Hkv, int block_q, int window, float scale, float softcap,
-                   cudaStream_t stream) {
+template <int D, int PAGE, bool KV8>
+int launch_prefill(const void* q, const void* kp, const void* vp, const void* ksp,
+                   const void* vsp, const int* table, const int* kv_valid, void* o, int B, int T,
+                   int maxp, int num_pages, int Hq, int Hkv, int block_q, int window,
+                   float scale, float softcap, cudaStream_t stream) {
   const size_t smem = (size_t)MAX_ROWS * D * sizeof(float) +
                       (size_t)KT * (D + 2) * sizeof(__nv_bfloat16) +
                       (size_t)KT * D * sizeof(__nv_bfloat16);
   if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
   cudaError_t err = cudaFuncSetAttribute(
-      paged_prefill_kernel<D, PAGE>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+      paged_prefill_kernel<D, PAGE, KV8>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
   dim3 grid((T + block_q - 1) / block_q, Hkv, B);
-  paged_prefill_kernel<D, PAGE><<<grid, WARPS * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const __nv_bfloat16*>(kp),
-      static_cast<const __nv_bfloat16*>(vp), table, kv_valid, static_cast<__nv_bfloat16*>(o), T,
+  paged_prefill_kernel<D, PAGE, KV8><<<grid, WARPS * 32, smem, stream>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const ArenaElem<KV8>*>(kp),
+      static_cast<const ArenaElem<KV8>*>(vp), static_cast<const __nv_bfloat16*>(ksp),
+      static_cast<const __nv_bfloat16*>(vsp), table, kv_valid, static_cast<__nv_bfloat16*>(o), T,
       maxp, num_pages, Hq, Hkv, block_q, window, scale, softcap);
   return (int)cudaGetLastError();
 }
 
-#define XOT_DISPATCH(FN, ...)                                               \
+#define XOT_DISPATCH(FN, KV8, ...)                                          \
   switch (D * 1000 + page) {                                                \
-    case 16 * 1000 + 16: return FN<16, 16>(__VA_ARGS__);                    \
-    case 16 * 1000 + 128: return FN<16, 128>(__VA_ARGS__);                  \
-    case 64 * 1000 + 16: return FN<64, 16>(__VA_ARGS__);                    \
-    case 64 * 1000 + 128: return FN<64, 128>(__VA_ARGS__);                  \
-    case 128 * 1000 + 16: return FN<128, 16>(__VA_ARGS__);                  \
-    case 128 * 1000 + 128: return FN<128, 128>(__VA_ARGS__);                \
+    case 16 * 1000 + 16: return FN<16, 16, KV8>(__VA_ARGS__);               \
+    case 16 * 1000 + 128: return FN<16, 128, KV8>(__VA_ARGS__);             \
+    case 64 * 1000 + 16: return FN<64, 16, KV8>(__VA_ARGS__);               \
+    case 64 * 1000 + 128: return FN<64, 128, KV8>(__VA_ARGS__);             \
+    case 128 * 1000 + 16: return FN<128, 16, KV8>(__VA_ARGS__);             \
+    case 128 * 1000 + 128: return FN<128, 128, KV8>(__VA_ARGS__);           \
     default: return (int)cudaErrorInvalidValue;                             \
   }
+
+template <bool KV8>
+int decode(const void* q, const void* kp, const void* vp, const void* ksp, const void* vsp,
+           const void* table, const void* lengths, void* o, int B, int maxp, int P, int page,
+           int Hq, int Hkv, int D, int window, float scale, float softcap, void* stream) {
+  if (B < 1 || maxp < 1 || P < 1 || Hkv < 1 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
+  if (Hq / Hkv > MAX_GROUPS || Hkv > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
+  const int* tb = static_cast<const int*>(table);
+  const int* ln = static_cast<const int*>(lengths);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  XOT_DISPATCH(launch_decode, KV8, q, kp, vp, ksp, vsp, tb, ln, o, B, maxp, P, Hq, Hkv, window,
+               scale, softcap, s)
+}
+
+template <bool KV8>
+int prefill(const void* q, const void* kp, const void* vp, const void* ksp, const void* vsp,
+            const void* table, const void* kv_valid, void* o, int B, int T, int maxp, int P,
+            int page, int Hq, int Hkv, int D, int block_q, int window, float scale,
+            float softcap, void* stream) {
+  if (B < 1 || T < 1 || maxp < 1 || P < 1 || Hkv < 1 || Hq % Hkv != 0) {
+    return (int)cudaErrorInvalidValue;
+  }
+  if (block_q < 1 || block_q * (Hq / Hkv) > MAX_ROWS) return (int)cudaErrorInvalidValue;
+  if (Hkv > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
+  const int* tb = static_cast<const int*>(table);
+  const int* kv = static_cast<const int*>(kv_valid);
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  XOT_DISPATCH(launch_prefill, KV8, q, kp, vp, ksp, vsp, tb, kv, o, B, T, maxp, P, Hq, Hkv,
+               block_q, window, scale, softcap, s)
+}
 
 }  // namespace
 
@@ -420,13 +535,20 @@ extern "C" int xot_paged_decode_attention_bf16(const void* q, const void* kp, co
                                                int B, int maxp, int P, int page, int Hq,
                                                int Hkv, int D, int window, float scale,
                                                float softcap, void* stream) {
-  if (B < 1 || maxp < 1 || P < 1 || Hkv < 1 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
-  if (Hq / Hkv > MAX_GROUPS || Hkv > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
-  const int* tb = static_cast<const int*>(table);
-  const int* ln = static_cast<const int*>(lengths);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  XOT_DISPATCH(launch_decode, q, kp, vp, tb, ln, o, B, maxp, P, Hq, Hkv, window, scale,
-               softcap, s)
+  return decode<false>(q, kp, vp, nullptr, nullptr, table, lengths, o, B, maxp, P, page, Hq, Hkv,
+                       D, window, scale, softcap, stream);
+}
+
+// K3q: as above over an int8 arena k/v pages [P, page, Hkv, D] with bf16 scale pages
+// k/v_scale_pages [P, page, Hkv], contiguous on the device.
+extern "C" int xot_paged_decode_attention_kv8(const void* q, const void* kp, const void* vp,
+                                              const void* ksp, const void* vsp,
+                                              const void* table, const void* lengths, void* o,
+                                              int B, int maxp, int P, int page, int Hq, int Hkv,
+                                              int D, int window, float scale, float softcap,
+                                              void* stream) {
+  return decode<true>(q, kp, vp, ksp, vsp, table, lengths, o, B, maxp, P, page, Hq, Hkv, D,
+                      window, scale, softcap, stream);
 }
 
 // q [B, T, Hq, D], o [B, T, Hq, D], k/v pages [P, page, Hkv, D]: contiguous bf16 on the
@@ -439,14 +561,17 @@ extern "C" int xot_paged_prefill_attention_bf16(const void* q, const void* kp, c
                                                 int page, int Hq, int Hkv, int D, int block_q,
                                                 int window, float scale, float softcap,
                                                 void* stream) {
-  if (B < 1 || T < 1 || maxp < 1 || P < 1 || Hkv < 1 || Hq % Hkv != 0) {
-    return (int)cudaErrorInvalidValue;
-  }
-  if (block_q < 1 || block_q * (Hq / Hkv) > MAX_ROWS) return (int)cudaErrorInvalidValue;
-  if (Hkv > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
-  const int* tb = static_cast<const int*>(table);
-  const int* kv = static_cast<const int*>(kv_valid);
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  XOT_DISPATCH(launch_prefill, q, kp, vp, tb, kv, o, B, T, maxp, P, Hq, Hkv, block_q, window,
-               scale, softcap, s)
+  return prefill<false>(q, kp, vp, nullptr, nullptr, table, kv_valid, o, B, T, maxp, P, page, Hq,
+                        Hkv, D, block_q, window, scale, softcap, stream);
+}
+
+// K4q: as above over an int8 arena with bf16 scale pages [P, page, Hkv].
+extern "C" int xot_paged_prefill_attention_kv8(const void* q, const void* kp, const void* vp,
+                                               const void* ksp, const void* vsp,
+                                               const void* table, const void* kv_valid, void* o,
+                                               int B, int T, int maxp, int P, int page, int Hq,
+                                               int Hkv, int D, int block_q, int window,
+                                               float scale, float softcap, void* stream) {
+  return prefill<true>(q, kp, vp, ksp, vsp, table, kv_valid, o, B, T, maxp, P, page, Hq, Hkv, D,
+                       block_q, window, scale, softcap, stream);
 }

@@ -75,10 +75,11 @@ inference_engine_classes: Dict[str, str] = {
 
 
 def get_inference_engine(inference_engine_name: str, shard_downloader=None,
-                         device: Optional[str] = None,
-                         quantize: Optional[str] = None) -> InferenceEngine:
+                         device: Optional[str] = None, quantize: Optional[str] = None,
+                         kv_quant: Optional[str] = None) -> InferenceEngine:
   classname = inference_engine_classes.get(inference_engine_name)
   if classname == "TorchShardInferenceEngine":
     from xotorch_tpu_torch.inference.torch_engine.engine import TorchShardInferenceEngine
-    return TorchShardInferenceEngine(shard_downloader, device=device, quantize=quantize)
+    return TorchShardInferenceEngine(shard_downloader, device=device, quantize=quantize,
+                                     kv_quant=kv_quant)
   raise ValueError(f"Unsupported inference engine: {inference_engine_name}")

@@ -20,14 +20,15 @@ The port of the single-shard subset of xotorch_tpu/inference/jax_engine/engine.p
 
 Per-request state is either a contiguous [L, 1, S, Hkv, D] KV cache that grows by
 powers of two, or (XOT_PAGED_KV=1) a VirtualKV handle of pages in the context's
-PagePool, plus a position. Every device computation runs on one executor thread; an
+PagePool, plus a position. With `kv_quant="int8"` / XOT_KV_QUANT=int8 both hold int8
+K/V with a scale per (position, head), and attention takes the kernels' int8
+variants (K2q, K3q, K4q). Every device computation runs on one executor thread; an
 asyncio lock serialises shard loads. The engine reads its knobs when it is built.
 It runs on `cuda` unless the caller passes device="cpu" (the tests do), and raises
 when no GPU is present rather than falling back to the CPU.
 
-Left out of this slice: the int8 KV cache (XOT_KV_QUANT raises), the prefix cache,
-the host KV tier, co-scheduled prefill, speculative and overlapped chunks, sampling
-extras and the ring paths.
+Left out so far: the prefix cache, the host KV tier, co-scheduled prefill,
+speculative and overlapped chunks, sampling extras and the ring paths.
 """
 from __future__ import annotations
 
@@ -81,7 +82,7 @@ def resolve_device(device: Optional[str]) -> torch.device:
 
 @dataclass
 class _RequestState:
-  cache: Optional[Dict[str, torch.Tensor]]  # {"k", "v"}: [L, 1, S, Hkv, D]; None when paged
+  cache: Optional[Dict[str, torch.Tensor]]  # {"k", "v"[, "k_scale", "v_scale"]}: [L, 1, S, ...]; None when paged
   pos: int  # tokens already resident in the cache
   last_used: float
   pages: Optional[VirtualKV] = None  # the request's pool pages (XOT_PAGED_KV=1)
@@ -205,7 +206,7 @@ class _DecodeBatcher:
 class TorchShardInferenceEngine(InferenceEngine):
   def __init__(self, shard_downloader=None, dtype: Optional[str] = None,
                device: Optional[str] = None, seed: Optional[int] = None,
-               quantize: Optional[str] = None):
+               quantize: Optional[str] = None, kv_quant: Optional[str] = None):
     self.device = resolve_device(device)
     self.shard_downloader = shard_downloader
     self.dtype = DTYPES[dtype or knobs.get_str("XOT_DTYPE")]
@@ -216,12 +217,11 @@ class TorchShardInferenceEngine(InferenceEngine):
       raise ValueError(f"Unsupported quantization {self.quantize!r}; have {sorted(QUANT_DTYPES)}")
     # Which kernels the quantized decode projections take, decided here once.
     self.quant_route = quant_route(self.device.type == "cuda")
-    kv_quant = knobs.get_str("XOT_KV_QUANT", "")
-    if kv_quant:
-      # Serving a bf16 cache in its place would silently change the tokens and the
-      # memory a request takes.
-      raise NotImplementedError(f"XOT_KV_QUANT={kv_quant!r}: the int8 KV cache is not ported to "
-                                "xotorch_tpu_torch yet")
+    # int8 KV cache (models/transformer.init_kv_cache kv_quant): half the cache bytes
+    # per resident token. `kv_quant=` or XOT_KV_QUANT (CLI --kv-quantize).
+    self.kv_quant = (kv_quant or knobs.get_str("XOT_KV_QUANT", "")).lower() or None
+    if self.kv_quant not in (None, "int8"):
+      raise ValueError(f"Unsupported KV quantization {self.kv_quant!r}; have ['int8']")
     self.executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="torch-engine")
     self._ctx: Optional[_ShardContext] = None
     self._shard_lock = asyncio.Lock()
@@ -232,6 +232,7 @@ class TorchShardInferenceEngine(InferenceEngine):
     self.batch_window_s = knobs.get_float("XOT_BATCH_WINDOW_MS") / 1000.0
     self.paged = knobs.get_bool("XOT_PAGED_KV")
     self.paged_prefill = knobs.get_bool("XOT_PAGED_PREFILL")
+    self.ragged_prefill = knobs.get_bool("XOT_RAGGED_PREFILL")
     self.defrag = knobs.get_bool("XOT_KV_DEFRAG")
     self.defrag_moves = 0
     self.generator = torch.Generator(device=self.device)
@@ -292,8 +293,8 @@ class TorchShardInferenceEngine(InferenceEngine):
       tokenizer.eos_token_id = cfg.eos_token_ids[0]
     if DEBUG >= 1:
       print(f"torch engine ready for {shard} on {self.device} "
-            f"(dtype={self.dtype}, quantize={self.quantize}, cache_len={cache_len}, "
-            f"paged={self.paged})")
+            f"(dtype={self.dtype}, quantize={self.quantize}, kv_quant={self.kv_quant}, "
+            f"cache_len={cache_len}, paged={self.paged})")
     return _ShardContext(shard=shard, cfg=cfg, params=params, cache_len=cache_len,
                          max_cache_len=max_cache_len, tokenizer=tokenizer,
                          states=OrderedDict())
@@ -353,15 +354,17 @@ class TorchShardInferenceEngine(InferenceEngine):
   def _segment_setup(self, ctx: _ShardContext, request_id: str, input_data: np.ndarray):
     """Device transfer, bucket padding, state and capacity, and the attention path.
     Returns (x, true length, state, the cache or arena, forward keywords): a page
-    table on the arena (K4 or K3); on a contiguous cache a fresh request's
-    multi-token segment goes to K1, everything else to K2."""
+    table on the arena (K4 or K3; XOT_RAGGED_PREFILL=0 sends segments to K2 over a
+    gathered view); on a contiguous cache a fresh request's multi-token segment goes
+    to K1, everything else to K2 (K2q, K3q, K4q for an int8 cache)."""
     x = self._to_device_input(input_data)
     true_t = x.shape[1]
     bucket = 1 if true_t == 1 else _bucket(true_t)
     if self._paged_segment(ctx, request_id, x):
       state = self._prep_state_paged(ctx, request_id, bucket)
       cache, kw = ctx.page_pool.arena, {"page_table": self._paged_table_for(ctx, state),
-                                        "route": self.quant_route}
+                                        "route": self.quant_route,
+                                        "ragged_prefill": self.ragged_prefill}
     else:
       state = self._prep_state(ctx, request_id, bucket)
       use_flash = true_t > 1 and state.pos == 0
@@ -551,7 +554,8 @@ class TorchShardInferenceEngine(InferenceEngine):
         tokens = ctx.max_cache_len + self.max_resident * ctx.cache_len
       num_pages = -(-tokens // page) + 1  # +1: the scratch page 0
       ctx.page_pool = PagePool(ctx.cfg, ctx.shard.get_layer_count(), num_pages, page,
-                               dtype=self.dtype, device=self.device)
+                               dtype=self.dtype, device=self.device,
+                               kv_quant=self.kv_quant is not None)
       if DEBUG >= 1:
         print(f"KV page pool ready: {num_pages - 1} pages x {page} tokens")
     return ctx.page_pool
@@ -711,8 +715,9 @@ class TorchShardInferenceEngine(InferenceEngine):
     return state
 
   def _grow_cache(self, ctx: _ShardContext, state: _RequestState, needed: int) -> None:
-    """Double the request's KV buffer until it fits `needed` (bounded by
-    max_cache_len); contents are kept, new slots are zero."""
+    """Double the request's KV buffers (every leaf, an int8 cache's scales too) until
+    they fit `needed` (bounded by max_cache_len); contents are kept, new slots are
+    zero."""
     S = state.cache["k"].shape[2]
     new_len = S
     while new_len < needed:
@@ -737,7 +742,7 @@ class TorchShardInferenceEngine(InferenceEngine):
       length = min(length, ctx.max_cache_len)
       state = self._admit(ctx, request_id, _RequestState(
         cache=init_kv_cache(ctx.cfg, ctx.shard.get_layer_count(), 1, length, self.dtype,
-                            self.device),
+                            self.device, kv_quant=self.kv_quant is not None),
         pos=0, last_used=time.monotonic()))
     ctx.states.move_to_end(request_id)
     return state

@@ -2,8 +2,10 @@
 (XOT_PAGED_KV=1).
 
 The port of xotorch_tpu/inference/jax_engine/paged_cache.py without the host tier
-(`scatter_pages`) and the int8 arena (the KV-quant slice). Arena leaves are
-[L, num_pages, page_size, Hkv, D] torch tensors on the engine's device. Page 0 is a
+(`scatter_pages`). Arena leaves are [L, num_pages, page_size, Hkv, D] torch tensors on
+the engine's device; an int8 arena (`kv_quant`) pairs int8 K/V pages with scale pages
+`k_scale`/`v_scale` [L, num_pages, page_size, Hkv] from the same allocator, so one page
+id indexes payload and scales alike and every copy below carries all four. Page 0 is a
 reserved SCRATCH page, never allocated: page tables are padded with 0 (reads are
 masked by each row's length) and a batched dispatch's pad rows write their garbage
 there (their table is all zeros).
@@ -29,13 +31,17 @@ class PagePool:
   executor thread, so no locking is needed."""
 
   def __init__(self, cfg, num_layers: int, num_pages: int, page_size: int,
-               dtype=torch.bfloat16, device="cpu"):
+               dtype=torch.bfloat16, device="cpu", kv_quant: bool = False):
     if num_pages < 2:
       raise ValueError(f"page pool needs >= 2 pages (1 scratch + 1 usable), got {num_pages}")
     shape = (num_layers, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+    kv_dtype = torch.int8 if kv_quant else dtype
     self.arena: Dict[str, torch.Tensor] = {
-      "k": torch.zeros(shape, dtype=dtype, device=device),
-      "v": torch.zeros(shape, dtype=dtype, device=device)}
+      "k": torch.zeros(shape, dtype=kv_dtype, device=device),
+      "v": torch.zeros(shape, dtype=kv_dtype, device=device)}
+    if kv_quant:
+      self.arena["k_scale"] = torch.zeros(shape[:-1], dtype=dtype, device=device)
+      self.arena["v_scale"] = torch.zeros(shape[:-1], dtype=dtype, device=device)
     self.page_size = int(page_size)
     self.num_pages = int(num_pages)
     # Page 0 is permanently "allocated" (ref 1) so it can never be handed out.
@@ -146,7 +152,7 @@ def _ids(page_ids, device) -> torch.Tensor:
 def commit_pages(arena: Dict[str, torch.Tensor], cache: Dict[str, torch.Tensor], page_ids,
                  start_page: int) -> Dict[str, torch.Tensor]:
   """Copy contiguous cache pages [start_page, start_page + len(page_ids)) into the
-  arena at `page_ids`, in place. `cache` leaves are [L, 1, S, Hkv, D]; source
+  arena at `page_ids`, in place, leaf by leaf. `cache` leaves are [L, 1, S, ...]; source
   positions past S copy as zeros, and positions past the request's pos are copied
   but never read. Returns the arena."""
   n = len(page_ids)
@@ -166,7 +172,7 @@ def commit_pages(arena: Dict[str, torch.Tensor], cache: Dict[str, torch.Tensor],
 
 
 def gather_pages(arena: Dict[str, torch.Tensor], page_ids) -> Dict[str, torch.Tensor]:
-  """Gather `page_ids` back into contiguous form: leaves [L, 1, n*page, Hkv, D]."""
+  """Gather `page_ids` back into contiguous form: leaves [L, 1, n*page, ...]."""
   ids = _ids(page_ids, arena["k"].device)
   out = {}
   for name, buf in arena.items():

@@ -3,6 +3,7 @@
     python -m xotorch_tpu_torch.main [--device cuda|cpu] [--chatgpt-api-port N]
     python -m xotorch_tpu_torch.main run synthetic-llama-1b --prompt "..."
     python -m xotorch_tpu_torch.main --quantize int4   # or int8: quantized weights
+    python -m xotorch_tpu_torch.main --kv-quantize int8  # int8 KV cache
 
 The names follow xotorch_tpu/main.py. One node owns the whole model on one device:
 `cuda` by default; with no GPU the engine raises unless `--device cpu` is given.
@@ -43,6 +44,8 @@ def build_parser() -> argparse.ArgumentParser:
   parser.add_argument("--prompt", type=str, default="Who are you?")
   parser.add_argument("--quantize", type=str, default=None, choices=["int8", "int4"],
                       help="weight-only quantization of the served model (as XOT_QUANTIZE)")
+  parser.add_argument("--kv-quantize", type=str, default=None, choices=["int8"],
+                      help="int8 KV cache with a scale per (position, head) (as XOT_KV_QUANT)")
   return parser
 
 
@@ -50,7 +53,8 @@ def build_node(args) -> tuple:
   """Engine, node and API for `args`; the engine raises here when the device is
   missing."""
   engine = get_inference_engine(args.inference_engine, device=args.device,
-                                quantize=getattr(args, "quantize", None))
+                                quantize=getattr(args, "quantize", None),
+                                kv_quant=getattr(args, "kv_quantize", None))
   engine_classname = type(engine).__name__
   node = Node(args.node_id or str(uuid.uuid4()), engine,
               max_generate_tokens=args.max_generate_tokens,

@@ -6,13 +6,16 @@ axis, weights [in, out]) so the two packages' tensors map one to one
 (models/weights.params_from_jax). The KV cache is a [L, B, S, Hkv, D] buffer per
 leaf, or with a page table the shared page arena [L, P, page, Hkv, D]; either is
 written IN PLACE at each row's position — where JAX donated the cache to the compiled
-step and got a new one back, the port updates the one buffer.
+step and got a new one back, the port updates the one buffer. An int8 cache
+(`kv_quant`) adds `k_scale`/`v_scale` leaves, one scale per (position, head) in the
+compute dtype; fresh K/V are quantized on the way in.
 
 Attention on the card goes through the hand-written kernels: a prefill from
-position 0 (`use_flash`) through K1 (ops/flash_attention.py), decode steps and
-segments at pos > 0 (`use_flash_decode`) through K2 (ops/flash_decode.py); over the
-page arena, decode steps through K3 and prefill segments through K4
-(ops/paged_attention.py). The plain `gqa_attention` path runs only on the CPU.
+position 0 (`use_flash`) through K1 (ops/flash_attention.py) over the fresh K/V,
+decode steps and segments at pos > 0 (`use_flash_decode`) through K2, or K2q over
+the raw int8 cache and its scales (ops/flash_decode.py); over the page arena, decode
+steps through K3/K3q and prefill segments through K4/K4q (ops/paged_attention.py).
+The plain `gqa_attention` path runs only on the CPU.
 Weight-quantized slots (models/quantize.py) go through `_linear`: decode-sized
 projections through the GEMV kernels K5, K5v4 and K6 (ops/int4_matmul.py,
 ops/int8_matmul.py), prefill through the dequantized product. Config
@@ -28,7 +31,7 @@ import torch
 import torch.nn.functional as F
 
 from xotorch_tpu_torch.models.config import ModelConfig
-from xotorch_tpu_torch.models.quantize import unpack_int4
+from xotorch_tpu_torch.models.quantize import quantize_tensor, unpack_int4
 from xotorch_tpu_torch.ops.attention import gqa_attention
 from xotorch_tpu_torch.ops.flash_attention import flash_attention
 from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention
@@ -136,31 +139,61 @@ def _dense_mlp(layer: Params, h: torch.Tensor, cfg: ModelConfig, route: QuantRou
 
 
 def init_kv_cache(cfg: ModelConfig, num_layers: int, batch: int, max_seq: int,
-                  dtype=torch.bfloat16, device="cpu") -> Dict[str, torch.Tensor]:
-  """KV buffers [L, B, S, Hkv, D]."""
+                  dtype=torch.bfloat16, device="cpu", kv_quant: bool = False) -> Dict[str, torch.Tensor]:
+  """KV buffers [L, B, S, Hkv, D]. `kv_quant` stores K/V as int8 with one scale per
+  (position, head), `k_scale`/`v_scale` [L, B, S, Hkv] in `dtype`: half the cache
+  bytes per token. The scale leaves are what marks the cache as int8."""
   shape = (num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
-  return {"k": torch.zeros(shape, dtype=dtype, device=device),
-          "v": torch.zeros(shape, dtype=dtype, device=device)}
+  if not kv_quant:
+    return {"k": torch.zeros(shape, dtype=dtype, device=device),
+            "v": torch.zeros(shape, dtype=dtype, device=device)}
+  return {"k": torch.zeros(shape, dtype=torch.int8, device=device),
+          "v": torch.zeros(shape, dtype=torch.int8, device=device),
+          "k_scale": torch.zeros(shape[:-1], dtype=dtype, device=device),
+          "v_scale": torch.zeros(shape[:-1], dtype=dtype, device=device)}
+
+
+def _quantize_kv(x: torch.Tensor, scale_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+  """Per-(position, head) symmetric int8 over the head dim: [B, T, H, D] ->
+  (int8 [B, T, H, D], scale [B, T, H]), the weights' quantizer on another axis."""
+  return quantize_tensor(x, axis=-1, scale_dtype=scale_dtype)
+
+
+def _kv_entries(cache: Dict[str, torch.Tensor], k: torch.Tensor, v: torch.Tensor):
+  """(leaf name, value) pairs a write puts into `cache`: the fresh K/V, or for an
+  int8 cache their codes and scales."""
+  if "k_scale" not in cache:
+    return (("k", k), ("v", v))
+  qk, sk = _quantize_kv(k, cache["k_scale"].dtype)
+  qv, sv = _quantize_kv(v, cache["v_scale"].dtype)
+  return (("k", qk), ("v", qv), ("k_scale", sk), ("v_scale", sv))
 
 
 def _cache_write(cache: Dict[str, torch.Tensor], layer_idx: int, k: torch.Tensor, v: torch.Tensor,
                  start_pos: Union[int, torch.Tensor], slots: Optional[torch.Tensor]) -> None:
-  """Insert fresh K/V at each row's position, in place: one slice for an int
-  `start_pos`, per-row [B, T] `slots` (already inside the cache) for a [B] tensor."""
+  """Insert fresh K/V at each row's position, in place, quantizing on the way in when
+  the cache is int8: one slice for an int `start_pos`, per-row [B, T] `slots`
+  (already inside the cache) for a [B] tensor."""
   T, S = k.shape[1], cache["k"].shape[2]
-  if not torch.is_tensor(start_pos):
-    if start_pos < 0 or start_pos + T > S:
-      raise ValueError(f"cache write [{start_pos}, {start_pos + T}) outside the {S}-slot cache")
-    cache["k"][layer_idx, :, start_pos:start_pos + T] = k.to(cache["k"].dtype)
-    cache["v"][layer_idx, :, start_pos:start_pos + T] = v.to(cache["v"].dtype)
-    return
-  rows = torch.arange(k.shape[0], device=k.device)[:, None]
-  cache["k"][layer_idx][rows, slots] = k.to(cache["k"].dtype)
-  cache["v"][layer_idx][rows, slots] = v.to(cache["v"].dtype)
+  if torch.is_tensor(start_pos):
+    index = (torch.arange(k.shape[0], device=k.device)[:, None], slots)
+  elif start_pos < 0 or start_pos + T > S:
+    raise ValueError(f"cache write [{start_pos}, {start_pos + T}) outside the {S}-slot cache")
+  else:
+    index = (slice(None), slice(start_pos, start_pos + T))
+  for name, val in _kv_entries(cache, k, v):
+    buf = cache[name][layer_idx]
+    buf[index] = val.to(buf.dtype)
 
 
 def _cache_read(cache: Dict[str, torch.Tensor], layer_idx: int, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
-  return cache["k"][layer_idx].to(dtype), cache["v"][layer_idx].to(dtype)
+  """(K, V) of one layer in `dtype`; an int8 cache is dequantized (code times scale,
+  both in `dtype`)."""
+  k, v = cache["k"][layer_idx].to(dtype), cache["v"][layer_idx].to(dtype)
+  if "k_scale" in cache:
+    k = k * cache["k_scale"][layer_idx].to(dtype)[..., None]
+    v = v * cache["v_scale"][layer_idx].to(dtype)[..., None]
+  return k, v
 
 
 def _attention_block(layer: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor], layer_idx: int,
@@ -168,7 +201,7 @@ def _attention_block(layer: Params, x: torch.Tensor, cache: Dict[str, torch.Tens
                      start_pos: Union[int, torch.Tensor], q_start: torch.Tensor, cfg: ModelConfig,
                      inv_freq: torch.Tensor, use_flash: bool, use_flash_decode: bool,
                      route: QuantRoute, page_table: Optional[torch.Tensor] = None,
-                     slots: Any = None) -> torch.Tensor:
+                     slots: Any = None, ragged_prefill: bool = True) -> torch.Tensor:
   B, T, _ = x.shape
   h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
   q = _linear(layer, "wq", h, route).reshape(B, T, cfg.num_heads, cfg.head_dim)
@@ -176,28 +209,36 @@ def _attention_block(layer: Params, x: torch.Tensor, cache: Dict[str, torch.Tens
   v = _linear(layer, "wv", h, route).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
   q = apply_rope(q, positions, inv_freq)
   k = apply_rope(k, positions, inv_freq)
+  scales = {name: cache[name][layer_idx] for name in ("k_scale", "v_scale") if name in cache}
   if page_table is not None:
     # Paged KV: `cache` is the shared page arena. Position p of row b lands at
-    # (table[b, p // page], p % page) (`slots`); reads stop at each row's own
-    # occupied pages.
-    k_pages, v_pages = cache["k"][layer_idx], cache["v"][layer_idx]
+    # (table[b, p // page], p % page) (`slots`), in the payload pages and, for an
+    # int8 arena, in the scale pages alike; reads stop at each row's own occupied
+    # pages.
     pidx, off = slots
-    k_pages[pidx, off] = k.reshape(B * T, *k.shape[2:]).to(k_pages.dtype)
-    v_pages[pidx, off] = v.reshape(B * T, *v.shape[2:]).to(v_pages.dtype)
+    for name, val in _kv_entries(cache, k, v):
+      pages = cache[name][layer_idx]
+      pages[pidx, off] = val.reshape(B * T, *val.shape[2:]).to(pages.dtype)
+    k_pages, v_pages = cache["k"][layer_idx], cache["v"][layer_idx]
+    ks, vs = scales.get("k_scale"), scales.get("v_scale")
     if T == 1:
-      attn = paged_decode_attention(q, k_pages, v_pages, page_table, kv_valid_len)
+      attn = paged_decode_attention(q, k_pages, v_pages, page_table, kv_valid_len,
+                                    k_scale_pages=ks, v_scale_pages=vs)
     else:
-      attn = paged_prefill_attention(q, k_pages, v_pages, page_table, kv_valid_len)
+      attn = paged_prefill_attention(q, k_pages, v_pages, page_table, kv_valid_len,
+                                     k_scale_pages=ks, v_scale_pages=vs, ragged=ragged_prefill)
     return _linear(layer, "wo", attn.reshape(B, T, cfg.num_heads * cfg.head_dim), route)
   _cache_write(cache, layer_idx, k, v, start_pos, slots)
   if use_flash:
     # Prefill from position 0: the fresh segment is the whole visible context, so
-    # the kernel attends over the fresh k/v and never reads the cache.
+    # the kernel attends over the fresh k/v and never reads the cache (an int8
+    # cache included).
     attn = flash_attention(q, k.contiguous(), v.contiguous())
   elif use_flash_decode:
     # Decode steps and segments at pos > 0: the cache up to each row's last
-    # visible position.
-    attn = flash_cached_attention(q, cache["k"][layer_idx], cache["v"][layer_idx], q_start)
+    # visible position; an int8 cache passes its raw codes and scales (K2q).
+    attn = flash_cached_attention(q, cache["k"][layer_idx], cache["v"][layer_idx], q_start,
+                                  k_scale=scales.get("k_scale"), v_scale=scales.get("v_scale"))
   elif x.device.type == "cpu":
     k_all, v_all = _cache_read(cache, layer_idx, q.dtype)
     attn = gqa_attention(q, k_all, v_all, positions, kv_valid_len)
@@ -232,6 +273,7 @@ def forward_shard(
   start_layer: int = 0,
   page_table: Optional[torch.Tensor] = None,  # [B, max_pages] int32: `cache` is the arena
   route: Optional[QuantRoute] = None,
+  ragged_prefill: bool = True,  # paged T > 1 segments through K4 (False: gathered view + K2)
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
   """Run one shard. Returns (hidden, or fp32 logits on the last shard; the cache,
   updated in place). `use_flash` is valid only when start_pos == 0.
@@ -239,7 +281,9 @@ def forward_shard(
   A [B] `start_pos` puts each row at its own depth (continuous batching): per-row
   RoPE positions, cache slots and visible lengths. With `page_table`, `cache` is the
   shared page arena (paged_cache.PagePool): decode steps (T == 1) attend through K3,
-  segments (T > 1, B == 1) through K4; `use_flash`/`use_flash_decode` are ignored.
+  segments (T > 1, B == 1) through K4, or with `ragged_prefill=False` through K2 over
+  each row's pages gathered contiguous; `use_flash`/`use_flash_decode` are ignored. A
+  cache with `k_scale`/`v_scale` leaves is int8 and takes the kernels' int8 variants.
   `route` sends quantized decode projections to their kernels; by default the
   knobs' route (`quant_route`) for the device of `x`."""
   check_supported(cfg)
@@ -272,7 +316,8 @@ def forward_shard(
   for i in range(stacked["wq"].shape[0]):
     layer = {name: w[i] for name, w in stacked.items()}
     h = h + _attention_block(layer, h, cache, i, positions, kv_valid_len, start_pos, q_start,
-                             cfg, inv_freq, use_flash, use_flash_decode, route, page_table, slots)
+                             cfg, inv_freq, use_flash, use_flash_decode, route, page_table, slots,
+                             ragged_prefill)
     h = h + _dense_mlp(layer, rms_norm(h, layer["mlp_norm"], cfg.rms_norm_eps), cfg, route)
   if not is_last:
     return h, cache

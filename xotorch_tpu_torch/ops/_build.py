@@ -35,10 +35,14 @@ SIGNATURES = {
   },
   "flash_decode": {
     "xot_flash_cached_attention_bf16": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, F, P],
+    "xot_flash_cached_attention_kv8": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, F, P],
   },
   "paged_attention": {
     "xot_paged_decode_attention_bf16": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, P],
     "xot_paged_prefill_attention_bf16": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, F, P],
+    "xot_paged_decode_attention_kv8": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, P],
+    "xot_paged_prefill_attention_kv8": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, F,
+                                        P],
   },
   "quant_matvec": {
     "xot_w8a8_matvec_bf16": [P, P, P, P, I, I, I, P],

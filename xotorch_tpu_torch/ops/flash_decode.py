@@ -1,17 +1,19 @@
-"""K2: cached grouped-query attention of queries at an offset over the resident KV
-cache — decode steps (T == 1) and chunked-prefill segments at q_start > 0.
+"""K2 and K2q: cached grouped-query attention of queries at an offset over the
+resident KV cache — decode steps (T == 1) and chunked-prefill segments at q_start > 0.
 
 The port of xotorch_tpu/ops/flash_decode.py (`_cached_kernel` and
-`_cached_kernel_windowed`; the int8-cache variant waits for the KV-quant slice). The
-kernel is hand-written CUDA for Hopper (csrc/flash_decode.cu): it reads the cache only
-up to each row's last visible position, so decode cost follows occupancy. The plain
-PyTorch version `flash_cached_attention_ref` sits beside it, built on `gqa_attention`;
-the wrapper takes it only for tensors on the CPU.
+`_cached_kernel_windowed`, with and without `quant`). The kernels are hand-written
+CUDA for Hopper (csrc/flash_decode.cu): they read the cache only up to each row's
+last visible position, so decode cost follows occupancy. K2 reads a bf16 cache; K2q
+(`flash_cached_attention_int8`) reads an int8 cache with one scale per (position,
+head) and dequantizes each tile as it stages it, exactly as JAX's `_load_kv` does. The
+plain PyTorch version `flash_cached_attention_ref` sits beside them, built on
+`gqa_attention`; the wrappers take it only for tensors on the CPU.
 """
 from __future__ import annotations
 
 import math
-from typing import Optional
+from typing import Optional, Tuple
 
 import torch
 
@@ -21,29 +23,60 @@ from xotorch_tpu_torch.utils import knobs
 
 # Rows (positions x groups) one CUDA block holds: the q tile lives in shared memory.
 MAX_ROWS = 64
+HEAD_DIMS = (16, 32, 64, 128)  # the kernels' instantiations
+
+
+def dequantize_kv(k: torch.Tensor, v: torch.Tensor, k_scale: torch.Tensor, v_scale: torch.Tensor,
+                  dtype) -> Tuple[torch.Tensor, torch.Tensor]:
+  """int8 K/V [..., Hkv, D] with scales [..., Hkv] -> K/V in `dtype`: code times scale,
+  both cast to `dtype` first, as the JAX package's `_cache_read` and `_load_kv` do."""
+  return (k.to(dtype) * k_scale.to(dtype)[..., None], v.to(dtype) * v_scale.to(dtype)[..., None])
 
 
 def flash_cached_attention_ref(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                                q_start: torch.Tensor, window: int = 0, softcap: float = 0.0,
-                               scale: Optional[float] = None) -> torch.Tensor:
+                               scale: Optional[float] = None, k_scale: Optional[torch.Tensor] = None,
+                               v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
   """Plain version: query t of row b attends cache positions
-  [max(0, q_start[b] + t - window + 1), q_start[b] + t]."""
+  [max(0, q_start[b] + t - window + 1), q_start[b] + t]. An int8 cache (with
+  `k_scale`/`v_scale`) is dequantized in q's dtype first."""
+  if k_scale is not None:
+    k_cache, v_cache = dequantize_kv(k_cache, v_cache, k_scale, v_scale, q.dtype)
   T = q.shape[1]
   pos = q_start.to(torch.int64)[:, None] + torch.arange(T, device=q.device)[None, :]
   return gqa_attention(q, k_cache, v_cache, pos, None, scale=scale, softcap=softcap,
                        window=window)
 
 
+def check_kv_quant(name: str, k: torch.Tensor, v: torch.Tensor, k_scale, v_scale) -> bool:
+  """Whether a call reads an int8 cache. Int8 K/V come with both scales, and scales
+  only with int8 K/V; anything else raises ValueError."""
+  int8 = (k.dtype == torch.int8, v.dtype == torch.int8)
+  scales = (k_scale is not None, v_scale is not None)
+  if int8 == (True, True) and scales == (True, True):
+    return True
+  if int8 == (False, False) and scales == (False, False):
+    return False
+  raise ValueError(f"{name}: an int8 cache goes with both scales and scales with an int8 cache; "
+                   f"got k {k.dtype}, v {v.dtype}, k_scale {'given' if scales[0] else 'None'}, "
+                   f"v_scale {'given' if scales[1] else 'None'}")
+
+
 def flash_cached_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
                            q_start: torch.Tensor, window: int = 0, softcap: float = 0.0,
-                           scale: Optional[float] = None) -> torch.Tensor:
+                           scale: Optional[float] = None, k_scale: Optional[torch.Tensor] = None,
+                           v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
   """q [B, T, Hq, D] at absolute positions q_start[b] + [0, T) over the cache
   k/v [B, S, Hkv, D] (the segment already written); q_start [B] int32.
-  Returns [B, T, Hq, D] in q's dtype.
+  Returns [B, T, Hq, D] in q's dtype. An int8 cache passes its raw buffers with
+  `k_scale`/`v_scale` [B, S, Hkv] and goes to K2q (`flash_cached_attention_int8`).
 
   CPU tensors take the plain version. CUDA tensors launch the kernel (bf16,
   contiguous, q_start int32 on the same card) or raise. The caller guarantees
   q_start[b] + T <= S."""
+  if check_kv_quant("flash_cached_attention", k_cache, v_cache, k_scale, v_scale):
+    return flash_cached_attention_int8(q, k_cache, v_cache, k_scale, v_scale, q_start,
+                                       window=window, softcap=softcap, scale=scale)
   if q.device.type == "cpu":
     return flash_cached_attention_ref(q, k_cache, v_cache, q_start, window=window,
                                       softcap=softcap, scale=scale)
@@ -61,13 +94,7 @@ def flash_cached_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
                        f"got {t.dtype} on {t.device}")
   if q_start.dtype != torch.int32 or q_start.device != q.device:
     raise ValueError(f"flash_cached_attention: q_start must be int32 on {q.device}")
-  groups = Hq // Hkv
-  if groups > MAX_ROWS:
-    raise ValueError(f"flash_cached_attention: {groups} q heads per kv head exceed {MAX_ROWS}")
-  # Positions per block: the knob, capped by T and by the block's row budget.
-  block_q = max(1, min(knobs.get_int("XOT_FD_BLOCK_Q"), T, MAX_ROWS // groups))
-  block_k = knobs.get_int("XOT_FD_BLOCK_K")
-  scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+  block_q, block_k, scale = _blocks("flash_cached_attention", T, Hq, Hkv, D, scale)
   out = torch.empty_like(q)
   lib = _build.load("flash_decode")
   rc = lib.xot_flash_cached_attention_bf16(
@@ -81,6 +108,68 @@ def flash_cached_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
 
 
 flash_cached_attention.launches = 0
+
+
+def _blocks(name: str, T: int, Hq: int, Hkv: int, D: int, scale: Optional[float]):
+  """(block_q, block_k, score scale) of a K2/K2q launch."""
+  groups = Hq // Hkv
+  if groups > MAX_ROWS:
+    raise ValueError(f"{name}: {groups} q heads per kv head exceed {MAX_ROWS}")
+  if D not in HEAD_DIMS:
+    raise ValueError(f"{name}: built for head_dim {HEAD_DIMS}, got {D}")
+  # Positions per block: the knob, capped by T and by the block's row budget.
+  block_q = max(1, min(knobs.get_int("XOT_FD_BLOCK_Q"), T, MAX_ROWS // groups))
+  block_k = knobs.get_int("XOT_FD_BLOCK_K")
+  return block_q, block_k, float(scale) if scale is not None else 1.0 / math.sqrt(D)
+
+
+def flash_cached_attention_int8(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
+                                k_scale: torch.Tensor, v_scale: torch.Tensor, q_start: torch.Tensor,
+                                window: int = 0, softcap: float = 0.0,
+                                scale: Optional[float] = None) -> torch.Tensor:
+  """K2q: `flash_cached_attention` over an int8 cache k/v [B, S, Hkv, D] with one
+  scale per (position, head), k_scale/v_scale [B, S, Hkv]. The kernel dequantizes
+  each staged tile to bf16 (code x scale, rounded once) and then runs K2's
+  arithmetic, so the cache streams as int8 bytes.
+
+  CPU tensors take the plain version (dequantize, then attend). CUDA tensors launch
+  the kernel (q bf16, int8 K/V, bf16 scales, all contiguous on one card, q_start
+  int32) or raise ValueError."""
+  check_kv_quant("flash_cached_attention_int8", k_cache, v_cache, k_scale, v_scale)
+  if q.device.type == "cpu":
+    return flash_cached_attention_ref(q, k_cache, v_cache, q_start, window=window,
+                                      softcap=softcap, scale=scale, k_scale=k_scale,
+                                      v_scale=v_scale)
+  B, T, Hq, D = q.shape
+  S, Hkv = k_cache.shape[1], k_cache.shape[2]
+  if (k_cache.shape != (B, S, Hkv, D) or v_cache.shape != k_cache.shape or Hq % Hkv
+      or k_scale.shape != (B, S, Hkv) or v_scale.shape != k_scale.shape
+      or q_start.shape != (B,)):
+    raise ValueError(f"flash_cached_attention_int8: shapes q{tuple(q.shape)} k{tuple(k_cache.shape)} "
+                     f"v{tuple(v_cache.shape)} k_scale{tuple(k_scale.shape)} "
+                     f"v_scale{tuple(v_scale.shape)} q_start{tuple(q_start.shape)}")
+  for name, t, dtype in (("q", q, torch.bfloat16), ("k_cache", k_cache, torch.int8),
+                         ("v_cache", v_cache, torch.int8), ("k_scale", k_scale, torch.bfloat16),
+                         ("v_scale", v_scale, torch.bfloat16), ("q_start", q_start, torch.int32)):
+    if t.dtype != dtype or t.device != q.device or not t.is_contiguous():
+      raise ValueError(f"flash_cached_attention_int8: {name} must be contiguous {dtype} on "
+                       f"{q.device}, got {t.dtype} on {t.device}")
+  if q.device.type != "cuda":
+    raise ValueError(f"flash_cached_attention_int8 runs on cuda or cpu tensors, got {q.device}")
+  block_q, block_k, scale = _blocks("flash_cached_attention_int8", T, Hq, Hkv, D, scale)
+  out = torch.empty_like(q)
+  lib = _build.load("flash_decode")
+  rc = lib.xot_flash_cached_attention_kv8(
+    q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
+    q_start.data_ptr(), out.data_ptr(), B, T, S, Hq, Hkv, D, block_q, block_k, int(window or 0),
+    scale, float(softcap or 0.0), torch.cuda.current_stream(q.device).cuda_stream)
+  _build.check(rc, f"flash_cached_attention_int8 (B={B} T={T} S={S} Hq={Hq} D={D} "
+                   f"block_q={block_q} block_k={block_k})")
+  flash_cached_attention_int8.launches += 1
+  return out
+
+
+flash_cached_attention_int8.launches = 0
 
 
 def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
