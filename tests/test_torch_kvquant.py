@@ -10,7 +10,7 @@ the CPU.
   precision pinned to 'highest', so they differ only by the order of fp32 sums
   (atol 1e-5 on outputs of magnitude ~1).
 - `forward_shard` logits with an int8 cache match JAX's at 1e-4 (fp32): contiguous,
-  per-row positions, and the page arena (ragged and gathered). The two packages'
+  per-row positions, and the page arena. The two packages'
   fp32 K/V differ in the last bit (XLA and torch sum in another order), so a value
   within an ulp of a half-step of the int8 grid can take the neighbouring code on
   one side, moving the logits by ~1e-4; the token seeds here leave every code equal
@@ -95,8 +95,11 @@ def _cfgs(cfg_dict=None):
 
 def _quantized(rng, shape):
   """Random K/V of `shape` [..., D] quantized per (..., head) with the JAX package's
-  recipe: (int8 codes, fp32 scales [...]) as numpy."""
+  recipe: (int8 codes, fp32 scales [...]) as numpy. Each (position, head) row is
+  scaled by its own 2^u, u uniform in [-6, 0], so the scales spread over 64x and a
+  scale read from the wrong row or head moves the output."""
   x = rng.standard_normal(shape).astype(np.float32)
+  x *= np.exp2(-6.0 * rng.random(shape[:-1] + (1,))).astype(np.float32)
   qx, sx = jq.quantize_tensor(jnp.asarray(x), axis=-1, scale_dtype=jnp.float32)
   return np.array(qx), np.array(sx)
 
@@ -213,15 +216,15 @@ def test_paged_decode_int8_ref_matches_jax(window, softcap, scale):
   np.testing.assert_allclose(got.numpy(), _np(want_xla), atol=ATOL)
 
 
-@pytest.mark.parametrize("ragged", [True, False], ids=["ragged", "gathered"])
+@pytest.mark.parametrize("D", [16, 64])
 @pytest.mark.parametrize("T,valid,window,softcap", [
   (16, [16, 16], 0, 0.0),  # a first segment, from position 0
   (12, [40, 100], 0, 0.0),  # segments over a resident prefix, ragged
   (12, [40, 100], 10, 25.0),  # ... under a window and a softcap
 ])
-def test_paged_prefill_int8_ref_matches_jax(T, valid, window, softcap, ragged):
+def test_paged_prefill_int8_ref_matches_jax(T, valid, window, softcap, D):
   rng = np.random.default_rng(12)
-  Hq, Hkv, D, page, P, maxp = 4, 2, 16, 16, 20, 8
+  Hq, Hkv, page, P, maxp = 4, 2, 16, 20, 8
   lengths = np.array(valid, np.int32)
   kq, vq, ks, vs = _arena_int8(rng, P, page, Hkv, D)
   table = _shuffled_table(rng, P, lengths, page, maxp)
@@ -231,24 +234,22 @@ def test_paged_prefill_int8_ref_matches_jax(T, valid, window, softcap, ragged):
   jargs = [jnp.asarray(a) for a in (q, kq, vq, table, q_pos, lengths)]
   jscales = dict(k_scale_pages=jnp.asarray(ks), v_scale_pages=jnp.asarray(vs))
   want_kernel = j_paged.paged_prefill_attention(*jargs, softcap=softcap, use_kernel=True,
-                                                ragged=ragged, interpret=True, window=win,
-                                                **jscales)
+                                                interpret=True, window=win, **jscales)
   want_xla = j_paged.paged_prefill_attention(*jargs, softcap=softcap, window=win, **jscales)
-  calls = []
-  real = paged_attention.flash_cached_attention
-  paged_attention.flash_cached_attention = lambda *a, **kw: calls.append(kw) or real(*a, **kw)
-  try:
-    got = paged_attention.paged_prefill_attention(
-      *(torch.from_numpy(a) for a in (q, kq, vq, table, lengths)), window=window, softcap=softcap,
-      k_scale_pages=torch.from_numpy(ks), v_scale_pages=torch.from_numpy(vs), ragged=ragged)
-  finally:
-    paged_attention.flash_cached_attention = real
+  targs = [torch.from_numpy(a) for a in (q, kq, vq, table, lengths)]
+  tscales = torch.from_numpy(ks), torch.from_numpy(vs)
+  got = paged_attention.paged_prefill_attention(*targs, window=window, softcap=softcap,
+                                                k_scale_pages=tscales[0], v_scale_pages=tscales[1])
   np.testing.assert_allclose(got.numpy(), _np(want_kernel), atol=ATOL)
   np.testing.assert_allclose(got.numpy(), _np(want_xla), atol=ATOL)
-  # The gathered view hands K2q the raw pages and the gathered scales.
-  assert len(calls) == (0 if ragged else 1)
-  if calls:
-    assert tuple(calls[0]["k_scale"].shape) == (len(valid), maxp * page, Hkv)
+  # The K4q wrapper itself, and K4's function over the dequantized arena.
+  direct = paged_attention.paged_prefill_attention_int8(*targs[:3], *tscales, *targs[3:],
+                                                        window=window, softcap=softcap)
+  assert torch.equal(direct, got)
+  k, v = flash_decode.dequantize_kv(targs[1], targs[2], *tscales, torch.float32)
+  dense = paged_attention.paged_prefill_attention(targs[0], k, v, *targs[3:], window=window,
+                                                  softcap=softcap)
+  assert torch.equal(dense, got)
 
 
 def test_gather_paged_view_dequantizes_as_jax():
@@ -360,14 +361,14 @@ def test_forward_shard_int8_cache_per_row_positions_match_jax():
     np.testing.assert_array_equal(cache[n][:, :, :8].numpy(), _np(jcache[n])[:, :, :8])
 
 
-@pytest.mark.parametrize("ragged", [True, False], ids=["ragged", "gathered"])
-def test_forward_paged_int8_arena_matches_jax(ragged):
+@pytest.mark.parametrize("cfg_dict", [None, NARROW], ids=["tiny", "narrow"])
+def test_forward_paged_int8_arena_matches_jax(cfg_dict):
   """Three requests prefilled into one int8 arena through their own shuffled page
-  tables (one paged segment each), then decoded together, B=3 at per-row positions
-  with one pad row: the logits of every segment equal JAX's forward_paged, the
-  greedy tokens JAX's decode_chunk_paged, and the written pages (codes and scales)
-  JAX's."""
-  jcfg, cfg, jp, params = _params()
+  tables (one paged segment each, K4q's function), then decoded together, B=3 at
+  per-row positions with one pad row (K3q's): the logits of every segment equal JAX's
+  forward_paged, the greedy tokens JAX's decode_chunk_paged, and the written pages
+  (codes and scales) JAX's."""
+  jcfg, cfg, jp, params = _params(cfg_dict)
   rng = np.random.default_rng(15)
   L, page, P, maxp, K = cfg.num_layers, 16, 24, 4, 6
   prompts = [_toks(cfg, (1, n), 20 + n) for n in (5, 20, 37)]
@@ -379,10 +380,9 @@ def test_forward_paged_int8_arena_matches_jax(ragged):
   for b, toks in enumerate(prompts):
     jl, jarena = j_generate.forward_paged(jp, jnp.asarray(toks), jarena,
                                           jnp.asarray(table[b:b + 1]), jnp.int32(0), jcfg,
-                                          use_kernel=True, ragged=ragged)
+                                          use_kernel=True)
     tl, _ = transformer.forward_shard(params, torch.from_numpy(toks).long(), arena, 0, cfg, True,
-                                      True, page_table=torch.from_numpy(table[b:b + 1]),
-                                      ragged_prefill=ragged)
+                                      True, page_table=torch.from_numpy(table[b:b + 1]))
     np.testing.assert_allclose(tl.numpy(), _np(jl), atol=1e-4)
     last.append(int(np.argmax(_np(jl)[0, -1])))
   pos = np.array([len(p[0]) for p in prompts], np.int32)
@@ -539,36 +539,16 @@ async def test_batched_int8_streams_match_one_at_a_time(paged, monkeypatch):
   assert together == alone
 
 
-async def test_ragged_prefill_off_routes_paged_segments_to_k2q(jax_weights, monkeypatch):
-  """XOT_RAGGED_PREFILL=0, read when the engine is built: paged T > 1 segments gather
-  their pages and go through K2q's function (K4q's is not called); the stream is
-  the ragged one's."""
-  monkeypatch.setenv("XOT_DTYPE", "float32")
-  monkeypatch.setenv("XOT_KV_QUANT", "int8")
-  monkeypatch.setenv("XOT_PAGED_KV", "1")
-  monkeypatch.setenv("XOT_KV_PAGE", "16")
-  monkeypatch.setenv("XOT_KV_POOL_TOKENS", "512")
-  monkeypatch.setenv("XOT_PREFILL_CHUNK", "16")
-  prompt = np.random.default_rng(10).integers(3, 256, size=(1, 25))
-  shard = Shard(MODEL, 0, 3, 4)
-  ragged = TorchShardInferenceEngine(device="cpu", seed=0)
-  monkeypatch.setenv("XOT_RAGGED_PREFILL", "0")
-  gathered = TorchShardInferenceEngine(device="cpu", seed=0)
+@pytest.mark.parametrize("value", ["0", "false", "off"])
+def test_ragged_prefill_off_is_refused(value, monkeypatch):
+  """XOT_RAGGED_PREFILL is registered for parity with the JAX package, but only its
+  default is served: the gathered paged view it would select is not ported, so the
+  engine refuses to be built rather than serve another path. `1` builds."""
+  monkeypatch.setenv("XOT_RAGGED_PREFILL", value)
+  with pytest.raises(ValueError, match="XOT_RAGGED_PREFILL=0"):
+    TorchShardInferenceEngine(device="cpu", seed=0)
   monkeypatch.setenv("XOT_RAGGED_PREFILL", "1")
-  assert (ragged.ragged_prefill, gathered.ragged_prefill) == (True, False)
-  calls = {"k2q": 0, "k4q": 0}
-  for key, mod, name in (("k2q", paged_attention, "flash_cached_attention"),
-                         ("k4q", paged_attention, "paged_prefill_attention_int8")):
-    real = getattr(mod, name)
-    monkeypatch.setattr(mod, name, lambda *a, _r=real, _k=key, **kw: calls.__setitem__(
-      _k, calls[_k] + 1) or _r(*a, **kw))
-  want = await _greedy(ragged, shard, "r", prompt, 8)
-  assert calls == {"k2q": 0, "k4q": 4 * 2}
-  got = await _greedy(gathered, shard, "r", prompt, 8)
-  assert calls == {"k2q": 4 * 2, "k4q": 4 * 2}
-  for e in (ragged, gathered):
-    e.executor.shutdown(wait=True)
-  assert got == want
+  TorchShardInferenceEngine(device="cpu", seed=0).executor.shutdown(wait=True)
 
 
 # ------------------------------------------------------------ knobs and CLI

@@ -222,6 +222,9 @@ class TorchShardInferenceEngine(InferenceEngine):
     self.kv_quant = (kv_quant or knobs.get_str("XOT_KV_QUANT", "")).lower() or None
     if self.kv_quant not in (None, "int8"):
       raise ValueError(f"Unsupported KV quantization {self.kv_quant!r}; have ['int8']")
+    if not knobs.get_bool("XOT_RAGGED_PREFILL"):
+      raise ValueError("XOT_RAGGED_PREFILL=0 (the gathered paged view) is not ported: paged "
+                       "segments read the pages in place through K4/K4q")
     self.executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="torch-engine")
     self._ctx: Optional[_ShardContext] = None
     self._shard_lock = asyncio.Lock()
@@ -232,7 +235,6 @@ class TorchShardInferenceEngine(InferenceEngine):
     self.batch_window_s = knobs.get_float("XOT_BATCH_WINDOW_MS") / 1000.0
     self.paged = knobs.get_bool("XOT_PAGED_KV")
     self.paged_prefill = knobs.get_bool("XOT_PAGED_PREFILL")
-    self.ragged_prefill = knobs.get_bool("XOT_RAGGED_PREFILL")
     self.defrag = knobs.get_bool("XOT_KV_DEFRAG")
     self.defrag_moves = 0
     self.generator = torch.Generator(device=self.device)
@@ -354,17 +356,15 @@ class TorchShardInferenceEngine(InferenceEngine):
   def _segment_setup(self, ctx: _ShardContext, request_id: str, input_data: np.ndarray):
     """Device transfer, bucket padding, state and capacity, and the attention path.
     Returns (x, true length, state, the cache or arena, forward keywords): a page
-    table on the arena (K4 or K3; XOT_RAGGED_PREFILL=0 sends segments to K2 over a
-    gathered view); on a contiguous cache a fresh request's multi-token segment goes
-    to K1, everything else to K2 (K2q, K3q, K4q for an int8 cache)."""
+    table on the arena (K4 or K3); on a contiguous cache a fresh request's multi-token
+    segment goes to K1, everything else to K2 (K2q, K3q, K4q for an int8 cache)."""
     x = self._to_device_input(input_data)
     true_t = x.shape[1]
     bucket = 1 if true_t == 1 else _bucket(true_t)
     if self._paged_segment(ctx, request_id, x):
       state = self._prep_state_paged(ctx, request_id, bucket)
       cache, kw = ctx.page_pool.arena, {"page_table": self._paged_table_for(ctx, state),
-                                        "route": self.quant_route,
-                                        "ragged_prefill": self.ragged_prefill}
+                                        "route": self.quant_route}
     else:
       state = self._prep_state(ctx, request_id, bucket)
       use_flash = true_t > 1 and state.pos == 0

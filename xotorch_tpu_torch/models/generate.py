@@ -42,7 +42,6 @@ def forward_sample(
   gumbel: Optional[torch.Tensor] = None,  # [B, V] noise for the sample
   page_table: Optional[torch.Tensor] = None,  # [B, max_pages]: `cache` is the page arena
   route: Optional[QuantRoute] = None,  # quantized decode projections (transformer.quant_route)
-  ragged_prefill: bool = True,  # paged segments through K4 (False: gathered view + K2)
 ):
   """Last-shard forward + sampling: returns ([B] sampled token on the device, the
   cache), or ((tok, lp, top_ids, top_lps), cache) with `top_lp >= 0`. The
@@ -51,7 +50,7 @@ def forward_sample(
   h, cache = forward_shard(params, x, cache, start_pos, cfg=cfg, is_first=is_first,
                            is_last=False, use_flash=use_flash,
                            use_flash_decode=use_flash_decode, start_layer=start_layer,
-                           page_table=page_table, route=route, ragged_prefill=ragged_prefill)
+                           page_table=page_table, route=route)
   logits = unembed(params, h[:, last_index:last_index + 1], cfg)[:, -1, :]
   kw = dict(temp=temp, top_k=top_k, top_p=top_p, bias=bias, counts=counts, presence=presence,
             frequency=frequency, min_p=min_p, generator=generator, gumbel=gumbel)

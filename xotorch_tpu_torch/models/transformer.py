@@ -34,7 +34,7 @@ from xotorch_tpu_torch.models.config import ModelConfig
 from xotorch_tpu_torch.models.quantize import quantize_tensor, unpack_int4
 from xotorch_tpu_torch.ops.attention import gqa_attention
 from xotorch_tpu_torch.ops.flash_attention import flash_attention
-from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention
+from xotorch_tpu_torch.ops.flash_decode import dequantize_kv, flash_cached_attention
 from xotorch_tpu_torch.ops.int4_matmul import int4_grouped_matmul
 from xotorch_tpu_torch.ops.int8_matmul import int8_rowquant_matmul
 from xotorch_tpu_torch.ops.paged_attention import paged_decode_attention, paged_prefill_attention
@@ -189,11 +189,10 @@ def _cache_write(cache: Dict[str, torch.Tensor], layer_idx: int, k: torch.Tensor
 def _cache_read(cache: Dict[str, torch.Tensor], layer_idx: int, dtype) -> Tuple[torch.Tensor, torch.Tensor]:
   """(K, V) of one layer in `dtype`; an int8 cache is dequantized (code times scale,
   both in `dtype`)."""
-  k, v = cache["k"][layer_idx].to(dtype), cache["v"][layer_idx].to(dtype)
+  k, v = cache["k"][layer_idx], cache["v"][layer_idx]
   if "k_scale" in cache:
-    k = k * cache["k_scale"][layer_idx].to(dtype)[..., None]
-    v = v * cache["v_scale"][layer_idx].to(dtype)[..., None]
-  return k, v
+    return dequantize_kv(k, v, cache["k_scale"][layer_idx], cache["v_scale"][layer_idx], dtype)
+  return k.to(dtype), v.to(dtype)
 
 
 def _attention_block(layer: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor], layer_idx: int,
@@ -201,7 +200,7 @@ def _attention_block(layer: Params, x: torch.Tensor, cache: Dict[str, torch.Tens
                      start_pos: Union[int, torch.Tensor], q_start: torch.Tensor, cfg: ModelConfig,
                      inv_freq: torch.Tensor, use_flash: bool, use_flash_decode: bool,
                      route: QuantRoute, page_table: Optional[torch.Tensor] = None,
-                     slots: Any = None, ragged_prefill: bool = True) -> torch.Tensor:
+                     slots: Any = None) -> torch.Tensor:
   B, T, _ = x.shape
   h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
   q = _linear(layer, "wq", h, route).reshape(B, T, cfg.num_heads, cfg.head_dim)
@@ -226,7 +225,7 @@ def _attention_block(layer: Params, x: torch.Tensor, cache: Dict[str, torch.Tens
                                     k_scale_pages=ks, v_scale_pages=vs)
     else:
       attn = paged_prefill_attention(q, k_pages, v_pages, page_table, kv_valid_len,
-                                     k_scale_pages=ks, v_scale_pages=vs, ragged=ragged_prefill)
+                                     k_scale_pages=ks, v_scale_pages=vs)
     return _linear(layer, "wo", attn.reshape(B, T, cfg.num_heads * cfg.head_dim), route)
   _cache_write(cache, layer_idx, k, v, start_pos, slots)
   if use_flash:
@@ -273,7 +272,6 @@ def forward_shard(
   start_layer: int = 0,
   page_table: Optional[torch.Tensor] = None,  # [B, max_pages] int32: `cache` is the arena
   route: Optional[QuantRoute] = None,
-  ragged_prefill: bool = True,  # paged T > 1 segments through K4 (False: gathered view + K2)
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
   """Run one shard. Returns (hidden, or fp32 logits on the last shard; the cache,
   updated in place). `use_flash` is valid only when start_pos == 0.
@@ -281,8 +279,7 @@ def forward_shard(
   A [B] `start_pos` puts each row at its own depth (continuous batching): per-row
   RoPE positions, cache slots and visible lengths. With `page_table`, `cache` is the
   shared page arena (paged_cache.PagePool): decode steps (T == 1) attend through K3,
-  segments (T > 1, B == 1) through K4, or with `ragged_prefill=False` through K2 over
-  each row's pages gathered contiguous; `use_flash`/`use_flash_decode` are ignored. A
+  segments (T > 1, B == 1) through K4; `use_flash`/`use_flash_decode` are ignored. A
   cache with `k_scale`/`v_scale` leaves is int8 and takes the kernels' int8 variants.
   `route` sends quantized decode projections to their kernels; by default the
   knobs' route (`quant_route`) for the device of `x`."""
@@ -316,8 +313,7 @@ def forward_shard(
   for i in range(stacked["wq"].shape[0]):
     layer = {name: w[i] for name, w in stacked.items()}
     h = h + _attention_block(layer, h, cache, i, positions, kv_valid_len, start_pos, q_start,
-                             cfg, inv_freq, use_flash, use_flash_decode, route, page_table, slots,
-                             ragged_prefill)
+                             cfg, inv_freq, use_flash, use_flash_decode, route, page_table, slots)
     h = h + _dense_mlp(layer, rms_norm(h, layer["mlp_norm"], cfg.rms_norm_eps), cfg, route)
   if not is_last:
     return h, cache

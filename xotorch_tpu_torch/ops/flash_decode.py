@@ -66,44 +66,55 @@ def flash_cached_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
                            q_start: torch.Tensor, window: int = 0, softcap: float = 0.0,
                            scale: Optional[float] = None, k_scale: Optional[torch.Tensor] = None,
                            v_scale: Optional[torch.Tensor] = None) -> torch.Tensor:
-  """q [B, T, Hq, D] at absolute positions q_start[b] + [0, T) over the cache
+  """K2. q [B, T, Hq, D] at absolute positions q_start[b] + [0, T) over the cache
   k/v [B, S, Hkv, D] (the segment already written); q_start [B] int32.
   Returns [B, T, Hq, D] in q's dtype. An int8 cache passes its raw buffers with
-  `k_scale`/`v_scale` [B, S, Hkv] and goes to K2q (`flash_cached_attention_int8`).
+  `k_scale`/`v_scale` [B, S, Hkv] and launches K2q, counted on
+  `flash_cached_attention_int8`.
 
-  CPU tensors take the plain version. CUDA tensors launch the kernel (bf16,
-  contiguous, q_start int32 on the same card) or raise. The caller guarantees
-  q_start[b] + T <= S."""
-  if check_kv_quant("flash_cached_attention", k_cache, v_cache, k_scale, v_scale):
-    return flash_cached_attention_int8(q, k_cache, v_cache, k_scale, v_scale, q_start,
-                                       window=window, softcap=softcap, scale=scale)
+  CPU tensors take the plain version. CUDA tensors launch the kernel (q bf16, K/V
+  bf16 or int8 with bf16 scales, all contiguous on one card, q_start int32) or raise
+  ValueError. The caller guarantees q_start[b] + T <= S."""
+  quant = check_kv_quant("flash_cached_attention", k_cache, v_cache, k_scale, v_scale)
   if q.device.type == "cpu":
     return flash_cached_attention_ref(q, k_cache, v_cache, q_start, window=window,
-                                      softcap=softcap, scale=scale)
-  if q.device.type != "cuda":
-    raise ValueError(f"flash_cached_attention runs on cuda or cpu tensors, got {q.device}")
+                                      softcap=softcap, scale=scale, k_scale=k_scale,
+                                      v_scale=v_scale)
+  name = "flash_cached_attention_int8" if quant else "flash_cached_attention"
   B, T, Hq, D = q.shape
   S, Hkv = k_cache.shape[1], k_cache.shape[2]
   if (k_cache.shape != (B, S, Hkv, D) or v_cache.shape != k_cache.shape or Hq % Hkv
-      or q_start.shape != (B,)):
-    raise ValueError(f"flash_cached_attention: shapes q{tuple(q.shape)} k{tuple(k_cache.shape)} "
-                     f"v{tuple(v_cache.shape)} q_start{tuple(q_start.shape)}")
-  for name, t in (("q", q), ("k_cache", k_cache), ("v_cache", v_cache)):
-    if t.dtype != torch.bfloat16 or t.device != q.device or not t.is_contiguous():
-      raise ValueError(f"flash_cached_attention: {name} must be contiguous bf16 on {q.device}, "
+      or q_start.shape != (B,)
+      or (quant and (k_scale.shape != (B, S, Hkv) or v_scale.shape != k_scale.shape))):
+    raise ValueError(f"{name}: shapes q{tuple(q.shape)} k{tuple(k_cache.shape)} "
+                     f"v{tuple(v_cache.shape)} q_start{tuple(q_start.shape)}"
+                     + (f" k_scale{tuple(k_scale.shape)} v_scale{tuple(v_scale.shape)}"
+                        if quant else ""))
+  kv = torch.int8 if quant else torch.bfloat16
+  operands = [("q", q, torch.bfloat16), ("k_cache", k_cache, kv), ("v_cache", v_cache, kv),
+              ("q_start", q_start, torch.int32)]
+  if quant:
+    operands += [("k_scale", k_scale, torch.bfloat16), ("v_scale", v_scale, torch.bfloat16)]
+  for what, t, dtype in operands:
+    if t.dtype != dtype or t.device != q.device or not t.is_contiguous():
+      raise ValueError(f"{name}: {what} must be contiguous {dtype} on {q.device}, "
                        f"got {t.dtype} on {t.device}")
-  if q_start.dtype != torch.int32 or q_start.device != q.device:
-    raise ValueError(f"flash_cached_attention: q_start must be int32 on {q.device}")
-  block_q, block_k, scale = _blocks("flash_cached_attention", T, Hq, Hkv, D, scale)
+  if q.device.type != "cuda":
+    raise ValueError(f"{name} runs on cuda or cpu tensors, got {q.device}")
+  block_q, block_k, scale = _blocks(name, T, Hq, Hkv, D, scale)
   out = torch.empty_like(q)
   lib = _build.load("flash_decode")
-  rc = lib.xot_flash_cached_attention_bf16(
-    q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), q_start.data_ptr(), out.data_ptr(),
-    B, T, S, Hq, Hkv, D, block_q, block_k, int(window or 0), scale, float(softcap or 0.0),
-    torch.cuda.current_stream(q.device).cuda_stream)
-  _build.check(rc, f"flash_cached_attention (B={B} T={T} S={S} Hq={Hq} D={D} "
-                   f"block_q={block_q} block_k={block_k})")
-  flash_cached_attention.launches += 1
+  rest = (q_start.data_ptr(), out.data_ptr(), B, T, S, Hq, Hkv, D, block_q, block_k,
+          int(window or 0), scale, float(softcap or 0.0),
+          torch.cuda.current_stream(q.device).cuda_stream)
+  if quant:
+    rc = lib.xot_flash_cached_attention_kv8(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                                            k_scale.data_ptr(), v_scale.data_ptr(), *rest)
+  else:
+    rc = lib.xot_flash_cached_attention_bf16(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
+                                             *rest)
+  _build.check(rc, f"{name} (B={B} T={T} S={S} Hq={Hq} D={D} block_q={block_q} block_k={block_k})")
+  (flash_cached_attention_int8 if quant else flash_cached_attention).launches += 1
   return out
 
 
@@ -130,43 +141,11 @@ def flash_cached_attention_int8(q: torch.Tensor, k_cache: torch.Tensor, v_cache:
   """K2q: `flash_cached_attention` over an int8 cache k/v [B, S, Hkv, D] with one
   scale per (position, head), k_scale/v_scale [B, S, Hkv]. The kernel dequantizes
   each staged tile to bf16 (code x scale, rounded once) and then runs K2's
-  arithmetic, so the cache streams as int8 bytes.
-
-  CPU tensors take the plain version (dequantize, then attend). CUDA tensors launch
-  the kernel (q bf16, int8 K/V, bf16 scales, all contiguous on one card, q_start
-  int32) or raise ValueError."""
-  check_kv_quant("flash_cached_attention_int8", k_cache, v_cache, k_scale, v_scale)
-  if q.device.type == "cpu":
-    return flash_cached_attention_ref(q, k_cache, v_cache, q_start, window=window,
-                                      softcap=softcap, scale=scale, k_scale=k_scale,
-                                      v_scale=v_scale)
-  B, T, Hq, D = q.shape
-  S, Hkv = k_cache.shape[1], k_cache.shape[2]
-  if (k_cache.shape != (B, S, Hkv, D) or v_cache.shape != k_cache.shape or Hq % Hkv
-      or k_scale.shape != (B, S, Hkv) or v_scale.shape != k_scale.shape
-      or q_start.shape != (B,)):
-    raise ValueError(f"flash_cached_attention_int8: shapes q{tuple(q.shape)} k{tuple(k_cache.shape)} "
-                     f"v{tuple(v_cache.shape)} k_scale{tuple(k_scale.shape)} "
-                     f"v_scale{tuple(v_scale.shape)} q_start{tuple(q_start.shape)}")
-  for name, t, dtype in (("q", q, torch.bfloat16), ("k_cache", k_cache, torch.int8),
-                         ("v_cache", v_cache, torch.int8), ("k_scale", k_scale, torch.bfloat16),
-                         ("v_scale", v_scale, torch.bfloat16), ("q_start", q_start, torch.int32)):
-    if t.dtype != dtype or t.device != q.device or not t.is_contiguous():
-      raise ValueError(f"flash_cached_attention_int8: {name} must be contiguous {dtype} on "
-                       f"{q.device}, got {t.dtype} on {t.device}")
-  if q.device.type != "cuda":
-    raise ValueError(f"flash_cached_attention_int8 runs on cuda or cpu tensors, got {q.device}")
-  block_q, block_k, scale = _blocks("flash_cached_attention_int8", T, Hq, Hkv, D, scale)
-  out = torch.empty_like(q)
-  lib = _build.load("flash_decode")
-  rc = lib.xot_flash_cached_attention_kv8(
-    q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(), k_scale.data_ptr(), v_scale.data_ptr(),
-    q_start.data_ptr(), out.data_ptr(), B, T, S, Hq, Hkv, D, block_q, block_k, int(window or 0),
-    scale, float(softcap or 0.0), torch.cuda.current_stream(q.device).cuda_stream)
-  _build.check(rc, f"flash_cached_attention_int8 (B={B} T={T} S={S} Hq={Hq} D={D} "
-                   f"block_q={block_q} block_k={block_k})")
-  flash_cached_attention_int8.launches += 1
-  return out
+  arithmetic, so the cache streams as int8 bytes. Its launches are counted here."""
+  if not check_kv_quant("flash_cached_attention_int8", k_cache, v_cache, k_scale, v_scale):
+    raise ValueError("flash_cached_attention_int8 reads an int8 cache with its scales")
+  return flash_cached_attention(q, k_cache, v_cache, q_start, window=window, softcap=softcap,
+                                scale=scale, k_scale=k_scale, v_scale=v_scale)
 
 
 flash_cached_attention_int8.launches = 0

@@ -2,8 +2,7 @@
 shared paged KV arena.
 
 The port of xotorch_tpu/ops/paged_attention.py (`paged_decode_attention`, K3, and
-`paged_prefill_attention`: its ragged path, K4, and its legacy gathered view, which
-runs K2 over each row's pages gathered contiguous). The paged pool
+`paged_prefill_attention`'s ragged path, K4). The paged pool
 (inference/torch_engine/paged_cache.py) stores every resident request's cache as
 fixed-size pages in ONE arena per layer; each batch row reaches its tokens through a
 page table and is read only up to its own occupied pages, not the batch maximum.
@@ -15,7 +14,7 @@ slot as the payload; K3q and K4q dequantize as they read. The plain PyTorch vers
 sit beside them: gather each row's pages into a contiguous view (dequantized), then
 the shared masked attention (`gqa_attention`), as the JAX package's XLA path does.
 The wrappers take the plain version only for tensors on the CPU. Not ported: the
-per-shard tensor-parallel call.
+per-shard tensor-parallel call and the legacy gathered view (`ragged=False`).
 """
 from __future__ import annotations
 
@@ -26,7 +25,7 @@ import torch
 
 from xotorch_tpu_torch.ops import _build
 from xotorch_tpu_torch.ops.attention import gqa_attention
-from xotorch_tpu_torch.ops.flash_decode import check_kv_quant, dequantize_kv, flash_cached_attention
+from xotorch_tpu_torch.ops.flash_decode import check_kv_quant, dequantize_kv
 
 HEAD_DIMS = (16, 64, 128)
 PAGE_SIZES = (16, 128)
@@ -119,36 +118,41 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
   """K3. q [B, 1, Hq, D] over one layer's arena k/v [P, page, Hkv, D] through
   page_table [B, maxp] int32; lengths [B] int32 counts each row's occupied positions
   including this step. Returns [B, 1, Hq, D] in q's dtype. An int8 arena passes its
-  scale pages [P, page, Hkv] and goes to K3q (`paged_decode_attention_int8`).
+  scale pages [P, page, Hkv] and launches K3q, counted on `paged_decode_attention_int8`.
 
-  CPU tensors take the plain version. CUDA tensors launch the kernel (bf16,
-  contiguous, int32 table and lengths on the same card) or raise. The caller
-  guarantees lengths[b] <= maxp * page."""
-  if check_kv_quant("paged_decode_attention", k_pages, v_pages, k_scale_pages, v_scale_pages):
-    return paged_decode_attention_int8(q, k_pages, v_pages, k_scale_pages, v_scale_pages,
-                                       page_table, lengths, window=window, softcap=softcap,
-                                       scale=scale)
+  CPU tensors take the plain version. CUDA tensors launch the kernel (bf16 or int8
+  with bf16 scale pages, contiguous, int32 table and lengths on the same card) or
+  raise. The caller guarantees lengths[b] <= maxp * page."""
+  quant = check_kv_quant("paged_decode_attention", k_pages, v_pages, k_scale_pages, v_scale_pages)
   if q.device.type == "cpu":
     return paged_decode_attention_ref(q, k_pages, v_pages, page_table, lengths, window=window,
-                                      softcap=softcap, scale=scale)
+                                      softcap=softcap, scale=scale, k_scale_pages=k_scale_pages,
+                                      v_scale_pages=v_scale_pages)
+  name = "paged_decode_attention_int8" if quant else "paged_decode_attention"
+  B, T, Hq, D, P, page, Hkv = _check(name, q, k_pages, v_pages, page_table, lengths,
+                                     k_scale_pages, v_scale_pages)
   if q.device.type != "cuda":
-    raise ValueError(f"paged_decode_attention runs on cuda or cpu tensors, got {q.device}")
-  B, T, Hq, D, P, page, Hkv = _check("paged_decode_attention", q, k_pages, v_pages,
-                                     page_table, lengths)
+    raise ValueError(f"{name} runs on cuda or cpu tensors, got {q.device}")
   if T != 1:
-    raise ValueError(f"paged_decode_attention: one query per row, got T={T}")
+    raise ValueError(f"{name}: one query per row, got T={T}")
   if Hq // Hkv > MAX_GROUPS:
-    raise ValueError(f"paged_decode_attention: {Hq // Hkv} q heads per kv head exceed {MAX_GROUPS}")
+    raise ValueError(f"{name}: {Hq // Hkv} q heads per kv head exceed {MAX_GROUPS}")
   scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
   out = torch.empty_like(q)
   lib = _build.load("paged_attention")
-  rc = lib.xot_paged_decode_attention_bf16(
-    q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-    lengths.data_ptr(), out.data_ptr(), B, page_table.shape[1], P, page, Hq, Hkv, D,
-    int(window or 0), scale, float(softcap or 0.0), torch.cuda.current_stream(q.device).cuda_stream)
-  _build.check(rc, f"paged_decode_attention (B={B} maxp={page_table.shape[1]} P={P} "
-                   f"page={page} Hq={Hq} Hkv={Hkv} D={D})")
-  paged_decode_attention.launches += 1
+  rest = (page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, page_table.shape[1], P,
+          page, Hq, Hkv, D, int(window or 0), scale, float(softcap or 0.0),
+          torch.cuda.current_stream(q.device).cuda_stream)
+  if quant:
+    rc = lib.xot_paged_decode_attention_kv8(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                                            k_scale_pages.data_ptr(), v_scale_pages.data_ptr(),
+                                            *rest)
+  else:
+    rc = lib.xot_paged_decode_attention_bf16(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                                             *rest)
+  _build.check(rc, f"{name} (B={B} maxp={page_table.shape[1]} P={P} page={page} Hq={Hq} "
+                   f"Hkv={Hkv} D={D})")
+  (paged_decode_attention_int8 if quant else paged_decode_attention).launches += 1
   return out
 
 
@@ -160,34 +164,13 @@ def paged_decode_attention_int8(q: torch.Tensor, k_pages: torch.Tensor, v_pages:
                                 page_table: torch.Tensor, lengths: torch.Tensor, window: int = 0,
                                 softcap: float = 0.0, scale: Optional[float] = None) -> torch.Tensor:
   """K3q: `paged_decode_attention` over an int8 arena k/v [P, page, Hkv, D] with its
-  bf16 scale pages [P, page, Hkv]. CPU tensors take the plain version; off the CPU the
-  operands are checked (ValueError), then a CUDA call launches the kernel."""
-  check_kv_quant("paged_decode_attention_int8", k_pages, v_pages, k_scale_pages, v_scale_pages)
-  if q.device.type == "cpu":
-    return paged_decode_attention_ref(q, k_pages, v_pages, page_table, lengths, window=window,
-                                      softcap=softcap, scale=scale, k_scale_pages=k_scale_pages,
-                                      v_scale_pages=v_scale_pages)
-  B, T, Hq, D, P, page, Hkv = _check("paged_decode_attention_int8", q, k_pages, v_pages,
-                                     page_table, lengths, k_scale_pages, v_scale_pages)
-  if q.device.type != "cuda":
-    raise ValueError(f"paged_decode_attention_int8 runs on cuda or cpu tensors, got {q.device}")
-  if T != 1:
-    raise ValueError(f"paged_decode_attention_int8: one query per row, got T={T}")
-  if Hq // Hkv > MAX_GROUPS:
-    raise ValueError(f"paged_decode_attention_int8: {Hq // Hkv} q heads per kv head exceed "
-                     f"{MAX_GROUPS}")
-  scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
-  out = torch.empty_like(q)
-  lib = _build.load("paged_attention")
-  rc = lib.xot_paged_decode_attention_kv8(
-    q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_scale_pages.data_ptr(),
-    v_scale_pages.data_ptr(), page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), B,
-    page_table.shape[1], P, page, Hq, Hkv, D, int(window or 0), scale, float(softcap or 0.0),
-    torch.cuda.current_stream(q.device).cuda_stream)
-  _build.check(rc, f"paged_decode_attention_int8 (B={B} maxp={page_table.shape[1]} P={P} "
-                   f"page={page} Hq={Hq} Hkv={Hkv} D={D})")
-  paged_decode_attention_int8.launches += 1
-  return out
+  bf16 scale pages [P, page, Hkv]. Its launches are counted here."""
+  if not check_kv_quant("paged_decode_attention_int8", k_pages, v_pages, k_scale_pages,
+                        v_scale_pages):
+    raise ValueError("paged_decode_attention_int8 reads an int8 arena with its scale pages")
+  return paged_decode_attention(q, k_pages, v_pages, page_table, lengths, window=window,
+                                softcap=softcap, scale=scale, k_scale_pages=k_scale_pages,
+                                v_scale_pages=v_scale_pages)
 
 
 paged_decode_attention_int8.launches = 0
@@ -198,56 +181,46 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: tor
                             window: int = 0, softcap: float = 0.0,
                             scale: Optional[float] = None,
                             k_scale_pages: Optional[torch.Tensor] = None,
-                            v_scale_pages: Optional[torch.Tensor] = None,
-                            ragged: bool = True) -> torch.Tensor:
+                            v_scale_pages: Optional[torch.Tensor] = None) -> torch.Tensor:
   """K4. q [B, T, Hq, D], a ragged segment per row whose query t sits at absolute
   position kv_valid_len[b] - T + t, over one layer's arena through page_table
   [B, maxp] int32 (the segment's K/V already written). Returns [B, T, Hq, D]. An int8
-  arena passes its scale pages [P, page, Hkv] and goes to K4q
-  (`paged_prefill_attention_int8`).
-
-  `ragged=False` is the JAX package's legacy gathered view (XOT_RAGGED_PREFILL=0):
-  each row's pages (and scale pages) are gathered into a contiguous copy, raw, and
-  K2 (K2q for an int8 arena) runs over it with q_start = kv_valid_len - T.
+  arena passes its scale pages [P, page, Hkv] and launches K4q, counted on
+  `paged_prefill_attention_int8`.
 
   CPU tensors take the plain version. CUDA tensors launch the kernel or raise. The
   caller guarantees T <= kv_valid_len[b] <= maxp * page."""
   quant = check_kv_quant("paged_prefill_attention", k_pages, v_pages, k_scale_pages,
                          v_scale_pages)
-  if not ragged:
-    ks = vs = None
-    if quant:
-      ks, vs = _gather(k_scale_pages, page_table), _gather(v_scale_pages, page_table)
-    q_start = (kv_valid_len - q.shape[1]).to(torch.int32)
-    return flash_cached_attention(q, _gather(k_pages, page_table), _gather(v_pages, page_table),
-                                  q_start, window=window, softcap=softcap, scale=scale,
-                                  k_scale=ks, v_scale=vs)
-  if quant:
-    return paged_prefill_attention_int8(q, k_pages, v_pages, k_scale_pages, v_scale_pages,
-                                        page_table, kv_valid_len, window=window, softcap=softcap,
-                                        scale=scale)
   if q.device.type == "cpu":
     return paged_prefill_attention_ref(q, k_pages, v_pages, page_table, kv_valid_len,
-                                       window=window, softcap=softcap, scale=scale)
+                                       window=window, softcap=softcap, scale=scale,
+                                       k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages)
+  name = "paged_prefill_attention_int8" if quant else "paged_prefill_attention"
+  B, T, Hq, D, P, page, Hkv = _check(name, q, k_pages, v_pages, page_table, kv_valid_len,
+                                     k_scale_pages, v_scale_pages)
   if q.device.type != "cuda":
-    raise ValueError(f"paged_prefill_attention runs on cuda or cpu tensors, got {q.device}")
-  B, T, Hq, D, P, page, Hkv = _check("paged_prefill_attention", q, k_pages, v_pages,
-                                     page_table, kv_valid_len)
+    raise ValueError(f"{name} runs on cuda or cpu tensors, got {q.device}")
   groups = Hq // Hkv
   if groups > MAX_ROWS:
-    raise ValueError(f"paged_prefill_attention: {groups} q heads per kv head exceed {MAX_ROWS}")
+    raise ValueError(f"{name}: {groups} q heads per kv head exceed {MAX_ROWS}")
   block_q = max(1, min(T, MAX_ROWS // groups))
   scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
   out = torch.empty_like(q)
   lib = _build.load("paged_attention")
-  rc = lib.xot_paged_prefill_attention_bf16(
-    q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), page_table.data_ptr(),
-    kv_valid_len.data_ptr(), out.data_ptr(), B, T, page_table.shape[1], P, page, Hq, Hkv, D,
-    block_q, int(window or 0), scale, float(softcap or 0.0),
-    torch.cuda.current_stream(q.device).cuda_stream)
-  _build.check(rc, f"paged_prefill_attention (B={B} T={T} maxp={page_table.shape[1]} P={P} "
-                   f"page={page} Hq={Hq} Hkv={Hkv} D={D} block_q={block_q})")
-  paged_prefill_attention.launches += 1
+  rest = (page_table.data_ptr(), kv_valid_len.data_ptr(), out.data_ptr(), B, T,
+          page_table.shape[1], P, page, Hq, Hkv, D, block_q, int(window or 0), scale,
+          float(softcap or 0.0), torch.cuda.current_stream(q.device).cuda_stream)
+  if quant:
+    rc = lib.xot_paged_prefill_attention_kv8(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+                                             k_scale_pages.data_ptr(), v_scale_pages.data_ptr(),
+                                             *rest)
+  else:
+    rc = lib.xot_paged_prefill_attention_bf16(q.data_ptr(), k_pages.data_ptr(),
+                                              v_pages.data_ptr(), *rest)
+  _build.check(rc, f"{name} (B={B} T={T} maxp={page_table.shape[1]} P={P} page={page} "
+                   f"Hq={Hq} Hkv={Hkv} D={D} block_q={block_q})")
+  (paged_prefill_attention_int8 if quant else paged_prefill_attention).launches += 1
   return out
 
 
@@ -259,35 +232,14 @@ def paged_prefill_attention_int8(q: torch.Tensor, k_pages: torch.Tensor, v_pages
                                  page_table: torch.Tensor, kv_valid_len: torch.Tensor,
                                  window: int = 0, softcap: float = 0.0,
                                  scale: Optional[float] = None) -> torch.Tensor:
-  """K4q: the ragged `paged_prefill_attention` over an int8 arena k/v [P, page, Hkv, D]
-  with its bf16 scale pages [P, page, Hkv]. CPU tensors take the plain version; off
-  the CPU the operands are checked (ValueError), then a CUDA call launches the kernel."""
-  check_kv_quant("paged_prefill_attention_int8", k_pages, v_pages, k_scale_pages, v_scale_pages)
-  if q.device.type == "cpu":
-    return paged_prefill_attention_ref(q, k_pages, v_pages, page_table, kv_valid_len,
-                                       window=window, softcap=softcap, scale=scale,
-                                       k_scale_pages=k_scale_pages, v_scale_pages=v_scale_pages)
-  B, T, Hq, D, P, page, Hkv = _check("paged_prefill_attention_int8", q, k_pages, v_pages,
-                                     page_table, kv_valid_len, k_scale_pages, v_scale_pages)
-  if q.device.type != "cuda":
-    raise ValueError(f"paged_prefill_attention_int8 runs on cuda or cpu tensors, got {q.device}")
-  groups = Hq // Hkv
-  if groups > MAX_ROWS:
-    raise ValueError(f"paged_prefill_attention_int8: {groups} q heads per kv head exceed "
-                     f"{MAX_ROWS}")
-  block_q = max(1, min(T, MAX_ROWS // groups))
-  scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
-  out = torch.empty_like(q)
-  lib = _build.load("paged_attention")
-  rc = lib.xot_paged_prefill_attention_kv8(
-    q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(), k_scale_pages.data_ptr(),
-    v_scale_pages.data_ptr(), page_table.data_ptr(), kv_valid_len.data_ptr(), out.data_ptr(), B,
-    T, page_table.shape[1], P, page, Hq, Hkv, D, block_q, int(window or 0), scale,
-    float(softcap or 0.0), torch.cuda.current_stream(q.device).cuda_stream)
-  _build.check(rc, f"paged_prefill_attention_int8 (B={B} T={T} maxp={page_table.shape[1]} P={P} "
-                   f"page={page} Hq={Hq} Hkv={Hkv} D={D} block_q={block_q})")
-  paged_prefill_attention_int8.launches += 1
-  return out
+  """K4q: `paged_prefill_attention` over an int8 arena k/v [P, page, Hkv, D] with its
+  bf16 scale pages [P, page, Hkv]. Its launches are counted here."""
+  if not check_kv_quant("paged_prefill_attention_int8", k_pages, v_pages, k_scale_pages,
+                        v_scale_pages):
+    raise ValueError("paged_prefill_attention_int8 reads an int8 arena with its scale pages")
+  return paged_prefill_attention(q, k_pages, v_pages, page_table, kv_valid_len, window=window,
+                                 softcap=softcap, scale=scale, k_scale_pages=k_scale_pages,
+                                 v_scale_pages=v_scale_pages)
 
 
 paged_prefill_attention_int8.launches = 0
