@@ -16,7 +16,10 @@ Phases, in order; any failure exits nonzero and prints no result line:
      quantizer, rows' scales spread over 64x, each also bit for bit against its bf16
      twin over the dequantized operands (SDPA over that view as the yardstick); the quantized
      GEMVs K5, K5v4 and K6 at the four projection shapes, rows 1 and 8, with one bf16
-     torch.matmul over the pre-dequantized weight as their yardstick;
+     torch.matmul over the pre-dequantized weight as their yardstick; then K1, K4 and
+     K4q at the edges of their tensor-core tiles (T off the 16-row tile, groups 1 and
+     8, K1 at D 32 and under each XOT_FLASH_BLOCK_Q/_K setting, K4 segments from
+     mid-page, window edges mid-tile), correctness and K4q's bit identity only;
   4. model: a two-layer cut of synthetic-llama-1b at full width, prefill and decode
      through the kernels in bf16 on the card against the plain path in fp32 on the
      CPU: contiguous (K1, K2), then paged (K4 prefill, K3 decode at B=3), then with
@@ -220,6 +223,7 @@ def check_kernels(torch, results: dict) -> None:
 
   check_paged_kernels(torch, results, randn)
   check_int8_kv_kernels(torch, results, randn)
+  check_tile_edges(torch, randn)
 
   # The other head widths the kernels are built for, at the registry's other
   # llama shapes (synthetic-llama-8b: D 128; synthetic-tiny: Hq 4, Hkv 2, D 16),
@@ -352,6 +356,15 @@ def kv8_bytes(rows: int, hkv: int = HKV, d: int = D) -> float:
   return 2.0 * rows * hkv * (d + 2)
 
 
+def spread_quantize(torch, gen, x):
+  """x [..., Hkv, D] with each (position, head) row scaled by 2^u, u uniform in [-6, 0]
+  (so the rows' scales spread over 64x), quantized as the engine writes an int8 cache:
+  (codes, bf16 scales)."""
+  from xotorch_tpu_torch.models.transformer import _quantize_kv
+  u = torch.rand(*x.shape[:-1], 1, generator=gen, device=x.device)
+  return _quantize_kv(x * torch.exp2(-6.0 * u).to(x.dtype), torch.bfloat16)
+
+
 def check_int8_kv_kernels(torch, results: dict, randn) -> None:
   """K2q, K3q and K4q at K2's, K3's and K4's cases over random bf16 K/V quantized
   with the port's quantizer, against their plain versions (dequantize, then attend)
@@ -366,7 +379,6 @@ def check_int8_kv_kernels(torch, results: dict, randn) -> None:
   the twin reads, and then run the twin's arithmetic. Then the other head widths and
   page 16, correctness and bit identity only."""
   import torch.nn.functional as F
-  from xotorch_tpu_torch.models.transformer import _quantize_kv
   from xotorch_tpu_torch.ops.flash_decode import (dequantize_kv, flash_cached_attention,
                                                   flash_cached_attention_int8,
                                                   flash_cached_attention_ref)
@@ -382,10 +394,7 @@ def check_int8_kv_kernels(torch, results: dict, randn) -> None:
   gen.manual_seed(4)
 
   def quantize_kv(x):
-    """x [..., Hkv, D] with each (position, head) row scaled by 2^u, u in [-6, 0],
-    quantized as the engine writes an int8 cache."""
-    u = torch.rand(*x.shape[:-1], 1, generator=gen, device=dev)
-    return _quantize_kv(x * torch.exp2(-6.0 * u).to(x.dtype), bf)
+    return spread_quantize(torch, gen, x)
 
   def twin(name, case, out, fn, *args, **kw):
     """The int8 kernel's output equals its bf16 twin's over the dequantized operands."""
@@ -536,6 +545,74 @@ def check_int8_kv_kernels(torch, results: dict, randn) -> None:
         check_only("paged_prefill_attention_int8", case, out, ref)
         twin("paged_prefill_attention_int8", case, out, paged_prefill_attention, q,
              *dequantize_kv(kq, vq, ks, vs, bf), table, lens, window=window, softcap=softcap)
+
+
+def check_tile_edges(torch, randn) -> None:
+  """K1, K4 and K4q where their tiles cut the work: T off the 16-row mma tile (1, 15,
+  17, 65), groups 1 (Hq = Hkv = 8), 8 (Hq 64, Hkv 8) and 3 (a 16-row tile splits a
+  position), K1 at D 32, K4 segments that
+  start mid-page at page 16 and 128, windows whose lower edge falls mid-tile, and K1
+  under each of its four tile settings (XOT_FLASH_BLOCK_Q / _K in {64, 128}, timed at
+  T=1024 as well). Correctness at ATOL against the plain versions; every K4q case also
+  bit for bit against K4 over the dequantized arena."""
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+  from xotorch_tpu_torch.ops.flash_decode import dequantize_kv
+  from xotorch_tpu_torch.ops.paged_attention import (paged_prefill_attention,
+                                                     paged_prefill_attention_int8,
+                                                     paged_prefill_attention_ref)
+  for hq, hkv, d in ((8, 8, 64), (64, 8, 64), (24, 8, 64), (16, 4, 32)):
+    for T in (1, 15, 17, 65, 300):
+      for window, softcap in ((0, 0.0), (37, 30.0)):
+        q, k, v = randn(2, T, hq, d), randn(2, T, hkv, d), randn(2, T, hkv, d)
+        out = flash_attention(q, k, v, window=window, softcap=softcap)
+        torch.cuda.synchronize()
+        ref = flash_attention_ref(q, k, v, window=window, softcap=softcap)
+        check_only("flash_attention", f"Hq={hq} Hkv={hkv} D={d} B=2 T={T} window={window} "
+                   f"softcap={softcap}", out, ref)
+  for block_q in (64, 128):
+    for block_k in (64, 128):
+      with phase_env(XOT_FLASH_BLOCK_Q=str(block_q), XOT_FLASH_BLOCK_K=str(block_k)):
+        for T, window, softcap in ((300, 37, 30.0), (1024, 0, 0.0)):
+          q, k, v = randn(1, T, HQ, D), randn(1, T, HKV, D), randn(1, T, HKV, D)
+          call = lambda: flash_attention(q, k, v, window=window, softcap=softcap)
+          out = call()
+          torch.cuda.synchronize()
+          ref = flash_attention_ref(q, k, v, window=window, softcap=softcap)
+          case = (f"XOT_FLASH_BLOCK_Q={block_q} XOT_FLASH_BLOCK_K={block_k} T={T} "
+                  f"window={window} softcap={softcap}")
+          check_only("flash_attention", case, out, ref)
+          if T == 1024:
+            print(f"[flash_attention] {case}: ms={time_ms(call):.4f}", flush=True)
+
+  gen = torch.Generator(device="cuda")
+  gen.manual_seed(5)
+  for hq, hkv in ((8, 8), (64, 8), (24, 8)):
+    for T in (1, 15, 17, 65):
+      for pg in (16, 128):
+        for window, softcap in ((0, 0.0), (37, 30.0)):
+          valid = [T, T + 7, T + 250]  # segments from 0, and from mid-page
+          q, kp, vp, table, lens = paged_inputs(torch, randn, valid, pg, hq, hkv, D, T=T)
+          out = paged_prefill_attention(q, kp, vp, table, lens, window=window, softcap=softcap)
+          torch.cuda.synchronize()
+          ref = paged_prefill_attention_ref(q, kp, vp, table, lens, window=window,
+                                            softcap=softcap)
+          case = (f"Hq={hq} Hkv={hkv} D={D} page={pg} T={T} kv_valid={valid} window={window} "
+                  f"softcap={softcap}")
+          check_only("paged_prefill_attention", case, out, ref)
+          (kq, ks), (vq, vs) = spread_quantize(torch, gen, kp), spread_quantize(torch, gen, vp)
+          out8 = paged_prefill_attention_int8(q, kq, vq, ks, vs, table, lens, window=window,
+                                              softcap=softcap)
+          torch.cuda.synchronize()
+          ref8 = paged_prefill_attention_ref(q, kq, vq, table, lens, window=window,
+                                             softcap=softcap, k_scale_pages=ks, v_scale_pages=vs)
+          check_only("paged_prefill_attention_int8", case, out8, ref8)
+          twin = paged_prefill_attention(q, *dequantize_kv(kq, vq, ks, vs, torch.bfloat16), table,
+                                         lens, window=window, softcap=softcap)
+          if not torch.equal(out8, twin):
+            raise AssertionError(f"paged_prefill_attention_int8 {case}: differs from K4 over "
+                                 "the dequantized arena")
+  print("[paged_prefill_attention_int8] tile edges: every case bit-identical to K4 over the "
+        "dequantized arena", flush=True)
 
 
 def check_only(name, case, out, ref) -> None:
@@ -1051,8 +1128,10 @@ def main_requests(model: str):
     ("streaming, 64 tokens", {"model": model, "max_tokens": 64, "stream": True,
                               "stream_options": {"include_usage": True},
                               "messages": [{"role": "user", "content": words(300)}]}),
-    ("1500-word prompt (> XOT_PREFILL_CHUNK 1024), 32 tokens",
-     {"model": model, "temperature": 0, "max_tokens": 32,
+    # Streamed, so the client reads its TTFT: a first segment of 1024 through K1.
+    ("1500-word prompt (> XOT_PREFILL_CHUNK 1024), 32 tokens, streaming",
+     {"model": model, "temperature": 0, "max_tokens": 32, "stream": True,
+      "stream_options": {"include_usage": True},
       "messages": [{"role": "user", "content": words(1500)}]}),
   ]
 

@@ -77,14 +77,25 @@ def test_gqa_attention_matches_jax(window, softcap, scale, valid):
   np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=ATOL, rtol=1e-5)
 
 
-@pytest.mark.parametrize("Hq,Hkv,window,softcap,scale", [
-  (4, 2, 0, 0.0, None), (8, 2, 0, 0.0, None), (4, 4, 5, 0.0, None), (4, 2, 7, 50.0, 0.3)])
-def test_flash_attention_ref_matches_jax_kernel(Hq, Hkv, window, softcap, scale):
+@pytest.mark.parametrize("Hq,Hkv,window,softcap,scale,T,block", [
+  pytest.param(4, 2, 0, 0.0, None, 32, 16, id="4-2-0-0.0-None"),
+  pytest.param(8, 2, 0, 0.0, None, 32, 16, id="8-2-0-0.0-None"),
+  pytest.param(4, 4, 5, 0.0, None, 32, 16, id="4-4-5-0.0-None"),
+  pytest.param(4, 2, 7, 50.0, 0.3, 32, 16, id="4-2-7-50.0-0.3"),
+  # The edges of the card kernel's tiles: groups 8 (a 16-row mma tile holds two
+  # positions), T off the 16-row tile, window edges inside a JAX block.
+  pytest.param(16, 2, 0, 0.0, None, 32, 16, id="groups8"),
+  pytest.param(16, 2, 11, 30.0, None, 32, 16, id="groups8-window-mid-block"),
+  pytest.param(4, 2, 0, 0.0, None, 17, 17, id="T17"),
+  pytest.param(4, 1, 9, 0.0, None, 24, 8, id="T24-window-mid-block"),
+  pytest.param(8, 8, 3, 0.0, None, 15, 15, id="groups1-T15"),
+])
+def test_flash_attention_ref_matches_jax_kernel(Hq, Hkv, window, softcap, scale, T, block):
   rng = np.random.default_rng(2)
-  B, T, D = 2, 32, 16
+  B, D = 2, 16
   q, k, v = _randn(rng, B, T, Hq, D), _randn(rng, B, T, Hkv, D), _randn(rng, B, T, Hkv, D)
-  out_j = j_flash.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=16,
-                                  block_k=16, window=jnp.int32(window) if window else None,
+  out_j = j_flash.flash_attention(jnp.asarray(q), jnp.asarray(k), jnp.asarray(v), block_q=block,
+                                  block_k=block, window=jnp.int32(window) if window else None,
                                   softcap=softcap, scale=scale)
   out_t = flash_attention.flash_attention(_t(q), _t(k), _t(v), window=window, softcap=softcap,
                                           scale=scale)
@@ -197,3 +208,44 @@ def test_kernel_wrappers_refuse_what_they_cannot_launch():
     flash_decode.flash_cached_attention(q, k, k, torch.zeros(1, dtype=torch.int32, device="meta"))
   assert flash_attention.flash_attention.launches == 0
   assert flash_decode.flash_cached_attention.launches == 0
+
+
+@pytest.mark.parametrize("block_q,block_k,D,refusal", [
+  (32, 128, 64, "XOT_FLASH_BLOCK_Q"), (128, 256, 64, "XOT_FLASH_BLOCK_Q"),
+  (100, 64, 64, "XOT_FLASH_BLOCK_Q"), (128, 128, 48, "head_dim"),
+  # What the kernel takes passes these checks and stops at the device check.
+  (64, 64, 32, "cuda or cpu"), (64, 128, 32, "cuda or cpu"), (128, 64, 32, "cuda or cpu"),
+  (128, 128, 32, "cuda or cpu")])
+def test_flash_attention_refuses_tiles_it_cannot_launch(monkeypatch, block_q, block_k, D, refusal):
+  """K1 takes 64 or 128 query rows a block (XOT_FLASH_BLOCK_Q) and keys a tile
+  (XOT_FLASH_BLOCK_K), and head_dim 16, 32, 64 or 128: anything else raises ValueError
+  in the wrapper, before the device is looked at and before anything launches."""
+  monkeypatch.setenv("XOT_FLASH_BLOCK_Q", str(block_q))
+  monkeypatch.setenv("XOT_FLASH_BLOCK_K", str(block_k))
+  q = torch.empty(1, 16, 4, D, dtype=torch.bfloat16, device="meta")
+  k = torch.empty(1, 16, 2, D, dtype=torch.bfloat16, device="meta")
+  with pytest.raises(ValueError, match=refusal):
+    flash_attention.flash_attention(q, k, k)
+  assert flash_attention.flash_attention.launches == 0
+
+
+def test_lib_path_follows_the_shared_header(monkeypatch, tmp_path):
+  """A library's name hashes its source, every csrc/*.cuh header and the flags: an
+  edit to the shared tile core alone (attention_mma.cuh) names a new library, so a
+  stale one is never loaded. No nvcc needed."""
+  from xotorch_tpu_torch.ops import _build
+  import shutil
+  csrc = tmp_path / "csrc"
+  shutil.copytree(_build.CSRC_DIR, csrc)
+  monkeypatch.setattr(_build, "CSRC_DIR", csrc)
+  before = {name: _build._lib_path(name) for name in _build.KERNELS}
+  assert before == {name: _build._lib_path(name) for name in _build.KERNELS}
+  header = csrc / "attention_mma.cuh"
+  header.write_text(header.read_text() + "\n// edited\n")
+  after = {name: _build._lib_path(name) for name in _build.KERNELS}
+  for name in _build.KERNELS:
+    assert after[name] != before[name], name
+    assert after[name].parent == _build.BUILD_DIR
+  (csrc / "flash_attention.cu").write_text((csrc / "flash_attention.cu").read_text() + "\n")
+  assert _build._lib_path("flash_attention") != after["flash_attention"]
+  assert _build._lib_path("flash_decode") == after["flash_decode"]

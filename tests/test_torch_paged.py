@@ -149,14 +149,23 @@ def test_paged_decode_attention_ref_matches_jax(window, softcap, scale):
   np.testing.assert_allclose(got.numpy(), np.asarray(want_xla), atol=ATOL)
 
 
-@pytest.mark.parametrize("T,valid,window,softcap", [
-  (16, [16, 16], 0, 0.0),  # a first segment, from position 0
-  (12, [40, 100], 0, 0.0),  # segments over a resident prefix, ragged
-  (12, [40, 100], 10, 25.0),  # ... under a window and a softcap
+@pytest.mark.parametrize("T,valid,window,softcap,Hq,Hkv", [
+  # a first segment, from position 0
+  pytest.param(16, [16, 16], 0, 0.0, 4, 2, id="16-valid0-0-0.0"),
+  # segments over a resident prefix, ragged
+  pytest.param(12, [40, 100], 0, 0.0, 4, 2, id="12-valid1-0-0.0"),
+  # ... under a window and a softcap
+  pytest.param(12, [40, 100], 10, 25.0, 4, 2, id="12-valid2-10-25.0"),
+  # The edges of the card kernel's tiles: groups 8, T off the 16-row mma tile,
+  # segments that start mid-page, a window edge inside a tile.
+  pytest.param(12, [40, 100], 0, 0.0, 16, 2, id="groups8"),
+  pytest.param(17, [17, 90], 0, 0.0, 4, 2, id="T17-from-0-and-mid-page"),
+  pytest.param(15, [22, 123], 11, 20.0, 16, 2, id="groups8-T15-window-mid-tile"),
+  pytest.param(1, [1, 37], 0, 0.0, 2, 2, id="groups1-T1"),
 ])
-def test_paged_prefill_attention_ref_matches_jax(T, valid, window, softcap):
+def test_paged_prefill_attention_ref_matches_jax(T, valid, window, softcap, Hq, Hkv):
   rng = np.random.default_rng(12)
-  Hq, Hkv, D, page, P, maxp = 4, 2, 16, 16, 20, 8
+  D, page, P, maxp = 16, 16, 20, 8
   lengths = np.array(valid, np.int32)
   kp, vp = _arena(rng, P, page, Hkv, D)
   table = _shuffled_table(rng, P, lengths, page, maxp)
@@ -251,4 +260,18 @@ def test_paged_kernel_wrappers_refuse_what_they_cannot_launch():
   with pytest.raises(ValueError):
     paged_attention.paged_prefill_attention(q, pages, pages, table, lens)
   assert paged_attention.paged_decode_attention.launches == 0
+  assert paged_attention.paged_prefill_attention.launches == 0
+
+
+@pytest.mark.parametrize("Hq,refusal", [(32, "q heads per kv head exceed 8"), (16, "cuda or cpu")])
+def test_paged_prefill_takes_at_most_eight_groups(Hq, refusal):
+  """K4's blocks pack at most 8 query heads per kv head (as K3's): more raise
+  ValueError in the wrapper before the device is looked at; 8 pass on to the device
+  check."""
+  q = torch.empty(2, 20, Hq, 16, dtype=torch.bfloat16, device="meta")
+  pages = torch.empty(8, 16, 2, 16, dtype=torch.bfloat16, device="meta")
+  table = torch.zeros(2, 4, dtype=torch.int32, device="meta")
+  lens = torch.zeros(2, dtype=torch.int32, device="meta")
+  with pytest.raises(ValueError, match=refusal):
+    paged_attention.paged_prefill_attention(q, pages, pages, table, lens)
   assert paged_attention.paged_prefill_attention.launches == 0

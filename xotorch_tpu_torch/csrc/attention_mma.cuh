@@ -1,0 +1,361 @@
+// The tensor-core tile core shared by K1 (flash_attention.cu::flash_prefill_kernel) and
+// K4/K4q (paged_attention.cu::paged_prefill_kernel), for Hopper (sm_90a).
+//
+// Both kernels replace Pallas kernels whose two products run on the TPU's matrix unit
+// with bf16 operands and fp32 accumulation (xotorch_tpu/ops/flash_attention.py::
+// _flash_kernel, xotorch_tpu/ops/paged_attention.py::_paged_ragged_kernel), and both
+// attend a prefill segment: about 4 * rows * visible keys * D operations on inputs read
+// once, so they are bound by operations. Here both products are warp-level
+// mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 on the tensor cores.
+//
+// One block holds ROWS query rows of one (batch row, kv head): rows are the flattened
+// (position, group) index t * groups + g, so every query head of the kv head shares each
+// K/V tile. A warp owns 16 rows. Their Q fragments (ldmatrix.x4 from shared memory, once),
+// their O accumulator (16 x D fp32) and each row's running max and sum stay in registers.
+//
+// A step over one KV tile (KT keys x D, bf16 in shared memory, rows padded to D + 8 so
+// that the 8 row addresses of an ldmatrix fall on distinct banks):
+//   S = Q.K^T: ldmatrix.x4 on K rows gives the B fragments (K is [keys, D], which is
+//     the "col" operand as it stands); fp32 accumulators.
+//   scale, the optional tanh softcap, then the visibility mask (causal and window; a
+//     key past the valid length lies above every row's diagonal) on tiles that cross
+//     one of the warp's diagonals or window edges only; a tile outside every row of
+//     the warp is skipped, and so is each 16-key slice above the warp's last diagonal.
+//   online softmax in base 2 on the fragments: a row lives on the 4 lanes of a quad, so
+//     its max takes two __shfl_xor_sync; its sum stays partial per lane until the end.
+//   P is rounded to bf16 in registers (JAX's p.astype(v.dtype)) and the S accumulator
+//     fragments become the A fragments of O += P.V as they stand; V's B fragments come
+//     from ldmatrix.trans, so V stays [keys, D] in shared memory.
+// Tiles are double-buffered: cp.async.cg 16-byte copies of tile j + 1 land while tile j
+// is computed (commit_group / wait_group). The epilogue keeps JAX's l == 0 -> 1 guard
+// and rounds acc / l once to bf16.
+//
+// mma.sync rather than wgmma: at these sizes (a few GFLOP over a few hundred tiles,
+// about two waves on 132 SMs) occupancy and the softmax's latency decide, not the peak
+// tensor-core rate. wgmma with TMA and warp specialisation is the next step.
+#pragma once
+
+#include <cuda_bf16.h>
+#include <cuda_runtime.h>
+#include <math.h>
+#include <stdint.h>
+
+namespace xot_mma {
+
+constexpr float LOG2E = 1.4426950408889634f;
+
+// Tile geometry: ROWS query rows (ROWS / 16 warps), KT keys a tile, head width D.
+template <int D, int KT, int ROWS>
+struct Shape {
+  static_assert(D % 16 == 0 && KT % 16 == 0 && ROWS % 16 == 0, "mma tiles are 16 wide");
+  static_assert(ROWS <= 2 * KT, "the Q tile is staged in the second K/V stage");
+  static constexpr int WARPS = ROWS / 16;
+  static constexpr int THREADS = WARPS * 32;
+  static constexpr int DS = D + 8;        // shared-memory row stride (bf16)
+  static constexpr int STAGE = 2 * KT * DS;  // one stage: K tile, then V tile
+  static constexpr size_t SMEM = 2 * (size_t)STAGE * sizeof(__nv_bfloat16);
+};
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes from global to shared memory, around L1; zeros when !valid.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src, bool valid) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(smem_u32(dst)),
+               "l"(src), "r"(valid ? 16 : 0)
+               : "memory");
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::: "memory");
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N) : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(uint32_t (&r)[4], const void* p) {
+  asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+               : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+               : "r"(smem_u32(p))
+               : "memory");
+}
+
+// c (16x8 fp32) += a (16x16 bf16, row) . b (16x8 bf16, col).
+__device__ __forceinline__ void mma_bf16(float (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                         uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(c[0]), "+f"(c[1]), "+f"(c[2]), "+f"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// Two floats rounded to bf16 in one register, lo in the low half (the lower column).
+__device__ __forceinline__ uint32_t pack_bf16(float lo, float hi) {
+  __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+__device__ __forceinline__ float exp2_fast(float x) {  // 2^x; 2^-inf = 0
+  float y;
+  asm("ex2.approx.ftz.f32 %0, %1;\n" : "=f"(y) : "f"(x));
+  return y;
+}
+
+// The query rows one block holds: rows [row0, row0 + ROWS) of the flattened index
+// t * groups + g of batch row b and kv head kvh, over q/o [B, T, Hq, D] (Hq = Hkv *
+// groups); query t sits at absolute position start + t.
+struct RowTile {
+  const __nv_bfloat16* q;
+  __nv_bfloat16* o;
+  int T, Hq, groups, kvh, b, row0, start;
+};
+
+// Offset of a row's head vector in q/o, in units of D.
+__device__ __forceinline__ size_t row_vector(const RowTile& rt, int row) {
+  return ((size_t)rt.b * rt.T + row / rt.groups) * rt.Hq + (size_t)rt.kvh * rt.groups +
+         row % rt.groups;
+}
+
+// Stage one K/V tile: rows j in [0, KT) hold positions k0 + j, read at element offset
+// off(j) from kb/vb; positions at or past hi are zeros (their scores are masked, and a
+// zero V row keeps P.V finite). Each thread keeps one 16-byte column, so off(j) is
+// evaluated once per row it copies.
+template <int D, int KT, int THREADS, class Off>
+__device__ __forceinline__ void stage_tile(__nv_bfloat16* ks, __nv_bfloat16* vs,
+                                           const __nv_bfloat16* kb, const __nv_bfloat16* vb,
+                                           int k0, int hi, const Off& off) {
+  constexpr int CH = D / 8;
+  constexpr int DS = D + 8;
+  static_assert(THREADS % CH == 0, "a thread keeps one column of the tile");
+  const int c = threadIdx.x % CH;
+  for (int j = threadIdx.x / CH; j < KT; j += THREADS / CH) {
+    const bool ok = k0 + j < hi;
+    const size_t o = ok ? off(j) : 0;
+    cp_async16(ks + j * DS + 8 * c, kb + o + 8 * c, ok);
+    cp_async16(vs + j * DS + 8 * c, vb + o + 8 * c, ok);
+  }
+}
+
+// Attend the block's rows over keys [window low of its first row, its last row's
+// position], capped at kv_cap. load(ks, vs, k0, hi) stages the tile of positions
+// [k0, k0 + KT) into one stage (cp.async, or plain stores) with positions >= hi zeroed.
+template <int D, int KT, int ROWS, class Load>
+__device__ __forceinline__ void attend(const RowTile& rt, unsigned char* smem, int kv_cap,
+                                       int window, float scale, float softcap,
+                                       const Load& load) {
+  using S = Shape<D, KT, ROWS>;
+  constexpr int DS = S::DS;
+  constexpr int CH = D / 8;
+  constexpr int NK = KT / 8;   // S n-tiles a tile
+  constexpr int ND = D / 8;    // O n-tiles
+  __nv_bfloat16* stage0 = reinterpret_cast<__nv_bfloat16*>(smem);
+  __nv_bfloat16* stage1 = stage0 + S::STAGE;
+
+  const int tid = threadIdx.x;
+  const int warp = tid / 32;
+  const int lane = tid % 32;
+  const int n_rows = rt.T * rt.groups;
+  const int r_last = min(rt.row0 + ROWS, n_rows) - 1;
+  const int p_first = rt.start + rt.row0 / rt.groups;
+  const int p_last = rt.start + r_last / rt.groups;
+  const int hi = min(p_last + 1, kv_cap);
+  int lo = window > 0 ? max(0, p_first - window + 1) : 0;
+  lo -= lo % KT;
+
+  // Q rows into the second stage (free until the first prefetch), tile `lo` into the
+  // first.
+  for (int i = tid; i < ROWS * CH; i += S::THREADS) {
+    const int r = i / CH;
+    const int c = i % CH;
+    const int row = rt.row0 + r;
+    const bool ok = row < n_rows;
+    const __nv_bfloat16* src = ok ? rt.q + row_vector(rt, row) * D + 8 * c : rt.q;
+    cp_async16(stage1 + r * DS + 8 * c, src, ok);
+  }
+  cp_async_commit();
+  if (lo < hi) load(stage0, stage0 + KT * DS, lo, hi);
+  cp_async_commit();
+  cp_async_wait<0>();
+  __syncthreads();
+
+  // The warp's rows, and the two rows this lane holds (quad row g and g + 8).
+  const int wr0 = rt.row0 + 16 * warp;
+  const bool active = wr0 <= r_last;
+  const int wp_min = rt.start + wr0 / rt.groups;
+  const int wp_max = rt.start + min(wr0 + 15, r_last) / rt.groups;
+  const int g = lane >> 2;
+  const int c2 = 2 * (lane & 3);
+  const int ra = wr0 + g;
+  const int rb = ra + 8;
+  const int pa = ra <= r_last ? rt.start + ra / rt.groups : -1;  // -1: no key is visible
+  const int pb = rb <= r_last ? rt.start + rb / rt.groups : -1;
+
+  uint32_t qa[D / 16][4];
+  if (active) {
+#pragma unroll
+    for (int kk = 0; kk < D / 16; ++kk) {
+      ldmatrix_x4(qa[kk], stage1 + (16 * warp + (lane & 15)) * DS + 16 * kk + (lane >> 4) * 8);
+    }
+  }
+  __syncthreads();  // Q is in registers: the second stage may take tile lo + KT
+
+  float acc[ND][4];
+#pragma unroll
+  for (int n = 0; n < ND; ++n) acc[n][0] = acc[n][1] = acc[n][2] = acc[n][3] = 0.f;
+  float ma = -INFINITY, mb = -INFINITY, la = 0.f, lb = 0.f;
+  // Scores go to base-2 units: x * scale * log2(e), or tanh(x * scale / cap) * cap * log2(e).
+  const float pre = softcap > 0.f ? scale / softcap : scale * LOG2E;
+  const float post = softcap * LOG2E;
+
+  int it = 0;
+  for (int k0 = lo; k0 < hi; k0 += KT, ++it) {
+    __nv_bfloat16* cur = (it & 1) ? stage1 : stage0;
+    if (k0 + KT < hi) {
+      __nv_bfloat16* nxt = (it & 1) ? stage0 : stage1;
+      load(nxt, nxt + KT * DS, k0 + KT, hi);
+      cp_async_commit();
+      cp_async_wait<1>();
+    } else {
+      cp_async_wait<0>();
+    }
+    __syncthreads();  // tile k0 has landed for every thread
+
+    const bool visible = active && k0 <= wp_max && !(window > 0 && k0 + KT - 1 <= wp_min - window);
+    if (visible) {
+      const __nv_bfloat16* ks = cur;
+      const __nv_bfloat16* vs = cur + KT * DS;
+      // 16-key slices that hold a key at or below the warp's last diagonal.
+      const int n16 = min(KT / 16, (wp_max - k0) / 16 + 1);
+
+      float s[NK][4];
+#pragma unroll
+      for (int j = 0; j < NK; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
+#pragma unroll
+      for (int kk = 0; kk < D / 16; ++kk) {
+#pragma unroll
+        for (int jn = 0; jn < KT / 16; ++jn) {
+          if (jn < n16) {
+            uint32_t kb[4];
+            ldmatrix_x4(kb, ks + (16 * jn + (lane & 7) + ((lane >> 4) << 3)) * DS + 16 * kk +
+                                ((lane >> 3) & 1) * 8);
+            mma_bf16(s[2 * jn], qa[kk], kb[0], kb[1]);
+            mma_bf16(s[2 * jn + 1], qa[kk], kb[2], kb[3]);
+          }
+        }
+      }
+
+      // Scale, softcap and mask (only where a diagonal or a window edge crosses the
+      // warp's rows; slices past n16 lie above every diagonal and are masked here).
+      const bool mask = k0 + KT - 1 > wp_min || (window > 0 && k0 <= wp_max - window);
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float x = s[j][e] * pre;
+          if (softcap > 0.f) x = tanhf(x) * post;
+          if (mask) {
+            const int key = k0 + 8 * j + c2 + (e & 1);
+            const int p = e < 2 ? pa : pb;
+            if (key > p || (window > 0 && key <= p - window)) x = -INFINITY;
+          }
+          s[j][e] = x;
+        }
+      }
+
+      // Online softmax: rows a (fragment elements 0, 1) and b (2, 3).
+      float xa = -INFINITY, xb = -INFINITY;
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        xa = fmaxf(xa, fmaxf(s[j][0], s[j][1]));
+        xb = fmaxf(xb, fmaxf(s[j][2], s[j][3]));
+      }
+#pragma unroll
+      for (int off = 1; off <= 2; off <<= 1) {
+        xa = fmaxf(xa, __shfl_xor_sync(0xffffffffu, xa, off));
+        xb = fmaxf(xb, __shfl_xor_sync(0xffffffffu, xb, off));
+      }
+      const float na = fmaxf(ma, xa);
+      const float nb = fmaxf(mb, xb);
+      // A row with no visible key so far keeps m = -inf: subtract 0 instead, so that
+      // every p and alpha is 0, never NaN.
+      const float ba = na == -INFINITY ? 0.f : na;
+      const float bb = nb == -INFINITY ? 0.f : nb;
+      const float alpha_a = exp2_fast(ma - ba);
+      const float alpha_b = exp2_fast(mb - bb);
+      ma = na;
+      mb = nb;
+      float sa = 0.f, sb = 0.f;
+#pragma unroll
+      for (int j = 0; j < NK; ++j) {
+        s[j][0] = exp2_fast(s[j][0] - ba);
+        s[j][1] = exp2_fast(s[j][1] - ba);
+        s[j][2] = exp2_fast(s[j][2] - bb);
+        s[j][3] = exp2_fast(s[j][3] - bb);
+        sa += s[j][0] + s[j][1];
+        sb += s[j][2] + s[j][3];
+      }
+      la = la * alpha_a + sa;
+      lb = lb * alpha_b + sb;
+#pragma unroll
+      for (int n = 0; n < ND; ++n) {
+        acc[n][0] *= alpha_a;
+        acc[n][1] *= alpha_a;
+        acc[n][2] *= alpha_b;
+        acc[n][3] *= alpha_b;
+      }
+
+      // O += P.V with P in bf16: S n-tiles 2i and 2i + 1 are the A fragment of keys
+      // [16i, 16i + 16).
+#pragma unroll
+      for (int i = 0; i < KT / 16; ++i) {
+        if (i < n16) {
+          const uint32_t pa4[4] = {pack_bf16(s[2 * i][0], s[2 * i][1]),
+                                   pack_bf16(s[2 * i][2], s[2 * i][3]),
+                                   pack_bf16(s[2 * i + 1][0], s[2 * i + 1][1]),
+                                   pack_bf16(s[2 * i + 1][2], s[2 * i + 1][3])};
+#pragma unroll
+          for (int dn = 0; dn < D / 16; ++dn) {
+            uint32_t vb[4];
+            ldmatrix_x4_trans(vb, vs + (16 * i + (lane & 7) + ((lane >> 3) & 1) * 8) * DS +
+                                      16 * dn + (lane >> 4) * 8);
+            mma_bf16(acc[2 * dn], pa4, vb[0], vb[1]);
+            mma_bf16(acc[2 * dn + 1], pa4, vb[2], vb[3]);
+          }
+        }
+      }
+    }
+    __syncthreads();  // this stage is consumed: the next prefetch may overwrite it
+  }
+
+  // Epilogue: the row sums over the quad, the l == 0 -> 1 guard, one bf16 rounding.
+#pragma unroll
+  for (int off = 1; off <= 2; off <<= 1) {
+    la += __shfl_xor_sync(0xffffffffu, la, off);
+    lb += __shfl_xor_sync(0xffffffffu, lb, off);
+  }
+  const float ia = 1.f / (la == 0.f ? 1.f : la);
+  const float ib = 1.f / (lb == 0.f ? 1.f : lb);
+  if (active && ra <= r_last) {
+    uint32_t* oa = reinterpret_cast<uint32_t*>(rt.o + row_vector(rt, ra) * D + c2);
+#pragma unroll
+    for (int n = 0; n < ND; ++n) oa[4 * n] = pack_bf16(acc[n][0] * ia, acc[n][1] * ia);
+  }
+  if (active && rb <= r_last) {
+    uint32_t* ob = reinterpret_cast<uint32_t*>(rt.o + row_vector(rt, rb) * D + c2);
+#pragma unroll
+    for (int n = 0; n < ND; ++n) ob[4 * n] = pack_bf16(acc[n][2] * ib, acc[n][3] * ib);
+  }
+}
+
+}  // namespace xot_mma

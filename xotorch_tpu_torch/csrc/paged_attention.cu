@@ -36,38 +36,45 @@
 //   dimensions and reads V rows coalesced. Each warp keeps its own online-softmax
 //   state in registers; the block merges the eight states in shared memory at the
 //   end.
-// - K4: one block per (q tile, kv head, row): the tile's rows are positions x groups
-//   (<= 64 rows), each K/V tile of 64 keys is gathered through the table into shared
-//   memory once for the whole tile, a warp scores one row at a time with lane j on key
-//   j of a 32-key chunk, and the kv loop stops at the tile's last causal position: the
-//   design of K2 (flash_decode.cu) with the cache rows reached through pages.
+// - K4: the tensor-core tile core of attention_mma.cuh (mma.sync, bf16 operands, fp32
+//   accumulation, the Pallas kernel's two dots on the matrix unit) behind a paged
+//   loader. One block per (row tile, kv head, batch row): 64 query rows, packed as
+//   positions x groups (the JAX kernel's groups x T rows of one kv head), in 4 warps
+//   of 16 rows, so one K/V tile serves every query head of its kv head (128-row
+//   blocks of 8 warps ran slower on an H100 in every case measured: half the blocks,
+//   one a SM).
+//   Tiles of 64 keys are aligned to 64 positions: at page 128 a tile lies inside one
+//   page, whose id is read once per tile and whose rows are Hkv * D apart; at page 16
+//   one id serves 16 rows. bf16 tiles travel by cp.async, double-buffered; the kv loop
+//   stops at the block's last row and starts at its first row's window.
 //
 // K3q and K4q (KV8 = true) replace the same Pallas kernels with quant=True: the arena is
 // int8 with one bf16 scale per (position, head) in scale pages [P, PAGE, Hkv], indexed by
 // the same page id and slot as the payload (offset / D). K3q's lane reads its key's D
 // codes with 16-byte loads and its scale; the V loop reads one code per lane and the
-// key's scale. K4q's tile gather writes code x scale into K4's shared-memory tiles.
+// key's scale. K4q's tiles go through registers: 8 codes and the row's scale in, code x
+// scale out into the very shared-memory layout K4's cp.async fills, so the tile core
+// then runs K4's instructions.
 // Every dequantized value is code x scale rounded once to bf16, which equals JAX's bf16
 // multiply bit for bit (an 8-bit code times a bf16 significand is exact in fp32); the
 // rest is K3's and K4's arithmetic. The arena streams half the bytes.
 //
-// Known limits: K3 at B=1 runs Hkv blocks (8 for Llama-3.2-1B) on 132 SMs; K4 uses
-// CUDA-core FMAs, no tensor cores. Both are later work.
-#include <cuda_bf16.h>
-#include <cuda_runtime.h>
-#include <math.h>
+// Known limits: K3 at B=1 runs Hkv blocks (8 for Llama-3.2-1B) on 132 SMs, and scores on
+// CUDA cores (split-K flash-decoding is later work); K4q's tile loads are not overlapped
+// with the tile before them, as K4's cp.async copies are.
 #include <stdint.h>
 
 #include <type_traits>
+
+#include "attention_mma.cuh"
 
 namespace {
 
 constexpr int WARPS = 8;
 constexpr unsigned FULL = 0xffffffffu;
-constexpr int MAX_GROUPS = 8;              // K3: q heads per kv head
-constexpr int MAX_ROWS = 64;               // K4: q rows (positions x groups) per block
-constexpr int RPW = MAX_ROWS / WARPS;      // K4: rows per warp
-constexpr int KT = 64;                     // K4: keys per shared-memory tile
+constexpr int MAX_GROUPS = 8;              // K3, K4: q heads per kv head
+constexpr int KT4 = 64;                    // K4: keys per shared-memory tile
+constexpr int ROWS4 = 64;                  // K4: query rows (positions x groups) a block
 constexpr int VEC = 8;                     // bf16 values per 16-byte load
 
 __device__ __forceinline__ float warp_max(float x) {
@@ -82,14 +89,19 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Element offset of position `pos`, kv head `kvh`, in a layer arena [P, PAGE, Hkv, D],
-// through one row's page table. Page ids are clamped into the arena.
+// Element offset of slot `slot` of page `id`, kv head `kvh`, in a layer arena
+// [P, PAGE, Hkv, D]. Page ids are clamped into the arena.
+template <int D, int PAGE>
+__device__ __forceinline__ size_t page_row(int id, int slot, int num_pages, int Hkv, int kvh) {
+  id = min(max(id, 0), num_pages - 1);
+  return ((size_t)id * PAGE + slot) * (size_t)Hkv * D + (size_t)kvh * D;
+}
+
+// The same for position `pos` of one row, through its page table.
 template <int D, int PAGE>
 __device__ __forceinline__ size_t page_offset(const int* tb, int pos, int num_pages, int Hkv,
                                               int kvh) {
-  int phys = tb[pos / PAGE];
-  phys = min(max(phys, 0), num_pages - 1);
-  return ((size_t)phys * PAGE + pos % PAGE) * (size_t)Hkv * D + (size_t)kvh * D;
+  return page_row<D, PAGE>(tb[pos / PAGE], pos % PAGE, num_pages, Hkv, kvh);
 }
 
 // An int8 code times its scale, rounded once to bf16, back in fp32.
@@ -97,13 +109,19 @@ __device__ __forceinline__ float dq(int code, float sc) {
   return __bfloat162float(__float2bfloat16_rn((float)code * sc));
 }
 
-// Four int8 codes (one 32-bit word) dequantized, stored as two bf16 pairs at `dst`.
-__device__ __forceinline__ void dequant4(uint32_t word, float sc, __nv_bfloat16* dst) {
-  __nv_bfloat162* d2 = reinterpret_cast<__nv_bfloat162*>(dst);
-  d2[0] = __halves2bfloat162(__float2bfloat16_rn((float)(int8_t)(word & 0xffu) * sc),
-                             __float2bfloat16_rn((float)(int8_t)((word >> 8) & 0xffu) * sc));
-  d2[1] = __halves2bfloat162(__float2bfloat16_rn((float)(int8_t)((word >> 16) & 0xffu) * sc),
-                             __float2bfloat16_rn((float)(int8_t)(word >> 24) * sc));
+// Two int8 codes (bits shift..shift+15 of a word) times their scale, each rounded once
+// to bf16, as one bf16 pair.
+__device__ __forceinline__ uint32_t dequant2(uint32_t word, int shift, float sc) {
+  __nv_bfloat162 h = __halves2bfloat162(
+      __float2bfloat16_rn((float)(int8_t)((word >> shift) & 0xffu) * sc),
+      __float2bfloat16_rn((float)(int8_t)((word >> (shift + 8)) & 0xffu) * sc));
+  return *reinterpret_cast<uint32_t*>(&h);
+}
+
+// Eight int8 codes dequantized: one 16-byte chunk of a bf16 tile row.
+__device__ __forceinline__ uint4 dequant8(uint2 w, float sc) {
+  return make_uint4(dequant2(w.x, 0, sc), dequant2(w.x, 16, sc), dequant2(w.y, 0, sc),
+                    dequant2(w.y, 16, sc));
 }
 
 template <bool KV8>
@@ -284,164 +302,71 @@ __global__ void __launch_bounds__(WARPS * 32) paged_decode_kernel(
   }
 }
 
+// K4's tile of positions [k0, k0 + KT4) over an int8 arena: each thread loads 8 codes
+// of one row and its scale, and stores code x scale, rounded once to bf16, where K4's
+// cp.async would have put the bf16 value: the same shared-memory tile, so the tile core
+// runs K4's instructions on K4's values. Positions at or past hi are zeros.
+template <int D, int PAGE, int THREADS>
+__device__ __forceinline__ void stage_tile_kv8(__nv_bfloat16* ks, __nv_bfloat16* vs,
+                                               const int8_t* __restrict__ kp,
+                                               const int8_t* __restrict__ vp,
+                                               const __nv_bfloat16* __restrict__ ksp,
+                                               const __nv_bfloat16* __restrict__ vsp,
+                                               const int* tbk, int k0, int hi, int num_pages,
+                                               int Hkv, int kvh) {
+  constexpr int CH = D / 8;
+  constexpr int DS = D + 8;
+  const int c = threadIdx.x % CH;
+  const int id0 = PAGE >= KT4 ? tbk[0] : 0;  // the tile's one page
+  for (int j = threadIdx.x / CH; j < KT4; j += THREADS / CH) {
+    uint4 kw = make_uint4(0u, 0u, 0u, 0u);
+    uint4 vw = kw;
+    if (k0 + j < hi) {
+      const size_t off = PAGE >= KT4
+                             ? page_row<D, PAGE>(id0, k0 % PAGE + j, num_pages, Hkv, kvh)
+                             : page_row<D, PAGE>(tbk[j / PAGE], j % PAGE, num_pages, Hkv, kvh);
+      kw = dequant8(*reinterpret_cast<const uint2*>(kp + off + 8 * c),
+                    __bfloat162float(ksp[off / D]));
+      vw = dequant8(*reinterpret_cast<const uint2*>(vp + off + 8 * c),
+                    __bfloat162float(vsp[off / D]));
+    }
+    *reinterpret_cast<uint4*>(ks + j * DS + 8 * c) = kw;
+    *reinterpret_cast<uint4*>(vs + j * DS + 8 * c) = vw;
+  }
+}
+
 template <int D, int PAGE, bool KV8>
-__global__ void __launch_bounds__(WARPS * 32) paged_prefill_kernel(
+__global__ void __launch_bounds__(ROWS4 * 2) paged_prefill_kernel(
     const __nv_bfloat16* __restrict__ q, const ArenaElem<KV8>* __restrict__ kp,
     const ArenaElem<KV8>* __restrict__ vp, const __nv_bfloat16* __restrict__ ksp,
     const __nv_bfloat16* __restrict__ vsp, const int* __restrict__ table,
     const int* __restrict__ kv_valid, __nv_bfloat16* __restrict__ o, int T, int maxp,
-    int num_pages, int Hq, int Hkv, int block_q, int window, float scale, float softcap) {
-  constexpr int DP = D + 2;              // padded K row stride (bf16): conflict-free reads
-  constexpr int DL = (D + 31) / 32;      // output dimensions per lane
-  extern __shared__ float4 smem4[];
-  float* qs = reinterpret_cast<float*>(smem4);                               // [MAX_ROWS][D]
-  __nv_bfloat16* ks = reinterpret_cast<__nv_bfloat16*>(qs + MAX_ROWS * D);   // [KT][DP]
-  __nv_bfloat16* vs = ks + (size_t)KT * DP;                                  // [KT][D]
-
-  const int b = blockIdx.z;
+    int num_pages, int Hq, int Hkv, int window, float scale, float softcap) {
+  constexpr int THREADS = ROWS4 * 2;
+  extern __shared__ __align__(16) unsigned char smem[];
   const int kvh = blockIdx.y;
-  const int groups = Hq / Hkv;
-  const int rows = block_q * groups;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
-  const int start = kv_valid[b] - T;     // absolute position of query 0
-  const int t0 = blockIdx.x * block_q;
-  const int t_end = min(T, t0 + block_q);
+  const int b = blockIdx.z;
+  const xot_mma::RowTile rt{q, o, T, Hq, Hq / Hkv, kvh, b,
+                            (int)(gridDim.x - 1 - blockIdx.x) * ROWS4, kv_valid[b] - T};
   const int* tb = table + (size_t)b * maxp;
-
-  for (int i = threadIdx.x; i < rows * D; i += blockDim.x) {
-    const int r = i / D;
-    const int d = i % D;
-    const int t = t0 + r / groups;
-    float x = 0.f;
-    if (t < T) {
-      x = __bfloat162float(q[(((size_t)b * T + t) * Hq + kvh * groups + r % groups) * D + d]);
-    }
-    qs[i] = x;
-  }
-
-  float m[RPW], l[RPW], acc[RPW][DL];
-#pragma unroll
-  for (int rr = 0; rr < RPW; ++rr) {
-    m[rr] = -INFINITY;
-    l[rr] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DL; ++kk) acc[rr][kk] = 0.f;
-  }
-
-  // kv range of the block: [window low of its first position, its last visible one].
-  const int hi = min(maxp * PAGE, start + t_end);
-  int lo = window > 0 ? max(0, start + t0 - window + 1) : 0;
-  lo = (lo / KT) * KT;
-
-  for (int k0 = lo; k0 < hi; k0 += KT) {
-    __syncthreads();  // the previous tile is consumed (and q is staged, first time)
-    if constexpr (KV8) {
-      // Four codes a word, dequantized with the key's scale (scale page slot off / D).
-      constexpr int words = D / 4;
-      for (int i = threadIdx.x; i < KT * words; i += blockDim.x) {
-        const int j = i / words;
-        const int w = i % words;
-        const int pos = k0 + j;
-        uint32_t kw = 0u, vw = 0u;
-        float kscl = 0.f, vscl = 0.f;
-        if (pos < hi) {
-          const size_t off = page_offset<D, PAGE>(tb, pos, num_pages, Hkv, kvh);
-          kw = reinterpret_cast<const uint32_t*>(kp + off)[w];
-          vw = reinterpret_cast<const uint32_t*>(vp + off)[w];
-          kscl = __bfloat162float(ksp[off / D]);
-          vscl = __bfloat162float(vsp[off / D]);
+  xot_mma::attend<D, KT4, ROWS4>(
+      rt, smem, maxp * PAGE, window, scale, softcap,
+      [&](__nv_bfloat16* ks, __nv_bfloat16* vs, int k0, int hi) {
+        const int* tbk = tb + k0 / PAGE;  // the tile's page ids: one, or one per PAGE rows
+        if constexpr (KV8) {
+          stage_tile_kv8<D, PAGE, THREADS>(ks, vs, kp, vp, ksp, vsp, tbk, k0, hi, num_pages, Hkv,
+                                           kvh);
+        } else if constexpr (PAGE >= KT4) {
+          const size_t base = page_row<D, PAGE>(tbk[0], k0 % PAGE, num_pages, Hkv, kvh);
+          const size_t rs = (size_t)Hkv * D;
+          xot_mma::stage_tile<D, KT4, THREADS>(ks, vs, kp, vp, k0, hi,
+                                               [&](int j) { return base + j * rs; });
+        } else {
+          xot_mma::stage_tile<D, KT4, THREADS>(ks, vs, kp, vp, k0, hi, [&](int j) {
+            return page_row<D, PAGE>(tbk[j / PAGE], j % PAGE, num_pages, Hkv, kvh);
+          });
         }
-        dequant4(kw, kscl, ks + (size_t)j * DP + 4 * w);
-        dequant4(vw, vscl, vs + (size_t)j * D + 4 * w);
-      }
-    } else {
-      constexpr int words = D / 2;
-      for (int i = threadIdx.x; i < KT * words; i += blockDim.x) {
-        const int j = i / words;
-        const int w = i % words;
-        const int pos = k0 + j;
-        uint32_t kw = 0u, vw = 0u;
-        if (pos < hi) {
-          const size_t off = page_offset<D, PAGE>(tb, pos, num_pages, Hkv, kvh);
-          kw = reinterpret_cast<const uint32_t*>(kp + off)[w];
-          vw = reinterpret_cast<const uint32_t*>(vp + off)[w];
-        }
-        reinterpret_cast<uint32_t*>(ks + (size_t)j * DP)[w] = kw;
-        reinterpret_cast<uint32_t*>(vs + (size_t)j * D)[w] = vw;
-      }
-    }
-    __syncthreads();
-
-    const int tile_end = min(k0 + KT, hi);
-#pragma unroll
-    for (int rr = 0; rr < RPW; ++rr) {
-      const int r = warp + rr * WARPS;
-      if (r >= rows) break;
-      const int t = t0 + r / groups;
-      if (t >= T) continue;
-      const int p = start + t;
-      const float* qr = qs + r * D;
-      for (int c0 = k0; c0 < tile_end; c0 += 32) {
-        if (c0 > p) break;                                     // past the diagonal
-        if (window > 0 && c0 + 31 <= p - window) continue;     // below the window
-        const int pos = c0 + lane;
-        const __nv_bfloat162* krow =
-            reinterpret_cast<const __nv_bfloat162*>(ks + (size_t)(c0 - k0 + lane) * DP);
-        float s0 = 0.f, s1 = 0.f;
-#pragma unroll
-        for (int d = 0; d < D / 2; d += 2) {
-          const float2 k0f = __bfloat1622float2(krow[d]);
-          const float2 q0f = *reinterpret_cast<const float2*>(qr + 2 * d);
-          s0 = fmaf(q0f.x, k0f.x, fmaf(q0f.y, k0f.y, s0));
-          if (d + 1 < D / 2) {
-            const float2 k1f = __bfloat1622float2(krow[d + 1]);
-            const float2 q1f = *reinterpret_cast<const float2*>(qr + 2 * d + 2);
-            s1 = fmaf(q1f.x, k1f.x, fmaf(q1f.y, k1f.y, s1));
-          }
-        }
-        float s = (s0 + s1) * scale;
-        if (softcap > 0.f) s = tanhf(s / softcap) * softcap;
-        bool vis = pos <= p && pos < tile_end;
-        if (window > 0 && pos <= p - window) vis = false;
-        s = vis ? s : -INFINITY;
-        // The chunk holds at least one visible key: KT is a multiple of 32, so chunks
-        // never straddle a tile, and p < hi.
-        const float m_new = fmaxf(m[rr], warp_max(s));
-        const float alpha = __expf(m[rr] - m_new);
-        const float pr = __expf(s - m_new);
-        l[rr] = l[rr] * alpha + warp_sum(pr);
-#pragma unroll
-        for (int kk = 0; kk < DL; ++kk) acc[rr][kk] *= alpha;
-        const __nv_bfloat16* vt = vs + (size_t)(c0 - k0) * D;
-#pragma unroll 8
-        for (int j = 0; j < 32; ++j) {
-          const float pj = __shfl_sync(FULL, pr, j);
-#pragma unroll
-          for (int kk = 0; kk < DL; ++kk) {
-            const int d = lane + kk * 32;
-            if (d < D) acc[rr][kk] = fmaf(pj, __bfloat162float(vt[j * D + d]), acc[rr][kk]);
-          }
-        }
-        m[rr] = m_new;
-      }
-    }
-  }
-
-#pragma unroll
-  for (int rr = 0; rr < RPW; ++rr) {
-    const int r = warp + rr * WARPS;
-    if (r >= rows) break;
-    const int t = t0 + r / groups;
-    if (t >= T) continue;
-    const float inv = 1.f / (l[rr] == 0.f ? 1.f : l[rr]);
-    __nv_bfloat16* op = o + (((size_t)b * T + t) * Hq + kvh * groups + r % groups) * D;
-#pragma unroll
-    for (int kk = 0; kk < DL; ++kk) {
-      const int d = lane + kk * 32;
-      if (d < D) op[d] = __float2bfloat16_rn(acc[rr][kk] * inv);
-    }
-  }
+      });
 }
 
 template <int D, int PAGE, bool KV8>
@@ -465,21 +390,20 @@ int launch_decode(const void* q, const void* kp, const void* vp, const void* ksp
 template <int D, int PAGE, bool KV8>
 int launch_prefill(const void* q, const void* kp, const void* vp, const void* ksp,
                    const void* vsp, const int* table, const int* kv_valid, void* o, int B, int T,
-                   int maxp, int num_pages, int Hq, int Hkv, int block_q, int window,
-                   float scale, float softcap, cudaStream_t stream) {
-  const size_t smem = (size_t)MAX_ROWS * D * sizeof(float) +
-                      (size_t)KT * (D + 2) * sizeof(__nv_bfloat16) +
-                      (size_t)KT * D * sizeof(__nv_bfloat16);
-  if (smem > 227 * 1024) return (int)cudaErrorInvalidValue;
-  cudaError_t err = cudaFuncSetAttribute(
-      paged_prefill_kernel<D, PAGE, KV8>, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+                   int maxp, int num_pages, int Hq, int Hkv, int window, float scale,
+                   float softcap, cudaStream_t stream) {
+  constexpr size_t smem = xot_mma::Shape<D, KT4, ROWS4>::SMEM;
+  static_assert(smem <= 227 * 1024, "shared memory of one block");
+  cudaError_t err = cudaFuncSetAttribute(paged_prefill_kernel<D, PAGE, KV8>,
+                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
   if (err != cudaSuccess) return (int)err;
-  dim3 grid((T + block_q - 1) / block_q, Hkv, B);
-  paged_prefill_kernel<D, PAGE, KV8><<<grid, WARPS * 32, smem, stream>>>(
+  const long long rows = (long long)T * (Hq / Hkv);
+  dim3 grid((unsigned)((rows + ROWS4 - 1) / ROWS4), Hkv, B);
+  paged_prefill_kernel<D, PAGE, KV8><<<grid, ROWS4 * 2, smem, stream>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const ArenaElem<KV8>*>(kp),
       static_cast<const ArenaElem<KV8>*>(vp), static_cast<const __nv_bfloat16*>(ksp),
       static_cast<const __nv_bfloat16*>(vsp), table, kv_valid, static_cast<__nv_bfloat16*>(o), T,
-      maxp, num_pages, Hq, Hkv, block_q, window, scale, softcap);
+      maxp, num_pages, Hq, Hkv, window, scale, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -515,13 +439,13 @@ int prefill(const void* q, const void* kp, const void* vp, const void* ksp, cons
   if (B < 1 || T < 1 || maxp < 1 || P < 1 || Hkv < 1 || Hq % Hkv != 0) {
     return (int)cudaErrorInvalidValue;
   }
-  if (block_q < 1 || block_q * (Hq / Hkv) > MAX_ROWS) return (int)cudaErrorInvalidValue;
+  if (Hq / Hkv > MAX_GROUPS || block_q != ROWS4) return (int)cudaErrorInvalidValue;
   if (Hkv > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
   const int* tb = static_cast<const int*>(table);
   const int* kv = static_cast<const int*>(kv_valid);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
   XOT_DISPATCH(launch_prefill, KV8, q, kp, vp, ksp, vsp, tb, kv, o, B, T, maxp, P, Hq, Hkv,
-               block_q, window, scale, softcap, s)
+               window, scale, softcap, s)
 }
 
 }  // namespace
@@ -553,8 +477,9 @@ extern "C" int xot_paged_decode_attention_kv8(const void* q, const void* kp, con
 
 // q [B, T, Hq, D], o [B, T, Hq, D], k/v pages [P, page, Hkv, D]: contiguous bf16 on the
 // device; table [B, maxp] and kv_valid [B] int32 on the device (query t of row b sits
-// at kv_valid[b] - T + t). block_q positions per block with block_q * (Hq / Hkv) <= 64.
-// Returns a cudaError_t value.
+// at kv_valid[b] - T + t). D in {16, 64, 128}, page in {16, 128}, Hq / Hkv <= 8;
+// block_q, the query rows a block (positions x groups flattened), is 64. Returns a
+// cudaError_t value.
 extern "C" int xot_paged_prefill_attention_bf16(const void* q, const void* kp, const void* vp,
                                                 const void* table, const void* kv_valid,
                                                 void* o, int B, int T, int maxp, int P,

@@ -2,8 +2,10 @@
 
 Each `csrc/<name>.cu` exposes a plain C interface. On first use it is compiled with
 nvcc for Hopper (`sm_90a`) into a shared library under `xotorch_tpu_torch/build/`
-(listed in .gitignore) and loaded with ctypes. The library's file name carries a hash
-of its source, so an edited kernel is rebuilt and a stale one is never loaded.
+(listed in .gitignore) and loaded with ctypes. Sources may include the shared headers
+`csrc/*.cuh` (`attention_mma.cuh`: the tensor-core tile core of K1 and K4/K4q). The
+library's file name carries a hash of its source, of every header and of the flags, so
+an edited kernel or header is rebuilt and a stale library is never loaded.
 
 Pointers and the stream travel as `ctypes.c_void_p` (a plain int would be cut to 32
 bits); every entry point returns a cudaError_t value, and `check` raises on nonzero.
@@ -66,9 +68,11 @@ def nvcc_path() -> str:
 
 
 def _lib_path(name: str) -> Path:
-  digest = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes()
-                          + " ".join(NVCC_FLAGS).encode()).hexdigest()[:12]
-  return BUILD_DIR / f"lib{name}-{digest}.so"
+  h = hashlib.sha256((CSRC_DIR / f"{name}.cu").read_bytes())
+  for header in sorted(CSRC_DIR.glob("*.cuh")):
+    h.update(header.name.encode() + b"\0" + header.read_bytes())
+  h.update(" ".join(NVCC_FLAGS).encode())
+  return BUILD_DIR / f"lib{name}-{h.hexdigest()[:12]}.so"
 
 
 def build(names: Iterable[str] = KERNELS, verbose: bool = False) -> List[Path]:

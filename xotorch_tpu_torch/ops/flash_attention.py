@@ -2,10 +2,12 @@
 
 The port of xotorch_tpu/ops/flash_attention.py (`_flash_kernel` and
 `_flash_kernel_windowed`). The kernel is hand-written CUDA for Hopper
-(csrc/flash_attention.cu); window, softcap and scale are runtime arguments, so one
-kernel serves global and sliding-window layers. `flash_attention_ref` beside it is the
-plain PyTorch version, built on `gqa_attention`: the wrapper takes it only for tensors
-on the CPU.
+(csrc/flash_attention.cu, on the tensor-core tile core of csrc/attention_mma.cuh);
+window, softcap and scale are runtime arguments, so one kernel serves global and
+sliding-window layers. `XOT_FLASH_BLOCK_Q` is the query rows a block holds (positions x
+query heads of one kv head) and `XOT_FLASH_BLOCK_K` the keys a shared-memory tile
+holds, each 64 or 128. `flash_attention_ref` beside it is the plain PyTorch version,
+built on `gqa_attention`: the wrapper takes it only for tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -17,6 +19,9 @@ import torch
 from xotorch_tpu_torch.ops import _build
 from xotorch_tpu_torch.ops.attention import gqa_attention
 from xotorch_tpu_torch.utils import knobs
+
+HEAD_DIMS = (16, 32, 64, 128)
+BLOCKS = (64, 128)  # XOT_FLASH_BLOCK_Q (query rows a block) and XOT_FLASH_BLOCK_K (keys a tile)
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int = 0,
@@ -37,8 +42,6 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: i
   contiguous) or raise."""
   if q.device.type == "cpu":
     return flash_attention_ref(q, k, v, window=window, softcap=softcap, scale=scale)
-  if q.device.type != "cuda":
-    raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
   B, T, Hq, D = q.shape
   if k.shape != (B, T, k.shape[2], D) or v.shape != k.shape or Hq % k.shape[2]:
     raise ValueError(f"flash_attention: shapes q{tuple(q.shape)} k{tuple(k.shape)} v{tuple(v.shape)}")
@@ -46,8 +49,15 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: i
     if t.dtype != torch.bfloat16 or t.device != q.device or not t.is_contiguous():
       raise ValueError(f"flash_attention: {name} must be contiguous bf16 on {q.device}, "
                        f"got {t.dtype} on {t.device}")
+  if D not in HEAD_DIMS:
+    raise ValueError(f"flash_attention: built for head_dim {HEAD_DIMS}, got {D}")
   block_q = knobs.get_int("XOT_FLASH_BLOCK_Q")
   block_k = knobs.get_int("XOT_FLASH_BLOCK_K")
+  if block_q not in BLOCKS or block_k not in BLOCKS:
+    raise ValueError(f"flash_attention: XOT_FLASH_BLOCK_Q={block_q} and XOT_FLASH_BLOCK_K="
+                     f"{block_k}: the kernel takes {BLOCKS} query rows a block and keys a tile")
+  if q.device.type != "cuda":
+    raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
   scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
   out = torch.empty_like(q)
   lib = _build.load("flash_attention")

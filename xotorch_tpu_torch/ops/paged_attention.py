@@ -7,8 +7,9 @@ The port of xotorch_tpu/ops/paged_attention.py (`paged_decode_attention`, K3, an
 fixed-size pages in ONE arena per layer; each batch row reaches its tokens through a
 page table and is read only up to its own occupied pages, not the batch maximum.
 
-The kernels are hand-written CUDA for Hopper (csrc/paged_attention.cu) and read each
-layer's arena [P, page, Hkv, D] in place. An int8 arena carries scale pages
+The kernels are hand-written CUDA for Hopper (csrc/paged_attention.cu; K4 and K4q on
+the tensor-core tile core of csrc/attention_mma.cuh, 64 query rows a block) and read
+each layer's arena [P, page, Hkv, D] in place. An int8 arena carries scale pages
 [P, page, Hkv] (`k_scale_pages`/`v_scale_pages`), indexed by the same page id and
 slot as the payload; K3q and K4q dequantize as they read. The plain PyTorch versions
 sit beside them: gather each row's pages into a contiguous view (dequantized), then
@@ -29,8 +30,8 @@ from xotorch_tpu_torch.ops.flash_decode import check_kv_quant, dequantize_kv
 
 HEAD_DIMS = (16, 64, 128)
 PAGE_SIZES = (16, 128)
-MAX_GROUPS = 8  # K3: q heads per kv head one block holds
-MAX_ROWS = 64  # K4: q rows (positions x groups) per block
+MAX_GROUPS = 8  # K3, K4: q heads per kv head one block holds
+ROWS = 64  # K4: query rows (positions x groups) a block, 4 warps of 16
 
 
 def _gather(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
@@ -107,6 +108,8 @@ def _check(name: str, q, k_pages, v_pages, page_table, rows, k_scale_pages=None,
   if D not in HEAD_DIMS or page not in PAGE_SIZES:
     raise ValueError(f"{name}: built for head_dim {HEAD_DIMS} and page {PAGE_SIZES}, "
                      f"got head_dim {D}, page {page}")
+  if Hq // Hkv > MAX_GROUPS:
+    raise ValueError(f"{name}: {Hq // Hkv} q heads per kv head exceed {MAX_GROUPS}")
   return B, T, Hq, D, P, page, Hkv
 
 
@@ -135,8 +138,6 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
     raise ValueError(f"{name} runs on cuda or cpu tensors, got {q.device}")
   if T != 1:
     raise ValueError(f"{name}: one query per row, got T={T}")
-  if Hq // Hkv > MAX_GROUPS:
-    raise ValueError(f"{name}: {Hq // Hkv} q heads per kv head exceed {MAX_GROUPS}")
   scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
   out = torch.empty_like(q)
   lib = _build.load("paged_attention")
@@ -201,15 +202,11 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: tor
                                      k_scale_pages, v_scale_pages)
   if q.device.type != "cuda":
     raise ValueError(f"{name} runs on cuda or cpu tensors, got {q.device}")
-  groups = Hq // Hkv
-  if groups > MAX_ROWS:
-    raise ValueError(f"{name}: {groups} q heads per kv head exceed {MAX_ROWS}")
-  block_q = max(1, min(T, MAX_ROWS // groups))
   scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
   out = torch.empty_like(q)
   lib = _build.load("paged_attention")
   rest = (page_table.data_ptr(), kv_valid_len.data_ptr(), out.data_ptr(), B, T,
-          page_table.shape[1], P, page, Hq, Hkv, D, block_q, int(window or 0), scale,
+          page_table.shape[1], P, page, Hq, Hkv, D, ROWS, int(window or 0), scale,
           float(softcap or 0.0), torch.cuda.current_stream(q.device).cuda_stream)
   if quant:
     rc = lib.xot_paged_prefill_attention_kv8(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -219,7 +216,7 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: tor
     rc = lib.xot_paged_prefill_attention_bf16(q.data_ptr(), k_pages.data_ptr(),
                                               v_pages.data_ptr(), *rest)
   _build.check(rc, f"{name} (B={B} T={T} maxp={page_table.shape[1]} P={P} page={page} "
-                   f"Hq={Hq} Hkv={Hkv} D={D} block_q={block_q})")
+                   f"Hq={Hq} Hkv={Hkv} D={D})")
   (paged_prefill_attention_int8 if quant else paged_prefill_attention).launches += 1
   return out
 

@@ -31,8 +31,8 @@ _DEFS: Tuple[Knob, ...] = (
   Knob("XOT_PREFILL_CHUNK", "int", "4096", "Prefill chunk length (tokens): prompts longer than this prefill in chunks."),
   Knob("XOT_DECODE_CHUNK", "int", "8", "Tokens per fused decode dispatch on a single-partition ring; 1 = per-token ring."),
   Knob("XOT_DECODE_CHUNK_MAX", "int", "64", "Adaptive fused-decode chunk ceiling (doubles per dispatch up to this)."),
-  Knob("XOT_FLASH_BLOCK_Q", "int", "128", "Flash-attention query block size."),
-  Knob("XOT_FLASH_BLOCK_K", "int", "128", "Flash-attention key/value block size."),
+  Knob("XOT_FLASH_BLOCK_Q", "int", "128", "K1's query rows a block (positions x query heads of one kv head): 64 or 128."),
+  Knob("XOT_FLASH_BLOCK_K", "int", "128", "K1's keys a shared-memory tile: 64 or 128."),
   Knob("XOT_FD_BLOCK_Q", "int", "128", "Flash-decode query-position block size."),
   Knob("XOT_FD_BLOCK_K", "int", "256", "Flash-decode key/value block size."),
   Knob("XOT_MAX_RESIDENT_REQUESTS", "int", "8", "Max request states resident per shard context before LRU eviction."),
