@@ -19,7 +19,11 @@ Phases, in order; any failure exits nonzero and prints no result line:
      torch.matmul over the pre-dequantized weight as their yardstick; then K1, K4 and
      K4q at the edges of their tensor-core tiles (T off the 16-row tile, groups 1 and
      8, K1 at D 32 and under each XOT_FLASH_BLOCK_Q/_K setting, K4 segments from
-     mid-page, window edges mid-tile), correctness and K4q's bit identity only;
+     mid-page, window edges mid-tile), and K2, K2q, K3 and K3q at the edges of their
+     split-K decode plan (lengths 1, a split -1..+2 and S, windows that empty whole
+     splits, B=8 at lengths 1-4095, D 16-128, groups 1-16, pages 16 and 128), with each
+     wrapper run once under torch.cuda.set_sync_debug_mode("error"), correctness and
+     the int8 twins' bit identity only;
   4. model: a two-layer cut of synthetic-llama-1b at full width, prefill and decode
      through the kernels in bf16 on the card against the plain path in fp32 on the
      CPU: contiguous (K1, K2), then paged (K4 prefill, K3 decode at B=3), then with
@@ -160,6 +164,7 @@ def check_kernels(torch, results: dict) -> None:
 
   def randn(*shape):
     return torch.randn(*shape, generator=gen, device=dev, dtype=torch.float32).to(torch.bfloat16)
+  seg_randn = seeded_randn(torch, SEGMENT_SEED)
 
   # K1: prefill from position 0. T=1024 is the main path's first segment below.
   for T, window, softcap in ((512, 0, 0.0), (1024, 0, 0.0), (2048, 0, 0.0), (2048, 256, 50.0)):
@@ -190,6 +195,7 @@ def check_kernels(torch, results: dict) -> None:
   # (B, T, S, q_start per row, window); the first case is the main path's decode shape.
   cases = (
     (1, 1, 2048, [640], 0),
+    (1, SEGMENT_T, 2048, [1024], 0),  # the main path's second segment (see SEGMENT_T)
     (1, 1, 4096, [4000], 0),
     (8, 1, 4096, [17, 300, 1023, 1024, 2047, 2500, 3333, 4095], 0),
     (1, 64, 4096, [1000], 0),
@@ -197,7 +203,8 @@ def check_kernels(torch, results: dict) -> None:
     (1, 64, 4096, [1000], 256),
   )
   for B, T, S, starts, window in cases:
-    q, kc, vc = randn(B, T, HQ, D), randn(B, S, HKV, D), randn(B, S, HKV, D)
+    draw = seg_randn if T == SEGMENT_T else randn
+    q, kc, vc = draw(B, T, HQ, D), draw(B, S, HKV, D), draw(B, S, HKV, D)
     q_start = torch.tensor(starts, dtype=torch.int32, device=dev)
     out = flash_cached_attention(q, kc, vc, q_start, window=window)
     torch.cuda.synchronize()
@@ -220,10 +227,21 @@ def check_kernels(torch, results: dict) -> None:
     r = report("flash_cached_attention", case, out, ref, ms, plain_ms, lib_ms, b_ms, b_by)
     if (B, T, S, window) == (1, 1, 2048, 0):
       results["flash_cached_attention"] = r
+  # K2's segment rows a block (XOT_FD_BLOCK_Q, 64 or 128) at the main path's second segment.
+  q, kc, vc = seg_randn(1, SEGMENT_T, HQ, D), seg_randn(1, 2048, HKV, D), seg_randn(1, 2048, HKV, D)
+  q_start = torch.tensor([1024], dtype=torch.int32, device=dev)
+  ref = flash_cached_attention_ref(q, kc, vc, q_start)
+  for block_q in (64, 128):
+    with phase_env(XOT_FD_BLOCK_Q=str(block_q)):
+      call = lambda: flash_cached_attention(q, kc, vc, q_start)
+      case = f"XOT_FD_BLOCK_Q={block_q} T={SEGMENT_T} S=2048 q_start=[1024]"
+      check_only("flash_cached_attention", case, call(), ref)
+      print(f"[flash_cached_attention] {case}: ms={time_ms(call):.4f}", flush=True)
 
   check_paged_kernels(torch, results, randn)
   check_int8_kv_kernels(torch, results, randn)
   check_tile_edges(torch, randn)
+  check_split_edges(torch, randn)
 
   # The other head widths the kernels are built for, at the registry's other
   # llama shapes (synthetic-llama-8b: D 128; synthetic-tiny: Hq 4, Hkv 2, D 16),
@@ -244,6 +262,22 @@ def check_kernels(torch, results: dict) -> None:
       ref = flash_cached_attention_ref(q, kc, vc, q_start, window=window, softcap=20.0)
       check_only("flash_cached_attention", f"Hq={hq} Hkv={hkv} D={d} B=3 T={T} "
                  f"q_start={starts} window={window} softcap=20.0", out, ref)
+
+
+# The 1502-token request's second segment on the main path (XOT_PREFILL_CHUNK 1024):
+# T=478 at q_start 1024, timed for K2 and K2q. Its inputs come from a generator of
+# their own, so the cases drawn after it keep the inputs of runs before it was added
+# (the absolute ATOL assumes |o| <= ~2, and other draws can put one output in [4, 8),
+# where a bf16 step is 2^-5).
+SEGMENT_T, SEGMENT_SEED = 478, 478
+
+
+def seeded_randn(torch, seed: int):
+  """A bf16 standard-normal sampler on the card over a generator seeded with `seed`."""
+  gen = torch.Generator(device="cuda")
+  gen.manual_seed(seed)
+  return lambda *shape: torch.randn(*shape, generator=gen, device="cuda",
+                                    dtype=torch.float32).to(torch.bfloat16)
 
 
 def paged_inputs(torch, randn, kv_rows, page, hq, hkv, d, T=1):
@@ -393,8 +427,11 @@ def check_int8_kv_kernels(torch, results: dict, randn) -> None:
   gen = torch.Generator(device=dev)
   gen.manual_seed(4)
 
-  def quantize_kv(x):
-    return spread_quantize(torch, gen, x)
+  def quantize_kv(x, g=gen):
+    return spread_quantize(torch, g, x)
+  seg_gen = torch.Generator(device=dev)
+  seg_gen.manual_seed(SEGMENT_SEED)
+  seg_randn = seeded_randn(torch, SEGMENT_SEED + 1)
 
   def twin(name, case, out, fn, *args, **kw):
     """The int8 kernel's output equals its bf16 twin's over the dequantized operands."""
@@ -417,11 +454,13 @@ def check_int8_kv_kernels(torch, results: dict, randn) -> None:
   # K2q: the main path's decode shape first, then K2's other cases.
   varied = [17, 300, 1023, 1024, 2047, 2500, 3333, 4095]
   for B, T, S, starts, window, softcap in ((1, 1, 2048, [640], 0, 0.0),
+                                           (1, SEGMENT_T, 2048, [1024], 0, 0.0),
                                            (8, 1, 4096, varied, 0, 0.0),
                                            (1, 64, 4096, [1000], 0, 0.0),
                                            (8, 1, 4096, varied, 512, 50.0)):
-    q = randn(B, T, HQ, D)
-    (kc, ks), (vc, vs) = quantize_kv(randn(B, S, HKV, D)), quantize_kv(randn(B, S, HKV, D))
+    draw, g = (seg_randn, seg_gen) if T == SEGMENT_T else (randn, gen)
+    q = draw(B, T, HQ, D)
+    (kc, ks), (vc, vs) = quantize_kv(draw(B, S, HKV, D), g), quantize_kv(draw(B, S, HKV, D), g)
     q_start = torch.tensor(starts, dtype=torch.int32, device=dev)
     call = lambda: flash_cached_attention_int8(q, kc, vc, ks, vs, q_start, window=window,
                                                softcap=softcap)
@@ -613,6 +652,119 @@ def check_tile_edges(torch, randn) -> None:
                                  "the dequantized arena")
   print("[paged_prefill_attention_int8] tile edges: every case bit-identical to K4 over the "
         "dequantized arena", flush=True)
+
+
+def check_split_edges(torch, randn) -> None:
+  """K2, K2q, K3 and K3q where the split-K decode plan cuts the cache: rows whose
+  length is 1, a split's keys -1, +0, +1 and +2, and S; the same under a window that
+  leaves whole splits empty (with a softcap); B=8 at lengths 1 to 4095; head_dim 16,
+  32 (K2), 64 and 128; q heads per kv head 1, 4 and 8, and 16 for K2; pages 16 and 128
+  for K3. The splits come from the plan the wrappers use (flash_decode.split_plan, this
+  card's SM count). Every case at ATOL against its plain version, and each int8 twin
+  bit for bit against its bf16 twin over the dequantized operands. Then one call of
+  each wrapper under torch.cuda.set_sync_debug_mode("error"): a wrapper that read a
+  device tensor back to the host would raise."""
+  from xotorch_tpu_torch.ops.flash_decode import (decode_blocks, dequantize_kv,
+                                                  flash_cached_attention,
+                                                  flash_cached_attention_int8,
+                                                  flash_cached_attention_ref, split_plan)
+  from xotorch_tpu_torch.ops.paged_attention import (SPLIT_KEYS, paged_decode_attention,
+                                                     paged_decode_attention_int8,
+                                                     paged_decode_attention_ref)
+  dev = torch.device("cuda")
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(6)
+  bf = torch.bfloat16
+
+  def same(name, case, out8, twin):
+    if not torch.equal(out8, twin):
+      raise AssertionError(f"{name} {case}: differs from its bf16 twin over the dequantized "
+                           "operands")
+
+  def edges(B, hkv, S, max_keys):
+    """The keys a split of the plan at (B, hkv, S), and lengths 1, that -1 .. +2, and S."""
+    _, kps = split_plan(B, hkv, S, sms, max_keys)
+    return kps, [1, kps - 1, kps, kps + 1, kps + 2, S]
+
+  # K2 / K2q: (Hq, Hkv, D), groups 1, 4, 8, 16 at D 64, then D 128, 32 and 16.
+  S = 2048
+  _, block_k = decode_blocks()
+  for hq, hkv, d in ((8, 8, 64), (32, 8, 64), (64, 8, 64), (128, 8, 64), (32, 8, 128),
+                     (16, 4, 32), (8, 2, 16)):
+    kps, lengths = edges(6, hkv, S, block_k)
+    for window, softcap in ((0, 0.0), (kps // 2 + 3, 30.0)):
+      cases = [(lengths, window, softcap)]
+      if (hq, hkv, d) == (32, 8, 64):
+        cases.append(([1, 2, 64, 65, 1000, 2048, 2049, 4095], window, softcap))
+      for lens, win, cap in cases:
+        B, S_ = len(lens), max(S, max(lens))
+        q_start = torch.tensor([n - 1 for n in lens], dtype=torch.int32, device=dev)
+        q, kc, vc = randn(B, 1, hq, d), randn(B, S_, hkv, d), randn(B, S_, hkv, d)
+        case = (f"Hq={hq} Hkv={hkv} D={d} S={S_} lengths={lens} window={win} softcap={cap} "
+                f"({split_plan(B, hkv, S_, sms, block_k)[0]} splits)")
+        out = flash_cached_attention(q, kc, vc, q_start, window=win, softcap=cap)
+        torch.cuda.synchronize()
+        check_only("flash_cached_attention", case, out,
+                   flash_cached_attention_ref(q, kc, vc, q_start, window=win, softcap=cap))
+        (kq, ks), (vq, vs) = spread_quantize(torch, gen, kc), spread_quantize(torch, gen, vc)
+        out8 = flash_cached_attention_int8(q, kq, vq, ks, vs, q_start, window=win, softcap=cap)
+        torch.cuda.synchronize()
+        check_only("flash_cached_attention_int8", case, out8,
+                   flash_cached_attention_ref(q, kq, vq, q_start, window=win, softcap=cap,
+                                              k_scale=ks, v_scale=vs))
+        same("flash_cached_attention_int8", case, out8,
+             flash_cached_attention(q, *dequantize_kv(kq, vq, ks, vs, bf), q_start, window=win,
+                                    softcap=cap))
+
+  # K3 / K3q: (Hq, Hkv, D), groups 1, 4, 8 at D 64, then D 128 and 16; pages 16 and 128.
+  for hq, hkv, d in ((8, 8, 64), (32, 8, 64), (64, 8, 64), (32, 8, 128), (8, 2, 16)):
+    for pg in (16, 128):
+      kps, lengths = edges(6, hkv, S, SPLIT_KEYS)
+      for window, softcap in ((0, 0.0), (kps // 2 + 3, 30.0)):
+        cases = [lengths]
+        if (hq, hkv, d) == (32, 8, 64):
+          cases.append([1, 2, 64, 65, 1000, 2048, 2049, 4095])
+        for lens in cases:
+          q, kp, vp, table, ln = paged_inputs(torch, randn, lens, pg, hq, hkv, d)
+          case = (f"Hq={hq} Hkv={hkv} D={d} page={pg} lengths={lens} window={window} "
+                  f"softcap={softcap} "
+                  f"({split_plan(len(lens), hkv, table.shape[1] * pg, sms, SPLIT_KEYS)[0]} splits)")
+          out = paged_decode_attention(q, kp, vp, table, ln, window=window, softcap=softcap)
+          torch.cuda.synchronize()
+          check_only("paged_decode_attention", case, out,
+                     paged_decode_attention_ref(q, kp, vp, table, ln, window=window,
+                                                softcap=softcap))
+          (kq, ks), (vq, vs) = spread_quantize(torch, gen, kp), spread_quantize(torch, gen, vp)
+          out8 = paged_decode_attention_int8(q, kq, vq, ks, vs, table, ln, window=window,
+                                             softcap=softcap)
+          torch.cuda.synchronize()
+          check_only("paged_decode_attention_int8", case, out8,
+                     paged_decode_attention_ref(q, kq, vq, table, ln, window=window,
+                                                softcap=softcap, k_scale_pages=ks,
+                                                v_scale_pages=vs))
+          same("paged_decode_attention_int8", case, out8,
+               paged_decode_attention(q, *dequantize_kv(kq, vq, ks, vs, bf), table, ln,
+                                      window=window, softcap=softcap))
+  print("[split edges] every K2q and K3q case bit-identical to its bf16 twin over the "
+        "dequantized operands", flush=True)
+
+  # No wrapper reads a device tensor back: each runs once with syncs raising.
+  q, kc, vc = randn(2, 1, HQ, D), randn(2, S, HKV, D), randn(2, S, HKV, D)
+  q_start = torch.tensor([100, 2000], dtype=torch.int32, device=dev)
+  (kq, ks), (vq, vs) = spread_quantize(torch, gen, kc), spread_quantize(torch, gen, vc)
+  pq, kp, vp, table, ln = paged_inputs(torch, randn, [100, 2000], 128, HQ, HKV, D)
+  torch.cuda.synchronize()
+  torch.cuda.set_sync_debug_mode("error")
+  try:
+    flash_cached_attention(q, kc, vc, q_start)
+    flash_cached_attention_int8(q, kq, vq, ks, vs, q_start)
+    paged_decode_attention(pq, kp, vp, table, ln)
+  finally:
+    torch.cuda.set_sync_debug_mode(0)
+  torch.cuda.synchronize()
+  print("[split edges] flash_cached_attention(_int8) and paged_decode_attention ran with "
+        "torch.cuda.set_sync_debug_mode('error'): no host read of a device tensor", flush=True)
 
 
 def check_only(name, case, out, ref) -> None:
@@ -1111,11 +1263,14 @@ async def profile_decode(torch, engine, model: str, classname: str, card: str,
         f"{plain_ms:.2f} ms without the profiler ({out['tok_s']:.1f} tok/s); "
         f"wall {wall_ms:.2f} ms ({batch * n / wall_ms * 1e3:.1f} tok/s under the profiler), "
         f"kernels {busy:.2f} ms = {out['busy_pct']:.1f}% busy, "
-        f"{100 - out['busy_pct']:.1f}% idle, {out['kernels_per_step']:.0f} device kernels per step"
+        f"{100 - out['busy_pct']:.1f}% idle, {out['kernels_per_step']:.0f} device kernels per step, "
+        f"{out['device_ms']:.3f} device ms per step"
         + (f", {focus} {focus_ms:.3f} ms = {out['focus_pct']:.1f}% of device time" if focus else "")
         + f" ({card})", flush=True)
-  for ms, name, count in rows[:10]:
-    print(f"[{tag}]   {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{count:<5d} {name[:90]}", flush=True)
+  # The ten longest kernels, and the split-K decode merge wherever it ranks.
+  for i, (ms, name, count) in enumerate(rows):
+    if i < 10 or "merge_splits" in name:
+      print(f"[{tag}]   {ms:9.3f} ms {100 * ms / busy:5.1f}%  x{count:<5d} {name[:90]}", flush=True)
   return out
 
 
@@ -1596,7 +1751,7 @@ def main(argv=None) -> int:
     check_model(torch, fmt, {**env, knob: "force"}, kernel, limit=1e-1 if a8 else 5e-2)
 
   # Phase 5: the main path, with the launch counters read around it.
-  main_run = drive_main_path(torch, card)
+  main_run = drive_main_path(torch, card, focus="flash_cached_")
   launches = dict(main_run["launches"])
   k1, k2 = launches["flash_attention"], launches["flash_cached_attention"]
   if k1 < 3 * 16 or k2 < 16 * main_run["decoded"]:
@@ -1651,7 +1806,7 @@ def main(argv=None) -> int:
   from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention, flash_cached_attention_int8
   kv = drive_main_path(torch, card, kernels=(flash_attention, flash_cached_attention,
                                              flash_cached_attention_int8),
-                       tag="int8 kv", profiles=(1, 8), focus="flash_cached_kernel",
+                       tag="int8 kv", profiles=(1, 8), focus="flash_cached_",
                        cli=("--kv-quantize", "int8"))
   counted = kv["launches"]
   want = {"flash_attention": 16 * 3, "flash_cached_attention": 0,

@@ -140,16 +140,23 @@ def test_init_kv_cache_and_page_pool_leaves_match_jax(dtype):
 # ------------------------------------------------------- kernels' plain versions
 
 
-@pytest.mark.parametrize("T,starts,window,softcap", [
-  (1, [37], 0, 0.0),  # a decode step
-  (6, [20], 0, 0.0),  # a chunked-prefill segment at q_start > 0
-  (1, [0, 17, 41], 0, 0.0),  # per-row q_start
-  (5, [3, 30], 0, 0.0),  # per-row segments
-  (4, [12, 40], 9, 30.0),  # window and softcap
+# At S = 256 K2q's decode kernel cuts the cache into four 64-key splits (B <= 4, Hkv 2,
+# a 132-SM card: flash_decode.split_plan).
+@pytest.mark.parametrize("T,starts,window,softcap,S", [
+  pytest.param(1, [37], 0, 0.0, 48, id="1-starts0-0-0.0"),  # a decode step
+  pytest.param(6, [20], 0, 0.0, 48, id="6-starts1-0-0.0"),  # a segment at q_start > 0
+  pytest.param(1, [0, 17, 41], 0, 0.0, 48, id="1-starts2-0-0.0"),  # per-row q_start
+  pytest.param(5, [3, 30], 0, 0.0, 48, id="5-starts3-0-0.0"),  # per-row segments
+  pytest.param(4, [12, 40], 9, 30.0, 48, id="4-starts4-9-30.0"),  # window and softcap
+  # a split's last key, the next split's first and second, and S - 1
+  pytest.param(1, [63, 64, 65, 255], 0, 0.0, 256, id="split-edges"),
+  # windows that leave whole splits below them empty
+  pytest.param(1, [127, 128, 200, 255], 20, 30.0, 256, id="windows-empty-splits"),
+  pytest.param(3, [61, 190], 0, 0.0, 256, id="segments-across-edges"),
 ])
-def test_flash_cached_int8_ref_matches_jax_kernel(T, starts, window, softcap):
+def test_flash_cached_int8_ref_matches_jax_kernel(T, starts, window, softcap, S):
   rng = np.random.default_rng(2)
-  B, S, Hq, Hkv, D = len(starts), 48, 4, 2, 16
+  B, Hq, Hkv, D = len(starts), 4, 2, 16
   q = rng.standard_normal((B, T, Hq, D)).astype(np.float32)
   kq, ks = _quantized(rng, (B, S, Hkv, D))
   vq, vs = _quantized(rng, (B, S, Hkv, D))
@@ -193,11 +200,19 @@ def _shuffled_table(rng, P, lengths, page, maxp):
   return table
 
 
-@pytest.mark.parametrize("window,softcap,scale", [(0, 0.0, None), (20, 0.0, None), (9, 20.0, 0.3)])
-def test_paged_decode_int8_ref_matches_jax(window, softcap, scale):
+# A table of 16 pages of 16 (256 positions) at B = 3, Hkv 2: K3q's four 64-key splits.
+@pytest.mark.parametrize("window,softcap,scale,lengths,maxp", [
+  pytest.param(0, 0.0, None, [1, 37, 120], 8, id="0-0.0-None"),
+  pytest.param(20, 0.0, None, [1, 37, 120], 8, id="20-0.0-None"),
+  pytest.param(9, 20.0, 0.3, [1, 37, 120], 8, id="9-20.0-0.3"),
+  pytest.param(0, 0.0, None, [64, 65, 256], 16, id="split-edges"),
+  pytest.param(20, 0.0, None, [200, 129, 256], 16, id="windows-empty-splits"),
+])
+def test_paged_decode_int8_ref_matches_jax(window, softcap, scale, lengths, maxp):
   rng = np.random.default_rng(11)
-  B, Hq, Hkv, D, page, P, maxp = 3, 4, 2, 16, 16, 24, 8
-  lengths = np.array([1, 37, 120], np.int32)
+  B, Hq, Hkv, D, page = 3, 4, 2, 16, 16
+  P = 24 if maxp == 8 else 3 * maxp + 2
+  lengths = np.array(lengths, np.int32)
   kq, vq, ks, vs = _arena_int8(rng, P, page, Hkv, D)
   table = _shuffled_table(rng, P, lengths, page, maxp)
   q = rng.standard_normal((B, 1, Hq, D)).astype(np.float32)

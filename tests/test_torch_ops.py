@@ -102,15 +102,24 @@ def test_flash_attention_ref_matches_jax_kernel(Hq, Hkv, window, softcap, scale,
   np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=ATOL, rtol=1e-5)
 
 
-@pytest.mark.parametrize("T,starts,window,softcap", [
-  (1, [0, 17, 40, 63], 0, 0.0),  # decode steps, per-row q_start
-  (1, [5, 33, 48, 63], 6, 0.0),  # decode steps under a sliding window
-  (8, [9, 24, 40, 56], 0, 0.0),  # chunked-prefill segments at q_start > 0
-  (8, [9, 24, 40, 56], 5, 30.0),  # ... with a window and a softcap
+# Split edges of K2's decode kernel: at S = 256, B = 4, Hkv = 2 on a 132-SM card,
+# split_plan cuts [0, 256) into four 64-key splits (test_split_plan_* below).
+@pytest.mark.parametrize("T,starts,window,softcap,S", [
+  pytest.param(1, [0, 17, 40, 63], 0, 0.0, 64, id="1-starts0-0-0.0"),  # decode steps, per-row q_start
+  pytest.param(1, [5, 33, 48, 63], 6, 0.0, 64, id="1-starts1-6-0.0"),  # ... under a sliding window
+  pytest.param(8, [9, 24, 40, 56], 0, 0.0, 64, id="8-starts2-0-0.0"),  # segments at q_start > 0
+  pytest.param(8, [9, 24, 40, 56], 5, 30.0, 64, id="8-starts3-5-30.0"),  # ... window and softcap
+  # a split's last key, the next split's first and second, and S - 1
+  pytest.param(1, [63, 64, 65, 255], 0, 0.0, 256, id="split-edges"),
+  # windows that leave whole splits below them empty (and one of length 1)
+  pytest.param(1, [0, 127, 128, 200], 20, 0.0, 256, id="windows-empty-splits"),
+  pytest.param(1, [191, 192, 193, 250], 64, 25.0, 256, id="window-of-one-split-softcap"),
+  # segments that cross split and tile edges
+  pytest.param(5, [60, 123, 187, 251], 0, 0.0, 256, id="segments-across-edges"),
 ])
-def test_flash_cached_attention_ref_matches_jax_kernel(T, starts, window, softcap):
+def test_flash_cached_attention_ref_matches_jax_kernel(T, starts, window, softcap, S):
   rng = np.random.default_rng(3)
-  B, S, Hq, Hkv, D = 4, 64, 4, 2, 16
+  B, Hq, Hkv, D = 4, 4, 2, 16
   q = _randn(rng, B, T, Hq, D)
   kc, vc = _randn(rng, B, S, Hkv, D), _randn(rng, B, S, Hkv, D)
   q_start = np.array(starts, np.int32)
@@ -120,6 +129,55 @@ def test_flash_cached_attention_ref_matches_jax_kernel(T, starts, window, softca
   out_t = flash_decode.flash_cached_attention(_t(q), _t(kc), _t(vc), _t(q_start),
                                               window=window, softcap=softcap)
   np.testing.assert_allclose(out_t.numpy(), np.asarray(out_j), atol=ATOL, rtol=1e-5)
+
+
+@pytest.mark.parametrize("B,Hkv,S,sm_count,max_keys", [
+  (1, 8, 2048, 132, 256), (1, 8, 4096, 132, 256), (8, 8, 4096, 132, 256), (8, 8, 4096, 132, 64),
+  (1, 8, 32768, 132, 256), (4, 2, 256, 132, 256), (3, 2, 200, 132, 256), (2, 8, 1000, 16, 4096),
+  (1, 1, 1, 1, 64), (8, 8, 128, 132, 1024), (16, 8, 2048, 132, 4096)])
+def test_split_plan_covers_the_cache_in_tile_aligned_ranges(B, Hkv, S, sm_count, max_keys):
+  """Splits are whole 64-key tiles, at most max_keys each; together they cover [0, S)
+  and none lies wholly past S (the kernels refuse a plan that does)."""
+  splits, kps = flash_decode.split_plan(B, Hkv, S, sm_count, max_keys)
+  assert kps % flash_decode.SPLIT_TILE == 0 and flash_decode.SPLIT_TILE <= kps <= max_keys
+  assert (splits - 1) * kps < S <= splits * kps
+  covered = [p for s in range(splits) for p in range(s * kps, min(S, (s + 1) * kps))]
+  assert covered == list(range(S))
+  # As few keys a split as fill SPLIT_BLOCKS_PER_SM blocks an SM, where the cap allows.
+  if kps > flash_decode.SPLIT_TILE and kps < max_keys:
+    fewer = -(-S // (kps - flash_decode.SPLIT_TILE))
+    assert B * Hkv * fewer >= flash_decode.SPLIT_BLOCKS_PER_SM * sm_count
+
+
+@pytest.mark.parametrize("S", [2048, 4096])
+def test_split_plan_fills_the_card_at_batch_one(S):
+  """A B = 1 decode step of Llama-3.2-1B (8 kv heads) spreads over more blocks than an
+  H100 has SMs (132); before the split, 8 blocks ran."""
+  splits, kps = flash_decode.split_plan(1, 8, S, 132)
+  assert 8 * splits >= 132
+  assert (splits, kps) == (S // 64, 64)
+
+
+@pytest.mark.parametrize("block_q,block_k,groups,refusal", [
+  (32, 256, 2, "XOT_FD_BLOCK_Q=32"), (96, 256, 2, "XOT_FD_BLOCK_Q=96"),
+  (128, 100, 2, "XOT_FD_BLOCK_K=100"), (128, 0, 2, "XOT_FD_BLOCK_K=0"),
+  (128, 256, 65, "65 q heads per kv head exceed 64"),
+  # What the kernel takes passes these checks and stops at the device check.
+  (64, 64, 2, "cuda or cpu"), (128, 256, 2, "cuda or cpu"), (128, 4096, 64, "cuda or cpu")])
+def test_flash_cached_attention_refuses_blocks_it_cannot_launch(monkeypatch, block_q, block_k,
+                                                                groups, refusal):
+  """K2 takes 64 or 128 segment rows a block (XOT_FD_BLOCK_Q), decode splits of a
+  positive multiple of 64 keys at most (XOT_FD_BLOCK_K) and up to 64 q heads per kv
+  head: anything else raises ValueError in the wrapper before the device is looked at
+  and before anything launches."""
+  monkeypatch.setenv("XOT_FD_BLOCK_Q", str(block_q))
+  monkeypatch.setenv("XOT_FD_BLOCK_K", str(block_k))
+  q = torch.empty(1, 1, 2 * groups, 16, dtype=torch.bfloat16, device="meta")
+  k = torch.empty(1, 64, 2, 16, dtype=torch.bfloat16, device="meta")
+  q_start = torch.zeros(1, dtype=torch.int32, device="meta")
+  with pytest.raises(ValueError, match=refusal):
+    flash_decode.flash_cached_attention(q, k, k, q_start)
+  assert flash_decode.flash_cached_attention.launches == 0
 
 
 def test_flash_decode_attention_is_the_t1_case():

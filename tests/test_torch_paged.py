@@ -128,12 +128,27 @@ def _shuffled_table(rng, P, lengths, page, maxp):
   return table
 
 
-@pytest.mark.parametrize("window,softcap,scale", [(0, 0.0, None), (20, 0.0, None), (0, 30.0, 0.3),
-                                                  (9, 20.0, None)])
-def test_paged_decode_attention_ref_matches_jax(window, softcap, scale):
+# Split edges of K3's decode kernel: a table of 16 pages of 16 (256 positions) at B = 3,
+# Hkv = 2 is cut into four 64-key splits on a 132-SM card (flash_decode.split_plan).
+EDGES = [64, 65, 256]  # a split's last key at position 63, the next split's first, S
+
+
+@pytest.mark.parametrize("window,softcap,scale,lengths,maxp", [
+  pytest.param(0, 0.0, None, [1, 37, 120], 8, id="0-0.0-None"),
+  pytest.param(20, 0.0, None, [1, 37, 120], 8, id="20-0.0-None"),
+  pytest.param(0, 30.0, 0.3, [1, 37, 120], 8, id="0-30.0-0.3"),
+  pytest.param(9, 20.0, None, [1, 37, 120], 8, id="9-20.0-None"),
+  pytest.param(0, 0.0, None, EDGES, 16, id="split-edges"),
+  pytest.param(0, 0.0, None, [63, 128, 129], 16, id="split-edges-2"),
+  # windows that leave whole splits below them empty
+  pytest.param(20, 0.0, None, [200, 129, 256], 16, id="windows-empty-splits"),
+  pytest.param(64, 25.0, None, [128, 193, 255], 16, id="window-of-one-split-softcap"),
+])
+def test_paged_decode_attention_ref_matches_jax(window, softcap, scale, lengths, maxp):
   rng = np.random.default_rng(11)
-  B, Hq, Hkv, D, page, P, maxp = 3, 4, 2, 16, 16, 24, 8
-  lengths = np.array([1, 37, 120], np.int32)
+  B, Hq, Hkv, D, page = 3, 4, 2, 16, 16
+  P = 24 if maxp == 8 else 3 * maxp + 2
+  lengths = np.array(lengths, np.int32)
   kp, vp = _arena(rng, P, page, Hkv, D)
   table = _shuffled_table(rng, P, lengths, page, maxp)
   q = rng.standard_normal((B, 1, Hq, D)).astype(np.float32)

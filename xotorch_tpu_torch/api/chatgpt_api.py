@@ -5,7 +5,10 @@ The port of the serving core of xotorch_tpu/api/chatgpt_api.py on
 
 - POST /v1/chat/completions: `stream: false` (one JSON body with `usage` and
   `finish_reason`) and `stream: true` (server-sent events ending in `data: [DONE]`);
-  `max_tokens`/`max_completion_tokens`, `temperature` and `top_p` are honoured;
+  `max_tokens`/`max_completion_tokens`, `temperature` and `top_p` are honoured. The
+  fields the JAX package also serves (`UNSERVED`: stop sequences, seed, the sampling
+  extras, logprobs, n, tools) are answered 400 naming the field unless their value is
+  neutral, which is served as if absent: none is dropped without a word;
 - GET /v1/models lists the cards this engine serves; GET /healthcheck.
 
 Synthetic models use DummyTokenizer, with the model's own EOS id.
@@ -35,6 +38,26 @@ class HTTPError(Exception):
 
 def _invalid(message: str) -> HTTPError:
   return HTTPError(400, {"error": {"type": "invalid_request_error", "message": message}})
+
+
+def _number(value) -> bool:
+  return isinstance(value, (int, float)) and not isinstance(value, bool)
+
+
+# Request fields the JAX package serves and this package does not yet, each with the
+# test for its neutral values (those mean "off" and are served as if absent).
+UNSERVED = (
+  ("n", lambda v: type(v) is int and v == 1),
+  ("stop", lambda v: v in ("", [])),
+  ("seed", lambda v: False),
+  ("min_p", lambda v: _number(v) and v == 0),
+  ("presence_penalty", lambda v: _number(v) and v == 0),
+  ("frequency_penalty", lambda v: _number(v) and v == 0),
+  ("logit_bias", lambda v: v == {}),
+  ("logprobs", lambda v: v is False),
+  ("top_logprobs", lambda v: type(v) is int and v == 0),
+  ("tools", lambda v: v == []),
+)
 
 
 def build_prompt(tokenizer, messages: List[dict]) -> str:
@@ -173,6 +196,13 @@ class ChatGPTAPI:
 
   @staticmethod
   def _parse_sampling(data: dict) -> Tuple[Optional[int], Optional[float], Optional[float]]:
+    for name, neutral in UNSERVED:
+      value = data.get(name)
+      if value is not None and not neutral(value):
+        raise HTTPError(400, {"error": {
+          "type": "invalid_request_error", "param": name,
+          "message": f"{name}={value!r} is not served by xotorch_tpu_torch yet (the JAX package "
+                     f"serves it); leave {name} out or neutral"}})
     max_tokens = data.get("max_completion_tokens")
     if max_tokens is None:
       max_tokens = data.get("max_tokens")

@@ -1,11 +1,14 @@
-// The tensor-core tile core shared by K1 (flash_attention.cu::flash_prefill_kernel) and
-// K4/K4q (paged_attention.cu::paged_prefill_kernel), for Hopper (sm_90a).
+// The tensor-core tile core shared by K1 (flash_attention.cu::flash_prefill_kernel),
+// K2/K2q's segments at T > 1 (flash_decode.cu::flash_cached_segment_kernel) and K4/K4q
+// (paged_attention.cu::paged_prefill_kernel), for Hopper (sm_90a). The tile loaders
+// (stage_tile, Kv8Tile) also feed the split-K decode core of decode_split.cuh.
 //
-// Both kernels replace Pallas kernels whose two products run on the TPU's matrix unit
+// All three replace Pallas kernels whose two products run on the TPU's matrix unit
 // with bf16 operands and fp32 accumulation (xotorch_tpu/ops/flash_attention.py::
-// _flash_kernel, xotorch_tpu/ops/paged_attention.py::_paged_ragged_kernel), and both
-// attend a prefill segment: about 4 * rows * visible keys * D operations on inputs read
-// once, so they are bound by operations. Here both products are warp-level
+// _flash_kernel, xotorch_tpu/ops/flash_decode.py::_cached_kernel,
+// xotorch_tpu/ops/paged_attention.py::_paged_ragged_kernel), and all three attend a
+// prefill segment: about 4 * rows * visible keys * D operations on inputs read once, so
+// they are bound by operations. Here both products are warp-level
 // mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 on the tensor cores.
 //
 // One block holds ROWS query rows of one (batch row, kv head): rows are the flattened
@@ -128,32 +131,114 @@ __device__ __forceinline__ size_t row_vector(const RowTile& rt, int row) {
 }
 
 // Stage one K/V tile: rows j in [0, KT) hold positions k0 + j, read at element offset
-// off(j) from kb/vb; positions at or past hi are zeros (their scores are masked, and a
+// off(j) from kb/vb; positions outside [lo, hi) are zeros (their scores are masked, and a
 // zero V row keeps P.V finite). Each thread keeps one 16-byte column, so off(j) is
-// evaluated once per row it copies.
+// evaluated once per row it copies, and only for rows it reads.
 template <int D, int KT, int THREADS, class Off>
 __device__ __forceinline__ void stage_tile(__nv_bfloat16* ks, __nv_bfloat16* vs,
                                            const __nv_bfloat16* kb, const __nv_bfloat16* vb,
-                                           int k0, int hi, const Off& off) {
+                                           int k0, int lo, int hi, const Off& off) {
   constexpr int CH = D / 8;
   constexpr int DS = D + 8;
   static_assert(THREADS % CH == 0, "a thread keeps one column of the tile");
   const int c = threadIdx.x % CH;
   for (int j = threadIdx.x / CH; j < KT; j += THREADS / CH) {
-    const bool ok = k0 + j < hi;
+    const bool ok = k0 + j >= lo && k0 + j < hi;
     const size_t o = ok ? off(j) : 0;
     cp_async16(ks + j * DS + 8 * c, kb + o + 8 * c, ok);
     cp_async16(vs + j * DS + 8 * c, vb + o + 8 * c, ok);
   }
 }
 
+// Byte i of a word of int8 codes biased by 128 (word ^ 0x80808080) as an exact float:
+// the byte lands in the significand of 2^23, whose bias (2^23 + 128) is then taken off,
+// an integer op and an add where a conversion instruction would take the slower pipe.
+__device__ __forceinline__ float biased_code(uint32_t biased, int i) {
+  return __int_as_float(__byte_perm(biased, 0x4B000000u, 0x7650 + i)) - 8388736.f;
+}
+
+// Two int8 codes (bytes i and i + 1 of a word) times their scale, each rounded once to
+// bf16, as one bf16 pair.
+__device__ __forceinline__ uint32_t dequant2(uint32_t biased, int i, float sc) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(biased_code(biased, i) * sc,
+                                                 biased_code(biased, i + 1) * sc);
+  return *reinterpret_cast<const uint32_t*>(&h);
+}
+
+// Eight int8 codes dequantized: one 16-byte chunk of a bf16 tile row.
+__device__ __forceinline__ uint4 dequant8(uint2 w, float sc) {
+  const uint32_t x = w.x ^ 0x80808080u, y = w.y ^ 0x80808080u;
+  return make_uint4(dequant2(x, 0, sc), dequant2(x, 2, sc), dequant2(y, 0, sc),
+                    dequant2(y, 2, sc));
+}
+
+// stage_tile over an int8 cache, in two steps so that the loads of the next tile can be
+// in flight while the current one is computed: fetch() loads each of the thread's rows'
+// 8 codes (row j's D codes at byte offset off(j) from kb/vb) and the row's bf16 scale
+// (at ksc/vsc[off(j) / D]: one scale per (position, head), laid out as the codes' rows)
+// into registers; land() stores code x scale, rounded once to bf16, where stage_tile's
+// cp.async would put the bf16 value. The tile is the same, so the consumer runs the bf16
+// kernel's instructions on the dequantized values (an 8-bit code times a bf16
+// significand is exact in fp32, so this equals a bf16 multiply bit for bit). Rows
+// outside [lo, hi) are zeros.
+template <int D, int KT, int THREADS>
+struct Kv8Tile {
+  static constexpr int CH = D / 8;
+  static constexpr int STEP = THREADS / CH;           // rows a pass of the block
+  static constexpr int PER = (KT + STEP - 1) / STEP;  // rows a thread
+  static_assert(THREADS % CH == 0, "a thread keeps one column of the tile");
+  uint2 kw[PER], vw[PER];
+  float kscl[PER], vscl[PER];
+
+  template <class Off>
+  __device__ __forceinline__ void fetch(const int8_t* __restrict__ kb,
+                                        const int8_t* __restrict__ vb,
+                                        const __nv_bfloat16* __restrict__ ksc,
+                                        const __nv_bfloat16* __restrict__ vsc, int k0, int lo,
+                                        int hi, const Off& off) {
+    const int c = threadIdx.x % CH;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int j = threadIdx.x / CH + i * STEP;
+      kw[i] = vw[i] = make_uint2(0u, 0u);
+      kscl[i] = vscl[i] = 0.f;
+      if (j < KT && k0 + j >= lo && k0 + j < hi) {
+        const size_t o = off(j);
+        kw[i] = *reinterpret_cast<const uint2*>(kb + o + 8 * c);
+        vw[i] = *reinterpret_cast<const uint2*>(vb + o + 8 * c);
+        kscl[i] = __bfloat162float(ksc[o / D]);
+        vscl[i] = __bfloat162float(vsc[o / D]);
+      }
+    }
+  }
+
+  __device__ __forceinline__ void land(__nv_bfloat16* ks, __nv_bfloat16* vs) const {
+    constexpr int DS = D + 8;
+    const int c = threadIdx.x % CH;
+#pragma unroll
+    for (int i = 0; i < PER; ++i) {
+      const int j = threadIdx.x / CH + i * STEP;
+      if (j < KT) {
+        *reinterpret_cast<uint4*>(ks + j * DS + 8 * c) = dequant8(kw[i], kscl[i]);
+        *reinterpret_cast<uint4*>(vs + j * DS + 8 * c) = dequant8(vw[i], vscl[i]);
+      }
+    }
+  }
+};
+
+// The second step of a loader whose first (load) lands the tile itself (cp.async).
+struct NoLand {
+  __device__ __forceinline__ void operator()(__nv_bfloat16*, __nv_bfloat16*) const {}
+};
+
 // Attend the block's rows over keys [window low of its first row, its last row's
 // position], capped at kv_cap. load(ks, vs, k0, hi) stages the tile of positions
-// [k0, k0 + KT) into one stage (cp.async, or plain stores) with positions >= hi zeroed.
-template <int D, int KT, int ROWS, class Load>
+// [k0, k0 + KT) into one stage (cp.async) with positions >= hi zeroed, or fetches it
+// into registers for land(ks, vs) to store once the tile before it is computed.
+template <int D, int KT, int ROWS, class Load, class Land = NoLand>
 __device__ __forceinline__ void attend(const RowTile& rt, unsigned char* smem, int kv_cap,
                                        int window, float scale, float softcap,
-                                       const Load& load) {
+                                       const Load& load, const Land& land = Land()) {
   using S = Shape<D, KT, ROWS>;
   constexpr int DS = S::DS;
   constexpr int CH = D / 8;
@@ -184,7 +269,10 @@ __device__ __forceinline__ void attend(const RowTile& rt, unsigned char* smem, i
     cp_async16(stage1 + r * DS + 8 * c, src, ok);
   }
   cp_async_commit();
-  if (lo < hi) load(stage0, stage0 + KT * DS, lo, hi);
+  if (lo < hi) {
+    load(stage0, stage0 + KT * DS, lo, hi);
+    land(stage0, stage0 + KT * DS);
+  }
   cp_async_commit();
   cp_async_wait<0>();
   __syncthreads();
@@ -335,6 +423,8 @@ __device__ __forceinline__ void attend(const RowTile& rt, unsigned char* smem, i
         }
       }
     }
+    // A fetched tile lands in the stage the previous iteration consumed.
+    if (k0 + KT < hi) land((it & 1) ? stage0 : stage1, ((it & 1) ? stage0 : stage1) + KT * DS);
     __syncthreads();  // this stage is consumed: the next prefetch may overwrite it
   }
 

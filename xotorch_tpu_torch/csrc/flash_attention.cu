@@ -39,7 +39,7 @@ __global__ void __launch_bounds__(ROWS * 2) flash_prefill_kernel(
   const bf16* vb = v + (size_t)b * T * rs + (size_t)kvh * D;
   xot_mma::attend<D, KT, ROWS>(
       rt, smem, T, window, scale, softcap, [&](bf16* ks, bf16* vs, int k0, int hi) {
-        xot_mma::stage_tile<D, KT, ROWS * 2>(ks, vs, kb, vb, k0, hi,
+        xot_mma::stage_tile<D, KT, ROWS * 2>(ks, vs, kb, vb, k0, 0, hi,
                                              [&](int j) { return (size_t)(k0 + j) * rs; });
       });
 }

@@ -7,7 +7,7 @@
 // its context through table[b, j], a physical page id; page 0 is the pool's scratch
 // page, the padding of every table row.
 //
-// K3 (paged_decode_kernel) replaces xotorch_tpu/ops/paged_attention.py::_paged_kernel:
+// K3 (paged_decode_split_kernel) replaces xotorch_tpu/ops/paged_attention.py::_paged_kernel:
 // one decode query per row (T == 1) attends positions [0, lengths[b]) of its own
 // pages, or only the last `window` of them.
 // K4 (paged_prefill_kernel) replaces ::_paged_ragged_kernel: a segment of T queries
@@ -27,15 +27,15 @@
 // property the Pallas kernels get by clamping the logical page index
 // (_logical_page_index) so that repeated block indices elide the DMA.
 //
-// - K3: one block per (kv head, row) holds that head's `groups` query heads. Its
-//   eight warps split the row's keys in 32-key chunks (chunk c goes to warp c % 8),
-//   so a short context still keeps every warp of the block busy: lane j resolves key
-//   j's page and reads its K row straight from device memory (16-byte loads) and
-//   scores it against every query head (q staged once in shared memory as fp32); the
-//   chunk's max and sum are warp reductions; for P.V each lane owns D/32 output
-//   dimensions and reads V rows coalesced. Each warp keeps its own online-softmax
-//   state in registers; the block merges the eight states in shared memory at the
-//   end.
+// - K3: split-K flash-decoding on the core of decode_split.cuh. A row's positions
+//   [0, maxp * page) are cut into `splits` ranges of whole 64-key tiles, fixed by the
+//   table's width and the SM count (ops/flash_decode.py::split_plan), never by the
+//   lengths, so the host reads none; the grid is (splits, Hkv, B). A long row spreads
+//   over many blocks and a range past a short row's length exits at once, which ends
+//   the imbalance of one block per (kv head, row). Each tile's page ids are read once a
+//   tile, as K4's loader does (one page at page 128, one id per 16 rows at page 16), and
+//   its K/V rows are staged coalesced by cp.async, double-buffered; scoring and P.V read
+//   the tile. merge_splits_kernel combines the ranges on the same stream.
 // - K4: the tensor-core tile core of attention_mma.cuh (mma.sync, bf16 operands, fp32
 //   accumulation, the Pallas kernel's two dots on the matrix unit) behind a paged
 //   loader. One block per (row tile, kv head, batch row): 64 query rows, packed as
@@ -50,44 +50,26 @@
 //
 // K3q and K4q (KV8 = true) replace the same Pallas kernels with quant=True: the arena is
 // int8 with one bf16 scale per (position, head) in scale pages [P, PAGE, Hkv], indexed by
-// the same page id and slot as the payload (offset / D). K3q's lane reads its key's D
-// codes with 16-byte loads and its scale; the V loop reads one code per lane and the
-// key's scale. K4q's tiles go through registers: 8 codes and the row's scale in, code x
-// scale out into the very shared-memory layout K4's cp.async fills, so the tile core
-// then runs K4's instructions.
-// Every dequantized value is code x scale rounded once to bf16, which equals JAX's bf16
-// multiply bit for bit (an 8-bit code times a bf16 significand is exact in fp32); the
-// rest is K3's and K4's arithmetic. The arena streams half the bytes.
-//
-// Known limits: K3 at B=1 runs Hkv blocks (8 for Llama-3.2-1B) on 132 SMs, and scores on
-// CUDA cores (split-K flash-decoding is later work); K4q's tile loads are not overlapped
-// with the tile before them, as K4's cp.async copies are.
+// the same page id and slot as the payload (offset / D). Their loaders go through
+// registers (attention_mma.cuh::Kv8Tile): the next tile's codes and scales are fetched
+// while the current tile is computed, then stored as code x scale rounded once to bf16
+// into the very shared-memory tiles K3's and K4's cp.async copies fill, so the rest
+// runs K3's and K4's instructions. That equals JAX's
+// bf16 multiply bit for bit (an 8-bit code times a bf16 significand is exact in fp32).
+// The arena streams half the bytes.
 #include <stdint.h>
 
 #include <type_traits>
 
-#include "attention_mma.cuh"
+#include "decode_split.cuh"
 
 namespace {
 
-constexpr int WARPS = 8;
-constexpr unsigned FULL = 0xffffffffu;
-constexpr int MAX_GROUPS = 8;              // K3, K4: q heads per kv head
-constexpr int KT4 = 64;                    // K4: keys per shared-memory tile
-constexpr int ROWS4 = 64;                  // K4: query rows (positions x groups) a block
-constexpr int VEC = 8;                     // bf16 values per 16-byte load
-
-__device__ __forceinline__ float warp_max(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x = fmaxf(x, __shfl_xor_sync(FULL, x, off));
-  return x;
-}
-
-__device__ __forceinline__ float warp_sum(float x) {
-#pragma unroll
-  for (int off = 16; off > 0; off >>= 1) x += __shfl_xor_sync(FULL, x, off);
-  return x;
-}
+using bf16 = __nv_bfloat16;
+constexpr int MAX_GROUPS = 8;  // K3, K4: q heads per kv head
+constexpr int KT = 64;         // K3, K4: keys a shared-memory tile, aligned to 64 positions
+constexpr int ROWS4 = 64;      // K4: query rows (positions x groups) a block
+static_assert(KT == xot_split::KT, "K3 stages the split core's tiles");
 
 // Element offset of slot `slot` of page `id`, kv head `kvh`, in a layer arena
 // [P, PAGE, Hkv, D]. Page ids are clamped into the arena.
@@ -97,294 +79,131 @@ __device__ __forceinline__ size_t page_row(int id, int slot, int num_pages, int 
   return ((size_t)id * PAGE + slot) * (size_t)Hkv * D + (size_t)kvh * D;
 }
 
-// The same for position `pos` of one row, through its page table.
+// Row j of the tile at position k0 (a multiple of KT) of one row's pages, through the
+// row's table tb: at PAGE >= KT the tile lies in one page, whose id is read once (base);
+// below, one id serves PAGE rows. Read only for positions inside the table.
 template <int D, int PAGE>
-__device__ __forceinline__ size_t page_offset(const int* tb, int pos, int num_pages, int Hkv,
-                                              int kvh) {
-  return page_row<D, PAGE>(tb[pos / PAGE], pos % PAGE, num_pages, Hkv, kvh);
-}
-
-// An int8 code times its scale, rounded once to bf16, back in fp32.
-__device__ __forceinline__ float dq(int code, float sc) {
-  return __bfloat162float(__float2bfloat16_rn((float)code * sc));
-}
-
-// Two int8 codes (bits shift..shift+15 of a word) times their scale, each rounded once
-// to bf16, as one bf16 pair.
-__device__ __forceinline__ uint32_t dequant2(uint32_t word, int shift, float sc) {
-  __nv_bfloat162 h = __halves2bfloat162(
-      __float2bfloat16_rn((float)(int8_t)((word >> shift) & 0xffu) * sc),
-      __float2bfloat16_rn((float)(int8_t)((word >> (shift + 8)) & 0xffu) * sc));
-  return *reinterpret_cast<uint32_t*>(&h);
-}
-
-// Eight int8 codes dequantized: one 16-byte chunk of a bf16 tile row.
-__device__ __forceinline__ uint4 dequant8(uint2 w, float sc) {
-  return make_uint4(dequant2(w.x, 0, sc), dequant2(w.x, 16, sc), dequant2(w.y, 0, sc),
-                    dequant2(w.y, 16, sc));
-}
+struct PagedRows {
+  const int* tbk;  // the tile's page ids
+  size_t base, rs;
+  int k0, num_pages, Hkv, kvh;
+  __device__ PagedRows(const int* tb, int k0_, int num_pages_, int Hkv_, int kvh_)
+      : tbk(tb + k0_ / PAGE), base(0), rs((size_t)Hkv_ * D), k0(k0_), num_pages(num_pages_),
+        Hkv(Hkv_), kvh(kvh_) {
+    if (PAGE >= KT) base = page_row<D, PAGE>(tbk[0], k0 % PAGE, num_pages, Hkv, kvh);
+  }
+  __device__ size_t operator()(int j) const {
+    return PAGE >= KT ? base + j * rs
+                      : page_row<D, PAGE>(tbk[j / PAGE], j % PAGE, num_pages, Hkv, kvh);
+  }
+};
 
 template <bool KV8>
-using ArenaElem = typename std::conditional<KV8, int8_t, __nv_bfloat16>::type;
+using ArenaElem = typename std::conditional<KV8, int8_t, bf16>::type;
 
-template <int D, int PAGE, bool KV8>
-__global__ void __launch_bounds__(WARPS * 32) paged_decode_kernel(
-    const __nv_bfloat16* __restrict__ q, const ArenaElem<KV8>* __restrict__ kp,
-    const ArenaElem<KV8>* __restrict__ vp, const __nv_bfloat16* __restrict__ ksp,
-    const __nv_bfloat16* __restrict__ vsp, const int* __restrict__ table,
-    const int* __restrict__ lengths, __nv_bfloat16* __restrict__ o, int maxp, int num_pages,
-    int Hq, int Hkv, int window, float scale, float softcap) {
-  constexpr int DL = (D + 31) / 32;      // output dimensions per lane
-  extern __shared__ float4 smem4[];
+// The tile loader of one row's pages and one kv head: bf16 rows by cp.async (load
+// lands them), int8 rows fetched into registers by load and stored by land as code x
+// scale (scale pages indexed by offset / D). Positions outside [lo, hi) are zeros.
+template <int D, int PAGE, int THREADS, bool KV8>
+struct PagedLoader {
+  const ArenaElem<KV8>* kp;
+  const ArenaElem<KV8>* vp;
+  const bf16* ksp;
+  const bf16* vsp;
+  const int* tb;
+  int num_pages, Hkv, kvh;
+  xot_mma::Kv8Tile<D, KT, THREADS> kv8;
+
+  __device__ __forceinline__ void load(bf16* ks, bf16* vs, int k0, int lo, int hi) {
+    const PagedRows<D, PAGE> off(tb, k0, num_pages, Hkv, kvh);
+    if constexpr (KV8) {
+      kv8.fetch(kp, vp, ksp, vsp, k0, lo, hi, off);
+    } else {
+      xot_mma::stage_tile<D, KT, THREADS>(ks, vs, kp, vp, k0, lo, hi, off);
+    }
+  }
+  __device__ __forceinline__ void land(bf16* ks, bf16* vs) const {
+    if constexpr (KV8) kv8.land(ks, vs);
+  }
+};
+
+template <int D, int PAGE, int R, bool KV8>
+__global__ void __launch_bounds__(xot_split::THREADS) paged_decode_split_kernel(
+    const bf16* __restrict__ q, const ArenaElem<KV8>* __restrict__ kp,
+    const ArenaElem<KV8>* __restrict__ vp, const bf16* __restrict__ ksp,
+    const bf16* __restrict__ vsp, const int* __restrict__ table,
+    const int* __restrict__ lengths, float* __restrict__ part, int maxp, int num_pages, int Hq,
+    int Hkv, int splits, int kps, int window, float scale, float softcap) {
+  extern __shared__ __align__(16) unsigned char smem[];
+  const int split = blockIdx.x;
+  const int kvh = blockIdx.y;
+  const int b = blockIdx.z;
   const int groups = Hq / Hkv;
-  float* qs = reinterpret_cast<float*>(smem4);  // [groups][D]
-  float* ms = qs + groups * D;                  // [WARPS][groups]
-  float* ls = ms + WARPS * groups;              // [WARPS][groups]
-  float* accs = ls + WARPS * groups;            // [WARPS][groups][D]
-
-  const int kvh = blockIdx.x;
-  const int b = blockIdx.y;
-  const int warp = threadIdx.x / 32;
-  const int lane = threadIdx.x % 32;
   const int len = min(lengths[b], maxp * PAGE);
   const int lo = window > 0 ? max(0, len - window) : 0;
   const int* tb = table + (size_t)b * maxp;
-
-  for (int i = threadIdx.x; i < groups * D; i += blockDim.x) {
-    qs[i] = __bfloat162float(q[((size_t)b * Hq + (size_t)kvh * groups) * D + i]);
-  }
-  __syncthreads();
-
-  float m[MAX_GROUPS], l[MAX_GROUPS], acc[MAX_GROUPS][DL];
-#pragma unroll
-  for (int r = 0; r < MAX_GROUPS; ++r) {
-    m[r] = -INFINITY;
-    l[r] = 0.f;
-#pragma unroll
-    for (int kk = 0; kk < DL; ++kk) acc[r][kk] = 0.f;
-  }
-
-  // Every chunk in [lo / 32, (len - 1) / 32] holds a visible key (lo < len), so each
-  // processed chunk leaves a finite running max.
-  const int c_last = len > 0 ? (len - 1) / 32 : -1;
-  for (int c = lo / 32 + warp; c <= c_last; c += WARPS) {
-    const int pos = c * 32 + lane;
-    const bool vis = pos >= lo && pos < len;
-    const size_t off = vis ? page_offset<D, PAGE>(tb, pos, num_pages, Hkv, kvh) : 0;
-    // The key's V scale (int8 arenas): its scale page slot is off / D.
-    float vscl = 0.f;
-    float s[MAX_GROUPS];
-#pragma unroll
-    for (int r = 0; r < MAX_GROUPS; ++r) s[r] = 0.f;
-    if (vis) {
-      if constexpr (KV8) {
-        // D int8 codes, 16 to a load; each dequantized with the key's scale.
-        const float kscl = __bfloat162float(ksp[off / D]);
-        vscl = __bfloat162float(vsp[off / D]);
-        const uint4* krow = reinterpret_cast<const uint4*>(kp + off);
-#pragma unroll
-        for (int w = 0; w < D / 16; ++w) {
-          const uint4 raw = krow[w];
-          const int8_t* codes = reinterpret_cast<const int8_t*>(&raw);
-          float kf[16];
-#pragma unroll
-          for (int e = 0; e < 16; ++e) kf[e] = dq(codes[e], kscl);
-#pragma unroll
-          for (int r = 0; r < MAX_GROUPS; ++r) {
-            if (r < groups) {
-              const float* qr = qs + r * D + w * 16;
-#pragma unroll
-              for (int e = 0; e < 16; ++e) s[r] = fmaf(qr[e], kf[e], s[r]);
-            }
-          }
-        }
-      } else {
-        const uint4* krow = reinterpret_cast<const uint4*>(kp + off);
-#pragma unroll
-        for (int w = 0; w < D / VEC; ++w) {
-          const uint4 raw = krow[w];
-          const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
-          float kf[VEC];
-#pragma unroll
-          for (int e = 0; e < VEC / 2; ++e) {
-            const float2 f = __bfloat1622float2(h2[e]);
-            kf[2 * e] = f.x;
-            kf[2 * e + 1] = f.y;
-          }
-#pragma unroll
-          for (int r = 0; r < MAX_GROUPS; ++r) {
-            if (r < groups) {
-              const float* qr = qs + r * D + w * VEC;
-#pragma unroll
-              for (int e = 0; e < VEC; ++e) s[r] = fmaf(qr[e], kf[e], s[r]);
-            }
-          }
-        }
-      }
-    }
-    float p[MAX_GROUPS];
-#pragma unroll
-    for (int r = 0; r < MAX_GROUPS; ++r) {
-      p[r] = 0.f;
-      if (r < groups) {  // uniform across the block: the shuffles stay converged
-        float x = s[r] * scale;
-        if (softcap > 0.f) x = tanhf(x / softcap) * softcap;
-        x = vis ? x : -INFINITY;
-        const float m_new = fmaxf(m[r], warp_max(x));
-        const float alpha = __expf(m[r] - m_new);
-        p[r] = __expf(x - m_new);
-        l[r] = l[r] * alpha + warp_sum(p[r]);
-#pragma unroll
-        for (int kk = 0; kk < DL; ++kk) acc[r][kk] *= alpha;
-        m[r] = m_new;
-      }
-    }
-    for (int j = 0; j < 32; ++j) {
-      const int vis_j = __shfl_sync(FULL, (int)vis, j);
-      const unsigned long long off_j = __shfl_sync(FULL, (unsigned long long)off, j);
-      float vscl_j = 0.f;
-      if constexpr (KV8) vscl_j = __shfl_sync(FULL, vscl, j);
-      if (!vis_j) continue;
-      const ArenaElem<KV8>* vrow = vp + off_j;
-      float vf[DL];
-#pragma unroll
-      for (int kk = 0; kk < DL; ++kk) {
-        const int d = lane + kk * 32;
-        if constexpr (KV8) {
-          vf[kk] = d < D ? dq(vrow[d], vscl_j) : 0.f;
-        } else {
-          vf[kk] = d < D ? __bfloat162float(vrow[d]) : 0.f;
-        }
-      }
-#pragma unroll
-      for (int r = 0; r < MAX_GROUPS; ++r) {
-        if (r < groups) {
-          const float pj = __shfl_sync(FULL, p[r], j);
-#pragma unroll
-          for (int kk = 0; kk < DL; ++kk) acc[r][kk] = fmaf(pj, vf[kk], acc[r][kk]);
-        }
-      }
-    }
-  }
-
-  // Merge the warps' online-softmax states. A warp that took no chunk holds m = -inf,
-  // l = 0, acc = 0 and weighs nothing.
-#pragma unroll
-  for (int r = 0; r < MAX_GROUPS; ++r) {
-    if (r < groups) {
-      if (lane == 0) {
-        ms[warp * groups + r] = m[r];
-        ls[warp * groups + r] = l[r];
-      }
-#pragma unroll
-      for (int kk = 0; kk < DL; ++kk) {
-        const int d = lane + kk * 32;
-        if (d < D) accs[(size_t)(warp * groups + r) * D + d] = acc[r][kk];
-      }
-    }
-  }
-  __syncthreads();
-  for (int i = threadIdx.x; i < groups * D; i += blockDim.x) {
-    const int r = i / D;
-    const int d = i % D;
-    float M = -INFINITY;
-    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, ms[w * groups + r]);
-    float L = 0.f, O = 0.f;
-    if (M > -INFINITY) {
-      for (int w = 0; w < WARPS; ++w) {
-        const float wt = __expf(ms[w * groups + r] - M);
-        L += ls[w * groups + r] * wt;
-        O += accs[(size_t)(w * groups + r) * D + d] * wt;
-      }
-    }
-    o[((size_t)b * Hq + (size_t)kvh * groups + r) * D + d] =
-        __float2bfloat16_rn(L > 0.f ? O / L : 0.f);
-  }
-}
-
-// K4's tile of positions [k0, k0 + KT4) over an int8 arena: each thread loads 8 codes
-// of one row and its scale, and stores code x scale, rounded once to bf16, where K4's
-// cp.async would have put the bf16 value: the same shared-memory tile, so the tile core
-// runs K4's instructions on K4's values. Positions at or past hi are zeros.
-template <int D, int PAGE, int THREADS>
-__device__ __forceinline__ void stage_tile_kv8(__nv_bfloat16* ks, __nv_bfloat16* vs,
-                                               const int8_t* __restrict__ kp,
-                                               const int8_t* __restrict__ vp,
-                                               const __nv_bfloat16* __restrict__ ksp,
-                                               const __nv_bfloat16* __restrict__ vsp,
-                                               const int* tbk, int k0, int hi, int num_pages,
-                                               int Hkv, int kvh) {
-  constexpr int CH = D / 8;
-  constexpr int DS = D + 8;
-  const int c = threadIdx.x % CH;
-  const int id0 = PAGE >= KT4 ? tbk[0] : 0;  // the tile's one page
-  for (int j = threadIdx.x / CH; j < KT4; j += THREADS / CH) {
-    uint4 kw = make_uint4(0u, 0u, 0u, 0u);
-    uint4 vw = kw;
-    if (k0 + j < hi) {
-      const size_t off = PAGE >= KT4
-                             ? page_row<D, PAGE>(id0, k0 % PAGE + j, num_pages, Hkv, kvh)
-                             : page_row<D, PAGE>(tbk[j / PAGE], j % PAGE, num_pages, Hkv, kvh);
-      kw = dequant8(*reinterpret_cast<const uint2*>(kp + off + 8 * c),
-                    __bfloat162float(ksp[off / D]));
-      vw = dequant8(*reinterpret_cast<const uint2*>(vp + off + 8 * c),
-                    __bfloat162float(vsp[off / D]));
-    }
-    *reinterpret_cast<uint4*>(ks + j * DS + 8 * c) = kw;
-    *reinterpret_cast<uint4*>(vs + j * DS + 8 * c) = vw;
-  }
+  const int s0 = split * kps;
+  const size_t row0 = (size_t)b * Hq + (size_t)kvh * groups;
+  PagedLoader<D, PAGE, xot_split::THREADS, KV8> ld{kp, vp, ksp, vsp, tb, num_pages, Hkv, kvh};
+  xot_split::attend_split<D, R>(
+      q + row0 * D, groups, len - 1, lo, s0, min(maxp * PAGE, s0 + kps), scale, softcap, part,
+      xot_split::part_ml_of(part, gridDim.z * Hq, splits, D), row0 * splits + split, splits,
+      smem, [&](bf16* ks, bf16* vs, int k0, int a, int e) { ld.load(ks, vs, k0, a, e); },
+      [&](bf16* ks, bf16* vs) { ld.land(ks, vs); });
 }
 
 template <int D, int PAGE, bool KV8>
 __global__ void __launch_bounds__(ROWS4 * 2) paged_prefill_kernel(
-    const __nv_bfloat16* __restrict__ q, const ArenaElem<KV8>* __restrict__ kp,
-    const ArenaElem<KV8>* __restrict__ vp, const __nv_bfloat16* __restrict__ ksp,
-    const __nv_bfloat16* __restrict__ vsp, const int* __restrict__ table,
-    const int* __restrict__ kv_valid, __nv_bfloat16* __restrict__ o, int T, int maxp,
-    int num_pages, int Hq, int Hkv, int window, float scale, float softcap) {
-  constexpr int THREADS = ROWS4 * 2;
+    const bf16* __restrict__ q, const ArenaElem<KV8>* __restrict__ kp,
+    const ArenaElem<KV8>* __restrict__ vp, const bf16* __restrict__ ksp,
+    const bf16* __restrict__ vsp, const int* __restrict__ table,
+    const int* __restrict__ kv_valid, bf16* __restrict__ o, int T, int maxp, int num_pages,
+    int Hq, int Hkv, int window, float scale, float softcap) {
   extern __shared__ __align__(16) unsigned char smem[];
   const int kvh = blockIdx.y;
   const int b = blockIdx.z;
   const xot_mma::RowTile rt{q, o, T, Hq, Hq / Hkv, kvh, b,
                             (int)(gridDim.x - 1 - blockIdx.x) * ROWS4, kv_valid[b] - T};
   const int* tb = table + (size_t)b * maxp;
-  xot_mma::attend<D, KT4, ROWS4>(
+  PagedLoader<D, PAGE, ROWS4 * 2, KV8> ld{kp, vp, ksp, vsp, tb, num_pages, Hkv, kvh};
+  xot_mma::attend<D, KT, ROWS4>(
       rt, smem, maxp * PAGE, window, scale, softcap,
-      [&](__nv_bfloat16* ks, __nv_bfloat16* vs, int k0, int hi) {
-        const int* tbk = tb + k0 / PAGE;  // the tile's page ids: one, or one per PAGE rows
-        if constexpr (KV8) {
-          stage_tile_kv8<D, PAGE, THREADS>(ks, vs, kp, vp, ksp, vsp, tbk, k0, hi, num_pages, Hkv,
-                                           kvh);
-        } else if constexpr (PAGE >= KT4) {
-          const size_t base = page_row<D, PAGE>(tbk[0], k0 % PAGE, num_pages, Hkv, kvh);
-          const size_t rs = (size_t)Hkv * D;
-          xot_mma::stage_tile<D, KT4, THREADS>(ks, vs, kp, vp, k0, hi,
-                                               [&](int j) { return base + j * rs; });
-        } else {
-          xot_mma::stage_tile<D, KT4, THREADS>(ks, vs, kp, vp, k0, hi, [&](int j) {
-            return page_row<D, PAGE>(tbk[j / PAGE], j % PAGE, num_pages, Hkv, kvh);
-          });
-        }
-      });
+      [&](bf16* ks, bf16* vs, int k0, int hi) { ld.load(ks, vs, k0, 0, hi); },
+      [&](bf16* ks, bf16* vs) { ld.land(ks, vs); });
 }
 
+template <int D, int PAGE, int R, bool KV8>
+int launch_decode_r(const void* q, const void* kp, const void* vp, const void* ksp,
+                    const void* vsp, const int* table, const int* lengths, void* o, float* part,
+                    int B, int maxp, int num_pages, int Hq, int Hkv, int splits, int kps,
+                    int window, float scale, float softcap, cudaStream_t stream) {
+  constexpr size_t smem = xot_split::Smem<D>::BYTES;
+  static const int attr =
+      xot_split::smem_limit(paged_decode_split_kernel<D, PAGE, R, KV8>, smem);
+  if (attr != 0) return attr;
+  dim3 grid(splits, Hkv, B);
+  paged_decode_split_kernel<D, PAGE, R, KV8><<<grid, xot_split::THREADS, smem, stream>>>(
+      static_cast<const bf16*>(q), static_cast<const ArenaElem<KV8>*>(kp),
+      static_cast<const ArenaElem<KV8>*>(vp), static_cast<const bf16*>(ksp),
+      static_cast<const bf16*>(vsp), table, lengths, part, maxp, num_pages, Hq, Hkv, splits, kps,
+      window, scale, softcap);
+  const int err = (int)cudaGetLastError();
+  if (err != 0) return err;
+  return xot_split::merge_splits<D>(part, o, B * Hq, splits, stream);
+}
+
+// K3's kernel for the rows a block computes (groups <= 8: one row block a kv head).
 template <int D, int PAGE, bool KV8>
 int launch_decode(const void* q, const void* kp, const void* vp, const void* ksp,
-                  const void* vsp, const int* table, const int* lengths, void* o, int B,
-                  int maxp, int num_pages, int Hq, int Hkv, int window, float scale,
-                  float softcap, cudaStream_t stream) {
-  const int groups = Hq / Hkv;
-  const size_t smem = ((size_t)groups * D + 2 * WARPS * groups + (size_t)WARPS * groups * D) *
-                      sizeof(float);
-  if (smem > 48 * 1024) return (int)cudaErrorInvalidValue;
-  dim3 grid(Hkv, B);
-  paged_decode_kernel<D, PAGE, KV8><<<grid, WARPS * 32, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const ArenaElem<KV8>*>(kp),
-      static_cast<const ArenaElem<KV8>*>(vp), static_cast<const __nv_bfloat16*>(ksp),
-      static_cast<const __nv_bfloat16*>(vsp), table, lengths, static_cast<__nv_bfloat16*>(o),
-      maxp, num_pages, Hq, Hkv, window, scale, softcap);
-  return (int)cudaGetLastError();
+                  const void* vsp, const int* table, const int* lengths, void* o, float* part,
+                  int B, int maxp, int num_pages, int Hq, int Hkv, int splits, int kps,
+                  int window, float scale, float softcap, cudaStream_t stream) {
+  switch (xot_split::rows_per_block(Hq / Hkv)) {
+    case 1: return launch_decode_r<D, PAGE, 1, KV8>(q, kp, vp, ksp, vsp, table, lengths, o, part, B, maxp, num_pages, Hq, Hkv, splits, kps, window, scale, softcap, stream);
+    case 2: return launch_decode_r<D, PAGE, 2, KV8>(q, kp, vp, ksp, vsp, table, lengths, o, part, B, maxp, num_pages, Hq, Hkv, splits, kps, window, scale, softcap, stream);
+    case 4: return launch_decode_r<D, PAGE, 4, KV8>(q, kp, vp, ksp, vsp, table, lengths, o, part, B, maxp, num_pages, Hq, Hkv, splits, kps, window, scale, softcap, stream);
+    default: return launch_decode_r<D, PAGE, 8, KV8>(q, kp, vp, ksp, vsp, table, lengths, o, part, B, maxp, num_pages, Hq, Hkv, splits, kps, window, scale, softcap, stream);
+  }
 }
 
 template <int D, int PAGE, bool KV8>
@@ -392,18 +211,17 @@ int launch_prefill(const void* q, const void* kp, const void* vp, const void* ks
                    const void* vsp, const int* table, const int* kv_valid, void* o, int B, int T,
                    int maxp, int num_pages, int Hq, int Hkv, int window, float scale,
                    float softcap, cudaStream_t stream) {
-  constexpr size_t smem = xot_mma::Shape<D, KT4, ROWS4>::SMEM;
+  constexpr size_t smem = xot_mma::Shape<D, KT, ROWS4>::SMEM;
   static_assert(smem <= 227 * 1024, "shared memory of one block");
-  cudaError_t err = cudaFuncSetAttribute(paged_prefill_kernel<D, PAGE, KV8>,
-                                         cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
+  static const int attr = xot_split::smem_limit(paged_prefill_kernel<D, PAGE, KV8>, smem);
+  if (attr != 0) return attr;
   const long long rows = (long long)T * (Hq / Hkv);
   dim3 grid((unsigned)((rows + ROWS4 - 1) / ROWS4), Hkv, B);
   paged_prefill_kernel<D, PAGE, KV8><<<grid, ROWS4 * 2, smem, stream>>>(
-      static_cast<const __nv_bfloat16*>(q), static_cast<const ArenaElem<KV8>*>(kp),
-      static_cast<const ArenaElem<KV8>*>(vp), static_cast<const __nv_bfloat16*>(ksp),
-      static_cast<const __nv_bfloat16*>(vsp), table, kv_valid, static_cast<__nv_bfloat16*>(o), T,
-      maxp, num_pages, Hq, Hkv, window, scale, softcap);
+      static_cast<const bf16*>(q), static_cast<const ArenaElem<KV8>*>(kp),
+      static_cast<const ArenaElem<KV8>*>(vp), static_cast<const bf16*>(ksp),
+      static_cast<const bf16*>(vsp), table, kv_valid, static_cast<bf16*>(o), T, maxp, num_pages,
+      Hq, Hkv, window, scale, softcap);
   return (int)cudaGetLastError();
 }
 
@@ -420,15 +238,22 @@ int launch_prefill(const void* q, const void* kp, const void* vp, const void* ks
 
 template <bool KV8>
 int decode(const void* q, const void* kp, const void* vp, const void* ksp, const void* vsp,
-           const void* table, const void* lengths, void* o, int B, int maxp, int P, int page,
-           int Hq, int Hkv, int D, int window, float scale, float softcap, void* stream) {
+           const void* table, const void* lengths, void* o, void* part, int B, int maxp, int P,
+           int page, int Hq, int Hkv, int D, int splits, int kps, int window, float scale,
+           float softcap, void* stream) {
   if (B < 1 || maxp < 1 || P < 1 || Hkv < 1 || Hq % Hkv != 0) return (int)cudaErrorInvalidValue;
   if (Hq / Hkv > MAX_GROUPS || Hkv > 65535 || B > 65535) return (int)cudaErrorInvalidValue;
+  const long long S = (long long)maxp * page;
+  if (part == nullptr || splits < 1 || kps < KT || kps % KT != 0 || (long long)splits * kps < S ||
+      (long long)(splits - 1) * kps >= S || S > 0x7fffffffLL) {
+    return (int)cudaErrorInvalidValue;
+  }
   const int* tb = static_cast<const int*>(table);
   const int* ln = static_cast<const int*>(lengths);
+  float* pt = static_cast<float*>(part);
   cudaStream_t s = static_cast<cudaStream_t>(stream);
-  XOT_DISPATCH(launch_decode, KV8, q, kp, vp, ksp, vsp, tb, ln, o, B, maxp, P, Hq, Hkv, window,
-               scale, softcap, s)
+  XOT_DISPATCH(launch_decode, KV8, q, kp, vp, ksp, vsp, tb, ln, o, pt, B, maxp, P, Hq, Hkv, splits,
+               kps, window, scale, softcap, s)
 }
 
 template <bool KV8>
@@ -452,15 +277,18 @@ int prefill(const void* q, const void* kp, const void* vp, const void* ksp, cons
 
 // q [B, 1, Hq, D], o [B, 1, Hq, D], k/v pages [P, page, Hkv, D]: contiguous bf16 on the
 // device; table [B, maxp] and lengths [B] int32 on the device. D in {16, 64, 128}, page
-// in {16, 128}, Hq / Hkv <= 8. Returns a cudaError_t value: nonzero when the arguments
-// are refused or the launch failed.
+// in {16, 128}, Hq / Hkv <= 8. `part` holds B * Hq * splits * (D + 2) floats of scratch
+// on the device; the positions [0, maxp * page) are cut into `splits` ranges of `kps`
+// keys (a multiple of 64; the last range reaches the end). Returns a cudaError_t value:
+// nonzero when the arguments are refused or a launch failed.
 extern "C" int xot_paged_decode_attention_bf16(const void* q, const void* kp, const void* vp,
                                                const void* table, const void* lengths, void* o,
-                                               int B, int maxp, int P, int page, int Hq,
-                                               int Hkv, int D, int window, float scale,
-                                               float softcap, void* stream) {
-  return decode<false>(q, kp, vp, nullptr, nullptr, table, lengths, o, B, maxp, P, page, Hq, Hkv,
-                       D, window, scale, softcap, stream);
+                                               void* part, int B, int maxp, int P, int page,
+                                               int Hq, int Hkv, int D, int splits, int kps,
+                                               int window, float scale, float softcap,
+                                               void* stream) {
+  return decode<false>(q, kp, vp, nullptr, nullptr, table, lengths, o, part, B, maxp, P, page, Hq,
+                       Hkv, D, splits, kps, window, scale, softcap, stream);
 }
 
 // K3q: as above over an int8 arena k/v pages [P, page, Hkv, D] with bf16 scale pages
@@ -468,11 +296,12 @@ extern "C" int xot_paged_decode_attention_bf16(const void* q, const void* kp, co
 extern "C" int xot_paged_decode_attention_kv8(const void* q, const void* kp, const void* vp,
                                               const void* ksp, const void* vsp,
                                               const void* table, const void* lengths, void* o,
-                                              int B, int maxp, int P, int page, int Hq, int Hkv,
-                                              int D, int window, float scale, float softcap,
+                                              void* part, int B, int maxp, int P, int page,
+                                              int Hq, int Hkv, int D, int splits, int kps,
+                                              int window, float scale, float softcap,
                                               void* stream) {
-  return decode<true>(q, kp, vp, ksp, vsp, table, lengths, o, B, maxp, P, page, Hq, Hkv, D,
-                      window, scale, softcap, stream);
+  return decode<true>(q, kp, vp, ksp, vsp, table, lengths, o, part, B, maxp, P, page, Hq, Hkv, D,
+                      splits, kps, window, scale, softcap, stream);
 }
 
 // q [B, T, Hq, D], o [B, T, Hq, D], k/v pages [P, page, Hkv, D]: contiguous bf16 on the

@@ -55,6 +55,7 @@ from xotorch_tpu_torch.models.quantize import QUANT_DTYPES, quantize_params
 from xotorch_tpu_torch.models.registry import get_model_card
 from xotorch_tpu_torch.models.transformer import (forward_shard, init_kv_cache, init_random_params,
                                                   quant_route)
+from xotorch_tpu_torch.ops import flash_attention, flash_decode, paged_attention
 from xotorch_tpu_torch.ops.sampling import DEFAULT_TEMP, DEFAULT_TOP_K, sample_logits
 from xotorch_tpu_torch.utils import knobs
 from xotorch_tpu_torch.utils.helpers import DEBUG, spawn_detached
@@ -225,6 +226,10 @@ class TorchShardInferenceEngine(InferenceEngine):
     if not knobs.get_bool("XOT_RAGGED_PREFILL"):
       raise ValueError("XOT_RAGGED_PREFILL=0 (the gathered paged view) is not ported: paged "
                        "segments read the pages in place through K4/K4q")
+    # The kernels' tile knobs and page sizes are refused here, on the CPU as on the card,
+    # rather than at a launch in the middle of a request (the CPU never launches one).
+    flash_attention.flash_blocks()
+    flash_decode.decode_blocks()
     self.executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="torch-engine")
     self._ctx: Optional[_ShardContext] = None
     self._shard_lock = asyncio.Lock()
@@ -234,6 +239,10 @@ class TorchShardInferenceEngine(InferenceEngine):
     self.decode_batch = knobs.get_int("XOT_DECODE_BATCH")
     self.batch_window_s = knobs.get_float("XOT_BATCH_WINDOW_MS") / 1000.0
     self.paged = knobs.get_bool("XOT_PAGED_KV")
+    self.kv_page = knobs.get_int("XOT_KV_PAGE")
+    if self.paged and self.kv_page not in paged_attention.PAGE_SIZES:
+      raise ValueError(f"XOT_KV_PAGE={self.kv_page} with XOT_PAGED_KV=1: the paged kernels "
+                       f"(K3, K4) are built for pages of {paged_attention.PAGE_SIZES} tokens")
     self.paged_prefill = knobs.get_bool("XOT_PAGED_PREFILL")
     self.defrag = knobs.get_bool("XOT_KV_DEFRAG")
     self.defrag_moves = 0
@@ -283,6 +292,7 @@ class TorchShardInferenceEngine(InferenceEngine):
         f"{shard.model_id}: only synthetic cards load in xotorch_tpu_torch so far "
         "(safetensors loading is a later slice)")
     cfg = config_from_hf_dict(synthetic_cfg)
+    self._check_kernel_shapes(shard.model_id, cfg)
     params = init_random_params(cfg, shard.get_layer_count(), shard.is_first_layer,
                                 shard.is_last_layer, seed=0, dtype=self.dtype,
                                 device=self.device, start_layer=shard.start_layer)
@@ -300,6 +310,22 @@ class TorchShardInferenceEngine(InferenceEngine):
     return _ShardContext(shard=shard, cfg=cfg, params=params, cache_len=cache_len,
                          max_cache_len=max_cache_len, tokenizer=tokenizer,
                          states=OrderedDict())
+
+  def _check_kernel_shapes(self, model_id: str, cfg: ModelConfig) -> None:
+    """Refuse, when a shard is loaded, a model whose attention shapes the kernels are not
+    built for: head_dim outside K1's and K2's builds or more q heads per kv head than
+    K2 takes, and under XOT_PAGED_KV=1 head_dim or groups outside K3's and K4's."""
+    groups = cfg.num_heads // cfg.num_kv_heads
+    dims = flash_decode.HEAD_DIMS
+    if cfg.head_dim not in dims or groups > flash_decode.MAX_GROUPS:
+      raise ValueError(f"{model_id}: head_dim {cfg.head_dim} with {groups} q heads per kv head; "
+                       f"the attention kernels K1/K2 are built for head_dim {dims} and at most "
+                       f"{flash_decode.MAX_GROUPS} q heads per kv head")
+    dims = paged_attention.HEAD_DIMS
+    if self.paged and (cfg.head_dim not in dims or groups > paged_attention.MAX_GROUPS):
+      raise ValueError(f"{model_id}: head_dim {cfg.head_dim} with {groups} q heads per kv head "
+                       f"under XOT_PAGED_KV=1; the paged kernels K3/K4 are built for head_dim "
+                       f"{dims} and at most {paged_attention.MAX_GROUPS} q heads per kv head")
 
   def eos_token_ids_for(self, shard: Shard) -> Tuple[int, ...]:
     ctx = self._ctx
@@ -547,7 +573,7 @@ class TorchShardInferenceEngine(InferenceEngine):
 
   def _ensure_page_pool(self, ctx: _ShardContext) -> PagePool:
     if ctx.page_pool is None:
-      page = knobs.get_int("XOT_KV_PAGE")
+      page = self.kv_page
       tokens = knobs.get_int("XOT_KV_POOL_TOKENS")
       if tokens <= 0:
         # Room for one max-length context plus a resident set of initial-size ones.

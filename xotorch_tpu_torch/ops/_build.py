@@ -3,7 +3,8 @@
 Each `csrc/<name>.cu` exposes a plain C interface. On first use it is compiled with
 nvcc for Hopper (`sm_90a`) into a shared library under `xotorch_tpu_torch/build/`
 (listed in .gitignore) and loaded with ctypes. Sources may include the shared headers
-`csrc/*.cuh` (`attention_mma.cuh`: the tensor-core tile core of K1 and K4/K4q). The
+`csrc/*.cuh` (`attention_mma.cuh`: the tensor-core tile core of K1, K2's segments and
+K4/K4q; `decode_split.cuh`: the split-K decode core of K2/K2q and K3/K3q). The
 library's file name carries a hash of its source, of every header and of the flags, so
 an edited kernel or header is rebuilt and a stale library is never loaded.
 
@@ -36,13 +37,15 @@ SIGNATURES = {
     "xot_flash_attention_bf16": [P, P, P, P, I, I, I, I, I, I, I, I, F, F, P],
   },
   "flash_decode": {
-    "xot_flash_cached_attention_bf16": [P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, F, P],
-    "xot_flash_cached_attention_kv8": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, F, F, P],
+    "xot_flash_cached_attention_bf16": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, F, P],
+    "xot_flash_cached_attention_kv8": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, F,
+                                       P],
   },
   "paged_attention": {
-    "xot_paged_decode_attention_bf16": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, P],
+    "xot_paged_decode_attention_bf16": [P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, F, P],
     "xot_paged_prefill_attention_bf16": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, F, P],
-    "xot_paged_decode_attention_kv8": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, P],
+    "xot_paged_decode_attention_kv8": [P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F,
+                                       F, P],
     "xot_paged_prefill_attention_kv8": [P, P, P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, F,
                                         P],
   },

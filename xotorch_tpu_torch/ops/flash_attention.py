@@ -33,6 +33,17 @@ def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, windo
                        scale=scale, softcap=softcap, window=window)
 
 
+def flash_blocks():
+  """(XOT_FLASH_BLOCK_Q, XOT_FLASH_BLOCK_K), each 64 or 128; anything else raises
+  ValueError naming both knobs. The engine calls this when it is built."""
+  block_q = knobs.get_int("XOT_FLASH_BLOCK_Q")
+  block_k = knobs.get_int("XOT_FLASH_BLOCK_K")
+  if block_q not in BLOCKS or block_k not in BLOCKS:
+    raise ValueError(f"flash_attention: XOT_FLASH_BLOCK_Q={block_q} and XOT_FLASH_BLOCK_K="
+                     f"{block_k}: the kernel takes {BLOCKS} query rows a block and keys a tile")
+  return block_q, block_k
+
+
 def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int = 0,
                     softcap: float = 0.0, scale: Optional[float] = None) -> torch.Tensor:
   """Causal GQA attention of one segment over its own K/V, in the JAX layout:
@@ -51,11 +62,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: i
                        f"got {t.dtype} on {t.device}")
   if D not in HEAD_DIMS:
     raise ValueError(f"flash_attention: built for head_dim {HEAD_DIMS}, got {D}")
-  block_q = knobs.get_int("XOT_FLASH_BLOCK_Q")
-  block_k = knobs.get_int("XOT_FLASH_BLOCK_K")
-  if block_q not in BLOCKS or block_k not in BLOCKS:
-    raise ValueError(f"flash_attention: XOT_FLASH_BLOCK_Q={block_q} and XOT_FLASH_BLOCK_K="
-                     f"{block_k}: the kernel takes {BLOCKS} query rows a block and keys a tile")
+  block_q, block_k = flash_blocks()
   if q.device.type != "cuda":
     raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
   scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)

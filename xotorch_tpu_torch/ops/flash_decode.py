@@ -3,15 +3,25 @@ resident KV cache — decode steps (T == 1) and chunked-prefill segments at q_st
 
 The port of xotorch_tpu/ops/flash_decode.py (`_cached_kernel` and
 `_cached_kernel_windowed`, with and without `quant`). The kernels are hand-written
-CUDA for Hopper (csrc/flash_decode.cu): they read the cache only up to each row's
-last visible position, so decode cost follows occupancy. K2 reads a bf16 cache; K2q
-(`flash_cached_attention_int8`) reads an int8 cache with one scale per (position,
-head) and dequantizes each tile as it stages it, exactly as JAX's `_load_kv` does. The
-plain PyTorch version `flash_cached_attention_ref` sits beside them, built on
-`gqa_attention`; the wrappers take it only for tensors on the CPU.
+CUDA for Hopper (csrc/flash_decode.cu). A decode step is split-K flash-decoding
+(csrc/decode_split.cuh): each row's cache positions are cut into ranges of whole
+64-key tiles (`split_plan`, from the static shapes and the card's SM count, so the
+host never reads a position), one CUDA block a range, and a second kernel merges the
+ranges; ranges past a row's position read nothing, so decode cost follows occupancy.
+A segment (T > 1) runs on the tensor-core tile core of csrc/attention_mma.cuh, as K1
+does. K2 reads a bf16 cache; K2q (`flash_cached_attention_int8`) reads an int8 cache
+with one scale per (position, head) and dequantizes each tile as it stages it, exactly
+as JAX's `_load_kv` does. The plain PyTorch version `flash_cached_attention_ref` sits
+beside them, built on `gqa_attention`; the wrappers take it only for tensors on the
+CPU.
+
+Knobs: `XOT_FD_BLOCK_Q` is the query rows a segment block holds (positions x query
+heads of one kv head), 64 or 128; `XOT_FD_BLOCK_K` is the most keys one decode split
+reads, a multiple of 64. `decode_blocks` reads and checks both.
 """
 from __future__ import annotations
 
+import functools
 import math
 from typing import Optional, Tuple
 
@@ -21,9 +31,47 @@ from xotorch_tpu_torch.ops import _build
 from xotorch_tpu_torch.ops.attention import gqa_attention
 from xotorch_tpu_torch.utils import knobs
 
-# Rows (positions x groups) one CUDA block holds: the q tile lives in shared memory.
-MAX_ROWS = 64
+MAX_GROUPS = 64  # q heads per kv head
 HEAD_DIMS = (16, 32, 64, 128)  # the kernels' instantiations
+ROW_BLOCKS = (64, 128)  # XOT_FD_BLOCK_Q: a segment block's query rows
+SPLIT_TILE = 64  # keys a staged tile of the decode kernels; a split is whole tiles
+SPLIT_BLOCKS_PER_SM = 4  # decode blocks a split plan aims at for each SM
+
+
+def split_plan(B: int, Hkv: int, S: int, sm_count: int, max_keys: int = 256) -> Tuple[int, int]:
+  """(splits, keys a split) of a split-K decode launch over cache positions [0, S):
+  ranges of whole 64-key tiles, the fewest keys a range for which the B x Hkv x splits
+  blocks stay within SPLIT_BLOCKS_PER_SM blocks an SM (one tile a range when even that
+  does not reach it), and at most `max_keys` (a multiple of 64). From static shapes
+  only: the host never needs a position. The last range reaches S; none lies wholly
+  past it."""
+  tiles = -(-S // SPLIT_TILE)
+  want = -(-SPLIT_BLOCKS_PER_SM * sm_count // (B * Hkv))  # splits for the blocks aimed at
+  per = max(1, min(-(-tiles // want), max_keys // SPLIT_TILE))  # tiles a split
+  return -(-tiles // per), per * SPLIT_TILE
+
+
+@functools.lru_cache(maxsize=None)
+def _sm_count(device: int) -> int:
+  return torch.cuda.get_device_properties(device).multi_processor_count
+
+
+@functools.lru_cache(maxsize=256)
+def _plan(B: int, Hkv: int, S: int, device: int, max_keys: int) -> Tuple[int, int]:
+  return split_plan(B, Hkv, S, _sm_count(device), max_keys)
+
+
+def decode_blocks() -> Tuple[int, int]:
+  """(XOT_FD_BLOCK_Q, XOT_FD_BLOCK_K): a segment block's query rows (64 or 128) and the
+  most keys a decode split reads (a positive multiple of 64). Anything else raises
+  ValueError naming the knob; the engine calls this when it is built."""
+  block_q, block_k = knobs.get_int("XOT_FD_BLOCK_Q"), knobs.get_int("XOT_FD_BLOCK_K")
+  if block_q not in ROW_BLOCKS:
+    raise ValueError(f"XOT_FD_BLOCK_Q={block_q}: K2/K2q take {ROW_BLOCKS} query rows a block")
+  if block_k < SPLIT_TILE or block_k % SPLIT_TILE:
+    raise ValueError(f"XOT_FD_BLOCK_K={block_k}: K2/K2q's decode splits are whole "
+                     f"{SPLIT_TILE}-key tiles (a positive multiple of {SPLIT_TILE})")
+  return block_q, block_k
 
 
 def dequantize_kv(k: torch.Tensor, v: torch.Tensor, k_scale: torch.Tensor, v_scale: torch.Tensor,
@@ -99,13 +147,22 @@ def flash_cached_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
     if t.dtype != dtype or t.device != q.device or not t.is_contiguous():
       raise ValueError(f"{name}: {what} must be contiguous {dtype} on {q.device}, "
                        f"got {t.dtype} on {t.device}")
+  if Hq // Hkv > MAX_GROUPS:
+    raise ValueError(f"{name}: {Hq // Hkv} q heads per kv head exceed {MAX_GROUPS}")
+  if D not in HEAD_DIMS:
+    raise ValueError(f"{name}: built for head_dim {HEAD_DIMS}, got {D}")
+  block_q, block_k = decode_blocks()
   if q.device.type != "cuda":
     raise ValueError(f"{name} runs on cuda or cpu tensors, got {q.device}")
-  block_q, block_k, scale = _blocks(name, T, Hq, Hkv, D, scale)
+  scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
   out = torch.empty_like(q)
+  part, splits, kps = None, 0, 0
+  if T == 1:  # the splits' fp32 partials: acc [B * Hq * splits, D], then (m, l)
+    splits, kps = _plan(B, Hkv, S, q.device.index or 0, block_k)
+    part = torch.empty(B * Hq * splits * (D + 2), dtype=torch.float32, device=q.device)
   lib = _build.load("flash_decode")
-  rest = (q_start.data_ptr(), out.data_ptr(), B, T, S, Hq, Hkv, D, block_q, block_k,
-          int(window or 0), scale, float(softcap or 0.0),
+  rest = (q_start.data_ptr(), out.data_ptr(), None if part is None else part.data_ptr(), B, T, S,
+          Hq, Hkv, D, block_q, splits, kps, int(window or 0), scale, float(softcap or 0.0),
           torch.cuda.current_stream(q.device).cuda_stream)
   if quant:
     rc = lib.xot_flash_cached_attention_kv8(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
@@ -113,25 +170,13 @@ def flash_cached_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
   else:
     rc = lib.xot_flash_cached_attention_bf16(q.data_ptr(), k_cache.data_ptr(), v_cache.data_ptr(),
                                              *rest)
-  _build.check(rc, f"{name} (B={B} T={T} S={S} Hq={Hq} D={D} block_q={block_q} block_k={block_k})")
+  _build.check(rc, f"{name} (B={B} T={T} S={S} Hq={Hq} Hkv={Hkv} D={D} block_q={block_q} "
+                   f"splits={splits} x {kps} keys)")
   (flash_cached_attention_int8 if quant else flash_cached_attention).launches += 1
   return out
 
 
 flash_cached_attention.launches = 0
-
-
-def _blocks(name: str, T: int, Hq: int, Hkv: int, D: int, scale: Optional[float]):
-  """(block_q, block_k, score scale) of a K2/K2q launch."""
-  groups = Hq // Hkv
-  if groups > MAX_ROWS:
-    raise ValueError(f"{name}: {groups} q heads per kv head exceed {MAX_ROWS}")
-  if D not in HEAD_DIMS:
-    raise ValueError(f"{name}: built for head_dim {HEAD_DIMS}, got {D}")
-  # Positions per block: the knob, capped by T and by the block's row budget.
-  block_q = max(1, min(knobs.get_int("XOT_FD_BLOCK_Q"), T, MAX_ROWS // groups))
-  block_k = knobs.get_int("XOT_FD_BLOCK_K")
-  return block_q, block_k, float(scale) if scale is not None else 1.0 / math.sqrt(D)
 
 
 def flash_cached_attention_int8(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

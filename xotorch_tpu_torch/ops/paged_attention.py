@@ -7,11 +7,14 @@ The port of xotorch_tpu/ops/paged_attention.py (`paged_decode_attention`, K3, an
 fixed-size pages in ONE arena per layer; each batch row reaches its tokens through a
 page table and is read only up to its own occupied pages, not the batch maximum.
 
-The kernels are hand-written CUDA for Hopper (csrc/paged_attention.cu; K4 and K4q on
-the tensor-core tile core of csrc/attention_mma.cuh, 64 query rows a block) and read
-each layer's arena [P, page, Hkv, D] in place. An int8 arena carries scale pages
-[P, page, Hkv] (`k_scale_pages`/`v_scale_pages`), indexed by the same page id and
-slot as the payload; K3q and K4q dequantize as they read. The plain PyTorch versions
+The kernels are hand-written CUDA for Hopper (csrc/paged_attention.cu) and read each
+layer's arena [P, page, Hkv, D] in place: K3 and K3q as split-K flash-decoding on the
+core of csrc/decode_split.cuh (each row's table positions cut into ranges of whole
+64-key tiles by `flash_decode.split_plan`, from the table's width and the SM count,
+never from the lengths, then merged by a second kernel), K4 and K4q on the
+tensor-core tile core of csrc/attention_mma.cuh, 64 query rows a block. An int8 arena
+carries scale pages [P, page, Hkv] (`k_scale_pages`/`v_scale_pages`), indexed by the
+same page id and slot as the payload; K3q and K4q dequantize as they read. The plain PyTorch versions
 sit beside them: gather each row's pages into a contiguous view (dequantized), then
 the shared masked attention (`gqa_attention`), as the JAX package's XLA path does.
 The wrappers take the plain version only for tensors on the CPU. Not ported: the
@@ -26,12 +29,13 @@ import torch
 
 from xotorch_tpu_torch.ops import _build
 from xotorch_tpu_torch.ops.attention import gqa_attention
-from xotorch_tpu_torch.ops.flash_decode import check_kv_quant, dequantize_kv
+from xotorch_tpu_torch.ops.flash_decode import _plan, check_kv_quant, dequantize_kv
 
 HEAD_DIMS = (16, 64, 128)
 PAGE_SIZES = (16, 128)
 MAX_GROUPS = 8  # K3, K4: q heads per kv head one block holds
 ROWS = 64  # K4: query rows (positions x groups) a block, 4 warps of 16
+SPLIT_KEYS = 256  # K3: the most keys one decode split reads
 
 
 def _gather(pages: torch.Tensor, page_table: torch.Tensor) -> torch.Tensor:
@@ -139,10 +143,13 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
   if T != 1:
     raise ValueError(f"{name}: one query per row, got T={T}")
   scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
+  maxp = page_table.shape[1]
+  splits, kps = _plan(B, Hkv, maxp * page, q.device.index or 0, SPLIT_KEYS)
   out = torch.empty_like(q)
+  part = torch.empty(B * Hq * splits * (D + 2), dtype=torch.float32, device=q.device)
   lib = _build.load("paged_attention")
-  rest = (page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), B, page_table.shape[1], P,
-          page, Hq, Hkv, D, int(window or 0), scale, float(softcap or 0.0),
+  rest = (page_table.data_ptr(), lengths.data_ptr(), out.data_ptr(), part.data_ptr(), B, maxp,
+          P, page, Hq, Hkv, D, splits, kps, int(window or 0), scale, float(softcap or 0.0),
           torch.cuda.current_stream(q.device).cuda_stream)
   if quant:
     rc = lib.xot_paged_decode_attention_kv8(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
@@ -151,8 +158,8 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
   else:
     rc = lib.xot_paged_decode_attention_bf16(q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
                                              *rest)
-  _build.check(rc, f"{name} (B={B} maxp={page_table.shape[1]} P={P} page={page} Hq={Hq} "
-                   f"Hkv={Hkv} D={D})")
+  _build.check(rc, f"{name} (B={B} maxp={maxp} P={P} page={page} Hq={Hq} Hkv={Hkv} D={D} "
+                   f"splits={splits} x {kps} keys)")
   (paged_decode_attention_int8 if quant else paged_decode_attention).launches += 1
   return out
 
