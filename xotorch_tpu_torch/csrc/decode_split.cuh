@@ -28,8 +28,8 @@
 //   per row in registers; the block merges its warps' states in shared memory and
 //   writes one fp32 partial (m, l, acc[D]) per (row, split).
 // - merge_splits_kernel, launched next on the same stream, combines a row's partials
-//   with a running max M: L = sum l e^(m - M), O = sum acc e^(m - M), out = O / L with
-//   JAX's l == 0 -> 1 guard, rounded once to bf16.
+//   (one warp a row): M = max m, L = sum l e^(m - M), O = sum acc e^(m - M), out = O / L
+//   with JAX's l == 0 -> 1 guard, rounded once to bf16.
 #pragma once
 
 #include "attention_mma.cuh"
@@ -274,32 +274,56 @@ __host__ __forceinline__ int rows_per_block(int groups) {
 
 // Row bh in [0, rows_total) (b * Hq + h) of the output o [B, 1, Hq, D]: its `splits`
 // partials at part_acc[(bh * splits + s) * D + d] and part_ml[(bh * splits + s) * 2],
-// merged in one pass with a running max (loads of 8 splits in flight at once); 128 / D
-// rows a block, one thread a dimension. Empty splits (m = -inf) weigh nothing and their
-// acc, never written, is not read.
+// merged by one warp: lane s reads split s's (m, l), so the max M over the splits takes
+// one load a lane; then lane d sums acc[s][d] e^(m_s - M) over the splits, loading only
+// those that hold a key (an empty split, m = -inf, weighs nothing and its acc was never
+// written), 8 at a time.
 template <int D>
 __global__ void __launch_bounds__(128) merge_splits_kernel(const float* __restrict__ part_acc,
                                                            const float* __restrict__ part_ml,
                                                            bf16* __restrict__ o, int rows_total,
                                                            int splits) {
-  const int bh = blockIdx.x * (128 / D) + threadIdx.x / D;
-  const int d = threadIdx.x % D;
-  if (bh >= rows_total) return;
+  constexpr int NDL = (D + 31) / 32;  // output dimensions a lane owns: lane + 32 i
+  const int bh = blockIdx.x * 4 + threadIdx.x / 32;
+  const int lane = threadIdx.x % 32;
+  if (bh >= rows_total) return;  // uniform across the warp
   const float2* ml = reinterpret_cast<const float2*>(part_ml) + (size_t)bh * splits;
-  const float* acc = part_acc + (size_t)bh * splits * D + d;
-  float M = -INFINITY, L = 0.f, O = 0.f;
+  const float* acc = part_acc + (size_t)bh * splits * D;
+  float M = -INFINITY;
+  for (int s = lane; s < splits; s += 32) M = fmaxf(M, ml[s].x);
+  M = warp_max(M);
+  float L = 0.f, O[NDL];
+#pragma unroll
+  for (int i = 0; i < NDL; ++i) O[i] = 0.f;
+  for (int c = 0; c < splits; c += 32) {
+    float w = 0.f;  // split c + lane's weight
+    if (c + lane < splits) {
+      const float2 x = ml[c + lane];
+      if (x.x != -INFINITY) {
+        w = __expf(x.x - M);
+        L += x.y * w;
+      }
+    }
+    const int n = min(32, splits - c);
 #pragma unroll 8
-  for (int s = 0; s < splits; ++s) {
-    const float2 x = ml[s];  // (m, l)
-    if (x.x == -INFINITY) continue;
-    const float m_new = fmaxf(M, x.x);
-    const float alpha = __expf(M - m_new);
-    const float wt = __expf(x.x - m_new);
-    L = L * alpha + x.y * wt;
-    O = O * alpha + acc[(size_t)s * D] * wt;
-    M = m_new;
+    for (int j = 0; j < n; ++j) {
+      const float wj = __shfl_sync(FULL, w, j);
+      if (wj != 0.f) {  // uniform across the warp
+#pragma unroll
+        for (int i = 0; i < NDL; ++i) {
+          const int d = lane + 32 * i;
+          if (d < D) O[i] = fmaf(acc[(size_t)(c + j) * D + d], wj, O[i]);
+        }
+      }
+    }
   }
-  o[(size_t)bh * D + d] = __float2bfloat16_rn(O / (L == 0.f ? 1.f : L));
+  L = warp_sum(L);
+  const float inv = 1.f / (L == 0.f ? 1.f : L);
+#pragma unroll
+  for (int i = 0; i < NDL; ++i) {
+    const int d = lane + 32 * i;
+    if (d < D) o[(size_t)bh * D + d] = __float2bfloat16_rn(O[i] * inv);
+  }
 }
 
 // The partials of rows_total = B * Hq rows over `splits` splits lie in one buffer of
@@ -309,11 +333,11 @@ __host__ __device__ __forceinline__ float* part_ml_of(float* part, int rows_tota
   return part + (size_t)rows_total * splits * D;
 }
 
-// Launch the merge of those partials into o [rows_total, D] (bf16) on `stream`.
+// Launch the merge of those partials into o [rows_total, D] (bf16) on `stream`: a warp a
+// row, four rows a block.
 template <int D>
 int merge_splits(float* part, void* o, int rows_total, int splits, cudaStream_t stream) {
-  constexpr int PER = 128 / D;
-  merge_splits_kernel<D><<<(rows_total + PER - 1) / PER, 128, 0, stream>>>(
+  merge_splits_kernel<D><<<(rows_total + 3) / 4, 128, 0, stream>>>(
       part, part_ml_of(part, rows_total, splits, D), static_cast<bf16*>(o), rows_total, splits);
   return (int)cudaGetLastError();
 }
