@@ -23,7 +23,11 @@ Phases, in order; any failure exits nonzero and prints no result line:
      split-K decode plan (lengths 1, a split -1..+2 and S, windows that empty whole
      splits, B=8 at lengths 1-4095, D 16-128, groups 1-16, pages 16 and 128), with each
      wrapper run once under torch.cuda.set_sync_debug_mode("error"), correctness and
-     the int8 twins' bit identity only;
+     the int8 twins' bit identity only; then K5 and K6 beyond the main path
+     (check_gemv_edges: llama-3.1-8B's and 70B's projections, ragged column tiles and
+     k-steps, one group, rows 1, 3 and 8), repeated calls identical, K6's outputs that
+     differ from its plain version counted, and each GEMV wrapper once under
+     set_sync_debug_mode("error");
   4. model: a two-layer cut of synthetic-llama-1b at full width, prefill and decode
      through the kernels in bf16 on the card against the plain path in fp32 on the
      CPU: contiguous (K1, K2), then paged (K4 prefill, K3 decode at B=3), then with
@@ -45,7 +49,8 @@ Phases, in order; any failure exits nonzero and prints no result line:
   8. quantized serving: fresh servers with XOT_QUANTIZE=int4 (K5), int4 with
      XOT_INT4_V=4 (K5v4) and int8 with XOT_INT8_KERNEL=1 (K6) answer the main path's
      three requests, each kernel's launches equal to 7 projections x 16 layers x the
-     decode steps; each then decodes 32 steps at B=1 and B=8 under the profiler, as
+     decode steps; each then decodes 32 steps at B=1 and B=8 under the profiler (one
+     device kernel in the trace for each call of the wrapper), as
      does the engine alone on the int8 default path (no kernel); then the concurrent
      paged phase's eight requests with int4 weights (K5 launches against decode
      steps), one projection's host time by route, and the five formats' B=1 decode
@@ -790,7 +795,8 @@ def check_quant_kernels(torch, results: dict) -> None:
   only the order of fp32 sums (K5, K5v4) and the final rounding can differ. The
   library yardstick is one torch.matmul of h by the same weight dequantized to bf16
   beforehand: it reads 2x (int8) or 4x (int4) the weight bytes, and the port never
-  calls it."""
+  calls it. Two calls on the same inputs must give identical outputs; K6 prints how
+  many outputs differ from its plain version. Then the edge shapes (check_gemv_edges)."""
   from xotorch_tpu_torch.models.quantize import (dequantize_tensor, dequantize_tensor_grouped,
                                                  quantize_tensor, quantize_tensor_grouped)
   from xotorch_tpu_torch.ops.int4_matmul import (int4_w4a8_matmul, int4_w4a8_matmul_ref,
@@ -823,7 +829,12 @@ def check_quant_kernels(torch, results: dict) -> None:
       for name, fn, ref_fn, ops, nbytes, peak, dense in cases:
         out = fn(h, *ops)
         torch.cuda.synchronize()
+        if not torch.equal(out, fn(h, *ops)):
+          raise AssertionError(f"{name} {slot} rows={rows}: two calls on the same inputs differ")
         ref = ref_fn(h, *ops)
+        if name == "int8_rowquant_matmul":
+          print(f"[{name}] {slot} {K}->{N} rows={rows}: {k6_differ(torch, out, ref, ref_fn, h, ops)}",
+                flush=True)
         ms = time_ms(lambda: fn(h, *ops))
         plain_ms = time_ms(lambda: ref_fn(h, *ops), iters=5)
         lib_ms = time_ms(lambda: torch.matmul(h, dense))
@@ -833,6 +844,166 @@ def check_quant_kernels(torch, results: dict) -> None:
                    atol=atol)
         if (slot, rows) == ("w_gate/w_up", 1):
           results[name] = r
+  gemv_step_us(torch)
+  check_gemv_edges(torch)
+
+
+def gemv_step_us(torch, layers: int = 16) -> None:
+  """K5 and K6 at one decode row as a decode step meets them: each synthetic-llama-1b
+  projection shape `layers` times back to back, a distinct random weight each time (one
+  a layer), h resident, no L2 flush, CUDA events around three such runs. Once on the
+  launch plan's kernel (gemv_plan at one row: the one-row kernel for K <= 4096) and
+  once on the cluster kernels' plan (what rows 2-8 take), through the C entry points.
+  Prints device us a call per shape and for a layer's 7 projections: the measurement
+  behind the one-row choice (PERF.md, Findings on K5 and K6)."""
+  from xotorch_tpu_torch.ops import _build
+  from xotorch_tpu_torch.ops.int8_matmul import gemv_plan
+  lib = _build.load("quant_matvec")
+  dev = torch.device("cuda")
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
+  stream = torch.cuda.current_stream().cuda_stream
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(9)
+  bf = torch.bfloat16
+  for fmt in ("K6", "K5"):
+    parts, layer = [], {"plan": 0.0, "cluster": 0.0}
+    for slot, K, N in QUANT_SHAPES:
+      if fmt == "K6":
+        ws = [torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
+              for _ in range(layers)]
+        scs = [torch.rand(N, generator=gen, device=dev).to(bf) for _ in range(layers)]
+      else:
+        ws = [torch.randint(0, 256, (K // 128, 64, N), generator=gen, device=dev,
+                            dtype=torch.int32).to(torch.uint8) for _ in range(layers)]
+        scs = [torch.rand(K // 128, N, generator=gen, device=dev).to(bf) for _ in range(layers)]
+      h = torch.randn(1, K, generator=gen, device=dev).to(bf)
+      out = torch.empty(1, N, dtype=bf, device=dev)
+      us = {}
+      for label, (tile, splits) in (("plan", gemv_plan(1, K, N, sms)),
+                                    ("cluster", gemv_plan(8, K, N, sms))):
+        def run():
+          for w, sc in zip(ws, scs):
+            if fmt == "K6":
+              rc = lib.xot_w8a8_matvec_bf16(h.data_ptr(), w.data_ptr(), sc.data_ptr(),
+                                            out.data_ptr(), 1, K, N, tile, splits, stream)
+            else:
+              rc = lib.xot_w4a16_matvec_bf16(h.data_ptr(), w.data_ptr(), sc.data_ptr(),
+                                             out.data_ptr(), 1, K, N, 128, tile, splits, stream)
+            _build.check(rc, f"gemv_step_us {fmt} {slot} tile={tile} splits={splits}")
+        run()
+        torch.cuda.synchronize()
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda._sleep(20_000_000)  # the host enqueues the runs while the card sleeps
+        start.record()
+        for _ in range(3):
+          run()
+        end.record()
+        torch.cuda.synchronize()
+        us[label] = start.elapsed_time(end) / 3 / layers * 1e3
+        layer[label] += us[label] * (1 if slot == "w_down" else 2)
+      parts.append(f"{slot} {us['plan']:.2f} / {us['cluster']:.2f}")
+      del ws, scs
+    print(f"[gemv step] {fmt} at one row, device us a call over {layers} layers back to back, "
+          f"plan / cluster kernels: " + ", ".join(parts) + f"; a layer's 7 projections "
+          f"{layer['plan']:.2f} / {layer['cluster']:.2f} ({smi_line()})", flush=True)
+
+
+# K5 and K6 beyond the main path: llama-3.1-8B's and 70B's projections, column tiles
+# and k-steps cut ragged, one group, h on a 4-byte boundary. (label, in, out, h offset
+# in bf16 elements from a 16-byte boundary).
+GEMV_EDGES = (("8B wq/wo", 4096, 4096, 0), ("8B wk/wv", 4096, 1024, 0),
+              ("8B gate/up", 4096, 14336, 0), ("8B down", 14336, 4096, 0),
+              ("70B wq/wo", 8192, 8192, 0), ("70B wk/wv", 8192, 1024, 0),
+              ("70B gate/up", 8192, 28672, 0), ("70B down", 28672, 8192, 0),
+              ("N=4", 2048, 4, 0), ("N=36, ragged tile", 2048, 36, 0),
+              ("N=2052, ragged tile", 2048, 2052, 0), ("one group", 128, 2048, 0),
+              ("one group, N=36", 128, 36, 0), ("ragged last k-step (K6)", 2052, 36, 0),
+              ("h 4-byte aligned", 2048, 512, 2))
+
+
+def k6_differ(torch, out, ref, ref_fn, h, ops) -> str:
+  """How many of K6's outputs differ from its plain version, on the card and on a CPU
+  copy of the inputs. The arithmetic is exact, so 0 is expected against the CPU; the
+  card's plain version may round its activation scale otherwise (PERF.md, Findings on K5 and K6)."""
+  cpu = ref_fn(h.cpu(), *(o.cpu() for o in ops)).to(out.device)
+  return (f"{int((out != ref).sum())} of {out.numel()} outputs differ from the plain version "
+          f"on the card, {int((out != cpu).sum())} from it on the CPU (exact arithmetic)")
+
+
+def check_gemv_edges(torch) -> None:
+  """K5 and K6 at GEMV_EDGES, rows 1, 3 and 8, on random codes and scales: each
+  within 2^-7 of its plain version's range, two calls identical, and K6's outputs that
+  differ from its plain version counted (k6_differ). K5 needs K a
+  multiple of its 128-value group, so it skips the ragged k-step. Then K5, K5v4 and K6
+  once each under torch.cuda.set_sync_debug_mode("error"): no wrapper reads a device
+  tensor back."""
+  from xotorch_tpu_torch.ops.int4_matmul import (int4_w4a8_matmul, int4_w4a16_matmul,
+                                                 int4_w4a16_matmul_ref)
+  from xotorch_tpu_torch.ops.int8_matmul import (gemv_plan, int8_rowquant_matmul,
+                                                 int8_rowquant_matmul_ref)
+  dev = torch.device("cuda")
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
+  gen = torch.Generator(device=dev)
+  gen.manual_seed(7)
+  bf = torch.bfloat16
+  for label, K, N, off in GEMV_EDGES:
+    w8 = torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
+    ws = (torch.rand(N, generator=gen, device=dev) * 0.02 + 0.005).to(bf)
+    kernels = [("int8_rowquant_matmul", int8_rowquant_matmul, int8_rowquant_matmul_ref, (w8, ws))]
+    if K % 128 == 0:
+      pk = torch.randint(0, 256, (K // 128, 64, N), generator=gen, device=dev,
+                         dtype=torch.int32).to(torch.uint8)
+      gs = (torch.rand(K // 128, N, generator=gen, device=dev) * 0.02 + 0.005).to(bf)
+      kernels.append(("int4_w4a16_matmul", int4_w4a16_matmul, int4_w4a16_matmul_ref, (pk, gs)))
+    for rows in (1, 3, 8):
+      flat = torch.randn(rows * K + off, generator=gen, device=dev).to(bf)
+      h = flat[off:].view(rows, K)
+      for name, fn, ref_fn, ops in kernels:
+        out = fn(h, *ops)
+        torch.cuda.synchronize()
+        if not torch.equal(out, fn(h, *ops)):
+          raise AssertionError(f"{name} {label} rows={rows}: two calls on the same inputs differ")
+        ref = ref_fn(h, *ops)
+        tile, splits = gemv_plan(rows, K, N, sms)
+        plan = f"tile {tile}, {splits} splits" if tile else "one-row kernel"
+        case = f"{label} {K}->{N} rows={rows} ({plan})"
+        err = (out.float() - ref.float()).abs().max().item()
+        atol = QUANT_REL_TOL * ref.float().abs().max().item()
+        ok = math.isfinite(err) and err <= atol
+        extra = ""
+        if name == "int8_rowquant_matmul":
+          extra = "; " + k6_differ(torch, out, ref, ref_fn, h, ops)
+        print(f"[{name}] edge {case}: max_abs_err={err:.3e} (atol {atol:.3e}){extra} "
+              f"{'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+          raise AssertionError(f"{name} {case}: kernel disagrees with its plain version ({err})")
+    del w8, kernels
+  print("[gemv edges] every K5/K6 case within 2^-7 of its range, repeated calls identical",
+        flush=True)
+  # Why the card's plain K6 can differ from the kernel: its activation scale max / 127.
+  x = torch.rand(1 << 20, generator=torch.Generator().manual_seed(0)) * 100
+  card = (x.to(dev) / 127.0).cpu()
+  print(f"[gemv edges] fp32 x / 127.0 on the card differs from the CPU's in "
+        f"{int((card != x / 127.0).sum())} of {x.numel()} values, x * (1 / 127.0) on the CPU "
+        f"in {int((x * (1 / 127.0) != x / 127.0).sum())}", flush=True)
+  K, N = 2048, 512
+  h = torch.randn(8, K, generator=gen, device=dev).to(bf)
+  w8 = torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
+  ws = torch.rand(N, generator=gen, device=dev).to(bf)
+  pk = torch.randint(0, 256, (K // 128, 64, N), generator=gen, device=dev,
+                     dtype=torch.int32).to(torch.uint8)
+  gs = torch.rand(K // 128, N, generator=gen, device=dev).to(bf)
+  torch.cuda.synchronize()
+  torch.cuda.set_sync_debug_mode("error")
+  try:
+    int8_rowquant_matmul(h, w8, ws)
+    int4_w4a16_matmul(h, pk, gs)
+    int4_w4a8_matmul(h, pk, gs)
+  finally:
+    torch.cuda.set_sync_debug_mode(0)
+  torch.cuda.synchronize()
+  print("[gemv edges] int8_rowquant_matmul, int4_w4a16_matmul and int4_w4a8_matmul ran with "
+        "torch.cuda.set_sync_debug_mode('error'): no host read of a device tensor", flush=True)
 
 
 def cpu_copy(torch, params):
@@ -1203,12 +1374,16 @@ def http_stream(url: str, body, timeout: float = 300.0):
 
 
 async def profile_decode(torch, engine, model: str, classname: str, card: str,
-                         batch: int = 1, tag: str = "profile", focus: str = "") -> dict:
+                         batch: int = 1, tag: str = "profile", focus: str = "",
+                         wrapper=None) -> dict:
   """Where a decode chunk's time goes: 32 greedy tokens for each of `batch` requests
   after a 514-token prompt (one batched dispatch when batch > 1), timed once alone
   and once under torch.profiler (CUDA activity). Prints both wall times, the share
   of the profiled one the card spent in kernels, the share of kernels whose name
-  holds `focus`, and the kernels by device time. Returns the numbers."""
+  holds `focus`, and the kernels by device time. With `wrapper` (a kernel wrapper
+  with a launch counter), fails unless the trace holds one `focus` kernel for each of
+  the wrapper's launches in the profiled chunk (at most 10 % fewer: the trace drops
+  events). Returns the numbers."""
   if engine.device.type != "cuda":
     print(f"[{tag}] no card: busy share not measured", flush=True)
     return {}
@@ -1235,10 +1410,12 @@ async def profile_decode(torch, engine, model: str, classname: str, card: str,
   plain_ms = (time.perf_counter() - t0) * 1e3
   batcher = engine._ctx.batcher
   before = (batcher.dispatches, batcher.rows)
+  called = wrapper.launches if wrapper is not None else 0
   with profile(activities=[ProfilerActivity.CUDA]) as prof:
     t0 = time.perf_counter()
     await chunk(n)
     wall_ms = (time.perf_counter() - t0) * 1e3
+  called = wrapper.launches - called if wrapper is not None else 0
   widths = f"{batcher.dispatches - before[0]} dispatch(es), {batcher.rows - before[1]} rows"
   for rid in rids:
     await engine.clear_request(rid)
@@ -1267,6 +1444,17 @@ async def profile_decode(torch, engine, model: str, classname: str, card: str,
         f"{out['device_ms']:.3f} device ms per step"
         + (f", {focus} {focus_ms:.3f} ms = {out['focus_pct']:.1f}% of device time" if focus else "")
         + f" ({card})", flush=True)
+  if wrapper is not None:
+    # The trace drops events (CUPTI: up to 2.5 % of a chunk's kernels in one run), so the
+    # count may fall short of the calls; a second kernel of this name a call would read
+    # twice the calls.
+    focus_count = sum(r[2] for r in rows if focus in r[1])
+    ok = 0.9 * called <= focus_count <= called
+    print(f"[{tag}] B={batch}: {focus_count} {focus} kernels in the trace for {called} "
+          f"{wrapper.__name__} calls: one kernel a projection {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+      raise AssertionError(f"{tag}: {focus_count} {focus} kernels for {called} calls")
   # The ten longest kernels, and the split-K decode merge wherever it ranks.
   for i, (ms, name, count) in enumerate(rows):
     if i < 10 or "merge_splits" in name:
@@ -1293,13 +1481,14 @@ def main_requests(model: str):
 
 def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthetic-llama-1b",
                     kernels=None, env=None, tag: str = "main", profiles=(1,),
-                    focus: str = "", cli=()) -> dict:
+                    focus: str = "", cli=(), wrapper=None) -> dict:
   """The port's server on `model` (synthetic-llama-1b: full width and depth, on the
   card) answers three chat completions over HTTP, with `env` (XOT_* knobs, e.g. the
   quantized formats) set for the phase and `cli` (e.g. `--kv-quantize int8`) added
   to its command line. Every counter of `kernels` (default K1, K2) is set to 0 just
   before the three requests and read just after; then a decode chunk runs under the
-  profiler at each batch size of `profiles`. Returns the launch counts, the decode
+  profiler at each batch size of `profiles` (with `wrapper`, held to one `focus` kernel
+  a call of it). Returns the launch counts, the decode
   steps the batcher ran for the three requests, the tokens each request streamed
   and the profiles. (`device` and `model` let the same phase be rehearsed on the CPU
   with a small card.)"""
@@ -1385,7 +1574,7 @@ def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthe
         profiled = {}
         for b in profiles:
           profiled[b] = await profile_decode(torch, engine, model, classname, card, batch=b,
-                                             tag=tag, focus=focus)
+                                             tag=tag, focus=focus, wrapper=wrapper)
         return counts, decoded, steps, streamed, profiled
       finally:
         server.close()
@@ -1402,14 +1591,15 @@ def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthe
 
 
 def quant_phases():
-  """(format, knobs, kernel wrapper, kernel name in the profile) of each quantized
-  serving phase: int4 through K5, int4 with XOT_INT4_V=4 through K5v4, int8 with
-  XOT_INT8_KERNEL=1 through K6."""
+  """(format, knobs, kernel wrapper, what its kernels' names hold in the profile) of
+  each quantized serving phase: int4 through K5, int4 with XOT_INT4_V=4 through K5v4,
+  int8 with XOT_INT8_KERNEL=1 through K6 (K5 and K6 launch w4a16_kernel / w8a8_kernel
+  at one row over K <= 4096, their cluster kernels otherwise)."""
   from xotorch_tpu_torch.ops.int4_matmul import int4_w4a8_matmul, int4_w4a16_matmul
   from xotorch_tpu_torch.ops.int8_matmul import int8_rowquant_matmul
-  return (("int4", {}, int4_w4a16_matmul, "w4a16_kernel"),
+  return (("int4", {}, int4_w4a16_matmul, "w4a16_"),
           ("int4", {"XOT_INT4_V": "4"}, int4_w4a8_matmul, "w4a8_kernel"),
-          ("int8", {"XOT_INT8_KERNEL": "1"}, int8_rowquant_matmul, "w8a8_kernel"))
+          ("int8", {"XOT_INT8_KERNEL": "1"}, int8_rowquant_matmul, "w8a8_"))
 
 
 def drive_quantized(torch, card: str, fmt: str, env: dict, kernel, focus: str,
@@ -1420,7 +1610,8 @@ def drive_quantized(torch, card: str, fmt: str, env: dict, kernel, focus: str,
   from xotorch_tpu_torch.models.registry import get_model_card
   tag = f"{fmt} {kernel.__name__}" + (" XOT_INT4_V=4" if env.get("XOT_INT4_V") == "4" else "")
   run = drive_main_path(torch, card, device=device, model=model, kernels=(kernel,),
-                        env={"XOT_QUANTIZE": fmt, **env}, tag=tag, profiles=(1, 8), focus=focus)
+                        env={"XOT_QUANTIZE": fmt, **env}, tag=tag, profiles=(1, 8), focus=focus,
+                        wrapper=kernel if device == "cuda" else None)
   layers = get_model_card(model)["layers"]
   launched, want = run["launches"][kernel.__name__], 7 * layers * run["steps"]
   ok = launched == want and run["steps"] >= run["decoded"]

@@ -1,47 +1,47 @@
 // K5, K5v4 and K6: decode GEMVs over quantized weights, for Hopper (sm_90a).
 //
-// Replaces
-//   K5   xotorch_tpu/ops/int4_matmul.py::_int4_matvec_kernel{,_v2,_v3}  (W4A16, exact)
-//   K5v4 xotorch_tpu/ops/int4_matmul.py::_int4_matvec_kernel_v4         (W4A8)
-//   K6   xotorch_tpu/ops/int8_matmul.py::_int8_matvec_kernel            (W8A8)
-// with out[rows, N] = h[rows, K] @ W for rows <= 8 decode rows. W8A8: W int8 [K, N]
-// with a scale per column. int4: W packed two values a byte, uint8 [K/2, N] (packed
-// row p holds logical rows 2p in the low nibble and 2p+1 in the high one), with a
-// scale per (group of gs logical rows, column).
+// out[rows, N] = h[rows, K] @ W for rows <= 8 decode rows, h bf16. W8A8 (K6): W int8
+// [K, N] with a bf16 scale per column. int4 (K5, K5v4): W packed two values a byte,
+// uint8 [K/2, N] (packed row p holds logical rows 2p in the low nibble and 2p+1 in the
+// high one), with a bf16 scale per (group of gs logical rows, column).
 //
-// What bounds it: the weight is read once and dominates the bytes (K*N or K*N/2), so
-// every case is bound by bytes: 4 MB (int8) or 2 MB (int4) for a 2048 x 2048
-// projection, 1.25 / 0.63 us at 3.35 TB/s. The arithmetic is 2*rows*K*N operations.
-//
-// Design. One block of 256 threads owns 32 output columns and the whole contraction
-// (one launch per projection, no cross-block reduction). Each thread reads 4-byte
-// words (4 neighbouring columns of one weight row), so the 8 threads of a column
-// group cover the tile's 32 bytes of a row and a warp reads 4 rows at once. The 32
-// k-groups of a block split the contraction; their partial sums meet through warp
-// shuffles and one shared-memory pass. Activations are staged in shared memory one
-// K-chunk at a time (at most 41 KB of static shared memory, no opt-in needed); a
-// thread starts its weight loads for the chunk before the staging, so they are in
-// flight while the activations are scaled and staged.
-// - W8A8 / W4A8 quantize the activation inside the launch, as rowquant_int8 does:
-//   s = max|a| / 127 (1 for an all-zero row), q = rintf(a / s) with IEEE division
-//   (this file is built without fast math), so the kernel and the plain version
-//   see the same int8 values. W4A8 quantizes the even and the odd columns apart.
-//   A thread transposes 4 rows x 4 columns of bytes with __byte_perm and feeds
-//   __dp4a (int8x4 -> int32). int4 nibbles are biased to 0..15 (n ^ 8) so that
-//   they are valid int8 bytes; the bias is taken back as 8 * sum(a), which is one
-//   __dp4a per activation word.
-// - W4A16 converts each nibble to fp32 exactly (2^23 + u as float bits, minus
-//   2^23 + 8) and accumulates h * w in fp32 per group, scaling after the group's dot.
-// Scales are applied after the dots in fp32: K6 as acc * a_scale * w_scale, K5v4 as
-// (pe * s_even + po * s_odd) * gscale, per 16 packed rows of one group.
-//
-// Known limits: the grid is N / 32 blocks, so the 512-column k/v projections use 16
-// of the 132 SMs; W4A16 runs its arithmetic on CUDA-core FMA, no tensor cores.
+// K5 (w4a16_cluster_kernel) and K6 (w8a8_cluster_kernel) share one design, in
+// `namespace gemv` below; K5v4 (w4a8_kernel) keeps the first design, described at it.
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
 
+#include <type_traits>
+
+#include "attention_mma.cuh"
+
 namespace {
+
+// ---- K5v4, and K5 and K6 at one decode row: one block of 256 threads owns 32 columns
+// and the whole contraction, on the CUDA cores ----
+//
+// w4a8_kernel replaces xotorch_tpu/ops/int4_matmul.py::_int4_matvec_kernel_v4 (W4A8)
+// at every row count; w4a16_kernel and w8a8_kernel serve K5 and K6 at one row when the
+// launch plan asks for them (tile 0: ops/int8_matmul.py::gemv_plan, for short
+// contractions, where they take less device time in a decode step than the cluster
+// kernels below, whose barriers and split sums are a fixed cost a call; PERF.md, Findings on K5 and K6).
+// Bound by bytes: the weight, K*N or K*N/2. Each thread reads 4-byte words (4 neighbouring
+// columns of one weight row), so the 8 threads of a column group cover the tile's 32
+// bytes of a row and a warp reads 4 rows at once. The 32 k-groups of a block split the
+// contraction; their partial sums meet through warp shuffles and one shared-memory
+// pass. Activations are staged in shared memory one K-chunk at a time; a thread starts
+// its weight loads for the chunk before the staging. The activations are quantized
+// inside the launch, as rowquant_int8 does, the even and the odd columns apart:
+// s = max|a| / 127 (1 for an all-zero row), q = rintf(a / s) with IEEE division (this
+// file is built without fast math). A thread transposes 4 rows x 4 columns of bytes
+// with __byte_perm and feeds __dp4a; int4 nibbles are biased to 0..15 (n ^ 8), the bias
+// taken back as 8 * sum(a). Scales compose after the dots in fp32 as
+// (pe * s_even + po * s_odd) * gscale, per 16 packed rows of one group. W8A8 quantizes
+// the whole row with one scale and rescales as acc * a_scale * w_scale; W4A16 converts
+// each nibble to fp32 exactly (2^23 + u as float bits, minus 2^23 + 8) and accumulates
+// h * w in fp32 per group, scaling after the group's dot. The grid is N / 32 blocks, so
+// the 512-column k/v projections use 16 of the 132 SMs.
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -382,35 +382,44 @@ __global__ void __launch_bounds__(THREADS) w4a16_kernel(
   });
 }
 
-enum class Kind { W8A8, W4A8, W4A16 };
-
-template <Kind KIND, int R>
-cudaError_t launch_rows(const void* h, const void* w, const void* s, void* out, int K, int N,
-                        int gs_half, cudaStream_t stream) {
-  const dim3 grid((N + TN - 1) / TN);
-  const auto* hp = static_cast<const __nv_bfloat16*>(h);
-  const auto* wp = static_cast<const uint8_t*>(w);
-  const auto* sp = static_cast<const __nv_bfloat16*>(s);
-  auto* op = static_cast<__nv_bfloat16*>(out);
-  if constexpr (KIND == Kind::W8A8) w8a8_kernel<R><<<grid, THREADS, 0, stream>>>(hp, wp, sp, op, K, N);
-  if constexpr (KIND == Kind::W4A8) w4a8_kernel<R><<<grid, THREADS, 0, stream>>>(hp, wp, sp, op, K, N, gs_half);
-  if constexpr (KIND == Kind::W4A16) w4a16_kernel<R><<<grid, THREADS, 0, stream>>>(hp, wp, sp, op, K, N, gs_half);
+template <int R>
+cudaError_t launch_w4a8_rows(const void* h, const void* w, const void* s, void* out, int K, int N,
+                             int gs_half, cudaStream_t stream) {
+  w4a8_kernel<R><<<(N + TN - 1) / TN, THREADS, 0, stream>>>(
+      static_cast<const __nv_bfloat16*>(h), static_cast<const uint8_t*>(w),
+      static_cast<const __nv_bfloat16*>(s), static_cast<__nv_bfloat16*>(out), K, N, gs_half);
   return cudaGetLastError();
 }
 
-template <Kind KIND>
-int launch(const void* h, const void* w, const void* s, void* out, int rows, int K, int N,
-           int gs_half, void* stream) {
+// K6 and K5 at one decode row.
+int launch_w8a8_row(const void* h, const void* w, const void* s, void* out, int K, int N,
+                    void* stream) {
+  w8a8_kernel<1><<<(N + TN - 1) / TN, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(h), static_cast<const uint8_t*>(w),
+      static_cast<const __nv_bfloat16*>(s), static_cast<__nv_bfloat16*>(out), K, N);
+  return (int)cudaGetLastError();
+}
+
+int launch_w4a16_row(const void* h, const void* w, const void* s, void* out, int K, int N,
+                     int gs_half, void* stream) {
+  w4a16_kernel<1><<<(N + TN - 1) / TN, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(h), static_cast<const uint8_t*>(w),
+      static_cast<const __nv_bfloat16*>(s), static_cast<__nv_bfloat16*>(out), K, N, gs_half);
+  return (int)cudaGetLastError();
+}
+
+int launch_w4a8(const void* h, const void* w, const void* s, void* out, int rows, int K, int N,
+                int gs_half, void* stream) {
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (rows) {
-    case 1: return (int)launch_rows<KIND, 1>(h, w, s, out, K, N, gs_half, st);
-    case 2: return (int)launch_rows<KIND, 2>(h, w, s, out, K, N, gs_half, st);
-    case 3: return (int)launch_rows<KIND, 3>(h, w, s, out, K, N, gs_half, st);
-    case 4: return (int)launch_rows<KIND, 4>(h, w, s, out, K, N, gs_half, st);
-    case 5: return (int)launch_rows<KIND, 5>(h, w, s, out, K, N, gs_half, st);
-    case 6: return (int)launch_rows<KIND, 6>(h, w, s, out, K, N, gs_half, st);
-    case 7: return (int)launch_rows<KIND, 7>(h, w, s, out, K, N, gs_half, st);
-    case 8: return (int)launch_rows<KIND, 8>(h, w, s, out, K, N, gs_half, st);
+    case 1: return (int)launch_w4a8_rows<1>(h, w, s, out, K, N, gs_half, st);
+    case 2: return (int)launch_w4a8_rows<2>(h, w, s, out, K, N, gs_half, st);
+    case 3: return (int)launch_w4a8_rows<3>(h, w, s, out, K, N, gs_half, st);
+    case 4: return (int)launch_w4a8_rows<4>(h, w, s, out, K, N, gs_half, st);
+    case 5: return (int)launch_w4a8_rows<5>(h, w, s, out, K, N, gs_half, st);
+    case 6: return (int)launch_w4a8_rows<6>(h, w, s, out, K, N, gs_half, st);
+    case 7: return (int)launch_w4a8_rows<7>(h, w, s, out, K, N, gs_half, st);
+    case 8: return (int)launch_w4a8_rows<8>(h, w, s, out, K, N, gs_half, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -420,25 +429,532 @@ bool int4_shape_ok(int rows, int K, int N, int gs) {
          K >= gs && K % gs == 0;
 }
 
+// ---- K5 and K6: split-K over a thread-block cluster, mma.sync, one launch ----
+//
+// K6 (w8a8_cluster_kernel) replaces xotorch_tpu/ops/int8_matmul.py:43
+// _int8_matvec_kernel; K5 (w4a16_cluster_kernel) replaces xotorch_tpu/ops/int4_matmul.py
+// :46,67,93 _int4_matvec_kernel{,_v2,_v3} (the three differ on the TPU only in where
+// the scale multiply sits; here one exact W4A16 kernel serves them).
+//
+// Bound on this card: bytes. The weight is read once and dominates (K*N int8, K*N/2
+// int4): 16 MB for a 2048 x 8192 int8 projection is 5.0 us at 3.35 TB/s, while the
+// 2*rows*K*N operations take 0.07 us even at rows 8 on the int8 tensor cores. So the
+// design is about keeping enough weight bytes in flight on every SM, whatever N:
+// - The grid is column tiles x splits of the contraction; the splits of one tile form
+//   one thread-block cluster (at most 8, the portable size). A split is a range of
+//   whole 32-row k-steps (the last ends at K). The host picks the tile width (16, 32,
+//   64 or 128 columns: the widest that still gives a block for every SM) and the splits
+//   from static shapes and the SM count (ops/int8_matmul.py::gemv_plan), so the
+//   512-column k/v projections fill the card as the 8192-column ones do.
+// - A block of 4 warps streams its column strip through a ring of NSTAGE tiles of
+//   SROWS rows in shared memory with cp.async (16-byte copies where the layout is
+//   aligned), each tile with its slice of h (K5: and the gscale rows of its groups);
+//   the next tiles' copies stay in flight while one is computed. The warps split the
+//   tile's rows; each computes every 16-column mma tile of the strip.
+// - Tensor cores for every row count: mma.sync with n = 8 decode rows, rows past `rows`
+//   are zero registers. The weight is the A operand (16 columns x k), the activations
+//   B. ldmatrix.trans hands lane (g, t4) the bytes of two neighbouring rows in the
+//   column pair (2g, 2g + 1), and A's rows g and g + 8 are those two columns. A sum is
+//   order-free, so each lane's k slots hold whichever rows the load gives it, and B is
+//   built from h at the same rows.
+//   K6, m16n8k32 s8 x s8 -> s32: __byte_perm gathers four rows of one column into an A
+//   register. The activations are quantized in the launch, bit for bit as
+//   rowquant_int8 does: each block takes max|a| over its own range (its loads go out
+//   ahead of the tile copies), the cluster exchanges the maxima through distributed
+//   shared memory, s = max / 127 (1 for a zero row), q = rintf(a / s) with IEEE
+//   division, each value once per column tile. The int32 sums are exact in any order;
+//   the epilogue is (float)acc * a_scale * w_scale, in that order, as the plain version.
+//   K5, m16n8k16 bf16 x bf16 -> f32: a packed byte holds logical k = 2p and 2p + 1 of
+//   one column; a nibble pair moved to bits 0-3 and 16-19 and ORed with 0x43004300 is
+//   bf16 (128 + u, 128 + u') exactly, and minus 136 the signed values (u biased by ^ 8).
+//   One fp32 fragment a group, scaled by gscale when the group or the tile ends and
+//   added to the total; a split that cuts a group scales its own part of it.
+// - Each rank of the cluster owns a share of the tile's outputs: every block stores its
+//   partials into the owners' shared memory (distributed shared memory), one cluster
+//   barrier publishes them, and each owner sums them in rank order and writes: one
+//   launch, a result that does not depend on scheduling, no workspace, counter, memset
+//   or second kernel.
+namespace gemv {
+
+namespace cg = cooperative_groups;
+
+constexpr int THREADS = 128;   // 4 warps
+constexpr int WARPS = THREADS / 32;
+constexpr int ROWS = 8;        // decode rows: one mma's N
+constexpr int KSTEP = 32;      // logical rows of a k-step; a split is whole k-steps
+constexpr int MAX_SPLITS = 8;  // the portable cluster size
+constexpr int NSTAGE = 3;      // weight tiles in the ring
+constexpr int SROWS = 128;     // weight rows of a tile (K5: packed rows)
+
+// A tile of TN columns: SROWS rows of TN bytes (int8 codes, or packed nibble pairs),
+// the rows' h slice beside it.
+template <bool INT4, int TN>
+struct Geometry {
+  static constexpr int SUB = TN / 16;       // 16-column mma tiles of a weight row
+  static constexpr int KPR = INT4 ? 2 : 1;  // logical k a weight row
+  static constexpr int KL = SROWS * KPR;    // logical k a tile
+  static constexpr int WBYTES = SROWS * TN;
+  // K5: the gscale rows of the groups a tile touches (groups are at least 16 packed rows).
+  static constexpr int GROUPS = INT4 ? SROWS / 16 + 1 : 0;
+  static constexpr int SBYTES = GROUPS * TN * 2;
+  // A staged h row: KL bf16 and a pad that puts the rows of one B load (K6: 4 bytes a
+  // lane, K5: 8) on distinct banks.
+  static constexpr int HSTRIDE = 2 * KL + (INT4 ? 32 : 16);
+  __host__ __device__ static constexpr int slot(int rows) {
+    return WBYTES + SBYTES + rows * HSTRIDE;
+  }
+  __host__ __device__ static constexpr int smem(int rows) { return NSTAGE * slot(rows); }
+  using Acc = typename std::conditional<INT4, float, int>::type;
+  static_assert(TN % 16 == 0 && TN <= 128, "whole 16-column mma tiles, at most 8 a row");
+  static_assert(WARPS * ROWS * TN * 4 <= NSTAGE * WBYTES, "the epilogue reuses the ring");
+};
+
+// Byte offset of 16-byte chunk j (columns 16 j .. 16 j + 15) of weight row r in a tile.
+// A 128-byte bank window holds 128 / TN rows; the chunk's slot in it is XORed with the
+// window's index, so that the 8 rows an ldmatrix phase reads fall on distinct banks.
+template <int TN>
+__device__ __forceinline__ int wchunk(int r, int j) {
+  return (r * TN + 16 * j) ^ (((r / (128 / TN)) & (TN / 16 - 1)) << 4);
+}
+
+// ldmatrix.trans of M (1, 2 or 4) 8 x 8 matrices of 16-bit pairs of bytes: lanes 8m ..
+// 8m + 7 give the row addresses of matrix m; lane (g, t4) gets from each matrix the
+// pairs of rows 2 t4 and 2 t4 + 1 in column pair g: bytes (row 2t4: 2g, 2g + 1; row
+// 2t4 + 1: 2g, 2g + 1).
+template <int M>
+__device__ __forceinline__ void ldm_trans(uint32_t* x, const void* p) {
+  const uint32_t a = xot_mma::smem_u32(p);
+  if constexpr (M == 4)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+                 : "=r"(x[0]), "=r"(x[1]), "=r"(x[2]), "=r"(x[3]) : "r"(a) : "memory");
+  else if constexpr (M == 2)
+    asm volatile("ldmatrix.sync.aligned.m8n8.x2.trans.shared.b16 {%0, %1}, [%2];\n"
+                 : "=r"(x[0]), "=r"(x[1]) : "r"(a) : "memory");
+  else
+    asm volatile("ldmatrix.sync.aligned.m8n8.x1.trans.shared.b16 {%0}, [%1];\n"
+                 : "=r"(x[0]) : "r"(a) : "memory");
+}
+
+// `vec` bytes (4, 8 or 16, the same in every lane) from global to shared memory; zeros
+// when !valid.
+__device__ __forceinline__ void copy_async(void* dst, const void* src, int vec, bool valid) {
+  const uint32_t d = xot_mma::smem_u32(dst);
+  const int n = valid ? vec : 0;
+  if (vec == 16)
+    asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+  else if (vec == 8)
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 8, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+  else
+    asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(d), "l"(src), "r"(n)
+                 : "memory");
+}
+
+// A cluster barrier in two halves: arrive (relaxed) early, wait before the first access
+// to another block's shared memory, which must not come before every block has started.
+__device__ __forceinline__ void xot_cluster_arrive() {
+  asm volatile("barrier.cluster.arrive.relaxed.aligned;\n" ::: "memory");
+}
+__device__ __forceinline__ void xot_cluster_wait() {
+  asm volatile("barrier.cluster.wait.aligned;\n" ::: "memory");
+}
+
+// c (16x8 s32) += a (16x32 s8, row) . b (32x8 s8, col).
+__device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint32_t b0,
+                                       uint32_t b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k32.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// The bf16 pair of the signed nibbles at bits 0-3 and 16-19 of x >> shift, stored
+// biased (u = n ^ 8, 0..15): bf16 0x4300 | u is 128 + u exactly, and minus 136 it is n.
+__device__ __forceinline__ uint32_t nibble_pair(uint32_t x, int shift) {
+  uint32_t v = ((x >> shift) & 0x000F000Fu) | 0x43004300u;
+  __nv_bfloat162 f = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&v), __floats2bfloat162_rn(136.f, 136.f));
+  return *reinterpret_cast<uint32_t*>(&f);
+}
+
+// Weight rows rs .. rs + SROWS - 1 (zeros from r1 on), columns col0 .. col0 + TN - 1
+// (zeros from N on), into a tile, V bytes a copy.
+template <int TN, int V>
+__device__ __forceinline__ void copy_tile(unsigned char* tile, const uint8_t* w, int rs, int r1,
+                                          int col0, int N) {
+  constexpr int PER = TN / V;  // copies a row
+  for (int i = threadIdx.x; i < SROWS * PER; i += THREADS) {
+    const int r = i / PER, c = (i % PER) * V;
+    const bool ok = rs + r < r1 && col0 + c < N;
+    copy_async(tile + wchunk<TN>(r, c / 16) + c % 16, ok ? w + (size_t)(rs + r) * N + col0 + c : w,
+               V, ok);
+  }
+}
+
+struct Args {
+  const __nv_bfloat16* h;      // [rows, K]
+  const uint8_t* w;            // int8 [K, N] or packed uint8 [K/2, N]
+  const __nv_bfloat16* scale;  // K6: [N]; K5: gscale [K/gs, N]
+  __nv_bfloat16* out;          // [rows, N]
+  int rows, K, N, gs_half, splits;
+  int vec_w, vec_h, vec_s;     // bytes a cp.async moves: 16 where row stride and pointer allow
+};
+
+template <bool INT4, int TN>
+__device__ __forceinline__ void gemv_body(const Args& a) {
+  using G = Geometry<INT4, TN>;
+  using Acc = typename G::Acc;
+  constexpr int SUB = G::SUB;
+  extern __shared__ __align__(16) unsigned char smem[];
+  __shared__ float wmax[WARPS][ROWS], amax[ROWS], ascale[ROWS];  // K6's activation scale
+  __shared__ __align__(16) __nv_bfloat16 wscale[TN];              // K6's column scales
+  __shared__ Acc inbox[ROWS * TN + MAX_SPLITS];  // [split][output share], this rank's outputs
+  cg::cluster_group cluster = cg::this_cluster();
+  if constexpr (INT4) xot_cluster_arrive();  // K6's first cluster.sync does this
+
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t4 = lane & 3;
+  const int split = blockIdx.x, col0 = blockIdx.y * TN;
+  const int steps = (a.K + KSTEP - 1) / KSTEP;
+  const int k0 = split * steps / a.splits * KSTEP;
+  const int k1 = min(a.K, (split + 1) * steps / a.splits * KSTEP);
+  const int r0 = k0 / G::KPR, r1 = k1 / G::KPR;  // this split's weight rows
+  const int nstage = (r1 - r0 + SROWS - 1) / SROWS;
+  const int slot = G::slot(a.rows);
+
+  auto fetch = [&](int s) {  // tile s of the split: weight rows and h columns
+    unsigned char* base = smem + (s % NSTAGE) * slot;
+    const int rs = r0 + s * SROWS;
+    if (a.vec_w == 16)
+      copy_tile<TN, 16>(base, a.w, rs, r1, col0, a.N);
+    else if (a.vec_w == 8)
+      copy_tile<TN, 8>(base, a.w, rs, r1, col0, a.N);
+    else
+      copy_tile<TN, 4>(base, a.w, rs, r1, col0, a.N);
+    if constexpr (INT4) {  // gscale rows of groups g0 .. g1, columns of the tile
+      const int g0 = rs / a.gs_half, g1 = (min(rs + SROWS, r1) - 1) / a.gs_half;
+      const int sper = 2 * TN / a.vec_s, ev = a.vec_s / 2;
+      for (int i = threadIdx.x; i < (g1 - g0 + 1) * sper; i += THREADS) {
+        const int gi = i / sper, e = (i % sper) * ev;
+        const bool ok = col0 + e < a.N;
+        copy_async(base + G::WBYTES + 2 * (gi * TN + e),
+                   ok ? a.scale + (size_t)(g0 + gi) * a.N + col0 + e : a.scale, a.vec_s, ok);
+      }
+    }
+    const int ks = rs * G::KPR, hper = 2 * G::KL / a.vec_h, ev = a.vec_h / 2;
+    for (int i = threadIdx.x; i < a.rows * hper; i += THREADS) {
+      const int r = i / hper, e = (i % hper) * ev;
+      const bool ok = ks + e < k1;
+      copy_async(base + G::WBYTES + G::SBYTES + r * G::HSTRIDE + 2 * e,
+                 ok ? a.h + (size_t)r * a.K + ks + e : a.h, a.vec_h, ok);
+    }
+  };
+  if constexpr (!INT4) {  // the column scales, for the epilogue
+    for (int e = 2 * threadIdx.x; e < TN; e += 2 * THREADS) {
+      const bool ok = col0 + e < a.N;
+      copy_async(wscale + e, ok ? a.scale + col0 + e : a.scale, 4, ok);
+    }
+  }
+  // K6: the first PRE pairs of h a thread takes for the row maxima go out ahead of the
+  // tiles' copies, which would otherwise queue them behind the tiles' bytes.
+  constexpr int PRE = 4;
+  const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(a.h);
+  __nv_bfloat162 hv[INT4 ? 1 : ROWS][PRE];
+  if constexpr (!INT4) {
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int u = 0; u < PRE; ++u) {
+        const int i = k0 / 2 + threadIdx.x + u * THREADS;
+        hv[r][u] = r < a.rows && i < k1 / 2 ? h2[(size_t)r * (a.K / 2) + i]
+                                             : __floats2bfloat162_rn(0.f, 0.f);
+      }
+  }
+#pragma unroll
+  for (int s = 0; s < NSTAGE - 1; ++s) {
+    if (s < nstage) fetch(s);
+    xot_mma::cp_async_commit();
+  }
+
+  if constexpr (!INT4) {
+    // max|a| of each row over this split's range while the first tiles land, then over
+    // the cluster: the row's max over all of K, as rowquant_int8 takes it.
+    float m[ROWS];
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+      m[r] = 0.f;
+#pragma unroll
+      for (int u = 0; u < PRE; ++u) {
+        const float2 v = __bfloat1622float2(hv[r][u]);
+        m[r] = fmaxf(m[r], fmaxf(fabsf(v.x), fabsf(v.y)));
+      }
+    }
+    for (int i = k0 / 2 + threadIdx.x + PRE * THREADS; i < k1 / 2; i += THREADS) {
+#pragma unroll
+      for (int r = 0; r < ROWS; ++r) {
+        if (r < a.rows) {
+          const float2 v = __bfloat1622float2(h2[(size_t)r * (a.K / 2) + i]);
+          m[r] = fmaxf(m[r], fmaxf(fabsf(v.x), fabsf(v.y)));
+        }
+      }
+    }
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r) {
+#pragma unroll
+      for (int off = 16; off > 0; off >>= 1)
+        m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], off));
+      if (lane == 0) wmax[warp][r] = m[r];
+    }
+    __syncthreads();
+    if (threadIdx.x < ROWS) {
+      float v = 0.f;
+      for (int w = 0; w < WARPS; ++w) v = fmaxf(v, wmax[w][threadIdx.x]);
+      amax[threadIdx.x] = v;
+    }
+    cluster.sync();
+    if (threadIdx.x < a.rows) {
+      float v[MAX_SPLITS];
+#pragma unroll
+      for (int q = 0; q < MAX_SPLITS; ++q)
+        v[q] = q < a.splits ? cluster.map_shared_rank(amax, q)[threadIdx.x] : 0.f;
+      float mx = 0.f;
+#pragma unroll
+      for (int q = 0; q < MAX_SPLITS; ++q) mx = fmaxf(mx, v[q]);
+      mx = mx / 127.0f;
+      ascale[threadIdx.x] = mx == 0.f ? 1.f : mx;
+    }
+    __syncthreads();
+  }
+
+  Acc acc[SUB][4];
+  float grp[SUB][4];  // K5: the current group's fragments
+#pragma unroll
+  for (int j = 0; j < SUB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) acc[j][e] = grp[j][e] = 0;
+  int group = -1;
+  const __nv_bfloat16* gsm = nullptr;  // K5: the stage's gscale rows, from group g_first
+  int g_first = 0;
+  auto flush = [&]() {  // K5: totals += group fragments * gscale of columns 2g, 2g + 1
+    if constexpr (INT4) {
+      if (group < 0) return;
+#pragma unroll
+      for (int j = 0; j < SUB; ++j) {
+        const float2 sc = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
+            gsm + (group - g_first) * TN + 16 * j + 2 * g));
+        acc[j][0] = fmaf(grp[j][0], sc.x, acc[j][0]);
+        acc[j][1] = fmaf(grp[j][1], sc.x, acc[j][1]);
+        acc[j][2] = fmaf(grp[j][2], sc.y, acc[j][2]);
+        acc[j][3] = fmaf(grp[j][3], sc.y, acc[j][3]);
+        grp[j][0] = grp[j][1] = grp[j][2] = grp[j][3] = 0.f;
+      }
+    }
+  };
+
+  for (int s = 0; s < nstage; ++s) {
+    xot_mma::cp_async_wait<NSTAGE - 2>();
+    __syncthreads();  // tile s landed; every warp is done with tile s - 1
+    if (s + NSTAGE - 1 < nstage) fetch(s + NSTAGE - 1);
+    xot_mma::cp_async_commit();
+    const unsigned char* wt = smem + (s % NSTAGE) * slot;
+    const unsigned char* ht = wt + G::WBYTES + G::SBYTES + g * G::HSTRIDE;  // this lane's B row
+    const int rs = r0 + s * SROWS;
+    if constexpr (!INT4) {
+      // 32-row chunks, warp w takes w, w + 4, ... One ldmatrix.x4.trans a 16-column mma
+      // tile reads the chunk's four 8-row blocks; lane (g, t4) gets rows 2 t4, 2 t4 + 1
+      // of each in columns 2g, 2g + 1, so its k slots hold chunk rows 2 t4 + {0, 1, 8, 9}
+      // (a0, a1) and 16 + those (a2, a3), and B is quantized from the same rows, once
+      // for the tile's SUB mmas.
+      const float sc = g < a.rows ? ascale[g] : 1.f;
+#pragma unroll
+      for (int q = 0; q < SROWS / (WARPS * 32); ++q) {
+        const int c = (q * WARPS + warp) * 32;
+        if (rs + c >= r1) break;
+        uint32_t b[2] = {0u, 0u};
+        if (g < a.rows) {
+#pragma unroll
+          for (int half = 0; half < 2; ++half) {
+            const float2 lo = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(ht + 2 * (c + 16 * half + 2 * t4)));
+            const float2 hi = __bfloat1622float2(
+                *reinterpret_cast<const __nv_bfloat162*>(ht + 2 * (c + 16 * half + 8 + 2 * t4)));
+            b[half] = pack4(quant8(lo.x, sc), quant8(lo.y, sc), quant8(hi.x, sc), quant8(hi.y, sc));
+          }
+        }
+#pragma unroll
+        for (int j = 0; j < SUB; ++j) {
+          uint32_t x[4], av[4];
+          ldm_trans<4>(x, wt + wchunk<TN>(c + 8 * (lane >> 3) + (lane & 7), j));
+          av[0] = __byte_perm(x[0], x[1], 0x6420);  // column 2g
+          av[1] = __byte_perm(x[0], x[1], 0x7531);  // column 2g + 1
+          av[2] = __byte_perm(x[2], x[3], 0x6420);
+          av[3] = __byte_perm(x[2], x[3], 0x7531);
+          mma_s8(acc[j], av, b[0], b[1]);
+        }
+      }
+    } else {
+      // 8-packed-row chunks (16 logical k), warp w takes the w-th quarter of the tile in
+      // order. One ldmatrix.trans reads a chunk of every 16-column mma tile; lane (g, t4)
+      // gets packed rows 2 t4, 2 t4 + 1 in columns 2g, 2g + 1: its k slots hold logical
+      // k 4 t4, 4 t4 + 2 (a0: column 2g, a1: 2g + 1; low nibbles) and 4 t4 + 1, 4 t4 + 3
+      // (a2, a3; high nibbles), and B takes h at the same k. A group's fragments are
+      // scaled when the group or the tile ends.
+      constexpr int PER_WARP = SROWS / WARPS, LDM = SUB < 4 ? SUB : 4;
+      gsm = reinterpret_cast<const __nv_bfloat16*>(wt + G::WBYTES);
+      g_first = rs / a.gs_half;
+#pragma unroll
+      for (int q = 0; q < PER_WARP / 8; ++q) {
+        const int c = warp * PER_WARP + 8 * q;
+        if (rs + c >= r1) break;
+        const int gi = (rs + c) / a.gs_half;
+        if (gi != group) {
+          flush();
+          group = gi;
+        }
+        uint32_t b0 = 0u, b1 = 0u;
+        if (g < a.rows) {
+          const uint2 v = *reinterpret_cast<const uint2*>(ht + 4 * c + 8 * t4);  // h at 2c + 4 t4 ..
+          b0 = __byte_perm(v.x, v.y, 0x5410);  // h at 4 t4, 4 t4 + 2
+          b1 = __byte_perm(v.x, v.y, 0x7632);  // h at 4 t4 + 1, 4 t4 + 3
+        }
+        uint32_t x[SUB];
+#pragma unroll
+        for (int j0 = 0; j0 < SUB; j0 += LDM)
+          ldm_trans<LDM>(x + j0, wt + wchunk<TN>(c + (lane & 7), j0 + ((lane >> 3) & (LDM - 1))));
+#pragma unroll
+        for (int j = 0; j < SUB; ++j) {
+          const uint32_t xb = x[j] ^ 0x88888888u;
+          const uint32_t av[4] = {nibble_pair(xb, 0), nibble_pair(xb, 8), nibble_pair(xb, 4),
+                                  nibble_pair(xb, 12)};
+          xot_mma::mma_bf16(grp[j], av, b0, b1);
+        }
+      }
+      flush();
+      group = -1;
+    }
+  }
+
+  // The ring is free now: the warps' partials, summed in warp order. Fragment (j, e):
+  // column 16 j + 2g + (e >> 1), row 2 t4 + (e & 1). Output t (row t / TN, column
+  // t % TN) belongs to rank t / per, which sums it over the splits in rank order: each
+  // block stores its partial into the owner's inbox (distributed shared memory), and
+  // one cluster barrier publishes the stores.
+  xot_mma::cp_async_wait<0>();
+  __syncthreads();
+  Acc* red = reinterpret_cast<Acc*>(smem);  // [WARPS][ROWS * TN]
+#pragma unroll
+  for (int j = 0; j < SUB; ++j)
+#pragma unroll
+    for (int e = 0; e < 4; ++e)
+      red[warp * ROWS * TN + (2 * t4 + (e & 1)) * TN + 16 * j + 2 * g + (e >> 1)] = acc[j][e];
+  __syncthreads();
+  const int n_out = a.rows * TN, per = (n_out + a.splits - 1) / a.splits;
+  const int rank = (int)cluster.block_rank();
+  if constexpr (INT4) xot_cluster_wait();  // every block of the cluster has started
+  for (int t = threadIdx.x; t < n_out; t += THREADS) {
+    Acc v = red[t];
+#pragma unroll
+    for (int w = 1; w < WARPS; ++w) v += red[w * ROWS * TN + t];
+    *cluster.map_shared_rank(&inbox[rank * per + t % per], t / per) = v;
+  }
+  cluster.sync();
+  for (int t = rank * per + threadIdx.x; t < min(n_out, (rank + 1) * per); t += THREADS) {
+    const int r = t / TN, col = col0 + t % TN;
+    if (col >= a.N) continue;
+    Acc sum = inbox[t - rank * per];
+    for (int q = 1; q < a.splits; ++q) sum += inbox[q * per + t - rank * per];
+    if constexpr (INT4)
+      a.out[(size_t)r * a.N + col] = __float2bfloat16_rn(sum);
+    else
+      a.out[(size_t)r * a.N + col] =
+          __float2bfloat16_rn((float)sum * ascale[r] * __bfloat162float(wscale[t % TN]));
+  }
+}
+
+template <int TN>
+__global__ void __launch_bounds__(THREADS) w8a8_cluster_kernel(Args a) { gemv_body<false, TN>(a); }
+template <int TN>
+__global__ void __launch_bounds__(THREADS) w4a16_cluster_kernel(Args a) { gemv_body<true, TN>(a); }
+
+// The widest cp.async (16, 8 or 4 bytes) that a row stride and a base pointer allow.
+int vec_bytes(const void* p, long long row_bytes) {
+  for (int v : {16, 8}) {
+    if (reinterpret_cast<uintptr_t>(p) % v == 0 && row_bytes % v == 0) return v;
+  }
+  return 4;
+}
+
+template <bool INT4, int TN>
+int launch_tn(const Args& a, cudaStream_t stream) {
+  auto kernel = INT4 ? w4a16_cluster_kernel<TN> : w8a8_cluster_kernel<TN>;
+  const int smem = Geometry<INT4, TN>::smem(a.rows);
+  if (smem > 48 * 1024) {
+    cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+    if (err != cudaSuccess) return (int)err;
+  }
+  cudaLaunchAttribute attr[1];
+  attr[0].id = cudaLaunchAttributeClusterDimension;
+  attr[0].val.clusterDim.x = a.splits;
+  attr[0].val.clusterDim.y = 1;
+  attr[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(a.splits, (a.N + TN - 1) / TN, 1);
+  cfg.blockDim = dim3(THREADS, 1, 1);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = attr;
+  cfg.numAttrs = 1;
+  return (int)cudaLaunchKernelEx(&cfg, kernel, a);
+}
+
+template <bool INT4>
+int launch(const void* h, const void* w, const void* s, void* out, int rows, int K, int N,
+           int gs, int tile, int splits, void* stream) {
+  const int steps = (K + KSTEP - 1) / KSTEP;
+  if (splits < 1 || splits > MAX_SPLITS || splits > steps) return (int)cudaErrorInvalidValue;
+  const Args a{static_cast<const __nv_bfloat16*>(h), static_cast<const uint8_t*>(w),
+               static_cast<const __nv_bfloat16*>(s), static_cast<__nv_bfloat16*>(out),
+               rows, K, N, gs / 2, splits, vec_bytes(w, N), vec_bytes(h, 2LL * K),
+               vec_bytes(s, 2LL * N)};
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  switch (tile) {
+    case 16: return launch_tn<INT4, 16>(a, st);
+    case 32: return launch_tn<INT4, 32>(a, st);
+    case 64: return launch_tn<INT4, 64>(a, st);
+    case 128: return launch_tn<INT4, 128>(a, st);
+    default: return (int)cudaErrorInvalidValue;
+  }
+}
+
+}  // namespace gemv
+
 }  // namespace
 
-// h bf16 [rows, K], w int8 [K, N], ws bf16 [N] -> out bf16 [rows, N].
+// h bf16 [rows, K], w int8 [K, N], ws bf16 [N] -> out bf16 [rows, N], in column tiles of
+// `tile` (16, 32, 64 or 128) with the contraction cut into `splits` ranges of whole
+// 32-row k-steps, or (rows 1, tile 0) on the one-row kernel (ops/int8_matmul.py::gemv_plan).
 extern "C" int xot_w8a8_matvec_bf16(const void* h, const void* w, const void* ws, void* out,
-                                    int rows, int K, int N, void* stream) {
+                                    int rows, int K, int N, int tile, int splits, void* stream) {
   if (rows < 1 || rows > MAX_ROWS || K < 4 || K % 4 != 0 || N < 4 || N % 4 != 0)
     return (int)cudaErrorInvalidValue;
-  return launch<Kind::W8A8>(h, w, ws, out, rows, K, N, 0, stream);
+  if (tile == 0) return rows == 1 ? launch_w8a8_row(h, w, ws, out, K, N, stream)
+                                   : (int)cudaErrorInvalidValue;
+  return gemv::launch<false>(h, w, ws, out, rows, K, N, 0, tile, splits, stream);
 }
 
 // h bf16 [rows, K], w uint8 [K/gs, gs/2, N] packed nibbles, gscale bf16 [K/gs, N].
 extern "C" int xot_w4a8_matvec_bf16(const void* h, const void* w, const void* gscale, void* out,
                                     int rows, int K, int N, int gs, void* stream) {
   if (!int4_shape_ok(rows, K, N, gs)) return (int)cudaErrorInvalidValue;
-  return launch<Kind::W4A8>(h, w, gscale, out, rows, K, N, gs / 2, stream);
+  return launch_w4a8(h, w, gscale, out, rows, K, N, gs / 2, stream);
 }
 
+// As K5v4's operands; `tile` and `splits` as K6's.
 extern "C" int xot_w4a16_matvec_bf16(const void* h, const void* w, const void* gscale, void* out,
-                                     int rows, int K, int N, int gs, void* stream) {
+                                     int rows, int K, int N, int gs, int tile, int splits,
+                                     void* stream) {
   if (!int4_shape_ok(rows, K, N, gs)) return (int)cudaErrorInvalidValue;
-  return launch<Kind::W4A16>(h, w, gscale, out, rows, K, N, gs / 2, stream);
+  if (tile == 0) return rows == 1 ? launch_w4a16_row(h, w, gscale, out, K, N, gs / 2, stream)
+                                   : (int)cudaErrorInvalidValue;
+  return gemv::launch<true>(h, w, gscale, out, rows, K, N, gs, tile, splits, stream);
 }
