@@ -23,11 +23,14 @@ Phases, in order; any failure exits nonzero and prints no result line:
      split-K decode plan (lengths 1, a split -1..+2 and S, windows that empty whole
      splits, B=8 at lengths 1-4095, D 16-128, groups 1-16, pages 16 and 128), with each
      wrapper run once under torch.cuda.set_sync_debug_mode("error"), correctness and
-     the int8 twins' bit identity only; then K5 and K6 beyond the main path
+     the int8 twins' bit identity only; then K5, K5v4 and K6 beyond the main path
      (check_gemv_edges: llama-3.1-8B's and 70B's projections, ragged column tiles and
-     k-steps, one group, rows 1, 3 and 8), repeated calls identical, K6's outputs that
-     differ from its plain version counted, and each GEMV wrapper once under
-     set_sync_debug_mode("error");
+     k-steps, one group, K5 and K5v4 at groups of 32 and 64 values where splits cut
+     groups, rows 1, 3 and 8), repeated calls identical, K6's outputs that differ from
+     its plain version counted, and each GEMV wrapper once under
+     set_sync_debug_mode("error"). The softcapped, windowed cases (K1w, K2qw, K3w, K3q)
+     are timed beside one compiled flex_attention call, held against the plain version
+     first;
   4. model: a two-layer cut of synthetic-llama-1b at full width, prefill and decode
      through the kernels in bf16 on the card against the plain path in fp32 on the
      CPU: contiguous (K1, K2), then paged (K4 prefill, K3 decode at B=3), then with
@@ -158,6 +161,31 @@ def report(name, case, out, ref, ms, plain_ms, lib_ms, b_ms, b_by, atol=ATOL):
           "bound_ms": b_ms, "bound_by": b_by}
 
 
+def flex_ms(torch, case, q, k, v, q_pos, lens, window, softcap, ref):
+  """The library time of a windowed, softcapped case: one torch.compile'd
+  flex_attention call (a yardstick the port never calls) over q [B, T, Hq, D] and bf16
+  K/V [B, S, Hkv, D], with softcap * tanh(score / softcap) as its score_mod and the
+  keys in (p - window, p] below each row's length `lens` as its block mask, GQA. The
+  block mask, the compile and a check of the output against `ref` (the kernel's plain
+  version) at ATOL stay outside the timed window."""
+  from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+  B, T, S = q.shape[0], q.shape[1], k.shape[1]
+
+  def score_mod(score, b, h, qi, ki):
+    return torch.tanh(score / softcap) * softcap
+
+  def mask_mod(b, h, qi, ki):
+    p = q_pos[b, qi]
+    return (ki <= p) & (ki > p - window) & (ki < lens[b])
+
+  mask = create_block_mask(mask_mod, B, None, T, S, device="cuda")
+  fn = torch.compile(flex_attention, dynamic=False)
+  qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
+  call = lambda: fn(qt, kt, vt, score_mod=score_mod, block_mask=mask, enable_gqa=True)
+  check_only("flex_attention", case, call().transpose(1, 2), ref)
+  return time_ms(call)
+
+
 def check_kernels(torch, results: dict) -> None:
   import torch.nn.functional as F
   from xotorch_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
@@ -179,8 +207,11 @@ def check_kernels(torch, results: dict) -> None:
     ref = flash_attention_ref(q, k, v, window=window, softcap=softcap)
     ms = time_ms(lambda: flash_attention(q, k, v, window=window, softcap=softcap))
     plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, window=window, softcap=softcap), iters=5)
-    lib_ms = None
-    if not softcap:
+    if softcap:
+      pos = torch.arange(T, device=dev)[None]
+      lib_ms = flex_ms(torch, f"K1w T={T} window={window} softcap={softcap}", q, k, v, pos,
+                       torch.tensor([T], device=dev), window, softcap, ref)
+    else:
       qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
       if window:
         pos = torch.arange(T, device=dev)
@@ -339,7 +370,13 @@ def check_paged_kernels(torch, results: dict, randn) -> None:
     ms = time_ms(call)
     plain_ms = time_ms(lambda: paged_decode_attention_ref(q, kp, vp, table, lens, window=window,
                                                           softcap=softcap), iters=5)
-    lib = None if softcap else library_ms(q, kp, vp, table, (lens.long() - 1)[:, None], lens, window)
+    q_pos = (lens.long() - 1)[:, None]
+    if softcap:
+      kv, vv = gather_paged_view(kp, vp, table)
+      lib = flex_ms(torch, f"K3w B={len(lengths)} window={window} softcap={softcap}", q, kv, vv,
+                    q_pos, lens, window, softcap, ref)
+    else:
+      lib = library_ms(q, kp, vp, table, q_pos, lens, window)
     vis = sum(visible(n - 1, window) for n in lengths)
     b_ms, b_by = bound(4.0 * HQ * D * vis, 2.0 * 2 * q.numel() + 2.0 * 2 * vis * HKV * D)
     case = (f"B={len(lengths)} lengths={lengths if len(lengths) == 1 else '100-4000'} "
@@ -483,7 +520,10 @@ def check_int8_kv_kernels(torch, results: dict, randn) -> None:
                                                           softcap=softcap, k_scale=ks,
                                                           v_scale=vs), iters=5)
     pos = q_start.long()[:, None] + torch.arange(T, device=dev)[None, :]
-    lib = None if softcap else sdpa_ms(q, kd, vd, pos, pos[:, -1] + 1, window)
+    if softcap:
+      lib = flex_ms(torch, f"K2qw {case}", q, kd, vd, pos, pos[:, -1] + 1, window, softcap, ref)
+    else:
+      lib = sdpa_ms(q, kd, vd, pos, pos[:, -1] + 1, window)
     pairs = sum(visible(s + t, window) for s in starts for t in range(T))
     rows = sum(s + T - (max(0, s - window + 1) if window else 0) for s in starts)
     b_ms, b_by = bound(4.0 * HQ * D * pairs, 2.0 * 2 * q.numel() + kv8_bytes(rows))
@@ -515,10 +555,12 @@ def check_int8_kv_kernels(torch, results: dict, randn) -> None:
     plain_ms = time_ms(lambda: paged_decode_attention_ref(q, kq, vq, table, lens, window=window,
                                                           softcap=softcap, k_scale_pages=ks,
                                                           v_scale_pages=vs), iters=5)
-    lib = None
-    if not softcap:
-      kd, vd = gather_paged_view(kq, vq, table, ks, vs, bf)
-      lib = sdpa_ms(q, kd, vd, (lens.long() - 1)[:, None], lens, window)
+    kd, vd = gather_paged_view(kq, vq, table, ks, vs, bf)
+    q_pos = (lens.long() - 1)[:, None]
+    if softcap:
+      lib = flex_ms(torch, f"K3q {case}", q, kd, vd, q_pos, lens, window, softcap, ref)
+    else:
+      lib = sdpa_ms(q, kd, vd, q_pos, lens, window)
     vis = sum(visible(n - 1, window) for n in lengths)
     b_ms, b_by = bound(4.0 * HQ * D * vis, 2.0 * 2 * q.numel() + kv8_bytes(vis))
     r = report("paged_decode_attention_int8", case, out, ref, ms, plain_ms, lib, b_ms, b_by)
@@ -849,13 +891,14 @@ def check_quant_kernels(torch, results: dict) -> None:
 
 
 def gemv_step_us(torch, layers: int = 16) -> None:
-  """K5 and K6 at one decode row as a decode step meets them: each synthetic-llama-1b
-  projection shape `layers` times back to back, a distinct random weight each time (one
-  a layer), h resident, no L2 flush, CUDA events around three such runs. Once on the
-  launch plan's kernel (gemv_plan at one row: the one-row kernel for K <= 4096) and
-  once on the cluster kernels' plan (what rows 2-8 take), through the C entry points.
-  Prints device us a call per shape and for a layer's 7 projections: the measurement
-  behind the one-row choice (PERF.md, Findings on K5 and K6)."""
+  """K5, K5v4 and K6 at one decode row as a decode step meets them: each
+  synthetic-llama-1b projection shape `layers` times back to back, a distinct random
+  weight each time (one a layer), h resident, no L2 flush, CUDA events around three
+  such runs. Once on the one-row kernel (tile 0) and once on the cluster kernels' plan
+  (what rows 2-8 take), through the C entry points. Prints device us a call per shape,
+  and for a layer's 7 projections on each side and on the launch plan's choice at one
+  row (gemv_plan: the one-row kernel for K <= 4096): the measurement behind that
+  threshold (PERF.md, Findings on K5 and K6, and on K5v4)."""
   from xotorch_tpu_torch.ops import _build
   from xotorch_tpu_torch.ops.int8_matmul import gemv_plan
   lib = _build.load("quant_matvec")
@@ -865,8 +908,10 @@ def gemv_step_us(torch, layers: int = 16) -> None:
   gen = torch.Generator(device=dev)
   gen.manual_seed(9)
   bf = torch.bfloat16
-  for fmt in ("K6", "K5"):
-    parts, layer = [], {"plan": 0.0, "cluster": 0.0}
+  entry = {"K6": lib.xot_w8a8_matvec_bf16, "K5": lib.xot_w4a16_matvec_bf16,
+           "K5v4": lib.xot_w4a8_matvec_bf16}
+  for fmt, fn in entry.items():
+    parts, layer = [], {"one-row": 0.0, "cluster": 0.0, "plan": 0.0}
     for slot, K, N in QUANT_SHAPES:
       if fmt == "K6":
         ws = [torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
@@ -879,16 +924,12 @@ def gemv_step_us(torch, layers: int = 16) -> None:
       h = torch.randn(1, K, generator=gen, device=dev).to(bf)
       out = torch.empty(1, N, dtype=bf, device=dev)
       us = {}
-      for label, (tile, splits) in (("plan", gemv_plan(1, K, N, sms)),
-                                    ("cluster", gemv_plan(8, K, N, sms))):
+      for label, (tile, splits) in (("one-row", (0, 1)), ("cluster", gemv_plan(8, K, N, sms))):
         def run():
           for w, sc in zip(ws, scs):
-            if fmt == "K6":
-              rc = lib.xot_w8a8_matvec_bf16(h.data_ptr(), w.data_ptr(), sc.data_ptr(),
-                                            out.data_ptr(), 1, K, N, tile, splits, stream)
-            else:
-              rc = lib.xot_w4a16_matvec_bf16(h.data_ptr(), w.data_ptr(), sc.data_ptr(),
-                                             out.data_ptr(), 1, K, N, 128, tile, splits, stream)
+            gs = () if fmt == "K6" else (128,)
+            rc = fn(h.data_ptr(), w.data_ptr(), sc.data_ptr(), out.data_ptr(), 1, K, N, *gs,
+                    tile, splits, stream)
             _build.check(rc, f"gemv_step_us {fmt} {slot} tile={tile} splits={splits}")
         run()
         torch.cuda.synchronize()
@@ -900,17 +941,21 @@ def gemv_step_us(torch, layers: int = 16) -> None:
         end.record()
         torch.cuda.synchronize()
         us[label] = start.elapsed_time(end) / 3 / layers * 1e3
+      chosen = "one-row" if gemv_plan(1, K, N, sms)[0] == 0 else "cluster"
+      for label in ("one-row", "cluster"):
         layer[label] += us[label] * (1 if slot == "w_down" else 2)
-      parts.append(f"{slot} {us['plan']:.2f} / {us['cluster']:.2f}")
+      layer["plan"] += us[chosen] * (1 if slot == "w_down" else 2)
+      parts.append(f"{slot} {us['one-row']:.2f} / {us['cluster']:.2f} (plan: {chosen})")
       del ws, scs
     print(f"[gemv step] {fmt} at one row, device us a call over {layers} layers back to back, "
-          f"plan / cluster kernels: " + ", ".join(parts) + f"; a layer's 7 projections "
-          f"{layer['plan']:.2f} / {layer['cluster']:.2f} ({smi_line()})", flush=True)
+          f"one-row / cluster kernels: " + ", ".join(parts) + f"; a layer's 7 projections "
+          f"{layer['one-row']:.2f} / {layer['cluster']:.2f}, on the plan {layer['plan']:.2f} "
+          f"({smi_line()})", flush=True)
 
 
-# K5 and K6 beyond the main path: llama-3.1-8B's and 70B's projections, column tiles
-# and k-steps cut ragged, one group, h on a 4-byte boundary. (label, in, out, h offset
-# in bf16 elements from a 16-byte boundary).
+# K5, K5v4 and K6 beyond the main path: llama-3.1-8B's and 70B's projections, column
+# tiles and k-steps cut ragged, one group, h on a 4-byte boundary. (label, in, out, h
+# offset in bf16 elements from a 16-byte boundary).
 GEMV_EDGES = (("8B wq/wo", 4096, 4096, 0), ("8B wk/wv", 4096, 1024, 0),
               ("8B gate/up", 4096, 14336, 0), ("8B down", 14336, 4096, 0),
               ("70B wq/wo", 8192, 8192, 0), ("70B wk/wv", 8192, 1024, 0),
@@ -919,6 +964,16 @@ GEMV_EDGES = (("8B wq/wo", 4096, 4096, 0), ("8B wk/wv", 4096, 1024, 0),
               ("N=2052, ragged tile", 2048, 2052, 0), ("one group", 128, 2048, 0),
               ("one group, N=36", 128, 36, 0), ("ragged last k-step (K6)", 2052, 36, 0),
               ("h 4-byte aligned", 2048, 512, 2))
+
+
+# K5 and K5v4 at groups of 32 and 64 values (label, in, out, group size): at K = 384
+# the cluster kernels' 8 splits of 12 k-steps cut groups of 64 (splits start at k-steps
+# 1, 3, 4, 6, 7, 9, 10) and each group of 32 is one 16-packed-row chunk; at K = 2048 a
+# 128-row tile holds 8 or 4 groups; at 4096 x 4096 the 128-column tile flushes a group
+# every chunk. Rows 1 at K <= 4096 take the one-row kernels, at these group sizes too.
+GEMV_GROUP_EDGES = (("gs 32, 8 splits", 384, 36, 32), ("gs 64, splits cut groups", 384, 36, 64),
+                    ("gs 32", 2048, 36, 32), ("gs 64", 2048, 36, 64),
+                    ("8B wq/wo, gs 32", 4096, 4096, 32), ("8B wq/wo, gs 64", 4096, 4096, 64))
 
 
 def k6_differ(torch, out, ref, ref_fn, h, ops) -> str:
@@ -931,14 +986,14 @@ def k6_differ(torch, out, ref, ref_fn, h, ops) -> str:
 
 
 def check_gemv_edges(torch) -> None:
-  """K5 and K6 at GEMV_EDGES, rows 1, 3 and 8, on random codes and scales: each
-  within 2^-7 of its plain version's range, two calls identical, and K6's outputs that
-  differ from its plain version counted (k6_differ). K5 needs K a
-  multiple of its 128-value group, so it skips the ragged k-step. Then K5, K5v4 and K6
-  once each under torch.cuda.set_sync_debug_mode("error"): no wrapper reads a device
-  tensor back."""
-  from xotorch_tpu_torch.ops.int4_matmul import (int4_w4a8_matmul, int4_w4a16_matmul,
-                                                 int4_w4a16_matmul_ref)
+  """K5, K5v4 and K6 at GEMV_EDGES, then K5 and K5v4 at GEMV_GROUP_EDGES, rows 1, 3
+  and 8, on random codes and scales: each within 2^-7 of its plain version's range, two
+  calls identical, and K6's outputs that differ from its plain version counted
+  (k6_differ). K5 and K5v4 need K a multiple of their 128-value group in GEMV_EDGES,
+  so they skip the ragged k-step. Then K5, K5v4 and K6 once each under
+  torch.cuda.set_sync_debug_mode("error"): no wrapper reads a device tensor back."""
+  from xotorch_tpu_torch.ops.int4_matmul import (int4_w4a8_matmul, int4_w4a8_matmul_ref,
+                                                 int4_w4a16_matmul, int4_w4a16_matmul_ref)
   from xotorch_tpu_torch.ops.int8_matmul import (gemv_plan, int8_rowquant_matmul,
                                                  int8_rowquant_matmul_ref)
   dev = torch.device("cuda")
@@ -946,15 +1001,23 @@ def check_gemv_edges(torch) -> None:
   gen = torch.Generator(device=dev)
   gen.manual_seed(7)
   bf = torch.bfloat16
-  for label, K, N, off in GEMV_EDGES:
-    w8 = torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
-    ws = (torch.rand(N, generator=gen, device=dev) * 0.02 + 0.005).to(bf)
-    kernels = [("int8_rowquant_matmul", int8_rowquant_matmul, int8_rowquant_matmul_ref, (w8, ws))]
-    if K % 128 == 0:
-      pk = torch.randint(0, 256, (K // 128, 64, N), generator=gen, device=dev,
+  cases = ([(label, K, N, off, 128, True) for label, K, N, off in GEMV_EDGES]
+           + [(label, K, N, 0, gsz, False) for label, K, N, gsz in GEMV_GROUP_EDGES])
+  for label, K, N, off, gsz, with_k6 in cases:
+    kernels = []
+    if with_k6:
+      w8 = torch.randint(-127, 128, (K, N), generator=gen, device=dev, dtype=torch.int8)
+      ws = (torch.rand(N, generator=gen, device=dev) * 0.02 + 0.005).to(bf)
+      kernels.append(("int8_rowquant_matmul", int8_rowquant_matmul, int8_rowquant_matmul_ref,
+                      (w8, ws)))
+    if K % gsz == 0:
+      pk = torch.randint(0, 256, (K // gsz, gsz // 2, N), generator=gen, device=dev,
                          dtype=torch.int32).to(torch.uint8)
-      gs = (torch.rand(K // 128, N, generator=gen, device=dev) * 0.02 + 0.005).to(bf)
-      kernels.append(("int4_w4a16_matmul", int4_w4a16_matmul, int4_w4a16_matmul_ref, (pk, gs)))
+      gs = (torch.rand(K // gsz, N, generator=gen, device=dev) * 0.02 + 0.005).to(bf)
+      kernels += [("int4_w4a16_matmul", int4_w4a16_matmul, int4_w4a16_matmul_ref, (pk, gs)),
+                  ("int4_w4a8_matmul", int4_w4a8_matmul, int4_w4a8_matmul_ref, (pk, gs))]
+    if gsz != 128:
+      label = f"{label} ({gsz}-value groups)"
     for rows in (1, 3, 8):
       flat = torch.randn(rows * K + off, generator=gen, device=dev).to(bf)
       h = flat[off:].view(rows, K)
@@ -977,8 +1040,8 @@ def check_gemv_edges(torch) -> None:
               f"{'ok' if ok else 'FAIL'}", flush=True)
         if not ok:
           raise AssertionError(f"{name} {case}: kernel disagrees with its plain version ({err})")
-    del w8, kernels
-  print("[gemv edges] every K5/K6 case within 2^-7 of its range, repeated calls identical",
+    del kernels
+  print("[gemv edges] every K5/K5v4/K6 case within 2^-7 of its range, repeated calls identical",
         flush=True)
   # Why the card's plain K6 can differ from the kernel: its activation scale max / 127.
   x = torch.rand(1 << 20, generator=torch.Generator().manual_seed(0)) * 100
@@ -1593,12 +1656,13 @@ def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthe
 def quant_phases():
   """(format, knobs, kernel wrapper, what its kernels' names hold in the profile) of
   each quantized serving phase: int4 through K5, int4 with XOT_INT4_V=4 through K5v4,
-  int8 with XOT_INT8_KERNEL=1 through K6 (K5 and K6 launch w4a16_kernel / w8a8_kernel
-  at one row over K <= 4096, their cluster kernels otherwise)."""
+  int8 with XOT_INT8_KERNEL=1 through K6 (each launches its one-row kernel,
+  w4a16_kernel / w4a8_kernel / w8a8_kernel, at one row over K <= 4096, its cluster
+  kernel otherwise)."""
   from xotorch_tpu_torch.ops.int4_matmul import int4_w4a8_matmul, int4_w4a16_matmul
   from xotorch_tpu_torch.ops.int8_matmul import int8_rowquant_matmul
   return (("int4", {}, int4_w4a16_matmul, "w4a16_"),
-          ("int4", {"XOT_INT4_V": "4"}, int4_w4a8_matmul, "w4a8_kernel"),
+          ("int4", {"XOT_INT4_V": "4"}, int4_w4a8_matmul, "w4a8_"),
           ("int8", {"XOT_INT8_KERNEL": "1"}, int8_rowquant_matmul, "w8a8_"))
 
 

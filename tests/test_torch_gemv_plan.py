@@ -1,4 +1,4 @@
-"""The launch plan of the split-K GEMV kernels K5 and K6 (ops/int8_matmul.gemv_plan,
+"""The launch plan of the split-K GEMV kernels K5, K5v4 and K6 (ops/int8_matmul.gemv_plan,
 split_ranges) and the sums the kernels take over it, on the CPU.
 
 - One decode row over K <= 4096 takes the one-row kernel (tile 0, one split); every
@@ -9,11 +9,13 @@ split_ranges) and the sums the kernels take over it, on the CPU.
   synthetic-llama-1b's, llama-3.1-8B's and llama-3.1-70B's projections, at N = 4 and
   36, at K = one group, on 132 and 114 SMs, at rows 1, 3 and 8.
 - Summing the plain versions' per-range products in the kernels' order (rank 0
-  first; inside a range, K5 one fp32 dot a group slice, scaled after it) gives the
-  unsplit plain result: bit for bit for K6 (the int32 sums are exact, the activation
-  scale is the whole row's), within 2^-7 of the output's range for K5 (fp32 sums in
-  another order), and both agree with the JAX package's Pallas kernels run in
-  interpret mode on the same numpy inputs.
+  first; inside a range, K5 one fp32 dot a group slice, scaled after it; K5v4 two exact
+  integer dots a group slice, even and odd, composed with the whole row's two
+  activation scales and the group's scale) gives the unsplit plain result: bit for bit
+  for K6 (the int32 sums are exact, the activation scale is the whole row's), within
+  2^-7 of the output's range for K5 and K5v4 (fp32 sums in another order), and all
+  three agree with the JAX package's Pallas kernels run in interpret mode on the same
+  numpy inputs.
 """
 import jax.numpy as jnp
 import numpy as np
@@ -167,4 +169,50 @@ def test_w4a16_split_sums_match_the_unsplit_plain_version(K, gs, N, sm_count, ro
   want = np.asarray(j_int4_grouped_matmul(jnp.asarray(h), jpk[0], jgs[0], block_out=N,
                                           interpret=True, variant=1))
   got = _k5_split_sum(torch.from_numpy(h), pk, gsc, splits).numpy()
+  np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)
+
+
+def _k5v4_split_sum(h, packed, gscale, splits):
+  """K5v4 in the kernel's order: one pair of activation scales for the whole row (the
+  even and the odd columns apart, as the cluster agrees on them); per range and per
+  group slice (a range may hold part of a group), the exact integer dots of the even
+  codes by the low nibbles (pe) and of the odd codes by the high ones (po), composed
+  as (pe * s_even + po * s_odd) * gscale in fp32 and added to the range's total; the
+  ranges' totals summed in rank order."""
+  G, gs_half, N = packed.shape
+  lo, hi = int4_matmul._nibbles(packed.reshape(G * gs_half, N))
+  he8, s_e = int8_matmul.rowquant_int8(h[:, 0::2])
+  ho8, s_o = int8_matmul.rowquant_int8(h[:, 1::2])
+  out = torch.zeros((h.shape[0], N), dtype=torch.float32)
+  for k0, k1 in split_ranges(h.shape[1], splits):
+    total = torch.zeros_like(out)
+    p = k0 // 2
+    while p < k1 // 2:
+      g = p // gs_half
+      e = min(k1 // 2, (g + 1) * gs_half)
+      pe = (he8[:, p:e].to(torch.int64) @ lo[p:e].to(torch.int64)).to(torch.float32)
+      po = (ho8[:, p:e].to(torch.int64) @ hi[p:e].to(torch.int64)).to(torch.float32)
+      total += (pe * s_e + po * s_o) * gscale[g].to(torch.float32)[None, :]
+      p = e
+    out += total
+  return out.to(h.dtype)
+
+
+@pytest.mark.parametrize("rows", [1, 3, 8])
+@pytest.mark.parametrize("K,gs,N,sm_count", K5_CASES)
+def test_w4a8_split_sums_match_the_unsplit_plain_version(K, gs, N, sm_count, rows):
+  h, w = _inputs(rows, K, N, 13 * K + N + rows)
+  jpk, jgs = jq.quantize_tensor_grouped(jnp.asarray(w[None]), jnp.float32, group_size=gs)
+  pk, gsc = torch.from_numpy(np.array(jpk)[0]), torch.from_numpy(np.array(jgs)[0])
+  _, splits = gemv_plan(8, K, N, sm_count)  # the cluster kernels' ranges
+  assert splits > 1 or K <= GEMV_KSTEP
+  for dtype in (torch.float32, torch.bfloat16):
+    ht, gst = torch.from_numpy(h).to(dtype), gsc.to(dtype)
+    want = int4_matmul.int4_w4a8_matmul_ref(ht, pk, gst).float()
+    got = _k5v4_split_sum(ht, pk, gst, splits).float()
+    atol = 2.0 ** -7 * want.abs().max().item()
+    torch.testing.assert_close(got, want, atol=atol, rtol=0)
+  want = np.asarray(j_int4_grouped_matmul(jnp.asarray(h), jpk[0], jgs[0], block_out=N,
+                                          interpret=True, variant=4))
+  got = _k5v4_split_sum(torch.from_numpy(h), pk, gsc, splits).numpy()
   np.testing.assert_allclose(got, want, atol=1e-5 * np.abs(want).max(), rtol=0)

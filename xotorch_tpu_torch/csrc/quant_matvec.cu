@@ -5,8 +5,9 @@
 // uint8 [K/2, N] (packed row p holds logical rows 2p in the low nibble and 2p+1 in the
 // high one), with a bf16 scale per (group of gs logical rows, column).
 //
-// K5 (w4a16_cluster_kernel) and K6 (w8a8_cluster_kernel) share one design, in
-// `namespace gemv` below; K5v4 (w4a8_kernel) keeps the first design, described at it.
+// K5 (w4a16_cluster_kernel), K5v4 (w4a8_cluster_kernel) and K6 (w8a8_cluster_kernel)
+// share one design, in `namespace gemv` below; one decode row over a short contraction
+// takes the one-row kernels first.
 #include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -18,11 +19,10 @@
 
 namespace {
 
-// ---- K5v4, and K5 and K6 at one decode row: one block of 256 threads owns 32 columns
-// and the whole contraction, on the CUDA cores ----
+// ---- K5, K5v4 and K6 at one decode row: one block of 256 threads owns 32 columns and
+// the whole contraction, on the CUDA cores ----
 //
-// w4a8_kernel replaces xotorch_tpu/ops/int4_matmul.py::_int4_matvec_kernel_v4 (W4A8)
-// at every row count; w4a16_kernel and w8a8_kernel serve K5 and K6 at one row when the
+// w4a16_kernel, w4a8_kernel and w8a8_kernel serve K5, K5v4 and K6 at one row when the
 // launch plan asks for them (tile 0: ops/int8_matmul.py::gemv_plan, for short
 // contractions, where they take less device time in a decode step than the cluster
 // kernels below, whose barriers and split sums are a fixed cost a call; PERF.md, Findings on K5 and K6).
@@ -40,8 +40,7 @@ namespace {
 // (pe * s_even + po * s_odd) * gscale, per 16 packed rows of one group. W8A8 quantizes
 // the whole row with one scale and rescales as acc * a_scale * w_scale; W4A16 converts
 // each nibble to fp32 exactly (2^23 + u as float bits, minus 2^23 + 8) and accumulates
-// h * w in fp32 per group, scaling after the group's dot. The grid is N / 32 blocks, so
-// the 512-column k/v projections use 16 of the 132 SMs.
+// h * w in fp32 per group, scaling after the group's dot. The grid is N / 32 blocks.
 
 constexpr int THREADS = 256;
 constexpr int WARPS = THREADS / 32;
@@ -382,16 +381,7 @@ __global__ void __launch_bounds__(THREADS) w4a16_kernel(
   });
 }
 
-template <int R>
-cudaError_t launch_w4a8_rows(const void* h, const void* w, const void* s, void* out, int K, int N,
-                             int gs_half, cudaStream_t stream) {
-  w4a8_kernel<R><<<(N + TN - 1) / TN, THREADS, 0, stream>>>(
-      static_cast<const __nv_bfloat16*>(h), static_cast<const uint8_t*>(w),
-      static_cast<const __nv_bfloat16*>(s), static_cast<__nv_bfloat16*>(out), K, N, gs_half);
-  return cudaGetLastError();
-}
-
-// K6 and K5 at one decode row.
+// K6, K5 and K5v4 at one decode row.
 int launch_w8a8_row(const void* h, const void* w, const void* s, void* out, int K, int N,
                     void* stream) {
   w8a8_kernel<1><<<(N + TN - 1) / TN, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
@@ -408,20 +398,12 @@ int launch_w4a16_row(const void* h, const void* w, const void* s, void* out, int
   return (int)cudaGetLastError();
 }
 
-int launch_w4a8(const void* h, const void* w, const void* s, void* out, int rows, int K, int N,
-                int gs_half, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
-  switch (rows) {
-    case 1: return (int)launch_w4a8_rows<1>(h, w, s, out, K, N, gs_half, st);
-    case 2: return (int)launch_w4a8_rows<2>(h, w, s, out, K, N, gs_half, st);
-    case 3: return (int)launch_w4a8_rows<3>(h, w, s, out, K, N, gs_half, st);
-    case 4: return (int)launch_w4a8_rows<4>(h, w, s, out, K, N, gs_half, st);
-    case 5: return (int)launch_w4a8_rows<5>(h, w, s, out, K, N, gs_half, st);
-    case 6: return (int)launch_w4a8_rows<6>(h, w, s, out, K, N, gs_half, st);
-    case 7: return (int)launch_w4a8_rows<7>(h, w, s, out, K, N, gs_half, st);
-    case 8: return (int)launch_w4a8_rows<8>(h, w, s, out, K, N, gs_half, st);
-    default: return (int)cudaErrorInvalidValue;
-  }
+int launch_w4a8_row(const void* h, const void* w, const void* s, void* out, int K, int N,
+                    int gs_half, void* stream) {
+  w4a8_kernel<1><<<(N + TN - 1) / TN, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+      static_cast<const __nv_bfloat16*>(h), static_cast<const uint8_t*>(w),
+      static_cast<const __nv_bfloat16*>(s), static_cast<__nv_bfloat16*>(out), K, N, gs_half);
+  return (int)cudaGetLastError();
 }
 
 bool int4_shape_ok(int rows, int K, int N, int gs) {
@@ -429,12 +411,14 @@ bool int4_shape_ok(int rows, int K, int N, int gs) {
          K >= gs && K % gs == 0;
 }
 
-// ---- K5 and K6: split-K over a thread-block cluster, mma.sync, one launch ----
+// ---- K5, K5v4 and K6: split-K over a thread-block cluster, mma.sync, one launch ----
 //
 // K6 (w8a8_cluster_kernel) replaces xotorch_tpu/ops/int8_matmul.py:43
 // _int8_matvec_kernel; K5 (w4a16_cluster_kernel) replaces xotorch_tpu/ops/int4_matmul.py
 // :46,67,93 _int4_matvec_kernel{,_v2,_v3} (the three differ on the TPU only in where
-// the scale multiply sits; here one exact W4A16 kernel serves them).
+// the scale multiply sits; here one exact W4A16 kernel serves them); K5v4
+// (w4a8_cluster_kernel) replaces xotorch_tpu/ops/int4_matmul.py:122
+// _int4_matvec_kernel_v4 (W4A8).
 //
 // Bound on this card: bytes. The weight is read once and dominates (K*N int8, K*N/2
 // int4): 16 MB for a 2048 x 8192 int8 projection is 5.0 us at 3.35 TB/s, while the
@@ -448,7 +432,7 @@ bool int4_shape_ok(int rows, int K, int N, int gs) {
 //   512-column k/v projections fill the card as the 8192-column ones do.
 // - A block of 4 warps streams its column strip through a ring of NSTAGE tiles of
 //   SROWS rows in shared memory with cp.async (16-byte copies where the layout is
-//   aligned), each tile with its slice of h (K5: and the gscale rows of its groups);
+//   aligned), each tile with its slice of h (int4: and the gscale rows of its groups);
 //   the next tiles' copies stay in flight while one is computed. The warps split the
 //   tile's rows; each computes every 16-column mma tile of the strip.
 // - Tensor cores for every row count: mma.sync with n = 8 decode rows, rows past `rows`
@@ -457,18 +441,26 @@ bool int4_shape_ok(int rows, int K, int N, int gs) {
 //   column pair (2g, 2g + 1), and A's rows g and g + 8 are those two columns. A sum is
 //   order-free, so each lane's k slots hold whichever rows the load gives it, and B is
 //   built from h at the same rows.
-//   K6, m16n8k32 s8 x s8 -> s32: __byte_perm gathers four rows of one column into an A
-//   register. The activations are quantized in the launch, bit for bit as
+//   The A8 formats (K6, K5v4) quantize the activations in the launch, bit for bit as
 //   rowquant_int8 does: each block takes max|a| over its own range (its loads go out
 //   ahead of the tile copies), the cluster exchanges the maxima through distributed
 //   shared memory, s = max / 127 (1 for a zero row), q = rintf(a / s) with IEEE
-//   division, each value once per column tile. The int32 sums are exact in any order;
-//   the epilogue is (float)acc * a_scale * w_scale, in that order, as the plain version.
+//   division, each value once per column tile. K5v4 takes two maxima a row, over the
+//   even and the odd columns apart (the columns that meet the low and the high nibbles).
+//   K6, m16n8k32 s8 x s8 -> s32: __byte_perm gathers four rows of one column into an A
+//   register. The int32 sums are exact in any order; the epilogue is
+//   (float)acc * a_scale * w_scale, in that order, as the plain version.
 //   K5, m16n8k16 bf16 x bf16 -> f32: a packed byte holds logical k = 2p and 2p + 1 of
 //   one column; a nibble pair moved to bits 0-3 and 16-19 and ORed with 0x43004300 is
 //   bf16 (128 + u, 128 + u') exactly, and minus 136 the signed values (u biased by ^ 8).
 //   One fp32 fragment a group, scaled by gscale when the group or the tile ends and
 //   added to the total; a split that cuts a group scales its own part of it.
+//   K5v4, m16n8k16 s8 x s8 -> s32 on 16 packed rows (the grain of both a split edge and
+//   the smallest group, so no mma straddles either): K6's gather gives an A register of
+//   4 packed rows of one column, split into its low and high nibbles sign-extended per
+//   byte; two int32 fragments a group, lows x even activations (pe) and highs x odd
+//   ones (po), folded into the fp32 total as ((float)pe * s_even + (float)po * s_odd)
+//   * gscale when the group or the tile ends, the plain version's order (two fmas).
 // - Each rank of the cluster owns a share of the tile's outputs: every block stores its
 //   partials into the owners' shared memory (distributed shared memory), one cluster
 //   barrier publishes them, and each owner sums them in rank order and writes: one
@@ -484,27 +476,37 @@ constexpr int ROWS = 8;        // decode rows: one mma's N
 constexpr int KSTEP = 32;      // logical rows of a k-step; a split is whole k-steps
 constexpr int MAX_SPLITS = 8;  // the portable cluster size
 constexpr int NSTAGE = 3;      // weight tiles in the ring
-constexpr int SROWS = 128;     // weight rows of a tile (K5: packed rows)
+constexpr int SROWS = 128;     // weight rows of a tile (int4: packed rows)
+
+// The weight and activation formats: K6, K5, K5v4.
+enum class Fmt { W8A8, W4A16, W4A8 };
 
 // A tile of TN columns: SROWS rows of TN bytes (int8 codes, or packed nibble pairs),
 // the rows' h slice beside it.
-template <bool INT4, int TN>
+template <Fmt F, int TN>
 struct Geometry {
+  static constexpr bool INT4 = F != Fmt::W8A8;
+  static constexpr bool A8 = F != Fmt::W4A16;  // activations quantized to int8
+  static constexpr int NMAX = F == Fmt::W4A8 ? 2 : 1;  // activation scales a row
   static constexpr int SUB = TN / 16;       // 16-column mma tiles of a weight row
   static constexpr int KPR = INT4 ? 2 : 1;  // logical k a weight row
   static constexpr int KL = SROWS * KPR;    // logical k a tile
   static constexpr int WBYTES = SROWS * TN;
-  // K5: the gscale rows of the groups a tile touches (groups are at least 16 packed rows).
+  // int4: the gscale rows of the groups a tile touches (groups are at least 16 packed rows).
   static constexpr int GROUPS = INT4 ? SROWS / 16 + 1 : 0;
   static constexpr int SBYTES = GROUPS * TN * 2;
   // A staged h row: KL bf16 and a pad that puts the rows of one B load (K6: 4 bytes a
-  // lane, K5: 8) on distinct banks.
+  // lane, int4: 8) on distinct banks.
   static constexpr int HSTRIDE = 2 * KL + (INT4 ? 32 : 16);
   __host__ __device__ static constexpr int slot(int rows) {
     return WBYTES + SBYTES + rows * HSTRIDE;
   }
   __host__ __device__ static constexpr int smem(int rows) { return NSTAGE * slot(rows); }
-  using Acc = typename std::conditional<INT4, float, int>::type;
+  // The total a lane keeps per fragment, and the running sum of the current group
+  // (K5: fp32; K5v4: int32 even and odd dots).
+  using Acc = typename std::conditional<F == Fmt::W8A8, int, float>::type;
+  using GAcc = typename std::conditional<F == Fmt::W4A8, int, float>::type;
+  static constexpr int NGRP = F == Fmt::W4A8 ? 2 : 1;
   static_assert(TN % 16 == 0 && TN <= 128, "whole 16-column mma tiles, at most 8 a row");
   static_assert(WARPS * ROWS * TN * 4 <= NSTAGE * WBYTES, "the epilogue reuses the ring");
 };
@@ -570,12 +572,29 @@ __device__ __forceinline__ void mma_s8(int (&c)[4], const uint32_t (&a)[4], uint
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
+// c (16x8 s32) += a (16x16 s8, row) . b (16x8 s8, col): a0 holds row g, a1 row g + 8,
+// both at k 4 t4 .. 4 t4 + 3; b holds k 4 t4 .. 4 t4 + 3 of column g.
+__device__ __forceinline__ void mma_s8_k16(int (&c)[4], uint32_t a0, uint32_t a1, uint32_t b) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.s32.s8.s8.s32 "
+      "{%0, %1, %2, %3}, {%4, %5}, {%6}, {%0, %1, %2, %3};\n"
+      : "+r"(c[0]), "+r"(c[1]), "+r"(c[2]), "+r"(c[3])
+      : "r"(a0), "r"(a1), "r"(b));
+}
+
 // The bf16 pair of the signed nibbles at bits 0-3 and 16-19 of x >> shift, stored
 // biased (u = n ^ 8, 0..15): bf16 0x4300 | u is 128 + u exactly, and minus 136 it is n.
 __device__ __forceinline__ uint32_t nibble_pair(uint32_t x, int shift) {
   uint32_t v = ((x >> shift) & 0x000F000Fu) | 0x43004300u;
   __nv_bfloat162 f = __hsub2(*reinterpret_cast<__nv_bfloat162*>(&v), __floats2bfloat162_rn(136.f, 136.f));
   return *reinterpret_cast<uint32_t*>(&f);
+}
+
+// The signed nibbles at bits 0-3 of each byte of x >> shift, as four s8: for a nibble of
+// value v (-8..7), n ^ 8 is v + 8 (0..15); + 0x78 makes the byte v + 0x80 with no carry
+// out of it; ^ 0x80 leaves v in two's complement.
+__device__ __forceinline__ uint32_t nibbles_s8(uint32_t x, int shift) {
+  return ((((x >> shift) & 0x0F0F0F0Fu) ^ 0x08080808u) + 0x78787878u) ^ 0x80808080u;
 }
 
 // Weight rows rs .. rs + SROWS - 1 (zeros from r1 on), columns col0 .. col0 + TN - 1
@@ -595,23 +614,26 @@ __device__ __forceinline__ void copy_tile(unsigned char* tile, const uint8_t* w,
 struct Args {
   const __nv_bfloat16* h;      // [rows, K]
   const uint8_t* w;            // int8 [K, N] or packed uint8 [K/2, N]
-  const __nv_bfloat16* scale;  // K6: [N]; K5: gscale [K/gs, N]
+  const __nv_bfloat16* scale;  // K6: [N]; K5, K5v4: gscale [K/gs, N]
   __nv_bfloat16* out;          // [rows, N]
   int rows, K, N, gs_half, splits;
   int vec_w, vec_h, vec_s;     // bytes a cp.async moves: 16 where row stride and pointer allow
 };
 
-template <bool INT4, int TN>
+template <Fmt F, int TN>
 __device__ __forceinline__ void gemv_body(const Args& a) {
-  using G = Geometry<INT4, TN>;
+  using G = Geometry<F, TN>;
   using Acc = typename G::Acc;
-  constexpr int SUB = G::SUB;
+  using GAcc = typename G::GAcc;
+  constexpr bool INT4 = G::INT4, A8 = G::A8;
+  constexpr int SUB = G::SUB, NMAX = G::NMAX;
   extern __shared__ __align__(16) unsigned char smem[];
-  __shared__ float wmax[WARPS][ROWS], amax[ROWS], ascale[ROWS];  // K6's activation scale
+  // The A8 formats' activation scales: [scale][row], K5v4's even ones first.
+  __shared__ float wmax[WARPS][NMAX * ROWS], amax[NMAX * ROWS], ascale[NMAX * ROWS];
   __shared__ __align__(16) __nv_bfloat16 wscale[TN];              // K6's column scales
   __shared__ Acc inbox[ROWS * TN + MAX_SPLITS];  // [split][output share], this rank's outputs
   cg::cluster_group cluster = cg::this_cluster();
-  if constexpr (INT4) xot_cluster_arrive();  // K6's first cluster.sync does this
+  if constexpr (!A8) xot_cluster_arrive();  // the A8 formats' first cluster.sync does this
 
   const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5, g = lane >> 2, t4 = lane & 3;
   const int split = blockIdx.x, col0 = blockIdx.y * TN;
@@ -655,12 +677,12 @@ __device__ __forceinline__ void gemv_body(const Args& a) {
       copy_async(wscale + e, ok ? a.scale + col0 + e : a.scale, 4, ok);
     }
   }
-  // K6: the first PRE pairs of h a thread takes for the row maxima go out ahead of the
+  // A8: the first PRE pairs of h a thread takes for the row maxima go out ahead of the
   // tiles' copies, which would otherwise queue them behind the tiles' bytes.
   constexpr int PRE = 4;
   const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(a.h);
-  __nv_bfloat162 hv[INT4 ? 1 : ROWS][PRE];
-  if constexpr (!INT4) {
+  __nv_bfloat162 hv[A8 ? ROWS : 1][PRE];
+  if constexpr (A8) {
 #pragma unroll
     for (int r = 0; r < ROWS; ++r)
 #pragma unroll
@@ -676,43 +698,46 @@ __device__ __forceinline__ void gemv_body(const Args& a) {
     xot_mma::cp_async_commit();
   }
 
-  if constexpr (!INT4) {
+  if constexpr (A8) {
     // max|a| of each row over this split's range while the first tiles land, then over
-    // the cluster: the row's max over all of K, as rowquant_int8 takes it.
-    float m[ROWS];
-#pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
-      m[r] = 0.f;
-#pragma unroll
-      for (int u = 0; u < PRE; ++u) {
-        const float2 v = __bfloat1622float2(hv[r][u]);
-        m[r] = fmaxf(m[r], fmaxf(fabsf(v.x), fabsf(v.y)));
+    // the cluster: the row's max over all of K, as rowquant_int8 takes it. A pair of h
+    // is (even column, odd column): K5v4 keeps their maxima apart, K6 takes both.
+    float m[NMAX][ROWS] = {};
+    auto take = [&](int r, float2 v) {
+      if constexpr (NMAX == 2) {
+        m[0][r] = fmaxf(m[0][r], fabsf(v.x));
+        m[1][r] = fmaxf(m[1][r], fabsf(v.y));
+      } else {
+        m[0][r] = fmaxf(m[0][r], fmaxf(fabsf(v.x), fabsf(v.y)));
       }
-    }
+    };
+#pragma unroll
+    for (int r = 0; r < ROWS; ++r)
+#pragma unroll
+      for (int u = 0; u < PRE; ++u) take(r, __bfloat1622float2(hv[r][u]));
     for (int i = k0 / 2 + threadIdx.x + PRE * THREADS; i < k1 / 2; i += THREADS) {
 #pragma unroll
       for (int r = 0; r < ROWS; ++r) {
-        if (r < a.rows) {
-          const float2 v = __bfloat1622float2(h2[(size_t)r * (a.K / 2) + i]);
-          m[r] = fmaxf(m[r], fmaxf(fabsf(v.x), fabsf(v.y)));
-        }
+        if (r < a.rows) take(r, __bfloat1622float2(h2[(size_t)r * (a.K / 2) + i]));
       }
     }
 #pragma unroll
-    for (int r = 0; r < ROWS; ++r) {
+    for (int q = 0; q < NMAX; ++q)
 #pragma unroll
-      for (int off = 16; off > 0; off >>= 1)
-        m[r] = fmaxf(m[r], __shfl_xor_sync(0xffffffffu, m[r], off));
-      if (lane == 0) wmax[warp][r] = m[r];
-    }
+      for (int r = 0; r < ROWS; ++r) {
+#pragma unroll
+        for (int off = 16; off > 0; off >>= 1)
+          m[q][r] = fmaxf(m[q][r], __shfl_xor_sync(0xffffffffu, m[q][r], off));
+        if (lane == 0) wmax[warp][q * ROWS + r] = m[q][r];
+      }
     __syncthreads();
-    if (threadIdx.x < ROWS) {
+    if (threadIdx.x < NMAX * ROWS) {
       float v = 0.f;
       for (int w = 0; w < WARPS; ++w) v = fmaxf(v, wmax[w][threadIdx.x]);
       amax[threadIdx.x] = v;
     }
     cluster.sync();
-    if (threadIdx.x < a.rows) {
+    if (threadIdx.x < NMAX * ROWS) {
       float v[MAX_SPLITS];
 #pragma unroll
       for (int q = 0; q < MAX_SPLITS; ++q)
@@ -721,32 +746,54 @@ __device__ __forceinline__ void gemv_body(const Args& a) {
 #pragma unroll
       for (int q = 0; q < MAX_SPLITS; ++q) mx = fmaxf(mx, v[q]);
       mx = mx / 127.0f;
-      ascale[threadIdx.x] = mx == 0.f ? 1.f : mx;
+      ascale[threadIdx.x] = mx == 0.f ? 1.f : mx;  // rows past `rows` read 1
     }
     __syncthreads();
   }
 
   Acc acc[SUB][4];
-  float grp[SUB][4];  // K5: the current group's fragments
+  GAcc grp[G::NGRP][SUB][4];  // int4: the current group's fragments (K5v4: pe, po)
 #pragma unroll
   for (int j = 0; j < SUB; ++j)
 #pragma unroll
-    for (int e = 0; e < 4; ++e) acc[j][e] = grp[j][e] = 0;
+    for (int e = 0; e < 4; ++e) {
+      acc[j][e] = 0;
+#pragma unroll
+      for (int q = 0; q < G::NGRP; ++q) grp[q][j][e] = 0;
+    }
+  // K5v4: the activation scales of this lane's fragment rows 2 t4 and 2 t4 + 1.
+  float se[2] = {1.f, 1.f}, so[2] = {1.f, 1.f};
+  if constexpr (F == Fmt::W4A8) {
+#pragma unroll
+    for (int e = 0; e < 2; ++e) {
+      se[e] = ascale[2 * t4 + e];
+      so[e] = ascale[ROWS + 2 * t4 + e];
+    }
+  }
   int group = -1;
-  const __nv_bfloat16* gsm = nullptr;  // K5: the stage's gscale rows, from group g_first
+  const __nv_bfloat16* gsm = nullptr;  // int4: the stage's gscale rows, from group g_first
   int g_first = 0;
-  auto flush = [&]() {  // K5: totals += group fragments * gscale of columns 2g, 2g + 1
+  // int4: totals += the group's fragments scaled, at columns 2g (e 0, 1) and 2g + 1
+  // (e 2, 3) of each 16-column tile; K5v4's fragment rows are decode rows 2 t4 + (e & 1).
+  auto flush = [&]() {
     if constexpr (INT4) {
       if (group < 0) return;
 #pragma unroll
       for (int j = 0; j < SUB; ++j) {
         const float2 sc = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(
             gsm + (group - g_first) * TN + 16 * j + 2 * g));
-        acc[j][0] = fmaf(grp[j][0], sc.x, acc[j][0]);
-        acc[j][1] = fmaf(grp[j][1], sc.x, acc[j][1]);
-        acc[j][2] = fmaf(grp[j][2], sc.y, acc[j][2]);
-        acc[j][3] = fmaf(grp[j][3], sc.y, acc[j][3]);
-        grp[j][0] = grp[j][1] = grp[j][2] = grp[j][3] = 0.f;
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          const float gsc = e < 2 ? sc.x : sc.y;
+          if constexpr (F == Fmt::W4A16) {
+            acc[j][e] = fmaf(grp[0][j][e], gsc, acc[j][e]);
+          } else {
+            acc[j][e] = fmaf(fmaf((float)grp[0][j][e], se[e & 1],
+                                  (float)grp[1][j][e] * so[e & 1]), gsc, acc[j][e]);
+          }
+#pragma unroll
+          for (int q = 0; q < G::NGRP; ++q) grp[q][j][e] = 0;
+        }
       }
     }
   };
@@ -759,13 +806,13 @@ __device__ __forceinline__ void gemv_body(const Args& a) {
     const unsigned char* wt = smem + (s % NSTAGE) * slot;
     const unsigned char* ht = wt + G::WBYTES + G::SBYTES + g * G::HSTRIDE;  // this lane's B row
     const int rs = r0 + s * SROWS;
-    if constexpr (!INT4) {
+    if constexpr (F == Fmt::W8A8) {
       // 32-row chunks, warp w takes w, w + 4, ... One ldmatrix.x4.trans a 16-column mma
       // tile reads the chunk's four 8-row blocks; lane (g, t4) gets rows 2 t4, 2 t4 + 1
       // of each in columns 2g, 2g + 1, so its k slots hold chunk rows 2 t4 + {0, 1, 8, 9}
       // (a0, a1) and 16 + those (a2, a3), and B is quantized from the same rows, once
       // for the tile's SUB mmas.
-      const float sc = g < a.rows ? ascale[g] : 1.f;
+      const float sc = ascale[g];
 #pragma unroll
       for (int q = 0; q < SROWS / (WARPS * 32); ++q) {
         const int c = (q * WARPS + warp) * 32;
@@ -792,7 +839,7 @@ __device__ __forceinline__ void gemv_body(const Args& a) {
           mma_s8(acc[j], av, b[0], b[1]);
         }
       }
-    } else {
+    } else if constexpr (F == Fmt::W4A16) {
       // 8-packed-row chunks (16 logical k), warp w takes the w-th quarter of the tile in
       // order. One ldmatrix.trans reads a chunk of every 16-column mma tile; lane (g, t4)
       // gets packed rows 2 t4, 2 t4 + 1 in columns 2g, 2g + 1: its k slots hold logical
@@ -826,7 +873,55 @@ __device__ __forceinline__ void gemv_body(const Args& a) {
           const uint32_t xb = x[j] ^ 0x88888888u;
           const uint32_t av[4] = {nibble_pair(xb, 0), nibble_pair(xb, 8), nibble_pair(xb, 4),
                                   nibble_pair(xb, 12)};
-          xot_mma::mma_bf16(grp[j], av, b0, b1);
+          xot_mma::mma_bf16(grp[0][j], av, b0, b1);
+        }
+      }
+      flush();
+      group = -1;
+    } else {
+      // 16-packed-row chunks, warp w takes the w-th quarter of the tile in order. As in
+      // K6, one ldmatrix.trans matrix pair reads the chunk's two 8-row blocks of a
+      // 16-column mma tile (x4: two tiles at once), and lane (g, t4)'s k slots 4 t4 ..
+      // 4 t4 + 3 hold packed rows 2 t4 + {0, 1, 8, 9} of columns 2g (a0) and 2g + 1
+      // (a1); their low nibbles meet h at logical 2p (even), the high ones 2p + 1 (odd),
+      // one 8-byte load of h for each row pair. B is quantized once for the SUB mmas.
+      constexpr int PER_WARP = SROWS / WARPS, LDM = SUB < 2 ? 2 : 4;
+      gsm = reinterpret_cast<const __nv_bfloat16*>(wt + G::WBYTES);
+      g_first = rs / a.gs_half;
+      const float s_e = ascale[g], s_o = ascale[ROWS + g];
+#pragma unroll
+      for (int q = 0; q < PER_WARP / 16; ++q) {
+        const int c = warp * PER_WARP + 16 * q;
+        if (rs + c >= r1) break;
+        const int gi = (rs + c) / a.gs_half;
+        if (gi != group) {
+          flush();
+          group = gi;
+        }
+        uint32_t be = 0u, bo = 0u;
+        if (g < a.rows) {
+          // (even, odd) at packed rows 2 t4, 2 t4 + 1, then 8 + those.
+          const uint2 v = *reinterpret_cast<const uint2*>(ht + 4 * (c + 2 * t4));
+          const uint2 u = *reinterpret_cast<const uint2*>(ht + 4 * (c + 8 + 2 * t4));
+          const float2 p0 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.x));
+          const float2 p1 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&v.y));
+          const float2 p8 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.x));
+          const float2 p9 = __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
+          be = pack4(quant8(p0.x, s_e), quant8(p1.x, s_e), quant8(p8.x, s_e), quant8(p9.x, s_e));
+          bo = pack4(quant8(p0.y, s_o), quant8(p1.y, s_o), quant8(p8.y, s_o), quant8(p9.y, s_o));
+        }
+        uint32_t x[2 * SUB];  // x[2j], x[2j + 1]: rows 0-7 and 8-15 of mma tile j
+#pragma unroll
+        for (int j0 = 0; j0 < SUB; j0 += LDM / 2)
+          ldm_trans<LDM>(x + 2 * j0,
+                         wt + wchunk<TN>(c + (lane & 7) + 8 * ((lane >> 3) & 1),
+                                         j0 + (LDM == 4 ? lane >> 4 : 0)));
+#pragma unroll
+        for (int j = 0; j < SUB; ++j) {
+          const uint32_t a0 = __byte_perm(x[2 * j], x[2 * j + 1], 0x6420);  // column 2g
+          const uint32_t a1 = __byte_perm(x[2 * j], x[2 * j + 1], 0x7531);  // column 2g + 1
+          mma_s8_k16(grp[0][j], nibbles_s8(a0, 0), nibbles_s8(a1, 0), be);
+          mma_s8_k16(grp[1][j], nibbles_s8(a0, 4), nibbles_s8(a1, 4), bo);
         }
       }
       flush();
@@ -850,7 +945,7 @@ __device__ __forceinline__ void gemv_body(const Args& a) {
   __syncthreads();
   const int n_out = a.rows * TN, per = (n_out + a.splits - 1) / a.splits;
   const int rank = (int)cluster.block_rank();
-  if constexpr (INT4) xot_cluster_wait();  // every block of the cluster has started
+  if constexpr (!A8) xot_cluster_wait();  // every block of the cluster has started
   for (int t = threadIdx.x; t < n_out; t += THREADS) {
     Acc v = red[t];
 #pragma unroll
@@ -872,9 +967,20 @@ __device__ __forceinline__ void gemv_body(const Args& a) {
 }
 
 template <int TN>
-__global__ void __launch_bounds__(THREADS) w8a8_cluster_kernel(Args a) { gemv_body<false, TN>(a); }
+__global__ void __launch_bounds__(THREADS) w8a8_cluster_kernel(Args a) {
+  gemv_body<Fmt::W8A8, TN>(a);
+}
 template <int TN>
-__global__ void __launch_bounds__(THREADS) w4a16_cluster_kernel(Args a) { gemv_body<true, TN>(a); }
+__global__ void __launch_bounds__(THREADS) w4a16_cluster_kernel(Args a) {
+  gemv_body<Fmt::W4A16, TN>(a);
+}
+// K5v4 at 128 columns would hold 195 registers, two blocks an SM, and the plan's
+// blocks would then take two waves (gate/up: 320 blocks); bounded to three blocks an
+// SM it holds 168 and spills nothing.
+template <int TN>
+__global__ void __launch_bounds__(THREADS, 3) w4a8_cluster_kernel(Args a) {
+  gemv_body<Fmt::W4A8, TN>(a);
+}
 
 // The widest cp.async (16, 8 or 4 bytes) that a row stride and a base pointer allow.
 int vec_bytes(const void* p, long long row_bytes) {
@@ -884,10 +990,12 @@ int vec_bytes(const void* p, long long row_bytes) {
   return 4;
 }
 
-template <bool INT4, int TN>
+template <Fmt F, int TN>
 int launch_tn(const Args& a, cudaStream_t stream) {
-  auto kernel = INT4 ? w4a16_cluster_kernel<TN> : w8a8_cluster_kernel<TN>;
-  const int smem = Geometry<INT4, TN>::smem(a.rows);
+  auto kernel = F == Fmt::W8A8    ? w8a8_cluster_kernel<TN>
+                : F == Fmt::W4A16 ? w4a16_cluster_kernel<TN>
+                                  : w4a8_cluster_kernel<TN>;
+  const int smem = Geometry<F, TN>::smem(a.rows);
   if (smem > 48 * 1024) {
     cudaError_t err = cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
     if (err != cudaSuccess) return (int)err;
@@ -907,7 +1015,7 @@ int launch_tn(const Args& a, cudaStream_t stream) {
   return (int)cudaLaunchKernelEx(&cfg, kernel, a);
 }
 
-template <bool INT4>
+template <Fmt F>
 int launch(const void* h, const void* w, const void* s, void* out, int rows, int K, int N,
            int gs, int tile, int splits, void* stream) {
   const int steps = (K + KSTEP - 1) / KSTEP;
@@ -918,10 +1026,10 @@ int launch(const void* h, const void* w, const void* s, void* out, int rows, int
                vec_bytes(s, 2LL * N)};
   cudaStream_t st = static_cast<cudaStream_t>(stream);
   switch (tile) {
-    case 16: return launch_tn<INT4, 16>(a, st);
-    case 32: return launch_tn<INT4, 32>(a, st);
-    case 64: return launch_tn<INT4, 64>(a, st);
-    case 128: return launch_tn<INT4, 128>(a, st);
+    case 16: return launch_tn<F, 16>(a, st);
+    case 32: return launch_tn<F, 32>(a, st);
+    case 64: return launch_tn<F, 64>(a, st);
+    case 128: return launch_tn<F, 128>(a, st);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -939,22 +1047,26 @@ extern "C" int xot_w8a8_matvec_bf16(const void* h, const void* w, const void* ws
     return (int)cudaErrorInvalidValue;
   if (tile == 0) return rows == 1 ? launch_w8a8_row(h, w, ws, out, K, N, stream)
                                    : (int)cudaErrorInvalidValue;
-  return gemv::launch<false>(h, w, ws, out, rows, K, N, 0, tile, splits, stream);
+  return gemv::launch<gemv::Fmt::W8A8>(h, w, ws, out, rows, K, N, 0, tile, splits, stream);
 }
 
-// h bf16 [rows, K], w uint8 [K/gs, gs/2, N] packed nibbles, gscale bf16 [K/gs, N].
+// h bf16 [rows, K], w uint8 [K/gs, gs/2, N] packed nibbles, gscale bf16 [K/gs, N];
+// `tile` and `splits` as K6's.
 extern "C" int xot_w4a8_matvec_bf16(const void* h, const void* w, const void* gscale, void* out,
-                                    int rows, int K, int N, int gs, void* stream) {
+                                    int rows, int K, int N, int gs, int tile, int splits,
+                                    void* stream) {
   if (!int4_shape_ok(rows, K, N, gs)) return (int)cudaErrorInvalidValue;
-  return launch_w4a8(h, w, gscale, out, rows, K, N, gs / 2, stream);
+  if (tile == 0) return rows == 1 ? launch_w4a8_row(h, w, gscale, out, K, N, gs / 2, stream)
+                                   : (int)cudaErrorInvalidValue;
+  return gemv::launch<gemv::Fmt::W4A8>(h, w, gscale, out, rows, K, N, gs, tile, splits, stream);
 }
 
-// As K5v4's operands; `tile` and `splits` as K6's.
+// As K5v4's operands and plan.
 extern "C" int xot_w4a16_matvec_bf16(const void* h, const void* w, const void* gscale, void* out,
                                      int rows, int K, int N, int gs, int tile, int splits,
                                      void* stream) {
   if (!int4_shape_ok(rows, K, N, gs)) return (int)cudaErrorInvalidValue;
   if (tile == 0) return rows == 1 ? launch_w4a16_row(h, w, gscale, out, K, N, gs / 2, stream)
                                    : (int)cudaErrorInvalidValue;
-  return gemv::launch<true>(h, w, gscale, out, rows, K, N, gs, tile, splits, stream);
+  return gemv::launch<gemv::Fmt::W4A16>(h, w, gscale, out, rows, K, N, gs, tile, splits, stream);
 }

@@ -51,7 +51,7 @@ SIGNATURES = {
   },
   "quant_matvec": {
     "xot_w8a8_matvec_bf16": [P, P, P, P, I, I, I, I, I, P],
-    "xot_w4a8_matvec_bf16": [P, P, P, P, I, I, I, I, P],
+    "xot_w4a8_matvec_bf16": [P, P, P, P, I, I, I, I, I, I, P],
     "xot_w4a16_matvec_bf16": [P, P, P, P, I, I, I, I, I, I, P],
   },
 }

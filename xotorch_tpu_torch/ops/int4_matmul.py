@@ -17,14 +17,17 @@ nibbles:
 
 Both kernels are hand-written CUDA for Hopper (csrc/quant_matvec.cu): the nibbles
 are unpacked in registers after the packed read, so the card streams half a byte a
-weight. K5 (`w4a16_cluster_kernel`) is K6's design (ops/int8_matmul.py): split-K over
-a thread-block cluster on the `gemv_plan` ranges, bf16 tensor-core products with one
-fp32 fragment a group, one launch; one decode row over a short contraction takes
-`w4a16_kernel` (a block a 32 columns, fp32 FMA on the CUDA cores) as the plan says.
-K5v4 (`w4a8_kernel`) quantizes its activations inside its launch, one block a
-32-column tile over the whole contraction. The plain PyTorch versions sit beside them (K5's mirrors the JAX v1 body; K5v4's takes the integer
-dots in float64, which holds them exactly). The wrappers take them only for tensors
-on the CPU.
+weight. Both are K6's design (ops/int8_matmul.py): split-K over a thread-block cluster
+on the `gemv_plan` ranges, tensor-core products, one launch. K5
+(`w4a16_cluster_kernel`) multiplies bf16 nibbles by bf16 h with one fp32 fragment a
+group. K5v4 (`w4a8_cluster_kernel`) quantizes its activations inside its launch, bit
+for bit as the plain version (the cluster agrees on the even and the odd maxima), and
+multiplies int8 nibbles by int8 h with two int32 fragments a group (even, odd),
+composed in fp32 when the group ends. One decode row over a short contraction takes
+the one-row kernels instead (`w4a16_kernel`, `w4a8_kernel`: a block a 32 columns on
+the CUDA cores), as the plan says. The plain PyTorch versions sit beside them (K5's
+mirrors the JAX v1 body; K5v4's takes the integer dots in float64, which holds them
+exactly). The wrappers take them only for tensors on the CPU.
 """
 from __future__ import annotations
 
@@ -84,9 +87,8 @@ def int4_w4a8_matmul_ref(h: torch.Tensor, w_packed: torch.Tensor, gscale: torch.
   return part.sum(dim=0).to(h.dtype)
 
 
-def _launch(fn_name: str, h: torch.Tensor, w_packed: torch.Tensor, gscale: torch.Tensor,
-            *plan: int) -> torch.Tensor:
-  """Launch `fn_name` on the operands, `plan` (K5: its tile and splits) after the shapes."""
+def _launch(fn_name: str, h: torch.Tensor, w_packed: torch.Tensor, gscale: torch.Tensor) -> torch.Tensor:
+  """Launch `fn_name` on the operands, with the tile and splits of `gemv_plan`."""
   G, gs_half, d_out = w_packed.shape
   rows, d_in = h.shape
   if gs_half % 16 or d_out % 4:
@@ -94,10 +96,12 @@ def _launch(fn_name: str, h: torch.Tensor, w_packed: torch.Tensor, gscale: torch
                      f"out % 4 == 0, got gs={2 * gs_half} out={d_out}")
   check_operands(fn_name, h, w_packed, gscale, torch.uint8)
   out = torch.empty((rows, d_out), dtype=h.dtype, device=h.device)
+  tile, splits = gemv_plan(rows, d_in, d_out, _sm_count(h.device.index))
   rc = getattr(_build.load("quant_matvec"), fn_name)(
     h.data_ptr(), w_packed.data_ptr(), gscale.data_ptr(), out.data_ptr(), rows, d_in, d_out,
-    2 * gs_half, *plan, torch.cuda.current_stream(h.device).cuda_stream)
-  _build.check(rc, f"{fn_name} (rows={rows} in={d_in} out={d_out} gs={2 * gs_half})")
+    2 * gs_half, tile, splits, torch.cuda.current_stream(h.device).cuda_stream)
+  _build.check(rc, f"{fn_name} (rows={rows} in={d_in} out={d_out} gs={2 * gs_half} "
+                   f"tile={tile} splits={splits})")
   return out
 
 
@@ -110,8 +114,7 @@ def int4_w4a16_matmul(h: torch.Tensor, w_packed: torch.Tensor, gscale: torch.Ten
     return int4_w4a16_matmul_ref(h, w_packed, gscale)
   if h.device.type != "cuda":
     raise ValueError(f"int4_w4a16_matmul runs on cuda or cpu tensors, got {h.device}")
-  out = _launch("xot_w4a16_matvec_bf16", h, w_packed, gscale,
-                *gemv_plan(*h.shape, w_packed.shape[2], _sm_count(h.device.index)))
+  out = _launch("xot_w4a16_matvec_bf16", h, w_packed, gscale)
   int4_w4a16_matmul.launches += 1
   return out
 

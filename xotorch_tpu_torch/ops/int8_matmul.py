@@ -17,7 +17,7 @@ bit for bit as `rowquant_int8` does, and the cluster sums the ranges in rank ord
 through distributed shared memory, so a projection costs one launch. One decode row
 over a short contraction takes the one-row kernel instead (`w8a8_kernel`: a block a 32
 columns over the whole contraction, on the CUDA cores), which a decode step runs faster
-there. K5 (ops/int4_matmul.py) runs on the same plan. The plain PyTorch version sits
+there. K5 and K5v4 (ops/int4_matmul.py) run on the same plan. The plain PyTorch version sits
 beside it and is exact too: the int32 sums are taken in float64, which holds them
 without rounding. The wrapper takes it only for tensors on the CPU.
 """
@@ -32,7 +32,7 @@ from xotorch_tpu_torch.ops import _build
 from xotorch_tpu_torch.ops.flash_decode import _sm_count
 
 MAX_ROWS = 8  # decode rows one launch takes (transformer._linear sends B*T <= 8)
-GEMV_TILES = (128, 64, 32, 16)  # output columns a K5/K6 cluster block may own, widest first
+GEMV_TILES = (128, 64, 32, 16)  # output columns a GEMV cluster block may own, widest first
 GEMV_ROW_MAX_K = 4096  # one decode row over a contraction this short: the one-row kernel
 GEMV_KSTEP = 32  # logical rows of a k-step: a split is whole k-steps (the last ends at K)
 GEMV_MAX_SPLITS = 8  # blocks of a cluster: the portable cluster size
@@ -41,7 +41,7 @@ GEMV_BLOCKS_PER_SM = 2  # blocks a plan aims at for each SM
 
 @functools.lru_cache(maxsize=None)
 def gemv_plan(rows: int, K: int, N: int, sm_count: int) -> Tuple[int, int]:
-  """(tile, splits) of a K5/K6 launch on a card with `sm_count` SMs. One row over
+  """(tile, splits) of a K5, K5v4 or K6 launch on a card with `sm_count` SMs. One row over
   K <= GEMV_ROW_MAX_K: (0, 1), the one-row kernel (a block a 32 columns over the whole
   contraction, on the CUDA cores), which a decode step runs faster there than the
   cluster kernels with their fixed barriers (PERF.md, Findings on K5 and K6). Otherwise the cluster
