@@ -64,7 +64,21 @@ Phases, in order; any failure exits nonzero and prints no result line:
      (the kernels a step the quantizing writes add), then the eight concurrent
      requests on an int8 page arena (K4q, K3q launches against segments and steps,
      0 pages left, bytes a token against bf16's);
-  10. the {"kernels": [...]} line, then the {"ok": true, ...} line last.
+  10. ring, one process: two Nodes (main.build_node, manual discovery, the TCP
+     transport on 127.0.0.1), each with its own engine on the card, serve
+     synthetic-llama-1b split 8/8 and answer the main path's three requests through
+     process_prompt: temperature-0 tokens equal to phase 5's, K1 = 16 x fresh
+     prefills and K2 = 16 x (decode steps + segments at pos > 0) summed over both
+     engines, every hidden-state hop bfloat16 at 2 x T x 2048 bytes; TTFT, decode
+     rate, hop times and wire bytes a decode step;
+  11. ring, two processes: two `python -m xotorch_tpu_torch.main` peers with a manual
+     config naming both and --wait-for-peers 1; the three requests go to the API of
+     the peer holding layers 8-15 (each prompt forwarded to layers 0-7's owner) and
+     the first also to the other peer's; temperature-0 streams equal to phase 5's
+     (read from the sampler peer's DEBUG=2 log; the other runs at DEBUG=1), TTFT and
+     decode rate beside phase 5's (DEBUG=0), SendTensor frames a decode step; both
+     children stopped, exit 0, none left;
+  12. the {"kernels": [...]} line, then the {"ok": true, ...} line last.
 """
 from __future__ import annotations
 
@@ -1552,8 +1566,8 @@ def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthe
   before the three requests and read just after; then a decode chunk runs under the
   profiler at each batch size of `profiles` (with `wrapper`, held to one `focus` kernel
   a call of it). Returns the launch counts, the decode
-  steps the batcher ran for the three requests, the tokens each request streamed
-  and the profiles. (`device` and `model` let the same phase be rehearsed on the CPU
+  steps the batcher ran for the three requests, the tokens each request streamed,
+  each request's timing line and the profiles. (`device` and `model` let the same phase be rehearsed on the CPU
   with a small card.)"""
   from xotorch_tpu_torch import main as port_main
   from xotorch_tpu_torch.models.registry import build_full_shard
@@ -1608,6 +1622,7 @@ def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthe
         for k in kernels:
           k.launches = 0
         decoded = 0
+        timings = []
         for label, body in requests:
           url = base + "/v1/chat/completions"
           t0 = time.perf_counter()
@@ -1624,6 +1639,7 @@ def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthe
             n = resp["usage"]["completion_tokens"]
             finish = [resp["choices"][0]["finish_reason"]]
             timing = f"end to end {(time.perf_counter() - t0) * 1e3:.1f} ms"
+          timings.append(timing)
           want = body["max_tokens"]
           ok = n == want and finish == ["length"]
           print(f"[{tag}] {label}: {n} tokens, finish {finish}, {timing} ({card}) "
@@ -1638,19 +1654,19 @@ def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthe
         for b in profiles:
           profiled[b] = await profile_decode(torch, engine, model, classname, card, batch=b,
                                              tag=tag, focus=focus, wrapper=wrapper)
-        return counts, decoded, steps, streamed, profiled
+        return counts, decoded, steps, streamed, profiled, timings
       finally:
         server.close()
         await server.wait_closed()
         await node.stop()
 
     try:
-      counts, decoded, steps, streamed, profiled = asyncio.run(drive())
+      counts, decoded, steps, streamed, profiled, timings = asyncio.run(drive())
     finally:
       engine.executor.shutdown(wait=True)
   print(f"[{tag}] launches: {counts} ({decoded} decoded tokens, {steps} decode steps)", flush=True)
   return {"launches": counts, "decoded": decoded, "steps": steps, "tokens": streamed,
-          "profiles": profiled}
+          "profiles": profiled, "timings": timings}
 
 
 def quant_phases():
@@ -1953,6 +1969,332 @@ async def wait_idle(engine, timeout: float = 30.0) -> None:
   await engine._run(lambda: None)
 
 
+RING_IDS = ("ring-b", "ring-a")  # equal memories: the ring orders its peers by id,
+                                 # descending, so ring-b holds the first half of the layers
+
+
+def write_ring_config(path: str, ports: dict, caps: dict) -> None:
+  """The manual discovery config that names the ring's peers, on 127.0.0.1."""
+  with open(path, "w") as f:
+    json.dump({"peers": {i: {"address": "127.0.0.1", "port": port, "device_capabilities": caps}
+                         for i, port in ports.items()}}, f)
+
+
+def greedy_streams_agree(tag: str, main_run: dict, streams: dict) -> None:
+  """Every temperature-0 request's tokens, {main_requests index: tokens}, must equal the
+  single-peer main path's for the same request."""
+  for j, (label, body) in enumerate(main_requests("synthetic-llama-1b")):
+    if body.get("temperature") != 0 or j not in streams:
+      continue
+    want, got = main_run["tokens"][j], streams[j]
+    same = sum(a == b for a, b in zip(want, got))
+    ok = got == want
+    print(f"[{tag}] {label}: {same}/{len(want)} temperature-0 tokens equal the single-peer "
+          f"main path's {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+      raise AssertionError(f"{tag}: {label} streamed {got}, the main path {want}")
+
+
+def drive_ring_inprocess(torch, card: str, main_run: dict, device: str = "cuda",
+                         model: str = "synthetic-llama-1b") -> dict:
+  """Phase 10: two Nodes in this process, each with its own engine on `device`, built by
+  main.build_node with manual discovery and linked by the TCP transport on 127.0.0.1,
+  serve `model` split in two. The main path's three requests enter at the owner of
+  layer 0 through process_prompt. Holds K1's and K2's launches to the main path's
+  formulas summed over both engines (K1 = layers x fresh prefills, K2 = layers x
+  (decode steps + segments at pos > 0)), every hidden-state hop to bf16 at 2 x T x
+  hidden bytes, and the temperature-0 streams to the main path's. Returns the hop and
+  wire figures."""
+  import tempfile
+  from xotorch_tpu_torch import main as port_main
+  from xotorch_tpu_torch.api.chatgpt_api import build_prompt
+  from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer
+  from xotorch_tpu_torch.models.registry import build_base_shard
+  from xotorch_tpu_torch.networking.tcp import peer_handle as tcp_peer_handle
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention
+  from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention
+  from xotorch_tpu_torch.topology.device_capabilities import device_capabilities_sync
+  from xotorch_tpu_torch.utils.helpers import find_available_port
+
+  tag = "ring, 1 process"
+  kernels = (flash_attention, flash_cached_attention)
+  hops = []  # (the tensor's descriptor, frame bytes on the wire) of every SendTensor
+  real_encode = tcp_peer_handle.encode_message
+
+  def recording(fields, tensors=None):
+    frame = real_encode(fields, tensors)
+    if fields.get("rpc") == "SendTensor":
+      header_len = int.from_bytes(frame[4:8], "big")
+      hops.append((json.loads(frame[8:8 + header_len])["tensors"]["tensor"], 4 + len(frame)))
+    return frame
+
+  with phase_env(XOT_PAGED_KV="0", XOT_PREFILL_CHUNK="1024"), tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "ring.json")
+    ports = {i: find_available_port("127.0.0.1") for i in RING_IDS}
+    write_ring_config(path, ports, device_capabilities_sync().to_dict())
+    built = {}
+    for i in RING_IDS:
+      args = port_main.build_parser().parse_args(
+        ["--device", device, "--default-model", model, "--node-id", i, "--node-host", "127.0.0.1",
+         "--node-port", str(ports[i]), "--discovery-module", "manual",
+         "--discovery-config-path", path])
+      built[i] = port_main.build_node(args)
+    nodes = {i: b[0] for i, b in built.items()}
+    engines = {i: b[1] for i, b in built.items()}
+    classname = built[RING_IDS[0]][2]
+    tokenizer = DummyTokenizer()
+
+    async def serve(node, base, prompt: str, rid: str, body: dict) -> dict:
+      done = asyncio.Event()
+      out = {"tokens": [], "first": None, "last": None}
+      t0 = time.perf_counter()
+
+      def on_token(r, toks, finished):
+        if r != rid:
+          return
+        out["tokens"] = list(toks)
+        if toks and out["first"] is None:
+          out["first"] = time.perf_counter() - t0
+        if finished:
+          out["last"] = time.perf_counter() - t0
+          done.set()
+      node.on_token.register(rid).on_next(on_token)
+      await node.process_prompt(base, prompt, rid, max_tokens=body["max_tokens"],
+                                temperature=body.get("temperature"))
+      await asyncio.wait_for(done.wait(), 600)
+      node.on_token.deregister(rid)
+      error = node.request_errors.pop(rid, None)
+      if error is not None:
+        raise AssertionError(f"{tag}: request {rid} failed: {error}")
+      return out
+
+    async def drive():
+      try:
+        t0 = time.perf_counter()
+        await asyncio.wait_for(asyncio.gather(*(n.start(wait_for_peers=1) for n in nodes.values())), 120)
+        base = build_base_shard(model, classname)
+        layers = {i: nodes[i].get_current_shard(base) for i in RING_IDS}
+        half = base.n_layers // 2
+        if [(s.start_layer, s.end_layer) for s in layers.values()] != [(0, half - 1), (half, base.n_layers - 1)]:
+          raise AssertionError(f"{tag}: layers {layers}")
+        await asyncio.gather(*(engines[i].ensure_shard(layers[i]) for i in RING_IDS))
+        print(f"[{tag}] {RING_IDS[0]} layers 0-{half - 1}, {RING_IDS[1]} layers {half}-"
+              f"{base.n_layers - 1} on {device}, started and loaded in "
+              f"{time.perf_counter() - t0:.1f} s", flush=True)
+        before = {i: port_main.wire_counts(nodes[i]) for i in RING_IDS}
+        hops.clear()
+        for k in kernels:
+          k.launches = 0
+        runs, fresh, segments, steps = [], 0, 0, 0
+        for j, (label, body) in enumerate(main_requests(model)):
+          prompt = build_prompt(tokenizer, body["messages"])
+          out = await serve(nodes[RING_IDS[0]], base, prompt, f"ring-inprocess-{j}", body)
+          fresh += 1
+          segments += (len(tokenizer.encode(prompt)) - 1) // 1024
+          steps += len(out["tokens"]) - 1
+          runs.append((label, body, out))
+        counts = {k.__name__: k.launches for k in kernels}
+        wire = {}
+        for i in RING_IDS:
+          for method, row in port_main.wire_counts(nodes[i]).items():
+            was = before[i].get(method, [0, 0, 0])
+            acc = wire.setdefault(method, [0, 0, 0])
+            for c in range(3):
+              acc[c] += row[c] - was[c]
+        hop_s = sorted(s for n in nodes.values() for p in n.peers for m, s in p.hop_seconds
+                       if m == "SendTensor")
+        return runs, counts, fresh, segments, steps, wire, hop_s, base.n_layers, engines[RING_IDS[0]].cfg.hidden_size
+      finally:
+        for n in nodes.values():
+          await n.stop()
+
+    tcp_peer_handle.encode_message = recording
+    try:
+      runs, counts, fresh, segments, steps, wire, hop_s, n_layers, hidden = asyncio.run(drive())
+    finally:
+      tcp_peer_handle.encode_message = real_encode
+      for e in engines.values():
+        e.executor.shutdown(wait=True)
+
+  streams = {}
+  for j, (label, body, out) in enumerate(runs):
+    n = len(out["tokens"])
+    rate = (n - 1) / (out["last"] - out["first"]) if n > 1 else float("nan")
+    ok = n == body["max_tokens"]
+    print(f"[{tag}] {label}: {n} tokens, TTFT {out['first'] * 1e3:.1f} ms, decode {rate:.1f} tok/s "
+          f"(main path: {main_run['timings'][j]}) ({card}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+      raise AssertionError(f"{tag}: {label} returned {n} tokens, wanted {body['max_tokens']}")
+    streams[j] = out["tokens"]
+  greedy_streams_agree(tag, main_run, streams)
+  want = {"flash_attention": n_layers * fresh, "flash_cached_attention": n_layers * (steps + segments)}
+  ok = counts == want
+  print(f"[{tag}] launches over both engines {counts}: K1 = {n_layers} layers x {fresh} fresh "
+        f"prefills, K2 = {n_layers} x ({steps} decode steps + {segments} segment at pos > 0) "
+        f"({want}) {'ok' if ok else 'FAIL'}", flush=True)
+  if not ok:
+    raise AssertionError(f"{tag}: launches {counts}, wanted {want}")
+  hidden_hops = [(d, b) for d, b in hops if len(d["shape"]) == 3]
+  bad = [d for d, _ in hidden_hops
+         if d["dtype"] != "bfloat16" or d["nbytes"] != 2 * d["shape"][1] * hidden or d["shape"][0] != 1]
+  prefill = [(d, b) for d, b in hidden_hops if d["shape"][1] > 1]
+  decode = [(d, b) for d, b in hops if d["shape"][1] == 1]
+  ok = not bad and len(prefill) == fresh and len(decode) == 2 * steps
+  print(f"[{tag}] hidden-state hops: {len(hidden_hops)}, every one bfloat16 at 2 x T x {hidden} "
+        f"bytes ({len(prefill)} prefill hops of {', '.join(str(d['shape'][1]) for d, _ in prefill)} "
+        f"positions, {len(decode)} decode-step hops for {steps} steps: hidden state and token) "
+        f"{'ok' if ok and not bad else 'FAIL'}", flush=True)
+  if not ok:
+    raise AssertionError(f"{tag}: hops {bad or [d for d, _ in hops]}")
+  tokens = steps + fresh
+  calls = {m: row[0] for m, row in wire.items() if row[0]}
+  decode_bytes = sum(b for _, b in decode)
+  result_bytes = wire.get("SendResult", [0, 0, 0])[1]
+  acks = sum(wire[m][2] for m in ("SendTensor", "SendResult") if m in wire)
+  figures = {
+    "hops_per_step": len(decode) / max(steps, 1),
+    "hop_bytes_per_step": decode_bytes / max(steps, 1),
+    "results_per_token": calls.get("SendResult", 0) / tokens,
+    "result_bytes_per_token": result_bytes / tokens,
+    "ack_bytes_per_step": acks / max(steps, 1),
+    "hop_ms_median": 1e3 * hop_s[len(hop_s) // 2] if hop_s else float("nan"),
+    "hop_ms_max": 1e3 * hop_s[-1] if hop_s else float("nan"),
+  }
+  print(f"[{tag}] wire a decode step: {figures['hops_per_step']:.2f} SendTensor frames, "
+        f"{figures['hop_bytes_per_step']:.0f} bytes; a sampled token: "
+        f"{figures['results_per_token']:.2f} SendResult frames, "
+        f"{figures['result_bytes_per_token']:.0f} bytes; acks {figures['ack_bytes_per_step']:.0f} "
+        f"bytes a step; SendTensor to ack median {figures['hop_ms_median']:.3f} ms, max "
+        f"{figures['hop_ms_max']:.3f} ms (the prefill hops); calls {calls} ({card})", flush=True)
+  return figures
+
+
+def drive_ring_processes(torch, card: str, main_run: dict, device: str = "cuda",
+                         model: str = "synthetic-llama-1b", timeout: float = 240.0) -> dict:
+  """Phase 11: two `python -m xotorch_tpu_torch.main` peers, each its own process with
+  its own CUDA context, found by manual discovery over one config naming both, with
+  their own node and API ports and --wait-for-peers 1. The main path's three requests
+  go to the API of the peer that holds the last layers (so each prompt is forwarded
+  to the owner of layer 0) and the first one also to the other peer's API. The
+  temperature-0 streams must equal the main path's: the sampler peer runs at DEBUG=2,
+  which logs each sampled token with its request id (so its rates include that log
+  line a token), the other at DEBUG=1; each reports its TCP traffic at shutdown. Both children are stopped with SIGTERM and must exit 0; none is left."""
+  import signal
+  import re
+  import tempfile
+  from xotorch_tpu_torch.topology.device_capabilities import device_capabilities_sync
+  from xotorch_tpu_torch.utils.helpers import find_available_port
+
+  tag = "ring, 2 processes"
+  requests = main_requests(model)
+  procs, logs, texts = {}, {}, {}
+  with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "ring.json")
+    node_ports = {i: find_available_port("127.0.0.1") for i in RING_IDS}
+    api_ports = {i: find_available_port("127.0.0.1") for i in RING_IDS}
+    write_ring_config(path, node_ports, device_capabilities_sync().to_dict())
+    env = {**os.environ, "XOT_PAGED_KV": "0", "XOT_PREFILL_CHUNK": "1024", "PYTHONUNBUFFERED": "1"}
+    bases = {i: f"http://127.0.0.1:{api_ports[i]}" for i in RING_IDS}
+    results = []
+    try:
+      t0 = time.perf_counter()
+      for i in RING_IDS:
+        logs[i] = os.path.join(tmp, f"{i}.log")
+        cmd = [sys.executable, "-m", "xotorch_tpu_torch.main", "--device", device,
+               "--default-model", model, "--node-id", i, "--node-host", "127.0.0.1",
+               "--node-port", str(node_ports[i]), "--chatgpt-api-host", "127.0.0.1",
+               "--chatgpt-api-port", str(api_ports[i]), "--chatgpt-api-response-timeout", "600",
+               "--discovery-module", "manual", "--discovery-config-path", path,
+               "--wait-for-peers", "1"]
+        with open(logs[i], "w") as log:
+          debug = "2" if i == RING_IDS[1] else "1"
+          procs[i] = subprocess.Popen(cmd, cwd=ROOT, env={**env, "DEBUG": debug}, stdout=log,
+                                      stderr=subprocess.STDOUT)
+      pending = set(RING_IDS)
+      while pending:
+        for i in sorted(pending):
+          if procs[i].poll() is not None:
+            raise AssertionError(f"{tag}: {i} exited {procs[i].returncode} while starting")
+          try:
+            if http_json(bases[i] + "/healthcheck", timeout=5).get("status") == "ok":
+              pending.discard(i)
+          except OSError:
+            pass
+        if time.perf_counter() - t0 > timeout:
+          raise AssertionError(f"{tag}: {sorted(pending)} not serving after {timeout:.0f} s")
+        time.sleep(0.25)
+      print(f"[{tag}] both peers serving in {time.perf_counter() - t0:.1f} s", flush=True)
+      url = bases[RING_IDS[1]] + "/v1/chat/completions"
+      for _, body in requests:  # first-use costs out of the measured run, as on the main path
+        http_json(url, {**body, "max_tokens": 2, "stream": False})
+      plan = [(RING_IDS[1], j) for j in range(len(requests))] + [(RING_IDS[0], 0)]
+      for target, j in plan:
+        label, body = requests[j]
+        url = bases[target] + "/v1/chat/completions"
+        t1 = time.perf_counter()
+        if body.get("stream"):
+          events, first, last = http_stream(url, body)
+          rid = events[0]["id"][len("chatcmpl-"):]
+          n = (events[-1].get("usage") or {}).get("completion_tokens", 0)
+          rate = (n - 1) / (last - first) if n > 1 and last > first else float("nan")
+          timing = f"TTFT {first * 1e3:.1f} ms, decode {rate:.1f} tok/s"
+        else:
+          resp = http_json(url, body)
+          rid = resp["id"][len("chatcmpl-"):]
+          n = resp["usage"]["completion_tokens"]
+          timing = f"end to end {(time.perf_counter() - t1) * 1e3:.1f} ms"
+        results.append((target, j, rid, n, timing))
+    finally:
+      for p in procs.values():
+        if p.poll() is None:
+          p.send_signal(signal.SIGTERM)
+      for p in procs.values():
+        try:
+          p.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+          p.kill()
+          p.wait(timeout=60)
+      for i, log in logs.items():
+        with open(log) as f:
+          texts[i] = f.read()
+  alive = [i for i, p in procs.items() if p.poll() is None]
+  codes = {i: p.returncode for i, p in procs.items()}
+  ok = not alive and all(c == 0 for c in codes.values())
+  print(f"[{tag}] children stopped: exit codes {codes}, none left {'ok' if ok else 'FAIL'}",
+        flush=True)
+  if not ok:
+    tails = "\n".join(f"--- {i}\n{t[-3000:]}" for i, t in texts.items())
+    raise AssertionError(f"{tag}: children left {alive}, exit codes {codes}\n{tails}")
+  # The sampler peer (the last layers) logs "[<request id>] token <id> (<n> so far)".
+  tokens_of = {}
+  for rid, tok in re.findall(r"^\[([0-9a-f-]+)\] token (\d+) \(\d+ so far\)$", texts[RING_IDS[1]], re.M):
+    tokens_of.setdefault(rid, []).append(int(tok))
+  for target, j, rid, n, timing in results:
+    label, body = requests[j]
+    got = tokens_of.get(rid, [])
+    ok = n == body["max_tokens"] == len(got)
+    print(f"[{tag}] {label} into {target}'s API: {n} tokens, {timing} (main path: "
+          f"{main_run['timings'][j]}) ({card}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+      raise AssertionError(f"{tag}: {label} into {target}: {n} tokens, {len(got)} logged\n"
+                           f"{texts[RING_IDS[1]][-3000:]}")
+    if body.get("temperature") == 0:
+      greedy_streams_agree(f"{tag}, into {target}", main_run, {j: got})
+  wire = {}
+  for i, text in texts.items():
+    found = re.findall(r"^wire (\S+): (\{.*\})$", text, re.M)
+    if not found:
+      raise AssertionError(f"{tag}: {i} reported no wire counts")
+    wire[i] = json.loads(found[-1][1])
+  prompts = len(requests) + len(plan)
+  steps = sum(n - 1 for *_, n, _ in results) + len(requests)  # the warm-up's 2 tokens: one step each
+  sent = sum(row[0] for w in wire.values() for m, row in w.items() if m == "SendTensor")
+  print(f"[{tag}] over both children's lives: {sent} SendTensor frames for {prompts} prompts "
+        f"and {steps} decode steps = {(sent - prompts) / max(steps, 1):.2f} a step; wire "
+        f"{json.dumps(wire)} ({card})", flush=True)
+  return {"wire": wire}
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--kernels-only", action="store_true",
@@ -2098,7 +2440,14 @@ def main(argv=None) -> int:
   print(f"[int8 kv] page arena bytes per token: int8 {paged8['bytes_per_token']:.0f} against bf16 "
         f"{paged['bytes_per_token']:.0f} ({card})", flush=True)
 
-  # Phase 10: results.
+  # Phases 10 and 11: the token ring. Two peers hold half the layers each and pass
+  # bf16 hidden states over TCP, first as two Nodes in this process (launches counted
+  # over both engines, every hop's dtype and size read), then as two processes started
+  # the way a user starts them; both must stream the main path's temperature-0 tokens.
+  drive_ring_inprocess(torch, card, main_run)
+  drive_ring_processes(torch, card, main_run)
+
+  # Phase 12: results.
   meta = {
     "flash_attention": ("xotorch_tpu_torch/csrc/flash_attention.cu",
                         "xotorch_tpu/ops/flash_attention.py:54"),

@@ -243,7 +243,14 @@ def test_port_imports_neither_jax_nor_the_jax_package():
   walked = {str(f.relative_to(ROOT)) for f in files}
   assert {"xotorch_tpu_torch/ops/paged_attention.py",
           "xotorch_tpu_torch/inference/torch_engine/paged_cache.py",
-          "xotorch_tpu_torch/inference/torch_engine/vkv.py"} <= walked
+          "xotorch_tpu_torch/inference/torch_engine/vkv.py",
+          "xotorch_tpu_torch/topology/device_capabilities.py",
+          "xotorch_tpu_torch/topology/partitioning.py",
+          "xotorch_tpu_torch/networking/codec.py",
+          "xotorch_tpu_torch/networking/tcp/server.py",
+          "xotorch_tpu_torch/networking/tcp/peer_handle.py",
+          "xotorch_tpu_torch/networking/manual/discovery.py",
+          "xotorch_tpu_torch/networking/udp/discovery.py"} <= walked
   bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
          if name.split(".")[0] in ("jax", "jaxlib", "xotorch_tpu")]
   assert bad == []

@@ -52,6 +52,23 @@ class InferenceEngine(ABC):
   async def ensure_shard(self, shard: Shard) -> None:
     ...
 
+  @abstractmethod
+  async def infer_sample_tensor(
+    self, request_id: str, shard: Shard, input_data: np.ndarray, temp: float = 0.0, top_k: int = 0,
+    inference_state: Optional[dict] = None, top_p: float = 0.0,
+  ) -> Tuple[int, Optional[dict]]:
+    """Run the last shard's layers and sample on the device: the host gets one int."""
+    ...
+
+  @abstractmethod
+  async def generate_chunk(
+    self, request_id: str, shard: Shard, prev_token: int, num_tokens: int, temp: float = 0.0,
+    top_k: int = 0, top_p: float = 0.0, next_size: Optional[int] = None,
+  ) -> Optional[np.ndarray]:
+    """Up to `num_tokens` tokens decoded on the device for a prefilled request whose
+    shard spans the whole model."""
+    ...
+
   async def infer_prompt(
     self, request_id: str, shard: Shard, prompt: str, inference_state: Optional[dict] = None,
     images: Optional[list] = None, **engine_kwargs,

@@ -16,7 +16,8 @@ The port of the single-shard subset of xotorch_tpu/inference/jax_engine/engine.p
   concurrent requests' chunks into one batched dispatch: over stacked contiguous
   caches through K2 (XOT_PAGED_KV=0, the default), or over the shared page arena
   through K3 (XOT_PAGED_KV=1);
-- `infer_tensor` / `sample` keep the per-token contract.
+- `infer_tensor` / `sample` keep the per-token contract of the ring: a partition's
+  hidden state leaves in the model's dtype (bf16 on the card) for the next peer.
 
 Per-request state is either a contiguous [L, 1, S, Hkv, D] KV cache that grows by
 powers of two, or (XOT_PAGED_KV=1) a VirtualKV handle of pages in the context's
@@ -28,7 +29,8 @@ It runs on `cuda` unless the caller passes device="cpu" (the tests do), and rais
 when no GPU is present rather than falling back to the CPU.
 
 Left out so far: the prefix cache, the host KV tier, co-scheduled prefill,
-speculative and overlapped chunks, sampling extras and the ring paths.
+speculative and overlapped chunks, sampling extras, the fused in-process ring
+(`supports_ring_fusion`) and device-resident hops.
 """
 from __future__ import annotations
 
@@ -358,12 +360,18 @@ class TorchShardInferenceEngine(InferenceEngine):
 
   # ----------------------------------------------------------- device path
 
-  def _to_device_input(self, input_data: np.ndarray) -> torch.Tensor:
-    input_data = np.asarray(input_data)
+  def _to_device_input(self, input_data) -> torch.Tensor:
+    """Token ids [B, T] or a hidden state [B, T, H] on the engine's device: numpy, or a
+    CPU torch tensor (a bf16 hop as the wire codec decodes it)."""
+    if not isinstance(input_data, torch.Tensor):
+      input_data = np.asarray(input_data)
+      if not input_data.flags.writeable:  # the codec's arrays view the received frame
+        input_data = input_data.copy()
+      input_data = torch.from_numpy(input_data)
     if input_data.ndim == 2:
-      return torch.as_tensor(input_data.astype(np.int64), device=self.device)
+      return input_data.to(device=self.device, dtype=torch.int64)
     if input_data.ndim == 3:
-      return torch.as_tensor(input_data, device=self.device).to(self.dtype)
+      return input_data.to(device=self.device, dtype=self.dtype)
     raise ValueError(f"expected 2-D tokens or 3-D hidden state, got ndim={input_data.ndim}")
 
   def _prefill_chunk(self) -> int:
@@ -426,17 +434,22 @@ class TorchShardInferenceEngine(InferenceEngine):
     self._advance(ctx, state, true_t)
     return out, true_t
 
-  def _infer_sync(self, ctx: _ShardContext, request_id: str, input_data: np.ndarray) -> np.ndarray:
+  def _infer_sync(self, ctx: _ShardContext, request_id: str, input_data):
+    """The shard's output on the host: fp32 logits from the last shard as numpy; a
+    hidden state in the model's dtype, so a hop carries what the next shard computes
+    in. numpy has no bfloat16, so a bf16 hidden state stays a CPU torch tensor, which
+    the wire codec sends as raw bf16."""
     true_t = input_data.shape[1]
     chunk = self._prefill_chunk()
     outs = []
     for off in range(0, true_t, chunk):
       out, t = self._forward_segment(ctx, request_id, input_data[:, off:off + chunk])
-      outs.append(out[:, :t].float().cpu().numpy())
-    return np.concatenate(outs, axis=1)
+      outs.append(out[:, :t])
+    out = (outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)).cpu()
+    return out if out.dtype == torch.bfloat16 else out.numpy()
 
-  async def infer_tensor(self, request_id: str, shard: Shard, input_data: np.ndarray,
-                         inference_state: Optional[dict] = None) -> Tuple[np.ndarray, Optional[dict]]:
+  async def infer_tensor(self, request_id: str, shard: Shard, input_data,
+                         inference_state: Optional[dict] = None) -> Tuple[Any, Optional[dict]]:
     ctx = await self._ensure_ctx(shard)
     out = await self._run(self._infer_sync, ctx, request_id, input_data)
     return out, inference_state

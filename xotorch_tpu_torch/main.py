@@ -1,17 +1,32 @@
-"""The port's CLI: serve OpenAI chat completions, or run one completion.
+"""The port's CLI: a peer of the token ring that serves OpenAI chat completions, or runs
+one completion.
 
     python -m xotorch_tpu_torch.main [--device cuda|cpu] [--chatgpt-api-port N]
     python -m xotorch_tpu_torch.main run synthetic-llama-1b --prompt "..."
     python -m xotorch_tpu_torch.main --quantize int4   # or int8: quantized weights
     python -m xotorch_tpu_torch.main --kv-quantize int8  # int8 KV cache
 
-The names follow xotorch_tpu/main.py. One node owns the whole model on one device:
-`cuda` by default; with no GPU the engine raises unless `--device cpu` is given.
+The names and defaults follow xotorch_tpu/main.py. A peer finds the others by UDP
+broadcast (`--discovery-module udp`, the default) or from a JSON file
+(`--discovery-module manual --discovery-config-path peers.json`, the schema of
+networking/manual/network_topology_config.py), talks to them over TCP on
+`--node-port`, and takes its share of the model's layers by accelerator memory. Two
+peers on one machine:
+
+    python -m xotorch_tpu_torch.main --node-id b --node-port 50051 --chatgpt-api-port 52415 \\
+        --discovery-module manual --discovery-config-path peers.json --wait-for-peers 1
+    python -m xotorch_tpu_torch.main --node-id a --node-port 50052 --chatgpt-api-port 52416 \\
+        --discovery-module manual --discovery-config-path peers.json --wait-for-peers 1
+
+Every peer runs on `cuda` by default; with no GPU the engine raises unless
+`--device cpu` is given.
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
+import json
+import signal
 import sys
 import time
 import uuid
@@ -21,7 +36,10 @@ from xotorch_tpu_torch.api.chatgpt_api import ChatGPTAPI
 from xotorch_tpu_torch.inference.engine import get_inference_engine
 from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer
 from xotorch_tpu_torch.models.registry import build_base_shard
+from xotorch_tpu_torch.networking.tcp import TCPPeerHandle, TCPServer
 from xotorch_tpu_torch.orchestration.node import Node
+from xotorch_tpu_torch.topology.partitioning import RingMemoryWeightedPartitioningStrategy
+from xotorch_tpu_torch.utils.helpers import DEBUG, find_available_port
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -31,6 +49,14 @@ def build_parser() -> argparse.ArgumentParser:
   parser.add_argument("model_name", nargs="?", help="model id (see models registry)")
   parser.add_argument("--version", action="version", version=f"xot-torch {VERSION}")
   parser.add_argument("--node-id", type=str, default=None)
+  parser.add_argument("--node-host", type=str, default="0.0.0.0")
+  parser.add_argument("--node-port", type=int, default=None)
+  parser.add_argument("--listen-port", type=int, default=5678, help="UDP discovery listen port")
+  parser.add_argument("--broadcast-port", type=int, default=5678)
+  parser.add_argument("--discovery-module", type=str, choices=["udp", "manual"], default="udp")
+  parser.add_argument("--discovery-timeout", type=int, default=30)
+  parser.add_argument("--discovery-config-path", type=str, default=None)
+  parser.add_argument("--wait-for-peers", type=int, default=0)
   parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
   parser.add_argument("--inference-engine", type=str, default="torch")
   parser.add_argument("--chatgpt-api-host", type=str, default="0.0.0.0")
@@ -50,16 +76,28 @@ def build_parser() -> argparse.ArgumentParser:
 
 
 def build_node(args) -> tuple:
-  """Engine, node and API for `args`; the engine raises here when the device is
-  missing."""
+  """Engine, node (with its TCP server and discovery, not started) and API for `args`;
+  the engine raises here when the device is missing."""
   engine = get_inference_engine(args.inference_engine, device=args.device,
                                 quantize=getattr(args, "quantize", None),
                                 kv_quant=getattr(args, "kv_quantize", None))
   engine_classname = type(engine).__name__
-  node = Node(args.node_id or str(uuid.uuid4()), engine,
+  node_id = args.node_id or str(uuid.uuid4())
+  node_port = args.node_port or find_available_port()
+  if args.discovery_module == "udp":
+    from xotorch_tpu_torch.networking.udp.discovery import UDPDiscovery
+    discovery = UDPDiscovery(node_id, node_port, args.listen_port, args.broadcast_port,
+                             TCPPeerHandle, discovery_timeout=args.discovery_timeout)
+  else:
+    from xotorch_tpu_torch.networking.manual.discovery import ManualDiscovery
+    if not args.discovery_config_path:
+      raise SystemExit("--discovery-config-path is required with --discovery-module manual")
+    discovery = ManualDiscovery(args.discovery_config_path, node_id, TCPPeerHandle)
+  node = Node(node_id, None, engine, discovery, RingMemoryWeightedPartitioningStrategy(),
               max_generate_tokens=args.max_generate_tokens,
               default_sample_temp=args.default_temp,
               default_sample_top_k=args.default_top_k)
+  node.server = TCPServer(node, args.node_host, node_port)
   api = ChatGPTAPI(node, engine_classname, response_timeout=args.chatgpt_api_response_timeout,
                    default_model=args.default_model, system_prompt=args.system_prompt)
   return node, engine, engine_classname, api
@@ -95,9 +133,26 @@ async def run_model_cli(node: Node, engine_classname: str, model_name: str, prom
   return tokens
 
 
+def wire_counts(node: Node) -> dict:
+  """What this node sent over TCP, by method: {method: [calls, bytes sent, bytes
+  received]}, summed over its peers."""
+  total: dict = {}
+  for peer in node.peers:
+    for method, counts in getattr(peer, "wire", {}).items():
+      row = total.setdefault(method, [0, 0, 0])
+      for i, c in enumerate(counts):
+        row[i] += c
+  return total
+
+
 async def async_main(args) -> None:
   node, engine, engine_classname, api = build_node(args)
+  main_task = asyncio.current_task()
+  loop = asyncio.get_running_loop()
+  for sig in (signal.SIGINT, signal.SIGTERM):
+    loop.add_signal_handler(sig, main_task.cancel)
   try:
+    await node.start(wait_for_peers=args.wait_for_peers)
     if args.command == "run":
       await run_model_cli(node, engine_classname, args.model_name or args.default_model
                           or "synthetic-llama-1b", args.prompt)
@@ -106,6 +161,8 @@ async def async_main(args) -> None:
     async with server:
       await server.serve_forever()
   finally:
+    if DEBUG >= 1:
+      print(f"wire {node.id}: {json.dumps(wire_counts(node))}", flush=True)
     await node.stop()
     engine.executor.shutdown(wait=False)
 
@@ -114,7 +171,7 @@ def run() -> None:
   args = build_parser().parse_args()
   try:
     asyncio.run(async_main(args))
-  except KeyboardInterrupt:
+  except (KeyboardInterrupt, asyncio.CancelledError):
     pass
 
 
