@@ -30,7 +30,16 @@ Phases, in order; any failure exits nonzero and prints no result line:
      its plain version counted, and each GEMV wrapper once under
      set_sync_debug_mode("error"). The softcapped, windowed cases (K1w, K2qw, K3w, K3q)
      are timed beside one compiled flex_attention call, held against the plain version
-     first;
+     first. Every attention case runs through one case body (attention_case). Then
+     the attention kernels at gemma-2-2b's widths (check_gemma_kernels: Hq 8, Hkv 4,
+     D 256, window 4096, softcap 50, scale 1/16, queries scaled by 8 so that scores
+     reach the softcap): K1/K1w at T 1024 and 4608, K2/K2w/K2q decoding at S 8192
+     from 4500 and a 512-query segment, K3/K3w/K3q and K4/K4w/K4q at page 128, each
+     held within 2^-6 of its largest |output| and timed beside its plain version, its
+     bound and one compiled flex_attention (SDPA without a softcap), with controls:
+     the kernel run with its softcap or its window dropped must miss that limit; every
+     kernel at D 256 and D 32 with scale 0.1 (a dropped scale a control too), pages 16
+     and 128; each D 256 wrapper once under set_sync_debug_mode("error");
   4. model: a two-layer cut of synthetic-llama-1b at full width, prefill and decode
      through the kernels in bf16 on the card against the plain path in fp32 on the
      CPU: contiguous (K1, K2), then paged (K4 prefill, K3 decode at B=3), then with
@@ -78,19 +87,37 @@ Phases, in order; any failure exits nonzero and prints no result line:
      (read from the sampler peer's DEBUG=2 log; the other runs at DEBUG=1), TTFT and
      decode rate beside phase 5's (DEBUG=0), SendTensor frames a decode step; both
      children stopped, exit 0, none left;
-  12. the {"kernels": [...]} line, then the {"ok": true, ...} line last.
+  12. gemma-2-2b from a checkpoint on disk: a gemma-2-2b-shaped HF checkpoint (the
+     published config.json of google/gemma-2-2b, seeded random bf16 weights written by
+     the port's save_shard_params as two safetensors files and an index, 5.2 GB, and a
+     word-level tokenizer) in a temporary seed directory; a two-layer cut of it (layer 0
+     windowed, layer 1 global) read by load_shard_params, a 4200-token prefill (past
+     the 4096 window) and 4 decode steps through K1/K1w and K2/K2w in bf16 on the card
+     against the plain path in fp32 on the CPU (the last 64 positions' logits and each
+     step's); then the port's server started with --models-seed-dir (seeding XOT_HOME,
+     then the downloader's offline fast path) serving gemma2-2b at full width and
+     depth answers the main path's three requests and a 4100-word prompt (its prompt
+     and generation pass 4096 positions): K1 = 26 x fresh prefills, K2 = 26 x (decode
+     steps + segments at pos > 0), half of each windowed, TTFT and decode rate, a B=1
+     decode chunk under the profiler; the same on a fresh server with XOT_PAGED_KV=1 (K4 = 26 x segments, K3 = 26 x decode
+     steps, half windowed, 0 pages left) and the share of temperature-0 tokens the two
+     servers agree on; the checkpoint deleted at the end;
+  13. the {"kernels": [...]} line (attention launches include phase 12's), then the
+     {"ok": true, ...} line last.
 """
 from __future__ import annotations
 
 import argparse
 import asyncio
 import contextlib
+import gc
 import json
 import math
 import os
 import subprocess
 import sys
 import time
+from typing import NamedTuple, Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -133,7 +160,9 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
   50 MB L2 flushed before each: on the main path a layer's operands arrive cold,
   after the rest of the model's weights have streamed through. A short spin on the
   card after the flush keeps it busy while the host enqueues the call, so a kernel
-  of a few microseconds is not timed with the host's launch latency."""
+  of a few microseconds is not timed with the host's launch latency. The garbage
+  collector is off while the calls are issued: a collection that outlasts the spin
+  (more likely after a compile) would put the host's pause inside one timed call."""
   import torch
   if not _L2_FLUSH:
     _L2_FLUSH.append(torch.empty(64 << 20, dtype=torch.uint8, device="cuda"))
@@ -141,13 +170,17 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
     fn()
   events = [(torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True))
             for _ in range(iters)]
-  for start, end in events:
-    _L2_FLUSH[0].zero_()
-    torch.cuda._sleep(1_000_000)  # ~0.5 ms at the H100's clock
-    start.record()
-    fn()
-    end.record()
-  torch.cuda.synchronize()
+  gc.disable()
+  try:
+    for start, end in events:
+      _L2_FLUSH[0].zero_()
+      torch.cuda._sleep(1_000_000)  # ~0.5 ms at the H100's clock
+      start.record()
+      fn()
+      end.record()
+    torch.cuda.synchronize()
+  finally:
+    gc.enable()
   return sum(start.elapsed_time(end) for start, end in events) / iters
 
 
@@ -156,16 +189,11 @@ def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
   return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
-def visible(p: int, window: int) -> int:
-  """Keys a query at absolute position p sees."""
-  return p + 1 if window <= 0 else min(p + 1, window)
-
-
-def report(name, case, out, ref, ms, plain_ms, lib_ms, b_ms, b_by, atol=ATOL):
+def report(name, case, out, ref, ms, plain_ms, lib_ms, b_ms, b_by, limit=ATOL):
   err = (out.float() - ref.float()).abs().max().item()
   rel = err / max(ref.float().abs().max().item(), 1e-12)
-  ok = math.isfinite(err) and err <= atol
-  print(f"[{name}] {case}: max_abs_err={err:.3e} max_rel_err={rel:.3e} (atol {atol:.3e}) "
+  ok = math.isfinite(err) and err <= limit
+  print(f"[{name}] {case}: max_abs_err={err:.3e} max_rel_err={rel:.3e} (limit {limit:.3e}) "
         f"ms={ms:.4f} plain_ms={plain_ms:.4f} "
         f"library_ms={'null' if lib_ms is None else f'{lib_ms:.4f}'} "
         f"bound_ms={b_ms:.4f} ({b_by}) {'ok' if ok else 'FAIL'}", flush=True)
@@ -175,13 +203,13 @@ def report(name, case, out, ref, ms, plain_ms, lib_ms, b_ms, b_by, atol=ATOL):
           "bound_ms": b_ms, "bound_by": b_by}
 
 
-def flex_ms(torch, case, q, k, v, q_pos, lens, window, softcap, ref):
-  """The library time of a windowed, softcapped case: one torch.compile'd
-  flex_attention call (a yardstick the port never calls) over q [B, T, Hq, D] and bf16
-  K/V [B, S, Hkv, D], with softcap * tanh(score / softcap) as its score_mod and the
-  keys in (p - window, p] below each row's length `lens` as its block mask, GQA. The
-  block mask, the compile and a check of the output against `ref` (the kernel's plain
-  version) at ATOL stay outside the timed window."""
+def flex_ms(torch, case, q, k, v, q_pos, lens, window, softcap, ref, scale=None, limit=ATOL):
+  """The library time of a softcapped case: one torch.compile'd flex_attention call (a
+  yardstick the port never calls) over q [B, T, Hq, D] and bf16 K/V [B, S, Hkv, D],
+  with softcap * tanh(score / softcap) as its score_mod and the keys in
+  (p - window, p] below each row's length `lens` as its block mask, GQA, at `scale`
+  (None: 1/sqrt(D)). The block mask, the compile and a check of the output against
+  `ref` (the kernel's plain version) within `limit` stay outside the timed window."""
   from torch.nn.attention.flex_attention import create_block_mask, flex_attention
   B, T, S = q.shape[0], q.shape[1], k.shape[1]
 
@@ -193,16 +221,193 @@ def flex_ms(torch, case, q, k, v, q_pos, lens, window, softcap, ref):
     return (ki <= p) & (ki > p - window) & (ki < lens[b])
 
   mask = create_block_mask(mask_mod, B, None, T, S, device="cuda")
+  torch._dynamo.reset()  # a fresh compile per case: past 8 shapes dynamo would run it eager
   fn = torch.compile(flex_attention, dynamic=False)
   qt, kt, vt = (x.transpose(1, 2).contiguous() for x in (q, k, v))
-  call = lambda: fn(qt, kt, vt, score_mod=score_mod, block_mask=mask, enable_gqa=True)
-  check_only("flex_attention", case, call().transpose(1, 2), ref)
+  call = lambda: fn(qt, kt, vt, score_mod=score_mod, block_mask=mask, scale=scale,
+                    enable_gqa=True)
+  check_only("flex_attention", case, call().transpose(1, 2), ref, limit)
   return time_ms(call)
 
 
-def check_kernels(torch, results: dict) -> None:
+def sdpa_ms(torch, q, k, v, q_pos, lens, window, scale=None, causal=False):
+  """The library time of a case without a softcap: one scaled_dot_product_attention
+  call (a yardstick the port never calls) over bf16 K/V [B, S, Hkv, D], is_causal for
+  a segment over its own keys from position 0, else masked to the keys each query at
+  q_pos [B, T] sees below its row's length `lens`."""
   import torch.nn.functional as F
+  qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
+  if causal:
+    return time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale,
+                                                          enable_gqa=True))
+  kv = torch.arange(k.shape[1], device=q.device)
+  mask = (kv[None, None, :] <= q_pos[:, :, None]) & (kv[None, None, :] < lens[:, None, None])
+  if window:
+    mask = mask & (kv[None, None, :] > q_pos[:, :, None] - window)
+  m = mask[:, None]
+  return time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m, scale=scale,
+                                                        enable_gqa=True))
+
+
+class Widths(NamedTuple):
+  """A model's attention widths for the kernel cases. `scale` None is the kernels'
+  default, 1/sqrt(D). `q_mul` scales the queries so that scores reach a softcap.
+  `strict` holds each case to rel_limit instead of ATOL and runs its controls."""
+  hq: int
+  hkv: int
+  d: int
+  tag: str = ""
+  scale: Optional[float] = None
+  q_mul: float = 1.0
+  strict: bool = False
+
+  def queries(self, q):
+    return q if self.q_mul == 1.0 else (q.float() * self.q_mul).to(q.dtype)
+
+  def controls(self, window: int, softcap: float):
+    """(feature, overrides): the kernel run with that feature dropped, which a strict
+    case must tell from its plain version."""
+    out = [("softcap", {"softcap": 0.0})] if softcap else []
+    if window:
+      out.append(("window", {"window": 0}))
+    if self.scale is not None and self.scale != self.d ** -0.5:
+      out.append(("scale", {"scale": None}))
+    return out
+
+
+LLAMA_1B = Widths(HQ, HKV, D)
+
+
+def rel_limit(ref) -> float:
+  """A strict case's limit: 2^-6 of the largest |output|, four bf16 steps at the top
+  of the output's range (the kernels read at most 2^-7.1 of it). It follows the
+  outputs where ATOL's |o| <= ~2 does not hold: a decode over 4000 keys of unit
+  normals reads |o| <= 0.1, a peaked softmax up to the largest |v|."""
+  return 2.0 ** -6 * ref.float().abs().max().item()
+
+
+def attention_case(torch, w, name, case, call, ref_call, q, view, q_pos, lens, window,
+                   softcap, row_bytes, twin=None, timed=True, causal=False):
+  """One attention-kernel case. `call(**overrides)` launches the kernel and `ref_call()`
+  runs its plain version on the same inputs; the output is held within ATOL, or within
+  rel_limit for strict widths, whose controls (the kernel with its softcap, window or
+  non-default scale dropped, Widths.controls) must each miss that limit. An int8 case's
+  output also equals `twin()`, its bf16 twin over the dequantized operands, bit for bit.
+  A timed case adds the kernel's and the plain version's times, the library yardstick
+  (flex_ms with a softcap, else sdpa_ms, over `view`, the bf16 K/V [B, S, Hkv, D]) and
+  the bound from the keys each query at q_pos [B, T] sees and the cache rows that
+  covers (`row_bytes` a row), and returns report's dict."""
+  out = call()
+  torch.cuda.synchronize()
+  ref = ref_call()
+  limit = rel_limit(ref) if w.strict else ATOL
+  if w.strict:
+    for label, over in w.controls(window, softcap):
+      err = (call(**over).float() - ref.float()).abs().max().item()
+      ok = err > limit
+      print(f"[{name}] {case}: control, {label} dropped: max_abs_err={err:.3e} (limit "
+            f"{limit:.3e}) {'misses it, as it must' if ok else 'FAIL: within it'}", flush=True)
+      if not ok:
+        raise AssertionError(f"{name} {case}: a kernel with its {label} dropped passes")
+  if twin is not None:
+    same = torch.equal(out, twin())
+    print(f"[{name}] {case}: bit-identical to its bf16 twin over the dequantized operands: "
+          f"{same}", flush=True)
+    if not same:
+      raise AssertionError(f"{name} {case}: differs from its bf16 twin over the dequantized "
+                           "operands (a scale or code read from the wrong place)")
+  if not timed:
+    check_only(name, case, out, ref, limit)
+    return None
+  ms = time_ms(call)
+  plain_ms = time_ms(ref_call, iters=5)
+  k, v = view
+  if softcap:
+    lib = flex_ms(torch, f"{name} {case}", q, k, v, q_pos, lens, window or (1 << 30), softcap,
+                  ref, w.scale, limit)
+  else:
+    lib = sdpa_ms(torch, q, k, v, q_pos, lens, window, w.scale, causal)
+  qp = q_pos.long().cpu()
+  seen = (qp + 1).clamp(max=window) if window else qp + 1
+  first = (qp[:, 0] - window + 1).clamp(min=0) if window else 0
+  rows = (qp[:, -1] + 1 - first).sum().item()
+  b_ms, b_by = bound(4.0 * w.hq * w.d * seen.sum().item(), 2.0 * 2 * q.numel() + rows * row_bytes)
+  return report(name, case, out, ref, ms, plain_ms, lib, b_ms, b_by, limit)
+
+
+def k1_case(torch, w, draw, B, T, window, softcap, timed=True):
+  """K1 (flash_attention): B rows of T positions from 0 over their own K/V."""
   from xotorch_tpu_torch.ops.flash_attention import flash_attention, flash_attention_ref
+  q, k, v = w.queries(draw(B, T, w.hq, w.d)), draw(B, T, w.hkv, w.d), draw(B, T, w.hkv, w.d)
+  kw = dict(window=window, softcap=softcap, scale=w.scale)
+  q_pos = torch.arange(T, device=q.device)[None].expand(B, T)
+  return attention_case(torch, w, "flash_attention",
+                        f"{w.tag}B={B} T={T} window={window} softcap={softcap}",
+                        lambda **o: flash_attention(q, k, v, **{**kw, **o}),
+                        lambda: flash_attention_ref(q, k, v, **kw), q, (k, v), q_pos,
+                        torch.full((B,), T, device=q.device), window, softcap,
+                        4.0 * w.hkv * w.d, timed=timed, causal=not window)
+
+
+def k2_case(torch, w, draw, gen, B, T, S, starts, window, softcap, int8=False, timed=True):
+  """K2 (flash_cached_attention), or K2q over the cache quantized with spread_quantize
+  and `gen`: row b's T queries from q_start starts[b] over an S-slot cache."""
+  from xotorch_tpu_torch.ops.flash_decode import (dequantize_kv, flash_cached_attention,
+                                                  flash_cached_attention_ref)
+  q, kc, vc = w.queries(draw(B, T, w.hq, w.d)), draw(B, S, w.hkv, w.d), draw(B, S, w.hkv, w.d)
+  q_start = torch.tensor(starts, dtype=torch.int32, device=q.device)
+  kw = dict(window=window, softcap=softcap, scale=w.scale)
+  name, view, twin, row_bytes = "flash_cached_attention", (kc, vc), None, 4.0 * w.hkv * w.d
+  if int8:
+    (kc, ks), (vc, vs) = spread_quantize(torch, gen, kc), spread_quantize(torch, gen, vc)
+    kw.update(k_scale=ks, v_scale=vs)
+    view = dequantize_kv(kc, vc, ks, vs, torch.bfloat16)
+    twin = lambda: flash_cached_attention(q, *view, q_start, window=window, softcap=softcap,
+                                          scale=w.scale)
+    name, row_bytes = "flash_cached_attention_int8", 2.0 * w.hkv * (w.d + 2)
+  q_pos = q_start.long()[:, None] + torch.arange(T, device=q.device)[None]
+  case = (f"{w.tag}B={B} T={T} S={S} q_start={starts if B == 1 else 'varied'} window={window} "
+          f"softcap={softcap}")
+  return attention_case(torch, w, name, case,
+                        lambda **o: flash_cached_attention(q, kc, vc, q_start, **{**kw, **o}),
+                        lambda: flash_cached_attention_ref(q, kc, vc, q_start, **kw), q, view,
+                        q_pos, q_pos[:, -1] + 1, window, softcap, row_bytes, twin, timed)
+
+
+def paged_case(torch, w, draw, gen, lengths, page, T, window, softcap, int8=False, timed=True):
+  """K3 (paged_decode_attention, T == 1) or K4 (paged_prefill_attention), or K3q/K4q
+  over the arena quantized with spread_quantize and `gen`: row b holds lengths[b]
+  positions on shuffled pages of `page` slots, its last T the queries."""
+  from xotorch_tpu_torch.ops.flash_decode import dequantize_kv
+  from xotorch_tpu_torch.ops.paged_attention import (gather_paged_view, paged_decode_attention,
+                                                     paged_decode_attention_ref,
+                                                     paged_prefill_attention,
+                                                     paged_prefill_attention_ref)
+  q, kp, vp, table, lens = paged_inputs(torch, draw, lengths, page, w.hq, w.hkv, w.d, T=T)
+  q = w.queries(q)
+  fn, ref_fn = ((paged_decode_attention, paged_decode_attention_ref) if T == 1
+                else (paged_prefill_attention, paged_prefill_attention_ref))
+  kw = dict(window=window, softcap=softcap, scale=w.scale)
+  name, twin, row_bytes = fn.__name__, None, 4.0 * w.hkv * w.d
+  if int8:
+    (kp, ks), (vp, vs) = spread_quantize(torch, gen, kp), spread_quantize(torch, gen, vp)
+    kw.update(k_scale_pages=ks, v_scale_pages=vs)
+    twin = lambda: fn(q, *dequantize_kv(kp, vp, ks, vs, torch.bfloat16), table, lens,
+                      window=window, softcap=softcap, scale=w.scale)
+    name, row_bytes = name + "_int8", 2.0 * w.hkv * (w.d + 2)
+  view = gather_paged_view(kp, vp, table, kw.get("k_scale_pages"), kw.get("v_scale_pages"),
+                           torch.bfloat16)
+  q_pos = (lens.long() - T)[:, None] + torch.arange(T, device=q.device)[None]
+  shown = lengths if len(lengths) <= 3 else f"{lengths[0]}-{lengths[-1]}"
+  case = (f"{w.tag}B={len(lengths)} T={T} lengths={shown} page={page} window={window} "
+          f"softcap={softcap}")
+  return attention_case(torch, w, name, case,
+                        lambda **o: fn(q, kp, vp, table, lens, **{**kw, **o}),
+                        lambda: ref_fn(q, kp, vp, table, lens, **kw), q, view, q_pos, lens,
+                        window, softcap, row_bytes, twin, timed)
+
+
+def check_kernels(torch, results: dict) -> None:
   from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention, flash_cached_attention_ref
 
   dev = torch.device("cuda")
@@ -215,29 +420,7 @@ def check_kernels(torch, results: dict) -> None:
 
   # K1: prefill from position 0. T=1024 is the main path's first segment below.
   for T, window, softcap in ((512, 0, 0.0), (1024, 0, 0.0), (2048, 0, 0.0), (2048, 256, 50.0)):
-    q, k, v = randn(1, T, HQ, D), randn(1, T, HKV, D), randn(1, T, HKV, D)
-    out = flash_attention(q, k, v, window=window, softcap=softcap)
-    torch.cuda.synchronize()
-    ref = flash_attention_ref(q, k, v, window=window, softcap=softcap)
-    ms = time_ms(lambda: flash_attention(q, k, v, window=window, softcap=softcap))
-    plain_ms = time_ms(lambda: flash_attention_ref(q, k, v, window=window, softcap=softcap), iters=5)
-    if softcap:
-      pos = torch.arange(T, device=dev)[None]
-      lib_ms = flex_ms(torch, f"K1w T={T} window={window} softcap={softcap}", q, k, v, pos,
-                       torch.tensor([T], device=dev), window, softcap, ref)
-    else:
-      qt, kt, vt = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2)
-      if window:
-        pos = torch.arange(T, device=dev)
-        mask = (pos[None, :] <= pos[:, None]) & (pos[None, :] > pos[:, None] - window)
-        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask, enable_gqa=True)
-      else:
-        lib = lambda: F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, enable_gqa=True)
-      lib_ms = time_ms(lib)
-    pairs = sum(visible(t, window) for t in range(T))
-    b_ms, b_by = bound(4.0 * HQ * D * pairs, 2.0 * (2 * q.numel() + k.numel() + v.numel()))
-    case = f"B=1 T={T} window={window} softcap={softcap}"
-    r = report("flash_attention", case, out, ref, ms, plain_ms, lib_ms, b_ms, b_by)
+    r = k1_case(torch, LLAMA_1B, randn, 1, T, window, softcap)
     if T == 1024 and not window:
       results["flash_attention"] = r
 
@@ -254,27 +437,7 @@ def check_kernels(torch, results: dict) -> None:
   )
   for B, T, S, starts, window in cases:
     draw = seg_randn if T == SEGMENT_T else randn
-    q, kc, vc = draw(B, T, HQ, D), draw(B, S, HKV, D), draw(B, S, HKV, D)
-    q_start = torch.tensor(starts, dtype=torch.int32, device=dev)
-    out = flash_cached_attention(q, kc, vc, q_start, window=window)
-    torch.cuda.synchronize()
-    ref = flash_cached_attention_ref(q, kc, vc, q_start, window=window)
-    ms = time_ms(lambda: flash_cached_attention(q, kc, vc, q_start, window=window))
-    plain_ms = time_ms(lambda: flash_cached_attention_ref(q, kc, vc, q_start, window=window), iters=5)
-    pos = q_start.long()[:, None] + torch.arange(T, device=dev)[None, :]  # [B, T]
-    kv = torch.arange(S, device=dev)
-    mask = kv[None, None, :] <= pos[:, :, None]
-    if window:
-      mask = mask & (kv[None, None, :] > pos[:, :, None] - window)
-    mask = mask[:, None]  # [B, 1, T, S]
-    qt, kt, vt = q.transpose(1, 2), kc.transpose(1, 2), vc.transpose(1, 2)
-    lib_ms = time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=mask,
-                                                              enable_gqa=True))
-    pairs = sum(visible(s + t, window) for s in starts for t in range(T))
-    cache_rows = sum(s + T - (max(0, s - window + 1) if window else 0) for s in starts)
-    b_ms, b_by = bound(4.0 * HQ * D * pairs, 2.0 * 2 * q.numel() + 2.0 * 2 * cache_rows * HKV * D)
-    case = f"B={B} T={T} S={S} q_start={starts if B == 1 else 'varied'} window={window}"
-    r = report("flash_cached_attention", case, out, ref, ms, plain_ms, lib_ms, b_ms, b_by)
+    r = k2_case(torch, LLAMA_1B, draw, None, B, T, S, starts, window, 0.0)
     if (B, T, S, window) == (1, 1, 2048, 0):
       results["flash_cached_attention"] = r
   # K2's segment rows a block (XOT_FD_BLOCK_Q, 64 or 128) at the main path's second segment.
@@ -297,21 +460,11 @@ def check_kernels(torch, results: dict) -> None:
   # llama shapes (synthetic-llama-8b: D 128; synthetic-tiny: Hq 4, Hkv 2, D 16),
   # with ragged lengths, windows and softcaps: correctness only.
   for hq, hkv, d in ((32, 8, 128), (4, 2, 16)):
+    w = Widths(hq, hkv, d, f"Hq={hq} Hkv={hkv} D={d} ")
     for T, window, softcap in ((300, 0, 0.0), (300, 64, 30.0)):
-      q, k, v = randn(2, T, hq, d), randn(2, T, hkv, d), randn(2, T, hkv, d)
-      out = flash_attention(q, k, v, window=window, softcap=softcap)
-      torch.cuda.synchronize()
-      ref = flash_attention_ref(q, k, v, window=window, softcap=softcap)
-      check_only("flash_attention", f"Hq={hq} Hkv={hkv} D={d} B=2 T={T} window={window} "
-                 f"softcap={softcap}", out, ref)
+      k1_case(torch, w, randn, 2, T, window, softcap, timed=False)
     for T, starts, window in ((1, [0, 200, 511], 0), (20, [100, 37, 400], 50)):
-      q, kc, vc = randn(3, T, hq, d), randn(3, 512 + 32, hkv, d), randn(3, 512 + 32, hkv, d)
-      q_start = torch.tensor(starts, dtype=torch.int32, device=dev)
-      out = flash_cached_attention(q, kc, vc, q_start, window=window, softcap=20.0)
-      torch.cuda.synchronize()
-      ref = flash_cached_attention_ref(q, kc, vc, q_start, window=window, softcap=20.0)
-      check_only("flash_cached_attention", f"Hq={hq} Hkv={hkv} D={d} B=3 T={T} "
-                 f"q_start={starts} window={window} softcap=20.0", out, ref)
+      k2_case(torch, w, randn, None, 3, T, 512 + 32, starts, window, 20.0, timed=False)
 
 
 # The 1502-token request's second segment on the main path (XOT_PREFILL_CHUNK 1024):
@@ -344,58 +497,21 @@ def paged_inputs(torch, randn, kv_rows, page, hq, hkv, d, T=1):
     k = -(-n // page)
     table[b, :k] = torch.tensor(perm[used:used + k], dtype=torch.int32)
     used += k
-  dev = torch.device("cuda")
-  return (randn(B, T, hq, d), randn(P, page, hkv, d), randn(P, page, hkv, d), table.to(dev),
-          torch.tensor(kv_rows, dtype=torch.int32, device=dev))
+  q, kp, vp = randn(B, T, hq, d), randn(P, page, hkv, d), randn(P, page, hkv, d)
+  return (q, kp, vp, table.to(q.device),
+          torch.tensor(kv_rows, dtype=torch.int32, device=q.device))
 
 
 def check_paged_kernels(torch, results: dict, randn) -> None:
   """K3 and K4 at synthetic-llama-1b widths (page 128) over shuffled page tables
   against their plain versions, timed beside one SDPA call over a pre-gathered
-  contiguous view (the gather excluded); then the other head widths and page 16."""
-  import torch.nn.functional as F
-  from xotorch_tpu_torch.ops.paged_attention import (gather_paged_view, paged_decode_attention,
-                                                     paged_decode_attention_ref,
-                                                     paged_prefill_attention,
-                                                     paged_prefill_attention_ref)
-  dev = torch.device("cuda")
-  page = 128
-
-  def library_ms(q, kp, vp, table, q_pos, lens, window):
-    """One SDPA call over each row's pages gathered beforehand, masked to the same
-    visible positions (a yardstick: the port never calls it)."""
-    kv, vv = gather_paged_view(kp, vp, table)
-    kvp = torch.arange(kv.shape[1], device=dev)
-    mask = (kvp[None, None, :] <= q_pos[:, :, None]) & (kvp[None, None, :] < lens[:, None, None])
-    if window:
-      mask = mask & (kvp[None, None, :] > q_pos[:, :, None] - window)
-    qt, kt, vt, m = q.transpose(1, 2), kv.transpose(1, 2), vv.transpose(1, 2), mask[:, None]
-    return time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m, enable_gqa=True))
-
+  contiguous view (the gather excluded), or one compiled flex_attention with a
+  softcap; then the other head widths and page 16."""
   # K3: decode steps. (lengths per row, window, softcap); the second case is the
   # concurrent phase's shape (eight rows at ragged depths).
   ragged = [100, 300, 700, 1000, 1500, 2200, 3000, 4000]
   for lengths, window, softcap in (([640], 0, 0.0), (ragged, 0, 0.0), (ragged, 512, 50.0)):
-    q, kp, vp, table, lens = paged_inputs(torch, randn, lengths, page, HQ, HKV, D)
-    call = lambda: paged_decode_attention(q, kp, vp, table, lens, window=window, softcap=softcap)
-    out = call()
-    torch.cuda.synchronize()
-    ref = paged_decode_attention_ref(q, kp, vp, table, lens, window=window, softcap=softcap)
-    ms = time_ms(call)
-    plain_ms = time_ms(lambda: paged_decode_attention_ref(q, kp, vp, table, lens, window=window,
-                                                          softcap=softcap), iters=5)
-    q_pos = (lens.long() - 1)[:, None]
-    if softcap:
-      kv, vv = gather_paged_view(kp, vp, table)
-      lib = flex_ms(torch, f"K3w B={len(lengths)} window={window} softcap={softcap}", q, kv, vv,
-                    q_pos, lens, window, softcap, ref)
-    else:
-      lib = library_ms(q, kp, vp, table, q_pos, lens, window)
-    vis = sum(visible(n - 1, window) for n in lengths)
-    b_ms, b_by = bound(4.0 * HQ * D * vis, 2.0 * 2 * q.numel() + 2.0 * 2 * vis * HKV * D)
-    case = (f"B={len(lengths)} lengths={lengths if len(lengths) == 1 else '100-4000'} "
-            f"page={page} window={window} softcap={softcap}")
-    r = report("paged_decode_attention", case, out, ref, ms, plain_ms, lib, b_ms, b_by)
+    r = paged_case(torch, LLAMA_1B, randn, None, lengths, 128, 1, window, softcap)
     if lengths is ragged and not window:
       results["paged_decode_attention"] = r
 
@@ -403,47 +519,18 @@ def check_paged_kernels(torch, results: dict, randn) -> None:
   # phase's first segment of a long prompt.
   for T, valid, window in ((1024, [1024], 0), (512, [1536], 0), (300, [700, 1900], 0),
                            (512, [1536], 256)):
-    q, kp, vp, table, lens = paged_inputs(torch, randn, valid, page, HQ, HKV, D, T=T)
-    call = lambda: paged_prefill_attention(q, kp, vp, table, lens, window=window)
-    out = call()
-    torch.cuda.synchronize()
-    ref = paged_prefill_attention_ref(q, kp, vp, table, lens, window=window)
-    ms = time_ms(call)
-    plain_ms = time_ms(lambda: paged_prefill_attention_ref(q, kp, vp, table, lens, window=window),
-                       iters=5)
-    q_pos = (lens.long() - T)[:, None] + torch.arange(T, device=dev)[None, :]
-    lib = library_ms(q, kp, vp, table, q_pos, lens, window)
-    pairs = sum(visible(n - T + t, window) for n in valid for t in range(T))
-    rows = sum(n - (max(0, n - T - window + 1) if window else 0) for n in valid)
-    b_ms, b_by = bound(4.0 * HQ * D * pairs, 2.0 * 2 * q.numel() + 2.0 * 2 * rows * HKV * D)
-    case = f"B={len(valid)} T={T} kv_valid={valid} page={page} window={window}"
-    r = report("paged_prefill_attention", case, out, ref, ms, plain_ms, lib, b_ms, b_by)
+    r = paged_case(torch, LLAMA_1B, randn, None, valid, 128, T, window, 0.0)
     if (T, window) == (1024, 0):
       results["paged_prefill_attention"] = r
 
   # The other head widths (synthetic-llama-8b: D 128; synthetic-tiny: Hq 4, Hkv 2,
   # D 16) at both page sizes, with windows and softcaps: correctness only.
   for hq, hkv, d in ((32, 8, 128), (4, 2, 16)):
+    w = Widths(hq, hkv, d, f"Hq={hq} Hkv={hkv} D={d} ")
     for pg in (16, 128):
       for window, softcap in ((0, 0.0), (50, 20.0)):
-        q, kp, vp, table, lens = paged_inputs(torch, randn, [1, 200, 511], pg, hq, hkv, d)
-        out = paged_decode_attention(q, kp, vp, table, lens, window=window, softcap=softcap)
-        torch.cuda.synchronize()
-        ref = paged_decode_attention_ref(q, kp, vp, table, lens, window=window, softcap=softcap)
-        check_only("paged_decode_attention", f"Hq={hq} Hkv={hkv} D={d} page={pg} "
-                   f"lengths=[1, 200, 511] window={window} softcap={softcap}", out, ref)
-        q, kp, vp, table, lens = paged_inputs(torch, randn, [20, 137, 420], pg, hq, hkv, d, T=20)
-        out = paged_prefill_attention(q, kp, vp, table, lens, window=window, softcap=softcap)
-        torch.cuda.synchronize()
-        ref = paged_prefill_attention_ref(q, kp, vp, table, lens, window=window, softcap=softcap)
-        check_only("paged_prefill_attention", f"Hq={hq} Hkv={hkv} D={d} page={pg} T=20 "
-                   f"kv_valid=[20, 137, 420] window={window} softcap={softcap}", out, ref)
-
-
-def kv8_bytes(rows: int, hkv: int = HKV, d: int = D) -> float:
-  """Bytes an int8 cache holds for `rows` positions: K and V codes plus their bf16
-  scales."""
-  return 2.0 * rows * hkv * (d + 2)
+        paged_case(torch, w, randn, None, [1, 200, 511], pg, 1, window, softcap, timed=False)
+        paged_case(torch, w, randn, None, [20, 137, 420], pg, 20, window, softcap, timed=False)
 
 
 def spread_quantize(torch, gen, x):
@@ -468,44 +555,11 @@ def check_int8_kv_kernels(torch, results: dict, randn) -> None:
   beforehand: the int8 kernels stage code x scale rounded once to bf16, the value
   the twin reads, and then run the twin's arithmetic. Then the other head widths and
   page 16, correctness and bit identity only."""
-  import torch.nn.functional as F
-  from xotorch_tpu_torch.ops.flash_decode import (dequantize_kv, flash_cached_attention,
-                                                  flash_cached_attention_int8,
-                                                  flash_cached_attention_ref)
-  from xotorch_tpu_torch.ops.paged_attention import (gather_paged_view, paged_decode_attention,
-                                                     paged_decode_attention_int8,
-                                                     paged_decode_attention_ref,
-                                                     paged_prefill_attention,
-                                                     paged_prefill_attention_int8,
-                                                     paged_prefill_attention_ref)
-  dev = torch.device("cuda")
-  bf = torch.bfloat16
-  gen = torch.Generator(device=dev)
+  gen = torch.Generator(device="cuda")
   gen.manual_seed(4)
-
-  def quantize_kv(x, g=gen):
-    return spread_quantize(torch, g, x)
-  seg_gen = torch.Generator(device=dev)
+  seg_gen = torch.Generator(device="cuda")
   seg_gen.manual_seed(SEGMENT_SEED)
   seg_randn = seeded_randn(torch, SEGMENT_SEED + 1)
-
-  def twin(name, case, out, fn, *args, **kw):
-    """The int8 kernel's output equals its bf16 twin's over the dequantized operands."""
-    same = torch.equal(out, fn(*args, **kw))
-    print(f"[{name}] {case}: bit-identical to its bf16 twin over the dequantized operands: "
-          f"{same}", flush=True)
-    if not same:
-      raise AssertionError(f"{name} {case}: differs from its bf16 twin over the dequantized "
-                           "operands (a scale or code read from the wrong place)")
-
-  def sdpa_ms(q, k, v, q_pos, lens, window):
-    """One SDPA call over bf16 K/V [B, S, Hkv, D], masked to the visible positions."""
-    kv = torch.arange(k.shape[1], device=dev)
-    mask = (kv[None, None, :] <= q_pos[:, :, None]) & (kv[None, None, :] < lens[:, None, None])
-    if window:
-      mask = mask & (kv[None, None, :] > q_pos[:, :, None] - window)
-    qt, kt, vt, m = q.transpose(1, 2), k.transpose(1, 2), v.transpose(1, 2), mask[:, None]
-    return time_ms(lambda: F.scaled_dot_product_attention(qt, kt, vt, attn_mask=m, enable_gqa=True))
 
   # K2q: the main path's decode shape first, then K2's other cases.
   varied = [17, 300, 1023, 1024, 2047, 2500, 3333, 4095]
@@ -515,136 +569,36 @@ def check_int8_kv_kernels(torch, results: dict, randn) -> None:
                                            (1, 64, 4096, [1000], 0, 0.0),
                                            (8, 1, 4096, varied, 512, 50.0)):
     draw, g = (seg_randn, seg_gen) if T == SEGMENT_T else (randn, gen)
-    q = draw(B, T, HQ, D)
-    (kc, ks), (vc, vs) = quantize_kv(draw(B, S, HKV, D), g), quantize_kv(draw(B, S, HKV, D), g)
-    q_start = torch.tensor(starts, dtype=torch.int32, device=dev)
-    call = lambda: flash_cached_attention_int8(q, kc, vc, ks, vs, q_start, window=window,
-                                               softcap=softcap)
-    out = call()
-    torch.cuda.synchronize()
-    ref = flash_cached_attention_ref(q, kc, vc, q_start, window=window, softcap=softcap,
-                                     k_scale=ks, v_scale=vs)
-    kd, vd = dequantize_kv(kc, vc, ks, vs, bf)
-    case = (f"B={B} T={T} S={S} q_start={starts if B == 1 else 'varied'} window={window} "
-            f"softcap={softcap}")
-    twin("flash_cached_attention_int8", case, out, flash_cached_attention, q, kd, vd, q_start,
-         window=window, softcap=softcap)
-    ms = time_ms(call)
-    plain_ms = time_ms(lambda: flash_cached_attention_ref(q, kc, vc, q_start, window=window,
-                                                          softcap=softcap, k_scale=ks,
-                                                          v_scale=vs), iters=5)
-    pos = q_start.long()[:, None] + torch.arange(T, device=dev)[None, :]
-    if softcap:
-      lib = flex_ms(torch, f"K2qw {case}", q, kd, vd, pos, pos[:, -1] + 1, window, softcap, ref)
-    else:
-      lib = sdpa_ms(q, kd, vd, pos, pos[:, -1] + 1, window)
-    pairs = sum(visible(s + t, window) for s in starts for t in range(T))
-    rows = sum(s + T - (max(0, s - window + 1) if window else 0) for s in starts)
-    b_ms, b_by = bound(4.0 * HQ * D * pairs, 2.0 * 2 * q.numel() + kv8_bytes(rows))
-    r = report("flash_cached_attention_int8", case, out, ref, ms, plain_ms, lib, b_ms, b_by)
+    r = k2_case(torch, LLAMA_1B, draw, g, B, T, S, starts, window, softcap, int8=True)
     if (B, T, S, window) == (1, 1, 2048, 0):
       results["flash_cached_attention_int8"] = r
-
-  def paged_int8(lengths, pg, hq, hkv, d, T=1):
-    q, kp, vp, table, lens = paged_inputs(torch, randn, lengths, pg, hq, hkv, d, T=T)
-    (kq, ks), (vq, vs) = quantize_kv(kp), quantize_kv(vp)
-    return q, kq, vq, ks, vs, table, lens
 
   # K3q: (lengths per row, window, softcap) at page 128; the second case is the
   # concurrent phase's shape.
   ragged = [100, 300, 700, 1000, 1500, 2200, 3000, 4000]
   for lengths, window, softcap in (([640], 0, 0.0), (ragged, 0, 0.0), (ragged, 512, 50.0)):
-    q, kq, vq, ks, vs, table, lens = paged_int8(lengths, 128, HQ, HKV, D)
-    call = lambda: paged_decode_attention_int8(q, kq, vq, ks, vs, table, lens, window=window,
-                                               softcap=softcap)
-    out = call()
-    torch.cuda.synchronize()
-    ref = paged_decode_attention_ref(q, kq, vq, table, lens, window=window, softcap=softcap,
-                                     k_scale_pages=ks, v_scale_pages=vs)
-    case = (f"B={len(lengths)} lengths={lengths if len(lengths) == 1 else '100-4000'} page=128 "
-            f"window={window} softcap={softcap}")
-    twin("paged_decode_attention_int8", case, out, paged_decode_attention, q,
-         *dequantize_kv(kq, vq, ks, vs, bf), table, lens, window=window, softcap=softcap)
-    ms = time_ms(call)
-    plain_ms = time_ms(lambda: paged_decode_attention_ref(q, kq, vq, table, lens, window=window,
-                                                          softcap=softcap, k_scale_pages=ks,
-                                                          v_scale_pages=vs), iters=5)
-    kd, vd = gather_paged_view(kq, vq, table, ks, vs, bf)
-    q_pos = (lens.long() - 1)[:, None]
-    if softcap:
-      lib = flex_ms(torch, f"K3q {case}", q, kd, vd, q_pos, lens, window, softcap, ref)
-    else:
-      lib = sdpa_ms(q, kd, vd, q_pos, lens, window)
-    vis = sum(visible(n - 1, window) for n in lengths)
-    b_ms, b_by = bound(4.0 * HQ * D * vis, 2.0 * 2 * q.numel() + kv8_bytes(vis))
-    r = report("paged_decode_attention_int8", case, out, ref, ms, plain_ms, lib, b_ms, b_by)
+    r = paged_case(torch, LLAMA_1B, randn, gen, lengths, 128, 1, window, softcap, int8=True)
     if lengths is ragged and not window:
       results["paged_decode_attention_int8"] = r
 
   # K4q: (T, kv_valid per row, window); the first is the concurrent phase's first
   # segment of a long prompt.
   for T, valid, window in ((1024, [1024], 0), (512, [1536], 256)):
-    q, kq, vq, ks, vs, table, lens = paged_int8(valid, 128, HQ, HKV, D, T=T)
-    call = lambda: paged_prefill_attention_int8(q, kq, vq, ks, vs, table, lens, window=window)
-    out = call()
-    torch.cuda.synchronize()
-    ref = paged_prefill_attention_ref(q, kq, vq, table, lens, window=window, k_scale_pages=ks,
-                                      v_scale_pages=vs)
-    case = f"B={len(valid)} T={T} kv_valid={valid} page=128 window={window}"
-    twin("paged_prefill_attention_int8", case, out, paged_prefill_attention, q,
-         *dequantize_kv(kq, vq, ks, vs, bf), table, lens, window=window)
-    ms = time_ms(call)
-    plain_ms = time_ms(lambda: paged_prefill_attention_ref(q, kq, vq, table, lens, window=window,
-                                                           k_scale_pages=ks, v_scale_pages=vs),
-                       iters=5)
-    kd, vd = gather_paged_view(kq, vq, table, ks, vs, bf)
-    q_pos = (lens.long() - T)[:, None] + torch.arange(T, device=dev)[None, :]
-    lib = sdpa_ms(q, kd, vd, q_pos, lens, window)
-    pairs = sum(visible(n - T + t, window) for n in valid for t in range(T))
-    rows = sum(n - (max(0, n - T - window + 1) if window else 0) for n in valid)
-    b_ms, b_by = bound(4.0 * HQ * D * pairs, 2.0 * 2 * q.numel() + kv8_bytes(rows))
-    r = report("paged_prefill_attention_int8", case, out, ref, ms, plain_ms, lib, b_ms, b_by)
+    r = paged_case(torch, LLAMA_1B, randn, gen, valid, 128, T, window, 0.0, int8=True)
     if (T, window) == (1024, 0):
       results["paged_prefill_attention_int8"] = r
 
   # The other head widths (synthetic-llama-8b: D 128; synthetic-tiny: Hq 4, Hkv 2,
-  # D 16), both page sizes, windows and softcaps: correctness only.
+  # D 16), both page sizes, windows and softcaps: correctness and bit identity only.
   for hq, hkv, d in ((32, 8, 128), (4, 2, 16)):
-    q = randn(3, 20, hq, d)
-    (kc, ks), (vc, vs) = quantize_kv(randn(3, 544, hkv, d)), quantize_kv(randn(3, 544, hkv, d))
-    q_start = torch.tensor([100, 37, 400], dtype=torch.int32, device=dev)
-    out = flash_cached_attention_int8(q, kc, vc, ks, vs, q_start, window=50, softcap=20.0)
-    torch.cuda.synchronize()
-    ref = flash_cached_attention_ref(q, kc, vc, q_start, window=50, softcap=20.0, k_scale=ks,
-                                     v_scale=vs)
-    case = f"Hq={hq} Hkv={hkv} D={d} B=3 T=20 q_start=[100, 37, 400] window=50 softcap=20.0"
-    check_only("flash_cached_attention_int8", case, out, ref)
-    twin("flash_cached_attention_int8", case, out, flash_cached_attention, q,
-         *dequantize_kv(kc, vc, ks, vs, bf), q_start, window=50, softcap=20.0)
+    w = Widths(hq, hkv, d, f"Hq={hq} Hkv={hkv} D={d} ")
+    k2_case(torch, w, randn, gen, 3, 20, 544, [100, 37, 400], 50, 20.0, int8=True, timed=False)
     for pg in (16, 128):
       for window, softcap in ((0, 0.0), (50, 20.0)):
-        q, kq, vq, ks, vs, table, lens = paged_int8([1, 200, 511], pg, hq, hkv, d)
-        out = paged_decode_attention_int8(q, kq, vq, ks, vs, table, lens, window=window,
-                                          softcap=softcap)
-        torch.cuda.synchronize()
-        ref = paged_decode_attention_ref(q, kq, vq, table, lens, window=window, softcap=softcap,
-                                         k_scale_pages=ks, v_scale_pages=vs)
-        case = (f"Hq={hq} Hkv={hkv} D={d} page={pg} lengths=[1, 200, 511] window={window} "
-                f"softcap={softcap}")
-        check_only("paged_decode_attention_int8", case, out, ref)
-        twin("paged_decode_attention_int8", case, out, paged_decode_attention, q,
-             *dequantize_kv(kq, vq, ks, vs, bf), table, lens, window=window, softcap=softcap)
-        q, kq, vq, ks, vs, table, lens = paged_int8([20, 137, 420], pg, hq, hkv, d, T=20)
-        out = paged_prefill_attention_int8(q, kq, vq, ks, vs, table, lens, window=window,
-                                           softcap=softcap)
-        torch.cuda.synchronize()
-        ref = paged_prefill_attention_ref(q, kq, vq, table, lens, window=window, softcap=softcap,
-                                          k_scale_pages=ks, v_scale_pages=vs)
-        case = (f"Hq={hq} Hkv={hkv} D={d} page={pg} T=20 kv_valid=[20, 137, 420] "
-                f"window={window} softcap={softcap}")
-        check_only("paged_prefill_attention_int8", case, out, ref)
-        twin("paged_prefill_attention_int8", case, out, paged_prefill_attention, q,
-             *dequantize_kv(kq, vq, ks, vs, bf), table, lens, window=window, softcap=softcap)
+        paged_case(torch, w, randn, gen, [1, 200, 511], pg, 1, window, softcap, int8=True,
+                   timed=False)
+        paged_case(torch, w, randn, gen, [20, 137, 420], pg, 20, window, softcap, int8=True,
+                   timed=False)
 
 
 def check_tile_edges(torch, randn) -> None:
@@ -828,10 +782,10 @@ def check_split_edges(torch, randn) -> None:
         "torch.cuda.set_sync_debug_mode('error'): no host read of a device tensor", flush=True)
 
 
-def check_only(name, case, out, ref) -> None:
+def check_only(name, case, out, ref, limit=ATOL) -> None:
   err = (out.float() - ref.float()).abs().max().item()
-  ok = math.isfinite(err) and err <= ATOL
-  print(f"[{name}] {case}: max_abs_err={err:.3e} (atol {ATOL}) {'ok' if ok else 'FAIL'}",
+  ok = math.isfinite(err) and err <= limit
+  print(f"[{name}] {case}: max_abs_err={err:.3e} (limit {limit:.3e}) {'ok' if ok else 'FAIL'}",
         flush=True)
   if not ok:
     raise AssertionError(f"{name} {case}: kernel disagrees with its plain version ({err})")
@@ -897,7 +851,7 @@ def check_quant_kernels(torch, results: dict) -> None:
         b_ms, b_by = bound(2.0 * rows * K * N, nbytes, peak)
         atol = QUANT_REL_TOL * ref.float().abs().max().item()
         r = report(name, f"{slot} {K}->{N} rows={rows}", out, ref, ms, plain_ms, lib_ms, b_ms, b_by,
-                   atol=atol)
+                   limit=atol)
         if (slot, rows) == ("w_gate/w_up", 1):
           results[name] = r
   gemv_step_us(torch)
@@ -968,8 +922,9 @@ def gemv_step_us(torch, layers: int = 16) -> None:
 
 
 # K5, K5v4 and K6 beyond the main path: llama-3.1-8B's and 70B's projections, column
-# tiles and k-steps cut ragged, one group, h on a 4-byte boundary. (label, in, out, h
-# offset in bf16 elements from a 16-byte boundary).
+# tiles and k-steps cut ragged, one group, h on a 4-byte boundary, and gemma-2-2b's
+# projections (so that --quantize on its checkpoint meets no unplanned shape). (label,
+# in, out, h offset in bf16 elements from a 16-byte boundary).
 GEMV_EDGES = (("8B wq/wo", 4096, 4096, 0), ("8B wk/wv", 4096, 1024, 0),
               ("8B gate/up", 4096, 14336, 0), ("8B down", 14336, 4096, 0),
               ("70B wq/wo", 8192, 8192, 0), ("70B wk/wv", 8192, 1024, 0),
@@ -977,7 +932,10 @@ GEMV_EDGES = (("8B wq/wo", 4096, 4096, 0), ("8B wk/wv", 4096, 1024, 0),
               ("N=4", 2048, 4, 0), ("N=36, ragged tile", 2048, 36, 0),
               ("N=2052, ragged tile", 2048, 2052, 0), ("one group", 128, 2048, 0),
               ("one group, N=36", 128, 36, 0), ("ragged last k-step (K6)", 2052, 36, 0),
-              ("h 4-byte aligned", 2048, 512, 2))
+              ("h 4-byte aligned", 2048, 512, 2),
+              ("gemma-2-2b wq", 2304, 2048, 0), ("gemma-2-2b wk/wv", 2304, 1024, 0),
+              ("gemma-2-2b wo", 2048, 2304, 0), ("gemma-2-2b gate/up", 2304, 9216, 0),
+              ("gemma-2-2b down", 9216, 2304, 0))
 
 
 # K5 and K5v4 at groups of 32 and 64 values (label, in, out, group size): at K = 384
@@ -1558,16 +1516,20 @@ def main_requests(model: str):
 
 def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthetic-llama-1b",
                     kernels=None, env=None, tag: str = "main", profiles=(1,),
-                    focus: str = "", cli=(), wrapper=None) -> dict:
+                    focus: str = "", cli=(), wrapper=None, requests=None) -> dict:
   """The port's server on `model` (synthetic-llama-1b: full width and depth, on the
   card) answers three chat completions over HTTP, with `env` (XOT_* knobs, e.g. the
   quantized formats) set for the phase and `cli` (e.g. `--kv-quantize int8`) added
-  to its command line. Every counter of `kernels` (default K1, K2) is set to 0 just
+  to its command line (`--models-seed-dir` seeds XOT_HOME first, as main.py does).
+  `requests` replaces the three (main_requests). Every counter of `kernels` (default K1,
+  K2), its windowed launches too, is set to 0 just
   before the three requests and read just after; then a decode chunk runs under the
   profiler at each batch size of `profiles` (with `wrapper`, held to one `focus` kernel
   a call of it). Returns the launch counts, the decode
   steps the batcher ran for the three requests, the tokens each request streamed,
-  each request's timing line and the profiles. (`device` and `model` let the same phase be rehearsed on the CPU
+  each request's timing line, the profiles, the windowed launches, the page pool's
+  occupancy once the requests are done (None without a pool), the served tokenizer's
+  class and each request's prompt tokens. (`device` and `model` let the same phase be rehearsed on the CPU
   with a small card.)"""
   from xotorch_tpu_torch import main as port_main
   from xotorch_tpu_torch.models.registry import build_full_shard
@@ -1582,8 +1544,10 @@ def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthe
     args = port_main.build_parser().parse_args(
       ["--device", device, "--default-model", model, "--chatgpt-api-host", "127.0.0.1",
        "--chatgpt-api-port", "0", "--chatgpt-api-response-timeout", "600", *cli])
+    if args.models_seed_dir:
+      asyncio.run(port_main.seed_models(args.models_seed_dir))
     node, engine, classname, api = port_main.build_node(args)
-    requests = main_requests(model)
+    requests = requests or main_requests(model)
     # The request ids the node serves, in order, and the tokens it streams for each.
     served, tokens_of = [], {}
     serve_prompt = node.process_prompt
@@ -1603,7 +1567,8 @@ def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthe
       try:
         t0 = time.perf_counter()
         await engine.ensure_shard(build_full_shard(model, classname))
-        print(f"[{tag}] {model} loaded (random {engine.dtype} weights, quantize={engine.quantize}, "
+        source = engine._ctx.model_dir or "random"
+        print(f"[{tag}] {model} loaded ({source} {engine.dtype} weights, quantize={engine.quantize}, "
               f"kv_quant={engine.kv_quant}, on {device}) in {time.perf_counter() - t0:.1f} s", flush=True)
         health = await loop.run_in_executor(None, http_json, base + "/healthcheck")
         listed = await loop.run_in_executor(None, http_json, base + "/v1/models")
@@ -1615,14 +1580,15 @@ def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthe
         for _, body in requests:
           warm = {**body, "max_tokens": 2, "stream": False}
           await loop.run_in_executor(None, http_json, base + "/v1/chat/completions", warm)
-        print(f"[{tag}] warm-up: 3 requests in {time.perf_counter() - t0:.2f} s", flush=True)
+        print(f"[{tag}] warm-up: {len(requests)} requests in {time.perf_counter() - t0:.2f} s",
+              flush=True)
         batcher = engine._ctx.batcher
         batcher.dispatches = batcher.rows = batcher.steps = 0
         served.clear()
         for k in kernels:
-          k.launches = 0
+          k.launches = k.windowed_launches = 0
         decoded = 0
-        timings = []
+        timings, prompt_tokens = [], []
         for label, body in requests:
           url = base + "/v1/chat/completions"
           t0 = time.perf_counter()
@@ -1636,10 +1602,12 @@ def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthe
             timing = f"TTFT {first * 1e3:.1f} ms, decode {rate:.1f} tok/s"
           else:
             resp = await loop.run_in_executor(None, http_json, url, body)
-            n = resp["usage"]["completion_tokens"]
+            usage = resp["usage"]
+            n = usage["completion_tokens"]
             finish = [resp["choices"][0]["finish_reason"]]
             timing = f"end to end {(time.perf_counter() - t0) * 1e3:.1f} ms"
           timings.append(timing)
+          prompt_tokens.append(usage.get("prompt_tokens", 0))
           want = body["max_tokens"]
           ok = n == want and finish == ["length"]
           print(f"[{tag}] {label}: {n} tokens, finish {finish}, {timing} ({card}) "
@@ -1648,25 +1616,30 @@ def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthe
             raise AssertionError(f"{tag}: {label} returned {n} tokens ({finish}), wanted {want}")
           decoded += n - 1  # the first token comes from the prefill
         counts = {k.__name__: k.launches for k in kernels}
+        windowed = {k.__name__: k.windowed_launches for k in kernels}
         steps = batcher.steps
         streamed = [tokens_of.get(rid, []) for rid in served]
+        await wait_idle(engine)
+        pool = engine.page_pool_stats()
         profiled = {}
         for b in profiles:
           profiled[b] = await profile_decode(torch, engine, model, classname, card, batch=b,
                                              tag=tag, focus=focus, wrapper=wrapper)
-        return counts, decoded, steps, streamed, profiled, timings
+        return counts, decoded, steps, streamed, profiled, timings, windowed, pool, prompt_tokens
       finally:
         server.close()
         await server.wait_closed()
         await node.stop()
 
     try:
-      counts, decoded, steps, streamed, profiled, timings = asyncio.run(drive())
+      (counts, decoded, steps, streamed, profiled, timings, windowed, pool,
+       prompt_tokens) = asyncio.run(drive())
     finally:
       engine.executor.shutdown(wait=True)
   print(f"[{tag}] launches: {counts} ({decoded} decoded tokens, {steps} decode steps)", flush=True)
   return {"launches": counts, "decoded": decoded, "steps": steps, "tokens": streamed,
-          "profiles": profiled, "timings": timings}
+          "profiles": profiled, "timings": timings, "windowed": windowed, "pool": pool,
+          "tokenizer": type(engine.tokenizer).__name__, "prompt_tokens": prompt_tokens}
 
 
 def quant_phases():
@@ -2295,6 +2268,305 @@ def drive_ring_processes(torch, card: str, main_run: dict, device: str = "cuda",
   return {"wire": wire}
 
 
+# gemma-2-2b (google/gemma-2-2b, its published config.json): the family that puts the
+# windowed, softcapped kernels and head_dim 256 on a serving path.
+GEMMA_CONFIG = {
+  "architectures": ["Gemma2ForCausalLM"], "model_type": "gemma2", "attention_bias": False,
+  "attention_dropout": 0.0, "attn_logit_softcapping": 50.0, "bos_token_id": 2,
+  "cache_implementation": "hybrid", "eos_token_id": 1, "final_logit_softcapping": 30.0,
+  "head_dim": 256, "hidden_act": "gelu_pytorch_tanh", "hidden_activation": "gelu_pytorch_tanh",
+  "hidden_size": 2304, "initializer_range": 0.02, "intermediate_size": 9216,
+  "max_position_embeddings": 8192, "num_attention_heads": 8, "num_hidden_layers": 26,
+  "num_key_value_heads": 4, "pad_token_id": 0, "query_pre_attn_scalar": 256,
+  "rms_norm_eps": 1e-06, "rope_theta": 10000.0, "sliding_window": 4096,
+  "torch_dtype": "float32", "use_cache": True, "vocab_size": 256000,
+}
+GEMMA_CARD = "gemma2-2b"  # its registry card; the repo directory is google--gemma-2-2b-it
+GEMMA_WINDOW, GEMMA_SOFTCAP = 4096, 50.0
+# The kernel cases at gemma-2-2b's attention widths and scale (query_pre_attn_scalar
+# 256). Its queries are scaled by 8, so scores spread with a deviation of 8 and the
+# largest of a few thousand reach 30, where the softcap of 50 bends them: dropping the
+# softcap, or reading a window's keys past its edge, moves the output far beyond the
+# limit.
+GEMMA_2B = Widths(8, 4, 256, "gemma-2-2b Hq=8 Hkv=4 D=256 ", 256.0 ** -0.5, 8.0, True)
+GEMMA_LONG_WORDS = 4100  # a prompt past the window: its last positions see 4096 keys on
+                         # the windowed layers, all of them on the global ones
+
+
+def check_gemma_kernels(torch) -> None:
+  """K1-K4 and their int8 variants at gemma-2-2b's widths (GEMMA_2B: Hq 8, Hkv 4, D 256,
+  the query_pre_attn_scalar scale 1/16, softcap 50 on every layer, window 4096 on the
+  windowed ones), each against its plain version within rel_limit, with controls: the
+  kernel run with its softcap or its window dropped must miss that limit. Timed beside
+  the plain version, the bound and one compiled flex_attention (SDPA for the one case
+  without a softcap): K1/K1w at T 1024 and 4608; K2/K2w/K2q decoding at S 8192 from
+  4500 (the window bites) and a 512-query segment; K3/K3w/K3q and K4/K4w/K4q at page
+  128. Then every kernel at D 256 and D 32 (which K3/K4 lacked) with scale 0.1, not
+  the default 1/sqrt(D), so a dropped scale is a control too, pages 16 and 128
+  (correctness and controls), and each D 256 wrapper once under
+  torch.cuda.set_sync_debug_mode("error")."""
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention
+  from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention
+  from xotorch_tpu_torch.ops.paged_attention import paged_decode_attention, paged_prefill_attention
+  w, cap, win = GEMMA_2B, GEMMA_SOFTCAP, GEMMA_WINDOW
+  draw = seeded_randn(torch, 256)
+  gen = torch.Generator(device="cuda")
+  gen.manual_seed(256)
+
+  for T, window, softcap in ((1024, 0, 0.0), (1024, 0, cap), (4608, 0, cap), (4608, win, cap)):
+    k1_case(torch, w, draw, 1, T, window, softcap)
+  for T, start, window in ((1, 4500, win), (1, 4500, 0), (512, 4096, win)):
+    for int8 in (False, True):
+      k2_case(torch, w, draw, gen, 1, T, 8192, [start], window, cap, int8)
+  for T, n in ((1, 4501), (512, 4608)):
+    for window, int8 in ((0, False), (0, True), (win, False)):
+      paged_case(torch, w, draw, gen, [n], 128, T, window, cap, int8)
+
+  for d in (256, 32):
+    sw = w._replace(d=d, scale=0.1, tag=f"gemma-2-2b Hq=8 Hkv=4 D={d} scale=0.1 ")
+    for window, softcap in ((0, 0.0), (50, 10.0)):
+      k1_case(torch, sw, draw, 2, 300, window, softcap, timed=False)
+      for int8 in (False, True):
+        for T, starts in ((1, [0, 200, 511]), (20, [100, 37, 400])):
+          k2_case(torch, sw, draw, gen, 3, T, 544, starts, window, softcap, int8, timed=False)
+        for pg in (16, 128):
+          for T, lengths in ((1, [1, 200, 511]), (20, [20, 137, 420])):
+            paged_case(torch, sw, draw, gen, lengths, pg, T, window, softcap, int8, timed=False)
+
+  # Each D 256 wrapper once with host reads of device tensors refused.
+  hq, hkv, d, page = w.hq, w.hkv, w.d, 128
+  q1, qs = draw(1, 1, hq, d), draw(1, 64, hq, d)
+  kc, vc = draw(1, 8192, hkv, d), draw(1, 8192, hkv, d)
+  (kq, ks), (vq, vs) = spread_quantize(torch, gen, kc), spread_quantize(torch, gen, vc)
+  start = torch.tensor([4500], dtype=torch.int32, device=q1.device)
+  q, kp, vp, table, lens = paged_inputs(torch, draw, [4501], page, hq, hkv, d)
+  (kpq, ksp), (vpq, vsp) = spread_quantize(torch, gen, kp), spread_quantize(torch, gen, vp)
+  kw = dict(window=win, softcap=cap, scale=w.scale)
+  torch.cuda.synchronize()
+  torch.cuda.set_sync_debug_mode("error")
+  try:
+    flash_attention(qs, kc[:, :64].contiguous(), vc[:, :64].contiguous(), **kw)
+    for qq in (q1, qs):
+      flash_cached_attention(qq, kc, vc, start, **kw)
+      flash_cached_attention(qq, kq, vq, start, k_scale=ks, v_scale=vs, **kw)
+    paged_decode_attention(q, kp, vp, table, lens, **kw)
+    paged_decode_attention(q, kpq, vpq, table, lens, k_scale_pages=ksp, v_scale_pages=vsp, **kw)
+    paged_prefill_attention(q, kp, vp, table, lens, **kw)
+    paged_prefill_attention(q, kpq, vpq, table, lens, k_scale_pages=ksp, v_scale_pages=vsp, **kw)
+  finally:
+    torch.cuda.set_sync_debug_mode(0)
+  torch.cuda.synchronize()
+  print(f"[gemma kernels] K1, K2, K2q, K3, K3q, K4 and K4q at D=256 ran with "
+        f"torch.cuda.set_sync_debug_mode('error'): no host read of a device tensor", flush=True)
+
+
+def write_gemma_checkpoint(torch, model_dir, device: str = "cuda") -> float:
+  """A gemma-2-2b-shaped HF checkpoint in `model_dir`: the published config, seeded
+  random bf16 weights written by the port's own save_shard_params as two files (layers
+  0-12 with the tied embedding, layers 13-25 with the final norm) plus
+  model.safetensors.index.json, and a word-level tokenizer (write_word_tokenizer).
+  Returns its GB on disk."""
+  from pathlib import Path
+  from xotorch_tpu_torch.inference.shard import Shard
+  from xotorch_tpu_torch.models import weights
+  from xotorch_tpu_torch.models.config import config_from_hf_dict
+  from xotorch_tpu_torch.models.transformer import init_random_params
+  model_dir = Path(model_dir)
+  model_dir.mkdir(parents=True, exist_ok=True)
+  cfg = config_from_hf_dict(GEMMA_CONFIG)
+  n = cfg.num_layers
+  weight_map = {}
+  for i, (start, end) in enumerate(((0, n // 2 - 1), (n // 2, n - 1))):
+    shard = Shard(GEMMA_CARD, start, end, n)
+    params = init_random_params(cfg, end - start + 1, shard.is_first_layer, shard.is_last_layer,
+                                seed=0, dtype=torch.bfloat16, device=device, start_layer=start)
+    if not shard.is_first_layer:
+      params.pop("embed")  # tied: written once, with the first shard
+    name = f"model-{i + 1:05d}-of-00002.safetensors"
+    weights.save_shard_params(params, cfg, shard, model_dir / name)
+    del params
+    weight_map.update((t, name) for t in weights._read_header(model_dir / name)[0])
+  total = sum((model_dir / f).stat().st_size for f in set(weight_map.values()))
+  (model_dir / "model.safetensors.index.json").write_text(
+    json.dumps({"metadata": {"total_size": total}, "weight_map": weight_map}))
+  (model_dir / "config.json").write_text(json.dumps(GEMMA_CONFIG))
+  write_word_tokenizer(model_dir, cfg.vocab_size)
+  return total / 1e9
+
+
+def write_word_tokenizer(model_dir, vocab_size: int) -> None:
+  """A word-level tokenizer over the whole vocabulary (tokenizer.json and
+  tokenizer_config.json): gemma's special tokens at its ids (<eos> 1, <bos> 2), the
+  requests' words w0-w96 and the chat roles, then t<id> for every other id, so every
+  sampled id decodes to text. With `transformers` the engine and the API build it;
+  without, they serve the DummyTokenizer and the config's eos (one token a word
+  either way, plus the roles)."""
+  special = ["<pad>", "<eos>", "<bos>", "<unk>"]
+  words = special + [f"w{i}" for i in range(97)] + ["user", "assistant", "system", ":"]
+  vocab = {t: i for i, t in enumerate(words)}
+  vocab.update((f"t{i}", i) for i in range(len(words), vocab_size))
+  (model_dir / "tokenizer.json").write_text(json.dumps({
+    "version": "1.0", "truncation": None, "padding": None, "normalizer": None,
+    "added_tokens": [{"id": vocab[t], "content": t, "single_word": False, "lstrip": False,
+                      "rstrip": False, "normalized": False, "special": True} for t in special],
+    "pre_tokenizer": {"type": "Whitespace"}, "post_processor": None, "decoder": None,
+    "model": {"type": "WordLevel", "vocab": vocab, "unk_token": "<unk>"}}))
+  (model_dir / "tokenizer_config.json").write_text(json.dumps({
+    "tokenizer_class": "PreTrainedTokenizerFast", "bos_token": "<bos>", "eos_token": "<eos>",
+    "unk_token": "<unk>", "pad_token": "<pad>", "model_max_length": 8192}))
+
+
+def check_gemma_model(torch, model_dir, limit: float = 5e-2, T: int = 4200,
+                      device: str = "cuda") -> None:
+  """Two layers of the gemma-2-2b checkpoint at full width, read by load_shard_params:
+  layer 0 windowed (4096), layer 1 global. A T-token prefill (past the window, so it
+  bites) through K1/K1w and four decode steps through K2/K2w in bf16 on the card,
+  against the plain path in fp32 on the CPU on the same checkpoint: the last 64
+  positions' logits (the 256000-row unembedding of every position would cost the CPU
+  minutes), then each step's, within `limit` of the logits' range; K1 and K2 launched
+  once a layer a call, half of them windowed."""
+  import dataclasses
+  import numpy as np
+  from xotorch_tpu_torch.inference.shard import Shard
+  from xotorch_tpu_torch.models.config import load_model_config
+  from xotorch_tpu_torch.models.transformer import forward_shard, init_kv_cache, unembed
+  from xotorch_tpu_torch.models.weights import load_shard_params
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention
+  from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention
+  cfg = dataclasses.replace(load_model_config(model_dir), num_layers=2)
+  shard = Shard(GEMMA_CARD, 0, 1, 2)
+  tokens = np.random.default_rng(2).integers(0, cfg.vocab_size, size=(1, T))
+  steps = 4
+
+  def run(device, dtype, **kw):
+    params = load_shard_params(model_dir, cfg, shard, dtype=dtype, device=device)
+    cache = init_kv_cache(cfg, 2, 1, T + steps, dtype, device)
+    h, _ = forward_shard(params, torch.as_tensor(tokens, device=device), cache, 0, cfg, True,
+                         False, use_flash=bool(kw))
+    out = [unembed(params, h[:, -64:], cfg)[0].float().cpu()]
+    for i in range(steps):
+      tok = torch.tensor([[int(tokens[0, i])]], device=device)
+      logits, _ = forward_shard(params, tok, cache, T + i, cfg, True, True,
+                                use_flash_decode=bool(kw))
+      out.append(logits[0].float().cpu())
+    return out
+
+  with torch.inference_mode():
+    t0 = time.perf_counter()
+    want = run("cpu", torch.float32)
+    cpu_s = time.perf_counter() - t0
+    for k in (flash_attention, flash_cached_attention):
+      k.launches = k.windowed_launches = 0
+    got = run(device, torch.bfloat16, kernels=True)
+  if not all(bool(torch.isfinite(g).all()) for g in got):
+    raise AssertionError("gemma model: non-finite logits on the card")
+  worst = max(((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want))
+  launched = {k.__name__: (k.launches, k.windowed_launches)
+              for k in (flash_attention, flash_cached_attention)}
+  ok = (worst < limit and launched["flash_attention"] == (2, 1)
+        and launched["flash_cached_attention"] == (2 * steps, steps))
+  print(f"[gemma model] 2-layer gemma-2-2b cut from the checkpoint (layer 0 window 4096, layer 1 "
+        f"global), prefill {T} + decode {steps}: max logit error {worst:.3e} of the logits' range "
+        f"(limit {limit:g}) over the last 64 positions and each step; launches (all, windowed) "
+        f"{launched}; the CPU's fp32 path took {cpu_s:.1f} s {'ok' if ok else 'FAIL'}", flush=True)
+  if not ok:
+    raise AssertionError(f"gemma model: error {worst} or launches {launched}")
+
+
+def gemma_requests(model: str):
+  """The main path's three requests, then a prompt past the window (temperature 0,
+  streamed): its prompt and generation pass 4096 positions."""
+  words = " ".join(f"w{i % 97}" for i in range(GEMMA_LONG_WORDS))
+  return main_requests(model) + [
+    (f"{GEMMA_LONG_WORDS}-word prompt (past the 4096 window), 64 tokens, streaming",
+     {"model": model, "temperature": 0, "max_tokens": 64, "stream": True,
+      "stream_options": {"include_usage": True}, "messages": [{"role": "user", "content": words}]})]
+
+
+def drive_gemma(torch, card: str, device: str = "cuda") -> dict:
+  """Phase 12: gemma-2-2b at full width and depth from an HF checkpoint on disk. Writes
+  the checkpoint into a seed directory (write_gemma_checkpoint), holds a two-layer cut
+  of it against the CPU (check_gemma_model), then serves it through main.py's entry
+  points: a server started with --models-seed-dir (the seeding path, then the
+  downloader's offline fast path out of XOT_HOME) answers gemma_requests with K1's and
+  K2's counters read around them (K1 = 26 x fresh prefills, K2 = 26 x (decode steps +
+  segments at pos > 0), each half windowed) and one B=1 decode chunk under the
+  profiler, then a fresh server with XOT_PAGED_KV=1
+  the same (K4 = 26 x segments, K3 = 26 x decode steps, half windowed, 0 pages left),
+  and the share of temperature-0 tokens the two agree on (bf16: not asserted). The
+  checkpoint is deleted at the end. Returns the phase's launches by wrapper. (`device`
+  lets the phase be rehearsed on the CPU with a small GEMMA_CONFIG.)"""
+  import shutil
+  import tempfile
+  from pathlib import Path
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention
+  from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention
+  from xotorch_tpu_torch.ops.paged_attention import paged_decode_attention, paged_prefill_attention
+  layers = GEMMA_CONFIG["num_hidden_layers"]
+  tmp = Path(tempfile.mkdtemp(prefix="xot-gemma-"))
+  try:
+    seed = tmp / "seed"
+    model_dir = seed / "google--gemma-2-2b-it"
+    t0 = time.perf_counter()
+    gb = write_gemma_checkpoint(torch, model_dir, device)
+    print(f"[gemma] checkpoint written by save_shard_params: {gb:.2f} GB in two safetensors files "
+          f"and an index, in {time.perf_counter() - t0:.1f} s", flush=True)
+    check_gemma_model(torch, model_dir, device=device)
+    requests = gemma_requests(GEMMA_CARD)
+    runs = {}
+    with phase_env(XOT_HOME=str(tmp / "home")):
+      for tag, env, kernels, cli, profiles in (
+          ("gemma", {}, (flash_attention, flash_cached_attention), ("--models-seed-dir", str(seed)),
+           (1,)),
+          ("gemma paged", {"XOT_PAGED_KV": "1"}, (paged_prefill_attention, paged_decode_attention),
+           (), ())):
+        t0 = time.perf_counter()
+        run = drive_main_path(torch, card, device=device, model=GEMMA_CARD, kernels=kernels,
+                              env=env, tag=tag, profiles=profiles, cli=cli, requests=requests,
+                              focus="flash_cached_")
+        runs[tag] = run
+        segments = [-(-n // 1024) for n in run["prompt_tokens"]]
+        counts, steps = run["launches"], run["steps"]
+        if tag == "gemma":
+          if model_dir.exists() or not (tmp / "home" / "models" / model_dir.name).is_dir():
+            raise AssertionError("gemma: --models-seed-dir did not move the checkpoint into XOT_HOME")
+          want = {"flash_attention": layers * len(requests),
+                  "flash_cached_attention": layers * (steps + sum(s - 1 for s in segments))}
+          formula = (f"K1 = {layers} x {len(requests)} fresh prefills, K2 = {layers} x ({steps} "
+                     f"decode steps + {sum(s - 1 for s in segments)} segments at pos > 0)")
+        else:
+          want = {"paged_prefill_attention": layers * sum(segments),
+                  "paged_decode_attention": layers * steps}
+          formula = (f"K4 = {layers} x {sum(segments)} segments, K3 = {layers} x {steps} decode "
+                     f"steps")
+        windowed = run["windowed"]
+        pool = run["pool"]
+        ok = (counts == want and all(2 * windowed[k] == counts[k] for k in counts)
+              and steps >= run["decoded"] and (pool is None) == (tag == "gemma")
+              and (pool is None or pool["pages_in_use"] == 0))
+        print(f"[{tag}] launches {counts}: {formula} ({want}); prompt tokens "
+              f"{run['prompt_tokens']}; tokenizer {run['tokenizer']}; pool {pool}; served in "
+              f"{time.perf_counter() - t0:.1f} s with the load {'ok' if ok else 'FAIL'}", flush=True)
+        print(f"[{tag}] windowed launches {windowed}: half of each ({card})", flush=True)
+        if not ok:
+          raise AssertionError(f"{tag}: launches {counts} (windowed {windowed}), wanted {want}; "
+                               f"pool {pool}")
+    same = total = 0
+    for i, (_, body) in enumerate(requests):
+      if body.get("temperature") == 0:
+        a, b = runs["gemma"]["tokens"][i], runs["gemma paged"]["tokens"][i]
+        same += sum(x == y for x, y in zip(a, b))
+        total += max(len(a), len(b))
+    print(f"[gemma paged] temperature-0 tokens the paged and contiguous servers agree on: "
+          f"{same}/{total} = {100 * same / max(total, 1):.1f}% (bf16; not asserted)", flush=True)
+  finally:
+    shutil.rmtree(tmp, ignore_errors=True)
+  launches = {}
+  for run in runs.values():
+    launches.update(run["launches"])
+  return launches
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--kernels-only", action="store_true",
@@ -2327,6 +2599,7 @@ def main(argv=None) -> int:
   results: dict = {}
   check_kernels(torch, results)
   check_quant_kernels(torch, results)
+  check_gemma_kernels(torch)
   if args.kernels_only:
     print(f"kernels ok on {card}", flush=True)
     return 0
@@ -2447,7 +2720,12 @@ def main(argv=None) -> int:
   drive_ring_inprocess(torch, card, main_run)
   drive_ring_processes(torch, card, main_run)
 
-  # Phase 12: results.
+  # Phase 12: gemma-2-2b from an HF checkpoint on disk, at full width and depth: its
+  # attention kernels' launches join the main path's in the results line.
+  for name, n in drive_gemma(torch, card).items():
+    launches[name] += n
+
+  # Phase 13: results.
   meta = {
     "flash_attention": ("xotorch_tpu_torch/csrc/flash_attention.cu",
                         "xotorch_tpu/ops/flash_attention.py:54"),

@@ -237,11 +237,28 @@ def _imports(path: Path):
       yield node.module
 
 
+def _function_imports(path: Path):
+  """The modules imported inside a function body (lazily, at call time)."""
+  for fn in ast.walk(ast.parse(path.read_text(), filename=str(path))):
+    if isinstance(fn, (ast.FunctionDef, ast.AsyncFunctionDef)):
+      for node in ast.walk(fn):
+        if isinstance(node, ast.Import):
+          yield from (a.name for a in node.names)
+        elif isinstance(node, ast.ImportFrom) and node.level == 0 and node.module:
+          yield node.module
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
   files = sorted((ROOT / "xotorch_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
   assert len(files) > 20
   walked = {str(f.relative_to(ROOT)) for f in files}
-  assert {"xotorch_tpu_torch/ops/paged_attention.py",
+  assert {"xotorch_tpu_torch/models/weights.py",
+          "xotorch_tpu_torch/inference/tokenizers.py",
+          "xotorch_tpu_torch/download/__init__.py",
+          "xotorch_tpu_torch/download/download_progress.py",
+          "xotorch_tpu_torch/download/shard_download.py",
+          "xotorch_tpu_torch/download/hf_shard_download.py",
+          "xotorch_tpu_torch/ops/paged_attention.py",
           "xotorch_tpu_torch/inference/torch_engine/paged_cache.py",
           "xotorch_tpu_torch/inference/torch_engine/vkv.py",
           "xotorch_tpu_torch/topology/device_capabilities.py",
@@ -252,5 +269,12 @@ def test_port_imports_neither_jax_nor_the_jax_package():
           "xotorch_tpu_torch/networking/manual/discovery.py",
           "xotorch_tpu_torch/networking/udp/discovery.py"} <= walked
   bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
-         if name.split(".")[0] in ("jax", "jaxlib", "xotorch_tpu")]
+         if name.split(".")[0] in ("jax", "jaxlib", "xotorch_tpu", "safetensors")]
   assert bad == []
+  # The card has no `transformers`: only resolving a Hugging Face tokenizer imports it,
+  # inside the call.
+  hf = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
+        if name.split(".")[0] == "transformers"]
+  tokenizers = ROOT / "xotorch_tpu_torch" / "inference" / "tokenizers.py"
+  assert hf == [(str(tokenizers.relative_to(ROOT)), "transformers")]
+  assert list(_function_imports(tokenizers)).count("transformers") == 1

@@ -142,16 +142,34 @@ def test_random_init_is_shard_consistent():
   torch.testing.assert_close(tail["lm_head"], full["lm_head"], rtol=0, atol=0)
 
 
-@pytest.mark.parametrize("unsupported", [
-  {"model_type": "qwen3_moe", "num_experts": 4, "num_experts_per_tok": 2},
-  {"model_type": "gemma2", "sliding_window": 8, "attn_logit_softcapping": 50.0},
-  {"model_type": "qwen3"},  # qk-norm
-])
-def test_unported_config_features_raise(unsupported):
+def _moe_init():
   base = dict(get_model_card(MODEL)["synthetic_config"])
-  cfg = config_from_hf_dict({**base, **unsupported})
+  cfg = config_from_hf_dict({**base, "model_type": "qwen3_moe", "num_experts": 4,
+                             "num_experts_per_tok": 2})
+  transformer.init_random_params(cfg, 1, True, True)
+
+
+def _llava_config():
+  base = dict(get_model_card(MODEL)["synthetic_config"])
+  config_from_hf_dict({"model_type": "llava", "text_config": base,
+                       "vision_config": {"model_type": "clip_vision_model"}})
+
+
+def _lora_forward():
+  _, cfg = _cfgs()
+  params = transformer.init_random_params(cfg, 1, True, True)
+  params["layers"]["lora_wq_a"] = torch.zeros(1, cfg.hidden_size, 4)
+  cache = transformer.init_kv_cache(cfg, 1, 1, 8, torch.float32)
+  transformer.forward_shard(params, torch.ones(1, 2, dtype=torch.int64), cache, 0, cfg, True, True)
+
+
+# gemma2 and qwen3 (qk-norm) are served now (tests/test_torch_families.py); what the
+# port still refuses: MoE, multimodal configs and LoRA slots.
+@pytest.mark.parametrize("unsupported", [_moe_init, _llava_config, _lora_forward],
+                         ids=["moe", "llava-multimodal", "lora-slot"])
+def test_unported_config_features_raise(unsupported):
   with pytest.raises(NotImplementedError):
-    transformer.init_random_params(cfg, 1, True, True)
+    unsupported()
 
 
 def _bucketed(toks, bucket):

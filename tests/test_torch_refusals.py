@@ -79,9 +79,9 @@ def _card(heads: int, kv_heads: int, head_dim: int) -> dict:
 
 
 @pytest.mark.parametrize("paged,heads,kv_heads,head_dim,refusal", [
-  ("0", 4, 2, 48, "head_dim 48"),  # K1/K2 are built for 16, 32, 64, 128
+  ("0", 4, 2, 48, "head_dim 48"),  # K1/K2 are built for 16, 32, 64, 128, 256
   ("0", 130, 2, 16, "65 q heads per kv head"),  # K2 takes at most 64
-  ("1", 4, 2, 32, "XOT_PAGED_KV=1"),  # K3/K4 are built for 16, 64, 128
+  ("1", 4, 2, 48, "head_dim 48"),  # K3/K4 are built for the same head_dims as K1/K2
   ("1", 32, 2, 16, "16 q heads per kv head under XOT_PAGED_KV=1"),  # K3/K4 take at most 8
 ])
 async def test_shard_load_refuses_shapes_the_kernels_lack(monkeypatch, paged, heads, kv_heads,

@@ -21,7 +21,7 @@ import time
 import uuid
 from typing import Dict, List, Optional, Tuple
 
-from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer, resolve_tokenizer
+from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer, resolve_tokenizer, tokenizer_for_dir
 from xotorch_tpu_torch.models.registry import build_base_shard, get_model_card, get_repo, get_supported_models
 from xotorch_tpu_torch.utils.helpers import DEBUG, spawn_detached
 
@@ -183,9 +183,29 @@ class ChatGPTAPI:
         if eos is not None:
           tok.eos_token_id = eos if isinstance(eos, int) else eos[0]
       else:
-        tok = await resolve_tokenizer(get_repo(model, self.inference_engine_classname))
+        tok = await self._checkpoint_tokenizer(model)
       self._tokenizers[model] = tok
     return tok
+
+  async def _checkpoint_tokenizer(self, model: str):
+    """A checkpoint's tokenizer: the engine's when it serves `model`, else the one its
+    downloader's directory gives (the DummyTokenizer where none can be built there,
+    as the engine does), else the repo id's."""
+    engine = self.node.inference_engine
+    shard = getattr(engine, "shard", None)
+    if shard is not None and shard.model_id == model and engine.tokenizer is not None:
+      return engine.tokenizer
+    downloader = getattr(engine, "shard_downloader", None)
+    if downloader is not None:
+      try:
+        local = await downloader.ensure_shard(build_base_shard(model, self.inference_engine_classname),
+                                              self.inference_engine_classname)
+      except Exception as e:
+        if DEBUG >= 1:
+          print(f"local tokenizer resolve for {model} failed ({e!r}); trying its repo id")
+      else:
+        return await tokenizer_for_dir(local)
+    return await resolve_tokenizer(get_repo(model, self.inference_engine_classname))
 
   def _eos_ids(self, tokenizer) -> set:
     ids = set(self.node._eos_token_ids())

@@ -33,6 +33,12 @@
 // is computed (commit_group / wait_group). The epilogue keeps JAX's l == 0 -> 1 guard
 // and rounds acc / l once to bf16.
 //
+// Head width 256 (gemma-2's): a warp's 16 x 256 fp32 O accumulator alone takes 128
+// registers a thread, so the Q fragments (64 more) do not stay in registers beside it.
+// There Q keeps its own region of shared memory and each 16-wide slice of it is
+// re-read by ldmatrix once a tile (Shape::Q_SMEM); one tile shape, 64 rows by 64 keys,
+// puts the block at 165 KB of shared memory (dynamic, above 48 KB), one block an SM.
+//
 // mma.sync rather than wgmma: at these sizes (a few GFLOP over a few hundred tiles,
 // about two waves on 132 SMs) occupancy and the softmax's latency decide, not the peak
 // tensor-core rate. wgmma with TMA and warp specialisation is the next step.
@@ -48,15 +54,20 @@ namespace xot_mma {
 constexpr float LOG2E = 1.4426950408889634f;
 
 // Tile geometry: ROWS query rows (ROWS / 16 warps), KT keys a tile, head width D.
+// Above D = 128 the Q rows stay in shared memory (a region after the two stages) and
+// their fragments are re-read each tile; up to 128 they are staged in the second stage
+// and kept in registers.
 template <int D, int KT, int ROWS>
 struct Shape {
   static_assert(D % 16 == 0 && KT % 16 == 0 && ROWS % 16 == 0, "mma tiles are 16 wide");
-  static_assert(ROWS <= 2 * KT, "the Q tile is staged in the second K/V stage");
+  static constexpr bool Q_SMEM = D > 128;
+  static_assert(Q_SMEM || ROWS <= 2 * KT, "the Q tile is staged in the second K/V stage");
   static constexpr int WARPS = ROWS / 16;
   static constexpr int THREADS = WARPS * 32;
   static constexpr int DS = D + 8;        // shared-memory row stride (bf16)
   static constexpr int STAGE = 2 * KT * DS;  // one stage: K tile, then V tile
-  static constexpr size_t SMEM = 2 * (size_t)STAGE * sizeof(__nv_bfloat16);
+  static constexpr int QS = Q_SMEM ? ROWS * DS : 0;  // the Q region (bf16), if any
+  static constexpr size_t SMEM = (2 * (size_t)STAGE + QS) * sizeof(__nv_bfloat16);
 };
 
 __device__ __forceinline__ uint32_t smem_u32(const void* p) {
@@ -226,6 +237,45 @@ struct Kv8Tile {
   }
 };
 
+// Whether an int8 tile of head width D is dequantized straight into shared memory
+// (stage_tile_kv8) instead of being fetched into registers a tile ahead (Kv8Tile): at
+// D = 256 a thread's share of a 64-key tile is 16 rows (64 threads: 32) of 8 codes of K
+// and of V plus their scales, 96 registers or more held across the compute of the tile
+// before, beside a 128-register O accumulator.
+template <int D>
+__device__ __host__ constexpr bool kv8_direct() {
+  return D > 128;
+}
+
+// stage_tile over an int8 cache, in one step: each row's 8 codes and its scale are read
+// and stored as code x scale (rounded once to bf16) at once, as Kv8Tile's land() stores
+// them, so the tile is the same; the loads are not overlapped with the tile before.
+template <int D, int KT, int THREADS, class Off>
+__device__ __forceinline__ void stage_tile_kv8(__nv_bfloat16* ks, __nv_bfloat16* vs,
+                                               const int8_t* __restrict__ kb,
+                                               const int8_t* __restrict__ vb,
+                                               const __nv_bfloat16* __restrict__ ksc,
+                                               const __nv_bfloat16* __restrict__ vsc, int k0,
+                                               int lo, int hi, const Off& off) {
+  constexpr int CH = D / 8;
+  constexpr int DS = D + 8;
+  static_assert(THREADS % CH == 0, "a thread keeps one column of the tile");
+  const int c = threadIdx.x % CH;
+  for (int j = threadIdx.x / CH; j < KT; j += THREADS / CH) {
+    uint2 kw = make_uint2(0u, 0u), vw = make_uint2(0u, 0u);
+    float kscl = 0.f, vscl = 0.f;
+    if (k0 + j >= lo && k0 + j < hi) {
+      const size_t o = off(j);
+      kw = *reinterpret_cast<const uint2*>(kb + o + 8 * c);
+      vw = *reinterpret_cast<const uint2*>(vb + o + 8 * c);
+      kscl = __bfloat162float(ksc[o / D]);
+      vscl = __bfloat162float(vsc[o / D]);
+    }
+    *reinterpret_cast<uint4*>(ks + j * DS + 8 * c) = dequant8(kw, kscl);
+    *reinterpret_cast<uint4*>(vs + j * DS + 8 * c) = dequant8(vw, vscl);
+  }
+}
+
 // The second step of a loader whose first (load) lands the tile itself (cp.async).
 struct NoLand {
   __device__ __forceinline__ void operator()(__nv_bfloat16*, __nv_bfloat16*) const {}
@@ -258,15 +308,16 @@ __device__ __forceinline__ void attend(const RowTile& rt, unsigned char* smem, i
   int lo = window > 0 ? max(0, p_first - window + 1) : 0;
   lo -= lo % KT;
 
-  // Q rows into the second stage (free until the first prefetch), tile `lo` into the
-  // first.
+  // Q rows into the second stage (free until the first prefetch) or, above D = 128,
+  // into their own region; tile `lo` into the first stage.
+  __nv_bfloat16* qsm = S::Q_SMEM ? stage1 + S::STAGE : stage1;
   for (int i = tid; i < ROWS * CH; i += S::THREADS) {
     const int r = i / CH;
     const int c = i % CH;
     const int row = rt.row0 + r;
     const bool ok = row < n_rows;
     const __nv_bfloat16* src = ok ? rt.q + row_vector(rt, row) * D + 8 * c : rt.q;
-    cp_async16(stage1 + r * DS + 8 * c, src, ok);
+    cp_async16(qsm + r * DS + 8 * c, src, ok);
   }
   cp_async_commit();
   if (lo < hi) {
@@ -289,12 +340,12 @@ __device__ __forceinline__ void attend(const RowTile& rt, unsigned char* smem, i
   const int pa = ra <= r_last ? rt.start + ra / rt.groups : -1;  // -1: no key is visible
   const int pb = rb <= r_last ? rt.start + rb / rt.groups : -1;
 
-  uint32_t qa[D / 16][4];
-  if (active) {
+  // The lane's slice of Q row (16 warp + lane % 16), columns 16 kk + 8 (lane / 16).
+  const __nv_bfloat16* qrow = qsm + (16 * warp + (lane & 15)) * DS + (lane >> 4) * 8;
+  uint32_t qa[S::Q_SMEM ? 1 : D / 16][4];
+  if (!S::Q_SMEM && active) {
 #pragma unroll
-    for (int kk = 0; kk < D / 16; ++kk) {
-      ldmatrix_x4(qa[kk], stage1 + (16 * warp + (lane & 15)) * DS + 16 * kk + (lane >> 4) * 8);
-    }
+    for (int kk = 0; kk < D / 16; ++kk) ldmatrix_x4(qa[kk], qrow + 16 * kk);
   }
   __syncthreads();  // Q is in registers: the second stage may take tile lo + KT
 
@@ -331,14 +382,21 @@ __device__ __forceinline__ void attend(const RowTile& rt, unsigned char* smem, i
       for (int j = 0; j < NK; ++j) s[j][0] = s[j][1] = s[j][2] = s[j][3] = 0.f;
 #pragma unroll
       for (int kk = 0; kk < D / 16; ++kk) {
+        uint32_t qk[4];
+        if constexpr (S::Q_SMEM) {
+          ldmatrix_x4(qk, qrow + 16 * kk);
+        } else {
+#pragma unroll
+          for (int e = 0; e < 4; ++e) qk[e] = qa[kk][e];
+        }
 #pragma unroll
         for (int jn = 0; jn < KT / 16; ++jn) {
           if (jn < n16) {
             uint32_t kb[4];
             ldmatrix_x4(kb, ks + (16 * jn + (lane & 7) + ((lane >> 4) << 3)) * DS + 16 * kk +
                                 ((lane >> 3) & 1) * 8);
-            mma_bf16(s[2 * jn], qa[kk], kb[0], kb[1]);
-            mma_bf16(s[2 * jn + 1], qa[kk], kb[2], kb[3]);
+            mma_bf16(s[2 * jn], qk, kb[0], kb[1]);
+            mma_bf16(s[2 * jn + 1], qk, kb[2], kb[3]);
           }
         }
       }

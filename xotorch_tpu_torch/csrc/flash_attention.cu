@@ -18,7 +18,10 @@
 // (Hkv * D apart) with cp.async, double-buffered. The kv loop starts at the window's
 // lower bound and stops at the block's last row, so tiles the block cannot see are never
 // read; blocks run heaviest (last rows) first. The ragged edge (T need not be a multiple
-// of any tile) is masked and zero-filled.
+// of any tile) is masked and zero-filled. At head width 256 the block takes one tile
+// shape, 64 query rows by 64 keys, with Q re-read from shared memory each tile
+// (attention_mma.cuh): the wrapper passes block_q = block_k = 64 there, and any other
+// pair is refused.
 #include "attention_mma.cuh"
 
 namespace {
@@ -63,20 +66,26 @@ int launch(const void* q, const void* k, const void* v, void* o, int B, int T, i
 template <int D>
 int launch_d(const void* q, const void* k, const void* v, void* o, int B, int T, int Hq, int Hkv,
              int block_q, int block_k, int window, float scale, float softcap, cudaStream_t s) {
-  switch (block_q * 1000 + block_k) {
-    case 64 * 1000 + 64: return launch<D, 64, 64>(q, k, v, o, B, T, Hq, Hkv, window, scale, softcap, s);
-    case 64 * 1000 + 128: return launch<D, 64, 128>(q, k, v, o, B, T, Hq, Hkv, window, scale, softcap, s);
-    case 128 * 1000 + 64: return launch<D, 128, 64>(q, k, v, o, B, T, Hq, Hkv, window, scale, softcap, s);
-    case 128 * 1000 + 128: return launch<D, 128, 128>(q, k, v, o, B, T, Hq, Hkv, window, scale, softcap, s);
-    default: return (int)cudaErrorInvalidValue;
+  if constexpr (D > 128) {
+    if (block_q != 64 || block_k != 64) return (int)cudaErrorInvalidValue;
+    return launch<D, 64, 64>(q, k, v, o, B, T, Hq, Hkv, window, scale, softcap, s);
+  } else {
+    switch (block_q * 1000 + block_k) {
+      case 64 * 1000 + 64: return launch<D, 64, 64>(q, k, v, o, B, T, Hq, Hkv, window, scale, softcap, s);
+      case 64 * 1000 + 128: return launch<D, 64, 128>(q, k, v, o, B, T, Hq, Hkv, window, scale, softcap, s);
+      case 128 * 1000 + 64: return launch<D, 128, 64>(q, k, v, o, B, T, Hq, Hkv, window, scale, softcap, s);
+      case 128 * 1000 + 128: return launch<D, 128, 128>(q, k, v, o, B, T, Hq, Hkv, window, scale, softcap, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
 }
 
 }  // namespace
 
 // q [B, T, Hq, D], k/v [B, T, Hkv, D], o [B, T, Hq, D]: contiguous bf16 on the device.
-// D in {16, 32, 64, 128}. block_q (query rows a block, positions x groups flattened;
-// ROWS / 16 warps) and block_k (keys a shared-memory tile) are each 64 or 128. Returns a
+// D in {16, 32, 64, 128, 256}. block_q (query rows a block, positions x groups
+// flattened; ROWS / 16 warps) and block_k (keys a shared-memory tile) are each 64 or 128,
+// and both 64 at D = 256. Returns a
 // cudaError_t value: nonzero when the arguments are refused or the launch failed.
 extern "C" int xot_flash_attention_bf16(const void* q, const void* k, const void* v, void* o,
                                         int B, int T, int Hq, int Hkv, int D, int block_q,
@@ -91,6 +100,7 @@ extern "C" int xot_flash_attention_bf16(const void* q, const void* k, const void
     case 32: return launch_d<32>(q, k, v, o, B, T, Hq, Hkv, block_q, block_k, window, scale, softcap, s);
     case 64: return launch_d<64>(q, k, v, o, B, T, Hq, Hkv, block_q, block_k, window, scale, softcap, s);
     case 128: return launch_d<128>(q, k, v, o, B, T, Hq, Hkv, block_q, block_k, window, scale, softcap, s);
+    case 256: return launch_d<256>(q, k, v, o, B, T, Hq, Hkv, block_q, block_k, window, scale, softcap, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }

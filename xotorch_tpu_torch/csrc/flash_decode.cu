@@ -32,6 +32,13 @@
 //   at q_start[b] and capped at q_start[b] + T; 64-key tiles of the cache (rows Hkv * D
 //   apart) arrive by cp.async, double-buffered, as K1's, and both products run on
 //   mma.sync. Blocks run heaviest (last rows) first.
+// - Head width 256 (gemma-2): segments take one tile shape, 64 rows a block (the
+//   wrapper passes block_q = 64; any other value is refused), with Q re-read from shared
+//   memory each tile; an int8 cache is dequantized straight into the staged tile
+//   (attention_mma.cuh::stage_tile_kv8) on both paths, since a tile prefetched into
+//   registers would not fit beside the accumulators.
+#include <type_traits>
+
 #include "decode_split.cuh"
 
 namespace {
@@ -50,19 +57,25 @@ struct ContiguousRows {
 
 // The tile loader of one (batch row, kv head) of the cache: bf16 rows by cp.async
 // (load lands them), int8 rows fetched into registers by load and stored by land as
-// code x scale. A row's scale sits at (b * S + position) * Hkv + kvh = (base + off) / D.
+// code x scale (above D = 128 stored by load at once). A row's scale sits at
+// (b * S + position) * Hkv + kvh = (base + off) / D.
 template <int D, int THREADS, bool KV8>
 struct CacheLoader {
+  static constexpr bool DIRECT = xot_mma::kv8_direct<D>();
   const void* kc;
   const void* vc;
   const bf16* k_scale;
   const bf16* v_scale;
   size_t base, rs;
-  xot_mma::Kv8Tile<D, KT, THREADS> kv8;
+  typename std::conditional<DIRECT, xot_mma::NoLand, xot_mma::Kv8Tile<D, KT, THREADS>>::type kv8;
 
   __device__ __forceinline__ void load(bf16* ks, bf16* vs, int k0, int lo, int hi) {
     const ContiguousRows off{k0, rs};
-    if constexpr (KV8) {
+    if constexpr (KV8 && DIRECT) {
+      xot_mma::stage_tile_kv8<D, KT, THREADS>(
+          ks, vs, static_cast<const int8_t*>(kc) + base, static_cast<const int8_t*>(vc) + base,
+          k_scale + base / D, v_scale + base / D, k0, lo, hi, off);
+    } else if constexpr (KV8) {
       kv8.fetch(static_cast<const int8_t*>(kc) + base, static_cast<const int8_t*>(vc) + base,
                 k_scale + base / D, v_scale + base / D, k0, lo, hi, off);
     } else {
@@ -71,7 +84,7 @@ struct CacheLoader {
     }
   }
   __device__ __forceinline__ void land(bf16* ks, bf16* vs) const {
-    if constexpr (KV8) kv8.land(ks, vs);
+    if constexpr (KV8 && !DIRECT) kv8.land(ks, vs);
   }
 };
 
@@ -174,10 +187,15 @@ int launch_d(const void* q, const void* kc, const void* vc, const void* ks, cons
       default: return launch_split<D, 8, KV8>(q, kc, vc, ks, vs, q_start, o, pt, B, S, Hq, Hkv, splits, kps, window, scale, softcap, s);
     }
   }
-  switch (block_q) {
-    case 64: return launch_segment<D, 64, KV8>(q, kc, vc, ks, vs, q_start, o, B, T, S, Hq, Hkv, window, scale, softcap, s);
-    case 128: return launch_segment<D, 128, KV8>(q, kc, vc, ks, vs, q_start, o, B, T, S, Hq, Hkv, window, scale, softcap, s);
-    default: return (int)cudaErrorInvalidValue;
+  if constexpr (D > 128) {
+    if (block_q != 64) return (int)cudaErrorInvalidValue;
+    return launch_segment<D, 64, KV8>(q, kc, vc, ks, vs, q_start, o, B, T, S, Hq, Hkv, window, scale, softcap, s);
+  } else {
+    switch (block_q) {
+      case 64: return launch_segment<D, 64, KV8>(q, kc, vc, ks, vs, q_start, o, B, T, S, Hq, Hkv, window, scale, softcap, s);
+      case 128: return launch_segment<D, 128, KV8>(q, kc, vc, ks, vs, q_start, o, B, T, S, Hq, Hkv, window, scale, softcap, s);
+      default: return (int)cudaErrorInvalidValue;
+    }
   }
 }
 
@@ -205,6 +223,7 @@ int dispatch(const void* q, const void* kc, const void* vc, const void* ks, cons
     case 32: return launch_d<32, KV8>(q, kc, vc, ks, vs, qs, o, part, B, T, S, Hq, Hkv, block_q, splits, kps, window, scale, softcap, s);
     case 64: return launch_d<64, KV8>(q, kc, vc, ks, vs, qs, o, part, B, T, S, Hq, Hkv, block_q, splits, kps, window, scale, softcap, s);
     case 128: return launch_d<128, KV8>(q, kc, vc, ks, vs, qs, o, part, B, T, S, Hq, Hkv, block_q, splits, kps, window, scale, softcap, s);
+    case 256: return launch_d<256, KV8>(q, kc, vc, ks, vs, qs, o, part, B, T, S, Hq, Hkv, block_q, splits, kps, window, scale, softcap, s);
     default: return (int)cudaErrorInvalidValue;
   }
 }
@@ -212,11 +231,11 @@ int dispatch(const void* q, const void* kc, const void* vc, const void* ks, cons
 }  // namespace
 
 // q [B, T, Hq, D], k/v cache [B, S, Hkv, D], o [B, T, Hq, D]: contiguous bf16 on the
-// device; q_start [B] int32 on the device. D in {16, 32, 64, 128}, Hq / Hkv <= 64.
+// device; q_start [B] int32 on the device. D in {16, 32, 64, 128, 256}, Hq / Hkv <= 64.
 // T == 1: `part` holds B * Hq * splits * (D + 2) floats of scratch on the device, and
 // the cache positions [0, S) are cut into `splits` ranges of `kps` keys (a multiple of
 // 64; the last range reaches S). T > 1: block_q (query rows a block, positions x groups
-// flattened) is 64 or 128; part, splits and kps are not read. Returns a cudaError_t
+// flattened) is 64 or 128, and 64 at D = 256; part, splits and kps are not read. Returns a cudaError_t
 // value: nonzero when the arguments are refused or a launch failed.
 extern "C" int xot_flash_cached_attention_bf16(const void* q, const void* kc, const void* vc,
                                                const void* q_start, void* o, void* part, int B,

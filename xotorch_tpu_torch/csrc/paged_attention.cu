@@ -56,7 +56,12 @@
 // into the very shared-memory tiles K3's and K4's cp.async copies fill, so the rest
 // runs K3's and K4's instructions. That equals JAX's
 // bf16 multiply bit for bit (an 8-bit code times a bf16 significand is exact in fp32).
-// The arena streams half the bytes.
+// The arena streams half the bytes. At head width 256 (gemma-2) an int8 tile is
+// dequantized straight into shared memory instead (attention_mma.cuh::stage_tile_kv8):
+// a tile prefetched into registers would not fit beside the accumulators; K4's Q rows
+// stay in shared memory there and are re-read each tile.
+//
+// Built for head widths 16, 32, 64, 128 and 256, at pages of 16 and 128.
 #include <stdint.h>
 
 #include <type_traits>
@@ -103,27 +108,31 @@ using ArenaElem = typename std::conditional<KV8, int8_t, bf16>::type;
 
 // The tile loader of one row's pages and one kv head: bf16 rows by cp.async (load
 // lands them), int8 rows fetched into registers by load and stored by land as code x
-// scale (scale pages indexed by offset / D). Positions outside [lo, hi) are zeros.
+// scale (scale pages indexed by offset / D; above D = 128 stored by load at once).
+// Positions outside [lo, hi) are zeros.
 template <int D, int PAGE, int THREADS, bool KV8>
 struct PagedLoader {
+  static constexpr bool DIRECT = xot_mma::kv8_direct<D>();
   const ArenaElem<KV8>* kp;
   const ArenaElem<KV8>* vp;
   const bf16* ksp;
   const bf16* vsp;
   const int* tb;
   int num_pages, Hkv, kvh;
-  xot_mma::Kv8Tile<D, KT, THREADS> kv8;
+  typename std::conditional<DIRECT, xot_mma::NoLand, xot_mma::Kv8Tile<D, KT, THREADS>>::type kv8;
 
   __device__ __forceinline__ void load(bf16* ks, bf16* vs, int k0, int lo, int hi) {
     const PagedRows<D, PAGE> off(tb, k0, num_pages, Hkv, kvh);
-    if constexpr (KV8) {
+    if constexpr (KV8 && DIRECT) {
+      xot_mma::stage_tile_kv8<D, KT, THREADS>(ks, vs, kp, vp, ksp, vsp, k0, lo, hi, off);
+    } else if constexpr (KV8) {
       kv8.fetch(kp, vp, ksp, vsp, k0, lo, hi, off);
     } else {
       xot_mma::stage_tile<D, KT, THREADS>(ks, vs, kp, vp, k0, lo, hi, off);
     }
   }
   __device__ __forceinline__ void land(bf16* ks, bf16* vs) const {
-    if constexpr (KV8) kv8.land(ks, vs);
+    if constexpr (KV8 && !DIRECT) kv8.land(ks, vs);
   }
 };
 
@@ -229,10 +238,14 @@ int launch_prefill(const void* q, const void* kp, const void* vp, const void* ks
   switch (D * 1000 + page) {                                                \
     case 16 * 1000 + 16: return FN<16, 16, KV8>(__VA_ARGS__);               \
     case 16 * 1000 + 128: return FN<16, 128, KV8>(__VA_ARGS__);             \
+    case 32 * 1000 + 16: return FN<32, 16, KV8>(__VA_ARGS__);               \
+    case 32 * 1000 + 128: return FN<32, 128, KV8>(__VA_ARGS__);             \
     case 64 * 1000 + 16: return FN<64, 16, KV8>(__VA_ARGS__);               \
     case 64 * 1000 + 128: return FN<64, 128, KV8>(__VA_ARGS__);             \
     case 128 * 1000 + 16: return FN<128, 16, KV8>(__VA_ARGS__);             \
     case 128 * 1000 + 128: return FN<128, 128, KV8>(__VA_ARGS__);           \
+    case 256 * 1000 + 16: return FN<256, 16, KV8>(__VA_ARGS__);             \
+    case 256 * 1000 + 128: return FN<256, 128, KV8>(__VA_ARGS__);           \
     default: return (int)cudaErrorInvalidValue;                             \
   }
 
@@ -276,8 +289,8 @@ int prefill(const void* q, const void* kp, const void* vp, const void* ksp, cons
 }  // namespace
 
 // q [B, 1, Hq, D], o [B, 1, Hq, D], k/v pages [P, page, Hkv, D]: contiguous bf16 on the
-// device; table [B, maxp] and lengths [B] int32 on the device. D in {16, 64, 128}, page
-// in {16, 128}, Hq / Hkv <= 8. `part` holds B * Hq * splits * (D + 2) floats of scratch
+// device; table [B, maxp] and lengths [B] int32 on the device. D in {16, 32, 64, 128, 256},
+// page in {16, 128}, Hq / Hkv <= 8. `part` holds B * Hq * splits * (D + 2) floats of scratch
 // on the device; the positions [0, maxp * page) are cut into `splits` ranges of `kps`
 // keys (a multiple of 64; the last range reaches the end). Returns a cudaError_t value:
 // nonzero when the arguments are refused or a launch failed.
@@ -306,7 +319,7 @@ extern "C" int xot_paged_decode_attention_kv8(const void* q, const void* kp, con
 
 // q [B, T, Hq, D], o [B, T, Hq, D], k/v pages [P, page, Hkv, D]: contiguous bf16 on the
 // device; table [B, maxp] and kv_valid [B] int32 on the device (query t of row b sits
-// at kv_valid[b] - T + t). D in {16, 64, 128}, page in {16, 128}, Hq / Hkv <= 8;
+// at kv_valid[b] - T + t). D in {16, 32, 64, 128, 256}, page in {16, 128}, Hq / Hkv <= 8;
 // block_q, the query rows a block (positions x groups flattened), is 64. Returns a
 // cudaError_t value.
 extern "C" int xot_paged_prefill_attention_bf16(const void* q, const void* kp, const void* vp,

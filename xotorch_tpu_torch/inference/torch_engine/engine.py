@@ -2,9 +2,12 @@
 
 The port of the single-shard subset of xotorch_tpu/inference/jax_engine/engine.py:
 
-- `ensure_shard` loads a shard (synthetic cards: random weights from a seed),
-  quantized on the device under `quantize=` / XOT_QUANTIZE (int8 or int4): decode
-  projections then run the quantized GEMV kernels K5, K5v4 and K6
+- `ensure_shard` loads a shard: a dense card's HF safetensors checkpoint from the
+  directory its downloader gives (models/weights.load_shard_params, straight to the
+  device), with the tokenizer of that directory, or the DummyTokenizer and the
+  config's eos where none can be built; a synthetic card's random weights from a
+  seed. Weights are quantized on the device under `quantize=` / XOT_QUANTIZE (int8 or
+  int4): decode projections then run the quantized GEMV kernels K5, K5v4 and K6
   (models/transformer._linear);
 - `infer_sample_tensor` prefills in XOT_PREFILL_CHUNK segments, each padded to a
   power-of-two bucket, and samples the first token on the device. On a contiguous
@@ -39,6 +42,7 @@ import time
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
+from pathlib import Path
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
 import numpy as np
@@ -46,17 +50,18 @@ import torch
 
 from xotorch_tpu_torch.inference.engine import CacheExhausted, InferenceEngine, RequestStateLost
 from xotorch_tpu_torch.inference.shard import Shard
-from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer
+from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer, tokenizer_for_dir
 from xotorch_tpu_torch.inference.torch_engine import vkv
 from xotorch_tpu_torch.inference.torch_engine.paged_cache import PagePool, commit_pages, migrate_pages
 from xotorch_tpu_torch.inference.torch_engine.vkv import VirtualKV
-from xotorch_tpu_torch.models.config import ModelConfig, config_from_hf_dict
+from xotorch_tpu_torch.models.config import ModelConfig, config_from_hf_dict, load_model_config
 from xotorch_tpu_torch.models.generate import (decode_chunk, decode_chunk_batched, decode_chunk_paged,
                                                forward_sample)
 from xotorch_tpu_torch.models.quantize import QUANT_DTYPES, quantize_params
 from xotorch_tpu_torch.models.registry import get_model_card
 from xotorch_tpu_torch.models.transformer import (forward_shard, init_kv_cache, init_random_params,
                                                   quant_route)
+from xotorch_tpu_torch.models.weights import load_shard_params
 from xotorch_tpu_torch.ops import flash_attention, flash_decode, paged_attention
 from xotorch_tpu_torch.ops.sampling import DEFAULT_TEMP, DEFAULT_TOP_K, sample_logits
 from xotorch_tpu_torch.utils import knobs
@@ -102,6 +107,7 @@ class _ShardContext:
   states: "OrderedDict[str, _RequestState]"
   batcher: Optional["_DecodeBatcher"] = None
   page_pool: Optional[PagePool] = None
+  model_dir: Optional[Path] = None  # the checkpoint's directory; None for synthetic cards
 
 
 class _Pending(NamedTuple):
@@ -283,35 +289,46 @@ class TorchShardInferenceEngine(InferenceEngine):
     async with self._shard_lock:
       if self._ctx is None or self._ctx.shard != shard:
         self._ctx = None  # drop the previous model before loading the next
-        self._ctx = await self._run(self._load_shard, shard)
+        card = get_model_card(shard.model_id) or {}
+        model_dir = None
+        if card.get("synthetic_config") is None:
+          if self.shard_downloader is None:
+            raise ValueError(f"{shard.model_id}: a checkpoint needs a shard downloader")
+          model_dir = Path(await self.shard_downloader.ensure_shard(shard, type(self).__name__))
+        ctx = await self._run(self._load_shard, shard, model_dir)
+        if model_dir is not None:
+          ctx.tokenizer = await tokenizer_for_dir(model_dir)
+        self._ctx = ctx
     return self._ctx
 
-  def _load_shard(self, shard: Shard) -> _ShardContext:
-    card = get_model_card(shard.model_id) or {}
-    synthetic_cfg = card.get("synthetic_config")
-    if synthetic_cfg is None:
-      raise NotImplementedError(
-        f"{shard.model_id}: only synthetic cards load in xotorch_tpu_torch so far "
-        "(safetensors loading is a later slice)")
-    cfg = config_from_hf_dict(synthetic_cfg)
+  def _load_shard(self, shard: Shard, model_dir: Optional[Path]) -> _ShardContext:
+    """The shard's config and weights on the device: from the checkpoint in
+    `model_dir`, or a synthetic card's random weights when it is None."""
+    if model_dir is None:
+      cfg = config_from_hf_dict(get_model_card(shard.model_id)["synthetic_config"])
+    else:
+      cfg = load_model_config(model_dir)
     self._check_kernel_shapes(shard.model_id, cfg)
-    params = init_random_params(cfg, shard.get_layer_count(), shard.is_first_layer,
-                                shard.is_last_layer, seed=0, dtype=self.dtype,
-                                device=self.device, start_layer=shard.start_layer)
+    if model_dir is None:
+      params = init_random_params(cfg, shard.get_layer_count(), shard.is_first_layer,
+                                  shard.is_last_layer, seed=0, dtype=self.dtype,
+                                  device=self.device, start_layer=shard.start_layer)
+    else:
+      params = load_shard_params(model_dir, cfg, shard, dtype=self.dtype, device=self.device)
     if self.quantize:
       params = quantize_params(params, self.quantize, scale_dtype=self.dtype, inplace=True)
     cache_len = min(self._configured_cache_len, cfg.max_seq_len)
     max_cache_len = max(cache_len, min(self._configured_max_cache_len, cfg.max_seq_len))
-    tokenizer = DummyTokenizer()
+    tokenizer = DummyTokenizer()  # a checkpoint's own replaces it (_ensure_ctx)
     if cfg.eos_token_ids:
       tokenizer.eos_token_id = cfg.eos_token_ids[0]
     if DEBUG >= 1:
-      print(f"torch engine ready for {shard} on {self.device} "
+      print(f"torch engine ready for {shard} on {self.device} from {model_dir or 'a seed'} "
             f"(dtype={self.dtype}, quantize={self.quantize}, kv_quant={self.kv_quant}, "
             f"cache_len={cache_len}, paged={self.paged})")
     return _ShardContext(shard=shard, cfg=cfg, params=params, cache_len=cache_len,
                          max_cache_len=max_cache_len, tokenizer=tokenizer,
-                         states=OrderedDict())
+                         states=OrderedDict(), model_dir=model_dir)
 
   def _check_kernel_shapes(self, model_id: str, cfg: ModelConfig) -> None:
     """Refuse, when a shard is loaded, a model whose attention shapes the kernels are not
@@ -678,10 +695,10 @@ class TorchShardInferenceEngine(InferenceEngine):
       state.pages = None
 
   def _vkv_window_release(self, ctx: _ShardContext, state: _RequestState) -> None:
-    """Sliding-window page reclamation: once every layer of the shard is windowed,
-    pages wholly behind the widest window can never be read again; their slots go to
-    the scratch page and the pages back to the pool. (No config the port serves yet
-    has a window: check_supported refuses them.)"""
+    """Sliding-window page reclamation: once every layer of the shard is windowed
+    (mistral with a window; not gemma2, whose global layers read every page), pages
+    wholly behind the widest window can never be read again; their slots go to the
+    scratch page and the pages back to the pool."""
     w = vkv.freeable_window(ctx.cfg, ctx.shard.start_layer, ctx.shard.get_layer_count())
     if w <= 0:
       return

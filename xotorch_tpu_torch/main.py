@@ -5,6 +5,13 @@ one completion.
     python -m xotorch_tpu_torch.main run synthetic-llama-1b --prompt "..."
     python -m xotorch_tpu_torch.main --quantize int4   # or int8: quantized weights
     python -m xotorch_tpu_torch.main --kv-quantize int8  # int8 KV cache
+    python -m xotorch_tpu_torch.main run gemma2-2b --models-seed-dir /data/seed
+
+A card other than a synthetic one serves the HF checkpoint in
+`XOT_HOME/models/<org>--<name>` (XOT_HOME defaults to `~/.xot_tpu`; `--models-seed-dir`
+moves prepared directories there first). Fetching a checkpoint over the network is
+not ported yet: the directory must hold config.json, a tokenizer file and the
+safetensors files of the peer's layers.
 
 The names and defaults follow xotorch_tpu/main.py. A peer finds the others by UDP
 broadcast (`--discovery-module udp`, the default) or from a JSON file
@@ -33,8 +40,8 @@ import uuid
 
 from xotorch_tpu_torch import VERSION
 from xotorch_tpu_torch.api.chatgpt_api import ChatGPTAPI
+from xotorch_tpu_torch.download.hf_shard_download import HFShardDownloader, seed_models
 from xotorch_tpu_torch.inference.engine import get_inference_engine
-from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer
 from xotorch_tpu_torch.models.registry import build_base_shard
 from xotorch_tpu_torch.networking.tcp import TCPPeerHandle, TCPServer
 from xotorch_tpu_torch.orchestration.node import Node
@@ -68,6 +75,8 @@ def build_parser() -> argparse.ArgumentParser:
   parser.add_argument("--system-prompt", type=str, default=None)
   parser.add_argument("--default-model", type=str, default=None)
   parser.add_argument("--prompt", type=str, default="Who are you?")
+  parser.add_argument("--models-seed-dir", type=str, default=None,
+                      help="move the model dirs in this directory into XOT_HOME/models first")
   parser.add_argument("--quantize", type=str, default=None, choices=["int8", "int4"],
                       help="weight-only quantization of the served model (as XOT_QUANTIZE)")
   parser.add_argument("--kv-quantize", type=str, default=None, choices=["int8"],
@@ -78,7 +87,7 @@ def build_parser() -> argparse.ArgumentParser:
 def build_node(args) -> tuple:
   """Engine, node (with its TCP server and discovery, not started) and API for `args`;
   the engine raises here when the device is missing."""
-  engine = get_inference_engine(args.inference_engine, device=args.device,
+  engine = get_inference_engine(args.inference_engine, HFShardDownloader(), device=args.device,
                                 quantize=getattr(args, "quantize", None),
                                 kv_quant=getattr(args, "kv_quantize", None))
   engine_classname = type(engine).__name__
@@ -127,7 +136,7 @@ async def run_model_cli(node: Node, engine_classname: str, model_name: str, prom
   if error is not None:
     raise SystemExit(f"Error: {error}")
   tokens = out["tokens"]
-  print(DummyTokenizer().decode(tokens) if model_name.startswith("synthetic") else tokens)
+  print(node.inference_engine.tokenizer.decode(tokens))
   print(f"\n[{len(tokens)} tokens in {elapsed:.1f}s = {len(tokens) / max(elapsed, 1e-9):.1f} tok/s]",
         file=sys.stderr)
   return tokens
@@ -146,6 +155,10 @@ def wire_counts(node: Node) -> dict:
 
 
 async def async_main(args) -> None:
+  if args.models_seed_dir:
+    # Before anything resolves a model, so that ensure_shard's offline fast path and
+    # the tokenizer find the seeded dirs.
+    await seed_models(args.models_seed_dir)
   node, engine, engine_classname, api = build_node(args)
   main_task = asyncio.current_task()
   loop = asyncio.get_running_loop()

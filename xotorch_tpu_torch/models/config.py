@@ -1,11 +1,14 @@
 """Model configuration: HF config.json -> a static, hashable ModelConfig.
 
 The port's copy of xotorch_tpu/models/config.py (ModelConfig, RopeScaling,
-config_from_hf_dict), so both packages read a checkpoint's config the same way.
+config_from_hf_dict, load_model_config), so both packages read a checkpoint's config
+the same way.
 """
 from __future__ import annotations
 
-from dataclasses import dataclass
+import json
+from dataclasses import dataclass, replace
+from pathlib import Path
 from typing import Optional, Tuple
 
 
@@ -197,3 +200,14 @@ def config_from_hf_dict(cfg: dict) -> ModelConfig:
     projector_hidden_act=projector_hidden_act,
   )
 
+
+def load_model_config(model_dir: Path, max_seq_len_override: Optional[int] = None) -> ModelConfig:
+  """Read config.json from a local model dir; `max_seq_len_override`, else
+  XOT_MAX_SEQ_LEN, caps the model's maximum sequence length."""
+  with open(Path(model_dir) / "config.json") as f:
+    cfg = config_from_hf_dict(json.load(f))
+  from xotorch_tpu_torch.utils import knobs
+  override = max_seq_len_override or knobs.get_int("XOT_MAX_SEQ_LEN", None)
+  if override:
+    cfg = replace(cfg, max_seq_len=min(cfg.max_seq_len, override))
+  return cfg

@@ -1,9 +1,11 @@
 """Model registry: short name -> layer count + repo per engine classname.
 
-The port's subset of xotorch_tpu/models/registry.py: the llama cards and the
-synthetic cards, keyed by the port's engine classname. Synthetic cards carry their
-config and get random weights from a seed; the others need safetensors loading,
-which the port does not have yet.
+The port's subset of xotorch_tpu/models/registry.py, keyed by the port's engine
+classname: the dense cards (llama, mistral, the deepseek-r1 distills, qwen 2.5,
+qwen-3-32b, gemma2, nemotron, phi-4-mini) and the synthetic cards. A dense card's
+checkpoint is read from XOT_HOME/models/<org>--<name> (download/hf_shard_download.py);
+synthetic cards carry their config and get random weights from a seed. The MoE and
+vision cards (qwen-3-30b-a3b, llava-1.5-7b-hf) wait until MoE and vision are ported.
 """
 from __future__ import annotations
 
@@ -23,6 +25,41 @@ model_cards: Dict[str, Dict] = {
   "llama-3.1-405b": {"layers": 126, "repo": {TORCH: "mlx-community/Meta-Llama-3.1-405B-bf16"}},
   "llama-3-8b": {"layers": 32, "repo": {TORCH: "mlx-community/Meta-Llama-3-8B-Instruct-bf16"}},
   "llama-3-70b": {"layers": 80, "repo": {TORCH: "mlx-community/Meta-Llama-3-70B-Instruct-bf16"}},
+  ### mistral
+  "mistral-nemo": {"layers": 40, "repo": {TORCH: "unsloth/Mistral-Nemo-Instruct-2407"}},
+  "mistral-large": {"layers": 88, "repo": {TORCH: "mistralai/Mistral-Large-Instruct-2407"}},
+  ### deepseek r1 distills
+  "deepseek-r1-distill-qwen-1.5b": {"layers": 28, "repo": {TORCH: "deepseek-ai/DeepSeek-R1-Distill-Qwen-1.5B"}},
+  "deepseek-r1-distill-qwen-7b": {"layers": 28, "repo": {TORCH: "deepseek-ai/DeepSeek-R1-Distill-Qwen-7B"}},
+  "deepseek-r1-distill-qwen-14b": {"layers": 48, "repo": {TORCH: "deepseek-ai/DeepSeek-R1-Distill-Qwen-14B"}},
+  "deepseek-r1-distill-qwen-32b": {"layers": 64, "repo": {TORCH: "deepseek-ai/DeepSeek-R1-Distill-Qwen-32B"}},
+  "deepseek-r1-distill-llama-8b": {"layers": 32, "repo": {TORCH: "deepseek-ai/DeepSeek-R1-Distill-Llama-8B"}},
+  "deepseek-r1-distill-llama-70b": {"layers": 80, "repo": {TORCH: "deepseek-ai/DeepSeek-R1-Distill-Llama-70B"}},
+  ### qwen 2.5
+  "qwen-2.5-0.5b": {"layers": 24, "repo": {TORCH: "Qwen/Qwen2.5-0.5B-Instruct"}},
+  "qwen-2.5-1.5b": {"layers": 28, "repo": {TORCH: "Qwen/Qwen2.5-1.5B-Instruct"}},
+  "qwen-2.5-coder-1.5b": {"layers": 28, "repo": {TORCH: "Qwen/Qwen2.5-Coder-1.5B-Instruct"}},
+  "qwen-2.5-3b": {"layers": 36, "repo": {TORCH: "Qwen/Qwen2.5-3B-Instruct"}},
+  "qwen-2.5-coder-3b": {"layers": 36, "repo": {TORCH: "Qwen/Qwen2.5-Coder-3B-Instruct"}},
+  "qwen-2.5-7b": {"layers": 28, "repo": {TORCH: "Qwen/Qwen2.5-7B-Instruct"}},
+  "qwen-2.5-coder-7b": {"layers": 28, "repo": {TORCH: "Qwen/Qwen2.5-Coder-7B-Instruct"}},
+  "qwen-2.5-math-7b": {"layers": 28, "repo": {TORCH: "Qwen/Qwen2.5-Math-7B-Instruct"}},
+  "qwen-2.5-14b": {"layers": 48, "repo": {TORCH: "Qwen/Qwen2.5-14B-Instruct"}},
+  "qwen-2.5-coder-14b": {"layers": 48, "repo": {TORCH: "Qwen/Qwen2.5-Coder-14B-Instruct"}},
+  "qwen-2.5-32b": {"layers": 64, "repo": {TORCH: "Qwen/Qwen2.5-32B-Instruct"}},
+  "qwen-2.5-coder-32b": {"layers": 64, "repo": {TORCH: "Qwen/Qwen2.5-Coder-32B-Instruct"}},
+  "qwen-2.5-72b": {"layers": 80, "repo": {TORCH: "Qwen/Qwen2.5-72B-Instruct"}},
+  "qwen-2.5-math-72b": {"layers": 80, "repo": {TORCH: "Qwen/Qwen2.5-Math-72B-Instruct"}},
+  ### qwen 3 (dense; the MoE card waits for MoE)
+  "qwen-3-32b": {"layers": 64, "repo": {TORCH: "Qwen/Qwen3-32B"}},
+  ### gemma 2 (sandwich norms, alternating sliding window, soft-capped logits)
+  "gemma2-2b": {"layers": 26, "repo": {TORCH: "google/gemma-2-2b-it"}},
+  "gemma2-9b": {"layers": 42, "repo": {TORCH: "google/gemma-2-9b-it"}},
+  "gemma2-27b": {"layers": 46, "repo": {TORCH: "google/gemma-2-27b-it"}},
+  ### nemotron
+  "nemotron-70b": {"layers": 80, "repo": {TORCH: "nvidia/Llama-3.1-Nemotron-70B-Instruct-HF"}},
+  ### phi
+  "phi-4-mini": {"layers": 32, "repo": {TORCH: "microsoft/Phi-4-mini-instruct"}},
   ### synthetic (random weights from a seed, no download;
   ### shapes match the corresponding real models)
   "synthetic-llama-1b": {
@@ -63,8 +100,7 @@ model_cards: Dict[str, Dict] = {
       "norm_topk_prob": True,
     },
   },
-  # Gemma2 architecture knobs (sandwich norms, soft-caps, alternating sliding
-  # window): the port's model raises NotImplementedError for them until that slice.
+  # Gemma2 architecture knobs (sandwich norms, soft-caps, alternating sliding window).
   "synthetic-tiny-gemma2": {
     "layers": 4, "repo": {TORCH: "synthetic"},
     "synthetic_config": {

@@ -1,6 +1,10 @@
 """The shard transformer: plain functions over a stacked-layer parameter dictionary.
 
-The port of the dense-llama path of xotorch_tpu/models/transformer.py. Parameters
+The port of the dense path of xotorch_tpu/models/transformer.py: llama, qwen2 (q/k/v
+biases), qwen3 (qk-norm), mistral (sliding windows), phi3 and gemma2 (the (1 + w)
+norm, sandwich post-norms, gelu-tanh, the sqrt(hidden) embedding scale,
+`query_pre_attn_scalar`, attention and final-logit softcaps, windows that alternate
+by absolute layer index). Parameters
 keep the JAX package's layout (`params["layers"][name]` stacked along a leading layer
 axis, weights [in, out]) so the two packages' tensors map one to one
 (models/weights.params_from_jax). The KV cache is a [L, B, S, Hkv, D] buffer per
@@ -18,9 +22,10 @@ steps through K3/K3q and prefill segments through K4/K4q (ops/paged_attention.py
 The plain `gqa_attention` path runs only on the CPU.
 Weight-quantized slots (models/quantize.py) go through `_linear`: decode-sized
 projections through the GEMV kernels K5, K5v4 and K6 (ops/int4_matmul.py,
-ops/int8_matmul.py), prefill through the dequantized product. Config
-flags this slice does not implement raise NotImplementedError instead of returning a
-wrong answer.
+ops/int8_matmul.py), prefill through the dequantized product. Each layer's window
+(`cfg.layer_window` of its absolute index), the softcap and the score scale reach
+every attention call. MoE, vision and LoRA slots raise NotImplementedError instead
+of returning a wrong answer.
 """
 from __future__ import annotations
 
@@ -44,21 +49,15 @@ from xotorch_tpu_torch.utils import knobs
 Params = Dict[str, Any]
 
 
+ACTIVATIONS = ("silu", "gelu_pytorch_tanh")
+
+
 def check_supported(cfg: ModelConfig) -> None:
   """Raise for config features the port's model does not implement yet."""
   unsupported = {
     "MoE": cfg.is_moe,
-    "sandwich norms": cfg.sandwich_norms,
-    "qk-norm": cfg.qk_norm,
-    "attention bias": cfg.attention_bias,
-    "sliding windows": cfg.uses_sliding_window,
-    "attention softcap": bool(cfg.attn_logit_softcap),
-    "final logit softcap": bool(cfg.final_logit_softcap),
-    "query_pre_attn_scalar": bool(cfg.query_pre_attn_scalar),
-    "norm offset": cfg.norm_offset,
-    "embedding scale": cfg.scale_embedding,
     "vision": cfg.is_multimodal,
-    f"activation {cfg.hidden_act}": cfg.hidden_act != "silu",
+    f"activation {cfg.hidden_act}": cfg.hidden_act not in ACTIVATIONS,
   }
   missing = [name for name, used in unsupported.items() if used]
   if missing:
@@ -123,13 +122,21 @@ def _linear(layer: Params, slot: str, h: torch.Tensor, route: QuantRoute) -> tor
   return (h @ w.to(h.dtype)) * scale.to(h.dtype)
 
 
-def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float) -> torch.Tensor:
+def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
+             offset: bool = False) -> torch.Tensor:
+  """offset=True is the gemma convention: weights are stored zero-centred and the
+  norm multiplies by (1 + w), all in fp32."""
   x32 = x.to(torch.float32)
   norm = x32 * torch.rsqrt(torch.mean(x32 * x32, dim=-1, keepdim=True) + eps)
-  return (norm * weight.to(torch.float32)).to(x.dtype)
+  w32 = weight.to(torch.float32)
+  if offset:
+    w32 = 1.0 + w32
+  return (norm * w32).to(x.dtype)
 
 
 def _mlp_act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
+  if cfg.hidden_act == "gelu_pytorch_tanh":
+    return F.gelu(x, approximate="tanh")
   return F.silu(x)
 
 
@@ -200,15 +207,30 @@ def _attention_block(layer: Params, x: torch.Tensor, cache: Dict[str, torch.Tens
                      start_pos: Union[int, torch.Tensor], q_start: torch.Tensor, cfg: ModelConfig,
                      inv_freq: torch.Tensor, use_flash: bool, use_flash_decode: bool,
                      route: QuantRoute, page_table: Optional[torch.Tensor] = None,
-                     slots: Any = None) -> torch.Tensor:
+                     slots: Any = None, window: int = 0) -> torch.Tensor:
+  """The attention half of a layer: the residual branch's output (after the sandwich
+  post-norm where the config has one). `window` is this layer's (0 = global)."""
   B, T, _ = x.shape
-  h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps)
-  q = _linear(layer, "wq", h, route).reshape(B, T, cfg.num_heads, cfg.head_dim)
-  k = _linear(layer, "wk", h, route).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
-  v = _linear(layer, "wv", h, route).reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+  h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps, cfg.norm_offset)
+  q = _linear(layer, "wq", h, route)
+  k = _linear(layer, "wk", h, route)
+  v = _linear(layer, "wv", h, route)
+  if "bq" in layer:
+    q = q + layer["bq"]
+    k = k + layer["bk"]
+    v = v + layer["bv"]
+  q = q.reshape(B, T, cfg.num_heads, cfg.head_dim)
+  k = k.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+  v = v.reshape(B, T, cfg.num_kv_heads, cfg.head_dim)
+  if cfg.qk_norm:
+    q = rms_norm(q, layer["q_norm"], cfg.rms_norm_eps, cfg.norm_offset)
+    k = rms_norm(k, layer["k_norm"], cfg.rms_norm_eps, cfg.norm_offset)
   q = apply_rope(q, positions, inv_freq)
   k = apply_rope(k, positions, inv_freq)
   scales = {name: cache[name][layer_idx] for name in ("k_scale", "v_scale") if name in cache}
+  # The gemma family's score adjustments; 0 / None (1 / sqrt(D)) for the others.
+  adj = dict(window=window, softcap=cfg.attn_logit_softcap,
+             scale=cfg.query_pre_attn_scalar ** -0.5 if cfg.query_pre_attn_scalar else None)
   if page_table is not None:
     # Paged KV: `cache` is the shared page arena. Position p of row b lands at
     # (table[b, p // page], p % page) (`slots`), in the payload pages and, for an
@@ -222,29 +244,40 @@ def _attention_block(layer: Params, x: torch.Tensor, cache: Dict[str, torch.Tens
     ks, vs = scales.get("k_scale"), scales.get("v_scale")
     if T == 1:
       attn = paged_decode_attention(q, k_pages, v_pages, page_table, kv_valid_len,
-                                    k_scale_pages=ks, v_scale_pages=vs)
+                                    k_scale_pages=ks, v_scale_pages=vs, **adj)
     else:
       attn = paged_prefill_attention(q, k_pages, v_pages, page_table, kv_valid_len,
-                                     k_scale_pages=ks, v_scale_pages=vs)
-    return _linear(layer, "wo", attn.reshape(B, T, cfg.num_heads * cfg.head_dim), route)
+                                     k_scale_pages=ks, v_scale_pages=vs, **adj)
+    return _attention_out(layer, attn, cfg, route)
   _cache_write(cache, layer_idx, k, v, start_pos, slots)
   if use_flash:
     # Prefill from position 0: the fresh segment is the whole visible context, so
     # the kernel attends over the fresh k/v and never reads the cache (an int8
     # cache included).
-    attn = flash_attention(q, k.contiguous(), v.contiguous())
+    attn = flash_attention(q, k.contiguous(), v.contiguous(), **adj)
   elif use_flash_decode:
     # Decode steps and segments at pos > 0: the cache up to each row's last
     # visible position; an int8 cache passes its raw codes and scales (K2q).
     attn = flash_cached_attention(q, cache["k"][layer_idx], cache["v"][layer_idx], q_start,
-                                  k_scale=scales.get("k_scale"), v_scale=scales.get("v_scale"))
+                                  k_scale=scales.get("k_scale"), v_scale=scales.get("v_scale"),
+                                  **adj)
   elif x.device.type == "cpu":
     k_all, v_all = _cache_read(cache, layer_idx, q.dtype)
-    attn = gqa_attention(q, k_all, v_all, positions, kv_valid_len)
+    attn = gqa_attention(q, k_all, v_all, positions, kv_valid_len, **adj)
   else:
     raise ValueError("attention on the card goes through a kernel: pass use_flash "
                      "(prefill from 0) or use_flash_decode")
-  return _linear(layer, "wo", attn.reshape(B, T, cfg.num_heads * cfg.head_dim), route)
+  return _attention_out(layer, attn, cfg, route)
+
+
+def _attention_out(layer: Params, attn: torch.Tensor, cfg: ModelConfig,
+                   route: QuantRoute) -> torch.Tensor:
+  """The output projection of attention [B, T, Hq, D], then the sandwich post-norm."""
+  B, T = attn.shape[0], attn.shape[1]
+  out = _linear(layer, "wo", attn.reshape(B, T, cfg.num_heads * cfg.head_dim), route)
+  if cfg.sandwich_norms:
+    out = rms_norm(out, layer["post_attn_norm"], cfg.rms_norm_eps, cfg.norm_offset)
+  return out
 
 
 def _page_slots(page_table: torch.Tensor, positions: torch.Tensor, page: int):
@@ -286,7 +319,7 @@ def forward_shard(
   check_supported(cfg)
   if use_flash and not (isinstance(start_pos, int) and start_pos == 0):
     raise ValueError("use_flash serves a prefill from position 0 only")
-  h = embed(params, x) if is_first else x
+  h = embed(params, x, cfg) if is_first else x
   B, T = h.shape[0], h.shape[1]
   device = h.device
   steps = torch.arange(T, device=device)
@@ -310,19 +343,30 @@ def forward_shard(
     route = quant_route(device.type == "cuda")
   stacked = params["layers"]
   _check_params(stacked)
-  for i in range(stacked["wq"].shape[0]):
+  L = stacked["wq"].shape[0]
+  # Which layers slide is a property of the absolute layer index (gemma2 alternates),
+  # so a shard that starts mid-model windows by start_layer + i; 0 = global.
+  windows = ([cfg.layer_window(start_layer + i) for i in range(L)] if cfg.uses_sliding_window
+             else [0] * L)
+  for i in range(L):
     layer = {name: w[i] for name, w in stacked.items()}
     h = h + _attention_block(layer, h, cache, i, positions, kv_valid_len, start_pos, q_start,
-                             cfg, inv_freq, use_flash, use_flash_decode, route, page_table, slots)
-    h = h + _dense_mlp(layer, rms_norm(h, layer["mlp_norm"], cfg.rms_norm_eps), cfg, route)
+                             cfg, inv_freq, use_flash, use_flash_decode, route, page_table, slots,
+                             windows[i])
+    mlp_out = _dense_mlp(layer, rms_norm(h, layer["mlp_norm"], cfg.rms_norm_eps, cfg.norm_offset),
+                         cfg, route)
+    if cfg.sandwich_norms:
+      mlp_out = rms_norm(mlp_out, layer["post_mlp_norm"], cfg.rms_norm_eps, cfg.norm_offset)
+    h = h + mlp_out
   if not is_last:
     return h, cache
   return unembed(params, h, cfg), cache
 
 
 def unembed(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-  """Final norm + (tied-embedding or lm_head) unembedding -> fp32 logits."""
-  h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps)
+  """Final norm + (tied-embedding or lm_head) unembedding -> fp32 logits, soft-capped
+  in fp32 where the config says so."""
+  h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps, cfg.norm_offset)
   if cfg.tie_word_embeddings and "lm_head" not in params:
     emb = params["embed"]["embedding"]
     row_scale = params["embed"].get("embedding_scale")
@@ -337,17 +381,26 @@ def unembed(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
       logits = h @ params["lm_head"]
     else:
       logits = (h @ params["lm_head"].to(h.dtype)) * head_scale.to(h.dtype)[None, None, :]
-  return logits.to(torch.float32)
+  logits = logits.to(torch.float32)
+  if cfg.final_logit_softcap:
+    cap = float(cfg.final_logit_softcap)
+    logits = torch.tanh(logits / cap) * cap
+  return logits
 
 
-def embed(params: Params, x: torch.Tensor) -> torch.Tensor:
+def embed(params: Params, x: torch.Tensor, cfg: Optional[ModelConfig] = None) -> torch.Tensor:
   """Token rows of the embedding; an int8 table rescales each looked-up row by its
-  own scale, in the scale's (compute) dtype."""
+  own scale, in the scale's (compute) dtype. Gemma scales the rows by sqrt(hidden),
+  the factor rounded to the rows' dtype first, as HF does."""
   emb = params["embed"]["embedding"]
   row_scale = params["embed"].get("embedding_scale")
   if row_scale is None:
-    return emb[x]
-  return emb[x].to(row_scale.dtype) * row_scale[x][..., None]
+    h = emb[x]
+  else:
+    h = emb[x].to(row_scale.dtype) * row_scale[x][..., None]
+  if cfg is not None and cfg.scale_embedding:
+    h = h * torch.tensor(cfg.hidden_size ** 0.5, dtype=h.dtype, device=h.device)
+  return h
 
 
 def init_random_params(
@@ -370,10 +423,13 @@ def init_random_params(
     w = torch.randn(shape, generator=g, device=device, dtype=torch.float32) * scale
     return w.to(dtype)
 
+  # Norm weights as JAX initialises them: zeros under the gemma (1 + w) offset.
+  norm_init = torch.zeros if cfg.norm_offset else torch.ones
+
   def layer_params(a: int) -> Params:
-    return {
-      "attn_norm": torch.ones(H, dtype=dtype, device=device),
-      "mlp_norm": torch.ones(H, dtype=dtype, device=device),
+    p = {
+      "attn_norm": norm_init(H, dtype=dtype, device=device),
+      "mlp_norm": norm_init(H, dtype=dtype, device=device),
       "wq": rnd(a, 0, H, cfg.num_heads * D),
       "wk": rnd(a, 1, H, cfg.num_kv_heads * D),
       "wv": rnd(a, 2, H, cfg.num_kv_heads * D),
@@ -382,6 +438,17 @@ def init_random_params(
       "w_up": rnd(a, 5, H, I),
       "w_down": rnd(a, 6, I, H),
     }
+    if cfg.sandwich_norms:
+      p["post_attn_norm"] = norm_init(H, dtype=dtype, device=device)
+      p["post_mlp_norm"] = norm_init(H, dtype=dtype, device=device)
+    if cfg.attention_bias:
+      for n, width in (("bq", cfg.num_heads * D), ("bk", cfg.num_kv_heads * D),
+                       ("bv", cfg.num_kv_heads * D)):
+        p[n] = torch.zeros(width, dtype=dtype, device=device)
+    if cfg.qk_norm:
+      p["q_norm"] = torch.ones(D, dtype=dtype, device=device)
+      p["k_norm"] = torch.ones(D, dtype=dtype, device=device)
+    return p
 
   per_layer = [layer_params(start_layer + i) for i in range(num_local_layers)]
   params: Params = {"layers": {name: torch.stack([p[name] for p in per_layer])
@@ -390,7 +457,7 @@ def init_random_params(
   if is_first or cfg.tie_word_embeddings:
     params["embed"] = {"embedding": rnd(1_000_000, 0, cfg.vocab_size, H)}
   if is_last:
-    params["final_norm"] = torch.ones(H, dtype=dtype, device=device)
+    params["final_norm"] = norm_init(H, dtype=dtype, device=device)
     if not cfg.tie_word_embeddings:
       params["lm_head"] = rnd(1_000_001, 0, H, cfg.vocab_size)
   return params

@@ -6,7 +6,8 @@ The port of xotorch_tpu/ops/flash_attention.py (`_flash_kernel` and
 window, softcap and scale are runtime arguments, so one kernel serves global and
 sliding-window layers. `XOT_FLASH_BLOCK_Q` is the query rows a block holds (positions x
 query heads of one kv head) and `XOT_FLASH_BLOCK_K` the keys a shared-memory tile
-holds, each 64 or 128. `flash_attention_ref` beside it is the plain PyTorch version,
+holds, each 64 or 128; at head_dim 256 the kernel is built for one tile shape, 64 rows
+by 64 keys (`WIDE_BLOCKS`), which it takes whatever the knobs say. `flash_attention_ref` beside it is the plain PyTorch version,
 built on `gqa_attention`: the wrapper takes it only for tensors on the CPU.
 """
 from __future__ import annotations
@@ -20,8 +21,9 @@ from xotorch_tpu_torch.ops import _build
 from xotorch_tpu_torch.ops.attention import gqa_attention
 from xotorch_tpu_torch.utils import knobs
 
-HEAD_DIMS = (16, 32, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 BLOCKS = (64, 128)  # XOT_FLASH_BLOCK_Q (query rows a block) and XOT_FLASH_BLOCK_K (keys a tile)
+WIDE_BLOCKS = (64, 64)  # (query rows, keys) of the one head_dim 256 build
 
 
 def flash_attention_ref(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: int = 0,
@@ -62,7 +64,7 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: i
                        f"got {t.dtype} on {t.device}")
   if D not in HEAD_DIMS:
     raise ValueError(f"flash_attention: built for head_dim {HEAD_DIMS}, got {D}")
-  block_q, block_k = flash_blocks()
+  block_q, block_k = flash_blocks() if D <= 128 else WIDE_BLOCKS
   if q.device.type != "cuda":
     raise ValueError(f"flash_attention runs on cuda or cpu tensors, got {q.device}")
   scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
@@ -74,7 +76,10 @@ def flash_attention(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, window: i
     torch.cuda.current_stream(q.device).cuda_stream)
   _build.check(rc, f"flash_attention (B={B} T={T} Hq={Hq} D={D} block_q={block_q} block_k={block_k})")
   flash_attention.launches += 1
+  if window:
+    flash_attention.windowed_launches += 1  # K1w: the same kernel with a window
   return out
 
 
 flash_attention.launches = 0
+flash_attention.windowed_launches = 0

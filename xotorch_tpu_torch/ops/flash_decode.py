@@ -16,7 +16,8 @@ beside them, built on `gqa_attention`; the wrappers take it only for tensors on 
 CPU.
 
 Knobs: `XOT_FD_BLOCK_Q` is the query rows a segment block holds (positions x query
-heads of one kv head), 64 or 128; `XOT_FD_BLOCK_K` is the most keys one decode split
+heads of one kv head), 64 or 128 (at head_dim 256 the one build takes 64,
+`WIDE_BLOCK_Q`, whatever it says); `XOT_FD_BLOCK_K` is the most keys one decode split
 reads, a multiple of 64. `decode_blocks` reads and checks both.
 """
 from __future__ import annotations
@@ -32,8 +33,9 @@ from xotorch_tpu_torch.ops.attention import gqa_attention
 from xotorch_tpu_torch.utils import knobs
 
 MAX_GROUPS = 64  # q heads per kv head
-HEAD_DIMS = (16, 32, 64, 128)  # the kernels' instantiations
+HEAD_DIMS = (16, 32, 64, 128, 256)  # the kernels' instantiations
 ROW_BLOCKS = (64, 128)  # XOT_FD_BLOCK_Q: a segment block's query rows
+WIDE_BLOCK_Q = 64  # a segment block's query rows at head_dim 256
 SPLIT_TILE = 64  # keys a staged tile of the decode kernels; a split is whole tiles
 SPLIT_BLOCKS_PER_SM = 4  # decode blocks a split plan aims at for each SM
 
@@ -152,6 +154,8 @@ def flash_cached_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
   if D not in HEAD_DIMS:
     raise ValueError(f"{name}: built for head_dim {HEAD_DIMS}, got {D}")
   block_q, block_k = decode_blocks()
+  if D > 128:
+    block_q = WIDE_BLOCK_Q
   if q.device.type != "cuda":
     raise ValueError(f"{name} runs on cuda or cpu tensors, got {q.device}")
   scale = float(scale) if scale is not None else 1.0 / math.sqrt(D)
@@ -172,11 +176,15 @@ def flash_cached_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torc
                                              *rest)
   _build.check(rc, f"{name} (B={B} T={T} S={S} Hq={Hq} Hkv={Hkv} D={D} block_q={block_q} "
                    f"splits={splits} x {kps} keys)")
-  (flash_cached_attention_int8 if quant else flash_cached_attention).launches += 1
+  counted = flash_cached_attention_int8 if quant else flash_cached_attention
+  counted.launches += 1
+  if window:
+    counted.windowed_launches += 1  # K2w / K2qw: the same kernels with a window
   return out
 
 
 flash_cached_attention.launches = 0
+flash_cached_attention.windowed_launches = 0
 
 
 def flash_cached_attention_int8(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,
@@ -194,6 +202,7 @@ def flash_cached_attention_int8(q: torch.Tensor, k_cache: torch.Tensor, v_cache:
 
 
 flash_cached_attention_int8.launches = 0
+flash_cached_attention_int8.windowed_launches = 0
 
 
 def flash_decode_attention(q: torch.Tensor, k_cache: torch.Tensor, v_cache: torch.Tensor,

@@ -31,7 +31,7 @@ from xotorch_tpu_torch.ops import _build
 from xotorch_tpu_torch.ops.attention import gqa_attention
 from xotorch_tpu_torch.ops.flash_decode import _plan, check_kv_quant, dequantize_kv
 
-HEAD_DIMS = (16, 64, 128)
+HEAD_DIMS = (16, 32, 64, 128, 256)
 PAGE_SIZES = (16, 128)
 MAX_GROUPS = 8  # K3, K4: q heads per kv head one block holds
 ROWS = 64  # K4: query rows (positions x groups) a block, 4 warps of 16
@@ -160,11 +160,15 @@ def paged_decode_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torc
                                              *rest)
   _build.check(rc, f"{name} (B={B} maxp={maxp} P={P} page={page} Hq={Hq} Hkv={Hkv} D={D} "
                    f"splits={splits} x {kps} keys)")
-  (paged_decode_attention_int8 if quant else paged_decode_attention).launches += 1
+  counted = paged_decode_attention_int8 if quant else paged_decode_attention
+  counted.launches += 1
+  if window:
+    counted.windowed_launches += 1  # K3w: the same kernels with a window
   return out
 
 
 paged_decode_attention.launches = 0
+paged_decode_attention.windowed_launches = 0
 
 
 def paged_decode_attention_int8(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -182,6 +186,7 @@ def paged_decode_attention_int8(q: torch.Tensor, k_pages: torch.Tensor, v_pages:
 
 
 paged_decode_attention_int8.launches = 0
+paged_decode_attention_int8.windowed_launches = 0
 
 
 def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -224,11 +229,15 @@ def paged_prefill_attention(q: torch.Tensor, k_pages: torch.Tensor, v_pages: tor
                                               v_pages.data_ptr(), *rest)
   _build.check(rc, f"{name} (B={B} T={T} maxp={page_table.shape[1]} P={P} page={page} "
                    f"Hq={Hq} Hkv={Hkv} D={D})")
-  (paged_prefill_attention_int8 if quant else paged_prefill_attention).launches += 1
+  counted = paged_prefill_attention_int8 if quant else paged_prefill_attention
+  counted.launches += 1
+  if window:
+    counted.windowed_launches += 1  # K4w: the same kernels with a window
   return out
 
 
 paged_prefill_attention.launches = 0
+paged_prefill_attention.windowed_launches = 0
 
 
 def paged_prefill_attention_int8(q: torch.Tensor, k_pages: torch.Tensor, v_pages: torch.Tensor,
@@ -247,3 +256,4 @@ def paged_prefill_attention_int8(q: torch.Tensor, k_pages: torch.Tensor, v_pages
 
 
 paged_prefill_attention_int8.launches = 0
+paged_prefill_attention_int8.windowed_launches = 0

@@ -19,7 +19,7 @@ class UnknownKnobError(KeyError):
 @dataclass(frozen=True)
 class Knob:
   name: str
-  kind: str  # "int" | "float" | "bool" | "str"
+  kind: str  # "int" | "float" | "bool" | "str" | "path"
   default: Optional[str]  # env-string form; None = unset
   doc: str
 
@@ -31,9 +31,9 @@ _DEFS: Tuple[Knob, ...] = (
   Knob("XOT_PREFILL_CHUNK", "int", "4096", "Prefill chunk length (tokens): prompts longer than this prefill in chunks."),
   Knob("XOT_DECODE_CHUNK", "int", "8", "Tokens per fused decode dispatch on a single-partition ring; 1 = per-token ring."),
   Knob("XOT_DECODE_CHUNK_MAX", "int", "64", "Adaptive fused-decode chunk ceiling (doubles per dispatch up to this)."),
-  Knob("XOT_FLASH_BLOCK_Q", "int", "128", "K1's query rows a block (positions x query heads of one kv head): 64 or 128."),
-  Knob("XOT_FLASH_BLOCK_K", "int", "128", "K1's keys a shared-memory tile: 64 or 128."),
-  Knob("XOT_FD_BLOCK_Q", "int", "128", "K2/K2q's query rows a block on segments at T > 1 (positions x query heads of one kv head): 64 or 128."),
+  Knob("XOT_FLASH_BLOCK_Q", "int", "128", "K1's query rows a block (positions x query heads of one kv head): 64 or 128. At head_dim 256 K1 takes 64 whatever this says."),
+  Knob("XOT_FLASH_BLOCK_K", "int", "128", "K1's keys a shared-memory tile: 64 or 128. At head_dim 256 K1 takes 64 whatever this says."),
+  Knob("XOT_FD_BLOCK_Q", "int", "128", "K2/K2q's query rows a block on segments at T > 1 (positions x query heads of one kv head): 64 or 128. At head_dim 256 K2/K2q take 64 whatever this says."),
   Knob("XOT_FD_BLOCK_K", "int", "256", "The most keys one K2/K2q decode split reads (a CUDA block of split-K flash-decoding): a positive multiple of 64."),
   Knob("XOT_MAX_RESIDENT_REQUESTS", "int", "8", "Max request states resident per shard context before LRU eviction."),
   Knob("XOT_DECODE_BATCH", "int", "8", "Max concurrent requests fused into one batched decode dispatch."),
@@ -52,6 +52,9 @@ _DEFS: Tuple[Knob, ...] = (
   Knob("XOT_INT8_KERNEL", "str", "0", "W8A8 decode GEMV kernel (K6): `1` on the card, `0` off, `force` its function on the CPU too (plain version)."),
   Knob("XOT_HOP_RETRIES", "int", "2", "Retries per ring hop on transient transport failures; 0 = fail-fast."),
   Knob("XOT_HOP_BACKOFF_S", "float", "0.05", "Base backoff (s) for hop retries (exponential + jitter)."),
+  Knob("XOT_MAX_SEQ_LEN", "int", None, "Override the model's maximum sequence length (RoPE/table sizing)."),
+  Knob("XOT_HOME", "path", None, "Root directory for downloads and state; unset uses `~/.xot_tpu`."),
+  Knob("XOT_MODEL_DIR", "path", None, "Local directory of model checkpoints (offline serving)."),
   Knob("XOT_PROBE_TIMEOUT", "float", "120", "Timeout (s) for the device-capability probe; past it a node reports its host's capabilities."),
 )
 
