@@ -97,12 +97,32 @@ Phases, in order; any failure exits nonzero and prints no result line:
      step's); then the port's server started with --models-seed-dir (seeding XOT_HOME,
      then the downloader's offline fast path) serving gemma2-2b at full width and
      depth answers the main path's three requests and a 4100-word prompt (its prompt
-     and generation pass 4096 positions): K1 = 26 x fresh prefills, K2 = 26 x (decode
-     steps + segments at pos > 0), half of each windowed, TTFT and decode rate, a B=1
+     and generation pass 4096 positions): K1 = 26 x prefills from 0 outside the scan,
+     K2 = 26 x (decode steps + segments at pos > 0 + every scanned segment), half of
+     each windowed, TTFT and decode rate, a B=1
      decode chunk under the profiler; the same on a fresh server with XOT_PAGED_KV=1 (K4 = 26 x segments, K3 = 26 x decode
      steps, half windowed, 0 pages left) and the share of temperature-0 tokens the two
-     servers agree on; the checkpoint deleted at the end;
-  13. the {"kernels": [...]} line (attention launches include phase 12's), then the
+     servers agree on; the 4100-word prompt's four leading whole segments go through
+     one prefill_scan group (K2, or K4 paged), its last segment through
+     forward_sample; the checkpoint deleted at the end;
+  13. fused decode: every serving phase above decodes through CUDA-graph replays of one
+     captured step (models/graphs.py) and prefills a long prompt's leading whole
+     segments through captured prefill_scan groups; this phase holds those programs
+     against the eager body (models/generate) on synthetic-llama-1b at full width and
+     depth in the five decode formats (bf16, int4 K5, int4 K5v4, int8 K6, bf16 over an
+     int8 KV cache) and gemma-2-2b's shape in bf16: 64 graph-replayed steps give the
+     eager body's tokens and cache bit for bit at B=1 and B=8 (gemma B=1), contiguous
+     (K2/K2q) and paged (K3/K3q), at temperature 0, and with injected Gumbel noise (B=8
+     contiguous in every format, paged in bf16; gemma both), the kernels' counters
+     reading layers x steps (7 x layers x steps for a GEMV kernel) for the replays;
+     then eager against graph, 4 rounds in turn (contiguous B=1 and B=8 in every
+     format, paged in bf16, gemma B=1 both): wall ms, device ms and the idle share a
+     step, device kernels a step; two fresh graph caches with generators seeded alike
+     sampling the same tokens (another seed others); the slab copies' device time; the
+     captures, their seconds and the graph pool and slab bytes; a 4096-token prompt
+     through prefill_scan against the per-segment loop (hidden states within
+     PREFILL_REL_LIMIT) and the engine's TTFT with XOT_SCAN_PREFILL 1 and 0;
+  14. the {"kernels": [...]} line (attention launches include phase 12's), then the
      {"ok": true, ...} line last.
 """
 from __future__ import annotations
@@ -2489,8 +2509,9 @@ def drive_gemma(torch, card: str, device: str = "cuda") -> dict:
   of it against the CPU (check_gemma_model), then serves it through main.py's entry
   points: a server started with --models-seed-dir (the seeding path, then the
   downloader's offline fast path out of XOT_HOME) answers gemma_requests with K1's and
-  K2's counters read around them (K1 = 26 x fresh prefills, K2 = 26 x (decode steps +
-  segments at pos > 0), each half windowed) and one B=1 decode chunk under the
+  K2's counters read around them (K1 = 26 x prefills from 0 outside the scan, K2 = 26
+  x (decode steps + segments at pos > 0 + the 4100-word prompt's four scanned
+  segments), each half windowed) and one B=1 decode chunk under the
   profiler, then a fresh server with XOT_PAGED_KV=1
   the same (K4 = 26 x segments, K3 = 26 x decode steps, half windowed, 0 pages left),
   and the share of temperature-0 tokens the two agree on (bf16: not asserted). The
@@ -2526,14 +2547,21 @@ def drive_gemma(torch, card: str, device: str = "cuda") -> dict:
                               focus="flash_cached_")
         runs[tag] = run
         segments = [-(-n // 1024) for n in run["prompt_tokens"]]
+        # JAX's routing: a prompt with two or more whole segments before its last one
+        # prefills them through prefill_scan (every segment through K2, the from-zero
+        # one too), then its last through forward_sample; others take K1 for the first
+        # segment and K2 for each later one.
+        scanned = [(n - 1) // 1024 >= 2 for n in run["prompt_tokens"]]
         counts, steps = run["launches"], run["steps"]
         if tag == "gemma":
           if model_dir.exists() or not (tmp / "home" / "models" / model_dir.name).is_dir():
             raise AssertionError("gemma: --models-seed-dir did not move the checkpoint into XOT_HOME")
-          want = {"flash_attention": layers * len(requests),
-                  "flash_cached_attention": layers * (steps + sum(s - 1 for s in segments))}
-          formula = (f"K1 = {layers} x {len(requests)} fresh prefills, K2 = {layers} x ({steps} "
-                     f"decode steps + {sum(s - 1 for s in segments)} segments at pos > 0)")
+          k1 = sum(not sc for sc in scanned)
+          k2 = sum(sg if sc else sg - 1 for sg, sc in zip(segments, scanned))
+          want = {"flash_attention": layers * k1, "flash_cached_attention": layers * (steps + k2)}
+          formula = (f"K1 = {layers} x {k1} prefills from 0 outside the scan, K2 = {layers} x "
+                     f"({steps} decode steps + {k2} segments: at pos > 0, and every segment of "
+                     f"{sum(scanned)} scanned prompt(s))")
         else:
           want = {"paged_prefill_attention": layers * sum(segments),
                   "paged_decode_attention": layers * steps}
@@ -2567,6 +2595,501 @@ def drive_gemma(torch, card: str, device: str = "cuda") -> dict:
   return launches
 
 
+# ------------------------------------------------------------------ phase 13: fused decode
+
+FUSED_FORMATS = (("bf16", {}), ("int4 K5", {"XOT_QUANTIZE": "int4"}),
+                 ("int4 K5v4", {"XOT_QUANTIZE": "int4", "XOT_INT4_V": "4"}),
+                 ("int8 K6", {"XOT_QUANTIZE": "int8", "XOT_INT8_KERNEL": "1"}),
+                 ("bf16, int8 KV (K2q)", {"XOT_KV_QUANT": "int8"}))
+FUSED_STEPS = 64  # decode steps a parity chunk runs, eager body against graph replays
+FUSED_PAGE = 128
+# The scan prefill against the per-segment loop over a 4096-token prompt: the two take
+# different kernels for the from-zero segment (K2 against K1), so bf16 rounds at other
+# places and the difference grows through 16 layers; both are held to the largest
+# |hidden state| within the model cuts' limit.
+PREFILL_REL_LIMIT = 5e-2
+
+
+class FusedModel(NamedTuple):
+  label: str
+  cfg: object
+  params: dict
+  route: object
+  kv_quant: bool
+  dtype: object
+  layers: int
+
+
+def fused_model(torch, label: str, env: dict, card_config: dict, layers: int,
+                device: str = "cuda", dtype=None) -> FusedModel:
+  """Seeded random weights of `card_config` at full width in the format `env` asks
+  (quantized on the device as the engine quantizes them), with the quantized route
+  the engine takes under `env`."""
+  from xotorch_tpu_torch.models.config import config_from_hf_dict
+  from xotorch_tpu_torch.models.quantize import quantize_params
+  from xotorch_tpu_torch.models.transformer import init_random_params, quant_route
+  dtype = dtype or torch.bfloat16
+  cfg = config_from_hf_dict(card_config)
+  params = init_random_params(cfg, layers, True, True, seed=0, dtype=dtype, device=device)
+  with phase_env(**env):
+    if env.get("XOT_QUANTIZE"):
+      params = quantize_params(params, env["XOT_QUANTIZE"], scale_dtype=dtype, inplace=True)
+    route = quant_route(device == "cuda")
+  return FusedModel(label, cfg, params, route, env.get("XOT_KV_QUANT") == "int8", dtype, layers)
+
+
+def fused_batch(torch, m: FusedModel, B: int, paged: bool, device: str = "cuda", S: int = 2048,
+                seed: int = 0):
+  """B requests prefilled from seeded random prompts of 100 + 37 b tokens (K1, or K4 on
+  the page arena), on contiguous caches of S slots or in one page pool. Returns
+  (caches, or (arena, page table), last tokens [B, 1], positions [B])."""
+  from xotorch_tpu_torch.inference.torch_engine.paged_cache import PagePool
+  from xotorch_tpu_torch.models.transformer import forward_shard, init_kv_cache
+  gen = torch.Generator(device=device)
+  gen.manual_seed(seed)
+  lens = [100 + 37 * b for b in range(B)]
+  state, table = [], None
+  if paged:
+    per = -(-S // FUSED_PAGE)
+    pool = PagePool(m.cfg, m.layers, 1 + B * per, FUSED_PAGE, dtype=m.dtype, device=device,
+                    kv_quant=m.kv_quant)
+    width = 1 << (per - 1).bit_length()
+    table = torch.zeros((B, width), dtype=torch.int32)
+    for b in range(B):
+      table[b, :per] = torch.tensor(pool.alloc(per), dtype=torch.int32)
+    table = table.to(device)
+    state = (pool.arena, table)
+  last = []
+  for b, n in enumerate(lens):
+    prompt = torch.randint(3, m.cfg.vocab_size, (1, n), generator=gen, device=device)
+    if paged:
+      logits, _ = forward_shard(m.params, prompt, state[0], 0, m.cfg, True, True,
+                                page_table=table[b:b + 1], route=m.route)
+    else:
+      cache = init_kv_cache(m.cfg, m.layers, 1, S, m.dtype, device, kv_quant=m.kv_quant)
+      logits, _ = forward_shard(m.params, prompt, cache, 0, m.cfg, True, True, use_flash=True,
+                                route=m.route)
+      state.append(cache)
+    last.append(logits[0, -1].argmax())
+  toks = torch.stack(last)[:, None].to(torch.int64)
+  return state, toks, torch.tensor(lens, dtype=torch.int32, device=device)
+
+
+def _clone_state(state, paged: bool):
+  if paged:
+    arena, table = state
+    return {n: t.clone() for n, t in arena.items()}, table
+  return [{n: t.clone() for n, t in c.items()} for c in state]
+
+
+def _decode_kernels(m: FusedModel, paged: bool):
+  """The wrappers a decode step of `m` launches: (the attention kernel, the
+  projections' GEMV kernel or None)."""
+  from xotorch_tpu_torch.ops import flash_decode, int4_matmul, int8_matmul, paged_attention
+  attn = {(False, False): flash_decode.flash_cached_attention,
+          (False, True): flash_decode.flash_cached_attention_int8,
+          (True, False): paged_attention.paged_decode_attention,
+          (True, True): paged_attention.paged_decode_attention_int8}[(paged, m.kv_quant)]
+  gemv = None
+  if "wq_gscale" in m.params["layers"] and m.route.int4_kernel:
+    gemv = int4_matmul.int4_w4a8_matmul if m.route.int4_variant == 4 else int4_matmul.int4_w4a16_matmul
+  elif "wq_scale" in m.params["layers"] and m.route.int8_kernel:
+    gemv = int8_matmul.int8_rowquant_matmul
+  return attn, gemv
+
+
+def fused_chunk(m: FusedModel, state, toks, pos, n: int, temps, top_k: int, paged: bool,
+                gc=None, gumbel=None, generator=None):
+  """One decode chunk of `n` steps: the eager body (models/generate) when `gc` is None,
+  else graph replays (models/graphs). Returns ([B, n] tokens, the state after it)."""
+  from xotorch_tpu_torch.models import generate, graphs
+  B = toks.shape[0]
+  pad = (1 << (B - 1).bit_length()) - B
+  kw = dict(route=m.route, gumbel=gumbel, generator=generator)
+  if paged:
+    arena, table = state
+    if gc is None:
+      out, _ = generate.decode_chunk_paged(m.params, arena, table, toks, pos, m.cfg, n, temps,
+                                           top_k, pad_rows=pad, **kw)
+    else:
+      out = graphs.decode_paged(gc, m.params, arena, table, toks, pos, m.cfg, n, temps, top_k, **kw)
+    return out, state
+  if gc is None:
+    out, split = generate.decode_chunk_batched(m.params, state, toks, pos, m.cfg, n, temps, top_k,
+                                               use_flash_decode=True, pad_rows=pad, **kw)
+    return out, split
+  return graphs.decode_contiguous(gc, m.params, state, toks, pos, m.cfg, n, temps, top_k, **kw), state
+
+
+def fused_parity(torch, m: FusedModel, B: int, paged: bool, sampled: bool, card: str,
+                 make_cache, device: str = "cuda", steps: int = FUSED_STEPS):
+  """The graph path's tokens and cache (or arena) against the eager body's, bit for
+  bit, over `steps` steps from the same prefilled state: temperature 0, or 0.8 with
+  top_k 35 and the same injected Gumbel noise. The kernels' counters, set to 0 just
+  before the graph chunk, must read layers x steps for the attention kernel (half of
+  them windowed where the model slides) and 7 x layers x steps for a GEMV kernel.
+  Returns the graph cache."""
+  from xotorch_tpu_torch.models.graphs import counted_wrappers
+  from xotorch_tpu_torch.ops.sampling import gumbel_noise
+  state, toks, pos = fused_batch(torch, m, B, paged, device)
+  eager_state = _clone_state(state, paged)
+  Bb = 1 << (B - 1).bit_length()
+  temps = torch.full((B,), 0.8 if sampled else 0.0, device=device)
+  top_k = 35 if sampled else 0
+  noise = None
+  if sampled:
+    gen = torch.Generator(device=device)
+    gen.manual_seed(11)
+    noise = gumbel_noise((steps, Bb, m.cfg.vocab_size), gen, device)
+  want, eager_state = fused_chunk(m, eager_state, toks, pos, steps, temps, top_k, paged,
+                                  gumbel=noise)
+  gc = make_cache()
+  for fn in counted_wrappers():
+    fn.launches = 0
+    fn.windowed_launches = 0
+  got, state = fused_chunk(m, state, toks, pos, steps, temps, top_k, paged, gc=gc, gumbel=noise)
+  counts = {fn.__name__: (fn.launches, fn.windowed_launches) for fn in counted_wrappers()
+            if fn.launches}
+  attn, gemv = _decode_kernels(m, paged)
+  windows = sum(bool(m.cfg.layer_window(i)) for i in range(m.layers)) if m.cfg.uses_sliding_window else 0
+  want_counts = {attn.__name__: (m.layers * steps, windows * steps)}
+  if gemv is not None:
+    want_counts[gemv.__name__] = (7 * m.layers * steps, 0)
+  if device != "cuda":  # on the CPU no kernel launches
+    want_counts = {}
+  same_tokens = torch.equal(got, want)
+  if paged:
+    same_cache = all(torch.equal(state[0][n], eager_state[0][n]) for n in state[0])
+    kv_bytes = sum(t.numel() * t.element_size() for t in state[0].values())
+  else:
+    same_cache = all(torch.equal(c[n], e[n]) for c, e in zip(state, eager_state) for n in c)
+    kv_bytes = sum(t.numel() * t.element_size() for c in state for t in c.values())
+  ok = same_tokens and same_cache and counts == want_counts
+  differ = (got != want).sum().item()
+  print(f"[fused] {m.label} B={B} {'paged' if paged else 'contiguous'} "
+        f"{'sampled (injected noise, t 0.8, top_k 35)' if sampled else 'temperature 0'}: "
+        f"{steps} graph-replayed steps against the eager body: tokens "
+        f"{'identical' if same_tokens else f'{differ} of {got.numel()} differ'}, cache "
+        f"{'identical' if same_cache else 'DIFFERS'}; launches {counts} (want {want_counts}); "
+        f"{gc.captures} capture(s), {gc.replays} replays; graph pool {gc.pool_bytes / 1e6:.1f} "
+        f"MB, slab {gc.slab_bytes / 1e6:.1f} MB beside {kv_bytes / 1e6:.1f} MB of KV "
+        f"({'arena' if paged else 'caches'}) ({card}) {'ok' if ok else 'FAIL'}",
+        flush=True)
+  if not ok:
+    raise AssertionError(f"fused {m.label} B={B} paged={paged} sampled={sampled}: tokens "
+                         f"{same_tokens}, cache {same_cache}, launches {counts} vs {want_counts}")
+  return gc
+
+
+def fused_seeded(torch, m: FusedModel, card: str, make_cache, device: str = "cuda",
+                 steps: int = FUSED_STEPS) -> None:
+  """The engine's sampling noise on the graph path: two runs from one prefilled B=8
+  state, each with a fresh graph cache and a fresh generator seeded alike (registered
+  with the captured step), sample the same tokens at temperature 0.8, top_k 35; a third
+  seed samples others. Whether the eager body with that seed draws the same noise is
+  printed, not asserted (the graph's generator state is its own scheme)."""
+  state, toks, pos = fused_batch(torch, m, 8, False, device)
+  temps = torch.full((8,), 0.8, device=device)
+  runs = []
+  for seed, gc in ((7, make_cache()), (7, make_cache()), (8, make_cache()), (7, None)):
+    gen = torch.Generator(device=device)
+    gen.manual_seed(seed)
+    out, _ = fused_chunk(m, _clone_state(state, False), toks, pos, steps, temps, 35, False,
+                         gc=gc, generator=gen)
+    runs.append(out)
+  ok = torch.equal(runs[0], runs[1]) and not torch.equal(runs[0], runs[2])
+  print(f"[fused] {m.label} B=8 sampled from the generator (t 0.8, top_k 35), {steps} "
+        f"steps: two fresh graph caches seeded alike "
+        f"{'agree' if torch.equal(runs[0], runs[1]) else 'DIFFER'}, another seed "
+        f"{'differs' if not torch.equal(runs[0], runs[2]) else 'AGREES'}; the eager body with "
+        f"the same seed {'agrees' if torch.equal(runs[0], runs[3]) else 'differs'} (not "
+        f"asserted) ({card}) {'ok' if ok else 'FAIL'}", flush=True)
+  if not ok:
+    raise AssertionError(f"fused {m.label}: seeded graph sampling not reproducible")
+
+
+def _profile_chunk(torch, run) -> tuple:
+  """(wall ms, device busy ms, device kernels) of one call of `run` under the profiler;
+  busy None when the trace holds no device time."""
+  from torch.profiler import ProfilerActivity, profile
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    t0 = time.perf_counter()
+    run()
+    torch.cuda.synchronize()
+    wall = (time.perf_counter() - t0) * 1e3
+  busy = kernels = 0
+  for evt in prof.key_averages():
+    us = getattr(evt, "self_device_time_total", None)
+    if us is None:
+      us = getattr(evt, "self_cuda_time_total", 0)
+    if us > 0:
+      busy += us / 1e3
+      kernels += evt.count
+  return wall, (busy if kernels else None), kernels
+
+
+def fused_timing(torch, m: FusedModel, B: int, paged: bool, card: str, make_cache,
+                 device: str = "cuda", rounds: int = 4, n: int = 16) -> dict:
+  """Eager body against graph replays, `rounds` rounds taken in turn (eager, then
+  graph) from the same prefilled state, greedy chunks of `n` steps each: wall ms a
+  step (host clock, synchronised); then one chunk of each under the profiler: device
+  busy ms a step, device kernels a step and the idle share of the profiled wall time.
+  Returns the numbers."""
+  state, toks, pos = fused_batch(torch, m, B, paged, device)
+  runs = {"eager": [_clone_state(state, paged), toks, pos.clone(), None],
+          "graph": [state, toks, pos.clone(), make_cache()]}
+  temps = torch.zeros((B,), device=device)
+
+  def chunk(label):
+    st = runs[label]
+    out, st[0] = fused_chunk(m, st[0], st[1], st[2], n, temps, 0, paged, gc=st[3])
+    st[1], st[2] = out[:, -1:].contiguous(), st[2] + n
+
+  chunk("graph")  # the capture
+  chunk("eager")
+  walls = {"eager": [], "graph": []}
+  for _ in range(rounds):
+    for label in ("eager", "graph"):
+      torch.cuda.synchronize()
+      t0 = time.perf_counter()
+      chunk(label)
+      torch.cuda.synchronize()
+      walls[label].append((time.perf_counter() - t0) * 1e3 / n)
+  out = {}
+  for label in ("eager", "graph"):
+    wall, busy, kernels = _profile_chunk(torch, lambda: chunk(label))
+    med = sorted(walls[label])[len(walls[label]) // 2]
+    out[label] = {"wall_ms": med, "walls": walls[label],
+                  "device_ms": None if busy is None else busy / n,
+                  "idle_pct": None if busy is None else 100 * (1 - busy / wall),
+                  "kernels": kernels / n}
+  e, g = out["eager"], out["graph"]
+  fmt = lambda v, f: "not measured" if v is None else format(v, f) + ("%" if f == ".1f" else "")
+  print(f"[fused] {m.label} B={B} {'paged' if paged else 'contiguous'}: wall ms a step, "
+        f"{rounds} rounds of {n} in turn: eager " + ", ".join(f"{w:.3f}" for w in e["walls"])
+        + " / graph " + ", ".join(f"{w:.3f}" for w in g["walls"])
+        + f"; median eager {e['wall_ms']:.3f} graph {g['wall_ms']:.3f} "
+        f"({e['wall_ms'] / g['wall_ms']:.2f}x); device ms a step eager "
+        f"{fmt(e['device_ms'], '.3f')} graph {fmt(g['device_ms'], '.3f')}; idle eager "
+        f"{fmt(e['idle_pct'], '.1f')} graph {fmt(g['idle_pct'], '.1f')}; device kernels a "
+        f"step eager {e['kernels']:.0f} graph {g['kernels']:.0f} ({card})", flush=True)
+  return out
+
+
+def slab_copy_ms(torch, m: FusedModel, card: str, device: str = "cuda") -> dict:
+  """Device ms of one chunk's stack into the slab and split out of it (CUDA events,
+  mean of 10) at B=1 and B=8 over caches of 2048 slots: what a contiguous chunk pays
+  besides its replays."""
+  from xotorch_tpu_torch.models import graphs
+  from xotorch_tpu_torch.models.transformer import init_kv_cache
+  out = {}
+  for B in (1, 8):
+    caches = [init_kv_cache(m.cfg, m.layers, 1, 2048, m.dtype, device, kv_quant=m.kv_quant)
+              for _ in range(B)]
+    gc = graphs.GraphCache(device)
+    slab = gc.slab_views(graphs.slab_leaves(caches[0], B))
+    times = {}
+    for label, fn in (("stack", lambda: graphs.stack_into(slab, caches)),
+                      ("split", lambda: graphs.split_from(slab, caches))):
+      fn()
+      start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+      start.record()
+      for _ in range(10):
+        fn()
+      end.record()
+      torch.cuda.synchronize()
+      times[label] = start.elapsed_time(end) / 10
+    nbytes = sum(t.numel() * t.element_size() for c in caches for t in c.values())
+    out[B] = times
+    print(f"[fused] {m.label} slab copies at B={B}, S=2048 ({nbytes / 1e6:.1f} MB of caches): "
+          f"stack {times['stack']:.3f} ms, split {times['split']:.3f} ms a chunk, "
+          f"{2 * nbytes / (times['stack'] * 1e-3) / 1e9:.0f} GB/s read+write on the stack "
+          f"({card})", flush=True)
+  return out
+
+
+def fused_prefill(torch, m: FusedModel, card: str, device: str = "cuda", T: int = 4096,
+                  chunk: int = 1024) -> dict:
+  """A T-token prompt in segments of `chunk`: prefill_scan as graph replays (one group
+  of T / chunk, every segment through K2) against the per-segment loop (the first
+  segment through K1, the rest through K2): last-layer hidden states of every position
+  within PREFILL_REL_LIMIT of the largest |hidden state|, and the device ms of each
+  (CUDA events, after a warm-up that captures)."""
+  from xotorch_tpu_torch.models import graphs
+  from xotorch_tpu_torch.models.transformer import forward_shard, init_kv_cache
+  gen = torch.Generator(device=device)
+  gen.manual_seed(3)
+  x = torch.randint(3, m.cfg.vocab_size, (1, T), generator=gen, device=device)
+  gc = graphs.GraphCache(device)
+
+  def loop():
+    cache = init_kv_cache(m.cfg, m.layers, 1, T, m.dtype, device, kv_quant=m.kv_quant)
+    hs = []
+    for off in range(0, T, chunk):
+      h, _ = forward_shard(m.params, x[:, off:off + chunk], cache, off, m.cfg, True, False,
+                           use_flash=off == 0, use_flash_decode=off > 0, route=m.route)
+      hs.append(h)
+    return torch.cat(hs, dim=1)
+
+  def scan():
+    cache = init_kv_cache(m.cfg, m.layers, 1, T, m.dtype, device, kv_quant=m.kv_quant)
+    return graphs.prefill(gc, m.params, x, cache, 0, m.cfg, chunk, route=m.route, want_hidden=True)
+
+  ms = {}
+  outs = {}
+  for label, fn in (("loop", loop), ("scan", scan)):
+    outs[label] = fn()  # the scan's first call captures
+    torch.cuda.synchronize()
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(3):
+      fn()
+    end.record()
+    torch.cuda.synchronize()
+    ms[label] = start.elapsed_time(end) / 3
+  ref = outs["loop"].float()
+  err = (outs["scan"].float() - ref).abs().max().item()
+  rel = err / max(ref.abs().max().item(), 1e-12)
+  ok = math.isfinite(rel) and rel <= PREFILL_REL_LIMIT and gc.captures == 1
+  print(f"[fused] prefill {T} tokens in segments of {chunk}: prefill_scan (one graph of "
+        f"{T // chunk} segments through K2) against the per-segment loop (K1, then K2): "
+        f"max_rel_err {rel:.3e} (limit {PREFILL_REL_LIMIT:.0e}); {ms['scan']:.3f} ms against "
+        f"{ms['loop']:.3f} ms ({card}) {'ok' if ok else 'FAIL'}", flush=True)
+  if not ok:
+    raise AssertionError(f"fused prefill: rel err {rel} (captures {gc.captures})")
+  return {"rel": rel, "ms": ms}
+
+
+def fused_ttft(torch, card: str, rounds: int = 4, T: int = 4096,
+               model: str = "synthetic-llama-1b") -> dict:
+  """The engine's time to first token over a T-token prompt at XOT_PREFILL_CHUNK 1024,
+  XOT_SCAN_PREFILL 1 (the leading three segments through one captured scan group of
+  2 and one of 1, the last through forward_sample) against 0 (segment by segment, K1
+  first), taken in turn for `rounds` rounds after one unmeasured round each."""
+  import numpy as np
+  from xotorch_tpu_torch.inference.torch_engine.engine import TorchShardInferenceEngine
+  from xotorch_tpu_torch.models.registry import TORCH, build_full_shard
+  shard = build_full_shard(model, TORCH)
+  prompt = np.random.default_rng(4).integers(3, 120000, size=(1, T))
+  with phase_env(XOT_PAGED_KV="0", XOT_PREFILL_CHUNK="1024"):
+    engine = TorchShardInferenceEngine(device="cuda", seed=0)
+
+  async def drive():
+    await engine.ensure_shard(shard)
+    ttft = {"1": [], "0": []}
+    toks = {}
+    for i in range(rounds + 1):
+      for scan in ("1", "0"):
+        with phase_env(XOT_SCAN_PREFILL=scan, XOT_PREFILL_CHUNK="1024"):
+          t0 = time.perf_counter()
+          toks[scan], _ = await engine.infer_sample_tensor(f"ttft{i}{scan}", shard, prompt,
+                                                           temp=0.0, top_k=0)
+          if i:
+            ttft[scan].append((time.perf_counter() - t0) * 1e3)
+        await engine.clear_request(f"ttft{i}{scan}")
+    return ttft, toks
+
+  try:
+    ttft, toks = asyncio.run(drive())
+  finally:
+    engine.executor.shutdown(wait=True)
+  print(f"[fused] TTFT of a {T}-token prompt, segments of 1024, {rounds} rounds in turn: "
+        f"XOT_SCAN_PREFILL=1 " + ", ".join(f"{t:.1f}" for t in ttft["1"]) + " ms / =0 "
+        + ", ".join(f"{t:.1f}" for t in ttft["0"]) + f" ms; medians "
+        f"{sorted(ttft['1'])[rounds // 2]:.1f} against {sorted(ttft['0'])[rounds // 2]:.1f} ms; "
+        f"first tokens {toks['1']} / {toks['0']} (bf16, K2 against K1 for the first segment: "
+        f"not asserted) ({card})", flush=True)
+  return ttft
+
+
+def check_fused(torch, card: str, device: str = "cuda", make_cache=None,
+                model: str = "synthetic-llama-1b", gemma: bool = True,
+                steps: int = FUSED_STEPS, rounds: int = 4) -> dict:
+  """Phase 13: the fused decode programs. synthetic-llama-1b at full width and depth in
+  the five decode formats, and gemma-2-2b's shape in bf16: graph replays against the
+  eager body (fused_parity) at B=1 and B=8 (gemma B=1), contiguous and paged, at
+  temperature 0, and with injected noise at B=8 (paged in bf16 only: the sampler is
+  the same code over either cache); eager against graph timing (fused_timing;
+  paged in bf16 and gemma);
+  the slab copies' device time; the capture count, seconds and graph pool, slab and KV
+  bytes; prefill_scan against the per-segment loop and the engine's TTFT both ways.
+  (`device`, `make_cache`, `model` and `gemma` let it be rehearsed on the CPU with a
+  small card and an eager stand-in for the graph cache.)"""
+  from xotorch_tpu_torch.models import graphs
+  from xotorch_tpu_torch.models.registry import get_model_card
+  make_cache = make_cache or (lambda: graphs.GraphCache(device))
+  card_cfg = get_model_card(model)["synthetic_config"]
+  layers = card_cfg["num_hidden_layers"]
+  dtype = torch.bfloat16 if device == "cuda" else torch.float32
+  caches, timing = [], {}
+  totals = {"caches": 0, "captures": 0, "seconds": 0.0, "pool": 0, "slab": 0}
+
+  def tracked():
+    caches.append(make_cache())
+    return caches[-1]
+
+  def release():
+    """Fold the model's graph caches into the totals, then drop them: their slabs and
+    graph pools are not held through the next model's captures."""
+    for c in caches:
+      totals["caches"] += 1
+      totals["captures"] += c.captures
+      totals["seconds"] += c.capture_seconds
+      totals["pool"] = max(totals["pool"], c.pool_bytes)
+      totals["slab"] = max(totals["slab"], c.slab_bytes)
+    caches.clear()
+
+  t0 = time.perf_counter()
+  for label, env in FUSED_FORMATS:
+    m = fused_model(torch, label, env, card_cfg, layers, device, dtype)
+    for paged in (False, True):
+      for B in (1, 8):
+        fused_parity(torch, m, B, paged, False, card, tracked, device, steps)
+      # Injected noise at B=8: contiguous in every format, paged in bf16 (the sampler
+      # is the same code over either cache).
+      if not paged or label == "bf16":
+        fused_parity(torch, m, 8, paged, True, card, tracked, device, steps)
+      # Eager against graph: contiguous in every format, paged in bf16.
+      if device == "cuda" and (not paged or label == "bf16"):
+        for B in (1, 8):
+          timing[(label, paged, B)] = fused_timing(torch, m, B, paged, card, tracked, device,
+                                                   rounds)
+    if label == "bf16":
+      fused_seeded(torch, m, card, tracked, device, steps)
+    if device == "cuda" and label in ("bf16", "bf16, int8 KV (K2q)"):
+      slab_copy_ms(torch, m, card, device)
+    if device == "cuda" and label == "bf16":
+      fused_prefill(torch, m, card, device)
+    release()
+    del m
+    gc.collect()
+    if device == "cuda":
+      torch.cuda.empty_cache()
+  if gemma:
+    m = fused_model(torch, "gemma-2-2b bf16", {}, GEMMA_CONFIG, GEMMA_CONFIG["num_hidden_layers"],
+                    device, dtype)
+    for paged in (False, True):
+      fused_parity(torch, m, 1, paged, False, card, tracked, device, steps)
+      fused_parity(torch, m, 1, paged, True, card, tracked, device, steps)
+      if device == "cuda":
+        timing[("gemma-2-2b bf16", paged, 1)] = fused_timing(torch, m, 1, paged, card, tracked,
+                                                             device, rounds)
+    release()
+    del m
+    gc.collect()
+  captures, seconds = totals["captures"], totals["seconds"]
+  pool, slab = totals["pool"], totals["slab"]
+  print(f"[fused] {captures} graphs captured over {totals['caches']} graph caches in "
+        f"{seconds:.2f} s ({seconds / max(captures, 1) * 1e3:.1f} ms a capture, warm-up "
+        f"excluded, the synchronize and cache release before it included); the largest cache's "
+        f"graph pool {pool / 1e6:.1f} MB and slab {slab / 1e6:.1f} MB ({card})", flush=True)
+  ttft = fused_ttft(torch, card, rounds) if device == "cuda" else {}
+  print(f"[fused] phase 13 took {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+  return {"timing": timing, "captures": captures, "capture_s": seconds, "pool_bytes": pool,
+          "slab_bytes": slab, "ttft": ttft}
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--kernels-only", action="store_true",
@@ -2583,6 +3106,7 @@ def main(argv=None) -> int:
   sys.path.insert(0, ROOT)
 
   # Phase 1: device.
+  started = time.perf_counter()
   card = smi_line()
   print(card, flush=True)
   print(f"torch {torch.__version__} cuda {torch.version.cuda} device "
@@ -2725,7 +3249,12 @@ def main(argv=None) -> int:
   for name, n in drive_gemma(torch, card).items():
     launches[name] += n
 
-  # Phase 13: results.
+  # Phase 13: the fused decode programs (CUDA graphs) against the eager body, their
+  # timing, and the scan prefill against the per-segment loop.
+  print(f"[time] phases 1-12: {time.perf_counter() - started:.1f} s", flush=True)
+  check_fused(torch, card)
+
+  # Phase 14: results.
   meta = {
     "flash_attention": ("xotorch_tpu_torch/csrc/flash_attention.cu",
                         "xotorch_tpu/ops/flash_attention.py:54"),

@@ -95,10 +95,13 @@ async def test_greedy_stream_matches_jax_engine(prompt_len, jax_weights, monkeyp
   eng.executor.shutdown(wait=True)
   assert got == want
   # The first segment goes through the prefill wrapper (K1's), every later segment
-  # and every decode step through the cached one (K2's), once per layer.
-  assert calls["flash"] == 4
-  segments_after_first = (prompt_len - 1) // 16
-  assert calls["cached"] == 4 * (segments_after_first + 19)
+  # and every decode step through the cached one (K2's), once per layer. With two or
+  # more leading whole segments the scan prefill takes them (JAX's prefill_scan
+  # routing, XOT_SCAN_PREFILL=1): all through the cached wrapper, the from-zero one too.
+  segments = -(-prompt_len // 16)
+  scanned = (prompt_len - 1) // 16 >= 2
+  assert calls["flash"] == (0 if scanned else 4)
+  assert calls["cached"] == 4 * (segments - (0 if scanned else 1) + 19)
 
 
 async def test_cache_exhausted_at_max_cache_len(monkeypatch):

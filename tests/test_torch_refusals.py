@@ -190,3 +190,58 @@ async def test_api_refuses_over_http_and_serves_neutral_values_as_absent():
     await server.wait_closed()
     await node.stop()
     engine.executor.shutdown(wait=True)
+
+
+# ------------------------------------------------------------------ F3 and F4
+
+# What the JAX package's handler makes of each top_p (xotorch_tpu/api/chatgpt_api.py:
+# max(0.05, round(top_p * 20) / 20), and a value that snaps to 1 is off).
+TOP_P_SNAPS = [(0.97, 0.95), (0.99, None), (0.01, 0.05), (0.5, 0.5), (1, None), (0.26, 0.25)]
+
+
+@pytest.mark.parametrize("sent,served", TOP_P_SNAPS)
+def test_top_p_snaps_to_the_jax_grid(sent, served):
+  assert ChatGPTAPI._parse_sampling({"top_p": sent})[2] == served
+
+
+def _png_data_uri() -> str:
+  import base64
+  import io
+  from PIL import Image
+  buf = io.BytesIO()
+  Image.new("RGB", (4, 4), (200, 10, 10)).save(buf, format="PNG")
+  return "data:image/png;base64," + base64.b64encode(buf.getvalue()).decode()
+
+
+IMAGE_PARTS = {
+  "image": lambda: _png_data_uri(),
+  "bad data URI": lambda: "data:image/png;base64,not base64!",
+  "not a data URI": lambda: "https://example.invalid/cat.png",
+}
+
+
+@pytest.mark.parametrize("what", sorted(IMAGE_PARTS))
+async def test_image_parts_are_answered_400_naming_the_model(what):
+  args = port_main.build_parser().parse_args(
+    ["--device", "cpu", "--default-model", MODEL, "--chatgpt-api-port", "0"])
+  node, engine, classname, api = port_main.build_node(args)
+  seen = []
+  node.on_token.register("refusals-test").on_next(lambda rid, toks, finished: seen.append(rid))
+  server = await api.start("127.0.0.1", 0)
+  url = f"http://127.0.0.1:{server.sockets[0].getsockname()[1]}/v1/chat/completions"
+  body = {"model": MODEL, "temperature": 0, "max_tokens": 4, "messages": [
+    {"role": "user", "content": [{"type": "text", "text": "what is this?"},
+                                 {"type": "image_url", "image_url": {"url": IMAGE_PARTS[what]()}}]}]}
+  try:
+    with pytest.raises(urllib.error.HTTPError) as err:
+      await asyncio.get_running_loop().run_in_executor(None, _post, url, body)
+    assert err.value.code == 400
+    message = json.loads(err.value.read())["error"]["message"]
+    assert message.startswith(f"model {MODEL} does not support image input")
+    assert (message == f"model {MODEL} does not support image input") == (what == "image")
+    assert not seen  # refused before the node saw it
+  finally:
+    server.close()
+    await server.wait_closed()
+    await node.stop()
+    engine.executor.shutdown(wait=True)

@@ -5,10 +5,13 @@ The port of the serving core of xotorch_tpu/api/chatgpt_api.py on
 
 - POST /v1/chat/completions: `stream: false` (one JSON body with `usage` and
   `finish_reason`) and `stream: true` (server-sent events ending in `data: [DONE]`);
-  `max_tokens`/`max_completion_tokens`, `temperature` and `top_p` are honoured. The
-  fields the JAX package also serves (`UNSERVED`: stop sequences, seed, the sampling
-  extras, logprobs, n, tools) are answered 400 naming the field unless their value is
-  neutral, which is served as if absent: none is dropped without a word;
+  `max_tokens`/`max_completion_tokens`, `temperature` and `top_p` (snapped to the JAX
+  package's 0.05 grid) are honoured. The fields the JAX package also serves
+  (`UNSERVED`: stop sequences, seed, the sampling extras, logprobs, n, tools) are
+  answered 400 naming the field unless their value is neutral, which is served as if
+  absent: none is dropped without a word. No card of the port takes images, so a
+  message with an `image_url` part is answered 400 naming the model, as the JAX
+  package answers for a card without vision (an undecodable data URI too);
 - GET /v1/models lists the cards this engine serves; GET /healthcheck.
 
 Synthetic models use DummyTokenizer, with the model's own EOS id.
@@ -16,6 +19,9 @@ Synthetic models use DummyTokenizer, with the model's own EOS id.
 from __future__ import annotations
 
 import asyncio
+import base64
+import binascii
+import io
 import json
 import time
 import uuid
@@ -58,6 +64,53 @@ UNSERVED = (
   ("top_logprobs", lambda v: type(v) is int and v == 0),
   ("tools", lambda v: v == []),
 )
+
+
+def decode_image_data_uri(uri: str):
+  """data:image/...;base64,... -> the decoded RGB image. Every malformed input raises
+  ValueError, so the API answers 400 and not 500 (the JAX package's
+  `models/vision.decode_image_data_uri`)."""
+  if not uri.startswith("data:"):
+    raise ValueError("only data: image URIs are supported (zero-egress serving)")
+  if "," not in uri:
+    raise ValueError("malformed data URI: missing ',' payload separator")
+  try:
+    blob = base64.b64decode(uri.split(",", 1)[1], validate=True)
+  except (binascii.Error, ValueError) as e:
+    raise ValueError(f"invalid base64 image payload: {e}") from e
+  try:
+    from PIL import Image
+  except ImportError as e:
+    raise ValueError("PIL is required to decode image payloads") from e
+  try:
+    return Image.open(io.BytesIO(blob)).convert("RGB")
+  except Exception as e:  # UnidentifiedImageError, truncated files, ...
+    raise ValueError(f"undecodable image payload: {e}") from e
+
+
+def extract_images(messages: List[dict]) -> list:
+  """The decoded image of every image_url content part, in prompt order (the JAX
+  package's `extract_images`, without its arrays: the port serves no vision card)."""
+  images = []
+  for m in messages:
+    content = m.get("content", "")
+    if not isinstance(content, list):
+      continue
+    for part in content:
+      if isinstance(part, dict) and part.get("type") == "image_url":
+        images.append(decode_image_data_uri((part.get("image_url") or {}).get("url", "")))
+  return images
+
+
+def refuse_images(model: str, messages: List[dict]) -> None:
+  """400 naming the model for any image_url part: no card of the port has vision. An
+  undecodable data URI is refused with the decoder's reason."""
+  try:
+    images = extract_images(messages)
+  except ValueError as e:
+    raise _invalid(f"model {model} does not support image input ({e})") from None
+  if images:
+    raise _invalid(f"model {model} does not support image input")
 
 
 def build_prompt(tokenizer, messages: List[dict]) -> str:
@@ -239,7 +292,12 @@ class ChatGPTAPI:
     if top_p is not None:
       if isinstance(top_p, bool) or not isinstance(top_p, (int, float)) or not 0 < top_p <= 1:
         raise _invalid(f"top_p must be a number in (0, 1], got {top_p!r}")
-      top_p = float(top_p) if top_p < 1 else None  # 1, the OpenAI default, means off
+      # The JAX package's 0.05 grid: top_p is a static of every captured decode graph
+      # (a compile-time constant of JAX's executable), so a client's every distinct
+      # value would otherwise capture graphs of its own. The floor of 0.05 keeps a tiny
+      # top_p restrictive; a value that snaps to 1 (the OpenAI default) is off.
+      top_p = max(0.05, round(float(top_p) * 20) / 20)
+      top_p = top_p if top_p < 1 else None
     return max_tokens, temperature, top_p
 
   async def handle_post_chat_completions(self, data: dict, writer: asyncio.StreamWriter) -> None:
@@ -250,6 +308,7 @@ class ChatGPTAPI:
                                       f"{get_supported_models(self.inference_engine_classname)}"})
     max_tokens, temperature, top_p = self._parse_sampling(data)
     messages = data.get("messages", [])
+    refuse_images(model, messages)
     if self.system_prompt and not any(m.get("role") == "system" for m in messages):
       messages = [{"role": "system", "content": self.system_prompt}] + messages
     tokenizer = await self._tokenizer_for(model)

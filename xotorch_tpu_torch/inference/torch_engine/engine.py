@@ -9,16 +9,27 @@ The port of the single-shard subset of xotorch_tpu/inference/jax_engine/engine.p
   seed. Weights are quantized on the device under `quantize=` / XOT_QUANTIZE (int8 or
   int4): decode projections then run the quantized GEMV kernels K5, K5v4 and K6
   (models/transformer._linear);
-- `infer_sample_tensor` prefills in XOT_PREFILL_CHUNK segments, each padded to a
-  power-of-two bucket, and samples the first token on the device. On a contiguous
-  cache the first segment of a fresh request goes to the prefill kernel (K1), later
-  segments to the cached kernel (K2); on the page arena every segment goes to K4;
+- `infer_sample_tensor` prefills in XOT_PREFILL_CHUNK segments and samples the first
+  token on the device. A prompt's leading whole segments (all but the segment that
+  holds its last token) fill the cache through `prefill_scan`, one program for each
+  power-of-two group of segments (`_scan_prefill`, `_paged_fill_sync`), on a
+  contiguous cache when there are at least two of them and XOT_SCAN_PREFILL is on
+  (JAX's rule), on the page arena always; every segment of the scan goes through the
+  cached kernel (K2, or K4 on the arena), the from-zero one too. Otherwise, and for the
+  last segment (padded to a power-of-two bucket), a fresh request's first segment on
+  a contiguous cache goes to the prefill kernel (K1) and later ones to K2; on the page
+  arena every segment goes to K4;
 - `generate_chunk` decodes K tokens per call with sampling on the device, with the
   same CacheExhausted semantics at XOT_MAX_CACHE_LEN. With XOT_DECODE_BATCH > 1 the
   call goes through the continuous batcher (`_DecodeBatcher`), which coalesces
   concurrent requests' chunks into one batched dispatch: over stacked contiguous
   caches through K2 (XOT_PAGED_KV=0, the default), or over the shared page arena
   through K3 (XOT_PAGED_KV=1);
+- on the card every decode chunk and every scan-prefill group runs as CUDA-graph
+  replays (models/graphs.py: one captured decode step replayed K times, one captured
+  group of segments; contiguous caches copied through the context's slab). No eager
+  path runs instead: a failed capture raises, naming its key. The CPU runs the same
+  step and scan eagerly (models/generate.py);
 - `infer_tensor` / `sample` keep the per-token contract of the ring: a partition's
   hidden state leaves in the model's dtype (bf16 on the card) for the next peer.
 
@@ -55,8 +66,9 @@ from xotorch_tpu_torch.inference.torch_engine import vkv
 from xotorch_tpu_torch.inference.torch_engine.paged_cache import PagePool, commit_pages, migrate_pages
 from xotorch_tpu_torch.inference.torch_engine.vkv import VirtualKV
 from xotorch_tpu_torch.models.config import ModelConfig, config_from_hf_dict, load_model_config
-from xotorch_tpu_torch.models.generate import (decode_chunk, decode_chunk_batched, decode_chunk_paged,
-                                               forward_sample)
+from xotorch_tpu_torch.models import graphs
+from xotorch_tpu_torch.models.generate import (decode_chunk_batched, decode_chunk_paged, forward_sample,
+                                               prefill_scan, scan_groups)
 from xotorch_tpu_torch.models.quantize import QUANT_DTYPES, quantize_params
 from xotorch_tpu_torch.models.registry import get_model_card
 from xotorch_tpu_torch.models.transformer import (forward_shard, init_kv_cache, init_random_params,
@@ -108,6 +120,7 @@ class _ShardContext:
   batcher: Optional["_DecodeBatcher"] = None
   page_pool: Optional[PagePool] = None
   model_dir: Optional[Path] = None  # the checkpoint's directory; None for synthetic cards
+  graphs: Optional[graphs.GraphCache] = None  # the captured programs, on the card
 
 
 class _Pending(NamedTuple):
@@ -328,7 +341,8 @@ class TorchShardInferenceEngine(InferenceEngine):
             f"cache_len={cache_len}, paged={self.paged})")
     return _ShardContext(shard=shard, cfg=cfg, params=params, cache_len=cache_len,
                          max_cache_len=max_cache_len, tokenizer=tokenizer,
-                         states=OrderedDict(), model_dir=model_dir)
+                         states=OrderedDict(), model_dir=model_dir,
+                         graphs=graphs.GraphCache(self.device) if self.device.type == "cuda" else None)
 
   def _check_kernel_shapes(self, model_id: str, cfg: ModelConfig) -> None:
     """Refuse, when a shard is loaded, a model whose attention shapes the kernels are not
@@ -451,6 +465,60 @@ class TorchShardInferenceEngine(InferenceEngine):
     self._advance(ctx, state, true_t)
     return out, true_t
 
+  def _prefill_groups(self, ctx: _ShardContext, state: _RequestState, x: torch.Tensor, cache,
+                      chunk: int, want_hidden: bool,
+                      page_table: Optional[torch.Tensor] = None) -> Optional[torch.Tensor]:
+    """x's whole segments of `chunk` tokens from state.pos through `prefill_scan`, one
+    program for each power-of-two group: a CUDA-graph replay on the card
+    (models/graphs.prefill), the same scan eagerly on the CPU. Returns the last-layer
+    hidden states when `want_hidden`."""
+    is_first = x.ndim == 2
+    if ctx.graphs is not None:
+      return graphs.prefill(ctx.graphs, ctx.params, x, cache, state.pos, ctx.cfg, chunk,
+                            is_first=is_first, start_layer=ctx.shard.start_layer,
+                            page_table=page_table, route=self.quant_route, want_hidden=want_hidden)
+    hs, pos = [], state.pos
+    for off, g in scan_groups(x.shape[1] // chunk):
+      h, _ = prefill_scan(ctx.params, x[:, off * chunk:(off + g) * chunk], cache, pos, ctx.cfg, g,
+                          is_first=is_first, start_layer=ctx.shard.start_layer,
+                          page_table=page_table, route=self.quant_route)
+      hs.append(h)
+      pos += g * chunk
+    if not want_hidden:
+      return None
+    return hs[0] if len(hs) == 1 else torch.cat(hs, dim=1)
+
+  def _scan_prefill(self, ctx: _ShardContext, request_id: str, input_data, chunk: int,
+                    want_hidden: bool = False):
+    """A long prompt's leading whole segments on a contiguous cache through the scan
+    prefill (`_prefill_groups`): one program for each power-of-two group of segments
+    instead of one dispatch a segment. Returns the [B, total, H] last-layer hidden
+    states when `want_hidden` (a mid-ring shard), else True; None when the path does
+    not apply (XOT_SCAN_PREFILL=0, a length that is not whole segments, or fewer than
+    two: the per-segment loop then pays one dispatch anyway and keeps K1 for a
+    from-zero segment), and the caller loops over the segments."""
+    total = input_data.shape[1]
+    if not knobs.get_bool("XOT_SCAN_PREFILL") or total % chunk or total < 2 * chunk:
+      return None
+    state = self._prep_state(ctx, request_id, total)
+    x = self._to_device_input(input_data)
+    h = self._prefill_groups(ctx, state, x, state.cache, chunk, want_hidden)
+    state.pos += total
+    state.last_used = time.monotonic()
+    return h if want_hidden else True
+
+  def _prefill_fill_sync(self, ctx: _ShardContext, request_id: str, input_data,
+                         paged_native: bool) -> None:
+    """Cache-fill forward of a prompt's leading whole segments, outputs dropped on the
+    device: the scan prefill where it applies, else segment by segment."""
+    if paged_native:
+      self._paged_fill_sync(ctx, request_id, input_data)
+      return
+    chunk = self._prefill_chunk()
+    if not self._scan_prefill(ctx, request_id, input_data, chunk):
+      for off in range(0, input_data.shape[1], chunk):
+        self._forward_segment(ctx, request_id, input_data[:, off:off + chunk], fill=True)
+
   def _infer_sync(self, ctx: _ShardContext, request_id: str, input_data):
     """The shard's output on the host: fp32 logits from the last shard as numpy; a
     hidden state in the model's dtype, so a hop carries what the next shard computes
@@ -458,8 +526,16 @@ class TorchShardInferenceEngine(InferenceEngine):
     the wire codec sends as raw bf16."""
     true_t = input_data.shape[1]
     chunk = self._prefill_chunk()
-    outs = []
-    for off in range(0, true_t, chunk):
+    outs, off0 = [], 0
+    if true_t > chunk and not ctx.shard.is_last_layer:
+      # A mid-ring shard's long prompt: the leading whole segments through the scan
+      # prefill (hidden states out, no unembedding anywhere), the rest segment by segment.
+      split = ((true_t - 1) // chunk) * chunk
+      h = self._scan_prefill(ctx, request_id, input_data[:, :split], chunk, want_hidden=True)
+      if h is not None:
+        outs.append(h)
+        off0 = split
+    for off in range(off0, true_t, chunk):
       out, t = self._forward_segment(ctx, request_id, input_data[:, off:off + chunk])
       outs.append(out[:, :t])
     out = (outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)).cpu()
@@ -489,12 +565,12 @@ class TorchShardInferenceEngine(InferenceEngine):
     true_t = input_data.shape[1]
     chunk = self._prefill_chunk()
     is_fresh = request_id not in ctx.states
+    paged_native = self._paged_segment(ctx, request_id, input_data)
     try:
       if true_t > chunk:
-        # Leading full segments fill the cache without the unembedding.
+        # Leading whole segments fill the cache without the unembedding.
         split = ((true_t - 1) // chunk) * chunk
-        for off in range(0, split, chunk):
-          self._forward_segment(ctx, request_id, input_data[:, off:off + chunk], fill=True)
+        self._prefill_fill_sync(ctx, request_id, input_data[:, :split], paged_native)
         input_data = input_data[:, split:]
       x, seg_t, state, cache, kw = self._segment_setup(ctx, request_id, input_data)
       tok, _ = forward_sample(ctx.params, x, cache, state.pos, seg_t - 1, ctx.cfg, x.ndim == 2,
@@ -548,11 +624,12 @@ class TorchShardInferenceEngine(InferenceEngine):
 
   def _decode_batch_sync(self, ctx: _ShardContext, items: List[_Pending], num_tokens: int,
                          top_k: int, top_p: float) -> List[np.ndarray]:
-    """One decode chunk for 1..B requests in a single dispatch. B == 1 decodes the
-    request's own cache. B > 1 grows every member to a common cache length, then
-    stacks, decodes with per-row positions and temperatures, and splits back
-    (models/generate.decode_chunk_batched). Under XOT_PAGED_KV the chunk indexes
-    the shared page arena instead (_decode_batch_paged_sync)."""
+    """One decode chunk for 1..B requests in a single dispatch: every member grows to
+    a common cache length, and the chunk decodes the stacked caches with per-row
+    positions and temperatures: on the card as replays of the captured step over the
+    context's slab (models/graphs.decode_contiguous), on the CPU eagerly
+    (models/generate.decode_chunk_batched). Under XOT_PAGED_KV the chunk indexes the
+    shared page arena instead (_decode_batch_paged_sync)."""
     for it in items:
       if ctx.states.get(it.request_id) is not it.state:
         raise RequestStateLost(f"request {it.request_id}: device state evicted mid-generation")
@@ -560,28 +637,27 @@ class TorchShardInferenceEngine(InferenceEngine):
       return self._decode_batch_paged_sync(ctx, items, num_tokens, top_k, top_p)
     states = [it.state for it in items]
     toks_in = torch.tensor([[it.prev_token] for it in items], dtype=torch.int64, device=self.device)
-    if len(items) == 1:
-      state = states[0]
-      if state.pos + num_tokens > state.cache["k"].shape[2]:
-        self._grow_cache(ctx, state, state.pos + num_tokens)
-      toks, _ = decode_chunk(ctx.params, toks_in, state.cache, state.pos, ctx.cfg, num_tokens,
-                             items[0].temp, top_k, top_p, use_flash_decode=True,
-                             generator=self.generator, route=self.quant_route)
+    target = max(max(s.pos + num_tokens for s in states),
+                 max(s.cache["k"].shape[2] for s in states))
+    for state in states:
+      if state.cache["k"].shape[2] < target:
+        self._grow_cache(ctx, state, target)
+    if len({s.cache["k"].shape for s in states}) != 1:
+      raise AssertionError(f"batched decode needs one cache shape, got "
+                           f"{sorted({tuple(s.cache['k'].shape) for s in states})}")
+    pos = torch.tensor([s.pos for s in states], dtype=torch.int32, device=self.device)
+    temps = torch.tensor([it.temp for it in items], dtype=torch.float32, device=self.device)
+    if ctx.graphs is not None:
+      # The card: replays of the captured step over the context's slab; each request's
+      # cache is updated in place.
+      toks = graphs.decode_contiguous(ctx.graphs, ctx.params, [s.cache for s in states], toks_in,
+                                      pos, ctx.cfg, num_tokens, temps, top_k, top_p,
+                                      route=self.quant_route, generator=self.generator)
     else:
-      target = max(max(s.pos + num_tokens for s in states),
-                   max(s.cache["k"].shape[2] for s in states))
-      for state in states:
-        if state.cache["k"].shape[2] < target:
-          self._grow_cache(ctx, state, target)
-      if len({s.cache["k"].shape for s in states}) != 1:
-        raise AssertionError(f"batched decode needs one cache shape, got "
-                             f"{sorted({tuple(s.cache['k'].shape) for s in states})}")
       B = len(states)
       toks, caches = decode_chunk_batched(
-        ctx.params, [s.cache for s in states], toks_in,
-        torch.tensor([s.pos for s in states], dtype=torch.int32, device=self.device), ctx.cfg,
-        num_tokens, torch.tensor([it.temp for it in items], dtype=torch.float32, device=self.device),
-        top_k, top_p, use_flash_decode=True, pad_rows=_bucket(B, 1) - B, generator=self.generator,
+        ctx.params, [s.cache for s in states], toks_in, pos, ctx.cfg, num_tokens, temps, top_k,
+        top_p, use_flash_decode=True, pad_rows=_bucket(B, 1) - B, generator=self.generator,
         route=self.quant_route)
       for state, cache in zip(states, caches):
         state.cache = cache
@@ -653,6 +729,21 @@ class TorchShardInferenceEngine(InferenceEngine):
     maxp = _bucket(max(len(state.pages), 1), 1)
     return torch.as_tensor(vkv.resolve_page_table([state.pages], maxp), device=self.device)
 
+  def _paged_fill_sync(self, ctx: _ShardContext, request_id: str, input_data) -> None:
+    """Fill-only paged-native prefill of whole segments: they go straight into the
+    request's pool pages through the scan prefill (K4, one program for each
+    power-of-two group, from one segment up, as in JAX). A windowed model then gives
+    back the pages its window slid past: later segments' queries sit past them."""
+    chunk = self._prefill_chunk()
+    total = int(input_data.shape[1])
+    state = self._prep_state_paged(ctx, request_id, total)
+    x = self._to_device_input(input_data)
+    table = self._paged_table_for(ctx, state)
+    self._prefill_groups(ctx, state, x, ctx.page_pool.arena, chunk, False, page_table=table)
+    state.pos += total
+    self._vkv_window_release(ctx, state)
+    state.last_used = time.monotonic()
+
   def _decode_batch_paged_sync(self, ctx: _ShardContext, items: List[_Pending], num_tokens: int,
                                top_k: int, top_p: float) -> List[np.ndarray]:
     """Paged twin of the batched chunk: commit any member still on its prefill
@@ -677,12 +768,17 @@ class TorchShardInferenceEngine(InferenceEngine):
     maxp = _bucket(max(len(s.pages) for s in states), 1)
     table = torch.as_tensor(vkv.resolve_page_table([s.pages for s in states], maxp),
                             device=self.device)
-    toks, _ = decode_chunk_paged(
-      ctx.params, pool.arena, table,
-      torch.tensor([[it.prev_token] for it in items], dtype=torch.int64, device=self.device),
-      torch.tensor([s.pos for s in states], dtype=torch.int32, device=self.device), ctx.cfg,
-      num_tokens, torch.tensor([it.temp for it in items], dtype=torch.float32, device=self.device),
-      top_k, top_p, pad_rows=_bucket(B, 1) - B, generator=self.generator, route=self.quant_route)
+    toks_in = torch.tensor([[it.prev_token] for it in items], dtype=torch.int64, device=self.device)
+    pos = torch.tensor([s.pos for s in states], dtype=torch.int32, device=self.device)
+    temps = torch.tensor([it.temp for it in items], dtype=torch.float32, device=self.device)
+    if ctx.graphs is not None:
+      toks = graphs.decode_paged(ctx.graphs, ctx.params, pool.arena, table, toks_in, pos, ctx.cfg,
+                                 num_tokens, temps, top_k, top_p, route=self.quant_route,
+                                 generator=self.generator)
+    else:
+      toks, _ = decode_chunk_paged(ctx.params, pool.arena, table, toks_in, pos, ctx.cfg, num_tokens,
+                                   temps, top_k, top_p, pad_rows=_bucket(B, 1) - B,
+                                   generator=self.generator, route=self.quant_route)
     host = toks.cpu().numpy().astype(np.int64)
     for state in states:
       self._advance(ctx, state, num_tokens)

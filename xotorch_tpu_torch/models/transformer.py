@@ -399,7 +399,10 @@ def embed(params: Params, x: torch.Tensor, cfg: Optional[ModelConfig] = None) ->
   else:
     h = emb[x].to(row_scale.dtype) * row_scale[x][..., None]
   if cfg is not None and cfg.scale_embedding:
-    h = h * torch.tensor(cfg.hidden_size ** 0.5, dtype=h.dtype, device=h.device)
+    # The factor rounded to the rows' dtype on the host, then a scalar multiply: the
+    # same bits as multiplying by a device tensor of that dtype, with no host-to-device
+    # copy (a captured step refuses one).
+    h = h * torch.tensor(cfg.hidden_size ** 0.5, dtype=h.dtype).item()
   return h
 
 

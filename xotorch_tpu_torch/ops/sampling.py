@@ -5,6 +5,11 @@ The port of xotorch_tpu/ops/sampling.py (`sample_logits`, `sample_logits_logprob
 Noise comes from an explicit `torch.Generator`, or from a `gumbel` tensor the caller
 passes (the tests inject JAX's noise this way, since the two frameworks' generators
 give different numbers from one seed).
+
+Nothing here copies a host value to the device: a temperature or penalty is either a
+Python float, used as a kernel's scalar argument, or a device tensor ([B] per row), so
+a decode step can be captured as a CUDA graph (models/graphs.py), where a host-to-device
+copy is refused. The captured decode steps pass temperatures as a [B] device tensor.
 """
 from __future__ import annotations
 
@@ -19,7 +24,11 @@ Scalar = Union[float, torch.Tensor]
 
 
 def _per_row(x: Scalar, rows: int, device) -> torch.Tensor:
-  return torch.as_tensor(x, dtype=torch.float32, device=device).reshape(-1).expand(rows)
+  """A [rows, 1] fp32 column: a per-row [B] tensor reshaped, or a Python number filled
+  in on the device (a fill, not a host-to-device copy)."""
+  if torch.is_tensor(x):
+    return x.to(device=device, dtype=torch.float32).reshape(-1, 1).expand(rows, 1)
+  return torch.full((rows, 1), float(x), dtype=torch.float32, device=device)
 
 
 def _penalized(logits, bias, counts, presence, frequency):
@@ -31,7 +40,7 @@ def _penalized(logits, bias, counts, presence, frequency):
     c = counts.to(torch.float32)
     pres = _per_row(presence, logits.shape[0], logits.device)
     freq = _per_row(frequency, logits.shape[0], logits.device)
-    logits = logits.to(torch.float32) - pres[:, None] * (c > 0) - freq[:, None] * c
+    logits = logits.to(torch.float32) - pres * (c > 0) - freq * c
   return logits
 
 
@@ -58,30 +67,30 @@ def sample_logits(
   """Returns [B] int64 token ids. Rows with temp == 0 take the greedy pick."""
   logits = _penalized(logits, bias, counts, presence, frequency)
   greedy = torch.argmax(logits, dim=-1)
-  if isinstance(temp, (int, float)) and temp == 0.0:
+  if not torch.is_tensor(temp) and temp <= 0.0:
     return greedy
   B, V = logits.shape
   temp_b = _per_row(temp, B, logits.device)
-  logits = logits.to(torch.float32) / torch.clamp(temp_b, min=1e-6)[:, None]
-  neg_inf = torch.tensor(float("-inf"), device=logits.device)
+  logits = logits.to(torch.float32) / torch.clamp(temp_b, min=1e-6)
+  neg_inf = float("-inf")
   if top_k and 0 < top_k < V:
     kth = torch.topk(logits, top_k, dim=-1).values[..., -1:]
-    logits = torch.where(logits < kth, neg_inf, logits)
+    logits = logits.masked_fill(logits < kth, neg_inf)
   if top_p and 0.0 < top_p < 1.0:
     sorted_logits = torch.sort(logits, dim=-1, descending=True).values
     cumulative = torch.cumsum(torch.softmax(sorted_logits, dim=-1), dim=-1)
     # Keep the smallest prefix with cumulative mass >= top_p (always >= 1 token).
     cutoff_idx = torch.sum(cumulative < top_p, dim=-1, keepdim=True).clamp_max(V - 1)
     cutoff_logit = torch.gather(sorted_logits, -1, cutoff_idx)
-    logits = torch.where(logits < cutoff_logit, neg_inf, logits)
+    logits = logits.masked_fill(logits < cutoff_logit, neg_inf)
   if min_p is not None:
     # min-p: keep tokens whose probability is at least min_p times the largest.
     probs = torch.softmax(logits, dim=-1)
     cutoff = float(min_p) * probs.max(dim=-1, keepdim=True).values
-    logits = torch.where(probs < cutoff, neg_inf, logits)
+    logits = logits.masked_fill(probs < cutoff, neg_inf)
   noise = gumbel if gumbel is not None else gumbel_noise(logits.shape, generator, logits.device)
   sampled = torch.argmax(logits + noise.to(logits.device, torch.float32), dim=-1)
-  return torch.where(temp_b > 0, sampled, greedy)
+  return torch.where(temp_b[:, 0] > 0, sampled, greedy)
 
 
 def sample_logits_logprobs(

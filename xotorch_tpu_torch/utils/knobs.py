@@ -29,6 +29,7 @@ _DEFS: Tuple[Knob, ...] = (
   Knob("XOT_CACHE_LEN", "int", "2048", "Initial per-request KV-cache length (tokens); grows geometrically when exceeded."),
   Knob("XOT_MAX_CACHE_LEN", "int", "32768", "Hard ceiling for per-request KV-cache growth (tokens)."),
   Knob("XOT_PREFILL_CHUNK", "int", "4096", "Prefill chunk length (tokens): prompts longer than this prefill in chunks."),
+  Knob("XOT_SCAN_PREFILL", "bool", "1", "Use the lax.scan prefill over equal chunks (one compile for any chunk count)."),
   Knob("XOT_DECODE_CHUNK", "int", "8", "Tokens per fused decode dispatch on a single-partition ring; 1 = per-token ring."),
   Knob("XOT_DECODE_CHUNK_MAX", "int", "64", "Adaptive fused-decode chunk ceiling (doubles per dispatch up to this)."),
   Knob("XOT_FLASH_BLOCK_Q", "int", "128", "K1's query rows a block (positions x query heads of one kv head): 64 or 128. At head_dim 256 K1 takes 64 whatever this says."),
