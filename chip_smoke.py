@@ -122,8 +122,23 @@ Phases, in order; any failure exits nonzero and prints no result line:
      captures, their seconds and the graph pool and slab bytes; a 4096-token prompt
      through prefill_scan against the per-segment loop (hidden states within
      PREFILL_REL_LIMIT) and the engine's TTFT with XOT_SCAN_PREFILL 1 and 0;
-  14. the {"kernels": [...]} line (attention launches include phase 12's), then the
-     {"ok": true, ...} line last.
+  14. sampling extras: OpenAI's seed, logit_bias, presence/frequency penalties,
+     min_p, logprobs, stop and n over HTTP on fresh synthetic-llama-1b servers at full
+     width and depth (check_sampling_extras): a ban of -100 moves the temperature-0
+     first token and +100 on one id makes every token that id; min_p 1 gives the greedy
+     stream (parting only where another token's bf16 logit ties the top one); 16 greedy tokens' logprobs and top 5 within 2e-2 of fp32 log-softmax of the
+     eager forward's logits; seed 7 reproduces its stream on the same server (the seeded
+     graph's generator re-seeded between replays) and on a fresh one, seed 8 and an n 2
+     sibling differ; a stop string from the greedy stream with frequency_penalty 2 cuts
+     that answer before it (finish "stop", decode steps under max_tokens); plain n 4 coalesces in the batcher;
+     frequency_penalty 2 runs on the paged server (K4, K3); graph replays equal the eager
+     decode_chunk from the same counts bit for bit over two ladder chunks, contiguous and
+     paged; TPOT of an extras request against a plain one at B=1 in turns, the device ms
+     the extras add to a step, the captures they add. (Phase 12's gemma-2-2b server
+     answers one request with logprobs 3 and a logit_bias, held against the log-softmax
+     of its softcapped logits.)
+  15. the {"kernels": [...]} line (attention launches include phases 12's and 14's),
+     then the {"ok": true, ...} line last.
 """
 from __future__ import annotations
 
@@ -1536,7 +1551,7 @@ def main_requests(model: str):
 
 def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthetic-llama-1b",
                     kernels=None, env=None, tag: str = "main", profiles=(1,),
-                    focus: str = "", cli=(), wrapper=None, requests=None) -> dict:
+                    focus: str = "", cli=(), wrapper=None, requests=None, after=None) -> dict:
   """The port's server on `model` (synthetic-llama-1b: full width and depth, on the
   card) answers three chat completions over HTTP, with `env` (XOT_* knobs, e.g. the
   quantized formats) set for the phase and `cli` (e.g. `--kv-quantize int8`) added
@@ -1545,11 +1560,12 @@ def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthe
   K2), its windowed launches too, is set to 0 just
   before the three requests and read just after; then a decode chunk runs under the
   profiler at each batch size of `profiles` (with `wrapper`, held to one `focus` kernel
-  a call of it). Returns the launch counts, the decode
+  a call of it); then `after(engine, node, api, base_url)` (a coroutine), if given, while the
+  server still runs. Returns the launch counts, the decode
   steps the batcher ran for the three requests, the tokens each request streamed,
   each request's timing line, the profiles, the windowed launches, the page pool's
   occupancy once the requests are done (None without a pool), the served tokenizer's
-  class and each request's prompt tokens. (`device` and `model` let the same phase be rehearsed on the CPU
+  class, each request's prompt tokens and what `after` returned. (`device` and `model` let the same phase be rehearsed on the CPU
   with a small card.)"""
   from xotorch_tpu_torch import main as port_main
   from xotorch_tpu_torch.models.registry import build_full_shard
@@ -1645,7 +1661,9 @@ def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthe
         for b in profiles:
           profiled[b] = await profile_decode(torch, engine, model, classname, card, batch=b,
                                              tag=tag, focus=focus, wrapper=wrapper)
-        return counts, decoded, steps, streamed, profiled, timings, windowed, pool, prompt_tokens
+        extra = None if after is None else await after(engine, node, api, base)
+        return (counts, decoded, steps, streamed, profiled, timings, windowed, pool, prompt_tokens,
+                extra)
       finally:
         server.close()
         await server.wait_closed()
@@ -1653,13 +1671,14 @@ def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthe
 
     try:
       (counts, decoded, steps, streamed, profiled, timings, windowed, pool,
-       prompt_tokens) = asyncio.run(drive())
+       prompt_tokens, extra) = asyncio.run(drive())
     finally:
       engine.executor.shutdown(wait=True)
   print(f"[{tag}] launches: {counts} ({decoded} decoded tokens, {steps} decode steps)", flush=True)
   return {"launches": counts, "decoded": decoded, "steps": steps, "tokens": streamed,
           "profiles": profiled, "timings": timings, "windowed": windowed, "pool": pool,
-          "tokenizer": type(engine.tokenizer).__name__, "prompt_tokens": prompt_tokens}
+          "tokenizer": type(engine.tokenizer).__name__, "prompt_tokens": prompt_tokens,
+          "after": extra}
 
 
 def quant_phases():
@@ -2515,6 +2534,8 @@ def drive_gemma(torch, card: str, device: str = "cuda") -> dict:
   profiler, then a fresh server with XOT_PAGED_KV=1
   the same (K4 = 26 x segments, K3 = 26 x decode steps, half windowed, 0 pages left),
   and the share of temperature-0 tokens the two agree on (bf16: not asserted). The
+  contiguous server also answers one request with logprobs and a logit_bias, held
+  against the log-softmax of its softcapped logits (gemma_extras). The
   checkpoint is deleted at the end. Returns the phase's launches by wrapper. (`device`
   lets the phase be rehearsed on the CPU with a small GEMMA_CONFIG.)"""
   import shutil
@@ -2542,9 +2563,12 @@ def drive_gemma(torch, card: str, device: str = "cuda") -> dict:
           ("gemma paged", {"XOT_PAGED_KV": "1"}, (paged_prefill_attention, paged_decode_attention),
            (), ())):
         t0 = time.perf_counter()
+        after = None
+        if tag == "gemma":
+          after = lambda *a: gemma_extras(torch, *a, card)  # noqa: E731
         run = drive_main_path(torch, card, device=device, model=GEMMA_CARD, kernels=kernels,
                               env=env, tag=tag, profiles=profiles, cli=cli, requests=requests,
-                              focus="flash_cached_")
+                              focus="flash_cached_", after=after)
         runs[tag] = run
         segments = [-(-n // 1024) for n in run["prompt_tokens"]]
         # JAX's routing: a prompt with two or more whole segments before its last one
@@ -2712,13 +2736,15 @@ def fused_chunk(m: FusedModel, state, toks, pos, n: int, temps, top_k: int, page
       out, _ = generate.decode_chunk_paged(m.params, arena, table, toks, pos, m.cfg, n, temps,
                                            top_k, pad_rows=pad, **kw)
     else:
-      out = graphs.decode_paged(gc, m.params, arena, table, toks, pos, m.cfg, n, temps, top_k, **kw)
+      out, _ = graphs.decode_paged(gc, m.params, arena, table, toks, pos, m.cfg, n, temps, top_k,
+                                   **kw)
     return out, state
   if gc is None:
     out, split = generate.decode_chunk_batched(m.params, state, toks, pos, m.cfg, n, temps, top_k,
                                                use_flash_decode=True, pad_rows=pad, **kw)
     return out, split
-  return graphs.decode_contiguous(gc, m.params, state, toks, pos, m.cfg, n, temps, top_k, **kw), state
+  out, _ = graphs.decode_contiguous(gc, m.params, state, toks, pos, m.cfg, n, temps, top_k, **kw)
+  return out, state
 
 
 def fused_parity(torch, m: FusedModel, B: int, paged: bool, sampled: bool, card: str,
@@ -3090,6 +3116,449 @@ def check_fused(torch, card: str, device: str = "cuda", make_cache=None,
           "slab_bytes": slab, "ttft": ttft}
 
 
+# ------------------------------------------------------------------ phase 14: sampling extras
+
+EXTRAS_WORDS = 200  # prompt words of the extras phase's requests
+EXTRAS_LP_LIMIT = 2e-2  # a reported logprob against fp32 log-softmax of the eager forward
+EXTRAS_LADDER = (8, 16)  # the eager/graph parity's two chunks
+# An extras request (logit bias, both penalties, 5 logprobs), as the API's fields.
+EXTRAS_FIELDS = {"logit_bias": {"1000": 2.0}, "presence_penalty": 0.5, "frequency_penalty": 0.5,
+                 "logprobs": True, "top_logprobs": 5}
+
+
+def extras_body(model: str, words: int = EXTRAS_WORDS, **fields) -> dict:
+  return {"model": model, "messages": [{"role": "user", "content": " ".join(
+    f"w{i % 89}" for i in range(words))}], **fields}
+
+
+def word_tokenizer():
+  """The DummyTokenizer with a decode that names each id (" w<id>"): the API's text then
+  shows the token ids, so stop strings and logprob items can be held to the ids the
+  engine sampled."""
+  from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer
+
+  class WordIds(DummyTokenizer):
+    def decode(self, tokens) -> str:
+      return "".join(f" w{int(t)}" for t in tokens)
+  return WordIds()
+
+
+def lp_reference(torch, engine, prompt_ids, tokens, bias=None):
+  """fp32 log-softmax, plus `bias` {id: value}, of the eager forward's logits at each
+  generated token's position ([len(tokens), V]), computed as the server computed them:
+  the served params, the prompt padded to the engine's bucket and prefilled (K1) on a
+  cache of the engine's initial length, the unembedding on its last real position, then
+  one eager decode step (K2) a token (gemma's logits softcapped)."""
+  from xotorch_tpu_torch.inference.torch_engine.engine import _bucket
+  from xotorch_tpu_torch.models.transformer import forward_shard, init_kv_cache, unembed
+  ctx = engine._ctx
+  cache = init_kv_cache(ctx.cfg, ctx.shard.get_layer_count(), 1, ctx.cache_len, engine.dtype,
+                        engine.device)
+  kw = dict(cfg=ctx.cfg, is_first=True, route=engine.quant_route)
+  n = len(prompt_ids)
+  x = torch.zeros((1, _bucket(n)), dtype=torch.int64, device=engine.device)
+  x[0, :n] = torch.tensor(list(prompt_ids), dtype=torch.int64)
+  h, _ = forward_shard(ctx.params, x, cache, 0, is_last=False, use_flash=True, **kw)
+  rows = [unembed(ctx.params, h[:, n - 1:n], ctx.cfg)[0, -1]]
+  for i, t in enumerate(tokens[:-1]):
+    x = torch.tensor([[int(t)]], dtype=torch.int64, device=engine.device)
+    logits, _ = forward_shard(ctx.params, x, cache, n + i, is_last=True, use_flash_decode=True,
+                              **kw)
+    rows.append(logits[0, -1])
+  rows = torch.stack(rows).float()
+  for t, v in (bias or {}).items():
+    rows[:, int(t)] += float(v)
+  return torch.log_softmax(rows, dim=-1)
+
+
+async def prompt_ids(engine, api, model: str, body: dict) -> list:
+  """The token ids the engine prefilled for `body`: the API's prompt, the engine's
+  tokenizer."""
+  prompt, _ = await api._request_prompt(model, body["messages"], None)
+  return (await engine.encode(engine.shard, prompt)).tolist()
+
+
+def check_logprob_items(torch, tag: str, items: list, tokens: list, ref, k: int, card: str) -> float:
+  """The API's logprob items against the reference rows: each sampled token's logprob,
+  and its top k (sorted, the sampled one first by value) against the reference's top k,
+  within EXTRAS_LP_LIMIT. Returns the largest error."""
+  if len(items) != len(tokens):
+    raise AssertionError(f"{tag}: {len(items)} logprob items for {len(tokens)} tokens")
+  errors = []
+  for i, (item, tok) in enumerate(zip(items, tokens)):
+    tops = [t["logprob"] for t in item["top_logprobs"]]
+    if len(tops) != k or tops != sorted(tops, reverse=True) or tops[0] != item["logprob"]:
+      raise AssertionError(f"{tag}: token {i}: top_logprobs {tops} (logprob {item['logprob']})")
+    want = torch.topk(ref[i], k).values.tolist()
+    errors.append(max([abs(item["logprob"] - float(ref[i, tok]))]
+                      + [abs(a - b) for a, b in zip(tops, want)]))
+  worst = max(errors)
+  ok = worst <= EXTRAS_LP_LIMIT
+  print(f"[{tag}] {len(items)} tokens' logprobs and top {k} against fp32 log-softmax of the "
+        f"eager forward's logits: largest error {worst:.2e} (limit {EXTRAS_LP_LIMIT}); top {k} "
+        f"sorted, the sampled token first ({card}) {'ok' if ok else 'FAIL'}", flush=True)
+  if not ok:
+    raise AssertionError(f"{tag}: logprobs off the reference by token: "
+                         + ", ".join(f"{e:.2e}" for e in errors))
+  return worst
+
+
+async def gemma_extras(torch, engine, node, api, base: str, card: str) -> dict:
+  """Phase 12's gemma-2-2b server (its contiguous one) answers one request with
+  logprobs, top_logprobs 3 and a logit_bias (-100 on the temperature-0 first token, +4 on
+  another): the first token moves, and each reported logprob is held against the fp32
+  log-softmax of the eager forward's softcapped logits with the bias added."""
+  loop = asyncio.get_running_loop()
+  body = extras_body(GEMMA_CARD, words=64, temperature=0, max_tokens=12, logprobs=True,
+                     top_logprobs=3)
+  tokens = {}
+  node.on_token.register("chip-smoke-gemma-extras").on_next(
+    lambda rid, toks, fin: tokens.__setitem__(rid, list(toks)))
+  url = base + "/v1/chat/completions"
+  plain = await loop.run_in_executor(None, http_json, url, body)
+  first = tokens[plain["id"][len("chatcmpl-"):]][0]
+  bias = {str(first): -100.0, "1000": 4.0}
+  resp = await loop.run_in_executor(None, http_json, url, {**body, "logit_bias": bias})
+  got = tokens[resp["id"][len("chatcmpl-"):]]
+  if got[0] == first:
+    raise AssertionError(f"gemma extras: the banned token {first} came first")
+  ids = await prompt_ids(engine, api, GEMMA_CARD, body)
+  ref = await engine._run(lp_reference, torch, engine, ids, got, bias)
+  items = resp["choices"][0]["logprobs"]["content"]
+  return {"max_err": check_logprob_items(torch, "gemma extras", items, got[:len(items)], ref, 3,
+                                         card)}
+
+
+def extras_parity(torch, engine, card: str, paged: bool, make_cache, device: str) -> None:
+  """frequency_penalty 2 at temperature 0 on the served params: graph replays over the
+  static extras buffers (models/graphs) against the eager decode_chunk (models/generate)
+  from one prefilled state (fused_batch: K1, or K4 on the page arena) and the same counts,
+  over two ladder chunks (EXTRAS_LADDER): tokens, counts and cache or arena bit for bit,
+  and the decode kernel's counter (K2, or K3) reading layers x steps for the replays."""
+  from xotorch_tpu_torch.models import generate, graphs
+  ctx = engine._ctx
+  m = FusedModel("bf16", ctx.cfg, ctx.params, engine.quant_route, engine.kv_quant is not None,
+                 engine.dtype, ctx.shard.get_layer_count())
+  state, toks, pos = fused_batch(torch, m, 1, paged, device)
+  counts0 = torch.zeros((1, ctx.cfg.vocab_size), dtype=torch.int32, device=device)
+  counts0[0, toks[0, 0]] = 1  # the prefill's token, counted as the engine counts it
+  temps = torch.zeros((1,), device=device)
+  attn, _ = _decode_kernels(m, paged)
+  gc = make_cache()
+  runs = {}
+  for label in ("eager", "graph"):
+    st, tok, p, counts, outs = _clone_state(state, paged), toks, pos.clone(), counts0.clone(), []
+    attn.launches = 0
+    for n in EXTRAS_LADDER:
+      if label == "eager":
+        kw = dict(counts=counts, frequency=2.0, route=m.route)
+        if paged:
+          out, _, counts = generate.decode_chunk_paged(m.params, st[0], st[1], tok, p, m.cfg, n,
+                                                       temps, 0, **kw)
+        else:
+          out, st, counts = generate.decode_chunk_batched(m.params, st, tok, p, m.cfg, n, temps, 0,
+                                                          use_flash_decode=True, **kw)
+      else:
+        ex = graphs.SamplerExtras(counts=counts, presence=torch.zeros((1,), device=device),
+                                  frequency=torch.full((1,), 2.0, device=device))
+        if paged:
+          out, _ = graphs.decode_paged(gc, m.params, st[0], st[1], tok, p, m.cfg, n, temps, 0,
+                                       route=m.route, extras=ex)
+        else:
+          out, _ = graphs.decode_contiguous(gc, m.params, st, tok, p, m.cfg, n, temps, 0,
+                                            route=m.route, extras=ex)
+      outs.append(out)
+      tok, p = out[:, -1:].contiguous(), p + n
+    runs[label] = (st, counts, torch.cat(outs, dim=1), attn.launches)
+  (est, ecounts, etoks, _), (gst, gcounts, gtoks, launches) = runs["eager"], runs["graph"]
+  steps = sum(EXTRAS_LADDER)
+  same_toks = torch.equal(etoks, gtoks)
+  same_counts = torch.equal(ecounts, gcounts) and int(gcounts.sum()) == 1 + steps
+  if paged:
+    same_cache = all(torch.equal(est[0][n], gst[0][n]) for n in gst[0])
+  else:
+    same_cache = all(torch.equal(a[n], b[n]) for a, b in zip(est, gst) for n in b)
+  want = m.layers * steps if device == "cuda" else 0
+  ok = same_toks and same_counts and same_cache and launches == want
+  print(f"[extras] frequency_penalty 2, temperature 0, {'paged' if paged else 'contiguous'}: "
+        f"chunks {EXTRAS_LADDER} of graph replays against the eager decode_chunk from the same "
+        f"counts: tokens {'identical' if same_toks else 'DIFFER'}, counts "
+        f"{'identical' if same_counts else 'DIFFER'} ({int(gcounts.sum())} counted), "
+        f"{'arena' if paged else 'cache'} {'identical' if same_cache else 'DIFFERS'}; "
+        f"{attn.__name__} launches {launches} for the replays (want {want}); {gc.captures} "
+        f"capture(s) ({card}) {'ok' if ok else 'FAIL'}", flush=True)
+  if not ok:
+    raise AssertionError(f"extras parity paged={paged}: tokens {same_toks}, counts {same_counts}, "
+                         f"cache {same_cache}, launches {launches} vs {want}")
+
+
+async def extras_step_ms(torch, engine, card: str, n: int = 32) -> dict:
+  """The device ms a decode step takes for a plain request and for an extras one
+  (EXTRAS_FIELDS) at B=1: one chunk of `n` greedy steps each under the profiler, after a
+  200-token prompt and a warm chunk."""
+  import numpy as np
+  from torch.profiler import ProfilerActivity, profile
+  from xotorch_tpu_torch.api.chatgpt_api import ChatGPTAPI
+  shard = engine.shard
+  out = {}
+  for label, s in (("plain", None), ("extras", ChatGPTAPI._parse_sampling(EXTRAS_FIELDS).sampling)):
+    rid = f"extras-profile-{label}"
+    tok, _ = await engine.infer_sample_tensor(rid, shard, np.ones((1, 200), np.int64), temp=0.0,
+                                              top_k=0, **({"sampling": s} if s else {}))
+    toks = await engine.generate_chunk(rid, shard, int(tok), 8, temp=0.0, top_k=0)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      t0 = time.perf_counter()
+      await engine.generate_chunk(rid, shard, int(toks[-1]), n, temp=0.0, top_k=0)
+      torch.cuda.synchronize()
+      wall = (time.perf_counter() - t0) * 1e3
+    await engine.clear_request(rid)
+    busy = kernels = 0
+    for evt in prof.key_averages():
+      us = getattr(evt, "self_device_time_total", None)
+      if us is None:
+        us = getattr(evt, "self_cuda_time_total", 0)
+      if us > 0:
+        busy += us / 1e3
+        kernels += evt.count
+    out[label] = busy / n if kernels else None
+    print(f"[extras] {label} B=1 chunk of {n} under the profiler: wall {wall / n:.3f} ms a step, "
+          + ("device time not measured" if not kernels else f"{busy / n:.3f} device ms a step")
+          + f", {kernels / n:.0f} device kernels a step ({card})", flush=True)
+  if out["plain"] is not None and out["extras"] is not None:
+    print(f"[extras] the extras add {out['extras'] - out['plain']:.3f} device ms a step at B=1 "
+          f"({card})", flush=True)
+  return out
+
+
+def extras_server(torch, env: dict, device: str, model: str, drive):
+  """A fresh server (main.build_node) on `model` under `env`, with the word-id tokenizer
+  in its API; returns `await drive(engine, node, api, base_url, tokens, steps)`: `tokens`
+  the node's streams by request id, `steps` ([1]) the decode steps the engine ran."""
+  from xotorch_tpu_torch import main as port_main
+  from xotorch_tpu_torch.models.registry import build_full_shard
+  with phase_env(XOT_PREFILL_CHUNK="1024", **env):
+    args = port_main.build_parser().parse_args(
+      ["--device", device, "--default-model", model, "--chatgpt-api-host", "127.0.0.1",
+       "--chatgpt-api-port", "0", "--chatgpt-api-response-timeout", "600"])
+    node, engine, classname, api = port_main.build_node(args)
+    api._tokenizers[model] = word_tokenizer()
+    tokens, steps = {}, [0]
+    node.on_token.register("chip-smoke-extras").on_next(
+      lambda rid, toks, fin: tokens.__setitem__(rid, list(toks)))
+    decode = engine._decode_batch_sync
+
+    def counted(ctx, items, *a):
+      res = decode(ctx, items, *a)
+      steps[0] += len(res[0])
+      return res
+    engine._decode_batch_sync = counted
+
+    async def run():
+      server = await api.start("127.0.0.1", 0)
+      base = f"http://127.0.0.1:{server.sockets[0].getsockname()[1]}"
+      try:
+        await engine.ensure_shard(build_full_shard(model, classname))
+        return await drive(engine, node, api, base, tokens, steps)
+      finally:
+        server.close()
+        await server.wait_closed()
+        await node.stop()
+
+    try:
+      return asyncio.run(run())
+    finally:
+      engine.executor.shutdown(wait=True)
+
+
+def check_sampling_extras(torch, card: str, device: str = "cuda", model: str = "synthetic-llama-1b",
+                          make_cache=None, rounds: int = 4) -> dict:
+  """Phase 14: OpenAI's sampling extras served end to end, over HTTP, on fresh servers of
+  `model` (contiguous, a second fresh one, paged), each check failing the run: logit_bias
+  (-100 on the temperature-0 first token moves it; +100 on one id makes every token that
+  id), min_p 1 at temperature 1 taking at every token its row's largest logit in the eager
+  forward fed that stream (an exact tie allowed), 16 greedy tokens' logprobs and
+  top_logprobs 5 within EXTRAS_LP_LIMIT of fp32 log-softmax of the eager forward's logits
+  (sorted, the sampled token first), seed 7 at temperature 1 reproduced on the same server
+  (its graph's generator re-seeded between replays) and on a fresh one while seed 8
+  differs and n 2 with seed 7 gives two streams, frequency_penalty 2 moving the greedy
+  stream and a stop string from that stream cutting its answer before it (finish
+  "stop") with the engine's decode steps below max_tokens, plain n 4 at temperature 0.6
+  coalescing in the batcher (mean width > 1), frequency_penalty 2 and logprobs through
+  the paged server (K4 prefill, K3 decode); graph replays against the eager decode_chunk
+  with the same counts bit for bit, contiguous and paged (extras_parity). K1/K2
+  (contiguous) and K4/K3 (paged) counters are set to 0 before a server's requests and
+  read after them, before any reference runs, and held exactly to layers x prefills and
+  layers x decode steps. Then, on the card: TPOT of an extras request
+  (EXTRAS_FIELDS) against a plain one at B=1, `rounds` rounds in turn; the device ms the
+  extras add to a step (extras_step_ms); the captures the requests added. Returns the
+  launches and the numbers. (`device`, `model` and `make_cache` let it be rehearsed on
+  the CPU with synthetic-tiny and an eager stand-in for the graph cache.)"""
+  from xotorch_tpu_torch.models import graphs
+  from xotorch_tpu_torch.models.registry import get_model_card
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention
+  from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention
+  from xotorch_tpu_torch.ops.paged_attention import paged_decode_attention, paged_prefill_attention
+  make_cache = make_cache or (lambda: graphs.GraphCache(device))
+  t_phase = time.perf_counter()
+  cuda = device == "cuda"
+  url = "/v1/chat/completions"
+  out: dict = {"launches": {}}
+
+  def need(ok: bool, what: str) -> None:
+    print(f"[extras] {what} ({card}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+      raise AssertionError(f"extras: {what}")
+
+  def asker(base, tokens):
+    loop = asyncio.get_running_loop()
+
+    async def ask(**fields):
+      """POST one completion; (the response, the node's token list of each choice)."""
+      resp = await loop.run_in_executor(None, http_json, base + url, extras_body(model, **fields))
+      rid = resp["id"][len("chatcmpl-"):]
+      n = fields.get("n", 1)
+      return resp, [tokens[rid]] if n == 1 else [tokens[f"{rid}#{i}"] for i in range(n)]
+    return ask
+
+  def counted_launches(kernels, prefills: int, decoded: int, tag: str) -> dict:
+    """The prefill and decode kernels' counts, held exactly to layers x prefills (one
+    segment each) and layers x decode steps (none on the CPU, where no kernel runs)."""
+    counts = {k.__name__: k.launches for k in kernels}
+    layers = get_model_card(model)["synthetic_config"]["num_hidden_layers"] if cuda else 0
+    want = {kernels[0].__name__: layers * prefills, kernels[1].__name__: layers * decoded}
+    need(counts == want, f"{tag} launches {counts}: {layers} x {prefills} prefills and "
+                         f"{layers} x {decoded} decode steps ({want})")
+    return counts
+
+  async def contiguous(engine, node, api, base, tokens, steps):
+    ask = asker(base, tokens)
+    kernels = (flash_attention, flash_cached_attention)
+    await ask(temperature=0, max_tokens=2)  # warm-up
+    gcache = engine._ctx.graphs
+    before = (gcache.captures, gcache.capture_seconds) if gcache else (0, 0.0)
+    for k in kernels:
+      k.launches = 0
+    steps[0] = 0
+    V = engine.cfg.vocab_size
+    _, [greedy] = await ask(temperature=0, max_tokens=32)
+    _, [banned] = await ask(temperature=0, max_tokens=8, logit_bias={str(greedy[0]): -100})
+    need(banned[0] != greedy[0], f"logit_bias -100 on the greedy first token {greedy[0]}: "
+                                 f"the first token is {banned[0]}")
+    forced = next(t for t in (1000, V // 2, V // 2 + 1) if t < V and t != greedy[0])
+    _, [pinned] = await ask(temperature=0.8, max_tokens=16, logit_bias={str(forced): 100})
+    need(pinned == [forced] * 16, f"logit_bias +100 on id {forced} at temperature 0.8: "
+                                  f"{pinned.count(forced)}/16 tokens that id")
+    _, [minp] = await ask(temperature=1.0, max_tokens=32, min_p=1)
+    resp, [lp_toks] = await ask(temperature=0, max_tokens=16, logprobs=True, top_logprobs=5)
+    items = resp["choices"][0]["logprobs"]["content"]
+    need(lp_toks == greedy[:16] and [int(i["token"].strip()[1:]) for i in items] == lp_toks,
+         "logprobs 5 at temperature 0: the greedy tokens, one item each naming it")
+    seeded = [(await ask(temperature=1.0, max_tokens=32, seed=s))[1][0] for s in (7, 7, 8)]
+    need(seeded[0] == seeded[1] != seeded[2], "seed 7 twice on one server, temperature 1 (the "
+         "seeded graph's generator re-seeded between replays): the same stream; seed 8 another")
+    out["seed7"] = seeded[0]
+    _, pair = await ask(temperature=1.0, max_tokens=32, seed=7, n=2)
+    need(pair[0] != pair[1], "n 2 with seed 7: two different streams")
+    _, [pen] = await ask(temperature=0, max_tokens=32, frequency_penalty=2)
+    need(pen != greedy, f"frequency_penalty 2 at temperature 0: {len(set(pen))} distinct tokens of "
+                        f"32, the plain greedy stream {len(set(greedy))}")
+    out["penalty_tokens"] = pen
+    # A stop string from that stream (a random model's plain greedy stream repeats a few
+    # tokens, so the stop would show at once): tokens 3 and 4.
+    text = word_tokenizer().decode(pen)
+    stop = word_tokenizer().decode(pen[3:5]).strip()
+    decode_steps = steps[0]
+    resp, _ = await ask(temperature=0, max_tokens=64, frequency_penalty=2, stop=[stop])
+    choice = resp["choices"][0]
+    used = steps[0] - decode_steps
+    need(choice["message"]["content"] == text[:text.find(stop)] and choice["finish_reason"] == "stop"
+         and used < 63, f"stop {stop!r} from the penalized greedy stream: the answer cut before it "
+         f"({len(choice['message']['content'])} of {len(text)} characters), finish "
+         f"{choice['finish_reason']!r}, {used} decode steps for max_tokens 64")
+    b = engine._ctx.batcher
+    dispatches, rows = b.dispatches, b.rows
+    await ask(temperature=0.6, max_tokens=32, n=4)
+    width = (b.rows - rows) / max(1, b.dispatches - dispatches)
+    need(width > 1, f"plain n 4 at temperature 0.6: mean batch width {width:.2f} in the batcher")
+    # Prefills: ten requests' and the n siblings' (2 + 4); decode steps the engine ran.
+    await wait_idle(engine)
+    out["launches"].update(counted_launches(kernels, 16, steps[0], "contiguous server"))
+    # The references run K1 and K2 through the same wrappers: only after the counts.
+    ids = await prompt_ids(engine, api, model, extras_body(model))
+    # min_p 1 keeps the tokens at the largest probability: each token of the stream must
+    # sit at its row's largest logit in the eager forward fed that stream (an exact
+    # bf16 tie with another id allowed: then the noise picks one).
+    ref = await engine._run(lp_reference, torch, engine, ids, minp)
+    top = ref.max(dim=-1).values
+    off = [i for i, t in enumerate(minp) if ref[i, t] != top[i]]
+    tied = sum(int((ref[i] == top[i]).sum()) > 1 for i in range(len(minp)))
+    part = next((i for i, (a, b) in enumerate(zip(minp, greedy)) if a != b), None)
+    need(not off, f"min_p 1 at temperature 1: {len(minp) - len(off)}/{len(minp)} tokens at their "
+                  f"row's largest logit ({tied} rows with a tie for it; the greedy stream "
+                  f"{'kept throughout' if part is None else f'left at token {part}'})")
+    ref = await engine._run(lp_reference, torch, engine, ids, lp_toks)
+    out["lp_err"] = check_logprob_items(torch, "extras", items, lp_toks, ref, 5, card)
+    if cuda:
+      tpot = {"plain": [], "extras": []}
+      loop = asyncio.get_running_loop()
+      for _ in range(rounds):
+        for label in ("plain", "extras"):
+          body = extras_body(model, temperature=0, max_tokens=64, stream=True,
+                             **(EXTRAS_FIELDS if label == "extras" else {}))
+          _, first, last = await loop.run_in_executor(None, http_stream, base + url, body)
+          tpot[label].append((last - first) / 63 * 1e3)
+      med = {k: sorted(v)[len(v) // 2] for k, v in tpot.items()}
+      print(f"[extras] TPOT at B=1 over 64 tokens, {rounds} rounds in turn: plain "
+            + ", ".join(f"{v:.3f}" for v in tpot["plain"]) + " / extras (bias, penalties, "
+            + "5 logprobs) " + ", ".join(f"{v:.3f}" for v in tpot["extras"])
+            + f" ms; median plain {med['plain']:.3f}, extras {med['extras']:.3f} ms ({card})",
+            flush=True)
+      out["tpot_ms"] = med
+      out["step_device_ms"] = await extras_step_ms(torch, engine, card)
+    if gcache:
+      out["captures"] = (gcache.captures - before[0], gcache.capture_seconds - before[1])
+      print(f"[extras] the phase's requests on this server captured {out['captures'][0]} "
+            f"graph(s) in {out['captures'][1]:.2f} s ({card})", flush=True)
+    await wait_idle(engine)
+    await engine._run(extras_parity, torch, engine, card, False, make_cache, device)
+    return out
+
+  async def fresh(engine, node, api, base, tokens, steps):
+    return (await asker(base, tokens)(temperature=1.0, max_tokens=32, seed=7))[1][0]
+
+  async def paged(engine, node, api, base, tokens, steps):
+    ask = asker(base, tokens)
+    kernels = (paged_prefill_attention, paged_decode_attention)
+    await ask(temperature=0, max_tokens=2)
+    for k in kernels:
+      k.launches = 0
+    steps[0] = 0
+    _, [pen] = await ask(temperature=0, max_tokens=32, frequency_penalty=2)
+    resp, [lp_toks] = await ask(temperature=0, max_tokens=16, logprobs=True, top_logprobs=5,
+                                presence_penalty=1)
+    items = resp["choices"][0]["logprobs"]["content"]
+    need(len(items) == 16 and engine.page_pool_stats() is not None,
+         "paged server: frequency_penalty 2 and a logprobs request answered from the page pool")
+    await wait_idle(engine)
+    launches = counted_launches(kernels, 2, steps[0], "paged server")
+    same = sum(a == b for a, b in zip(pen, out["penalty_tokens"]))
+    print(f"[extras] paged frequency_penalty 2 tokens the contiguous server shares: {same}/32 "
+          f"(bf16: not asserted) ({card})", flush=True)
+    await wait_idle(engine)
+    await engine._run(extras_parity, torch, engine, card, True, make_cache, device)
+    return launches
+
+  extras_server(torch, {"XOT_PAGED_KV": "0"}, device, model, contiguous)
+  seed7 = extras_server(torch, {"XOT_PAGED_KV": "0"}, device, model, fresh)
+  need(seed7 == out["seed7"], "seed 7 at temperature 1 on a fresh server: the first server's "
+                              "stream")
+  out["launches"].update(extras_server(torch, {"XOT_PAGED_KV": "1"}, device, model, paged))
+  print(f"[extras] phase 14 took {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{out['launches']} ({card})", flush=True)
+  return out
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--kernels-only", action="store_true",
@@ -3254,7 +3723,13 @@ def main(argv=None) -> int:
   print(f"[time] phases 1-12: {time.perf_counter() - started:.1f} s", flush=True)
   check_fused(torch, card)
 
-  # Phase 14: results.
+  # Phase 14: OpenAI's sampling extras through the API, the engine and the decode graphs;
+  # its attention launches join the results line.
+  for name, n in check_sampling_extras(torch, card)["launches"].items():
+    launches[name] += n
+  print(f"[time] phases 1-14: {time.perf_counter() - started:.1f} s", flush=True)
+
+  # Phase 15: results.
   meta = {
     "flash_attention": ("xotorch_tpu_torch/csrc/flash_attention.cu",
                         "xotorch_tpu/ops/flash_attention.py:54"),

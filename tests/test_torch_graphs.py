@@ -158,9 +158,9 @@ def test_decode_matches_jax(kind, sampled, via):
                         torch.tensor(list(lens) + [0], dtype=torch.int32),
                         torch.cat([temps, temps[:1]]), noise, table=full)[:B]
     else:
-      got = graphs.decode_paged(EagerGraphCache("cpu"), params, arena, torch.from_numpy(table),
-                                toks_in, torch.from_numpy(pos), cfg, K, temps, TOP_K,
-                                gumbel=noise)
+      got, _ = graphs.decode_paged(EagerGraphCache("cpu"), params, arena, torch.from_numpy(table),
+                                   toks_in, torch.from_numpy(pos), cfg, K, temps, TOP_K,
+                                   gumbel=noise)
     np.testing.assert_array_equal(got.numpy(), np.asarray(jtoks))
     return
   jcaches, caches, last = [], [], []
@@ -192,8 +192,8 @@ def test_decode_matches_jax(kind, sampled, via):
                       torch.cat([temps] + [temps[:1]] * (Bb - B)), noise)[:B]
     caches = [{n: t[:, i:i + 1] for n, t in stacked.items()} for i in range(B)]
   else:
-    got = graphs.decode_contiguous(EagerGraphCache("cpu"), params, caches, toks_in,
-                                   torch.from_numpy(pos), cfg, K, temps, TOP_K, gumbel=noise)
+    got, _ = graphs.decode_contiguous(EagerGraphCache("cpu"), params, caches, toks_in,
+                                      torch.from_numpy(pos), cfg, K, temps, TOP_K, gumbel=noise)
   np.testing.assert_array_equal(got.numpy(), np.asarray(jtoks))
   for c, jc in zip(caches, jcaches):
     np.testing.assert_allclose(c["k"].numpy(), np.asarray(jc["k"]), atol=1e-4)
@@ -473,9 +473,9 @@ def test_token_record_is_read_past_its_rows(monkeypatch):
   want, _ = generate.decode_chunk(params, torch.tensor([[9]]), caches[0], 0, cfg, 11, 0.0, 0,
                                   use_flash_decode=True)
   gc = EagerGraphCache("cpu")
-  got = graphs.decode_contiguous(gc, params, [caches[1]], torch.tensor([[9]]),
-                                 torch.tensor([0], dtype=torch.int32), cfg, 11, torch.tensor([0.0]),
-                                 0)
+  got, _ = graphs.decode_contiguous(gc, params, [caches[1]], torch.tensor([[9]]),
+                                    torch.tensor([0], dtype=torch.int32), cfg, 11,
+                                    torch.tensor([0.0]), 0)
   assert torch.equal(got, want)
   assert gc.captures == 1 and gc.replays == 10
   for name in caches[0]:

@@ -194,10 +194,10 @@ class StubNode:
 
 async def _served(node=None):
   node = node or StubNode()
-  port = find_available_port()
-  server = TCPServer(node, "127.0.0.1", port)
+  server = TCPServer(node, "127.0.0.1", 0)  # the system's pick: no draw to lose before the bind
   await server.start()
-  return node, server, TCPPeerHandle(node.id, f"127.0.0.1:{port}", "test", UNKNOWN_DEVICE_CAPABILITIES)
+  return node, server, TCPPeerHandle(node.id, f"127.0.0.1:{server.port}", "test",
+                                     UNKNOWN_DEVICE_CAPABILITIES)
 
 
 async def _settle():

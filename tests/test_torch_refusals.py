@@ -4,10 +4,11 @@
   is built (tile knobs, the page size) or when a shard is loaded (head_dim and q heads
   per kv head, which only the model's config knows), never at a launch in the middle
   of a request: the CPU runs the plain versions and would never see them there.
-- The chat API answers 400 naming each request field that the JAX package serves and
-  the port does not yet (stop, seed, the sampling extras, logprobs, n, tools), and
-  serves the neutral values of those fields as if they were absent: the same greedy
-  stream as a request without them.
+- The chat API serves every request field the JAX package serves (stop, seed, the
+  sampling extras, logprobs, n, tools) with the JAX handler's validation: an invalid
+  value is answered 400 in the JAX handler's words, naming the field, and the neutral
+  values are served as if they were absent: the same greedy stream as a request
+  without them.
 """
 import asyncio
 import json
@@ -18,7 +19,7 @@ import pytest
 import torch
 
 from xotorch_tpu_torch import main as port_main
-from xotorch_tpu_torch.api.chatgpt_api import UNSERVED, ChatGPTAPI, HTTPError
+from xotorch_tpu_torch.api.chatgpt_api import ChatGPTAPI, HTTPError
 from xotorch_tpu_torch.inference.shard import Shard
 from xotorch_tpu_torch.inference.torch_engine.engine import TorchShardInferenceEngine
 from xotorch_tpu_torch.models import registry
@@ -116,28 +117,68 @@ async def test_shard_load_takes_the_kernels_shapes(monkeypatch, paged):
 
 # ------------------------------------------------------------------ F2: the API
 
-REFUSED = [("n", 2), ("n", 1.0), ("stop", "\n"), ("stop", ["a", "b"]), ("seed", 0), ("seed", 7),
-           ("min_p", 0.1), ("presence_penalty", 0.5), ("frequency_penalty", -1.0),
-           ("logit_bias", {"5": 10}), ("logprobs", True), ("top_logprobs", 2), ("tools", [
-             {"type": "function", "function": {"name": "f", "parameters": {}}}])]
-NEUTRAL = {"n": 1, "stop": [], "seed": None, "min_p": 0, "presence_penalty": 0,
-           "frequency_penalty": 0.0, "logit_bias": {}, "logprobs": False, "top_logprobs": 0,
+# An invalid value of each field the JAX package validates (tools it hands to the chat
+# template unchecked): (field, the request's fields).
+INVALID = [("n", {"n": 0}), ("n", {"n": 9}), ("n", {"n": 1.0}), ("stop", {"stop": ["a"] * 5}),
+           ("stop", {"stop": ""}), ("stop", {"stop": ["a", 3]}), ("seed", {"seed": 2 ** 63}),
+           ("seed", {"seed": 7.0}), ("min_p", {"min_p": 1.5}),
+           ("presence_penalty", {"presence_penalty": 2.5}),
+           ("frequency_penalty", {"frequency_penalty": -3}),
+           ("logit_bias", {"logit_bias": {"-1": 10}}), ("logit_bias", {"logit_bias": {"5": 101}}),
+           ("logprobs", {"logprobs": "yes"}), ("top_logprobs", {"logprobs": True, "top_logprobs": 21}),
+           ("top_logprobs", {"top_logprobs": 2})]
+# A served value of each field: (the request's fields), parsed unlike the request without it.
+SERVED = {"n": {"n": 2}, "stop": {"stop": "\n"}, "seed": {"seed": 0}, "min_p": {"min_p": 0.1},
+          "presence_penalty": {"presence_penalty": 0.5}, "frequency_penalty": {"frequency_penalty": -1.0},
+          "logit_bias": {"logit_bias": {"5": 10}}, "logprobs": {"logprobs": True},
+          "top_logprobs": {"logprobs": True, "top_logprobs": 2},
+          "tools": {"tools": [{"type": "function", "function": {"name": "f", "parameters": {}}}]}}
+NEUTRAL = {"n": 1, "stop": None, "seed": None, "min_p": 0, "presence_penalty": 0,
+           "frequency_penalty": 0.0, "logit_bias": {}, "logprobs": False, "top_logprobs": None,
            "tools": []}
 
 
+def jax_message(body: dict) -> str:
+  """The 400 message of the JAX package's chat handler for `body`."""
+  from xotorch_tpu.api.chatgpt_api import ChatGPTAPI as JChatGPTAPI
+  from xotorch_tpu.inference.dummy import DummyInferenceEngine
+  from xotorch_tpu.orchestration.node import Node as JNode
+  from xotorch_tpu.topology.partitioning import RingMemoryWeightedPartitioningStrategy
+
+  class Request:
+    async def json(self):
+      return body
+
+  async def run():
+    node = JNode("jax-api", None, DummyInferenceEngine(), None, None,
+                 RingMemoryWeightedPartitioningStrategy())
+    resp = await JChatGPTAPI(node, "JAXShardInferenceEngine").handle_post_chat_completions(Request())
+    assert resp.status == 400, (body, resp.status)
+    return json.loads(resp.body)["error"]["message"]
+  return asyncio.run(run())
+
+
 def test_every_unserved_field_is_listed():
-  assert sorted(name for name, _ in UNSERVED) == sorted(NEUTRAL)
-  assert {name for name, _ in REFUSED} == set(NEUTRAL)
+  """Every field the JAX package serves is parsed: a served value changes the parse, and
+  every field but tools has an invalid value refused below."""
+  assert set(SERVED) == set(NEUTRAL) == {f for f, _ in INVALID} | {"tools"}
+  base = {"max_tokens": 4, "temperature": 0}
+  for field, fields in SERVED.items():
+    without = {k: v for k, v in fields.items() if k != field}
+    assert ChatGPTAPI._parse_sampling({**base, **fields}) != \
+      ChatGPTAPI._parse_sampling({**base, **without}), field
 
 
-@pytest.mark.parametrize("field,value", REFUSED, ids=[f"{f}={v!r}"[:40] for f, v in REFUSED])
-def test_unserved_field_is_answered_400_naming_it(field, value):
+@pytest.mark.parametrize("field,fields", INVALID, ids=[f"{f}={v!r}"[:40] for f, v in INVALID])
+def test_unserved_field_is_answered_400_naming_it(field, fields):
+  body = {"model": MODEL, "max_tokens": 4, "messages": [{"role": "user", "content": "hi"}], **fields}
   with pytest.raises(HTTPError) as err:
-    ChatGPTAPI._parse_sampling({"max_tokens": 4, field: value})
+    ChatGPTAPI._parse_sampling(body)
   assert err.value.status == 400
   error = err.value.body["error"]
-  assert error["param"] == field
-  assert error["message"].startswith(f"{field}=") and "xotorch_tpu_torch" in error["message"]
+  assert error["type"] == "invalid_request_error"
+  assert error["message"].startswith(field)
+  assert error["message"] == jax_message(body)
 
 
 @pytest.mark.parametrize("field", sorted(NEUTRAL))
@@ -145,10 +186,13 @@ def test_neutral_values_parse_as_absent(field):
   base = {"max_tokens": 4, "temperature": 0}
   assert ChatGPTAPI._parse_sampling({**base, field: NEUTRAL[field]}) == \
     ChatGPTAPI._parse_sampling(base)
-  alternatives = {"stop": ["", None], "logprobs": [None], "top_logprobs": [None],
-                  "logit_bias": [None], "min_p": [None, 0.0], "tools": [None], "n": [None]}
+  alternatives = {"logprobs": [None], "logit_bias": [None], "min_p": [None, 0.0], "tools": [None],
+                  "n": [None], "seed": [None], "presence_penalty": [0.0]}
   for value in alternatives.get(field, []):
     assert ChatGPTAPI._parse_sampling({**base, field: value}) == ChatGPTAPI._parse_sampling(base)
+  if field == "top_logprobs":  # with logprobs on, 0 alternatives is the default
+    on = {**base, "logprobs": True}
+    assert ChatGPTAPI._parse_sampling({**on, "top_logprobs": 0}) == ChatGPTAPI._parse_sampling(on)
 
 
 def _post(url, body):
@@ -173,18 +217,23 @@ async def test_api_refuses_over_http_and_serves_neutral_values_as_absent():
           "messages": [{"role": "user", "content": "one two three four five six"}]}
   try:
     with pytest.raises(urllib.error.HTTPError) as err:
-      await post({**body, "stop": ["four"]})
+      await post({**body, "n": 9})
     assert err.value.code == 400
-    assert json.loads(err.value.read())["error"]["param"] == "stop"
+    assert json.loads(err.value.read())["error"]["message"] == "n must be an integer in [1, 8], got 9"
     assert not streams  # refused before the node saw it
 
     plain = await post(body)
     want = streams.pop(plain["id"][len("chatcmpl-"):])
-    neutral = await post({**body, **NEUTRAL, "stop": ""})
+    neutral = await post({**body, **NEUTRAL})
     got = streams.pop(neutral["id"][len("chatcmpl-"):])
     assert len(want) == 10 and got == want
     assert neutral["choices"][0]["message"] == plain["choices"][0]["message"]
     assert neutral["usage"] == plain["usage"]
+    # A stop sequence is served: one that never shows leaves the answer whole.
+    stopped = await post({**body, "stop": ["four"]})
+    assert streams.pop(stopped["id"][len("chatcmpl-"):]) == want
+    assert stopped["choices"][0]["message"] == plain["choices"][0]["message"]
+    assert stopped["choices"][0]["finish_reason"] == "length"
   finally:
     server.close()
     await server.wait_closed()

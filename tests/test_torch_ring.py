@@ -33,6 +33,7 @@ from xotorch_tpu_torch.inference.torch_engine.engine import TorchShardInferenceE
 from xotorch_tpu_torch.models.weights import params_from_jax
 from xotorch_tpu_torch.networking import codec
 from xotorch_tpu_torch.networking.tcp import peer_handle as tcp_peer_handle
+from xotorch_tpu_torch.topology.device_capabilities import device_capabilities_sync
 from xotorch_tpu_torch.utils.helpers import find_available_port
 
 torch.set_num_threads(2)
@@ -40,6 +41,7 @@ torch.set_num_threads(2)
 MODEL = "synthetic-tiny"  # 4 layers, hidden 64
 PROMPT = "hello world test prompt for the ring"
 GEN = 8
+CONFIG_CAPS = {"model": "cpu", "chip": "cpu", "memory": 1024, "flops": {"fp32": 1, "fp16": 2, "int8": 4}}
 
 
 @pytest.fixture()
@@ -59,14 +61,16 @@ def jax_weights(monkeypatch):
 
 class Ring:
   """n port peers on 127.0.0.1, built by main.build_node with manual discovery over one
-  config naming them all. Equal memories: the ring's order is the ids, descending."""
+  config naming them all. Equal memories: the ring's order is the ids, descending.
+  The config's capabilities (1024 MB) are unlike what each peer probes, as a config
+  written by hand may be: every peer's view must come to hold what the others report
+  of themselves, whichever crawl lands last."""
 
   def __init__(self, tmp_path, ids, extra=()):
     self.ports = {i: find_available_port() for i in ids}
-    caps = {"model": "cpu", "chip": "cpu", "memory": 1024, "flops": {"fp32": 1, "fp16": 2, "int8": 4}}
     path = tmp_path / "peers.json"
     path.write_text(json.dumps({"peers": {
-      i: {"address": "127.0.0.1", "port": p, "device_capabilities": caps} for i, p in self.ports.items()}}))
+      i: {"address": "127.0.0.1", "port": p, "device_capabilities": CONFIG_CAPS} for i, p in self.ports.items()}}))
     self.nodes, self.engines = {}, {}
     for i in ids:
       args = port_main.build_parser().parse_args(
@@ -208,6 +212,30 @@ async def test_two_and_three_node_rings_match_jax_ring_and_solo(jax_weights, tmp
     assert mid.get_current_shard(Shard(MODEL, 0, 0, 4)) == Shard(MODEL, 1, 2, 4)
     for entry in ("n2", "n1", "n0"):  # the prompt enters at each peer in turn
       assert (await _generate(ring.nodes[entry], f"three-{entry}")) == (want, None)
+  finally:
+    await ring.stop()
+
+
+async def test_peers_agree_on_the_ring_whichever_crawl_lands_last(tmp_path):
+  """node-a answers CollectTopology late, so its own crawl (node-b answers at once)
+  lands before the crawl node-b started reaches it; that late crawl skips node-b, which
+  started it. node-a's view must still hold what node-b reported of itself, not the
+  config's 1024 MB: every peer holds every peer's probed capabilities, and one table."""
+  ring = Ring(tmp_path, ["node-b", "node-a"])
+  server = ring.nodes["node-a"].server
+  answer = server._handlers["CollectTopology"]
+
+  async def late(fields, tensors):
+    await asyncio.sleep(0.5)
+    return await answer(fields, tensors)
+  server._handlers["CollectTopology"] = late
+  await ring.start()
+  try:
+    probed = device_capabilities_sync().to_dict()
+    assert probed["memory"] != CONFIG_CAPS["memory"]
+    for node in ring.nodes.values():
+      assert {i: c.to_dict() for i, c in node.topology.nodes.items()} == {
+        i: probed for i in ring.nodes}
   finally:
     await ring.stop()
 

@@ -55,9 +55,12 @@ class InferenceEngine(ABC):
   @abstractmethod
   async def infer_sample_tensor(
     self, request_id: str, shard: Shard, input_data: np.ndarray, temp: float = 0.0, top_k: int = 0,
-    inference_state: Optional[dict] = None, top_p: float = 0.0,
+    inference_state: Optional[dict] = None, top_p: float = 0.0, sampling: Optional[dict] = None,
   ) -> Tuple[int, Optional[dict]]:
-    """Run the last shard's layers and sample on the device: the host gets one int."""
+    """Run the last shard's layers and sample on the device: the host gets one int.
+    `sampling` holds the request's OpenAI extras (seed, logit_bias, presence_penalty,
+    frequency_penalty, min_p, logprobs), kept with the request for its later calls
+    and decode chunks."""
     ...
 
   @abstractmethod
@@ -68,6 +71,12 @@ class InferenceEngine(ABC):
     """Up to `num_tokens` tokens decoded on the device for a prefilled request whose
     shard spans the whole model."""
     ...
+
+  def pop_logprobs(self, request_id: str, n: Optional[int] = None) -> Optional[list]:
+    """Drain up to `n` (default all) of the request's recorded logprob entries
+    ({"logprob", "top": [(id, logprob), ...]} a sampled token, in sampling order); None
+    when nothing was recorded."""
+    return None
 
   async def infer_prompt(
     self, request_id: str, shard: Shard, prompt: str, inference_state: Optional[dict] = None,

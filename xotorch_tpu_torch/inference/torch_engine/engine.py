@@ -31,7 +31,16 @@ The port of the single-shard subset of xotorch_tpu/inference/jax_engine/engine.p
   path runs instead: a failed capture raises, naming its key. The CPU runs the same
   step and scan eagerly (models/generate.py);
 - `infer_tensor` / `sample` keep the per-token contract of the ring: a partition's
-  hidden state leaves in the model's dtype (bf16 on the card) for the next peer.
+  hidden state leaves in the model's dtype (bf16 on the card) for the next peer;
+- OpenAI's sampling extras (`sampling=` of infer_sample_tensor: seed, logit_bias,
+  presence/frequency penalties, min_p, logprobs) become the request's extras state
+  (`_build_extras`) on the peer that samples: a dense [1, V] bias, [1, V] counts of the
+  sampled tokens (the prompt carries no penalty), the values the sampler reads, and a
+  seed whose stream derives from (seed, the sampled token's absolute position, the
+  choice index of an `n` sibling `rid#i`). An extras request decodes in a chunk of its
+  own, never in the batcher, contiguous or paged; on the card its chunk replays the
+  decode graph keyed by which extras it has, with their values in static buffers.
+  Logprob records wait in a bounded LRU for `pop_logprobs`.
 
 Per-request state is either a contiguous [L, 1, S, Hkv, D] KV cache that grows by
 powers of two, or (XOT_PAGED_KV=1) a VirtualKV handle of pages in the context's
@@ -43,13 +52,16 @@ It runs on `cuda` unless the caller passes device="cpu" (the tests do), and rais
 when no GPU is present rather than falling back to the CPU.
 
 Left out so far: the prefix cache, the host KV tier, co-scheduled prefill,
-speculative and overlapped chunks, sampling extras, the fused in-process ring
-(`supports_ring_fusion`) and device-resident hops.
+speculative and overlapped chunks, the fused in-process ring (`supports_ring_fusion`)
+and device-resident hops.
 """
 from __future__ import annotations
 
 import asyncio
+import hashlib
+import threading
 import time
+import zlib
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
 from dataclasses import dataclass
@@ -106,6 +118,9 @@ class _RequestState:
   pos: int  # tokens already resident in the cache
   last_used: float
   pages: Optional[VirtualKV] = None  # the request's pool pages (XOT_PAGED_KV=1)
+  # OpenAI sampling extras (_build_extras): one row of bias, counts, penalties, min-p,
+  # logprobs and the seed. None = a plain request, which the batcher may group.
+  extras: Optional[graphs.SamplerExtras] = None
 
 
 @dataclass
@@ -267,8 +282,15 @@ class TorchShardInferenceEngine(InferenceEngine):
     self.paged_prefill = knobs.get_bool("XOT_PAGED_PREFILL")
     self.defrag = knobs.get_bool("XOT_KV_DEFRAG")
     self.defrag_moves = 0
+    # The engine-global sampling stream: `seed=`, else XOT_SEED, else the clock.
     self.generator = torch.Generator(device=self.device)
-    self.generator.manual_seed(int(time.time()) if seed is None else int(seed))
+    self.generator.manual_seed(int(seed) if seed is not None
+                               else knobs.get_int("XOT_SEED", int(time.time())))
+    # A seeded request's stream: re-seeded before each sampling call or chunk from
+    # (seed, position, choice); the seeded decode graphs are captured with it.
+    self._sample_generator = torch.Generator(device=self.device)
+    self._logprob_store: "OrderedDict[str, list]" = OrderedDict()
+    self._logprob_lock = threading.Lock()
 
   # ------------------------------------------------------------- accessors
 
@@ -551,17 +573,23 @@ class TorchShardInferenceEngine(InferenceEngine):
     self, request_id: str, shard: Shard, input_data: np.ndarray,
     temp: float = DEFAULT_TEMP, top_k: int = DEFAULT_TOP_K,
     inference_state: Optional[dict] = None, top_p: float = 0.0,
+    sampling: Optional[dict] = None,
   ) -> Tuple[int, Optional[dict]]:
-    """Last-shard prefill + sampling on the device: the host receives one int."""
+    """Last-shard prefill + sampling on the device: the host receives one int.
+    `sampling`: OpenAI's extras {seed, logit_bias, presence_penalty,
+    frequency_penalty, min_p, logprobs}, validated by the API, bound to the request's
+    state on its first call and kept across its later ones (the ring's per-token
+    hops), the penalty counts advancing with every sampled token."""
     ctx = await self._ensure_ctx(shard)
     if not shard.is_last_layer:
       raise ValueError(f"infer_sample_tensor requires the last-layer shard, got {shard}")
     tok = await self._run(self._infer_sample_sync, ctx, request_id, input_data,
-                          float(temp), int(top_k), float(top_p))
+                          float(temp), int(top_k), float(top_p), sampling)
     return tok, inference_state
 
   def _infer_sample_sync(self, ctx: _ShardContext, request_id: str, input_data: np.ndarray,
-                         temp: float, top_k: int, top_p: float) -> int:
+                         temp: float, top_k: int, top_p: float,
+                         sampling: Optional[dict] = None) -> int:
     true_t = input_data.shape[1]
     chunk = self._prefill_chunk()
     is_fresh = request_id not in ctx.states
@@ -573,9 +601,14 @@ class TorchShardInferenceEngine(InferenceEngine):
         self._prefill_fill_sync(ctx, request_id, input_data[:, :split], paged_native)
         input_data = input_data[:, split:]
       x, seg_t, state, cache, kw = self._segment_setup(ctx, request_id, input_data)
-      tok, _ = forward_sample(ctx.params, x, cache, state.pos, seg_t - 1, ctx.cfg, x.ndim == 2,
-                              temp, top_k, top_p, start_layer=ctx.shard.start_layer,
-                              generator=self.generator, **kw)
+      if sampling and state.extras is None:
+        state.extras = self._build_extras(ctx, sampling)
+      ex = state.extras or graphs.PLAIN
+      out, _ = forward_sample(
+        ctx.params, x, cache, state.pos, seg_t - 1, ctx.cfg, x.ndim == 2, temp, top_k, top_p,
+        start_layer=ctx.shard.start_layer,
+        generator=self._generator_for(ex, request_id, state.pos + seg_t - 1),
+        **ex.sampler_kwargs(), **kw)
     except CacheExhausted:
       if is_fresh:
         # The request can never produce a token: what it holds (pool pages above
@@ -583,7 +616,93 @@ class TorchShardInferenceEngine(InferenceEngine):
         self._drop_state(ctx, request_id)
       raise
     self._advance(ctx, state, seg_t)
-    return int(tok.reshape(-1)[0].item())
+    if ex.top_lp >= 0:
+      tok, lp, top_ids, top_lps = out
+      self._record_logprobs(request_id, lp[0:1], top_ids[0:1], top_lps[0:1])
+    else:
+      tok = out
+    tok_int = int(tok.reshape(-1)[0].item())
+    if ex.counts is not None:
+      # The first sampled token counts before decode; the prompt never does.
+      ex.counts[0, tok_int % ctx.cfg.vocab_size] += 1
+    return tok_int
+
+  # ------------------------------------------------------ sampling extras
+
+  def _build_extras(self, ctx: _ShardContext, sampling: dict) -> graphs.SamplerExtras:
+    """A request's sampling extras on the device (JAX's `_build_extras`), one row, as
+    both the graph chunk and the eager one take them: a dense [1, V] bias from the
+    sparse logit_bias (ids past the vocabulary dropped, never wrapped); [1, V] counts
+    starting at zero when a penalty is set (OpenAI's formula counts the tokens SAMPLED
+    before the current position, so the prompt carries no penalty), with the penalties
+    and min-p as [1] tensors made by fills (no host-to-device copy)."""
+    V = ctx.cfg.vocab_size
+    full = lambda v: torch.full((1,), float(v), dtype=torch.float32, device=self.device)  # noqa: E731
+    presence = float(sampling.get("presence_penalty") or 0.0)
+    frequency = float(sampling.get("frequency_penalty") or 0.0)
+    ex = graphs.SamplerExtras(
+      seed=sampling.get("seed"),
+      min_p=full(sampling["min_p"]) if sampling.get("min_p") else None,
+      top_lp=-1 if sampling.get("logprobs") is None else int(sampling["logprobs"]))
+    pairs = [(int(t), float(v)) for t, v in (sampling.get("logit_bias") or {}).items()
+             if 0 <= int(t) < V]
+    if pairs:
+      bias = np.zeros((1, V), np.float32)
+      for t, v in pairs:
+        bias[0, t] += v
+      ex.bias = torch.from_numpy(bias).to(self.device)
+    if presence or frequency:
+      ex.counts = torch.zeros((1, V), dtype=torch.int32, device=self.device)
+      ex.presence, ex.frequency = full(presence), full(frequency)
+    return ex
+
+  def _generator_for(self, extras: graphs.SamplerExtras, request_id: str,
+                     sample_pos: int) -> torch.Generator:
+    """The generator a sampling call or chunk draws from: a seeded request's stream
+    restarts at (seed, the absolute position of the first token it samples, the choice
+    index of an `n` sibling "rid#i"), so the same request reproduces its tokens on any
+    server while siblings draw distinct streams (JAX's `_extras_key`; the bits differ,
+    the PRNGs do); any other request takes the engine-global stream."""
+    if extras.seed is None:
+      return self.generator
+    choice = 0
+    if "#" in request_id:
+      tail = request_id.rsplit("#", 1)[1]
+      # crc32, not hash(): PYTHONHASHSEED randomises hash() per process.
+      choice = int(tail) if tail.isdigit() else zlib.crc32(tail.encode())
+    digest = hashlib.blake2b(f"{int(extras.seed)}:{sample_pos}:{choice}".encode(),
+                             digest_size=8).digest()
+    self._sample_generator.manual_seed(int.from_bytes(digest, "little") >> 1)
+    return self._sample_generator
+
+  def _record_logprobs(self, request_id: str, lp: torch.Tensor, top_ids: torch.Tensor,
+                       top_lps: torch.Tensor) -> None:
+    """Append one entry a sampled token ([T] lp, [T, K] ids and logprobs) for the API to
+    drain through pop_logprobs. A bounded LRU of 512 requests: an abandoned request's
+    entries age out."""
+    lp, top_ids, top_lps = (t.cpu().tolist() for t in (lp, top_ids, top_lps))
+    entries = [{"logprob": float(lp[i]),
+                "top": [(int(t), float(p)) for t, p in zip(top_ids[i], top_lps[i])]}
+               for i in range(len(lp))]
+    with self._logprob_lock:
+      self._logprob_store.setdefault(request_id, []).extend(entries)
+      self._logprob_store.move_to_end(request_id)
+      while len(self._logprob_store) > 512:
+        self._logprob_store.popitem(last=False)
+
+  def pop_logprobs(self, request_id: str, n: Optional[int] = None) -> Optional[list]:
+    """Drain up to `n` (default all) of a request's logprob entries, in sampling
+    order; None when it recorded none (a plain request, or one sampled on another
+    peer)."""
+    with self._logprob_lock:
+      store = self._logprob_store.get(request_id)
+      if store is None:
+        return None
+      if n is None or n >= len(store):
+        self._logprob_store.pop(request_id, None)
+        return store
+      out, self._logprob_store[request_id] = store[:n], store[n:]
+      return out
 
   async def generate_chunk(
     self, request_id: str, shard: Shard, prev_token: int, num_tokens: int,
@@ -610,8 +729,10 @@ class TorchShardInferenceEngine(InferenceEngine):
       # Shrink to the cache tail: the largest power of two that still fits.
       tail = ctx.max_cache_len - state.pos
       num_tokens = min(num_tokens, 1 << (tail.bit_length() - 1))
-    if self.decode_batch > 1:
-      # Continuous batching: a lone request flows through as a batch of one.
+    if self.decode_batch > 1 and state.extras is None:
+      # Continuous batching: a lone request flows through as a batch of one. A request
+      # with sampling extras decodes in a chunk of its own, so the common path's graphs
+      # and the batcher's grouping never carry [B, V] extras.
       if ctx.batcher is None:
         ctx.batcher = _DecodeBatcher(self, ctx)
       return await ctx.batcher.submit(request_id, state, int(prev_token), num_tokens,
@@ -633,6 +754,8 @@ class TorchShardInferenceEngine(InferenceEngine):
     for it in items:
       if ctx.states.get(it.request_id) is not it.state:
         raise RequestStateLost(f"request {it.request_id}: device state evicted mid-generation")
+    if len(items) > 1 and any(it.state.extras is not None for it in items):
+      raise AssertionError("a request with sampling extras decodes in a chunk of its own")
     if self.paged:
       return self._decode_batch_paged_sync(ctx, items, num_tokens, top_k, top_p)
     states = [it.state for it in items]
@@ -647,20 +770,25 @@ class TorchShardInferenceEngine(InferenceEngine):
                            f"{sorted({tuple(s.cache['k'].shape) for s in states})}")
     pos = torch.tensor([s.pos for s in states], dtype=torch.int32, device=self.device)
     temps = torch.tensor([it.temp for it in items], dtype=torch.float32, device=self.device)
+    ex = states[0].extras or graphs.PLAIN
+    generator = self._generator_for(ex, items[0].request_id, states[0].pos)
     if ctx.graphs is not None:
       # The card: replays of the captured step over the context's slab; each request's
       # cache is updated in place.
-      toks = graphs.decode_contiguous(ctx.graphs, ctx.params, [s.cache for s in states], toks_in,
-                                      pos, ctx.cfg, num_tokens, temps, top_k, top_p,
-                                      route=self.quant_route, generator=self.generator)
+      toks, report = graphs.decode_contiguous(
+        ctx.graphs, ctx.params, [s.cache for s in states], toks_in, pos, ctx.cfg, num_tokens,
+        temps, top_k, top_p, route=self.quant_route, generator=generator, extras=ex)
     else:
       B = len(states)
-      toks, caches = decode_chunk_batched(
+      toks, caches, *rest = decode_chunk_batched(
         ctx.params, [s.cache for s in states], toks_in, pos, ctx.cfg, num_tokens, temps, top_k,
-        top_p, use_flash_decode=True, pad_rows=_bucket(B, 1) - B, generator=self.generator,
-        route=self.quant_route)
+        top_p, use_flash_decode=True, pad_rows=_bucket(B, 1) - B, generator=generator,
+        route=self.quant_route, **ex.sampler_kwargs())
       for state, cache in zip(states, caches):
         state.cache = cache
+      report = ex.absorb(rest)
+    if report is not None:
+      self._record_logprobs(items[0].request_id, *(t[0] for t in report))
     host = toks.cpu().numpy().astype(np.int64)
     for state in states:
       self._advance(ctx, state, num_tokens)
@@ -771,14 +899,20 @@ class TorchShardInferenceEngine(InferenceEngine):
     toks_in = torch.tensor([[it.prev_token] for it in items], dtype=torch.int64, device=self.device)
     pos = torch.tensor([s.pos for s in states], dtype=torch.int32, device=self.device)
     temps = torch.tensor([it.temp for it in items], dtype=torch.float32, device=self.device)
+    ex = states[0].extras or graphs.PLAIN
+    generator = self._generator_for(ex, items[0].request_id, states[0].pos)
     if ctx.graphs is not None:
-      toks = graphs.decode_paged(ctx.graphs, ctx.params, pool.arena, table, toks_in, pos, ctx.cfg,
-                                 num_tokens, temps, top_k, top_p, route=self.quant_route,
-                                 generator=self.generator)
+      toks, report = graphs.decode_paged(
+        ctx.graphs, ctx.params, pool.arena, table, toks_in, pos, ctx.cfg, num_tokens, temps, top_k,
+        top_p, route=self.quant_route, generator=generator, extras=ex)
     else:
-      toks, _ = decode_chunk_paged(ctx.params, pool.arena, table, toks_in, pos, ctx.cfg, num_tokens,
-                                   temps, top_k, top_p, pad_rows=_bucket(B, 1) - B,
-                                   generator=self.generator, route=self.quant_route)
+      toks, _, *rest = decode_chunk_paged(
+        ctx.params, pool.arena, table, toks_in, pos, ctx.cfg, num_tokens, temps, top_k, top_p,
+        pad_rows=_bucket(B, 1) - B, generator=generator, route=self.quant_route,
+        **ex.sampler_kwargs())
+      report = ex.absorb(rest)
+    if report is not None:
+      self._record_logprobs(items[0].request_id, *(t[0] for t in report))
     host = toks.cpu().numpy().astype(np.int64)
     for state in states:
       self._advance(ctx, state, num_tokens)

@@ -22,7 +22,7 @@ import torch
 
 from xotorch_tpu_torch.models.config import ModelConfig
 from xotorch_tpu_torch.models.transformer import QuantRoute, forward_shard, unembed
-from xotorch_tpu_torch.ops.sampling import sample_logits, sample_logits_logprobs
+from xotorch_tpu_torch.ops.sampling import Scalar, sample_logits, sample_logits_logprobs
 
 
 def forward_sample(
@@ -41,10 +41,10 @@ def forward_sample(
   start_layer: int = 0,
   bias: Optional[torch.Tensor] = None,  # [B, V] OpenAI logit_bias
   counts: Optional[torch.Tensor] = None,  # [B, V] token counts for penalties
-  presence: float = 0.0,
-  frequency: float = 0.0,
+  presence: Scalar = 0.0,  # a float, or per-row [B]
+  frequency: Scalar = 0.0,
   top_lp: int = -1,  # -1 = no logprob reporting; >= 0 = report
-  min_p: Optional[float] = None,
+  min_p: Optional[Scalar] = None,  # None = off; a float, or per-row [B]
   generator: Optional[torch.Generator] = None,
   gumbel: Optional[torch.Tensor] = None,  # [B, V] noise for the sample
   page_table: Optional[torch.Tensor] = None,  # [B, max_pages]: `cache` is the page arena
@@ -78,25 +78,28 @@ def decode_step(
   use_flash_decode: bool = False,
   bias: Optional[torch.Tensor] = None,
   counts: Optional[torch.Tensor] = None,  # [B, V]; bumped by the sampled token
-  presence: float = 0.0,
-  frequency: float = 0.0,
+  presence: Scalar = 0.0,  # a float, or per-row [B]
+  frequency: Scalar = 0.0,
   top_lp: int = -1,
-  min_p: Optional[float] = None,
+  min_p: Optional[Scalar] = None,  # None = off; a float, or per-row [B]
   generator: Optional[torch.Generator] = None,
   gumbel: Optional[torch.Tensor] = None,  # [R, B, V] noise; row `step[0]` is this step's
   page_table: Optional[torch.Tensor] = None,  # [B, max_pages]: `cache` is the page arena
   route: Optional[QuantRoute] = None,
   out: Optional[torch.Tensor] = None,  # [R, B] int64: row `step[0]` gets the sampled token
   step: Optional[torch.Tensor] = None,  # [1] int64: the row of `out` and `gumbel`; advanced
+  lp_out: Optional[Sequence[torch.Tensor]] = None,  # ([R, B], [R, B, K], [R, B, K]) report rows
 ):
   """One decode step over buffers updated in place, the body of JAX's decode scan:
   forward `tok` at `pos` (a per-row device tensor, so the step reads no host value),
-  sample, write the sampled token into `tok`, `out[step]` and `counts`, advance `pos`
-  and `step` by one. Returns (the sampled [B] token, the logprob report or None).
-  Every input that changes from step to step lives in a tensor, so the same call
-  serves K eager steps (decode_chunk) and a captured CUDA graph replayed K times
-  (models/graphs.py); the Python values (top_k, top_p, top_lp, min_p, and which
-  optional inputs are given) are the graph's statics, as they are jit statics in JAX."""
+  sample, write the sampled token into `tok`, `out[step]` and `counts` (and with
+  `lp_out` the logprob report into its row `step`), advance `pos` and `step` by one.
+  Returns (the sampled [B] token, the logprob report or None). Every input that
+  changes from step to step lives in a tensor, so the same call serves K eager steps
+  (decode_chunk) and a captured CUDA graph replayed K times (models/graphs.py); the
+  Python values (top_k, top_p, top_lp, and which optional inputs are given) are the
+  graph's statics, as they are jit statics in JAX. Penalties and min-p are read from
+  per-row tensors there, as JAX traces them."""
   logits, _ = forward_shard(params, tok, cache, pos, cfg=cfg, is_first=True, is_last=True,
                             use_flash_decode=use_flash_decode, page_table=page_table, route=route)
   noise = None if gumbel is None else gumbel.index_select(0, step)[0]
@@ -113,6 +116,9 @@ def decode_step(
   pos.add_(1)
   if out is not None:
     out.index_copy_(0, step, nxt[None])
+  if lp_out is not None and report is not None:
+    for buf, r in zip(lp_out, report):
+      buf.index_copy_(0, step, r[None])
   if step is not None:
     step.add_(1)
   return nxt, report
@@ -131,10 +137,10 @@ def decode_chunk(
   use_flash_decode: bool = False,
   bias: Optional[torch.Tensor] = None,  # [B, V] OpenAI logit_bias
   counts: Optional[torch.Tensor] = None,  # [B, V] token counts; updated step by step
-  presence: float = 0.0,
-  frequency: float = 0.0,
+  presence: Scalar = 0.0,  # a float, or per-row [B]
+  frequency: Scalar = 0.0,
   top_lp: int = -1,  # -1 = no logprob reporting; >= 0 = report
-  min_p: Optional[float] = None,
+  min_p: Optional[Scalar] = None,
   generator: Optional[torch.Generator] = None,
   gumbel: Optional[torch.Tensor] = None,  # [num_tokens, B, V] noise, one slice per step
   page_table: Optional[torch.Tensor] = None,  # [B, max_pages]: `cache` is the page arena
@@ -229,6 +235,20 @@ def _pad_rows(x: torch.Tensor, n: int, fill: Optional[torch.Tensor] = None) -> t
   return torch.cat([x, pad], dim=0)
 
 
+def _padded_extras(pad_rows: int, bias, counts, presence, frequency, min_p) -> dict:
+  """The sampling extras with pad rows of zeros (bias, counts and per-row penalties and
+  min-p; a Python number needs none), as decode_chunk takes them."""
+  pad = lambda x: _pad_rows(x, pad_rows) if torch.is_tensor(x) else x
+  return dict(bias=pad(bias), counts=pad(counts), presence=pad(presence),
+              frequency=pad(frequency), min_p=pad(min_p))
+
+
+def _real_rows(extra: Sequence, B: int) -> list:
+  """decode_chunk's counts and logprob triple (its results past the tokens and the
+  cache) cut to the B real rows."""
+  return [tuple(t[:B] for t in r) if isinstance(r, tuple) else r[:B] for r in extra]
+
+
 def decode_chunk_batched(
   params,
   caches: Sequence[Dict[str, torch.Tensor]],  # B per-request caches, UNIFORM shapes
@@ -244,25 +264,35 @@ def decode_chunk_batched(
   generator: Optional[torch.Generator] = None,
   gumbel: Optional[torch.Tensor] = None,  # [num_tokens, B + pad_rows, V]
   route: Optional[QuantRoute] = None,
+  bias: Optional[torch.Tensor] = None,  # [B, V] OpenAI logit_bias
+  counts: Optional[torch.Tensor] = None,  # [B, V] token counts; updated step by step
+  presence: Scalar = 0.0,  # a float, or per-row [B]
+  frequency: Scalar = 0.0,
+  top_lp: int = -1,  # -1 = no logprob reporting; >= 0 = report
+  min_p: Optional[Scalar] = None,  # None = off; a float, or per-row [B]
 ):
   """Batched decode for continuous batching: stack the requests' contiguous caches
   (every leaf: an int8 cache's codes and scales alike) along the batch axis, decode with per-row positions and temperatures, split the
   updated caches back per request. Pad rows are zero caches replicating row 0's
-  token, position and temperature; their outputs are dropped. The stack and the
-  split each copy every member's cache (the JAX design, where one compiled program
-  fused them). Returns ([B, num_tokens] tokens, list of B updated caches)."""
+  token, position and temperature (zero bias, counts and penalties); their outputs
+  are dropped. The stack and the split each copy every member's cache (the JAX
+  design, where one compiled program fused them). Returns ([B, num_tokens] tokens,
+  list of B updated caches), plus the updated counts when `counts` is passed, plus
+  the logprob triple when `top_lp >= 0` (decode_chunk's order)."""
   B = len(caches)
   stacked = {name: torch.cat([c[name] for c in caches]
                              + [torch.zeros_like(caches[0][name])] * pad_rows, dim=1)
              for name in caches[0]}
-  out, stacked = decode_chunk(
+  res = decode_chunk(
     params, _pad_rows(toks, pad_rows, toks[:1]), stacked,
     _pad_rows(pos_vec, pad_rows, pos_vec[:1]), cfg, num_tokens,
     _pad_rows(temps, pad_rows, temps[:1]), top_k, top_p, use_flash_decode=use_flash_decode,
-    generator=generator, gumbel=gumbel, route=route)
+    generator=generator, gumbel=gumbel, route=route, top_lp=top_lp,
+    **_padded_extras(pad_rows, bias, counts, presence, frequency, min_p))
+  out, stacked = res[0], res[1]
   split: List[Dict[str, torch.Tensor]] = [
     {name: stacked[name][:, i:i + 1].clone() for name in stacked} for i in range(B)]
-  return out[:B], split
+  return tuple([out[:B], split] + _real_rows(res[2:], B))
 
 
 def decode_chunk_paged(
@@ -280,17 +310,27 @@ def decode_chunk_paged(
   generator: Optional[torch.Generator] = None,
   gumbel: Optional[torch.Tensor] = None,  # [num_tokens, B + pad_rows, V]
   route: Optional[QuantRoute] = None,
+  bias: Optional[torch.Tensor] = None,  # [B, V] OpenAI logit_bias
+  counts: Optional[torch.Tensor] = None,  # [B, V] token counts; updated step by step
+  presence: Scalar = 0.0,  # a float, or per-row [B]
+  frequency: Scalar = 0.0,
+  top_lp: int = -1,  # -1 = no logprob reporting; >= 0 = report
+  min_p: Optional[Scalar] = None,  # None = off; a float, or per-row [B]
 ):
   """Batched decode over the PAGED KV pool: rows index the one shared arena through
   their page tables, writes land in each row's current page, and reads stop at each
   row's own occupied pages (K3). Batch membership is metadata: no stack, no split,
   no common-length growth. Pad rows carry an all-zero table and position 0: their
-  writes land in the pool's scratch page 0 and their outputs are dropped. Returns
-  ([B, num_tokens] tokens, the arena, updated in place)."""
+  writes land in the pool's scratch page 0 and their outputs are dropped. The sampling
+  extras (bias, penalties with the counts updated inside the chunk, min-p, logprob
+  reporting) follow decode_chunk's contract, as in JAX's decode_chunk_paged. Returns
+  ([B, num_tokens] tokens, the arena, updated in place), plus the updated counts when
+  `counts` is passed, plus the logprob triple when `top_lp >= 0`."""
   B = toks.shape[0]
   table = _pad_rows(page_table, pad_rows)
-  out, arena = decode_chunk(
+  res = decode_chunk(
     params, _pad_rows(toks, pad_rows, toks[:1]), arena, _pad_rows(pos_vec, pad_rows), cfg,
     num_tokens, _pad_rows(temps, pad_rows, temps[:1]), top_k, top_p, generator=generator,
-    gumbel=gumbel, page_table=table.contiguous(), route=route)
-  return out[:B], arena
+    gumbel=gumbel, page_table=table.contiguous(), route=route, top_lp=top_lp,
+    **_padded_extras(pad_rows, bias, counts, presence, frequency, min_p))
+  return tuple([res[0][:B], res[1]] + _real_rows(res[2:], B))

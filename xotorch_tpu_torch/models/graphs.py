@@ -9,11 +9,17 @@ key, with the static buffers it was captured on.
 
 - A decode graph is ONE step (models/generate.decode_step) over static buffers:
   tokens [Bb, 1], positions [Bb], temperatures [Bb], a [OUT_ROWS, Bb] token record
-  with its step counter, the page table (paged), injected noise (when given). A chunk
-  of K tokens is K replays, so the chunk ladder's sizes add no key and a step's host
-  cost is one replay. Keys: route (contiguous or paged), the bucketed batch Bb, the
-  cache length S or the page-table width, the cache's leaves, and the sampler's
-  statics (top_k, the snapped top_p, whether noise is injected).
+  with its step counter, the page table (paged), injected noise (when given), and a
+  request's sampling extras (SamplerExtras): the logit bias [Bb, V] fp32, the penalty
+  counts [Bb, V] int32 with presence and frequency [Bb] fp32, min-p [Bb] fp32, and the
+  logprob record [OUT_ROWS, Bb] and [OUT_ROWS, Bb, K]. A chunk of K tokens is K
+  replays, so the chunk ladder's sizes add no key and a step's host cost is one
+  replay. Keys: route (contiguous or paged), the bucketed batch Bb, the cache length S
+  or the page-table width, the cache's leaves, and the sampler's statics (top_k, the
+  snapped top_p, whether noise is injected, the generator, whether there is a bias,
+  whether there are counts, top_lp, whether min-p is on). The extras' values are
+  written to their buffers before a chunk (the counts read back after it), so a
+  request's bias, penalties or min-p capture no graph of their own.
 - A prefill graph is `prefill_scan` over one group of g segments of `chunk` tokens;
   keys (g, chunk, S or the table width, is_first).
 - Static addresses. A replay reads and writes the addresses it was captured on. The
@@ -41,7 +47,9 @@ key, with the static buffers it was captured on.
 - All graphs share one memory pool and run on the cache's one stream; the cache holds
   at most `capacity` graphs (least recently used dropped) and is dropped with its
   context. Noise comes from the engine's generator, registered with each graph that
-  samples, so a replay draws fresh noise.
+  samples, so a replay draws fresh noise; a seeded request's from a second generator,
+  registered with the seeded graphs and re-seeded before each chunk (the engine's
+  `_sample_generator`), so every seed shares one graph for each key.
 
 There is no eager fallback: a capture or replay that fails raises, naming its key.
 The eager body stays reachable as models/generate's functions, which the CPU runs.
@@ -103,6 +111,43 @@ def capture_guard(device: torch.device):
 
 def _bucket(n: int) -> int:
   return 1 << max(0, n - 1).bit_length()
+
+
+@dataclass
+class SamplerExtras:
+  """A request's sampling extras, one row per request, as the engine keeps them and
+  both a graph chunk and an eager one take them (the graph key takes only which are
+  present, and top_lp): `counts` is advanced in place by every chunk."""
+  bias: Optional[torch.Tensor] = None  # [B, V] fp32 OpenAI logit_bias
+  counts: Optional[torch.Tensor] = None  # [B, V] int32 counts of the sampled tokens
+  presence: Optional[torch.Tensor] = None  # [B] fp32, with counts
+  frequency: Optional[torch.Tensor] = None  # [B] fp32, with counts
+  min_p: Optional[torch.Tensor] = None  # [B] fp32; None = off
+  top_lp: int = -1  # -1 = no logprob report; 0..20 alternatives
+  seed: Optional[int] = None  # the request's seed: picks the generator, no buffer or key
+
+  def key(self) -> tuple:
+    return (self.bias is not None, self.counts is not None, int(self.top_lp),
+            self.min_p is not None)
+
+  def sampler_kwargs(self) -> dict:
+    """The keywords of models/generate's sampling functions (forward_sample,
+    decode_chunk_batched, decode_chunk_paged)."""
+    zero = lambda x: 0.0 if x is None else x  # noqa: E731
+    return dict(bias=self.bias, counts=self.counts, presence=zero(self.presence),
+                frequency=zero(self.frequency), min_p=self.min_p, top_lp=self.top_lp)
+
+  def absorb(self, rest: Sequence) -> Optional[tuple]:
+    """After an eager chunk, its results past the tokens and the caches (the counts,
+    then the logprob triple, as decode_chunk returns them): the counts copied into
+    `counts`; returns the logprob triple or None, as a graph chunk does."""
+    rest = list(rest)
+    if self.counts is not None:
+      self.counts.copy_(rest.pop(0))
+    return rest.pop(0) if self.top_lp >= 0 else None
+
+
+PLAIN = SamplerExtras()
 
 
 @dataclass
@@ -278,28 +323,48 @@ def split_from(slab: Cache, caches: Sequence[Cache]) -> None:
 def _decode_program(gc: GraphCache, key: tuple, params, cache: Cache, cfg: ModelConfig, Bb: int,
                     top_k: int, top_p: float, route: Optional[QuantRoute],
                     generator: Optional[torch.Generator], noise: bool,
-                    table_width: int = 0, uses_slab: bool = False) -> Program:
+                    table_width: int = 0, uses_slab: bool = False,
+                    extras: SamplerExtras = PLAIN) -> Program:
   device = gc.device
+  V = cfg.vocab_size
 
   def make_statics():
+    f32 = dict(dtype=torch.float32, device=device)
     st = {"tok": torch.zeros((Bb, 1), dtype=torch.int64, device=device),
           "pos": torch.zeros((Bb,), dtype=torch.int32, device=device),
-          "temps": torch.zeros((Bb,), dtype=torch.float32, device=device),
+          "temps": torch.zeros((Bb,), **f32),
           "out": torch.zeros((OUT_ROWS, Bb), dtype=torch.int64, device=device),
           "step": torch.zeros((1,), dtype=torch.int64, device=device)}
     if table_width:
       st["table"] = torch.zeros((Bb, table_width), dtype=torch.int32, device=device)
     if noise:
-      st["gumbel"] = torch.zeros((OUT_ROWS, Bb, cfg.vocab_size), dtype=torch.float32,
-                                 device=device)
+      st["gumbel"] = torch.zeros((OUT_ROWS, Bb, V), **f32)
+    if extras.bias is not None:
+      st["bias"] = torch.zeros((Bb, V), **f32)
+    if extras.counts is not None:
+      st["counts"] = torch.zeros((Bb, V), dtype=torch.int32, device=device)
+      st["presence"] = torch.zeros((Bb,), **f32)
+      st["frequency"] = torch.zeros((Bb,), **f32)
+    if extras.min_p is not None:
+      st["min_p"] = torch.zeros((Bb,), **f32)
+    if extras.top_lp >= 0:
+      K = extras.top_lp
+      st["lp"] = torch.zeros((OUT_ROWS, Bb), **f32)
+      st["top_ids"] = torch.zeros((OUT_ROWS, Bb, K), dtype=torch.int64, device=device)
+      st["top_lps"] = torch.zeros((OUT_ROWS, Bb, K), **f32)
     return st
 
   def make_body(st):
+    lp_out = (st["lp"], st["top_ids"], st["top_lps"]) if extras.top_lp >= 0 else None
+
     def body():
       return decode_step(params, st["tok"], cache, st["pos"], cfg, st["temps"], top_k, top_p,
                          use_flash_decode=True, generator=None if noise else generator,
                          gumbel=st.get("gumbel"), page_table=st.get("table"), route=route,
-                         out=st["out"], step=st["step"])[0]
+                         out=st["out"], step=st["step"], bias=st.get("bias"),
+                         counts=st.get("counts"), presence=st.get("presence", 0.0),
+                         frequency=st.get("frequency", 0.0), min_p=st.get("min_p"),
+                         top_lp=extras.top_lp, lp_out=lp_out)[0]
     return body
 
   return gc.program(key, make_statics, make_body, generator=None if noise else generator,
@@ -317,30 +382,59 @@ def _fill_rows(dst: torch.Tensor, src: torch.Tensor, pad: Optional[torch.Tensor]
       dst[n:].copy_(pad.expand_as(dst[n:]))
 
 
+EXTRAS_BUFFERS = ("bias", "counts", "presence", "frequency", "min_p")
+
+
+def _fill_extras(st: Dict[str, torch.Tensor], extras: SamplerExtras) -> None:
+  """The extras' rows into their static buffers; pad rows zeroed."""
+  for name in EXTRAS_BUFFERS:
+    if name in st:
+      _fill_rows(st[name], getattr(extras, name).to(st[name].dtype), None)
+
+
+RECORDS = ("out", "lp", "top_ids", "top_lps")
+
+
 def _run_steps(gc: GraphCache, prog: Program, num_tokens: int,
-               gumbel: Optional[torch.Tensor]) -> torch.Tensor:
-  """`num_tokens` runs of a decode program; returns its tokens [Bb, num_tokens]. The
-  token record is read every OUT_ROWS steps, and injected noise loaded as many rows
-  at a time."""
+               gumbel: Optional[torch.Tensor]) -> Dict[str, torch.Tensor]:
+  """`num_tokens` runs of a decode program; returns its records, batch first: the
+  tokens "out" [Bb, num_tokens] and, with logprobs, "lp" [Bb, num_tokens] and
+  "top_ids" / "top_lps" [Bb, num_tokens, K]. The records are read every OUT_ROWS
+  steps, and injected noise loaded as many rows at a time."""
   st = prog.statics
-  outs: List[torch.Tensor] = []
+  names = [n for n in RECORDS if n in st]
+  rows: Dict[str, List[torch.Tensor]] = {n: [] for n in names}
   for i in range(num_tokens):
     if i % OUT_ROWS == 0:
       if i:
-        outs.append(st["out"].clone())
+        for name in names:
+          rows[name].append(st[name].clone())
       st["step"].zero_()
       if gumbel is not None:
         n = min(OUT_ROWS, num_tokens - i)
         st["gumbel"][:n].copy_(gumbel[i:i + n])
     gc.run(prog)
-  outs.append(st["out"][:num_tokens - OUT_ROWS * len(outs)].clone())
-  return torch.cat(outs).t()
+  tail = num_tokens - OUT_ROWS * len(rows["out"])
+  return {name: torch.cat(rows[name] + [st[name][:tail].clone()]).transpose(0, 1)
+          for name in names}
 
 
 def _sampler_key(top_k: int, top_p: float, gumbel: Optional[torch.Tensor],
-                 generator: Optional[torch.Generator], route: Optional[QuantRoute]) -> tuple:
+                 generator: Optional[torch.Generator], route: Optional[QuantRoute],
+                 extras: SamplerExtras = PLAIN) -> tuple:
   return (int(top_k), float(top_p or 0.0), gumbel is not None,
-          None if gumbel is not None else generator, route)
+          None if gumbel is not None else generator, route) + extras.key()
+
+
+def _finish(prog: Program, records: Dict[str, torch.Tensor], B: int, extras: SamplerExtras):
+  """(The chunk's tokens [B, n], the logprob triple or None), the counts read back into
+  extras.counts."""
+  if extras.counts is not None:
+    extras.counts.copy_(prog.statics["counts"][:B])
+  report = None
+  if extras.top_lp >= 0:
+    report = tuple(records[n][:B] for n in ("lp", "top_ids", "top_lps"))
+  return records["out"][:B], report
 
 
 def decode_contiguous(gc: GraphCache, params, caches: Sequence[Cache], toks: torch.Tensor,
@@ -348,55 +442,59 @@ def decode_contiguous(gc: GraphCache, params, caches: Sequence[Cache], toks: tor
                       temps: torch.Tensor, top_k: int, top_p: float = 0.0,
                       route: Optional[QuantRoute] = None,
                       generator: Optional[torch.Generator] = None,
-                      gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+                      gumbel: Optional[torch.Tensor] = None,
+                      extras: SamplerExtras = PLAIN):
   """`decode_chunk_batched` as graph replays: B requests' contiguous caches (one
   shape) stacked into the slab (pad rows to a power of two: zero caches with row 0's
   token, position and temperature), `num_tokens` replays of the step, the caches
   copied back into each request's own buffers. `gumbel` [num_tokens, Bb, V] injects
-  noise. Returns the [B, num_tokens] tokens on the device."""
+  noise. Returns ([B, num_tokens] tokens on the device, the logprob triple [B, n],
+  [B, n, K], [B, n, K] when extras.top_lp >= 0, else None), extras.counts advanced."""
   B = len(caches)
   Bb = _bucket(B)
   leaves = slab_leaves(caches[0], Bb)
   key = (("decode", "contiguous", Bb, tuple((n, s, d) for n, (s, d) in leaves.items()))
-         + _sampler_key(top_k, top_p, gumbel, generator, route))
+         + _sampler_key(top_k, top_p, gumbel, generator, route, extras))
   with gc.on_stream():
     slab = gc.slab_views(leaves)
     stack_into(slab, caches)
     prog = _decode_program(gc, key, params, slab, cfg, Bb, top_k, top_p, route, generator,
-                           gumbel is not None, uses_slab=True)
+                           gumbel is not None, uses_slab=True, extras=extras)
     st = prog.statics
     _fill_rows(st["tok"], toks.to(torch.int64), toks[:1].to(torch.int64))
     _fill_rows(st["pos"], pos_vec.to(torch.int32), pos_vec[:1].to(torch.int32))
     _fill_rows(st["temps"], temps.to(torch.float32), temps[:1].to(torch.float32))
-    out = _run_steps(gc, prog, num_tokens, gumbel)
+    _fill_extras(st, extras)
+    records = _run_steps(gc, prog, num_tokens, gumbel)
     split_from(slab, caches)
-  return out[:B]
+    return _finish(prog, records, B, extras)
 
 
 def decode_paged(gc: GraphCache, params, arena: Cache, page_table: torch.Tensor,
                  toks: torch.Tensor, pos_vec: torch.Tensor, cfg: ModelConfig, num_tokens: int,
                  temps: torch.Tensor, top_k: int, top_p: float = 0.0,
                  route: Optional[QuantRoute] = None, generator: Optional[torch.Generator] = None,
-                 gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+                 gumbel: Optional[torch.Tensor] = None, extras: SamplerExtras = PLAIN):
   """`decode_chunk_paged` as graph replays over the context's page arena: the page
   table, tokens, positions and temperatures copied into the static buffers (pad rows:
   an all-zero table and position 0, row 0's token and temperature), `num_tokens`
-  replays. Returns the [B, num_tokens] tokens on the device."""
+  replays. Returns (tokens, logprob triple or None), as decode_contiguous."""
   B, width = page_table.shape
   Bb = _bucket(B)
   key = (("decode", "paged", Bb, width, arena["k"].data_ptr(),
           tuple((n, tuple(t.shape), t.dtype) for n, t in arena.items()))
-         + _sampler_key(top_k, top_p, gumbel, generator, route))
+         + _sampler_key(top_k, top_p, gumbel, generator, route, extras))
   with gc.on_stream():
     prog = _decode_program(gc, key, params, arena, cfg, Bb, top_k, top_p, route, generator,
-                           gumbel is not None, table_width=width)
+                           gumbel is not None, table_width=width, extras=extras)
     st = prog.statics
     _fill_rows(st["table"], page_table.to(torch.int32), None)
     _fill_rows(st["tok"], toks.to(torch.int64), toks[:1].to(torch.int64))
     _fill_rows(st["pos"], pos_vec.to(torch.int32), None)
     _fill_rows(st["temps"], temps.to(torch.float32), temps[:1].to(torch.float32))
-    out = _run_steps(gc, prog, num_tokens, gumbel)
-  return out[:B]
+    _fill_extras(st, extras)
+    records = _run_steps(gc, prog, num_tokens, gumbel)
+    return _finish(prog, records, B, extras)
 
 
 # ------------------------------------------------------------------ prefill

@@ -39,6 +39,8 @@ class TCPServer(Server):
 
   async def start(self) -> None:
     self.server = await asyncio.start_server(self._serve_connection, self.host, self.port)
+    if not self.port:  # port 0: the one the system bound
+      self.port = self.server.sockets[0].getsockname()[1]
     if DEBUG >= 1:
       print(f"TCP server listening on {self.host}:{self.port}")
 

@@ -6,10 +6,12 @@ Noise comes from an explicit `torch.Generator`, or from a `gumbel` tensor the ca
 passes (the tests inject JAX's noise this way, since the two frameworks' generators
 give different numbers from one seed).
 
-Nothing here copies a host value to the device: a temperature or penalty is either a
-Python float, used as a kernel's scalar argument, or a device tensor ([B] per row), so
-a decode step can be captured as a CUDA graph (models/graphs.py), where a host-to-device
-copy is refused. The captured decode steps pass temperatures as a [B] device tensor.
+Nothing here copies a host value to the device: a temperature, penalty or min-p floor
+is either a Python float, used as a kernel's scalar argument, or a device tensor ([B] or
+[B, 1] per row), so a decode step can be captured as a CUDA graph (models/graphs.py),
+where a host-to-device copy is refused. The captured decode steps pass temperatures,
+penalties and min-p as device tensors read from static buffers: a Python number would
+be baked into the graph.
 """
 from __future__ import annotations
 
@@ -60,7 +62,7 @@ def sample_logits(
   counts: Optional[torch.Tensor] = None,  # [B, V] token counts of the text so far
   presence: Scalar = 0.0,
   frequency: Scalar = 0.0,
-  min_p: Optional[float] = None,
+  min_p: Optional[Scalar] = None,  # None = off; a float, or per-row [B]
   generator: Optional[torch.Generator] = None,
   gumbel: Optional[torch.Tensor] = None,  # [B, V] noise to use instead of drawing it
 ) -> torch.Tensor:
@@ -86,7 +88,8 @@ def sample_logits(
   if min_p is not None:
     # min-p: keep tokens whose probability is at least min_p times the largest.
     probs = torch.softmax(logits, dim=-1)
-    cutoff = float(min_p) * probs.max(dim=-1, keepdim=True).values
+    floor = _per_row(min_p, B, logits.device) if torch.is_tensor(min_p) else float(min_p)
+    cutoff = floor * probs.max(dim=-1, keepdim=True).values
     logits = logits.masked_fill(probs < cutoff, neg_inf)
   noise = gumbel if gumbel is not None else gumbel_noise(logits.shape, generator, logits.device)
   sampled = torch.argmax(logits + noise.to(logits.device, torch.float32), dim=-1)
@@ -103,7 +106,7 @@ def sample_logits_logprobs(
   presence: Scalar = 0.0,
   frequency: Scalar = 0.0,
   top_lp: int = 0,
-  min_p: Optional[float] = None,
+  min_p: Optional[Scalar] = None,
   generator: Optional[torch.Generator] = None,
   gumbel: Optional[torch.Tensor] = None,
 ):

@@ -12,7 +12,10 @@ on_opaque_status) and the same deterministic ring:
   hidden state (in the model's dtype, bf16 on the card) to the next; the last-layer
   peer samples, broadcasts the new token to every peer as a delta, and sends it back
   to partition 0 for the next step;
-- the request's max_tokens, temperature and top_p ride the hops to the sampler peer;
+- the request's max_tokens, temperature, top_p and OpenAI sampling extras (seed,
+  logit_bias, penalties, min_p, logprobs) ride the hops to the sampler peer, whose
+  engine keeps the extras' state (the penalty counts) across its calls; logprobs are
+  reported where the API's node hosts the sampling shard;
 - a hop error aborts the request on every peer (a finish carrying the error), and
   every peer frees the request's state when it learns of the finish.
 
@@ -20,7 +23,11 @@ When one partition spans the whole model, process_sampled_token takes the fused
 decode loop instead: chunks of XOT_DECODE_CHUNK tokens, doubling up to
 XOT_DECODE_CHUNK_MAX, through the engine's generate_chunk. Peers reconcile membership
 every `topology_interval` seconds and re-gossip the topology with a visited-set
-crawl.
+crawl. A peer's capabilities in a view are what that peer last reported of itself,
+and its discovery entry (a manual config's, written by hand) only until it has
+reported: the JAX package's crawl takes the discovery entry for a peer that is
+skipped because it started the crawl, so there the last crawl to land can leave two
+peers with different views of the ring.
 
 Not ported yet (ROADMAP): the fused in-process ring, device-resident hops, the
 watchdog and deadlines, the health monitor, eviction and heal_ring, tracing, the
@@ -41,7 +48,8 @@ from xotorch_tpu_torch.inference.shard import Shard
 from xotorch_tpu_torch.networking.discovery import Discovery
 from xotorch_tpu_torch.networking.peer_handle import PeerHandle
 from xotorch_tpu_torch.networking.server import Server
-from xotorch_tpu_torch.topology.device_capabilities import UNKNOWN_DEVICE_CAPABILITIES, device_capabilities
+from xotorch_tpu_torch.topology.device_capabilities import (UNKNOWN_DEVICE_CAPABILITIES, DeviceCapabilities,
+                                                          device_capabilities)
 from xotorch_tpu_torch.topology.partitioning import PartitioningStrategy, map_partitions_to_shards
 from xotorch_tpu_torch.topology.topology import Topology
 from xotorch_tpu_torch.utils import knobs
@@ -51,6 +59,8 @@ from xotorch_tpu_torch.utils.helpers import DEBUG, AsyncCallbackSystem, spawn_de
 MAX_TOKENS_KEY = "xot_max_tokens"
 TEMP_KEY = "xot_temperature"
 TOP_P_KEY = "xot_top_p"
+# The request's OpenAI sampling extras, one JSON-safe dict validated at the API.
+SAMPLING_KEY = "xot_sampling"
 # The request's pinned partition map: [[node_id, start_layer, end_layer], ...] in ring
 # order, set once by the node that accepts the request.
 RING_MAP_KEY = "xot_ring_map"
@@ -86,6 +96,8 @@ class Node:
     self.peers: List[PeerHandle] = []
     self.device_capabilities = UNKNOWN_DEVICE_CAPABILITIES
     self.topology = Topology()
+    # What each peer reported of its own capabilities in a crawl (collect_topology).
+    self._peer_reports: Dict[str, DeviceCapabilities] = {}
     # A node driven without start() serves alone: its one partition is the whole model.
     self.topology.update_node(self.id, self.device_capabilities)
     self.buffered_token_output: Dict[str, Tuple[List[int], bool]] = {}
@@ -100,6 +112,7 @@ class Node:
     self._request_max_tokens: Dict[str, int] = {}
     self._request_temp: Dict[str, float] = {}
     self._request_top_p: Dict[str, float] = {}
+    self._request_sampling: Dict[str, dict] = {}
     self._request_eos: Dict[str, Tuple[int, ...]] = {}
     self._request_started: Dict[str, float] = {}
     self._request_ring_map: "OrderedDict[str, list]" = OrderedDict()
@@ -150,9 +163,9 @@ class Node:
                            deadline: Optional[float] = None) -> None:
     """Prefill `prompt` here, or forward it to the owner of layer 0; tokens arrive
     through `on_token` on every peer. `ring_map` is the origin's pinned partition map
-    on a forwarded prompt. `traceparent` and `deadline` are accepted for the JAX
-    package's wire and ignored; images and sampling extras are not ported yet and
-    abort the request."""
+    on a forwarded prompt. `sampling` holds the request's OpenAI extras (validated
+    at the API). `traceparent` and `deadline` are accepted for the JAX package's wire
+    and ignored; images are not ported yet and abort the request."""
     if request_id is None:
       request_id = str(uuid.uuid4())
     self._request_started.setdefault(request_id, time.monotonic())
@@ -162,9 +175,10 @@ class Node:
       self._request_temp[request_id] = max(0.0, float(temperature))
     if top_p is not None:
       self._request_top_p[request_id] = min(1.0, max(0.0, float(top_p)))
-    if images or sampling:
-      what = "images" if images else f"sampling extras {sorted(sampling)}"
-      await self._abort_request(request_id, f"{what} are not supported by xotorch_tpu_torch yet")
+    if sampling:
+      self._request_sampling[request_id] = dict(sampling)
+    if images:
+      await self._abort_request(request_id, "images are not supported by xotorch_tpu_torch yet")
       return
     try:
       if ring_map:
@@ -194,7 +208,8 @@ class Node:
       tokens = await self.inference_engine.encode(shard, prompt)
       token, _ = await self.inference_engine.infer_sample_tensor(
         request_id, shard, np.asarray(tokens).reshape(1, -1), temp=self._temp_for(request_id),
-        top_k=self.default_sample_top_k, top_p=self._top_p_for(request_id))
+        top_k=self.default_sample_top_k, top_p=self._top_p_for(request_id),
+        **self._sampling_kwargs(request_id))
       await self.process_sampled_token(base_shard, int(token), request_id)
       return
     result, inference_state = await self.inference_engine.infer_prompt(request_id, shard, prompt)
@@ -221,6 +236,9 @@ class Node:
       p = inference_state.get(TOP_P_KEY)
       if p is not None and request_id not in self._request_top_p:
         self._request_top_p[request_id] = min(1.0, max(0.0, float(p)))
+      sampling = inference_state.get(SAMPLING_KEY)
+      if sampling and request_id not in self._request_sampling:
+        self._request_sampling[request_id] = dict(sampling)
     self._request_started.setdefault(request_id, time.monotonic())
     shard = None
     try:
@@ -231,7 +249,7 @@ class Node:
         token, inference_state = await self.inference_engine.infer_sample_tensor(
           request_id, shard, tensor, temp=self._temp_for(request_id),
           top_k=self.default_sample_top_k, inference_state=inference_state,
-          top_p=self._top_p_for(request_id))
+          top_p=self._top_p_for(request_id), **self._sampling_kwargs(request_id))
         await self.process_sampled_token(base_shard, int(token), request_id, inference_state)
       else:
         result, inference_state = await self.inference_engine.infer_tensor(
@@ -430,6 +448,7 @@ class Node:
     self._request_max_tokens.pop(request_id, None)
     self._request_temp.pop(request_id, None)
     self._request_top_p.pop(request_id, None)
+    self._request_sampling.pop(request_id, None)
     self._request_eos.pop(request_id, None)
     self._request_ring_map.pop(request_id, None)
 
@@ -441,6 +460,17 @@ class Node:
 
   def _top_p_for(self, request_id: str) -> float:
     return self._request_top_p.get(request_id, 0.0)
+
+  def _sampling_kwargs(self, request_id: str) -> dict:
+    """The engine's `sampling` keyword for a request with extras; none for a plain one."""
+    sampling = self._request_sampling.get(request_id)
+    return {"sampling": sampling} if sampling else {}
+
+  def pop_request_logprobs(self, request_id: str, n: Optional[int] = None) -> Optional[list]:
+    """Drain the engine's logprob entries for a request (OpenAI `logprobs`). None when
+    this peer's engine recorded none: a plain request, or a ring where another peer
+    samples (the token broadcast carries ids only)."""
+    return self.inference_engine.pop_logprobs(request_id, n)
 
   def _clamp_max_tokens(self, cap: Any) -> int:
     return max(1, min(int(cap), self.max_generate_tokens))
@@ -560,7 +590,7 @@ class Node:
     if ring_rows is not None:
       state[RING_MAP_KEY] = ring_rows
     for key, table in ((MAX_TOKENS_KEY, self._request_max_tokens), (TEMP_KEY, self._request_temp),
-                       (TOP_P_KEY, self._request_top_p)):
+                       (TOP_P_KEY, self._request_top_p), (SAMPLING_KEY, self._request_sampling)):
       if request_id in table:
         state[key] = table[request_id]
     if target_id == self.id:
@@ -609,6 +639,7 @@ class Node:
 
     connected = await asyncio.gather(*(_connect(p) for p in peers_added))
     for peer in peers_removed:
+      self._peer_reports.pop(peer.id(), None)
       await peer.disconnect(grace=600.0)
     self.peers = peers_kept + [p for p, ok in zip(peers_added, connected) if ok]
     return bool(peers_added or peers_removed)
@@ -624,14 +655,16 @@ class Node:
           print(f"Topology collection error: {e!r}")
 
   async def collect_topology(self, visited: set, max_depth: int = 4) -> Topology:
-    """Visited-set crawl: this node, its peers, and what each peer reports of itself."""
+    """Visited-set crawl: this node, its peers, and what each peer reports of itself
+    (for a peer up the crawl, which is not asked again, what it reported last)."""
     prev_visited = set(visited)
     next_topology = Topology()
     next_topology.update_node(self.id, self.device_capabilities)
     visited.add(self.id)
     visited.update(p.id() for p in self.peers)
     for peer in self.peers:
-      next_topology.update_node(peer.id(), peer.device_capabilities())
+      next_topology.update_node(peer.id(), self._peer_reports.get(peer.id(),
+                                                                  peer.device_capabilities()))
       next_topology.add_edge(self.id, peer.id(), peer.description())
       if peer.id() in prev_visited or max_depth <= 0:
         continue  # someone up the crawl already asked this peer
@@ -642,6 +675,8 @@ class Node:
           print(f"collect_topology from {peer.id()} failed: {e!r}")
         continue
       visited.update(other.nodes.keys())
+      if peer.id() in other.nodes:
+        self._peer_reports[peer.id()] = other.nodes[peer.id()]
       # Only the peer's own edges and capabilities; nodes it learned of are added when
       # unknown here.
       next_topology.merge(peer.id(), other)

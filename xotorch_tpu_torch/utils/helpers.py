@@ -8,6 +8,7 @@ discovery use: `DEBUG`, `DEBUG_DISCOVERY`, `AsyncCallbackSystem`, `spawn_detache
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import os
 import random
 import socket
@@ -123,26 +124,58 @@ def _used_ports_file() -> str:
   return os.path.join(tempfile.gettempdir(), "xot_tpu_used_ports")
 
 
-def find_available_port(host: str = "", min_port: int = 49152, max_port: int = 65535) -> int:
-  """A random free port, avoiding the last 100 ports this host's processes claimed
-  (a used-ports file in the temporary directory), so several peers starting at once
-  on one machine do not race for one port."""
-  used: List[int] = []
+def _ephemeral_range() -> Tuple[int, int]:
+  """The host's range of ports for outgoing connections (Linux; IANA's elsewhere)."""
   try:
-    with open(_used_ports_file(), "r") as f:
-      used = [int(line) for line in f.read().split() if line.strip().isdigit()]
+    with open("/proc/sys/net/ipv4/ip_local_port_range") as f:
+      low, high = (int(v) for v in f.read().split())
+    return low, high
+  except (OSError, ValueError):
+    return 49152, 65535
+
+
+def default_port_range() -> Tuple[int, int]:
+  """Where find_available_port draws: below the host's ephemeral range, so an outgoing
+  connection of another process cannot take the port between the draw and the bind
+  (it can when the two overlap: Linux gives 32768-60999 to outgoing connections); at
+  or above 10000, clear of the well-known and the usual service ports."""
+  low, _ = _ephemeral_range()
+  if low > 11000:
+    return 10000, low - 1
+  return 49152, 65535  # the host hands out nearly every port: the JAX package's range
+
+
+def find_available_port(host: str = "", min_port: Optional[int] = None,
+                        max_port: Optional[int] = None) -> int:
+  """A random free port (default_port_range), avoiding the last 100 ports this host's
+  processes claimed: a used-ports file in the temporary directory, read and rewritten
+  under an exclusive lock, so peers starting at once in several processes never draw
+  one port."""
+  lo, hi = default_port_range()
+  min_port = lo if min_port is None else min_port
+  max_port = hi if max_port is None else max_port
+  try:
+    f = open(_used_ports_file(), "a+")
   except OSError:
-    pass
-  used = used[-100:]
-  for _ in range(200):
-    port = random.randint(min_port, max_port)
-    if port not in used and is_port_available(port, host):
+    f = None  # no shared record: draw without it
+  with f or contextlib.nullcontext():
+    used: List[int] = []
+    if f is not None:
       try:
-        with open(_used_ports_file(), "w") as f:
-          f.write("\n".join(str(p) for p in used + [port]))
-      except OSError:
+        import fcntl
+        fcntl.flock(f, fcntl.LOCK_EX)  # released when the file closes
+      except (ImportError, OSError):
         pass
-      return port
+      f.seek(0)
+      used = [int(line) for line in f.read().split() if line.strip().isdigit()][-100:]
+    for _ in range(200):
+      port = random.randint(min_port, max_port)
+      if port not in used and is_port_available(port, host):
+        if f is not None:
+          f.seek(0)
+          f.truncate()
+          f.write("\n".join(str(p) for p in used + [port]))
+        return port
   raise RuntimeError("No available ports in range")
 
 

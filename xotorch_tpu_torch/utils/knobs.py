@@ -36,6 +36,7 @@ _DEFS: Tuple[Knob, ...] = (
   Knob("XOT_FLASH_BLOCK_K", "int", "128", "K1's keys a shared-memory tile: 64 or 128. At head_dim 256 K1 takes 64 whatever this says."),
   Knob("XOT_FD_BLOCK_Q", "int", "128", "K2/K2q's query rows a block on segments at T > 1 (positions x query heads of one kv head): 64 or 128. At head_dim 256 K2/K2q take 64 whatever this says."),
   Knob("XOT_FD_BLOCK_K", "int", "256", "The most keys one K2/K2q decode split reads (a CUDA block of split-K flash-decoding): a positive multiple of 64."),
+  Knob("XOT_SEED", "int", None, "Sampling PRNG seed; unset derives one from wall-clock time."),
   Knob("XOT_MAX_RESIDENT_REQUESTS", "int", "8", "Max request states resident per shard context before LRU eviction."),
   Knob("XOT_DECODE_BATCH", "int", "8", "Max concurrent requests fused into one batched decode dispatch."),
   Knob("XOT_BATCH_WINDOW_MS", "float", "0", "Batching window (ms) the decode batcher waits to coalesce submitters; 0 = one event-loop tick."),
