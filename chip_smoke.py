@@ -137,8 +137,25 @@ Phases, in order; any failure exits nonzero and prints no result line:
      the extras add to a step, the captures they add. (Phase 12's gemma-2-2b server
      answers one request with logprobs 3 and a logit_bias, held against the log-softmax
      of its softcapped logits.)
-  15. the {"kernels": [...]} line (attention launches include phases 12's and 14's),
-     then the {"ok": true, ...} line last.
+  15. observability (check_observability): a fresh synthetic-llama-1b server at full
+     width and depth, bf16, every observability knob at its default, answers the main
+     path's three requests (K1 and K2 counted); /v1/perf's bf16_weight_bytes equals the
+     nbytes of the parameters on the card (phase 8's quantized servers hold their
+     int8/int4 ceilings to their own tensors the same way); after a streamed 64-token
+     B=1 request 0 < hbm_util_pct, mfu_pct <= 100 and the decode lane's tok/s is within
+     15 % of the client's; over one profiled 32-token chunk the cost model's bytes over
+     the card's HBM rate over the kernels' device time (the bound share) is at most 1;
+     /v1/trace/device/start and /stop around one request write a Chrome trace holding
+     K1's and K2's kernels; with a gate of one slot and a queue of one, three concurrent
+     requests give one served, one queued and one 429 with Retry-After, as /v1/queue
+     shows; /metrics' request counter and TTFT count equal the requests made and it
+     carries xot_mfu_pct and xot_hbm_util_pct; /v1/traces holds one trace per request
+     with the JAX package's span names, parents that resolve and ordered times; TPOT and
+     device ms a step with every recorder on against all off, 4 rounds in turn. (Phase
+     10's ring also keeps one trace id across its hop, shows both peers at
+     /v1/cluster/metrics, and splits a token into steps and hops from /v1/anatomy.)
+  16. the {"kernels": [...]} line (attention launches include phases 12's, 14's and
+     15's), then the {"ok": true, ...} line last.
 """
 from __future__ import annotations
 
@@ -156,10 +173,22 @@ from typing import NamedTuple, Optional
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# Published dense peaks of one H100 SXM (NVIDIA data sheet) at its 700 W limit.
-PEAK_BF16_FLOPS = 989e12
-PEAK_INT8_OPS = 1979e12
-PEAK_HBM_BYTES = 3.35e12
+# Published dense peaks of the card, from the port's tables (NVIDIA's data sheets, at
+# the full power limit): bf16 FLOP/s and HBM bytes/s from topology/device_capabilities's
+# cuda_chip_peaks, int8 OP/s from its GPU_CHIP_FLOPS row. main() sets them for the card
+# it finds (an H100 SXM: 989e12, 1979e12, 3.35e12).
+PEAK_BF16_FLOPS = PEAK_INT8_OPS = PEAK_HBM_BYTES = None
+
+
+def set_peaks(name: str) -> None:
+  """The card's peaks into PEAK_*, or a failure for a card the tables lack."""
+  global PEAK_BF16_FLOPS, PEAK_INT8_OPS, PEAK_HBM_BYTES
+  from xotorch_tpu_torch.topology.device_capabilities import cuda_chip_peaks, lookup_chip_flops
+  tflops, gbps = cuda_chip_peaks(name)
+  flops = lookup_chip_flops(name)
+  if tflops is None or flops is None:
+    raise AssertionError(f"no published peaks for {name!r} in the port's tables")
+  PEAK_BF16_FLOPS, PEAK_HBM_BYTES, PEAK_INT8_OPS = tflops * 1e12, gbps * 1e9, flops.int8 * 1e12
 
 HQ, HKV, D = 32, 8, 64  # synthetic-llama-1b attention widths
 ATOL = 2e-2  # bf16 output rounding (2^-8 relative on |o| <= ~2) plus the plain
@@ -219,8 +248,8 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
   return sum(start.elapsed_time(end) for start, end in events) / iters
 
 
-def bound(flops: float, nbytes: float, peak: float = PEAK_BF16_FLOPS):
-  t_ops, t_bytes = flops / peak, nbytes / PEAK_HBM_BYTES
+def bound(flops: float, nbytes: float, peak: Optional[float] = None):
+  t_ops, t_bytes = flops / (peak or PEAK_BF16_FLOPS), nbytes / PEAK_HBM_BYTES
   return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
 
 
@@ -1698,12 +1727,17 @@ def drive_quantized(torch, card: str, fmt: str, env: dict, kernel, focus: str,
                     device: str = "cuda", model: str = "synthetic-llama-1b") -> dict:
   """A fresh server with XOT_QUANTIZE=`fmt` and `env` answers the main path's three
   requests; every decode step's 7 projections a layer go through `kernel`, so its
-  launches must equal 7 x layers x the decode steps. Then B=1 and B=8 profiles."""
+  launches must equal 7 x layers x the decode steps. Then B=1 and B=8 profiles, and
+  /v1/perf's `{fmt}_weight_bytes` ceiling held to the server's own tensors' bytes
+  (weight_bytes_held)."""
   from xotorch_tpu_torch.models.registry import get_model_card
   tag = f"{fmt} {kernel.__name__}" + (" XOT_INT4_V=4" if env.get("XOT_INT4_V") == "4" else "")
+
+  async def held(engine, node, api, base):
+    return await weight_bytes_held(engine, base, fmt, tag, card)
   run = drive_main_path(torch, card, device=device, model=model, kernels=(kernel,),
                         env={"XOT_QUANTIZE": fmt, **env}, tag=tag, profiles=(1, 8), focus=focus,
-                        wrapper=kernel if device == "cuda" else None)
+                        wrapper=kernel if device == "cuda" else None, after=held)
   layers = get_model_card(model)["layers"]
   launched, want = run["launches"][kernel.__name__], 7 * layers * run["steps"]
   ok = launched == want and run["steps"] >= run["decoded"]
@@ -1712,6 +1746,34 @@ def drive_quantized(torch, card: str, fmt: str, env: dict, kernel, focus: str,
   if not ok:
     raise AssertionError(f"{tag}: {launched} launches of {kernel.__name__}, wanted {want}")
   return run
+
+
+def tensor_bytes(tree) -> int:
+  """The nbytes of every tensor of a parameter tree (a packed int4 tensor counts its
+  bytes), read from shapes and dtypes on the host."""
+  if isinstance(tree, dict):
+    return sum(tensor_bytes(v) for v in tree.values())
+  if isinstance(tree, (list, tuple)):
+    return sum(tensor_bytes(v) for v in tree)
+  return tree.nbytes if hasattr(tree, "nbytes") else 0
+
+
+async def weight_bytes_held(engine, base: str, fmt: str, tag: str, card: str) -> int:
+  """/v1/perf's analytic `{fmt}_weight_bytes` ceiling (bf16 for fmt None) and its
+  weight_bytes_predicted, against the nbytes of the parameters the server holds on the
+  card: equal, exactly."""
+  loop = asyncio.get_running_loop()
+  perf = await loop.run_in_executor(None, http_json, base + "/v1/perf")
+  label = fmt or "bf16"
+  held = tensor_bytes(engine._ctx.params)
+  got = perf["ceilings"][f"{label}_weight_bytes"]
+  ok = got == held == perf["model"]["weight_bytes_predicted"] == perf["model"]["weight_bytes_actual"]
+  print(f"[{tag}] /v1/perf ceilings.{label}_weight_bytes {got} against {held} bytes of parameters "
+        f"on the card, {perf['ceilings'][f'{label}_tok_s']} tok/s ceiling at "
+        f"{perf['ceilings']['hbm_gbps']} GB/s ({card}) {'ok' if ok else 'FAIL'}", flush=True)
+  if not ok:
+    raise AssertionError(f"{tag}: {label}_weight_bytes {got}, parameters {held}, model {perf['model']}")
+  return held
 
 
 def drive_engine_alone(torch, card: str, env: dict, tag: str, focus: str = "",
@@ -2007,6 +2069,53 @@ def greedy_streams_agree(tag: str, main_run: dict, streams: dict) -> None:
       raise AssertionError(f"{tag}: {label} streamed {got}, the main path {want}")
 
 
+async def ring_observability(nodes: dict, engines: dict, base: str, rids: list, steps: int,
+                             tag: str, card: str) -> dict:
+  """The ring's observability, read at the API of the peer where the requests entered:
+  every request's spans (from both peers, the sampler's flushed over the status bus)
+  under one trace id; both peers fresh in /v1/cluster/metrics (each summary rides the
+  topology cadence); each request's /v1/anatomy breakdown with its hop stages; and the
+  split of a decode token into each peer's step (its engine's decode lane) and the
+  breakdown's stages, per token. Returns the split."""
+  loop = asyncio.get_running_loop()
+  call = lambda fn, *a: loop.run_in_executor(None, fn, *a)  # noqa: E731
+  t_end = time.perf_counter() + 15.0
+  while True:
+    cluster = await call(http_json, base + "/v1/cluster/metrics")
+    fresh = {nid for nid, row in cluster["nodes"].items() if not row.get("stale")}
+    anatomy = await call(http_json, base + "/v1/anatomy")
+    if (fresh >= set(RING_IDS) and set(rids) <= set(anatomy["recent_requests"])) or time.perf_counter() > t_end:
+      break
+    await asyncio.sleep(0.25)
+  spans = (await call(http_json, base + "/v1/traces"))["spans"]
+  attr = lambda sp, key: next((a["value"] for a in sp["attributes"] if a["key"] == key), None)  # noqa: E731
+  traces, peers = {}, {}
+  for sp in spans:
+    rid = attr(sp, "request.id")
+    traces.setdefault(rid, set()).add(sp["traceId"])
+    peers.setdefault(rid, set()).add(attr(sp, "node.id"))
+  stages: dict = {}
+  for rid in rids:
+    b = await call(http_json, f"{base}/v1/anatomy?request_id={rid}")
+    for name, row in b["stages"].items():
+      stages[name] = stages.get(name, 0.0) + row["secs"]
+  ok = (all(len(traces.get(rid, ())) == 1 and peers.get(rid) == set(RING_IDS) for rid in rids)
+        and fresh >= set(RING_IDS) and any(k.startswith("hop:") for k in stages))
+  print(f"[{tag}] traces: {[len(traces.get(rid, ())) for rid in rids]} trace id(s) a request over "
+        f"peers {[sorted(peers.get(rid, ())) for rid in rids]}; /v1/cluster/metrics fresh peers "
+        f"{sorted(fresh)}; anatomy for {sorted(set(rids) & set(anatomy['recent_requests']))} "
+        f"{'ok' if ok else 'FAIL'}", flush=True)
+  if not ok:
+    raise AssertionError(f"{tag}: traces {traces}, peers {peers}, fresh {fresh}, stages {stages}")
+  split = {f"step {i}": 1e3 * lane["secs"] / max(lane["dispatches"], 1)
+           for i, e in engines.items() for lane in (e.perf.lanes().get("decode"),) if lane}
+  split.update({f"stage {k}": 1e3 * v / max(steps, 1) for k, v in sorted(stages.items())})
+  print(f"[{tag}] a decode token, ms: " + ", ".join(f"{k} {v:.3f}" for k, v in split.items())
+        + f" (each peer's engine decode lane a dispatch; anatomy stages over the three requests / "
+        f"{steps} decode steps) ({card})", flush=True)
+  return split
+
+
 def drive_ring_inprocess(torch, card: str, main_run: dict, device: str = "cuda",
                          model: str = "synthetic-llama-1b") -> dict:
   """Phase 10: two Nodes in this process, each with its own engine on `device`, built by
@@ -2015,8 +2124,9 @@ def drive_ring_inprocess(torch, card: str, main_run: dict, device: str = "cuda",
   layer 0 through process_prompt. Holds K1's and K2's launches to the main path's
   formulas summed over both engines (K1 = layers x fresh prefills, K2 = layers x
   (decode steps + segments at pos > 0)), every hidden-state hop to bf16 at 2 x T x
-  hidden bytes, and the temperature-0 streams to the main path's. Returns the hop and
-  wire figures."""
+  hidden bytes, and the temperature-0 streams to the main path's; then the ring's
+  observability at the entry peer's API (ring_observability). Returns the hop and wire
+  figures."""
   import tempfile
   from xotorch_tpu_torch import main as port_main
   from xotorch_tpu_torch.api.chatgpt_api import build_prompt
@@ -2081,6 +2191,8 @@ def drive_ring_inprocess(torch, card: str, main_run: dict, device: str = "cuda",
       return out
 
     async def drive():
+      server = await built[RING_IDS[0]][3].start("127.0.0.1", 0)
+      obs_base = f"http://127.0.0.1:{server.sockets[0].getsockname()[1]}"
       try:
         t0 = time.perf_counter()
         await asyncio.wait_for(asyncio.gather(*(n.start(wait_for_peers=1) for n in nodes.values())), 120)
@@ -2115,8 +2227,11 @@ def drive_ring_inprocess(torch, card: str, main_run: dict, device: str = "cuda",
               acc[c] += row[c] - was[c]
         hop_s = sorted(s for n in nodes.values() for p in n.peers for m, s in p.hop_seconds
                        if m == "SendTensor")
+        await ring_observability(nodes, engines, obs_base,
+                                 [f"ring-inprocess-{j}" for j in range(len(runs))], steps, tag, card)
         return runs, counts, fresh, segments, steps, wire, hop_s, base.n_layers, engines[RING_IDS[0]].cfg.hidden_size
       finally:
+        server.close()
         for n in nodes.values():
           await n.stop()
 
@@ -3559,6 +3674,261 @@ def check_sampling_extras(torch, card: str, device: str = "cuda", model: str = "
   return out
 
 
+OBSERVE_WORDS = 300  # prompt words of the observability phase's own requests
+OBSERVE_SHARE_LIMIT = 0.15  # decode lane tok/s against the client's rate
+OBSERVE_KERNELS = ("flash_prefill_kernel", "flash_cached_")  # K1 and K2 in a device trace
+
+
+def http_text(url: str, timeout: float = 300.0) -> str:
+  import urllib.request
+  with urllib.request.urlopen(url, timeout=timeout) as resp:
+    return resp.read().decode()
+
+
+def http_status(url: str, body, timeout: float = 300.0):
+  """POST `body`; (status, headers, JSON body), an HTTP error's too."""
+  import urllib.error
+  import urllib.request
+  req = urllib.request.Request(url, data=json.dumps(body).encode(),
+                               headers={"Content-Type": "application/json"})
+  try:
+    with urllib.request.urlopen(req, timeout=timeout) as resp:
+      return resp.status, dict(resp.headers), json.loads(resp.read())
+  except urllib.error.HTTPError as e:
+    return e.code, dict(e.headers), json.loads(e.read())
+
+
+def prom_samples(text: str) -> dict:
+  """Prometheus text as {series: value}."""
+  out = {}
+  for line in text.splitlines():
+    if line and not line.startswith("#"):
+      series, value = line.rsplit(" ", 1)
+      out[series] = float(value)
+  return out
+
+
+def observe_body(model: str, max_tokens: int, stream: bool, words: int = OBSERVE_WORDS) -> dict:
+  body = {"model": model, "temperature": 0, "max_tokens": max_tokens,
+          "messages": [{"role": "user", "content": " ".join(f"w{i % 89}" for i in range(words))}]}
+  if stream:
+    body.update(stream=True, stream_options={"include_usage": True})
+  return body
+
+
+async def profiled_chunk(torch, engine, model: str, rid: str, n: int = 32) -> tuple:
+  """One n-token B=1 decode chunk of a fresh 514-token request on the engine, under
+  torch.profiler (CUDA activity): (kernels' device seconds, the decode lane's booked
+  bytes and FLOPs for the chunk, the chunk's wall seconds). Off the card, device time
+  is not measured (0)."""
+  import numpy as np
+  from xotorch_tpu_torch.models.registry import build_full_shard
+  shard = build_full_shard(model, type(engine).__name__)
+  tok, _ = await engine.infer_sample_tensor(rid, shard, np.ones((1, 514), np.int64), temp=0.0, top_k=0)
+  out = await engine.generate_chunk(rid, shard, int(tok), 8, temp=0.0)
+  lanes = engine.perf.lanes() if engine.perf is not None else {}
+  before = lanes.get("decode", {"hbm_bytes": 0, "flops": 0})
+  device_s = 0.0
+  t0 = time.perf_counter()
+  if engine.device.type == "cuda":
+    from torch.profiler import ProfilerActivity, profile
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      await engine.generate_chunk(rid, shard, int(out[-1]), n, temp=0.0)
+    for evt in prof.key_averages():
+      us = getattr(evt, "self_device_time_total", None)
+      device_s += (us if us is not None else getattr(evt, "self_cuda_time_total", 0)) / 1e6
+  else:
+    await engine.generate_chunk(rid, shard, int(out[-1]), n, temp=0.0)
+  wall = time.perf_counter() - t0
+  await engine.clear_request(rid)
+  after = engine.perf.lanes()["decode"] if engine.perf is not None else before
+  return device_s, after["hbm_bytes"] - before["hbm_bytes"], after["flops"] - before["flops"], wall
+
+
+def observability_switch(node, engine, on: bool, perf) -> None:
+  """Every recorder's switch flipped as its XOT_* knob would set it when the node is
+  built: tracing, the flight recorder, anatomy and its clock stamps, alerts, history
+  and the engine's attribution (XOT_PERF_ATTR)."""
+  for rec in (node.tracer, node.flight, node.anatomy, node.clock, node.alerts, node.history):
+    rec.enabled = on
+  engine.perf = perf if on else None
+
+
+def check_observability(torch, card: str, device: str = "cuda", model: str = "synthetic-llama-1b",
+                        rounds: int = 4) -> dict:
+  """Phase 15: the observability layer on a fresh server at full width and depth, bf16,
+  every observability knob at its default (the alert and history loops started as
+  node.start() starts them). The main path's three requests (drive_main_path: K1's and
+  K2's launches counted), then, on the same server: /v1/perf's bf16_weight_bytes held
+  to the parameters on the card; a streamed 64-token request, after which 0 <
+  hbm_util_pct, mfu_pct <= 100 and the decode lane's tok/s is within
+  OBSERVE_SHARE_LIMIT of the client's; one profiled 32-token chunk whose booked bytes
+  over the card's peak over the kernels' device time (the bound share) is at most 1;
+  the device-trace routes around one request, their Chrome trace holding K1's and K2's
+  kernels; admission with XOT_MAX_INFLIGHT=1 and XOT_ADMIT_QUEUE_DEPTH=1 (one request
+  served, one queued, one 429 with Retry-After, as /v1/queue shows); /metrics, whose
+  request counter and TTFT count equal the requests made and which carries the
+  utilization gauges; /v1/traces, one trace per request with the JAX package's span
+  names, parents that resolve and ordered times; then TPOT and device ms a step with
+  every recorder on against all off, `rounds` rounds in turn. Returns the launches."""
+  import tempfile
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention
+  from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention
+  tag = "observe"
+  t_phase = time.perf_counter()
+
+  async def after(engine, node, api, base):
+    loop = asyncio.get_running_loop()
+    call = lambda fn, *a: loop.run_in_executor(None, fn, *a)  # noqa: E731
+    node.start_alerts()
+    node.start_history()
+    made = 2 * len(main_requests(model))  # drive_main_path's warm-up and measured requests
+    url = base + "/v1/chat/completions"
+    await weight_bytes_held(engine, base, None, tag, card)
+
+    # Shares: a streamed 64-token B=1 request.
+    lanes = engine.perf.lanes()["decode"]
+    events, first, last = await call(http_stream, url, observe_body(model, 64, True))
+    made += 1
+    n = (events[-1].get("usage") or {}).get("completion_tokens", 0)
+    client = (n - 1) / (last - first)
+    now = engine.perf.lanes()["decode"]
+    lane = (now["tokens"] - lanes["tokens"]) / (now["secs"] - lanes["secs"])
+    gauges = (await call(http_json, base + "/v1/perf"))["gauges"]
+    ok = (0 < gauges["hbm_util_pct"] <= 100 and 0 < gauges["mfu_pct"] <= 100
+          and abs(lane - client) <= OBSERVE_SHARE_LIMIT * client)
+    print(f"[{tag}] streamed {n} tokens: client {client:.1f} tok/s, decode lane {lane:.1f} tok/s "
+          f"({100 * (lane / client - 1):+.1f}%), gauges hbm_util_pct {gauges['hbm_util_pct']} "
+          f"mfu_pct {gauges['mfu_pct']} decode_tok_s {gauges['decode_tok_s']} ({card}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok and device == "cuda":
+      raise AssertionError(f"{tag}: gauges {gauges}, lane {lane} against client {client}")
+
+    # Bound share: the cost model's bytes for one profiled chunk against its device time.
+    device_s, nbytes, flops, wall = await profiled_chunk(torch, engine, model, "observe-bound")
+    share = nbytes / PEAK_HBM_BYTES / device_s if device_s else float("nan")
+    ok = 0 < share <= 1.0
+    print(f"[{tag}] a 32-token B=1 chunk: cost model {nbytes} bytes = {1e3 * nbytes / PEAK_HBM_BYTES:.3f} "
+          f"ms at {PEAK_HBM_BYTES / 1e12:g} TB/s, {flops} FLOPs = {1e3 * flops / PEAK_BF16_FLOPS:.3f} ms; "
+          f"kernels {1e3 * device_s:.3f} device ms ({1e3 * device_s / 32:.3f} a step), wall "
+          f"{1e3 * wall:.3f} ms; bound share {share:.4f} ({card}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok and device == "cuda":
+      raise AssertionError(f"{tag}: bound share {share} (over 1 means the count is wrong)")
+
+    # Device trace through the routes, around one request.
+    logdir = tempfile.mkdtemp(prefix="xot_device_trace_")
+    try:
+      started = await call(http_status, base + "/v1/trace/device/start", {"logdir": logdir})
+      await call(http_json, url, observe_body(model, 16, False, words=600))
+      made += 1
+      stopped = await call(http_status, base + "/v1/trace/device/stop", {})
+      files = os.listdir(logdir)
+      with open(os.path.join(logdir, files[0])) as f:
+        events = json.load(f)["traceEvents"]
+      kernels = [e["name"] for e in events if e.get("cat") == "kernel"]
+      found = {k: sum(k in name for name in kernels) for k in OBSERVE_KERNELS}
+      ok = (started[2]["started"] and stopped[2] == {"stopped": True} and len(files) == 1
+            and (device != "cuda" or all(found.values())))
+      print(f"[{tag}] device trace: {len(events)} events, {len(kernels)} kernels, {found} "
+            f"({card}) {'ok' if ok else 'FAIL'}", flush=True)
+      if not ok:
+        raise AssertionError(f"{tag}: device trace {started} {stopped} {files} {found}")
+    finally:
+      import shutil
+      shutil.rmtree(logdir, ignore_errors=True)
+
+    # Admission: a gate of one slot and a queue of one, as the knobs would build it.
+    from xotorch_tpu_torch.orchestration.admission import AdmissionGate
+    with phase_env(XOT_MAX_INFLIGHT="1", XOT_ADMIT_QUEUE_DEPTH="1"):
+      gate = AdmissionGate(node)
+    saved, node.admission = node.admission, gate
+    try:
+      held = asyncio.ensure_future(call(http_status, url, observe_body(model, 256, False)))
+      while gate.inflight < 1:
+        await asyncio.sleep(0.005)
+      queued = asyncio.ensure_future(call(http_status, url, observe_body(model, 8, False)))
+      while gate.compact()["queued"] < 1:
+        await asyncio.sleep(0.005)
+      shed = await call(http_status, url, observe_body(model, 8, False))
+      queue = await call(http_json, base + "/v1/queue")
+      results = [await held, await queued]
+      made += 2
+    finally:
+      node.admission = saved
+    adm = queue["admission"]
+    ok = (shed[0] == 429 and int(shed[1].get("Retry-After", 0)) >= 1
+          and [r[0] for r in results] == [200, 200] and queue["enabled"]
+          and (adm["inflight"], adm["queued"], adm["rejected_total"]) == (1, 1, 1))
+    print(f"[{tag}] admission (1 slot, a queue of 1): {[r[0] for r in results]} served, one 429 "
+          f"Retry-After {shed[1].get('Retry-After')} s, /v1/queue inflight {adm['inflight']} queued "
+          f"{adm['queued']} rejected {adm['rejected_total']} est_wait_s {adm['est_wait_s']} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+      raise AssertionError(f"{tag}: admission {shed[:2]} {results} {queue}")
+
+    # Prometheus text and spans.
+    await wait_idle(engine)
+    await asyncio.sleep(0.1)  # the last finish's span flush
+    samples = prom_samples(await call(http_text, base + "/metrics"))
+    requests = next(v for k, v in samples.items() if k.startswith("xot_requests_total{"))
+    ttft = next(v for k, v in samples.items() if k.startswith("xot_ttft_seconds_count{"))
+    util = [k for k in ("xot_mfu_pct", "xot_hbm_util_pct") if k in samples]
+    ok = requests == made and ttft == made and len(util) == 2
+    print(f"[{tag}] /metrics: {len(samples)} samples, xot_requests_total {requests:g}, "
+          f"xot_ttft_seconds_count {ttft:g} for {made} requests, {util} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+      raise AssertionError(f"{tag}: /metrics requests {requests}, ttft {ttft}, made {made}, {util}")
+    spans = (await call(http_json, base + "/v1/traces"))["spans"]
+    traces = {}
+    for sp in spans:
+      traces.setdefault(sp["traceId"], []).append(sp)
+    bad = []
+    for tid, trace in traces.items():
+      ids = {sp["spanId"]: sp for sp in trace}
+      names = {sp["name"] for sp in trace}
+      if not {"process_prompt", "engine.prefill"} <= names or not any(x.startswith("tokens[") for x in names):
+        bad.append((tid, sorted(names)))
+      for sp in trace:
+        parent = ids.get(sp["parentSpanId"])
+        if (sp["startTimeUnixNano"] > sp["endTimeUnixNano"]
+            or (sp["name"] != "process_prompt" and parent is None)
+            or (parent is not None and sp["startTimeUnixNano"] < parent["startTimeUnixNano"])):
+          bad.append((tid, sp["name"]))
+    ok = len(traces) == made and not bad
+    print(f"[{tag}] /v1/traces: {len(spans)} spans in {len(traces)} traces for {made} requests, "
+          f"names {sorted({sp['name'] for sp in spans if not sp['name'].startswith('tokens[')})} + "
+          f"tokens[...] groups {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+      raise AssertionError(f"{tag}: traces {len(traces)} for {made}, bad {bad[:5]}")
+
+    # Overhead: every recorder on against all off, in turns.
+    perf = engine.perf
+    runs = {True: [], False: []}
+    try:
+      for r in range(rounds):
+        for on in ((True, False) if r % 2 == 0 else (False, True)):
+          observability_switch(node, engine, on, perf)
+          events, first, last = await call(http_stream, url, observe_body(model, 64, True))
+          n = (events[-1].get("usage") or {}).get("completion_tokens", 0)
+          device_s, _, _, _ = await profiled_chunk(torch, engine, model, f"observe-{r}-{on}")
+          runs[on].append((1e3 * (last - first) / (n - 1), 1e3 * device_s / 32))
+    finally:
+      observability_switch(node, engine, True, perf)
+    med = {on: (sorted(x[0] for x in v)[len(v) // 2], sorted(x[1] for x in v)[len(v) // 2])
+           for on, v in runs.items()}
+    print(f"[{tag}] overhead, {rounds} rounds in turn: TPOT median {med[True][0]:.4f} ms on, "
+          f"{med[False][0]:.4f} ms off ({med[True][0] - med[False][0]:+.4f}); device ms a step "
+          f"{med[True][1]:.4f} on, {med[False][1]:.4f} off ({med[True][1] - med[False][1]:+.4f}); "
+          f"each round (TPOT, device ms) on {runs[True]} off {runs[False]} ({card})", flush=True)
+    return med
+
+  run = drive_main_path(torch, card, device=device, model=model, tag=tag, profiles=(),
+                        kernels=(flash_attention, flash_cached_attention), after=after)
+  print(f"[time] phase 15 (observability): {time.perf_counter() - t_phase:.1f} s", flush=True)
+  return run["launches"]
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--kernels-only", action="store_true",
@@ -3582,6 +3952,9 @@ def main(argv=None) -> int:
         f"{torch.cuda.get_device_name(0)} x{torch.cuda.device_count()}", flush=True)
   torch.backends.cuda.matmul.allow_tf32 = False
   torch.backends.cudnn.allow_tf32 = False
+  set_peaks(torch.cuda.get_device_name(0))
+  print(f"peaks: {PEAK_BF16_FLOPS / 1e12:g} TFLOP/s bf16, {PEAK_INT8_OPS / 1e12:g} TOP/s int8, "
+        f"{PEAK_HBM_BYTES / 1e12:g} TB/s HBM", flush=True)
 
   # Phase 2: build.
   from xotorch_tpu_torch.ops import _build
@@ -3729,7 +4102,13 @@ def main(argv=None) -> int:
     launches[name] += n
   print(f"[time] phases 1-14: {time.perf_counter() - started:.1f} s", flush=True)
 
-  # Phase 15: results.
+  # Phase 15: the observability layer on a fresh server; its main-path launches join the
+  # results line.
+  for name, n in check_observability(torch, card).items():
+    launches[name] += n
+  print(f"[time] phases 1-15: {time.perf_counter() - started:.1f} s", flush=True)
+
+  # Phase 16: results.
   meta = {
     "flash_attention": ("xotorch_tpu_torch/csrc/flash_attention.cu",
                         "xotorch_tpu/ops/flash_attention.py:54"),

@@ -18,7 +18,17 @@ The port of the serving core of xotorch_tpu/api/chatgpt_api.py on
   undecodable data URI too);
 - POST /v1/chat/token/encode (and /chat/token/encode) builds a request's prompt as a
   completion would (system prompt and tools included) and returns its tokens;
-- GET /v1/models lists the cards this engine serves; GET /healthcheck.
+- GET /v1/models lists the cards this engine serves; GET /healthcheck;
+- observability, with the JAX handler's payload keys: GET /metrics (Prometheus text:
+  the node's registry, then the engine's counters and gauges, the perf, alert and
+  anatomy gauges), /v1/traces (?trace_id=, ?clear=1, ?format=chrome), /v1/perf,
+  /v1/queue, /v1/debug/flight (?request_id=, ?live=N), /v1/cluster/metrics,
+  /v1/anatomy (?request_id=, ?diff=s), /v1/alerts, /v1/history (?window=, ?metric=,
+  ?diff=, ?compact=1), and POST /v1/trace/device/start (body {"logdir": ...}; a
+  torch.profiler session whose Chrome trace /v1/trace/device/stop writes there);
+- bounded admission (XOT_MAX_INFLIGHT > 0): a completion takes a slot of the node's
+  gate first, waits in its queue, or is answered 429 with Retry-After when the queue
+  is full; responses carry the x-ratelimit-* headers while the gate is on.
 
 Synthetic models use DummyTokenizer, with the model's own EOS id.
 """
@@ -29,23 +39,74 @@ import base64
 import binascii
 import io
 import json
+import math
 import time
 import uuid
 from typing import Dict, List, NamedTuple, Optional, Tuple
+from urllib.parse import parse_qsl
 
 from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer, resolve_tokenizer, tokenizer_for_dir
 from xotorch_tpu_torch.models.registry import build_base_shard, get_model_card, get_repo, get_supported_models
+from xotorch_tpu_torch.orchestration.admission import AdmissionRejected
+from xotorch_tpu_torch.orchestration.anatomy import chrome_trace
+from xotorch_tpu_torch.orchestration.tracing import DEFAULT_TRACE_DIR, start_device_trace, stop_device_trace
+from xotorch_tpu_torch.utils import knobs
 from xotorch_tpu_torch.utils.helpers import DEBUG, spawn_detached
 
 REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed",
-           500: "Internal Server Error"}
+           429: "Too Many Requests", 500: "Internal Server Error"}
+
+# Engine counters /metrics appends (the JAX handler's table): the port engine's
+# attribute, family, help. The families of subsystems the port lacks (prefix cache,
+# speculation, host KV tier, fabric, OOM recovery, the un-paged view) read 0, as the
+# JAX package's do with those features off.
+ENGINE_COUNTERS = (
+  ("_prefix_hits", "xot_prefix_cache_hits_total", "Prefill prefix-cache hits"),
+  ("_prefix_tokens_saved", "xot_prefix_tokens_saved_total", "Prompt tokens whose prefill was skipped"),
+  ("_spec_proposed", "xot_spec_tokens_proposed_total", "Speculative draft tokens proposed"),
+  ("_spec_accepted", "xot_spec_tokens_accepted_total", "Speculative draft tokens accepted"),
+  ("_grow_copies", "xot_kv_grow_copies_total",
+   "Contiguous KV grow-copies (zero under XOT_PAGED_KV decode)"),
+  ("_commit_copy_bytes", "xot_kv_commit_copy_bytes_total",
+   "Device bytes copied committing contiguous prefill KV into pool pages "
+   "(zero under paged-native prefill, XOT_PAGED_PREFILL)"),
+  ("_unpage_calls", "xot_kv_unpage_total",
+   "Paged-to-contiguous cache gathers (zero under virtual KV addressing "
+   "unless XOT_PAGED_SPEC=0 restores the legacy fallback)"),
+  ("defrag_moves", "xot_kv_defrag_moves_total",
+   "Pages migrated by idle-slot pool compaction (XOT_KV_DEFRAG)"),
+  ("_oom_count", "xot_oom_recoveries_total",
+   "HBM-exhaustion recoveries (engine._free_device_memory invocations)"),
+  ("_prefix_evictions", "xot_prefix_evictions_total",
+   "Prefix-cache entries evicted (LRU bound, pool pressure, OOM recovery)"),
+  ("_host_kv_hits", "xot_kv_host_hits_total",
+   "Prefix lookups served from the host KV tier (XOT_KV_HOST_BYTES)"),
+  ("_host_spill_bytes", "xot_kv_spill_bytes_total",
+   "Bytes spilled D2H into the host KV tier by prefix evictions"),
+  ("_host_fetch_bytes", "xot_kv_fetch_bytes_total",
+   "Bytes restored H2D from the host KV tier on warm-prefix admission"),
+  ("_fabric_hits", "xot_kv_fabric_hits_total",
+   "Prefix entries imported from sibling replicas over the KV fabric"),
+  ("_fabric_misses", "xot_kv_fabric_misses_total",
+   "Fabric consults that found no usable sibling entry (cold prefill)"),
+  ("_fabric_errors", "xot_kv_fabric_errors_total",
+   "Fabric transfers dropped (peer error, torn blob, digest mismatch)"),
+  ("_fabric_bytes", "xot_kv_fabric_bytes_total",
+   "Host-tier bytes imported over the KV fabric from sibling replicas"),
+  ("_jit_first_dispatches", "xot_jit_first_dispatch_total",
+   "Device dispatches whose executable identity was first seen (jit cache miss: "
+   "pays XLA compilation)"),
+  ("_jit_cached_dispatches", "xot_jit_cached_dispatch_total",
+   "Device dispatches that hit an already-compiled executable"),
+)
 
 
 class HTTPError(Exception):
-  def __init__(self, status: int, body: dict):
+  def __init__(self, status: int, body: dict, headers: Optional[dict] = None):
     super().__init__(body)
     self.status = status
     self.body = body
+    self.headers = headers or {}
 
 
 def _invalid(message: str) -> HTTPError:
@@ -166,10 +227,10 @@ class ChatGPTAPI:
 
   async def _handle_connection(self, reader: asyncio.StreamReader, writer: asyncio.StreamWriter) -> None:
     try:
-      method, path, body = await self._read_request(reader)
-      await self._route(method, path, body, writer)
+      method, path, query, body = await self._read_request(reader)
+      await self._route(method, path, query, body, writer)
     except HTTPError as e:
-      await self._write_json(writer, e.status, e.body)
+      await self._write_json(writer, e.status, e.body, e.headers)
     except (asyncio.IncompleteReadError, ConnectionError):
       pass  # the client went away
     except Exception as e:
@@ -185,7 +246,7 @@ class ChatGPTAPI:
       except ConnectionError:
         pass
 
-  async def _read_request(self, reader: asyncio.StreamReader) -> Tuple[str, str, bytes]:
+  async def _read_request(self, reader: asyncio.StreamReader) -> Tuple[str, str, dict, bytes]:
     head = await reader.readuntil(b"\r\n\r\n")
     lines = head.decode("latin-1").split("\r\n")
     parts = lines[0].split(" ")
@@ -198,21 +259,38 @@ class ChatGPTAPI:
         headers[key.strip().lower()] = value.strip()
     length = int(headers.get("content-length", "0") or 0)
     body = await reader.readexactly(length) if length else b""
-    return parts[0].upper(), parts[1].split("?", 1)[0], body
+    path, _, query = parts[1].partition("?")
+    return parts[0].upper(), path, dict(parse_qsl(query, keep_blank_values=True)), body
 
-  async def _write_json(self, writer: asyncio.StreamWriter, status: int, body: dict) -> None:
-    payload = json.dumps(body).encode()
+  async def _write(self, writer: asyncio.StreamWriter, status: int, payload: bytes,
+                   content_type: str, headers: Optional[dict] = None) -> None:
+    extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
     writer.write((f"HTTP/1.1 {status} {REASONS.get(status, 'Error')}\r\n"
-                  "Content-Type: application/json\r\n"
-                  f"Content-Length: {len(payload)}\r\n"
+                  f"Content-Type: {content_type}\r\n"
+                  f"Content-Length: {len(payload)}\r\n{extra}"
                   "Connection: close\r\n\r\n").encode() + payload)
     await writer.drain()
 
-  async def _route(self, method: str, path: str, body: bytes, writer: asyncio.StreamWriter) -> None:
+  async def _write_json(self, writer: asyncio.StreamWriter, status: int, body: dict,
+                        headers: Optional[dict] = None) -> None:
+    await self._write(writer, status, json.dumps(body).encode(), "application/json", headers)
+
+  async def _route(self, method: str, path: str, query: dict, body: bytes,
+                   writer: asyncio.StreamWriter) -> None:
+    get = self._get_routes().get(path)
     if path == "/healthcheck" and method == "GET":
       await self._write_json(writer, 200, {"status": "ok"})
     elif path in ("/v1/models", "/models") and method == "GET":
       await self._write_json(writer, 200, self.models_body())
+    elif path == "/metrics" and method == "GET":
+      payload, content_type = self.metrics_exposition()
+      await self._write(writer, 200, payload, content_type)
+    elif get is not None and method == "GET":
+      await self._write_json(writer, 200, get(query))
+    elif path in ("/v1/trace/device/start", "/v1/trace/device/stop"):
+      if method != "POST":
+        raise HTTPError(405, {"detail": f"{method} not allowed on {path}"})
+      await self._write_json(writer, 200, await self.handle_device_trace(path, body))
     elif path in ("/v1/chat/completions", "/chat/completions",
                   "/v1/chat/token/encode", "/chat/token/encode"):
       if method != "POST":
@@ -227,6 +305,259 @@ class ChatGPTAPI:
         await self.handle_post_chat_completions(data, writer)
     else:
       raise HTTPError(404, {"detail": f"no route {method} {path}"})
+
+  # --------------------------------------------------------- observability
+
+  def _get_routes(self) -> dict:
+    return {"/v1/traces": self.handle_get_traces, "/v1/anatomy": self.handle_get_anatomy,
+            "/v1/debug/flight": self.handle_get_flight,
+            "/v1/cluster/metrics": self.handle_get_cluster_metrics,
+            "/v1/alerts": self.handle_get_alerts, "/v1/history": self.handle_get_history,
+            "/v1/perf": self.handle_get_perf, "/v1/queue": self.handle_get_queue}
+
+  @staticmethod
+  def _float_param(query: dict, key: str, what: str) -> Optional[float]:
+    if key not in query:
+      return None
+    try:
+      return float(query[key])
+    except ValueError:
+      raise HTTPError(400, {"detail": f"{key} must be {what}, got {query[key]!r}"}) from None
+
+  def handle_get_traces(self, query: dict) -> dict:
+    """Finished spans, OTLP-style JSON. ?trace_id= filters one trace; ?clear=1 drains
+    what was read; ?format=chrome gives Chrome trace-event JSON re-based onto this
+    node's clock (the estimated ring offsets)."""
+    spans = self.node.tracer.export(trace_id=query.get("trace_id"), clear=query.get("clear") == "1")
+    if query.get("format") == "chrome":
+      offsets = self.node.ring_offsets_view()
+      return {"traceEvents": chrome_trace(spans, offsets), "displayTimeUnit": "ms",
+              "otherData": {"node_id": self.node.id,
+                            "skew_corrected": any(nid != self.node.id for nid in offsets)}}
+    return {"spans": spans, "count": len(spans)}
+
+  def handle_get_anatomy(self, query: dict) -> dict:
+    """Latency anatomy: per-stage percentiles over the origin's reservoir and the ring's
+    clock offsets; ?request_id= one request's breakdown (404 when none was assembled);
+    ?diff=<seconds> which stage grew between the last window and the one before."""
+    store = self.node.anatomy
+    rid = query.get("request_id")
+    if rid:
+      b = store.get(rid)
+      if b is None:
+        raise HTTPError(404, {"detail": f"no anatomy breakdown assembled for request {rid}"})
+      return b
+    window_s = self._float_param(query, "diff", "a window in seconds")
+    if window_s is not None:
+      return {"node_id": self.node.id, **store.diff(window_s)}
+    return {"node_id": self.node.id, "enabled": store.enabled, "breakdowns": len(store.recent()),
+            "total": store.total, "stages": store.percentiles(),
+            "offsets": self.node.ring_offsets_view(),
+            "recent_requests": [b.get("request_id") for b in store.recent(16)]}
+
+  def handle_get_flight(self, query: dict) -> dict:
+    """Flight-recorder postmortems: every frozen snapshot and the recorder's stats;
+    ?request_id= one snapshot (404 when none was frozen); ?live=N also the live ring's
+    last N events (0 or `all` for every one)."""
+    fl = self.node.flight
+    rid = query.get("request_id")
+    if rid:
+      snap = fl.snapshot(rid)
+      if snap is None:
+        raise HTTPError(404, {"detail": f"no flight snapshot frozen for request {rid}"})
+      return snap
+    body = {"node_id": self.node.id, **fl.stats(), "snapshots": fl.snapshots()}
+    live = query.get("live")
+    if live is not None:
+      try:
+        n = 0 if live in ("", "all") else max(0, int(live))
+      except ValueError:
+        raise HTTPError(400, {"detail": f"live must be an integer or 'all', got {live!r}"}) from None
+      body["events"] = fl.tail(n)
+    return body
+
+  def handle_get_cluster_metrics(self, query: dict) -> dict:
+    """This node's metric summary and each peer's latest off the status bus; a stale
+    peer's row is marked and left out of the ring-wide percentiles."""
+    nodes, aggregate = self.node.cluster_metrics_view()
+    return {"nodes": nodes, "count": len(nodes), "aggregate": aggregate}
+
+  def _peer_compacts(self, key: str, stale_mark: bool = True) -> Dict[str, dict]:
+    """Each peer's `key` compact off the status bus (stale ones marked)."""
+    out = {}
+    for nid, summary in self.node.peer_metrics.items():
+      part = summary.get(key) if isinstance(summary, dict) else None
+      if not part:
+        continue
+      if stale_mark and self.node.peer_metrics_stale(nid):
+        part = {**part, "stale": True}
+      out[nid] = part
+    return out
+
+  def handle_get_alerts(self, query: dict) -> dict:
+    """SLO alerts: this node's rule status (burn rates, active and recent alerts, the
+    ring decomposition) and each peer's alert compact, merged in `cluster`."""
+    al = self.node.alerts
+    loc = al.localization()
+    body = {"node_id": self.node.id, **al.status(localization=loc)}
+    nodes = {self.node.id: al.compact(localization=loc), **self._peer_compacts("alerts")}
+    cluster_active, cluster_recent = [], []
+    for nid, alerts in nodes.items():
+      cluster_active.extend({"node_id": nid, **row} for row in alerts.get("active") or [])
+      cluster_recent.extend({"node_id": nid, **row} for row in alerts.get("recent") or [])
+    body["nodes"] = nodes
+    body["cluster"] = {
+      "active": cluster_active, "recent": cluster_recent,
+      "firing": sum(int(a.get("firing") or 0) for a in nodes.values()),
+      "degraded_peers": sorted({p for a in nodes.values() for p in (a.get("degraded_peers") or [])}),
+    }
+    return body
+
+  def handle_get_history(self, query: dict) -> dict:
+    """The node's downsampled gauge time-series: ?window=<s> bounds it, ?metric= keeps
+    one gauge, ?diff=<s> which metric moved, ?compact=1 just the trailing rollup;
+    `cluster` holds each peer's history compact."""
+    hist = self.node.history
+    if query.get("compact") == "1":
+      return {"node_id": self.node.id, "enabled": hist.enabled,
+              "compact": hist.compact() if hist.enabled else None}
+    window_s = self._float_param(query, "diff", "a window in seconds")
+    if window_s is not None:
+      return {"node_id": self.node.id, **hist.diff(window_s)}
+    body = {"node_id": self.node.id,
+            **hist.status(window_s=self._float_param(query, "window", "seconds"),
+                          metric=query.get("metric"))}
+    body["cluster"] = {**({self.node.id: hist.compact()} if hist.enabled else {}),
+                       **self._peer_compacts("history")}
+    return body
+
+  def handle_get_perf(self, query: dict) -> dict:
+    """The engine's roofline attribution report and, in `cluster`, each peer's compact
+    perf summary and this node's. 404 when attribution is off (XOT_PERF_ATTR=0)."""
+    eng = self.node.inference_engine
+    report = eng.perf_report()
+    if report is None:
+      raise HTTPError(404, {"detail": "engine exposes no perf attribution (XOT_PERF_ATTR=0)"})
+    cluster = self._peer_compacts("perf", stale_mark=False)
+    local = eng.perf_compact()
+    if local is not None:
+      cluster[self.node.id] = local
+    return {"node_id": self.node.id, **report, "cluster": cluster}
+
+  def handle_get_queue(self, query: dict) -> dict:
+    """The admission gate's state (inflight, queued, totals, estimated wait) and each
+    peer's admission compact: `enabled` false and an empty cluster while the gate is
+    off everywhere."""
+    gate = self.node.admission
+    local = gate.compact()
+    cluster = {self.node.id: local} if gate.enabled else {}
+    cluster.update(self._peer_compacts("admission"))
+    return {"node_id": self.node.id, "enabled": gate.enabled,
+            "active_requests": len(self.node.outstanding_requests),
+            "fabric_role": "mixed",  # no KV fabric in the port: every node serves everything
+            "admission": local, "cluster": cluster}
+
+  async def handle_device_trace(self, path: str, body: bytes) -> dict:
+    """Start or stop the process's torch.profiler session (orchestration/tracing.py). The
+    profiler waits for any CUDA graph capture to end, so it runs off the event loop."""
+    loop = asyncio.get_running_loop()
+    if path.endswith("/stop"):
+      return {"stopped": await loop.run_in_executor(None, stop_device_trace)}
+    try:
+      data = json.loads(body or b"{}")
+    except json.JSONDecodeError:
+      raise _invalid("body must be JSON") from None
+    logdir = data.get("logdir", DEFAULT_TRACE_DIR)
+    started = await loop.run_in_executor(None, start_device_trace, logdir)
+    return {"started": started, "logdir": logdir, "max_s": knobs.get_float("XOT_DEVICE_TRACE_MAX_S")}
+
+  def metrics_exposition(self) -> Tuple[bytes, str]:
+    """/metrics: the node's registry, then the engine's counters, the page pool's
+    gauges (once a pool exists), the roofline gauges, and the alert and anatomy gauges
+    (the JAX handler's families and help texts)."""
+    body, content_type = self.node.metrics.exposition_with_content_type()
+    eng = self.node.inference_engine
+    extra = []
+
+    def gauge(name: str, help_text: str, value) -> None:
+      extra.append(f"# HELP {name} {help_text}\n# TYPE {name} gauge\n{name} {value}\n")
+
+    def labelled(name: str, help_text: str, label: str, rows: dict) -> None:
+      if rows:
+        extra.append(f"# HELP {name} {help_text}\n# TYPE {name} gauge\n")
+        extra.extend(f'{name}{{{label}="{k}"}} {v}\n' for k, v in sorted(rows.items()))
+
+    for attr, name, help_text in ENGINE_COUNTERS:
+      extra.append(f"# HELP {name} {help_text}\n# TYPE {name} counter\n{name} {getattr(eng, attr, 0)}\n")
+    stats = eng.page_pool_stats()
+    if stats is not None:
+      for key, name, help_text in (
+        ("pages_in_use", "xot_kv_pool_pages_in_use", "KV pool pages currently referenced"),
+        ("free_pages", "xot_kv_pool_free_pages", "KV pool pages on the free list"),
+        ("peak_pages_in_use", "xot_kv_pool_peak_pages",
+         "High-water mark of concurrently referenced KV pool pages"),
+        ("fragmentation", "xot_kv_fragmentation_pages",
+         "Free pages stranded below the pool's highest used page id "
+         "(the holes an idle defrag pass can close)"),
+      ):
+        gauge(name, help_text, stats[key])
+    perf = eng.perf_stats()
+    if perf is not None:
+      for key, name, help_text in (
+        ("decode_tok_s", "xot_decode_tok_s",
+         "EWMA decode throughput observed at the engine batcher (tokens/s)"),
+        ("prefill_tok_s", "xot_prefill_tok_s", "EWMA prefill throughput observed at the engine (tokens/s)"),
+        ("hbm_util_pct", "xot_hbm_util_pct",
+         "EWMA predicted HBM bandwidth utilization vs the chip peak (0 off-TPU)"),
+        ("mfu_pct", "xot_mfu_pct", "EWMA model FLOP utilization vs the chip peak (0 off-TPU)"),
+      ):
+        gauge(name, help_text, perf[key])
+    alerts = self.node.alerts
+    if alerts.enabled:
+      astats = alerts.gauge_stats()
+      gauge("xot_alerts_firing", "SLO alert rules currently firing on this node", astats["firing"])
+      gauge("xot_perf_drift_firing", "Chronic perf_drift rules currently firing on this node",
+            astats["drift_firing"])
+      labelled("xot_slo_burn_rate",
+               "Fast-window SLO burn rate (error-budget multiples) per rule family", "family",
+               alerts.burn_gauges())
+      labelled("xot_peer_hop_seconds",
+               "EWMA hop send RTT to each ring peer (gray-failure localization signal)", "peer",
+               alerts.peer_hop_gauges())
+    anat = self.node.anatomy
+    if anat.enabled:
+      astats = anat.gauge_stats()
+      gauge("xot_anatomy_breakdowns",
+            "Skew-corrected stage breakdowns currently held in the anatomy reservoir",
+            astats["breakdowns"])
+      gauge("xot_anatomy_unattributed_share",
+            "Mean unattributed fraction of recent latency breakdowns (0 = fully attributed)",
+            astats["unattributed_share"])
+      offsets = {nid: round(float(o.get("offset_ns") or 0.0) / 1e9, 6)
+                 for nid, o in self.node.ring_offsets_view().items() if nid != self.node.id}
+      labelled("xot_clock_offset_seconds",
+               "Estimated clock offset of each ring peer relative to this node (latency anatomy)",
+               "peer", offsets)
+    return body + "".join(extra).encode(), content_type
+
+  def _ratelimit_headers(self, remaining: Optional[int] = None,
+                         reset_s: Optional[float] = None) -> dict:
+    """OpenAI-style x-ratelimit-* headers from the admission gate's live view: the
+    budget is the concurrency cap plus the queue, `remaining` what is left of it now,
+    and reset the estimated wait. `remaining`/`reset_s` give a 429's own numbers. Empty
+    while the gate is off."""
+    gate = self.node.admission
+    if not gate.enabled:
+      return {}
+    limit = gate.max_inflight + gate.queue_limit
+    if remaining is None:
+      c = gate.compact()
+      used = int(c["inflight"]) + int(c["queued"])
+      remaining = max(0, limit - used)
+      reset_s = float(c["est_wait_s"]) if used else 0.0
+    return {"x-ratelimit-limit-requests": str(limit),
+            "x-ratelimit-remaining-requests": str(remaining),
+            "x-ratelimit-reset-requests": f"{reset_s:g}s"}
 
   def models_body(self) -> dict:
     return {"object": "list", "data": [
@@ -402,6 +733,22 @@ class ChatGPTAPI:
     # n completions of one prompt: sub-requests "rid#0".."rid#n-1" (seeded siblings
     # draw distinct streams; plain ones coalesce in the engine's batcher).
     base = str(uuid.uuid4())
+    # Bounded admission (XOT_MAX_INFLIGHT, 0 = off): one slot for the whole HTTP request
+    # (all n sub-completions), taken before the request touches the ring. Over the cap
+    # it waits in the gate's queue; past the queue it is shed as 429 with Retry-After.
+    gate = self.node.admission
+    try:
+      held_slot = await gate.acquire(base)
+    except AdmissionRejected as e:
+      retry_after = max(1, int(math.ceil(e.retry_after_s)))
+      raise HTTPError(429, {"error": {
+        "type": "rate_limit_error", "code": "overloaded",
+        "message": f"admission queue is full ({e.queued}/{e.limit} waiting); retry in ~{retry_after}s",
+        "queue_depth": e.queued, "queue_limit": e.limit, "queue_position": e.queued + 1,
+        "est_wait_s": e.retry_after_s}},
+        headers={"Retry-After": str(retry_after),
+                 **self._ratelimit_headers(remaining=0, reset_s=e.retry_after_s)}) from None
+    rl_headers = self._ratelimit_headers()  # the budget as it stood at admission
     request_ids = [base] if p.n == 1 else [f"{base}#{i}" for i in range(p.n)]
     for rid in request_ids:
       self.token_queues[rid] = asyncio.Queue()
@@ -413,7 +760,8 @@ class ChatGPTAPI:
       if data.get("stream"):
         include_usage = bool((data.get("stream_options") or {}).get("include_usage"))
         await self._stream_response(writer, request_ids, model, tokenizer,
-                                    prompt if include_usage else None, p.stop, p.logprobs)
+                                    prompt if include_usage else None, p.stop, p.logprobs,
+                                    rl_headers)
       else:
         eos_ids = self._eos_ids(tokenizer)
         results = await asyncio.gather(*(self._await_completion(rid, tokenizer, eos_ids, p.stop)
@@ -421,11 +769,13 @@ class ChatGPTAPI:
         error = next((err for _, err in results if err), None)
         status, body = self._full_response(request_ids, results, error, model, tokenizer, prompt,
                                            eos_ids, p.stop, p.logprobs)
-        await self._write_json(writer, status, body)
+        await self._write_json(writer, status, body, rl_headers)
     except asyncio.TimeoutError:
       raise HTTPError(500, {"error": {"type": "server_error",
                                       "message": f"no token for {self.response_timeout} s"}}) from None
     finally:
+      if held_slot:
+        gate.release()  # wakes the oldest queued waiter
       for rid in request_ids:
         self.token_queues.pop(rid, None)
         # A sub-request that ended early here (an error, a timeout, a stop sequence, a
@@ -542,7 +892,8 @@ class ChatGPTAPI:
 
   async def _stream_response(self, writer: asyncio.StreamWriter, request_ids: List[str], model: str,
                              tokenizer, usage_prompt: Optional[str] = None,
-                             stop: Optional[List[str]] = None, logprobs: bool = False) -> None:
+                             stop: Optional[List[str]] = None, logprobs: bool = False,
+                             headers: Optional[dict] = None) -> None:
     """Server-sent events over one or more completions (OpenAI n): the sub-requests'
     queues merged, one chunk per batch of new tokens carrying its choice index, the
     finish reason on each choice's last, then `data: [DONE]`. With `stop`, each choice's
@@ -560,8 +911,9 @@ class ChatGPTAPI:
       nonlocal started
       if not started:
         started = True
-        writer.write(b"HTTP/1.1 200 OK\r\nContent-Type: text/event-stream\r\n"
-                     b"Cache-Control: no-cache\r\nConnection: close\r\n\r\n")
+        extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
+        writer.write(("HTTP/1.1 200 OK\r\nContent-Type: text/event-stream\r\n"
+                      f"Cache-Control: no-cache\r\n{extra}Connection: close\r\n\r\n").encode())
       data = obj if isinstance(obj, str) else json.dumps(obj)
       writer.write(f"data: {data}\n\n".encode())
       await writer.drain()

@@ -28,6 +28,18 @@ class RequestStateLost(Exception):
 class InferenceEngine(ABC):
   """One peer's compute backend for a layer-range shard."""
 
+  # Observability hooks, installed by the owning Node (orchestration/node.py):
+  # `flight` is the node's FlightRecorder, `metrics` its NodeMetrics, `tracer` its
+  # Tracer, and `trace_ctx` a request-id -> TraceContext resolver so engine-depth child
+  # spans join the request's trace. `perf` is the engine's own PerfAttribution
+  # (XOT_PERF_ATTR). All duck-typed and None by default: a standalone engine (tests,
+  # the smoke's kernel phases) records nothing and pays only a None check.
+  flight = None
+  metrics = None
+  tracer = None
+  trace_ctx = None
+  perf = None
+
   @abstractmethod
   async def encode(self, shard: Shard, prompt: str) -> np.ndarray:
     ...

@@ -51,6 +51,17 @@ asyncio lock serialises shard loads. The engine reads its knobs when it is built
 It runs on `cuda` unless the caller passes device="cpu" (the tests do), and raises
 when no GPU is present rather than falling back to the CPU.
 
+Observability (the JAX engine's hooks): the owning Node installs its `metrics`,
+`flight`, `tracer` and `trace_ctx`; `perf` is the engine's PerfAttribution
+(XOT_PERF_ATTR). Each dispatch (one executor call that ends in the readback the path
+already does: a prefill with its scan groups, a mid-ring segment, a decode chunk of
+1..B rows, a per-token ring step) is observed once (`_observe_dispatch`): its wall
+time from host timestamps taken at its start and after that readback, and the cost
+model's bytes and FLOPs for what it ran (inference/torch_engine/costmodel.py, bound to
+the context at load). A dispatch that captured a CUDA graph, or that ran an eager key
+for the first time, counts as a first dispatch (`xot_jit_first_dispatch_total`) and
+records an `engine.compile` flight event. Nothing here adds a device sync.
+
 Left out so far: the prefix cache, the host KV tier, co-scheduled prefill,
 speculative and overlapped chunks, the fused in-process ring (`supports_ring_fusion`)
 and device-resident hops.
@@ -58,6 +69,7 @@ and device-resident hops.
 from __future__ import annotations
 
 import asyncio
+import contextlib
 import hashlib
 import threading
 import time
@@ -75,19 +87,21 @@ from xotorch_tpu_torch.inference.engine import CacheExhausted, InferenceEngine, 
 from xotorch_tpu_torch.inference.shard import Shard
 from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer, tokenizer_for_dir
 from xotorch_tpu_torch.inference.torch_engine import vkv
+from xotorch_tpu_torch.inference.torch_engine.costmodel import CostModel, PerfAttribution, dtype_width
 from xotorch_tpu_torch.inference.torch_engine.paged_cache import PagePool, commit_pages, migrate_pages
 from xotorch_tpu_torch.inference.torch_engine.vkv import VirtualKV
 from xotorch_tpu_torch.models.config import ModelConfig, config_from_hf_dict, load_model_config
 from xotorch_tpu_torch.models import graphs
 from xotorch_tpu_torch.models.generate import (decode_chunk_batched, decode_chunk_paged, forward_sample,
                                                prefill_scan, scan_groups)
-from xotorch_tpu_torch.models.quantize import QUANT_DTYPES, quantize_params
+from xotorch_tpu_torch.models.quantize import QUANT_DTYPES, quantize_params, quantized_bytes
 from xotorch_tpu_torch.models.registry import get_model_card
 from xotorch_tpu_torch.models.transformer import (forward_shard, init_kv_cache, init_random_params,
                                                   quant_route)
 from xotorch_tpu_torch.models.weights import load_shard_params
 from xotorch_tpu_torch.ops import flash_attention, flash_decode, paged_attention
 from xotorch_tpu_torch.ops.sampling import DEFAULT_TEMP, DEFAULT_TOP_K, sample_logits
+from xotorch_tpu_torch.topology.device_capabilities import cuda_chip_peaks
 from xotorch_tpu_torch.utils import knobs
 from xotorch_tpu_torch.utils.helpers import DEBUG, spawn_detached
 
@@ -136,6 +150,7 @@ class _ShardContext:
   page_pool: Optional[PagePool] = None
   model_dir: Optional[Path] = None  # the checkpoint's directory; None for synthetic cards
   graphs: Optional[graphs.GraphCache] = None  # the captured programs, on the card
+  costmodel: Optional[CostModel] = None  # the shard's analytic bytes and FLOPs
 
 
 class _Pending(NamedTuple):
@@ -148,6 +163,7 @@ class _Pending(NamedTuple):
   top_k: int
   top_p: float
   future: Optional[asyncio.Future]
+  enqueued: float = 0.0  # monotonic time of the submit (the batcher's queue wait)
 
 
 class _DecodeBatcher:
@@ -179,7 +195,7 @@ class _DecodeBatcher:
                    num_tokens: int, temp: float, top_k: int, top_p: float) -> np.ndarray:
     fut = asyncio.get_running_loop().create_future()
     self.pending.append(_Pending(request_id, state, prev_token, num_tokens, temp, top_k, top_p,
-                                 fut))
+                                 fut, time.monotonic()))
     if not self._draining:
       self._draining = True
       self._drain_task = spawn_detached(self._drain())
@@ -193,6 +209,11 @@ class _DecodeBatcher:
       await asyncio.sleep(self.engine.batch_window_s)
       while self.pending:
         batch, self.pending = self.pending, []
+        m = self.engine.metrics
+        if m is not None:
+          take_t = time.monotonic()
+          for it in batch:
+            m.queue_wait_decode.observe(take_t - it.enqueued)
         groups: Dict[Tuple[int, float], List[_Pending]] = {}
         for item in batch:
           groups.setdefault((item.top_k, item.top_p), []).append(item)
@@ -203,8 +224,13 @@ class _DecodeBatcher:
           for off in range(0, len(items), cap):
             chunk = items[off:off + cap]
             try:
+              t0 = time.monotonic()
               results = await self.engine._run(self.engine._decode_batch_sync, self.ctx, chunk,
                                                num_tokens, top_k, top_p)
+              fl = self.engine.flight
+              if fl is not None:
+                fl.record("batcher.dispatch", None, lead=chunk[0].request_id, batch=len(chunk),
+                          tokens=len(results[0]), secs=round(time.monotonic() - t0, 6))
               self.dispatches += 1
               self.rows += len(chunk)
               self.steps += len(results[0])
@@ -282,6 +308,16 @@ class TorchShardInferenceEngine(InferenceEngine):
     self.paged_prefill = knobs.get_bool("XOT_PAGED_PREFILL")
     self.defrag = knobs.get_bool("XOT_KV_DEFRAG")
     self.defrag_moves = 0
+    # Live roofline attribution (XOT_PERF_ATTR) and the dispatch classification.
+    self._dtype_name = next(k for k, v in DTYPES.items() if v == self.dtype)
+    self.perf = (PerfAttribution(knobs.get_float("XOT_PERF_EWMA_S"))
+                 if knobs.get_bool("XOT_PERF_ATTR") else None)
+    self._exec_seen: set = set()
+    self._jit_first_dispatches = 0
+    self._jit_cached_dispatches = 0
+    self._chip_peaks: Optional[Tuple[Optional[float], Optional[float]]] = None
+    self._grow_copies = 0
+    self._commit_copy_bytes = 0
     # The engine-global sampling stream: `seed=`, else XOT_SEED, else the clock.
     self.generator = torch.Generator(device=self.device)
     self.generator.manual_seed(int(seed) if seed is not None
@@ -312,6 +348,166 @@ class TorchShardInferenceEngine(InferenceEngine):
       with torch.inference_mode():
         return fn(*args)
     return await asyncio.get_running_loop().run_in_executor(self.executor, call)
+
+  # ---------------------------------------------------------- observability
+
+  def _engine_span(self, name: str, request_id: Optional[str], attributes: Optional[dict] = None):
+    """A child span of the request's trace for an engine-depth phase, or a no-op
+    context when tracing is off or the request has no trace context (an orphan engine
+    span would pollute the buffer with single-span traces)."""
+    tr = self.tracer
+    if tr is None or not tr.enabled or self.trace_ctx is None or not request_id:
+      return contextlib.nullcontext()
+    ctx = self.trace_ctx(request_id)
+    if ctx is None:
+      return contextlib.nullcontext()
+    return tr.start_span(name, parent=ctx,
+                         attributes={"request.id": request_id, **(attributes or {})})
+
+  @staticmethod
+  def _captures(ctx: _ShardContext) -> int:
+    return ctx.graphs.captures if ctx.graphs is not None else 0
+
+  def _start_of(self, ctx: _ShardContext, request_id: str, input_data) -> Tuple[int, bool]:
+    """(positions the request already holds, whether its segments run on the arena),
+    read before a forward."""
+    state = ctx.states.get(request_id)
+    return (state.pos if state is not None else 0,
+            self._paged_segment(ctx, request_id, input_data))
+
+  def _observe_forward(self, ctx: _ShardContext, key: tuple, true_t: int, start: int, paged: bool,
+                       t0: float, captures: int) -> None:
+    """A forward that just read back: a prefill of `true_t` tokens from `start`, or at
+    T = 1 a one-token step of the per-token ring (a decode row at depth `start`)."""
+    secs = time.monotonic() - t0
+    captured = self._captures(ctx) - captures
+    if true_t > 1:
+      self._observe_dispatch("prefill", key, secs, tokens=true_t, ctx=ctx, start=start,
+                             captured=captured)
+    else:
+      self._observe_dispatch("decode", key, secs, tokens=1, ctx=ctx, rows=[(start, paged, None)],
+                             captured=captured)
+
+  def _observe_dispatch(self, kind: str, key: tuple, seconds: float, batch: int = 1,
+                        tokens: int = 0, ctx: Optional[_ShardContext] = None,
+                        rows: Optional[list] = None, start: int = 0, captured: int = 0) -> None:
+    """Classify one dispatch as a first dispatch (it captured a CUDA graph, or ran an
+    eager key not seen before: what pays a compile here) or a cached one, recording a
+    first one's wall time as an `engine.compile` flight event; then feed the roofline
+    attribution: `seconds` is the wall interval the caller measured, and the cost
+    model turns the dispatch's static facts (token count, each decode row's depth and
+    layout) into its HBM bytes and FLOPs. Host metadata only, no device sync."""
+    first = captured > 0 or key not in self._exec_seen
+    self._exec_seen.add(key)
+    if first:
+      self._jit_first_dispatches += 1
+      if self.flight is not None:
+        self.flight.record("engine.compile", None, kind=kind, batch=batch, tokens=tokens,
+                           secs=round(seconds, 4), captures=captured)
+    else:
+      self._jit_cached_dispatches += 1
+    perf = self.perf
+    if perf is None:
+      return
+    cm = ctx.costmodel if ctx is not None else None
+    hbm_bytes = flops = 0
+    total_tokens = tokens
+    if kind == "decode":
+      rows = rows or [(0, False, None)] * max(batch, 1)
+      total_tokens = tokens * len(rows)
+      if cm is not None:
+        hbm_bytes, flops = cm.decode_dispatch_cost(tokens, rows, page=self.kv_page)
+    elif cm is not None:
+      hbm_bytes, flops = cm.prefill_dispatch_cost(tokens, self._prefill_chunk(), start=start)
+    perf.observe(key, kind, seconds, tokens=total_tokens, batch=batch, hbm_bytes=hbm_bytes,
+                 flops=flops)
+
+  def _chip_peak_specs(self) -> Tuple[Optional[float], Optional[float]]:
+    """(peak bf16 TFLOP/s, peak HBM GB/s) of the engine's card, or (None, None) on the
+    CPU or a card without a row: the denominators of the utilization gauges."""
+    if self._chip_peaks is None:
+      self._chip_peaks = ((None, None) if self.device.type != "cuda"
+                          else cuda_chip_peaks(torch.cuda.get_device_name(self.device)))
+    return self._chip_peaks
+
+  def perf_stats(self) -> Optional[Dict[str, float]]:
+    """EWMA gauge values for /metrics (xot_decode_tok_s and friends), or None when
+    attribution is off (XOT_PERF_ATTR=0)."""
+    if self.perf is None:
+      return None
+    peak_tflops, peak_gbps = self._chip_peak_specs()
+    return self.perf.gauges(peak_gbps, peak_tflops)
+
+  def perf_compact(self) -> Optional[Dict[str, Any]]:
+    """Small perf summary for the status-bus rollup (rides node_metrics on the topology
+    cadence, so /v1/perf on any node shows the whole ring)."""
+    if self.perf is None:
+      return None
+    out = self.perf.compact()
+    gauges = self.perf_stats() or {}
+    out["hbm_util_pct"] = gauges.get("hbm_util_pct", 0.0)
+    out["mfu_pct"] = gauges.get("mfu_pct", 0.0)
+    return out
+
+  def history_gauges(self) -> Optional[Dict[str, Any]]:
+    """Host-side gauge snapshot for the metrics-history sampler: the live EWMA gauges
+    plus the cumulative counters it differences per tick. None when attribution is
+    off."""
+    if self.perf is None:
+      return None
+    out: Dict[str, Any] = dict(self.perf_stats() or {})
+    out["jit_first_dispatches"] = self._jit_first_dispatches
+    out["jit_cached_dispatches"] = self._jit_cached_dispatches
+    out["host_fetch_bytes"] = 0  # no host KV tier yet
+    return out
+
+  def perf_report(self) -> Optional[Dict[str, Any]]:
+    """The /v1/perf report (the JAX engine's keys): the loaded model's analytic
+    ceilings (bf16/int8/int4), predicted against actual resident weight bytes, the
+    EWMA gauges, per-lane totals, the heaviest dispatch keys, the dispatch
+    classification and the page pool's byte flows (the host tier, the un-paged view and
+    speculation, which the port lacks, read 0 and None). Host metadata only."""
+    if self.perf is None:
+      return None
+    peak_tflops, peak_gbps = self._chip_peak_specs()
+    report: Dict[str, Any] = {
+      "gauges": self.perf.gauges(peak_gbps, peak_tflops),
+      "lanes": self.perf.lanes(),
+      "executables": self.perf.executables(),
+      "dispatch": {"jit_first_dispatches": self._jit_first_dispatches,
+                   "jit_cached_dispatches": self._jit_cached_dispatches},
+      "byte_flows": {"host_spill_bytes": 0, "host_fetch_bytes": 0,
+                     "commit_copy_bytes": self._commit_copy_bytes, "unpage_gathers": 0,
+                     "pool": self.page_pool_stats(), "host_tier": None},
+      "speculation": {"proposed": 0, "accepted": 0, "accept_rate_ewma": None},
+      "model": None,
+      "ceilings": None,
+    }
+    ctx = self._ctx
+    if ctx is not None and ctx.costmodel is not None:
+      cm = ctx.costmodel
+      actual = quantized_bytes(ctx.params)  # numel x element size: metadata only
+      report["model"] = {
+        "model_id": ctx.shard.model_id,
+        "layers": [ctx.shard.start_layer, ctx.shard.end_layer],
+        "dtype": self._dtype_name,
+        "quantize": self.quantize,
+        "kv_quant": self.kv_quant,
+        "tp": cm.tp,
+        "n_params": cm.n_params(),
+        "weight_bytes_predicted": cm.weight_bytes(),
+        "weight_bytes_actual": actual,
+        "weight_bytes_per_device_predicted": cm.weight_bytes_per_device(),
+        "weight_bytes_per_device_actual": actual,
+        "kv_write_bytes_per_token": cm.kv_write_bytes_per_token(),
+        "kv_read_bytes_per_token_at_cache_len": cm.kv_read_bytes_per_token(
+          ctx.cache_len, alloc_tokens=ctx.cache_len),
+        "kv_read_bytes_per_token_at_cache_len_per_device": cm.kv_read_bytes_per_token_per_device(
+          ctx.cache_len, alloc_tokens=ctx.cache_len),
+        "collective_bytes_per_token": cm.collective_bytes_per_token(),
+      }
+      report["ceilings"] = cm.ceilings(peak_gbps)
+    return report
 
   # ------------------------------------------------------------- shard setup
 
@@ -361,10 +557,14 @@ class TorchShardInferenceEngine(InferenceEngine):
       print(f"torch engine ready for {shard} on {self.device} from {model_dir or 'a seed'} "
             f"(dtype={self.dtype}, quantize={self.quantize}, kv_quant={self.kv_quant}, "
             f"cache_len={cache_len}, paged={self.paged})")
+    costmodel = CostModel(cfg, shard.get_layer_count(), shard.is_first_layer, shard.is_last_layer,
+                          quantize=self.quantize, dtype_bytes=dtype_width(self._dtype_name),
+                          kv_quant=self.kv_quant, start_layer=shard.start_layer)
     return _ShardContext(shard=shard, cfg=cfg, params=params, cache_len=cache_len,
                          max_cache_len=max_cache_len, tokenizer=tokenizer,
                          states=OrderedDict(), model_dir=model_dir,
-                         graphs=graphs.GraphCache(self.device) if self.device.type == "cuda" else None)
+                         graphs=graphs.GraphCache(self.device) if self.device.type == "cuda" else None,
+                         costmodel=costmodel)
 
   def _check_kernel_shapes(self, model_id: str, cfg: ModelConfig) -> None:
     """Refuse, when a shard is loaded, a model whose attention shapes the kernels are not
@@ -546,6 +746,8 @@ class TorchShardInferenceEngine(InferenceEngine):
     hidden state in the model's dtype, so a hop carries what the next shard computes
     in. numpy has no bfloat16, so a bf16 hidden state stays a CPU torch tensor, which
     the wire codec sends as raw bf16."""
+    t0, captures = time.monotonic(), self._captures(ctx)
+    start, paged = self._start_of(ctx, request_id, input_data)
     true_t = input_data.shape[1]
     chunk = self._prefill_chunk()
     outs, off0 = [], 0
@@ -561,6 +763,7 @@ class TorchShardInferenceEngine(InferenceEngine):
       out, t = self._forward_segment(ctx, request_id, input_data[:, off:off + chunk])
       outs.append(out[:, :t])
     out = (outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)).cpu()
+    self._observe_forward(ctx, ("infer", _bucket(true_t)), true_t, start, paged, t0, captures)
     return out if out.dtype == torch.bfloat16 else out.numpy()
 
   async def infer_tensor(self, request_id: str, shard: Shard, input_data,
@@ -583,17 +786,26 @@ class TorchShardInferenceEngine(InferenceEngine):
     ctx = await self._ensure_ctx(shard)
     if not shard.is_last_layer:
       raise ValueError(f"infer_sample_tensor requires the last-layer shard, got {shard}")
-    tok = await self._run(self._infer_sample_sync, ctx, request_id, input_data,
-                          float(temp), int(top_k), float(top_p), sampling)
+    tokens_in = int(input_data.shape[1]) if getattr(input_data, "ndim", 0) == 2 else 0
+    if tokens_in > 1:
+      # A span per prefill; a one-token ring step rides this entry point too, and a span
+      # per token would swamp the trace buffer.
+      with self._engine_span("engine.prefill", request_id, {"tokens": tokens_in, "cosched": False}):
+        tok = await self._run(self._infer_sample_sync, ctx, request_id, input_data,
+                              float(temp), int(top_k), float(top_p), sampling)
+    else:
+      tok = await self._run(self._infer_sample_sync, ctx, request_id, input_data,
+                            float(temp), int(top_k), float(top_p), sampling)
     return tok, inference_state
 
   def _infer_sample_sync(self, ctx: _ShardContext, request_id: str, input_data: np.ndarray,
                          temp: float, top_k: int, top_p: float,
                          sampling: Optional[dict] = None) -> int:
+    t0, captures = time.monotonic(), self._captures(ctx)
+    start, paged_native = self._start_of(ctx, request_id, input_data)
     true_t = input_data.shape[1]
     chunk = self._prefill_chunk()
     is_fresh = request_id not in ctx.states
-    paged_native = self._paged_segment(ctx, request_id, input_data)
     try:
       if true_t > chunk:
         # Leading whole segments fill the cache without the unembedding.
@@ -622,6 +834,8 @@ class TorchShardInferenceEngine(InferenceEngine):
     else:
       tok = out
     tok_int = int(tok.reshape(-1)[0].item())
+    self._observe_forward(ctx, ("prefill", _bucket(true_t), top_k, top_p, ex.key()), true_t, start,
+                          paged_native, t0, captures)
     if ex.counts is not None:
       # The first sampled token counts before decode; the prompt never does.
       ex.counts[0, tok_int % ctx.cfg.vocab_size] += 1
@@ -756,8 +970,24 @@ class TorchShardInferenceEngine(InferenceEngine):
         raise RequestStateLost(f"request {it.request_id}: device state evicted mid-generation")
     if len(items) > 1 and any(it.state.extras is not None for it in items):
       raise AssertionError("a request with sampling extras decodes in a chunk of its own")
+    t0, captures = time.monotonic(), self._captures(ctx)
+    # The KV each row reads: K2 and K3 read a row's resident keys, not its allocation.
+    rows = [(it.state.pos, self.paged, None) for it in items]
     if self.paged:
-      return self._decode_batch_paged_sync(ctx, items, num_tokens, top_k, top_p)
+      out = self._decode_batch_paged_sync(ctx, items, num_tokens, top_k, top_p)
+    else:
+      out = self._decode_batch_contiguous_sync(ctx, items, num_tokens, top_k, top_p)
+    ex = items[0].state.extras or graphs.PLAIN
+    n = len(out[0])
+    self._observe_dispatch("decode", ("decode", self.paged, _bucket(len(items), 1), n, top_k, top_p,
+                                      ex.key()),
+                           time.monotonic() - t0, batch=len(items), tokens=n, ctx=ctx, rows=rows,
+                           captured=self._captures(ctx) - captures)
+    return out
+
+  def _decode_batch_contiguous_sync(self, ctx: _ShardContext, items: List[_Pending],
+                                    num_tokens: int, top_k: int, top_p: float) -> List[np.ndarray]:
+    """The contiguous chunk of _decode_batch_sync."""
     states = [it.state for it in items]
     toks_in = torch.tensor([[it.prev_token] for it in items], dtype=torch.int64, device=self.device)
     target = max(max(s.pos + num_tokens for s in states),
@@ -820,12 +1050,30 @@ class TorchShardInferenceEngine(InferenceEngine):
         print(f"KV page pool ready: {num_pages - 1} pages x {page} tokens")
     return ctx.page_pool
 
+  def _pool_alloc(self, pool: PagePool, n: int) -> list:
+    """pool.alloc with the JAX engine's flight events: `pool.alloc` for pages taken,
+    `pool.pressure` when the pool cannot give them (CacheExhausted propagates; the port
+    has no prefix cache to evict and retry)."""
+    try:
+      ids = pool.alloc(n)
+    except CacheExhausted:
+      if self.flight is not None:
+        self.flight.record("pool.pressure", None, need=n, free=pool.free_pages,
+                           in_use=pool.pages_in_use)
+      raise
+    if self.flight is not None and n > 0:
+      self.flight.record("pool.alloc", None, pages=n, free=pool.free_pages)
+    return ids
+
   def _commit_state_to_pages(self, ctx: _ShardContext, state: _RequestState) -> None:
     """Move a request prefilled into a contiguous buffer (XOT_PAGED_PREFILL=0) into
     fresh pool pages and free the buffer."""
     pool = self._ensure_page_pool(ctx)
-    fresh = pool.alloc(pool.pages_for(state.pos))
+    fresh = self._pool_alloc(pool, pool.pages_for(state.pos))
     commit_pages(pool.arena, state.cache, fresh, start_page=0)
+    leaf = pool.arena["k"]  # [L, P, page, Hkv, D]
+    self._commit_copy_bytes += (2 * len(fresh) * leaf.shape[0] * leaf.shape[2] * leaf.shape[3]
+                                * leaf.shape[4] * leaf.element_size())
     state.pages = VirtualKV(fresh)
     state.cache = None
 
@@ -848,7 +1096,7 @@ class TorchShardInferenceEngine(InferenceEngine):
         f"exceed max cache length {ctx.max_cache_len}")
     need_pages = pool.pages_for(needed)
     if need_pages > len(state.pages):
-      state.pages.extend(pool.alloc(need_pages - len(state.pages)))
+      state.pages.extend(self._pool_alloc(pool, need_pages - len(state.pages)))
     return state
 
   def _paged_table_for(self, ctx: _ShardContext, state: _RequestState) -> torch.Tensor:
@@ -891,7 +1139,7 @@ class TorchShardInferenceEngine(InferenceEngine):
         self._commit_state_to_pages(ctx, state)
       need = pool.pages_for(state.pos + num_tokens)
       if need > len(state.pages):
-        state.pages.extend(pool.alloc(need - len(state.pages)))
+        state.pages.extend(self._pool_alloc(pool, need - len(state.pages)))
     B = len(states)
     maxp = _bucket(max(len(s.pages) for s in states), 1)
     table = torch.as_tensor(vkv.resolve_page_table([s.pages for s in states], maxp),
@@ -935,6 +1183,8 @@ class TorchShardInferenceEngine(InferenceEngine):
     freed = state.pages.release_below(vkv.dead_page_count(state.pos, w, ctx.page_pool.page_size))
     if freed:
       ctx.page_pool.decref(freed)
+      if self.flight is not None:
+        self.flight.record("vkv.window_free", None, pages=len(freed), pos=state.pos, window=w)
 
   def _defrag_sync(self, ctx: _ShardContext) -> int:
     """One bounded compaction pass (batcher-idle slots, on the executor): copy the
@@ -952,6 +1202,8 @@ class TorchShardInferenceEngine(InferenceEngine):
         st.pages.remap(mapping)
     pool.apply_moves(plan)
     self.defrag_moves += len(plan)
+    if self.flight is not None:
+      self.flight.record("vkv.defrag", None, moves=len(plan), fragmentation=pool.fragmentation())
     return len(plan)
 
   def page_pool_stats(self) -> Optional[Dict[str, int]]:
@@ -1016,6 +1268,7 @@ class TorchShardInferenceEngine(InferenceEngine):
       new[:, :, :S] = buf
       grown[name] = new
     state.cache = grown
+    self._grow_copies += 1
     if DEBUG >= 2:
       print(f"KV cache grown {S} -> {new_len}")
 

@@ -176,6 +176,7 @@ async def async_main(args) -> None:
   finally:
     if DEBUG >= 1:
       print(f"wire {node.id}: {json.dumps(wire_counts(node))}", flush=True)
+    node.spool_flight(reason="shutdown")  # XOT_FLIGHT_DUMP_DIR, when set
     await node.stop()
     engine.executor.shutdown(wait=False)
 

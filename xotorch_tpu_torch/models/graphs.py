@@ -59,6 +59,7 @@ from __future__ import annotations
 import contextlib
 import gc as python_gc
 import math
+import threading
 import time
 from collections import OrderedDict
 from dataclasses import dataclass, field
@@ -92,21 +93,27 @@ def _counters() -> Dict[Tuple[Callable, str], int]:
           for attr in ("launches", "windowed_launches") if hasattr(fn, attr)}
 
 
+# Held by every capture, and by a device trace's profiler while it starts or stops
+# (orchestration/tracing.py): a profiler session that starts inside a capture breaks it.
+CAPTURE_LOCK = threading.Lock()
+
+
 @contextlib.contextmanager
 def capture_guard(device: torch.device):
   """Around a capture: finish the card's queued work and release the allocator's cached
   memory first, then keep the garbage collector off until the capture ends (see the
-  module docstring)."""
-  if device.type == "cuda":
-    torch.cuda.synchronize(device)
-    torch.cuda.empty_cache()
-  enabled = python_gc.isenabled()
-  python_gc.disable()
-  try:
-    yield
-  finally:
-    if enabled:
-      python_gc.enable()
+  module docstring), with CAPTURE_LOCK held throughout."""
+  with CAPTURE_LOCK:
+    if device.type == "cuda":
+      torch.cuda.synchronize(device)
+      torch.cuda.empty_cache()
+    enabled = python_gc.isenabled()
+    python_gc.disable()
+    try:
+      yield
+    finally:
+      if enabled:
+        python_gc.enable()
 
 
 def _bucket(n: int) -> int:

@@ -5,7 +5,9 @@ exponential backoff and jitter on transient hop failures (`XOT_HOP_RETRIES`, def
 2; `XOT_HOP_BACKOFF_S`, the base). A retried delivery is made safe by receiver-side
 dedup: the sender attaches a sequence id per logical send (`hop_seq`) and
 `Node.note_hop_delivery` drops a redelivery, so a retry after a lost ack never
-decodes a position twice. (The fault injector of the JAX module is not ported yet.)
+decodes a position twice. Process-wide survivability counters live here too
+(`COUNTERS`, exported at /metrics). (The fault injector of the JAX module is not ported
+yet.)
 """
 from __future__ import annotations
 
@@ -15,6 +17,16 @@ import uuid
 from typing import Optional
 
 from xotorch_tpu_torch.utils import knobs
+
+
+# Process-wide: peer handles have no Node back-reference, so no per-node registry can
+# own these. hop_retries counts retried transient hop failures; health_check_failures
+# stays 0 until the health monitor is ported.
+COUNTERS = {"hop_retries": 0, "health_check_failures": 0}
+
+
+def bump(name: str, n: int = 1) -> None:
+  COUNTERS[name] = COUNTERS.get(name, 0) + n
 
 
 class TransientHopError(Exception):
@@ -49,6 +61,7 @@ async def with_hop_retries(attempt_fn, retriable: bool = True):
     except Exception as e:
       if attempt >= retries or not is_transient(e):
         raise
+      bump("hop_retries")
       await asyncio.sleep(base * (2 ** attempt) * (0.5 + random.random()))
       attempt += 1
 

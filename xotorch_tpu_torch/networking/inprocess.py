@@ -53,13 +53,25 @@ class InProcessPeerHandle(PeerHandle):
                         images: Optional[list] = None, temperature: Optional[float] = None,
                         top_p: Optional[float] = None, ring_map: Optional[list] = None,
                         deadline: Optional[float] = None) -> None:
+    self._hop("SendPrompt", request_id)
     spawn_detached(self.node.process_prompt(
       shard, prompt, request_id, traceparent=traceparent, max_tokens=max_tokens, images=images,
       temperature=temperature, top_p=top_p, ring_map=ring_map, deadline=deadline), self._tasks)
 
   async def send_tensor(self, shard: Shard, tensor, request_id: Optional[str] = None,
                         inference_state: Optional[dict] = None) -> None:
+    self._hop("SendTensor", request_id)
     spawn_detached(self.node.process_tensor(shard, tensor, request_id, inference_state), self._tasks)
+
+  def _hop(self, rpc: str, request_id: Optional[str]) -> None:
+    """The sender's `hop.send` flight event and clock stamp, delivered to the target
+    node's skew estimator as its server would."""
+    if self.flight is not None:
+      self.flight.record("hop.send", request_id, rpc=rpc, peer=self.node.id, seq=None)
+    clk = self.hop_clock_stamp()
+    clock = getattr(self.node, "clock", None)
+    if clk is not None and clock is not None:
+      clock.note(clk)
 
   async def send_result(self, request_id: str, result, is_finished: bool,
                         error: Optional[str] = None,

@@ -2,20 +2,72 @@
 
 The port's copy of xotorch_tpu/networking/peer_handle.py, with JAX's methods. The
 tensor methods take numpy arrays or CPU torch tensors (bf16 hidden states); the
-orchestration layer never sees transport details. (The JAX package's per-peer hop RTT
-average feeds its alert engine, which the port does not have yet.)
+orchestration layer never sees transport details. A handle carries the owning
+node's observability hooks (`flight`, `clock`) and its own hop send RTT average
+(`hop_rtt`, read by the alert engine's ring decomposition).
 """
 from __future__ import annotations
 
+import math
+import time
 from abc import ABC, abstractmethod
 from typing import Optional
 
 from xotorch_tpu_torch.inference.shard import Shard
 from xotorch_tpu_torch.topology.device_capabilities import DeviceCapabilities
 from xotorch_tpu_torch.topology.topology import Topology
+from xotorch_tpu_torch.utils import knobs
+
+
+class HopRttEwma:
+  """Irregular-interval EWMA of hop send round-trip seconds for ONE peer.
+
+  The gray-failure signal: a peer that answers health checks but silently adds latency
+  to every hop moves this number and nothing else. Fed from wall timestamps the
+  handles already take around their send awaits (host clock only, no device work, no
+  extra RPCs); exported as `xot_peer_hop_seconds{peer=...}`."""
+
+  def __init__(self, tau_s: float = 30.0):
+    self.tau_s = max(1e-3, float(tau_s))
+    self._value: Optional[float] = None
+    self._at: Optional[float] = None
+    self.count = 0
+
+  def observe(self, secs: float, now: Optional[float] = None) -> None:
+    now = time.monotonic() if now is None else now
+    if self._value is None:
+      self._value = float(secs)
+    else:
+      alpha = 1.0 - math.exp(-max(1e-6, now - self._at) / self.tau_s)
+      self._value += alpha * (float(secs) - self._value)
+    self._at = now
+    self.count += 1
+
+  def value(self) -> Optional[float]:
+    return self._value
 
 
 class PeerHandle(ABC):
+  # The owning node's FlightRecorder (attached when the node adopts the handle): hop
+  # sends record `hop.send` events, with their dedup seq ids, in the SENDER's timeline.
+  flight = None
+  # This peer's hop send RTT EWMA, created at the first timed send.
+  hop_rtt: Optional[HopRttEwma] = None
+  # The owning node's ClockSkew collector: hop sends stamp the sender's wall-clock ns
+  # into the optional `clock` field so receivers can estimate clock offsets
+  # (orchestration/anatomy.py). None for a handle no node adopted: no stamps.
+  clock = None
+
+  def note_hop_rtt(self, secs: float) -> None:
+    if self.hop_rtt is None:
+      self.hop_rtt = HopRttEwma(knobs.get_float("XOT_ALERT_RTT_TAU_S"))
+    self.hop_rtt.observe(secs)
+
+  def hop_clock_stamp(self) -> Optional[dict]:
+    """The sender's wall-clock stamp for this hop, or None (the field stays off the
+    wire: XOT_ANATOMY=0 adds no bytes)."""
+    return self.clock.stamp() if self.clock is not None else None
+
   @abstractmethod
   def id(self) -> str:
     ...

@@ -140,9 +140,19 @@ class TCPPeerHandle(PeerHandle):
       return False
 
   async def _hop(self, method: str, fields: dict, tensors: Optional[dict]) -> None:
+    """One prompt or tensor hop: a `hop.send` flight event, the sender's clock stamp,
+    and the send's round trip into hop_seconds and the RTT average."""
+    if self.flight is not None:
+      self.flight.record("hop.send", fields.get("request_id"), rpc=method, peer=self._id,
+                         seq=fields.get("hop_seq"))
+    clk = self.hop_clock_stamp()
+    if clk is not None:
+      fields["clock"] = clk
     t0 = time.perf_counter()
     await self._call(method, fields, tensors)
-    self.hop_seconds.append((method, time.perf_counter() - t0))
+    secs = time.perf_counter() - t0
+    self.hop_seconds.append((method, secs))
+    self.note_hop_rtt(secs)
 
   async def send_prompt(self, shard: Shard, prompt: str, request_id: Optional[str] = None,
                         traceparent: Optional[str] = None, max_tokens: Optional[int] = None,

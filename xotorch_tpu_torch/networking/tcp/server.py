@@ -98,7 +98,17 @@ class TCPServer(Server):
     seq = fields.get("hop_seq")
     return seq is not None and not self.node.note_hop_delivery(fields.get("request_id"), seq)
 
+  def _note_hop_clock(self, fields: dict) -> None:
+    """Feed the sender's wall-clock stamp to the receiving node's skew estimator, before
+    the dedup: a retried delivery's stamp is a valid (if backoff-inflated) sample the
+    min filter handles."""
+    clk = fields.get("clock")
+    clock = getattr(self.node, "clock", None)
+    if clk is not None and clock is not None:
+      clock.note(clk)
+
   async def _rpc_send_prompt(self, fields: dict, tensors: dict) -> bytes:
+    self._note_hop_clock(fields)
     if self._is_duplicate_hop(fields):
       return encode_message({"ok": True, "dup": True})
     images = [tensors[f"image_{i}"] for i in range(fields.get("n_images") or 0)] or None
@@ -111,6 +121,7 @@ class TCPServer(Server):
     return encode_message({"ok": True})
 
   async def _rpc_send_tensor(self, fields: dict, tensors: dict) -> bytes:
+    self._note_hop_clock(fields)
     if self._is_duplicate_hop(fields):
       return encode_message({"ok": True, "dup": True})
     spawn_detached(self.node.process_tensor(

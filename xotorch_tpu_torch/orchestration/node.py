@@ -19,6 +19,16 @@ on_opaque_status) and the same deterministic ring:
 - a hop error aborts the request on every peer (a finish carrying the error), and
   every peer frees the request's state when it learns of the finish.
 
+Observability (the JAX Node's): the Node keeps NodeMetrics, a Tracer, a
+FlightRecorder, the latency anatomy (a ClockSkew collector fed by hop clock stamps and
+a reservoir of stage breakdowns), the admission gate, and the alert engine and metrics
+history with their background loops (XOT_ALERT, XOT_HISTORY); it hands the engine its
+hooks (`metrics`, `flight`, `tracer`, `trace_ctx`). A request's trace context rides
+`send_prompt`'s traceparent and the tensor hops' inference_state (TRACEPARENT_KEY), so
+it has one trace id on every peer; each peer flushes its spans of a finished request
+over the opaque-status bus, where its metric summary also goes on the topology cadence
+(`node_metrics`, stamped on receipt so a silent peer's row goes stale).
+
 When one partition spans the whole model, process_sampled_token takes the fused
 decode loop instead: chunks of XOT_DECODE_CHUNK tokens, doubling up to
 XOT_DECODE_CHUNK_MAX, through the engine's generate_chunk. Peers reconcile membership
@@ -30,12 +40,13 @@ skipped because it started the crawl, so there the last crawl to land can leave 
 peers with different views of the ring.
 
 Not ported yet (ROADMAP): the fused in-process ring, device-resident hops, the
-watchdog and deadlines, the health monitor, eviction and heal_ring, tracing, the
-flight recorder, alerts, history and metrics, training and checkpoints.
+watchdog and deadlines, the health monitor, eviction and heal_ring (their metric
+families read 0), the fault injector, training and checkpoints.
 """
 from __future__ import annotations
 
 import asyncio
+import json
 import time
 import uuid
 from collections import OrderedDict
@@ -48,6 +59,13 @@ from xotorch_tpu_torch.inference.shard import Shard
 from xotorch_tpu_torch.networking.discovery import Discovery
 from xotorch_tpu_torch.networking.peer_handle import PeerHandle
 from xotorch_tpu_torch.networking.server import Server
+from xotorch_tpu_torch.orchestration.admission import AdmissionGate
+from xotorch_tpu_torch.orchestration.alerts import AlertEngine
+from xotorch_tpu_torch.orchestration.anatomy import AnatomyStore, ClockSkew, extract_breakdown, ring_offsets
+from xotorch_tpu_torch.orchestration.flight import FlightRecorder
+from xotorch_tpu_torch.orchestration.history import MetricsHistory
+from xotorch_tpu_torch.orchestration.metrics import NodeMetrics, aggregate_histograms
+from xotorch_tpu_torch.orchestration.tracing import TRACEPARENT_KEY, TraceContext, Tracer
 from xotorch_tpu_torch.topology.device_capabilities import (UNKNOWN_DEVICE_CAPABILITIES, DeviceCapabilities,
                                                           device_capabilities)
 from xotorch_tpu_torch.topology.partitioning import PartitioningStrategy, map_partitions_to_shards
@@ -103,7 +121,37 @@ class Node:
     self.buffered_token_output: Dict[str, Tuple[List[int], bool]] = {}
     self.on_token: AsyncCallbackSystem = AsyncCallbackSystem()
     self.on_opaque_status: AsyncCallbackSystem = AsyncCallbackSystem()
+    self.on_opaque_status.register("node_status").on_next(self.on_node_status)
     self.outstanding_requests: Dict[str, str] = {}
+    # Observability: spans, metrics and the always-on flight recorder.
+    self.tracer = Tracer(node_id=self.id)
+    self.metrics = NodeMetrics(node_id=self.id)
+    self.flight = FlightRecorder(node_id=self.id)
+    self._request_trace_ctx: Dict[str, TraceContext] = {}
+    self._last_token_time: Dict[str, float] = {}
+    # Each peer's latest metric summary off the status bus (/v1/cluster/metrics), and
+    # when it arrived: past 3x the topology cadence a row is stale.
+    self.peer_metrics: "OrderedDict[str, dict]" = OrderedDict()
+    self._peer_metrics_at: Dict[str, float] = {}
+    self.topology_interval = 2.0  # start() sets the real cadence
+    # The engine's observability hooks (duck-typed; None on the base class).
+    for hook, value in (("metrics", self.metrics), ("flight", self.flight),
+                        ("tracer", self.tracer), ("trace_ctx", self._request_trace_ctx.get)):
+      setattr(inference_engine, hook, value)
+    # Metrics history before the alert engine: its drift sentinel reads the history.
+    self.history = MetricsHistory(self)
+    self.alerts = AlertEngine(self)
+    # Bounded admission (XOT_MAX_INFLIGHT, 0 = off): the API takes a slot before
+    # process_prompt and sheds overload as 429s.
+    self.admission = AdmissionGate(self)
+    # Latency anatomy: clock skew from hop stamps, spans stamped through the same clock,
+    # and the origin's reservoir of stage breakdowns (/v1/anatomy).
+    self.clock = ClockSkew(self.id)
+    self.tracer.now_ns = self.clock.wall_ns
+    self.anatomy = AnatomyStore()
+    self._anatomy_delay_s = max(0.0, knobs.get_float("XOT_ANATOMY_DELAY_S"))
+    # Requests this node originated (bounded): only the origin assembles a breakdown.
+    self._anatomy_origin: "OrderedDict[str, None]" = OrderedDict()
     # Why a request aborted (bounded LRU; the API pops entries when reporting).
     self.request_errors: "OrderedDict[str, str]" = OrderedDict()
     # Requests whose finish broadcast was applied here (bounded): a delayed delta must
@@ -130,6 +178,7 @@ class Node:
   # ------------------------------------------------------------- lifecycle
 
   async def start(self, wait_for_peers: int = 0, topology_interval: float = 2.0) -> None:
+    self.topology_interval = topology_interval
     self.device_capabilities = await device_capabilities()
     self.topology.update_node(self.id, self.device_capabilities)
     await self.server.start()
@@ -137,8 +186,30 @@ class Node:
     await self.update_peers(wait_for_peers)
     await self.collect_topology(set())
     self._spawn(self.periodic_topology_collection(topology_interval))
+    self.start_alerts()
+    self.start_history()
     if DEBUG >= 1:
       print(f"Node {self.id} started; topology: {self.topology}")
+
+  def start_alerts(self) -> None:
+    if self.alerts.enabled:
+      self._spawn(self._background(self.alerts.eval_interval_s, self.alerts.evaluate, "alert evaluation"))
+
+  def start_history(self) -> None:
+    if self.history.enabled:
+      self._spawn(self._background(self.history.sample_s, self.history.observe, "history sampling"))
+
+  @staticmethod
+  async def _background(interval: float, step, what: str) -> None:
+    """A host-side cadence (alert rules, history samples): reads metric cells, engine
+    counters and EWMAs only, so it never adds a device sync."""
+    while True:
+      await asyncio.sleep(interval)
+      try:
+        step()
+      except Exception as e:  # the loop must outlive one failed tick
+        if DEBUG >= 1:
+          print(f"{what} error: {e!r}")
 
   async def stop(self) -> None:
     for task in list(self._tasks):
@@ -164,11 +235,23 @@ class Node:
     """Prefill `prompt` here, or forward it to the owner of layer 0; tokens arrive
     through `on_token` on every peer. `ring_map` is the origin's pinned partition map
     on a forwarded prompt. `sampling` holds the request's OpenAI extras (validated
-    at the API). `traceparent` and `deadline` are accepted for the JAX package's wire
-    and ignored; images are not ported yet and abort the request."""
+    at the API). `traceparent` is the origin's trace context on a forwarded prompt (None
+    at the origin, which counts the request and assembles its anatomy); `deadline` is
+    accepted for the JAX package's wire and ignored; images are not ported yet and
+    abort the request."""
     if request_id is None:
       request_id = str(uuid.uuid4())
     self._request_started.setdefault(request_id, time.monotonic())
+    self.flight.record("request.admitted", request_id, model=base_shard.model_id,
+                       origin=traceparent is None)
+    if traceparent is None:
+      # Origin requests only: a forwarded prompt would double the cluster-wide sum.
+      self.metrics.requests_total.inc()
+      if self.anatomy.enabled:
+        self._anatomy_origin[request_id] = None
+        self._anatomy_origin.move_to_end(request_id)
+        while len(self._anatomy_origin) > 512:
+          self._anatomy_origin.popitem(last=False)
     if max_tokens is not None:
       self._request_max_tokens[request_id] = self._clamp_max_tokens(max_tokens)
     if temperature is not None:
@@ -180,22 +263,29 @@ class Node:
     if images:
       await self._abort_request(request_id, "images are not supported by xotorch_tpu_torch yet")
       return
-    try:
-      if ring_map:
-        if request_id not in self._request_ring_map:
-          self._set_ring_map(request_id, ring_map)
-      else:
-        self._pin_ring_map(base_shard, request_id)
-      await self._process_prompt(base_shard, prompt, request_id)
-    except CacheExhausted as e:
-      # The prompt itself does not fit the KV budget: a client error, answered 400.
-      await self._abort_request(request_id, f"context_length_exceeded: {e}")
-    except Exception as e:  # the request's boundary: every peer learns it failed
-      print(f"Error processing prompt [{request_id}]: {e!r}")
-      if DEBUG >= 2:
-        import traceback
-        traceback.print_exc()
-      await self._abort_request(request_id, f"prompt processing failed on {self.id}: {e!r}")
+    parent_ctx = TraceContext.from_traceparent(traceparent)
+    with self.tracer.start_span(
+      "process_prompt" if parent_ctx is None else "process_prompt.forwarded", parent=parent_ctx,
+      attributes={"request.id": request_id, "model.id": base_shard.model_id},
+    ) as span:
+      # The request's root context rides the hops, so every peer's spans join its trace.
+      self._request_trace_ctx[request_id] = span.context()
+      try:
+        if ring_map:
+          if request_id not in self._request_ring_map:
+            self._set_ring_map(request_id, ring_map)
+        else:
+          self._pin_ring_map(base_shard, request_id)
+        await self._process_prompt(base_shard, prompt, request_id)
+      except CacheExhausted as e:
+        # The prompt itself does not fit the KV budget: a client error, answered 400.
+        await self._abort_request(request_id, f"context_length_exceeded: {e}")
+      except Exception as e:  # the request's boundary: every peer learns it failed
+        print(f"Error processing prompt [{request_id}]: {e!r}")
+        if DEBUG >= 2:
+          import traceback
+          traceback.print_exc()
+        await self._abort_request(request_id, f"prompt processing failed on {self.id}: {e!r}")
 
   async def _process_prompt(self, base_shard: Shard, prompt: str, request_id: str) -> None:
     shard = self.get_current_shard(base_shard, request_id=request_id)
@@ -203,6 +293,7 @@ class Node:
       await self.forward_prompt(base_shard, prompt, request_id, 0)
       return
     self.outstanding_requests[request_id] = "processing prompt"
+    self.metrics.active_requests.set(len(self.outstanding_requests))
     if shard.is_last_layer:
       # One partition: prefill and sample on the device in one engine call.
       tokens = await self.inference_engine.encode(shard, prompt)
@@ -240,20 +331,38 @@ class Node:
       if sampling and request_id not in self._request_sampling:
         self._request_sampling[request_id] = dict(sampling)
     self._request_started.setdefault(request_id, time.monotonic())
+    # Join the request's trace: its traceparent rides the inference_state.
+    ctx = self._request_trace_ctx.get(request_id)
+    if ctx is None and inference_state:
+      ctx = TraceContext.from_traceparent(inference_state.get(TRACEPARENT_KEY))
+      if ctx is not None:
+        self._request_trace_ctx[request_id] = ctx
+    start_ns = time.perf_counter_ns()
+    self.metrics.tensor_hops_total.inc()
     shard = None
     try:
       shard = self.get_current_shard(base_shard, request_id=request_id)
       self.outstanding_requests[request_id] = "processing tensor"
+      self.metrics.active_requests.set(len(self.outstanding_requests))
+      self.flight.record("hop.recv", request_id, layers=f"{shard.start_layer}-{shard.end_layer}")
+      with self.tracer.start_span(
+        "process_tensor", parent=ctx,
+        attributes={"request.id": request_id, "shard.start": shard.start_layer,
+                    "shard.end": shard.end_layer},
+      ):
+        if shard.is_last_layer:
+          # Forward and sample on the device: only the token crosses to the host.
+          token, inference_state = await self.inference_engine.infer_sample_tensor(
+            request_id, shard, tensor, temp=self._temp_for(request_id),
+            top_k=self.default_sample_top_k, inference_state=inference_state,
+            top_p=self._top_p_for(request_id), **self._sampling_kwargs(request_id))
+        else:
+          result, inference_state = await self.inference_engine.infer_tensor(
+            request_id, shard, tensor, inference_state)
+      self.metrics.hop_latency.observe((time.perf_counter_ns() - start_ns) / 1e9)
       if shard.is_last_layer:
-        # Forward and sample on the device: only the token crosses to the host.
-        token, inference_state = await self.inference_engine.infer_sample_tensor(
-          request_id, shard, tensor, temp=self._temp_for(request_id),
-          top_k=self.default_sample_top_k, inference_state=inference_state,
-          top_p=self._top_p_for(request_id), **self._sampling_kwargs(request_id))
         await self.process_sampled_token(base_shard, int(token), request_id, inference_state)
       else:
-        result, inference_state = await self.inference_engine.infer_tensor(
-          request_id, shard, tensor, inference_state)
         await self.process_inference_result(base_shard, result, request_id, inference_state)
     except CacheExhausted as e:
       if DEBUG >= 1:
@@ -352,14 +461,27 @@ class Node:
       if eos:
         self._request_eos[request_id] = eos
     limit = self._request_max_tokens.get(request_id, self.max_generate_tokens)
+    trace_ctx = self._request_trace_ctx.get(request_id)
+    now = time.monotonic()
+    last = self._last_token_time.get(request_id)
     appended = 0
     finished = False
     for t in new_tokens:
       buffered.append(int(t))
       appended += 1
+      self.metrics.tokens_total.inc()
+      self.tracer.record_token(request_id, trace_ctx)
       if int(t) in eos or len(buffered) >= limit:
         finished = True
         break
+    if last is None and appended:
+      # The first sampled token on this node: TTFT from this node's first touch.
+      started = self._request_started.get(request_id)
+      if started is not None:
+        self.metrics.ttft.observe(now - started)
+    if last is not None and appended:
+      self.metrics.token_latency.observe((now - last) / appended)
+    self._last_token_time[request_id] = now
     self.buffered_token_output[request_id] = (buffered, finished)
     self.trigger_on_token_callbacks(request_id, buffered, finished)
     if self.peers:
@@ -389,6 +511,10 @@ class Node:
     carries the error, so the API node reports it and mid-ring peers free the
     request's state."""
     self.record_request_error(request_id, error)
+    self.metrics.requests_failed_total.inc()
+    # The request's flight timeline, frozen before the cleanup churns it.
+    self.flight.record("request.aborted", request_id, error=error[:200])
+    self.flight.freeze(request_id, reason=error[:200])
     self._mark_cancelled(request_id)
     tokens, _ = self.buffered_token_output.get(request_id, ([], False))
     self.trigger_on_token_callbacks(request_id, tokens, True)
@@ -432,6 +558,8 @@ class Node:
         self._hop_seen.popitem(last=False)
     self._hop_seen.move_to_end(key)
     if hop_seq in seen:
+      self.metrics.dedup_drops_total.inc()
+      self.flight.record("hop.dedup_drop", request_id, seq=hop_seq)
       if DEBUG >= 2:
         print(f"[{request_id}] duplicate hop delivery {hop_seq} dropped")
       return False
@@ -444,7 +572,23 @@ class Node:
     """Release the request's bookkeeping (idempotent): on the sampler when it
     finishes, on every other peer when the finish broadcast arrives."""
     self.outstanding_requests.pop(request_id, None)
-    self._request_started.pop(request_id, None)
+    self.metrics.active_requests.set(len(self.outstanding_requests))
+    self.tracer.finish_request(request_id)
+    started = self._request_started.pop(request_id, None)
+    if started is not None:
+      elapsed = time.monotonic() - started
+      self.metrics.request_latency.observe(elapsed)
+      self.flight.record("request.finished", request_id, secs=round(elapsed, 4))
+    ctx = self._request_trace_ctx.pop(request_id, None)
+    if ctx is not None and ctx.sampled and self.tracer.enabled and self.peers:
+      # This node's spans of the request go to every peer, so /v1/traces on any node
+      # holds the ring's whole trace; the ctx pop makes it once a request.
+      self._spawn(self._flush_trace_spans(request_id, ctx.trace_id))
+    was_origin = request_id in self._anatomy_origin
+    self._anatomy_origin.pop(request_id, None)
+    if ctx is not None and was_origin and self.anatomy.enabled and self.tracer.enabled:
+      self._spawn(self._assemble_anatomy(request_id, ctx.trace_id))
+    self._last_token_time.pop(request_id, None)
     self._request_max_tokens.pop(request_id, None)
     self._request_temp.pop(request_id, None)
     self._request_top_p.pop(request_id, None)
@@ -573,8 +717,10 @@ class Node:
     peer = await self._peer_by_id(target_id)
     if peer is None:
       raise ValueError(f"Peer for {target_index} ({target_id}) not found")
+    ctx = self._request_trace_ctx.get(request_id)
     await peer.send_prompt(self.get_current_shard(base_shard, target_index, request_id=request_id),
-                           prompt, request_id, max_tokens=self._request_max_tokens.get(request_id),
+                           prompt, request_id, traceparent=ctx.traceparent() if ctx else None,
+                           max_tokens=self._request_max_tokens.get(request_id),
                            temperature=self._request_temp.get(request_id),
                            top_p=self._request_top_p.get(request_id),
                            ring_map=self._ring_entries(request_id))
@@ -586,6 +732,9 @@ class Node:
     direct call would grow one coroutine chain per token."""
     target_id = self._ring_target_id(target_index, request_id)
     state = dict(inference_state or {})
+    ctx = self._request_trace_ctx.get(request_id)
+    if ctx is not None:
+      state[TRACEPARENT_KEY] = ctx.traceparent()
     ring_rows = self._ring_entries(request_id)
     if ring_rows is not None:
       state[RING_MAP_KEY] = ring_rows
@@ -642,6 +791,11 @@ class Node:
       self._peer_reports.pop(peer.id(), None)
       await peer.disconnect(grace=600.0)
     self.peers = peers_kept + [p for p, ok in zip(peers_added, connected) if ok]
+    for p in self.peers:
+      # Hop sends record in this node's flight recorder and carry its clock stamp.
+      p.flight = self.flight
+      p.clock = self.clock
+    self.metrics.peers.set(len(self.peers))
     return bool(peers_added or peers_removed)
 
   async def periodic_topology_collection(self, interval: float) -> None:
@@ -650,6 +804,10 @@ class Node:
       try:
         if await self.update_peers():
           await self.collect_topology(set())
+        if self.peers:
+          # The cluster metrics rollup rides the topology cadence.
+          await self.broadcast_opaque_status("", json.dumps({
+            "type": "node_metrics", "node_id": self.id, "metrics": self.metrics_summary()}))
       except Exception as e:  # the loop must outlive one failed round
         if DEBUG >= 1:
           print(f"Topology collection error: {e!r}")
@@ -751,3 +909,149 @@ class Node:
         self._finished_results.popitem(last=False)
       await self._finish_generation(request_id)
     return True, len(merged)
+
+  # ------------------------------------------------------- status bus, rollups
+
+  def on_node_status(self, request_id, opaque_status) -> None:
+    """The opaque-status bus: a peer's spans of a finished request (the cluster trace
+    rollup) and its metric summary (the cluster metrics rollup). A node's own broadcasts
+    echo locally and are skipped."""
+    try:
+      status = json.loads(opaque_status)
+    except (TypeError, ValueError) as e:
+      if DEBUG >= 2:
+        print(f"on_node_status: not JSON: {e!r}")
+      return
+    if not isinstance(status, dict) or status.get("node_id") == self.id:
+      return
+    kind = status.get("type", "")
+    if kind == "trace_spans":
+      self.tracer.ingest(status.get("spans") or [])
+    elif kind == "node_metrics" and status.get("node_id"):
+      self.ingest_peer_metrics(status["node_id"], status.get("metrics") or {})
+
+  async def broadcast_opaque_status(self, request_id: str, status: str) -> None:
+    async def send(peer):
+      try:
+        await asyncio.wait_for(peer.send_opaque_status(request_id, status), timeout=15.0)
+      except Exception as e:  # one peer's failure must not stop the others' delivery
+        if DEBUG >= 2:
+          print(f"broadcast_status to {peer.id()} failed: {e!r}")
+    await asyncio.gather(*(send(p) for p in self.peers))
+    self.on_opaque_status.trigger_all(request_id, status)
+
+  async def _flush_trace_spans(self, request_id: str, trace_id: str) -> None:
+    """This node's finished spans of one trace to every peer over the status bus. The
+    export filters by node, so spans ingested from peers are never sent again; the
+    short sleep lets the spans around the finish close first."""
+    await asyncio.sleep(0.05)
+    spans = self.tracer.export(trace_id=trace_id, node_id=self.id)
+    if spans:
+      await self.broadcast_opaque_status(request_id, json.dumps({
+        "type": "trace_spans", "node_id": self.id, "request_id": request_id,
+        "trace_id": trace_id, "spans": spans}))
+
+  def _peer_hop_rtts(self) -> Dict[str, float]:
+    """This node's hop send RTT average in seconds for each peer."""
+    out: Dict[str, float] = {}
+    for p in self.peers:
+      ewma = getattr(p, "hop_rtt", None)
+      v = ewma.value() if ewma is not None else None
+      if v is not None:
+        out[p.id()] = round(v, 6)
+    return out
+
+  def ring_offsets_view(self) -> Dict[str, dict]:
+    """Every reachable node's clock offset relative to this node, from this node's skew
+    estimator and each fresh peer summary's `clock` (anatomy.ring_offsets)."""
+    clocks: Dict[str, dict] = {self.id: self.clock.deltas()}
+    rtts: Dict[str, Dict[str, float]] = {self.id: self._peer_hop_rtts()}
+    for nid, summary in self.peer_metrics.items():
+      if self.peer_metrics_stale(nid):
+        continue
+      clk = summary.get("clock") if isinstance(summary, dict) else None
+      if isinstance(clk, dict):
+        clocks[nid] = clk.get("deltas") or {}
+        if isinstance(clk.get("hop_rtt_s"), dict):
+          rtts[nid] = clk["hop_rtt_s"]
+    return ring_offsets(self.id, clocks, rtts)
+
+  async def _assemble_anatomy(self, request_id: str, trace_id: str) -> None:
+    """The origin's stage breakdown of one finished request: after a delay for the
+    peers' span shards to arrive, the trace re-based onto this clock, swept off the
+    event loop (it is quadratic-ish in the spans), into the reservoir."""
+    await asyncio.sleep(self._anatomy_delay_s)
+    try:
+      spans = self.tracer.export(trace_id=trace_id)
+      if not spans:
+        return
+      offsets = self.ring_offsets_view()
+      breakdown = await asyncio.get_running_loop().run_in_executor(
+        None, extract_breakdown, spans, offsets, request_id, trace_id)
+      if breakdown is None:
+        return
+      self.anatomy.add(breakdown)
+      self.flight.record("anatomy.breakdown", request_id, e2e_s=breakdown["e2e_s"],
+                         stages=len(breakdown["stages"]),
+                         unattributed_s=breakdown["stages"]["unattributed"]["secs"])
+    except Exception as e:  # best effort: a failed assembly must not fail anything else
+      if DEBUG >= 1:
+        print(f"[{request_id}] anatomy assembly failed: {e!r}")
+
+  def spool_flight(self, reason: str = "") -> Optional[str]:
+    """Post-mortem spool: the flight ring and frozen snapshots as JSON into
+    XOT_FLIGHT_DUMP_DIR (no-op when unset); main calls it on SIGTERM/SIGINT."""
+    dump_dir = knobs.get_str("XOT_FLIGHT_DUMP_DIR")
+    if not dump_dir:
+      return None
+    return self.flight.dump_to(dump_dir, reason=reason)
+
+  def metrics_summary(self) -> dict:
+    """This node's compact metric summary for the cluster rollup: what rides the status
+    bus and what /v1/cluster/metrics serves per node, with the clock, perf, alert,
+    admission and history compacts of what is enabled."""
+    summary = self.metrics.summary()
+    summary["node_id"] = self.id
+    summary["ts"] = time.time()
+    if self.clock.enabled:
+      summary["clock"] = {"deltas": self.clock.deltas(), "hop_rtt_s": self._peer_hop_rtts()}
+    perf_fn = getattr(self.inference_engine, "perf_compact", None)
+    perf = perf_fn() if callable(perf_fn) else None
+    if perf is not None:
+      summary["perf"] = perf
+    if self.alerts.enabled:
+      summary["alerts"] = self.alerts.compact()
+    if self.admission.enabled:
+      summary["admission"] = self.admission.compact()
+    if self.history.enabled:
+      summary["history"] = self.history.compact()
+    return summary
+
+  def ingest_peer_metrics(self, node_id: str, summary: dict) -> None:
+    self.peer_metrics[node_id] = summary
+    self.peer_metrics.move_to_end(node_id)
+    self._peer_metrics_at[node_id] = time.monotonic()
+    while len(self.peer_metrics) > 64:
+      evicted_id, _ = self.peer_metrics.popitem(last=False)
+      self._peer_metrics_at.pop(evicted_id, None)
+
+  def peer_metrics_stale(self, node_id: str) -> bool:
+    """True when a peer's last summary is older than 3x the topology cadence (three
+    missed ticks: its row is history, not signal)."""
+    at = self._peer_metrics_at.get(node_id)
+    if at is None:
+      return True
+    return time.monotonic() - at > 3.0 * max(0.1, self.topology_interval)
+
+  def cluster_metrics_view(self) -> Tuple[Dict[str, dict], Dict[str, dict]]:
+    """(nodes, aggregate) for /v1/cluster/metrics: this node's summary and each peer's
+    latest, stale rows marked and left out of the ring-wide percentiles."""
+    nodes: Dict[str, dict] = {self.id: self.metrics_summary()}
+    for node_id, summary in self.peer_metrics.items():
+      if node_id in nodes:
+        continue
+      if self.peer_metrics_stale(node_id):
+        summary = {**summary, "stale": True}
+      nodes[node_id] = summary
+    aggregate = aggregate_histograms([s for s in nodes.values() if not s.get("stale")])
+    return nodes, aggregate

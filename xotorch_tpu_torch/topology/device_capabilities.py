@@ -2,7 +2,7 @@
 
 The port's copy of xotorch_tpu/topology/device_capabilities.py: `DeviceFlops`,
 `DeviceCapabilities` (with its dict form for the wire), `UNKNOWN_DEVICE_CAPABILITIES`,
-the chip table's NVIDIA rows, `lookup_chip_flops` and the async, cached
+the chip table's NVIDIA rows, `lookup_chip_flops`, the cards' roofline peaks (`cuda_chip_peaks`) and the async, cached
 `device_capabilities()`. The torch-CUDA probe is the primary path here (the JAX
 package probes JAX first and falls back to it), then the host. Memory is reported in
 MB of accelerator memory, which the ring partitioning strategy weights by.
@@ -14,7 +14,7 @@ import os
 import platform
 import threading
 from dataclasses import asdict, dataclass
-from typing import Any, Dict, List, Optional
+from typing import Any, Dict, List, Optional, Tuple
 
 from xotorch_tpu_torch.utils import knobs
 from xotorch_tpu_torch.utils.helpers import DEBUG
@@ -127,6 +127,35 @@ def lookup_chip_flops(name: str) -> Optional[DeviceFlops]:
     if best is not None:
       return best[1]
   return None
+
+
+# (bf16 dense TFLOP/s, HBM GB/s) of the NVIDIA cards with HBM, from the vendor's data
+# sheets, at the full power limit; the roofline denominators of the engine's perf
+# gauges (the JAX package's `tpu_chip_peaks`). Matched as a case-insensitive substring
+# of `torch.cuda.get_device_name`, first row first: "NVIDIA H100 80GB HBM3" (SXM) takes
+# the H100 row, "NVIDIA H100 PCIe" its own. V100 and P100 have no bf16: their fp16.
+CUDA_CHIP_PEAKS = (
+  ("H100 PCIe", 756.0, 2000.0),
+  ("H100 NVL", 835.0, 3900.0),
+  ("H100", 989.0, 3350.0),
+  ("H200", 989.0, 4800.0),
+  ("B200", 2250.0, 8000.0),
+  ("A100-SXM4-80GB", 312.0, 2039.0),
+  ("A100 80GB PCIe", 312.0, 1935.0),
+  ("A100", 312.0, 1555.0),
+  ("V100", 125.0, 900.0),
+  ("P100", 18.7, 732.0),
+)
+
+
+def cuda_chip_peaks(name: str) -> Tuple[Optional[float], Optional[float]]:
+  """(peak bf16 TFLOP/s, peak HBM GB/s) of the card `name`, or (None, None) for a card
+  without a row (the gauges then read 0.0, as the JAX package's do off-TPU)."""
+  low = (name or "").lower()
+  for key, tflops, gbps in CUDA_CHIP_PEAKS:
+    if key.lower() in low:
+      return tflops, gbps
+  return None, None
 
 
 def _probe_torch_cuda_sync() -> Optional[DeviceCapabilities]:

@@ -58,6 +58,53 @@ _DEFS: Tuple[Knob, ...] = (
   Knob("XOT_HOME", "path", None, "Root directory for downloads and state; unset uses `~/.xot_tpu`."),
   Knob("XOT_MODEL_DIR", "path", None, "Local directory of model checkpoints (offline serving)."),
   Knob("XOT_PROBE_TIMEOUT", "float", "120", "Timeout (s) for the device-capability probe; past it a node reports its host's capabilities."),
+  Knob("XOT_MAX_INFLIGHT", "int", "0", "Bounded admission: max requests admitted into the ring concurrently by the origin node's API; 0 disables the gate (today's behavior)."),
+  Knob("XOT_ADMIT_QUEUE_DEPTH", "int", "32", "Bounded admission queue: over-limit requests wait here (FIFO); beyond it they are rejected with HTTP 429 + Retry-After."),
+  Knob("XOT_TRACING", "bool", "1", "Record request/hop spans in the in-process tracer (served at /v1/traces)."),
+  Knob("XOT_FLIGHT", "bool", "1", "Record runtime events in the per-node flight recorder (served at /v1/debug/flight)."),
+  Knob("XOT_FLIGHT_EVENTS", "int", "4096", "Flight-recorder ring capacity (events)."),
+  Knob("XOT_FLIGHT_SNAPSHOTS", "int", "16", "Frozen flight-recorder snapshots kept per node (LRU)."),
+  Knob("XOT_FLIGHT_DUMP_DIR", "path", None, "Post-mortem spool: on SIGTERM/SIGINT the node dumps its flight ring + frozen snapshots here as JSON; unset disables."),
+  Knob("XOT_ANATOMY", "bool", "1", "Critical-path latency anatomy: hop clock stamps, skew-corrected per-request stage breakdowns (served at /v1/anatomy). 0 removes the clock field from the wire entirely."),
+  Knob("XOT_ANATOMY_RESERVOIR", "int", "256", "Recent stage breakdowns kept per node for /v1/anatomy percentiles and diffs."),
+  Knob("XOT_ANATOMY_CLOCK_WINDOW", "int", "64", "Per-peer window of one-way clock-delta samples the skew estimator min-filters."),
+  Knob("XOT_ANATOMY_DELAY_S", "float", "0.35", "Seconds after a request finishes before the origin assembles its breakdown (lets remote span shards arrive over the status bus)."),
+  Knob("XOT_ANATOMY_SKEW_NS", "int", "0", "Test-only: artificial offset (ns) added to this node's anatomy wall clock — the skew-injection point for offset-recovery proofs."),
+  Knob("XOT_PERF_ATTR", "bool", "1", "Live roofline attribution: per-dispatch time/bytes/FLOPs accounting served at /v1/perf."),
+  Knob("XOT_PERF_EWMA_S", "float", "30", "Time constant (s) of the EWMA throughput/utilization gauges (xot_decode_tok_s and friends)."),
+  Knob("XOT_DEVICE_TRACE_MAX_S", "float", "120", "Auto-stop a /v1/trace/device/start torch.profiler session after this many seconds; 0 disables the cap."),
+  Knob("XOT_ALERT", "bool", "1", "Evaluate SLO burn-rate alert rules on a background cadence (served at /v1/alerts)."),
+  Knob("XOT_ALERT_EVAL_S", "float", "5", "Alert-rule evaluation cadence (seconds)."),
+  Knob("XOT_ALERT_FAST_S", "float", "120", "Fast burn-rate window (seconds) of the multi-window SLO rules."),
+  Knob("XOT_ALERT_SLOW_S", "float", "600", "Slow burn-rate window (seconds) of the multi-window SLO rules."),
+  Knob("XOT_ALERT_BURN_FAST", "float", "14.4", "Fast-window burn-rate threshold (error-budget multiples) a rule must exceed to fire."),
+  Knob("XOT_ALERT_BURN_SLOW", "float", "6", "Slow-window burn-rate threshold (error-budget multiples) a rule must exceed to fire."),
+  Knob("XOT_ALERT_PENDING_S", "float", "10", "Seconds the burn condition must hold before a pending alert transitions to firing."),
+  Knob("XOT_ALERT_RESOLVE_S", "float", "60", "Hysteresis: seconds the burn condition must stay clear before a firing alert resolves."),
+  Knob("XOT_ALERT_SNAPSHOTS", "int", "256", "Bounded ring of timestamped metric snapshots the burn windows are computed over."),
+  Knob("XOT_ALERT_HISTORY", "int", "64", "Recent resolved alerts kept for /v1/alerts (bounded)."),
+  Knob("XOT_ALERT_DEVICE_TRACE", "bool", "0", "Capture-on-anomaly: a firing alert starts the bounded device trace (auto-stops after XOT_DEVICE_TRACE_MAX_S)."),
+  Knob("XOT_ALERT_RTT_TAU_S", "float", "30", "Time constant (s) of the per-peer hop send RTT EWMAs (xot_peer_hop_seconds)."),
+  Knob("XOT_ALERT_HOP_DEGRADED_S", "float", "0.2", "Absolute hop-RTT floor (s) below which a peer is never scored degraded."),
+  Knob("XOT_ALERT_DEGRADED_FACTOR", "float", "3", "A peer whose hop RTT or per-dispatch compute exceeds this multiple of the ring median is scored degraded."),
+  Knob("XOT_SLO_TTFT_S", "float", "10", "TTFT SLO target (s) the XOT_SLO_TARGET fraction of requests must beat."),
+  Knob("XOT_SLO_E2E_S", "float", "60", "End-to-end request latency SLO target (s)."),
+  Knob("XOT_SLO_TARGET", "float", "0.99", "Fraction of requests that must meet each latency SLO target (error budget = 1 - target; must leave budget * XOT_ALERT_BURN_FAST below 1 or the rule can never fire)."),
+  Knob("XOT_SLO_ERROR_RATE", "float", "0.01", "Failed-request budget: the fraction of requests that may abort before the error-rate rule burns."),
+  Knob("XOT_HISTORY", "bool", "1", "Metrics history: sample windowed deltas of the node's own gauges on a background cadence (served at /v1/history); 0 disables the sampler entirely — no task, no wire keys, byte-identical serving."),
+  Knob("XOT_HISTORY_SAMPLE_S", "float", "10", "History sampling cadence (seconds): one windowed-delta gauge sample per tick."),
+  Knob("XOT_HISTORY_SAMPLES", "int", "360", "Fine-tier samples kept before the oldest are merged into the next-coarser tier (at the default 10 s cadence: one hour at full resolution)."),
+  Knob("XOT_HISTORY_MERGE", "int", "8", "Samples merged into one duration-weighted bucket when a history tier overflows into the next-coarser tier."),
+  Knob("XOT_HISTORY_COARSE", "int", "336", "Buckets kept in each of the two coarser history tiers (mid keeps merge-fold buckets, old keeps merge^2-fold)."),
+  Knob("XOT_HISTORY_DIR", "path", None, "JSONL spool directory for history samples: restarts and soak teardowns keep the record (restored rows are marked as a restart boundary); unset keeps history in memory only."),
+  Knob("XOT_DRIFT", "bool", "1", "Evaluate chronic perf-drift rules over the metrics history inside the alert loop (requires XOT_HISTORY and XOT_ALERT); fires the perf_drift alert class."),
+  Knob("XOT_DRIFT_WINDOW_S", "float", "120", "Recent window (s) a drift rule averages over — also the trailing-mean window of the history compact the router and ring peers compare."),
+  Knob("XOT_DRIFT_BASELINE_S", "float", "600", "Trailing baseline window (s) a drift rule compares its recent window against; the baseline ends where the recent window begins."),
+  Knob("XOT_DRIFT_RATIO", "float", "0.25", "Relative worsening vs the gauge's own trailing baseline before a drift rule's condition holds (direction-aware: tok/s down, rtt up)."),
+  Knob("XOT_DRIFT_PEER_RATIO", "float", "0.5", "Relative worsening vs the median of peer nodes' trailing gauges before a drift rule's condition holds."),
+  Knob("XOT_DRIFT_MIN_SAMPLES", "int", "3", "Minimum samples carrying the gauge in each compared window before a drift rule may evaluate (thin evidence never pages)."),
+  Knob("XOT_DRIFT_PENDING_S", "float", "30", "Seconds a drift condition must hold before the pending perf_drift alert transitions to firing."),
+  Knob("XOT_DRIFT_RESOLVE_S", "float", "60", "Hysteresis: seconds a drift condition must stay clear before a firing perf_drift alert resolves."),
 )
 
 REGISTRY: Dict[str, Knob] = {k.name: k for k in _DEFS}
