@@ -154,8 +154,26 @@ Phases, in order; any failure exits nonzero and prints no result line:
      device ms a step with every recorder on against all off, 4 rounds in turn. (Phase
      10's ring also keeps one trace id across its hop, shows both peers at
      /v1/cluster/metrics, and splits a token into steps and hops from /v1/anatomy.)
-  16. the {"kernels": [...]} line (attention launches include phases 12's, 14's and
-     15's), then the {"ok": true, ...} line last.
+  16. KV reuse and prefill scheduling (check_kv_reuse), with the default knobs
+     (phases 4-15 run with XOT_PREFIX_CACHE=0 and XOT_PREFILL_COSCHED=0, as before
+     them): synthetic-llama-1b at full width and depth, bf16, XOT_PREFILL_CHUNK 1024.
+     A head of 3072 tokens: one cold and three warm requests over HTTP stream bit for
+     bit what a XOT_PREFIX_CACHE=0 server streams (hits 3, 3 x 3072 tokens saved; TTFT
+     cold against warm), a 2000-token head's warm first-token logits within 5e-2 of the
+     cold ones; four warm paged requests (page 128) share the head's pages in place
+     (refcounts = holders, no copies) and stream their cold twins; with
+     XOT_PREFIX_CACHE=1 three heads in turn spill 96 MiB each to the host tier (the
+     third over its 256 MiB budget: host.evict), a returning head restores from the
+     host and streams its cold twin, /metrics' host counters equal the bytes, and
+     /v1/prefetch restores a queued head before its request (TTFT cold, HBM-warm,
+     host-warm); a 6144-token prompt arrives while four streams decode, co-scheduled
+     and not (tokens equal up to its join, logits within 5e-2, the longest gap and p50
+     TPOT); a forced OOM recovery spills both entries and drops graphs, slab and pool,
+     and the next request restores; a real torch.OutOfMemoryError under
+     set_per_process_memory_fraction is answered 400 context_length_exceeded and the
+     next request 200. K1-K4 launches held exactly to layers x (segments + steps);
+  17. the {"kernels": [...]} line (attention launches include phases 12's, 14's, 15's
+     and 16's), then the {"ok": true, ...} line last.
 """
 from __future__ import annotations
 
@@ -3452,7 +3470,7 @@ def extras_server(torch, env: dict, device: str, model: str, drive):
   the node's streams by request id, `steps` ([1]) the decode steps the engine ran."""
   from xotorch_tpu_torch import main as port_main
   from xotorch_tpu_torch.models.registry import build_full_shard
-  with phase_env(XOT_PREFILL_CHUNK="1024", **env):
+  with phase_env(**{"XOT_PREFILL_CHUNK": "1024", **env}):
     args = port_main.build_parser().parse_args(
       ["--device", device, "--default-model", model, "--chatgpt-api-host", "127.0.0.1",
        "--chatgpt-api-port", "0", "--chatgpt-api-response-timeout", "600"])
@@ -3929,6 +3947,708 @@ def check_observability(torch, card: str, device: str = "cuda", model: str = "sy
   return run["launches"]
 
 
+KV_SIZES = {
+  # chunk: XOT_PREFILL_CHUNK; head: a shared head's tokens (the "user:" token and its
+  # words); odd: a head off the segment boundary; tail: a request's own words; new: greedy
+  # tokens a request streams; long: phase 16's co-scheduled prompt; rounds: one-token
+  # decode rounds of its four streams; short: their prompts' words; page: XOT_KV_PAGE;
+  # oom: the words of a prompt whose cache cannot be allocated.
+  "synthetic-llama-1b": dict(chunk=1024, head=3072, odd=2000, tail=100, new=32, long=6144,
+                             rounds=96, short=300, page=128, oom=30000),
+  "synthetic-tiny": dict(chunk=64, head=192, odd=100, tail=12, new=12, long=384, rounds=24,
+                         short=20, page=16, oom=1500),
+}
+KV_KERNELS = ("flash_attention", "flash_cached_attention", "paged_decode_attention",
+              "paged_prefill_attention")
+
+
+def id_tokenizer():
+  """The DummyTokenizer that maps a word "w<n>" to token n and any other word (the chat
+  template's "user:" and "assistant:") to 1, and decodes ids as words: phase 16's
+  prompts are exact token sequences, sent as text."""
+  from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer
+
+  class Ids(DummyTokenizer):
+    def encode(self, text: str):
+      return [int(w[1:]) if w[:1] == "w" and w[1:].isdigit() else 1 for w in text.split()]
+
+    def decode(self, tokens) -> str:
+      return "".join(f" w{int(t)}" for t in tokens)
+  return Ids()
+
+
+def kv_ids(seed: int, n: int, vocab: int) -> list:
+  """n token ids from a seed, none of them the id tokenizer's "user:" token (1) or its
+  eos (69)."""
+  import numpy as np
+  ids = np.random.default_rng(seed).integers(3, vocab, size=n)
+  ids[ids == 69] = 70
+  return [int(i) for i in ids]
+
+
+class KVPrompt(NamedTuple):
+  """One request of phase 16: the API's message text and the tokens the engine prefills
+  for it ([1] + words + [1], as the DummyTokenizer's template gives them)."""
+  text: str
+  ids: list
+
+  @staticmethod
+  def of(head: list, tail: list) -> "KVPrompt":
+    words = head + tail
+    return KVPrompt(" ".join(f"w{i}" for i in words), [1] + words + [1])
+
+  def body(self, model: str, max_tokens: int, stream: bool = True) -> dict:
+    body = {"model": model, "temperature": 0, "max_tokens": max_tokens,
+            "messages": [{"role": "user", "content": self.text}]}
+    if stream:
+      body.update(stream=True, stream_options={"include_usage": True})
+    return body
+
+
+class KVTally:
+  """Phase 16's counted work: the four attention kernels' launches as the wrappers count
+  them, and as layers x (prefill segments + decode steps) predict them. A decode step is
+  counted where the engine runs it (a wrapper around _decode_batch_sync); `uncounted()`
+  brackets the references, whose launches and steps are left out of both."""
+
+  def __init__(self, layers: int, chunk: int):
+    from xotorch_tpu_torch.models import graphs
+    self.wrappers = {fn.__name__: fn for fn in graphs.counted_wrappers()
+                     if fn.__name__ in KV_KERNELS}
+    self.layers, self.chunk = layers, chunk
+    self.want = dict.fromkeys(KV_KERNELS, 0)
+    self.paused = False
+    for fn in self.wrappers.values():
+      fn.launches = 0
+
+  def counts(self) -> dict:
+    return {name: self.wrappers[name].launches for name in KV_KERNELS}
+
+  @contextlib.contextmanager
+  def uncounted(self):
+    saved, paused, self.paused = self.counts(), self.paused, True
+    try:
+      yield
+    finally:
+      for name, n in saved.items():
+        self.wrappers[name].launches = n
+      self.paused = paused
+
+  def watch(self, engine) -> None:
+    """Count `engine`'s decode steps: K2 (contiguous) or K3 (paged) per layer a step."""
+    decode = engine._decode_batch_sync
+
+    def counted(ctx, items, *a):
+      res = decode(ctx, items, *a)
+      if not self.paused:
+        name = "paged_decode_attention" if engine.paged else "flash_cached_attention"
+        self.want[name] += self.layers * len(res[0])
+      return res
+    engine._decode_batch_sync = counted
+
+  def prefill(self, T: int, consumed: int, paged: bool, sliced: bool) -> None:
+    """A prefill of T tokens, `consumed` of them reused: every segment of the rest runs
+    K4 on the page arena; on a contiguous cache a fresh prompt's first segment runs K1
+    when it is not in a scan group (the one-call path scans two whole segments or more;
+    a co-scheduled slice is one segment), every other segment K2."""
+    if self.paused:
+      return
+    rest = T - consumed
+    segs = -(-rest // self.chunk)
+    if paged:
+      self.want["paged_prefill_attention"] += self.layers * segs
+      return
+    split = ((rest - 1) // self.chunk) * self.chunk if rest > self.chunk else 0
+    k1 = consumed == 0 and (split == 0 or sliced or split < 2 * self.chunk)
+    self.want["flash_attention"] += self.layers * int(k1)
+    self.want["flash_cached_attention"] += self.layers * (segs - int(k1))
+
+  def check(self, tag: str, card: str) -> dict:
+    got = self.counts()
+    ok = got == self.want
+    print(f"[kv] {tag} launches {got}: layers x (prefill segments + decode steps) = {self.want} "
+          f"{'ok' if ok else 'FAIL'} ({card})", flush=True)
+    if not ok:
+      raise AssertionError(f"kv: {tag} launches {got}, wanted {self.want}")
+    return got
+
+
+@contextlib.contextmanager
+def cache_off(engine):
+  """The engine's prefix cache switched off (no reuse, no store): its cold twin."""
+  saved, engine._prefix_cache_max = engine._prefix_cache_max, 0
+  try:
+    yield
+  finally:
+    engine._prefix_cache_max = saved
+
+
+async def kv_generate(engine, rid: str, ids: list, n: int) -> list:
+  """`n` greedy tokens of a prompt through the engine (B=1 unless other requests decode
+  at the same time), the request cleared after."""
+  import numpy as np
+  shard = engine.shard
+  tok, _ = await engine.infer_sample_tensor(rid, shard, np.asarray([ids]), temp=0.0, top_k=0)
+  out, size = [int(tok)], 8
+  while len(out) < n:
+    chunk = await engine.generate_chunk(rid, shard, out[-1], min(size, n - len(out)), temp=0.0, top_k=0)
+    out.extend(int(t) for t in np.asarray(chunk).reshape(-1))
+    size *= 2
+  await engine.clear_request(rid)
+  return out[:n]
+
+
+async def kv_logits(engine, rid: str, ids: list, warm: bool, sliced: bool = False):
+  """fp32 logits at a prompt's last position through the engine's own prefill steps:
+  prefix reuse first when `warm`, the rest's whole segments as one fill (or one a fill,
+  as co-scheduled slices run them), the last segment through the unembedding."""
+  import numpy as np
+  ctx, toks = engine._ctx, np.asarray([ids])
+
+  def body():
+    paged = engine._paged_segment(ctx, rid, toks)
+    consumed = engine._prefix_reuse(ctx, rid, toks, paged_native=paged) if warm else 0
+    rest, chunk = toks[:, consumed:], engine._prefill_chunk()
+    if rest.shape[1] > chunk:
+      split = ((rest.shape[1] - 1) // chunk) * chunk
+      for off in (range(0, split, chunk) if sliced else (0,)):
+        end = off + chunk if sliced else split
+        engine._prefill_fill_sync(ctx, rid, rest[:, off:end], paged)
+      rest = rest[:, split:]
+    out, t = engine._forward_segment(ctx, rid, rest)
+    return out[0, t - 1].float().cpu()
+  with cache_off(engine) if not warm else contextlib.nullcontext():
+    logits = await engine._run(body)
+  await engine.clear_request(rid)
+  return logits
+
+
+def rel_err(got, want) -> float:
+  return float((got - want).abs().max() / want.abs().max())
+
+
+def stream_ids(events) -> list:
+  """The token ids of a streamed answer whose tokenizer decodes ids as words."""
+  text = "".join(c.get("delta", {}).get("content") or "" for e in events for c in e.get("choices", []))
+  return [int(w[1:]) for w in text.split()]
+
+
+def kv_server(torch, env: dict, device: str, model: str, drive):
+  """A fresh server on `model` under `env` with the id tokenizer in its API and its
+  engine; returns `await drive(engine, node, api, base_url)`."""
+  tok = id_tokenizer()
+
+  async def wrapped(engine, node, api, base, tokens, steps):
+    api._tokenizers[model] = tok
+    engine._ctx.tokenizer = tok
+    return await drive(engine, node, api, base)
+  return extras_server(torch, env, device, model, wrapped)
+
+
+def kv_engine(env: dict, device: str, model: str, drive):
+  """A fresh engine alone on `model` under `env` (XOT_PREFILL_CHUNK set by the caller);
+  returns `await drive(engine)`."""
+  from xotorch_tpu_torch.inference.torch_engine.engine import TorchShardInferenceEngine
+  from xotorch_tpu_torch.models.registry import build_full_shard
+  with phase_env(**env):
+    engine = TorchShardInferenceEngine(device=device, seed=0)
+
+    async def run():
+      await engine.ensure_shard(build_full_shard(model, type(engine).__name__))
+      engine._ctx.tokenizer = id_tokenizer()
+      return await drive(engine)
+    try:
+      return asyncio.run(run())
+    finally:
+      engine.executor.shutdown(wait=True)
+
+
+def check_kv_reuse(torch, card: str, device: str = "cuda", model: str = "synthetic-llama-1b") -> dict:
+  """Phase 16: the JAX server's default-on KV reuse and prefill scheduling on `model` at
+  full width and depth, bf16, default knobs unless a step says otherwise
+  (XOT_PREFILL_CHUNK 1024; sizes in KV_SIZES). Every check fails the run.
+  1. contiguous prefix hits, over HTTP: one cold request and three warm ones share a head
+     of three whole segments; their temperature-0 streams are bit for bit those of a
+     fresh XOT_PREFIX_CACHE=0 server; hits 3 and tokens saved 3 x the head; TTFT cold
+     against warm. A head off the segment boundary: its warm first-token logits within
+     PREFILL_REL_LIMIT of the cold ones (one segmentation against another), the share
+     of greedy tokens its warm and cold streams agree on;
+  2. paged hits (page 128), through the engine: four warm requests prefilled at once
+     share the head's pages in place (each page's refcount = the entries and requests
+     holding it), use under 4 x a cold request's pages, copy nothing (no commit bytes,
+     no gathered seed), and decode their cold twins' streams (the same engine with its
+     prefix cache off);
+  3. the host tier, over HTTP on a paged server with XOT_PREFIX_CACHE=1: three heads in
+     turn, each switch spilling the head's pages; the third spill over the 256 MiB budget
+     records host.evict; a returning head restores from the host and streams its cold
+     twin; /metrics' host hits, spill and fetch bytes equal the engine's and the flight
+     recorder's; TTFT cold, HBM-warm and host-warm; /v1/prefetch of a queued head, after
+     which its request pays no fetch; no restore fell back to a cold prefill;
+  4. co-scheduling, through fresh engines with XOT_PREFILL_COSCHED 1 and 0: a long prompt
+     arrives while four streams decode in one-token rounds; the streams agree in both
+     modes up to the round the long request joins (the share after it printed), its
+     first-token logits agree within the limit, and the longest round (inter-token gap)
+     is about one slice with co-scheduling and the whole prefill without; p50 TPOT and
+     the prefill slices;
+  5. OOM recovery: on step 2's engine a forced _free_device_memory spills both entries and
+     drops the graphs, the slab, the pool and every state; the next request on a spilled
+     head restores it, captures its graphs afresh and streams its cold twin. Then a fresh
+     server whose card allows only 768 MiB more than it holds: a prompt whose cache
+     cannot be allocated gets the API's CacheExhausted answer (400,
+     context_length_exceeded) through a real torch.OutOfMemoryError, and the next short
+     request a 200.
+  K1-K4 launches are counted over the steps (the references excluded) and held exactly
+  to layers x (prefill segments + decode steps). Returns them."""
+  import numpy as np
+  from xotorch_tpu_torch.models.registry import get_model_card
+  t_phase = time.perf_counter()
+  cuda = device == "cuda"
+  sz = KV_SIZES[model]
+  chunk, page, new = sz["chunk"], sz["page"], sz["new"]
+  cfg = get_model_card(model)["synthetic_config"]
+  V, L = cfg["vocab_size"], cfg["num_hidden_layers"]
+  itemsize = 4 if os.environ.get("XOT_DTYPE") == "float32" else 2
+  # K and V of every layer: 32 KiB a token at llama-1b's widths in bf16.
+  kv_token_bytes = (2 * L * cfg["num_key_value_heads"]
+                    * (cfg["hidden_size"] // cfg["num_attention_heads"]) * itemsize)
+  head_bytes = sz["head"] * kv_token_bytes
+  tally = KVTally(L, chunk)
+  env = {"XOT_PREFILL_CHUNK": str(chunk), "XOT_KV_PAGE": str(page)}
+  if model != "synthetic-llama-1b":  # a budget of 8/3 heads, as 256 MiB is of 96 MiB
+    env["XOT_KV_HOST_BYTES"] = str(8 * head_bytes // 3)
+  url = "/v1/chat/completions"
+  head = kv_ids(1, sz["head"] - 1, V)
+  heads = [head] + [kv_ids(2 + h, sz["head"] - 1, V) for h in range(2)]
+  odd = kv_ids(9, sz["odd"] - 1, V)
+  tail = lambda i: kv_ids(100 + i, sz["tail"], V)  # noqa: E731
+  out: dict = {}
+
+  def need(ok: bool, what: str) -> None:
+    print(f"[kv] {what} ({card}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+      raise AssertionError(f"kv: {what}")
+
+  def med(xs):
+    return sorted(xs)[len(xs) // 2]
+
+  async def serve(base, prompt: KVPrompt):
+    """One streamed request: (its tokens, TTFT ms)."""
+    loop = asyncio.get_running_loop()
+    events, first, _ = await loop.run_in_executor(None, http_stream, base + url,
+                                                  prompt.body(model, new))
+    return stream_ids(events), 1e3 * first
+
+  async def warm_up(engine, base):
+    """A request of a head's shape on another head, uncounted, its entry dropped after:
+    the graphs the measured requests replay are captured before their TTFT is read."""
+    with tally.uncounted():
+      await serve(base, KVPrompt.of(kv_ids(90, sz["head"] - 1, V), tail(90)))
+      await wait_idle(engine)
+      await engine._run(engine._clear_prefix_cache, engine._ctx)
+
+  # ---------------------------------------------------------- 1. contiguous hits
+  warm_prompts = [KVPrompt.of(head, tail(i)) for i in range(4)]
+  odd_prompts = [KVPrompt.of(odd, tail(10 + i)) for i in range(2)]
+
+  async def step1(engine, node, api, base):
+    tally.watch(engine)
+    await warm_up(engine, base)
+    streams, ttft = [], []
+    for i, p in enumerate(warm_prompts + odd_prompts):
+      saved = engine._prefix_tokens_saved
+      toks, ms = await serve(base, p)
+      consumed = engine._prefix_tokens_saved - saved
+      tally.prefill(len(p.ids), consumed, False, False)
+      streams.append(toks)
+      ttft.append(ms)
+      await wait_idle(engine)
+    hits, saved = engine._prefix_hits, engine._prefix_tokens_saved
+    need(engine._ctx.batcher.slices == 0, "step 1: every prefill one call (no request active beside it)")
+    tally.check("step 1 (contiguous server)", card)
+    with tally.uncounted():  # a third tail: the warm reference reuses the head alone
+      probe = KVPrompt.of(odd, tail(12)).ids
+      cold = await kv_logits(engine, "odd-cold", probe, warm=False)
+      warm = await kv_logits(engine, "odd-warm", probe, warm=True)
+    return streams, ttft, hits, saved, rel_err(warm, cold)
+
+  streams, ttft, hits, saved, odd_err = kv_server(torch, {**env, "XOT_PAGED_KV": "0"}, device,
+                                                  model, step1)
+
+  async def reference(engine, node, api, base):
+    out = []
+    for p in warm_prompts + odd_prompts:
+      out.append((await serve(base, p))[0])
+      await wait_idle(engine)
+    return out
+  with tally.uncounted():
+    ref = kv_server(torch, {**env, "XOT_PAGED_KV": "0", "XOT_PREFIX_CACHE": "0"}, device, model,
+                    reference)
+  need(streams[:4] == ref[:4] and all(streams[:4]),
+       f"step 1: the cold and three warm temperature-0 streams ({[len(s) for s in streams[:4]]} "
+       f"tokens) bit for bit those of a XOT_PREFIX_CACHE=0 server")
+  need(hits == 4 and saved == 3 * sz["head"] + (sz["odd"]),
+       f"step 1: prefix hits {hits} = 3 warm + 1 off-boundary; tokens saved {saved} = 3 x "
+       f"{sz['head']} + {sz['odd']}")
+  need(odd_err <= PREFILL_REL_LIMIT,
+       f"step 1: a {sz['odd']}-token head (off the segment boundary): warm first-token logits "
+       f"within {PREFILL_REL_LIMIT} of the cold ones (max error / max |cold| {odd_err:.2e})")
+  agree = sum(a == b for a, b in zip(streams[5], ref[5]))
+  print(f"[kv] step 1: the off-boundary head's warm stream shares {agree}/{new} greedy tokens with "
+        f"its cold twin (not asserted) ({card})", flush=True)
+  print(f"[kv] step 1: TTFT of a {len(warm_prompts[0].ids)}-token prompt, cold {ttft[0]:.1f} ms, "
+        f"warm (a {sz['head']}-token hit) {', '.join(f'{t:.1f}' for t in ttft[1:4])} ms (median "
+        f"{med(ttft[1:4]):.1f}) ({card})", flush=True)
+  out["ttft_contiguous"] = (ttft[0], med(ttft[1:4]))
+  contiguous_streams = streams[:4]
+
+  # --------------------------------------------- 2. paged hits, 5. forced OOM recovery
+  async def step2(engine):
+    tally.watch(engine)
+    ctx = engine._ctx
+    cold = KVPrompt.of(head, tail(0))
+    tally.prefill(len(cold.ids), 0, True, False)
+    cold_stream = await kv_generate(engine, "c0", cold.ids, new)
+    (etoks, entry), = ctx.prefix_cache.values()
+    cold_pages = ctx.page_pool.pages_for(len(cold.ids))
+    warm = [KVPrompt.of(head, tail(i)) for i in range(1, 5)]
+    shard = engine.shard
+    firsts = await asyncio.gather(*(engine.infer_sample_tensor(f"w{i}", shard, np.asarray([p.ids]),
+                                                               temp=0.0, top_k=0)
+                                    for i, p in enumerate(warm)))
+    for p in warm:
+      tally.prefill(len(p.ids), sz["head"], True, False)
+    pool = ctx.page_pool
+    shared = entry["pages"][:sz["head"] // page]
+    holders = {p: sum(p in st.pages.blocks for st in ctx.states.values())
+               + sum(p in e.get("pages", ()) for _, e in ctx.prefix_cache.values())
+               for p in shared}
+    refs = {p: pool.refcount(p) for p in shared}
+    states = [ctx.states[f"w{i}"] for i in range(4)]
+    need(all(refs[p] == holders[p] for p in shared)
+         and all(st.pages.blocks[:len(shared)] == shared for st in states),
+         f"step 2: four warm requests hold the head's {len(shared)} pages in place; each page's "
+         f"refcount {sorted(set(refs.values()))} = the requests (4) and entries holding it "
+         f"{sorted(set(holders.values()))}")
+    need(pool.pages_in_use < 4 * cold_pages and engine._commit_copy_bytes == 0
+         and all(st.paged_seed is None for st in states) and engine._prefix_hits == 4,
+         f"step 2: {pool.pages_in_use} pages in use (entries included) < 4 x {cold_pages} of a cold "
+         f"request; commit copy bytes {engine._commit_copy_bytes}, no gathered seed")
+    got = []
+    for i, (tok, _) in enumerate(firsts):
+      toks = [int(tok)]
+      while len(toks) < new:
+        c = await engine.generate_chunk(f"w{i}", shard, toks[-1], min(8, new - len(toks)), temp=0.0,
+                                        top_k=0)
+        toks.extend(int(t) for t in np.asarray(c).reshape(-1))
+      got.append(toks)
+      await engine.clear_request(f"w{i}")
+    # 5a: the forced recovery, before any reference runs.
+    entries, spilled = len(ctx.prefix_cache), engine._host_spill_bytes
+    await engine._run(engine._free_device_memory)
+    gc = ctx.graphs
+    spilled = engine._host_spill_bytes - spilled
+    need(entries == 2 and spilled == 2 * (head_bytes + 8 * len(cold.ids))
+         and not ctx.prefix_cache and ctx.page_pool is None and not ctx.states
+         and (gc is None or (not gc.programs and gc.slab is None)),
+         f"step 5: a forced _free_device_memory spilled both prefix entries to the host tier "
+         f"({spilled} bytes) and dropped the graphs, the slab, the pool and every state")
+    captures = gc.captures if gc is not None else 0
+    back = KVPrompt.of(head, tail(5))
+    hits = engine._host_kv_hits
+    tally.prefill(len(back.ids), sz["head"], True, False)
+    after = await kv_generate(engine, "after-oom", back.ids, new)
+    recaptured = (gc.captures - captures) if gc is not None else 0
+    need(engine._host_kv_hits == hits + 1 and (gc is None or recaptured > 0),
+         f"step 5: the next request on a spilled head restored it from the host tier and "
+         f"captured {recaptured} graph(s) afresh")
+    tally.check("steps 2 and 5 (paged engine)", card)
+    with tally.uncounted(), cache_off(engine):
+      twins = [await kv_generate(engine, f"twin{i}", p.ids, new)
+               for i, p in enumerate([cold] + warm + [back])]
+    return cold_stream, got, twins, after
+
+  cold_paged, warm_paged, twins, after = kv_engine({**env, "XOT_PAGED_KV": "1"}, device, model, step2)
+  need(cold_paged == twins[0] and warm_paged == twins[1:5] and after == twins[5],
+       "steps 2 and 5: the four warm paged streams, and the stream restored after the recovery, "
+       "bit for bit their cold twins")
+  agree = sum(a == b for s, t in zip(warm_paged[:3], contiguous_streams[1:]) for a, b in zip(s, t))
+  print(f"[kv] step 2: paged warm streams share {agree}/{3 * new} tokens with step 1's contiguous "
+        f"ones (K4/K3 against K2: not asserted) ({card})", flush=True)
+
+  # ------------------------------------------------------------- 3. the host tier
+  # One device entry and room for two heads on the host: H1, H2, H3 cold (the second and
+  # third switches spill the head before); H1 returns (restored from the host; the spill
+  # of H3 that makes room for it is the third, over the budget: host.evict); /v1/prefetch
+  # announces H3 queued (restored before its request); H3 again, warm on the device.
+  rotation = [KVPrompt.of(h, tail(20)) for h in heads]
+  host_warm, queued, hbm = (KVPrompt.of(heads[0], tail(21)), KVPrompt.of(heads[2], tail(23)),
+                            KVPrompt.of(heads[2], tail(24)))
+  entry_bytes = head_bytes + 8 * len(rotation[0].ids)  # its pages and its prompt's ids
+
+  async def step3(engine, node, api, base):
+    tally.watch(engine)
+    await warm_up(engine, base)
+    flight, loop = node.flight, asyncio.get_running_loop()
+    spill_bytes, ttft, got = [], {}, {}
+
+    def evicts():
+      return sum(e["event"] == "host.evict" for e in flight.tail())
+
+    for i, p in enumerate(rotation):
+      before = engine._host_spill_bytes
+      got[f"cold{i}"], ttft[f"cold{i}"] = await serve(base, p)
+      tally.prefill(len(p.ids), 0, True, False)
+      spill_bytes.append(engine._host_spill_bytes - before)
+      await wait_idle(engine)
+    evicts_before = evicts()
+    hits, fetched = engine._host_kv_hits, engine._host_fetch_bytes
+    got["host"], ttft["host"] = await serve(base, host_warm)
+    tally.prefill(len(host_warm.ids), sz["head"], True, False)
+    fetch = engine._host_fetch_bytes - fetched
+    await wait_idle(engine)
+    need(spill_bytes == [0, entry_bytes, entry_bytes],
+         f"step 3: each head switch spilled the last head's pages and ids, {entry_bytes} bytes "
+         f"({spill_bytes})")
+    need(evicts_before == 0 and evicts() == 1,
+         f"step 3: the third spill over the {engine._host_kv_max_bytes}-byte budget recorded "
+         f"host.evict ({evicts_before} before it, {evicts()} after)")
+    need(engine._host_kv_hits == hits + 1 and fetch == entry_bytes,
+         f"step 3: the returning head restored from the host tier: {fetch} bytes fetched")
+    status = await loop.run_in_executor(None, http_status, base + "/v1/prefetch",
+                                        queued.body(model, new, stream=False))
+    for _ in range(1000):
+      if engine._host_kv_hits > hits + 1:
+        break
+      await asyncio.sleep(0.01)
+    fetched = engine._host_fetch_bytes
+    got["prefetched"], ttft["prefetched"] = await serve(base, queued)
+    tally.prefill(len(queued.ids), sz["head"], True, False)
+    await wait_idle(engine)
+    need(status[0] == 202 and engine._host_kv_hits == hits + 2
+         and engine._host_fetch_bytes == fetched,
+         f"step 3: /v1/prefetch answered {status[0]} and restored the queued head; its request "
+         f"then fetched {engine._host_fetch_bytes - fetched} bytes more")
+    got["hbm"], ttft["hbm"] = await serve(base, hbm)
+    tally.prefill(len(hbm.ids), sz["head"], True, False)
+    await wait_idle(engine)
+    need(engine._host_kv_hits == hits + 2 and engine._prefix_hits == 3,
+         f"step 3: H3 again: warm from the device entry ({engine._prefix_hits} prefix hits, "
+         f"{engine._host_kv_hits} from the host)")
+    samples = prom_samples(await loop.run_in_executor(None, http_text, base + "/metrics"))
+    events = flight.tail()
+    spilled = sum(e.get("bytes", 0) for e in events if e["event"] == "host.spill")
+    restored = sum(e.get("bytes", 0) for e in events if e["event"] == "host.restore")
+    metric = {k: samples.get(k) for k in ("xot_kv_host_hits_total", "xot_kv_spill_bytes_total",
+                                         "xot_kv_fetch_bytes_total")}
+    need(metric == {"xot_kv_host_hits_total": engine._host_kv_hits,
+                    "xot_kv_spill_bytes_total": engine._host_spill_bytes,
+                    "xot_kv_fetch_bytes_total": engine._host_fetch_bytes}
+         and spilled == engine._host_spill_bytes and restored == engine._host_fetch_bytes == 2 * entry_bytes
+         and samples.get("xot_kv_host_entries") == len(engine._host_kv),
+         f"step 3: /metrics {metric}, xot_kv_host_bytes {samples.get('xot_kv_host_bytes')}, "
+         f"xot_kv_host_entries {samples.get('xot_kv_host_entries')}: the engine's counters and the "
+         f"flight recorder's host.spill / host.restore bytes")
+    need(engine._host_restore_fallbacks == 0, "step 3: no restore fell back to a cold prefill")
+    for kind in ("host.spill", "host.restore"):
+      moves = [(e["bytes"], e["secs"]) for e in events if e["event"] == kind]
+      print(f"[kv] step 3: {kind}: " + ", ".join(f"{b / 2**20:.1f} MiB in {1e3 * t:.1f} ms"
+                                                 for b, t in moves) + f" ({card})", flush=True)
+    tally.check("step 3 (paged server, one prefix entry)", card)
+    with tally.uncounted(), cache_off(engine):
+      twins = {k: await kv_generate(engine, f"twin-{k}", p.ids, new)
+               for k, p in (("host", host_warm), ("prefetched", queued), ("hbm", hbm))}
+    return got, twins, ttft
+
+  got, twins, ttft = kv_server(torch, {**env, "XOT_PAGED_KV": "1", "XOT_PREFIX_CACHE": "1"},
+                               device, model, step3)
+  # The API ends a stream at an eos id; the engine's twin decodes on past it.
+  need(all(got[k] and got[k] == twins[k][:len(got[k])] for k in twins),
+       f"step 3: the host-warm, prefetched and HBM-warm streams ({[len(got[k]) for k in twins]} "
+       f"tokens) bit for bit their cold twins")
+  print(f"[kv] step 3: TTFT of a {len(rotation[0].ids)}-token prompt on the page pool: cold "
+        + ", ".join(f"{ttft[f'cold{i}']:.1f}" for i in range(3))
+        + f" ms, HBM-warm {ttft['hbm']:.1f} ms, host-warm {ttft['host']:.1f} ms, prefetched "
+        f"{ttft['prefetched']:.1f} ms ({card})", flush=True)
+  out["ttft_paged"] = {k: ttft[k] for k in ("cold0", "hbm", "host", "prefetched")}
+
+  # ------------------------------------------------------------- 4. co-scheduling
+  long_prompt = KVPrompt.of(kv_ids(30, sz["long"] - 2, V), [])
+  shorts = [KVPrompt.of(kv_ids(40 + i, sz["short"], V), []) for i in range(4)]
+  rounds = sz["rounds"]
+
+  async def step4(engine):
+    tally.watch(engine)
+    shard = engine.shard
+    with tally.uncounted():
+      # Warm-up on other prompts of the same shapes: the scan groups of a one-call long
+      # prefill and the decode graphs of four and five rows over the long cache.
+      warm = {}
+      for i, p in enumerate([KVPrompt.of(kv_ids(50 + i, sz["short"], V), []) for i in range(4)]
+                            + [KVPrompt.of(kv_ids(31, sz["long"] - 2, V), [])]):
+        t, _ = await engine.infer_sample_tensor(f"warm{i}", shard, np.asarray([p.ids]), temp=0.0,
+                                                top_k=0)
+        warm[f"warm{i}"] = int(t)
+      for rids in (list(warm), list(warm)[:4]):
+        await asyncio.gather(*(engine.generate_chunk(r, shard, warm[r], 1, temp=0.0, top_k=0)
+                               for r in rids))
+      for rid in warm:
+        await engine.clear_request(rid)
+      # The five-row step grew the slab, which drops the scan groups captured over the
+      # old one: a second long prompt captures them over the slab the run will use.
+      await kv_generate(engine, "warm-long", KVPrompt.of(kv_ids(32, sz["long"] - 2, V), []).ids, 1)
+    toks = {}
+    for i, p in enumerate(shorts):
+      t, _ = await engine.infer_sample_tensor(f"s{i}", shard, np.asarray([p.ids]), temp=0.0, top_k=0)
+      tally.prefill(len(p.ids), 0, False, False)
+      toks[f"s{i}"] = [int(t)]
+    slices = engine._ctx.batcher.slices if engine._ctx.batcher else 0
+    gaps, joined, first_long = [], None, {}
+
+    async def long_request():
+      t0 = time.perf_counter()
+      captures = engine._ctx.graphs.captures if engine._ctx.graphs is not None else 0
+      t, _ = await engine.infer_sample_tensor("long", shard, np.asarray([long_prompt.ids]), temp=0.0,
+                                              top_k=0)
+      first_long["secs"] = time.perf_counter() - t0
+      first_long["captures"] = (engine._ctx.graphs.captures if engine._ctx.graphs is not None
+                                else 0) - captures
+      first_long["tok"] = int(t)
+
+    task = None
+    for r in range(rounds):
+      if r == 4:
+        task = asyncio.ensure_future(long_request())
+      if "tok" in first_long and "long" not in toks:
+        toks["long"], joined = [first_long["tok"]], r
+      t0 = time.perf_counter()
+      outs = await asyncio.gather(*(engine.generate_chunk(rid, shard, s[-1], 1, temp=0.0, top_k=0)
+                                    for rid, s in toks.items()))
+      gaps.append(time.perf_counter() - t0)
+      for (rid, s), o in zip(list(toks.items()), outs):
+        s.extend(int(x) for x in np.asarray(o).reshape(-1))
+    await task
+    sliced = engine._ctx.batcher.slices > slices
+    tally.prefill(len(long_prompt.ids), 0, False, sliced)
+    for rid in list(toks):
+      await engine.clear_request(rid)
+    tally.check(f"step 4 (XOT_PREFILL_COSCHED={int(engine.cosched)})", card)
+    n_slices = engine._ctx.batcher.slices - slices
+    worst = sorted(range(2, len(gaps)), key=lambda r: -gaps[r])[:3]
+    print(f"[kv] step 4: XOT_PREFILL_COSCHED={int(engine.cosched)}: the long prompt's first "
+          f"token {1e3 * first_long['secs']:.1f} ms after it arrived (round 4; {first_long['captures']} "
+          f"captures), joined at round {joined}; the longest rounds "
+          + ", ".join(f"{r}: {1e3 * gaps[r]:.1f} ms" for r in worst) + f" ({card})", flush=True)
+    with tally.uncounted():
+      logits = await kv_logits(engine, "long-ref", long_prompt.ids, warm=False, sliced=sliced)
+    return toks, gaps, joined, n_slices, logits
+
+  run = {}
+  for flag in ("1", "0"):
+    run[flag] = kv_engine({**env, "XOT_PAGED_KV": "0", "XOT_PREFILL_COSCHED": flag}, device, model,
+                          step4)
+  (on, gaps_on, join_on, slices_on, lg_on), (off, gaps_off, join_off, slices_off, lg_off) = run["1"], run["0"]
+  cut = min(join_on, join_off)
+  same = all(on[f"s{i}"][:cut + 1] == off[f"s{i}"][:cut + 1] for i in range(4))
+  agree = sum(a == b for i in range(4) for a, b in zip(on[f"s{i}"][cut + 1:], off[f"s{i}"][cut + 1:]))
+  total = sum(len(on[f"s{i}"]) - cut - 1 for i in range(4))
+  need(same and slices_on > 1 and slices_off == 0,
+       f"step 4: the four streams agree token for token in both modes up to round {cut}, where "
+       f"the {len(long_prompt.ids)}-token request joins (rounds {join_on} co-scheduled, {join_off} "
+       f"not); {slices_on} prefill slices with XOT_PREFILL_COSCHED=1, {slices_off} with 0")
+  print(f"[kv] step 4: after the join the streams share {agree}/{total} tokens (batch widths "
+        f"differ: not asserted) ({card})", flush=True)
+  err = rel_err(lg_on, lg_off)
+  need(err <= PREFILL_REL_LIMIT,
+       f"step 4: the long prompt's first-token logits, slices against one call, within "
+       f"{PREFILL_REL_LIMIT} (max error / max |logit| {err:.2e}; first tokens {on['long'][0]} / "
+       f"{off['long'][0]})")
+  # Rounds from the third on: the first captures the four-row graph over the short caches.
+  gaps_on, gaps_off = gaps_on[2:], gaps_off[2:]
+  for flag, gaps in (("1", gaps_on), ("0", gaps_off)):
+    print(f"[kv] step 4: XOT_PREFILL_COSCHED={flag}: longest inter-token gap of the four streams "
+          f"{1e3 * max(gaps):.1f} ms, p50 TPOT {1e3 * med(gaps):.2f} ms over rounds 3-{rounds} (one "
+          f"token each), {slices_on if flag == '1' else slices_off} batcher.prefill_slice ({card})",
+          flush=True)
+  out["gap_ms"] = {"on": 1e3 * max(gaps_on), "off": 1e3 * max(gaps_off)}
+  out["tpot_ms"] = {"on": 1e3 * med(gaps_on), "off": 1e3 * med(gaps_off)}
+  if cuda:
+    need(max(gaps_on) < max(gaps_off),
+         f"step 4: the longest gap with co-scheduling ({1e3 * max(gaps_on):.1f} ms) under the "
+         f"one without ({1e3 * max(gaps_off):.1f} ms)")
+
+  # ------------------------------------------------------- 5. a real device OOM
+  async def step5(engine, node, api, base):
+    tally.watch(engine)
+    loop = asyncio.get_running_loop()
+    ask = lambda p: loop.run_in_executor(None, http_status, base + url, p.body(model, 8, stream=False))  # noqa: E731
+    short = KVPrompt.of(kv_ids(60, sz["short"], V), [])
+    await ask(short)  # the short path's graphs exist before the limit
+    tally.prefill(len(short.ids), 0, False, False)
+    await wait_idle(engine)
+    gc.collect()
+    torch.cuda.empty_cache()
+    total = torch.cuda.get_device_properties(0).total_memory
+    limit = torch.cuda.memory_reserved() + (768 << 20)
+    torch.cuda.set_per_process_memory_fraction(limit / total)
+    try:
+      big = KVPrompt.of(kv_ids(61, sz["oom"], V), [])
+      status, _, reply = await ask(big)
+      oom = engine._oom_count
+      await wait_idle(engine)
+      again = KVPrompt.of(kv_ids(62, sz["short"], V), [])
+      served = (await ask(again))[0]
+      tally.prefill(len(again.ids), 0, False, False)
+      await wait_idle(engine)
+    finally:
+      torch.cuda.set_per_process_memory_fraction(1.0)
+    code = (reply.get("error") or {}).get("code")
+    need(status == 400 and code == "context_length_exceeded" and oom == 1 and served == 200,
+         f"step 5: with {limit} bytes allowed, a {len(big.ids)}-token prompt ran out of device "
+         f"memory: {status} {code} (recoveries {oom}); the next short request {served}")
+    # An out-of-memory error inside a capture (injected: the decode step raises while the
+    # stream captures): the request ends as a length finish after its first token, and
+    # the next one captures its graphs again on the same stream.
+    from xotorch_tpu_torch.models import graphs
+    await engine._run(engine._ctx.graphs.clear)
+    step, captures = graphs.decode_step, engine._ctx.graphs.captures
+
+    def oom_in_capture(*a, **kw):
+      if torch.cuda.is_current_stream_capturing():
+        raise torch.OutOfMemoryError("CUDA out of memory (injected inside a capture)")
+      return step(*a, **kw)
+    graphs.decode_step = oom_in_capture
+    try:
+      hit = KVPrompt.of(kv_ids(63, sz["short"], V), [])
+      first = await ask(hit)
+      # Its prefill, and the decode step a first use runs eagerly before the capture.
+      tally.prefill(len(hit.ids), 0, False, False)
+      tally.want["flash_cached_attention"] += L
+      await wait_idle(engine)
+    finally:
+      graphs.decode_step = step
+    after = KVPrompt.of(kv_ids(64, sz["short"], V), [])
+    second = await ask(after)
+    tally.prefill(len(after.ids), 0, False, False)
+    await wait_idle(engine)
+    n1 = first[2].get("usage", {}).get("completion_tokens")
+    n2 = second[2].get("usage", {}).get("completion_tokens")
+    need(first[0] == 200 and n1 == 1 and engine._oom_count == 2 and second[0] == 200 and n2 > 1
+         and engine._ctx.graphs.captures > captures,
+         f"step 5: an OOM inside a decode graph's capture: {first[0]} with {n1} token (recoveries "
+         f"{engine._oom_count}); the next request {second[0]} with {n2} tokens, "
+         f"{engine._ctx.graphs.captures - captures} graph(s) captured after it")
+    tally.check("step 5 (real and in-capture OOMs)", card)
+
+  if cuda:
+    kv_server(torch, {**env, "XOT_PAGED_KV": "0"}, device, model, step5)
+  else:
+    print("[kv] step 5: a real device OOM needs the card: not run", flush=True)
+  out["launches"] = tally.counts()
+  print(f"[time] phase 16 (KV reuse): {time.perf_counter() - t_phase:.1f} s; launches "
+        f"{out['launches']} ({card})", flush=True)
+  return out
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--kernels-only", action="store_true",
@@ -3969,6 +4689,12 @@ def main(argv=None) -> int:
   if args.kernels_only:
     print(f"kernels ok on {card}", flush=True)
     return 0
+
+  # Phases 4-15 run as they did before the prefix cache and co-scheduled prefill were
+  # ported: their launch formulas and readings assume cold one-call prefills (their
+  # requests repeat prompts). Phase 16 runs the defaults.
+  before_kv_reuse = contextlib.ExitStack()
+  before_kv_reuse.enter_context(phase_env(XOT_PREFIX_CACHE="0", XOT_PREFILL_COSCHED="0"))
 
   # Phase 4: the model through the kernels against the plain path.
   check_model(torch)
@@ -4107,8 +4833,15 @@ def main(argv=None) -> int:
   for name, n in check_observability(torch, card).items():
     launches[name] += n
   print(f"[time] phases 1-15: {time.perf_counter() - started:.1f} s", flush=True)
+  before_kv_reuse.close()
 
-  # Phase 16: results.
+  # Phase 16: KV reuse and prefill scheduling with the default knobs; its attention
+  # launches join the results line.
+  for name, n in check_kv_reuse(torch, card)["launches"].items():
+    launches[name] += n
+  print(f"[time] phases 1-16: {time.perf_counter() - started:.1f} s", flush=True)
+
+  # Phase 17: results.
   meta = {
     "flash_attention": ("xotorch_tpu_torch/csrc/flash_attention.cu",
                         "xotorch_tpu/ops/flash_attention.py:54"),

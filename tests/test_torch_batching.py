@@ -223,12 +223,14 @@ async def test_idle_defrag_moves_pages_under_live_requests(monkeypatch):
   want = {rid: await _stream(ref, SHARD, rid, PROMPTS[rid]) for rid in ("r5", "r6")}
   eng = TorchShardInferenceEngine(device="cpu", seed=0)
   firsts = {}
-  # A 60-token request takes the four lowest pages; once it clears, the others' next
-  # pages fill two of its holes and leave two below them.
+  # A 60-token request takes the four lowest pages; once it clears (and the prefix entry
+  # its prompt left is dropped), the others' next pages fill two of its holes and leave
+  # two below them.
   prompts = {"long": np.arange(3, 63).reshape(1, -1), "r5": PROMPTS["r5"], "r6": PROMPTS["r6"]}
   for rid, prompt in prompts.items():
     firsts[rid], _ = await eng.infer_sample_tensor(rid, SHARD, prompt, temp=0.0, top_k=0)
   await eng.clear_request("long")
+  eng._clear_prefix_cache(eng._ctx)
   pool = eng._ctx.page_pool
   assert pool.fragmentation() > 0
   got = {rid: [int(t)] for rid, t in firsts.items() if rid != "long"}

@@ -18,6 +18,7 @@ import os
 import urllib.error
 import urllib.request
 
+import numpy as np
 import pytest
 import torch
 
@@ -537,11 +538,11 @@ def test_routes_answer_with_the_jax_servers_keys(tmp_path, monkeypatch):
   monkeypatch.setenv("XOT_ANATOMY_DELAY_S", "0.1")
   want = asyncio.run(_jax_routes())
   got = asyncio.run(_port_routes(tmp_path))
-  # The JAX engine's host KV tier exists at load (XOT_KV_HOST_BYTES); the port has none,
-  # so its byte flows name no tier and /metrics has no tier gauges.
-  assert got["/v1/perf"]["byte_flows"].pop("host_tier") is None
-  want["/v1/perf"]["byte_flows"].pop("host_tier")
-  host_tier = {"xot_kv_host_bytes", "xot_kv_host_entries"}
+  # Both engines' host KV tier exists once a prefill has consulted it (XOT_KV_HOST_BYTES),
+  # empty: nothing was evicted.
+  assert got["/v1/perf"]["byte_flows"]["host_tier"] == {"bytes": 0, "entries": 0,
+                                                        "restore_fallbacks": 0}
+  assert want["/v1/perf"]["byte_flows"]["host_tier"] == {"bytes": 0, "entries": 0}
   diffs = {}
   for path in ROUTES:
     depth = 1 if path in ("/v1/history", "/v1/alerts") else 2
@@ -554,7 +555,7 @@ def test_routes_answer_with_the_jax_servers_keys(tmp_path, monkeypatch):
     if _shape(got[path], depth) != _shape(want[path], depth):
       diffs[path] = (_shape(got[path], depth), _shape(want[path], depth))
   assert not diffs, diffs
-  assert _families(got["/metrics"]) == _families(want["/metrics"]) - host_tier
+  assert _families(got["/metrics"]) == _families(want["/metrics"])
   text = got["/metrics"]
   samples, _ = _samples(text)
   node_label = next(k for k in samples if k.startswith("xot_requests_total"))
@@ -667,3 +668,54 @@ def test_a_ring_keeps_one_trace_and_rolls_up_both_peers(tmp_path, monkeypatch):
   assert breakdown is not None and any(k.startswith("hop:") for k in breakdown["stages"])
   assert math.isclose(sum(v["secs"] for v in breakdown["stages"].values()), breakdown["e2e_s"],
                       rel_tol=1e-3, abs_tol=1e-5)
+
+
+# ------------------------------------------------------- KV reuse's flight events
+
+KV_EVENTS = ("host.spill", "host.restore", "host.evict", "engine.oom_recovery",
+             "batcher.prefill_slice")
+
+
+async def _kv_reuse_events(eng, shard, recorder) -> dict:
+  """One prefix cache entry and a host tier of one entry's bytes (set by the caller):
+  A, then B while A was just active (co-scheduled: its prologue, one whole segment of
+  XOT_PREFILL_CHUNK 24 and its tail; B's store spills A), an OOM recovery (spills B,
+  which evicts A from the tier), then a short request C decoding while B's next turn
+  restores B's two pages from the tier in its co-scheduled prologue and samples its
+  tail (its store spills B again). The events' counts."""
+  eng.flight = recorder
+  a = np.arange(44, dtype=np.int64)[None, :] % 250 + 1
+  b = (a * 3) % 250 + 1
+  for rid, p in (("a", a), ("b", b)):
+    await eng.infer_sample_tensor(rid, shard, p, temp=0.0, top_k=0)
+  eng._free_device_memory()
+  tok, _ = await eng.infer_sample_tensor("c", shard, np.array([[7, 3, 11, 2]]), temp=0.0, top_k=0)
+  turn = np.concatenate([b, np.array([[5, 6, 7, 8]])], axis=1)
+  await asyncio.gather(eng.generate_chunk("c", shard, int(tok), 8, temp=0.0, top_k=0),
+                       eng.infer_sample_tensor("b2", shard, turn, temp=0.0, top_k=0))
+  eng.executor.shutdown(wait=True)
+  events = [e["event"] for e in recorder.tail()]
+  return {name: events.count(name) for name in KV_EVENTS}
+
+
+def test_kv_reuse_flight_events_fire_as_jax(monkeypatch):
+  """The host tier's spill, restore and budget eviction, the OOM recovery and the
+  co-scheduled prefill slices each fire, as many times as on the JAX engine."""
+  from xotorch_tpu.inference.jax_engine.engine import JAXShardInferenceEngine
+  from xotorch_tpu.inference.shard import Shard as JShard
+  from xotorch_tpu_torch.inference.shard import Shard
+  from xotorch_tpu_torch.inference.torch_engine.engine import TorchShardInferenceEngine
+  # One entry is 2 pages x 16 tokens x 4 layers x 2 kv heads x 16 x 4 bytes x K,V plus
+  # its 44 token ids: 33120 bytes.
+  for name, value in (("XOT_DTYPE", "float32"), ("XOT_PAGED_KV", "1"), ("XOT_KV_PAGE", "16"),
+                      ("XOT_KV_POOL_TOKENS", "512"), ("XOT_PREFIX_CACHE", "1"),
+                      ("XOT_PREFIX_CACHE_MIN", "16"), ("XOT_PREFILL_CHUNK", "24"),
+                      ("XOT_KV_HOST_BYTES", "40000")):
+    monkeypatch.setenv(name, value)
+  got = asyncio.run(_kv_reuse_events(TorchShardInferenceEngine(device="cpu", seed=0),
+                                     Shard(MODEL, 0, 3, 4), flight.FlightRecorder("n", 256)))
+  want = asyncio.run(_kv_reuse_events(JAXShardInferenceEngine(dtype="float32"),
+                                      JShard(MODEL, 0, 3, 4), j_flight.FlightRecorder("n", 256)))
+  assert got == want
+  assert got == {"host.spill": 3, "host.restore": 1, "host.evict": 1, "engine.oom_recovery": 1,
+                 "batcher.prefill_slice": 5}

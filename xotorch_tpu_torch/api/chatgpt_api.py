@@ -27,8 +27,11 @@ The port of the serving core of xotorch_tpu/api/chatgpt_api.py on
   ?diff=, ?compact=1), and POST /v1/trace/device/start (body {"logdir": ...}; a
   torch.profiler session whose Chrome trace /v1/trace/device/stop writes there);
 - bounded admission (XOT_MAX_INFLIGHT > 0): a completion takes a slot of the node's
-  gate first, waits in its queue, or is answered 429 with Retry-After when the queue
-  is full; responses carry the x-ratelimit-* headers while the gate is on.
+  gate first, waits in its queue (its warm prefix prefetched from the host KV tier
+  the moment it queues), or is answered 429 with Retry-After when the queue is full;
+  responses carry the x-ratelimit-* headers while the gate is on;
+- POST /v1/prefetch ({model, prompt} or {model, messages[, tools]}) starts the host
+  KV tier's restore of a queued prompt's warm prefix and answers 202.
 
 Synthetic models use DummyTokenizer, with the model's own EOS id.
 """
@@ -53,13 +56,12 @@ from xotorch_tpu_torch.orchestration.tracing import DEFAULT_TRACE_DIR, start_dev
 from xotorch_tpu_torch.utils import knobs
 from xotorch_tpu_torch.utils.helpers import DEBUG, spawn_detached
 
-REASONS = {200: "OK", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed",
+REASONS = {200: "OK", 202: "Accepted", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed",
            429: "Too Many Requests", 500: "Internal Server Error"}
 
 # Engine counters /metrics appends (the JAX handler's table): the port engine's
-# attribute, family, help. The families of subsystems the port lacks (prefix cache,
-# speculation, host KV tier, fabric, OOM recovery, the un-paged view) read 0, as the
-# JAX package's do with those features off.
+# attribute, family, help. The families of subsystems the port lacks (speculation, the
+# fabric, the un-paged view) read 0, as the JAX package's do with those features off.
 ENGINE_COUNTERS = (
   ("_prefix_hits", "xot_prefix_cache_hits_total", "Prefill prefix-cache hits"),
   ("_prefix_tokens_saved", "xot_prefix_tokens_saved_total", "Prompt tokens whose prefill was skipped"),
@@ -287,6 +289,10 @@ class ChatGPTAPI:
       await self._write(writer, 200, payload, content_type)
     elif get is not None and method == "GET":
       await self._write_json(writer, 200, get(query))
+    elif path == "/v1/prefetch":
+      if method != "POST":
+        raise HTTPError(405, {"detail": f"{method} not allowed on {path}"})
+      await self._write_json(writer, 202, await self.handle_post_prefetch(body))
     elif path in ("/v1/trace/device/start", "/v1/trace/device/stop"):
       if method != "POST":
         raise HTTPError(405, {"detail": f"{method} not allowed on {path}"})
@@ -501,6 +507,15 @@ class ChatGPTAPI:
          "(the holes an idle defrag pass can close)"),
       ):
         gauge(name, help_text, stats[key])
+    # The host KV tier's occupancy (absent until an eviction first touches the tier).
+    host_fn = getattr(eng, "host_kv_stats", None)
+    host = host_fn() if host_fn is not None else None
+    if host is not None:
+      for key, name, help_text in (
+        ("bytes", "xot_kv_host_bytes", "Host-RAM bytes held by spilled prefix KV"),
+        ("entries", "xot_kv_host_entries", "Prefix entries resident in the host KV tier"),
+      ):
+        gauge(name, help_text, host[key])
     perf = eng.perf_stats()
     if perf is not None:
       for key, name, help_text in (
@@ -620,6 +635,33 @@ class ChatGPTAPI:
     tokenizer = await self._tokenizer_for(model)
     return build_prompt(tokenizer, messages, tools), tokenizer
 
+  async def handle_post_prefetch(self, body: bytes) -> dict:
+    """Announce a queued request's prompt so that the engine's host-to-device restore
+    of its warm prefix starts before the request arrives (the JAX handler's route).
+    Body: {model, prompt} or {model, messages[, tools]}; messages build the prompt a
+    completion would run, so the prefix keys match. Fire and forget: 202 means the
+    prefetch was scheduled, never that a warm prefix exists."""
+    try:
+      data = json.loads(body or b"{}")
+    except (json.JSONDecodeError, UnicodeDecodeError):
+      raise _invalid("body must be JSON") from None
+    if not isinstance(data, dict):
+      raise _invalid("body must be a JSON object")
+    model = self._resolve_model(data.get("model"))
+    shard = build_base_shard(model, self.inference_engine_classname)
+    if shard is None:
+      raise HTTPError(400, {"detail": f"Invalid model: {model}"})
+    prompt = data.get("prompt")
+    messages = data.get("messages")
+    if not prompt and messages:
+      if not isinstance(messages, list) or not all(isinstance(m, dict) for m in messages):
+        raise _invalid("messages must be a list of objects")
+      prompt, _ = await self._request_prompt(model, messages, data.get("tools"))
+    if not prompt or not isinstance(prompt, str):
+      raise _invalid("a non-empty `prompt` or `messages` list is required")
+    spawn_detached(self.node.prefetch_prompt(shard, prompt), self._tasks)
+    return {"accepted": True, "model": model}
+
   async def handle_post_chat_token_encode(self, data: dict) -> dict:
     """Tokenize a chat request without running it: the prompt a completion would run
     (system prompt and tools included), as the JAX package answers."""
@@ -735,10 +777,12 @@ class ChatGPTAPI:
     base = str(uuid.uuid4())
     # Bounded admission (XOT_MAX_INFLIGHT, 0 = off): one slot for the whole HTTP request
     # (all n sub-completions), taken before the request touches the ring. Over the cap
-    # it waits in the gate's queue; past the queue it is shed as 429 with Retry-After.
+    # it waits in the gate's queue (its warm prefix prefetched from the host tier the
+    # moment it queues); past the queue it is shed as 429 with Retry-After.
     gate = self.node.admission
     try:
-      held_slot = await gate.acquire(base)
+      held_slot = await gate.acquire(
+        base, on_queued=lambda: spawn_detached(self.node.prefetch_prompt(shard, prompt), self._tasks))
     except AdmissionRejected as e:
       retry_after = max(1, int(math.ceil(e.retry_after_s)))
       raise HTTPError(429, {"error": {

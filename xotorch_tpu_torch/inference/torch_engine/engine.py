@@ -62,9 +62,34 @@ the context at load). A dispatch that captured a CUDA graph, or that ran an eage
 for the first time, counts as a first dispatch (`xot_jit_first_dispatch_total`) and
 records an `engine.compile` flight event. Nothing here adds a device sync.
 
-Left out so far: the prefix cache, the host KV tier, co-scheduled prefill,
-speculative and overlapped chunks, the fused in-process ring (`supports_ring_fusion`)
-and device-resident hops.
+KV reuse and prefill scheduling (the JAX engine's defaults):
+
+- the prefix cache (XOT_PREFIX_CACHE entries a context, LRU; XOT_PREFIX_CACHE_MIN
+  tokens at least): a finished prefill's KV is kept, keyed by its prompt, and a fresh
+  prompt sharing a long head with an entry seeds its state from it and prefills only
+  the rest (`_prefix_reuse`, `_prefix_store`). A contiguous entry is a clone of the
+  cache's first T positions; a paged entry holds references to the prompt's whole
+  pages, which a warm paged request takes in place as the head of its page table
+  (shared pages are never written: reuse rounds down to whole pages and writes land
+  at pos // page). Under pool pressure entries yield to live requests
+  (`_pool_alloc`);
+- the host KV tier (XOT_KV_HOST_BYTES, kv_offload.HostKVStore): an evicted entry is
+  copied to host RAM first, and a prompt that the device cache misses but the host
+  tier covers is restored into fresh pages or a fresh snapshot (`_host_promote`)
+  before it prefills; `prefetch_host_prefix` does that for a queued prompt. A
+  restore that fails degrades to a cold prefill (counted in
+  `_host_restore_fallbacks`);
+- co-scheduled prefill (XOT_PREFILL_COSCHED, XOT_PREFILL_CHUNK_BUDGET): while other
+  requests are active, a prompt longer than one segment prefills through the
+  batcher's prefill lane in slices of XOT_PREFILL_CHUNK_BUDGET segments, one slice a
+  drain cycle after the cycle's decode dispatches (`_prefill_and_sample`);
+- OOM recovery: a device out-of-memory error in a serving call spills and drops
+  every prefix entry, drops every request state (their next touch raises
+  RequestStateLost), the page pool, the captured CUDA graphs and the slab, and is
+  answered as CacheExhausted (`_run`, `_free_device_memory`).
+
+Left out so far: speculative and overlapped chunks, the fused in-process ring
+(`supports_ring_fusion`), device-resident hops, and the KV fabric between replicas.
 """
 from __future__ import annotations
 
@@ -76,7 +101,8 @@ import time
 import zlib
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
-from dataclasses import dataclass
+from dataclasses import dataclass, field
+from functools import partial
 from pathlib import Path
 from typing import Any, Dict, List, NamedTuple, Optional, Tuple
 
@@ -88,7 +114,10 @@ from xotorch_tpu_torch.inference.shard import Shard
 from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer, tokenizer_for_dir
 from xotorch_tpu_torch.inference.torch_engine import vkv
 from xotorch_tpu_torch.inference.torch_engine.costmodel import CostModel, PerfAttribution, dtype_width
-from xotorch_tpu_torch.inference.torch_engine.paged_cache import PagePool, commit_pages, migrate_pages
+from xotorch_tpu_torch.inference.torch_engine.kv_offload import HostKVStore, common_prefix_len
+from xotorch_tpu_torch.inference.torch_engine.paged_cache import (PagePool, commit_pages, from_host,
+                                                                  gather_pages, migrate_pages,
+                                                                  scatter_pages, to_host)
 from xotorch_tpu_torch.inference.torch_engine.vkv import VirtualKV
 from xotorch_tpu_torch.models.config import ModelConfig, config_from_hf_dict, load_model_config
 from xotorch_tpu_torch.models import graphs
@@ -106,6 +135,13 @@ from xotorch_tpu_torch.utils import knobs
 from xotorch_tpu_torch.utils.helpers import DEBUG, spawn_detached
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
+
+
+def _is_device_oom(e: BaseException) -> bool:
+  """torch's OutOfMemoryError, or a RuntimeError whose text says the device is out of
+  memory (a CUDA error, or a graph capture that failed on one)."""
+  return (isinstance(e, torch.OutOfMemoryError)
+          or (isinstance(e, RuntimeError) and "out of memory" in str(e).lower()))
 
 
 def _bucket(n: int, minimum: int = 16) -> int:
@@ -132,6 +168,9 @@ class _RequestState:
   pos: int  # tokens already resident in the cache
   last_used: float
   pages: Optional[VirtualKV] = None  # the request's pool pages (XOT_PAGED_KV=1)
+  # Shared prefix pages a contiguous prefill seeded from (XOT_PAGED_PREFILL=0), held
+  # until the commit puts them at the head of the page table.
+  paged_seed: Optional[list] = None
   # OpenAI sampling extras (_build_extras): one row of bias, counts, penalties, min-p,
   # logprobs and the seed. None = a plain request, which the batcher may group.
   extras: Optional[graphs.SamplerExtras] = None
@@ -151,6 +190,10 @@ class _ShardContext:
   model_dir: Optional[Path] = None  # the checkpoint's directory; None for synthetic cards
   graphs: Optional[graphs.GraphCache] = None  # the captured programs, on the card
   costmodel: Optional[CostModel] = None  # the shard's analytic bytes and FLOPs
+  # The prefix cache: prompt hash -> (prompt tokens, entry), least recently used first.
+  # An entry is a contiguous snapshot {leaf: [L, 1, T, ...]} or, under XOT_PAGED_KV,
+  # {"pages": the prompt's whole pages (one reference each), "len": tokens covered}.
+  prefix_cache: "OrderedDict[int, Tuple[np.ndarray, dict]]" = field(default_factory=OrderedDict)
 
 
 class _Pending(NamedTuple):
@@ -168,7 +211,7 @@ class _Pending(NamedTuple):
 
 class _DecodeBatcher:
   """Continuous batching at chunk granularity (the port of the JAX engine's
-  _DecodeBatcher, without its prefill lane, ring dispatch and speculative slot).
+  _DecodeBatcher, without its ring dispatch and speculative slot).
 
   Concurrent requests each drive their own decode loop; this collector coalesces
   their generate_chunk calls into ONE batched dispatch per drain cycle. Coalescing
@@ -177,12 +220,20 @@ class _DecodeBatcher:
   cycle takes them all, so the batch width follows the load. Rows are grouped by
   (top_k, top_p); temperature is per row. A group runs at its smallest requested
   size (bigger requesters loop again) and is cut at XOT_DECODE_BATCH rows. When the
-  queue drains, the idle slot goes to one bounded page-pool defrag pass."""
+  queue drains, the idle slot goes to one bounded page-pool defrag pass.
+
+  The drain cycle also co-schedules prefill: `pending_prefill` holds bounded prompt
+  slices (the engine's _prefill_and_sample cuts a long prompt into calls of
+  XOT_PREFILL_CHUNK_BUDGET segments) and each cycle runs its decode dispatches first,
+  then ONE slice, so the streams already decoding stall at most one slice a cycle,
+  never a whole prompt."""
 
   def __init__(self, engine: "TorchShardInferenceEngine", ctx: _ShardContext):
     self.engine = engine
     self.ctx = ctx
     self.pending: List[_Pending] = []
+    # (call, future, enqueue time, tokens, dispatch key, start position) a slice
+    self.pending_prefill: list = []
     self._draining = False
     self._drain_task = None  # strong ref: the loop only weakly holds tasks
     # Dispatches run, rows over all of them (mean width = rows / dispatches), and
@@ -190,16 +241,55 @@ class _DecodeBatcher:
     self.dispatches = 0
     self.rows = 0
     self.steps = 0
+    self.slices = 0  # prefill slices run
+
+  def _start(self) -> None:
+    if not self._draining:
+      self._draining = True
+      self._drain_task = spawn_detached(self._drain())
+
+  async def submit_prefill(self, fn, tokens: int = 0, key: Optional[tuple] = None,
+                           start: int = 0) -> Any:
+    """Run `fn` (a call for the executor) as one prefill slice of the drain cycle; its
+    result or exception. FIFO across requests; a request's slices stay in order because
+    its prefill coroutine awaits each before it submits the next. `tokens`, `key` and
+    `start` are the slice's attribution (positions run, dispatch key, positions already
+    resident); key None (the prologue, a host-tier restore) is not observed."""
+    fut = asyncio.get_running_loop().create_future()
+    self.pending_prefill.append((fn, fut, time.monotonic(), tokens, key, start))
+    self._start()
+    return await fut
 
   async def submit(self, request_id: str, state: _RequestState, prev_token: int,
                    num_tokens: int, temp: float, top_k: int, top_p: float) -> np.ndarray:
     fut = asyncio.get_running_loop().create_future()
     self.pending.append(_Pending(request_id, state, prev_token, num_tokens, temp, top_k, top_p,
                                  fut, time.monotonic()))
-    if not self._draining:
-      self._draining = True
-      self._drain_task = spawn_detached(self._drain())
+    self._start()
     return await fut
+
+  async def _run_slice(self) -> None:
+    """The oldest prefill slice, observed as one prefill dispatch; its outcome goes to
+    its own future (a slice's failure fails only its request)."""
+    fn, fut, enqueued, tokens, key, start = self.pending_prefill.pop(0)
+    eng = self.engine
+    if eng.metrics is not None:
+      eng.metrics.queue_wait_prefill.observe(time.monotonic() - enqueued)
+    try:
+      t0, captures = time.monotonic(), eng._captures(self.ctx)
+      res = await eng._run(fn)
+      secs = time.monotonic() - t0
+      if eng.flight is not None:
+        eng.flight.record("batcher.prefill_slice", None, secs=round(secs, 6))
+      if key is not None:
+        eng._observe_dispatch("prefill", key, secs, tokens=tokens, ctx=self.ctx, start=start,
+                              captured=max(0, eng._captures(self.ctx) - captures))
+      self.slices += 1
+      if not fut.done():
+        fut.set_result(res)
+    except Exception as e:
+      if not fut.done():
+        fut.set_exception(e)
 
   async def _drain(self) -> None:
     batch: List[_Pending] = []
@@ -207,10 +297,10 @@ class _DecodeBatcher:
       # One wait before the first take (an event-loop tick at XOT_BATCH_WINDOW_MS=0):
       # loops woken in the same pass coalesce at once.
       await asyncio.sleep(self.engine.batch_window_s)
-      while self.pending:
+      while self.pending or self.pending_prefill:
         batch, self.pending = self.pending, []
         m = self.engine.metrics
-        if m is not None:
+        if m is not None and batch:
           take_t = time.monotonic()
           for it in batch:
             m.queue_wait_decode.observe(take_t - it.enqueued)
@@ -241,6 +331,9 @@ class _DecodeBatcher:
               for it in chunk:
                 if not it.future.done():
                   it.future.set_exception(e)
+        # Decode went first; now one prefill slice.
+        if self.pending_prefill:
+          await self._run_slice()
         # Let the resolved requests' loops take their tokens and submit again before
         # the next take, so steady-state batches stay wide.
         await asyncio.sleep(0)
@@ -255,15 +348,16 @@ class _DecodeBatcher:
       # A failure outside a dispatch must fail every waiting submitter: a future
       # nobody resolves would hang its request forever.
       failed, self.pending = self.pending, []
-      for it in batch + failed:
-        if not it.future.done():
-          it.future.set_exception(e)
+      failed_prefill, self.pending_prefill = self.pending_prefill, []
+      futures = [it.future for it in batch + failed] + [item[1] for item in failed_prefill]
+      for fut in futures:
+        if not fut.done():
+          fut.set_exception(e)
     finally:
       self._draining = False
-      if self.pending:
+      if self.pending or self.pending_prefill:
         # A submit slipped in after the last take and saw _draining set.
-        self._draining = True
-        self._drain_task = spawn_detached(self._drain())
+        self._start()
 
 
 class TorchShardInferenceEngine(InferenceEngine):
@@ -308,6 +402,27 @@ class TorchShardInferenceEngine(InferenceEngine):
     self.paged_prefill = knobs.get_bool("XOT_PAGED_PREFILL")
     self.defrag = knobs.get_bool("XOT_KV_DEFRAG")
     self.defrag_moves = 0
+    # KV reuse and prefill scheduling (see the module docstring).
+    self._prefix_cache_max = knobs.get_int("XOT_PREFIX_CACHE")
+    self._prefix_cache_min = knobs.get_int("XOT_PREFIX_CACHE_MIN")
+    self._host_kv_max_bytes = knobs.get_int("XOT_KV_HOST_BYTES")
+    self.cosched = knobs.get_bool("XOT_PREFILL_COSCHED")
+    self._prefill_chunk_budget = max(1, knobs.get_int("XOT_PREFILL_CHUNK_BUDGET"))
+    # Prefix hits, the prompt tokens they spared, entries evicted (LRU bound, pool
+    # pressure, OOM recovery); the host tier (built at its first spill), its hits, bytes
+    # copied out and back, and restores that fell back to a cold prefill.
+    self._prefix_hits = 0
+    self._prefix_tokens_saved = 0
+    self._prefix_evictions = 0
+    self._host_kv: Optional[HostKVStore] = None
+    self._host_kv_hits = 0
+    self._host_spill_bytes = 0
+    self._host_fetch_bytes = 0
+    self._host_restore_fallbacks = 0
+    # OOM recoveries, and the requests whose state one dropped (bounded): their next
+    # touch raises RequestStateLost instead of starting over from an empty cache.
+    self._oom_count = 0
+    self._states_lost_to_oom: "OrderedDict[str, None]" = OrderedDict()
     # Live roofline attribution (XOT_PERF_ATTR) and the dispatch classification.
     self._dtype_name = next(k for k, v in DTYPES.items() if v == self.dtype)
     self.perf = (PerfAttribution(knobs.get_float("XOT_PERF_EWMA_S"))
@@ -342,12 +457,72 @@ class TorchShardInferenceEngine(InferenceEngine):
   def tokenizer(self):
     return self._ctx.tokenizer if self._ctx else None
 
-  async def _run(self, fn, *args):
-    """Every device computation funnels through the single-worker executor."""
-    def call():
+  async def _run(self, fn, *args, oom_as_cache_exhausted: bool = True):
+    """Every device computation funnels through the single-worker executor. Device
+    memory exhaustion is caught here: the engine frees what it can
+    (_free_device_memory, on the executor, after the failed call) so that later
+    requests find a healthy engine. A serving call surfaces it as CacheExhausted (the
+    request's length error); a load passes oom_as_cache_exhausted=False and gets a
+    RuntimeError (a model that does not fit is no fault of a prompt)."""
+    def call(f, *a):
       with torch.inference_mode():
-        return fn(*args)
-    return await asyncio.get_running_loop().run_in_executor(self.executor, call)
+        return f(*a)
+    loop = asyncio.get_running_loop()
+    try:
+      return await loop.run_in_executor(self.executor, call, fn, *args)
+    except Exception as e:
+      if not _is_device_oom(e):
+        raise
+      try:
+        freed = await loop.run_in_executor(self.executor, call, self._free_device_memory)
+      except Exception as free_err:  # recovery must never mask the OOM
+        freed = f"recovery itself failed: {free_err!r}"
+      msg = f"device memory exhausted (recovery #{self._oom_count}: freed {freed}); original: {e}"
+      if oom_as_cache_exhausted:
+        raise CacheExhausted(msg) from e
+      raise RuntimeError(msg) from e
+
+  def _free_device_memory(self) -> str:
+    """OOM recovery (the JAX engine's, with the port's counterpart of
+    `jax.clear_caches()`): drop every captured CUDA graph and the slab first, so the
+    spills below find room; spill every prefix entry to the host tier, then drop it;
+    drop every request state (remembered, bounded, so that its next touch raises
+    RequestStateLost) and the page pool; return the allocator's cached blocks to the
+    card. Records `engine.oom_recovery` and freezes the flight recorder. Runs on the
+    executor, so no device work interleaves with it."""
+    self._oom_count += 1
+    n_snap = n_state = n_spill = 0
+    ctx = self._ctx
+    if ctx is not None:
+      if ctx.graphs is not None:
+        ctx.graphs.clear()
+      if self.device.type == "cuda":
+        torch.cuda.empty_cache()
+      for toks, entry in ctx.prefix_cache.values():
+        if self._spill_prefix_entry(ctx, toks, entry):
+          n_spill += 1
+      n_snap = len(ctx.prefix_cache)
+      self._prefix_evictions += n_snap
+      ctx.prefix_cache.clear()
+      for rid in ctx.states:
+        self._states_lost_to_oom[rid] = None
+      n_state = len(ctx.states)
+      ctx.states.clear()
+      # Every state and entry that referenced the arena is gone: the next paged
+      # request builds a fresh pool.
+      ctx.page_pool = None
+    while len(self._states_lost_to_oom) > 512:
+      self._states_lost_to_oom.popitem(last=False)
+    if self.device.type == "cuda":
+      torch.cuda.empty_cache()
+    # Every graph is captured again: count those as first dispatches.
+    self._exec_seen.clear()
+    freed = (f"{n_snap} prefix snapshots ({n_spill} spilled to host tier), "
+             f"{n_state} request states, 0 model contexts")
+    if self.flight is not None:
+      self.flight.record("engine.oom_recovery", None, recovery=self._oom_count, freed=freed)
+      self.flight.freeze(None, reason=f"oom_recovery:{self._oom_count}")
+    return freed
 
   # ---------------------------------------------------------- observability
 
@@ -458,15 +633,15 @@ class TorchShardInferenceEngine(InferenceEngine):
     out: Dict[str, Any] = dict(self.perf_stats() or {})
     out["jit_first_dispatches"] = self._jit_first_dispatches
     out["jit_cached_dispatches"] = self._jit_cached_dispatches
-    out["host_fetch_bytes"] = 0  # no host KV tier yet
+    out["host_fetch_bytes"] = self._host_fetch_bytes
     return out
 
   def perf_report(self) -> Optional[Dict[str, Any]]:
     """The /v1/perf report (the JAX engine's keys): the loaded model's analytic
     ceilings (bf16/int8/int4), predicted against actual resident weight bytes, the
     EWMA gauges, per-lane totals, the heaviest dispatch keys, the dispatch
-    classification and the page pool's byte flows (the host tier, the un-paged view and
-    speculation, which the port lacks, read 0 and None). Host metadata only."""
+    classification, and the page pool's and host tier's byte flows (the un-paged view
+    and speculation, which the port lacks, read 0 and None). Host metadata only."""
     if self.perf is None:
       return None
     peak_tflops, peak_gbps = self._chip_peak_specs()
@@ -476,9 +651,10 @@ class TorchShardInferenceEngine(InferenceEngine):
       "executables": self.perf.executables(),
       "dispatch": {"jit_first_dispatches": self._jit_first_dispatches,
                    "jit_cached_dispatches": self._jit_cached_dispatches},
-      "byte_flows": {"host_spill_bytes": 0, "host_fetch_bytes": 0,
+      "byte_flows": {"host_spill_bytes": self._host_spill_bytes,
+                     "host_fetch_bytes": self._host_fetch_bytes,
                      "commit_copy_bytes": self._commit_copy_bytes, "unpage_gathers": 0,
-                     "pool": self.page_pool_stats(), "host_tier": None},
+                     "pool": self.page_pool_stats(), "host_tier": self.host_kv_stats()},
       "speculation": {"proposed": 0, "accepted": 0, "accept_rate_ewma": None},
       "model": None,
       "ceilings": None,
@@ -526,7 +702,7 @@ class TorchShardInferenceEngine(InferenceEngine):
           if self.shard_downloader is None:
             raise ValueError(f"{shard.model_id}: a checkpoint needs a shard downloader")
           model_dir = Path(await self.shard_downloader.ensure_shard(shard, type(self).__name__))
-        ctx = await self._run(self._load_shard, shard, model_dir)
+        ctx = await self._run(self._load_shard, shard, model_dir, oom_as_cache_exhausted=False)
         if model_dir is not None:
           ctx.tokenizer = await tokenizer_for_dir(model_dir)
         self._ctx = ctx
@@ -730,16 +906,58 @@ class TorchShardInferenceEngine(InferenceEngine):
     return h if want_hidden else True
 
   def _prefill_fill_sync(self, ctx: _ShardContext, request_id: str, input_data,
-                         paged_native: bool) -> None:
-    """Cache-fill forward of a prompt's leading whole segments, outputs dropped on the
-    device: the scan prefill where it applies, else segment by segment."""
+                         paged_native: bool, expected_pos: Optional[int] = None,
+                         reserve: Optional[int] = None) -> None:
+    """Cache-fill forward of a prompt's whole segments, outputs dropped on the device:
+    the scan prefill where it applies, else segment by segment. The unit of work the
+    co-scheduling lane admits between decode dispatches. `expected_pos` (a later
+    slice) is where the previous slice left the request; `reserve` (a co-scheduled
+    contiguous prompt's first slice) sizes its cache for the whole rest of the prompt
+    at once, as the one-call path's first fill does, so later slices never grow it."""
+    self._check_prefill_continuity(ctx, request_id, expected_pos)
     if paged_native:
       self._paged_fill_sync(ctx, request_id, input_data)
       return
+    if reserve and reserve > input_data.shape[1]:
+      self._prep_state(ctx, request_id, reserve)
     chunk = self._prefill_chunk()
     if not self._scan_prefill(ctx, request_id, input_data, chunk):
       for off in range(0, input_data.shape[1], chunk):
         self._forward_segment(ctx, request_id, input_data[:, off:off + chunk], fill=True)
+
+  def _check_prefill_continuity(self, ctx: _ShardContext, request_id: str,
+                                expected_pos: Optional[int]) -> None:
+    """Between co-scheduled slices the engine serves other requests, and a burst of new
+    states can evict a request mid-prefill. A later slice must not recreate it at pos 0:
+    it raises RequestStateLost (the node aborts the request). `expected_pos` is None
+    for the slice allowed to create the state (the first, with no prefix reuse)."""
+    if expected_pos is None:
+      return
+    st = ctx.states.get(request_id)
+    if st is None or st.pos != expected_pos:
+      raise RequestStateLost(
+        f"request {request_id}: prefill state evicted mid-co-scheduled prefill "
+        f"(expected pos {expected_pos}, found {st.pos if st else 'no state'})")
+
+  def _prefill_begin_sync(self, ctx: _ShardContext, request_id: str, input_data,
+                          paged_native: bool) -> Tuple[Optional[np.ndarray], int]:
+    """The prefill's prologue: prefix reuse for a fresh batch-1 token prompt on a shard
+    that holds layer 0 (a mid-ring shard sees hidden states, which key no prefix).
+    Returns (the full prompt, for the store after the prefill, or None; the positions
+    reuse took off the prompt)."""
+    is_prefill = (getattr(input_data, "ndim", 0) == 2 and input_data.shape[1] > 1
+                  and input_data.shape[0] == 1 and ctx.shard.is_first_layer
+                  and request_id not in ctx.states)
+    if not is_prefill:
+      return None, 0
+    full_prompt = np.asarray(input_data)
+    return full_prompt, self._prefix_reuse(ctx, request_id, full_prompt, paged_native=paged_native)
+
+  def _abort_paged_prefill(self, ctx: _ShardContext, request_id: str) -> None:
+    """Release a fresh request whose prefill died on exhaustion: it can never produce a
+    token, so what it holds (its pool pages above all, which co-resident streams need,
+    or a contiguous buffer) goes back at once."""
+    self._drop_state(ctx, request_id)
 
   def _infer_sync(self, ctx: _ShardContext, request_id: str, input_data):
     """The shard's output on the host: fp32 logits from the last shard as numpy; a
@@ -786,47 +1004,122 @@ class TorchShardInferenceEngine(InferenceEngine):
     ctx = await self._ensure_ctx(shard)
     if not shard.is_last_layer:
       raise ValueError(f"infer_sample_tensor requires the last-layer shard, got {shard}")
-    tokens_in = int(input_data.shape[1]) if getattr(input_data, "ndim", 0) == 2 else 0
-    if tokens_in > 1:
-      # A span per prefill; a one-token ring step rides this entry point too, and a span
-      # per token would swamp the trace buffer.
-      with self._engine_span("engine.prefill", request_id, {"tokens": tokens_in, "cosched": False}):
-        tok = await self._run(self._infer_sample_sync, ctx, request_id, input_data,
-                              float(temp), int(top_k), float(top_p), sampling)
-    else:
-      tok = await self._run(self._infer_sample_sync, ctx, request_id, input_data,
-                            float(temp), int(top_k), float(top_p), sampling)
+    tok = await self._prefill_and_sample(ctx, request_id, input_data, float(temp), int(top_k),
+                                         float(top_p), sampling)
     return tok, inference_state
+
+  async def _prefill_and_sample(self, ctx: _ShardContext, request_id: str, input_data,
+                                temp: float, top_k: int, top_p: float,
+                                sampling: Optional[dict]) -> int:
+    """Prefill and first-token sampling. One executor call (_infer_sample_sync) unless
+    the prompt is co-scheduled: XOT_PREFILL_COSCHED on, a batch cap above 1, other
+    requests active (queued in the batcher, or used within the last second) and a
+    batch-1 prompt longer than one segment. Then the prologue, slices of
+    XOT_PREFILL_CHUNK_BUDGET segments and the sampled last segment each ride the
+    batcher's prefill lane, one a drain cycle after its decode dispatches."""
+    chunk = self._prefill_chunk()
+    tokens_in = int(input_data.shape[1]) if getattr(input_data, "ndim", 0) == 2 else 0
+    now = time.monotonic()
+    # A snapshot of the states: the executor thread adds and evicts them meanwhile.
+    others_active = ((ctx.batcher is not None
+                      and bool(ctx.batcher.pending or ctx.batcher.pending_prefill))
+                     or any(now - st.last_used < 1.0
+                            for rid, st in list(ctx.states.items()) if rid != request_id))
+    cosched = (self.cosched and self.decode_batch > 1 and others_active and tokens_in > chunk
+               and input_data.shape[0] == 1)
+    if not cosched:
+      if tokens_in <= 1:
+        # A one-token ring step rides this entry point too; a span per token would
+        # swamp the trace buffer.
+        return await self._run(self._infer_sample_sync, ctx, request_id, input_data, temp,
+                               top_k, top_p, sampling)
+      with self._engine_span("engine.prefill", request_id, {"tokens": tokens_in, "cosched": False}):
+        return await self._run(self._infer_sample_sync, ctx, request_id, input_data, temp,
+                               top_k, top_p, sampling)
+    if ctx.batcher is None:
+      ctx.batcher = _DecodeBatcher(self, ctx)
+    batcher = ctx.batcher
+    paged_native = self._paged_segment(ctx, request_id, input_data)
+    is_fresh = request_id not in ctx.states
+    with self._engine_span("engine.prefill", request_id, {"tokens": tokens_in, "cosched": True}):
+      # The prologue rides the lane too: it may restore a prefix from the host tier.
+      full_prompt, consumed = await batcher.submit_prefill(
+        partial(self._prefill_begin_sync, ctx, request_id, input_data, paged_native))
+      rest = input_data[:, consumed:]
+      try:
+        true_t = rest.shape[1]
+        split = ((true_t - 1) // chunk) * chunk if true_t > chunk else 0
+        step = self._prefill_chunk_budget * chunk
+        for off in range(0, split, step):
+          sl = rest[:, off:min(off + step, split)]
+          # Only the first slice of a request with no prefix hit may create its state.
+          expected = consumed + off if (consumed or off) else None
+          fill_t = int(sl.shape[1])
+          await batcher.submit_prefill(
+            partial(self._prefill_fill_sync, ctx, request_id, sl, paged_native, expected,
+                    true_t if off == 0 else None),
+            tokens=fill_t, key=("prefill", _bucket(fill_t), paged_native, "fill"),
+            start=consumed + off)
+        tail_t = int(true_t - split)
+        return await batcher.submit_prefill(
+          partial(self._prefill_sample_sync, ctx, request_id, rest[:, split:], temp, top_k, top_p,
+                  sampling, full_prompt, consumed + split if (consumed or split) else None),
+          tokens=tail_t, key=("prefill", _bucket(tail_t), top_k, top_p, bool(sampling)),
+          start=consumed + split)
+      except CacheExhausted:
+        # Exhaustion mid-prefill fails only this request: its partial pages go back at
+        # once, so the streams it interleaved with never feel the pressure.
+        if is_fresh:
+          await self._run(self._abort_paged_prefill, ctx, request_id)
+        raise
 
   def _infer_sample_sync(self, ctx: _ShardContext, request_id: str, input_data: np.ndarray,
                          temp: float, top_k: int, top_p: float,
                          sampling: Optional[dict] = None) -> int:
-    t0, captures = time.monotonic(), self._captures(ctx)
+    """The one-call prefill: prologue (prefix reuse), the rest's leading whole segments
+    as a fill, the last segment sampled. Attribution books only the positions that ran
+    after the prologue."""
     start, paged_native = self._start_of(ctx, request_id, input_data)
-    true_t = input_data.shape[1]
-    chunk = self._prefill_chunk()
     is_fresh = request_id not in ctx.states
+    full_prompt, consumed = self._prefill_begin_sync(ctx, request_id, input_data, paged_native)
+    rest = input_data[:, consumed:]
+    true_t = rest.shape[1]
+    chunk = self._prefill_chunk()
+    t0, captures = time.monotonic(), self._captures(ctx)
     try:
+      tail = rest
       if true_t > chunk:
         # Leading whole segments fill the cache without the unembedding.
         split = ((true_t - 1) // chunk) * chunk
-        self._prefill_fill_sync(ctx, request_id, input_data[:, :split], paged_native)
-        input_data = input_data[:, split:]
-      x, seg_t, state, cache, kw = self._segment_setup(ctx, request_id, input_data)
-      if sampling and state.extras is None:
-        state.extras = self._build_extras(ctx, sampling)
-      ex = state.extras or graphs.PLAIN
-      out, _ = forward_sample(
-        ctx.params, x, cache, state.pos, seg_t - 1, ctx.cfg, x.ndim == 2, temp, top_k, top_p,
-        start_layer=ctx.shard.start_layer,
-        generator=self._generator_for(ex, request_id, state.pos + seg_t - 1),
-        **ex.sampler_kwargs(), **kw)
+        self._prefill_fill_sync(ctx, request_id, rest[:, :split], paged_native)
+        tail = rest[:, split:]
+      tok = self._prefill_sample_sync(ctx, request_id, tail, temp, top_k, top_p, sampling,
+                                      full_prompt)
     except CacheExhausted:
       if is_fresh:
-        # The request can never produce a token: what it holds (pool pages above
-        # all, which co-resident streams need) goes back at once.
-        self._drop_state(ctx, request_id)
+        self._abort_paged_prefill(ctx, request_id)
       raise
+    ex = ctx.states[request_id].extras or graphs.PLAIN
+    self._observe_forward(ctx, ("prefill", _bucket(true_t), top_k, top_p, ex.key()), true_t,
+                          start + consumed, paged_native, t0, captures)
+    return tok
+
+  def _prefill_sample_sync(self, ctx: _ShardContext, request_id: str, input_data,
+                           temp: float, top_k: int, top_p: float, sampling: Optional[dict],
+                           full_prompt: Optional[np.ndarray],
+                           expected_pos: Optional[int] = None) -> int:
+    """The last prefill segment's forward with the first token sampled on the device
+    (the one-call and co-scheduled paths' shared epilogue), then the prefix store."""
+    self._check_prefill_continuity(ctx, request_id, expected_pos)
+    x, seg_t, state, cache, kw = self._segment_setup(ctx, request_id, input_data)
+    if sampling and state.extras is None:
+      state.extras = self._build_extras(ctx, sampling)
+    ex = state.extras or graphs.PLAIN
+    out, _ = forward_sample(
+      ctx.params, x, cache, state.pos, seg_t - 1, ctx.cfg, x.ndim == 2, temp, top_k, top_p,
+      start_layer=ctx.shard.start_layer,
+      generator=self._generator_for(ex, request_id, state.pos + seg_t - 1),
+      **ex.sampler_kwargs(), **kw)
     self._advance(ctx, state, seg_t)
     if ex.top_lp >= 0:
       tok, lp, top_ids, top_lps = out
@@ -834,12 +1127,13 @@ class TorchShardInferenceEngine(InferenceEngine):
     else:
       tok = out
     tok_int = int(tok.reshape(-1)[0].item())
-    self._observe_forward(ctx, ("prefill", _bucket(true_t), top_k, top_p, ex.key()), true_t, start,
-                          paged_native, t0, captures)
+    if full_prompt is not None:
+      self._prefix_store(ctx, request_id, full_prompt)
     if ex.counts is not None:
       # The first sampled token counts before decode; the prompt never does.
       ex.counts[0, tok_int % ctx.cfg.vocab_size] += 1
     return tok_int
+
 
   # ------------------------------------------------------ sampling extras
 
@@ -1050,32 +1344,55 @@ class TorchShardInferenceEngine(InferenceEngine):
         print(f"KV page pool ready: {num_pages - 1} pages x {page} tokens")
     return ctx.page_pool
 
-  def _pool_alloc(self, pool: PagePool, n: int) -> list:
-    """pool.alloc with the JAX engine's flight events: `pool.alloc` for pages taken,
-    `pool.pressure` when the pool cannot give them (CacheExhausted propagates; the port
-    has no prefix cache to evict and retry)."""
-    try:
-      ids = pool.alloc(n)
-    except CacheExhausted:
-      if self.flight is not None:
-        self.flight.record("pool.pressure", None, need=n, free=pool.free_pages,
-                           in_use=pool.pages_in_use)
-      raise
-    if self.flight is not None and n > 0:
-      self.flight.record("pool.alloc", None, pages=n, free=pool.free_pages)
-    return ids
+  def _pool_alloc(self, ctx: _ShardContext, pool: PagePool, n: int) -> list:
+    """pool.alloc with reclaim: prefix entries are caches and yield to live requests
+    under pool pressure. Evict the oldest entry (spilled to the host tier first) and
+    retry; an entry whose pages live requests share frees nothing and the loop goes
+    on. Only with no entry left does CacheExhausted surface. Flight events:
+    `pool.alloc` for pages taken, `pool.pressure` for each failed attempt."""
+    while True:
+      try:
+        ids = pool.alloc(n)
+        if self.flight is not None and n > 0:
+          self.flight.record("pool.alloc", None, pages=n, free=pool.free_pages)
+        return ids
+      except CacheExhausted:
+        if self.flight is not None:
+          self.flight.record("pool.pressure", None, need=n, free=pool.free_pages,
+                             in_use=pool.pages_in_use)
+        evicted = False
+        while ctx.prefix_cache and not evicted:
+          evicted = self._evict_oldest_prefix(ctx)
+        if not evicted:
+          raise
 
   def _commit_state_to_pages(self, ctx: _ShardContext, state: _RequestState) -> None:
     """Move a request prefilled into a contiguous buffer (XOT_PAGED_PREFILL=0) into
-    fresh pool pages and free the buffer."""
+    pool pages and free the buffer. Shared prefix pages it was seeded from
+    (`paged_seed`, whole pages below pos) become the table's head; only the rest is
+    copied."""
     pool = self._ensure_page_pool(ctx)
-    fresh = self._pool_alloc(pool, pool.pages_for(state.pos))
-    commit_pages(pool.arena, state.cache, fresh, start_page=0)
-    leaf = pool.arena["k"]  # [L, P, page, Hkv, D]
-    self._commit_copy_bytes += (2 * len(fresh) * leaf.shape[0] * leaf.shape[2] * leaf.shape[3]
-                                * leaf.shape[4] * leaf.element_size())
-    state.pages = VirtualKV(fresh)
+    seed = list(state.paged_seed or [])
+    fresh = self._pool_alloc(ctx, pool, pool.pages_for(state.pos) - len(seed))
+    if fresh:
+      commit_pages(pool.arena, state.cache, fresh, start_page=len(seed))
+      for leaf in pool.arena.values():  # [L, P, page, ...]: K/V, an int8 arena's scales
+        self._commit_copy_bytes += len(fresh) * leaf[:, 0].numel() * leaf.element_size()
+    state.pages = VirtualKV(seed + fresh)
+    state.paged_seed = None
     state.cache = None
+
+  def _get_or_create_paged_state(self, ctx: _ShardContext, request_id: str) -> _RequestState:
+    """The page-backed twin of _get_or_create_state: the state never owns a contiguous
+    buffer (cache None, no pages yet)."""
+    state = ctx.states.get(request_id)
+    if state is None:
+      self._check_not_lost(request_id)
+      state = self._admit(ctx, request_id, _RequestState(cache=None, pos=0,
+                                                         last_used=time.monotonic(),
+                                                         pages=VirtualKV()))
+    ctx.states.move_to_end(request_id)
+    return state
 
   def _prep_state_paged(self, ctx: _ShardContext, request_id: str, bucket: int) -> _RequestState:
     """Page-backed twin of _prep_state: capacity for `bucket` more tokens is pages.
@@ -1083,12 +1400,7 @@ class TorchShardInferenceEngine(InferenceEngine):
     owns (_advance trims them afterwards). Pool exhaustion raises CacheExhausted
     before any device work, for this request only."""
     pool = self._ensure_page_pool(ctx)
-    state = ctx.states.get(request_id)
-    if state is None:
-      state = self._admit(ctx, request_id, _RequestState(cache=None, pos=0,
-                                                         last_used=time.monotonic(),
-                                                         pages=VirtualKV()))
-    ctx.states.move_to_end(request_id)
+    state = self._get_or_create_paged_state(ctx, request_id)
     needed = state.pos + bucket
     if needed > ctx.max_cache_len:
       raise CacheExhausted(
@@ -1096,7 +1408,7 @@ class TorchShardInferenceEngine(InferenceEngine):
         f"exceed max cache length {ctx.max_cache_len}")
     need_pages = pool.pages_for(needed)
     if need_pages > len(state.pages):
-      state.pages.extend(self._pool_alloc(pool, need_pages - len(state.pages)))
+      state.pages.extend(self._pool_alloc(ctx, pool, need_pages - len(state.pages)))
     return state
 
   def _paged_table_for(self, ctx: _ShardContext, state: _RequestState) -> torch.Tensor:
@@ -1139,7 +1451,7 @@ class TorchShardInferenceEngine(InferenceEngine):
         self._commit_state_to_pages(ctx, state)
       need = pool.pages_for(state.pos + num_tokens)
       if need > len(state.pages):
-        state.pages.extend(self._pool_alloc(pool, need - len(state.pages)))
+        state.pages.extend(self._pool_alloc(ctx, pool, need - len(state.pages)))
     B = len(states)
     maxp = _bucket(max(len(s.pages) for s in states), 1)
     table = torch.as_tensor(vkv.resolve_page_table([s.pages for s in states], maxp),
@@ -1167,10 +1479,18 @@ class TorchShardInferenceEngine(InferenceEngine):
     return [host[i] for i in range(B)]
 
   def _release_state_pages(self, ctx: _ShardContext, state: _RequestState) -> None:
-    """Return a finished or evicted request's page references to the pool."""
-    if ctx.page_pool is not None and state.pages is not None:
-      ctx.page_pool.decref(state.pages.live())
+    """Return a finished or evicted request's page references to the pool: its table
+    and any prefix pages it was seeded from and has not committed yet. Pages shared
+    with the prefix cache or other requests live on through their own references."""
+    pool = ctx.page_pool
+    if pool is None:
+      return
+    if state.pages is not None:
+      pool.decref(state.pages.live())
       state.pages = None
+    if state.paged_seed:
+      pool.decref(state.paged_seed)
+      state.paged_seed = None
 
   def _vkv_window_release(self, ctx: _ShardContext, state: _RequestState) -> None:
     """Sliding-window page reclamation: once every layer of the shard is windowed
@@ -1189,8 +1509,9 @@ class TorchShardInferenceEngine(InferenceEngine):
   def _defrag_sync(self, ctx: _ShardContext) -> int:
     """One bounded compaction pass (batcher-idle slots, on the executor): copy the
     highest used pages into the lowest free holes, then rewrite only the virtual
-    maps. Tables are resolved afresh at every dispatch, so no request sees the move.
-    Returns the pages moved."""
+    maps (request tables, uncommitted prefix seeds, prefix entries). Tables are
+    resolved afresh at every dispatch, so no request sees the move. Returns the pages
+    moved."""
     pool = ctx.page_pool
     plan = pool.defrag_plan(max(1, knobs.get_int("XOT_KV_DEFRAG_MAX_MOVES")))
     if not plan:
@@ -1200,6 +1521,11 @@ class TorchShardInferenceEngine(InferenceEngine):
     for st in ctx.states.values():
       if st.pages is not None:
         st.pages.remap(mapping)
+      if st.paged_seed:
+        st.paged_seed = vkv.remap_ids(st.paged_seed, mapping)
+    for _, entry in ctx.prefix_cache.values():
+      if "pages" in entry:
+        entry["pages"] = vkv.remap_ids(entry["pages"], mapping)
     pool.apply_moves(plan)
     self.defrag_moves += len(plan)
     if self.flight is not None:
@@ -1215,6 +1541,319 @@ class TorchShardInferenceEngine(InferenceEngine):
             "peak_pages_in_use": pool.peak_pages_in_use,
             "fragmentation": pool.fragmentation(), "defrag_moves": self.defrag_moves}
 
+  # ------------------------------------------------------------ prefix cache
+
+  @staticmethod
+  def _best_hbm_prefix(ctx: _ShardContext, toks: np.ndarray,
+                       limit: int) -> Tuple[Optional[int], int]:
+    """(key, common length) of the device prefix entry with the longest common token
+    prefix with `toks` (capped at `limit`): the one scan of _prefix_reuse (the entry to
+    seed from) and _host_promote (a host entry must beat every device one)."""
+    best_key, best_len = None, 0
+    for key, (ptoks, _) in ctx.prefix_cache.items():
+      common = common_prefix_len(ptoks, toks, limit)
+      if common > best_len:
+        best_key, best_len = key, common
+    return best_key, best_len
+
+  def _prefix_reuse(self, ctx: _ShardContext, request_id: str, tokens_2d: np.ndarray,
+                    paged_native: bool = False) -> int:
+    """Seed a fresh request from the entry with the longest common token prefix
+    (causality: positions below it are valid whatever follows). The host tier is
+    consulted first, so a spilled prefix is back on the device before the scan. Returns
+    the positions consumed (0: no hit). A paged entry is taken in whole pages: with
+    paged-native prefill the matched pages become the request's table head in place
+    (one more reference each; nothing is copied); otherwise they are gathered into
+    its contiguous prefill buffer and held (`paged_seed`) for its commit. A contiguous
+    snapshot is copied into the request's fresh cache."""
+    if self._prefix_cache_max <= 0:
+      return 0
+    toks = np.asarray(tokens_2d).reshape(-1).astype(np.int64)
+    self._host_promote(ctx, toks, request_id=request_id)
+    if not ctx.prefix_cache:
+      return 0
+    limit = toks.shape[0] - 1  # at least one token must still be forwarded
+    best_key, best_len = self._best_hbm_prefix(ctx, toks, limit)
+    if best_key is None or best_len < self._prefix_cache_min:
+      return 0
+    _, entry = ctx.prefix_cache[best_key]
+    ctx.prefix_cache.move_to_end(best_key)
+    if "pages" in entry:
+      pool = ctx.page_pool
+      page = pool.page_size
+      # Whole pages only: the suffix and later appends then write past the shared ones.
+      consumed = (min(best_len, entry["len"]) // page) * page
+      if consumed < self._prefix_cache_min:
+        return 0
+      ids = list(entry["pages"][:consumed // page])
+      if paged_native:
+        state = self._get_or_create_paged_state(ctx, request_id)
+        pool.incref(ids)
+        state.pages = VirtualKV(ids)
+      else:
+        state = self._get_or_create_state(ctx, request_id, min_len=toks.shape[0])
+        gathered = gather_pages(pool.arena, ids)
+        for name, buf in state.cache.items():
+          buf[:, :, :consumed].copy_(gathered[name][:, :, :consumed])
+        pool.incref(ids)
+        state.paged_seed = ids
+    else:
+      consumed = best_len
+      state = self._get_or_create_state(ctx, request_id, min_len=toks.shape[0])
+      for name, buf in state.cache.items():
+        buf[:, :, :consumed].copy_(entry[name][:, :, :consumed])
+    state.pos = consumed
+    self._prefix_hits += 1
+    self._prefix_tokens_saved += consumed
+    if DEBUG >= 2:
+      print(f"[{request_id}] prefix cache hit: {consumed} tokens reused")
+    return consumed
+
+  def _prefix_store(self, ctx: _ShardContext, request_id: str, tokens_2d: np.ndarray) -> None:
+    """Keep a finished prefill's KV for later prompts sharing its head. Under
+    XOT_PAGED_KV the entry holds one more reference to each of the prompt's whole
+    pages (a contiguous request is committed to pages first): one arena copy of a hot
+    prompt however many requests and entries hold it. A windowed request whose window
+    has released head pages stores nothing. Otherwise the entry is a clone of the
+    cache's first T positions: a slice is a view, and decode and the slab copy-back
+    write the live cache in place. Past XOT_PREFIX_CACHE entries the oldest is spilled
+    and dropped."""
+    if self._prefix_cache_max <= 0:
+      return
+    toks = np.asarray(tokens_2d).reshape(-1).astype(np.int64)
+    T = toks.shape[0]
+    if T < self._prefix_cache_min:
+      return
+    state = ctx.states.get(request_id)
+    if state is None or state.pos < T:
+      return
+    key = hash(toks.tobytes())
+    if key in ctx.prefix_cache:
+      ctx.prefix_cache.move_to_end(key)
+      return
+    if self.paged:
+      try:
+        pool = self._ensure_page_pool(ctx)
+        if state.pages is None:
+          self._commit_state_to_pages(ctx, state)
+      except CacheExhausted:
+        # Caching is best effort: a full pool must never fail a finished prefill (the
+        # decode path commits again and reports capacity where it must).
+        return
+      n_full = T // pool.page_size
+      ids = state.pages.prefix_ids(n_full) if n_full > 0 else None
+      if ids is None:
+        return
+      pool.incref(ids)
+      ctx.prefix_cache[key] = (toks, {"pages": ids, "len": n_full * pool.page_size})
+    else:
+      ctx.prefix_cache[key] = (toks, {name: buf[:, :, :T].clone()
+                                      for name, buf in state.cache.items()})
+    while len(ctx.prefix_cache) > self._prefix_cache_max:
+      self._evict_oldest_prefix(ctx)
+
+  def _evict_oldest_prefix(self, ctx: _ShardContext) -> bool:
+    """Spill the least recently used prefix entry to the host tier, then release it.
+    True when it held pool pages (whose release may have freed some)."""
+    _, (etoks, entry) = ctx.prefix_cache.popitem(last=False)
+    self._spill_prefix_entry(ctx, etoks, entry)
+    self._prefix_evictions += 1
+    if "pages" in entry and ctx.page_pool is not None:
+      ctx.page_pool.decref(entry["pages"])
+      return True
+    return False
+
+  def _clear_prefix_cache(self, ctx: _ShardContext) -> None:
+    """Drop every prefix entry, paged ones' page references too, and the host tier's
+    entries of this context, unspilled: a caller clears because the entries are no
+    longer valid (new weights)."""
+    pool = ctx.page_pool
+    for _, entry in ctx.prefix_cache.values():
+      if pool is not None and "pages" in entry:
+        pool.decref(entry["pages"])
+    ctx.prefix_cache.clear()
+    if self._host_kv is not None:
+      self._host_kv.drop_ctx(ctx.shard)
+
+  # ------------------------------------------------------------ host KV tier
+  #
+  # A second KV tier under the prefix cache (kv_offload.HostKVStore, bounded by
+  # XOT_KV_HOST_BYTES, LRU). Every prefix eviction (the LRU bound, pool-pressure
+  # reclaim, OOM recovery) copies the entry to the host first; _prefix_reuse consults
+  # the tier whenever the device cache misses or matches shorter, and a host hit
+  # re-creates the device entry (fresh pool pages, or a fresh snapshot) so that the
+  # request then takes the native warm path. Any validation or capacity failure on
+  # restore falls back to a cold prefill: never a wrong token, never a client error.
+
+  def _host_kv_store(self) -> Optional[HostKVStore]:
+    """The engine's host tier, made at its first use, or None when
+    XOT_KV_HOST_BYTES is 0."""
+    if self._host_kv_max_bytes <= 0:
+      return None
+    if self._host_kv is None:
+      self._host_kv = HostKVStore(self._host_kv_max_bytes)
+      self._host_kv.observer = self._host_evict_event
+    return self._host_kv
+
+  def _host_evict_event(self, entries: int, nbytes: int) -> None:
+    """The tier's budget evictions, as `host.evict` flight events."""
+    if self.flight is not None:
+      self.flight.record("host.evict", None, entries=entries, bytes=nbytes)
+
+  def host_kv_stats(self) -> Optional[Dict[str, int]]:
+    """The host tier's occupancy for /metrics and /v1/perf, and the restores that fell
+    back to a cold prefill; None while the tier does not exist."""
+    store = self._host_kv
+    if store is None:
+      return None
+    return {"bytes": store.total_bytes, "entries": len(store),
+            "restore_fallbacks": self._host_restore_fallbacks}
+
+  def _cache_leaf_names(self) -> set:
+    """The leaves a restored entry must carry for the current cache config: K and V,
+    and their scales under an int8 KV cache."""
+    names = {"k", "v"}
+    if self.kv_quant is not None:
+      names |= {"k_scale", "v_scale"}
+    return names
+
+  def _leaf_dtype(self, name: str) -> torch.dtype:
+    return torch.int8 if self.kv_quant is not None and name in ("k", "v") else self.dtype
+
+  def _spill_prefix_entry(self, ctx: _ShardContext, toks, entry: dict) -> bool:
+    """Copy one evicted prefix entry to the host tier, best effort (it runs inside
+    eviction and OOM recovery: a failed spill only means the entry dies). A paged
+    entry's pages are gathered into the canonical contiguous layout first."""
+    store = self._host_kv_store()
+    if store is None:
+      return False
+    try:
+      t0 = time.monotonic()
+      toks = np.asarray(toks).reshape(-1).astype(np.int64)
+      if "pages" in entry:
+        if ctx.page_pool is None:
+          return False
+        gathered = gather_pages(ctx.page_pool.arena, entry["pages"])
+        data = {name: to_host(buf) for name, buf in gathered.items()}
+        length = int(entry["len"])
+      else:
+        data = {name: to_host(buf) for name, buf in entry.items()}
+        length = int(data["k"].shape[2])
+      n = store.put(ctx.shard, toks, data, length)
+      if n > 0:
+        self._host_spill_bytes += n
+        if self.flight is not None:
+          self.flight.record("host.spill", None, tokens=length, bytes=n,
+                             secs=round(time.monotonic() - t0, 4))
+      return n > 0
+    except Exception as e:
+      if DEBUG >= 1:
+        print(f"host KV spill failed (entry dropped): {e!r}")
+      return False
+
+  def _host_promote(self, ctx: _ShardContext, toks: np.ndarray,
+                    request_id: Optional[str] = None) -> None:
+    """If the host tier holds a usable prefix of `toks` longer than any device entry,
+    copy it back and re-create the device entry: fresh pool pages under XOT_PAGED_KV
+    (whole pages), else a snapshot cut to the tokens the entry covers (a paged spill
+    keeps the whole prompt's tokens but only its whole pages' KV). A torn entry, or one
+    spilled under another cache config, is dropped; a restore that races pool pressure
+    leaves the entry for later. Either way the request prefills cold
+    (`_host_restore_fallbacks` counts it). Runs on the executor, on the prefill lane
+    when co-scheduled."""
+    store = self._host_kv_store()
+    limit = toks.shape[0] - 1
+    if store is None or limit <= 0 or len(store) == 0:
+      return
+    _, hbm_best = self._best_hbm_prefix(ctx, toks, limit)
+    entry, common = store.match(ctx.shard, toks, limit)
+    if entry is None:
+      return
+    t0 = time.monotonic()
+    usable = min(common, entry.length)
+    cfg = ctx.cfg
+    try:
+      leaf = entry.data.get("k")
+      if (set(entry.data) != self._cache_leaf_names() or leaf is None or leaf.ndim != 5
+          or leaf.shape[0] != ctx.shard.get_layer_count()
+          or leaf.shape[3:] != (cfg.num_kv_heads, cfg.head_dim)
+          or any(a.shape[2] < entry.length for a in entry.data.values())):
+        # Torn, or spilled under another cache config: unusable here, and keeping it
+        # would shadow fresher entries.
+        store.drop(ctx.shard, entry.toks)
+        self._host_restore_fallbacks += 1
+        return
+      if self.paged:
+        pool = self._ensure_page_pool(ctx)
+        page = pool.page_size
+        if (usable // page) * page <= max(hbm_best, self._prefix_cache_min - 1):
+          return  # the scan would not take what a restore brought back
+        n_full = entry.length // page
+        if n_full <= 0:
+          return
+        ids = self._pool_alloc(ctx, pool, n_full)
+        try:
+          scatter_pages(pool.arena, entry.data, ids)
+        except Exception:
+          pool.decref(ids)
+          raise
+        restored = (entry.toks, {"pages": ids, "len": n_full * page})
+      else:
+        if usable <= max(hbm_best, self._prefix_cache_min - 1):
+          return
+        restored = (np.ascontiguousarray(entry.toks[:entry.length]),
+                    {name: from_host(arr[:, :, :entry.length], self._leaf_dtype(name),
+                                     self.device)
+                     for name, arr in entry.data.items()})
+    except CacheExhausted:
+      # Live requests hold every page: the entry waits in the tier for a calmer moment.
+      self._host_restore_fallbacks += 1
+      return
+    except Exception as e:
+      if DEBUG >= 1:
+        print(f"host KV restore failed (entry dropped, cold prefill): {e!r}")
+      store.drop(ctx.shard, entry.toks)
+      self._host_restore_fallbacks += 1
+      return
+    key = hash(np.ascontiguousarray(restored[0]).tobytes())
+    old = ctx.prefix_cache.pop(key, None)
+    if old is not None and "pages" in old[1] and ctx.page_pool is not None:
+      ctx.page_pool.decref(old[1]["pages"])
+    ctx.prefix_cache[key] = restored
+    while len(ctx.prefix_cache) > self._prefix_cache_max:
+      self._evict_oldest_prefix(ctx)
+    self._host_kv_hits += 1
+    self._host_fetch_bytes += entry.nbytes
+    if self.flight is not None:
+      self.flight.record("host.restore", None, tokens=entry.length, bytes=entry.nbytes,
+                         source=entry.source, secs=round(time.monotonic() - t0, 4))
+    if DEBUG >= 2:
+      print(f"[{request_id}] host KV tier hit: {entry.length}-token prefix restored "
+            f"({entry.nbytes} bytes)")
+
+  async def prefetch_host_prefix(self, shard: Shard, prompt: str) -> bool:
+    """Restore a queued prompt's spilled prefix from the host tier before the request
+    is admitted, so that it then takes the native warm path. Best effort: the loaded
+    context only (a prefetch never loads a model), through the batcher's prefill lane
+    when one exists (decode first). True when bytes were restored."""
+    store = self._host_kv
+    ctx = self._ctx
+    if store is None or len(store) == 0 or ctx is None or ctx.shard != shard:
+      return False
+    try:
+      toks = np.asarray(ctx.tokenizer.encode(prompt), dtype=np.int64).reshape(-1)
+    except Exception:
+      return False  # the request itself will report an unusable tokenizer
+    if toks.shape[0] < 2:
+      return False
+    fetched_before = self._host_fetch_bytes
+    promote = partial(self._host_promote, ctx, toks)
+    if ctx.batcher is not None:
+      await ctx.batcher.submit_prefill(promote)
+    else:
+      await self._run(promote)
+    return self._host_fetch_bytes > fetched_before
+
   # ------------------------------------------------------------ KV state
 
   async def clear_request(self, request_id: str) -> None:
@@ -1227,6 +1866,12 @@ class TorchShardInferenceEngine(InferenceEngine):
     state = ctx.states.pop(request_id, None)
     if state is not None:
       self._release_state_pages(ctx, state)
+
+  def _check_not_lost(self, request_id: str) -> None:
+    """A request whose state OOM recovery dropped fails loudly on its next touch
+    rather than starting over from an empty cache."""
+    if request_id in self._states_lost_to_oom:
+      raise RequestStateLost(f"request {request_id}: device state dropped by OOM recovery")
 
   def _admit(self, ctx: _ShardContext, request_id: str, state: _RequestState) -> _RequestState:
     """Make `state` resident, evicting the least recently used states past
@@ -1275,6 +1920,7 @@ class TorchShardInferenceEngine(InferenceEngine):
   def _get_or_create_state(self, ctx: _ShardContext, request_id: str, min_len: int = 0) -> _RequestState:
     state = ctx.states.get(request_id)
     if state is None:
+      self._check_not_lost(request_id)
       length = ctx.cache_len
       while length < min_len and length < ctx.max_cache_len:
         length *= 2

@@ -1,8 +1,7 @@
 """Paged KV-cache pool: one fixed arena per shard context, per-request page tables
 (XOT_PAGED_KV=1).
 
-The port of xotorch_tpu/inference/jax_engine/paged_cache.py without the host tier
-(`scatter_pages`). Arena leaves are [L, num_pages, page_size, Hkv, D] torch tensors on
+The port of xotorch_tpu/inference/jax_engine/paged_cache.py. Arena leaves are [L, num_pages, page_size, Hkv, D] torch tensors on
 the engine's device; an int8 arena (`kv_quant`) pairs int8 K/V pages with scale pages
 `k_scale`/`v_scale` [L, num_pages, page_size, Hkv] from the same allocator, so one page
 id indexes payload and scales alike and every copy below carries all four. Page 0 is a
@@ -13,6 +12,12 @@ there (their table is all zeros).
 Allocation metadata (free list, refcounts) is host-side numpy: page churn follows
 the request rate, not the token rate. Where JAX donated the arena to each program
 and got a new one back, the port updates the one arena IN PLACE.
+
+The host KV tier (kv_offload.HostKVStore) holds leaves as numpy in the canonical
+contiguous layout: `to_host` copies a device leaf out (bf16, which numpy lacks, as its
+raw 16-bit words), `from_host` copies one back in through pinned staging, and
+`scatter_pages` restores an entry straight into freshly allocated pages, the inverse
+of a spill's `gather_pages`.
 """
 from __future__ import annotations
 
@@ -193,4 +198,56 @@ def migrate_pages(arena: Dict[str, torch.Tensor], src_ids, dst_ids) -> Dict[str,
   dst = _ids(dst_ids, arena["k"].device)
   for buf in arena.values():
     buf[:, dst] = buf[:, src]  # advanced indexing gathers a copy before the write
+  return arena
+
+
+def to_host(t: torch.Tensor) -> np.ndarray:
+  """A leaf as a host numpy array: a bf16 leaf as its raw 16-bit words (uint16). From the
+  card the copy lands in pinned memory (a pageable copy runs at a fraction of the
+  link's rate), which the array keeps, so that a restore from it needs no staging."""
+  t = t.detach()
+  bf16 = t.dtype == torch.bfloat16
+  if bf16:
+    t = t.view(torch.int16)
+  if t.is_cuda:
+    host = torch.empty(t.shape, dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    torch.cuda.current_stream(t.device).synchronize()
+  else:
+    host = t.cpu()
+  arr = host.numpy()
+  return arr.view(np.uint16) if bf16 else arr
+
+
+def from_host(arr: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
+  """A host leaf (as `to_host` made it) as a tensor of `dtype` on `device`. On the card
+  the copy goes through pinned staging (none when the array already lies in pinned
+  memory), asynchronously on the current stream; raw 16-bit words are bf16 again, then
+  any mismatch of dtypes is converted."""
+  arr = np.ascontiguousarray(arr)
+  if arr.dtype == np.uint16:
+    src = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
+  else:
+    src = torch.from_numpy(arr)
+  device = torch.device(device)
+  if device.type == "cuda":
+    src = src.pin_memory().to(device, non_blocking=True)
+  return src.to(device=device, dtype=dtype)
+
+
+def scatter_pages(arena: Dict[str, torch.Tensor], host_kv: Dict[str, np.ndarray],
+                  page_ids) -> Dict[str, torch.Tensor]:
+  """Restore host-tier KV (the canonical layout: [L, 1, n*page, ...] numpy per leaf)
+  into the arena at freshly allocated `page_ids`, in place: the host-to-device inverse
+  of a spill's gather. The reshape to page granularity is host-side; each leaf is one
+  staged copy and one indexed write. Returns the arena."""
+  n = len(page_ids)
+  if n == 0:
+    return arena
+  page = arena["k"].shape[2]
+  ids = _ids(page_ids, arena["k"].device)
+  for name, buf in arena.items():
+    a = np.asarray(host_kv[name])[:, 0, :n * page]  # [L, n*page, ...]
+    rows = from_host(a.reshape(a.shape[0], n, page, *a.shape[2:]), buf.dtype, buf.device)
+    buf[:, ids] = rows
   return arena

@@ -197,9 +197,11 @@ class GraphCache:
       self._stream = torch.cuda.Stream(self.device)
     caller = torch.cuda.current_stream(self.device)
     self._stream.wait_stream(caller)
-    with torch.cuda.stream(self._stream):
-      yield
-    caller.wait_stream(self._stream)
+    try:
+      with torch.cuda.stream(self._stream):
+        yield
+    finally:  # a failed capture or replay too: the caller's next work waits for it
+      caller.wait_stream(self._stream)
 
   def slab_views(self, leaves: Dict[str, Tuple[Tuple[int, ...], torch.dtype]]) -> Cache:
     """Contiguous views over the slab's prefix, one for each leaf (shape, dtype). A
@@ -290,6 +292,15 @@ class GraphCache:
     for (fn, attr), n in prog.deltas.items():
       setattr(fn, attr, getattr(fn, attr) + n)
     self.replays += 1
+
+  def clear(self) -> None:
+    """Drop every program with its graph and the slab (the engine's OOM recovery: the
+    port's counterpart of `jax.clear_caches()`). Their memory goes back to the
+    allocator; the next use of a key captures it again, into a new pool."""
+    for key in list(self.programs):
+      self._drop(key)
+    self.slab = None
+    self._pool = None
 
   def _drop(self, key: tuple) -> None:
     prog = self.programs.pop(key)

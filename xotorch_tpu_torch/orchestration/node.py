@@ -144,6 +144,10 @@ class Node:
     # Bounded admission (XOT_MAX_INFLIGHT, 0 = off): the API takes a slot before
     # process_prompt and sheds overload as 429s.
     self.admission = AdmissionGate(self)
+    # Prefetches of queued prompts (bounded LRU of (shard, prompt hash) -> monotonic
+    # time): /v1/prefetch and the admission gate's on_queued hook fire for the same
+    # queued request, and one restore a prompt per window is all the host tier can use.
+    self._prefetch_recent: "OrderedDict[tuple, float]" = OrderedDict()
     # Latency anatomy: clock skew from hop stamps, spans stamped through the same clock,
     # and the origin's reservoir of stage breakdowns (/v1/anatomy).
     self.clock = ClockSkew(self.id)
@@ -1026,6 +1030,32 @@ class Node:
     if self.history.enabled:
       summary["history"] = self.history.compact()
     return summary
+
+  async def prefetch_prompt(self, base_shard: Shard, prompt: str) -> bool:
+    """Start the engine's host-to-device prefix restore for a prompt that is still
+    queued (at the admission gate, or announced by /v1/prefetch), so that by admission
+    its warm prefix is resident and it prefills only the rest. Best effort and free of
+    side effects on a miss: an engine without the hook or without a host tier reports
+    False. A prompt prefetched within the last 30 s is not prefetched again."""
+    hook = getattr(self.inference_engine, "prefetch_host_prefix", None)
+    if hook is None:
+      return False
+    try:
+      shard = self.get_current_shard(base_shard)
+      key = (shard, hash(prompt))
+      now = time.monotonic()
+      last = self._prefetch_recent.get(key)
+      if last is not None and now - last < 30.0:
+        return False
+      self._prefetch_recent[key] = now
+      self._prefetch_recent.move_to_end(key)
+      while len(self._prefetch_recent) > 128:
+        self._prefetch_recent.popitem(last=False)
+      return bool(await hook(shard, prompt))
+    except Exception as e:
+      if DEBUG >= 1:
+        print(f"anticipatory prefix prefetch failed (cold prefill instead): {e!r}")
+      return False
 
   def ingest_peer_metrics(self, node_id: str, summary: dict) -> None:
     self.peer_metrics[node_id] = summary

@@ -47,6 +47,11 @@ _DEFS: Tuple[Knob, ...] = (
   Knob("XOT_RAGGED_PREFILL", "bool", "1", "Paged T>1 segments read pages natively through K4 (K4q). Reserved: `0` (the JAX package's gathered view) is not ported and the engine raises."),
   Knob("XOT_KV_DEFRAG", "bool", "1", "Page-pool defragmentation in batcher-idle slots: migrate high pages into low free holes and rewrite only the virtual maps."),
   Knob("XOT_KV_DEFRAG_MAX_MOVES", "int", "8", "Max page migrations per idle defrag pass."),
+  Knob("XOT_PREFILL_COSCHED", "bool", "1", "Co-schedule chunked prefill slices through the decode batcher's drain cycle."),
+  Knob("XOT_PREFILL_CHUNK_BUDGET", "int", "1", "Prefill segments admitted per decode drain cycle under co-scheduling."),
+  Knob("XOT_KV_HOST_BYTES", "int", "268435456", "Host-RAM budget (bytes) for the spilled warm-prefix KV tier; 0 disables."),
+  Knob("XOT_PREFIX_CACHE", "int", "2", "Prefix-cache entries kept per context (LRU); 0 disables prefix caching."),
+  Knob("XOT_PREFIX_CACHE_MIN", "int", "32", "Minimum matched prefix length (tokens) worth reusing from the cache."),
   Knob("XOT_QUANTIZE", "str", None, "Weight quantization mode (`int8` or `int4`); unset serves full precision."),
   Knob("XOT_KV_QUANT", "str", None, "KV-cache quantization mode (`int8`); unset keeps KV in compute dtype."),
   Knob("XOT_INT4_KERNEL", "str", "1", "int4 decode GEMV kernel (K5/K5v4): always taken on the card; `force` takes its function on the CPU too (plain version); `0` is reserved for a tensor-parallel mesh (not ported) and acts as `1`."),
