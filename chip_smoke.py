@@ -172,7 +172,21 @@ Phases, in order; any failure exits nonzero and prints no result line:
      and the next request restores; a real torch.OutOfMemoryError under
      set_per_process_memory_fraction is answered 400 context_length_exceeded and the
      next request 200. K1-K4 launches held exactly to layers x (segments + steps);
-  17. the {"kernels": [...]} line (attention launches include phases 12's, 14's, 15's
+  17. survivability (check_survivability): phase 11's two peers as child processes
+     (synthetic-llama-1b at full width and depth, bf16, contiguous KV, XOT_PREFILL_CHUNK
+     1024) with a 2 s stall watchdog, health checks every 0.5 s evicting after 2
+     failures, one restart and one hop retry (SURVIVAL_ENV). Faults go in through POST
+     /v1/debug/faults on the peer whose handle sends the hop. An error and a lost ack on
+     SendTensor are invisible: the main path's first request streams phase 5's tokens,
+     with a retry and exactly one dedup drop on the sampler's /metrics; a sunk SendTensor
+     in mid-decode is aborted by the stall watchdog once (a watchdog.fired of kind stall)
+     and restarted on the same ring (restarts 1, no eviction) to phase 5's tokens; a
+     SIGKILL of layer 0's owner after eight tokens is detected, the peer evicted, the
+     ring healed to the sampler alone over every layer (/v1/topology), and the restarted
+     answer and a further one are phase 5's tokens; the seconds from the sink to its
+     answer, from the kill to detection, to eviction and to the answer (shard load and
+     serving); the survivor exits 0 on SIGTERM, the killed child -9, none left;
+  18. the {"kernels": [...]} line (attention launches include phases 12's, 14's, 15's
      and 16's), then the {"ok": true, ...} line last.
 """
 from __future__ import annotations
@@ -2134,6 +2148,75 @@ async def ring_observability(nodes: dict, engines: dict, base: str, rids: list, 
   return split
 
 
+def survival_switch(nodes: dict, on: bool) -> None:
+  """The survivability knobs of live ring nodes on (the defaults the nodes were built
+  with) or off (XOT_HOP_RETRIES, XOT_STALL_TIMEOUT_S and XOT_HEALTH_INTERVAL_S 0: no hop
+  sequence ids or retries, no watchdog or health loop). The taps (one environment read a
+  hop, one progress stamp a chunk) run either way."""
+  from xotorch_tpu_torch.utils import knobs
+  if on:
+    os.environ.pop("XOT_HOP_RETRIES", None)
+  else:
+    os.environ["XOT_HOP_RETRIES"] = "0"
+  for node in nodes.values():
+    node.stall_timeout_s = knobs.get_float("XOT_STALL_TIMEOUT_S") if on else 0.0
+    node.health_interval_s = knobs.get_float("XOT_HEALTH_INTERVAL_S") if on else 0.0
+    for attr in ("_watchdog_task", "_health_task"):
+      task = getattr(node, attr)
+      if task is not None and not on:
+        task.cancel()
+        setattr(node, attr, None)
+    if on:
+      node.start_watchdog()
+      node.start_health_monitor()
+
+
+async def survival_taps(nodes: dict, serve, base, model: str, tag: str, card: str,
+                        rounds: int = 4, calls: int = 20000) -> dict:
+  """The idle-path cost of survivability on phase 10's ring: the host time of one hop's
+  tap (faults.apply with no injector, and the sequence id hop_seq takes with retries on)
+  and of one progress stamp (Node._note_progress), each over `calls` calls; then TPOT of
+  the main path's first request with the knobs on and off (survival_switch), `rounds`
+  rounds in turn."""
+  from xotorch_tpu_torch.api.chatgpt_api import build_prompt
+  from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer
+  from xotorch_tpu_torch.networking import faults
+  node = nodes[RING_IDS[0]]
+  t0 = time.perf_counter()
+  for _ in range(calls):
+    await faults.apply("SendTensor", RING_IDS[1])
+  tap_us = (time.perf_counter() - t0) / calls * 1e6
+  t0 = time.perf_counter()
+  for _ in range(calls):
+    faults.hop_seq()
+  seq_us = (time.perf_counter() - t0) / calls * 1e6
+  t0 = time.perf_counter()
+  for _ in range(calls):
+    node._note_progress("taps-bench")
+  stamp_us = (time.perf_counter() - t0) / calls * 1e6
+  node.finish_request_state("taps-bench")
+  label, body = main_requests(model)[0]
+  prompt = build_prompt(DummyTokenizer(), body["messages"])
+  tpot = {True: [], False: []}
+  try:
+    for r in range(rounds):
+      for on in (True, False):
+        survival_switch(nodes, on)
+        out = await serve(node, base, prompt, f"taps-{r}-{int(on)}", body)
+        n = len(out["tokens"])
+        tpot[on].append((out["last"] - out["first"]) / max(n - 1, 1) * 1e3)
+  finally:
+    survival_switch(nodes, True)
+  med = {on: sorted(v)[len(v) // 2] for on, v in tpot.items()}
+  print(f"[{tag}] survivability taps on the host: faults.apply {tap_us:.2f} us a call (no injector), "
+        f"hop_seq {seq_us:.2f} us, a progress stamp {stamp_us:.2f} us; TPOT of \"{label}\" with the "
+        f"knobs on {med[True]:.3f} ms, off {med[False]:.3f} ms (median of {rounds} rounds in turn; "
+        f"on {[round(x, 3) for x in tpot[True]]}, off {[round(x, 3) for x in tpot[False]]}) ({card})",
+        flush=True)
+  return {"tap_us": tap_us, "seq_us": seq_us, "stamp_us": stamp_us, "tpot_on_ms": med[True],
+          "tpot_off_ms": med[False]}
+
+
 def drive_ring_inprocess(torch, card: str, main_run: dict, device: str = "cuda",
                          model: str = "synthetic-llama-1b") -> dict:
   """Phase 10: two Nodes in this process, each with its own engine on `device`, built by
@@ -2247,6 +2330,9 @@ def drive_ring_inprocess(torch, card: str, main_run: dict, device: str = "cuda",
                        if m == "SendTensor")
         await ring_observability(nodes, engines, obs_base,
                                  [f"ring-inprocess-{j}" for j in range(len(runs))], steps, tag, card)
+        recorded = len(hops)
+        await survival_taps(nodes, serve, base, model, tag, card)
+        del hops[recorded:]  # the checks below read the main path's hops only
         return runs, counts, fresh, segments, steps, wire, hop_s, base.n_layers, engines[RING_IDS[0]].cfg.hidden_size
       finally:
         server.close()
@@ -4649,6 +4735,274 @@ def check_kv_reuse(torch, card: str, device: str = "cuda", model: str = "synthet
   return out
 
 
+# Phase 17's knobs: a stall watchdog of 2 s, health checks every 0.5 s evicting after 2
+# failures, one transparent restart and one hop retry (the JAX package's defaults are 30 s,
+# 5 s, 2, 0 and 2). The peers run as phase 11's do, prefix cache and co-scheduled prefill
+# off, so their streams are the main path's.
+SURVIVAL_ENV = {"XOT_STALL_TIMEOUT_S": "2", "XOT_HEALTH_INTERVAL_S": "0.5", "XOT_HEALTH_FAILS": "2",
+                "XOT_REQUEST_RESTARTS": "1", "XOT_HOP_RETRIES": "1", "XOT_PAGED_KV": "0",
+                "XOT_PREFILL_CHUNK": "1024", "XOT_PREFIX_CACHE": "0", "XOT_PREFILL_COSCHED": "0"}
+
+
+def http_delete(url: str, timeout: float = 60.0):
+  import urllib.request
+  req = urllib.request.Request(url, method="DELETE")
+  with urllib.request.urlopen(req, timeout=timeout) as resp:
+    return json.loads(resp.read())
+
+
+def prom_family(samples: dict, family: str) -> float:
+  """The sum of a Prometheus family's samples (every label set), 0 when absent."""
+  return sum(v for series, v in samples.items() if series.split("{", 1)[0] == family)
+
+
+def check_survivability(torch, card: str, main_run: dict, device: str = "cuda",
+                        model: str = "synthetic-llama-1b", timeout: float = 240.0) -> dict:
+  """Phase 17: the ring's survivability on the card. Two `python -m xotorch_tpu_torch.main`
+  peers as in phase 11 (manual discovery, --wait-for-peers 1; ring-b holds the first half
+  of the layers, ring-a the second, samples and serves the API, at DEBUG=2 so that its
+  log names every sampled token), with SURVIVAL_ENV. After a warm-up request (the peers
+  load their shards and capture their graphs; a watchdog abort there is counted, and
+  every later reading is a difference from the one before its step):
+  1. transient faults are invisible: POST /v1/debug/faults on each sending peer, an
+     `error` on ring-a's 6th SendTensor and a `lost_ack` on ring-b's 12th; the main path's
+     first request (temperature 0) streams phase 5's tokens bit for bit, and ring-a's
+     /metrics shows a retry (its error) and exactly one dedup drop (ring-b's redelivery);
+  2. a sunk hop: a `sink` of ring-a's 20th SendTensor in mid-decode of the same
+     non-streaming request; the watchdog fires once (xot_watchdog_aborts_total over both
+     peers 1, a `watchdog.fired` of kind stall in a flight ring), ring-a's restart
+     counter reads 1, no peer is evicted, and the restarted answer is phase 5's tokens;
+     the seconds from the sink (the fired event's time less its idle seconds) to the
+     answer;
+  3. a killed peer: once ring-a's log shows eight tokens of the request, SIGKILL ring-b
+     (layer 0's owner); ring-a evicts it (evictions 1), /v1/topology lists ring-a alone
+     over every layer, it loads the whole model and its restarted answer is phase 5's
+     tokens, as is a further request served alone; the seconds from the kill to
+     detection (the first watchdog.fired or request.aborted in ring-a's flight ring),
+     from detection to the eviction, and from the eviction to the answer, split into the
+     shard load (the engine's DEBUG log) and the rest.
+  ring-a is stopped with SIGTERM and must exit 0; ring-b's exit code is -9; no child is
+  left. (`device` and `model` let the phase be rehearsed on the CPU with a small card.)"""
+  import concurrent.futures
+  import re
+  import signal
+  import tempfile
+  from xotorch_tpu_torch.models.registry import get_model_card
+  from xotorch_tpu_torch.topology.device_capabilities import device_capabilities_sync
+  from xotorch_tpu_torch.utils.helpers import find_available_port
+
+  tag = "survivability"
+  t_phase = time.perf_counter()
+  label, body = main_requests(model)[0]
+  body = {**body, "stream": False}
+  want = main_run["tokens"][0]
+  layers = get_model_card(model)["layers"]
+  first, sampler = RING_IDS  # ring-b holds layer 0; ring-a samples and serves the API
+  procs, logs = {}, {}
+  out = {}
+
+  def need(ok: bool, what: str) -> None:
+    print(f"[{tag}] {what} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+      raise AssertionError(f"{tag}: {what}")
+
+  with tempfile.TemporaryDirectory() as tmp, concurrent.futures.ThreadPoolExecutor(2) as pool:
+    path = os.path.join(tmp, "ring.json")
+    node_ports = {i: find_available_port("127.0.0.1") for i in RING_IDS}
+    api_ports = {i: find_available_port("127.0.0.1") for i in RING_IDS}
+    write_ring_config(path, node_ports, device_capabilities_sync().to_dict())
+    env = {**os.environ, **SURVIVAL_ENV, "PYTHONUNBUFFERED": "1"}
+    bases = {i: f"http://127.0.0.1:{api_ports[i]}" for i in RING_IDS}
+
+    def log_text(i: str) -> str:
+      with open(logs[i]) as f:
+        return f.read()
+
+    def tokens_of(rid: str, text: Optional[str] = None) -> list:
+      found = re.findall(rf"^\[{re.escape(rid)}\] token (\d+) \(\d+ so far\)$",
+                         text if text is not None else log_text(sampler), re.M)
+      return [int(t) for t in found]
+
+    def counters() -> dict:
+      """The survivability families of both peers' /metrics (a dead peer's as 0)."""
+      rows = {}
+      for i in RING_IDS:
+        try:
+          samples = prom_samples(http_text(bases[i] + "/metrics", timeout=10))
+        except OSError:
+          samples = {}
+        for fam in ("xot_hop_retries_total", "xot_dedup_drops_total", "xot_watchdog_aborts_total",
+                    "xot_peer_evictions_total", "xot_request_restarts_total"):
+          rows[(i, fam)] = prom_family(samples, fam)
+      return rows
+
+    def moved(before: dict, after: dict, i: str, fam: str) -> float:
+      return after[(i, fam)] - before[(i, fam)]
+
+    def ask() -> tuple:
+      """The request to ring-a's API: (tokens its log names, the answer, wall time at
+      the answer)."""
+      resp = http_json(bases[sampler] + "/v1/chat/completions", body, timeout=600)
+      done = time.time()
+      return tokens_of(resp["id"][len("chatcmpl-"):]), resp, done
+
+    def flight(i: str) -> list:
+      return http_json(bases[i] + "/v1/debug/flight?live=all", timeout=30)["events"]
+
+    try:
+      t0 = time.perf_counter()
+      for i in RING_IDS:
+        logs[i] = os.path.join(tmp, f"{i}.log")
+        cmd = [sys.executable, "-m", "xotorch_tpu_torch.main", "--device", device,
+               "--default-model", model, "--node-id", i, "--node-host", "127.0.0.1",
+               "--node-port", str(node_ports[i]), "--chatgpt-api-host", "127.0.0.1",
+               "--chatgpt-api-port", str(api_ports[i]), "--chatgpt-api-response-timeout", "600",
+               "--discovery-module", "manual", "--discovery-config-path", path,
+               "--wait-for-peers", "1"]
+        with open(logs[i], "w") as log:
+          procs[i] = subprocess.Popen(cmd, cwd=ROOT, env={**env, "DEBUG": "2" if i == sampler else "1"},
+                                      stdout=log, stderr=subprocess.STDOUT)
+      pending = set(RING_IDS)
+      while pending:
+        for i in sorted(pending):
+          if procs[i].poll() is not None:
+            raise AssertionError(f"{tag}: {i} exited {procs[i].returncode} while starting\n"
+                                 f"{log_text(i)[-3000:]}")
+          try:
+            if http_json(bases[i] + "/healthcheck", timeout=5).get("status") == "ok":
+              pending.discard(i)
+          except OSError:
+            pass
+        if time.perf_counter() - t0 > timeout:
+          raise AssertionError(f"{tag}: {sorted(pending)} not serving after {timeout:.0f} s")
+        time.sleep(0.25)
+      print(f"[{tag}] both peers serving in {time.perf_counter() - t0:.1f} s ({SURVIVAL_ENV})",
+            flush=True)
+      c0 = counters()
+      t1 = time.perf_counter()
+      # Not a check: the peers load their shards here, and on a 2 s stall bound a cold
+      # peer's first-use costs can end an attempt and its one restart (seen on the H100).
+      for attempt in range(1, 7):
+        try:
+          warm, _, _ = ask()
+          break
+        except OSError as e:  # an HTTP error
+          if attempt == 6:
+            raise
+          print(f"[{tag}] warm-up attempt {attempt} answered {e!r}; once more", flush=True)
+      c1 = counters()
+      print(f"[{tag}] warm-up: {len(warm)} tokens in {time.perf_counter() - t1:.1f} s, watchdog aborts "
+            f"{sum(moved(c0, c1, i, 'xot_watchdog_aborts_total') for i in RING_IDS):g}, restarts "
+            f"{moved(c0, c1, sampler, 'xot_request_restarts_total'):g} (first-use loads and "
+            f"captures on a 2 s stall bound)", flush=True)
+
+      # Step 1: an error and a lost ack, each on the peer whose handle sends the hop.
+      http_json(bases[sampler] + "/v1/debug/faults",
+                {"rules": [{"rpc": "SendTensor", "nth": 6, "action": "error"}]})
+      http_json(bases[first] + "/v1/debug/faults",
+                {"rules": [{"rpc": "SendTensor", "nth": 12, "action": "lost_ack"}]})
+      got, resp, _ = ask()
+      time.sleep(0.5)  # the lost ack's redelivery lands beside the generation
+      c2 = counters()
+      for i in RING_IDS:
+        http_delete(bases[i] + "/v1/debug/faults")
+      step2_at = time.time()
+      retries = moved(c1, c2, sampler, "xot_hop_retries_total")
+      dedup = moved(c1, c2, sampler, "xot_dedup_drops_total")
+      need(got == want and retries >= 1 and dedup == 1
+           and moved(c1, c2, sampler, "xot_request_restarts_total") == 0,
+           f"step 1, an error and a lost ack: {sum(a == b for a, b in zip(got, want))}/{len(want)} "
+           f"temperature-0 tokens equal phase 5's; {sampler}'s /metrics: {retries:g} retry, "
+           f"{dedup:g} dedup drop, no restart")
+
+      # Step 2: one token hop sunk in mid-decode; the stall watchdog ends the attempt.
+      http_json(bases[sampler] + "/v1/debug/faults",
+                {"rules": [{"rpc": "SendTensor", "nth": 20, "action": "sink"}]})
+      got, resp, answered = ask()
+      c3 = counters()
+      http_delete(bases[sampler] + "/v1/debug/faults")
+      fired = [(i, e) for i in RING_IDS for e in flight(i)
+               if e["event"] == "watchdog.fired" and e["ts"] > step2_at and e.get("kind") == "stall"]
+      aborts = sum(moved(c2, c3, i, "xot_watchdog_aborts_total") for i in RING_IDS)
+      restarts = moved(c2, c3, sampler, "xot_request_restarts_total")
+      evictions = sum(moved(c2, c3, i, "xot_peer_evictions_total") for i in RING_IDS)
+      need(got == want and aborts == 1 and len(fired) == 1 and restarts == 1 and evictions == 0,
+           f"step 2, a sunk hop: watchdog aborts {aborts:g}, stall firings in the flight rings "
+           f"{[i for i, _ in fired]}, restarts {restarts:g}, evictions {evictions:g}; the restarted "
+           f"answer {sum(a == b for a, b in zip(got, want))}/{len(want)} tokens equal phase 5's")
+      fired_on, event = fired[0]
+      out["sink_to_answer_s"] = answered - (event["ts"] - event["idle_s"])
+      print(f"[{tag}] step 2: {out['sink_to_answer_s']:.3f} s from the sink to the restarted answer "
+            f"(the watchdog fired on {fired_on} after {event['idle_s']:.3f} s idle) ({card})",
+            flush=True)
+
+      # Step 3: ring-b killed once ring-a's log names eight tokens of the request.
+      seen = len(log_text(sampler))
+      future = pool.submit(ask)
+      deadline = time.perf_counter() + 120
+      while not re.search(r"^\[[0-9a-f-]+\] token \d+ \(8 so far\)$", log_text(sampler)[seen:], re.M):
+        if future.done() or time.perf_counter() > deadline:
+          raise AssertionError(f"{tag}: step 3: no eighth token in {sampler}'s log "
+                               f"({future.result() if future.done() else 'timed out'})")
+        time.sleep(0.005)
+      killed_at = time.time()
+      procs[first].send_signal(signal.SIGKILL)
+      got, resp, answered = future.result(timeout=300)
+      c4 = counters()
+      events = [e for e in flight(sampler) if e["ts"] >= killed_at]
+      detect = next((e for e in events if e["event"] in ("watchdog.fired", "request.aborted")), None)
+      evicted = next((e for e in events if e["event"] == "peer.evicted"), None)
+      topo = http_json(bases[sampler] + "/v1/topology", timeout=30)
+      rows = [(p["node_id"], p["start_layer"], p["end_layer"]) for p in topo.get("partitions", [])]
+      evictions = moved(c3, c4, sampler, "xot_peer_evictions_total")
+      restarts = moved(c3, c4, sampler, "xot_request_restarts_total")
+      need(got == want and evictions == 1 and restarts == 1 and rows == [(sampler, 0, layers - 1)]
+           and list(topo["nodes"]) == [sampler] and detect is not None and evicted is not None,
+           f"step 3, {first} killed: evictions {evictions:g}, restarts {restarts:g}, /v1/topology "
+           f"{rows}; the restarted answer {sum(a == b for a, b in zip(got, want))}/{len(want)} "
+           f"tokens equal phase 5's")
+      loads = re.findall(rf"^torch engine ready for Shard\(model_id='{re.escape(model)}', start_layer=0, "
+                         rf"end_layer={layers - 1}, .*\) in ([0-9.]+) s$", log_text(sampler), re.M)
+      load_s = float(loads[-1]) if loads else float("nan")
+      d_kind = detect.get("kind") or (detect.get("error") or "")[:60]
+      # The health monitor can evict the peer before the request's own failure shows (a
+      # request waiting on the dead peer's hop ends only at the stall bound): recovery
+      # runs from the later of the two.
+      healed = max(detect["ts"], evicted["ts"])
+      out.update(kill_to_detect_s=detect["ts"] - killed_at, detect_to_evict_s=evicted["ts"] - detect["ts"],
+                 kill_to_evict_s=evicted["ts"] - killed_at, heal_to_answer_s=answered - healed,
+                 shard_load_s=load_s)
+      print(f"[{tag}] step 3: kill to detection {out['kill_to_detect_s']:.3f} s ({detect['event']}"
+            f"{', ' + d_kind if d_kind else ''}), detection to eviction {out['detect_to_evict_s']:.3f} s "
+            f"(kill to eviction {out['kill_to_evict_s']:.3f} s, by {'the health monitor' if evicted['ts'] < detect['ts'] else 'the restart'}), "
+            f"then to the restarted answer {out['heal_to_answer_s']:.3f} s (shard load {load_s:.3f} s, "
+            f"serving {out['heal_to_answer_s'] - load_s:.3f} s) ({card})", flush=True)
+      got, resp, _ = ask()
+      need(got == want, f"step 3: a further request served by {sampler} alone: "
+           f"{sum(a == b for a, b in zip(got, want))}/{len(want)} tokens equal phase 5's")
+    finally:
+      for p in procs.values():
+        if p.poll() is None:
+          p.send_signal(signal.SIGTERM)
+      for p in procs.values():
+        try:
+          p.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+          p.kill()
+          p.wait(timeout=60)
+      texts = {i: log_text(i) for i in logs if os.path.exists(logs[i])}
+  codes = {i: p.returncode for i, p in procs.items()}
+  alive = [i for i, p in procs.items() if p.poll() is None]
+  ok = not alive and codes.get(sampler) == 0 and codes.get(first) == -signal.SIGKILL
+  print(f"[{tag}] children stopped: exit codes {codes} ({sampler} SIGTERM, {first} SIGKILL), "
+        f"none left {'ok' if ok else 'FAIL'}", flush=True)
+  if not ok:
+    tails = "\n".join(f"--- {i}\n{t[-3000:]}" for i, t in texts.items())
+    raise AssertionError(f"{tag}: children left {alive}, exit codes {codes}\n{tails}")
+  print(f"[time] phase 17 (survivability): {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
+  return out
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--kernels-only", action="store_true",
@@ -4841,7 +5195,12 @@ def main(argv=None) -> int:
     launches[name] += n
   print(f"[time] phases 1-16: {time.perf_counter() - started:.1f} s", flush=True)
 
-  # Phase 17: results.
+  # Phase 17: the ring's survivability (watchdog, health monitor, eviction, restarts) in
+  # two child processes under injected faults and a real SIGKILL.
+  check_survivability(torch, card, main_run)
+  print(f"[time] phases 1-17: {time.perf_counter() - started:.1f} s", flush=True)
+
+  # Phase 18: results.
   meta = {
     "flash_attention": ("xotorch_tpu_torch/csrc/flash_attention.cu",
                         "xotorch_tpu/ops/flash_attention.py:54"),

@@ -31,9 +31,21 @@ The port of the serving core of xotorch_tpu/api/chatgpt_api.py on
   the moment it queues), or is answered 429 with Retry-After when the queue is full;
   responses carry the x-ratelimit-* headers while the gate is on;
 - POST /v1/prefetch ({model, prompt} or {model, messages[, tools]}) starts the host
-  KV tier's restore of a queued prompt's warm prefix and answers 202.
+  KV tier's restore of a queued prompt's warm prefix and answers 202;
+- the one-shot transparent restart (XOT_REQUEST_RESTARTS, 0 = off): a completion that
+  a ring failure killed (a hop error, a stall abort, an evicted peer; never
+  context_length_exceeded or deadline_exceeded, and not once XOT_REQUEST_DEADLINE_S of
+  wall time is spent) is resubmitted under a fresh request id after `Node.heal_ring`;
+  a stream qualifies only until its first event reaches the client. All n siblings
+  are resubmitted together; those of the failed attempt are cancelled when the HTTP
+  request ends. Counted on xot_request_restarts_total;
+- GET /v1/topology (and /topology): the node's topology (the JAX handler's body) and
+  `partitions`, the ring's layer ranges for ?model= (default: the API's model);
+- GET, POST and DELETE /v1/debug/faults: the process-wide fault injector's state,
+  installing one ({"rules": [...]}, the XOT_FAULT_SPEC rule shape) and removing it.
+  A test and soak surface: a deployment firewalls /v1/debug/* as it does /quit.
 
-Synthetic models use DummyTokenizer, with the model's own EOS id.
+Synthetic models use DummyTokenizer, with the model's own EOS id, as the dummy card does.
 """
 from __future__ import annotations
 
@@ -50,9 +62,11 @@ from urllib.parse import parse_qsl
 
 from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer, resolve_tokenizer, tokenizer_for_dir
 from xotorch_tpu_torch.models.registry import build_base_shard, get_model_card, get_repo, get_supported_models
+from xotorch_tpu_torch.networking import faults
 from xotorch_tpu_torch.orchestration.admission import AdmissionRejected
 from xotorch_tpu_torch.orchestration.anatomy import chrome_trace
 from xotorch_tpu_torch.orchestration.tracing import DEFAULT_TRACE_DIR, start_device_trace, stop_device_trace
+from xotorch_tpu_torch.topology.partitioning import map_partitions_to_shards
 from xotorch_tpu_torch.utils import knobs
 from xotorch_tpu_torch.utils.helpers import DEBUG, spawn_detached
 
@@ -113,6 +127,15 @@ class HTTPError(Exception):
 
 def _invalid(message: str) -> HTTPError:
   return HTTPError(400, {"error": {"type": "invalid_request_error", "message": message}})
+
+
+class _StreamRestart(Exception):
+  """A stream died to a restartable ring failure before any event reached the client:
+  the completion handler resubmits it under a fresh request id."""
+
+  def __init__(self, error: str):
+    super().__init__(error)
+    self.error = error
 
 
 class Params(NamedTuple):
@@ -293,6 +316,8 @@ class ChatGPTAPI:
       if method != "POST":
         raise HTTPError(405, {"detail": f"{method} not allowed on {path}"})
       await self._write_json(writer, 202, await self.handle_post_prefetch(body))
+    elif path == "/v1/debug/faults":
+      await self._write_json(writer, 200, self.handle_debug_faults(method, body))
     elif path in ("/v1/trace/device/start", "/v1/trace/device/stop"):
       if method != "POST":
         raise HTTPError(405, {"detail": f"{method} not allowed on {path}"})
@@ -319,7 +344,8 @@ class ChatGPTAPI:
             "/v1/debug/flight": self.handle_get_flight,
             "/v1/cluster/metrics": self.handle_get_cluster_metrics,
             "/v1/alerts": self.handle_get_alerts, "/v1/history": self.handle_get_history,
-            "/v1/perf": self.handle_get_perf, "/v1/queue": self.handle_get_queue}
+            "/v1/perf": self.handle_get_perf, "/v1/queue": self.handle_get_queue,
+            "/v1/topology": self.handle_get_topology, "/topology": self.handle_get_topology}
 
   @staticmethod
   def _float_param(query: dict, key: str, what: str) -> Optional[float]:
@@ -463,6 +489,48 @@ class ChatGPTAPI:
             "fabric_role": "mixed",  # no KV fabric in the port: every node serves everything
             "admission": local, "cluster": cluster}
 
+  def handle_get_topology(self, query: dict) -> dict:
+    """The node's topology (nodes, peer graph, active node) and `partitions`: the ring's
+    [node_id, start_layer, end_layer] rows for ?model= (default: the API's model), so an
+    operator sees the ring as a healed node would pin it."""
+    topology = self.node.current_topology
+    body = topology.to_json()
+    shard = build_base_shard(self._resolve_model(query.get("model")), self.inference_engine_classname)
+    if shard is not None:
+      partitions = self.node.partitioning_strategy.partition(topology)
+      shards = map_partitions_to_shards(partitions, shard.n_layers, shard.model_id)
+      body["partitions"] = [{"node_id": p.node_id, "start_layer": s.start_layer, "end_layer": s.end_layer}
+                            for p, s in zip(partitions, shards)]
+    return body
+
+  def handle_debug_faults(self, method: str, body: bytes) -> dict:
+    """The process-wide fault injector (test and soak surface): GET its state, POST
+    {"rules": [{rpc, peer, nth, action, times, delay_s}, ...]} to install one in place of
+    any other, DELETE to remove it."""
+    if method == "GET":
+      inj = faults.active()
+      if inj is None:
+        return {"installed": False, "rules": 0, "dead_peers": []}
+      return {"installed": True, "rules": len(inj.rules), "dead_peers": sorted(inj.dead_peers)}
+    if method == "DELETE":
+      faults.install(None)
+      return {"installed": False}
+    if method != "POST":
+      raise HTTPError(405, {"detail": f"{method} not allowed on /v1/debug/faults"})
+    try:
+      data = json.loads(body or b"{}")
+    except (json.JSONDecodeError, UnicodeDecodeError):
+      raise _invalid("body must be JSON") from None
+    rules = data.get("rules") if isinstance(data, dict) else None
+    if (not isinstance(rules, list) or not rules
+        or not all(isinstance(r, dict) and r.get("action") for r in rules)):
+      raise _invalid("rules must be a non-empty list of objects with an `action`")
+    try:
+      faults.install(faults.FaultInjector(rules))
+    except (KeyError, TypeError, ValueError) as e:
+      raise _invalid(f"bad rule: {e!r}") from None
+    return {"installed": True, "rules": len(rules)}
+
   async def handle_device_trace(self, path: str, body: bytes) -> dict:
     """Start or stop the process's torch.profiler session (orchestration/tracing.py). The
     profiler waits for any CUDA graph capture to end, so it runs off the event loop."""
@@ -590,9 +658,9 @@ class ChatGPTAPI:
     tok = self._tokenizers.get(model)
     if tok is None:
       card = get_model_card(model) or {}
-      if "synthetic_config" in card:
+      if "synthetic_config" in card or model == "dummy":
         tok = DummyTokenizer()
-        eos = card["synthetic_config"].get("eos_token_id")
+        eos = card.get("synthetic_config", {}).get("eos_token_id")
         if eos is not None:
           tok.eos_token_id = eos if isinstance(eos, int) else eos[0]
       else:
@@ -793,38 +861,82 @@ class ChatGPTAPI:
         headers={"Retry-After": str(retry_after),
                  **self._ratelimit_headers(remaining=0, reset_s=e.retry_after_s)}) from None
     rl_headers = self._ratelimit_headers()  # the budget as it stood at admission
-    request_ids = [base] if p.n == 1 else [f"{base}#{i}" for i in range(p.n)]
-    for rid in request_ids:
-      self.token_queues[rid] = asyncio.Queue()
-    for rid in request_ids:
-      spawn_detached(self.node.process_prompt(shard, prompt, rid, max_tokens=p.max_tokens,
-                                              temperature=p.temperature, top_p=p.top_p,
-                                              sampling=p.sampling), self._tasks)
+    # The one-shot transparent restart (XOT_REQUEST_RESTARTS, 0 = off): a completion a
+    # ring failure killed is resubmitted, all n siblings under a fresh base id (a cold
+    # prefill on the healed ring), while nothing has reached the client and the
+    # request deadline's wall time is not spent.
+    restart_budget = max(0, knobs.get_int("XOT_REQUEST_RESTARTS"))
+    deadline_s = knobs.get_float("XOT_REQUEST_DEADLINE_S")
+    t0 = time.monotonic()
+    all_rids: List[str] = []
+    attempt = 0
     try:
-      if data.get("stream"):
-        include_usage = bool((data.get("stream_options") or {}).get("include_usage"))
-        await self._stream_response(writer, request_ids, model, tokenizer,
-                                    prompt if include_usage else None, p.stop, p.logprobs,
-                                    rl_headers)
-      else:
+      while True:
+        request_ids = [base] if p.n == 1 else [f"{base}#{i}" for i in range(p.n)]
+        all_rids.extend(request_ids)
+        for rid in request_ids:
+          self.token_queues[rid] = asyncio.Queue()
+        for rid in request_ids:
+          spawn_detached(self.node.process_prompt(shard, prompt, rid, max_tokens=p.max_tokens,
+                                                  temperature=p.temperature, top_p=p.top_p,
+                                                  sampling=p.sampling), self._tasks)
+        if data.get("stream"):
+          include_usage = bool((data.get("stream_options") or {}).get("include_usage"))
+          can_restart = (attempt < restart_budget
+                         and (deadline_s <= 0 or time.monotonic() - t0 < deadline_s))
+          try:
+            await self._stream_response(writer, request_ids, model, tokenizer,
+                                        prompt if include_usage else None, p.stop, p.logprobs,
+                                        rl_headers, restartable=can_restart)
+          except _StreamRestart as e:
+            attempt += 1
+            base = await self._restart_request(base, e.error)
+            continue
+          return
         eos_ids = self._eos_ids(tokenizer)
         results = await asyncio.gather(*(self._await_completion(rid, tokenizer, eos_ids, p.stop)
                                          for rid in request_ids))
         error = next((err for _, err in results if err), None)
+        if (error is not None and attempt < restart_budget and self._restartable(error)
+            and (deadline_s <= 0 or time.monotonic() - t0 < deadline_s)):
+          attempt += 1
+          base = await self._restart_request(base, error)
+          continue
         status, body = self._full_response(request_ids, results, error, model, tokenizer, prompt,
                                            eos_ids, p.stop, p.logprobs)
         await self._write_json(writer, status, body, rl_headers)
+        return
     except asyncio.TimeoutError:
       raise HTTPError(500, {"error": {"type": "server_error",
                                       "message": f"no token for {self.response_timeout} s"}}) from None
     finally:
       if held_slot:
         gate.release()  # wakes the oldest queued waiter
-      for rid in request_ids:
+      for rid in all_rids:
         self.token_queues.pop(rid, None)
         # A sub-request that ended early here (an error, a timeout, a stop sequence, a
-        # client gone) must not decode on to its cap; a finished one is a no-op.
+        # client gone, a failed attempt's sibling) must not decode on to its cap; a
+        # finished one is a no-op.
         await self.node.cancel_request(rid)
+
+  @staticmethod
+  def _restartable(error: str) -> bool:
+    """Client errors and spent deadlines are final; ring failures (hop errors, stalls,
+    evicted peers) qualify for the restart."""
+    return not error.startswith(("context_length_exceeded", "deadline_exceeded"))
+
+  async def _restart_request(self, base_request_id: str, error: str) -> str:
+    """Count the restart, heal the ring (one failed health check evicts, after a request
+    just died there) and return the fresh request id the resubmission runs under."""
+    self.node.metrics.request_restarts_total.inc()
+    if DEBUG >= 1:
+      print(f"restarting request {base_request_id} after: {error}")
+    try:
+      await self.node.heal_ring()
+    except Exception as e:  # the restart runs on whatever ring there is
+      if DEBUG >= 1:
+        print(f"ring heal before restart failed: {e!r}")
+    return str(uuid.uuid4())
 
   async def _await_completion(self, request_id: str, tokenizer, eos_ids: set,
                               stop: Optional[List[str]]):
@@ -937,7 +1049,7 @@ class ChatGPTAPI:
   async def _stream_response(self, writer: asyncio.StreamWriter, request_ids: List[str], model: str,
                              tokenizer, usage_prompt: Optional[str] = None,
                              stop: Optional[List[str]] = None, logprobs: bool = False,
-                             headers: Optional[dict] = None) -> None:
+                             headers: Optional[dict] = None, restartable: bool = False) -> None:
     """Server-sent events over one or more completions (OpenAI n): the sub-requests'
     queues merged, one chunk per batch of new tokens carrying its choice index, the
     finish reason on each choice's last, then `data: [DONE]`. With `stop`, each choice's
@@ -947,7 +1059,8 @@ class ChatGPTAPI:
     `logprobs` (and no stop) each chunk carries its tokens' logprobs. With
     `usage_prompt` (OpenAI stream_options include_usage) a final chunk with empty
     choices carries the usage. The headers go out with the first event, so an error
-    before any token still gets a plain JSON error response."""
+    before any token still gets a plain JSON error response, or, when `restartable`
+    and the error is a ring failure, raises _StreamRestart for the handler's restart."""
     eos_ids = self._eos_ids(tokenizer)
     started = False
 
@@ -984,6 +1097,8 @@ class ChatGPTAPI:
           continue  # a straggler after a stop-sequence cut
         error = self.node.request_errors.pop(rid, None) if finished else None
         if error is not None:
+          if not started and restartable and self._restartable(error):
+            raise _StreamRestart(error)
           if not started:
             raise HTTPError(*self._error_body(error))
           etype = ("invalid_request_error" if error.startswith("context_length_exceeded")

@@ -84,6 +84,25 @@ class InferenceEngine(ABC):
     shard spans the whole model."""
     ...
 
+  async def clear_request(self, request_id: str) -> None:
+    """Free the request's state (its KV cache): the Node calls it when a request ends."""
+
+  def page_pool_stats(self) -> Optional[dict]:
+    """The paged KV pool's gauges (/metrics), or None: no pool."""
+    return None
+
+  def perf_stats(self) -> Optional[dict]:
+    """The roofline EWMA gauges (/metrics), or None: no attribution."""
+    return None
+
+  def perf_report(self) -> Optional[dict]:
+    """The roofline attribution report (/v1/perf), or None: no attribution."""
+    return None
+
+  def perf_compact(self) -> Optional[dict]:
+    """The compact perf summary the status bus carries, or None."""
+    return None
+
   def pop_logprobs(self, request_id: str, n: Optional[int] = None) -> Optional[list]:
     """Drain up to `n` (default all) of the request's recorded logprob entries
     ({"logprob", "top": [(id, logprob), ...]} a sampled token, in sampling order); None
@@ -109,6 +128,8 @@ inference_engine_classes: Dict[str, str] = {
   "torch": "TorchShardInferenceEngine",
   "cuda": "TorchShardInferenceEngine",
   "TorchShardInferenceEngine": "TorchShardInferenceEngine",
+  "dummy": "DummyInferenceEngine",
+  "DummyInferenceEngine": "DummyInferenceEngine",
 }
 
 
@@ -120,4 +141,7 @@ def get_inference_engine(inference_engine_name: str, shard_downloader=None,
     from xotorch_tpu_torch.inference.torch_engine.engine import TorchShardInferenceEngine
     return TorchShardInferenceEngine(shard_downloader, device=device, quantize=quantize,
                                      kv_quant=kv_quant)
+  if classname == "DummyInferenceEngine":
+    from xotorch_tpu_torch.inference.dummy import DummyInferenceEngine
+    return DummyInferenceEngine()
   raise ValueError(f"Unsupported inference engine: {inference_engine_name}")

@@ -46,8 +46,10 @@ Per-request state is either a contiguous [L, 1, S, Hkv, D] KV cache that grows b
 powers of two, or (XOT_PAGED_KV=1) a VirtualKV handle of pages in the context's
 PagePool, plus a position. With `kv_quant="int8"` / XOT_KV_QUANT=int8 both hold int8
 K/V with a scale per (position, head), and attention takes the kernels' int8
-variants (K2q, K3q, K4q). Every device computation runs on one executor thread; an
-asyncio lock serialises shard loads. The engine reads its knobs when it is built.
+variants (K2q, K3q, K4q). Every device computation runs on one executor thread (`_run`,
+which counts the calls in flight for `dispatch_inflight`, the Node stall watchdog's
+sign of active local work: a first request's CUDA-graph captures defer a stall abort
+as XLA compiles do in the JAX package); an asyncio lock serialises shard loads. The engine reads its knobs when it is built.
 It runs on `cuda` unless the caller passes device="cpu" (the tests do), and raises
 when no GPU is present rather than falling back to the CPU.
 
@@ -387,6 +389,7 @@ class TorchShardInferenceEngine(InferenceEngine):
     flash_attention.flash_blocks()
     flash_decode.decode_blocks()
     self.executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="torch-engine")
+    self._dispatches_inflight = 0  # executor calls queued or running (_run)
     self._ctx: Optional[_ShardContext] = None
     self._shard_lock = asyncio.Lock()
     self._configured_cache_len = knobs.get_int("XOT_CACHE_LEN")
@@ -463,11 +466,14 @@ class TorchShardInferenceEngine(InferenceEngine):
     (_free_device_memory, on the executor, after the failed call) so that later
     requests find a healthy engine. A serving call surfaces it as CacheExhausted (the
     request's length error); a load passes oom_as_cache_exhausted=False and gets a
-    RuntimeError (a model that does not fit is no fault of a prompt)."""
+    RuntimeError (a model that does not fit is no fault of a prompt). The in-flight
+    count brackets the call, so the stall watchdog tells a device call in progress (a
+    first request's graph captures included) from a silent distributed stall."""
     def call(f, *a):
       with torch.inference_mode():
         return f(*a)
     loop = asyncio.get_running_loop()
+    self._dispatches_inflight += 1
     try:
       return await loop.run_in_executor(self.executor, call, fn, *args)
     except Exception as e:
@@ -481,6 +487,14 @@ class TorchShardInferenceEngine(InferenceEngine):
       if oom_as_cache_exhausted:
         raise CacheExhausted(msg) from e
       raise RuntimeError(msg) from e
+    finally:
+      self._dispatches_inflight -= 1
+
+  def dispatch_inflight(self) -> bool:
+    """True while an executor call (a forward, a prefill slice, a decode chunk, a graph
+    capture or replay) is queued or running: active local work, which the Node's stall
+    watchdog does not abort as a stall."""
+    return self._dispatches_inflight > 0
 
   def _free_device_memory(self) -> str:
     """OOM recovery (the JAX engine's, with the port's counterpart of
@@ -711,6 +725,7 @@ class TorchShardInferenceEngine(InferenceEngine):
   def _load_shard(self, shard: Shard, model_dir: Optional[Path]) -> _ShardContext:
     """The shard's config and weights on the device: from the checkpoint in
     `model_dir`, or a synthetic card's random weights when it is None."""
+    t0 = time.perf_counter()
     if model_dir is None:
       cfg = config_from_hf_dict(get_model_card(shard.model_id)["synthetic_config"])
     else:
@@ -732,7 +747,8 @@ class TorchShardInferenceEngine(InferenceEngine):
     if DEBUG >= 1:
       print(f"torch engine ready for {shard} on {self.device} from {model_dir or 'a seed'} "
             f"(dtype={self.dtype}, quantize={self.quantize}, kv_quant={self.kv_quant}, "
-            f"cache_len={cache_len}, paged={self.paged})")
+            f"cache_len={cache_len}, paged={self.paged}) in {time.perf_counter() - t0:.3f} s",
+            flush=True)
     costmodel = CostModel(cfg, shard.get_layer_count(), shard.is_first_layer, shard.is_last_layer,
                           quantize=self.quantize, dtype_bytes=dtype_width(self._dtype_name),
                           kv_quant=self.kv_quant, start_layer=shard.start_layer)

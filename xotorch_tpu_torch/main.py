@@ -6,6 +6,7 @@ one completion.
     python -m xotorch_tpu_torch.main --quantize int4   # or int8: quantized weights
     python -m xotorch_tpu_torch.main --kv-quantize int8  # int8 KV cache
     python -m xotorch_tpu_torch.main run gemma2-2b --models-seed-dir /data/seed
+    python -m xotorch_tpu_torch.main run dummy --inference-engine dummy   # no model, no device
 
 A card other than a synthetic one serves the HF checkpoint in
 `XOT_HOME/models/<org>--<name>` (XOT_HOME defaults to `~/.xot_tpu`; `--models-seed-dir`
@@ -65,7 +66,7 @@ def build_parser() -> argparse.ArgumentParser:
   parser.add_argument("--discovery-config-path", type=str, default=None)
   parser.add_argument("--wait-for-peers", type=int, default=0)
   parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
-  parser.add_argument("--inference-engine", type=str, default="torch")
+  parser.add_argument("--inference-engine", type=str, default="torch", help="torch | dummy")
   parser.add_argument("--chatgpt-api-host", type=str, default="0.0.0.0")
   parser.add_argument("--chatgpt-api-port", type=int, default=52415)
   parser.add_argument("--chatgpt-api-response-timeout", type=int, default=90)
@@ -178,7 +179,9 @@ async def async_main(args) -> None:
       print(f"wire {node.id}: {json.dumps(wire_counts(node))}", flush=True)
     node.spool_flight(reason="shutdown")  # XOT_FLIGHT_DUMP_DIR, when set
     await node.stop()
-    engine.executor.shutdown(wait=False)
+    executor = getattr(engine, "executor", None)  # the dummy engine has none
+    if executor is not None:
+      executor.shutdown(wait=False)
 
 
 def run() -> None:

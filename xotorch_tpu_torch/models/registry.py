@@ -4,7 +4,8 @@ The port's subset of xotorch_tpu/models/registry.py, keyed by the port's engine
 classname: the dense cards (llama, mistral, the deepseek-r1 distills, qwen 2.5,
 qwen-3-32b, gemma2, nemotron, phi-4-mini) and the synthetic cards. A dense card's
 checkpoint is read from XOT_HOME/models/<org>--<name> (download/hf_shard_download.py);
-synthetic cards carry their config and get random weights from a seed. The MoE and
+synthetic cards carry their config and get random weights from a seed; the dummy card
+serves the fake engine of inference/dummy.py. The MoE and
 vision cards (qwen-3-30b-a3b, llava-1.5-7b-hf) wait until MoE and vision are ported.
 """
 from __future__ import annotations
@@ -14,6 +15,7 @@ from typing import Dict, List, Optional
 from xotorch_tpu_torch.inference.shard import Shard
 
 TORCH = "TorchShardInferenceEngine"
+DUMMY = "DummyInferenceEngine"
 
 model_cards: Dict[str, Dict] = {
   ### llama 3 family
@@ -112,6 +114,8 @@ model_cards: Dict[str, Dict] = {
       "final_logit_softcapping": 30.0, "query_pre_attn_scalar": 16.0,
     },
   },
+  ### dummy (inference/dummy.py: orchestration tests and CLI dry runs)
+  "dummy": {"layers": 8, "repo": {DUMMY: "dummy"}},
 }
 
 

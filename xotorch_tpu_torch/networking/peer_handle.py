@@ -107,7 +107,8 @@ class PeerHandle(ABC):
                         top_p: Optional[float] = None, ring_map: Optional[list] = None,
                         deadline: Optional[float] = None) -> None:
     """`deadline` is the request's remaining end-to-end budget in seconds at send
-    time (carried for the JAX package's watchdog; the port does not enforce it yet)."""
+    time: the receiving Node derives its own absolute deadline from it, and its
+    watchdog aborts the request there when it passes."""
     ...
 
   @abstractmethod

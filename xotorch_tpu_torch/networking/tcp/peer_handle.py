@@ -7,6 +7,9 @@ frame, so the receiver can drop a redelivered hop by its sequence id. A call tak
 idle connection from a small pool or opens one, so concurrent calls to one peer never
 queue behind each other; a connection whose call failed or timed out is closed, never
 reused. `wire` counts, per method, the calls that reached the wire and their bytes.
+Every attempt of every call first passes the fault injector's tap (faults.apply), as
+the gRPC handle's do: a killed peer fails every RPC (its health check included), a
+sunk call acks without sending, and a lost ack fails the attempt after the reply.
 """
 from __future__ import annotations
 
@@ -19,7 +22,7 @@ import numpy as np
 
 from xotorch_tpu_torch.inference.shard import Shard
 from xotorch_tpu_torch.networking.codec import decode_message, encode_message
-from xotorch_tpu_torch.networking.faults import hop_seq, with_hop_retries
+from xotorch_tpu_torch.networking import faults
 from xotorch_tpu_torch.networking.peer_handle import PeerHandle
 from xotorch_tpu_torch.networking.tcp.service import RPC_FIELD, read_frame, set_nodelay, write_frame
 from xotorch_tpu_torch.topology.device_capabilities import DeviceCapabilities
@@ -107,6 +110,10 @@ class TCPPeerHandle(PeerHandle):
     frame = encode_message({RPC_FIELD: method, **fields}, tensors)
 
     async def attempt():
+      flags = await faults.apply(method, self._id)
+      if flags["sink"]:
+        # The peer that died after acking: the sender sees success, nothing was sent.
+        return {"ok": True}, {}
       reader, writer = await self._checkout()
       try:
         sent = write_frame(writer, frame)
@@ -126,15 +133,20 @@ class TCPPeerHandle(PeerHandle):
       out_fields, out_tensors = decode_message(reply)
       if "error" in out_fields:
         raise RemoteError(f"{method} to {self._id}: {out_fields['error']}")
+      if flags["lost_ack"]:
+        # Delivered, but the ack "never came back": the retry redelivers the same frame
+        # and the receiver's dedup drops it.
+        raise faults.TransientHopError(f"injected lost ack on {method} to {self._id}")
       return out_fields, out_tensors
 
-    return await with_hop_retries(attempt, retriable=retriable)
+    return await faults.with_hop_retries(attempt, retriable=retriable)
 
   async def health_check(self) -> bool:
     try:
       fields, _ = await asyncio.wait_for(self._call("HealthCheck", {}, retriable=False), timeout=5.0)
       return bool(fields.get("is_healthy"))
-    except (OSError, asyncio.TimeoutError, asyncio.IncompleteReadError, ValueError, RemoteError) as e:
+    except (OSError, asyncio.TimeoutError, asyncio.IncompleteReadError, ValueError, RemoteError,
+            faults.TransientHopError) as e:
       if DEBUG >= 4:
         print(f"Health check failed for {self._id}@{self.address}: {e!r}")
       return False
@@ -163,14 +175,14 @@ class TCPPeerHandle(PeerHandle):
     fields = {
       "shard": shard.to_dict(), "prompt": prompt, "request_id": request_id, "traceparent": traceparent,
       "max_tokens": max_tokens, "n_images": len(tensors) or None, "temperature": temperature,
-      "top_p": top_p, "ring_map": ring_map, "deadline": deadline, "hop_seq": hop_seq(),
+      "top_p": top_p, "ring_map": ring_map, "deadline": deadline, "hop_seq": faults.hop_seq(),
     }
     await self._hop("SendPrompt", fields, tensors or None)
 
   async def send_tensor(self, shard: Shard, tensor, request_id: Optional[str] = None,
                         inference_state: Optional[dict] = None) -> None:
     fields = {"shard": shard.to_dict(), "request_id": request_id,
-              "inference_state": inference_state, "hop_seq": hop_seq()}
+              "inference_state": inference_state, "hop_seq": faults.hop_seq()}
     await self._hop("SendTensor", fields, {"tensor": tensor})
 
   async def send_result(self, request_id: str, result, is_finished: bool,

@@ -274,9 +274,9 @@ class NodeMetrics:
     self.queue_wait_decode = queue_wait.labels(node_id=node_id, lane="decode")
     self.queue_wait_prefill = queue_wait.labels(node_id=node_id, lane="prefill")
     # Request-survivability counters: watchdog aborts, health-driven evictions, API-side
-    # transparent restarts and retried hop deliveries dropped by receiver-side dedup.
-    # The port has no watchdog, health monitor or restarts yet: those read 0, as the JAX
-    # package's do with the features off.
+    # transparent restarts and retried hop deliveries dropped by receiver-side dedup
+    # (Node._watchdog_loop, Node._evict_peer, the API's _restart_request,
+    # Node.note_hop_delivery).
     self.watchdog_aborts_total = metric("counter", "xot_watchdog_aborts_total",
                                         "Requests aborted by the deadline/stall watchdog")
     self.peer_evictions_total = metric("counter", "xot_peer_evictions_total",

@@ -39,9 +39,22 @@ reported: the JAX package's crawl takes the discovery entry for a peer that is
 skipped because it started the crawl, so there the last crawl to land can leave two
 peers with different views of the ring.
 
-Not ported yet (ROADMAP): the fused in-process ring, device-resident hops, the
-watchdog and deadlines, the health monitor, eviction and heal_ring (their metric
-families read 0), the fault injector, training and checkpoints.
+Survivability (the JAX Node's, with its defaults): a stall watchdog aborts a request
+with no progress for XOT_STALL_TIMEOUT_S (30 s; a hop received, a token sampled or a
+broadcast delta applied is progress; the origin of a forwarded prompt sweeps it too;
+an abort waits while the local engine is mid-dispatch, at most 4x the timeout) or past
+its XOT_REQUEST_DEADLINE_S (0 = off), whose remaining budget rides the hops
+(DEADLINE_KEY, send_prompt's deadline) so every peer enforces it; a health monitor
+checks every peer each XOT_HEALTH_INTERVAL_S (5 s) and evicts one that fails
+XOT_HEALTH_FAILS (2) checks in a row: its metric row goes, a flight snapshot is frozen,
+the ring repartitions at once and discovery cannot re-admit it for
+XOT_EVICT_COOLDOWN_S (30 s). `heal_ring` (the API's restart path) evicts after one
+failed check. Every abort goes through _abort_request, so every surviving peer frees
+the request's state and KV. An origin request passes the fault injector's
+"ProcessPrompt" rules (networking/faults.py), the gray-failure tap of a single node.
+
+Not ported yet (ROADMAP): the fused in-process ring, device-resident hops, training and
+checkpoints.
 """
 from __future__ import annotations
 
@@ -56,6 +69,7 @@ import numpy as np
 
 from xotorch_tpu_torch.inference.engine import CacheExhausted, InferenceEngine
 from xotorch_tpu_torch.inference.shard import Shard
+from xotorch_tpu_torch.networking import faults
 from xotorch_tpu_torch.networking.discovery import Discovery
 from xotorch_tpu_torch.networking.peer_handle import PeerHandle
 from xotorch_tpu_torch.networking.server import Server
@@ -82,6 +96,14 @@ SAMPLING_KEY = "xot_sampling"
 # The request's pinned partition map: [[node_id, start_layer, end_layer], ...] in ring
 # order, set once by the node that accepts the request.
 RING_MAP_KEY = "xot_ring_map"
+# The request's remaining end-to-end budget in seconds at send time: every peer derives
+# its own absolute deadline from it (monotonic clocks do not compare across hosts).
+DEADLINE_KEY = "xot_deadline_s"
+
+# A busy local engine defers a stall abort for at most this many stall timeouts: one
+# first request's graph captures fit, while an engine kept busy by other requests
+# cannot shield a dead peer's hang for ever.
+_STALL_DEFER_CAP = 4
 
 
 class Node:
@@ -175,6 +197,21 @@ class Node:
     self._cancelled: "OrderedDict[str, None]" = OrderedDict()
     self._update_peers_lock = asyncio.Lock()
     self._tasks: set = set()
+    # Survivability (the JAX Node's knobs and defaults; 0 turns each off).
+    self.request_deadline_s = knobs.get_float("XOT_REQUEST_DEADLINE_S")
+    self.stall_timeout_s = knobs.get_float("XOT_STALL_TIMEOUT_S")
+    self.health_interval_s = knobs.get_float("XOT_HEALTH_INTERVAL_S")
+    self.health_fail_threshold = max(1, knobs.get_int("XOT_HEALTH_FAILS"))
+    self.evict_cooldown_s = knobs.get_float("XOT_EVICT_COOLDOWN_S")
+    self._request_deadline: Dict[str, float] = {}  # request -> monotonic deadline
+    self._last_progress: Dict[str, float] = {}  # request -> monotonic time of progress
+    # Requests whose stall abort waits on a busy engine: one `watchdog.deferred` event an
+    # episode, not one a sweep.
+    self._stall_deferred: set = set()
+    self._health_fails: Dict[str, int] = {}
+    self._evicted_until: Dict[str, float] = {}  # peer -> monotonic end of its cooldown
+    self._watchdog_task: Optional[asyncio.Task] = None
+    self._health_task: Optional[asyncio.Task] = None
 
   def _spawn(self, coro) -> "asyncio.Task":
     return spawn_detached(coro, self._tasks)
@@ -190,6 +227,8 @@ class Node:
     await self.update_peers(wait_for_peers)
     await self.collect_topology(set())
     self._spawn(self.periodic_topology_collection(topology_interval))
+    self.start_watchdog()
+    self.start_health_monitor()
     self.start_alerts()
     self.start_history()
     if DEBUG >= 1:
@@ -219,12 +258,168 @@ class Node:
     for task in list(self._tasks):
       task.cancel()
     await asyncio.gather(*self._tasks, return_exceptions=True)
+    self._watchdog_task = self._health_task = None
     if self.discovery is not None:
       await self.discovery.stop()
     if self.server is not None:
       await self.server.stop()
     for peer in self.peers:
       await peer.disconnect()
+
+  # -------------------------------------------------------- survivability
+
+  def start_watchdog(self, request_id: Optional[str] = None) -> None:
+    """Arm the deadline and stall watchdog (a no-op when nothing needs it). Also armed
+    lazily by progress and by a deadline adopted from a hop, so a node driven without
+    start() is covered, and a peer whose own knobs are off still enforces a deadline
+    the origin set. `request_id` is the request whose progress armed it (the
+    snapshot's arming event)."""
+    if self._watchdog_task is None and (
+        self.stall_timeout_s > 0 or self.request_deadline_s > 0 or self._request_deadline):
+      self._watchdog_task = self._spawn(self._watchdog_loop())
+      self.flight.record("watchdog.armed", request_id,
+                         stall_s=self.stall_timeout_s, deadline_s=self.request_deadline_s)
+
+  def start_health_monitor(self) -> None:
+    if self._health_task is None and self.health_interval_s > 0:
+      self._health_task = self._spawn(self._health_monitor_loop())
+
+  def _note_progress(self, request_id: str) -> None:
+    self._last_progress[request_id] = time.monotonic()
+    self._stall_deferred.discard(request_id)
+    self.start_watchdog(request_id)
+
+  async def _watchdog_loop(self) -> None:
+    """Abort requests past their deadline or without progress for the stall timeout:
+    a peer that dies after acking a hop raises no error anywhere. The abort is
+    _abort_request's, so the finish broadcast frees the request on every surviving
+    peer."""
+    bounds = [t for t in (self.stall_timeout_s, self.request_deadline_s) if t > 0]
+    tick = min(1.0, max(0.02, min(bounds) / 4)) if bounds else 1.0
+    while True:
+      await asyncio.sleep(tick)
+      now = time.monotonic()
+      try:
+        for rid, dl in list(self._request_deadline.items()):
+          if now <= dl:
+            continue
+          if rid in self.outstanding_requests or rid in self.buffered_token_output:
+            self.metrics.watchdog_aborts_total.inc()
+            self.flight.record("deadline.expired", rid, overdue_s=round(now - dl, 3))
+            self.flight.record("watchdog.fired", rid, kind="deadline")
+            await self._abort_request(rid, f"deadline_exceeded: request blew its deadline on {self.id}")
+          else:
+            self._request_deadline.pop(rid, None)  # finished elsewhere
+        if self.stall_timeout_s > 0:
+          # Every request with a progress row, not only the outstanding ones: the origin
+          # of a forwarded prompt is never outstanding here, yet a lost prompt chain
+          # must end at its stall bound. Rows die at the finish, so a finished request
+          # cannot be aborted.
+          busy_fn = getattr(self.inference_engine, "dispatch_inflight", None)
+          for rid in set(self.outstanding_requests) | set(self._last_progress):
+            last = self._last_progress.get(rid)
+            if last is None:
+              self._last_progress[rid] = now
+            elif now - last > self.stall_timeout_s:
+              if (busy_fn is not None and busy_fn()
+                  and now - last <= self.stall_timeout_s * _STALL_DEFER_CAP):
+                # The local engine is mid-dispatch (a first request's graph captures can
+                # outlast the bound): active work, not a silent stall. The stall clock
+                # keeps running, so the abort fires at the first sweep that finds the
+                # engine idle, or past the cap regardless; a hung device call is the
+                # deadline's job.
+                if rid not in self._stall_deferred:
+                  self._stall_deferred.add(rid)
+                  self.flight.record("watchdog.deferred", rid, idle_s=round(now - last, 3))
+                continue
+              self._stall_deferred.discard(rid)
+              self.metrics.watchdog_aborts_total.inc()
+              self.flight.record("watchdog.fired", rid, kind="stall", idle_s=round(now - last, 3))
+              await self._abort_request(
+                rid, f"stalled: no progress for {now - last:.2f}s on {self.id} "
+                     f"(stall timeout {self.stall_timeout_s:g}s)")
+      except Exception as e:  # the loop must outlive one failed sweep
+        if DEBUG >= 1:
+          print(f"watchdog error: {e!r}")
+
+  async def _health_monitor_loop(self) -> None:
+    """Check every peer each interval; a peer that fails the threshold in a row is
+    evicted, so the next request pins a ring of live peers."""
+    while True:
+      await asyncio.sleep(self.health_interval_s)
+      try:
+        await self._health_sweep(self.health_fail_threshold)
+      except Exception as e:  # the loop must outlive one failed sweep
+        if DEBUG >= 1:
+          print(f"health monitor error: {e!r}")
+
+  async def _health_sweep(self, evict_after: int) -> None:
+    for peer in list(self.peers):
+      try:
+        ok = await peer.health_check()
+      except Exception:
+        ok = False
+      if ok:
+        self._health_fails.pop(peer.id(), None)
+        continue
+      faults.bump("health_check_failures")
+      fails = self._health_fails.get(peer.id(), 0) + 1
+      self._health_fails[peer.id()] = fails
+      self.flight.record("health.check_failed", None, peer=peer.id(), fails=fails)
+      if fails >= evict_after:
+        await self._evict_peer(peer)
+
+  async def _evict_peer(self, peer) -> None:
+    """Drop the peer, bar it from discovery for the cooldown, drop its metric summary
+    (a dead peer's last row must not freeze the ring's percentiles), freeze a
+    node-scope flight snapshot, disconnect, and repartition now: the dead peer leaves
+    the partition table before any new or restarted request pins its ring map."""
+    if DEBUG >= 1:
+      print(f"Evicting unhealthy peer {peer.id()}@{peer.addr()}")
+    self.peers = [p for p in self.peers if p.id() != peer.id()]
+    self._evicted_until[peer.id()] = time.monotonic() + self.evict_cooldown_s
+    self._health_fails.pop(peer.id(), None)
+    self._peer_reports.pop(peer.id(), None)
+    self.peer_metrics.pop(peer.id(), None)
+    self._peer_metrics_at.pop(peer.id(), None)
+    self.metrics.peer_evictions_total.inc()
+    self.metrics.peers.set(len(self.peers))
+    self.flight.record("peer.evicted", None, peer=peer.id(), cooldown_s=self.evict_cooldown_s)
+    self.flight.freeze(None, reason=f"peer_evicted:{peer.id()}")
+    try:
+      await peer.disconnect()
+    except Exception as e:
+      if DEBUG >= 1:
+        print(f"evicted peer {peer.id()} disconnect failed (already dead?): {e!r}")
+    try:
+      await self.collect_topology(set())
+    except Exception as e:
+      if DEBUG >= 1:
+        print(f"post-eviction repartition failed (the next periodic sweep retries): {e!r}")
+
+  def _is_evicted(self, peer_id: str) -> bool:
+    until = self._evicted_until.get(peer_id)
+    if until is None:
+      return False
+    if time.monotonic() >= until:
+      self._evicted_until.pop(peer_id, None)
+      return False
+    return True
+
+  async def heal_ring(self) -> None:
+    """The API's restart path: a request just died, so one failed check evicts; then
+    repartition, so the restarted request pins a live ring. Peers that pass stay: an
+    engine fault must not cost a healthy peer its seat."""
+    await self._health_sweep(evict_after=1)
+    try:
+      await self.collect_topology(set())
+    except Exception as e:
+      if DEBUG >= 1:
+        print(f"heal_ring repartition failed (the restart pins the stale map): {e!r}")
+
+  @property
+  def current_topology(self) -> Topology:
+    return self.topology
 
   # ------------------------------------------------------------ inference
 
@@ -241,13 +436,33 @@ class Node:
     on a forwarded prompt. `sampling` holds the request's OpenAI extras (validated
     at the API). `traceparent` is the origin's trace context on a forwarded prompt (None
     at the origin, which counts the request and assembles its anatomy); `deadline` is
-    accepted for the JAX package's wire and ignored; images are not ported yet and
-    abort the request."""
+    the origin's remaining budget in seconds on a forwarded prompt (an origin request
+    starts one from XOT_REQUEST_DEADLINE_S); images are not ported yet and abort the
+    request."""
     if request_id is None:
       request_id = str(uuid.uuid4())
+    if request_id not in self._request_deadline:
+      if deadline is not None:
+        self._request_deadline[request_id] = time.monotonic() + max(0.0, float(deadline))
+      elif self.request_deadline_s > 0:
+        self._request_deadline[request_id] = time.monotonic() + self.request_deadline_s
     self._request_started.setdefault(request_id, time.monotonic())
     self.flight.record("request.admitted", request_id, model=base_shard.model_id,
                        origin=traceparent is None)
+    self._note_progress(request_id)
+    if traceparent is None:
+      # The origin's gray-failure tap (test and soak only): injector rules that name
+      # "ProcessPrompt" apply here, after the first-touch stamp, so a delay lands in this
+      # node's own TTFT and latency histograms while /healthcheck stays green. Rules
+      # without an rpc keep to the peer handles and their calls are not counted here.
+      # With no injector installed this costs one environment read an origin request.
+      inj = faults.active()
+      if inj is not None and any(r.rpc == "ProcessPrompt" for r in inj.rules):
+        try:
+          await inj.apply("ProcessPrompt", None)
+        except faults.TransientHopError as e:
+          await self._abort_request(request_id, f"injected fault on {self.id}: {e}")
+          return
     if traceparent is None:
       # Origin requests only: a forwarded prompt would double the cluster-wide sum.
       self.metrics.requests_total.inc()
@@ -349,6 +564,12 @@ class Node:
       self.outstanding_requests[request_id] = "processing tensor"
       self.metrics.active_requests.set(len(self.outstanding_requests))
       self.flight.record("hop.recv", request_id, layers=f"{shard.start_layer}-{shard.end_layer}")
+      self._note_progress(request_id)
+      d = inference_state.get(DEADLINE_KEY) if inference_state else None
+      if d is not None and request_id not in self._request_deadline:
+        # A hop-carried deadline is enforced here too, whatever this node's knobs say.
+        self._request_deadline[request_id] = time.monotonic() + max(0.0, float(d))
+        self.start_watchdog(request_id)
       with self.tracer.start_span(
         "process_tensor", parent=ctx,
         attributes={"request.id": request_id, "shard.start": shard.start_layer,
@@ -396,8 +617,6 @@ class Node:
     back to partition 0."""
     shard = self.get_current_shard(base_shard, request_id=request_id)
     buffered, _ = self.buffered_token_output.setdefault(request_id, ([], False))
-    if DEBUG >= 2:
-      print(f"[{request_id}] token {token_int} ({len(buffered) + 1} so far)")
     if self._ingest_sampled_tokens(request_id, [token_int], buffered, base_shard):
       await self._finish_generation(request_id)
       return
@@ -467,12 +686,15 @@ class Node:
     limit = self._request_max_tokens.get(request_id, self.max_generate_tokens)
     trace_ctx = self._request_trace_ctx.get(request_id)
     now = time.monotonic()
+    self._note_progress(request_id)
     last = self._last_token_time.get(request_id)
     appended = 0
     finished = False
     for t in new_tokens:
       buffered.append(int(t))
       appended += 1
+      if DEBUG >= 2:  # every sampled token, a fused chunk's too
+        print(f"[{request_id}] token {int(t)} ({len(buffered)} so far)")
       self.metrics.tokens_total.inc()
       self.tracer.record_token(request_id, trace_ctx)
       if int(t) in eos or len(buffered) >= limit:
@@ -599,6 +821,9 @@ class Node:
     self._request_sampling.pop(request_id, None)
     self._request_eos.pop(request_id, None)
     self._request_ring_map.pop(request_id, None)
+    self._request_deadline.pop(request_id, None)
+    self._last_progress.pop(request_id, None)
+    self._stall_deferred.discard(request_id)
 
   def trigger_on_token_callbacks(self, request_id: str, tokens: List[int], is_finished: bool) -> None:
     self.on_token.trigger_all(request_id, tokens, is_finished)
@@ -722,12 +947,14 @@ class Node:
     if peer is None:
       raise ValueError(f"Peer for {target_index} ({target_id}) not found")
     ctx = self._request_trace_ctx.get(request_id)
+    dl = self._request_deadline.get(request_id)
     await peer.send_prompt(self.get_current_shard(base_shard, target_index, request_id=request_id),
                            prompt, request_id, traceparent=ctx.traceparent() if ctx else None,
                            max_tokens=self._request_max_tokens.get(request_id),
                            temperature=self._request_temp.get(request_id),
                            top_p=self._request_top_p.get(request_id),
-                           ring_map=self._ring_entries(request_id))
+                           ring_map=self._ring_entries(request_id),
+                           deadline=max(0.0, dl - time.monotonic()) if dl is not None else None)
 
   async def forward_tensor(self, base_shard: Shard, tensor, request_id: str, target_index: int,
                            inference_state: Optional[dict] = None) -> None:
@@ -746,6 +973,9 @@ class Node:
                        (TOP_P_KEY, self._request_top_p), (SAMPLING_KEY, self._request_sampling)):
       if request_id in table:
         state[key] = table[request_id]
+    dl = self._request_deadline.get(request_id)
+    if dl is not None:
+      state[DEADLINE_KEY] = max(0.0, dl - time.monotonic())
     if target_id == self.id:
       self._spawn(self.process_tensor(base_shard, tensor, request_id, state))
       return
@@ -767,6 +997,9 @@ class Node:
     if self.discovery is None:
       return False
     next_peers = await self.discovery.discover_peers(wait_for_peers)
+    # An evicted peer stays out for its cooldown while discovery still lists it (its
+    # view of liveness can lag a death by many seconds).
+    next_peers = [p for p in next_peers if not self._is_evicted(p.id())]
     current_ids = {p.id() for p in self.peers}
     next_ids = {p.id() for p in next_peers}
     peers_added = [p for p in next_peers if p.id() not in current_ids]
@@ -794,7 +1027,10 @@ class Node:
     for peer in peers_removed:
       self._peer_reports.pop(peer.id(), None)
       await peer.disconnect(grace=600.0)
-    self.peers = peers_kept + [p for p, ok in zip(peers_added, connected) if ok]
+    # Filtered again: an eviction can land during the awaits above (the health monitor
+    # does not hold this lock) and must not be undone by this stale snapshot.
+    self.peers = [p for p in peers_kept + [p for p, ok in zip(peers_added, connected) if ok]
+                  if not self._is_evicted(p.id())]
     for p in self.peers:
       # Hop sends record in this node's flight recorder and carry its clock stamp.
       p.flight = self.flight
@@ -902,6 +1138,9 @@ class Node:
       merged = buffered[:start] + list(tokens)
     if error:
       self.record_request_error(request_id, error)
+    # An applied delta is progress for this peer's watchdog: a peer that neither samples
+    # nor receives the next hop hears of a healthy request only through these.
+    self._note_progress(request_id)
     self.buffered_token_output[request_id] = (merged, is_finished)
     self.trigger_on_token_callbacks(request_id, merged, is_finished)
     if is_finished:

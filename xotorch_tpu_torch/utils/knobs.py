@@ -19,7 +19,7 @@ class UnknownKnobError(KeyError):
 @dataclass(frozen=True)
 class Knob:
   name: str
-  kind: str  # "int" | "float" | "bool" | "str" | "path"
+  kind: str  # "int" | "float" | "bool" | "str" | "path" | "json"
   default: Optional[str]  # env-string form; None = unset
   doc: str
 
@@ -59,6 +59,13 @@ _DEFS: Tuple[Knob, ...] = (
   Knob("XOT_INT8_KERNEL", "str", "0", "W8A8 decode GEMV kernel (K6): `1` on the card, `0` off, `force` its function on the CPU too (plain version)."),
   Knob("XOT_HOP_RETRIES", "int", "2", "Retries per ring hop on transient transport failures; 0 = fail-fast."),
   Knob("XOT_HOP_BACKOFF_S", "float", "0.05", "Base backoff (s) for hop retries (exponential + jitter)."),
+  Knob("XOT_REQUEST_DEADLINE_S", "float", "0", "End-to-end request deadline (s); remaining budget rides the hops. 0 disables."),
+  Knob("XOT_STALL_TIMEOUT_S", "float", "30", "Per-node stall watchdog: abort a request with no progress for this long. A mid-dispatch local engine (compiles included) defers the abort, bounded at 4x. 0 disables."),
+  Knob("XOT_HEALTH_INTERVAL_S", "float", "5", "Peer health-check cadence (s); 0 disables the health monitor."),
+  Knob("XOT_HEALTH_FAILS", "int", "2", "Consecutive failed health checks before a peer is evicted."),
+  Knob("XOT_EVICT_COOLDOWN_S", "float", "30", "Seconds an evicted peer stays barred from re-admission by discovery."),
+  Knob("XOT_REQUEST_RESTARTS", "int", "0", "One-shot transparent API restarts after a ring failure (streaming qualifies until its first content chunk)."),
+  Knob("XOT_FAULT_SPEC", "json", None, "Test-only: JSON fault-injection rules applied at the peer-handle boundary."),
   Knob("XOT_MAX_SEQ_LEN", "int", None, "Override the model's maximum sequence length (RoPE/table sizing)."),
   Knob("XOT_HOME", "path", None, "Root directory for downloads and state; unset uses `~/.xot_tpu`."),
   Knob("XOT_MODEL_DIR", "path", None, "Local directory of model checkpoints (offline serving)."),
