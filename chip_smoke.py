@@ -186,8 +186,33 @@ Phases, in order; any failure exits nonzero and prints no result line:
      answer and a further one are phase 5's tokens; the seconds from the sink to its
      answer, from the kill to detection, to eviction and to the answer (shard load and
      serving); the survivor exits 0 on SIGTERM, the killed child -9, none left;
-  18. the {"kernels": [...]} line (attention launches include phases 12's, 14's, 15's
-     and 16's), then the {"ok": true, ...} line last.
+  18. decode paths (check_decode_paths): synthetic-llama-1b at full width and depth,
+     bf16, XOT_PREFILL_CHUNK 1024, XOT_PREFIX_CACHE=0 and XOT_PREFILL_COSCHED=0 (its
+     requests repeat prompts). (a) One server holds synthetic-llama-1b and
+     synthetic-llama-8b: a request on 1b streams what it streams alone while 8b loads,
+     prefills and decodes in the middle of it; /v1/perf lists both contexts with their
+     graph-pool and slab bytes; a third model evicts the idle 8b context, whose graphs
+     and slab are cleared (no failed capture after), and the paused 1b request then
+     finishes as it would alone. (b) The main path's three requests with
+     XOT_OVERLAP_CHUNKS 1 and 0 in turn, 4 rounds: temperature-0 streams identical, the
+     chunks run ahead resolved (hits, misses), TPOT each way, and the device's idle gaps
+     in the decode window of one profiled request each way (the chunk boundaries); eight
+     lockstep requests with XOT_OVERLAP_BATCH 1 and 0 stream alike. (c) Prompt lookup
+     (XOT_SPECULATE 8) on a 5-word phrase repeated 300 times (1500 tokens: the random
+     weights' output then loops, where a repeated paragraph's does not) and on 1500
+     tokens that do not repeat, contiguous and paged (page 128): K2 (K4 paged) launch
+     16 x verify rounds beyond what the same request's plain decode and prefill launch,
+     each verify one graph replay; rounds, tokens a round, /metrics' accept rate, the
+     verify's wall ms, TPOT with speculation on and off; the speculative stream equals the
+     plain one up to a first divergence that must be a near tie (the two tokens' logits
+     within 2^-6 of the row's largest, the kernels' own bound); paged pages back to 0.
+     (d) The target as its own draft model (8 + 1 tokens a round unless a near tie),
+     synthetic-llama-1b drafting for synthetic-llama-8b (seeded random weights of two
+     cards: the acceptance says nothing of real text) with the cost of a round and the
+     Node standing down after two bonus-only rounds, and two concurrent requests that
+     make no draft call while both are outstanding;
+  19. the {"kernels": [...]} line (attention launches include phases 12's, 14's, 15's,
+     16's and 18's), then the {"ok": true, ...} line last.
 """
 from __future__ import annotations
 
@@ -4965,16 +4990,16 @@ def check_survivability(torch, card: str, main_run: dict, device: str = "cuda",
                          rf"end_layer={layers - 1}, .*\) in ([0-9.]+) s$", log_text(sampler), re.M)
       load_s = float(loads[-1]) if loads else float("nan")
       d_kind = detect.get("kind") or (detect.get("error") or "")[:60]
-      # The health monitor can evict the peer before the request's own failure shows (a
-      # request waiting on the dead peer's hop ends only at the stall bound): recovery
-      # runs from the later of the two.
+      # The health monitor, or a reconcile after discovery's own check, can evict the
+      # peer before the request's own failure shows (a request waiting on the dead
+      # peer's hop ends only at the stall bound): recovery runs from the later of the two.
       healed = max(detect["ts"], evicted["ts"])
       out.update(kill_to_detect_s=detect["ts"] - killed_at, detect_to_evict_s=evicted["ts"] - detect["ts"],
                  kill_to_evict_s=evicted["ts"] - killed_at, heal_to_answer_s=answered - healed,
                  shard_load_s=load_s)
       print(f"[{tag}] step 3: kill to detection {out['kill_to_detect_s']:.3f} s ({detect['event']}"
             f"{', ' + d_kind if d_kind else ''}), detection to eviction {out['detect_to_evict_s']:.3f} s "
-            f"(kill to eviction {out['kill_to_evict_s']:.3f} s, by {'the health monitor' if evicted['ts'] < detect['ts'] else 'the restart'}), "
+            f"(kill to eviction {out['kill_to_evict_s']:.3f} s, by {evicted.get('by')}), "
             f"then to the restarted answer {out['heal_to_answer_s']:.3f} s (shard load {load_s:.3f} s, "
             f"serving {out['heal_to_answer_s'] - load_s:.3f} s) ({card})", flush=True)
       got, resp, _ = ask()
@@ -5001,6 +5026,674 @@ def check_survivability(torch, card: str, main_run: dict, device: str = "cuda",
     raise AssertionError(f"{tag}: children left {alive}, exit codes {codes}\n{tails}")
   print(f"[time] phase 17 (survivability): {time.perf_counter() - t_phase:.1f} s ({card})", flush=True)
   return out
+
+
+# ------------------------------------------------------------------ phase 18
+
+DECODE_SIZES = {
+  # repeat: (words of the phrase, times) the repeat-heavy prompt repeats it; plain: the
+  # words of the prompt that does not repeat; new: tokens of a speculative request; solo:
+  # the resident-models request's prompt words and tokens; batch: the B=8 run's prompt
+  # words and tokens; big: the second model the server holds; page: XOT_KV_PAGE.
+  "synthetic-llama-1b": dict(repeat=(5, 300), plain=1500, new=64, solo=(300, 64),
+                             batch=(300, 64), big="synthetic-llama-8b", page=128),
+  "synthetic-tiny": dict(repeat=(5, 19), plain=96, new=24, solo=(20, 24), batch=(20, 24),
+                         big="synthetic-tiny-gemma2", page=16),
+}
+SPEC_K = 8  # phase 18's draft depth (XOT_SPECULATE)
+TIE_REL = 2.0 ** -6  # a near tie: two logits within the kernels' own bound (rel_limit)
+DECODE_ENV = {"XOT_PREFIX_CACHE": "0", "XOT_PREFILL_COSCHED": "0", "XOT_PAGED_KV": "0"}
+
+
+def ladder(n: int, first: int = 8, cap: int = 64) -> list:
+  """The Node's fused loop for n tokens after the first: [(chunk, next size or None)]."""
+  out, size, remaining = [], first, n
+  while remaining > 0:
+    this = min(size, 1 << (remaining - 1).bit_length())
+    rem_after = remaining - this
+    nxt = min(min(size * 2, cap), 1 << (rem_after - 1).bit_length()) if rem_after >= 1 else None
+    out.append((this, nxt))
+    remaining -= this
+    size = min(size * 2, cap)
+  return out
+
+
+@contextlib.contextmanager
+def launches_kept():
+  """Every counted wrapper's launches as they were before the block (a reference forward
+  inside it counts nothing)."""
+  from xotorch_tpu_torch.models import graphs
+  saved = {(fn, a): getattr(fn, a) for fn in graphs.counted_wrappers()
+           for a in ("launches", "windowed_launches") if hasattr(fn, a)}
+  try:
+    yield
+  finally:
+    for (fn, a), n in saved.items():
+      setattr(fn, a, n)
+
+
+def launch_counts() -> dict:
+  from xotorch_tpu_torch.models import graphs
+  return {fn.__name__: fn.launches for fn in graphs.counted_wrappers() if fn.__name__ in KV_KERNELS}
+
+
+async def tie_check(torch, engine, shard, ids: list, a: int, b: int) -> tuple:
+  """Whether tokens a and b nearly tie after `ids`: the model's fp32 logits at the last
+  position from a forward from position 0 (K1) differ by at most TIE_REL of the row's
+  largest |logit|, the bound the kernels hold their outputs to. Returns (tie, |l[a] -
+  l[b]|, the bound)."""
+  from xotorch_tpu_torch.models.transformer import forward_shard, init_kv_cache
+  ctx = engine._contexts[shard]
+
+  def body():
+    cache = init_kv_cache(ctx.cfg, shard.get_layer_count(), 1, len(ids), engine.dtype, engine.device,
+                          kv_quant=engine.kv_quant is not None)
+    x = torch.tensor([ids], dtype=torch.int64, device=engine.device)
+    logits, _ = forward_shard(ctx.params, x, cache, 0, ctx.cfg, True, True, use_flash=True,
+                              route=engine.quant_route)
+    return logits[0, -1].float().cpu()
+  with launches_kept():
+    row = await engine._run(body)
+  gap, limit = abs(float(row[a] - row[b])), TIE_REL * float(row.abs().max())
+  return gap <= limit, gap, limit
+
+
+async def streams_agree(torch, engine, shard, tag: str, prompt: list, want: list, got: list,
+                        card: str) -> float:
+  """`got` against `want` (two greedy streams of one prompt): equal, or equal up to a first
+  divergence whose two tokens nearly tie (tie_check) after the common head; fails
+  otherwise. Returns the share of tokens equal position for position."""
+  n = min(len(want), len(got))
+  same = sum(x == y for x, y in zip(want, got)) / max(n, 1)
+  first = next((i for i in range(n) if want[i] != got[i]), None)
+  if first is None and len(want) == len(got):
+    print(f"[decode] {tag}: streams identical ({n} tokens)", flush=True)
+    return same
+  if first is None:
+    raise AssertionError(f"decode: {tag}: {len(got)} tokens against {len(want)}")
+  tie, gap, limit = await tie_check(torch, engine, shard, prompt + want[:first], want[first], got[first])
+  print(f"[decode] {tag}: {100 * same:.1f}% of {n} tokens agree; first divergence at {first}: "
+        f"tokens {want[first]} / {got[first]}, logit gap {gap:.4g} against the near-tie bound "
+        f"{limit:.4g} {'(a near tie) ok' if tie else 'FAIL'} ({card})", flush=True)
+  if not tie:
+    raise AssertionError(f"decode: {tag} parts at {first} where the logits do not tie ({gap} > {limit})")
+  return same
+
+
+class SpecTally:
+  """Phase 18's counted speculation on one engine and node: decode steps where they are
+  dispatched (a chunk run ahead and then discarded launches like a returned one), verify
+  rounds as (drafted, accepted, wall ms), draft calls as (request, outstanding requests,
+  context, draft, wall ms), and the verify programs' replays."""
+
+  def __init__(self, engine, node):
+    from xotorch_tpu_torch.models import graphs
+    self.engine, self.node = engine, node
+    self.steps, self.rounds, self.drafts, self.verify_calls = 0, [], [], 0
+    dispatch, paged_decode = engine._dispatch_contiguous, engine._decode_batch_paged_sync
+    verify, draft, accept = engine.verify_draft, engine.draft_tokens, engine._accept
+
+    def counted_dispatch(ctx, items, toks_in, num_tokens, *a, **kw):
+      self.steps += num_tokens
+      return dispatch(ctx, items, toks_in, num_tokens, *a, **kw)
+
+    def counted_paged(ctx, items, num_tokens, *a):
+      res = paged_decode(ctx, items, num_tokens, *a)
+      self.steps += len(res[0])
+      return res
+
+    def counted_accept(ctx, rid, draft_, preds, *a):
+      out = accept(ctx, rid, draft_, preds, *a)
+      self.rounds.append([len(draft_), len(out), None])
+      return out
+
+    async def timed_verify(rid, shard, prev, draft_):
+      t0 = time.perf_counter()
+      out = await verify(rid, shard, prev, draft_)
+      if out is not None:
+        self.rounds[-1][2] = (time.perf_counter() - t0) * 1e3
+      return out
+
+    async def timed_draft(rid, context, k):
+      outstanding = len(node.outstanding_requests)
+      t0 = time.perf_counter()
+      out = await draft(rid, context, k)
+      self.drafts.append((rid, outstanding, list(context), list(out), (time.perf_counter() - t0) * 1e3))
+      return out
+    engine._dispatch_contiguous, engine._decode_batch_paged_sync = counted_dispatch, counted_paged
+    engine.verify_draft, engine.draft_tokens, engine._accept = timed_verify, timed_draft, counted_accept
+    self._graph_fns = {name: getattr(graphs, name) for name in ("verify_contiguous", "verify_paged")}
+    for name, real in self._graph_fns.items():
+
+      def counted(*a, _real=real, **kw):
+        self.verify_calls += 1
+        return _real(*a, **kw)
+      setattr(graphs, name, counted)
+
+  def reset(self) -> None:
+    self.steps, self.rounds, self.drafts, self.verify_calls = 0, [], [], 0
+
+  def close(self) -> None:
+    from xotorch_tpu_torch.models import graphs
+    for name, real in self._graph_fns.items():
+      setattr(graphs, name, real)
+
+
+async def node_stream(node, model: str, ids: list, n: int, rid: str) -> tuple:
+  """One temperature-0 request of exact token ids through the Node (the id tokenizer's
+  text); returns (its n tokens, TPOT in ms from the token callbacks' clock)."""
+  from xotorch_tpu_torch.models.registry import build_base_shard
+  done, stamps, out = asyncio.Event(), [], {}
+
+  def on_token(request_id, tokens, finished):
+    if request_id == rid:
+      stamps.append((time.perf_counter(), len(tokens)))
+      out["tokens"] = list(tokens)
+      if finished:
+        done.set()
+  node.on_token.register(f"decode-{rid}").on_next(on_token)
+  try:
+    await node.process_prompt(build_base_shard(model, "TorchShardInferenceEngine"),
+                              " ".join(f"w{i}" for i in ids), rid, max_tokens=n, temperature=0.0)
+    await asyncio.wait_for(done.wait(), timeout=600)
+  finally:
+    node.on_token.deregister(f"decode-{rid}")
+  (t0, n0), (t1, n1) = stamps[0], stamps[-1]
+  tpot = (t1 - t0) / (n1 - n0) * 1e3 if n1 > n0 else float("nan")
+  return out["tokens"], tpot
+
+
+def device_intervals(prof) -> list:
+  """(start us, end us, name) of every kernel, copy and fill the card ran in a profile, by
+  start, from its Chrome trace (a graph replay's kernels hang off one launch call there,
+  each with its own timestamps)."""
+  import tempfile
+  with tempfile.TemporaryDirectory() as tmp:
+    path = os.path.join(tmp, "trace.json")
+    prof.export_chrome_trace(path)
+    with open(path) as f:
+      events = json.load(f).get("traceEvents", [])
+  return sorted((e["ts"], e["ts"] + e.get("dur", 0), e.get("name", "")) for e in events
+                if e.get("cat") in ("kernel", "gpu_memcpy", "gpu_memset") and "ts" in e)
+
+
+def boundary_gaps(intervals: list, boundaries: int) -> Optional[dict]:
+  """The device's idle gaps in the decode window (from the first K2 decode kernel to the
+  last activity): the `boundaries` largest (the chunk boundaries) and the window's total
+  idle, in ms. None when the trace holds no decode kernel."""
+  start = next((s for s, _, name in intervals if "flash_cached_split" in name), None)
+  if start is None:
+    return None
+  gaps, end = [], None
+  for s, e, _ in intervals:
+    if e < start:
+      continue
+    if end is not None and s > end:
+      gaps.append((s - end) / 1e3)
+    end = e if end is None else max(end, e)
+  gaps.sort(reverse=True)
+  top = gaps[:boundaries]
+  return {"boundary_ms": top, "mean_ms": sum(top) / max(len(top), 1), "idle_ms": sum(gaps),
+          "window_ms": (end - start) / 1e3}
+
+
+async def profile_verify(torch, engine, shard, ids: list, tag: str, card: str) -> Optional[dict]:
+  """One verify of an 8-token draft (a 16-row bucket) after `ids`, its program already
+  captured, under the profiler: wall ms (the executor call with its readback) and the
+  card's busy ms and kernels. None off the card or when the trace holds no device
+  time."""
+  import numpy as np
+  if engine.device.type != "cuda":
+    return None
+  from torch.profiler import ProfilerActivity, profile
+  tok, _ = await engine.infer_sample_tensor("vprof", shard, np.asarray([ids]), temp=0.0, top_k=0)
+  draft = ids[:SPEC_K]
+  with launches_kept():
+    await engine.verify_draft("vprof", shard, int(tok), draft)  # the program's key, warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+      t0 = time.perf_counter()
+      await engine.verify_draft("vprof", shard, int(tok), draft)
+      wall = (time.perf_counter() - t0) * 1e3
+  await engine.clear_request("vprof")
+  busy = kernels = 0
+  for evt in prof.key_averages():
+    us = getattr(evt, "self_device_time_total", None)
+    if us is None:
+      us = getattr(evt, "self_cuda_time_total", 0)
+    if us > 0:
+      busy += us / 1e3
+      kernels += evt.count
+  if not kernels:
+    print(f"[decode] verify {tag}: the trace holds no device time: not measured", flush=True)
+    return None
+  print(f"[decode] verify {tag} (16-row bucket, one replay): wall {wall:.3f} ms, device busy "
+        f"{busy:.3f} ms in {kernels} kernels, {100 * (1 - busy / wall):.1f}% idle ({card})", flush=True)
+  return {"wall_ms": wall, "device_ms": busy, "kernels": kernels}
+
+
+def check_overlap(torch, card: str, device: str, model: str, rounds: int) -> dict:
+  """Phase 18 (b): the main path's three requests with the overlap on and off in turn, the
+  profiled boundary gaps, and eight lockstep requests with the batch overlap on and off."""
+  import numpy as np
+  from xotorch_tpu_torch.models.registry import build_full_shard
+  sizes = DECODE_SIZES[model]
+
+  async def drive(engine, node, api, base, tokens, steps):
+    loop = asyncio.get_running_loop()
+    url = base + "/v1/chat/completions"
+    reqs = main_requests(model)
+    shard = build_full_shard(model, "TorchShardInferenceEngine")
+    if not engine.overlap:
+      raise AssertionError("decode: XOT_OVERLAP_CHUNKS is not on by default")
+
+    async def one(body):
+      before = set(tokens)
+      if body.get("stream"):
+        events, first, last = await loop.run_in_executor(None, http_stream, url, body)
+        n = (events[-1].get("usage") or {}).get("completion_tokens", 0)
+        tpot = (last - first) / (n - 1) * 1e3 if n > 1 and last > first else None
+      else:
+        await loop.run_in_executor(None, http_json, url, body)
+        tpot = None
+      await wait_idle(engine)
+      rid = next(r for r in tokens if r not in before)
+      return tokens[rid], tpot
+    for _, body in reqs:  # warm-up: every graph captured before the rounds
+      await one({**body, "max_tokens": 16})
+    greedy = {True: [], False: []}
+    tpots = {True: [], False: []}
+    counts = {True: [0, 0], False: [0, 0]}
+    for r in range(rounds):
+      for on in ((True, False) if r % 2 == 0 else (False, True)):
+        engine.overlap = on
+        h, m = engine._overlap_hits, engine._overlap_misses
+        run = []
+        for _, body in reqs:
+          toks, tpot = await one(body)
+          run.append(toks if body.get("temperature") == 0 else None)
+          if tpot is not None:
+            tpots[on].append(tpot)
+        greedy[on].append(run)
+        counts[on][0] += engine._overlap_hits - h
+        counts[on][1] += engine._overlap_misses - m
+    engine.overlap = True
+    first = greedy[True][0]
+    same = all(run == first for on in (True, False) for run in greedy[on])
+    med = {on: float(np.median(v)) if v else float("nan") for on, v in tpots.items()}
+    print(f"[decode] overlap: the main path's 3 requests x {rounds} rounds each way: temperature-0 "
+          f"streams {'identical' if same else 'DIFFER'}; on: {counts[True][0]} hits, "
+          f"{counts[True][1]} misses; off: {counts[False][0]} hits, {counts[False][1]} misses; "
+          f"TPOT median {med[True]:.3f} ms on, {med[False]:.3f} ms off ({card})", flush=True)
+    if not same or counts[True][0] < rounds or counts[False] != [0, 0]:
+      raise AssertionError(f"decode: overlap streams same={same}, counts {counts}")
+    # One profiled request each way: the device's idle gaps at the chunk boundaries.
+    gaps = {}
+    if engine.device.type == "cuda":
+      from torch.profiler import ProfilerActivity, profile
+      body = reqs[0][1]
+      bounds = len(ladder(body["max_tokens"] - 1)) - 1
+      for on in (True, False):
+        engine.overlap = on
+        torch.cuda.synchronize()
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
+          await one(body)
+          torch.cuda.synchronize()
+        gaps[on] = boundary_gaps(device_intervals(prof), bounds)
+      engine.overlap = True
+      for on, g in gaps.items():
+        if g is None:
+          print(f"[decode] overlap {'on' if on else 'off'}: the trace holds no decode kernel: "
+                f"boundary gaps not measured", flush=True)
+        else:
+          print(f"[decode] overlap {'on' if on else 'off'}: device idle at the {bounds} chunk "
+                f"boundaries of a 64-token request {', '.join(f'{x:.3f}' for x in g['boundary_ms'])} ms "
+                f"(mean {g['mean_ms']:.3f} ms); idle {g['idle_ms']:.3f} ms of a "
+                f"{g['window_ms']:.3f} ms decode window ({card})", flush=True)
+    else:
+      print("[decode] overlap: no card: boundary gaps not measured", flush=True)
+    # Eight lockstep requests, the batch overlap on and off.
+    words, n = sizes["batch"]
+    vocab = engine._ctx.cfg.vocab_size
+    prompts = {f"b{i}": kv_ids(80 + i, words, vocab) for i in range(8)}
+    batch = {}
+    for on in (True, False):
+      engine.overlap_batch = on
+      h, m = engine._overlap_batch_hits, engine._overlap_batch_misses
+      firsts = {}
+      for rid, ids in prompts.items():
+        tok, _ = await engine.infer_sample_tensor(rid, shard, np.asarray([ids]), temp=0.0, top_k=0)
+        firsts[rid] = [int(tok)]
+
+      async def loop_of(rid):
+        out = firsts[rid]
+        for this, nxt in ladder(n - 1):
+          chunk = await engine.generate_chunk(rid, shard, out[-1], this, temp=0.0, top_k=0,
+                                              next_size=nxt)
+          out.extend(int(t) for t in np.asarray(chunk).reshape(-1))
+        return out[:n]
+      outs = await asyncio.gather(*(loop_of(rid) for rid in prompts))
+      for rid in prompts:
+        await engine.clear_request(rid)
+      batch[on] = (outs, engine._overlap_batch_hits - h, engine._overlap_batch_misses - m)
+    engine.overlap_batch = False
+    ok = batch[True][0] == batch[False][0] and batch[True][1] > 0
+    print(f"[decode] overlap batch: 8 lockstep requests x {n} tokens: streams "
+          f"{'identical' if batch[True][0] == batch[False][0] else 'DIFFER'} with XOT_OVERLAP_BATCH "
+          f"1 and 0; on: {batch[True][1]} hits, {batch[True][2]} misses {'ok' if ok else 'FAIL'} "
+          f"({card})", flush=True)
+    if not ok:
+      raise AssertionError(f"decode: batch overlap {batch[True][1:]}")
+    return {"tpot": med, "gaps": gaps, "hits": counts}
+  return extras_server(torch, DECODE_ENV, device, model, drive)
+
+
+def check_lookup(torch, card: str, device: str, model: str, paged: bool) -> dict:
+  """Phase 18 (c): prompt lookup on a repeat-heavy and a non-repeating prompt, with the
+  speculation on and off on one server (contiguous or paged)."""
+  from xotorch_tpu_torch.models.registry import build_full_shard
+  sizes = DECODE_SIZES[model]
+  env = {**DECODE_ENV, "XOT_SPECULATE": str(SPEC_K), "XOT_PAGED_KV": "1" if paged else "0",
+         "XOT_KV_PAGE": str(sizes["page"])}
+  tag = "paged" if paged else "contiguous"
+
+  async def drive(engine, node, api, base):
+    loop = asyncio.get_running_loop()
+    shard = build_full_shard(model, "TorchShardInferenceEngine")
+    vocab = engine._ctx.cfg.vocab_size
+    # Random weights repeat nothing of a repeated paragraph: the lookup drafts only once
+    # the output repeats itself, which a prompt of one short phrase over and over makes
+    # it do (synthetic-llama-1b loops with period 8 after it), where a paragraph of 375
+    # words repeated 4 times and 1500 words that do not repeat give no draft in 256
+    # tokens (scripts/lookup_repeat_probe.py shows both on the card).
+    words, times = sizes["repeat"]
+    prompts = {"repeat": kv_ids(95, words, vocab) * times, "plain": kv_ids(91, sizes["plain"], vocab)}
+    n, layers = sizes["new"], shard.get_layer_count()
+    spec_kernel = "paged_prefill_attention" if paged else "flash_cached_attention"
+    tally = SpecTally(engine, node)
+    out = {}
+    try:
+      # Warm-up: a repeat-heavy prompt of the same length takes verify rounds, so the
+      # verify program (its key: the bucket and the cache or page-table width) and the
+      # Node's decode keys are captured before the timed requests.
+      await node_stream(node, model, kv_ids(96, words, vocab) * times, 32, "warm")
+      for name, ids in prompts.items():
+        runs = {}
+        for spec in (False, True):
+          node.speculate_tokens = SPEC_K if spec else 0
+          tally.reset()
+          base_counts = launch_counts()
+          toks, tpot = await node_stream(node, model, ids, n, f"{name}-{tag}-{int(spec)}")
+          await wait_idle(engine)
+          got = {k: v - base_counts[k] for k, v in launch_counts().items()}
+          runs[spec] = dict(tokens=toks, tpot=tpot, launches=got, steps=tally.steps,
+                            rounds=list(tally.rounds), verify_calls=tally.verify_calls)
+        plain, spec = runs[False], runs[True]
+        rounds = spec["rounds"]
+        # Beyond decode steps: the prefill's launches (equal in both runs) and, with the
+        # speculation on, one launch a layer a verify round.
+        beyond = {k: spec["launches"][k] - plain["launches"][k] for k in KV_KERNELS}
+        step_kernel = "paged_decode_attention" if paged else "flash_cached_attention"
+        beyond[step_kernel] -= layers * (spec["steps"] - plain["steps"])
+        want = dict.fromkeys(KV_KERNELS, 0)
+        want[spec_kernel] = layers * len(rounds)
+        graph_ok = engine.device.type != "cuda" or spec["verify_calls"] == len(rounds)
+        ok = beyond == want and graph_ok
+        per_round = sum(a for _, a, _ in rounds) / max(len(rounds), 1)
+        ms = sorted(r[2] for r in rounds if r[2] is not None)
+        med = ms[len(ms) // 2] if ms else float("nan")
+        print(f"[decode] lookup {tag} {name} ({len(ids)} prompt tokens, {n} new): {len(rounds)} "
+              f"verify rounds, {per_round:.2f} tokens a round, "
+              f"{sum(a - 1 for _, a, _ in rounds)}/{sum(d for d, _, _ in rounds)} drafted tokens "
+              f"accepted; verify {med:.3f} ms a round (median wall); TPOT "
+              f"{spec['tpot']:.3f} ms on, {plain['tpot']:.3f} ms off; {spec_kernel} launches beyond "
+              f"decode steps {beyond[spec_kernel]} = {layers} x {len(rounds)} rounds, verify graph "
+              f"calls {spec['verify_calls']} {'ok' if ok else 'FAIL'} ({card})", flush=True)
+        if not ok:
+          raise AssertionError(f"decode: lookup {tag} {name}: launches beyond decode {beyond}, "
+                               f"wanted {want}; verify graph calls {spec['verify_calls']}")
+        agree = await streams_agree(torch, engine, shard, f"lookup {tag} {name}", ids,
+                                    plain["tokens"], spec["tokens"], card)
+        out[name] = dict(rounds=len(rounds), per_round=per_round, agree=agree,
+                         tpot=(spec["tpot"], plain["tpot"]),
+                         verify_ms=med)
+      if not out["repeat"]["rounds"]:
+        raise AssertionError(f"decode: lookup {tag}: no verify round on the repeat-heavy prompt")
+      if not paged:
+        # The Node names the next chunk's size whatever comes next, so a chunk runs ahead
+        # and the next round's verify discards it and waits for it on the card: the
+        # speculative request once more with the overlap off (the paged path runs no
+        # chunk ahead).
+        node.speculate_tokens, engine.overlap = SPEC_K, False
+        toks, tpot = await node_stream(node, model, prompts["repeat"], n, f"repeat-{tag}-nooverlap")
+        engine.overlap = True
+        await wait_idle(engine)
+        print(f"[decode] lookup contiguous repeat with XOT_OVERLAP_CHUNKS 0: TPOT {tpot:.3f} ms "
+              f"(on {out['repeat']['tpot'][0]:.3f}, speculation off {out['repeat']['tpot'][1]:.3f}) "
+              f"({card})", flush=True)
+        out["repeat"]["tpot_no_overlap"] = tpot
+      out["profile"] = await profile_verify(torch, engine, shard, prompts["repeat"], tag, card)
+      samples = prom_samples(await loop.run_in_executor(None, http_text, base + "/metrics"))
+      rate = samples.get("xot_spec_accept_rate")
+      proposed = prom_family(samples, "xot_spec_tokens_proposed_total")
+      accepted = prom_family(samples, "xot_spec_tokens_accepted_total")
+      print(f"[decode] lookup {tag}: /metrics xot_spec_accept_rate {rate}, tokens proposed "
+            f"{proposed:.0f}, accepted {accepted:.0f} ({card})", flush=True)
+      if rate is None or proposed <= 0:
+        raise AssertionError(f"decode: lookup {tag}: /metrics shows no speculation")
+      if paged:
+        stats = engine.page_pool_stats()
+        print(f"[decode] lookup paged: {stats['pages_in_use']} pool pages in use after the "
+              f"requests {'ok' if stats['pages_in_use'] == 0 else 'FAIL'}", flush=True)
+        if stats["pages_in_use"]:
+          raise AssertionError(f"decode: {stats['pages_in_use']} pool pages left in use")
+      out["launches"] = launch_counts()
+      return out
+    finally:
+      tally.close()
+  return kv_server(torch, env, device, model, drive)
+
+
+def check_resident_and_drafts(torch, card: str, device: str, model: str) -> dict:
+  """Phase 18 (a) and (d) on one server: two resident models, the perfect drafter, the
+  small model drafting for the large one, drafts under concurrency, and a third model's
+  eviction of the idle context."""
+  import numpy as np
+  from xotorch_tpu_torch.models import registry
+  from xotorch_tpu_torch.models.registry import build_full_shard
+  sizes = DECODE_SIZES[model]
+  big = sizes["big"]
+  third = f"{model}-c"
+
+  async def settle(engine) -> None:
+    """wait_idle, but for the paused request A, whose state stays resident throughout."""
+    t_end = time.perf_counter() + 30
+    while any(r != "A" for c in list(engine._contexts.values()) for r in c.states):
+      if time.perf_counter() > t_end:
+        raise AssertionError(f"decode: request states left: "
+                             f"{[list(c.states) for c in engine._contexts.values()]}")
+      await asyncio.sleep(0.05)
+    await engine._run(lambda: None)
+
+  async def drive(engine, node, api, base):
+    loop = asyncio.get_running_loop()
+    cls = "TorchShardInferenceEngine"
+    sa, sb = build_full_shard(model, cls), build_full_shard(big, cls)
+    vocab = engine._ctx.cfg.vocab_size
+    words, n = sizes["solo"]
+    ids_a = kv_ids(70, words, vocab)
+    plan = ladder(n - 1)
+    tally = SpecTally(engine, node)
+    try:
+      # (a) A alone, then A with B in its middle.
+      async def a_chunks(rid, out, chunks):
+        for this, nxt in chunks:
+          c = await engine.generate_chunk(rid, sa, out[-1], this, temp=0.0, top_k=0, next_size=nxt)
+          out.extend(int(t) for t in np.asarray(c).reshape(-1))
+      tok, _ = await engine.infer_sample_tensor("A0", sa, np.asarray([ids_a]), temp=0.0, top_k=0)
+      alone = [int(tok)]
+      await a_chunks("A0", alone, plan)
+      await engine.clear_request("A0")
+      tok, _ = await engine.infer_sample_tensor("A", sa, np.asarray([ids_a]), temp=0.0, top_k=0)
+      got = [int(tok)]
+      await a_chunks("A", got, plan[:2])
+      t0 = time.perf_counter()
+      await engine.ensure_shard(sb)
+      load_s = time.perf_counter() - t0
+      engine._contexts[sb].tokenizer = id_tokenizer()
+      tok_b, _ = await engine.infer_sample_tensor("B", sb, np.asarray([kv_ids(71, words, vocab)]),
+                                                  temp=0.0, top_k=0)
+      await engine.generate_chunk("B", sb, int(tok_b), 8, temp=0.0, top_k=0)
+      await engine.clear_request("B")
+      await a_chunks("A", got, plan[2:-1])
+      perf = await loop.run_in_executor(None, http_json, base + "/v1/perf")
+      ctxs = {c["model_id"]: c for c in perf["contexts"]}
+      on_card = engine.device.type == "cuda"
+      ok = (got == alone[:len(got)] and set(ctxs) == {model, big}
+            and (not on_card or all(c["graph_pool_bytes"] > 0 and c["slab_bytes"] > 0
+                                    for c in ctxs.values())))
+      print(f"[decode] resident: {big} loaded beside {model} in {load_s:.1f} s; A's {len(got)} "
+            f"tokens with B in their middle {'equal' if got == alone[:len(got)] else 'DIFFER from'} "
+            f"A alone; /v1/perf contexts: "
+            + "; ".join(f"{m}: {c['graphs']} graphs, {c['graph_pool_bytes'] / 2**20:.1f} MiB graph "
+                        f"pool, {c['slab_bytes'] / 2**20:.1f} MiB slab, {c['states']} states"
+                        for m, c in ctxs.items())
+            + f" {'ok' if ok else 'FAIL'} ({card})", flush=True)
+      if not ok:
+        raise AssertionError(f"decode: resident models: A {got} / alone {alone}; contexts {ctxs}")
+      # (d) The target as its own draft model: a non-repeating prompt. Warm-ups first: the
+      # Node's sampler keys (top_k) and the draft's and the verify's programs are
+      # captured there, not inside the timed requests.
+      ids_d = kv_ids(72, words, vocab)
+      node.speculate_tokens, node.draft_model = 0, ""
+      await node_stream(node, model, kv_ids(77, 64, vocab), 16, "warm-plain")
+      await node_stream(node, big, kv_ids(77, 64, vocab), 16, "warm-big")
+      want, tpot_plain = await node_stream(node, model, ids_d, n, "draft-plain")
+      node.speculate_tokens = SPEC_K
+      node.draft_model = engine.draft_model = model
+      await node_stream(node, model, kv_ids(78, 64, vocab), 20, "warm-self")
+      await node_stream(node, big, kv_ids(78, 64, vocab), 20, "warm-drafted")
+      tally.reset()
+      spec, tpot_spec = await node_stream(node, model, ids_d, n, "draft-self")
+      await settle(engine)
+      partial = [(d, a) for d, a, _ in tally.rounds if a < d + 1]
+      proposed = [x for x in tally.drafts if len(x[3]) >= 2]
+      for (rid, _, context, draft, _), (d, a, _) in zip(proposed, tally.rounds):
+        if a < d + 1:  # a short round must be a near tie at its first rejected draft token
+          verified = spec[len(context) - len(ids_d):][:a]
+          tie, gap, limit = await tie_check(torch, engine, sa, context + verified[:-1],
+                                            draft[a - 1], verified[-1])
+          if not tie:
+            raise AssertionError(f"decode: the self-draft's round ({d}, {a}) rejects without a tie "
+                                 f"({gap} > {limit})")
+      full = len(tally.rounds) - len(partial)
+      draft_ms = [x[4] for x in proposed]
+      verify_ms = [r[2] for r in tally.rounds if r[2] is not None]
+      print(f"[decode] self-draft: {len(tally.rounds)} rounds, {full} of {SPEC_K} + 1 tokens, "
+            f"{len(partial)} shorter (each a near tie); median draft {np.median(draft_ms):.3f} ms "
+            f"({SPEC_K} replays and the feed) and verify {np.median(verify_ms):.3f} ms a round "
+            f"(wall); TPOT {tpot_spec:.3f} ms against {tpot_plain:.3f} ms plain ({card})", flush=True)
+      await streams_agree(torch, engine, sa, "self-draft", ids_d, want, spec, card)
+      # (d) The small model drafting for the large one.
+      ids_b = kv_ids(73, words, vocab)
+      node.speculate_tokens, node.draft_model = 0, ""
+      want_b, tpot_b = await node_stream(node, big, ids_b, n, "big-plain")
+      node.speculate_tokens, node.draft_model = SPEC_K, model
+      tally.reset()
+      got_b, tpot_bs = await node_stream(node, big, ids_b, n, "big-drafted")
+      await settle(engine)
+      lens = [a for _, a, _ in tally.rounds]
+      stood_down = len(lens) >= 2 and lens[-2:] == [1, 1] and all(
+        not (lens[i] == 1 and lens[i + 1] == 1) for i in range(len(lens) - 2))
+      draft_ms = [x[4] for x in tally.drafts]
+      verify_ms = [r[2] for r in tally.rounds if r[2] is not None]
+      print(f"[decode] {model} drafting for {big} (seeded random weights of two cards: the "
+            f"acceptance says nothing of real text): {len(lens)} rounds accepting {lens}; a round "
+            f"costs {np.median(draft_ms):.3f} ms of draft ({SPEC_K} replays and the feed) + "
+            f"{np.median(verify_ms):.3f} ms of verify (median wall) against a plain step's "
+            f"{tpot_b:.3f} ms; the Node stood down after two bonus-only rounds: "
+            f"{'yes' if stood_down else 'NO'}; TPOT {tpot_bs:.3f} ms ({card})", flush=True)
+      if not stood_down:
+        raise AssertionError(f"decode: draft rounds {lens} did not stand down after two bonus-only rounds")
+      await streams_agree(torch, engine, sb, f"{model} drafting for {big}", ids_b, want_b, got_b,
+                          card)
+      # (d) Two concurrent requests: no draft call while both are outstanding.
+      tally.reset()
+      base_shard = registry.build_base_shard(big, cls)
+      events = {r: asyncio.Event() for r in ("c1", "c2")}
+
+      def on_token(rid, tokens, finished):
+        if finished and rid in events:
+          events[rid].set()
+      node.on_token.register("decode-conc").on_next(on_token)
+      await asyncio.gather(*(node.process_prompt(base_shard, " ".join(f"w{i}" for i in
+                                                                      kv_ids(74 + j, words, vocab)),
+                                                 rid, max_tokens=n // 2, temperature=0.0)
+                             for j, rid in enumerate(events)))
+      await asyncio.wait_for(asyncio.gather(*(e.wait() for e in events.values())), timeout=600)
+      node.on_token.deregister("decode-conc")
+      await settle(engine)
+      busy = [x for x in tally.drafts if x[1] > 1]
+      print(f"[decode] two concurrent requests on {big} with a draft model: {len(tally.drafts)} "
+            f"draft calls, {len(busy)} of them with both outstanding "
+            f"{'ok' if not busy else 'FAIL'} ({card})", flush=True)
+      if busy:
+        raise AssertionError(f"decode: {len(busy)} draft calls under concurrency")
+      node.speculate_tokens, node.draft_model, engine.draft_model = 0, "", ""
+      # (a) A third model evicts the idle context (B's); A, paused, finishes as alone.
+      registry.model_cards[third] = dict(registry.model_cards[model])
+      idle = engine._contexts[sb]
+      had = (len(idle.graphs.programs), idle.graphs.slab_bytes) if idle.graphs else (0, 0)
+      await engine.ensure_shard(build_full_shard(third, cls))
+      sc = build_full_shard(third, cls)
+      engine._contexts[sc].tokenizer = id_tokenizer()
+      tok_c, _ = await engine.infer_sample_tensor("C", sc, np.asarray([ids_a]), temp=0.0, top_k=0)
+      await engine.generate_chunk("C", sc, int(tok_c), 8, temp=0.0, top_k=0)
+      await engine.clear_request("C")
+      await a_chunks("A", got, plan[-1:])
+      await engine.clear_request("A")
+      cleared = idle.graphs is None or (not idle.graphs.programs and idle.graphs.slab is None)
+      ok = (set(engine._contexts) == {sa, sc} and cleared and got[:n] == alone[:n])
+      print(f"[decode] resident: {third} evicted the idle {big} context ({had[0]} graphs, "
+            f"{had[1] / 2**20:.1f} MiB slab cleared: {'yes' if cleared else 'NO'}), captured its "
+            f"own graphs, and A finished as it streams alone "
+            f"({'equal' if got[:n] == alone[:n] else 'DIFFER'}) {'ok' if ok else 'FAIL'} ({card})",
+            flush=True)
+      if not ok:
+        raise AssertionError(f"decode: third model: contexts {list(engine._contexts)}, cleared "
+                             f"{cleared}, A equal {got[:n] == alone[:n]}")
+      return {"launches": launch_counts()}
+    finally:
+      tally.close()
+      registry.model_cards.pop(third, None)
+  return kv_server(torch, DECODE_ENV, device, model, drive)
+
+
+def check_decode_paths(torch, card: str, device: str = "cuda", model: str = "synthetic-llama-1b",
+                       rounds: int = 4) -> dict:
+  """Phase 18: the single peer's decode paths besides the plain chunk (see the module
+  docstring): two resident models, overlapped chunks and speculative decoding. Every
+  check fails the run. Returns the K1-K4 launches its servers counted."""
+  from xotorch_tpu_torch.models import graphs
+  t0 = time.perf_counter()
+  for fn in graphs.counted_wrappers():
+    if fn.__name__ in KV_KERNELS:
+      fn.launches = 0
+  t = time.perf_counter()
+  check_resident_and_drafts(torch, card, device, model)
+  print(f"[time] phase 18 (a, d): {time.perf_counter() - t:.1f} s", flush=True)
+  t = time.perf_counter()
+  check_overlap(torch, card, device, model, rounds)
+  print(f"[time] phase 18 (b): {time.perf_counter() - t:.1f} s", flush=True)
+  for paged in (False, True):
+    t = time.perf_counter()
+    check_lookup(torch, card, device, model, paged)
+    print(f"[time] phase 18 (c, {'paged' if paged else 'contiguous'}): "
+          f"{time.perf_counter() - t:.1f} s", flush=True)
+  launches = launch_counts()
+  print(f"[decode] phase 18: {time.perf_counter() - t0:.1f} s; launches {launches} ({card})",
+        flush=True)
+  return {"launches": launches}
 
 
 def main(argv=None) -> int:
@@ -5200,7 +5893,13 @@ def main(argv=None) -> int:
   check_survivability(torch, card, main_run)
   print(f"[time] phases 1-17: {time.perf_counter() - started:.1f} s", flush=True)
 
-  # Phase 18: results.
+  # Phase 18: the decode paths besides the plain chunk: two resident models, overlapped
+  # chunks and speculative decoding; its attention launches join the results line.
+  for name, n in check_decode_paths(torch, card)["launches"].items():
+    launches[name] += n
+  print(f"[time] phases 1-18: {time.perf_counter() - started:.1f} s", flush=True)
+
+  # Phase 19: results.
   meta = {
     "flash_attention": ("xotorch_tpu_torch/csrc/flash_attention.cu",
                         "xotorch_tpu/ops/flash_attention.py:54"),

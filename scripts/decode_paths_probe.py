@@ -1,0 +1,28 @@
+"""Phase 18 of chip_smoke.py (two resident models, overlapped chunks, speculative
+decoding) alone, on the card: `python3 scripts/decode_paths_probe.py` (the build, then
+the phase)."""
+import os
+import sys
+import time
+
+sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
+
+import torch  # noqa: E402
+
+import chip_smoke as cs  # noqa: E402
+
+
+def main() -> None:
+  t0 = time.perf_counter()
+  card = cs.smi_line()
+  print(card, flush=True)
+  torch.backends.cuda.matmul.allow_tf32 = False
+  cs.set_peaks(torch.cuda.get_device_name(0))
+  from xotorch_tpu_torch.ops import _build
+  print(f"build: {_build.load_all(verbose=False):.1f} s", flush=True)
+  print(cs.check_decode_paths(torch, card), flush=True)
+  print(f"probe ok in {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+if __name__ == "__main__":
+  main()

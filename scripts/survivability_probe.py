@@ -1,7 +1,9 @@
 """Phases 5, 10 and 17 of chip_smoke.py on the card, alone: the build, the main path (its
 tokens are what phase 17 holds the ring to), the one-process ring with the survivability
 taps' cost (knobs on and off in turns), then the two-process ring under injected faults
-and a SIGKILL. `python3 scripts/survivability_probe.py`."""
+and a SIGKILL. `python3 scripts/survivability_probe.py [--rounds N]` runs phase 17 N
+times (default 1) after the others, to see how each round's eviction came about."""
+import argparse
 import os
 import sys
 import time
@@ -14,6 +16,9 @@ import chip_smoke as cs  # noqa: E402
 
 
 def main() -> None:
+  parser = argparse.ArgumentParser()
+  parser.add_argument("--rounds", type=int, default=1, help="times to run phase 17")
+  rounds = parser.parse_args().rounds
   t0 = time.perf_counter()
   card = cs.smi_line()
   print(card, flush=True)
@@ -23,7 +28,9 @@ def main() -> None:
   with cs.phase_env(XOT_PREFIX_CACHE="0", XOT_PREFILL_COSCHED="0"):  # as phases 4-15 run
     main_run = cs.drive_main_path(torch, card, focus="flash_cached_")
     cs.drive_ring_inprocess(torch, card, main_run)
-  print(cs.check_survivability(torch, card, main_run), flush=True)
+  for r in range(rounds):
+    print(f"phase 17, round {r + 1} of {rounds}: {cs.check_survivability(torch, card, main_run)}",
+          flush=True)
   print(f"probe ok in {time.perf_counter() - t0:.1f} s", flush=True)
 
 

@@ -518,3 +518,91 @@ def test_capture_guard_keeps_the_collector_off(enabled):
     python_gc.set_threshold(*thresholds)
     (python_gc.enable if was else python_gc.disable)()
     python_gc.collect()
+
+
+# ------------------------------------------------------------------ verify
+
+@pytest.mark.parametrize("paged", [False, True], ids=["contiguous", "paged"])
+def test_verify_programs_match_the_eager_forward(paged):
+  """Draft verification's programs (graphs.verify_contiguous / verify_paged) through the
+  graph cache, first use and replay: the [1, T_pad] argmax equals the engine's eager
+  forward + argmax (forward_shard at T > 1 with the unembedding, as _forward_segment
+  runs it; on the arena models/generate.forward_argmax_paged) and JAX's (its segment
+  forward + argmax, its forward_argmax_paged), and the cache or arena equals the eager
+  one's within 1e-6. A 5-token draft padded to 8 from position 11."""
+  jcfg, cfg = _cfgs()
+  jp, params = _params(jcfg, cfg)
+  rng = np.random.default_rng(4)
+  L, start, T, T_pad = cfg.num_layers, 11, 6, 8
+  head = rng.integers(3, 256, size=(1, start)).astype(np.int32)
+  x = np.zeros((1, T_pad), np.int32)
+  x[0, :T] = rng.integers(3, 256, size=T)
+  if paged:
+    page, P = 16, 6
+    table = _shuffled_table(rng, P, [start + T_pad], page, 2)
+    shape = (L, P, page, cfg.num_kv_heads, cfg.head_dim)
+    jcache = {n: jnp.zeros(shape, jnp.float32) for n in ("k", "v")}
+    cache = {n: torch.zeros(shape) for n in ("k", "v")}
+    jkw, kw = dict(page_table=jnp.asarray(table)), dict(page_table=torch.from_numpy(table))
+  else:
+    jcache = j_transformer.init_kv_cache(jcfg, L, 1, 32, jnp.float32)
+    cache = transformer.init_kv_cache(cfg, L, 1, 32, torch.float32)
+    jkw, kw = {}, {}
+  _, jcache = j_transformer.forward_shard(jp, jnp.asarray(head), jcache, jnp.int32(0), jcfg, True,
+                                          False, **jkw)
+  transformer.forward_shard(params, torch.from_numpy(head).long(), cache, 0, cfg, True, False, **kw)
+  if paged:
+    jpreds, _ = j_generate.forward_argmax_paged(jp, jnp.asarray(x), jcache, jnp.asarray(table),
+                                                jnp.int32(start), jcfg)
+  else:
+    jlogits, _ = j_transformer.forward_shard(jp, jnp.asarray(x), jcache, jnp.int32(start), jcfg,
+                                             True, True, use_flash_decode=True)
+    jpreds = jnp.argmax(jlogits, axis=-1)
+  xt = torch.from_numpy(x).long()
+  eager_cache = {n: t.clone() for n, t in cache.items()}
+  if paged:
+    want, _ = generate.forward_argmax_paged(params, xt, eager_cache, kw["page_table"], start, cfg)
+  else:
+    logits, _ = transformer.forward_shard(params, xt, eager_cache, start, cfg, True, True,
+                                          use_flash_decode=True)
+    want = torch.argmax(logits, dim=-1)
+  gc = EagerGraphCache("cpu")
+  got_cache = {n: t.clone() for n, t in cache.items()}  # one arena: its address keys the program
+  for run in range(2):  # the first use, then a replay over the same buffers
+    for name, t in cache.items():
+      got_cache[name].copy_(t)
+    if paged:
+      preds = graphs.verify_paged(gc, params, xt, got_cache, kw["page_table"], start, cfg)
+    else:
+      preds = graphs.verify_contiguous(gc, params, xt, got_cache, start, cfg)
+    assert torch.equal(preds, want), run
+    assert np.array_equal(preds.numpy(), np.asarray(jpreds)), run
+    for name in ("k", "v"):
+      np.testing.assert_allclose(got_cache[name].numpy(), eager_cache[name].numpy(), atol=1e-6)
+  assert [p.key[:2] for p in gc.programs.values()] == [("verify", "paged" if paged else "contiguous")]
+  assert gc.captures == 1 and gc.replays == 1
+
+
+@pytest.mark.parametrize("paged", ["0", "1"], ids=["contiguous", "paged"])
+async def test_engine_verify_through_the_graph_cache_matches_eager(jax_weights, monkeypatch, paged):
+  """The engine's verify through the graph cache (as the card runs it) accepts what its
+  eager verify accepts, round for round, and captures one verify program a bucket."""
+  monkeypatch.setenv("XOT_DTYPE", "float32")
+  monkeypatch.setenv("XOT_PAGED_KV", paged)
+  monkeypatch.setenv("XOT_KV_PAGE", "16")
+  monkeypatch.setenv("XOT_CACHE_LEN", "16")
+  shard = Shard(MODEL, 0, 3, 4)
+  prompt = np.random.default_rng(2).integers(3, 256, size=(1, 13))
+  rounds = []
+  for graph_cache in (False, True):
+    eng = _port_engine(graph_cache)
+    tok, _ = await eng.infer_sample_tensor("v", shard, prompt, temp=0.0, top_k=0)
+    got = [int(tok)]
+    for draft in ([7, 8, 9], [got[-1], 3, 4, 5, 6, 7], [11, 12]):
+      got += await eng.verify_draft("v", shard, got[-1], draft)
+    rounds.append(got)
+    if graph_cache:
+      keys = [p.key for p in eng._ctx.graphs.programs.values() if p.key[0] == "verify"]
+      assert sorted(k[2] for k in keys) == [16] * len(keys) and keys
+    eng.executor.shutdown(wait=True)
+  assert rounds[0] == rounds[1]

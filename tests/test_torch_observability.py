@@ -548,6 +548,9 @@ def test_routes_answer_with_the_jax_servers_keys(tmp_path, monkeypatch):
     depth = 1 if path in ("/v1/history", "/v1/alerts") else 2
     if path == "/v1/perf":  # the ring-wide view is keyed by node id
       got[path].pop("cluster"), want[path].pop("cluster")
+      # The port's own key: each resident model context's graph and slab bytes (the JAX
+      # engine has no captured graphs).
+      assert [c["model_id"] for c in got[path].pop("contexts")] == ["synthetic-tiny"]
     key = {"/v1/cluster/metrics": "nodes", "/v1/anatomy": "offsets"}.get(path)
     if key:
       got[path][key] = list(got[path][key].values())[0]  # keyed by node id: one node each

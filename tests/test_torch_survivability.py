@@ -614,6 +614,40 @@ async def test_health_monitor_evicts_after_consecutive_failures(monkeypatch, tra
                  "events": ["peer.evicted"], "peer_evictions_total": 1}
 
 
+@pytest.mark.parametrize("dead", (True, False), ids=("dead", "left"))
+@pytest.mark.parametrize("transport", PORT_TRANSPORTS)
+async def test_peer_dropped_by_discovery_is_evicted_only_when_dead(transport, dead):
+  """Port only (JAX drops both uncounted): a ring peer that discovery stops listing
+  before the health monitor's threshold is evicted when it fails a check then, with
+  the counter, the flight event and the cooldown; a peer that left but answers is
+  dropped plainly. The race of a killed peer in a manual-discovery ring, where the
+  discovery's poll can see the death before the monitor's second check."""
+  kit = Kit("port", transport)
+  a, b = await kit.ring(kit.Dummy(), kit.Dummy(), ids=("dd-a", "dd-b"))
+  injector = kit.faults.FaultInjector([])
+  kit.faults.install(injector)
+  try:
+    if dead:
+      injector.kill_peer("dd-b")
+    listed = list(a.discovery._peers)
+    a.discovery._peers = []
+    await a.update_peers()
+    repartitioned = "dd-b" not in a.topology.nodes  # an eviction repartitions at once
+    a.discovery._peers = listed
+    await a.update_peers()  # a dead peer's cooldown keeps it out when listed again
+    out = {"peers": [p.id() for p in a.peers], "repartitioned": repartitioned,
+           "barred": a._is_evicted("dd-b"), "events": survival_events(a.flight.tail(0)),
+           **_counters((a,), "peer_evictions_total")}
+  finally:
+    await kit.stop(a, b)
+  if dead:
+    assert out == {"peers": [], "repartitioned": True, "barred": True, "events": ["peer.evicted"],
+                   "peer_evictions_total": 1}
+  else:
+    assert out == {"peers": ["dd-b"], "repartitioned": False, "barred": False, "events": [],
+                   "peer_evictions_total": 0}
+
+
 async def _restart_budget(kit):
   engine_a, engine_b = kit.Dummy(), kit.Dummy()
 

@@ -74,8 +74,8 @@ REASONS = {200: "OK", 202: "Accepted", 400: "Bad Request", 404: "Not Found", 405
            429: "Too Many Requests", 500: "Internal Server Error"}
 
 # Engine counters /metrics appends (the JAX handler's table): the port engine's
-# attribute, family, help. The families of subsystems the port lacks (speculation, the
-# fabric, the un-paged view) read 0, as the JAX package's do with those features off.
+# attribute, family, help. The families of subsystems the port lacks (the KV fabric)
+# read 0, as the JAX package's do with that feature off.
 ENGINE_COUNTERS = (
   ("_prefix_hits", "xot_prefix_cache_hits_total", "Prefill prefix-cache hits"),
   ("_prefix_tokens_saved", "xot_prefix_tokens_saved_total", "Prompt tokens whose prefill was skipped"),
@@ -595,6 +595,13 @@ class ChatGPTAPI:
         ("mfu_pct", "xot_mfu_pct", "EWMA model FLOP utilization vs the chip peak (0 off-TPU)"),
       ):
         gauge(name, help_text, perf[key])
+    # Speculation's efficiency (absent until a draft has been verified): the EWMA of
+    # accepted over proposed draft tokens.
+    spec_fn = getattr(eng, "spec_stats", None)
+    spec = spec_fn() if spec_fn is not None else None
+    if spec is not None:
+      gauge("xot_spec_accept_rate", "EWMA fraction of drafted tokens accepted by verification",
+            spec["accept_rate"])
     alerts = self.node.alerts
     if alerts.enabled:
       astats = alerts.gauge_stats()

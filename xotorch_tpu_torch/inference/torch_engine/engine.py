@@ -90,8 +90,36 @@ KV reuse and prefill scheduling (the JAX engine's defaults):
   RequestStateLost), the page pool, the captured CUDA graphs and the slab, and is
   answered as CacheExhausted (`_run`, `_free_device_memory`).
 
-Left out so far: speculative and overlapped chunks, the fused in-process ring
-(`supports_ring_fusion`), device-resident hops, and the KV fabric between replicas.
+Resident models (XOT_MAX_RESIDENT_MODELS, the JAX engine's LRU of contexts): each
+model keeps its weights, request states, page pool, prefix cache, captured graphs and
+slab in a context of its own, so a second model leaves the first one's in-flight
+requests as they were. Past the bound the least recently used context goes, one with
+no request states first; its graphs are reset and its slab dropped on the executor,
+outside any capture, never left to the garbage collector (`_evict_context`). Every
+call resolves the context of its own shard; `_active` is the one loaded or touched
+last.
+
+Overlapped decode chunks (XOT_OVERLAP_CHUNKS, on; XOT_OVERLAP_BATCH for batches, off):
+a solo greedy or sampled chunk on a contiguous cache dispatches the caller's next
+chunk (`next_size`) from its own last token on the device before it reads its tokens
+back, so the card runs chunk N+1 while the host takes chunk N. The next call takes that
+result when its request matches the record (`_spec_next`, `ctx.batch_spec`) and rolls
+the position back when it does not; every other touch of the request discards the
+record first (`_discard_spec`), and capacity is judged by the committed position
+(`_committed_pos`). The paged path runs no chunk ahead, as in JAX.
+
+Speculative decoding (the Node's XOT_SPECULATE, XOT_DRAFT_MODEL): `verify_draft` runs
+[prev_token] + draft through the model once, takes the longest prefix of the draft
+that the model's own argmax agrees with and the model's next token after it, and
+rolls the position back over the rest: on a contiguous cache through K2 at T > 1, on
+the page arena natively through K4 (`_verify_draft_paged_sync`, XOT_PAGED_SPEC), on the
+card as one captured graph a bucket (models/graphs.verify_contiguous / verify_paged).
+`draft_tokens` proposes k tokens from a second resident context (the draft model),
+greedy, through its own decode graphs.
+
+Left out so far: the fused in-process ring (`supports_ring_fusion`) and the ring's
+speculation (`verify_draft_ring`), device-resident hops, and the KV fabric between
+replicas.
 """
 from __future__ import annotations
 
@@ -115,7 +143,7 @@ from xotorch_tpu_torch.inference.engine import CacheExhausted, InferenceEngine, 
 from xotorch_tpu_torch.inference.shard import Shard
 from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer, tokenizer_for_dir
 from xotorch_tpu_torch.inference.torch_engine import vkv
-from xotorch_tpu_torch.inference.torch_engine.costmodel import CostModel, PerfAttribution, dtype_width
+from xotorch_tpu_torch.inference.torch_engine.costmodel import CostModel, PerfAttribution, _Ewma, dtype_width
 from xotorch_tpu_torch.inference.torch_engine.kv_offload import HostKVStore, common_prefix_len
 from xotorch_tpu_torch.inference.torch_engine.paged_cache import (PagePool, commit_pages, from_host,
                                                                   gather_pages, migrate_pages,
@@ -123,10 +151,11 @@ from xotorch_tpu_torch.inference.torch_engine.paged_cache import (PagePool, comm
 from xotorch_tpu_torch.inference.torch_engine.vkv import VirtualKV
 from xotorch_tpu_torch.models.config import ModelConfig, config_from_hf_dict, load_model_config
 from xotorch_tpu_torch.models import graphs
-from xotorch_tpu_torch.models.generate import (decode_chunk_batched, decode_chunk_paged, forward_sample,
-                                               prefill_scan, scan_groups)
+from xotorch_tpu_torch.models.generate import (decode_chunk_batched, decode_chunk_paged, forward_argmax,
+                                               forward_argmax_paged, forward_sample, prefill_scan,
+                                               scan_groups)
 from xotorch_tpu_torch.models.quantize import QUANT_DTYPES, quantize_params, quantized_bytes
-from xotorch_tpu_torch.models.registry import get_model_card
+from xotorch_tpu_torch.models.registry import build_full_shard, get_model_card
 from xotorch_tpu_torch.models.transformer import (forward_shard, init_kv_cache, init_random_params,
                                                   quant_route)
 from xotorch_tpu_torch.models.weights import load_shard_params
@@ -196,6 +225,8 @@ class _ShardContext:
   # An entry is a contiguous snapshot {leaf: [L, 1, T, ...]} or, under XOT_PAGED_KV,
   # {"pages": the prompt's whole pages (one reference each), "len": tokens covered}.
   prefix_cache: "OrderedDict[int, Tuple[np.ndarray, dict]]" = field(default_factory=OrderedDict)
+  # The batched chunk dispatched ahead (XOT_OVERLAP_BATCH), or None.
+  batch_spec: Optional[dict] = None
 
 
 class _Pending(NamedTuple):
@@ -209,11 +240,12 @@ class _Pending(NamedTuple):
   top_p: float
   future: Optional[asyncio.Future]
   enqueued: float = 0.0  # monotonic time of the submit (the batcher's queue wait)
+  next_size: Optional[int] = None  # the caller's next chunk: dispatched ahead when it may be
 
 
 class _DecodeBatcher:
   """Continuous batching at chunk granularity (the port of the JAX engine's
-  _DecodeBatcher, without its ring dispatch and speculative slot).
+  _DecodeBatcher, without its ring dispatch).
 
   Concurrent requests each drive their own decode loop; this collector coalesces
   their generate_chunk calls into ONE batched dispatch per drain cycle. Coalescing
@@ -263,10 +295,11 @@ class _DecodeBatcher:
     return await fut
 
   async def submit(self, request_id: str, state: _RequestState, prev_token: int,
-                   num_tokens: int, temp: float, top_k: int, top_p: float) -> np.ndarray:
+                   num_tokens: int, temp: float, top_k: int, top_p: float,
+                   next_size: Optional[int] = None) -> np.ndarray:
     fut = asyncio.get_running_loop().create_future()
     self.pending.append(_Pending(request_id, state, prev_token, num_tokens, temp, top_k, top_p,
-                                 fut, time.monotonic()))
+                                 fut, time.monotonic(), next_size))
     self._start()
     return await fut
 
@@ -390,7 +423,11 @@ class TorchShardInferenceEngine(InferenceEngine):
     flash_decode.decode_blocks()
     self.executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="torch-engine")
     self._dispatches_inflight = 0  # executor calls queued or running (_run)
-    self._ctx: Optional[_ShardContext] = None
+    # Resident model contexts, least recently used first (XOT_MAX_RESIDENT_MODELS), and
+    # the one loaded or touched last.
+    self._contexts: "OrderedDict[Shard, _ShardContext]" = OrderedDict()
+    self._active: Optional[_ShardContext] = None
+    self.max_models = max(1, knobs.get_int("XOT_MAX_RESIDENT_MODELS"))
     self._shard_lock = asyncio.Lock()
     self._configured_cache_len = knobs.get_int("XOT_CACHE_LEN")
     self._configured_max_cache_len = knobs.get_int("XOT_MAX_CACHE_LEN")
@@ -445,20 +482,46 @@ class TorchShardInferenceEngine(InferenceEngine):
     self._sample_generator = torch.Generator(device=self.device)
     self._logprob_store: "OrderedDict[str, list]" = OrderedDict()
     self._logprob_lock = threading.Lock()
+    # Overlapped chunks: the knobs, the solo chunks dispatched ahead (request -> record)
+    # and how the next calls resolved them.
+    self.overlap = knobs.get_bool("XOT_OVERLAP_CHUNKS")
+    self.overlap_batch = knobs.get_bool("XOT_OVERLAP_BATCH")
+    self._spec_next: Dict[str, dict] = {}
+    self._overlap_hits = self._overlap_misses = 0
+    self._overlap_batch_hits = self._overlap_batch_misses = 0
+    # Speculative decoding: draft tokens verified and accepted, their EWMAs (made at the
+    # first verify), paged-to-contiguous gathers (XOT_PAGED_SPEC=0 only), and the draft
+    # model with its retry cooldown after a failed load. The draft's greedy chunks draw
+    # from a generator of their own: a chunk draws noise at every step whatever its
+    # temperature, and the draft must not move the sampled streams of the engine's one.
+    self.paged_spec = knobs.get_bool("XOT_PAGED_SPEC")
+    self._spec_proposed = self._spec_accepted = 0
+    self._spec_ewma: Optional[Tuple[Any, Any]] = None
+    self._unpage_calls = 0
+    self.draft_model = knobs.get_str("XOT_DRAFT_MODEL", "") or ""
+    self._draft_retry_s = knobs.get_float("XOT_DRAFT_RETRY_S")
+    self._draft_retry_at = 0.0
+    self._draft_generator = torch.Generator(device=self.device)
+    self._draft_generator.manual_seed(0)
 
   # ------------------------------------------------------------- accessors
 
   @property
+  def _ctx(self) -> Optional[_ShardContext]:
+    """The context loaded or touched last."""
+    return self._active
+
+  @property
   def shard(self) -> Optional[Shard]:
-    return self._ctx.shard if self._ctx else None
+    return self._active.shard if self._active else None
 
   @property
   def cfg(self) -> Optional[ModelConfig]:
-    return self._ctx.cfg if self._ctx else None
+    return self._active.cfg if self._active else None
 
   @property
   def tokenizer(self):
-    return self._ctx.tokenizer if self._ctx else None
+    return self._active.tokenizer if self._active else None
 
   async def _run(self, fn, *args, oom_as_cache_exhausted: bool = True):
     """Every device computation funnels through the single-worker executor. Device
@@ -498,41 +561,48 @@ class TorchShardInferenceEngine(InferenceEngine):
 
   def _free_device_memory(self) -> str:
     """OOM recovery (the JAX engine's, with the port's counterpart of
-    `jax.clear_caches()`): drop every captured CUDA graph and the slab first, so the
-    spills below find room; spill every prefix entry to the host tier, then drop it;
-    drop every request state (remembered, bounded, so that its next touch raises
-    RequestStateLost) and the page pool; return the allocator's cached blocks to the
-    card. Records `engine.oom_recovery` and freezes the flight recorder. Runs on the
+    `jax.clear_caches()`): drop the chunks dispatched ahead, then every context's
+    captured CUDA graphs and slab, so the spills below find room; spill every prefix
+    entry to the host tier, then drop it; drop every request state (remembered, bounded,
+    so that its next touch raises RequestStateLost) and the page pools; drop every
+    context but the active one; return the allocator's cached blocks to the card.
+    Records `engine.oom_recovery` and freezes the flight recorder. Runs on the
     executor, so no device work interleaves with it."""
     self._oom_count += 1
-    n_snap = n_state = n_spill = 0
-    ctx = self._ctx
-    if ctx is not None:
+    n_snap = n_state = n_spill = n_ctx = 0
+    # A record must never resolve against a state made again after the recovery.
+    self._spec_next.clear()
+    for ctx in self._contexts.values():
+      ctx.batch_spec = None
       if ctx.graphs is not None:
         ctx.graphs.clear()
-      if self.device.type == "cuda":
-        torch.cuda.empty_cache()
+    if self.device.type == "cuda":
+      torch.cuda.empty_cache()
+    for ctx in self._contexts.values():
       for toks, entry in ctx.prefix_cache.values():
         if self._spill_prefix_entry(ctx, toks, entry):
           n_spill += 1
-      n_snap = len(ctx.prefix_cache)
-      self._prefix_evictions += n_snap
+      n_snap += len(ctx.prefix_cache)
+      self._prefix_evictions += len(ctx.prefix_cache)
       ctx.prefix_cache.clear()
       for rid in ctx.states:
         self._states_lost_to_oom[rid] = None
-      n_state = len(ctx.states)
+      n_state += len(ctx.states)
       ctx.states.clear()
       # Every state and entry that referenced the arena is gone: the next paged
       # request builds a fresh pool.
       ctx.page_pool = None
     while len(self._states_lost_to_oom) > 512:
       self._states_lost_to_oom.popitem(last=False)
+    for shard in [s for s, c in self._contexts.items() if c is not self._active]:
+      self._contexts.pop(shard)
+      n_ctx += 1
     if self.device.type == "cuda":
       torch.cuda.empty_cache()
     # Every graph is captured again: count those as first dispatches.
     self._exec_seen.clear()
     freed = (f"{n_snap} prefix snapshots ({n_spill} spilled to host tier), "
-             f"{n_state} request states, 0 model contexts")
+             f"{n_state} request states, {n_ctx} model contexts")
     if self.flight is not None:
       self.flight.record("engine.oom_recovery", None, recovery=self._oom_count, freed=freed)
       self.flight.freeze(None, reason=f"oom_recovery:{self._oom_count}")
@@ -561,7 +631,7 @@ class TorchShardInferenceEngine(InferenceEngine):
     """(positions the request already holds, whether its segments run on the arena),
     read before a forward."""
     state = ctx.states.get(request_id)
-    return (state.pos if state is not None else 0,
+    return (self._committed_pos(ctx, request_id, state) if state is not None else 0,
             self._paged_segment(ctx, request_id, input_data))
 
   def _observe_forward(self, ctx: _ShardContext, key: tuple, true_t: int, start: int, paged: bool,
@@ -579,13 +649,17 @@ class TorchShardInferenceEngine(InferenceEngine):
 
   def _observe_dispatch(self, kind: str, key: tuple, seconds: float, batch: int = 1,
                         tokens: int = 0, ctx: Optional[_ShardContext] = None,
-                        rows: Optional[list] = None, start: int = 0, captured: int = 0) -> None:
+                        rows: Optional[list] = None, start: int = 0, captured: int = 0,
+                        emitted: Optional[int] = None) -> None:
     """Classify one dispatch as a first dispatch (it captured a CUDA graph, or ran an
     eager key not seen before: what pays a compile here) or a cached one, recording a
     first one's wall time as an `engine.compile` flight event; then feed the roofline
     attribution: `seconds` is the wall interval the caller measured, and the cost
     model turns the dispatch's static facts (token count, each decode row's depth and
-    layout) into its HBM bytes and FLOPs. Host metadata only, no device sync."""
+    layout) into its HBM bytes and FLOPs. A draft verify ("verify") books one weight
+    stream for its `tokens` positions at the depth and layout of its one row, and the
+    tokens it `emitted` (accepted and bonus) as the lane's tokens. Host metadata only,
+    no device sync."""
     first = captured > 0 or key not in self._exec_seen
     self._exec_seen.add(key)
     if first:
@@ -606,8 +680,15 @@ class TorchShardInferenceEngine(InferenceEngine):
       total_tokens = tokens * len(rows)
       if cm is not None:
         hbm_bytes, flops = cm.decode_dispatch_cost(tokens, rows, page=self.kv_page)
+    elif kind == "verify":
+      if cm is not None:
+        depth, paged, alloc = (rows or [(0, False, None)])[0]
+        hbm_bytes, flops = cm.verify_dispatch_cost(tokens, depth, paged=paged, alloc_tokens=alloc,
+                                                   page=self.kv_page)
     elif cm is not None:
       hbm_bytes, flops = cm.prefill_dispatch_cost(tokens, self._prefill_chunk(), start=start)
+    if emitted is not None:
+      total_tokens = emitted
     perf.observe(key, kind, seconds, tokens=total_tokens, batch=batch, hbm_bytes=hbm_bytes,
                  flops=flops)
 
@@ -645,17 +726,54 @@ class TorchShardInferenceEngine(InferenceEngine):
     if self.perf is None:
       return None
     out: Dict[str, Any] = dict(self.perf_stats() or {})
+    spec = self.spec_stats()
+    if spec is not None:
+      out["spec_accept_rate"] = spec["accept_rate"]
     out["jit_first_dispatches"] = self._jit_first_dispatches
     out["jit_cached_dispatches"] = self._jit_cached_dispatches
     out["host_fetch_bytes"] = self._host_fetch_bytes
+    return out
+
+  def _observe_spec(self, proposed: int, accepted: int) -> None:
+    """One verify round into the paired EWMAs of proposed and accepted draft tokens
+    (every verify path calls it after bumping the cumulative counters)."""
+    if self._spec_ewma is None:
+      tau = knobs.get_float("XOT_SPEC_EWMA_S")
+      self._spec_ewma = (_Ewma(tau), _Ewma(tau))
+    now = time.monotonic()
+    self._spec_ewma[0].observe(float(proposed), 1e-3, now)
+    self._spec_ewma[1].observe(float(accepted), 1e-3, now)
+
+  def spec_stats(self) -> Optional[Dict[str, float]]:
+    """The xot_spec_accept_rate gauge: the EWMA of accepted draft tokens over the EWMA
+    of proposed ones; None until a draft has been verified."""
+    if self._spec_ewma is None:
+      return None
+    now = time.monotonic()
+    prop = self._spec_ewma[0].peek(now)
+    acc = self._spec_ewma[1].peek(now)
+    return {"accept_rate": round(acc / prop, 4) if prop > 1e-12 else 0.0}
+
+  def context_stats(self) -> List[Dict[str, Any]]:
+    """Each resident model context, least recently used first: its model and layers,
+    request states, captured graphs, the bytes its graphs' memory pool and its slab hold
+    on the card (0 on the CPU), and whether it is the active one."""
+    out = []
+    for shard, ctx in list(self._contexts.items()):
+      gc = ctx.graphs
+      out.append({"model_id": shard.model_id, "layers": [shard.start_layer, shard.end_layer],
+                  "states": len(ctx.states), "graphs": len(gc.programs) if gc else 0,
+                  "graph_pool_bytes": gc.pool_bytes if gc else 0,
+                  "slab_bytes": gc.slab_bytes if gc else 0, "active": ctx is self._active})
     return out
 
   def perf_report(self) -> Optional[Dict[str, Any]]:
     """The /v1/perf report (the JAX engine's keys): the loaded model's analytic
     ceilings (bf16/int8/int4), predicted against actual resident weight bytes, the
     EWMA gauges, per-lane totals, the heaviest dispatch keys, the dispatch
-    classification, and the page pool's and host tier's byte flows (the un-paged view
-    and speculation, which the port lacks, read 0 and None). Host metadata only."""
+    classification, the page pools' and host tier's byte flows, and speculation's
+    proposed and accepted tokens; and, the port's own, every resident context with its
+    graph and slab bytes (`contexts`). Host metadata only."""
     if self.perf is None:
       return None
     peak_tflops, peak_gbps = self._chip_peak_specs()
@@ -667,13 +785,16 @@ class TorchShardInferenceEngine(InferenceEngine):
                    "jit_cached_dispatches": self._jit_cached_dispatches},
       "byte_flows": {"host_spill_bytes": self._host_spill_bytes,
                      "host_fetch_bytes": self._host_fetch_bytes,
-                     "commit_copy_bytes": self._commit_copy_bytes, "unpage_gathers": 0,
+                     "commit_copy_bytes": self._commit_copy_bytes,
+                     "unpage_gathers": self._unpage_calls,
                      "pool": self.page_pool_stats(), "host_tier": self.host_kv_stats()},
-      "speculation": {"proposed": 0, "accepted": 0, "accept_rate_ewma": None},
+      "speculation": {"proposed": self._spec_proposed, "accepted": self._spec_accepted,
+                      "accept_rate_ewma": (self.spec_stats() or {}).get("accept_rate")},
       "model": None,
       "ceilings": None,
+      "contexts": self.context_stats(),
     }
-    ctx = self._ctx
+    ctx = self._active
     if ctx is not None and ctx.costmodel is not None:
       cm = ctx.costmodel
       actual = quantized_bytes(ctx.params)  # numel x element size: metadata only
@@ -705,22 +826,61 @@ class TorchShardInferenceEngine(InferenceEngine):
     await self._ensure_ctx(shard)
 
   async def _ensure_ctx(self, shard: Shard) -> _ShardContext:
-    if self._ctx is not None and self._ctx.shard == shard:
-      return self._ctx
+    """The context of `shard`, loaded if it is not resident (the JAX engine's LRU of
+    XOT_MAX_RESIDENT_MODELS contexts): a second model leaves the first one's requests
+    as they were. Past the bound the least recently used context with no request states
+    goes, or, when every other one is busy, the least recently used of them (its
+    requests then fail loudly with RequestStateLost)."""
+    ctx = self._contexts.get(shard)
+    if ctx is not None:
+      self._contexts.move_to_end(shard)
+      self._active = ctx
+      return ctx
     async with self._shard_lock:
-      if self._ctx is None or self._ctx.shard != shard:
-        self._ctx = None  # drop the previous model before loading the next
-        card = get_model_card(shard.model_id) or {}
-        model_dir = None
-        if card.get("synthetic_config") is None:
-          if self.shard_downloader is None:
-            raise ValueError(f"{shard.model_id}: a checkpoint needs a shard downloader")
-          model_dir = Path(await self.shard_downloader.ensure_shard(shard, type(self).__name__))
-        ctx = await self._run(self._load_shard, shard, model_dir, oom_as_cache_exhausted=False)
-        if model_dir is not None:
-          ctx.tokenizer = await tokenizer_for_dir(model_dir)
-        self._ctx = ctx
-    return self._ctx
+      ctx = self._contexts.get(shard)  # another task loaded it while this one waited
+      if ctx is not None:
+        self._contexts.move_to_end(shard)
+        self._active = ctx
+        return ctx
+      card = get_model_card(shard.model_id) or {}
+      model_dir = None
+      if card.get("synthetic_config") is None:
+        if self.shard_downloader is None:
+          raise ValueError(f"{shard.model_id}: a checkpoint needs a shard downloader")
+        model_dir = Path(await self.shard_downloader.ensure_shard(shard, type(self).__name__))
+      ctx = await self._run(self._load_shard, shard, model_dir, oom_as_cache_exhausted=False)
+      if model_dir is not None:
+        ctx.tokenizer = await tokenizer_for_dir(model_dir)
+      self._contexts[shard] = ctx
+      self._active = ctx
+      while len(self._contexts) > self.max_models:
+        victim = next((s for s, c in self._contexts.items() if s != shard and not c.states),
+                      next(s for s in self._contexts if s != shard))
+        evicted = self._contexts.pop(victim)
+        await self._run(self._evict_context, evicted, oom_as_cache_exhausted=False)
+      return ctx
+
+  def _evict_context(self, ctx: _ShardContext) -> None:
+    """Tear down an evicted model context on the executor, between device calls and so
+    outside any capture: its chunks dispatched ahead, request states (their pages) and
+    prefix entries go, its captured graphs are reset and its slab dropped explicitly
+    (a dead graph that the garbage collector destroys inside another context's capture
+    kills that capture: models/graphs.capture_guard), then the allocator's cached blocks
+    go back to the card. Its weights go with the last reference to the context."""
+    for rid in list(ctx.states):
+      self._spec_next.pop(rid, None)
+    ctx.batch_spec = None
+    n_states = len(ctx.states)
+    for rid in list(ctx.states):
+      self._drop_state(ctx, rid)
+    ctx.prefix_cache.clear()
+    ctx.page_pool = None
+    if ctx.graphs is not None:
+      ctx.graphs.clear()
+    if self.device.type == "cuda":
+      torch.cuda.empty_cache()
+    if DEBUG >= 1:
+      print(f"Evicted model context {ctx.shard} ({n_states} resident request states)", flush=True)
 
   def _load_shard(self, shard: Shard, model_dir: Optional[Path]) -> _ShardContext:
     """The shard's config and weights on the device: from the checkpoint in
@@ -775,8 +935,9 @@ class TorchShardInferenceEngine(InferenceEngine):
                        f"{dims} and at most {paged_attention.MAX_GROUPS} q heads per kv head")
 
   def eos_token_ids_for(self, shard: Shard) -> Tuple[int, ...]:
-    ctx = self._ctx
-    if ctx is None or ctx.shard != shard:
+    """The EOS ids of `shard`'s own model, whichever context is active."""
+    ctx = self._contexts.get(shard)
+    if ctx is None:
       return ()
     eos = getattr(ctx.tokenizer, "eos_token_id", None)
     return tuple(((eos,) if eos is not None else ()) + tuple(ctx.cfg.eos_token_ids or ()))
@@ -1151,6 +1312,237 @@ class TorchShardInferenceEngine(InferenceEngine):
     return tok_int
 
 
+  # ------------------------------------------------------ speculative decode
+
+  async def verify_draft(self, request_id: str, shard: Shard, prev_token: int,
+                         draft: list) -> Optional[list]:
+    """Greedy draft verification (JAX's): ONE forward over [prev_token] + draft; the
+    longest prefix of the draft that matches the model's own argmax is accepted, and
+    the model's next token after it taken as a bonus. Returns 1..len(draft)+1 tokens,
+    each what sequential greedy decode would produce, or None when the fast path does
+    not apply (no room for the padded bucket, a page pool too full for it): the caller
+    then decodes plainly. The rejected positions' K/V stay past the rolled-back
+    position, where no query reads them and the next write overwrites them. A paged
+    request verifies on the arena itself (XOT_PAGED_SPEC), others on their contiguous
+    cache."""
+    if not (shard.is_first_layer and shard.is_last_layer) or not draft:
+      return None
+    ctx = self._contexts.get(shard)
+    if ctx is None:
+      raise RequestStateLost(f"request {request_id}: model context {shard.model_id} evicted "
+                             f"mid-generation")
+    state = ctx.states.get(request_id)
+    if state is None:
+      raise RequestStateLost(f"request {request_id}: device state evicted mid-generation")
+    # The padded bucket is what the forward claims, judged from the committed position
+    # (a chunk in flight is rolled back first).
+    if self._committed_pos(ctx, request_id, state) + _bucket(1 + len(draft)) > ctx.max_cache_len:
+      return None
+    self._contexts.move_to_end(shard)
+    ctx.states.move_to_end(request_id)
+    return await self._run(self._verify_draft_sync, ctx, request_id, int(prev_token),
+                           [int(t) for t in draft])
+
+  def _accept(self, ctx: _ShardContext, request_id: str, draft: list, preds: np.ndarray,
+              pos_before: int, paged: bool, t0: float, bucket: int, captures: int,
+              alloc: Optional[int]) -> list:
+    """The accepted tokens of a verify whose argmax is `preds` (preds[i] = the model's
+    greedy pick after [prev_token] + draft[:i]): the longest agreeing prefix of the
+    draft and the bonus token after it. Moves the request to the accepted position and
+    books the round (counters, EWMAs, the verify lane, a `spec.verify` flight event)."""
+    n_acc = 0
+    while n_acc < len(draft) and int(preds[n_acc]) == draft[n_acc]:
+      n_acc += 1
+    accepted = draft[:n_acc] + [int(preds[n_acc])]
+    state = ctx.states[request_id]
+    state.pos = pos_before + 1 + n_acc
+    state.last_used = time.monotonic()
+    self._spec_proposed += len(draft)
+    self._spec_accepted += n_acc
+    self._observe_spec(len(draft), n_acc)
+    self._observe_dispatch("verify", ("verify", bucket, paged), time.monotonic() - t0,
+                           tokens=bucket, ctx=ctx, rows=[(pos_before, paged, alloc)],
+                           captured=self._captures(ctx) - captures, emitted=len(accepted))
+    if self.flight is not None:
+      self.flight.record("spec.verify", request_id, drafted=len(draft), accepted=n_acc,
+                         paged=paged)
+    return accepted
+
+  def _verify_draft_sync(self, ctx: _ShardContext, request_id: str, prev_token: int,
+                         draft: list) -> Optional[list]:
+    """The contiguous verify: [prev_token] + draft padded to a power-of-two bucket,
+    forwarded from the committed position through K2 at T > 1 (K2q on an int8 cache)
+    with every position's argmax: one graph replay on the card
+    (graphs.verify_contiguous), the same `forward_argmax` eagerly on the CPU. A paged
+    request goes to _verify_draft_paged_sync, or, with XOT_PAGED_SPEC=0, is gathered
+    back to a contiguous cache first (`_unpage_state`)."""
+    state = ctx.states.get(request_id)
+    if state is None:
+      raise RequestStateLost(f"request {request_id}: device state evicted mid-generation")
+    if self._paged_spec_ok(state):
+      return self._verify_draft_paged_sync(ctx, request_id, prev_token, draft)
+    # The committed position, read before anything below moves it.
+    self._discard_spec(request_id, state)
+    self._discard_batch_spec_for(ctx, request_id)
+    T = 1 + len(draft)
+    if state.cache is None and state.pages is not None:
+      self._unpage_state(ctx, state, min_len=state.pos + _bucket(T))
+    pos_before = state.pos
+    t0, captures = time.monotonic(), self._captures(ctx)
+    x, true_t, state, cache, kw = self._segment_setup(
+      ctx, request_id, np.asarray([[prev_token] + draft], dtype=np.int64))
+    if ctx.graphs is not None:
+      preds = graphs.verify_contiguous(ctx.graphs, ctx.params, x, cache, pos_before, ctx.cfg,
+                                       start_layer=ctx.shard.start_layer, route=self.quant_route)
+    else:
+      preds, _ = forward_argmax(ctx.params, x, cache, pos_before, ctx.cfg,
+                                start_layer=ctx.shard.start_layer, route=self.quant_route)
+    preds = preds[0, :true_t].cpu().numpy()
+    return self._accept(ctx, request_id, draft, preds, pos_before, False, t0, x.shape[1],
+                        captures, state.cache["k"].shape[2])
+
+  def _paged_spec_ok(self, state: _RequestState) -> bool:
+    """A request verifies natively on the arena when it lives in pool pages and
+    XOT_PAGED_SPEC is on."""
+    return self.paged_spec and state.cache is None and state.pages is not None
+
+  def _verify_draft_paged_sync(self, ctx: _ShardContext, request_id: str, prev_token: int,
+                               draft: list) -> Optional[list]:
+    """Verification native to the page arena: the request's page table is extended over
+    the padded bucket first (pool pages taken before any device work; a pool that cannot
+    give them returns None), then [prev_token] + draft run as one ragged query through
+    K4 (K4q) with every position's argmax: one graph replay on the card
+    (graphs.verify_paged, a static table of a power-of-two width), `forward_argmax_paged`
+    on the CPU. Rollback is whole pages: the table is cut back to pages_for(pos) and the
+    pages past it, all taken for this round, go back to the pool. The request never
+    leaves the arena: no gather, no commit copy."""
+    state = ctx.states[request_id]
+    self._discard_spec(request_id, state)
+    self._discard_batch_spec_for(ctx, request_id)
+    pos_before = state.pos
+    T = 1 + len(draft)
+    bucket = _bucket(T)
+    try:
+      self._prep_state_paged(ctx, request_id, bucket)
+    except CacheExhausted:
+      return None
+    pool = ctx.page_pool
+    x = np.zeros((1, bucket), dtype=np.int64)
+    x[0, :T] = [prev_token] + draft
+    xd = torch.as_tensor(x, device=self.device)
+    table = self._paged_table_for(ctx, state)
+    t0, captures = time.monotonic(), self._captures(ctx)
+    if ctx.graphs is not None:
+      preds = graphs.verify_paged(ctx.graphs, ctx.params, xd, pool.arena, table, pos_before, ctx.cfg,
+                                  start_layer=ctx.shard.start_layer, route=self.quant_route)
+    else:
+      preds, _ = forward_argmax_paged(ctx.params, xd, pool.arena, table, pos_before, ctx.cfg,
+                                      start_layer=ctx.shard.start_layer, route=self.quant_route)
+    preds = preds[0, :T].cpu().numpy()
+    accepted = self._accept(ctx, request_id, draft, preds, pos_before, True, t0, bucket, captures,
+                            None)
+    # Every page past pages_for(pos) was taken for this round: shared prefix pages are
+    # whole pages below pos_before and never sit in the cut tail.
+    freed = state.pages.trim_to(pool.pages_for(state.pos))
+    if freed:
+      pool.decref(freed)
+    self._vkv_window_release(ctx, state)
+    return accepted
+
+  def _unpage_state(self, ctx: _ShardContext, state: _RequestState, min_len: int = 0) -> None:
+    """Gather a paged request back into a contiguous cache (the reverse of the commit),
+    for XOT_PAGED_SPEC=0's verify only; its next paged chunk commits it again. Counted
+    in `_unpage_calls` (xot_kv_unpage_total)."""
+    self._unpage_calls += 1
+    pool = ctx.page_pool
+    need = min(max(min_len, state.pos, 1), ctx.max_cache_len)
+    length = ctx.cache_len
+    while length < need and length < ctx.max_cache_len:
+      length *= 2
+    length = min(length, ctx.max_cache_len)
+    cache = init_kv_cache(ctx.cfg, ctx.shard.get_layer_count(), 1, length, self.dtype, self.device,
+                          kv_quant=self.kv_quant is not None)
+    if len(state.pages):
+      # Released (windowed) slots resolve to the scratch page: zeros no query reads.
+      ids = vkv.resolve_page_table([state.pages], len(state.pages))[0]
+      gathered = gather_pages(pool.arena, ids)
+      cut = min(len(state.pages) * pool.page_size, length)
+      for name, buf in cache.items():
+        buf[:, :, :cut].copy_(gathered[name][:, :, :cut])
+      pool.decref(state.pages.live())
+    state.cache = cache
+    state.pages = None
+
+  # ----------------------------------------------- draft-model speculation
+
+  @staticmethod
+  def _draft_rid(request_id: str) -> str:
+    """The draft model's state of a request lives under its own key: the target's chunk
+    records (`_spec_next`) are keyed by the request id, and a draft state under the same
+    key would pop and misapply them."""
+    return request_id + "#draft"
+
+  async def draft_tokens(self, request_id: str, context_tokens, k: int) -> list:
+    """k greedy draft tokens from the resident draft model (XOT_DRAFT_MODEL), for the
+    target to verify in one forward. `context_tokens` is the whole accepted sequence
+    (prompt and output); the draft keeps its own cache of the request in its own context
+    and feeds only the suffix it has not seen. The draft model must share the target's
+    tokenizer. Returns [] when drafting is off, k < 2, the draft model is unknown or
+    failed to load (then drafting pauses for XOT_DRAFT_RETRY_S on this engine), or its
+    cache is full: the caller falls back to prompt lookup or plain decode."""
+    mid = self.draft_model
+    if not mid or k < 2 or time.monotonic() < self._draft_retry_at:
+      return []
+    shard = build_full_shard(mid, type(self).__name__)
+    if shard is None:
+      return []
+    try:
+      ctx = await self._ensure_ctx(shard)
+    except Exception as e:
+      if DEBUG >= 1:
+        print(f"draft model {mid} failed to load, pausing drafting {self._draft_retry_s:.0f} s: "
+              f"{e!r}")
+      self._draft_retry_at = time.monotonic() + self._draft_retry_s
+      return []
+    return await self._run(self._draft_sync, ctx, self._draft_rid(request_id),
+                           [int(t) for t in context_tokens], int(k))
+
+  def _draft_sync(self, ctx: _ShardContext, rid: str, context: list, k: int) -> list:
+    """Feed the draft state the accepted tokens it has not seen but the last (scan
+    groups of whole segments, then segments), then k greedy steps from the last one
+    through the context's decode graphs (the eager chunk on the CPU), on a contiguous
+    cache, at temperature 0 on the draft's own generator. Only the real token's slot is
+    committed: the k drafted slots are scratch that the next round's feed overwrites. []
+    when the draft cache is full."""
+    st = ctx.states.get(rid)
+    seen = st.pos if st is not None else 0
+    suffix = context[seen:]
+    if not suffix:
+      # The draft state is ahead of the accepted sequence: start it again.
+      self._drop_state(ctx, rid)
+      seen, suffix = 0, list(context)
+    try:
+      state = self._prep_state(ctx, rid, len(suffix) + k)
+      fill = np.asarray([suffix[:-1]], dtype=np.int64)
+      chunk = self._prefill_chunk()
+      done, n_fill = 0, fill.shape[1]
+      if n_fill:
+        split = (n_fill // chunk) * chunk
+        if split and self._scan_prefill(ctx, rid, fill[:, :split], chunk):
+          done = split
+        for off in range(done, n_fill, chunk):
+          self._forward_segment(ctx, rid, fill[:, off:off + chunk], fill=True)
+      pos = state.pos
+      it = _Pending(rid, state, int(suffix[-1]), k, 0.0, 0, 0.0, None)
+      toks = self._dispatch_contiguous(ctx, [it], self._device_values([[it.prev_token]], torch.int64),
+                                       k, torch.zeros((1,), dtype=torch.float32, device=self.device),
+                                       0, 0.0, generator=self._draft_generator)
+    except CacheExhausted:
+      return []
+    state.pos = pos + 1
+    state.last_used = time.monotonic()
+    return [int(t) for t in toks[0].cpu().tolist()]
+
   # ------------------------------------------------------ sampling extras
 
   def _build_extras(self, ctx: _ShardContext, sampling: dict) -> graphs.SamplerExtras:
@@ -1236,22 +1628,28 @@ class TorchShardInferenceEngine(InferenceEngine):
     """Up to `num_tokens` decoded tokens with sampling on the device, for a request
     whose prompt is already prefilled. None when the shard does not span the whole
     model. A coalesced batch runs at the smallest size its rows asked for, so the
-    returned length is authoritative. `next_size` (the caller's next chunk) is
-    accepted for the Node's contract; this engine dispatches nothing ahead."""
+    returned length is authoritative. `next_size` is the caller's next chunk, which a
+    solo contiguous chunk dispatches ahead (XOT_OVERLAP_CHUNKS). Recency is refreshed
+    for the request and for its model context, as in JAX."""
     if not (shard.is_first_layer and shard.is_last_layer) or num_tokens < 1:
       return None
-    ctx = self._ctx
-    if ctx is None or ctx.shard != shard:
-      raise RequestStateLost(f"request {request_id}: model context {shard.model_id} gone mid-generation")
+    ctx = self._contexts.get(shard)
+    if ctx is None:
+      raise RequestStateLost(f"request {request_id}: model context {shard.model_id} evicted "
+                             f"mid-generation")
     state = ctx.states.get(request_id)
     if state is None:
       raise RequestStateLost(f"request {request_id}: device state evicted mid-generation")
+    self._contexts.move_to_end(shard)
     ctx.states.move_to_end(request_id)
-    if state.pos + num_tokens > ctx.max_cache_len:
-      if state.pos + 1 > ctx.max_cache_len:
-        raise CacheExhausted(f"request {request_id}: cache full at {state.pos}/{ctx.max_cache_len}")
+    # Capacity by the committed position: a chunk in flight has advanced state.pos by its
+    # size, and judging by that would end the request a chunk early.
+    pos = self._committed_pos(ctx, request_id, state)
+    if pos + num_tokens > ctx.max_cache_len:
+      if pos + 1 > ctx.max_cache_len:
+        raise CacheExhausted(f"request {request_id}: cache full at {pos}/{ctx.max_cache_len}")
       # Shrink to the cache tail: the largest power of two that still fits.
-      tail = ctx.max_cache_len - state.pos
+      tail = ctx.max_cache_len - pos
       num_tokens = min(num_tokens, 1 << (tail.bit_length() - 1))
     if self.decode_batch > 1 and state.extras is None:
       # Continuous batching: a lone request flows through as a batch of one. A request
@@ -1260,9 +1658,10 @@ class TorchShardInferenceEngine(InferenceEngine):
       if ctx.batcher is None:
         ctx.batcher = _DecodeBatcher(self, ctx)
       return await ctx.batcher.submit(request_id, state, int(prev_token), num_tokens,
-                                      float(temp), int(top_k), float(top_p))
+                                      float(temp), int(top_k), float(top_p),
+                                      int(next_size) if next_size else None)
     item = _Pending(request_id, state, int(prev_token), num_tokens, float(temp), int(top_k),
-                    float(top_p), None)
+                    float(top_p), None, next_size=int(next_size) if next_size else None)
     out = await self._run(self._decode_batch_sync, ctx, [item], num_tokens, int(top_k),
                           float(top_p))
     return out[0]
@@ -1282,7 +1681,7 @@ class TorchShardInferenceEngine(InferenceEngine):
       raise AssertionError("a request with sampling extras decodes in a chunk of its own")
     t0, captures = time.monotonic(), self._captures(ctx)
     # The KV each row reads: K2 and K3 read a row's resident keys, not its allocation.
-    rows = [(it.state.pos, self.paged, None) for it in items]
+    rows = [(self._committed_pos(ctx, it.request_id, it.state), self.paged, None) for it in items]
     if self.paged:
       out = self._decode_batch_paged_sync(ctx, items, num_tokens, top_k, top_p)
     else:
@@ -1297,9 +1696,32 @@ class TorchShardInferenceEngine(InferenceEngine):
 
   def _decode_batch_contiguous_sync(self, ctx: _ShardContext, items: List[_Pending],
                                     num_tokens: int, top_k: int, top_p: float) -> List[np.ndarray]:
-    """The contiguous chunk of _decode_batch_sync."""
+    """The contiguous chunk of _decode_batch_sync: a solo chunk (`_decode_solo_sync`)
+    or a batch (`_decode_multi_sync`), each of which may run the next one ahead."""
+    if len(items) == 1:
+      return [self._decode_solo_sync(ctx, items[0], num_tokens, top_k, top_p)]
+    return self._decode_multi_sync(ctx, items, num_tokens, top_k, top_p)
+
+  def _device_values(self, values: list, dtype: torch.dtype) -> torch.Tensor:
+    """Host values on the engine's device. On the card through pinned memory and a
+    copy that does not wait: a plain host-to-device copy synchronizes the stream, and
+    with a chunk in flight that would wait for it."""
+    t = torch.tensor(values, dtype=dtype)
+    if self.device.type != "cuda":
+      return t
+    return t.pin_memory().to(self.device, non_blocking=True)
+
+  def _dispatch_contiguous(self, ctx: _ShardContext, items: List[_Pending], toks_in: torch.Tensor,
+                           num_tokens: int, temps: torch.Tensor, top_k: int, top_p: float,
+                           generator: Optional[torch.Generator] = None) -> torch.Tensor:
+    """Enqueue one decode chunk over the items' contiguous caches from `toks_in` [B, 1]
+    (on the device) at their current positions, and advance the positions; returns the
+    [B, num_tokens] tokens on the device, not yet read back. Every member grows to a
+    common cache length first. On the card the chunk is replays of the captured step
+    over the context's slab (models/graphs.decode_contiguous), on the CPU the eager
+    chunk (models/generate.decode_chunk_batched). `generator` overrides the request's
+    (`_generator_for`)."""
     states = [it.state for it in items]
-    toks_in = torch.tensor([[it.prev_token] for it in items], dtype=torch.int64, device=self.device)
     target = max(max(s.pos + num_tokens for s in states),
                  max(s.cache["k"].shape[2] for s in states))
     for state in states:
@@ -1308,10 +1730,9 @@ class TorchShardInferenceEngine(InferenceEngine):
     if len({s.cache["k"].shape for s in states}) != 1:
       raise AssertionError(f"batched decode needs one cache shape, got "
                            f"{sorted({tuple(s.cache['k'].shape) for s in states})}")
-    pos = torch.tensor([s.pos for s in states], dtype=torch.int32, device=self.device)
-    temps = torch.tensor([it.temp for it in items], dtype=torch.float32, device=self.device)
+    pos = self._device_values([s.pos for s in states], torch.int32)
     ex = states[0].extras or graphs.PLAIN
-    generator = self._generator_for(ex, items[0].request_id, states[0].pos)
+    generator = generator or self._generator_for(ex, items[0].request_id, states[0].pos)
     if ctx.graphs is not None:
       # The card: replays of the captured step over the context's slab; each request's
       # cache is updated in place.
@@ -1329,10 +1750,175 @@ class TorchShardInferenceEngine(InferenceEngine):
       report = ex.absorb(rest)
     if report is not None:
       self._record_logprobs(items[0].request_id, *(t[0] for t in report))
-    host = toks.cpu().numpy().astype(np.int64)
     for state in states:
       self._advance(ctx, state, num_tokens)
+    return toks
+
+  def _read_back(self, ctx: _ShardContext, toks: torch.Tensor, ahead) -> np.ndarray:
+    """A chunk's tokens on the host. `ahead` is (host tensor, event) from graphs.host_copy
+    when the next chunk was enqueued behind this one: waiting on the event waits for
+    this chunk alone."""
+    if ahead is not None:
+      host, event = ahead
+      event.synchronize()
+      return host.numpy().astype(np.int64)
+    return toks.cpu().numpy().astype(np.int64)
+
+  def _decode_solo_sync(self, ctx: _ShardContext, it: _Pending, num_tokens: int, top_k: int,
+                        top_p: float) -> np.ndarray:
+    """One request's chunk, with the JAX engine's overlap (XOT_OVERLAP_CHUNKS): first
+    resolve the chunk the last call dispatched ahead (a hit when its input token, size,
+    temperature and sampler match and the position is where it left it; a miss rolls the
+    position back), then dispatch the caller's next chunk (`next_size`) from this chunk's
+    last token on the device, and only then read this chunk back. A chunk runs ahead for
+    a request with no sampling extras, no other request used in the last second (its
+    next chunk would join a batch and miss), and room under max_cache_len.
+
+    Where the card could quietly lose the overlap, or get it wrong:
+
+    - `.cpu()` waits for everything the stream holds: with chunk N+1 enqueued, reading
+      chunk N that way would wait for N+1 too, with no error. So chunk N's tokens are
+      copied into pinned host memory on the graph cache's stream, and an event recorded
+      behind the copy, BEFORE N+1 is enqueued; the host then waits on that event alone
+      (graphs.host_copy). The records `_run_steps` returns are clones made on that
+      stream before N+1's replays, which rewrite the token record in place.
+    - Chunk N+1's input token is chunk N's last one, copied device to device into the
+      step's static token buffer; its positions and temperatures reach the card through
+      pinned memory without a synchronizing copy (`_device_values`).
+    - A sampled chunk ahead draws from the engine's generator in the order the chunks
+      run, as JAX's `_sample_calls` fold does: an all-hits run samples the stream of the
+      overlap-off run, and a miss leaves the generator advanced, as in JAX. A seeded or
+      extras request never runs ahead.
+    - A key seen for the first time is captured during the dispatch ahead, and a capture
+      synchronizes the card (graphs.capture_guard): correct, but that chunk boundary
+      then overlaps nothing.
+    - Chunk N+1 stacks into the slab again from the caches that chunk N split back into;
+      stream order makes that right, at the cost of the two slab copies a chunk pays."""
+    rid, state = it.request_id, it.state
+    # A solo chunk cannot resolve a batch dispatched ahead: its members roll back.
+    self._discard_batch_spec_for(ctx, rid)
+    spec = self._spec_next.pop(rid, None)
+    hit = (spec is not None and state.extras is None and spec["prev"] == it.prev_token
+           and spec["n"] == num_tokens and spec["temp"] == it.temp and spec["top_k"] == top_k
+           and spec["top_p"] == top_p and state.pos == spec["pos"] + spec["n"])
+    if spec is not None:
+      self._overlap_hits += hit
+      self._overlap_misses += not hit
+      if not hit and state.pos == spec["pos"] + spec["n"]:
+        state.pos = spec["pos"]
+    if hit:
+      toks, temps = spec["toks"], spec["temps"]
+    else:
+      temps = self._device_values([it.temp], torch.float32)
+      toks = self._dispatch_contiguous(ctx, [it], self._device_values([[it.prev_token]], torch.int64),
+                                       num_tokens, temps, top_k, top_p)
+    nxt = int(it.next_size or 0)
+    now = time.monotonic()
+    others_active = any(st is not state and now - st.last_used < 1.0
+                        for st in list(ctx.states.values()))
+    ahead = record = None
+    if (nxt and self.overlap and state.extras is None and not others_active
+        and state.pos + nxt <= ctx.max_cache_len):
+      if ctx.graphs is not None:
+        ahead = graphs.host_copy(ctx.graphs, toks)
+      pos_before = state.pos
+      ntoks = self._dispatch_contiguous(ctx, [it], toks[:, -1:], nxt, temps, top_k, top_p)
+      record = {"toks": ntoks, "n": nxt, "pos": pos_before, "temp": it.temp, "top_k": top_k,
+                "top_p": top_p, "temps": temps}
+    host = self._read_back(ctx, toks, ahead)[0]
+    if record is not None:
+      record["prev"] = int(host[-1])
+      self._spec_next[rid] = record
+    state.last_used = time.monotonic()
+    return host
+
+  def _decode_multi_sync(self, ctx: _ShardContext, items: List[_Pending], num_tokens: int,
+                         top_k: int, top_p: float) -> List[np.ndarray]:
+    """A batched chunk of 2..B requests. Any solo chunk a member dispatched ahead is
+    discarded first. With XOT_OVERLAP_BATCH (off by default, as in JAX: a batch whose
+    membership changes from cycle to cycle mostly misses) the next batch runs ahead from
+    this one's last tokens on the device, and the next cycle takes it when the members,
+    sizes, temperatures, sampler and input tokens all match; otherwise every member
+    rolls back."""
+    for it in items:
+      self._discard_spec(it.request_id, it.state)
+    states = [it.state for it in items]
+    rids = tuple(it.request_id for it in items)
+    temps_key = tuple(float(it.temp) for it in items)
+    prevs = [int(it.prev_token) for it in items]
+    bspec = ctx.batch_spec
+    bhit = (bspec is not None and bspec["rids"] == rids and bspec["n"] == num_tokens
+            and bspec["temps_key"] == temps_key and bspec["top_k"] == top_k
+            and bspec["top_p"] == top_p and bspec["prev"] == prevs
+            and all(a is b for a, b in zip(bspec["states"], states))
+            and all(st.pos == p + num_tokens for st, p in zip(states, bspec["pos"])))
+    if bspec is not None:
+      self._overlap_batch_hits += bhit
+      self._overlap_batch_misses += not bhit
+    if bhit:
+      ctx.batch_spec = None
+      out, temps = bspec["toks"], bspec["temps"]
+    else:
+      self._discard_batch_spec(ctx)
+      temps = self._device_values(list(temps_key), torch.float32)
+      out = self._dispatch_contiguous(ctx, items, self._device_values([[t] for t in prevs], torch.int64),
+                                      num_tokens, temps, top_k, top_p)
+    next_sizes = [it.next_size for it in items]
+    ahead = record = None
+    if (self.overlap_batch and all(next_sizes) and all(s.extras is None for s in states)):
+      n2 = min(int(n) for n in next_sizes)
+      if all(s.pos + n2 <= ctx.max_cache_len for s in states):
+        if ctx.graphs is not None:
+          ahead = graphs.host_copy(ctx.graphs, out)
+        pos2 = [s.pos for s in states]
+        toks2 = self._dispatch_contiguous(ctx, items, out[:, -1:], n2, temps, top_k, top_p)
+        record = {"rids": rids, "n": n2, "toks": toks2, "pos": pos2, "temps_key": temps_key,
+                  "temps": temps, "top_k": top_k, "top_p": top_p, "states": list(states)}
+    host = self._read_back(ctx, out, ahead)
+    if record is not None:
+      record["prev"] = [int(host[i, -1]) for i in range(len(states))]
+      ctx.batch_spec = record
+    now = time.monotonic()
+    for state in states:
+      state.last_used = now
     return [host[i] for i in range(len(states))]
+
+  def _discard_spec(self, request_id: str, state: Optional[_RequestState] = None) -> None:
+    """Drop a request's chunk dispatched ahead and roll its position back. Every other
+    touch of the request's device state (a segment forward, a verify, a batched chunk,
+    clearing it) calls this first: it must see the committed position. The rolled-back
+    slots hold the unused chunk's K/V past the position, where no query reads them and
+    the next write overwrites them."""
+    spec = self._spec_next.pop(request_id, None)
+    if spec is not None and state is not None and state.pos == spec["pos"] + spec["n"]:
+      state.pos = spec["pos"]
+
+  def _discard_batch_spec(self, ctx: _ShardContext) -> None:
+    """Drop the context's batch dispatched ahead: every member rolls back."""
+    spec, ctx.batch_spec = ctx.batch_spec, None
+    if spec is None:
+      return
+    for st, p in zip(spec["states"], spec["pos"]):
+      if st.pos == p + spec["n"]:
+        st.pos = p
+
+  def _discard_batch_spec_for(self, ctx: _ShardContext, request_id: str) -> None:
+    """Discard the batch dispatched ahead if `request_id` is one of its members."""
+    if ctx.batch_spec is not None and request_id in ctx.batch_spec["rids"]:
+      self._discard_batch_spec(ctx)
+
+  def _committed_pos(self, ctx: _ShardContext, request_id: str, state: _RequestState) -> int:
+    """The request's position without a chunk in flight for it: what capacity checks
+    judge by."""
+    spec = self._spec_next.get(request_id)
+    if spec is not None and state.pos == spec["pos"] + spec["n"]:
+      return spec["pos"]
+    b = ctx.batch_spec
+    if b is not None and request_id in b["rids"]:
+      i = b["rids"].index(request_id)
+      if state.pos == b["pos"][i] + b["n"]:
+        return b["pos"][i]
+    return state.pos
 
   # ------------------------------------------------------------ paged KV
   #
@@ -1417,6 +2003,8 @@ class TorchShardInferenceEngine(InferenceEngine):
     before any device work, for this request only."""
     pool = self._ensure_page_pool(ctx)
     state = self._get_or_create_paged_state(ctx, request_id)
+    self._discard_spec(request_id, state)
+    self._discard_batch_spec_for(ctx, request_id)
     needed = state.pos + bucket
     if needed > ctx.max_cache_len:
       raise CacheExhausted(
@@ -1455,6 +2043,10 @@ class TorchShardInferenceEngine(InferenceEngine):
     over the shared arena. The table width is bucketed to a power of two."""
     pool = self._ensure_page_pool(ctx)
     states = [it.state for it in items]
+    for it in items:
+      # The paged path runs no chunk ahead; a record left by the contiguous path goes.
+      self._discard_spec(it.request_id, it.state)
+      self._discard_batch_spec_for(ctx, it.request_id)
     for it in items:
       if it.state.pos + 1 > ctx.max_cache_len:
         raise CacheExhausted(f"request {it.request_id}: cache full at "
@@ -1549,13 +2141,16 @@ class TorchShardInferenceEngine(InferenceEngine):
     return len(plan)
 
   def page_pool_stats(self) -> Optional[Dict[str, int]]:
-    """Page-pool occupancy, or None when no pool exists."""
-    pool = self._ctx.page_pool if self._ctx is not None else None
-    if pool is None:
+    """Page-pool occupancy summed over the resident contexts, or None when no pool
+    exists."""
+    pools = [c.page_pool for c in list(self._contexts.values()) if c.page_pool is not None]
+    if not pools:
       return None
-    return {"pages_in_use": pool.pages_in_use, "free_pages": pool.free_pages,
-            "peak_pages_in_use": pool.peak_pages_in_use,
-            "fragmentation": pool.fragmentation(), "defrag_moves": self.defrag_moves}
+    return {"pages_in_use": sum(p.pages_in_use for p in pools),
+            "free_pages": sum(p.free_pages for p in pools),
+            "peak_pages_in_use": sum(p.peak_pages_in_use for p in pools),
+            "fragmentation": sum(p.fragmentation() for p in pools),
+            "defrag_moves": self.defrag_moves}
 
   # ------------------------------------------------------------ prefix cache
 
@@ -1853,8 +2448,8 @@ class TorchShardInferenceEngine(InferenceEngine):
     context only (a prefetch never loads a model), through the batcher's prefill lane
     when one exists (decode first). True when bytes were restored."""
     store = self._host_kv
-    ctx = self._ctx
-    if store is None or len(store) == 0 or ctx is None or ctx.shard != shard:
+    ctx = self._contexts.get(shard)
+    if store is None or len(store) == 0 or ctx is None:
       return False
     try:
       toks = np.asarray(ctx.tokenizer.encode(prompt), dtype=np.int64).reshape(-1)
@@ -1873,10 +2468,17 @@ class TorchShardInferenceEngine(InferenceEngine):
   # ------------------------------------------------------------ KV state
 
   async def clear_request(self, request_id: str) -> None:
+    """Free a request's state in every context, its draft model's state (`rid#draft`)
+    too, with the chunk it has dispatched ahead; a batch dispatched ahead with it as a
+    member rolls every member back (on the executor: those positions are never moved
+    under a running dispatch)."""
     def _clear() -> None:
-      if self._ctx is not None:
-        self._drop_state(self._ctx, request_id)
-    await self._run(_clear)
+      self._spec_next.pop(request_id, None)
+      for ctx in list(self._contexts.values()):
+        self._discard_batch_spec_for(ctx, request_id)
+        for rid in (request_id, self._draft_rid(request_id)):
+          self._drop_state(ctx, rid)
+    await self._run(_clear, oom_as_cache_exhausted=False)
 
   def _drop_state(self, ctx: _ShardContext, request_id: str) -> None:
     state = ctx.states.pop(request_id, None)
@@ -1904,6 +2506,10 @@ class TorchShardInferenceEngine(InferenceEngine):
     """State + capacity for `bucket` more tokens (the padded bucket, since the
     padding is written to the cache too)."""
     state = self._get_or_create_state(ctx, request_id, min_len=bucket)
+    # A segment forward (a prefill slice, a per-token ring step, a verify) supersedes a
+    # chunk dispatched ahead: the capacity below is the committed position's.
+    self._discard_spec(request_id, state)
+    self._discard_batch_spec_for(ctx, request_id)
     needed = state.pos + bucket
     if needed > ctx.max_cache_len:
       raise CacheExhausted(

@@ -1,8 +1,9 @@
-"""Forward + on-device sampling, multi-token decode alone or batched, and the
-segment-scan prefill.
+"""Forward + on-device sampling, multi-token decode alone or batched, the
+segment-scan prefill, and draft verification's forward + argmax.
 
 The port of xotorch_tpu/models/generate.py (`forward_sample`, `decode_chunk`,
-`decode_chunk_batched`, `decode_chunk_paged`, `scan_groups`, `prefill_scan`). Where JAX
+`decode_chunk_batched`, `decode_chunk_paged`, `scan_groups`, `prefill_scan`,
+`forward_argmax_paged`). Where JAX
 runs a decode chunk as ONE XLA program (`lax.scan` over K steps under `jax.jit`), the
 port splits out the step: `decode_step` is one forward + sampling over buffers it
 updates in place (token in and out, positions, the cache or the page arena), with no
@@ -64,6 +65,40 @@ def forward_sample(
   if top_lp >= 0:
     return sample_logits_logprobs(logits, top_lp=top_lp, **kw), cache
   return sample_logits(logits, **kw), cache
+
+
+def forward_argmax(
+  params,
+  x: torch.Tensor,  # [1, T_pad] tokens: [prev_token] + draft, zero-padded to a bucket
+  cache: Dict[str, torch.Tensor],
+  start_pos: Union[int, torch.Tensor],  # the request's committed position: int, or [1]
+  cfg: ModelConfig,
+  page_table: Optional[torch.Tensor] = None,  # [1, max_pages]: `cache` is the page arena
+  start_layer: int = 0,
+  route: Optional[QuantRoute] = None,
+):
+  """Draft verification's forward: x through the whole model at `start_pos` (K2 at
+  T > 1 on a contiguous cache, K4 through the page table on the arena) and the greedy
+  argmax of every position. Returns ([1, T_pad] int64 argmax, the cache, updated in
+  place). Positions past the true draft are padding: their K/V land past the position
+  the caller rolls back to, where no query reads them and the next write overwrites
+  them."""
+  logits, cache = forward_shard(params, x, cache, start_pos, cfg=cfg, is_first=True, is_last=True,
+                                use_flash_decode=True, start_layer=start_layer,
+                                page_table=page_table, route=route)
+  return torch.argmax(logits, dim=-1), cache
+
+
+def forward_argmax_paged(params, x: torch.Tensor, arena: Dict[str, torch.Tensor],
+                         page_table: torch.Tensor, start_pos: Union[int, torch.Tensor],
+                         cfg: ModelConfig, start_layer: int = 0,
+                         route: Optional[QuantRoute] = None):
+  """JAX's `forward_argmax_paged`: `forward_argmax` over the page arena, [prev_token] +
+  draft as a T > 1 ragged query through the request's page table (K4, K4q on an int8
+  arena), which the caller has already extended over the padded bucket. Returns
+  ([1, T_pad] argmax, the arena)."""
+  return forward_argmax(params, x, arena, start_pos, cfg, page_table=page_table,
+                        start_layer=start_layer, route=route)
 
 
 def decode_step(

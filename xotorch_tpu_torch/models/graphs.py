@@ -1,5 +1,5 @@
-"""The fused device programs on the card: a decode step and a prefill scan group,
-each captured once as a CUDA graph and replayed.
+"""The fused device programs on the card: a decode step, a prefill scan group and a
+draft verification, each captured once as a CUDA graph and replayed.
 
 JAX runs a decode chunk as one XLA program (`lax.scan` over K steps under `jax.jit`)
 and a long prompt's equal segments as one program for each power-of-two group
@@ -22,6 +22,12 @@ key, with the static buffers it was captured on.
   request's bias, penalties or min-p capture no graph of their own.
 - A prefill graph is `prefill_scan` over one group of g segments of `chunk` tokens;
   keys (g, chunk, S or the table width, is_first).
+- A verify graph is draft verification's forward + argmax (`forward_argmax`) over
+  [prev_token] + draft padded to a power-of-two bucket T_pad: over the slab at one row
+  (contiguous; keys T_pad and the cache's leaves, K2 at T > 1) or through a static
+  [1, width] page table over the arena (keys T_pad, the width and the arena, K4). It
+  returns the [1, T_pad] argmax on the device, as JAX jits the verify forward once a
+  bucket.
 - Static addresses. A replay reads and writes the addresses it was captured on. The
   page arena is static by construction; contiguous caches are per request and are
   reallocated when they grow, so the requests of a contiguous chunk are copied into
@@ -68,7 +74,7 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from xotorch_tpu_torch.models.config import ModelConfig
-from xotorch_tpu_torch.models.generate import decode_step, prefill_scan, scan_groups
+from xotorch_tpu_torch.models.generate import decode_step, forward_argmax, prefill_scan, scan_groups
 from xotorch_tpu_torch.models.transformer import QuantRoute
 from xotorch_tpu_torch.ops import flash_attention, flash_decode, int4_matmul, int8_matmul, paged_attention
 
@@ -513,6 +519,85 @@ def decode_paged(gc: GraphCache, params, arena: Cache, page_table: torch.Tensor,
     _fill_extras(st, extras)
     records = _run_steps(gc, prog, num_tokens, gumbel)
     return _finish(prog, records, B, extras)
+
+
+def host_copy(gc: GraphCache, t: torch.Tensor) -> Tuple[torch.Tensor, Any]:
+  """A decode chunk's tokens on their way to the host without waiting for what the
+  stream runs after them: copied into pinned host memory on the cache's stream, with
+  an event recorded behind the copy. Returns (the host tensor, the event); the host
+  tensor holds the tokens once `event.synchronize()` returns. (`t.cpu()` would wait
+  for the whole stream, a chunk enqueued after `t` too.)"""
+  with gc.on_stream():
+    host = torch.empty(tuple(t.shape), dtype=t.dtype, pin_memory=True)
+    host.copy_(t, non_blocking=True)
+    event = torch.cuda.Event()
+    event.record()
+  return host, event
+
+
+# ------------------------------------------------------------------ verify
+
+def _verify_program(gc: GraphCache, key: tuple, params, target: Cache, cfg: ModelConfig,
+                    T_pad: int, start_layer: int, route: Optional[QuantRoute],
+                    table_width: int = 0) -> Program:
+  device = gc.device
+
+  def make_statics():
+    st = {"x": torch.zeros((1, T_pad), dtype=torch.int64, device=device),
+          "pos": torch.zeros((1,), dtype=torch.int32, device=device)}
+    if table_width:
+      st["table"] = torch.zeros((1, table_width), dtype=torch.int32, device=device)
+    return st
+
+  def make_body(st):
+    return lambda: forward_argmax(params, st["x"], target, st["pos"], cfg,
+                                  page_table=st.get("table"), start_layer=start_layer,
+                                  route=route)[0]
+
+  return gc.program(key, make_statics, make_body, uses_slab=not table_width)
+
+
+def verify_contiguous(gc: GraphCache, params, x: torch.Tensor, cache: Cache, start_pos: int,
+                      cfg: ModelConfig, start_layer: int = 0,
+                      route: Optional[QuantRoute] = None) -> torch.Tensor:
+  """`forward_argmax` of draft verification as one graph replay: the request's
+  contiguous cache copied into the slab at one row, [prev_token] + draft ([1, T_pad],
+  zero-padded to a power-of-two bucket) forwarded from `start_pos` through K2 (K2q),
+  the cache copied back. Keys: the bucket and the cache's leaves. Returns the [1, T_pad]
+  argmax on the device, the program's output buffer: read it before the next replay."""
+  T_pad = x.shape[1]
+  leaves = slab_leaves(cache, 1)
+  key = ("verify", "contiguous", T_pad, tuple((n, s, d) for n, (s, d) in leaves.items()),
+         start_layer, route)
+  with gc.on_stream():
+    slab = gc.slab_views(leaves)
+    stack_into(slab, [cache])
+    prog = _verify_program(gc, key, params, slab, cfg, T_pad, start_layer, route)
+    prog.statics["x"].copy_(x)
+    prog.statics["pos"].fill_(start_pos)
+    preds = gc.run(prog)
+    split_from(slab, [cache])
+    return preds
+
+
+def verify_paged(gc: GraphCache, params, x: torch.Tensor, arena: Cache, page_table: torch.Tensor,
+                 start_pos: int, cfg: ModelConfig, start_layer: int = 0,
+                 route: Optional[QuantRoute] = None) -> torch.Tensor:
+  """`forward_argmax_paged` as one graph replay over the page arena: the request's
+  [1, width] page table (already extended over the bucket; the width a power of two) in
+  a static buffer, [prev_token] + draft read as a ragged query through K4 (K4q). Keys:
+  the bucket, the table width and the arena. Returns the [1, T_pad] argmax on the
+  device, the program's output buffer."""
+  T_pad, width = x.shape[1], page_table.shape[1]
+  key = ("verify", "paged", T_pad, width, arena["k"].data_ptr(),
+         tuple((n, tuple(t.shape), t.dtype) for n, t in arena.items()), start_layer, route)
+  with gc.on_stream():
+    prog = _verify_program(gc, key, params, arena, cfg, T_pad, start_layer, route,
+                           table_width=width)
+    prog.statics["x"].copy_(x)
+    prog.statics["pos"].fill_(start_pos)
+    prog.statics["table"].copy_(page_table)
+    return gc.run(prog)
 
 
 # ------------------------------------------------------------------ prefill

@@ -31,7 +31,13 @@ over the opaque-status bus, where its metric summary also goes on the topology c
 
 When one partition spans the whole model, process_sampled_token takes the fused
 decode loop instead: chunks of XOT_DECODE_CHUNK tokens, doubling up to
-XOT_DECODE_CHUNK_MAX, through the engine's generate_chunk. Peers reconcile membership
+XOT_DECODE_CHUNK_MAX, through the engine's generate_chunk, each call naming the size
+of the next (`next_size`) so the engine can run it ahead. With XOT_SPECULATE > 0 (8
+when XOT_DRAFT_MODEL names a draft model) a greedy request without reshaping extras
+speculates between chunks: a draft from the draft model (only while it is the one
+outstanding request), else the continuation of the last n-gram's earlier occurrence in
+prompt and output (`_lookup_draft`), verified by the engine's verify_draft in one
+forward; two bonus-only rounds in a row turn speculation off for the request. Peers reconcile membership
 every `topology_interval` seconds and re-gossip the topology with a visited-set
 crawl. A peer's capabilities in a view are what that peer last reported of itself,
 and its discovery entry (a manual config's, written by hand) only until it has
@@ -49,12 +55,14 @@ checks every peer each XOT_HEALTH_INTERVAL_S (5 s) and evicts one that fails
 XOT_HEALTH_FAILS (2) checks in a row: its metric row goes, a flight snapshot is frozen,
 the ring repartitions at once and discovery cannot re-admit it for
 XOT_EVICT_COOLDOWN_S (30 s). `heal_ring` (the API's restart path) evicts after one
-failed check. Every abort goes through _abort_request, so every surviving peer frees
-the request's state and KV. An origin request passes the fault injector's
+failed check. A ring peer that discovery stops listing and that fails one check then
+is evicted too (JAX drops it uncounted: a dead peer that discovery's own check saw
+first left no eviction, event or cooldown behind). Every abort goes through
+_abort_request, so every surviving peer frees the request's state and KV. An origin request passes the fault injector's
 "ProcessPrompt" rules (networking/faults.py), the gray-failure tap of a single node.
 
-Not ported yet (ROADMAP): the fused in-process ring, device-resident hops, training and
-checkpoints.
+Not ported yet (ROADMAP): the fused in-process ring and its speculation
+(`verify_draft_ring`), device-resident hops, training and checkpoints.
 """
 from __future__ import annotations
 
@@ -99,6 +107,34 @@ RING_MAP_KEY = "xot_ring_map"
 # The request's remaining end-to-end budget in seconds at send time: every peer derives
 # its own absolute deadline from it (monotonic clocks do not compare across hosts).
 DEADLINE_KEY = "xot_deadline_s"
+
+
+
+def _lookup_draft(context: List[int], k: int, window: int = 2048) -> List[int]:
+  """Prompt-lookup drafting (JAX's): the continuation of the most recent earlier
+  occurrence of the context's last 3-gram (else 2-gram) in its last `window` tokens
+  (XOT_SPECULATE_WINDOW). The newest occurrence with k tokens after it wins; otherwise
+  the longest continuation of at least two tokens. [] when nothing repeats, k < 2 or
+  the context is shorter than four tokens."""
+  if k < 2 or len(context) < 4:
+    return []
+  context = context[-window:]
+  for n in (3, 2):
+    if len(context) <= n:
+      continue
+    tail = context[-n:]
+    best: List[int] = []
+    for i in range(len(context) - n - 1, -1, -1):
+      if context[i:i + n] == tail:
+        cont = context[i + n:i + n + k]
+        if len(cont) == k:
+          return cont
+        if len(cont) > len(best):
+          best = cont
+    if len(best) >= 2:
+      return best
+  return []
+
 
 # A busy local engine defers a stall abort for at most this many stall timeouts: one
 # first request's graph captures fit, while an engine kept busy by other requests
@@ -189,6 +225,13 @@ class Node:
     self._request_sampling: Dict[str, dict] = {}
     self._request_eos: Dict[str, Tuple[int, ...]] = {}
     self._request_started: Dict[str, float] = {}
+    # Speculative decoding: each request's prompt ids on this sampler (the lookup's
+    # source), the draft model (XOT_DRAFT_MODEL; it implies a depth of 8) and the draft
+    # depth (XOT_SPECULATE, 0 = off) and lookup window.
+    self._request_prompt_tokens: Dict[str, List[int]] = {}
+    self.draft_model = knobs.get_str("XOT_DRAFT_MODEL", "") or ""
+    self.speculate_tokens = knobs.get_int("XOT_SPECULATE", 8 if self.draft_model else 0)
+    self.speculate_window = knobs.get_int("XOT_SPECULATE_WINDOW")
     self._request_ring_map: "OrderedDict[str, list]" = OrderedDict()
     # Receiver-side hop dedup: per-request bounded sets of hop sequence ids.
     self._hop_seen: "OrderedDict[str, OrderedDict]" = OrderedDict()
@@ -348,12 +391,12 @@ class Node:
     while True:
       await asyncio.sleep(self.health_interval_s)
       try:
-        await self._health_sweep(self.health_fail_threshold)
+        await self._health_sweep(self.health_fail_threshold, by="health monitor")
       except Exception as e:  # the loop must outlive one failed sweep
         if DEBUG >= 1:
           print(f"health monitor error: {e!r}")
 
-  async def _health_sweep(self, evict_after: int) -> None:
+  async def _health_sweep(self, evict_after: int, by: str) -> None:
     for peer in list(self.peers):
       try:
         ok = await peer.health_check()
@@ -367,13 +410,15 @@ class Node:
       self._health_fails[peer.id()] = fails
       self.flight.record("health.check_failed", None, peer=peer.id(), fails=fails)
       if fails >= evict_after:
-        await self._evict_peer(peer)
+        await self._evict_peer(peer, by)
 
-  async def _evict_peer(self, peer) -> None:
+  async def _evict_peer(self, peer, by: str) -> None:
     """Drop the peer, bar it from discovery for the cooldown, drop its metric summary
     (a dead peer's last row must not freeze the ring's percentiles), freeze a
     node-scope flight snapshot, disconnect, and repartition now: the dead peer leaves
     the partition table before any new or restarted request pins its ring map."""
+    if all(p.id() != peer.id() for p in self.peers):
+      return  # the health monitor, heal_ring or a reconcile got there first
     if DEBUG >= 1:
       print(f"Evicting unhealthy peer {peer.id()}@{peer.addr()}")
     self.peers = [p for p in self.peers if p.id() != peer.id()]
@@ -384,7 +429,7 @@ class Node:
     self._peer_metrics_at.pop(peer.id(), None)
     self.metrics.peer_evictions_total.inc()
     self.metrics.peers.set(len(self.peers))
-    self.flight.record("peer.evicted", None, peer=peer.id(), cooldown_s=self.evict_cooldown_s)
+    self.flight.record("peer.evicted", None, peer=peer.id(), cooldown_s=self.evict_cooldown_s, by=by)
     self.flight.freeze(None, reason=f"peer_evicted:{peer.id()}")
     try:
       await peer.disconnect()
@@ -396,6 +441,13 @@ class Node:
     except Exception as e:
       if DEBUG >= 1:
         print(f"post-eviction repartition failed (the next periodic sweep retries): {e!r}")
+
+  @staticmethod
+  async def _answers(peer) -> bool:
+    try:
+      return bool(await peer.health_check())
+    except Exception:
+      return False
 
   def _is_evicted(self, peer_id: str) -> bool:
     until = self._evicted_until.get(peer_id)
@@ -410,7 +462,7 @@ class Node:
     """The API's restart path: a request just died, so one failed check evicts; then
     repartition, so the restarted request pins a live ring. Peers that pass stay: an
     engine fault must not cost a healthy peer its seat."""
-    await self._health_sweep(evict_after=1)
+    await self._health_sweep(evict_after=1, by="heal_ring")
     try:
       await self.collect_topology(set())
     except Exception as e:
@@ -516,6 +568,8 @@ class Node:
     if shard.is_last_layer:
       # One partition: prefill and sample on the device in one engine call.
       tokens = await self.inference_engine.encode(shard, prompt)
+      if self.speculate_tokens > 0:
+        self._request_prompt_tokens[request_id] = [int(t) for t in np.asarray(tokens).reshape(-1)]
       token, _ = await self.inference_engine.infer_sample_tensor(
         request_id, shard, np.asarray(tokens).reshape(1, -1), temp=self._temp_for(request_id),
         top_k=self.default_sample_top_k, top_p=self._top_p_for(request_id),
@@ -628,7 +682,20 @@ class Node:
   async def _fused_decode_loop(self, base_shard: Shard, shard: Shard, request_id: str,
                                buffered: List[int]) -> None:
     """Chunked decode through the engine's generate_chunk until EOS or the cap;
-    tokens past EOS inside a chunk are discarded."""
+    tokens past EOS inside a chunk are discarded. With speculation on (see the module
+    docstring) each round first tries a draft: a verified draft yields up to its length
+    plus one tokens, each what greedy decode would produce. Speculation is for greedy
+    requests whose extras leave the greedy pick as it is: penalties and logit_bias
+    change it, and a verify records no logprobs; a seed or min_p does not change it."""
+    reshaping = set(self._request_sampling.get(request_id, ())) & {
+      "presence_penalty", "frequency_penalty", "logit_bias", "logprobs"}
+    verify = None
+    if self.speculate_tokens > 0 and self._temp_for(request_id) == 0 and not reshaping:
+      verify = getattr(self.inference_engine, "verify_draft", None)
+    # The draft's source, prompt and output, appended as tokens arrive.
+    spec_context = (list(self._request_prompt_tokens.get(request_id, ())) + list(buffered)
+                    if verify is not None else [])
+    spec_strikes = 0
     try:
       self.outstanding_requests[request_id] = "generating"
       size = self.decode_chunk_size
@@ -638,6 +705,33 @@ class Node:
           return
         limit = self._request_max_tokens.get(request_id, self.max_generate_tokens)
         remaining = max(1, limit - len(buffered))
+        if verify is not None:
+          k = min(self.speculate_tokens, remaining)
+          drafter = (getattr(self.inference_engine, "draft_tokens", None)
+                     if self.draft_model else None)
+          if drafter is not None and len(self.outstanding_requests) > 1:
+            # Under concurrency the batched chunk already shares the weight read; a
+            # draft's forwards would add executor work of their own. The lookup stays.
+            drafter = None
+          draft = list(await drafter(request_id, spec_context, k)) if drafter else []
+          if not draft:
+            draft = _lookup_draft(spec_context, k, self.speculate_window)
+          if len(draft) >= 2:
+            accepted = await verify(request_id, shard, buffered[-1], draft)
+            if accepted:
+              # Two bonus-only rounds in a row: the text repeats n-grams that continue
+              # differently, and each round would pay a forward for one token.
+              if len(accepted) == 1:
+                spec_strikes += 1
+                if spec_strikes >= 2:
+                  verify = None
+              else:
+                spec_strikes = 0
+              spec_context.extend(accepted)
+              if self._ingest_sampled_tokens(request_id, accepted, buffered, base_shard):
+                await self._finish_generation(request_id)
+                return
+              continue
         # Never compute far past the cap: the last chunk shrinks to the next power
         # of two covering what the cap still allows.
         this_size = min(size, 1 << (remaining - 1).bit_length())
@@ -648,9 +742,13 @@ class Node:
           request_id, shard, buffered[-1], this_size, temp=self._temp_for(request_id),
           top_k=self.default_sample_top_k, top_p=self._top_p_for(request_id), next_size=next_hint)
         if chunk is None:
-          raise RuntimeError(f"engine cannot decode {shard} in fused chunks")
-        if self._ingest_sampled_tokens(request_id, np.asarray(chunk).reshape(-1).tolist(), buffered,
-                                       base_shard):
+          # An engine that cannot decode this shard in chunks: the per-token ring.
+          await self._forward_next_token(base_shard, request_id, buffered, None)
+          return
+        new_tokens = np.asarray(chunk).reshape(-1).tolist()
+        if verify is not None:
+          spec_context.extend(int(t) for t in new_tokens)
+        if self._ingest_sampled_tokens(request_id, new_tokens, buffered, base_shard):
           await self._finish_generation(request_id)
           return
         size = min(size * 2, self.max_decode_chunk_size)
@@ -820,6 +918,7 @@ class Node:
     self._request_top_p.pop(request_id, None)
     self._request_sampling.pop(request_id, None)
     self._request_eos.pop(request_id, None)
+    self._request_prompt_tokens.pop(request_id, None)
     self._request_ring_map.pop(request_id, None)
     self._request_deadline.pop(request_id, None)
     self._last_progress.pop(request_id, None)
@@ -1024,7 +1123,13 @@ class Node:
         return False
 
     connected = await asyncio.gather(*(_connect(p) for p in peers_added))
-    for peer in peers_removed:
+    # A peer discovery no longer lists either left (it still answers) or died; a dead
+    # one is evicted, counted and barred as the health monitor would have done.
+    alive = await asyncio.gather(*(self._answers(p) for p in peers_removed))
+    for peer, ok in zip(peers_removed, alive):
+      if not ok:
+        await self._evict_peer(peer, "reconcile")
+        continue
       self._peer_reports.pop(peer.id(), None)
       await peer.disconnect(grace=600.0)
     # Filtered again: an eviction can land during the awaits above (the health monitor

@@ -38,6 +38,9 @@ _DEFS: Tuple[Knob, ...] = (
   Knob("XOT_FD_BLOCK_K", "int", "256", "The most keys one K2/K2q decode split reads (a CUDA block of split-K flash-decoding): a positive multiple of 64."),
   Knob("XOT_SEED", "int", None, "Sampling PRNG seed; unset derives one from wall-clock time."),
   Knob("XOT_MAX_RESIDENT_REQUESTS", "int", "8", "Max request states resident per shard context before LRU eviction."),
+  Knob("XOT_MAX_RESIDENT_MODELS", "int", "2", "Max model shard contexts resident before LRU eviction of whole models."),
+  Knob("XOT_OVERLAP_CHUNKS", "bool", "1", "Overlap fused-decode chunk N+1 dispatch with chunk N host readback."),
+  Knob("XOT_OVERLAP_BATCH", "bool", "0", "Overlap batched-decode dispatch with readback (two in-flight batches)."),
   Knob("XOT_DECODE_BATCH", "int", "8", "Max concurrent requests fused into one batched decode dispatch."),
   Knob("XOT_BATCH_WINDOW_MS", "float", "0", "Batching window (ms) the decode batcher waits to coalesce submitters; 0 = one event-loop tick."),
   Knob("XOT_PAGED_KV", "bool", "0", "Serve decode from the shared paged KV pool instead of contiguous per-request caches."),
@@ -45,6 +48,7 @@ _DEFS: Tuple[Knob, ...] = (
   Knob("XOT_KV_POOL_TOKENS", "int", "0", "Total paged-pool capacity in tokens; 0 sizes it automatically."),
   Knob("XOT_PAGED_PREFILL", "bool", "1", "Prefill straight into pool pages under XOT_PAGED_KV (no contiguous commit copy)."),
   Knob("XOT_RAGGED_PREFILL", "bool", "1", "Paged T>1 segments read pages natively through K4 (K4q). Reserved: `0` (the JAX package's gathered view) is not ported and the engine raises."),
+  Knob("XOT_PAGED_SPEC", "bool", "1", "Draft verification runs native to the page arena (ragged query over the request's page table); 0 restores unpage-then-verify."),
   Knob("XOT_KV_DEFRAG", "bool", "1", "Page-pool defragmentation in batcher-idle slots: migrate high pages into low free holes and rewrite only the virtual maps."),
   Knob("XOT_KV_DEFRAG_MAX_MOVES", "int", "8", "Max page migrations per idle defrag pass."),
   Knob("XOT_PREFILL_COSCHED", "bool", "1", "Co-schedule chunked prefill slices through the decode batcher's drain cycle."),
@@ -52,6 +56,11 @@ _DEFS: Tuple[Knob, ...] = (
   Knob("XOT_KV_HOST_BYTES", "int", "268435456", "Host-RAM budget (bytes) for the spilled warm-prefix KV tier; 0 disables."),
   Knob("XOT_PREFIX_CACHE", "int", "2", "Prefix-cache entries kept per context (LRU); 0 disables prefix caching."),
   Knob("XOT_PREFIX_CACHE_MIN", "int", "32", "Minimum matched prefix length (tokens) worth reusing from the cache."),
+  Knob("XOT_SPECULATE", "int", "0", "Speculative draft depth (tokens per round); 0 disables (8 implied by XOT_DRAFT_MODEL)."),
+  Knob("XOT_SPECULATE_WINDOW", "int", "2048", "Backward scan window (tokens) for prompt-lookup draft matching."),
+  Knob("XOT_DRAFT_MODEL", "str", None, "Resident draft model id for model-based speculative decoding."),
+  Knob("XOT_DRAFT_RETRY_S", "float", "300", "Cooldown (s) before retrying a draft model that failed to load."),
+  Knob("XOT_SPEC_EWMA_S", "float", "60", "Time constant (s) of the xot_spec_accept_rate EWMA gauge."),
   Knob("XOT_QUANTIZE", "str", None, "Weight quantization mode (`int8` or `int4`); unset serves full precision."),
   Knob("XOT_KV_QUANT", "str", None, "KV-cache quantization mode (`int8`); unset keeps KV in compute dtype."),
   Knob("XOT_INT4_KERNEL", "str", "1", "int4 decode GEMV kernel (K5/K5v4): always taken on the card; `force` takes its function on the CPU too (plain version); `0` is reserved for a tensor-parallel mesh (not ported) and acts as `1`."),
