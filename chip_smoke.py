@@ -39,7 +39,10 @@ Phases, in order; any failure exits nonzero and prints no result line:
      bound and one compiled flex_attention (SDPA without a softcap), with controls:
      the kernel run with its softcap or its window dropped must miss that limit; every
      kernel at D 256 and D 32 with scale 0.1 (a dropped scale a control too), pages 16
-     and 128; each D 256 wrapper once under set_sync_debug_mode("error");
+     and 128; each D 256 wrapper once under set_sync_debug_mode("error"); then K1-K4 at
+     qwen3-moe's (Hq 32, Hkv 4, D 128) and llava's (Hq 32, Hkv 32, D 128) widths, timed
+     (check_family_kernels: K1 and K4 at T 1024, K2 and K3 decoding at B 1 and 8, K2
+     and K4 over a 16-query verify);
   4. model: a two-layer cut of synthetic-llama-1b at full width, prefill and decode
      through the kernels in bf16 on the card against the plain path in fp32 on the
      CPU: contiguous (K1, K2), then paged (K4 prefill, K3 decode at B=3), then with
@@ -211,8 +214,23 @@ Phases, in order; any failure exits nonzero and prints no result line:
      cards: the acceptance says nothing of real text) with the cost of a round and the
      Node standing down after two bonus-only rounds, and two concurrent requests that
      make no draft call while both are outstanding;
-  19. the {"kernels": [...]} line (attention launches include phases 12's, 14's, 15's,
-     16's and 18's), then the {"ok": true, ...} line last.
+  19. MoE and vision (check_families), with the prefix cache and the lane off:
+     Qwen3-30B-A3B's published config cut to 8 of its 48 layers at full width (128
+     experts, top 8; 11.2 GB) and LLaVA-1.5-7B's at full width and depth (14.1 GB),
+     each written as a seeded checkpoint by the port's writer. The MoE cut's two layers
+     against the CPU: every MoE call recomputed in fp32 from the card's input with the
+     card's experts within 2^-5, expert flips only at near ties, the logits routed as
+     the card routed within 5e-2; LLaVA's tower, projector and a two-layer text cut
+     (one 640x480 image merged at <image>) within 5e-2. Then served through main.py:
+     the MoE cut's main path with K1 and K2 held exactly to layers x (prefills, steps),
+     B=1 and B=8 lockstep chunks under the profiler and the graph pool's bytes after
+     each, paged (K4, K3, pages back to 0) and --quantize int8 with XOT_INT8_KERNEL=1
+     (K6 = 4 x layers x steps); LLaVA answering two image requests (PNG data URIs) and
+     a text one over HTTP, K1 = 32 x prefills, K2 = 32 x steps, the two image streams
+     equal, TTFT split into preprocessing, tower, projector and merged prefill, weight
+     GB on the card;
+  20. the {"kernels": [...]} line (attention launches include phases 12's, 14's, 15's,
+     16's, 18's and 19's; K6's phase 19's too), then the {"ok": true, ...} line last.
 """
 from __future__ import annotations
 
@@ -2643,51 +2661,57 @@ def check_gemma_kernels(torch) -> None:
         f"torch.cuda.set_sync_debug_mode('error'): no host read of a device tensor", flush=True)
 
 
+# The attention widths of the two families phase 19 serves: qwen3-moe (Qwen3-30B-A3B: Hq
+# 32, Hkv 4, D 128) and llava-1.5-7b's text stack (Hq 32, Hkv 32, D 128).
+QWEN3_MOE_W = Widths(32, 4, 128, "qwen3-moe Hq=32 Hkv=4 D=128 ")
+LLAVA_W = Widths(32, 32, 128, "llava-1.5 Hq=32 Hkv=32 D=128 ")
+B8_STARTS = [17, 300, 1023, 1024, 2047, 2500, 3333, 4095]
+
+
+def check_family_kernels(torch) -> None:
+  """K1-K4 at qwen3-moe's and llava's attention widths, each timed beside its plain
+  version, SDPA and the bound: K1 over a 1024-token prefill (the main path's first
+  segment; llava's merged text-and-image prefill, ~600 positions, runs in the 1024
+  bucket); K2 decoding at B=1 (S 2048 from 640) and B=8 (S 4096, lengths 18-4096), and
+  K2 over a 16-query verify segment at 600 (MoE's speculative verify); K3 decoding at
+  B=8 over page 128, K4 over a 1024-token segment from 0 and a 16-query verify at 600.
+  Correctness first, within ATOL."""
+  draw = seeded_randn(torch, 1730)
+  for w in (QWEN3_MOE_W, LLAVA_W):
+    k1_case(torch, w, draw, 1, 1024, 0, 0.0)
+    for B, T, S, starts in ((1, 1, 2048, [640]), (8, 1, 4096, B8_STARTS), (1, 16, 2048, [600])):
+      k2_case(torch, w, draw, None, B, T, S, starts, 0, 0.0)
+    for lengths, T in (([s + 1 for s in B8_STARTS], 1), ([1024], 1024), ([616], 16)):
+      paged_case(torch, w, draw, None, lengths, 128, T, 0, 0.0)
+
+
 def write_gemma_checkpoint(torch, model_dir, device: str = "cuda") -> float:
   """A gemma-2-2b-shaped HF checkpoint in `model_dir`: the published config, seeded
   random bf16 weights written by the port's own save_shard_params as two files (layers
   0-12 with the tied embedding, layers 13-25 with the final norm) plus
-  model.safetensors.index.json, and a word-level tokenizer (write_word_tokenizer).
+  model.safetensors.index.json, and a word-level tokenizer (write_text_checkpoint).
   Returns its GB on disk."""
   from pathlib import Path
-  from xotorch_tpu_torch.inference.shard import Shard
-  from xotorch_tpu_torch.models import weights
-  from xotorch_tpu_torch.models.config import config_from_hf_dict
-  from xotorch_tpu_torch.models.transformer import init_random_params
   model_dir = Path(model_dir)
-  model_dir.mkdir(parents=True, exist_ok=True)
-  cfg = config_from_hf_dict(GEMMA_CONFIG)
-  n = cfg.num_layers
-  weight_map = {}
-  for i, (start, end) in enumerate(((0, n // 2 - 1), (n // 2, n - 1))):
-    shard = Shard(GEMMA_CARD, start, end, n)
-    params = init_random_params(cfg, end - start + 1, shard.is_first_layer, shard.is_last_layer,
-                                seed=0, dtype=torch.bfloat16, device=device, start_layer=start)
-    if not shard.is_first_layer:
-      params.pop("embed")  # tied: written once, with the first shard
-    name = f"model-{i + 1:05d}-of-00002.safetensors"
-    weights.save_shard_params(params, cfg, shard, model_dir / name)
-    del params
-    weight_map.update((t, name) for t in weights._read_header(model_dir / name)[0])
-  total = sum((model_dir / f).stat().st_size for f in set(weight_map.values()))
-  (model_dir / "model.safetensors.index.json").write_text(
-    json.dumps({"metadata": {"total_size": total}, "weight_map": weight_map}))
-  (model_dir / "config.json").write_text(json.dumps(GEMMA_CONFIG))
-  write_word_tokenizer(model_dir, cfg.vocab_size)
-  return total / 1e9
+  return write_index(model_dir, write_text_checkpoint(torch, model_dir, GEMMA_CONFIG, GEMMA_CARD,
+                                                      2, device))
 
 
-def write_word_tokenizer(model_dir, vocab_size: int) -> None:
+def write_word_tokenizer(model_dir, vocab_size: int, extra: Optional[dict] = None) -> None:
   """A word-level tokenizer over the whole vocabulary (tokenizer.json and
   tokenizer_config.json): gemma's special tokens at its ids (<eos> 1, <bos> 2), the
   requests' words w0-w96 and the chat roles, then t<id> for every other id, so every
-  sampled id decodes to text. With `transformers` the engine and the API build it;
-  without, they serve the DummyTokenizer and the config's eos (one token a word
-  either way, plus the roles)."""
+  sampled id decodes to text. `extra` adds special tokens at given ids (llava's
+  `<image>` at 32000: one token wherever it stands in a prompt). With `transformers`
+  the engine and the API build it; without, they serve the DummyTokenizer and the
+  config's eos (one token a word either way, plus the roles)."""
   special = ["<pad>", "<eos>", "<bos>", "<unk>"]
   words = special + [f"w{i}" for i in range(97)] + ["user", "assistant", "system", ":"]
   vocab = {t: i for i, t in enumerate(words)}
-  vocab.update((f"t{i}", i) for i in range(len(words), vocab_size))
+  taken = set((extra or {}).values())
+  vocab.update((f"t{i}", i) for i in range(len(words), vocab_size) if i not in taken)
+  vocab.update(extra or {})
+  special += list(extra or {})
   (model_dir / "tokenizer.json").write_text(json.dumps({
     "version": "1.0", "truncation": None, "padding": None, "normalizer": None,
     "added_tokens": [{"id": vocab[t], "content": t, "single_word": False, "lstrip": False,
@@ -2824,9 +2848,9 @@ def drive_gemma(torch, card: str, device: str = "cuda") -> dict:
         if tag == "gemma":
           if model_dir.exists() or not (tmp / "home" / "models" / model_dir.name).is_dir():
             raise AssertionError("gemma: --models-seed-dir did not move the checkpoint into XOT_HOME")
-          k1 = sum(not sc for sc in scanned)
-          k2 = sum(sg if sc else sg - 1 for sg, sc in zip(segments, scanned))
-          want = {"flash_attention": layers * k1, "flash_cached_attention": layers * (steps + k2)}
+          want = contiguous_want(run, layers)
+          k1 = want["flash_attention"] // layers
+          k2 = want["flash_cached_attention"] // layers - steps
           formula = (f"K1 = {layers} x {k1} prefills from 0 outside the scan, K2 = {layers} x "
                      f"({steps} decode steps + {k2} segments: at pos > 0, and every segment of "
                      f"{sum(scanned)} scanned prompt(s))")
@@ -5696,6 +5720,588 @@ def check_decode_paths(torch, card: str, device: str = "cuda", model: str = "syn
   return {"launches": launches}
 
 
+# ------------------------------------------------------------------ phase 19: MoE and vision
+
+# The published config.json of Qwen/Qwen3-30B-A3B (huggingface.co/Qwen/Qwen3-30B-A3B,
+# config.json), as it stands except num_hidden_layers: the smoke writes and serves 8 of
+# its 48 layers at full width (all 48 would be ~61 GB of bf16 on disk).
+QWEN3_MOE_CONFIG = {
+  "architectures": ["Qwen3MoeForCausalLM"], "attention_bias": False, "attention_dropout": 0.0,
+  "bos_token_id": 151643, "decoder_sparse_step": 1, "eos_token_id": 151645, "head_dim": 128,
+  "hidden_act": "silu", "hidden_size": 2048, "initializer_range": 0.02,
+  "intermediate_size": 6144, "max_position_embeddings": 40960, "max_window_layers": 48,
+  "mlp_only_layers": [], "model_type": "qwen3_moe", "moe_intermediate_size": 768,
+  "norm_topk_prob": True, "num_attention_heads": 32, "num_experts": 128,
+  "num_experts_per_tok": 8, "num_hidden_layers": 48, "num_key_value_heads": 4,
+  "output_router_logits": False, "rms_norm_eps": 1e-06, "rope_scaling": None,
+  "rope_theta": 1000000.0, "router_aux_loss_coef": 0.001, "sliding_window": None,
+  "tie_word_embeddings": False, "torch_dtype": "bfloat16", "use_cache": True,
+  "use_sliding_window": False, "vocab_size": 151936,
+}
+MOE_LAYERS = 8  # of the card's 48
+# The cut is served under a card of its own depth, added to the registry in this process
+# only (the package's qwen-3-30b-a3b card says 48 layers).
+MOE_CUT_CARD, MOE_CUT_REPO = "qwen-3-30b-a3b-cut8", "Qwen/Qwen3-30B-A3B-cut8"
+
+# The published config.json of llava-hf/llava-1.5-7b-hf (huggingface.co/llava-hf/
+# llava-1.5-7b-hf, config.json), as it stands: its text_config states only what differs
+# from the llama defaults (4096 hidden, 32 layers and heads, 11008 intermediate), its
+# vision_config CLIP ViT-L/14 at 336 pixels (24 layers, quick_gelu).
+LLAVA_CONFIG = {
+  "architectures": ["LlavaForConditionalGeneration"], "ignore_index": -100,
+  "image_token_index": 32000, "model_type": "llava", "pad_token_id": 32001,
+  "projector_hidden_act": "gelu",
+  "text_config": {"_name_or_path": "lmsys/vicuna-7b-v1.5", "architectures": ["LlamaForCausalLM"],
+                  "max_position_embeddings": 4096, "model_type": "llama", "rms_norm_eps": 1e-05,
+                  "torch_dtype": "float16", "vocab_size": 32064},
+  "tie_word_embeddings": False, "torch_dtype": "float16", "transformers_version": "4.36.0.dev0",
+  "vision_config": {"hidden_size": 1024, "image_size": 336, "intermediate_size": 4096,
+                    "model_type": "clip_vision_model", "num_attention_heads": 16,
+                    "num_hidden_layers": 24, "patch_size": 14, "projection_dim": 768,
+                    "vocab_size": 32000},
+  "vision_feature_layer": -2, "vision_feature_select_strategy": "default", "vocab_size": 32064,
+}
+LLAVA_CARD, LLAVA_REPO_DIR = "llava-1.5-7b-hf", "llava-hf--llava-1.5-7b-hf"
+LLAVA_IMAGE_SHAPE = (480, 640, 3)  # a 4:3 photo: resized to 336 on its short edge, cropped
+MOE_LAYER_REL = 2.0 ** -5  # a card MoE layer's output against the fp32 plain MoE given the
+                           # same input and experts: bf16 products over 2048 and 768 terms
+ROUTER_TIE_REL = 2.0 ** -8  # a near tie of two experts: probabilities one bf16 step apart
+FAMILY_ENV = {"XOT_PREFIX_CACHE": "0", "XOT_PREFILL_COSCHED": "0"}
+
+
+def write_text_checkpoint(torch, model_dir, config: dict, card: str, files: int,
+                          device: str = "cuda") -> dict:
+  """Seeded random bf16 weights of `config`'s text stack written by the port's own
+  save_shard_params as `files` safetensors files of consecutive layers (the first with
+  the embedding, tied or not, the last with the final norm and any lm_head), plus
+  config.json (`config` as given) and a word-level tokenizer (write_word_tokenizer,
+  `<image>` at the image token of a llava config). Returns the weight map (tensor ->
+  file)."""
+  from pathlib import Path
+  from xotorch_tpu_torch.inference.shard import Shard
+  from xotorch_tpu_torch.models import weights
+  from xotorch_tpu_torch.models.config import config_from_hf_dict
+  from xotorch_tpu_torch.models.transformer import init_random_params
+  model_dir = Path(model_dir)
+  model_dir.mkdir(parents=True, exist_ok=True)
+  cfg = config_from_hf_dict(config)
+  n = cfg.num_layers
+  bounds = [round(i * n / files) for i in range(files + 1)]
+  weight_map = {}
+  for i in range(files):
+    start, end = bounds[i], bounds[i + 1] - 1
+    shard = Shard(card, start, end, n)
+    params = init_random_params(cfg, end - start + 1, shard.is_first_layer, shard.is_last_layer,
+                                seed=0, dtype=torch.bfloat16, device=device, start_layer=start)
+    if not shard.is_first_layer:
+      params.pop("embed", None)  # a tied table is written once, with the first shard
+    name = f"model-text-{i + 1}.safetensors"
+    weights.save_shard_params(params, cfg, shard, model_dir / name)
+    del params
+    weight_map.update((t, name) for t in weights._read_header(model_dir / name)[0])
+  (model_dir / "config.json").write_text(json.dumps(config))
+  extra = {"<image>": cfg.image_token_index} if cfg.is_multimodal else None
+  write_word_tokenizer(model_dir, cfg.vocab_size, extra)
+  return weight_map
+
+
+def write_index(model_dir, weight_map: dict) -> float:
+  """model.safetensors.index.json over `weight_map`; returns the files' GB."""
+  total = sum((model_dir / f).stat().st_size for f in set(weight_map.values()))
+  (model_dir / "model.safetensors.index.json").write_text(
+    json.dumps({"metadata": {"total_size": total}, "weight_map": weight_map}))
+  return total / 1e9
+
+
+def write_vision_tower(torch, model_dir, cfg, device: str = "cuda") -> dict:
+  """The CLIP tower and the projector of a llava config as HF tensors (the names of
+  llava-hf's checkpoints: vision_tower.vision_model.*, multi_modal_projector.*), seeded
+  random bf16 (weights ~N(0, 0.02), layer norms at 1 and 0), written by the port's
+  safetensors writer as one more file. Returns its weight map."""
+  from xotorch_tpu_torch.models import vision, weights
+  v = cfg.vision
+  H, I, P, N = v.hidden_size, v.intermediate_size, v.patch_size, v.num_patches
+  g = torch.Generator(device=device)
+  g.manual_seed(19)
+  rnd = lambda *shape: (torch.randn(shape, generator=g, device=device) * 0.02).to(torch.bfloat16)  # noqa: E731
+  shapes = {"class_embed": (H,), "patch_embed": (H, 3, P, P), "pos_embed": (N + 1, H),
+            "wq": (H, H), "wk": (H, H), "wv": (H, H), "wo": (H, H), "w_fc1": (I, H),
+            "w_fc2": (H, I), "bq": (H,), "bk": (H,), "bv": (H,), "bo": (H,), "b_fc1": (I,),
+            "b_fc2": (H,), "w1": (cfg.hidden_size, H), "b1": (cfg.hidden_size,),
+            "w2": (cfg.hidden_size, cfg.hidden_size), "b2": (cfg.hidden_size,)}
+  tensors = {}
+  for name, slot in vision.vision_tensor_names(v).items():
+    key = slot.rsplit(".", 1)[-1]
+    hf = name if name.startswith("multi_modal_projector.") else "vision_tower.vision_model." + name
+    if key.endswith(("_w", "_b")):  # layer norms
+      fill = torch.ones if key.endswith("_w") else torch.zeros
+      tensors[hf] = fill(H, dtype=torch.bfloat16, device=device)
+    else:
+      tensors[hf] = rnd(*shapes[key])
+  name = "model-vision.safetensors"
+  weights._write_safetensors(tensors, model_dir / name)
+  return {t: name for t in tensors}
+
+
+@contextlib.contextmanager
+def moe_recorder(torch):
+  """The transformer's MoE MLP wrapped to record every call: the input h, the experts
+  the router chose and the output, on the host in fp32; yields the list."""
+  from xotorch_tpu_torch.models import transformer
+  calls = []
+  real_mlp, real_route = transformer._moe_mlp, transformer._moe_route
+
+  def recorded(layer, h, cfg):
+    _, idx = real_route(layer, h, cfg)
+    out = real_mlp(layer, h, cfg)
+    calls.append((h.float().cpu(), idx.cpu(), out.float().cpu()))
+    return out
+  transformer._moe_mlp = recorded
+  try:
+    yield calls
+  finally:
+    transformer._moe_mlp = real_mlp
+
+
+@contextlib.contextmanager
+def forced_routing(torch, choices: list):
+  """The transformer's router replaced by the experts in `choices` (one [B, T, k] index
+  tensor a call, in call order), weighted by this side's own probabilities at them."""
+  from xotorch_tpu_torch.models import transformer
+  real = transformer._moe_route
+
+  def route(layer, h, cfg):
+    idx = choices.pop(0).to(h.device)
+    probs = torch.softmax(h.to(torch.float32) @ layer["router"].to(torch.float32), dim=-1)
+    vals = torch.gather(probs, -1, idx)
+    if cfg.norm_topk_prob:
+      vals = vals / vals.sum(dim=-1, keepdim=True)
+    return vals, idx
+  transformer._moe_route = route
+  try:
+    yield
+  finally:
+    transformer._moe_route = real
+
+
+def check_moe_model(torch, model_dir, card: str, limit: float = 5e-2, T: int = 64,
+                    steps: int = 4, device: str = "cuda") -> None:
+  """Two layers of the Qwen3-30B-A3B checkpoint at full width, read by load_shard_params:
+  a T-token prefill (the dense combine: all 128 experts) through K1 and `steps` decode
+  steps (the routed gather of 8 experts) through K2, in bf16 on the card. On the CPU in
+  fp32, from the same checkpoint: (1) every MoE call of the card's run is recomputed
+  from the card's own input with the card's chosen experts, within MOE_LAYER_REL of its
+  output's largest |value|; the CPU's own routing of that input may choose other
+  experts only at a near tie, the two probabilities within ROUTER_TIE_REL of the larger
+  (a flip elsewhere fails); (2) the whole cut, routed as the card routed, gives the last
+  position's logits and each step's within `limit` of the logits' range. K1 once a layer,
+  K2 once a layer a step."""
+  import dataclasses
+  import numpy as np
+  from xotorch_tpu_torch.inference.shard import Shard
+  from xotorch_tpu_torch.models import transformer
+  from xotorch_tpu_torch.models.config import load_model_config
+  from xotorch_tpu_torch.models.weights import load_shard_params
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention
+  from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention
+  cfg = dataclasses.replace(load_model_config(model_dir), num_layers=2)
+  shard = Shard(card, 0, 1, 2)
+  tokens = np.random.default_rng(19).integers(0, cfg.vocab_size, size=(1, T))
+
+  def run(dev, dtype, kernels: bool):
+    params = load_shard_params(model_dir, cfg, shard, dtype=dtype, device=dev)
+    cache = transformer.init_kv_cache(cfg, 2, 1, T + steps, dtype, dev)
+    logits, _ = transformer.forward_shard(params, torch.as_tensor(tokens, device=dev), cache, 0,
+                                          cfg, True, True, use_flash=kernels)
+    out = [logits[0, -1].float().cpu()]
+    for i in range(steps):
+      tok = torch.tensor([[int(tokens[0, i])]], device=dev)
+      logits, _ = transformer.forward_shard(params, tok, cache, T + i, cfg, True, True,
+                                            use_flash_decode=kernels)
+      out.append(logits[0, -1].float().cpu())
+    return out, params
+
+  with torch.inference_mode():
+    for k in (flash_attention, flash_cached_attention):
+      k.launches = 0
+    with moe_recorder(torch) as calls:
+      got, card_params = run(device, torch.bfloat16, True)
+    launched = {k.__name__: k.launches for k in (flash_attention, flash_cached_attention)}
+    del card_params
+    t0 = time.perf_counter()
+    want_layers = load_shard_params(model_dir, cfg, shard, dtype=torch.float32, device="cpu")
+    worst_layer, flips, near, choices = 0.0, 0, 0, 0
+    for i, (h, idx, out) in enumerate(calls):
+      layer = {name: w[i % 2] for name, w in want_layers["layers"].items()}
+      probs = torch.softmax(h @ layer["router"], dim=-1).reshape(-1, cfg.num_experts)
+      _, own = transformer._moe_route(layer, h, cfg)
+      for row, (a, b) in enumerate(zip(idx.reshape(-1, idx.shape[-1]).tolist(),
+                                       own.reshape(-1, own.shape[-1]).tolist())):
+        choices += len(a)
+        card_only, cpu_only = sorted(set(a) - set(b)), sorted(set(b) - set(a))
+        for x, y in zip(card_only, cpu_only):
+          flips += 1
+          px, py = probs[row, x].item(), probs[row, y].item()
+          if abs(px - py) <= ROUTER_TIE_REL * max(px, py):
+            near += 1
+      with forced_routing(torch, [idx]):
+        ref = transformer._moe_mlp(layer, h, cfg)
+      worst_layer = max(worst_layer, ((out - ref).abs().max() / ref.abs().max()).item())
+    del want_layers
+    with forced_routing(torch, [idx for _, idx, _ in calls]):
+      want, _ = run("cpu", torch.float32, False)
+    cpu_s = time.perf_counter() - t0
+  if not all(bool(torch.isfinite(g).all()) for g in got):
+    raise AssertionError("moe model: non-finite logits on the card")
+  worst = max(((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want))
+  ok = (worst < limit and worst_layer < MOE_LAYER_REL and flips == near
+        and launched == {"flash_attention": 2, "flash_cached_attention": 2 * steps})
+  print(f"[moe model] 2-layer Qwen3-30B-A3B cut from the checkpoint (128 experts, top 8), "
+        f"prefill {T} (dense combine) + decode {steps} (routed): {len(calls)} MoE calls, each "
+        f"within {worst_layer:.3e} of the fp32 plain MoE given the card's input and experts "
+        f"(limit {MOE_LAYER_REL:g}); expert flips between the card's and the CPU's routing "
+        f"{flips} of {choices} choices, {near} at a near tie (within {ROUTER_TIE_REL:g} of the "
+        f"larger probability); max logit error {worst:.3e} of the logits' range routed as the "
+        f"card routed (limit {limit:g}); launches {launched}; the CPU's fp32 checks took "
+        f"{cpu_s:.1f} s {'ok' if ok else 'FAIL'}", flush=True)
+  if not ok:
+    raise AssertionError(f"moe model: error {worst}, layer error {worst_layer}, flips {flips} "
+                         f"({near} near ties), launches {launched}")
+
+
+def llava_image(seed: int = 19):
+  """A seeded uint8 photo-sized image (LLAVA_IMAGE_SHAPE)."""
+  import numpy as np
+  return np.random.default_rng(seed).integers(0, 256, size=LLAVA_IMAGE_SHAPE, dtype=np.uint8)
+
+
+def check_llava_model(torch, model_dir, limit: float = 5e-2, steps: int = 4,
+                      device: str = "cuda") -> None:
+  """The llava-1.5-7b checkpoint's vision tower and projector in full and two layers of
+  its text stack at full width: an image (preprocess_images) through the tower (plain
+  matmul and softmax attention) and the projector, its 576 features merged at the
+  prompt's <image>, the merged sequence prefilled from 0 through K1 and `steps` decode
+  steps through K2, in bf16 on the card, against the same in fp32 on the CPU: the
+  projected features and the last 64 positions' logits, then each step's, within
+  `limit` of their range; K1 once a layer, K2 once a layer a step."""
+  import dataclasses
+  import numpy as np
+  from xotorch_tpu_torch.inference.shard import Shard
+  from xotorch_tpu_torch.models import transformer, vision
+  from xotorch_tpu_torch.models.config import load_model_config
+  from xotorch_tpu_torch.models.weights import load_shard_params, load_vision_tower
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention
+  from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention
+  cfg = dataclasses.replace(load_model_config(model_dir), num_layers=2)
+  shard = Shard(LLAVA_CARD, 0, 1, 2)
+  rng = np.random.default_rng(7)
+  ids = np.concatenate([[1], rng.integers(3, cfg.image_token_index, 10), [cfg.image_token_index],
+                        rng.integers(3, cfg.image_token_index, 10)]).astype(np.int64)
+  pixels = vision.preprocess_images([llava_image()], cfg.vision.image_size)
+
+  def run(dev, dtype, kernels: bool):
+    params = load_shard_params(model_dir, cfg, shard, dtype=dtype, device=dev)
+    vparams, pparams = load_vision_tower(model_dir, cfg, dtype=dtype, device=dev)
+    feats = vision.project_features(
+      pparams, vision.encode_images(vparams, torch.from_numpy(pixels).to(dev), cfg.vision,
+                                    cfg.vision_feature_layer, cfg.vision_feature_select),
+      cfg.projector_hidden_act)
+    merged = vision.merge_image_features(
+      transformer.embed(params, torch.from_numpy(ids).to(dev)[None])[0], ids, feats,
+      cfg.image_token_index)
+    n = merged.shape[0]
+    cache = transformer.init_kv_cache(cfg, 2, 1, n + steps, dtype, dev)
+    h, _ = transformer.forward_shard(params, merged[None].to(dtype), cache, 0, cfg, False, False,
+                                     use_flash=kernels)
+    out = [feats[0].float().cpu(), transformer.unembed(params, h[:, -64:], cfg)[0].float().cpu()]
+    for i in range(steps):
+      tok = torch.tensor([[int(ids[i])]], device=dev)
+      logits, _ = transformer.forward_shard(params, tok, cache, n + i, cfg, True, True,
+                                            use_flash_decode=kernels)
+      out.append(logits[0].float().cpu())
+    return out, n
+
+  with torch.inference_mode():
+    for k in (flash_attention, flash_cached_attention):
+      k.launches = 0
+    got, n = run(device, torch.bfloat16, True)
+    launched = {k.__name__: k.launches for k in (flash_attention, flash_cached_attention)}
+    t0 = time.perf_counter()
+    want, _ = run("cpu", torch.float32, False)
+    cpu_s = time.perf_counter() - t0
+  if not all(bool(torch.isfinite(g).all()) for g in got):
+    raise AssertionError("llava model: non-finite values on the card")
+  errs = [((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want)]
+  ok = (max(errs) < limit
+        and launched == {"flash_attention": 2, "flash_cached_attention": 2 * steps})
+  print(f"[llava model] CLIP tower (24 layers) + projector + a 2-layer cut of the text stack from "
+        f"the checkpoint: one {LLAVA_IMAGE_SHAPE[1]}x{LLAVA_IMAGE_SHAPE[0]} image, {len(ids)} prompt "
+        f"tokens merged to {n} positions, prefill + decode {steps}: projected features within "
+        f"{errs[0]:.3e} of their range, logits within {max(errs[1:]):.3e} (limit {limit:g}); "
+        f"launches {launched}; the CPU's fp32 path took {cpu_s:.1f} s {'ok' if ok else 'FAIL'}",
+        flush=True)
+  if not ok:
+    raise AssertionError(f"llava model: errors {errs}, launches {launched}")
+
+
+def contiguous_want(run: dict, layers: int, chunk: int = 1024) -> dict:
+  """K1 and K2 launches of drive_main_path's requests on contiguous caches: a prompt of
+  two or more whole segments before its last prefills them through prefill_scan (every
+  segment through K2), others take K1 for the first segment and K2 for each later one;
+  K2 once a decode step. A layer each."""
+  segments = [-(-n // chunk) for n in run["prompt_tokens"]]
+  scanned = [(n - 1) // chunk >= 2 for n in run["prompt_tokens"]]
+  k1 = sum(not sc for sc in scanned)
+  k2 = sum(sg if sc else sg - 1 for sg, sc in zip(segments, scanned))
+  return {"flash_attention": layers * k1, "flash_cached_attention": layers * (run["steps"] + k2)}
+
+
+def pool_line(engine, label: str) -> int:
+  """The active context's captured graphs and their pool's bytes on the card."""
+  stats = next(s for s in engine.context_stats() if s["active"])
+  print(f"[{label}] {stats['graphs']} captured graphs, graph pool {stats['graph_pool_bytes']} bytes, "
+        f"slab {stats['slab_bytes']} bytes", flush=True)
+  return stats["graph_pool_bytes"]
+
+
+def drive_moe(torch, card: str, device: str = "cuda") -> dict:
+  """Qwen3-30B-A3B: 8 of its 48 layers at full width written as a seeded checkpoint
+  (write_text_checkpoint, four files), the two-layer cut held against the CPU
+  (check_moe_model), then served through main.py's entry points under a card of 8
+  layers added in this process: the main path's three requests (K1 and K2 held to the
+  layers x (prefills, steps) formula), B=1 and B=8 lockstep decode chunks under the
+  profiler (the routed gather at 1 and 8 rows) with the graph pool's bytes after each;
+  then XOT_PAGED_KV=1 (K4 = layers x segments, K3 = layers x steps, pages back to 0);
+  then --quantize int8 with XOT_INT8_KERNEL=1 (K6 = 4 attention projections x layers x
+  steps; the experts int8 through the plain dequantized product, as JAX). Returns the
+  phase's launches."""
+  import shutil
+  import tempfile
+  from pathlib import Path
+  from xotorch_tpu_torch.models import registry
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention
+  from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention
+  from xotorch_tpu_torch.ops.int8_matmul import int8_rowquant_matmul
+  from xotorch_tpu_torch.ops.paged_attention import paged_decode_attention, paged_prefill_attention
+  layers = MOE_LAYERS
+  registry.model_cards[MOE_CUT_CARD] = {"layers": layers, "repo": {registry.TORCH: MOE_CUT_REPO},
+                                        "moe": True}
+  tmp = Path(tempfile.mkdtemp(prefix="xot-moe-"))
+  launches = {}
+  try:
+    seed = tmp / "seed"
+    model_dir = seed / MOE_CUT_REPO.replace("/", "--")
+    t0 = time.perf_counter()
+    config = {**QWEN3_MOE_CONFIG, "num_hidden_layers": layers}
+    gb = write_index(model_dir, write_text_checkpoint(torch, model_dir, config, MOE_CUT_CARD, 4,
+                                                      device))
+    print(f"[moe] Qwen3-30B-A3B, {layers} of 48 layers at full width: {gb:.2f} GB of bf16 written "
+          f"by save_shard_params in four files and an index, in {time.perf_counter() - t0:.1f} s",
+          flush=True)
+    check_moe_model(torch, model_dir, MOE_CUT_CARD, device=device)
+    pools = {}
+
+    async def lockstep(engine, node, api, base):
+      pools[1] = pool_line(engine, "moe B=1")
+      gb_held = tensor_bytes(engine._ctx.params) / 1e9
+      print(f"[moe] weights on the card {gb_held:.2f} GB ({card})", flush=True)
+      prof = await profile_decode(torch, engine, MOE_CUT_CARD, "TorchShardInferenceEngine", card,
+                                  batch=8, tag="moe lockstep", focus="flash_cached_")
+      pools[8] = pool_line(engine, "moe B=8")
+      return prof
+
+    with phase_env(XOT_HOME=str(tmp / "home"), **FAMILY_ENV):
+      for tag, env, kernels, cli, profiles, after in (
+          ("moe", {}, (flash_attention, flash_cached_attention), ("--models-seed-dir", str(seed)),
+           (1,), lockstep),
+          ("moe paged", {"XOT_PAGED_KV": "1"}, (paged_prefill_attention, paged_decode_attention),
+           (), (), None),
+          ("moe int8", {"XOT_QUANTIZE": "int8", "XOT_INT8_KERNEL": "1"},
+           (flash_attention, flash_cached_attention, int8_rowquant_matmul), (), (), None)):
+        t0 = time.perf_counter()
+        run = drive_main_path(torch, card, device=device, model=MOE_CUT_CARD, kernels=kernels,
+                              env=env, tag=tag, profiles=profiles, cli=cli,
+                              focus="flash_cached_", after=after)
+        counts, steps = run["launches"], run["steps"]
+        if tag == "moe paged":
+          segments = sum(-(-n // 1024) for n in run["prompt_tokens"])
+          want = {"paged_prefill_attention": layers * segments,
+                  "paged_decode_attention": layers * steps}
+        else:
+          want = contiguous_want(run, layers)
+          if tag == "moe int8":
+            want["int8_rowquant_matmul"] = 4 * layers * steps
+        pool = run["pool"]
+        ok = (counts == want and steps >= run["decoded"]
+              and (pool is None) == (tag != "moe paged")
+              and (pool is None or pool["pages_in_use"] == 0))
+        print(f"[{tag}] launches {counts} against {want} (prompt tokens {run['prompt_tokens']}, "
+              f"{steps} decode steps); {'; '.join(run['timings'])}; pool {pool}; served in "
+              f"{time.perf_counter() - t0:.1f} s with the load ({card}) {'ok' if ok else 'FAIL'}",
+              flush=True)
+        if not ok:
+          raise AssertionError(f"{tag}: launches {counts}, wanted {want}; pool {pool}")
+        for name, n in counts.items():
+          launches[name] = launches.get(name, 0) + n
+    print(f"[moe] graph pool bytes: B=1 {pools.get(1)}, after B=8 {pools.get(8)} ({card})",
+          flush=True)
+  finally:
+    shutil.rmtree(tmp, ignore_errors=True)
+    registry.model_cards.pop(MOE_CUT_CARD, None)
+  return launches
+
+
+def image_uri(img) -> str:
+  """A PNG data: URI of a uint8 HWC image (PIL)."""
+  import base64
+  import io
+  from PIL import Image
+  buf = io.BytesIO()
+  Image.fromarray(img).save(buf, format="PNG")
+  return "data:image/png;base64," + base64.b64encode(buf.getvalue()).decode()
+
+
+def llava_requests(model: str, uri: str):
+  """An image request twice (temperature 0, 32 tokens, streamed: its TTFT holds the
+  tower, the projector and the merged prefill), then a 512-word text request."""
+  words = " ".join(f"w{i % 97}" for i in range(12))
+  image_body = {"model": model, "temperature": 0, "max_tokens": 32, "stream": True,
+                "stream_options": {"include_usage": True},
+                "messages": [{"role": "user", "content": [
+                  {"type": "text", "text": words},
+                  {"type": "image_url", "image_url": {"url": uri}}]}]}
+  return [("image request, 32 tokens, streaming", image_body),
+          ("the same image request again", dict(image_body)),
+          ("512-word text prompt, 32 tokens", {**main_requests(model)[0][1], "max_tokens": 32})]
+
+
+@contextlib.contextmanager
+def multimodal_timers(torch):
+  """Time the engine's multimodal prefill call and, inside it, the image preprocessing
+  (host), the tower, the projector and the text stack's merged forward, each bracketed
+  by device syncs; yields a list of {name: ms, "total": ms}, one a request."""
+  from xotorch_tpu_torch.inference.torch_engine import engine as engine_mod
+  real = {n: getattr(engine_mod, n)
+          for n in ("preprocess_images", "encode_images", "project_features", "forward_shard")}
+  real_sync = engine_mod.TorchShardInferenceEngine._infer_multimodal_sync
+  rows = []
+  inside = []
+  sync = torch.cuda.synchronize if torch.cuda.is_available() else (lambda: None)
+
+  def timed(name):
+    def call(*a, **kw):
+      if not inside:  # forward_shard serves the text requests too
+        return real[name](*a, **kw)
+      sync()
+      t0 = time.perf_counter()
+      out = real[name](*a, **kw)
+      sync()
+      rows[-1][name] = (time.perf_counter() - t0) * 1e3
+      return out
+    return call
+
+  def total(self, *a, **kw):
+    rows.append({})
+    inside.append(True)
+    t0 = time.perf_counter()
+    try:
+      out = real_sync(self, *a, **kw)
+    finally:
+      inside.clear()
+    rows[-1]["total"] = (time.perf_counter() - t0) * 1e3
+    return out
+  for name in real:
+    setattr(engine_mod, name, timed(name))
+  engine_mod.TorchShardInferenceEngine._infer_multimodal_sync = total
+  try:
+    yield rows
+  finally:
+    for name, fn in real.items():
+      setattr(engine_mod, name, fn)
+    engine_mod.TorchShardInferenceEngine._infer_multimodal_sync = real_sync
+
+
+def drive_llava(torch, card: str, device: str = "cuda") -> dict:
+  """LLaVA-1.5-7B at full width and depth written as a seeded checkpoint (the text
+  stack by save_shard_params in four files, the tower and projector in a fifth), its
+  tower, projector and a two-layer text cut held against the CPU (check_llava_model),
+  then served through main.py's entry points on the registry's llava-1.5-7b-hf card:
+  llava_requests over HTTP (the image as a PNG data URI), K1 = 32 x (image prefills +
+  text prefills), K2 = 32 x decode steps, the two image requests' greedy streams equal,
+  TTFT split into tower, projector and the merged prefill (multimodal_timers). Returns
+  the phase's launches."""
+  import shutil
+  import tempfile
+  from pathlib import Path
+  from xotorch_tpu_torch.models.config import config_from_hf_dict
+  cfg = config_from_hf_dict(LLAVA_CONFIG)
+  layers = cfg.num_layers
+  tmp = Path(tempfile.mkdtemp(prefix="xot-llava-"))
+  try:
+    seed = tmp / "seed"
+    model_dir = seed / LLAVA_REPO_DIR
+    t0 = time.perf_counter()
+    weight_map = write_text_checkpoint(torch, model_dir, LLAVA_CONFIG, LLAVA_CARD, 4, device)
+    weight_map.update(write_vision_tower(torch, model_dir, cfg, device))
+    gb = write_index(model_dir, weight_map)
+    print(f"[llava] llava-1.5-7b at full width and depth: {gb:.2f} GB of bf16 (text stack in four "
+          f"files by save_shard_params, tower and projector in a fifth) in "
+          f"{time.perf_counter() - t0:.1f} s", flush=True)
+    check_llava_model(torch, model_dir, device=device)
+    uri = image_uri(llava_image())
+    held = {}
+
+    async def weights_held(engine, node, api, base):
+      held["text"] = tensor_bytes(engine._ctx.params) / 1e9
+      held["vision"] = tensor_bytes(engine._ctx.vision) / 1e9
+      pool_line(engine, "llava")
+
+    with phase_env(XOT_HOME=str(tmp / "home"), **FAMILY_ENV), multimodal_timers(torch) as rows:
+      t0 = time.perf_counter()
+      run = drive_main_path(torch, card, device=device, model=LLAVA_CARD, env={}, tag="llava",
+                            profiles=(1,), cli=("--models-seed-dir", str(seed)),
+                            requests=llava_requests(LLAVA_CARD, uri), focus="flash_cached_",
+                            after=weights_held)
+      served_s = time.perf_counter() - t0
+    counts, steps = run["launches"], run["steps"]
+    want = {"flash_attention": layers * 3, "flash_cached_attention": layers * steps}
+    same = run["tokens"][0] == run["tokens"][1] and len(run["tokens"][0]) == 32
+    measured = rows[-2:]  # the two measured image requests (the warm-up's come first)
+    ok = counts == want and same and steps >= run["decoded"] and len(measured) == 2
+    print(f"[llava] launches {counts} against {want}: K1 = {layers} x (2 image prefills + 1 text "
+          f"prefill), K2 = {layers} x {steps} decode steps; the two image requests' greedy "
+          f"streams {'equal' if same else 'DIFFER'}; prompt tokens {run['prompt_tokens']}; "
+          f"{'; '.join(run['timings'])}; served in {served_s:.1f} s with the load ({card}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    for r, timing in zip(measured, run["timings"]):
+      rest = r["total"] - sum(r[n] for n in ("preprocess_images", "encode_images",
+                                             "project_features", "forward_shard"))
+      print(f"[llava] image TTFT split ({timing}): preprocessing on the host "
+            f"{r['preprocess_images']:.1f} ms, tower {r['encode_images']:.1f} ms, projector "
+            f"{r['project_features']:.1f} ms, merged prefill (32 layers, K1) "
+            f"{r['forward_shard']:.1f} ms, the rest of the call (merge, state, the logits to "
+            f"the host) {rest:.1f} ms: the prefill call {r['total']:.1f} ms ({card})", flush=True)
+    print(f"[llava] weights on the card: text {held.get('text', 0):.2f} GB, tower and projector "
+          f"{held.get('vision', 0):.2f} GB ({card})", flush=True)
+    if not ok:
+      raise AssertionError(f"llava: launches {counts}, wanted {want}; streams equal {same}")
+  finally:
+    shutil.rmtree(tmp, ignore_errors=True)
+  return dict(counts)
+
+
+def check_families(torch, card: str, device: str = "cuda") -> dict:
+  """Phase 19: the two families the port served last, qwen3-moe and llava (drive_moe,
+  drive_llava). Returns their attention launches summed by wrapper."""
+  t0 = time.perf_counter()
+  launches = {}
+  for drive in (drive_moe, drive_llava):
+    for name, n in drive(torch, card, device).items():
+      launches[name] = launches.get(name, 0) + n
+  print(f"[families] phase 19 in {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+  return launches
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--kernels-only", action="store_true",
@@ -5733,6 +6339,7 @@ def main(argv=None) -> int:
   check_kernels(torch, results)
   check_quant_kernels(torch, results)
   check_gemma_kernels(torch)
+  check_family_kernels(torch)
   if args.kernels_only:
     print(f"kernels ok on {card}", flush=True)
     return 0
@@ -5899,7 +6506,13 @@ def main(argv=None) -> int:
     launches[name] += n
   print(f"[time] phases 1-18: {time.perf_counter() - started:.1f} s", flush=True)
 
-  # Phase 19: results.
+  # Phase 19: the MoE and vision families from seeded checkpoints at their published
+  # widths; their attention and K6 launches join the results line.
+  for name, n in check_families(torch, card).items():
+    launches[name] += n
+  print(f"[time] phases 1-19: {time.perf_counter() - started:.1f} s", flush=True)
+
+  # Phase 20: results.
   meta = {
     "flash_attention": ("xotorch_tpu_torch/csrc/flash_attention.cu",
                         "xotorch_tpu/ops/flash_attention.py:54"),

@@ -142,19 +142,6 @@ def test_random_init_is_shard_consistent():
   torch.testing.assert_close(tail["lm_head"], full["lm_head"], rtol=0, atol=0)
 
 
-def _moe_init():
-  base = dict(get_model_card(MODEL)["synthetic_config"])
-  cfg = config_from_hf_dict({**base, "model_type": "qwen3_moe", "num_experts": 4,
-                             "num_experts_per_tok": 2})
-  transformer.init_random_params(cfg, 1, True, True)
-
-
-def _llava_config():
-  base = dict(get_model_card(MODEL)["synthetic_config"])
-  config_from_hf_dict({"model_type": "llava", "text_config": base,
-                       "vision_config": {"model_type": "clip_vision_model"}})
-
-
 def _lora_forward():
   _, cfg = _cfgs()
   params = transformer.init_random_params(cfg, 1, True, True)
@@ -163,10 +150,10 @@ def _lora_forward():
   transformer.forward_shard(params, torch.ones(1, 2, dtype=torch.int64), cache, 0, cfg, True, True)
 
 
-# gemma2 and qwen3 (qk-norm) are served now (tests/test_torch_families.py); what the
-# port still refuses: MoE, multimodal configs and LoRA slots.
-@pytest.mark.parametrize("unsupported", [_moe_init, _llava_config, _lora_forward],
-                         ids=["moe", "llava-multimodal", "lora-slot"])
+# gemma2 and qwen3 (qk-norm) are served (tests/test_torch_families.py), MoE and llava
+# too (tests/test_torch_moe.py, tests/test_torch_vision.py); what the port still
+# refuses: LoRA slots.
+@pytest.mark.parametrize("unsupported", [_lora_forward], ids=["lora-slot"])
 def test_unported_config_features_raise(unsupported):
   with pytest.raises(NotImplementedError):
     unsupported()

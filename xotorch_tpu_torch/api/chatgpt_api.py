@@ -12,10 +12,11 @@ The port of the serving core of xotorch_tpu/api/chatgpt_api.py on
   sends part of one), `seed`, `min_p`, `presence_penalty`, `frequency_penalty`,
   `logit_bias` (the sampling extras, applied on the device by the sampler peer),
   `logprobs`/`top_logprobs` (per token, in both response shapes), `n` (1-8
-  completions, sub-requests "rid#i") and `tools` (handed to the chat template). No
-  card of the port takes images, so a message with an `image_url` part is answered
-  400 naming the model, as the JAX package answers for a card without vision (an
-  undecodable data URI too);
+  completions, sub-requests "rid#i") and `tools` (handed to the chat template). On a
+  card with `"vision"` (llava) each `image_url` part (a data: URI, decoded with PIL)
+  becomes an `<image>` placeholder in the prompt and a uint8 array that rides
+  process_prompt to the engine; any other card answers such a part 400 naming the
+  model, as the JAX package does (an undecodable data URI too);
 - POST /v1/chat/token/encode (and /chat/token/encode) builds a request's prompt as a
   completion would (system prompt and tools included) and returns its tokens;
 - GET /v1/models lists the cards this engine serves; GET /healthcheck;
@@ -50,9 +51,6 @@ Synthetic models use DummyTokenizer, with the model's own EOS id, as the dummy c
 from __future__ import annotations
 
 import asyncio
-import base64
-import binascii
-import io
 import json
 import math
 import time
@@ -150,31 +148,10 @@ class Params(NamedTuple):
   n: int
 
 
-def decode_image_data_uri(uri: str):
-  """data:image/...;base64,... -> the decoded RGB image. Every malformed input raises
-  ValueError, so the API answers 400 and not 500 (the JAX package's
-  `models/vision.decode_image_data_uri`)."""
-  if not uri.startswith("data:"):
-    raise ValueError("only data: image URIs are supported (zero-egress serving)")
-  if "," not in uri:
-    raise ValueError("malformed data URI: missing ',' payload separator")
-  try:
-    blob = base64.b64decode(uri.split(",", 1)[1], validate=True)
-  except (binascii.Error, ValueError) as e:
-    raise ValueError(f"invalid base64 image payload: {e}") from e
-  try:
-    from PIL import Image
-  except ImportError as e:
-    raise ValueError("PIL is required to decode image payloads") from e
-  try:
-    return Image.open(io.BytesIO(blob)).convert("RGB")
-  except Exception as e:  # UnidentifiedImageError, truncated files, ...
-    raise ValueError(f"undecodable image payload: {e}") from e
-
-
 def extract_images(messages: List[dict]) -> list:
-  """The decoded image of every image_url content part, in prompt order (the JAX
-  package's `extract_images`, without its arrays: the port serves no vision card)."""
+  """Every image_url content part (a data: URI) decoded to a uint8 HWC array, in prompt
+  order (the JAX package's). A malformed or undecodable URI raises ValueError."""
+  from xotorch_tpu_torch.models.vision import decode_image_data_uri
   images = []
   for m in messages:
     content = m.get("content", "")
@@ -186,15 +163,19 @@ def extract_images(messages: List[dict]) -> list:
   return images
 
 
-def refuse_images(model: str, messages: List[dict]) -> None:
-  """400 naming the model for any image_url part: no card of the port has vision. An
-  undecodable data URI is refused with the decoder's reason."""
+def check_images(model: str, messages: List[dict]) -> Optional[list]:
+  """A request's images, or None when it has none. A card without `"vision"` answers
+  any image_url part 400 naming the model (JAX's message; an undecodable one with the
+  decoder's reason after it); on a vision card an undecodable part is answered 400 with
+  the decoder's reason, as JAX answers it."""
+  vision = bool((get_model_card(model) or {}).get("vision"))
   try:
     images = extract_images(messages)
   except ValueError as e:
-    raise _invalid(f"model {model} does not support image input ({e})") from None
-  if images:
+    raise _invalid(str(e) if vision else f"model {model} does not support image input ({e})") from None
+  if images and not vision:
     raise _invalid(f"model {model} does not support image input")
+  return images or None
 
 
 def build_prompt(tokenizer, messages: List[dict], tools: Optional[list] = None) -> str:
@@ -844,7 +825,7 @@ class ChatGPTAPI:
                                       f"{get_supported_models(self.inference_engine_classname)}"})
     p = self._parse_sampling(data)
     messages = data.get("messages", [])
-    refuse_images(model, messages)
+    images = check_images(model, messages)
     prompt, tokenizer = await self._request_prompt(model, messages, p.tools)
 
     # n completions of one prompt: sub-requests "rid#0".."rid#n-1" (seeded siblings
@@ -885,6 +866,7 @@ class ChatGPTAPI:
           self.token_queues[rid] = asyncio.Queue()
         for rid in request_ids:
           spawn_detached(self.node.process_prompt(shard, prompt, rid, max_tokens=p.max_tokens,
+                                                  images=images,
                                                   temperature=p.temperature, top_p=p.top_p,
                                                   sampling=p.sampling), self._tasks)
         if data.get("stream"):

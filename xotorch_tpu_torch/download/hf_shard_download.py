@@ -22,6 +22,7 @@ from typing import Dict, List, Optional, Tuple
 from xotorch_tpu_torch.download.shard_download import ShardDownloader
 from xotorch_tpu_torch.inference.shard import Shard
 from xotorch_tpu_torch.models.registry import get_repo
+from xotorch_tpu_torch.models.vision import is_vision_tensor
 from xotorch_tpu_torch.utils import knobs
 from xotorch_tpu_torch.utils.helpers import DEBUG, spawn_detached
 
@@ -36,10 +37,17 @@ def models_dir() -> Path:
 
 def get_allow_patterns(weight_map: Dict[str, str], shard: Shard) -> List[str]:
   """Files a layer range needs: its layers' weight files, config and tokenizer files
-  always, the embedding's file on the first shard and the head's on the last."""
+  always, the embedding's file on the first shard and the head's on the last. A llava
+  checkpoint's vision tower and projector go with the first shard whatever its layer
+  range (their encoder.layers.N are not text layers), as the loader reads them there
+  (models/weights.tensor_names_for_shard)."""
   default = ["*.json", "*.py", "tokenizer.model", "*.tiktoken", "*.txt", "*.jinja"]
   shard_files = set()
   for tensor_name, file_name in weight_map.items():
+    if is_vision_tensor(tensor_name):
+      if shard.is_first_layer:
+        shard_files.add(file_name)
+      continue
     m = re.search(r"(?:^|\.)layers\.(\d+)\.", tensor_name)
     if m is not None:
       if shard.start_layer <= int(m.group(1)) <= shard.end_layer:

@@ -2,11 +2,11 @@
 
 The port of the single-shard subset of xotorch_tpu/inference/jax_engine/engine.py:
 
-- `ensure_shard` loads a shard: a dense card's HF safetensors checkpoint from the
-  directory its downloader gives (models/weights.load_shard_params, straight to the
-  device), with the tokenizer of that directory, or the DummyTokenizer and the
-  config's eos where none can be built; a synthetic card's random weights from a
-  seed. Weights are quantized on the device under `quantize=` / XOT_QUANTIZE (int8 or
+- `ensure_shard` loads a shard: a card's HF safetensors checkpoint (dense, MoE, or
+  llava with its vision tower and projector on the first shard) from the directory
+  its downloader gives (models/weights.load_shard_params, straight to the device),
+  with the tokenizer of that directory, or the DummyTokenizer and the config's eos
+  where none can be built; a synthetic card's random weights from a seed. Weights are quantized on the device under `quantize=` / XOT_QUANTIZE (int8 or
   int4): decode projections then run the quantized GEMV kernels K5, K5v4 and K6
   (models/transformer._linear);
 - `infer_sample_tensor` prefills in XOT_PREFILL_CHUNK segments and samples the first
@@ -32,6 +32,11 @@ The port of the single-shard subset of xotorch_tpu/inference/jax_engine/engine.p
   step and scan eagerly (models/generate.py);
 - `infer_tensor` / `sample` keep the per-token contract of the ring: a partition's
   hidden state leaves in the model's dtype (bf16 on the card) for the next peer;
+- `infer_prompt(images=)` is the multimodal prefill (JAX's): the images through the
+  vision tower and projector, spliced in at the prompt's `<image>` placeholders, the
+  merged sequence through the text stack from position 0 (K1 on the card); its logits
+  come back to the host, where `sample` takes the first token with the request's
+  extras and `attach_sampling` binds them to the decode state;
 - OpenAI's sampling extras (`sampling=` of infer_sample_tensor: seed, logit_bias,
   presence/frequency penalties, min_p, logprobs) become the request's extras state
   (`_build_extras`) on the peer that samples: a dense [1, V] bias, [1, V] counts of the
@@ -156,11 +161,14 @@ from xotorch_tpu_torch.models.generate import (decode_chunk_batched, decode_chun
                                                scan_groups)
 from xotorch_tpu_torch.models.quantize import QUANT_DTYPES, quantize_params, quantized_bytes
 from xotorch_tpu_torch.models.registry import build_full_shard, get_model_card
-from xotorch_tpu_torch.models.transformer import (forward_shard, init_kv_cache, init_random_params,
-                                                  quant_route)
-from xotorch_tpu_torch.models.weights import load_shard_params
+from xotorch_tpu_torch.models.transformer import (embed, forward_shard, init_kv_cache,
+                                                  init_random_params, quant_route)
+from xotorch_tpu_torch.models.vision import (encode_images, merge_image_features, preprocess_images,
+                                             project_features)
+from xotorch_tpu_torch.models.weights import load_shard_params, load_vision_tower
 from xotorch_tpu_torch.ops import flash_attention, flash_decode, paged_attention
-from xotorch_tpu_torch.ops.sampling import DEFAULT_TEMP, DEFAULT_TOP_K, sample_logits
+from xotorch_tpu_torch.ops.sampling import (DEFAULT_TEMP, DEFAULT_TOP_K, sample_logits,
+                                            sample_logits_logprobs)
 from xotorch_tpu_torch.topology.device_capabilities import cuda_chip_peaks
 from xotorch_tpu_torch.utils import knobs
 from xotorch_tpu_torch.utils.helpers import DEBUG, spawn_detached
@@ -227,6 +235,8 @@ class _ShardContext:
   prefix_cache: "OrderedDict[int, Tuple[np.ndarray, dict]]" = field(default_factory=OrderedDict)
   # The batched chunk dispatched ahead (XOT_OVERLAP_BATCH), or None.
   batch_spec: Optional[dict] = None
+  # A multimodal first shard's (vision tower, projector) params on the device, or None.
+  vision: Optional[Tuple[Dict[str, Any], Dict[str, Any]]] = None
 
 
 class _Pending(NamedTuple):
@@ -899,6 +909,11 @@ class TorchShardInferenceEngine(InferenceEngine):
       params = load_shard_params(model_dir, cfg, shard, dtype=self.dtype, device=self.device)
     if self.quantize:
       params = quantize_params(params, self.quantize, scale_dtype=self.dtype, inplace=True)
+    vision = None
+    if cfg.is_multimodal and shard.is_first_layer and model_dir is not None:
+      # The tower and projector stay in the compute dtype whatever `quantize` says, as
+      # in JAX: only the text stack's slots are quantized.
+      vision = load_vision_tower(model_dir, cfg, dtype=self.dtype, device=self.device)
     cache_len = min(self._configured_cache_len, cfg.max_seq_len)
     max_cache_len = max(cache_len, min(self._configured_max_cache_len, cfg.max_seq_len))
     tokenizer = DummyTokenizer()  # a checkpoint's own replaces it (_ensure_ctx)
@@ -916,7 +931,7 @@ class TorchShardInferenceEngine(InferenceEngine):
                          max_cache_len=max_cache_len, tokenizer=tokenizer,
                          states=OrderedDict(), model_dir=model_dir,
                          graphs=graphs.GraphCache(self.device) if self.device.type == "cuda" else None,
-                         costmodel=costmodel)
+                         costmodel=costmodel, vision=vision)
 
   def _check_kernel_shapes(self, model_id: str, cfg: ModelConfig) -> None:
     """Refuse, when a shard is loaded, a model whose attention shapes the kernels are not
@@ -953,16 +968,64 @@ class TorchShardInferenceEngine(InferenceEngine):
     return ctx.tokenizer.decode(np.asarray(tokens).reshape(-1).tolist())
 
   async def sample(self, x: np.ndarray, temp: float = DEFAULT_TEMP, top_k: int = DEFAULT_TOP_K,
-                   top_p: float = 0.0) -> np.ndarray:
+                   top_p: float = 0.0, request_id: Optional[str] = None,
+                   sampling: Optional[dict] = None) -> np.ndarray:
+    """Host-path sampling of the last position's logits: the first token of a
+    multimodal prefill, whose logits come back from infer_prompt. A request's extras
+    apply as the device sampler applies them at its first token (JAX's `sample`): its
+    seed, logit_bias and min_p, and a logprob entry recorded under `request_id`. The
+    penalties count sampled tokens, so they do nothing at the first; attach_sampling
+    then counts this token for the decode chunks. A seeded request draws from (seed,
+    the sampled token's position, choice) like the device path, so its stream does
+    not depend on other traffic."""
     def _sample() -> np.ndarray:
-      logits = torch.as_tensor(np.asarray(x), device=self.device)
-      if logits.ndim == 3:
-        logits = logits[:, -1, :]
-      elif logits.ndim == 1:
-        logits = logits[None, :]
-      tok = sample_logits(logits, temp=temp, top_k=top_k, top_p=top_p, generator=self.generator)
+      host = np.asarray(x)
+      if host.ndim == 3:
+        host = host[:, -1, :]  # only the last position crosses to the device
+      elif host.ndim == 1:
+        host = host[None, :]
+      logits = torch.as_tensor(np.ascontiguousarray(host), device=self.device)
+      if not sampling:
+        tok = sample_logits(logits, temp=temp, top_k=top_k, top_p=top_p, generator=self.generator)
+        return tok.cpu().numpy().astype(np.int64)
+      ctx = next((c for c in self._contexts.values() if request_id in c.states), self._active)
+      ex = self._build_extras(ctx, sampling)
+      state = ctx.states.get(request_id) if request_id is not None else None
+      generator = self._generator_for(ex, request_id or "", state.pos - 1 if state else 0)
+      if ex.top_lp >= 0 and request_id is not None:
+        tok, lp, top_ids, top_lps = sample_logits_logprobs(
+          logits, temp=temp, top_k=top_k, top_p=top_p, bias=ex.bias, min_p=ex.min_p,
+          top_lp=ex.top_lp, generator=generator)
+        self._record_logprobs(request_id, lp, top_ids, top_lps)
+      else:
+        tok = sample_logits(logits, temp=temp, top_k=top_k, top_p=top_p, bias=ex.bias,
+                            min_p=ex.min_p, generator=generator)
       return tok.cpu().numpy().astype(np.int64)
     return await self._run(_sample)
+
+  async def attach_sampling(self, shard: Shard, request_id: str, sampling: dict,
+                            sampled_tokens=()) -> None:
+    """Bind a request's sampling extras to its decode state where the prefill could not:
+    a multimodal prefill samples its first token on the host (`sample`), so no extras
+    state was built, and the decode chunks would run without bias, penalties or logprob
+    records. `sampled_tokens` (the host-sampled first token) seed the penalty counts,
+    as the text path counts its prefill-sampled token. A no-op when the state is
+    unknown or already has extras (JAX's `attach_sampling`)."""
+    ctx = self._contexts.get(shard)
+    state = ctx.states.get(request_id) if ctx is not None else None
+    if state is None or state.extras is not None:
+      return
+
+    def _attach() -> None:
+      if state.extras is not None:
+        return
+      ex = self._build_extras(ctx, sampling)
+      if ex.counts is not None:
+        for t in sampled_tokens:
+          ex.counts[0, int(t) % ctx.cfg.vocab_size] += 1
+      state.extras = ex
+
+    await self._run(_attach)
 
   # ----------------------------------------------------------- device path
 
@@ -1159,6 +1222,63 @@ class TorchShardInferenceEngine(InferenceEngine):
       outs.append(out[:, :t])
     out = (outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)).cpu()
     self._observe_forward(ctx, ("infer", _bucket(true_t)), true_t, start, paged, t0, captures)
+    return out if out.dtype == torch.bfloat16 else out.numpy()
+
+  async def infer_prompt(self, request_id: str, shard: Shard, prompt: str,
+                         inference_state: Optional[dict] = None, images: Optional[list] = None,
+                         **engine_kwargs) -> Tuple[Any, Optional[dict]]:
+    """The text path (encode, then infer_tensor), or with `images` the multimodal
+    prefill (`_infer_multimodal_sync`): its logits, or hidden states on a first shard
+    that is not the last, come back to the host, which samples the first token."""
+    ctx = await self._ensure_ctx(shard)
+    if not images:
+      return await super().infer_prompt(request_id, shard, prompt, inference_state)
+    if not ctx.cfg.is_multimodal:
+      # The API refuses this earlier; never answer about an image the model cannot see.
+      raise ValueError(f"model {shard.model_id} does not support image input")
+    tokens = await self.encode(shard, prompt)
+    with self._engine_span("engine.prefill", request_id,
+                           {"tokens": int(tokens.size), "images": len(images)}):
+      out = await self._run(self._infer_multimodal_sync, ctx, request_id, tokens.reshape(-1),
+                            images)
+    return out, inference_state
+
+  def _infer_multimodal_sync(self, ctx: _ShardContext, request_id: str, token_ids: np.ndarray,
+                             images: list):
+    """The multimodal prefill (JAX's): the images through the vision tower and the
+    projector, their features spliced in at the `<image>` placeholders of the prompt's
+    embeddings, and the merged sequence, padded to its bucket, through the text stack
+    as a hidden input in one forward: from position 0 through K1 on the card. The
+    request's state is a contiguous cache (`_prep_state`); under XOT_PAGED_KV its first
+    decode chunk commits it to pool pages. Returns the real positions' fp32 logits
+    (numpy) on the last shard, else their hidden states as `_infer_sync` returns them."""
+    if ctx.vision is None:
+      raise RuntimeError("vision weights unavailable for multimodal request")
+    t0, captures = time.monotonic(), self._captures(ctx)
+    vparams, pparams = ctx.vision
+    cfg = ctx.cfg
+    pixels = torch.from_numpy(preprocess_images(images, cfg.vision.image_size)).to(self.device)
+    feats = encode_images(vparams, pixels, cfg.vision, feature_layer=cfg.vision_feature_layer,
+                          select=cfg.vision_feature_select)
+    feats = project_features(pparams, feats, act=cfg.projector_hidden_act)
+    ids = torch.from_numpy(np.asarray(token_ids, dtype=np.int64)).to(self.device)
+    token_embeds = embed(ctx.params, ids[None], cfg)[0]
+    merged = merge_image_features(token_embeds, token_ids, feats, cfg.image_token_index)
+    true_t = merged.shape[0]
+    bucket = 1 if true_t == 1 else _bucket(true_t)
+    state = self._prep_state(ctx, request_id, bucket)
+    x = merged[None].to(self.dtype)
+    if bucket != true_t:
+      x = torch.cat([x, x.new_zeros((1, bucket - true_t, x.shape[-1]))], dim=1)
+    use_flash = true_t > 1 and state.pos == 0
+    start = state.pos
+    out, _ = forward_shard(ctx.params, x, state.cache, state.pos, cfg, is_first=False,
+                           is_last=ctx.shard.is_last_layer, use_flash=use_flash,
+                           use_flash_decode=not use_flash, start_layer=ctx.shard.start_layer,
+                           route=self.quant_route)
+    self._advance(ctx, state, true_t)
+    out = out[:, :true_t].cpu()
+    self._observe_forward(ctx, ("multimodal", bucket), true_t, start, False, t0, captures)
     return out if out.dtype == torch.bfloat16 else out.numpy()
 
   async def infer_tensor(self, request_id: str, shard: Shard, input_data,

@@ -60,8 +60,7 @@ class ModelConfig:
   moe_intermediate_size: int = 0
   norm_topk_prob: bool = False
   eos_token_ids: Tuple[int, ...] = ()
-  # Multimodal (llava-style): hashable VisionConfig keeps jit cache keys
-  # working; None = text-only.
+  # Multimodal (llava-style): a hashable VisionConfig; None = text-only.
   vision: Optional["object"] = None  # models.vision.VisionConfig
   image_token_index: int = -1
   vision_feature_layer: int = -2
@@ -107,7 +106,8 @@ def config_from_hf_dict(cfg: dict) -> ModelConfig:
   projector_hidden_act = "gelu"
   if "text_config" in cfg:
     if "vision_config" in cfg:
-      raise NotImplementedError("vision (llava-style) configs are not ported yet")
+      from xotorch_tpu_torch.models.vision import vision_config_from_hf
+      vision = vision_config_from_hf(cfg["vision_config"])
       image_token_index = int(cfg.get("image_token_index", 32000))
       vision_feature_layer = int(cfg.get("vision_feature_layer", -2))
       vision_feature_select = str(cfg.get("vision_feature_select_strategy", "default"))

@@ -1,12 +1,13 @@
 """Model registry: short name -> layer count + repo per engine classname.
 
 The port's subset of xotorch_tpu/models/registry.py, keyed by the port's engine
-classname: the dense cards (llama, mistral, the deepseek-r1 distills, qwen 2.5,
-qwen-3-32b, gemma2, nemotron, phi-4-mini) and the synthetic cards. A dense card's
-checkpoint is read from XOT_HOME/models/<org>--<name> (download/hf_shard_download.py);
-synthetic cards carry their config and get random weights from a seed; the dummy card
-serves the fake engine of inference/dummy.py. The MoE and
-vision cards (qwen-3-30b-a3b, llava-1.5-7b-hf) wait until MoE and vision are ported.
+classname: every card of the JAX engine (llama, mistral, the deepseek-r1 distills,
+qwen 2.5, qwen 3 dense and MoE, llava-1.5 with vision, gemma2, nemotron, phi-4-mini)
+and the synthetic cards. A card's checkpoint is read from
+XOT_HOME/models/<org>--<name> (download/hf_shard_download.py); synthetic cards carry
+their config and get random weights from a seed; the dummy card serves the fake engine
+of inference/dummy.py. `"moe": True` marks a routed-experts card, `"vision": True` one
+whose API takes images.
 """
 from __future__ import annotations
 
@@ -52,8 +53,11 @@ model_cards: Dict[str, Dict] = {
   "qwen-2.5-coder-32b": {"layers": 64, "repo": {TORCH: "Qwen/Qwen2.5-Coder-32B-Instruct"}},
   "qwen-2.5-72b": {"layers": 80, "repo": {TORCH: "Qwen/Qwen2.5-72B-Instruct"}},
   "qwen-2.5-math-72b": {"layers": 80, "repo": {TORCH: "Qwen/Qwen2.5-Math-72B-Instruct"}},
-  ### qwen 3 (dense; the MoE card waits for MoE)
+  ### qwen 3 (dense + MoE)
   "qwen-3-32b": {"layers": 64, "repo": {TORCH: "Qwen/Qwen3-32B"}},
+  "qwen-3-30b-a3b": {"layers": 48, "repo": {TORCH: "Qwen/Qwen3-30B-A3B"}, "moe": True},
+  ### vision
+  "llava-1.5-7b-hf": {"layers": 32, "repo": {TORCH: "llava-hf/llava-1.5-7b-hf"}, "vision": True},
   ### gemma 2 (sandwich norms, alternating sliding window, soft-capped logits)
   "gemma2-2b": {"layers": 26, "repo": {TORCH: "google/gemma-2-2b-it"}},
   "gemma2-9b": {"layers": 42, "repo": {TORCH: "google/gemma-2-9b-it"}},

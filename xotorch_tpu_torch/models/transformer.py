@@ -24,8 +24,18 @@ Weight-quantized slots (models/quantize.py) go through `_linear`: decode-sized
 projections through the GEMV kernels K5, K5v4 and K6 (ops/int4_matmul.py,
 ops/int8_matmul.py), prefill through the dequantized product. Each layer's window
 (`cfg.layer_window` of its absolute index), the softcap and the score scale reach
-every attention call. MoE, vision and LoRA slots raise NotImplementedError instead
-of returning a wrong answer.
+every attention call.
+
+MoE (qwen3_moe) as JAX computes it, outside any kernel: the router in fp32, softmax,
+top-k with JAX's tie order (`_moe_route`), `norm_topk_prob`; decode-sized inputs (B*T
+<= 8) gather only the chosen experts' weights (`_moe_mlp_routed`), larger ones run
+every expert and zero the others in the combine (`_moe_mlp`). int8 experts carry one
+scale per (expert, output channel) and are dequantized in the product. One card holds
+every expert, so the routed form is always taken where it applies (JAX passes
+`moe_routed=False` only over an expert-parallel mesh). A multimodal (llava) model's
+text stack is this transformer fed the merged text-and-image embeddings as a hidden
+input (models/vision.py). LoRA slots raise NotImplementedError instead of returning a
+wrong answer.
 """
 from __future__ import annotations
 
@@ -53,16 +63,10 @@ ACTIVATIONS = ("silu", "gelu_pytorch_tanh")
 
 
 def check_supported(cfg: ModelConfig) -> None:
-  """Raise for config features the port's model does not implement yet."""
-  unsupported = {
-    "MoE": cfg.is_moe,
-    "vision": cfg.is_multimodal,
-    f"activation {cfg.hidden_act}": cfg.hidden_act not in ACTIVATIONS,
-  }
-  missing = [name for name, used in unsupported.items() if used]
-  if missing:
-    raise NotImplementedError(
-      f"{cfg.model_family} config uses {', '.join(missing)}: not ported to xotorch_tpu_torch yet")
+  """Raise for config features the port's model does not implement."""
+  if cfg.hidden_act not in ACTIVATIONS:
+    raise NotImplementedError(f"{cfg.model_family} config uses activation {cfg.hidden_act}: "
+                              f"not ported to xotorch_tpu_torch")
 
 
 def _check_params(layer: Params) -> None:
@@ -143,6 +147,82 @@ def _mlp_act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 def _dense_mlp(layer: Params, h: torch.Tensor, cfg: ModelConfig, route: QuantRoute) -> torch.Tensor:
   gate = _mlp_act(cfg, _linear(layer, "w_gate", h, route))
   return _linear(layer, "w_down", gate * _linear(layer, "w_up", h, route), route)
+
+
+def _moe_einsum(layer: Params, slot: str, eq: str, h: torch.Tensor) -> torch.Tensor:
+  """An expert product over every expert ('e...' output); int8 experts dequantize
+  through their per-(expert, out) scales, broadcast over the leading E axis."""
+  w = layer[slot]
+  scale = layer.get(slot + "_scale")
+  if scale is None:
+    return torch.einsum(eq, h, w)
+  out = torch.einsum(eq, h, w.to(h.dtype))
+  return out * scale.to(h.dtype)[:, None, None, :]
+
+
+def _moe_take(layer: Params, slot: str, idx: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+  """A routed expert product: gather only the chosen experts' weight slices (`idx` [N, k]
+  expert ids) and contract each token's input with each of its k slices: x [N, in] (the
+  same row for all k) or [N, k, in] -> [N, k, out]. int8 experts dequantize through their
+  gathered scales. One batched matmul over the gathered [N, k, in, out] slices as they
+  lie (JAX's einsum; torch.einsum permuted them into a copy first)."""
+  w = layer[slot][idx]  # [N, k, in, out]
+  scale = layer.get(slot + "_scale")
+  rows = x[:, None, None, :] if x.dim() == 2 else x[:, :, None, :]
+  out = torch.matmul(rows, w if scale is None else w.to(x.dtype))[:, :, 0, :]
+  return out if scale is None else out * scale[idx].to(x.dtype)
+
+
+def _moe_route(layer: Params, h: torch.Tensor, cfg: ModelConfig) -> Tuple[torch.Tensor, torch.Tensor]:
+  """(top_vals, top_idx) [B, T, k] of each token: the router in fp32, softmax, the k
+  largest probabilities (renormalised under `norm_topk_prob`). Ties go to the lower
+  expert index first, as `jax.lax.top_k` orders them: a stable descending sort, where
+  `torch.topk` promises no order among equal values."""
+  logits = h.to(torch.float32) @ layer["router"].to(torch.float32)  # [B, T, E]
+  probs = torch.softmax(logits, dim=-1)
+  vals, idx = torch.sort(probs, dim=-1, descending=True, stable=True)
+  k = cfg.num_experts_per_tok
+  top_vals, top_idx = vals[..., :k], idx[..., :k]
+  if cfg.norm_topk_prob:
+    top_vals = top_vals / top_vals.sum(dim=-1, keepdim=True)
+  return top_vals, top_idx
+
+
+def _moe_mlp_routed(layer: Params, h: torch.Tensor, top_vals: torch.Tensor,
+                    top_idx: torch.Tensor) -> torch.Tensor:
+  """The top-k experts of each token, only: a decode step reads k experts' weights
+  instead of all E. The same math as the dense combine, whose E - k other terms are
+  zero."""
+  B, T, H = h.shape
+  N, k = B * T, top_idx.shape[-1]
+  x = h.reshape(N, H)
+  idx = top_idx.reshape(N, k)
+  vals = top_vals.reshape(N, k).to(h.dtype)
+  gate = F.silu(_moe_take(layer, "we_gate", idx, x))
+  up = _moe_take(layer, "we_up", idx, x)
+  down = _moe_take(layer, "we_down", idx, gate * up)
+  return torch.einsum("nkh,nk->nh", down, vals).reshape(B, T, H)
+
+
+# Decode-sized inputs (B*T at or under this) take the routed gather; prefill segments
+# (bucketed to >= 16 tokens) and verifies stay dense.
+_MOE_ROUTED_MAX_TOKENS = 8
+
+
+def _moe_mlp(layer: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+  """Top-k MoE (qwen3-moe): the routed gather for B*T <= 8, else every expert computed
+  and the unchosen ones zeroed by the combine weights (JAX's two regimes; the port
+  serves on one card, where JAX's `moe_routed` is always true)."""
+  B, T, _ = h.shape
+  top_vals, top_idx = _moe_route(layer, h, cfg)
+  if B * T <= _MOE_ROUTED_MAX_TOKENS:
+    return _moe_mlp_routed(layer, h, top_vals, top_idx)
+  combine = torch.zeros(B, T, cfg.num_experts, dtype=top_vals.dtype, device=h.device)
+  combine = combine.scatter(-1, top_idx, top_vals)  # [B, T, E]
+  gate = F.silu(_moe_einsum(layer, "we_gate", "bth,ehi->ebti", h))
+  up = _moe_einsum(layer, "we_up", "bth,ehi->ebti", h)
+  expert_out = _moe_einsum(layer, "we_down", "ebti,eih->ebth", gate * up)
+  return torch.einsum("ebth,bte->bth", expert_out, combine.to(h.dtype))
 
 
 def init_kv_cache(cfg: ModelConfig, num_layers: int, batch: int, max_seq: int,
@@ -353,8 +433,8 @@ def forward_shard(
     h = h + _attention_block(layer, h, cache, i, positions, kv_valid_len, start_pos, q_start,
                              cfg, inv_freq, use_flash, use_flash_decode, route, page_table, slots,
                              windows[i])
-    mlp_out = _dense_mlp(layer, rms_norm(h, layer["mlp_norm"], cfg.rms_norm_eps, cfg.norm_offset),
-                         cfg, route)
+    mlp_in = rms_norm(h, layer["mlp_norm"], cfg.rms_norm_eps, cfg.norm_offset)
+    mlp_out = _moe_mlp(layer, mlp_in, cfg) if cfg.is_moe else _dense_mlp(layer, mlp_in, cfg, route)
     if cfg.sandwich_norms:
       mlp_out = rms_norm(mlp_out, layer["post_mlp_norm"], cfg.rms_norm_eps, cfg.norm_offset)
     h = h + mlp_out
@@ -419,6 +499,7 @@ def init_random_params(
   models/weights.params_from_jax."""
   check_supported(cfg)
   H, D, I = cfg.hidden_size, cfg.head_dim, cfg.intermediate_size
+  E, MI = cfg.num_experts, cfg.moe_intermediate_size or I
 
   def rnd(abs_idx: int, slot: int, *shape):
     g = torch.Generator(device=device)
@@ -437,10 +518,17 @@ def init_random_params(
       "wk": rnd(a, 1, H, cfg.num_kv_heads * D),
       "wv": rnd(a, 2, H, cfg.num_kv_heads * D),
       "wo": rnd(a, 3, cfg.num_heads * D, H),
-      "w_gate": rnd(a, 4, H, I),
-      "w_up": rnd(a, 5, H, I),
-      "w_down": rnd(a, 6, I, H),
     }
+    if cfg.is_moe:
+      # JAX's slots: the router and the stacked experts [E, in, out] at 4-7.
+      p["router"] = rnd(a, 4, H, E)
+      p["we_gate"] = rnd(a, 5, E, H, MI)
+      p["we_up"] = rnd(a, 6, E, H, MI)
+      p["we_down"] = rnd(a, 7, E, MI, H)
+    else:
+      p["w_gate"] = rnd(a, 4, H, I)
+      p["w_up"] = rnd(a, 5, H, I)
+      p["w_down"] = rnd(a, 6, I, H)
     if cfg.sandwich_norms:
       p["post_attn_norm"] = norm_init(H, dtype=dtype, device=device)
       p["post_mlp_norm"] = norm_init(H, dtype=dtype, device=device)

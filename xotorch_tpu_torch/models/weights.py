@@ -16,6 +16,11 @@ reader maps the file (`np.memmap`, copy-on-write, so tensors are views until the
 are copied to the device); bf16 moves as 16-bit patterns and is viewed as
 `torch.bfloat16`. `save_shard_params` writes a shard back in the same HF layout.
 
+MoE checkpoints (qwen3_moe) stack each layer's experts on load: `mlp.gate.weight` is
+the `router`, `mlp.experts.<e>.{gate,up,down}_proj.weight` fill `we_*` [L, E, in, out].
+A llava checkpoint's text tensors (`language_model.` names) load like a dense model's;
+its vision tower and projector go with the first shard (`load_vision_tower`).
+
 `params_from_jax` carries the JAX package's stacked parameter tree (numpy leaves)
 into torch tensors of the same layout: the tests hold the two packages on the same
 weights with it.
@@ -34,6 +39,7 @@ import torch
 from xotorch_tpu_torch.inference.shard import Shard
 from xotorch_tpu_torch.models.config import ModelConfig
 from xotorch_tpu_torch.models.transformer import check_supported
+from xotorch_tpu_torch.models.vision import is_vision_tensor, load_vision_params
 from xotorch_tpu_torch.utils.helpers import DEBUG
 
 # safetensors dtype names -> (numpy type the bytes are read as, torch type they are).
@@ -120,11 +126,15 @@ def layer_of(tensor_name: str) -> Optional[int]:
 
 
 def tensor_names_for_shard(all_names: List[str], shard: Shard, tie_word_embeddings: bool) -> List[str]:
-  """Which checkpoint tensors a shard needs (also the downloader's layer-aware file
-  filter). The JAX package's rule without its vision branch: the port serves no
-  multimodal config."""
+  """Which checkpoint tensors a shard needs (the JAX package's rule). A vision tower's
+  and projector's tensors go with the first shard, which merges image features into
+  the embeddings; their encoder.layers.N names are not text layers."""
   wanted = []
   for name in all_names:
+    if is_vision_tensor(name):
+      if shard.is_first_layer:
+        wanted.append(name)
+      continue
     layer = layer_of(name)
     if layer is not None:
       if shard.start_layer <= layer <= shard.end_layer:
@@ -214,7 +224,7 @@ def load_shard_params(
   else:
     index = _index_for(model_dir)
   names = tensor_names_for_shard(list(index.keys()), shard, cfg.tie_word_embeddings)
-  raw = _read_tensors(model_dir, names, index)
+  raw = _read_tensors(model_dir, [n for n in names if not is_vision_tensor(n)], index)
   t = {_strip_prefix(k): v for k, v in raw.items()}
   _split_fused_projections(t, cfg)
 
@@ -239,6 +249,17 @@ def load_shard_params(
       put(t[fn(i)], out[idx], linear)
     return out
 
+  def stack_experts(n: str) -> torch.Tensor:
+    # [L, E, in, out], filled one expert's [out, in] tensor at a time.
+    name = lambda i, e: f"layers.{i}.mlp.experts.{e}.{n}_proj.weight"  # noqa: E731
+    first = t[name(layer_ids[0], 0)]
+    out = torch.empty((len(layer_ids), cfg.num_experts) + tuple(first.shape[::-1]), dtype=dtype,
+                      device=device)
+    for idx, i in enumerate(layer_ids):
+      for e in range(cfg.num_experts):
+        put(t[name(i, e)], out[idx, e], linear=True)
+    return out
+
   # In llama-lineage checkpoints post_attention_layernorm IS the pre-MLP norm;
   # gemma2's sandwich layout names the pre-MLP norm pre_feedforward_layernorm and
   # adds two post-norms.
@@ -261,8 +282,13 @@ def load_shard_params(
   if cfg.qk_norm:
     layers["q_norm"] = stack(lambda i: f"layers.{i}.self_attn.q_norm.weight")
     layers["k_norm"] = stack(lambda i: f"layers.{i}.self_attn.k_norm.weight")
-  for slot, n in (("w_gate", "gate"), ("w_up", "up"), ("w_down", "down")):
-    layers[slot] = stack(lambda i, n=n: f"layers.{i}.mlp.{n}_proj.weight", linear=True)
+  if cfg.is_moe:
+    layers["router"] = stack(lambda i: f"layers.{i}.mlp.gate.weight", linear=True)
+    for n in ("gate", "up", "down"):
+      layers[f"we_{n}"] = stack_experts(n)
+  else:
+    for slot, n in (("w_gate", "gate"), ("w_up", "up"), ("w_down", "down")):
+      layers[slot] = stack(lambda i, n=n: f"layers.{i}.mlp.{n}_proj.weight", linear=True)
 
   params: Dict[str, Any] = {"layers": layers}
   if "embed_tokens.weight" in t:
@@ -276,6 +302,16 @@ def load_shard_params(
       v.numel() for k, v in params.items() if k != "layers" and torch.is_tensor(v))
     print(f"Loaded shard {shard}: {n_params / 1e6:.1f}M params from {model_dir}")
   return params
+
+
+def load_vision_tower(model_dir: Path, cfg: ModelConfig, dtype=torch.float32, device="cpu"):
+  """The vision tower and projector of a llava-style checkpoint, (tower params,
+  projector params) on `device` in `dtype`. First shard only."""
+  model_dir = Path(model_dir)
+  index = _index_for(model_dir)
+  names = [n for n in index if is_vision_tensor(n)]
+  return load_vision_params(_read_tensors(model_dir, names, index), cfg.vision, dtype=dtype,
+                            device=device)
 
 
 def save_shard_params(params: Dict[str, Any], cfg: ModelConfig, shard: Shard, out_path: Path) -> None:
@@ -300,8 +336,14 @@ def save_shard_params(params: Dict[str, Any], cfg: ModelConfig, shard: Shard, ou
     if "q_norm" in layers:
       flat[prefix + "self_attn.q_norm.weight"] = layers["q_norm"][idx]
       flat[prefix + "self_attn.k_norm.weight"] = layers["k_norm"][idx]
-    for slot, n in (("w_gate", "gate"), ("w_up", "up"), ("w_down", "down")):
-      flat[prefix + f"mlp.{n}_proj.weight"] = layers[slot][idx].T
+    if "router" in layers:
+      flat[prefix + "mlp.gate.weight"] = layers["router"][idx].T
+      for e in range(layers["we_gate"].shape[1]):
+        for n in ("gate", "up", "down"):
+          flat[prefix + f"mlp.experts.{e}.{n}_proj.weight"] = layers[f"we_{n}"][idx, e].T
+    else:
+      for slot, n in (("w_gate", "gate"), ("w_up", "up"), ("w_down", "down")):
+        flat[prefix + f"mlp.{n}_proj.weight"] = layers[slot][idx].T
   if "embed" in params:
     flat["model.embed_tokens.weight"] = params["embed"]["embedding"]
   if "final_norm" in params:

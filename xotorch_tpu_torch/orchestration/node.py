@@ -489,8 +489,9 @@ class Node:
     at the API). `traceparent` is the origin's trace context on a forwarded prompt (None
     at the origin, which counts the request and assembles its anatomy); `deadline` is
     the origin's remaining budget in seconds on a forwarded prompt (an origin request
-    starts one from XOT_REQUEST_DEADLINE_S); images are not ported yet and abort the
-    request."""
+    starts one from XOT_REQUEST_DEADLINE_S); `images` (uint8 HWC arrays) ride to the
+    owner of layer 0 with the prompt, for a vision card (JAX's route: the multimodal
+    prefill, a host sample of the first token, then the decode loop)."""
     if request_id is None:
       request_id = str(uuid.uuid4())
     if request_id not in self._request_deadline:
@@ -531,9 +532,6 @@ class Node:
       self._request_top_p[request_id] = min(1.0, max(0.0, float(top_p)))
     if sampling:
       self._request_sampling[request_id] = dict(sampling)
-    if images:
-      await self._abort_request(request_id, "images are not supported by xotorch_tpu_torch yet")
-      return
     parent_ctx = TraceContext.from_traceparent(traceparent)
     with self.tracer.start_span(
       "process_prompt" if parent_ctx is None else "process_prompt.forwarded", parent=parent_ctx,
@@ -547,7 +545,7 @@ class Node:
             self._set_ring_map(request_id, ring_map)
         else:
           self._pin_ring_map(base_shard, request_id)
-        await self._process_prompt(base_shard, prompt, request_id)
+        await self._process_prompt(base_shard, prompt, request_id, images)
       except CacheExhausted as e:
         # The prompt itself does not fit the KV budget: a client error, answered 400.
         await self._abort_request(request_id, f"context_length_exceeded: {e}")
@@ -558,15 +556,18 @@ class Node:
           traceback.print_exc()
         await self._abort_request(request_id, f"prompt processing failed on {self.id}: {e!r}")
 
-  async def _process_prompt(self, base_shard: Shard, prompt: str, request_id: str) -> None:
+  async def _process_prompt(self, base_shard: Shard, prompt: str, request_id: str,
+                            images: Optional[List[np.ndarray]] = None) -> None:
     shard = self.get_current_shard(base_shard, request_id=request_id)
     if not shard.is_first_layer:
-      await self.forward_prompt(base_shard, prompt, request_id, 0)
+      await self.forward_prompt(base_shard, prompt, request_id, 0, images)
       return
     self.outstanding_requests[request_id] = "processing prompt"
     self.metrics.active_requests.set(len(self.outstanding_requests))
-    if shard.is_last_layer:
-      # One partition: prefill and sample on the device in one engine call.
+    if shard.is_last_layer and not images:
+      # One partition, a text prompt: prefill and sample on the device in one engine
+      # call. An image prompt takes infer_prompt below and records no prompt tokens for
+      # the lookup (its positions hold image features), as in JAX.
       tokens = await self.inference_engine.encode(shard, prompt)
       if self.speculate_tokens > 0:
         self._request_prompt_tokens[request_id] = [int(t) for t in np.asarray(tokens).reshape(-1)]
@@ -576,7 +577,8 @@ class Node:
         **self._sampling_kwargs(request_id))
       await self.process_sampled_token(base_shard, int(token), request_id)
       return
-    result, inference_state = await self.inference_engine.infer_prompt(request_id, shard, prompt)
+    result, inference_state = await self.inference_engine.infer_prompt(request_id, shard, prompt,
+                                                                       images=images)
     await self.process_inference_result(base_shard, result, request_id, inference_state)
 
   async def process_tensor(self, base_shard: Shard, tensor, request_id: Optional[str] = None,
@@ -656,12 +658,25 @@ class Node:
 
   async def process_inference_result(self, base_shard: Shard, result, request_id: str,
                                      inference_state: Optional[dict] = None) -> None:
-    """Forward a non-last partition's output to the next partition. (The last
-    partition samples on the device, in infer_sample_tensor, and never lands here.)"""
-    self.outstanding_requests[request_id] = "waiting"
-    await self.forward_tensor(base_shard, result, request_id,
-                              self.get_partition_index(offset=1, request_id=request_id),
-                              inference_state)
+    """Forward a non-last partition's output to the next partition. The last partition
+    lands here only with a multimodal prefill's logits (a text prompt samples on the
+    device, in infer_sample_tensor): it samples the first token on the host with the
+    request's extras, then goes on as the sampled token's path does."""
+    shard = self.get_current_shard(base_shard, request_id=request_id)
+    if not shard.is_last_layer:
+      self.outstanding_requests[request_id] = "waiting"
+      await self.forward_tensor(base_shard, result, request_id,
+                                self.get_partition_index(offset=1, request_id=request_id),
+                                inference_state)
+      return
+    # Only an engine with a vision path gets here (infer_prompt raises for images on any
+    # other), and its host sampler takes the request's extras.
+    token = await self.inference_engine.sample(
+      result, temp=self._temp_for(request_id), top_k=self.default_sample_top_k,
+      top_p=self._top_p_for(request_id), request_id=request_id,
+      sampling=self._request_sampling.get(request_id))
+    await self.process_sampled_token(base_shard, int(np.asarray(token).reshape(-1)[0]), request_id,
+                                     inference_state)
 
   async def process_sampled_token(self, base_shard: Shard, token_int: int, request_id: str,
                                   inference_state: Optional[dict] = None) -> None:
@@ -687,8 +702,18 @@ class Node:
     plus one tokens, each what greedy decode would produce. Speculation is for greedy
     requests whose extras leave the greedy pick as it is: penalties and logit_bias
     change it, and a verify records no logprobs; a seed or min_p does not change it."""
-    reshaping = set(self._request_sampling.get(request_id, ())) & {
-      "presence_penalty", "frequency_penalty", "logit_bias", "logprobs"}
+    s = self._request_sampling.get(request_id)
+    attach = getattr(self.inference_engine, "attach_sampling", None)
+    if s and attach is not None:
+      # A prefill that sampled on the host (multimodal) bound no extras to the request's
+      # decode state: bind them now, the first token counted, so the chunks apply the
+      # bias and seed and record logprobs like a text request's.
+      try:
+        await attach(shard, request_id, s, sampled_tokens=tuple(buffered))
+      except Exception as e:
+        if DEBUG >= 1:
+          print(f"[{request_id}] attach_sampling failed: {e!r}")
+    reshaping = set(s or ()) & {"presence_penalty", "frequency_penalty", "logit_bias", "logprobs"}
     verify = None
     if self.speculate_tokens > 0 and self._temp_for(request_id) == 0 and not reshaping:
       verify = getattr(self.inference_engine, "verify_draft", None)
@@ -1035,12 +1060,13 @@ class Node:
       return entries[target_index][0]
     return self.partitioning_strategy.partition(self.topology)[target_index].node_id
 
-  async def forward_prompt(self, base_shard: Shard, prompt: str, request_id: str, target_index: int) -> None:
+  async def forward_prompt(self, base_shard: Shard, prompt: str, request_id: str, target_index: int,
+                           images: Optional[List[np.ndarray]] = None) -> None:
     if DEBUG >= 1:
       print(f"Forwarding prompt [{request_id}] to partition {target_index}")
     target_id = self._ring_target_id(target_index, request_id)
     if target_id == self.id:
-      await self._process_prompt(base_shard, prompt, request_id)
+      await self._process_prompt(base_shard, prompt, request_id, images)
       return
     peer = await self._peer_by_id(target_id)
     if peer is None:
@@ -1049,7 +1075,7 @@ class Node:
     dl = self._request_deadline.get(request_id)
     await peer.send_prompt(self.get_current_shard(base_shard, target_index, request_id=request_id),
                            prompt, request_id, traceparent=ctx.traceparent() if ctx else None,
-                           max_tokens=self._request_max_tokens.get(request_id),
+                           max_tokens=self._request_max_tokens.get(request_id), images=images,
                            temperature=self._request_temp.get(request_id),
                            top_p=self._request_top_p.get(request_id),
                            ring_map=self._ring_entries(request_id),
