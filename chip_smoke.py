@@ -229,8 +229,26 @@ Phases, in order; any failure exits nonzero and prints no result line:
      a text one over HTTP, K1 = 32 x prefills, K2 = 32 x steps, the two image streams
      equal, TTFT split into preprocessing, tower, projector and merged prefill, weight
      GB on the card;
-  20. the {"kernels": [...]} line (attention launches include phases 12's, 14's, 15's,
-     16's, 18's and 19's; K6's phase 19's too), then the {"ok": true, ...} line last.
+  20. multi-LoRA serving (check_adapters), with the prefix cache and the lane off and
+     room for three model contexts: the two-layer cut with a seeded rank-16 adapter on
+     all seven slots (B nonzero) in bf16 through K1/K2, then over int4 (K5) and int8
+     (K6) bases with every kernel call held against its plain version, each within the
+     cut's limit and each with a control, every B zeroed, that must miss it; then
+     main.py --adapters serving synthetic-llama-1b at full width and depth with `ad1`
+     (rank 8, attention) and `ad2` (rank 16, all slots) written by the port's writer:
+     each adapter context's load time and the bytes it adds (under a tenth of the
+     base's weights, every base tensor's storage shared), /v1/models listing both ready,
+     the main path's three requests to the base, @ad1 and @ad2 with K1 and K2 held
+     exactly to 16 x (prefills, steps), three different greedy streams of one prompt,
+     TPOT and the kernels an adapter adds a step (B=1 under the profiler), each
+     context's graph pool and slab bytes, load_checkpoint swapping ad1's context to
+     ad2's file (its next stream is @ad2's under the near-tie rule: no stale graph) and
+     save_checkpoint writing ad2's tensors back; four base and four adapter streams at
+     once on the page pool, each its solo stream under the near-tie rule, pages back
+     to 0; an int4 server whose @ad1 requests launch K5 7 x 16 x steps;
+  21. the {"kernels": [...]} line (attention launches include phases 12's, 14's, 15's,
+     16's, 18's, 19's and 20's; K6's phase 19's too, K5's phase 20's), then the
+     {"ok": true, ...} line last.
 """
 from __future__ import annotations
 
@@ -1202,7 +1220,39 @@ def _drop_first_group(torch, params):
   return {**params, "layers": layers}
 
 
-def check_model(torch, fmt=None, env=None, kernel=None, limit=5e-2) -> None:
+ADAPTER_B_SCALE = 0.03  # seeded B's std: each adapted projection moves by ~1/8 of its base
+
+
+def adapter_leaves(torch, cfg, layers: int, rank: int, slots, seed: int, device="cpu",
+                   dtype=None) -> dict:
+  """Seeded LoRA leaves (`lora_<slot>_a` [L, in, r], `lora_<slot>_b` [L, r, out]) for
+  `layers` layers of `cfg`: A ~ N(0, 0.02) as add_lora_params draws it, B ~ N(0,
+  ADAPTER_B_SCALE), NONZERO (a fresh B = 0 makes the adapter the base, and every check
+  of it pass vacuously), drawn in fp32 on the CPU and moved to `device` in `dtype`."""
+  H, I = cfg.hidden_size, cfg.intermediate_size
+  q, kv = cfg.num_heads * cfg.head_dim, cfg.num_kv_heads * cfg.head_dim
+  dims = {"wq": (H, q), "wk": (H, kv), "wv": (H, kv), "wo": (q, H), "w_gate": (H, I),
+          "w_up": (H, I), "w_down": (I, H)}
+  g = torch.Generator().manual_seed(seed)
+  out = {}
+  for slot in slots:
+    d_in, d_out = dims[slot]
+    for part, shape, std in (("a", (layers, d_in, rank), 0.02), ("b", (layers, rank, d_out),
+                                                                 ADAPTER_B_SCALE)):
+      w = torch.randn(shape, generator=g, dtype=torch.float32) * std
+      out[f"lora_{slot}_{part}"] = w.to(device=device, dtype=dtype or torch.bfloat16)
+  return out
+
+
+def _drop_b(torch, params):
+  """A control: `params` with every adapter's B zeroed (the adapter dropped)."""
+  layers = {k: torch.zeros_like(v) if k.startswith("lora_") and k.endswith("_b") else v
+            for k, v in params["layers"].items()}
+  return {**params, "layers": layers}
+
+
+def check_model(torch, fmt=None, env=None, kernel=None, limit=5e-2, adapter_rank=0,
+                device="cuda", model="synthetic-llama-1b") -> None:
   """A two-layer cut of synthetic-llama-1b at full width: prefill (K1) and decode
   (K2) in bf16 on the card against the plain path in fp32 on the CPU, same weights.
   With `fmt` the weights are quantized on the card first and `env` routes the decode
@@ -1214,7 +1264,12 @@ def check_model(torch, fmt=None, env=None, kernel=None, limit=5e-2) -> None:
   decode steps matches its plain version on the same card inputs, the model's own
   activations, within 2^-7 of the output's range (as in the kernel phase); and a
   control decodes the same steps with one 128-value group of every contraction
-  dropped (`_drop_first_group`), which must exceed `limit`."""
+  dropped (`_drop_first_group`), which must exceed `limit`.
+
+  With `adapter_rank` a seeded rank-r LoRA adapter sits on all seven slots (over the
+  quantized base with `fmt`: QLoRA), on the card in bf16 and on the CPU in fp32; the
+  control is then the same prefill and steps with every B zeroed (`_drop_b`), which
+  must exceed `limit`. (`device` and `model` let the cut be rehearsed on the CPU.)"""
   import dataclasses
   import numpy as np
   from xotorch_tpu_torch.models import transformer
@@ -1226,11 +1281,14 @@ def check_model(torch, fmt=None, env=None, kernel=None, limit=5e-2) -> None:
   from xotorch_tpu_torch.ops.int8_matmul import int8_rowquant_matmul_ref
 
   cfg = dataclasses.replace(
-    config_from_hf_dict(get_model_card("synthetic-llama-1b")["synthetic_config"]), num_layers=2)
-  dev = torch.device("cuda")
+    config_from_hf_dict(get_model_card(model)["synthetic_config"]), num_layers=2)
+  dev = torch.device(device)
   params = init_random_params(cfg, 2, True, True, seed=0, dtype=torch.bfloat16, device=dev)
   if fmt:
     params = quantize_params(params, fmt, scale_dtype=torch.bfloat16, inplace=True)
+  if adapter_rank:
+    params["layers"].update(adapter_leaves(torch, cfg, 2, adapter_rank, transformer.LORA_SLOTS,
+                                           seed=20, device=dev))
   params_cpu = cpu_copy(torch, params)
   tokens = np.random.default_rng(0).integers(0, cfg.vocab_size, size=(1, 100))
   x = torch.as_tensor(tokens, device=dev)
@@ -1247,11 +1305,11 @@ def check_model(torch, fmt=None, env=None, kernel=None, limit=5e-2) -> None:
     call_err.append(((out.float() - ref).abs().max() / ref.abs().max()).item())
     return out
 
-  def card_run(decode_params):
+  def card_run(decode_params, prefill_params=params):
     """Card logits of the prefill's last 8 positions, then of 8 decode steps that
     feed the reference's greedy tokens; the kernel's launches in the steps."""
     cache = init_kv_cache(cfg, 2, 1, 256, torch.bfloat16, dev)
-    logits, _ = forward_shard(params, x, cache, 0, cfg, True, True, use_flash=True)
+    logits, _ = forward_shard(prefill_params, x, cache, 0, cfg, True, True, use_flash=True)
     out = [logits[0, -8:].float().cpu()]
     before = kernel.launches if kernel else 0
     for i, tok in enumerate(fed):
@@ -1274,7 +1332,11 @@ def check_model(torch, fmt=None, env=None, kernel=None, limit=5e-2) -> None:
       got, launched = card_run(params)
     finally:
       setattr(transformer, wrapper, original)
-    control = card_run(_drop_first_group(torch, params))[0] if fmt else None
+    if adapter_rank:
+      dropped = _drop_b(torch, params)
+      control = card_run(dropped, dropped)[0]
+    else:
+      control = card_run(_drop_first_group(torch, params))[0] if fmt else None
 
   def error(logits):
     if not all(bool(torch.isfinite(g).all()) for g in logits):
@@ -1286,14 +1348,18 @@ def check_model(torch, fmt=None, env=None, kernel=None, limit=5e-2) -> None:
   calls_ok = not fmt or (len(call_err) == 7 * 2 * 8 and max(call_err) <= QUANT_REL_TOL)
   # bf16 weights are shared; the card keeps activations in bf16 over two layers.
   what = "" if not fmt else f", {fmt} weights, {env} ({kernel.__name__} x{launched})"
+  if adapter_rank:
+    what += f", a rank-{adapter_rank} LoRA adapter on all seven slots"
+  dropped_what = ("every adapter's B zeroed" if adapter_rank else
+                  "one 128-value group of every decode contraction dropped")
   ok = worst < limit and caught and calls_ok and (not kernel or launched == 7 * 2 * 8)
-  print(f"[model] 2-layer synthetic-llama-1b cut{what}, prefill 100 + decode 8: max logit error "
-        f"{worst:.3e} of the logits' range (limit {limit:g})"
+  print(f"[{'adapters' if adapter_rank else 'model'}] 2-layer {model} cut{what}, prefill 100 + "
+        f"decode 8: max logit error {worst:.3e} of the logits' range (limit {limit:g})"
         + ("" if not fmt else
            f"; {len(call_err)} kernel calls against the plain version on their card inputs: "
-           f"worst {max(call_err):.3e} of the output's range (limit 2^-7); control, one 128-value "
-           f"group of every decode contraction dropped: {error(control):.3e} "
-           f"({'caught' if caught else 'NOT caught'})")
+           f"worst {max(call_err):.3e} of the output's range (limit 2^-7)")
+        + ("" if control is None else
+           f"; control, {dropped_what}: {error(control):.3e} ({'caught' if caught else 'NOT caught'})")
         + f" {'ok' if ok else 'FAIL'}", flush=True)
   if not ok:
     raise AssertionError(f"model: card logits disagree with the CPU reference ({worst}), a kernel "
@@ -1655,7 +1721,8 @@ def main_requests(model: str):
 
 def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthetic-llama-1b",
                     kernels=None, env=None, tag: str = "main", profiles=(1,),
-                    focus: str = "", cli=(), wrapper=None, requests=None, after=None) -> dict:
+                    focus: str = "", cli=(), wrapper=None, requests=None, after=None,
+                    before=None) -> dict:
   """The port's server on `model` (synthetic-llama-1b: full width and depth, on the
   card) answers three chat completions over HTTP, with `env` (XOT_* knobs, e.g. the
   quantized formats) set for the phase and `cli` (e.g. `--kv-quantize int8`) added
@@ -1665,8 +1732,10 @@ def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthe
   before the three requests and read just after; then a decode chunk runs under the
   profiler at each batch size of `profiles` (with `wrapper`, held to one `focus` kernel
   a call of it); then `after(engine, node, api, base_url)` (a coroutine), if given, while the
-  server still runs. Returns the launch counts, the decode
-  steps the batcher ran for the three requests, the tokens each request streamed,
+  server still runs; `before(engine, base_url)`, if given, runs once the model is loaded
+  and listed, before the warm-up. Returns the launch counts, the decode
+  steps the batchers ran for the three requests (summed over the model contexts that
+  served them: a request may name an adapter, `model@name`), the tokens each request streamed,
   each request's timing line, the profiles, the windowed launches, the page pool's
   occupancy once the requests are done (None without a pool), the served tokenizer's
   class, each request's prompt tokens and what `after` returned. (`device` and `model` let the same phase be rehearsed on the CPU
@@ -1714,6 +1783,8 @@ def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthe
         listed = await loop.run_in_executor(None, http_json, base + "/v1/models")
         if health.get("status") != "ok" or model not in [m["id"] for m in listed["data"]]:
           raise AssertionError(f"{tag}: healthcheck {health} / models {listed}")
+        if before is not None:
+          await before(engine, base)
         # Warm-up: each request once with 2 tokens, so the measured run below pays no
         # first-use costs (lazy CUDA module loading, cuBLAS heuristics per shape).
         t0 = time.perf_counter()
@@ -1722,8 +1793,9 @@ def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthe
           await loop.run_in_executor(None, http_json, base + "/v1/chat/completions", warm)
         print(f"[{tag}] warm-up: {len(requests)} requests in {time.perf_counter() - t0:.2f} s",
               flush=True)
-        batcher = engine._ctx.batcher
-        batcher.dispatches = batcher.rows = batcher.steps = 0
+        batchers = [c.batcher for c in engine._contexts.values() if c.batcher is not None]
+        for batcher in batchers:
+          batcher.dispatches = batcher.rows = batcher.steps = 0
         served.clear()
         for k in kernels:
           k.launches = k.windowed_launches = 0
@@ -1757,9 +1829,9 @@ def drive_main_path(torch, card: str, device: str = "cuda", model: str = "synthe
           decoded += n - 1  # the first token comes from the prefill
         counts = {k.__name__: k.launches for k in kernels}
         windowed = {k.__name__: k.windowed_launches for k in kernels}
-        steps = batcher.steps
+        steps = sum(b.steps for b in batchers)
         streamed = [tokens_of.get(rid, []) for rid in served]
-        await wait_idle(engine)
+        await wait_idle(engine, every_context=True)
         pool = engine.page_pool_stats()
         profiled = {}
         for b in profiles:
@@ -2109,11 +2181,14 @@ def drive_concurrent(torch, card: str, paged: bool, device: str = "cuda",
           "bytes_per_token": bytes_per_token}
 
 
-async def wait_idle(engine, timeout: float = 30.0) -> None:
+async def wait_idle(engine, timeout: float = 30.0, every_context: bool = False) -> None:
   """Wait until the node's end-of-request cleanups have run on the engine (the
-  client sees a stream end before its request's state is cleared)."""
+  client sees a stream end before its request's state is cleared): in the active
+  context, or with `every_context` in each resident one."""
   t_end = time.perf_counter() + timeout
-  while engine._ctx.states and time.perf_counter() < t_end:
+  while (any(c.states for c in (list(engine._contexts.values()) if every_context
+                                else [engine._ctx]))
+         and time.perf_counter() < t_end):
     await asyncio.sleep(0.05)
   await engine._run(lambda: None)
 
@@ -4218,11 +4293,11 @@ def cache_off(engine):
     engine._prefix_cache_max = saved
 
 
-async def kv_generate(engine, rid: str, ids: list, n: int) -> list:
+async def kv_generate(engine, rid: str, ids: list, n: int, shard=None) -> list:
   """`n` greedy tokens of a prompt through the engine (B=1 unless other requests decode
-  at the same time), the request cleared after."""
+  at the same time), on `shard` (default the active one), the request cleared after."""
   import numpy as np
-  shard = engine.shard
+  shard = shard or engine.shard
   tok, _ = await engine.infer_sample_tensor(rid, shard, np.asarray([ids]), temp=0.0, top_k=0)
   out, size = [int(tok)], 8
   while len(out) < n:
@@ -6302,6 +6377,281 @@ def check_families(torch, card: str, device: str = "cuda") -> dict:
   return launches
 
 
+ADAPTER_ENV = {"XOT_PREFIX_CACHE": "0", "XOT_PREFILL_COSCHED": "0", "XOT_MAX_RESIDENT_MODELS": "3"}
+ADAPTER_WORDS = 300  # the common prompt of the streams held against each other
+ADAPTER_BYTES_SHARE = 0.1  # what an adapter context may add, as a share of the base's weights
+
+
+def write_adapters(torch, root, model: str) -> dict:
+  """Phase 20's two adapter-only checkpoints for every layer of `model`, written by the
+  port's writer (train/lora.save_lora_checkpoint): `ad1` rank 8 on the attention
+  projections, `ad2` rank 16 on all seven slots, seeded, B nonzero. {name: path}."""
+  from xotorch_tpu_torch.inference.shard import Shard
+  from xotorch_tpu_torch.models.config import config_from_hf_dict
+  from xotorch_tpu_torch.models.registry import get_model_card
+  from xotorch_tpu_torch.train import lora
+  cfg = config_from_hf_dict(get_model_card(model)["synthetic_config"])
+  L = cfg.num_layers
+  out = {}
+  for name, rank, slots, seed in (("ad1", 8, lora.ATTN_SLOTS, 21),
+                                  ("ad2", 16, lora.ATTN_SLOTS + lora.MLP_SLOTS, 22)):
+    path = os.path.join(root, f"{name}.safetensors")
+    lora.save_lora_checkpoint({"layers": adapter_leaves(torch, cfg, L, rank, slots, seed)},
+                              Shard(model, 0, L - 1, L), path)
+    out[name] = path
+  return out
+
+
+def shared_ptrs(base_params, params) -> tuple:
+  """(base leaves whose storage the adapter context shares, base leaves, bytes of the
+  context's own tensors: those sharing no storage with the base's)."""
+  def leaves(tree):
+    for v in tree.values():
+      yield from (leaves(v) if isinstance(v, dict) else [v])
+  base = {t.data_ptr() for t in leaves(base_params)}
+  mine = list(leaves(params))
+  shared = sum(t.data_ptr() in base for t in mine)
+  own = sum(t.nbytes for t in mine if t.data_ptr() not in base)
+  return shared, len(base), own
+
+
+def drive_adapters(torch, card: str, paths: dict, device: str = "cuda",
+                   model: str = "synthetic-llama-1b") -> dict:
+  """Phase 20 (b): main.py --adapters serving `model` with `ad1` and `ad2` beside the base.
+
+  - Loads: the base, then each adapter context, timed, with the card's allocated bytes
+    around each: an adapter context adds under a tenth of the base's weight bytes and
+    shares every base tensor's storage (data_ptr).
+  - /v1/models lists both adapters, ready.
+  - The main path's three requests go to the base, @ad1 and @ad2 (prefix cache and
+    lane off, as phases 4-15): K1 and K2 held exactly to 16 x (prefills, steps), the
+    steps summed over the three contexts' batchers.
+  - One common prompt streamed greedy on each model through the engine: the adapters'
+    streams differ from the base's and from each other. B=1 decode under the profiler
+    on each: TPOT and the kernels an adapter adds a step. Each context's graph pool and
+    slab bytes.
+  - load_checkpoint swaps ad1's context to ad2's file: its next stream equals @ad2's
+    under the near-tie rule and not ad1's old one (its graphs were dropped: a stale
+    replay would read the old adapters), and it still aliases the base;
+    save_checkpoint writes back exactly the tensors of ad2's file.
+  Returns the launches."""
+  import numpy as np
+  from xotorch_tpu_torch.models.registry import build_full_shard, get_model_card
+  from xotorch_tpu_torch.models.weights import _SafetensorsFile
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention
+  from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention
+  layers = get_model_card(model)["layers"]
+  vocab = get_model_card(model)["synthetic_config"]["vocab_size"]
+  adapters = ",".join(f"{k}={v}" for k, v in paths.items())
+  ids = [int(t) for t in np.random.default_rng(20).integers(3, vocab, size=ADAPTER_WORDS)]
+  models = [model] + [f"{model}@{name}" for name in paths]
+  requests = [(f"{label} -> {mid}", {**body, "model": mid})
+              for (label, body), mid in zip(main_requests(model), models)]
+
+  async def before(engine, base):
+    classname = type(engine).__name__
+    base_ctx = engine._contexts[build_full_shard(model, classname)]
+    base_bytes = tensor_bytes(base_ctx.params)
+    for mid in models[1:]:
+      if device == "cuda":
+        torch.cuda.synchronize()
+      m0 = torch.cuda.memory_allocated() if device == "cuda" else 0
+      t0 = time.perf_counter()
+      await engine.ensure_shard(build_full_shard(mid, classname))
+      secs = time.perf_counter() - t0
+      m1 = torch.cuda.memory_allocated() if device == "cuda" else 0
+      ctx = engine._contexts[build_full_shard(mid, classname)]
+      shared, n_base, own = shared_ptrs(base_ctx.params, ctx.params)
+      added = m1 - m0 if device == "cuda" else own
+      limit = ADAPTER_BYTES_SHARE * base_bytes
+      ok = shared == n_base and added < limit and own < limit
+      print(f"[adapters] {mid} loaded in {secs:.3f} s: the card's allocated bytes +{added} "
+            f"({100 * added / base_bytes:.2f}% of the base's {base_bytes} weight bytes; limit "
+            f"{100 * ADAPTER_BYTES_SHARE:g}%), its own tensors {own} bytes, {shared} of the base's {n_base} tensors "
+            f"shared (data_ptr equal) ({card}) {'ok' if ok else 'FAIL'}", flush=True)
+      if not ok:
+        raise AssertionError(f"adapters: {mid} added {added} bytes, shares {shared}/{n_base}")
+
+  async def after(engine, node, api, base):
+    loop = asyncio.get_running_loop()
+    classname = type(engine).__name__
+    shards = {mid: build_full_shard(mid, classname) for mid in models}
+    listed = {m["id"]: m for m in (await loop.run_in_executor(None, http_json, base + "/v1/models"))["data"]}
+    entries = [listed.get(mid) for mid in models[1:]]
+    ok = all(e is not None and e["ready"] and e["adapter_of"] == model and "error" not in e
+             for e in entries)
+    print(f"[adapters] /v1/models: {entries} {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+      raise AssertionError(f"adapters: /v1/models lists {sorted(listed)}")
+    streams = {mid: await kv_generate(engine, f"common-{mid}", ids, 32, shards[mid]) for mid in models}
+    distinct = len({tuple(v) for v in streams.values()}) == len(models)
+    print(f"[adapters] a {ADAPTER_WORDS}-token prompt, 32 greedy tokens: base {streams[model][:8]}..., "
+          + ", ".join(f"{mid} {streams[mid][:8]}..." for mid in models[1:])
+          + f": three different streams {'ok' if distinct else 'FAIL'}", flush=True)
+    if not distinct:
+      raise AssertionError("adapters: an adapter streamed the base's tokens, or the two agreed")
+    profs = {mid: await profile_decode(torch, engine, mid, classname, card, batch=1,
+                                       tag=f"adapters {mid}", focus="flash_cached_")
+             for mid in models}
+    if all(profs.values()):  # a profile reads on the card only
+      b_ms, b_k = profs[model]["step_ms"], profs[model]["kernels_per_step"]
+      print("[adapters] TPOT at B=1: " + ", ".join(
+        f"{mid} {p['step_ms']:.3f} ms ({p['step_ms'] - b_ms:+.3f} ms, "
+        f"{p['kernels_per_step'] - b_k:+.0f} device kernels a step)" for mid, p in profs.items())
+        + f" ({card})", flush=True)
+    for st in engine.context_stats():
+      print(f"[adapters] context {st['model_id']}: {st['graphs']} captured graphs, graph pool "
+            f"{st['graph_pool_bytes']} bytes, slab {st['slab_bytes']} bytes ({card})", flush=True)
+    # The swap: ad1's context takes ad2's file.
+    ad1, ad2 = models[1], models[2]
+    t0 = time.perf_counter()
+    await engine.load_checkpoint(shards[ad1], paths["ad2"])
+    swap_s = time.perf_counter() - t0
+    swapped = await kv_generate(engine, "swapped", ids, 32, shards[ad1])
+    await streams_agree(torch, engine, shards[ad2], f"adapters {ad1} after load_checkpoint of "
+                        f"ad2's file against {ad2}", ids, streams[ad2], swapped, card)
+    base_ctx = engine._contexts[shards[model]]
+    shared, n_base, _ = shared_ptrs(base_ctx.params, engine._contexts[shards[ad1]].params)
+    fresh = swapped != streams[ad1] and shared == n_base
+    print(f"[adapters] load_checkpoint in {swap_s:.3f} s: {ad1}'s stream is no longer its "
+          f"old one, {shared}/{n_base} base tensors still shared ({card}) "
+          f"{'ok' if fresh else 'FAIL (stale graphs or a copied base)'}", flush=True)
+    if not fresh:
+      raise AssertionError("adapters: the swapped context streamed its old adapter's tokens")
+    out = os.path.join(os.path.dirname(paths["ad2"]), "saved.safetensors")
+    await engine.save_checkpoint(shards[ad1], out)
+    a, b = _SafetensorsFile(out), _SafetensorsFile(paths["ad2"])
+    same = sorted(a.header) == sorted(b.header) and all(
+      torch.equal(a.get(n), b.get(n)) for n in b.header)
+    print(f"[adapters] save_checkpoint: {len(a.header)} tensors, equal to ad2's file "
+          f"{'ok' if same else 'FAIL'}", flush=True)
+    if not same:
+      raise AssertionError("adapters: save_checkpoint did not write back the loaded tensors")
+
+  with phase_env(XOT_ADAPTERS=adapters, **ADAPTER_ENV):
+    run = drive_main_path(torch, card, device=device, model=model, tag="adapters", profiles=(),
+                          cli=("--adapters", adapters), requests=requests, before=before,
+                          after=after)
+  counts, want = run["launches"], contiguous_want(run, layers)
+  ok = counts == want and run["steps"] >= run["decoded"]
+  print(f"[adapters] launches {counts} against {want} (prompt tokens {run['prompt_tokens']}, "
+        f"{run['steps']} decode steps over three contexts); {'; '.join(run['timings'])} ({card}) "
+        f"{'ok' if ok else 'FAIL'}", flush=True)
+  if not ok:
+    raise AssertionError(f"adapters: launches {counts}, wanted {want}")
+  return dict(counts)
+
+
+def adapters_concurrent(torch, card: str, paths: dict, device: str = "cuda",
+                        model: str = "synthetic-llama-1b", n: int = 24) -> dict:
+  """Phase 20 (b): a fresh engine on the page pool (XOT_PAGED_KV=1, page 128) with the
+  adapters registered: four prompts, each streamed greedy alone on the base and on an
+  adapter (ad1 for two, ad2 for two), then all eight at once (three contexts, each its
+  own batcher and pool). Each concurrent stream equals its solo one under the near-tie
+  rule; every context's pages go back to 0. Returns the paged kernels' launches."""
+  import numpy as np
+  from xotorch_tpu_torch.inference.torch_engine.engine import TorchShardInferenceEngine
+  from xotorch_tpu_torch.models import graphs
+  from xotorch_tpu_torch.models.registry import get_model_card
+  vocab = get_model_card(model)["synthetic_config"]["vocab_size"]
+  adapters = ",".join(f"{k}={v}" for k, v in paths.items())
+  rng = np.random.default_rng(23)
+  prompts = [[int(t) for t in rng.integers(3, vocab, size=k)] for k in (64, 200, 300, 514)]
+  names = list(paths)
+  jobs = [(f"b{i}", model, p) for i, p in enumerate(prompts)]
+  jobs += [(f"a{i}", f"{model}@{names[i % 2]}", p) for i, p in enumerate(prompts)]
+  counted = [fn for fn in graphs.counted_wrappers() if fn.__name__ in KV_KERNELS]
+  # The registry reads XOT_ADAPTERS whenever a context loads: the knobs stay set throughout.
+  with phase_env(XOT_ADAPTERS=adapters, XOT_PAGED_KV="1", XOT_KV_PAGE="128", **ADAPTER_ENV):
+    return _adapters_concurrent(torch, card, TorchShardInferenceEngine(device=device, seed=0),
+                                jobs, counted, model, n)
+
+
+def _adapters_concurrent(torch, card: str, engine, jobs: list, counted: list, model: str,
+                         n: int) -> dict:
+  from xotorch_tpu_torch.models.registry import TORCH, build_full_shard
+  try:
+    async def drive():
+      shards = {mid: build_full_shard(mid, TORCH) for mid in {j[1] for j in jobs}}
+      solo = {rid: await kv_generate(engine, rid + "-solo", p, n, shards[mid]) for rid, mid, p in jobs}
+      before = {fn.__name__: fn.launches for fn in counted}
+      t0 = time.perf_counter()
+      together = await asyncio.gather(*(kv_generate(engine, rid, p, n, shards[mid])
+                                        for rid, mid, p in jobs))
+      secs = time.perf_counter() - t0
+      launched = {fn.__name__: fn.launches - before[fn.__name__] for fn in counted}
+      same = 0
+      for (rid, mid, p), got in zip(jobs, together):
+        same += await streams_agree(torch, engine, shards[mid], f"adapters paged {rid} ({mid})", p,
+                                    solo[rid], got, card) == 1.0
+      await engine._run(lambda: None)
+      pools = {mid: engine._contexts[s].page_pool for mid, s in shards.items()}
+      used = {mid: (p.pages_in_use if p is not None else None) for mid, p in pools.items()}
+      widths = {mid: (engine._contexts[s].batcher.rows, engine._contexts[s].batcher.dispatches)
+                for mid, s in shards.items() if engine._contexts[s].batcher is not None}
+      ok = all(u == 0 for u in used.values()) and len(pools) == 3
+      print(f"[adapters paged] 4 base + 4 adapter streams of {n} tokens at once in {secs:.2f} s: "
+            f"{same}/8 identical to their solo streams (the rest parted at near ties), pages in "
+            f"use after {used}, (rows, dispatches) per context {widths}, launches {launched} "
+            f"({card}) {'ok' if ok else 'FAIL'}", flush=True)
+      if not ok:
+        raise AssertionError(f"adapters paged: pages left {used}")
+      return launched
+    return asyncio.run(drive())
+  finally:
+    engine.executor.shutdown(wait=True)
+
+
+def check_adapters(torch, card: str, device: str = "cuda", model: str = "synthetic-llama-1b") -> dict:
+  """Phase 20: multi-LoRA serving. (a) The two-layer cut with a rank-16 adapter on all
+  seven slots in bf16 (K1, K2), then over int4 (K5) and int8 (K6) bases, each kernel
+  call held against its plain version, each with a B-dropped control that must miss;
+  (b) main.py --adapters at full width and depth (drive_adapters), the eight concurrent
+  paged streams (adapters_concurrent), and an int4 server whose @ad1 requests launch
+  K5 7 x 16 x steps. Returns the phase's launches."""
+  import shutil
+  import tempfile
+  from xotorch_tpu_torch.models.registry import get_model_card
+  from xotorch_tpu_torch.ops.int4_matmul import int4_w4a16_matmul
+  from xotorch_tpu_torch.ops.int8_matmul import int8_rowquant_matmul
+  t0 = time.perf_counter()
+  with phase_env(**ADAPTER_ENV):
+    check_model(torch, adapter_rank=16, device=device, model=model)
+    check_model(torch, "int4", {"XOT_INT4_KERNEL": "force"}, int4_w4a16_matmul, adapter_rank=16,
+                device=device, model=model)
+    check_model(torch, "int8", {"XOT_INT8_KERNEL": "force"}, int8_rowquant_matmul, limit=1e-1,
+                adapter_rank=16, device=device, model=model)
+  root = tempfile.mkdtemp(prefix="xot-adapters-")
+  launches: dict = {}
+  try:
+    paths = write_adapters(torch, root, model)
+    sizes = {k: os.path.getsize(v) for k, v in paths.items()}
+    print(f"[adapters] adapter files written by save_lora_checkpoint: {sizes} bytes", flush=True)
+    for name, k in drive_adapters(torch, card, paths, device=device, model=model).items():
+      launches[name] = launches.get(name, 0) + k
+    for name, k in adapters_concurrent(torch, card, paths, device=device, model=model).items():
+      launches[name] = launches.get(name, 0) + k
+    ad1 = f"{model}@ad1"
+    body = [(f"int4 server -> {ad1}", {**main_requests(model)[0][1], "model": ad1})]
+    adapters = ",".join(f"{k}={v}" for k, v in paths.items())
+    with phase_env(XOT_ADAPTERS=adapters, **ADAPTER_ENV):
+      run = drive_main_path(torch, card, device=device, model=model, kernels=(int4_w4a16_matmul,),
+                            env={"XOT_QUANTIZE": "int4"}, tag="adapters int4", profiles=(),
+                            cli=("--adapters", adapters), requests=body)
+    layers = get_model_card(model)["layers"]
+    got, want = run["launches"]["int4_w4a16_matmul"], 7 * layers * run["steps"]
+    ok = got == want and run["steps"] >= run["decoded"]
+    print(f"[adapters int4] {ad1} over an int4 base: int4_w4a16_matmul launches {got} = 7 x {layers} "
+          f"x {run['steps']} decode steps ({want}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+      raise AssertionError(f"adapters int4: K5 launches {got}, wanted {want}")
+    launches["int4_w4a16_matmul"] = launches.get("int4_w4a16_matmul", 0) + got
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+  print(f"[adapters] phase 20 in {time.perf_counter() - t0:.1f} s ({card})", flush=True)
+  return launches
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--kernels-only", action="store_true",
@@ -6512,7 +6862,13 @@ def main(argv=None) -> int:
     launches[name] += n
   print(f"[time] phases 1-19: {time.perf_counter() - started:.1f} s", flush=True)
 
-  # Phase 20: results.
+  # Phase 20: multi-LoRA serving (adapter cuts against the CPU, main.py --adapters, the
+  # paged streams, an adapter over int4); its attention and K5 launches join the line.
+  for name, n in check_adapters(torch, card).items():
+    launches[name] += n
+  print(f"[time] phases 1-20: {time.perf_counter() - started:.1f} s", flush=True)
+
+  # Phase 21: results.
   meta = {
     "flash_attention": ("xotorch_tpu_torch/csrc/flash_attention.cu",
                         "xotorch_tpu/ops/flash_attention.py:54"),

@@ -142,23 +142,6 @@ def test_random_init_is_shard_consistent():
   torch.testing.assert_close(tail["lm_head"], full["lm_head"], rtol=0, atol=0)
 
 
-def _lora_forward():
-  _, cfg = _cfgs()
-  params = transformer.init_random_params(cfg, 1, True, True)
-  params["layers"]["lora_wq_a"] = torch.zeros(1, cfg.hidden_size, 4)
-  cache = transformer.init_kv_cache(cfg, 1, 1, 8, torch.float32)
-  transformer.forward_shard(params, torch.ones(1, 2, dtype=torch.int64), cache, 0, cfg, True, True)
-
-
-# gemma2 and qwen3 (qk-norm) are served (tests/test_torch_families.py), MoE and llava
-# too (tests/test_torch_moe.py, tests/test_torch_vision.py); what the port still
-# refuses: LoRA slots.
-@pytest.mark.parametrize("unsupported", [_lora_forward], ids=["lora-slot"])
-def test_unported_config_features_raise(unsupported):
-  with pytest.raises(NotImplementedError):
-    unsupported()
-
-
 def _bucketed(toks, bucket):
   out = np.zeros((1, bucket), np.int32)
   out[:, :toks.shape[1]] = toks

@@ -298,10 +298,17 @@ def test_quantized_forward_shard_logits_match_jax(mode, cfg_dict, monkeypatch):
 
 
 def test_check_params_admits_quantized_slots_and_refuses_lora():
+  """Quantized slots and LoRA slots side by side (QLoRA) pass; what the forward would
+  not apply is refused: an adapter on an expert slot, an A without its B."""
   cfg = config_from_hf_dict(get_model_card(MODEL)["synthetic_config"])
   params = q.quantize_params(transformer.init_random_params(cfg, 1, True, True), "int4")
+  layers = {**params["layers"], "lora_wq_a": torch.zeros(1), "lora_wq_b": torch.zeros(1),
+            "lora_w_down_a": torch.zeros(1), "lora_w_down_b": torch.zeros(1)}
   transformer._check_params(params["layers"])
+  transformer._check_params(layers)
   with pytest.raises(NotImplementedError, match="LoRA"):
+    transformer._check_params({**layers, "lora_we_up_a": torch.zeros(1), "lora_we_up_b": torch.zeros(1)})
+  with pytest.raises(ValueError, match="a/b pair"):
     transformer._check_params({**params["layers"], "lora_wq_a": torch.zeros(1)})
 
 

@@ -19,7 +19,10 @@ The port of the serving core of xotorch_tpu/api/chatgpt_api.py on
   model, as the JAX package does (an undecodable data URI too);
 - POST /v1/chat/token/encode (and /chat/token/encode) builds a request's prompt as a
   completion would (system prompt and tools included) and returns its tokens;
-- GET /v1/models lists the cards this engine serves; GET /healthcheck;
+- GET /v1/models lists the cards this engine serves and, under the default model, one
+  `{default}@{name}` entry for each registered LoRA adapter (XOT_ADAPTERS) with
+  `ready`, `adapter_of` and a header check's `error`; a completion whose model is
+  `base@name` is served by that adapter over the shared base; GET /healthcheck;
 - observability, with the JAX handler's payload keys: GET /metrics (Prometheus text:
   the node's registry, then the engine's counters and gauges, the perf, alert and
   anatomy gauges), /v1/traces (?trace_id=, ?clear=1, ?format=chrome), /v1/perf,
@@ -53,18 +56,22 @@ from __future__ import annotations
 import asyncio
 import json
 import math
+import os
 import time
 import uuid
+from pathlib import Path
 from typing import Dict, List, NamedTuple, Optional, Tuple
 from urllib.parse import parse_qsl
 
 from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer, resolve_tokenizer, tokenizer_for_dir
-from xotorch_tpu_torch.models.registry import build_base_shard, get_model_card, get_repo, get_supported_models
+from xotorch_tpu_torch.models.registry import (build_base_shard, get_model_card, get_repo,
+                                               get_supported_models, registered_adapters)
 from xotorch_tpu_torch.networking import faults
 from xotorch_tpu_torch.orchestration.admission import AdmissionRejected
 from xotorch_tpu_torch.orchestration.anatomy import chrome_trace
 from xotorch_tpu_torch.orchestration.tracing import DEFAULT_TRACE_DIR, start_device_trace, stop_device_trace
 from xotorch_tpu_torch.topology.partitioning import map_partitions_to_shards
+from xotorch_tpu_torch.train.lora import adapter_checkpoint_files, validate_adapter_file
 from xotorch_tpu_torch.utils import knobs
 from xotorch_tpu_torch.utils.helpers import DEBUG, spawn_detached
 
@@ -216,6 +223,7 @@ class ChatGPTAPI:
     self.token_queues: Dict[str, asyncio.Queue] = {}
     self._tasks: set = set()
     self._tokenizers: Dict[str, object] = {}
+    self._adapter_validation_cache: Dict[str, tuple] = {}  # _adapter_error's
     node.on_token.register("chatgpt-api-token-handler").on_next(self._enqueue_tokens)
 
   def _enqueue_tokens(self, request_id: str, tokens: List[int], is_finished: bool) -> None:
@@ -630,10 +638,49 @@ class ChatGPTAPI:
             "x-ratelimit-remaining-requests": str(remaining),
             "x-ratelimit-reset-requests": f"{reset_s:g}s"}
 
+  def _adapter_error(self, path: str, n_layers: int) -> Optional[str]:
+    """validate_adapter_file, cached: /v1/models may be polled, and re-reading every
+    adapter's headers each time would block the event loop on disk reads for data that
+    changes only with the files. Keyed on the path's (mtime_ns, size) and, for a
+    directory, on its resolved checkpoint files' own (name, mtime_ns, size): a shard
+    save rewritten in place leaves the directory's stat as it was."""
+    try:
+      st = os.stat(path)
+      sig = (n_layers, st.st_mtime_ns, st.st_size)
+      if Path(path).is_dir():
+        files = []
+        for f in adapter_checkpoint_files(path):
+          try:
+            fst = os.stat(f)
+            files.append((f.name, fst.st_mtime_ns, fst.st_size))
+          except OSError:
+            files.append((f.name, None, None))
+        sig = sig + (tuple(files),)
+    except OSError:
+      sig = (n_layers, None, None)
+    hit = self._adapter_validation_cache.get(path)
+    if hit is None or hit[0] != sig:
+      self._adapter_validation_cache[path] = hit = (sig, validate_adapter_file(path, n_layers))
+    return hit[1]
+
   def models_body(self) -> dict:
-    return {"object": "list", "data": [
-      {"id": m, "object": "model", "owned_by": "xotorch", "ready": True}
-      for m in get_supported_models(self.inference_engine_classname)]}
+    """The cards this engine serves, then one `{default}@{name}` entry for each
+    registered adapter (XOT_ADAPTERS): the registry binds no adapter to a base, so the
+    variants are listed under the server's default model, with `adapter_of`, `ready`
+    and, when the adapter's headers do not fit the base's depth, `error`."""
+    models = [{"id": m, "object": "model", "owned_by": "xotorch", "ready": True}
+              for m in get_supported_models(self.inference_engine_classname)]
+    base = self.default_model
+    if any(m["id"] == base for m in models):
+      n_layers = (get_model_card(base) or {}).get("layers", 0)
+      for name, path in registered_adapters().items():
+        err = self._adapter_error(path, n_layers) if n_layers else None
+        entry = {"id": f"{base}@{name}", "object": "model", "owned_by": "xotorch",
+                 "ready": err is None, "adapter_of": base}
+        if err is not None:
+          entry["error"] = err
+        models.append(entry)
+    return {"object": "list", "data": models}
 
   # ------------------------------------------------------- chat completions
 

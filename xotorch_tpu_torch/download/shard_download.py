@@ -11,6 +11,7 @@ from pathlib import Path
 from typing import Dict, Optional
 
 from xotorch_tpu_torch.inference.shard import Shard
+from xotorch_tpu_torch.models.registry import split_adapter
 from xotorch_tpu_torch.utils import knobs
 
 
@@ -25,17 +26,19 @@ class ShardDownloader(ABC):
 class LocalShardDownloader(ShardDownloader):
   """Serve model dirs already on disk (offline machines, tests): an explicit
   mapping passed to the constructor first, then `$XOT_MODEL_DIR/<model_id>` if it
-  exists."""
+  exists. An adapter id `base@name` that neither names resolves to its base's
+  directory."""
 
   def __init__(self, mapping: Optional[Dict[str, Path]] = None) -> None:
     self.mapping = {k: Path(v) for k, v in (mapping or {}).items()}
 
   async def ensure_shard(self, shard: Shard, inference_engine_name: str) -> Path:
-    if shard.model_id in self.mapping:
-      return self.mapping[shard.model_id]
-    root = knobs.get_str("XOT_MODEL_DIR", None)
-    if root and (Path(root) / shard.model_id).exists():
-      return Path(root) / shard.model_id
+    for mid in (shard.model_id, split_adapter(shard.model_id)[0]):
+      if mid in self.mapping:
+        return self.mapping[mid]
+      root = knobs.get_str("XOT_MODEL_DIR", None)
+      if root and (Path(root) / mid).exists():
+        return Path(root) / mid
     raise FileNotFoundError(f"No local model dir for {shard.model_id}")
 
 

@@ -2,7 +2,10 @@
 
 The port's copy of xotorch_tpu/inference/engine.py: the ABC the Node drives,
 `CacheExhausted`, `RequestStateLost` and the engine factory. Engines work on numpy at
-the boundary, so the orchestration layer never sees device tensors.
+the boundary, so the orchestration layer never sees device tensors. The contract
+serves inference, multi-LoRA adapters (`base@name` shards) and `load_checkpoint` /
+`save_checkpoint`; the training methods (`train_example`, `evaluate_example`,
+`save_session`, `clear_session`) are the training leaf, still to port.
 """
 from __future__ import annotations
 
@@ -121,6 +124,12 @@ class InferenceEngine(ABC):
     tokens = await self.encode(shard, prompt)
     x = tokens.reshape(1, -1)
     return await self.infer_tensor(request_id, shard, x, inference_state, **engine_kwargs)
+
+  async def load_checkpoint(self, shard: Shard, path: str) -> None:
+    """Load `path` into `shard`'s weights (an engine without checkpoints ignores it)."""
+
+  async def save_checkpoint(self, shard: Shard, path: str) -> None:
+    """Write `shard`'s weights to `path` (an engine without checkpoints ignores it)."""
 
 
 # Every alias -> canonical classname; the model registry keys repos by classname.

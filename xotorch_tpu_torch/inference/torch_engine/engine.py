@@ -122,7 +122,19 @@ card as one captured graph a bucket (models/graphs.verify_contiguous / verify_pa
 `draft_tokens` proposes k tokens from a second resident context (the draft model),
 greedy, through its own decode graphs.
 
-Left out so far: the fused in-process ring (`supports_ring_fusion`) and the ring's
+Multi-LoRA serving (XOT_ADAPTERS, the JAX engine's): a `base@name` shard is a context
+of its own whose base tensors alias a resident context over the same base and layers
+(the same storage: one base on the card, whatever the number of adapters), with the
+registered adapter merged over them (train/lora.py); models/transformer adds each
+adapted slot's delta. With no donor resident the base loads for it as for a plain id.
+Its requests, batcher, page pool, prefix cache, host-tier entries and graphs are its
+own, so no KV computed under another adapter or the base is ever reused. Evicting a
+donor frees nothing that an adapter context still holds: the tensors go with their
+last reference. `load_checkpoint` / `save_checkpoint` move adapter-only files, shard
+saves and full checkpoints (the JAX engine's, without the optimizer's moments).
+
+Left out so far: the training leaf (train_example, evaluate_example, the optimizer),
+the fused in-process ring (`supports_ring_fusion`) and the ring's
 speculation (`verify_draft_ring`), device-resident hops, and the KV fabric between
 replicas.
 """
@@ -159,17 +171,20 @@ from xotorch_tpu_torch.models import graphs
 from xotorch_tpu_torch.models.generate import (decode_chunk_batched, decode_chunk_paged, forward_argmax,
                                                forward_argmax_paged, forward_sample, prefill_scan,
                                                scan_groups)
-from xotorch_tpu_torch.models.quantize import QUANT_DTYPES, quantize_params, quantized_bytes
-from xotorch_tpu_torch.models.registry import build_full_shard, get_model_card
+from xotorch_tpu_torch.models.quantize import (QUANT_DTYPES, dequantize_params, is_quantized,
+                                               quantize_params, quantized_bytes)
+from xotorch_tpu_torch.models.registry import (adapter_path, build_full_shard, get_model_card,
+                                               split_adapter)
 from xotorch_tpu_torch.models.transformer import (embed, forward_shard, init_kv_cache,
                                                   init_random_params, quant_route)
 from xotorch_tpu_torch.models.vision import (encode_images, merge_image_features, preprocess_images,
                                              project_features)
-from xotorch_tpu_torch.models.weights import load_shard_params, load_vision_tower
+from xotorch_tpu_torch.models.weights import load_shard_params, load_vision_tower, save_shard_params
 from xotorch_tpu_torch.ops import flash_attention, flash_decode, paged_attention
 from xotorch_tpu_torch.ops.sampling import (DEFAULT_TEMP, DEFAULT_TOP_K, sample_logits,
                                             sample_logits_logprobs)
 from xotorch_tpu_torch.topology.device_capabilities import cuda_chip_peaks
+from xotorch_tpu_torch.train import lora
 from xotorch_tpu_torch.utils import knobs
 from xotorch_tpu_torch.utils.helpers import DEBUG, spawn_detached
 
@@ -484,9 +499,9 @@ class TorchShardInferenceEngine(InferenceEngine):
     self._grow_copies = 0
     self._commit_copy_bytes = 0
     # The engine-global sampling stream: `seed=`, else XOT_SEED, else the clock.
+    self._seed = int(seed) if seed is not None else knobs.get_int("XOT_SEED", int(time.time()))
     self.generator = torch.Generator(device=self.device)
-    self.generator.manual_seed(int(seed) if seed is not None
-                               else knobs.get_int("XOT_SEED", int(time.time())))
+    self.generator.manual_seed(self._seed)
     # A seeded request's stream: re-seeded before each sampling call or chunk from
     # (seed, position, choice); the seeded decode graphs are captured with it.
     self._sample_generator = torch.Generator(device=self.device)
@@ -853,13 +868,22 @@ class TorchShardInferenceEngine(InferenceEngine):
         self._active = ctx
         return ctx
       card = get_model_card(shard.model_id) or {}
+      base_id, adapter_name = split_adapter(shard.model_id)
+      adapter_ckpt = self._adapter_checkpoint(adapter_name) if adapter_name is not None else None
+      donor = self._donor_ctx(shard, base_id) if adapter_name is not None else None
       model_dir = None
-      if card.get("synthetic_config") is None:
+      if donor is not None:
+        # The base's directory: the adapter context's tokenizer is the base's.
+        model_dir = donor.model_dir
+      elif card.get("synthetic_config") is None:
         if self.shard_downloader is None:
           raise ValueError(f"{shard.model_id}: a checkpoint needs a shard downloader")
         model_dir = Path(await self.shard_downloader.ensure_shard(shard, type(self).__name__))
-      ctx = await self._run(self._load_shard, shard, model_dir, oom_as_cache_exhausted=False)
-      if model_dir is not None:
+      ctx = await self._run(self._load_shard, shard, model_dir, donor, adapter_ckpt,
+                            oom_as_cache_exhausted=False)
+      if donor is not None:
+        ctx.tokenizer = donor.tokenizer
+      elif model_dir is not None:
         ctx.tokenizer = await tokenizer_for_dir(model_dir)
       self._contexts[shard] = ctx
       self._active = ctx
@@ -883,7 +907,7 @@ class TorchShardInferenceEngine(InferenceEngine):
     n_states = len(ctx.states)
     for rid in list(ctx.states):
       self._drop_state(ctx, rid)
-    ctx.prefix_cache.clear()
+    self._clear_prefix_cache(ctx)
     ctx.page_pool = None
     if ctx.graphs is not None:
       ctx.graphs.clear()
@@ -892,28 +916,86 @@ class TorchShardInferenceEngine(InferenceEngine):
     if DEBUG >= 1:
       print(f"Evicted model context {ctx.shard} ({n_states} resident request states)", flush=True)
 
-  def _load_shard(self, shard: Shard, model_dir: Optional[Path]) -> _ShardContext:
+  def _adapter_checkpoint(self, name: str):
+    """A registered adapter's checkpoint (a file, or a directory's latest shard saves),
+    or raise with the JAX engine's messages: not registered, no such path, no files."""
+    ap = adapter_path(name)
+    if ap is None:
+      raise ValueError(
+        f"adapter {name!r} is not registered — set XOT_ADAPTERS="
+        f"'{name}=/path/to/adapter'")
+    p = Path(ap)
+    if not p.exists():
+      raise FileNotFoundError(f"adapter {name!r} path does not exist: {ap}")
+    ckpt = self._latest_shard_saves(p) if p.is_dir() else p
+    if not ckpt:
+      raise FileNotFoundError(f"no adapter checkpoint files under {ap}")
+    return ckpt
+
+  def _donor_ctx(self, shard: Shard, base_id: str) -> Optional[_ShardContext]:
+    """A resident context over the same base and layer range (the base's, or another
+    adapter's) whose weights an adapter context can alias."""
+    for s, c in self._contexts.items():
+      if (split_adapter(s.model_id)[0] == base_id
+          and (s.start_layer, s.end_layer) == (shard.start_layer, shard.end_layer)):
+        return c
+    return None
+
+  def _lora_generator(self) -> torch.Generator:
+    """The draws of fresh adapters (XOT_LORA_RANK): seeded from the engine's seed, as
+    JAX keys them, so every context and reload of one engine draws the same A."""
+    g = torch.Generator(device=self.device)
+    g.manual_seed(self._seed)
+    return g
+
+  def _load_shard(self, shard: Shard, model_dir: Optional[Path],
+                  donor: Optional[_ShardContext] = None, adapter_ckpt=None) -> _ShardContext:
     """The shard's config and weights on the device: from the checkpoint in
-    `model_dir`, or a synthetic card's random weights when it is None."""
+    `model_dir`, or a synthetic card's random weights when it is None.
+
+    Multi-LoRA (a `base@name` shard): with a `donor` context over the same base and
+    layers, its tensors are aliased (the same storage, every `lora_*` leaf dropped),
+    quantization included, with its vision tower; else the base loads as for a plain
+    id. `adapter_ckpt` (a file or a list of shard saves) is merged over it. Fresh
+    adapters (XOT_LORA_RANK, XOT_LORA_TARGETS=all for the MLP slots) attach only where
+    no adapter checkpoint does: they would overwrite its trained leaves."""
     t0 = time.perf_counter()
-    if model_dir is None:
-      cfg = config_from_hf_dict(get_model_card(shard.model_id)["synthetic_config"])
+    if donor is not None:
+      cfg = donor.cfg
+      params = {**donor.params, "layers": {k: v for k, v in donor.params["layers"].items()
+                                           if not k.startswith("lora_")}}
+      vision = donor.vision
     else:
-      cfg = load_model_config(model_dir)
-    self._check_kernel_shapes(shard.model_id, cfg)
-    if model_dir is None:
-      params = init_random_params(cfg, shard.get_layer_count(), shard.is_first_layer,
-                                  shard.is_last_layer, seed=0, dtype=self.dtype,
-                                  device=self.device, start_layer=shard.start_layer)
-    else:
-      params = load_shard_params(model_dir, cfg, shard, dtype=self.dtype, device=self.device)
-    if self.quantize:
-      params = quantize_params(params, self.quantize, scale_dtype=self.dtype, inplace=True)
-    vision = None
-    if cfg.is_multimodal and shard.is_first_layer and model_dir is not None:
-      # The tower and projector stay in the compute dtype whatever `quantize` says, as
-      # in JAX: only the text stack's slots are quantized.
-      vision = load_vision_tower(model_dir, cfg, dtype=self.dtype, device=self.device)
+      if model_dir is None:
+        cfg = config_from_hf_dict(get_model_card(shard.model_id)["synthetic_config"])
+      else:
+        cfg = load_model_config(model_dir)
+      self._check_kernel_shapes(shard.model_id, cfg)
+      if model_dir is None:
+        params = init_random_params(cfg, shard.get_layer_count(), shard.is_first_layer,
+                                    shard.is_last_layer, seed=0, dtype=self.dtype,
+                                    device=self.device, start_layer=shard.start_layer)
+      else:
+        params = load_shard_params(model_dir, cfg, shard, dtype=self.dtype, device=self.device)
+      if self.quantize:
+        params = quantize_params(params, self.quantize, scale_dtype=self.dtype, inplace=True)
+      vision = None
+      if cfg.is_multimodal and shard.is_first_layer and model_dir is not None:
+        # The tower and projector stay in the compute dtype whatever `quantize` says, as
+        # in JAX: only the text stack's slots are quantized.
+        vision = load_vision_tower(model_dir, cfg, dtype=self.dtype, device=self.device)
+    if adapter_ckpt is not None:
+      params = lora.load_lora_checkpoint(params, shard, adapter_ckpt)
+      if DEBUG >= 1:
+        print(f"LoRA adapter {split_adapter(shard.model_id)[1]!r} attached over "
+              f"{split_adapter(shard.model_id)[0]}" + (" (aliased base)" if donor else ""))
+    lora_rank = knobs.get_int("XOT_LORA_RANK")
+    if lora_rank > 0 and adapter_ckpt is None:
+      targets = lora.ATTN_SLOTS + (lora.MLP_SLOTS if knobs.get_str("XOT_LORA_TARGETS", "") == "all"
+                                   else ())
+      params = lora.add_lora_params(params, lora_rank, self._lora_generator(), targets)
+      if DEBUG >= 1:
+        print(f"LoRA adapters attached: rank={lora_rank}, targets={targets}")
     cache_len = min(self._configured_cache_len, cfg.max_seq_len)
     max_cache_len = max(cache_len, min(self._configured_max_cache_len, cfg.max_seq_len))
     tokenizer = DummyTokenizer()  # a checkpoint's own replaces it (_ensure_ctx)
@@ -956,6 +1038,119 @@ class TorchShardInferenceEngine(InferenceEngine):
       return ()
     eos = getattr(ctx.tokenizer, "eos_token_id", None)
     return tuple(((eos,) if eos is not None else ()) + tuple(ctx.cfg.eos_token_ids or ()))
+
+  # ------------------------------------------------------------ checkpoints
+
+  def _checkpoint_file_for(self, path: Path, shard: Shard) -> Optional[Path]:
+    """A concrete safetensors file for this shard: a file path as it is; a directory's
+    own `{start}-{end}-*` saves of this shard (latest iteration), else any safetensors
+    there that is neither another shard's save nor an optimizer-moments file."""
+    if path.is_file():
+      return path
+    if not path.is_dir():
+      return None
+    sid = f"{shard.start_layer}-{shard.end_layer}"
+    mine = sorted(
+      (p for p in path.glob(f"{sid}-*.safetensors") if not p.stem.endswith("-opt")),
+      key=lambda p: int(p.stem.rsplit("-", 1)[-1]) if p.stem.rsplit("-", 1)[-1].isdigit() else -1,
+    )
+    if mine:
+      return mine[-1]
+    rest = sorted(p for p in path.glob("*.safetensors")
+                  if not lora.SHARD_SAVE_RE.fullmatch(p.stem) and not p.stem.endswith("-opt"))
+    return rest[0] if rest else None
+
+  @staticmethod
+  def _latest_shard_saves(path: Path) -> list:
+    """All `{start}-{end}-{iter}` saves in a directory, the latest iteration per layer
+    range (train/lora.adapter_checkpoint_files: the API's listing resolves directories
+    by the same rule)."""
+    return lora.adapter_checkpoint_files(path)
+
+  async def load_checkpoint(self, shard: Shard, path: str) -> None:
+    """Load `path` into the shard's context (the JAX engine's resolution, without the
+    optimizer's moments: the port has no optimizer yet):
+
+    - an adapter-only file (this shard's own save in a directory, or a file) merges
+      over the loaded base;
+    - a directory whose shard saves are all adapter-only merges their union (a ring
+      re-partitioned since they were written), even with base files beside them;
+    - otherwise full weights: an explicit file or a shard save beats an HF index in the
+      same directory, then the index, then any other safetensors file. A quantized
+      engine requantizes them, and a context that had adapters gets fresh ones of the
+      same rank and slots.
+
+    Then the context's prefix cache and host-tier entries go (computed under the old
+    weights), its chunks dispatched ahead roll back, and its captured CUDA graphs and
+    slab are dropped: a replay reads the parameters at the addresses of its capture,
+    and the new tensors have other addresses. The next use of each key captures again."""
+    ctx = await self._ensure_ctx(shard)
+
+    def _load():
+      p = Path(path)
+      ckpt = self._checkpoint_file_for(p, ctx.shard)
+      if ckpt is not None and lora.is_lora_checkpoint(ckpt):
+        return lora.load_lora_checkpoint(ctx.params, ctx.shard, ckpt)
+      if p.is_dir():
+        # Checked whatever _checkpoint_file_for fell back to: a base model.safetensors
+        # in the same directory must not shadow the adapter saves.
+        pieces = self._latest_shard_saves(p)
+        if pieces and all(lora.is_lora_checkpoint(f) for f in pieces):
+          return lora.load_lora_checkpoint(ctx.params, ctx.shard, pieces)
+      model_dir = p if p.is_dir() else p.parent
+      explicit = ckpt is not None and (p.is_file() or lora.SHARD_SAVE_RE.fullmatch(ckpt.stem))
+      if explicit:
+        params = load_shard_params(model_dir, ctx.cfg, ctx.shard, dtype=self.dtype,
+                                   device=self.device, checkpoint_file=ckpt)
+      elif ((model_dir / "model.safetensors.index.json").exists()
+            or (model_dir / "model.safetensors").exists()):
+        params = load_shard_params(model_dir, ctx.cfg, ctx.shard, dtype=self.dtype,
+                                   device=self.device)
+      elif ckpt is not None:
+        params = load_shard_params(model_dir, ctx.cfg, ctx.shard, dtype=self.dtype,
+                                   device=self.device, checkpoint_file=ckpt)
+      else:
+        raise FileNotFoundError(f"no checkpoint for shard {ctx.shard} at {path}")
+      if self.quantize:
+        # Checkpoints are stored in the compute dtype (save_checkpoint dequantizes).
+        params = quantize_params(params, self.quantize, scale_dtype=self.dtype, inplace=True)
+      lora_a_keys = sorted(k for k in ctx.params["layers"] if k.startswith("lora_") and k.endswith("_a"))
+      if lora_a_keys:
+        rank = int(ctx.params["layers"][lora_a_keys[0]].shape[-1])
+        targets = tuple(k[len("lora_"):-len("_a")] for k in lora_a_keys)
+        params = lora.add_lora_params(params, rank, self._lora_generator(), targets)
+      return params
+
+    def _load_and_swap():
+      params = _load()
+      for rid, st in ctx.states.items():
+        self._discard_spec(rid, st)
+      self._discard_batch_spec(ctx)
+      if ctx.graphs is not None:
+        ctx.graphs.clear()
+      ctx.params = params
+      self._clear_prefix_cache(ctx)
+      if self.device.type == "cuda":
+        torch.cuda.empty_cache()
+
+    await self._run(_load_and_swap, oom_as_cache_exhausted=False)
+
+  async def save_checkpoint(self, shard: Shard, path: str) -> None:
+    """Write the shard's context to `path`: its adapters alone when it has any
+    (`lora.layers.{i}.*`, MBs, not the base), else its weights in HF layout and the
+    compute dtype (a quantized context dequantized)."""
+    ctx = await self._ensure_ctx(shard)
+
+    def _save():
+      if lora.has_lora(ctx.params):
+        lora.save_lora_checkpoint(ctx.params, ctx.shard, Path(path))
+        return
+      params = ctx.params
+      if is_quantized(params):
+        params = dequantize_params(params, self.dtype)
+      save_shard_params(params, ctx.cfg, ctx.shard, Path(path))
+
+    await self._run(_save, oom_as_cache_exhausted=False)
 
   # ---------------------------------------------------------------- tokens
 

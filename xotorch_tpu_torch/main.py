@@ -5,6 +5,8 @@ one completion.
     python -m xotorch_tpu_torch.main run synthetic-llama-1b --prompt "..."
     python -m xotorch_tpu_torch.main --quantize int4   # or int8: quantized weights
     python -m xotorch_tpu_torch.main --kv-quantize int8  # int8 KV cache
+    python -m xotorch_tpu_torch.main --adapters fin=/a/fin.safetensors,med=/a/med_dir
+        # multi-LoRA: requests name "<model>@fin" or "<model>@med" over one base
     python -m xotorch_tpu_torch.main run gemma2-2b --models-seed-dir /data/seed
     python -m xotorch_tpu_torch.main run dummy --inference-engine dummy   # no model, no device
 
@@ -34,6 +36,7 @@ from __future__ import annotations
 import argparse
 import asyncio
 import json
+import os
 import signal
 import sys
 import time
@@ -82,12 +85,24 @@ def build_parser() -> argparse.ArgumentParser:
                       help="weight-only quantization of the served model (as XOT_QUANTIZE)")
   parser.add_argument("--kv-quantize", type=str, default=None, choices=["int8"],
                       help="int8 KV cache with a scale per (position, head) (as XOT_KV_QUANT)")
+  parser.add_argument("--lora-rank", type=int, default=0,
+                      help="attach rank-r LoRA adapters to every loaded model (as XOT_LORA_RANK)")
+  parser.add_argument("--adapters", type=str, default=None,
+                      help="multi-LoRA serving registry: 'name=/path/to/adapter,name2=/dir'. "
+                           "Requests select an adapter via the model id 'base@name'; all "
+                           "adapters share one resident base (as XOT_ADAPTERS)")
   return parser
 
 
 def build_node(args) -> tuple:
   """Engine, node (with its TCP server and discovery, not started) and API for `args`;
-  the engine raises here when the device is missing."""
+  the engine raises here when the device is missing. `--lora-rank` and `--adapters`
+  go to the environment (XOT_LORA_RANK, XOT_ADAPTERS), where the engine reads them when
+  it loads a shard and the registry and the API when they resolve an adapter id."""
+  if getattr(args, "lora_rank", 0):
+    os.environ["XOT_LORA_RANK"] = str(args.lora_rank)
+  if getattr(args, "adapters", None):
+    os.environ["XOT_ADAPTERS"] = args.adapters
   engine = get_inference_engine(args.inference_engine, HFShardDownloader(), device=args.device,
                                 quantize=getattr(args, "quantize", None),
                                 kv_quant=getattr(args, "kv_quantize", None))

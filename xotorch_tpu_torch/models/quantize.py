@@ -13,7 +13,8 @@ is:
 - the embedding is int8 per row (`embedding_scale` [vocab]): a lookup rescales by
   its row's scale, and a tied unembedding uses the same scale per vocab column;
   `lm_head` [H, vocab] gets `lm_head_scale` [vocab];
-- norms stay in the compute dtype.
+- norms and LoRA adapters (`lora_*` leaves, train/lora.py) stay in the compute dtype:
+  only the slots of LAYER_SLOTS, the embedding and lm_head are quantized.
 
 Rounding is `torch.round` (half to even, as `jnp.round`) of `w32 / scale` in fp32.
 `quantize_params(..., inplace=True)` replaces each slot as it goes, layer by layer,

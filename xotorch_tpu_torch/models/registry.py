@@ -8,12 +8,18 @@ XOT_HOME/models/<org>--<name> (download/hf_shard_download.py); synthetic cards c
 their config and get random weights from a seed; the dummy card serves the fake engine
 of inference/dummy.py. `"moe": True` marks a routed-experts card, `"vision": True` one
 whose API takes images.
+
+Multi-LoRA serving: a model id `base@name` addresses the adapter set registered as
+`name` in XOT_ADAPTERS, served over `base`'s weights. The full id flows through the
+Shard and the engine's contexts (one context an adapter); every card, repo and
+tokenizer lookup here resolves to the base (`split_adapter`).
 """
 from __future__ import annotations
 
 from typing import Dict, List, Optional
 
 from xotorch_tpu_torch.inference.shard import Shard
+from xotorch_tpu_torch.utils import knobs
 
 TORCH = "TorchShardInferenceEngine"
 DUMMY = "DummyInferenceEngine"
@@ -123,17 +129,42 @@ model_cards: Dict[str, Dict] = {
 }
 
 
+def split_adapter(model_id: str) -> tuple:
+  """'base@adapter' -> (base_id, adapter_name); plain ids -> (id, None)."""
+  base, sep, name = model_id.partition("@")
+  return (base, name) if sep and name else (model_id, None)
+
+
+def registered_adapters() -> Dict[str, str]:
+  """The XOT_ADAPTERS registry ('name=/path/to/adapter.safetensors,name2=/dir') as
+  {name: path}: the one parser that the API's model listing and the engine's
+  resolution share (whitespace-tolerant; empty names dropped)."""
+  out: Dict[str, str] = {}
+  for entry in knobs.get_str("XOT_ADAPTERS", "").split(","):
+    key, sep, path = entry.partition("=")
+    key, path = key.strip(), path.strip()
+    if sep and key and path:
+      out[key] = path
+  return out
+
+
+def adapter_path(name: str) -> Optional[str]:
+  """A registered adapter name's checkpoint path, or None."""
+  return registered_adapters().get(name)
+
+
 def get_model_card(model_id: str) -> Optional[Dict]:
-  return model_cards.get(model_id)
+  return model_cards.get(model_id) or model_cards.get(split_adapter(model_id)[0])
 
 
 def get_repo(model_id: str, inference_engine_classname: str) -> Optional[str]:
+  model_id = split_adapter(model_id)[0]
   return model_cards.get(model_id, {}).get("repo", {}).get(inference_engine_classname)
 
 
 def build_base_shard(model_id: str, inference_engine_classname: str) -> Optional[Shard]:
   """start=end=0 sentinel shard used to address a model before its layer range is
-  known."""
+  known. An adapter id keeps its full id, with the base card's layer count."""
   n_layers = (get_model_card(model_id) or {}).get("layers", 0)
   if n_layers < 1 or get_repo(model_id, inference_engine_classname) is None:
     return None

@@ -34,8 +34,15 @@ scale per (expert, output channel) and are dequantized in the product. One card 
 every expert, so the routed form is always taken where it applies (JAX passes
 `moe_routed=False` only over an expert-parallel mesh). A multimodal (llava) model's
 text stack is this transformer fed the merged text-and-image embeddings as a hidden
-input (models/vision.py). LoRA slots raise NotImplementedError instead of returning a
-wrong answer.
+input (models/vision.py).
+
+LoRA (train/lora.py builds the tensors): a slot with `lora_<slot>_a` [L, in, r] and
+`lora_<slot>_b` [L, r, out] adds `LORA_SCALE * (h @ A) @ B` to its projection, at
+JAX's seven sites (wq, wk, wv, wo and the dense MLP's w_gate, w_up, w_down; experts
+are never a target). The delta is two plain products, as JAX computes it outside any
+kernel; over a quantized base it adds to the GEMV kernel's output (decode) or to the
+dequantized product (prefill). Presence decides: a tree without adapters runs as
+before.
 """
 from __future__ import annotations
 
@@ -69,10 +76,34 @@ def check_supported(cfg: ModelConfig) -> None:
                               f"not ported to xotorch_tpu_torch")
 
 
+LORA_SCALE = 2.0  # alpha / r with alpha = 2r (train/lora.py builds the tensors)
+
+# The slots that may carry LoRA tensors (train/lora.py's ATTN_SLOTS + MLP_SLOTS).
+LORA_SLOTS = ("wq", "wk", "wv", "wo", "w_gate", "w_up", "w_down")
+
+
 def _check_params(layer: Params) -> None:
-  for slot in layer:
-    if slot.startswith("lora_"):
-      raise NotImplementedError(f"parameter slot {slot!r} (LoRA) is not ported yet")
+  """Refuse an adapter leaf the forward would not apply: one outside the seven dense
+  slots (experts are never a target), or an A without its B. Quantized slots
+  (`_scale`, `_gscale`) pass as they are."""
+  for name in layer:
+    if not name.startswith("lora_"):
+      continue
+    slot, _, part = name[len("lora_"):].rpartition("_")
+    if slot not in LORA_SLOTS or part not in ("a", "b"):
+      raise NotImplementedError(f"parameter slot {name!r}: LoRA serves only {LORA_SLOTS}")
+    if f"lora_{slot}_a" not in layer or f"lora_{slot}_b" not in layer:
+      raise ValueError(f"parameter slot {name!r}: LoRA slot {slot} lacks its a/b pair")
+
+
+def _maybe_lora(layer: Params, slot: str, h: torch.Tensor, base_out: torch.Tensor) -> torch.Tensor:
+  """base_out + LORA_SCALE * (h @ A) @ B when `slot` carries LoRA tensors (JAX's
+  `_maybe_lora`): two plain products, the delta cast to the output's dtype."""
+  a = layer.get(f"lora_{slot}_a")
+  if a is None:
+    return base_out
+  delta = (h @ a) @ layer[f"lora_{slot}_b"]
+  return base_out + delta.to(base_out.dtype) * LORA_SCALE
 
 
 @dataclasses.dataclass(frozen=True)
@@ -145,8 +176,9 @@ def _mlp_act(cfg: ModelConfig, x: torch.Tensor) -> torch.Tensor:
 
 
 def _dense_mlp(layer: Params, h: torch.Tensor, cfg: ModelConfig, route: QuantRoute) -> torch.Tensor:
-  gate = _mlp_act(cfg, _linear(layer, "w_gate", h, route))
-  return _linear(layer, "w_down", gate * _linear(layer, "w_up", h, route), route)
+  gate = _mlp_act(cfg, _maybe_lora(layer, "w_gate", h, _linear(layer, "w_gate", h, route)))
+  up = gate * _maybe_lora(layer, "w_up", h, _linear(layer, "w_up", h, route))
+  return _maybe_lora(layer, "w_down", up, _linear(layer, "w_down", up, route))
 
 
 def _moe_einsum(layer: Params, slot: str, eq: str, h: torch.Tensor) -> torch.Tensor:
@@ -292,9 +324,9 @@ def _attention_block(layer: Params, x: torch.Tensor, cache: Dict[str, torch.Tens
   post-norm where the config has one). `window` is this layer's (0 = global)."""
   B, T, _ = x.shape
   h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps, cfg.norm_offset)
-  q = _linear(layer, "wq", h, route)
-  k = _linear(layer, "wk", h, route)
-  v = _linear(layer, "wv", h, route)
+  q = _maybe_lora(layer, "wq", h, _linear(layer, "wq", h, route))
+  k = _maybe_lora(layer, "wk", h, _linear(layer, "wk", h, route))
+  v = _maybe_lora(layer, "wv", h, _linear(layer, "wv", h, route))
   if "bq" in layer:
     q = q + layer["bq"]
     k = k + layer["bk"]
@@ -354,7 +386,8 @@ def _attention_out(layer: Params, attn: torch.Tensor, cfg: ModelConfig,
                    route: QuantRoute) -> torch.Tensor:
   """The output projection of attention [B, T, Hq, D], then the sandwich post-norm."""
   B, T = attn.shape[0], attn.shape[1]
-  out = _linear(layer, "wo", attn.reshape(B, T, cfg.num_heads * cfg.head_dim), route)
+  attn2d = attn.reshape(B, T, cfg.num_heads * cfg.head_dim)
+  out = _maybe_lora(layer, "wo", attn2d, _linear(layer, "wo", attn2d, route))
   if cfg.sandwich_norms:
     out = rms_norm(out, layer["post_attn_norm"], cfg.rms_norm_eps, cfg.norm_offset)
   return out

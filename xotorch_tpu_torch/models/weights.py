@@ -22,12 +22,15 @@ A llava checkpoint's text tensors (`language_model.` names) load like a dense mo
 its vision tower and projector go with the first shard (`load_vision_tower`).
 
 `params_from_jax` carries the JAX package's stacked parameter tree (numpy leaves)
-into torch tensors of the same layout: the tests hold the two packages on the same
-weights with it.
+into torch tensors of the same layout, LoRA adapters (`lora_*` leaves) included: the
+tests hold the two packages on the same weights with it. Adapter-only checkpoints
+(`lora.layers.{i}.{slot}_{a|b}`) go through the same reader and writer
+(train/lora.py).
 """
 from __future__ import annotations
 
 import json
+import os
 import re
 import struct
 from pathlib import Path
@@ -58,6 +61,8 @@ def _read_header(path: Path):
   """(header dict without __metadata__, byte offset of the data) of a safetensors file."""
   with open(path, "rb") as f:
     (n,) = struct.unpack("<Q", f.read(8))
+    if n > os.fstat(f.fileno()).st_size - 8:
+      raise ValueError(f"{path}: a {n}-byte header runs past the end of the file")
     header = json.loads(f.read(n))
   header.pop("__metadata__", None)
   return header, 8 + n

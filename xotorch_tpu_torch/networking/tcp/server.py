@@ -5,7 +5,8 @@ carries one call at a time (service.py); every RPC decodes its XOT1 frame and ca
 local Node. SendPrompt and SendTensor drop a redelivered hop (by its sequence id),
 spawn the Node's work detached and answer at once, so two peers that send to each
 other never wait on each other's work. SendExample answers that training is not
-served: the port's ring serves inference only.
+served: the port's ring serves inference (multi-LoRA adapters included) until the
+training leaf is ported (ROADMAP queue 1, item 10b).
 """
 from __future__ import annotations
 
@@ -131,8 +132,8 @@ class TCPServer(Server):
     return encode_message({"ok": True})
 
   async def _rpc_send_example(self, fields: dict, tensors: dict) -> bytes:
-    return encode_message({"error": "SendExample is not served: training over the ring is not "
-                                    "ported to xotorch_tpu_torch yet"})
+    return encode_message({"error": "SendExample is not served: training over the ring (the "
+                                    "training leaf) is not ported to xotorch_tpu_torch yet"})
 
   async def _rpc_collect_topology(self, fields: dict, tensors: dict) -> bytes:
     topology = await self.node.collect_topology(set(fields.get("visited", [])), fields.get("max_depth", 4))

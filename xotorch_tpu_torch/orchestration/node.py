@@ -17,7 +17,11 @@ on_opaque_status) and the same deterministic ring:
   engine keeps the extras' state (the penalty counts) across its calls; logprobs are
   reported where the API's node hosts the sampling shard;
 - a hop error aborts the request on every peer (a finish carrying the error), and
-  every peer frees the request's state when it learns of the finish.
+  every peer frees the request's state when it learns of the finish;
+- a multi-LoRA id (`base@name`, XOT_ADAPTERS) rides the shards whole: its layers and
+  partition table are the base card's (models/registry resolves the card through the
+  base), and each peer's engine serves it from the adapter's own context, with its
+  own batcher, over the base's tensors.
 
 Observability (the JAX Node's): the Node keeps NodeMetrics, a Tracer, a
 FlightRecorder, the latency anatomy (a ClockSkew collector fed by hop clock stamps and

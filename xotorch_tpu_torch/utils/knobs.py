@@ -66,6 +66,9 @@ _DEFS: Tuple[Knob, ...] = (
   Knob("XOT_INT4_KERNEL", "str", "1", "int4 decode GEMV kernel (K5/K5v4): always taken on the card; `force` takes its function on the CPU too (plain version); `0` is reserved for a tensor-parallel mesh (not ported) and acts as `1`."),
   Knob("XOT_INT4_V", "int", "1", "int4 kernel variant: 1-3 the exact W4A16 kernel (K5), 4 the W4A8 kernel (K5v4)."),
   Knob("XOT_INT8_KERNEL", "str", "0", "W8A8 decode GEMV kernel (K6): `1` on the card, `0` off, `force` its function on the CPU too (plain version)."),
+  Knob("XOT_LORA_RANK", "int", "0", "LoRA adapter rank for training; 0 trains/serves without LoRA."),
+  Knob("XOT_LORA_TARGETS", "str", None, "LoRA target set; `all` extends adapters to MLP slots (default attention-only)."),
+  Knob("XOT_ADAPTERS", "str", None, "Comma-separated `name=path` list of LoRA adapters to serve (multi-LoRA)."),
   Knob("XOT_HOP_RETRIES", "int", "2", "Retries per ring hop on transient transport failures; 0 = fail-fast."),
   Knob("XOT_HOP_BACKOFF_S", "float", "0.05", "Base backoff (s) for hop retries (exponential + jitter)."),
   Knob("XOT_REQUEST_DEADLINE_S", "float", "0", "End-to-end request deadline (s); remaining budget rides the hops. 0 disables."),
