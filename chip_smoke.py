@@ -113,12 +113,12 @@ Phases, in order; any failure exits nonzero and prints no result line:
      segments through captured prefill_scan groups; this phase holds those programs
      against the eager body (models/generate) on synthetic-llama-1b at full width and
      depth in the five decode formats (bf16, int4 K5, int4 K5v4, int8 K6, bf16 over an
-     int8 KV cache) and gemma-2-2b's shape in bf16: 64 graph-replayed steps give the
+     int8 KV cache) and gemma-2-2b's shape in bf16: 16 graph-replayed steps give the
      eager body's tokens and cache bit for bit at B=1 and B=8 (gemma B=1), contiguous
      (K2/K2q) and paged (K3/K3q), at temperature 0, and with injected Gumbel noise (B=8
      contiguous in every format, paged in bf16; gemma both), the kernels' counters
      reading layers x steps (7 x layers x steps for a GEMV kernel) for the replays;
-     then eager against graph, 4 rounds in turn (contiguous B=1 and B=8 in every
+     then eager against graph, 2 rounds in turn (contiguous B=1 and B=8 in every
      format, paged in bf16, gemma B=1 both): wall ms, device ms and the idle share a
      step, device kernels a step; two fresh graph caches with generators seeded alike
      sampling the same tokens (another seed others); the slab copies' device time; the
@@ -246,9 +246,27 @@ Phases, in order; any failure exits nonzero and prints no result line:
      save_checkpoint writing ad2's tensors back; four base and four adapter streams at
      once on the page pool, each its solo stream under the near-tie rule, pages back
      to 0; an int4 server whose @ad1 requests launch K5 7 x 16 x steps;
-  21. the {"kernels": [...]} line (attention launches include phases 12's, 14's, 15's,
-     16's, 18's, 19's and 20's; K6's phase 19's too, K5's phase 20's), then the
-     {"ok": true, ...} line last.
+  21. training (check_training): (a) K1b, the hand-written gradient of K1, against
+     autograd of flash_attention_ref in fp32 on the card (dq, dk and dv each within 2^-6
+     of its largest |value|) at synthetic-llama-1b's widths (B 4, T 511: the main path's
+     batch; T 512 and 300), softcapped and windowed with queries scaled into the softcap
+     (controls: the softcap or the window dropped must miss), at D 128, D 32 with groups
+     1 and D 16 with groups 8; timed beside the fp32 plain version, SDPA's backward and
+     the bound; each wrapper once under set_sync_debug_mode("error"); (b) a two-layer cut
+     at full width, the loss and every trainable leaf's gradient on the card (bf16, K1
+     and K1b) against the plain path in fp32 on the CPU: full fine-tune (control: a window
+     forced), LoRA and QLoRA over int8 (control: B zeroed); (c) main.py's train and eval
+     commands on synthetic-llama-1b at full width and depth over a seeded "w<id>" corpus
+     (B 4, rows of 511, 8 steps): full fine-tune then eval, LoRA rank 8 with saves at 4
+     and 8 (base bit for bit; a fresh server resuming the save streams the trained
+     engine's temperature-0 tokens), a resume from step 4 (steps 5-8's losses within
+     2^-7 of the uninterrupted run's), QLoRA over int8; losses falling, K1 = 16 x
+     forwards and K1b = 16 x steps exactly, step ms, tokens/s, peak memory; (d) two Nodes
+     over TCP split 8/8 train two steps entering at the peer without layer 0: losses and
+     updated adapters within 2^-7 of one peer's, SendExample frames and bytes a step;
+  22. the {"kernels": [...]} line (attention launches include phases 12's, 14's, 15's,
+     16's, 18's, 19's, 20's and 21's; K6's phase 19's too, K5's phase 20's; K1b's phase
+     21's main-path runs, (c) and (d)), then the {"ok": true, ...} line last.
 """
 from __future__ import annotations
 
@@ -2968,7 +2986,10 @@ FUSED_FORMATS = (("bf16", {}), ("int4 K5", {"XOT_QUANTIZE": "int4"}),
                  ("int4 K5v4", {"XOT_QUANTIZE": "int4", "XOT_INT4_V": "4"}),
                  ("int8 K6", {"XOT_QUANTIZE": "int8", "XOT_INT8_KERNEL": "1"}),
                  ("bf16, int8 KV (K2q)", {"XOT_KV_QUANT": "int8"}))
-FUSED_STEPS = 64  # decode steps a parity chunk runs, eager body against graph replays
+# Decode steps a parity chunk runs, eager body against graph replays: 64 until the
+# training phase (21) needed the time; 16 steps still hold every format, path, batch
+# and kernel, and each step's tokens and cache, bit for bit.
+FUSED_STEPS = 16
 FUSED_PAGE = 128
 # The scan prefill against the per-segment loop over a 4096-token prompt: the two take
 # different kernels for the from-zero segment (K2 against K1), so bf16 rounds at other
@@ -3374,7 +3395,7 @@ def fused_ttft(torch, card: str, rounds: int = 4, T: int = 4096,
 
 def check_fused(torch, card: str, device: str = "cuda", make_cache=None,
                 model: str = "synthetic-llama-1b", gemma: bool = True,
-                steps: int = FUSED_STEPS, rounds: int = 4) -> dict:
+                steps: int = FUSED_STEPS, rounds: int = 2) -> dict:
   """Phase 13: the fused decode programs. synthetic-llama-1b at full width and depth in
   the five decode formats, and gemma-2-2b's shape in bf16: graph replays against the
   eager body (fused_parity) at B=1 and B=8 (gemma B=1), contiguous and paged, at
@@ -6652,6 +6673,628 @@ def check_adapters(torch, card: str, device: str = "cuda", model: str = "synthet
   return launches
 
 
+# ------------------------------------------------------------------ phase 21: training
+
+BWD_REL = 2.0 ** -6  # K1b: each of dq, dk and dv within this share of its largest |value|
+TRAIN_GRAD_REL = 5e-2  # the two-layer cut: each gradient's error over its norm
+TRAIN_LOSS_REL = 2.0 ** -7  # a loss against its fp32 reference, and a resumed step's
+# XOT_SEED fixes the fresh adapters' draw (else the clock seeds it, and with it each
+# run's trajectory).
+TRAIN_ENV = {"XOT_PREFIX_CACHE": "0", "XOT_PREFILL_COSCHED": "0", "XOT_SAVE_OPT_STATE": "1",
+             "XOT_SEED": "0"}
+# Learning rates of the main-path runs: bf16 weights near 0.02 take steps of 2^-13
+# (1.2e-4), so an update of 1e-5 rounds away. LoRA at 1e-2 moved B by 1e-2 a step and
+# diverged by step 7 in one of two runs on the H100 (PERF.md): 3e-3.
+TRAIN_LR = {"full": "1e-3", "lora": "3e-3", "qlora": "3e-3"}
+TRAIN_ITERS, TRAIN_BATCH, TRAIN_SEQ = 8, 4, 512
+TRAIN_WORDS = 2000  # the corpus's vocabulary: "w<id>" words, Zipf-distributed
+TRAIN_LINE_WORDS = TRAIN_SEQ  # words a line: every row is TRAIN_SEQ - 1 inputs
+
+
+def k1b_widths():
+  """(widths, B, T, window, softcap, timed) of the K1b cases: synthetic-llama-1b's at
+  the main path's batch (B 4, T 511) and at T 512 and 300, softcapped and windowed with
+  queries scaled into the softcap (strict: its controls must miss), D 128, D 32 with
+  groups 1 and D 16 with groups 8."""
+  soft = Widths(HQ, HKV, D, "llama-1b softcapped, queries x 8 ", q_mul=8.0, strict=True)
+  return [(LLAMA_1B, TRAIN_BATCH, TRAIN_SEQ - 1, 0, 0.0, True),
+          (LLAMA_1B, TRAIN_BATCH, 512, 0, 0.0, True),
+          (LLAMA_1B, 2, 300, 0, 0.0, False),
+          (soft, 2, 512, 256, 50.0, True),
+          (Widths(32, 8, 128, "D=128 "), 2, 512, 0, 0.0, True),
+          (Widths(8, 8, 32, "D=32 groups 1 "), 2, 300, 0, 0.0, False),
+          (Widths(16, 2, 16, "D=16 groups 8 "), 2, 200, 64, 0.0, False)]
+
+
+def sdpa_bwd_ms(torch, q, k, v, dout, scale=None) -> float:
+  """The library time of a causal case without a window or a softcap: the backward of
+  one scaled_dot_product_attention call (a yardstick the port never calls), over K/V
+  repeated to every query head (outside the timed window), from its saved forward."""
+  import torch.nn.functional as F
+  groups = q.shape[2] // k.shape[2]
+  qt = q.transpose(1, 2).detach().requires_grad_(True)
+  kt, vt = (x.repeat_interleave(groups, dim=2).transpose(1, 2).detach().requires_grad_(True)
+            for x in (k, v))
+  with torch.enable_grad():
+    out = F.scaled_dot_product_attention(qt, kt, vt, is_causal=True, scale=scale)
+  g = dout.transpose(1, 2)
+  return time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), g, retain_graph=True))
+
+
+def k1b_case(torch, w, draw, B, T, window, softcap, timed=True) -> Optional[dict]:
+  """K1b (flash_attention_bwd): the gradient of K1's output, given that output (bf16, as
+  the training forward saves it) and a seeded dO, against autograd of
+  flash_attention_ref in fp32 on the card on the same inputs: dq, dk and dv each within
+  BWD_REL of its largest |value|. A strict case's controls (the kernel run with its
+  softcap or window dropped) must each miss that limit. A timed case adds K1b's time,
+  the fp32 plain version's, SDPA's backward (no window, no softcap) and the bound: five
+  products of 2 x D a visible (query head, key) pair on the bf16 peak, against q, k, v,
+  o and dO read and dq, dk and dv written once."""
+  from xotorch_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_bwd,
+                                                     flash_attention_bwd_ref)
+  q = w.queries(draw(B, T, w.hq, w.d))
+  k, v, dout = draw(B, T, w.hkv, w.d), draw(B, T, w.hkv, w.d), draw(B, T, w.hq, w.d)
+  kw = dict(window=window, softcap=softcap, scale=w.scale)
+  out = flash_attention(q, k, v, **kw)
+  case = f"{w.tag}B={B} T={T} window={window} softcap={softcap}"
+  call = lambda **o: flash_attention_bwd(q, k, v, out, dout, **{**kw, **o})
+  got = call()
+  torch.cuda.synchronize()
+  plain = lambda: flash_attention_bwd_ref(q.float(), k.float(), v.float(), dout.float(), **kw)
+  ref = plain()
+  limits = [BWD_REL * r.abs().max().item() for r in ref]
+
+  def errors(grads):
+    return [(g.float() - r).abs().max().item() for g, r in zip(grads, ref)]
+  errs = errors(got)
+  ok = all(math.isfinite(e) and e <= l for e, l in zip(errs, limits))
+  print(f"[flash_attention_bwd] {case}: max_abs_err dq {errs[0]:.3e} dk {errs[1]:.3e} dv "
+        f"{errs[2]:.3e} (limits {limits[0]:.3e} {limits[1]:.3e} {limits[2]:.3e}: 2^-6 of each "
+        f"largest |value|) {'ok' if ok else 'FAIL'}", flush=True)
+  if not ok:
+    raise AssertionError(f"flash_attention_bwd {case}: K1b disagrees with its plain version")
+  if w.strict:
+    for label, over in w.controls(window, softcap):
+      missed = any(e > l for e, l in zip(errors(call(**over)), limits))
+      print(f"[flash_attention_bwd] {case}: control, {label} dropped: "
+            f"{'misses the limits, as it must' if missed else 'FAIL: within them'}", flush=True)
+      if not missed:
+        raise AssertionError(f"flash_attention_bwd {case}: K1b with its {label} dropped passes")
+  if not timed:
+    return None
+  ms = time_ms(call)
+  plain_ms = time_ms(plain, iters=3)
+  lib = sdpa_bwd_ms(torch, q, k, v, dout, w.scale) if not (window or softcap) else None
+  seen = sum(min(t + 1, window) if window else t + 1 for t in range(T))
+  b_ms, b_by = bound(10.0 * B * w.hq * w.d * seen,
+                     2.0 * (4 * q.numel() + 4 * k.numel()))
+  print(f"[flash_attention_bwd] {case}: ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
+        f"{'null' if lib is None else f'{lib:.4f}'} (SDPA backward) bound_ms={b_ms:.4f} ({b_by})",
+        flush=True)
+  return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "library_ms": lib,
+          "bound_ms": b_ms, "bound_by": b_by}
+
+
+def check_training_kernels(torch, results: dict) -> None:
+  """Phase 21 (a): K1b against its plain version at every k1b_widths case, each wrapper
+  (K1b's, and the autograd Function whose forward is K1 and backward K1b) once under
+  torch.cuda.set_sync_debug_mode("error"); the main path's case (B 4, T 511) goes to
+  the results line."""
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_train
+  t0 = time.perf_counter()
+  draw = seeded_randn(torch, 21)
+  for i, (w, B, T, window, softcap, timed) in enumerate(k1b_widths()):
+    r = k1b_case(torch, w, draw, B, T, window, softcap, timed)
+    if i == 0:
+      results["flash_attention_bwd"] = r
+  q = draw(2, 300, HQ, D).requires_grad_(True)
+  k, v = draw(2, 300, HKV, D).requires_grad_(True), draw(2, 300, HKV, D).requires_grad_(True)
+  out = flash_attention_train(q, k, v).detach()
+  dout = draw(2, 300, HQ, D)
+  torch.cuda.synchronize()
+  torch.cuda.set_sync_debug_mode("error")
+  try:
+    flash_attention_bwd(q.detach(), k.detach(), v.detach(), out, dout)
+    flash_attention_train(q, k, v, window=128).backward(dout)
+  finally:
+    torch.cuda.set_sync_debug_mode(0)
+  torch.cuda.synchronize()
+  print(f"[flash_attention_bwd] flash_attention_bwd and flash_attention_train's backward ran "
+        f"under set_sync_debug_mode('error'): no host sync ok", flush=True)
+  print(f"[time] phase 21 (a), K1b: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def _window_forced(window: int):
+  """A control for a model without windows: the training forward's attention with
+  `window` forced on every layer."""
+  from xotorch_tpu_torch.models import transformer
+  real = transformer.flash_attention_train
+
+  @contextlib.contextmanager
+  def forced():
+    transformer.flash_attention_train = lambda q, k, v, **kw: real(q, k, v, **{**kw, "window": window})
+    try:
+      yield
+    finally:
+      transformer.flash_attention_train = real
+  return forced()
+
+
+def check_training_cut(torch, mode: str, device: str = "cuda", model: str = "synthetic-llama-1b",
+                       limit: float = TRAIN_GRAD_REL) -> dict:
+  """Phase 21 (b): a two-layer cut of `model` at full width, B 2, T 200 (rows of 200 and
+  150), the loss and every trainable leaf's gradient (`mode` full: every float leaf,
+  the tied embedding included; lora: a seeded rank-8 adapter on the seven slots, B
+  nonzero; qlora: that adapter over an int8 base) on the card in bf16 through K1 and K1b
+  against the plain path in fp32 on the CPU from the same weights: the loss within
+  TRAIN_LOSS_REL, each gradient's error within `limit` of its norm. The control must
+  miss: a window of 64 forced on both layers (full), every adapter's B zeroed (lora,
+  qlora). Returns the card's K1 and K1b launches (2 each)."""
+  import dataclasses
+  import numpy as np
+  from xotorch_tpu_torch.models import transformer
+  from xotorch_tpu_torch.models.config import config_from_hf_dict
+  from xotorch_tpu_torch.models.quantize import quantize_params
+  from xotorch_tpu_torch.models.registry import get_model_card
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+  from xotorch_tpu_torch.train import lora, step
+
+  cfg = dataclasses.replace(config_from_hf_dict(get_model_card(model)["synthetic_config"]),
+                            num_layers=2)
+  dev = torch.device(device)
+  dtype = torch.bfloat16 if device == "cuda" else torch.float32
+  params = transformer.init_random_params(cfg, 2, True, True, seed=0, dtype=dtype, device=dev)
+  if mode == "qlora":
+    params = quantize_params(params, "int8", scale_dtype=dtype, inplace=True)
+  if mode != "full":
+    params["layers"].update(adapter_leaves(torch, cfg, 2, 8, transformer.LORA_SLOTS, seed=21,
+                                           device=dev, dtype=dtype))
+  params_cpu = cpu_copy(torch, params)
+  rng = np.random.default_rng(21)
+  x = rng.integers(3, cfg.vocab_size, size=(2, 201))
+  batch = {"inputs": x[:, :-1], "targets": x[:, 1:], "lengths": np.array([200, 150])}
+
+  def grads(p, on):
+    b = {k: torch.as_tensor(v, device=on) for k, v in batch.items()}
+    leaves = [t for _, t in lora.trainable_leaves(p)]
+    loss, g = step.value_and_grad(lambda: step.full_model_loss(p, b, cfg), leaves)
+    return loss.float().cpu(), [t.float().cpu() for t in g]
+
+  want_loss, want = grads(params_cpu, "cpu")
+  counts = (flash_attention.launches, flash_attention_bwd.launches)
+  loss, got = grads(params, dev)
+  launched = {"flash_attention": flash_attention.launches - counts[0],
+              "flash_attention_bwd": flash_attention_bwd.launches - counts[1]}
+  if mode == "full":
+    with _window_forced(64):
+      control = grads(params, dev)
+    dropped = "a window of 64 forced"
+  else:
+    control = grads(_drop_b(torch, params), dev)
+    dropped = "every adapter's B zeroed"
+
+  def worst(g):
+    if not all(bool(torch.isfinite(t).all()) for t in g):
+      raise AssertionError(f"training cut ({mode}): non-finite gradients")
+    return max(((a - b).norm() / b.norm().clamp(min=1e-30)).item() for a, b in zip(g, want))
+
+  loss_err = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+  err, control_err = worst(got), worst(control[1])
+  ok = (loss_err <= TRAIN_LOSS_REL and err <= limit and control_err > limit
+        and (device != "cuda" or launched == {"flash_attention": 2, "flash_attention_bwd": 2}))
+  print(f"[training] 2-layer {model} cut, {mode} ({len(got)} trainable leaves), B=2 T=200: loss "
+        f"{loss.item():.5f} against {want_loss.item():.5f} in fp32 on the CPU ({loss_err:.2e}, "
+        f"limit 2^-7); worst gradient error {err:.3e} of its norm (limit {limit:g}); control, "
+        f"{dropped}: {control_err:.3e} ({'caught' if control_err > limit else 'NOT caught'}); "
+        f"launches {launched} {'ok' if ok else 'FAIL'}", flush=True)
+  if not ok:
+    raise AssertionError(f"training cut ({mode}): the card's loss or gradients disagree with the "
+                         f"CPU's, the control passed, or the kernels launched {launched}")
+  return launched
+
+
+@contextlib.contextmanager
+def word_ids():
+  """The DummyTokenizer of synthetic cards with "w<n>" words as token n (any other word
+  1) and ids decoded as words, for the phase's corpus and requests; restored after."""
+  from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer
+  saved = DummyTokenizer.encode, DummyTokenizer.decode
+  DummyTokenizer.encode = lambda self, text: [int(w[1:]) if w[:1] == "w" and w[1:].isdigit() else 1
+                                              for w in text.split()]
+  DummyTokenizer.decode = lambda self, tokens: "".join(f" w{int(t)}" for t in tokens)
+  try:
+    yield
+  finally:
+    DummyTokenizer.encode, DummyTokenizer.decode = saved
+
+
+def write_training_corpus(root: str, words: int = TRAIN_WORDS, lines: int = 40,
+                          test_lines: int = 8) -> str:
+  """train.jsonl, valid.jsonl and test.jsonl of seeded "w<id>" lines (TRAIN_LINE_WORDS
+  words each, ids 3.. drawn from a Zipf law over `words` of them): what a model can
+  learn in a few steps is the words' frequencies."""
+  import numpy as np
+  rng = np.random.default_rng(21)
+  ids = rng.permutation(np.arange(3, 3 + words))
+  p = 1.0 / np.arange(1, words + 1)
+  p /= p.sum()
+  for name, n in (("train", lines), ("valid", test_lines), ("test", test_lines)):
+    with open(os.path.join(root, f"{name}.jsonl"), "w") as f:
+      for _ in range(n):
+        words = rng.choice(ids, size=TRAIN_LINE_WORDS, p=p)
+        f.write(json.dumps({"text": " ".join(f"w{i}" for i in words)}) + "\n")
+  return root
+
+
+def _train_args(model: str, device: str, data: str, *extra) -> list:
+  return ["train", model, "--device", device, "--data", data, "--batch-size", str(TRAIN_BATCH),
+          "--sequence-length", str(TRAIN_SEQ), "--chatgpt-api-host", "127.0.0.1",
+          "--chatgpt-api-port", "0", "--default-temp", "0", *extra]
+
+
+async def _stream_ids(api, model: str, prompt: str, n: int = 16) -> list:
+  """A temperature-0 streamed completion from `api` (started here, stopped after)."""
+  server = await api.start("127.0.0.1", 0)
+  try:
+    url = f"http://127.0.0.1:{server.sockets[0].getsockname()[1]}/v1/chat/completions"
+    body = {"model": model, "temperature": 0, "max_tokens": n, "stream": True,
+            "messages": [{"role": "user", "content": prompt}]}
+    events, _, _ = await asyncio.to_thread(http_stream, url, body)
+    return stream_ids(events)
+  finally:
+    server.close()
+    await server.wait_closed()
+
+
+def train_cli(torch, argv: list, env: dict, body=None):
+  """main.py's train command in this process (build_parser, build_node, train_model_cli,
+  as `python -m xotorch_tpu_torch.main train` runs them, without the node's discovery
+  and server: one peer) under `env`: each step's loss, wall seconds (ending in the
+  loss's readback) and tokens, K1's and K1b's launches in the train loop, the card's
+  peak memory. `body(node, engine, classname, api, run)` may run before and after."""
+  import numpy as np
+  from xotorch_tpu_torch import main as port_main
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+  with phase_env(**{**TRAIN_ENV, "XOT_LORA_RANK": "0", **env}):
+    args = port_main.build_parser().parse_args(argv)
+    node, engine, classname, api = port_main.build_node(args)
+    steps = []
+    enqueue = node.enqueue_example
+
+    async def timed(shard, inputs, targets, lengths, train=False):
+      t0 = time.perf_counter()
+      out = await enqueue(shard, inputs, targets, lengths, train=train)
+      steps.append((time.perf_counter() - t0, int(np.asarray(lengths).sum())))
+      return out
+    node.enqueue_example = timed
+
+    async def run_train():
+      counts = (flash_attention.launches, flash_attention_bwd.launches)
+      held = 0
+      if engine.device.type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        held = torch.cuda.memory_allocated()  # the weights, and what a body holds
+      losses = await port_main.train_model_cli(node, classname, args.model_name, args)
+      peak = torch.cuda.max_memory_allocated() if engine.device.type == "cuda" else 0
+      return {"losses": losses, "steps": list(steps), "peak": peak, "held": held,
+              "launches": {"flash_attention": flash_attention.launches - counts[0],
+                           "flash_attention_bwd": flash_attention_bwd.launches - counts[1]}}
+
+    async def drive():
+      try:
+        if body is None:
+          return await run_train()
+        return await body(node, engine, classname, api, args, run_train)
+      finally:
+        await node.stop()
+
+    try:
+      return asyncio.run(drive())
+    finally:
+      engine.executor.shutdown(wait=True)
+      del node, engine, api
+      gc.collect()
+      if torch.cuda.is_available():
+        torch.cuda.empty_cache()
+
+
+def _report_run(tag: str, run: dict, card: str, layers: int, train_steps: int,
+                falling: bool = True) -> dict:
+  """Print a train run's losses, step times, tokens/s and peak memory; hold K1 and K1b
+  to layers x steps and, with `falling`, the last loss under the first. Returns its
+  launches."""
+  losses = [l for _, l in run["losses"]]
+  secs = [s for s, _ in run["steps"]]
+  later = run["steps"][1:] or run["steps"]  # the first step also allocates the moments
+  tok_s = sum(t for _, t in later) / max(sum(s for s, _ in later), 1e-9)
+  want = {"flash_attention": layers * train_steps, "flash_attention_bwd": layers * train_steps}
+  falls = len(losses) >= 2 and losses[-1] < losses[0]
+  ok = run["launches"] == want and len(losses) == train_steps and (falls or not falling)
+  run.update(tok_s=tok_s, median_ms=1e3 * sorted(secs)[len(secs) // 2] if secs else 0.0)
+  print(f"[training] {tag}: losses {' '.join(f'{l:.4f}' for l in losses)} "
+        f"({'falling' if falls else 'not falling'}{'' if falling else ', not asserted'}); step ms {' '.join(f'{1e3 * s:.1f}' for s in secs)} "
+        f"(median {run['median_ms']:.1f}); {tok_s:.0f} tokens/s after the first step; peak memory "
+        f"{run['peak'] / 2**30:.2f} GiB, {(run['peak'] - run['held']) / 2**30:.2f} over the "
+        f"{run['held'] / 2**30:.2f} held before the first step; launches {run['launches']} (want {want}) "
+        f"{'ok' if ok else 'FAIL'} ({card})", flush=True)
+  if not ok:
+    raise AssertionError(f"training {tag}: launches {run['launches']} (want {want}), "
+                         f"{len(losses)} steps, losses {losses}")
+  return run["launches"]
+
+
+def drive_training(torch, card: str, device: str = "cuda", model: str = "synthetic-llama-1b") -> dict:
+  """Phase 21 (c): main.py's train and eval commands on `model` at full width and depth,
+  bf16, over write_training_corpus's corpus (B 4, rows of 511 inputs, 8 steps):
+  - full fine-tune (XOT_LR 1e-3), then eval on the trained model: the loss falls, K1 =
+    layers x (steps + eval batches) and K1b = layers x steps exactly;
+  - LoRA rank 8 (3e-3) with --save-every 4: a server on the node streams a prompt at
+    temperature 0 before training (its decode graphs captured) and after; every base
+    tensor bit for bit as loaded; a fresh server that resumes the step-8 save streams
+    what the trained engine streams (its graphs read the weights trained in place);
+  - --resume-checkpoint from the step-4 save: steps 5-8 give the uninterrupted run's
+    losses within 2^-7 (the moments came back);
+  - QLoRA over int8 (--quantize int8 --lora-rank 8): the loss falls, the int8 base
+    bit for bit.
+  Step ms, tokens/s and peak memory each. Returns the K1 and K1b launches."""
+  import shutil
+  import tempfile
+  from xotorch_tpu_torch import main as port_main
+  from xotorch_tpu_torch.models.registry import build_base_shard, build_full_shard, get_model_card
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention
+  from xotorch_tpu_torch.train.step import leaf_paths
+  card_cfg = get_model_card(model)
+  layers = card_cfg["layers"]
+  words = min(TRAIN_WORDS, card_cfg["synthetic_config"]["vocab_size"] - 3)
+  root = tempfile.mkdtemp(prefix="xot-train-")
+  launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+  prompt = " ".join(f"w{3 + i % min(500, words)}" for i in range(300))
+  out = {}
+
+  def add(d):
+    for k, v in d.items():
+      launches[k] += v
+
+  try:
+    os.makedirs(os.path.join(root, "data"))
+    data = write_training_corpus(os.path.join(root, "data"), words)
+    ckpt = os.path.join(root, "ckpt")
+    args = lambda *extra: _train_args(model, device, data, "--iters", str(TRAIN_ITERS), *extra)
+    t0 = time.perf_counter()
+
+    async def full_body(node, engine, classname, api, a, run_train):
+      run = await run_train()
+      before = flash_attention.launches
+      run["eval"] = await port_main.eval_model_cli(node, classname, model, a)
+      run["eval_launches"] = flash_attention.launches - before
+      return run
+
+    with word_ids():
+      run = train_cli(torch, args("--save-every", "0"), {"XOT_LR": TRAIN_LR["full"]}, full_body)
+      add(_report_run(f"{model} full fine-tune", run, card, layers, TRAIN_ITERS))
+      n_eval = (8 // TRAIN_BATCH)
+      ok = run["eval_launches"] == layers * n_eval and math.isfinite(run["eval"] or math.nan)
+      print(f"[training] {model} eval after the full fine-tune: loss {run['eval']:.4f} over "
+            f"{n_eval} batches; K1 {run['eval_launches']} = {layers} x {n_eval} "
+            f"{'ok' if ok else 'FAIL'}", flush=True)
+      if not ok:
+        raise AssertionError(f"training eval: loss {run['eval']}, K1 {run['eval_launches']}")
+      launches["flash_attention"] += run["eval_launches"]
+      out["full"] = run
+
+      async def lora_body(node, engine, classname, api, a, run_train):
+        shard = build_full_shard(model, classname)
+        before = await _stream_ids(api, model, prompt)
+        params = engine._contexts[shard].params
+        frozen = {path: t.clone() for path, t in leaf_paths(params) if not path[-1].startswith("lora_")}
+        run = await run_train()
+        run["base_same"] = all(torch.equal(t, frozen[path]) for path, t in leaf_paths(params)
+                               if path in frozen)
+        run["before"], run["after"] = before, await _stream_ids(api, model, prompt)
+        return run
+
+      lora = train_cli(torch, args("--lora-rank", "8", "--save-every", "4", "--save-checkpoint-dir",
+                                   ckpt), {"XOT_LR": TRAIN_LR["lora"]}, lora_body)
+      add(_report_run(f"{model} LoRA rank 8", lora, card, layers, TRAIN_ITERS))
+      out["lora"] = lora
+      saved = sorted(os.listdir(os.path.join(ckpt, model)))
+
+      async def fresh_body(node, engine, classname, api, a, run_train):
+        await node.coordinate_resume(build_base_shard(model, classname),
+                                     os.path.join(ckpt, model, f"0-{layers - 1}-{TRAIN_ITERS}.safetensors"))
+        return await _stream_ids(api, model, prompt)
+      fresh = train_cli(torch, args("--lora-rank", "8"), {"XOT_LR": TRAIN_LR["lora"]}, fresh_body)
+      ok = lora["base_same"] and fresh == lora["after"] and len(fresh) > 0
+      print(f"[training] LoRA: saves {saved}; every base tensor bit for bit as loaded: "
+            f"{lora['base_same']}; temperature-0 stream of the trained engine (decode graphs "
+            f"captured before training) {lora['after']}, of a fresh server that resumed the "
+            f"step-{TRAIN_ITERS} save {fresh}: {'equal' if fresh == lora['after'] else 'DIFFERENT'}; "
+            f"before training {lora['before']} (not asserted) {'ok' if ok else 'FAIL'}", flush=True)
+      if not ok:
+        raise AssertionError("training LoRA: a base tensor moved, or the resumed server streams "
+                             "other tokens than the trained engine")
+
+      half = TRAIN_ITERS // 2
+      resumed = train_cli(torch, args("--lora-rank", "8", "--save-every", "0", "--resume-checkpoint",
+                                      os.path.join(ckpt, model, f"0-{layers - 1}-{half}.safetensors")),
+                          {"XOT_LR": TRAIN_LR["lora"]})
+      add(_report_run(f"{model} LoRA resumed at step {half}", resumed, card, layers, TRAIN_ITERS - half,
+                      falling=False))
+      got = [l for _, l in resumed["losses"]]
+      want = [l for _, l in lora["losses"][half:]]
+      rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+      ok = [it for it, _ in resumed["losses"]] == list(range(half + 1, TRAIN_ITERS + 1)) and rel <= TRAIN_LOSS_REL
+      print(f"[training] resume from step {half}: steps {[it for it, _ in resumed['losses']]} losses "
+            f"{' '.join(f'{l:.5f}' for l in got)} against the uninterrupted run's "
+            f"{' '.join(f'{l:.5f}' for l in want)}: {rel:.2e} (limit 2^-7) {'ok' if ok else 'FAIL'}",
+            flush=True)
+      if not ok:
+        raise AssertionError(f"training resume: losses {got} against {want}")
+
+      async def qlora_body(node, engine, classname, api, a, run_train):
+        await engine.ensure_shard(build_full_shard(model, classname))
+        params = engine._contexts[build_full_shard(model, classname)].params
+        frozen = {path: t.clone() for path, t in leaf_paths(params) if not path[-1].startswith("lora_")}
+        run = await run_train()
+        run["base_same"] = all(torch.equal(t, frozen[path]) for path, t in leaf_paths(params)
+                               if path in frozen)
+        run["int8"] = params["layers"]["wq"].dtype == torch.int8
+        return run
+      qlora = train_cli(torch, args("--lora-rank", "8", "--quantize", "int8", "--save-every", "0"),
+                        {"XOT_LR": TRAIN_LR["qlora"]}, qlora_body)
+      add(_report_run(f"{model} QLoRA rank 8 over int8", qlora, card, layers, TRAIN_ITERS))
+      ok = qlora["base_same"] and qlora["int8"]
+      print(f"[training] QLoRA: int8 base {qlora['int8']}, every base tensor (codes, scales, "
+            f"norms) bit for bit as loaded: {qlora['base_same']} {'ok' if ok else 'FAIL'}", flush=True)
+      if not ok:
+        raise AssertionError("training QLoRA: the int8 base moved")
+      out["qlora"] = qlora
+    print(f"[time] phase 21 (c), main.py train and eval: {time.perf_counter() - t0:.1f} s", flush=True)
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+  out["launches"] = launches
+  return out
+
+
+def drive_training_ring(torch, card: str, device: str = "cuda", model: str = "synthetic-llama-1b") -> dict:
+  """Phase 21 (d): two Nodes in this process (main.build_node, manual discovery, the TCP
+  transport on 127.0.0.1) hold `model` split 8/8 with rank-8 adapters; two training steps
+  of the corpus's batches enter through enqueue_example at the peer WITHOUT layer 0
+  (sent on to layer 0's owner, then down the ring and back: SendExample). Against one
+  engine holding the whole model, from the same adapters (the single peer's initial
+  draw copied into both halves) and batches: each step's loss within 2^-7, every
+  updated adapter within 2^-7 of its largest |value|. K1 and K1b = layers x steps over
+  both engines; SendExample frames and bytes a step. Returns the launches."""
+  import tempfile
+  import numpy as np
+  from xotorch_tpu_torch import main as port_main
+  from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer
+  from xotorch_tpu_torch.inference.torch_engine.engine import TorchShardInferenceEngine
+  from xotorch_tpu_torch.models.registry import build_base_shard, build_full_shard, get_model_card
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
+  from xotorch_tpu_torch.topology.device_capabilities import device_capabilities_sync
+  from xotorch_tpu_torch.train.dataset import iterate_batches, load_dataset
+  from xotorch_tpu_torch.utils.helpers import find_available_port
+
+  t0 = time.perf_counter()
+  env = {**TRAIN_ENV, "XOT_LORA_RANK": "8", "XOT_LR": TRAIN_LR["lora"]}
+  words = min(TRAIN_WORDS, get_model_card(model)["synthetic_config"]["vocab_size"] - 3)
+  with phase_env(**env), word_ids(), tempfile.TemporaryDirectory() as tmp:
+    data = write_training_corpus(tmp, words)
+    batches = list(iterate_batches(load_dataset(data)[0], DummyTokenizer(), TRAIN_BATCH, TRAIN_SEQ))[:2]
+    engine = TorchShardInferenceEngine(device=device, seed=0)
+    classname = type(engine).__name__
+    full = build_full_shard(model, classname)
+
+    async def single():
+      await engine.ensure_shard(full)
+      layers = engine._contexts[full].params["layers"]
+      init = {k: v.clone() for k, v in layers.items() if k.startswith("lora_")}
+      losses = [(await engine.train_example(f"single{i}", full, *b))[0] for i, b in enumerate(batches)]
+      return init, losses, {k: layers[k].float().cpu() for k in init}
+    try:
+      init, want_losses, want = asyncio.run(single())
+    finally:
+      engine.executor.shutdown(wait=True)
+      del engine
+      gc.collect()
+      if device == "cuda":
+        torch.cuda.empty_cache()
+
+    path = os.path.join(tmp, "ring.json")
+    ports = {i: find_available_port("127.0.0.1") for i in RING_IDS}
+    write_ring_config(path, ports, device_capabilities_sync().to_dict())
+    built = {i: port_main.build_node(port_main.build_parser().parse_args(
+      ["--device", device, "--node-id", i, "--node-host", "127.0.0.1", "--node-port", str(ports[i]),
+       "--discovery-module", "manual", "--discovery-config-path", path, "--lora-rank", "8"]))
+      for i in RING_IDS}
+    nodes = {i: b[0] for i, b in built.items()}
+    engines = {i: b[1] for i, b in built.items()}
+
+    async def ring():
+      try:
+        await asyncio.wait_for(asyncio.gather(*(n.start(wait_for_peers=1) for n in nodes.values())), 120)
+        base = build_base_shard(model, classname)
+        for i, node in nodes.items():
+          shard = node.get_current_shard(base)
+          await engines[i].ensure_shard(shard)
+          layers = engines[i]._contexts[shard].params["layers"]
+          with torch.no_grad():
+            for k, v in init.items():
+              layers[k].copy_(v[shard.start_layer:shard.end_layer + 1])
+        origin = next(n for n in nodes.values() if n.get_current_shard(base).start_layer > 0)
+        counts = (flash_attention.launches, flash_attention_bwd.launches)
+        losses, secs = [], []
+        for b in batches:
+          t = time.perf_counter()
+          losses.append((await origin.enqueue_example(base, *b, train=True))[0])
+          secs.append(time.perf_counter() - t)
+        launched = {"flash_attention": flash_attention.launches - counts[0],
+                    "flash_attention_bwd": flash_attention_bwd.launches - counts[1]}
+        wire = [0, 0, 0]
+        for node in nodes.values():
+          for peer in node.peers:
+            for j, c in enumerate(getattr(peer, "wire", {}).get("SendExample", [0, 0, 0])):
+              wire[j] += c
+        errs = {}
+        for i, node in nodes.items():
+          shard = node.get_current_shard(base)
+          layers = engines[i]._contexts[shard].params["layers"]
+          for k, ref in want.items():
+            ref = ref[shard.start_layer:shard.end_layer + 1]
+            errs[f"{i}/{k}"] = ((layers[k].float().cpu() - ref).abs().max() / ref.abs().max()).item()
+        return losses, secs, launched, wire, errs, {i: str(n.get_current_shard(base)) for i, n in nodes.items()}, origin.id
+      finally:
+        for node in nodes.values():
+          await node.stop()
+
+    try:
+      losses, secs, launched, wire, errs, shards, origin = asyncio.run(ring())
+    finally:
+      for e in engines.values():
+        e.executor.shutdown(wait=True)
+  steps = len(batches)
+  layers = int(build_base_shard(model, classname).n_layers)
+  rel = max(abs(g - w) / abs(w) for g, w in zip(losses, want_losses))
+  worst = max(errs.values())
+  want_launches = {"flash_attention": layers * steps, "flash_attention_bwd": layers * steps}
+  ok = rel <= TRAIN_LOSS_REL and worst <= TRAIN_LOSS_REL and launched == want_launches
+  print(f"[training ring] {shards}, examples entering at {origin}: losses "
+        f"{' '.join(f'{l:.5f}' for l in losses)} against one peer's {' '.join(f'{l:.5f}' for l in want_losses)} "
+        f"({rel:.2e}, limit 2^-7); updated adapters' worst error {worst:.2e} of their largest "
+        f"|value| (limit 2^-7); step ms {' '.join(f'{1e3 * s:.1f}' for s in secs)}; SendExample "
+        f"{wire[0] / steps:.1f} frames, {wire[1] / steps / 1e6:.2f} MB out and {wire[2] / steps / 1e6:.2f} "
+        f"MB back a step; launches {launched} (want {want_launches}) {'ok' if ok else 'FAIL'} ({card})",
+        flush=True)
+  if not ok:
+    raise AssertionError(f"training ring: losses {losses} against {want_losses}, adapters {worst}, "
+                         f"launches {launched}")
+  print(f"[time] phase 21 (d), ring training: {time.perf_counter() - t0:.1f} s", flush=True)
+  return launched
+
+
+def check_training(torch, card: str, results: dict, device: str = "cuda",
+                   model: str = "synthetic-llama-1b") -> dict:
+  """Phase 21: training. (a) K1b against its plain version (check_training_kernels);
+  (b) the two-layer cut's loss and gradients, full, LoRA and QLoRA, against the CPU
+  (check_training_cut); (c) main.py train and eval (drive_training); (d) ring training
+  over TCP against one peer (drive_training_ring). Returns the K1 and K1b launches of
+  (c) and (d), the phase's main path ((a) and (b) compare against plain versions)."""
+  t0 = time.perf_counter()
+  if device == "cuda":
+    check_training_kernels(torch, results)
+  for mode in ("full", "lora", "qlora"):
+    check_training_cut(torch, mode, device=device, model=model)
+  print(f"[time] phase 21 (a, b): {time.perf_counter() - t0:.1f} s", flush=True)
+  run = drive_training(torch, card, device=device, model=model)
+  launches = dict(run["launches"])
+  for name, n in drive_training_ring(torch, card, device=device, model=model).items():
+    launches[name] += n
+  print(f"[training] phase 21 in {time.perf_counter() - t0:.1f} s; launches {launches} ({card})",
+        flush=True)
+  return launches
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--kernels-only", action="store_true",
@@ -6691,6 +7334,7 @@ def main(argv=None) -> int:
   check_gemma_kernels(torch)
   check_family_kernels(torch)
   if args.kernels_only:
+    check_training_kernels(torch, results)
     print(f"kernels ok on {card}", flush=True)
     return 0
 
@@ -6868,7 +7512,13 @@ def main(argv=None) -> int:
     launches[name] += n
   print(f"[time] phases 1-20: {time.perf_counter() - started:.1f} s", flush=True)
 
-  # Phase 21: results.
+  # Phase 21: training (K1b, the cut's gradients, main.py train and eval, the ring);
+  # its K1 and K1b launches join the results line.
+  for name, n in check_training(torch, card, results).items():
+    launches[name] = launches.get(name, 0) + n
+  print(f"[time] phases 1-21: {time.perf_counter() - started:.1f} s", flush=True)
+
+  # Phase 22: results.
   meta = {
     "flash_attention": ("xotorch_tpu_torch/csrc/flash_attention.cu",
                         "xotorch_tpu/ops/flash_attention.py:54"),
@@ -6890,6 +7540,9 @@ def main(argv=None) -> int:
                                     "xotorch_tpu/ops/paged_attention.py:129 (quant=True)"),
     "paged_prefill_attention_int8": ("xotorch_tpu_torch/csrc/paged_attention.cu",
                                      "xotorch_tpu/ops/paged_attention.py:276 (quant=True)"),
+    "flash_attention_bwd": ("xotorch_tpu_torch/csrc/flash_attention_bwd.cu",
+                            "xotorch_tpu/train/step.py:84 (jax.grad of ops/attention.py:18 "
+                            "gqa_attention; no Pallas kernel)"),
   }
   kernels = []
   for name, (source, replaces) in meta.items():

@@ -163,7 +163,7 @@ class StubNode:
 
   def __init__(self, node_id="stub"):
     self.id = node_id
-    self.prompts, self.tensors, self.results = [], [], []
+    self.prompts, self.tensors, self.results, self.examples = [], [], [], []
     self.on_opaque_status = AsyncCallbackSystem()
     self._seen = set()
 
@@ -180,6 +180,13 @@ class StubNode:
 
   async def process_tensor(self, shard, tensor, request_id=None, inference_state=None):
     self.tensors.append((shard, tensor, request_id, inference_state))
+
+  async def process_example(self, shard, example, target, length, train, request_id=None,
+                            ring_map=None):
+    """A loss of 0.25 and, when training, the example's "gradient" (the example
+    doubled, in its own dtype)."""
+    self.examples.append((shard, example, target, length, train, request_id, ring_map))
+    return 0.25, (example * 2 if train else None)
 
   async def collect_topology(self, visited, max_depth):
     topo = Topology()
@@ -236,9 +243,16 @@ async def test_tcp_every_rpc_round_trips():
     assert statuses == [("r1", '{"type": "x"}')]
     topo = await peer.collect_topology({"a"}, 2)
     assert topo.get_node("stub").memory == 4096 and topo.get_neighbors("stub") == {"other"}
-    with pytest.raises(RemoteError, match="not served"):
-      await peer._call("SendExample", {"shard": shard.to_dict(), "train": True, "request_id": "t"},
-                       {"example": np.ones((1, 4), np.int64)}, retriable=False)
+    # SendExample round trips: a bf16 hidden state out and its bf16 gradient back; an
+    # evaluation answers the loss alone.
+    loss, grads = await peer.send_example(shard, hidden, np.ones((1, 5), np.int64), np.array([5]),
+                                          True, "t", ring_map=[["stub", 0, 0]])
+    assert loss == 0.25 and grads.dtype == torch.bfloat16 and torch.equal(grads, hidden * 2)
+    (s_, ex, tgt, ln, train, rid, rmap), = node.examples
+    assert (s_, train, rid, rmap) == (shard, True, "t", [["stub", 0, 0]])
+    assert ex.dtype == torch.bfloat16 and torch.equal(ex, hidden) and ln.tolist() == [5]
+    assert await peer.send_example(shard, np.ones((1, 4), np.int64), np.ones((1, 4), np.int64),
+                                   np.array([4]), False, "e") == (0.25, None)
     assert set(peer.wire) == set(service.METHODS)
     calls, sent, received = peer.wire["SendTensor"]
     assert calls == 2 and sent > 2 * 5 * 64 and received > 0

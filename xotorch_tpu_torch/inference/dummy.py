@@ -6,7 +6,8 @@ the engine. The port's Node drives every last shard through `infer_sample_tensor
 a whole-model shard's decode through `generate_chunk`, so the fake has both, built
 on `infer_tensor` and `sample`: they give the tokens the JAX package's Node gets from
 its per-token ring over the JAX fake, and a chunk stops at EOS, so the count never
-runs past it.
+runs past it. Training and evaluation answer a loss of 0.42 from the last shard and
+chain through `forward_fn` elsewhere, as JAX's fake does.
 """
 from __future__ import annotations
 
@@ -25,6 +26,7 @@ class DummyInferenceEngine(InferenceEngine):
     self.tokenizer = DummyTokenizer()
     self.num_generate_dummy_tokens = 10
     self._count = 0
+    self.session = {}
 
   async def encode(self, shard: Shard, prompt: str) -> np.ndarray:
     await self.ensure_shard(shard)
@@ -74,3 +76,21 @@ class DummyInferenceEngine(InferenceEngine):
 
   async def ensure_shard(self, shard: Shard) -> None:
     self.shard = shard
+
+  async def train_example(self, request_id, shard, example, target, lengths, forward_fn=None):
+    await self.ensure_shard(shard)
+    if shard.is_last_layer:
+      return 0.42, np.zeros_like(np.asarray(example, dtype=np.float32))
+    assert forward_fn is not None
+    activations = np.asarray(example, dtype=np.float32)
+    loss, _ = await forward_fn(activations, target, lengths, True)
+    return loss, np.zeros_like(activations)
+
+  async def evaluate_example(self, request_id, shard, example, target, lengths,
+                             forward_fn=None) -> float:
+    await self.ensure_shard(shard)
+    if shard.is_last_layer:
+      return 0.42
+    assert forward_fn is not None
+    loss, _ = await forward_fn(np.asarray(example, dtype=np.float32), target, lengths, False)
+    return loss

@@ -2,15 +2,16 @@
 
 The port's copy of xotorch_tpu/inference/engine.py: the ABC the Node drives,
 `CacheExhausted`, `RequestStateLost` and the engine factory. Engines work on numpy at
-the boundary, so the orchestration layer never sees device tensors. The contract
-serves inference, multi-LoRA adapters (`base@name` shards) and `load_checkpoint` /
-`save_checkpoint`; the training methods (`train_example`, `evaluate_example`,
-`save_session`, `clear_session`) are the training leaf, still to port.
+the boundary, so the orchestration layer never sees device tensors (a bf16 hidden
+state or gradient travels as a CPU torch tensor, numpy has no bf16). The contract
+serves inference, multi-LoRA adapters (`base@name` shards), `load_checkpoint` /
+`save_checkpoint`, the session store, and pipelined training (`train_example`,
+`evaluate_example`).
 """
 from __future__ import annotations
 
 from abc import ABC, abstractmethod
-from typing import Dict, Optional, Tuple
+from typing import Any, Dict, Optional, Tuple
 
 import numpy as np
 
@@ -42,6 +43,7 @@ class InferenceEngine(ABC):
   tracer = None
   trace_ctx = None
   perf = None
+  session: Dict[str, Any]  # save_session / clear_session's store; each engine makes its own
 
   @abstractmethod
   async def encode(self, shard: Shard, prompt: str) -> np.ndarray:
@@ -130,6 +132,27 @@ class InferenceEngine(ABC):
 
   async def save_checkpoint(self, shard: Shard, path: str) -> None:
     """Write `shard`'s weights to `path` (an engine without checkpoints ignores it)."""
+
+  async def save_session(self, key: str, value: Any) -> None:
+    self.session[key] = value
+
+  async def clear_session(self) -> None:
+    self.session.clear()
+
+  async def train_example(
+    self, request_id: str, shard: Shard, example: np.ndarray, target: np.ndarray,
+    lengths: np.ndarray, forward_fn=None,
+  ) -> Tuple[float, Optional[np.ndarray]]:
+    """Pipelined train leaf: run this shard's slice, chain downstream through
+    `forward_fn(activations, target, lengths, train=True) -> (loss, grad)`, step the
+    local optimizer, return (loss, the gradient of this shard's input)."""
+    raise NotImplementedError(f"{type(self).__name__} does not support training")
+
+  async def evaluate_example(
+    self, request_id: str, shard: Shard, example: np.ndarray, target: np.ndarray,
+    lengths: np.ndarray, forward_fn=None,
+  ) -> float:
+    raise NotImplementedError(f"{type(self).__name__} does not support evaluation")
 
 
 # Every alias -> canonical classname; the model registry keys repos by classname.

@@ -184,11 +184,17 @@ from xotorch_tpu_torch.ops import flash_attention, flash_decode, paged_attention
 from xotorch_tpu_torch.ops.sampling import (DEFAULT_TEMP, DEFAULT_TOP_K, sample_logits,
                                             sample_logits_logprobs)
 from xotorch_tpu_torch.topology.device_capabilities import cuda_chip_peaks
-from xotorch_tpu_torch.train import lora
+from xotorch_tpu_torch.train import lora, optstate
+from xotorch_tpu_torch.train import step as train_step
 from xotorch_tpu_torch.utils import knobs
 from xotorch_tpu_torch.utils.helpers import DEBUG, spawn_detached
 
 DTYPES = {"bfloat16": torch.bfloat16, "float32": torch.float32, "float16": torch.float16}
+
+# The grad mode each executor call runs in (`_run`): serving never records autograd
+# state; loads make ordinary tensors (an inference tensor cannot be saved for backward);
+# training records it.
+GRAD_MODES = {"serve": torch.inference_mode, "load": torch.no_grad, "train": torch.enable_grad}
 
 
 def _is_device_oom(e: BaseException) -> bool:
@@ -252,6 +258,10 @@ class _ShardContext:
   batch_spec: Optional[dict] = None
   # A multimodal first shard's (vision tower, projector) params on the device, or None.
   vision: Optional[Tuple[Dict[str, Any], Dict[str, Any]]] = None
+  # Training: the AdamW over `opt_leaves` (the trainable tensors in JAX's flatten
+  # order), made at the first step; a load resets it.
+  optimizer: Optional[torch.optim.Optimizer] = None
+  opt_leaves: Optional[List[torch.Tensor]] = None
 
 
 class _Pending(NamedTuple):
@@ -447,6 +457,7 @@ class TorchShardInferenceEngine(InferenceEngine):
     flash_attention.flash_blocks()
     flash_decode.decode_blocks()
     self.executor = ThreadPoolExecutor(max_workers=1, thread_name_prefix="torch-engine")
+    self.session: Dict[str, Any] = {}
     self._dispatches_inflight = 0  # executor calls queued or running (_run)
     # Resident model contexts, least recently used first (XOT_MAX_RESIDENT_MODELS), and
     # the one loaded or touched last.
@@ -548,7 +559,7 @@ class TorchShardInferenceEngine(InferenceEngine):
   def tokenizer(self):
     return self._active.tokenizer if self._active else None
 
-  async def _run(self, fn, *args, oom_as_cache_exhausted: bool = True):
+  async def _run(self, fn, *args, oom_as_cache_exhausted: bool = True, grad: str = "serve"):
     """Every device computation funnels through the single-worker executor. Device
     memory exhaustion is caught here: the engine frees what it can
     (_free_device_memory, on the executor, after the failed call) so that later
@@ -556,9 +567,12 @@ class TorchShardInferenceEngine(InferenceEngine):
     request's length error); a load passes oom_as_cache_exhausted=False and gets a
     RuntimeError (a model that does not fit is no fault of a prompt). The in-flight
     count brackets the call, so the stall watchdog tells a device call in progress (a
-    first request's graph captures included) from a silent distributed stall."""
+    first request's graph captures included) from a silent distributed stall. `grad`
+    names the call's grad mode (GRAD_MODES)."""
+    mode = GRAD_MODES[grad]
+
     def call(f, *a):
-      with torch.inference_mode():
+      with mode():
         return f(*a)
     loop = asyncio.get_running_loop()
     self._dispatches_inflight += 1
@@ -880,7 +894,7 @@ class TorchShardInferenceEngine(InferenceEngine):
           raise ValueError(f"{shard.model_id}: a checkpoint needs a shard downloader")
         model_dir = Path(await self.shard_downloader.ensure_shard(shard, type(self).__name__))
       ctx = await self._run(self._load_shard, shard, model_dir, donor, adapter_ckpt,
-                            oom_as_cache_exhausted=False)
+                            oom_as_cache_exhausted=False, grad="load")
       if donor is not None:
         ctx.tokenizer = donor.tokenizer
       elif model_dir is not None:
@@ -1068,8 +1082,7 @@ class TorchShardInferenceEngine(InferenceEngine):
     return lora.adapter_checkpoint_files(path)
 
   async def load_checkpoint(self, shard: Shard, path: str) -> None:
-    """Load `path` into the shard's context (the JAX engine's resolution, without the
-    optimizer's moments: the port has no optimizer yet):
+    """Load `path` into the shard's context (the JAX engine's resolution):
 
     - an adapter-only file (this shard's own save in a directory, or a file) merges
       over the loaded base;
@@ -1083,13 +1096,23 @@ class TorchShardInferenceEngine(InferenceEngine):
     Then the context's prefix cache and host-tier entries go (computed under the old
     weights), its chunks dispatched ahead roll back, and its captured CUDA graphs and
     slab are dropped: a replay reads the parameters at the addresses of its capture,
-    and the new tensors have other addresses. The next use of each key captures again."""
+    and the new tensors have other addresses. The next use of each key captures again.
+
+    The optimizer resets with the weights. Where the load took one trained save as it is
+    (an adapter file, an explicit file or a shard save) and XOT_SAVE_OPT_STATE is on,
+    the moments saved beside it (`_opt_state_file`) are restored in the same executor
+    call; a file that does not fit leaves the optimizer cold, with a message, and never
+    blocks the weights."""
     ctx = await self._ensure_ctx(shard)
+    # The moments a resume may restore: set only where one save loads as it is (a
+    # re-partitioned merge or a base reload lands at another parameter point).
+    resume = {"opt": None}
 
     def _load():
       p = Path(path)
       ckpt = self._checkpoint_file_for(p, ctx.shard)
       if ckpt is not None and lora.is_lora_checkpoint(ckpt):
+        resume["opt"] = self._opt_state_file(ckpt, ctx.shard)
         return lora.load_lora_checkpoint(ctx.params, ctx.shard, ckpt)
       if p.is_dir():
         # Checked whatever _checkpoint_file_for fell back to: a base model.safetensors
@@ -1102,6 +1125,7 @@ class TorchShardInferenceEngine(InferenceEngine):
       if explicit:
         params = load_shard_params(model_dir, ctx.cfg, ctx.shard, dtype=self.dtype,
                                    device=self.device, checkpoint_file=ckpt)
+        resume["opt"] = self._opt_state_file(ckpt, ctx.shard)
       elif ((model_dir / "model.safetensors.index.json").exists()
             or (model_dir / "model.safetensors").exists()):
         params = load_shard_params(model_dir, ctx.cfg, ctx.shard, dtype=self.dtype,
@@ -1119,6 +1143,7 @@ class TorchShardInferenceEngine(InferenceEngine):
         rank = int(ctx.params["layers"][lora_a_keys[0]].shape[-1])
         targets = tuple(k[len("lora_"):-len("_a")] for k in lora_a_keys)
         params = lora.add_lora_params(params, rank, self._lora_generator(), targets)
+        resume["opt"] = None  # fresh adapters: no saved moments belong to them
       return params
 
     def _load_and_swap():
@@ -1129,16 +1154,28 @@ class TorchShardInferenceEngine(InferenceEngine):
       if ctx.graphs is not None:
         ctx.graphs.clear()
       ctx.params = params
+      ctx.optimizer = ctx.opt_leaves = None  # moments of other weights never apply
       self._clear_prefix_cache(ctx)
       if self.device.type == "cuda":
         torch.cuda.empty_cache()
+      opt_file = resume["opt"]
+      if opt_file is not None and opt_file.exists() and knobs.get_bool("XOT_SAVE_OPT_STATE"):
+        self._ensure_optimizer(ctx)
+        try:
+          optstate.load_opt_state(ctx.optimizer, ctx.opt_leaves, opt_file)
+        except Exception as e:
+          print(f"optimizer state not restored ({e!r}); training resumes cold")
+          ctx.optimizer = ctx.opt_leaves = None
 
-    await self._run(_load_and_swap, oom_as_cache_exhausted=False)
+    await self._run(_load_and_swap, oom_as_cache_exhausted=False, grad="load")
 
   async def save_checkpoint(self, shard: Shard, path: str) -> None:
     """Write the shard's context to `path`: its adapters alone when it has any
     (`lora.layers.{i}.*`, MBs, not the base), else its weights in HF layout and the
-    compute dtype (a quantized context dequantized)."""
+    compute dtype (a quantized context dequantized). The optimizer's moments go beside
+    it when the context has an optimizer and XOT_SAVE_OPT_STATE is on; otherwise a
+    stale moments file beside it is removed (it would pair other moments with these
+    weights on the next resume)."""
     ctx = await self._ensure_ctx(shard)
 
     def _save():
@@ -1151,6 +1188,172 @@ class TorchShardInferenceEngine(InferenceEngine):
       save_shard_params(params, ctx.cfg, ctx.shard, Path(path))
 
     await self._run(_save, oom_as_cache_exhausted=False)
+    opt_file = self._opt_state_file(Path(path), ctx.shard)
+
+    def _save_opt():
+      if ctx.optimizer is not None and knobs.get_bool("XOT_SAVE_OPT_STATE"):
+        optstate.save_opt_state(ctx.optimizer, ctx.opt_leaves, opt_file)
+      elif opt_file.exists():
+        opt_file.unlink()
+
+    await self._run(_save_opt, oom_as_cache_exhausted=False)
+
+  @staticmethod
+  def _opt_state_file(path: Path, shard: Shard) -> Path:
+    """The moments file of one checkpoint file, beside it ('0-3-4.safetensors' ->
+    '0-3-4-opt.safetensors'): a rollback to an earlier save never restores a later
+    save's moments."""
+    if path.suffix != ".safetensors":
+      raise ValueError(f"checkpoint path must be a .safetensors file, got {path}")
+    return path.with_name(path.stem + "-opt.safetensors")
+
+  # --------------------------------------------------------------- training
+
+  def _ensure_optimizer(self, ctx: _ShardContext) -> torch.optim.Optimizer:
+    """The context's AdamW (lr XOT_LR, optax.adamw's other defaults) over its
+    trainable leaves: the adapters alone when it has any (the base frozen), else every
+    float leaf. Made at the first step; loads reset it."""
+    if ctx.optimizer is None:
+      ctx.opt_leaves = [t for _, t in lora.trainable_leaves(ctx.params)]
+      ctx.optimizer = lora.adamw(ctx.opt_leaves, knobs.get_float("XOT_LR"))
+    return ctx.optimizer
+
+  def _check_example(self, ctx: _ShardContext, train: bool) -> None:
+    """Refuse, before any step, what the training forward does not serve."""
+    model = ctx.shard.model_id
+    if ctx.cfg.is_moe or ctx.cfg.is_multimodal:
+      raise ValueError(f"{model}: training and evaluation serve the dense text families; "
+                       f"{'MoE experts' if ctx.cfg.is_moe else 'the vision tower'} have no "
+                       f"training forward in xotorch_tpu_torch")
+    if not train:
+      return
+    if self.device.type == "cuda":
+      flash_attention.check_bwd_head_dim(ctx.cfg.head_dim, f"{model}: training")
+    if is_quantized(ctx.params) and not lora.has_lora(ctx.params):
+      raise ValueError(
+        "Full-parameter training on an int8-quantized base is not supported; "
+        "attach adapters (--lora-rank / XOT_LORA_RANK) for QLoRA fine-tuning"
+      )
+
+  def _example_tensor(self, example) -> torch.Tensor:
+    """An example on the device: token ids [B, T] as int64, a hidden state [B, T, H] in
+    the compute dtype (numpy, or a CPU tensor off the wire)."""
+    t = example if torch.is_tensor(example) else torch.from_numpy(np.array(example))
+    if t.dim() == 2:
+      return t.to(device=self.device, dtype=torch.int64)
+    return t.to(device=self.device, dtype=self.dtype)
+
+  def _ints(self, a) -> torch.Tensor:
+    return torch.as_tensor(np.asarray(a).astype(np.int64), device=self.device)
+
+  @staticmethod
+  def _to_host(t: torch.Tensor):
+    """A hidden state or its gradient off the device for the next hop: bf16 stays a
+    bf16 CPU tensor (the codec's bf16 frames), any other dtype becomes numpy."""
+    t = t.detach().cpu()
+    return t if t.dtype == torch.bfloat16 else t.numpy()
+
+  def _update(self, ctx: _ShardContext, grads: List[torch.Tensor]) -> None:
+    """One AdamW step on the context's leaves, in place; the prefix cache and the host
+    tier's entries of the context go (computed under the old weights)."""
+    train_step.apply_grads(ctx.optimizer, ctx.opt_leaves, grads)
+    self._clear_prefix_cache(ctx)
+
+  async def train_example(self, request_id: str, shard: Shard, example, target, lengths,
+                          forward_fn=None):
+    """Pipelined training over the ring (the JAX engine's): the last shard computes the
+    loss, its gradients and its input's gradient at once; another shard runs its slice
+    keeping the autograd graph, chains the activations downstream through
+    `forward_fn(activations, target, lengths, train=True) -> (loss, grad)`, pulls the
+    returned gradient back through its slice, steps its optimizer and returns (loss,
+    the gradient of its input; zeros for a first shard: tokens have none)."""
+    ctx = await self._ensure_ctx(shard)
+    if not shard.is_last_layer and forward_fn is None:
+      raise ValueError("Non-last shard requires forward_fn to chain the ring")
+    self._check_example(ctx, train=True)
+    first = shard.is_first_layer
+
+    if shard.is_last_layer:
+      def _last():
+        self._ensure_optimizer(ctx)
+        paths = [p for p, _ in lora.trainable_leaves(ctx.params)]
+        trainable = train_step.unflatten(paths, ctx.opt_leaves)
+        loss, x_grad, grads = train_step.shard_loss_and_grads(
+          ctx.params, ctx.cfg, self._example_tensor(example), self._ints(target),
+          self._ints(np.asarray(lengths).reshape(-1)), first, True,
+          start_layer=shard.start_layer, trainable=trainable)
+        with torch.no_grad():
+          self._update(ctx, [g for _, g in train_step.leaf_paths(grads)])
+        x_grad = x_grad.cpu().numpy() if first else self._to_host(x_grad.to(self.dtype))
+        return float(loss), x_grad
+      return await self._run(_last, oom_as_cache_exhausted=False, grad="train")
+
+    # Another shard: the forward keeps its graph across the downstream hop.
+    held = {}
+
+    def _fwd():
+      self._ensure_optimizer(ctx)
+      x = self._example_tensor(example)
+      if not first:
+        x = x.detach().clone()
+      wrt = list(ctx.opt_leaves) + ([] if first else [x])
+      held["wrt"] = wrt
+      for t in wrt:
+        t.requires_grad_(True)
+      held["out"] = train_step.training_forward(ctx.params, x, ctx.cfg, first, False,
+                                                shard.start_layer)
+      return self._to_host(held["out"])
+
+    def _release():
+      for t in held.get("wrt", ()):
+        t.requires_grad_(False)
+      held.clear()
+
+    try:
+      activations = await self._run(_fwd, oom_as_cache_exhausted=False, grad="train")
+      loss, down_grad = await forward_fn(activations, np.asarray(target), np.asarray(lengths), True)
+      if down_grad is None:
+        raise RuntimeError(f"Downstream shard returned no gradient for {request_id}")
+
+      def _bwd():
+        out, wrt = held["out"], held["wrt"]
+        down = self._example_tensor(down_grad).to(out.dtype)
+        grads = torch.autograd.grad(out, wrt, grad_outputs=down, allow_unused=True)
+        grads = [torch.zeros_like(t) if g is None else g for t, g in zip(wrt, grads)]
+        _release()
+        with torch.no_grad():
+          self._update(ctx, grads[:len(ctx.opt_leaves)])
+        return np.zeros((1,), np.float32) if first else self._to_host(grads[-1].to(self.dtype))
+
+      x_grad = await self._run(_bwd, oom_as_cache_exhausted=False, grad="train")
+    finally:
+      if held:
+        await self._run(_release, oom_as_cache_exhausted=False, grad="load")
+    return float(loss), x_grad
+
+  async def evaluate_example(self, request_id: str, shard: Shard, example, target, lengths,
+                             forward_fn=None) -> float:
+    """The loss of an example through the training forward, with no gradient: the last
+    shard's masked cross-entropy, chained through `forward_fn` from another shard."""
+    ctx = await self._ensure_ctx(shard)
+    if not shard.is_last_layer and forward_fn is None:
+      raise ValueError("Non-last shard requires forward_fn to chain the ring")
+    self._check_example(ctx, train=False)
+
+    def _fwd():
+      out = train_step.training_forward(ctx.params, self._example_tensor(example), ctx.cfg,
+                                        shard.is_first_layer, shard.is_last_layer,
+                                        shard.start_layer)
+      if shard.is_last_layer:
+        return float(train_step.masked_ce_loss(out, self._ints(target),
+                                               self._ints(np.asarray(lengths).reshape(-1))))
+      return self._to_host(out)
+
+    out = await self._run(_fwd, oom_as_cache_exhausted=False)
+    if shard.is_last_layer:
+      return out
+    loss, _ = await forward_fn(out, np.asarray(target), np.asarray(lengths), False)
+    return loss
 
   # ---------------------------------------------------------------- tokens
 

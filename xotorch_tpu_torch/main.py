@@ -9,6 +9,11 @@ one completion.
         # multi-LoRA: requests name "<model>@fin" or "<model>@med" over one base
     python -m xotorch_tpu_torch.main run gemma2-2b --models-seed-dir /data/seed
     python -m xotorch_tpu_torch.main run dummy --inference-engine dummy   # no model, no device
+    python -m xotorch_tpu_torch.main train synthetic-llama-1b --iters 8 --batch-size 4 \\
+        --save-every 4 --save-checkpoint-dir ckpt [--lora-rank 8] [--quantize int8]
+    python -m xotorch_tpu_torch.main train synthetic-llama-1b --iters 8 --batch-size 4 \\
+        --resume-checkpoint ckpt/synthetic-llama-1b/0-15-4.safetensors
+    python -m xotorch_tpu_torch.main eval synthetic-llama-1b --batch-size 4
 
 A card other than a synthetic one serves the HF checkpoint in
 `XOT_HOME/models/<org>--<name>` (XOT_HOME defaults to `~/.xot_tpu`; `--models-seed-dir`
@@ -30,6 +35,16 @@ peers on one machine:
 
 Every peer runs on `cuda` by default; with no GPU the engine raises unless
 `--device cpu` is given.
+
+`train` and `eval` (JAX's commands, flags and defaults) read `--data`
+(`train.jsonl` / `test.jsonl` with a "text" field a line; the port's own copy of the
+repo's small set by default) and send each batch through the ring
+(`Node.enqueue_example`); `train` steps AdamW at XOT_LR (default 1e-5) and every
+`--save-every` steps saves each peer's shard under
+`--save-checkpoint-dir/<model>/<start>-<end>-<iteration>.safetensors`, the moments
+beside it. `--resume-checkpoint` loads a save on every peer first and, where it names
+the iteration (a shard save or a directory of them), goes on from the batch after it
+(the JAX command restarts at batch 0): `--iters` counts the steps from the start.
 """
 from __future__ import annotations
 
@@ -41,22 +56,25 @@ import signal
 import sys
 import time
 import uuid
+from pathlib import Path
+from typing import Optional
 
 from xotorch_tpu_torch import VERSION
 from xotorch_tpu_torch.api.chatgpt_api import ChatGPTAPI
 from xotorch_tpu_torch.download.hf_shard_download import HFShardDownloader, seed_models
 from xotorch_tpu_torch.inference.engine import get_inference_engine
-from xotorch_tpu_torch.models.registry import build_base_shard
+from xotorch_tpu_torch.models.registry import build_base_shard, get_repo
 from xotorch_tpu_torch.networking.tcp import TCPPeerHandle, TCPServer
 from xotorch_tpu_torch.orchestration.node import Node
 from xotorch_tpu_torch.topology.partitioning import RingMemoryWeightedPartitioningStrategy
+from xotorch_tpu_torch.train.dataset import DEFAULT_DATA
 from xotorch_tpu_torch.utils.helpers import DEBUG, find_available_port
 
 
 def build_parser() -> argparse.ArgumentParser:
   parser = argparse.ArgumentParser(prog="xot-torch",
                                    description="xotorch_tpu_torch: the PyTorch/CUDA port of xot")
-  parser.add_argument("command", nargs="?", choices=["run"], help="one-shot command")
+  parser.add_argument("command", nargs="?", choices=["run", "eval", "train"], help="one-shot command")
   parser.add_argument("model_name", nargs="?", help="model id (see models registry)")
   parser.add_argument("--version", action="version", version=f"xot-torch {VERSION}")
   parser.add_argument("--node-id", type=str, default=None)
@@ -91,6 +109,14 @@ def build_parser() -> argparse.ArgumentParser:
                       help="multi-LoRA serving registry: 'name=/path/to/adapter,name2=/dir'. "
                            "Requests select an adapter via the model id 'base@name'; all "
                            "adapters share one resident base (as XOT_ADAPTERS)")
+  # train and eval (JAX's flags and defaults; --data defaults to the port's own copy)
+  parser.add_argument("--data", type=str, default=DEFAULT_DATA)
+  parser.add_argument("--iters", type=int, default=100)
+  parser.add_argument("--batch-size", type=int, default=1)
+  parser.add_argument("--sequence-length", type=int, default=512)
+  parser.add_argument("--save-every", type=int, default=5)
+  parser.add_argument("--save-checkpoint-dir", type=str, default="checkpoints")
+  parser.add_argument("--resume-checkpoint", type=str, default=None)
   return parser
 
 
@@ -158,6 +184,77 @@ async def run_model_cli(node: Node, engine_classname: str, model_name: str, prom
   return tokens
 
 
+async def resolve_cli_tokenizer(model_name: str, engine_classname: str):
+  """The tokenizer of the train and eval commands: the fake for synthetic cards and the
+  dummy model (they never touch a checkpoint), else the model directory's own."""
+  from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer, resolve_tokenizer
+  if model_name.startswith("synthetic") or model_name == "dummy":
+    return DummyTokenizer()
+  return await resolve_tokenizer(get_repo(model_name, engine_classname))
+
+
+def resumed_iteration(path: Optional[str]) -> int:
+  """The iteration a resume checkpoint was saved at: a shard save's own
+  (`<start>-<end>-<iteration>[-opt].safetensors`), the latest shard save's in a
+  directory, else 0."""
+  from xotorch_tpu_torch.train.lora import SHARD_SAVE_RE
+  if not path:
+    return 0
+  p = Path(path)
+  files = sorted(p.glob("*.safetensors")) if p.is_dir() else [p]
+  its = [int(m.group(3)) for f in files
+         if (m := SHARD_SAVE_RE.fullmatch(f.name[:-len(".safetensors")].removesuffix("-opt")))]
+  return max(its, default=0)
+
+
+async def train_model_cli(node: Node, engine_classname: str, model_name: str, args) -> list:
+  """The train command: (iteration, loss) of each step, printed as it goes."""
+  from xotorch_tpu_torch.train.dataset import iterate_batches, load_dataset
+  shard = build_base_shard(model_name, engine_classname)
+  if shard is None:
+    raise SystemExit(f"Error: unsupported model '{model_name}' for engine {engine_classname}")
+  train_set, _, _ = load_dataset(args.data)
+  tokenizer = await resolve_cli_tokenizer(model_name, engine_classname)
+  start = 0
+  if args.resume_checkpoint:
+    # Every peer loads its own layer range before the first step.
+    await node.coordinate_resume(shard, args.resume_checkpoint)
+    start = resumed_iteration(args.resume_checkpoint)
+  losses = []
+  for it, (inputs, targets, lengths) in enumerate(
+      iterate_batches(train_set, tokenizer, args.batch_size, args.sequence_length)):
+    if it >= args.iters:
+      break
+    if it < start:
+      continue  # the resumed checkpoint's steps
+    loss, _ = await node.enqueue_example(shard, inputs, targets, lengths, train=True)
+    losses.append((it + 1, loss))
+    print(f"iter {it}: loss={loss:.4f}", flush=True)
+    if args.save_every > 0 and (it + 1) % args.save_every == 0:
+      await node.coordinate_save(shard, it + 1, args.save_checkpoint_dir)
+  return losses
+
+
+async def eval_model_cli(node: Node, engine_classname: str, model_name: str, args) -> Optional[float]:
+  """The eval command: the test split's mean loss, printed."""
+  from xotorch_tpu_torch.train.dataset import iterate_batches, load_dataset
+  shard = build_base_shard(model_name, engine_classname)
+  if shard is None:
+    raise SystemExit(f"Error: unsupported model '{model_name}' for engine {engine_classname}")
+  _, _, test_set = load_dataset(args.data)
+  tokenizer = await resolve_cli_tokenizer(model_name, engine_classname)
+  losses = []
+  for inputs, targets, lengths in iterate_batches(test_set, tokenizer, args.batch_size,
+                                                  args.sequence_length):
+    loss, _ = await node.enqueue_example(shard, inputs, targets, lengths, train=False)
+    losses.append(loss)
+  if not losses:
+    return None
+  mean = sum(losses) / len(losses)
+  print(f"eval loss: {mean:.4f} over {len(losses)} batches", flush=True)
+  return mean
+
+
 def wire_counts(node: Node) -> dict:
   """What this node sent over TCP, by method: {method: [calls, bytes sent, bytes
   received]}, summed over its peers."""
@@ -185,6 +282,12 @@ async def async_main(args) -> None:
     if args.command == "run":
       await run_model_cli(node, engine_classname, args.model_name or args.default_model
                           or "synthetic-llama-1b", args.prompt)
+      return
+    if args.command == "train":
+      await train_model_cli(node, engine_classname, args.model_name or "synthetic-tiny", args)
+      return
+    if args.command == "eval":
+      await eval_model_cli(node, engine_classname, args.model_name or "synthetic-tiny", args)
       return
     server = await api.start(args.chatgpt_api_host, args.chatgpt_api_port)
     async with server:

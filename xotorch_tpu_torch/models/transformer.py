@@ -43,6 +43,10 @@ are never a target). The delta is two plain products, as JAX computes it outside
 kernel; over a quantized base it adds to the GEMV kernel's output (decode) or to the
 dequantized product (prefill). Presence decides: a tree without adapters runs as
 before.
+
+Training (train/step.py) runs `forward_shard` with no cache from position 0: attention
+through `flash_attention_train` (K1 forward, K1b backward on the card), quantized slots
+through the dequantized product (its route, `TRAIN_ROUTE`), every op differentiable.
 """
 from __future__ import annotations
 
@@ -55,7 +59,7 @@ import torch.nn.functional as F
 from xotorch_tpu_torch.models.config import ModelConfig
 from xotorch_tpu_torch.models.quantize import quantize_tensor, unpack_int4
 from xotorch_tpu_torch.ops.attention import gqa_attention
-from xotorch_tpu_torch.ops.flash_attention import flash_attention
+from xotorch_tpu_torch.ops.flash_attention import flash_attention, flash_attention_train
 from xotorch_tpu_torch.ops.flash_decode import dequantize_kv, flash_cached_attention
 from xotorch_tpu_torch.ops.int4_matmul import int4_grouped_matmul
 from xotorch_tpu_torch.ops.int8_matmul import int8_rowquant_matmul
@@ -339,10 +343,15 @@ def _attention_block(layer: Params, x: torch.Tensor, cache: Dict[str, torch.Tens
     k = rms_norm(k, layer["k_norm"], cfg.rms_norm_eps, cfg.norm_offset)
   q = apply_rope(q, positions, inv_freq)
   k = apply_rope(k, positions, inv_freq)
-  scales = {name: cache[name][layer_idx] for name in ("k_scale", "v_scale") if name in cache}
   # The gemma family's score adjustments; 0 / None (1 / sqrt(D)) for the others.
   adj = dict(window=window, softcap=cfg.attn_logit_softcap,
              scale=cfg.query_pre_attn_scalar ** -0.5 if cfg.query_pre_attn_scalar else None)
+  if cache is None:
+    # The training and evaluation forward (train/step.py): from position 0 over the
+    # fresh K/V with nothing to write, differentiable through K1b on the card.
+    attn = flash_attention_train(q, k.contiguous(), v.contiguous(), **adj)
+    return _attention_out(layer, attn, cfg, route)
+  scales = {name: cache[name][layer_idx] for name in ("k_scale", "v_scale") if name in cache}
   if page_table is not None:
     # Paged KV: `cache` is the shared page arena. Position p of row b lands at
     # (table[b, p // page], p % page) (`slots`), in the payload pages and, for an
@@ -408,7 +417,7 @@ def _page_slots(page_table: torch.Tensor, positions: torch.Tensor, page: int):
 def forward_shard(
   params: Params,
   x: torch.Tensor,  # [B, T] int tokens (first shard) or [B, T, H] hidden
-  cache: Dict[str, torch.Tensor],
+  cache: Optional[Dict[str, torch.Tensor]],
   start_pos: Union[int, torch.Tensor],  # position of x[:, 0]: an int, or [B] per row
   cfg: ModelConfig,
   is_first: bool,
@@ -428,10 +437,14 @@ def forward_shard(
   segments (T > 1, B == 1) through K4; `use_flash`/`use_flash_decode` are ignored. A
   cache with `k_scale`/`v_scale` leaves is int8 and takes the kernels' int8 variants.
   `route` sends quantized decode projections to their kernels; by default the
-  knobs' route (`quant_route`) for the device of `x`."""
+  knobs' route (`quant_route`) for the device of `x`. With no `cache` (None, a prefill
+  from 0 with `use_flash`: the training forward of train/step.py) nothing is written
+  and attention goes through `flash_attention_train`, which autograd differentiates."""
   check_supported(cfg)
   if use_flash and not (isinstance(start_pos, int) and start_pos == 0):
     raise ValueError("use_flash serves a prefill from position 0 only")
+  if cache is None and (not use_flash or page_table is not None):
+    raise ValueError("a forward without a cache is a prefill from position 0 (use_flash)")
   h = embed(params, x, cfg) if is_first else x
   B, T = h.shape[0], h.shape[1]
   device = h.device

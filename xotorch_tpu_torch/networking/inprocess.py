@@ -11,7 +11,7 @@ drops, and a killed peer that fails every RPC and its health check.
 from __future__ import annotations
 
 import time
-from typing import Optional
+from typing import Optional, Tuple
 
 import numpy as np
 
@@ -66,6 +66,14 @@ class InProcessPeerHandle(PeerHandle):
                         inference_state: Optional[dict] = None) -> None:
     await self._hop("SendTensor", request_id,
                     lambda: self.node.process_tensor(shard, tensor, request_id, inference_state))
+
+  async def send_example(self, shard: Shard, example, target, length, train: bool,
+                         request_id: Optional[str] = None,
+                         ring_map: Optional[list] = None) -> Optional[Tuple[float, object]]:
+    await faults.apply("SendExample", self.node.id)  # a killed peer fails training hops too
+    loss, grads = await self.node.process_example(shard, example, target, length, train, request_id,
+                                                  ring_map=ring_map)
+    return (loss, grads) if loss is not None else None
 
   async def _hop(self, rpc: str, request_id: Optional[str], work) -> None:
     """One prompt or tensor hop: the sender's `hop.send` flight event, then each

@@ -11,7 +11,7 @@ from __future__ import annotations
 import math
 import time
 from abc import ABC, abstractmethod
-from typing import Optional
+from typing import Optional, Tuple
 
 from xotorch_tpu_torch.inference.shard import Shard
 from xotorch_tpu_torch.topology.device_capabilities import DeviceCapabilities
@@ -114,6 +114,16 @@ class PeerHandle(ABC):
   @abstractmethod
   async def send_tensor(self, shard: Shard, tensor, request_id: Optional[str] = None,
                         inference_state: Optional[dict] = None) -> None:
+    ...
+
+  @abstractmethod
+  async def send_example(self, shard: Shard, example, target, length, train: bool,
+                         request_id: Optional[str] = None,
+                         ring_map: Optional[list] = None) -> Optional[Tuple[float, object]]:
+    """One training or evaluation example to the peer's partition, answered when the
+    peer's slice and everything downstream of it have run: (loss, the gradient of the
+    example's input, or None for an evaluation). Not retried: a step is not
+    idempotent."""
     ...
 
   @abstractmethod

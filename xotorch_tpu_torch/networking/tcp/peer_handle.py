@@ -185,6 +185,21 @@ class TCPPeerHandle(PeerHandle):
               "inference_state": inference_state, "hop_seq": faults.hop_seq()}
     await self._hop("SendTensor", fields, {"tensor": tensor})
 
+  async def send_example(self, shard: Shard, example, target, length, train: bool,
+                         request_id: Optional[str] = None,
+                         ring_map: Optional[list] = None) -> Optional[Tuple[float, object]]:
+    """A training hop: the example (tokens, or a bf16 hidden state), its targets and
+    lengths out; the loss and the gradient of the example (`grads`, bf16 for a hidden
+    state) back, after the peer's slice and the rest of the ring ran. One attempt, with
+    a 600 s timeout: a training step is not idempotent."""
+    fields, tensors = await self._call(
+      "SendExample",
+      {"shard": shard.to_dict(), "train": train, "request_id": request_id, "ring_map": ring_map},
+      {"example": example, "target": np.asarray(target), "length": np.asarray(length)},
+      timeout=600.0, retriable=False)
+    loss = fields.get("loss")
+    return (loss, tensors.get("grads")) if loss is not None else None
+
   async def send_result(self, request_id: str, result, is_finished: bool,
                         error: Optional[str] = None,
                         total_len: Optional[int] = None) -> Optional[dict]:

@@ -4,9 +4,10 @@ The standard-library twin of xotorch_tpu/networking/grpc/server.py. Each connect
 carries one call at a time (service.py); every RPC decodes its XOT1 frame and calls the
 local Node. SendPrompt and SendTensor drop a redelivered hop (by its sequence id),
 spawn the Node's work detached and answer at once, so two peers that send to each
-other never wait on each other's work. SendExample answers that training is not
-served: the port's ring serves inference (multi-LoRA adapters included) until the
-training leaf is ported (ROADMAP queue 1, item 10b).
+other never wait on each other's work. SendExample is request and response: the
+Node's process_example runs this peer's slice of a training or evaluation example and
+everything downstream of it, and the answer carries the loss and, when training, the
+gradient of the example's input (`grads`; bf16 for a hidden state, as the tensor hops).
 """
 from __future__ import annotations
 
@@ -132,8 +133,12 @@ class TCPServer(Server):
     return encode_message({"ok": True})
 
   async def _rpc_send_example(self, fields: dict, tensors: dict) -> bytes:
-    return encode_message({"error": "SendExample is not served: training over the ring (the "
-                                    "training leaf) is not ported to xotorch_tpu_torch yet"})
+    loss, grads = await self.node.process_example(
+      Shard.from_dict(fields["shard"]), tensors["example"], tensors["target"], tensors["length"],
+      fields["train"], fields.get("request_id"), ring_map=fields.get("ring_map"))
+    if grads is None:
+      return encode_message({"loss": float(loss)})
+    return encode_message({"loss": float(loss)}, {"grads": grads})
 
   async def _rpc_collect_topology(self, fields: dict, tensors: dict) -> bytes:
     topology = await self.node.collect_topology(set(fields.get("visited", [])), fields.get("max_depth", 4))

@@ -26,7 +26,8 @@ from typing import Dict, Iterable, List
 PKG_DIR = Path(__file__).resolve().parent.parent
 CSRC_DIR = PKG_DIR / "csrc"
 BUILD_DIR = PKG_DIR / "build"
-KERNELS = ("flash_attention", "flash_decode", "paged_attention", "quant_matvec")
+KERNELS = ("flash_attention", "flash_attention_bwd", "flash_decode", "paged_attention",
+           "quant_matvec")
 NVCC_FLAGS = ["-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3", "-shared",
               "-Xcompiler", "-fPIC"]
 
@@ -35,6 +36,9 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 SIGNATURES = {
   "flash_attention": {
     "xot_flash_attention_bf16": [P, P, P, P, I, I, I, I, I, I, I, I, F, F, P],
+  },
+  "flash_attention_bwd": {
+    "xot_flash_attention_bwd_bf16": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, P],
   },
   "flash_decode": {
     "xot_flash_cached_attention_bf16": [P, P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, F, P],

@@ -65,8 +65,17 @@ first left no eviction, event or cooldown behind). Every abort goes through
 _abort_request, so every surviving peer frees the request's state and KV. An origin request passes the fault injector's
 "ProcessPrompt" rules (networking/faults.py), the gray-failure tap of a single node.
 
+Training (the JAX Node's): `enqueue_example` pins the example's ring map and routes it
+to the partition-0 owner; `process_example` runs this peer's slice through the engine's
+`train_example` / `evaluate_example`, whose `forward_fn` (`_forward_example_fn`) sends
+the activations on (SendExample) and returns the loss and the gradient; the map is
+dropped when the example returns. `coordinate_save` saves this peer's shard as
+`{dir}/{model}/{start}-{end}-{iteration}.safetensors` and asks every peer over the
+status bus to save its own (`save_checkpoint`); `coordinate_resume` loads this peer's
+range and asks the others to load theirs (`resume_checkpoint`).
+
 Not ported yet (ROADMAP): the fused in-process ring and its speculation
-(`verify_draft_ring`), device-resident hops, training and checkpoints.
+(`verify_draft_ring`) and device-resident hops.
 """
 from __future__ import annotations
 
@@ -237,6 +246,8 @@ class Node:
     self.speculate_tokens = knobs.get_int("XOT_SPECULATE", 8 if self.draft_model else 0)
     self.speculate_window = knobs.get_int("XOT_SPECULATE_WINDOW")
     self._request_ring_map: "OrderedDict[str, list]" = OrderedDict()
+    # Training checkpoints this node saved: model -> {"start-end": iteration}.
+    self.checkpoints: Dict[str, Dict[str, int]] = {}
     # Receiver-side hop dedup: per-request bounded sets of hop sequence ids.
     self._hop_seen: "OrderedDict[str, OrderedDict]" = OrderedDict()
     # Cancelled or finished-elsewhere requests (bounded LRU, outliving their state so a
@@ -1114,6 +1125,122 @@ class Node:
     await peer.send_tensor(self.get_current_shard(base_shard, target_index, request_id=request_id),
                            tensor, request_id, state)
 
+  # -------------------------------------------------------------- training
+
+  async def enqueue_example(self, base_shard: Shard, example, target, length, train: bool = False,
+                            request_id: Optional[str] = None):
+    """Route an example to the partition-0 owner: (loss, the input gradient or None).
+    The example's ring map is pinned from this node's view, as a serving request's is,
+    so that every peer runs the layer range this view gives it, and dropped when the
+    example returns."""
+    if request_id is None:
+      request_id = str(uuid.uuid4())
+    self._pin_ring_map(base_shard, request_id)
+    try:
+      shard = self.get_current_shard(base_shard, request_id=request_id)
+      if shard.is_first_layer:
+        return await self.process_example(base_shard, example, target, length, train, request_id)
+      index = self.get_partition_index_of_first_layer()
+      target_id = self._ring_target_id(index, request_id)
+      peer = await self._peer_by_id(target_id)
+      if peer is None:
+        raise ValueError(f"No peer for first-layer partition {index}")
+      result = await peer.send_example(
+        self.get_current_shard(base_shard, index, request_id=request_id), example, target,
+        length, train, request_id, ring_map=self._ring_entries(request_id))
+      if result is None:
+        raise RuntimeError(f"Peer {target_id} returned no loss for example {request_id}")
+      return result
+    finally:
+      self._request_ring_map.pop(request_id, None)
+
+  async def process_example(self, base_shard: Shard, example, target, length, train: bool = False,
+                            request_id: Optional[str] = None, ring_map: Optional[list] = None):
+    """This peer's slice of a training or evaluation example, chained down the ring:
+    (loss, the gradient of the example's input) when training, (loss, None) else."""
+    if request_id is None:
+      request_id = str(uuid.uuid4())
+    if ring_map and request_id not in self._request_ring_map:
+      self._set_ring_map(request_id, ring_map)
+    shard = self.get_current_shard(base_shard, request_id=request_id)
+    start_ns = time.perf_counter_ns()
+    kind = "train_example" if train else "eval_example"
+    self._spawn(self.broadcast_opaque_status(request_id, json.dumps({
+      "type": "node_status", "node_id": self.id, "status": f"start_{kind}",
+      "request_id": request_id})))
+    try:
+      forward_fn = self._forward_example_fn(base_shard, request_id)
+      if train:
+        return await self.inference_engine.train_example(request_id, shard, example, target,
+                                                         length, forward_fn=forward_fn)
+      loss = await self.inference_engine.evaluate_example(request_id, shard, example, target,
+                                                          length, forward_fn=forward_fn)
+      return loss, None
+    finally:
+      self._request_ring_map.pop(request_id, None)
+      self._spawn(self.broadcast_opaque_status(request_id, json.dumps({
+        "type": "node_status", "node_id": self.id, "status": f"end_{kind}",
+        "request_id": request_id, "elapsed_time_ns": time.perf_counter_ns() - start_ns})))
+
+  def _forward_example_fn(self, base_shard: Shard, request_id: str):
+    """The downstream hop of a pipelined example: the activations to the next
+    partition, (loss, the gradient of the activations) back."""
+    async def forward(activations, target, length, train: bool):
+      next_index = self.get_partition_index(offset=1, request_id=request_id)
+      target_id = self._ring_target_id(next_index, request_id)
+      if target_id == self.id:
+        return await self.process_example(base_shard, activations, target, length, train, request_id)
+      peer = await self._peer_by_id(target_id)
+      if peer is None:
+        raise ValueError(f"No peer for partition {next_index}")
+      result = await peer.send_example(
+        self.get_current_shard(base_shard, next_index, request_id=request_id), activations,
+        target, length, train, request_id, ring_map=self._ring_entries(request_id))
+      if result is None:
+        raise RuntimeError(f"Peer {target_id} returned no loss for example {request_id}")
+      return result
+    return forward
+
+  async def _resume_local(self, base_shard: Shard, path: str) -> None:
+    try:
+      shard = self.get_current_shard(base_shard)
+      await self.inference_engine.load_checkpoint(shard, path)
+      if DEBUG >= 1:
+        print(f"Resumed {shard} from {path}")
+    except Exception as e:
+      print(f"Resume of {base_shard.model_id} from {path} failed on {self.id}: {e!r}")
+
+  async def coordinate_resume(self, base_shard: Shard, path: str) -> None:
+    """Restore a checkpoint across the whole ring: this peer's layer range now, every
+    other peer's through a `resume_checkpoint` status (the shard saves share one
+    directory), so that no partition restarts fresh beside resumed ones."""
+    await self._resume_local(base_shard, path)
+    await self.broadcast_opaque_status("", json.dumps({
+      "type": "resume_checkpoint", "node_id": self.id, "base_shard": base_shard.to_dict(),
+      "path": path}))
+
+  async def _save_local(self, base_shard: Shard, iteration: int, destination: str) -> None:
+    shard = self.get_current_shard(base_shard)
+    model = base_shard.model_id
+    sid = f"{shard.start_layer}-{shard.end_layer}"
+    saved = self.checkpoints.setdefault(model, {})
+    if saved.get(sid) == iteration:
+      return
+    saved[sid] = iteration
+    path = f"{destination}/{model}/{sid}-{iteration}.safetensors"
+    await self.inference_engine.save_checkpoint(shard, path)
+    if DEBUG >= 1:
+      print(f"Saved checkpoint {path}")
+
+  async def coordinate_save(self, base_shard: Shard, iteration: int, destination: str) -> None:
+    """Save the ring's shards at `iteration`: this peer's now, every other peer's through
+    a `save_checkpoint` status. A peer's save goes to its engine's executor when the
+    status arrives, ahead of the next example the origin sends after this returns."""
+    await self._save_local(base_shard, iteration, destination)
+    await self.broadcast_opaque_status("", json.dumps({
+      "type": "save_checkpoint", "node_id": self.id, "base_shard": base_shard.to_dict(),
+      "iteration": iteration, "destination": destination}))
+
   # ------------------------------------------------------- peers, topology
 
   async def update_peers(self, wait_for_peers: int = 0) -> bool:
@@ -1307,6 +1434,13 @@ class Node:
       self.tracer.ingest(status.get("spans") or [])
     elif kind == "node_metrics" and status.get("node_id"):
       self.ingest_peer_metrics(status["node_id"], status.get("metrics") or {})
+    elif kind == "resume_checkpoint":
+      # A ring-wide resume: each peer loads its own layer range from the directory.
+      self._spawn(self._resume_local(Shard.from_dict(status.get("base_shard", {})),
+                                     status.get("path", "")))
+    elif kind == "save_checkpoint":
+      self._spawn(self._save_local(Shard.from_dict(status.get("base_shard", {})),
+                                   int(status.get("iteration", 0)), status.get("destination", "")))
 
   async def broadcast_opaque_status(self, request_id: str, status: str) -> None:
     async def send(peer):

@@ -1,3 +1,2 @@
-"""The training side of the port: LoRA adapters and adapter-only checkpoints
-(train/lora.py). The train and eval steps, the optimizer state and the dataset are
-the training leaf, still to port (ROADMAP queue 1)."""
+"""The training side of the port: the dataset, the training step, the optimizer's
+moments beside a checkpoint, LoRA adapters and adapter-only checkpoints."""

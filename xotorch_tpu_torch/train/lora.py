@@ -1,7 +1,7 @@
-"""LoRA adapters for shard transformers: the tensors, and adapter-only checkpoints.
+"""LoRA adapters for shard transformers: the tensors, their optimizer, and adapter-only
+checkpoints.
 
-The port of xotorch_tpu/train/lora.py without what needs an optimizer (`lora_mask`,
-`masked_optimizer`: the training leaf, ROADMAP queue 1). Adapter tensors live inside
+The port of xotorch_tpu/train/lora.py. Adapter tensors live inside
 the stacked `params["layers"]` dict as `lora_<slot>_a` [L, in, r] and
 `lora_<slot>_b` [L, r, out], so the layer loop slices them with the rest
 (models/transformer._maybe_lora applies them). Init follows the standard recipe:
@@ -13,6 +13,13 @@ Adapter-only checkpoints name each tensor by its absolute layer index
 slice, and a re-partitioned ring merges the saves of other ranges. They go through
 the port's own safetensors reader and writer (models/weights.py): the JAX package's
 files load here and the port's load there.
+
+The optimizer is `torch.optim.AdamW` with optax.adamw's defaults (`adamw`): betas
+(0.9, 0.999), eps 1e-8 and weight decay 1e-4, where torch's own default decay is 1e-2.
+Torch applies the decay to the parameter before the Adam step and optax adds it to the
+update; both give p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p). `masked_optimizer`
+builds it over the adapter leaves alone: a frozen leaf gets no moments and no update,
+as optax's multi_transform with set_to_zero gives it none.
 """
 from __future__ import annotations
 
@@ -79,6 +86,40 @@ def _adapter_dtype(layers: Params, slot: str) -> torch.dtype:
 
 def has_lora(params: Params) -> bool:
   return any(k.startswith("lora_") for k in params.get("layers", {}))
+
+
+def lora_mask(params: Params) -> Params:
+  """Boolean tree: True exactly on adapter leaves."""
+  def mark(tree, in_layers: bool):
+    return {k: (mark(v, in_layers or k == "layers") if isinstance(v, dict)
+                else in_layers and k.startswith("lora_")) for k, v in tree.items()}
+  return mark(params, False)
+
+
+ADAMW_BETAS = (0.9, 0.999)
+ADAMW_EPS = 1e-8
+ADAMW_WEIGHT_DECAY = 1e-4  # optax.adamw's default (torch's is 1e-2)
+
+
+def adamw(leaves, lr: float) -> torch.optim.AdamW:
+  """AdamW over `leaves` (tensors updated in place) with optax.adamw's defaults."""
+  return torch.optim.AdamW(list(leaves), lr=lr, betas=ADAMW_BETAS, eps=ADAMW_EPS,
+                           weight_decay=ADAMW_WEIGHT_DECAY)
+
+
+def trainable_leaves(params: Params) -> list:
+  """(key path, tensor) of what an optimizer over `params` trains, in JAX's flatten
+  order: the adapter leaves when there are any, else every float leaf."""
+  from xotorch_tpu_torch.train.step import leaf_paths, trainable_subtree
+  flat = leaf_paths(trainable_subtree(params))
+  if has_lora(params):
+    flat = [(path, t) for path, t in flat if path[0] == "layers" and path[-1].startswith("lora_")]
+  return flat
+
+
+def masked_optimizer(params: Params, lr: float) -> torch.optim.AdamW:
+  """AdamW over the adapter leaves alone (the base frozen: no moments, no update)."""
+  return adamw([t for path, t in trainable_leaves(params) if path[-1].startswith("lora_")], lr)
 
 
 def lora_param_counts(params: Params) -> Tuple[int, int]:

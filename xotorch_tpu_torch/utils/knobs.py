@@ -69,6 +69,8 @@ _DEFS: Tuple[Knob, ...] = (
   Knob("XOT_LORA_RANK", "int", "0", "LoRA adapter rank for training; 0 trains/serves without LoRA."),
   Knob("XOT_LORA_TARGETS", "str", None, "LoRA target set; `all` extends adapters to MLP slots (default attention-only)."),
   Knob("XOT_ADAPTERS", "str", None, "Comma-separated `name=path` list of LoRA adapters to serve (multi-LoRA)."),
+  Knob("XOT_LR", "float", "1e-5", "Training learning rate."),
+  Knob("XOT_SAVE_OPT_STATE", "bool", "1", "Persist/restore optimizer state across training checkpoints."),
   Knob("XOT_HOP_RETRIES", "int", "2", "Retries per ring hop on transient transport failures; 0 = fail-fast."),
   Knob("XOT_HOP_BACKOFF_S", "float", "0.05", "Base backoff (s) for hop retries (exponential + jitter)."),
   Knob("XOT_REQUEST_DEADLINE_S", "float", "0", "End-to-end request deadline (s); remaining budget rides the hops. 0 disables."),
