@@ -246,16 +246,23 @@ Phases, in order; any failure exits nonzero and prints no result line:
      save_checkpoint writing ad2's tensors back; four base and four adapter streams at
      once on the page pool, each its solo stream under the near-tie rule, pages back
      to 0; an int4 server whose @ad1 requests launch K5 7 x 16 x steps;
-  21. training (check_training): (a) K1b, the hand-written gradient of K1, against
-     autograd of flash_attention_ref in fp32 on the card (dq, dk and dv each within 2^-6
-     of its largest |value|) at synthetic-llama-1b's widths (B 4, T 511: the main path's
-     batch; T 512 and 300), softcapped and windowed with queries scaled into the softcap
-     (controls: the softcap or the window dropped must miss), at D 128, D 32 with groups
-     1 and D 16 with groups 8; timed beside the fp32 plain version, SDPA's backward and
-     the bound; each wrapper once under set_sync_debug_mode("error"); (b) a two-layer cut
-     at full width, the loss and every trainable leaf's gradient on the card (bf16, K1
-     and K1b) against the plain path in fp32 on the CPU: full fine-tune (control: a window
-     forced), LoRA and QLoRA over int8 (control: B zeroed); (c) main.py's train and eval
+  21. training (check_training): (a) K1b, the hand-written gradient of K1, fed the
+     log-sum-exp K1 writes, against autograd of flash_attention_ref in fp32 on the card
+     (dq, dk and dv each within 2^-6 of its largest |value|, two calls the same bits) at
+     synthetic-llama-1b's widths (B 4, T 511: the main path's batch; T 512 and 300),
+     softcapped and windowed with queries scaled into the softcap (controls: the softcap
+     or the window dropped must miss), at D 128, D 32 with groups 1, D 16 with groups 8
+     and gemma-2-2b's widths (D 256, softcap 50; B 4, T 511 and, windowed, B 2, T 512);
+     K1's log-sum-exp against its plain version, and K1's output with it requested the
+     same bits as without; timed beside the fp32 plain version, SDPA's backward (a
+     compiled flex_attention's backward with a softcap or a window), each of its two
+     device kernels under the profiler, and the bound; ptxas's registers and spills of
+     K1, K2, K4 and K1b; each wrapper once under set_sync_debug_mode("error"); (b) a
+     two-layer cut at full width, the loss and every trainable leaf's gradient on the card
+     (bf16, K1 and K1b) against the plain path in fp32 on the CPU: synthetic-llama-1b's,
+     full fine-tune (control: a window forced), LoRA and QLoRA over int8 (control: B
+     zeroed), then gemma-2-2b's published config (one windowed layer, one global), full
+     fine-tune and LoRA; (c) main.py's train and eval
      commands on synthetic-llama-1b at full width and depth over a seeded "w<id>" corpus
      (B 4, rows of 511, 8 steps): full fine-tune then eval, LoRA rank 8 with saves at 4
      and 8 (base bit for bit; a fresh server resuming the save streams the trained
@@ -362,6 +369,49 @@ def time_ms(fn, iters: int = 20, warmup: int = 3) -> float:
 def bound(flops: float, nbytes: float, peak: Optional[float] = None):
   t_ops, t_bytes = flops / (peak or PEAK_BF16_FLOPS), nbytes / PEAK_HBM_BYTES
   return (max(t_ops, t_bytes) * 1e3, "operations" if t_ops >= t_bytes else "bytes")
+
+
+def ptxas_registers(log: str) -> list:
+  """(kernel<template arguments>, registers, spill store bytes, spill load bytes) of
+  each entry function in nvcc's -Xptxas -v output."""
+  import re
+
+  def demangled(sym):  # a length-prefixed "<n>..._kernel" followed by its template arguments
+    for m in re.finditer(r"\d+", sym):
+      for i in range(len(m.group())):
+        n, at = int(m.group()[i:]), m.end()
+        if sym[at:at + n].endswith("_kernel") and sym[at + n:at + n + 1] == "I":
+          args = re.match(r"I((?:L\w+?E)+)E", sym[at + n:])
+          vals = re.findall(r"L\w(\d+)E", args.group(1)) if args else []
+          return f"{sym[at:at + n]}<{','.join(vals)}>"
+    return sym
+
+  out, name, spills = [], None, (0, 0)
+  for line in log.splitlines():
+    m = re.search(r"Compiling entry function '(\S+)'", line)
+    if m:
+      name = demangled(m.group(1))
+      spills = (0, 0)
+    m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", line)
+    if m:
+      spills = (int(m.group(1)), int(m.group(2)))
+    m = re.search(r"Used (\d+) registers", line)
+    if m and name:
+      out.append((name, int(m.group(1)), *spills))
+      name = None
+  return out
+
+
+def print_registers(sources=("flash_attention", "flash_decode", "paged_attention",
+                             "flash_attention_bwd")) -> None:
+  """One line a kernel of the attention sources built in this process: ptxas's registers
+  and spills (K1 flash_prefill_kernel, K2's segments flash_cached_segment_kernel, K4
+  paged_prefill_kernel, K1b flash_bwd_dq_kernel / flash_bwd_dkdv_kernel; <D, ...>)."""
+  from xotorch_tpu_torch.ops import _build
+  for source in sources:
+    rows = ptxas_registers(_build.LOGS.get(source, ""))
+    print(f"[ptxas {source}] " + ("; ".join(f"{n} {r} regs, spills {st}/{ld} B" for n, r, st, ld in rows)
+                                  or "no -Xptxas -v output in this process"), flush=True)
 
 
 def report(name, case, out, ref, ms, plain_ms, lib_ms, b_ms, b_by, limit=ATOL):
@@ -6695,7 +6745,8 @@ def k1b_widths():
   """(widths, B, T, window, softcap, timed) of the K1b cases: synthetic-llama-1b's at
   the main path's batch (B 4, T 511) and at T 512 and 300, softcapped and windowed with
   queries scaled into the softcap (strict: its controls must miss), D 128, D 32 with
-  groups 1 and D 16 with groups 8."""
+  groups 1, D 16 with groups 8, and gemma-2-2b's (GEMMA_2B: D 256, scale 1/16, queries
+  x 8, strict) at the main path's batch with its softcap, and windowed."""
   soft = Widths(HQ, HKV, D, "llama-1b softcapped, queries x 8 ", q_mul=8.0, strict=True)
   return [(LLAMA_1B, TRAIN_BATCH, TRAIN_SEQ - 1, 0, 0.0, True),
           (LLAMA_1B, TRAIN_BATCH, 512, 0, 0.0, True),
@@ -6703,7 +6754,9 @@ def k1b_widths():
           (soft, 2, 512, 256, 50.0, True),
           (Widths(32, 8, 128, "D=128 "), 2, 512, 0, 0.0, True),
           (Widths(8, 8, 32, "D=32 groups 1 "), 2, 300, 0, 0.0, False),
-          (Widths(16, 2, 16, "D=16 groups 8 "), 2, 200, 64, 0.0, False)]
+          (Widths(16, 2, 16, "D=16 groups 8 "), 2, 200, 64, 0.0, False),
+          (GEMMA_2B, TRAIN_BATCH, TRAIN_SEQ - 1, 0, GEMMA_SOFTCAP, True),
+          (GEMMA_2B, 2, 512, 256, GEMMA_SOFTCAP, False)]
 
 
 def sdpa_bwd_ms(torch, q, k, v, dout, scale=None) -> float:
@@ -6721,25 +6774,98 @@ def sdpa_bwd_ms(torch, q, k, v, dout, scale=None) -> float:
   return time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), g, retain_graph=True))
 
 
+def flex_bwd_ms(torch, q, k, v, dout, window, softcap, scale=None) -> float:
+  """The library time of a softcapped or windowed K1b case: the backward of one
+  torch.compile'd flex_attention call (a yardstick the port never calls), with flex_ms's
+  softcap score_mod and the causal window as its block mask, GQA, from its saved forward."""
+  from torch.nn.attention.flex_attention import create_block_mask, flex_attention
+  B, T = q.shape[0], q.shape[1]
+  win = window or (1 << 30)
+
+  def score_mod(score, b, h, qi, ki):
+    return torch.tanh(score / softcap) * softcap
+
+  def mask_mod(b, h, qi, ki):
+    return (ki <= qi) & (ki > qi - win)
+
+  mask = create_block_mask(mask_mod, B, None, T, T, device="cuda")
+  torch._dynamo.reset()
+  fn = torch.compile(flex_attention, dynamic=False)
+  qt, kt, vt = (x.transpose(1, 2).contiguous().requires_grad_(True) for x in (q, k, v))
+  g = dout.transpose(1, 2).contiguous()
+  with torch.enable_grad():
+    out = fn(qt, kt, vt, score_mod=score_mod if softcap else None, block_mask=mask,
+             scale=scale, enable_gqa=True)
+  return time_ms(lambda: torch.autograd.grad(out, (qt, kt, vt), g, retain_graph=True))
+
+
+def kernel_split_ms(torch, call, names, iters: int = 10) -> Optional[dict]:
+  """Device ms a call of each kernel named in `names`, from torch.profiler over `iters`
+  calls in a row (warm L2: the split, not the total, is what this reads); None when the
+  trace holds no device time for them (seen after the earlier phases' profiles in one
+  process: phase 21 alone, scripts/training_probe.py, reads it)."""
+  from torch.profiler import ProfilerActivity, profile
+  call()
+  torch.cuda.synchronize()
+  with profile(activities=[ProfilerActivity.CUDA]) as prof:
+    for _ in range(iters):
+      call()
+    torch.cuda.synchronize()
+  out = {n: 0.0 for n in names}
+  for evt in prof.key_averages():
+    us = getattr(evt, "self_device_time_total", None)
+    if us is None:
+      us = getattr(evt, "self_cuda_time_total", 0)
+    for n in names:
+      if n in evt.key:
+        out[n] += us / 1e3 / iters
+  return out if any(out.values()) else None
+
+
+LSE_REL = 2.0 ** -12  # K1's log-sum-exp: fp32 sums of ex2.approx terms, against fp32 torch
+
+
 def k1b_case(torch, w, draw, B, T, window, softcap, timed=True) -> Optional[dict]:
   """K1b (flash_attention_bwd): the gradient of K1's output, given that output (bf16, as
-  the training forward saves it) and a seeded dO, against autograd of
-  flash_attention_ref in fp32 on the card on the same inputs: dq, dk and dv each within
-  BWD_REL of its largest |value|. A strict case's controls (the kernel run with its
-  softcap or window dropped) must each miss that limit. A timed case adds K1b's time,
-  the fp32 plain version's, SDPA's backward (no window, no softcap) and the bound: five
-  products of 2 x D a visible (query head, key) pair on the bf16 peak, against q, k, v,
-  o and dO read and dq, dk and dv written once."""
+  the training forward saves it), the log-sum-exp K1 wrote with it and a seeded dO,
+  against autograd of flash_attention_ref in fp32 on the card on the same inputs: dq, dk
+  and dv each within BWD_REL of its largest |value|, and a second call the same bits.
+  K1's log-sum-exp is held within LSE_REL of max(1, its largest |value|) of
+  flash_attention_lse_ref, and K1's output with it requested equals its output without,
+  bit for bit. A strict case's controls (the kernel run with its softcap or window
+  dropped) must each miss that limit. A timed case adds K1b's time, the fp32 plain
+  version's, the library's (SDPA's backward without a window or a softcap, else a
+  compiled flex_attention's backward), each device kernel's share under the profiler,
+  and the bound: the gradient's five products (S, dP, dV, dK, dQ; K1b computes S and dP
+  once in each of its kernels, seven in all) of 2 x D a visible (query head, key) pair on
+  the bf16 peak, against q, k, v, o, dO and lse read and dq, dk and dv written once."""
   from xotorch_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_bwd,
-                                                     flash_attention_bwd_ref)
+                                                     flash_attention_bwd_ref,
+                                                     flash_attention_lse_ref)
   q = w.queries(draw(B, T, w.hq, w.d))
   k, v, dout = draw(B, T, w.hkv, w.d), draw(B, T, w.hkv, w.d), draw(B, T, w.hq, w.d)
   kw = dict(window=window, softcap=softcap, scale=w.scale)
-  out = flash_attention(q, k, v, **kw)
+  out, lse = flash_attention(q, k, v, lse=True, **kw)
   case = f"{w.tag}B={B} T={T} window={window} softcap={softcap}"
-  call = lambda **o: flash_attention_bwd(q, k, v, out, dout, **{**kw, **o})
+  same_out = torch.equal(out, flash_attention(q, k, v, **kw))
+  lse_ref = flash_attention_lse_ref(q.float(), k.float(), **kw)
+  lse_err = (lse - lse_ref).abs().max().item()
+  lse_limit = LSE_REL * max(1.0, lse_ref.abs().max().item())
+  ok = same_out and math.isfinite(lse_err) and lse_err <= lse_limit
+  print(f"[flash_attention] {case}: log-sum-exp max_abs_err {lse_err:.3e} (limit {lse_limit:.3e}); "
+        f"output with it the same bits as without: {same_out} {'ok' if ok else 'FAIL'}", flush=True)
+  if not ok:
+    raise AssertionError(f"flash_attention {case}: the log-sum-exp output disagrees with its "
+                         f"plain version, or requesting it changed the output")
+  call = lambda **o: flash_attention_bwd(q, k, v, out, dout, lse, **{**kw, **o})
   got = call()
+  again = call()
   torch.cuda.synchronize()
+  same = all(torch.equal(a, b) for a, b in zip(got, again))
+  print(f"[flash_attention_bwd] {case}: two calls on the same inputs give the same bits: {same}",
+        flush=True)
+  if not same:
+    raise AssertionError(f"flash_attention_bwd {case}: two calls differ")
   plain = lambda: flash_attention_bwd_ref(q.float(), k.float(), v.float(), dout.float(), **kw)
   ref = plain()
   limits = [BWD_REL * r.abs().max().item() for r in ref]
@@ -6764,13 +6890,23 @@ def k1b_case(torch, w, draw, B, T, window, softcap, timed=True) -> Optional[dict
     return None
   ms = time_ms(call)
   plain_ms = time_ms(plain, iters=3)
-  lib = sdpa_bwd_ms(torch, q, k, v, dout, w.scale) if not (window or softcap) else None
+  if window or softcap:
+    lib, lib_name = flex_bwd_ms(torch, q, k, v, dout, window, softcap, w.scale), "flex_attention backward"
+  else:
+    lib, lib_name = sdpa_bwd_ms(torch, q, k, v, dout, w.scale), "SDPA backward"
+  split = kernel_split_ms(torch, call, ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"))
   seen = sum(min(t + 1, window) if window else t + 1 for t in range(T))
   b_ms, b_by = bound(10.0 * B * w.hq * w.d * seen,
-                     2.0 * (4 * q.numel() + 4 * k.numel()))
+                     2.0 * (4 * q.numel() + 4 * k.numel()) + 4.0 * lse.numel())
+  if split is None:
+    shares = "the kernels' split not measured (no device time in the profiler's trace)"
+  else:
+    dq_ms, dkdv_ms = split["flash_bwd_dq_kernel"], split["flash_bwd_dkdv_kernel"]
+    shares = (f"profiler, warm: dQ kernel {dq_ms:.4f} ms ({100 * dq_ms / (dq_ms + dkdv_ms):.1f} %), "
+              f"dK/dV kernel {dkdv_ms:.4f} ms")
   print(f"[flash_attention_bwd] {case}: ms={ms:.4f} plain_ms={plain_ms:.4f} library_ms="
-        f"{'null' if lib is None else f'{lib:.4f}'} (SDPA backward) bound_ms={b_ms:.4f} ({b_by})",
-        flush=True)
+        f"{'null' if lib is None else f'{lib:.4f}'} ({lib_name}) bound_ms={b_ms:.4f} ({b_by}); "
+        f"{shares}", flush=True)
   return {"max_abs_err": max(errs), "ms": ms, "plain_ms": plain_ms, "library_ms": lib,
           "bound_ms": b_ms, "bound_by": b_by}
 
@@ -6780,8 +6916,10 @@ def check_training_kernels(torch, results: dict) -> None:
   (K1b's, and the autograd Function whose forward is K1 and backward K1b) once under
   torch.cuda.set_sync_debug_mode("error"); the main path's case (B 4, T 511) goes to
   the results line."""
-  from xotorch_tpu_torch.ops.flash_attention import flash_attention_bwd, flash_attention_train
+  from xotorch_tpu_torch.ops.flash_attention import (flash_attention, flash_attention_bwd,
+                                                     flash_attention_train)
   t0 = time.perf_counter()
+  print_registers()
   draw = seeded_randn(torch, 21)
   for i, (w, B, T, window, softcap, timed) in enumerate(k1b_widths()):
     r = k1b_case(torch, w, draw, B, T, window, softcap, timed)
@@ -6789,12 +6927,12 @@ def check_training_kernels(torch, results: dict) -> None:
       results["flash_attention_bwd"] = r
   q = draw(2, 300, HQ, D).requires_grad_(True)
   k, v = draw(2, 300, HKV, D).requires_grad_(True), draw(2, 300, HKV, D).requires_grad_(True)
-  out = flash_attention_train(q, k, v).detach()
+  out, lse = flash_attention(q.detach(), k.detach(), v.detach(), lse=True)
   dout = draw(2, 300, HQ, D)
   torch.cuda.synchronize()
   torch.cuda.set_sync_debug_mode("error")
   try:
-    flash_attention_bwd(q.detach(), k.detach(), v.detach(), out, dout)
+    flash_attention_bwd(q.detach(), k.detach(), v.detach(), out, dout, lse)
     flash_attention_train(q, k, v, window=128).backward(dout)
   finally:
     torch.cuda.set_sync_debug_mode(0)
@@ -6821,8 +6959,10 @@ def _window_forced(window: int):
 
 
 def check_training_cut(torch, mode: str, device: str = "cuda", model: str = "synthetic-llama-1b",
-                       limit: float = TRAIN_GRAD_REL) -> dict:
-  """Phase 21 (b): a two-layer cut of `model` at full width, B 2, T 200 (rows of 200 and
+                       limit: float = TRAIN_GRAD_REL, hf_config: Optional[dict] = None) -> dict:
+  """Phase 21 (b): a two-layer cut of `model` at full width (its registry card's
+  synthetic config, or `hf_config`: gemma-2-2b's published one, whose two first layers
+  are one windowed and one global), B 2, T 200 (rows of 200 and
   150), the loss and every trainable leaf's gradient (`mode` full: every float leaf,
   the tied embedding included; lora: a seeded rank-8 adapter on the seven slots, B
   nonzero; qlora: that adapter over an int8 base) on the card in bf16 through K1 and K1b
@@ -6839,7 +6979,7 @@ def check_training_cut(torch, mode: str, device: str = "cuda", model: str = "syn
   from xotorch_tpu_torch.ops.flash_attention import flash_attention, flash_attention_bwd
   from xotorch_tpu_torch.train import lora, step
 
-  cfg = dataclasses.replace(config_from_hf_dict(get_model_card(model)["synthetic_config"]),
+  cfg = dataclasses.replace(config_from_hf_dict(hf_config or get_model_card(model)["synthetic_config"]),
                             num_layers=2)
   dev = torch.device(device)
   dtype = torch.bfloat16 if device == "cuda" else torch.float32
@@ -7276,8 +7416,9 @@ def drive_training_ring(torch, card: str, device: str = "cuda", model: str = "sy
 def check_training(torch, card: str, results: dict, device: str = "cuda",
                    model: str = "synthetic-llama-1b") -> dict:
   """Phase 21: training. (a) K1b against its plain version (check_training_kernels);
-  (b) the two-layer cut's loss and gradients, full, LoRA and QLoRA, against the CPU
-  (check_training_cut); (c) main.py train and eval (drive_training); (d) ring training
+  (b) the two-layer cuts' loss and gradients against the CPU (check_training_cut):
+  `model`'s full, LoRA and QLoRA, then gemma-2-2b's (GEMMA_CONFIG: head_dim 256, the
+  softcap, a windowed layer) full and LoRA; (c) main.py train and eval (drive_training); (d) ring training
   over TCP against one peer (drive_training_ring). Returns the K1 and K1b launches of
   (c) and (d), the phase's main path ((a) and (b) compare against plain versions)."""
   t0 = time.perf_counter()
@@ -7285,7 +7426,11 @@ def check_training(torch, card: str, results: dict, device: str = "cuda",
     check_training_kernels(torch, results)
   for mode in ("full", "lora", "qlora"):
     check_training_cut(torch, mode, device=device, model=model)
-  print(f"[time] phase 21 (a, b): {time.perf_counter() - t0:.1f} s", flush=True)
+  t1 = time.perf_counter()
+  for mode in ("full", "lora"):
+    check_training_cut(torch, mode, device=device, model="gemma-2-2b", hf_config=GEMMA_CONFIG)
+  print(f"[time] phase 21 (a, b): {time.perf_counter() - t0:.1f} s, the gemma-2-2b cut "
+        f"{time.perf_counter() - t1:.1f} s of it", flush=True)
   run = drive_training(torch, card, device=device, model=model)
   launches = dict(run["launches"])
   for name, n in drive_training_ring(torch, card, device=device, model=model).items():

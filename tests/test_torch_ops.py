@@ -287,6 +287,36 @@ def test_flash_attention_refuses_tiles_it_cannot_launch(monkeypatch, block_q, bl
   assert flash_attention.flash_attention.launches == 0
 
 
+def _entry_points(source: str) -> dict:
+  """{name: [parameter kind, ...]} of the extern "C" functions of a CUDA source: a
+  pointer is c_void_p, an int c_int, a float c_float."""
+  import ctypes
+  import re
+  kinds = {}
+  for name, params in re.findall(r'extern "C" int (\w+)\(([^)]*)\)', source):
+    row = []
+    for p in params.split(","):
+      p = " ".join(p.split())
+      row.append(ctypes.c_void_p if "*" in p else ctypes.c_float if p.startswith("float ")
+                 else ctypes.c_int if p.startswith("int ") else p)
+    kinds[name] = row
+  return kinds
+
+
+@pytest.mark.parametrize("name", ["flash_attention", "flash_attention_bwd", "flash_decode",
+                                  "paged_attention", "quant_matvec"])
+def test_ctypes_signatures_match_the_entry_points(name):
+  """Every extern "C" entry point of csrc/<name>.cu takes, in order, the kinds of
+  parameter _build.SIGNATURES gives ctypes (a mismatch would show only as corrupt
+  arguments on the card), and SIGNATURES names every entry point and no other."""
+  from xotorch_tpu_torch.ops import _build
+  assert name in _build.KERNELS
+  declared = _entry_points((_build.CSRC_DIR / f"{name}.cu").read_text())
+  assert declared and sorted(declared) == sorted(_build.SIGNATURES[name])
+  for fn, kinds in declared.items():
+    assert kinds == _build.SIGNATURES[name][fn], fn
+
+
 def test_lib_path_follows_the_shared_header(monkeypatch, tmp_path):
   """A library's name hashes its source, every csrc/*.cuh header and the flags: an
   edit to the shared tile core alone (attention_mma.cuh) names a new library, so a

@@ -210,13 +210,15 @@ def test_full_model_loss_and_gradients_match_jax(model):
   _close(step.make_eval_step(cfg)(pp, _pbatch(inputs, targets, lengths)), want, what="eval step")
 
 
-@pytest.mark.parametrize("groups,window,softcap,scale", [(1, 0, 0.0, None), (4, 0, 0.0, None),
-                                                         (2, 5, 0.0, None), (4, 4, 30.0, 0.3)])
-def test_attention_function_gradient_matches_jax(groups, window, softcap, scale):
+@pytest.mark.parametrize("groups,window,softcap,scale,D", [
+  (1, 0, 0.0, None, 16), (4, 0, 0.0, None, 16), (2, 5, 0.0, None, 16), (4, 4, 30.0, 0.3, 16),
+  (2, 4, 50.0, 1 / 16, 256)],  # gemma-2: head_dim 256, softcap 50, query_pre_attn_scalar 256
+  ids=["1-0-0.0-None", "4-0-0.0-None", "2-5-0.0-None", "4-4-30.0-0.3", "gemma2-D256"])
+def test_attention_function_gradient_matches_jax(groups, window, softcap, scale, D):
   """K1's autograd Function (its plain versions on the CPU) against jax.grad of JAX's
   gqa_attention, the same cotangent."""
   rng = np.random.default_rng(groups * 10 + window)
-  B, T, Hkv, D = 2, 11, 2, 16
+  B, T, Hkv = 2, 11, 2
   q_, k_, v_ = (rng.standard_normal((B, T, h, D)).astype(np.float32) for h in (Hkv * groups, Hkv, Hkv))
   w = rng.standard_normal((B, T, Hkv * groups, D)).astype(np.float32)
   pos = jnp.broadcast_to(jnp.arange(T, dtype=jnp.int32)[None], (B, T))
@@ -240,14 +242,67 @@ def test_attention_function_gradient_matches_jax(groups, window, softcap, scale)
 
 
 def test_bwd_wrapper_refuses_what_k1b_is_not_built_for():
-  x = torch.zeros(1, 4, 2, 256, dtype=torch.bfloat16, device="meta")
-  with pytest.raises(ValueError, match="head_dim"):
-    fa.flash_attention_bwd(x, x, x, x, x)
+  """K1b is built for every head width K1 serves, gemma-2's 256 included: a width
+  outside its builds, a missing or mistyped log-sum-exp and a non-bf16 input are refused
+  before the device is looked at; what it takes stops at the device check."""
+  lse = torch.zeros(1, 4, 2, dtype=torch.float32, device="meta")
+  for D in (48, 512):
+    x = torch.zeros(1, 4, 2, D, dtype=torch.bfloat16, device="meta")
+    with pytest.raises(ValueError, match="head_dim"):
+      fa.flash_attention_bwd(x, x, x, x, x, lse)
+    with pytest.raises(ValueError, match="head_dim"):
+      fa.check_bwd_head_dim(D)
   y = torch.zeros(1, 4, 2, 64, dtype=torch.float32, device="meta")
   with pytest.raises(ValueError, match="bf16"):
-    fa.flash_attention_bwd(y, y, y, y, y)
-  with pytest.raises(ValueError, match="head_dim"):
-    fa.check_bwd_head_dim(256)
+    fa.flash_attention_bwd(y, y, y, y, y, lse)
+  x = torch.zeros(1, 4, 2, 256, dtype=torch.bfloat16, device="meta")
+  with pytest.raises(ValueError, match="lse"):
+    fa.flash_attention_bwd(x, x, x, x, x)
+  with pytest.raises(ValueError, match="lse must be contiguous float32"):
+    fa.flash_attention_bwd(x, x, x, x, x, lse.bfloat16())
+  fa.check_bwd_head_dim(256)
+  with pytest.raises(ValueError, match="cuda or cpu"):
+    fa.flash_attention_bwd(x, x, x, x, x, lse)
+  assert fa.flash_attention_bwd.launches == 0
+
+
+@pytest.mark.parametrize("groups,window,softcap,scale,empty_row", [
+  (1, 0, 0.0, None, False), (4, 0, 0.0, None, False), (4, 5, 0.0, None, False),
+  (2, 0, 30.0, 0.3, False), (2, 4, 50.0, 1 / 16, True)])
+def test_flash_attention_lse_ref_matches_jax(groups, window, softcap, scale, empty_row):
+  """K1's log-sum-exp output, plain version, against jax.nn.logsumexp of JAX's masked
+  gqa_attention scores (in base 2), from the same numpy inputs. A row with no visible key
+  (batch row 1 with kv_valid_len 0, through gqa_attention_lse) is +inf."""
+  from xotorch_tpu_torch.ops.attention import gqa_attention_lse
+  rng = np.random.default_rng(groups * 100 + window)
+  B, T, Hkv, D = 2, 13, 2, 16
+  q_ = rng.standard_normal((B, T, Hkv * groups, D)).astype(np.float32) * 3
+  k_ = rng.standard_normal((B, T, Hkv, D)).astype(np.float32)
+  valid = np.array([T, 0 if empty_row else T], np.int32)
+  # JAX's scores, as xotorch_tpu/ops/attention.py::gqa_attention builds and masks them.
+  qj = jnp.asarray(q_).reshape(B, T, Hkv, groups, D)
+  scores = jnp.einsum("btkgd,bskd->bkgts", qj, jnp.asarray(k_)) * jnp.float32(
+    scale if scale is not None else D ** -0.5)
+  if softcap:
+    scores = jnp.tanh(scores / softcap) * softcap
+  pos = jnp.arange(T)
+  visible = (pos[None, None, :] <= pos[None, :, None]) & (pos[None, None, :] < jnp.asarray(valid)[:, None, None])
+  if window:
+    visible = visible & (pos[None, None, :] > pos[None, :, None] - window)
+  want = jax.nn.logsumexp(jnp.where(visible[:, None, None], scores, -jnp.inf), axis=-1) / np.log(2.0)
+  want = np.asarray(want).transpose(0, 3, 1, 2).reshape(B, T, Hkv * groups)
+  tq, tk = torch.from_numpy(q_), torch.from_numpy(k_)
+  if empty_row:
+    got = gqa_attention_lse(tq, tk, torch.arange(T)[None].expand(B, T), torch.from_numpy(valid),
+                            scale=scale, softcap=softcap, window=window)
+    assert torch.isinf(got[1]).all() and (got[1] > 0).all()
+    assert np.isneginf(want[1]).all()  # JAX's logsumexp of nothing; K1 and its reference store +inf
+    got, want = got[:1], want[:1]
+  else:
+    got = fa.flash_attention_lse_ref(tq, tk, window=window, softcap=softcap, scale=scale)
+    assert torch.equal(fa.flash_attention(tq, tk, tk, window=window, softcap=softcap, scale=scale,
+                                          lse=True)[1], got)
+  _close(got, want, what="lse")
 
 
 def test_two_shards_match_one_and_jax():
@@ -537,20 +592,23 @@ async def test_engine_refusals(monkeypatch):
 
 
 def test_training_on_the_card_refuses_head_dims_k1b_lacks():
-  """On the card a head_dim outside K1b's builds (gemma-2's 256) is refused before any
-  step; evaluation runs K1 alone, which serves it."""
+  """On the card a head_dim outside K1b's builds is refused before any step; evaluation
+  runs K1 alone. gemma-2's 256 is built, so gemma-2 trains on the card."""
   from types import SimpleNamespace
   eng = TorchShardInferenceEngine(device="cpu", seed=7)
   try:
     eng.device = torch.device("cuda")  # decided from the engine's device, before any tensor moves
     ctx = SimpleNamespace(shard=Shard("g", 0, 1, 2), params={"layers": {}},
-                          cfg=SimpleNamespace(is_moe=False, is_multimodal=False, head_dim=256))
-    with pytest.raises(ValueError, match="g: training: the attention gradient kernel K1b is built "
-                                         "for head_dim"):
+                          cfg=SimpleNamespace(is_moe=False, is_multimodal=False, head_dim=48))
+    for head_dim in (48, 512):
+      ctx.cfg.head_dim = head_dim
+      with pytest.raises(ValueError, match="g: training: the attention gradient kernel K1b is built "
+                                           "for head_dim"):
+        eng._check_example(ctx, train=True)
+      eng._check_example(ctx, train=False)
+    for head_dim in (128, 256):
+      ctx.cfg.head_dim = head_dim
       eng._check_example(ctx, train=True)
-    eng._check_example(ctx, train=False)
-    ctx.cfg.head_dim = 128
-    eng._check_example(ctx, train=True)
   finally:
     eng.executor.shutdown(wait=True)
 

@@ -31,7 +31,8 @@
 //     from ldmatrix.trans, so V stays [keys, D] in shared memory.
 // Tiles are double-buffered: cp.async.cg 16-byte copies of tile j + 1 land while tile j
 // is computed (commit_group / wait_group). The epilogue keeps JAX's l == 0 -> 1 guard
-// and rounds acc / l once to bf16.
+// and rounds acc / l once to bf16; for K1's training forward it also writes each row's
+// log-sum-exp (RowTile::lse), which the gradient kernels of flash_attention_bwd.cu read.
 //
 // Head width 256 (gemma-2's): a warp's 16 x 256 fp32 O accumulator alone takes 128
 // registers a thread, so the Q fragments (64 more) do not stay in registers beside it.
@@ -128,14 +129,18 @@ __device__ __forceinline__ float exp2_fast(float x) {  // 2^x; 2^-inf = 0
 
 // The query rows one block holds: rows [row0, row0 + ROWS) of the flattened index
 // t * groups + g of batch row b and kv head kvh, over q/o [B, T, Hq, D] (Hq = Hkv *
-// groups); query t sits at absolute position start + t.
+// groups); query t sits at absolute position start + t. lse, when not null, receives each
+// row's log-sum-exp [B, T, Hq] (fp32, base 2: see attend's epilogue); K1's training
+// instantiation passes it, and every serving kernel leaves it null, a constant there, so
+// that its code is that of a tile core without the output.
 struct RowTile {
   const __nv_bfloat16* q;
   __nv_bfloat16* o;
   int T, Hq, groups, kvh, b, row0, start;
+  float* lse = nullptr;
 };
 
-// Offset of a row's head vector in q/o, in units of D.
+// Offset of a row's head vector in q/o, in units of D (and the row's index in lse).
 __device__ __forceinline__ size_t row_vector(const RowTile& rt, int row) {
   return ((size_t)rt.b * rt.T + row / rt.groups) * rt.Hq + (size_t)rt.kvh * rt.groups +
          row % rt.groups;
@@ -491,6 +496,14 @@ __device__ __forceinline__ void attend(const RowTile& rt, unsigned char* smem, i
   for (int off = 1; off <= 2; off <<= 1) {
     la += __shfl_xor_sync(0xffffffffu, la, off);
     lb += __shfl_xor_sync(0xffffffffu, lb, off);
+  }
+  // The log-sum-exp in the loop's base-2 units: lse = m + log2(l) over the scaled (and
+  // soft-capped) scores times log2(e), so that a gradient kernel rebuilds each P as
+  // exp2(score * log2(e) - lse). A row with no visible key gets +inf: every P it
+  // rebuilds is then exactly 0.
+  if (rt.lse != nullptr && active && (lane & 3) == 0) {
+    if (ra <= r_last) rt.lse[row_vector(rt, ra)] = la > 0.f ? ma + log2f(la) : INFINITY;
+    if (rb <= r_last) rt.lse[row_vector(rt, rb)] = lb > 0.f ? mb + log2f(lb) : INFINITY;
   }
   const float ia = 1.f / (la == 0.f ? 1.f : la);
   const float ib = 1.f / (lb == 0.f ? 1.f : lb);

@@ -35,7 +35,7 @@ P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
 # C signatures of the entry points, by source name.
 SIGNATURES = {
   "flash_attention": {
-    "xot_flash_attention_bf16": [P, P, P, P, I, I, I, I, I, I, I, I, F, F, P],
+    "xot_flash_attention_bf16": [P, P, P, P, P, I, I, I, I, I, I, I, I, F, F, P],
   },
   "flash_attention_bwd": {
     "xot_flash_attention_bwd_bf16": [P, P, P, P, P, P, P, P, P, P, I, I, I, I, I, I, F, F, P],
@@ -62,6 +62,7 @@ SIGNATURES = {
 
 _lock = threading.Lock()
 _libs: Dict[str, ctypes.CDLL] = {}
+LOGS: Dict[str, str] = {}  # nvcc's output by source, from builds made in this process
 
 
 def nvcc_path() -> str:
@@ -104,6 +105,7 @@ def build(names: Iterable[str] = KERNELS, verbose: bool = False) -> List[Path]:
     if proc.returncode != 0:
       failed.append(f"{name}: nvcc exited {proc.returncode}\n{log}")
       continue
+    LOGS[name] = log
     if verbose and log:
       print(f"[nvcc {name}]\n{log}")
     os.replace(tmp, out)
