@@ -271,9 +271,26 @@ Phases, in order; any failure exits nonzero and prints no result line:
      forwards and K1b = 16 x steps exactly, step ms, tokens/s, peak memory; (d) two Nodes
      over TCP split 8/8 train two steps entering at the peer without layer 0: losses and
      updated adapters within 2^-7 of one peer's, SendExample frames and bytes a step;
-  22. the {"kernels": [...]} line (attention launches include phases 12's, 14's, 15's,
-     16's, 18's, 19's, 20's and 21's; K6's phase 19's too, K5's phase 20's; K1b's phase
-     21's main-path runs, (c) and (d)), then the {"ok": true, ...} line last.
+  22. the front door (check_front_door): `python -m xotorch_tpu_torch.router
+     --fleet-template` over three `python -m xotorch_tpu_torch.main` replicas, each its
+     own process and discovery domain, serving synthetic-llama-1b's config and seeded
+     weights at full width and depth from a checkpoint with a word-level tokenizer (as
+     the llama-3.2-1b card): P (XOT_FABRIC_ROLE=prefill), D1 (contiguous) and D2
+     (XOT_PAGED_KV=1), each with the host tier on and XOT_FABRIC_PEERS naming the other
+     two, and two references configured as D1 and D2 without the fabric. (a) Three
+     requests of one `user` land on D1 and equal its direct answer; (b) a 2104-token
+     prompt served and spilled on D1 is fetched by D2 over /v1/kv (D2's fabric hits +1,
+     its fabric bytes + the entry's), streaming the reference's cold tokens up to a near
+     tie (the logprobs it reported), both TTFTs and the fetch's seconds printed; (c) a
+     request prefilled on P and chained to D1 through /v1/kv/offer (the router's
+     fabric_chained_total +1, D1's fabric hits +1), its stream the reference's; (d) D1
+     SIGKILLed: four requests meanwhile answer 200 from D2, the fleet controller
+     respawns D1, the router announces its recent prompts there and D1 streams (a)'s
+     answer again; every process stopped, the replicas' K1-K4 launches read from their
+     shutdown lines;
+  23. the {"kernels": [...]} line (attention launches include phases 12's, 14's, 15's,
+     16's, 18's, 19's, 20's, 21's and 22's; K6's phase 19's too, K5's phase 20's; K1b's
+     phase 21's main-path runs, (c) and (d)), then the {"ok": true, ...} line last.
 """
 from __future__ import annotations
 
@@ -7440,6 +7457,380 @@ def check_training(torch, card: str, results: dict, device: str = "cuda",
   return launches
 
 
+# Phase 22: the front door. Its replicas serve synthetic-llama-1b's config and seeded
+# weights written as the llama-3.2-1b card's checkpoint with a word-level tokenizer: the
+# synthetic card's stand-in tokenizer gives every word one id, and every prompt would
+# then share every other's head.
+FRONT_CARD = "llama-3.2-1b"
+FRONT_POLL_S = 0.5  # the router's poll (XOT_ROUTER_POLL_S)
+FRONT_DEAD_POLLS = 3  # XOT_FLEET_DEAD_POLLS
+FRONT_BOOT_S = 240.0  # XOT_FLEET_BOOT_TIMEOUT_S, and the wait for a replica to serve
+FRONT_LONG_WORDS = 2100  # (b)'s prompt: 2104 tokens with the template, 16 whole pages of 128
+FRONT_WORDS = 300  # (c)'s prompt
+FRONT_TIE_LP = 0.05  # a near tie: the two tokens' logprobs within this many nats, as the
+                     # reference reported them (bf16 logits round at ~2^-8 of their size)
+FRONT_KERNELS = ("flash_attention", "flash_cached_attention", "paged_decode_attention",
+                 "paged_prefill_attention")
+
+
+def front_words(seed: int, n: int) -> str:
+  """n seeded words of the word-level tokenizer's vocabulary (w0-w96): one token each."""
+  import numpy as np
+  return " ".join(f"w{i}" for i in np.random.default_rng(seed).integers(0, 97, n))
+
+
+def front_body(words: str, max_tokens: int = 16, user: Optional[str] = None, stream: bool = True,
+               logprobs: bool = False) -> dict:
+  body = {"model": FRONT_CARD, "messages": [{"role": "user", "content": words}],
+          "max_tokens": max_tokens, "temperature": 0, "stream": stream}
+  if user is not None:
+    body["user"] = user
+  if logprobs:
+    body.update(logprobs=True, top_logprobs=2)
+  return body
+
+
+def front_stream(url: str, body: dict) -> dict:
+  """A streamed completion: its text, its tokens' logprob items (when asked) and TTFT."""
+  events, first, _ = http_stream(url + "/v1/chat/completions", body)
+  text = "".join(c.get("delta", {}).get("content") or "" for ev in events for c in ev.get("choices", []))
+  items = [it for ev in events for c in ev.get("choices", [])
+           for it in ((c.get("logprobs") or {}).get("content") or [])]
+  return {"text": text, "items": items, "ttft_s": first}
+
+
+def front_agree(tag: str, want: dict, got: dict, card: str) -> None:
+  """`got`'s tokens against `want`'s (each a front_stream with logprobs): equal, or equal
+  up to a first divergence where `want` reported both tokens within FRONT_TIE_LP of each
+  other (the KV each side attended to was computed by different kernels)."""
+  a, b = [it["token"] for it in want["items"]], [it["token"] for it in got["items"]]
+  if not a or len(a) != len(b):
+    raise AssertionError(f"front door: {tag}: {len(b)} tokens against {len(a)}")
+  first = next((i for i in range(len(a)) if a[i] != b[i]), None)
+  if first is None:
+    print(f"[front door] {tag}: streams identical ({len(a)} tokens) ok", flush=True)
+    return
+  tops = {t["token"]: t["logprob"] for t in want["items"][first]["top_logprobs"]}
+  gap = abs(tops[a[first]] - tops[b[first]]) if b[first] in tops and a[first] in tops else math.inf
+  ok = gap <= FRONT_TIE_LP
+  print(f"[front door] {tag}: streams part at token {first} of {len(a)} ({a[first]} / {b[first]}), "
+        f"logprob gap {gap:.4g} against the near-tie bound {FRONT_TIE_LP} "
+        f"{'(a near tie) ok' if ok else 'FAIL'} ({card})", flush=True)
+  if not ok:
+    raise AssertionError(f"front door: {tag} parts at {first} where the tokens do not tie")
+
+
+def front_metrics(url: str) -> dict:
+  samples = prom_samples(http_text(url + "/metrics"))
+  return {k: prom_family(samples, f"xot_kv_fabric_{k}_total") for k in ("hits", "misses", "errors", "bytes")}
+
+
+def front_slots(tmp: str, home: str, device: str) -> dict:
+  """The replicas' slots (fleet/__init__.load_template's shape): P (XOT_FABRIC_ROLE
+  prefill), D1 (contiguous), D2 (XOT_PAGED_KV=1), each naming the other two in
+  XOT_FABRIC_PEERS; and two references outside the template, D1r and D2r, configured as
+  D1 and D2 with no fabric: their streams are the cold ones."""
+  from xotorch_tpu_torch.utils.helpers import find_available_port
+  from xotorch_tpu_torch.topology.device_capabilities import device_capabilities_sync
+  caps = device_capabilities_sync().to_dict()
+  names = ("P", "D1", "D2", "D1r", "D2r")
+  api = {n: find_available_port("127.0.0.1") for n in names}
+  urls = {n: f"http://127.0.0.1:{api[n]}" for n in names}
+  slots = {}
+  for n in names:
+    node_port = find_available_port("127.0.0.1")
+    cfg = os.path.join(tmp, f"{n}.json")
+    write_ring_config(cfg, {n: node_port}, caps)  # a discovery domain of its own
+    peers = ",".join(urls[m] for m in ("P", "D1", "D2") if m != n) if n in ("P", "D1", "D2") else ""
+    slots[n] = {
+      "name": n, "url": urls[n], "active": True, "log": os.path.join(tmp, f"{n}.log"),
+      "argv": [sys.executable, "-m", "xotorch_tpu_torch.main", "--device", device,
+               "--default-model", FRONT_CARD, "--node-id", n, "--node-host", "127.0.0.1",
+               "--node-port", str(node_port), "--chatgpt-api-host", "127.0.0.1",
+               "--chatgpt-api-port", str(api[n]), "--chatgpt-api-response-timeout", "600",
+               "--discovery-module", "manual", "--discovery-config-path", cfg,
+               "--default-temp", "0", "--max-generate-tokens", "64"],
+      "env": {"XOT_HOME": home, "DEBUG": "1", "PYTHONUNBUFFERED": "1", "XOT_ALERT": "0",
+              "XOT_PREFIX_CACHE": "2", "XOT_PREFIX_CACHE_MIN": "32", "XOT_PREFILL_COSCHED": "1",
+              "XOT_KV_HOST_BYTES": str(512 << 20), "XOT_PREFILL_CHUNK": "4096",
+              "XOT_PAGED_KV": "1" if n.startswith("D2") else "0",
+              "XOT_FABRIC_ROLE": "prefill" if n == "P" else "mixed", "XOT_FABRIC_PEERS": peers}}
+  return slots
+
+
+def front_wait(urls: dict, procs: dict, timeout: float, tag: str) -> float:
+  t0 = time.perf_counter()
+  pending = set(urls)
+  while pending:
+    for n in sorted(pending):
+      if n in procs and procs[n].poll() is not None:
+        raise AssertionError(f"front door: {tag}: {n} exited {procs[n].returncode} while starting")
+      try:
+        if http_json(urls[n] + "/healthcheck", timeout=5).get("status") == "ok":
+          pending.discard(n)
+      except OSError:
+        pass
+    if pending and time.perf_counter() - t0 > timeout:
+      raise AssertionError(f"front door: {tag}: {sorted(pending)} not serving after {timeout:.0f} s")
+    time.sleep(0.25)
+  return time.perf_counter() - t0
+
+
+def _pid_gone(pid: int) -> bool:
+  """True when `pid` has exited (gone, or a zombie its parent has not reaped)."""
+  try:
+    with open(f"/proc/{pid}/stat") as f:
+      return f.read().rsplit(")", 1)[1].split()[0] == "Z"
+  except OSError:
+    return True
+
+
+def check_front_door(torch, card: str, device: str = "cuda", config: Optional[dict] = None) -> dict:
+  """Phase 22: the front door. `python -m xotorch_tpu_torch.router --fleet-template` over
+  three replicas (P, D1, D2; front_slots) serving synthetic-llama-1b's config and seeded
+  weights at full width and depth from a checkpoint; poll 0.5 s, the lifecycle's minimum
+  out-time 0, drift off. (a) three requests of one `user` land on one replica (D1) and
+  stream its direct answer; (b) a 2104-token prompt served on D1 and spilled to its host
+  tier by two more, then sent to D2: D2's fabric hits rise by 1 and its fabric bytes by
+  D1's entry's, its stream D2r's cold one under the near-tie rule, both TTFTs and the
+  fetch's seconds printed; (c) a request through the router prefilled on P and chained to
+  D1 through /v1/kv/offer: the router's fabric_chained_total and D1's fabric hits rise by
+  1, the stream D1r's cold one under the near-tie rule; (d) D1 SIGKILLed: requests sent
+  meanwhile all answer 200 (from D2), the controller respawns D1 within
+  FRONT_DEAD_POLLS x poll + boot, the router announces its recent prompts at the new D1,
+  which then serves (a)'s stream again. Every process stopped with SIGTERM and reaped;
+  returns P's, D1's and D2's K1-K4 launches (their shutdown lines)."""
+  import re
+  import signal
+  import tempfile
+  from pathlib import Path
+  from xotorch_tpu_torch.models.registry import get_model_card, get_repo
+  from xotorch_tpu_torch.router import rendezvous
+  from xotorch_tpu_torch.utils.helpers import find_available_port
+  started = time.perf_counter()
+  config = config or get_model_card("synthetic-llama-1b")["synthetic_config"]
+  procs, logs, texts, respawned = {}, {}, {}, []
+  out = {}
+  with tempfile.TemporaryDirectory() as tmp:
+    home = os.path.join(tmp, "home")
+    model_dir = os.path.join(home, "models", get_repo(FRONT_CARD, "TorchShardInferenceEngine").replace("/", "--"))
+    t0 = time.perf_counter()
+    write_index(Path(model_dir), write_text_checkpoint(torch, model_dir, config, FRONT_CARD, 1,
+                                                       device=device))
+    gc.collect()
+    if device == "cuda":
+      torch.cuda.empty_cache()
+    print(f"[front door] checkpoint written in {time.perf_counter() - t0:.1f} s", flush=True)
+    slots = front_slots(tmp, home, device)
+    urls = {n: s["url"] for n, s in slots.items()}
+    template = os.path.join(tmp, "fleet.json")
+    with open(template, "w") as f:
+      json.dump({"slots": [slots[n] for n in ("P", "D1", "D2")]}, f)
+    router_port = find_available_port("127.0.0.1")
+    router = f"http://127.0.0.1:{router_port}"
+    try:
+      for n, s in slots.items():
+        with open(s["log"], "ab") as log:
+          procs[n] = subprocess.Popen(s["argv"], cwd=ROOT, env={**os.environ, **s["env"]},
+                                      stdout=log, stderr=subprocess.STDOUT)
+      boot = front_wait(urls, procs, FRONT_BOOT_S, "boot")
+      # Each replica loads its model and tokenizer on a first request of 12 tokens (under
+      # XOT_PREFIX_CACHE_MIN: nothing cached, nothing exported), as a deployment warms up
+      # before it takes traffic; then the prompt lengths measured below run once on each
+      # (prompts of their own, with logprobs), so that no first use of a shape falls in a
+      # TTFT.
+      from concurrent.futures import ThreadPoolExecutor
+      t0 = time.perf_counter()
+      with ThreadPoolExecutor(len(urls)) as pool:
+        list(pool.map(lambda u: http_json(u + "/v1/chat/completions",
+                                          front_body(front_words(20, 8), 2, stream=False)),
+                      urls.values()))
+        for i, n in enumerate((FRONT_LONG_WORDS, FRONT_WORDS)):
+          list(pool.map(lambda j: http_json(list(urls.values())[j] + "/v1/chat/completions",
+                                            front_body(front_words(40 + 10 * i + j, n), 2,
+                                                       stream=False, logprobs=True)),
+                        range(len(urls))))
+      warmed = time.perf_counter() - t0
+      logs["router"] = os.path.join(tmp, "router.log")
+      with open(logs["router"], "ab") as log:
+        procs["router"] = subprocess.Popen(
+          [sys.executable, "-m", "xotorch_tpu_torch.router", "--fleet-template", template,
+           "--host", "127.0.0.1", "--port", str(router_port), "--router-id", "smoke-router"],
+          cwd=ROOT, stdout=log, stderr=subprocess.STDOUT,
+          env={**os.environ, "DEBUG": "1", "PYTHONUNBUFFERED": "1",
+               "XOT_ROUTER_POLL_S": str(FRONT_POLL_S), "XOT_ROUTER_MIN_OUT_S": "0",
+               "XOT_ROUTER_DRIFT": "0", "XOT_ROUTER_PROBES": "2",
+               "XOT_FLEET_DEAD_POLLS": str(FRONT_DEAD_POLLS),
+               "XOT_FLEET_BOOT_TIMEOUT_S": str(FRONT_BOOT_S), "XOT_FLEET_WARM_PREFIXES": "4"})
+      front_wait({"router": router}, procs, 60, "router")
+      for _ in range(200):
+        st = http_json(router + "/v1/router")
+        if st["routable"] == ["D1", "D2"] and st["prefill_replicas"] == ["P"]:
+          break
+        time.sleep(0.1)
+      else:
+        raise AssertionError(f"front door: the router sees {st['routable']}, {st['prefill_replicas']}")
+      print(f"[front door] five replicas serving {boot:.1f} s after launch, warm {warmed:.1f} s "
+            f"later; the router routes "
+            f"{st['routable']}, chains through {st['prefill_replicas']} ({card})", flush=True)
+
+      # (a) Affinity: a `user` whose rendezvous pick is D1.
+      user = next(f"user-{i}" for i in range(100) if rendezvous(f"user:user-{i}", ["D1", "D2"]) == "D1")
+      body_a = front_body(front_words(21, 40), stream=False, user=user)
+      before = http_json(router + "/v1/router")["replicas"]
+      answers = [http_json(router + "/v1/chat/completions", body_a)["choices"][0]["message"]["content"]
+                 for _ in range(3)]
+      after = http_json(router + "/v1/router")["replicas"]
+      routed = {n: after[n]["routed_total"] - before[n]["routed_total"] for n in ("D1", "D2")}
+      direct = http_json(urls["D1"] + "/v1/chat/completions", body_a)["choices"][0]["message"]["content"]
+      ok = routed == {"D1": 3, "D2": 0} and answers == [direct] * 3 and direct
+      print(f"[front door] (a) three requests of user {user}: routed {routed}, streams equal to "
+            f"D1's direct answer {'ok' if ok else 'FAIL'}", flush=True)
+      if not ok:
+        raise AssertionError(f"front door: (a) routed {routed}, answers {answers} against {direct!r}")
+
+      # (b) A long prompt served and spilled on D1, then fetched by D2.
+      long_words = front_words(22, FRONT_LONG_WORDS)
+      for words in (long_words, front_words(31, 60), front_words(32, 60)):
+        http_json(urls["D1"] + "/v1/chat/completions", front_body(words, 2, stream=False))
+      ids = http_json(urls["D1"] + "/v1/chat/token/encode", front_body(long_words))["encoded_tokens"]
+      shard = f"{FRONT_CARD}:0:{config['num_hidden_layers'] - 1}:{config['num_hidden_layers']}"
+      match = http_json(urls["D1"] + "/v1/kv/match", {"shard": shard, "toks": ids})
+      if not match.get("key") or match["common"] != len(ids) - 1:
+        raise AssertionError(f"front door: (b) D1 holds no spilled entry for the prompt: {match}")
+      man = http_json(urls["D1"] + f"/v1/kv/{match['key']}")
+      entry_bytes = sum(leaf["nbytes"] for leaf in man["leaves"]) + 8 * man["n_toks"]
+      cold = front_stream(urls["D2r"], front_body(long_words, logprobs=True))
+      m0 = front_metrics(urls["D2"])
+      warm = front_stream(urls["D2"], front_body(long_words, logprobs=True))
+      m1 = front_metrics(urls["D2"])
+      delta = {k: m1[k] - m0[k] for k in m0}
+      events = http_json(urls["D2"] + "/v1/debug/flight?live=all")["events"]
+      fetch = [e for e in events if e["event"] == "fabric.fetch"]
+      restore = [e for e in events if e["event"] == "host.restore" and e.get("source") == "fabric"]
+      secs = fetch[-1].get("secs") if fetch else None
+      served = [e for e in http_json(urls["D1"] + "/v1/debug/flight?live=all")["events"]
+                if e["event"] == "fabric.serve"]
+      out["serve_secs"] = served[-1].get("secs") if served else None
+      ok = delta["hits"] == 1 and delta["bytes"] == entry_bytes and delta["errors"] == 0 and fetch
+      out["fetch"] = {"bytes": entry_bytes, "secs": secs, "ttft_cold_s": cold["ttft_s"],
+                      "ttft_warm_s": warm["ttft_s"], "tokens": len(ids)}
+      print(f"[front door] (b) {len(ids)}-token prompt spilled on D1 ({man['length']} tokens, "
+            f"{entry_bytes} bytes), fetched by D2: fabric {delta}, fetch {secs} s "
+            f"({entry_bytes / secs / 1e9 if secs else float('nan'):.3f} GB/s; D1 packed it in "
+            f"{out['serve_secs']} s), restore "
+            f"{restore[-1].get('secs') if restore else None} s; TTFT cold (D2r) "
+            f"{cold['ttft_s'] * 1e3:.1f} ms, fabric-warm (D2) {warm['ttft_s'] * 1e3:.1f} ms "
+            f"({card}) {'ok' if ok else 'FAIL'}", flush=True)
+      if not ok:
+        raise AssertionError(f"front door: (b) fabric {delta}, entry {entry_bytes} bytes, fetch {fetch}")
+      front_agree("(b) D2's fabric-warm stream against D2r's cold one", cold, warm, card)
+
+      # (c) Disaggregation: prefilled on P, chained to D1 (the user's affinity pick).
+      words_c = front_words(23, FRONT_WORDS)
+      cold_c = front_stream(urls["D1r"], front_body(words_c, logprobs=True))
+      r0, d0 = http_json(router + "/v1/router"), front_metrics(urls["D1"])
+      chained = front_stream(router, front_body(words_c, user=user, logprobs=True))
+      r1, d1 = http_json(router + "/v1/router"), front_metrics(urls["D1"])
+      rise = (r1["fabric_chained_total"] - r0["fabric_chained_total"], d1["hits"] - d0["hits"],
+              r1["replicas"]["D1"]["routed_total"] - r0["replicas"]["D1"]["routed_total"])
+      ok = rise == (1, 1, 1)
+      print(f"[front door] (c) prefill on P chained to D1: chained, D1's fabric hits, D1's routed "
+            f"rose by {rise}; TTFT chained {chained['ttft_s'] * 1e3:.1f} ms, D1r cold "
+            f"{cold_c['ttft_s'] * 1e3:.1f} ms ({card}) {'ok' if ok else 'FAIL'}", flush=True)
+      if not ok:
+        raise AssertionError(f"front door: (c) chained, hits, routed rose by {rise}")
+      front_agree("(c) the chained stream against D1r's cold one", cold_c, chained, card)
+      out["ttft_chained_s"] = chained["ttft_s"]
+
+      # (d) Failover and respawn.
+      st0 = http_json(router + "/v1/router")
+      t_kill = time.perf_counter()
+      procs["D1"].send_signal(signal.SIGKILL)
+      procs["D1"].wait(timeout=60)
+      body_d = {**body_a, "max_tokens": 8}
+      codes = []
+      for _ in range(4):
+        try:
+          http_json(router + "/v1/chat/completions", body_d)
+          codes.append(200)
+        except Exception as e:
+          codes.append(getattr(e, "code", repr(e)))
+      t_respawn = t_back = None
+      while time.perf_counter() - t_kill < FRONT_DEAD_POLLS * FRONT_POLL_S + FRONT_BOOT_S:
+        st = http_json(router + "/v1/router")
+        if t_respawn is None and st["fleet"]["respawns_total"] >= 1:
+          t_respawn = time.perf_counter() - t_kill
+        if "D1" in st["routable"] and st["replicas"]["D1"]["state"] == "healthy":
+          t_back = time.perf_counter() - t_kill
+          break
+        time.sleep(0.1)
+      respawned = list((st["fleet"]["pids"] or {}).values())
+      served = st["replicas"]["D2"]["routed_total"] - st0["replicas"]["D2"]["routed_total"]
+      announced = st["prefetch_announced_total"] - st0["prefetch_announced_total"]
+      again = http_json(router + "/v1/chat/completions", body_a)["choices"][0]["message"]["content"]
+      st1 = http_json(router + "/v1/router")
+      routed_d1 = st1["replicas"]["D1"]["routed_total"] - st["replicas"]["D1"]["routed_total"]
+      ok = (codes == [200] * 4 and served >= 4 and t_back is not None and announced >= 1
+            and again == direct and routed_d1 == 1 and st["fleet"]["deaths_total"] == 1)
+      out["respawn"] = {"decided_s": t_respawn, "routable_s": t_back}
+      print(f"[front door] (d) D1 SIGKILLed: 4 requests meanwhile answered {codes} ({served} routed "
+            f"to D2); respawn decided {t_respawn} s after the kill (dead after {FRONT_DEAD_POLLS} "
+            f"polls of {FRONT_POLL_S} s), D1 routable again at {t_back} s; {announced} warm "
+            f"announces; D1's stream of (a) again {'equal' if again == direct else 'DIFFERENT'} "
+            f"({card}) {'ok' if ok else 'FAIL'}", flush=True)
+      if not ok:
+        raise AssertionError(f"front door: (d) codes {codes}, D2 {served}, back {t_back}, "
+                             f"announced {announced}, routed to D1 {routed_d1}, fleet {st['fleet']}")
+    finally:
+      for n, p in procs.items():
+        if p.poll() is None:
+          p.send_signal(signal.SIGTERM)
+      for pid in respawned:
+        try:
+          os.kill(pid, signal.SIGTERM)
+        except OSError:
+          pass
+      for p in procs.values():
+        try:
+          p.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+          p.kill()
+          p.wait(timeout=60)
+      deadline = time.perf_counter() + 60
+      while respawned and not all(_pid_gone(pid) for pid in respawned) and time.perf_counter() < deadline:
+        time.sleep(0.1)
+      for pid in respawned:
+        if not _pid_gone(pid):
+          os.kill(pid, signal.SIGKILL)
+      for n, path in [(n, s["log"]) for n, s in slots.items()] + list(logs.items()):
+        with open(path) as f:
+          texts[n] = f.read()
+  left = [n for n, p in procs.items() if p.poll() is None] + [pid for pid in respawned if not _pid_gone(pid)]
+  codes = {n: p.returncode for n, p in procs.items()}
+  ok = not left and all(c == 0 for n, c in codes.items() if n != "D1") and codes.get("D1") == -9
+  print(f"[front door] processes stopped: exit codes {codes}, respawned D1 {respawned}, none left "
+        f"{'ok' if ok else 'FAIL'}", flush=True)
+  if not ok:
+    tails = "\n".join(f"--- {n}\n{t[-2000:]}" for n, t in texts.items())
+    raise AssertionError(f"front door: left {left}, exit codes {codes}\n{tails}")
+  launches = {}
+  for n in ("P", "D1", "D2"):
+    found = re.findall(rf"^launches {n}: (\{{.*\}})$", texts[n], re.M)
+    if not found:
+      raise AssertionError(f"front door: {n} reported no launches\n{texts[n][-2000:]}")
+    launches[n] = {k: json.loads(found[-1]).get(k, 0) for k in FRONT_KERNELS}
+  need = {"P": ("flash_attention",), "D1": ("flash_attention", "flash_cached_attention"),
+          "D2": ("paged_decode_attention", "paged_prefill_attention")}
+  ok = all(launches[n][k] > 0 for n, ks in need.items() for k in ks) or device != "cuda"
+  print(f"[front door] K1-K4 launches by replica (D1 after its respawn): {launches} "
+        f"{'ok' if ok else 'FAIL'}; phase {time.perf_counter() - started:.1f} s ({card})", flush=True)
+  if not ok:
+    raise AssertionError(f"front door: launches {launches}, wanted {need} above 0")
+  out["launches"] = {k: sum(launches[n][k] for n in launches) for k in FRONT_KERNELS}
+  return out
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--kernels-only", action="store_true",
@@ -7663,7 +8054,14 @@ def main(argv=None) -> int:
     launches[name] = launches.get(name, 0) + n
   print(f"[time] phases 1-21: {time.perf_counter() - started:.1f} s", flush=True)
 
-  # Phase 22: results.
+  # Phase 22: the front door (the router over three replica processes: the KV fabric,
+  # prefill/decode chaining, failover and respawn); the replicas' K1-K4 launches join the
+  # results line.
+  for name, n in check_front_door(torch, card)["launches"].items():
+    launches[name] += n
+  print(f"[time] phases 1-22: {time.perf_counter() - started:.1f} s", flush=True)
+
+  # Phase 23: results.
   meta = {
     "flash_attention": ("xotorch_tpu_torch/csrc/flash_attention.cu",
                         "xotorch_tpu/ops/flash_attention.py:54"),

@@ -273,10 +273,30 @@ def test_port_imports_neither_jax_nor_the_jax_package():
           "xotorch_tpu_torch/networking/udp/discovery.py",
           "xotorch_tpu_torch/train/step.py",
           "xotorch_tpu_torch/train/optstate.py",
-          "xotorch_tpu_torch/train/dataset.py"} <= walked
+          "xotorch_tpu_torch/train/dataset.py",
+          "xotorch_tpu_torch/fabric/__init__.py",
+          "xotorch_tpu_torch/fabric/client.py",
+          "xotorch_tpu_torch/fabric/server.py",
+          "xotorch_tpu_torch/router/__init__.py",
+          "xotorch_tpu_torch/router/__main__.py",
+          "xotorch_tpu_torch/router/app.py",
+          "xotorch_tpu_torch/fleet/__init__.py",
+          "xotorch_tpu_torch/fleet/spawner.py",
+          "xotorch_tpu_torch/fleet/controller.py",
+          "xotorch_tpu_torch/api/http.py"} <= walked
   bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
          if name.split(".")[0] in ("jax", "jaxlib", "xotorch_tpu", "safetensors", "optax")]
   assert bad == []
+  # The card's machine is not known to have aiohttp: the router and the API speak the
+  # port's own HTTP (api/http.py), and the control plane (fabric, router, fleet) needs
+  # no torch either.
+  aio = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
+         if name.split(".")[0] == "aiohttp"]
+  assert aio == []
+  control = [f for f in files if f.parent.name in ("fabric", "router", "fleet")]
+  assert len(control) == 9
+  assert [(str(f.relative_to(ROOT)), name) for f in control for name in _imports(f)
+          if name.split(".")[0] == "torch"] == []
   # The card has no `transformers`: only resolving a Hugging Face tokenizer imports it,
   # inside the call.
   hf = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)

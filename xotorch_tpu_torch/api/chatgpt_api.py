@@ -47,7 +47,16 @@ The port of the serving core of xotorch_tpu/api/chatgpt_api.py on
   `partitions`, the ring's layer ranges for ?model= (default: the API's model);
 - GET, POST and DELETE /v1/debug/faults: the process-wide fault injector's state,
   installing one ({"rules": [...]}, the XOT_FAULT_SPEC rule shape) and removing it.
-  A test and soak surface: a deployment firewalls /v1/debug/* as it does /quit.
+  A test and soak surface: a deployment firewalls /v1/debug/* as it does /quit;
+- the KV fabric (fabric/): POST /v1/kv/match (a sibling's probe: the longest usable
+  host-tier prefix for its token ids, {"key": null} on a miss), GET /v1/kv/{key} (an
+  entry's manifest; with ?payload=1 its packed blob) and POST /v1/kv/offer (record a
+  peer's entry and start pulling it); under XOT_FABRIC_ROLE=prefill a completion is
+  prefilled, exported to the host tier and answered {"object": "kv.handle", ...}
+  (served normally when the export fails); /v1/queue reports the role;
+- GET /modelpool (server-sent events: each servable card's download status, then
+  [DONE]), GET /initial_models (the same as one JSON object) and GET or POST /quit
+  (answers, then interrupts the process as SIGINT does).
 
 Synthetic models use DummyTokenizer, with the model's own EOS id, as the dummy card does.
 """
@@ -57,15 +66,17 @@ import asyncio
 import json
 import math
 import os
+import signal
 import time
 import uuid
 from pathlib import Path
 from typing import Dict, List, NamedTuple, Optional, Tuple
-from urllib.parse import parse_qsl
 
+from xotorch_tpu_torch.api import http
 from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer, resolve_tokenizer, tokenizer_for_dir
 from xotorch_tpu_torch.models.registry import (build_base_shard, get_model_card, get_repo,
-                                               get_supported_models, registered_adapters)
+                                               get_supported_models, pretty_name,
+                                               registered_adapters)
 from xotorch_tpu_torch.networking import faults
 from xotorch_tpu_torch.orchestration.admission import AdmissionRejected
 from xotorch_tpu_torch.orchestration.anatomy import chrome_trace
@@ -75,12 +86,8 @@ from xotorch_tpu_torch.train.lora import adapter_checkpoint_files, validate_adap
 from xotorch_tpu_torch.utils import knobs
 from xotorch_tpu_torch.utils.helpers import DEBUG, spawn_detached
 
-REASONS = {200: "OK", 202: "Accepted", 400: "Bad Request", 404: "Not Found", 405: "Method Not Allowed",
-           429: "Too Many Requests", 500: "Internal Server Error"}
-
 # Engine counters /metrics appends (the JAX handler's table): the port engine's
-# attribute, family, help. The families of subsystems the port lacks (the KV fabric)
-# read 0, as the JAX package's do with that feature off.
+# attribute, family, help. An engine without the attribute (the dummy) reads 0.
 ENGINE_COUNTERS = (
   ("_prefix_hits", "xot_prefix_cache_hits_total", "Prefill prefix-cache hits"),
   ("_prefix_tokens_saved", "xot_prefix_tokens_saved_total", "Prompt tokens whose prefill was skipped"),
@@ -261,29 +268,15 @@ class ChatGPTAPI:
         pass
 
   async def _read_request(self, reader: asyncio.StreamReader) -> Tuple[str, str, dict, bytes]:
-    head = await reader.readuntil(b"\r\n\r\n")
-    lines = head.decode("latin-1").split("\r\n")
-    parts = lines[0].split(" ")
-    if len(parts) < 2:
-      raise _invalid(f"malformed request line {lines[0]!r}")
-    headers = {}
-    for line in lines[1:]:
-      if ":" in line:
-        key, value = line.split(":", 1)
-        headers[key.strip().lower()] = value.strip()
-    length = int(headers.get("content-length", "0") or 0)
-    body = await reader.readexactly(length) if length else b""
-    path, _, query = parts[1].partition("?")
-    return parts[0].upper(), path, dict(parse_qsl(query, keep_blank_values=True)), body
+    try:
+      method, path, query, body, _ = await http.read_request(reader)
+    except http.BadRequest as e:
+      raise _invalid(str(e)) from None
+    return method, path, query, body
 
   async def _write(self, writer: asyncio.StreamWriter, status: int, payload: bytes,
                    content_type: str, headers: Optional[dict] = None) -> None:
-    extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
-    writer.write((f"HTTP/1.1 {status} {REASONS.get(status, 'Error')}\r\n"
-                  f"Content-Type: {content_type}\r\n"
-                  f"Content-Length: {len(payload)}\r\n{extra}"
-                  "Connection: close\r\n\r\n").encode() + payload)
-    await writer.drain()
+    await http.write_response(writer, status, payload, content_type, headers)
 
   async def _write_json(self, writer: asyncio.StreamWriter, status: int, body: dict,
                         headers: Optional[dict] = None) -> None:
@@ -307,6 +300,22 @@ class ChatGPTAPI:
       await self._write_json(writer, 202, await self.handle_post_prefetch(body))
     elif path == "/v1/debug/faults":
       await self._write_json(writer, 200, self.handle_debug_faults(method, body))
+    elif path in ("/v1/kv/match", "/v1/kv/offer"):
+      if method != "POST":
+        raise HTTPError(405, {"detail": f"{method} not allowed on {path}"})
+      if path == "/v1/kv/match":
+        await self._write_json(writer, 200, await self.handle_post_kv_match(body))
+      else:
+        await self._write_json(writer, 202, self.handle_post_kv_offer(body))
+    elif path.startswith("/v1/kv/") and method == "GET":
+      await self.handle_get_kv(path[len("/v1/kv/"):], query, writer)
+    elif path == "/modelpool" and method == "GET":
+      await self._write(writer, 200, await self.handle_model_pool(), "text/event-stream")
+    elif path == "/initial_models" and method == "GET":
+      await self._write_json(writer, 200, await self.handle_get_initial_models())
+    elif path == "/quit" and method in ("GET", "POST"):
+      await self._write_json(writer, 200, {"detail": "Quit signal received"})
+      os.kill(os.getpid(), signal.SIGINT)
     elif path in ("/v1/trace/device/start", "/v1/trace/device/stop"):
       if method != "POST":
         raise HTTPError(405, {"detail": f"{method} not allowed on {path}"})
@@ -475,7 +484,7 @@ class ChatGPTAPI:
     cluster.update(self._peer_compacts("admission"))
     return {"node_id": self.node.id, "enabled": gate.enabled,
             "active_requests": len(self.node.outstanding_requests),
-            "fabric_role": "mixed",  # no KV fabric in the port: every node serves everything
+            "fabric_role": knobs.get_str("XOT_FABRIC_ROLE"),
             "admission": local, "cluster": cluster}
 
   def handle_get_topology(self, query: dict) -> dict:
@@ -552,6 +561,12 @@ class ChatGPTAPI:
 
     for attr, name, help_text in ENGINE_COUNTERS:
       extra.append(f"# HELP {name} {help_text}\n# TYPE {name} counter\n{name} {getattr(eng, attr, 0)}\n")
+    # Host-tier hits by origin (a local spill or a fabric import), labelled series of the
+    # family above: a replica warming itself and one warmed by a peer tell apart.
+    by_src = getattr(eng, "_host_hits_by_source", None)
+    if by_src:
+      extra.extend(f'xot_kv_host_hits_total{{source="{src}"}} {by_src[src]}\n'
+                   for src in sorted(by_src))
     stats = eng.page_pool_stats()
     if stats is not None:
       for key, name, help_text in (
@@ -765,6 +780,113 @@ class ChatGPTAPI:
     spawn_detached(self.node.prefetch_prompt(shard, prompt), self._tasks)
     return {"accepted": True, "model": model}
 
+  # ------------------------------------------------------------- KV fabric
+
+  def _host_kv_store(self):
+    """The engine's host KV tier, or None (the dummy engine, the tier off, nothing
+    spilled yet): the fabric serves from this tier only."""
+    return getattr(self.node.inference_engine, "_host_kv", None)
+
+  async def handle_post_kv_match(self, body: bytes) -> dict:
+    """A sibling's probe: the longest usable resident host-tier prefix for its token
+    ids. Body {shard, toks[, limit]}; a clean miss is {"key": null}."""
+    try:
+      data = json.loads(body or b"{}")
+    except (json.JSONDecodeError, UnicodeDecodeError):
+      raise _invalid("body must be JSON") from None
+    if (not isinstance(data, dict) or not isinstance(data.get("shard"), str)
+        or not isinstance(data.get("toks"), list) or not data["toks"]
+        or not all(isinstance(t, int) and not isinstance(t, bool) for t in data["toks"])):
+      raise _invalid("body must carry `shard` (string) and `toks` (list of ints)")
+    store = self._host_kv_store()
+    if store is None or len(store) == 0:
+      return {"key": None}
+    import numpy as np
+    from xotorch_tpu_torch.fabric import server as fabric_server
+    toks = np.asarray(data["toks"], dtype=np.int64)
+    limit = int(data.get("limit") or max(0, toks.shape[0] - 1))
+    return await asyncio.get_running_loop().run_in_executor(
+      None, fabric_server.match_response, store, data["shard"], toks, limit)
+
+  async def handle_get_kv(self, key: str, query: dict, writer: asyncio.StreamWriter) -> None:
+    """One content-addressed host-tier entry: its manifest, or with ?payload=1 its
+    packed blob. 404 for an unknown key (one evicted since a peer's probe too): the
+    peer prefills cold."""
+    store = self._host_kv_store()
+    if store is None or len(store) == 0:
+      raise HTTPError(404, {"detail": "no host KV tier resident"})
+    from xotorch_tpu_torch.fabric import server as fabric_server
+    loop = asyncio.get_running_loop()
+    if query.get("payload"):
+      t0 = time.monotonic()
+      # Packing is a host copy of up to tens of MB: off the event loop.
+      blob = await loop.run_in_executor(None, fabric_server.serve_entry, store, key)
+      if blob is None:
+        raise HTTPError(404, {"detail": f"unknown KV entry {key}"})
+      self.node.flight.record("fabric.serve", None, key=key[:16], bytes=len(blob),
+                              secs=round(time.monotonic() - t0, 4))
+      await self._write(writer, 200, blob, "application/octet-stream")
+      return
+    man = await loop.run_in_executor(None, fabric_server.manifest, store, key)
+    if man is None:
+      raise HTTPError(404, {"detail": f"unknown KV entry {key}"})
+    await self._write_json(writer, 200, man)
+
+  def handle_post_kv_offer(self, body: bytes) -> dict:
+    """A peer's announce: `url` holds a host-tier entry covering `tokens` of `model`'s
+    shard. Recorded in the engine's directory, and the pull starts at once, while the
+    chained request is still on its way. 202 means recorded, never fetched."""
+    try:
+      data = json.loads(body or b"{}")
+    except (json.JSONDecodeError, UnicodeDecodeError):
+      raise _invalid("body must be JSON") from None
+    if not isinstance(data, dict):
+      raise _invalid("body must be a JSON object")
+    model = self._resolve_model(data.get("model"))
+    shard = build_base_shard(model, self.inference_engine_classname)
+    if shard is None:
+      raise HTTPError(400, {"detail": f"Invalid model: {model}"})
+    tokens, url = data.get("tokens"), data.get("url")
+    if (not isinstance(tokens, list) or not tokens
+        or not all(isinstance(t, int) and not isinstance(t, bool) for t in tokens)
+        or not isinstance(url, str) or not url):
+      raise _invalid("an offer must carry `tokens` (list of ints) and `url`")
+    eng = self.node.inference_engine
+    offer = getattr(eng, "fabric_offer", None)
+    if offer is None:
+      return {"accepted": False, "detail": "engine has no KV fabric"}
+    cur = self.node.get_current_shard(shard)
+    accepted = bool(offer(cur, tokens, int(data.get("length") or len(tokens)),
+                          int(data.get("nbytes") or 0), url))
+    if accepted:
+      spawn_detached(eng.prefetch_fabric_offer(cur, tokens), self._tasks)
+    return {"accepted": accepted, "model": model}
+
+  # ------------------------------------------------------------ model pool
+
+  def _pool_models(self) -> List[str]:
+    return get_supported_models(self.inference_engine_classname)
+
+  async def _model_statuses(self, ids: List[str]) -> Dict[str, dict]:
+    """Each card's download status from a scan of the disk (off the event loop), with
+    its display name and layer count."""
+    from xotorch_tpu_torch.download.hf_shard_download import local_model_status
+    engine = self.inference_engine_classname
+    statuses = await asyncio.get_running_loop().run_in_executor(
+      None, lambda: {m: local_model_status(m, engine) for m in ids})
+    return {m: {"name": pretty_name(m), "layers": (get_model_card(m) or {}).get("layers"),
+                **statuses[m]} for m in ids}
+
+  async def handle_model_pool(self) -> bytes:
+    """/modelpool: one server-sent event {model_id: status} a servable card, then
+    [DONE] (the JAX handler's wire shape)."""
+    statuses = await self._model_statuses(self._pool_models())
+    events = [f"data: {json.dumps({m: s})}\n\n" for m, s in statuses.items()]
+    return ("".join(events) + "data: [DONE]\n\n").encode()
+
+  async def handle_get_initial_models(self) -> dict:
+    return await self._model_statuses(self._pool_models())
+
   async def handle_post_chat_token_encode(self, data: dict) -> dict:
     """Tokenize a chat request without running it: the prompt a completion would run
     (system prompt and tools included), as the JAX package answers."""
@@ -874,6 +996,22 @@ class ChatGPTAPI:
     messages = data.get("messages", [])
     images = check_images(model, messages)
     prompt, tokenizer = await self._request_prompt(model, messages, p.tools)
+
+    # Disaggregated serving (XOT_FABRIC_ROLE=prefill): prefill the prompt, export its KV
+    # to the host tier and answer a fabric handle, which the router offers at a decode
+    # replica. A failed export serves the request normally.
+    if knobs.get_str("XOT_FABRIC_ROLE") == "prefill" and not images:
+      export = getattr(self.node.inference_engine, "prefill_export", None)
+      handle = None
+      if export is not None:
+        try:
+          handle = await export(self.node.get_current_shard(shard), prompt)
+        except Exception as e:
+          if DEBUG >= 1:
+            print(f"fabric prefill export failed (serving normally): {e!r}")
+      if handle is not None:
+        await self._write_json(writer, 200, {"object": "kv.handle", "model": model, **handle})
+        return
 
     # n completions of one prompt: sub-requests "rid#0".."rid#n-1" (seeded siblings
     # draw distinct streams; plain ones coalesce in the engine's batcher).
@@ -1104,9 +1242,7 @@ class ChatGPTAPI:
       nonlocal started
       if not started:
         started = True
-        extra = "".join(f"{k}: {v}\r\n" for k, v in (headers or {}).items())
-        writer.write(("HTTP/1.1 200 OK\r\nContent-Type: text/event-stream\r\n"
-                      f"Cache-Control: no-cache\r\n{extra}Connection: close\r\n\r\n").encode())
+        writer.write(http.response_head(200, "text/event-stream", headers=headers))
       data = obj if isinstance(obj, str) else json.dumps(obj)
       writer.write(f"data: {data}\n\n".encode())
       await writer.drain()

@@ -9,6 +9,7 @@ engine does). Synthetic cards use `DummyTokenizer`.
 """
 from __future__ import annotations
 
+import asyncio
 import os
 from pathlib import Path
 from typing import List, Union
@@ -77,6 +78,13 @@ def _prefer_local_dir(repo_or_path: str) -> str:
 
 
 async def _resolve_hf_tokenizer(repo_or_path: str):
+  """`transformers`' tokenizer (or processor) for a directory or repo id, built on a
+  worker thread: its import and file parsing take seconds, and a serving process's event
+  loop must go on answering health checks meanwhile."""
+  return await asyncio.get_running_loop().run_in_executor(None, _load_hf_tokenizer, repo_or_path)
+
+
+def _load_hf_tokenizer(repo_or_path: str):
   from transformers import AutoProcessor, AutoTokenizer
 
   try:

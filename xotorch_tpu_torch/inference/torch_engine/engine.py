@@ -86,6 +86,12 @@ KV reuse and prefill scheduling (the JAX engine's defaults):
   before it prefills; `prefetch_host_prefix` does that for a queued prompt. A
   restore that fails degrades to a cold prefill (counted in
   `_host_restore_fallbacks`);
+- the KV fabric (fabric/, XOT_FABRIC_*): a prompt the device cache and the local host
+  tier miss imports a sibling replica's host entry over HTTP, its digest verified, and
+  restores it as a local spill (`_fabric_consult` inside `_host_promote`); offers
+  (`fabric_offer`, `prefetch_fabric_offer`) and a prefill replica's handle
+  (`prefill_export`) let the router split prefill from decode. Every fabric failure is
+  counted (`_fabric_errors`) and prefills cold;
 - co-scheduled prefill (XOT_PREFILL_COSCHED, XOT_PREFILL_CHUNK_BUDGET): while other
   requests are active, a prompt longer than one segment prefills through the
   batcher's prefill lane in slices of XOT_PREFILL_CHUNK_BUDGET segments, one slice a
@@ -495,6 +501,22 @@ class TorchShardInferenceEngine(InferenceEngine):
     self._host_spill_bytes = 0
     self._host_fetch_bytes = 0
     self._host_restore_fallbacks = 0
+    # Host hits by the entry's origin ("local" spill or "fabric" import), served as
+    # labelled xot_kv_host_hits_total series beside the bare total.
+    self._host_hits_by_source: Dict[str, int] = {}
+    # The fleet-wide KV fabric (fabric/, XOT_FABRIC_PEERS): a prefix that misses the
+    # device cache and the local host tier consults sibling replicas and imports the
+    # longest covering entry into the host tier, whence _host_promote restores it. The
+    # client is built at its first use (`_fabric_client`).
+    self._fabric_peers = [p.strip() for p in knobs.get_str("XOT_FABRIC_PEERS").split(",")
+                          if p.strip()]
+    self._fabric_timeout_s = knobs.get_float("XOT_FABRIC_TIMEOUT_S")
+    self._fabric_offer_ttl_s = knobs.get_float("XOT_FABRIC_OFFER_TTL_S")
+    self._fabric = None
+    self._fabric_hits = 0
+    self._fabric_misses = 0
+    self._fabric_errors = 0
+    self._fabric_bytes = 0
     # OOM recoveries, and the requests whose state one dropped (bounded): their next
     # touch raises RequestStateLost instead of starting over from an empty cache.
     self._oom_count = 0
@@ -2892,10 +2914,20 @@ class TorchShardInferenceEngine(InferenceEngine):
     when co-scheduled."""
     store = self._host_kv_store()
     limit = toks.shape[0] - 1
-    if store is None or limit <= 0 or len(store) == 0:
+    if store is None or limit <= 0 or (len(store) == 0 and self._fabric_client() is None):
       return
     _, hbm_best = self._best_hbm_prefix(ctx, toks, limit)
-    entry, common = store.match(ctx.shard, toks, limit)
+    entry, common = store.match(ctx.shard, toks, limit) if len(store) else (None, 0)
+    local_usable = min(common, entry.length) if entry is not None else 0
+    # A local miss, or a shorter local match, consults the fabric first: an imported
+    # entry lands in the host tier and is restored by the code below. Only an entry
+    # worth a restore is fetched: past every local tier and at least
+    # XOT_PREFIX_CACHE_MIN tokens (JAX's engine fetches any longer match, one that
+    # shares just a chat template's first tokens too, and then restores none of it).
+    if local_usable < limit and self._fabric_consult(
+        ctx, toks, limit, max(local_usable, hbm_best, self._prefix_cache_min - 1),
+        request_id=request_id):
+      entry, common = store.match(ctx.shard, toks, limit)
     if entry is None:
       return
     t0 = time.monotonic()
@@ -2952,6 +2984,7 @@ class TorchShardInferenceEngine(InferenceEngine):
     while len(ctx.prefix_cache) > self._prefix_cache_max:
       self._evict_oldest_prefix(ctx)
     self._host_kv_hits += 1
+    self._host_hits_by_source[entry.source] = self._host_hits_by_source.get(entry.source, 0) + 1
     self._host_fetch_bytes += entry.nbytes
     if self.flight is not None:
       self.flight.record("host.restore", None, tokens=entry.length, bytes=entry.nbytes,
@@ -2960,15 +2993,141 @@ class TorchShardInferenceEngine(InferenceEngine):
       print(f"[{request_id}] host KV tier hit: {entry.length}-token prefix restored "
             f"({entry.nbytes} bytes)")
 
+  # ------------------------------------------------------------ KV fabric
+  #
+  # Cross-replica prefix transfer (fabric/): a prefix that misses the device cache and
+  # the local host tier consults sibling replicas, the offer directory first (the
+  # router's prefill chain and spill pre-announce land offers there), then the static
+  # XOT_FABRIC_PEERS probes, and imports the longest covering entry into the host tier
+  # with its digest verified. _host_promote then restores it as it restores a local
+  # spill (fresh pool pages, or a snapshot), held to the same leaf and shape checks.
+  # Every failure (an unreachable peer, a torn blob, a digest mismatch, a stale offer)
+  # is counted and the request prefills cold.
+
+  def _fabric_client(self, create: bool = False):
+    """The fabric's pull client, or None while the fabric is idle: built when
+    XOT_FABRIC_PEERS names siblings, or at the first offer (`create`)."""
+    if self._fabric is None:
+      if not self._fabric_peers and not create:
+        return None
+      from xotorch_tpu_torch.fabric.client import FabricClient
+      self._fabric = FabricClient(self._fabric_peers, timeout_s=self._fabric_timeout_s,
+                                  offer_ttl_s=self._fabric_offer_ttl_s)
+    return self._fabric
+
+  def fabric_offer(self, shard: Shard, toks, length: int, nbytes: int, url: str) -> bool:
+    """Record a sibling's announce (`POST /v1/kv/offer`): peer `url` holds a host-tier
+    entry covering `toks`, so the next local miss resolves coverage without a probe.
+    False when the host tier is off (an import would have nowhere to land)."""
+    if self._host_kv_max_bytes <= 0:
+      return False
+    key = self._fabric_client(create=True).offers.record(shard, toks, length, nbytes, url)
+    if self.flight is not None:
+      self.flight.record("fabric.offer", None, key=key[:16], tokens=int(length),
+                         bytes=int(nbytes), peer=url)
+    return True
+
+  async def prefetch_fabric_offer(self, shard: Shard, toks) -> bool:
+    """Pull a just-offered prefix ahead of its request: the fabric fetch and the
+    restore run while the chained request is still on its way here. The loaded
+    context only, through the prefill lane when a batcher exists; best effort. True
+    when fabric bytes were imported."""
+    ctx = self._contexts.get(shard)
+    toks = np.asarray(toks, dtype=np.int64).reshape(-1)
+    if ctx is None or toks.shape[0] < 2:
+      return False
+    fetched_before = self._fabric_bytes
+    promote = partial(self._host_promote, ctx, toks)
+    if ctx.batcher is not None:
+      await ctx.batcher.submit_prefill(promote)
+    else:
+      await self._run(promote)
+    return self._fabric_bytes > fetched_before
+
+  def _fabric_consult(self, ctx: _ShardContext, toks: np.ndarray, limit: int, have: int,
+                      request_id: Optional[str] = None) -> bool:
+    """Fetch the best sibling entry covering `toks` past `have` (what the local tiers
+    cover) and import it into the host tier. Runs on the executor inside
+    _host_promote; the transfer is its own span (engine.fabric_fetch). True when an
+    entry landed."""
+    client = self._fabric_client()
+    store = self._host_kv_store()
+    if client is None or store is None:
+      return False
+    t0 = time.monotonic()
+    with self._engine_span("engine.fabric_fetch", request_id):
+      res = client.fetch(ctx.shard, toks, limit, better_than=have)
+    self._fabric_errors += res.errors
+    if res.payload is None:
+      self._fabric_misses += 1
+      return False
+    n = store.import_entry(ctx.shard, res.payload, source="fabric")
+    if n <= 0:
+      # A digest mismatch or an over-budget payload: dropped as a torn local entry is.
+      self._fabric_errors += 1
+      self._fabric_misses += 1
+      if DEBUG >= 1:
+        print(f"fabric import rejected (torn or over-budget transfer from {res.url})")
+      return False
+    self._fabric_hits += 1
+    self._fabric_bytes += n
+    if self.flight is not None:
+      self.flight.record("fabric.fetch", request_id, tokens=int(res.payload["length"]), bytes=n,
+                         peer=res.url, secs=round(time.monotonic() - t0, 4))
+    if DEBUG >= 2:
+      print(f"[{request_id}] fabric fetch: {res.payload['length']}-token prefix imported "
+            f"from {res.url} ({n} bytes)")
+    return True
+
+  async def prefill_export(self, shard: Shard, prompt: str) -> Optional[dict]:
+    """Disaggregated prefill (XOT_FABRIC_ROLE=prefill): prefill the prompt here, copy
+    the resulting prefix entry into the host tier (the device entry stays) and return
+    a transfer handle, which the router offers at a decode replica. None when the
+    prompt is too short to cache or the host tier or the prefix cache is off (the
+    router then forwards plainly)."""
+    if self._host_kv_max_bytes <= 0 or self._prefix_cache_max <= 0:
+      return None
+    import uuid
+    ctx = await self._ensure_ctx(shard)
+    toks = np.asarray(ctx.tokenizer.encode(prompt), dtype=np.int64).reshape(-1)
+    if toks.shape[0] < max(2, self._prefix_cache_min):
+      return None
+    rid = f"fabric-prefill-{uuid.uuid4().hex[:12]}"
+    try:
+      await self.infer_sample_tensor(rid, shard, toks.reshape(1, -1), temp=0.0)
+      return await self._run(self._export_prefix_sync, ctx, toks)
+    finally:
+      await self.clear_request(rid)
+
+  def _export_prefix_sync(self, ctx: _ShardContext, toks: np.ndarray) -> Optional[dict]:
+    """Copy a just-prefilled prompt's device prefix entry to the host tier (a copy: the
+    entry and its live references stay) and describe the host entry for an offer."""
+    store = self._host_kv_store()
+    if store is None:
+      return None
+    hit = ctx.prefix_cache.get(hash(np.ascontiguousarray(toks).tobytes()))
+    if hit is not None:
+      self._spill_prefix_entry(ctx, *hit)
+    entry, common = store.match(ctx.shard, toks, toks.shape[0])
+    if entry is None or entry.length <= 0:
+      return None
+    from xotorch_tpu_torch.fabric import entry_key
+    return {"key": entry_key(ctx.shard, entry.toks), "length": int(entry.length),
+            "nbytes": int(entry.nbytes), "covered": int(min(common, entry.length)),
+            "tokens": [int(t) for t in entry.toks]}
+
   async def prefetch_host_prefix(self, shard: Shard, prompt: str) -> bool:
-    """Restore a queued prompt's spilled prefix from the host tier before the request
-    is admitted, so that it then takes the native warm path. Best effort: the loaded
-    context only (a prefetch never loads a model), through the batcher's prefill lane
-    when one exists (decode first). True when bytes were restored."""
+    """Restore a queued prompt's spilled prefix from the host tier (or, through it,
+    from a sibling over the fabric) before the request is admitted, so that it then
+    takes the native warm path. Best effort: the loaded context only (a prefetch never
+    loads a model), through the batcher's prefill lane when one exists (decode first).
+    True when bytes were restored."""
     store = self._host_kv
     ctx = self._contexts.get(shard)
-    if store is None or len(store) == 0 or ctx is None:
+    if (store is None or len(store) == 0) and self._fabric_client() is None:
       return False
+    if self._host_kv_store() is None or ctx is None:
+      return False  # no tier: an import would have nowhere to land
     try:
       toks = np.asarray(ctx.tokenizer.encode(prompt), dtype=np.int64).reshape(-1)
     except Exception:

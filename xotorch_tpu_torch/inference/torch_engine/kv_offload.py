@@ -1,8 +1,8 @@
 """Host-tier KV offload: spill warm prefix KV to host RAM instead of destroying it
 (XOT_KV_HOST_BYTES).
 
-The port's copy of xotorch_tpu/inference/jax_engine/kv_offload.py, without the fleet
-fabric's transfer half (`snapshot_keys`, `export_entry`, `import_entry`).
+The port's copy of xotorch_tpu/inference/jax_engine/kv_offload.py, the fleet fabric's
+transfer half (`snapshot_keys`, `export_entry`, `import_entry`) included.
 
 The prefix cache is a KV tier in device memory. Under pool pressure its entries yield
 to live requests (engine._pool_alloc), its LRU bound evicts the oldest
@@ -20,7 +20,9 @@ spill and the copy in on restore (engine._spill_prefix_entry / engine._host_prom
 Integrity over availability: entries are inserted atomically under the lock, `match`
 reports only the verified common token prefix, and the engine checks leaf names and
 shapes against the live cache config before restoring; a mismatch drops the entry and
-the request prefills cold.
+the request prefills cold. Across a process boundary (the KV fabric) an entry travels
+with `entry_digest`, which the importer recomputes: a torn or stale transfer is refused
+as a torn local entry is.
 """
 from __future__ import annotations
 
@@ -28,14 +30,23 @@ import hashlib
 import threading
 from collections import OrderedDict
 from dataclasses import dataclass
-from typing import Any, Dict, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
 import numpy as np
 
 
+def leaf_dtype_name(arr: np.ndarray) -> str:
+  """The dtype name a host leaf goes by in a digest and on the fabric's wire: numpy's,
+  except that raw 16-bit words are a bf16 leaf (the only leaf the port holds as uint16)
+  and go by JAX's name for it, "bfloat16". So the same entry digests and packs to the
+  same bytes in both packages, and each verifies the other's blobs."""
+  return "bfloat16" if arr.dtype == np.uint16 else str(arr.dtype)
+
+
 def entry_digest(toks: np.ndarray, length: int, data: Dict[str, np.ndarray]) -> str:
   """Content digest of one entry: sha256 over the token ids, the covered length, and
-  every leaf's name, dtype, shape and bytes in sorted-name order."""
+  every leaf's name, dtype (`leaf_dtype_name`), shape and bytes in sorted-name order.
+  The integrity check of KV that crosses a process boundary."""
   h = hashlib.sha256()
   toks = np.ascontiguousarray(np.asarray(toks).reshape(-1).astype(np.int64))
   h.update(toks.tobytes())
@@ -43,7 +54,7 @@ def entry_digest(toks: np.ndarray, length: int, data: Dict[str, np.ndarray]) -> 
   for name in sorted(data):
     arr = np.ascontiguousarray(data[name])
     h.update(name.encode())
-    h.update(str(arr.dtype).encode())
+    h.update(leaf_dtype_name(arr).encode())
     h.update(repr(tuple(arr.shape)).encode())
     h.update(arr.tobytes())
   return h.hexdigest()
@@ -64,12 +75,15 @@ def common_prefix_len(stored: np.ndarray, probe: np.ndarray, limit: int) -> int:
 class HostKVEntry:
   """One spilled prefix: `toks` the full prompt that stored it, `data` the canonical
   [L, 1, T, ...] host copies of every cache leaf, `length` the tokens actually covered
-  (a paged spill covers whole pages only, so length <= toks.shape[0])."""
+  (a paged spill covers whole pages only, so length <= toks.shape[0]). `digest` is its
+  `entry_digest`, kept once known (an entry is never written once inserted): the one an
+  import verified, or the one its first export computed."""
   toks: np.ndarray
   data: Dict[str, np.ndarray]
   length: int
   nbytes: int
   source: str = "local"
+  digest: Optional[str] = None
 
 
 class HostKVStore:
@@ -100,7 +114,7 @@ class HostKVStore:
       return len(self._entries)
 
   def put(self, ctx_key: Any, toks: np.ndarray, data: Dict[str, np.ndarray],
-          length: int, source: str = "local") -> int:
+          length: int, source: str = "local", digest: Optional[str] = None) -> int:
     """Insert (or refresh) an entry; LRU-evict until the arena fits the budget.
     Returns the bytes newly stored (0 when the entry alone exceeds the budget and is
     rejected)."""
@@ -109,7 +123,7 @@ class HostKVStore:
     if nbytes > self.max_bytes:
       return 0
     entry = HostKVEntry(toks=toks, data=dict(data), length=int(length), nbytes=nbytes,
-                        source=source)
+                        source=source, digest=digest)
     key = (ctx_key, hash(toks.tobytes()))
     dropped, dropped_bytes = 0, 0
     with self._lock:
@@ -147,6 +161,47 @@ class HostKVStore:
       if best_key is not None:
         self._entries.move_to_end(best_key)
       return best, best_len
+
+  # ------------------------------------------------------ fabric transfer
+
+  def snapshot_keys(self) -> List[Tuple[Any, np.ndarray]]:
+    """The (ctx_key, toks) identity of every resident entry: what the fabric's server
+    side enumerates to resolve a content-addressed key without holding the lock across
+    an export."""
+    with self._lock:
+      return [(k[0], e.toks) for k, e in self._entries.items()]
+
+  def export_entry(self, ctx_key: Any, toks: np.ndarray) -> Optional[Dict[str, Any]]:
+    """One exact entry as a transfer payload (None when absent): token ids, covered
+    length, every canonical leaf and its `entry_digest`. The arrays are the store's own
+    (entries are never written once inserted): an export copies nothing."""
+    key = (ctx_key, hash(np.ascontiguousarray(
+      np.asarray(toks).reshape(-1).astype(np.int64)).tobytes()))
+    with self._lock:
+      entry = self._entries.get(key)
+      if entry is None:
+        return None
+      toks, length, data = entry.toks, entry.length, dict(entry.data)
+    if entry.digest is None:
+      # Outside the lock: hashing tens of MB. Racing exports compute the same value.
+      entry.digest = entry_digest(toks, length, data)
+    return {"toks": toks, "length": length, "data": data, "digest": entry.digest}
+
+  def import_entry(self, ctx_key: Any, payload: Dict[str, Any],
+                   source: str = "fabric") -> int:
+    """Insert a payload that `export_entry` made, here or on another replica. The
+    digest is recomputed over the received bytes and must equal the declared one: a
+    torn or stale transfer is refused (returns 0) and the caller prefills cold. The
+    insert is `put`'s: atomic under the lock, evicting to the budget."""
+    toks = np.ascontiguousarray(np.asarray(payload["toks"]).reshape(-1).astype(np.int64))
+    length = int(payload["length"])
+    data = {name: np.ascontiguousarray(arr) for name, arr in payload["data"].items()}
+    if not data or length <= 0 or toks.shape[0] < length:
+      return 0
+    digest = entry_digest(toks, length, data)
+    if digest != payload.get("digest"):
+      return 0
+    return self.put(ctx_key, toks, data, length, source=source, digest=digest)
 
   def drop(self, ctx_key: Any, toks: np.ndarray) -> None:
     """Remove one entry (torn or mismatched data found at restore time)."""

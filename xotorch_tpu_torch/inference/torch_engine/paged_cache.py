@@ -225,6 +225,8 @@ def from_host(arr: np.ndarray, dtype: torch.dtype, device) -> torch.Tensor:
   memory), asynchronously on the current stream; raw 16-bit words are bf16 again, then
   any mismatch of dtypes is converted."""
   arr = np.ascontiguousarray(arr)
+  if not arr.flags.writeable:
+    arr = arr.copy()  # a view of an immutable buffer (an unpacked blob): torch may not alias it
   if arr.dtype == np.uint16:
     src = torch.from_numpy(arr.view(np.int16)).view(torch.bfloat16)
   else:

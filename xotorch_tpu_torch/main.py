@@ -267,6 +267,13 @@ def wire_counts(node: Node) -> dict:
   return total
 
 
+def kernel_launches() -> dict:
+  """Each counted kernel wrapper's launches in this process, by name (0 on the CPU, where
+  no kernel launches)."""
+  from xotorch_tpu_torch.models import graphs
+  return {fn.__name__: fn.launches for fn in graphs.counted_wrappers()}
+
+
 async def async_main(args) -> None:
   if args.models_seed_dir:
     # Before anything resolves a model, so that ensure_shard's offline fast path and
@@ -295,6 +302,8 @@ async def async_main(args) -> None:
   finally:
     if DEBUG >= 1:
       print(f"wire {node.id}: {json.dumps(wire_counts(node))}", flush=True)
+      if engine_classname == "TorchShardInferenceEngine":
+        print(f"launches {node.id}: {json.dumps(kernel_launches())}", flush=True)
     node.spool_flight(reason="shutdown")  # XOT_FLIGHT_DUMP_DIR, when set
     await node.stop()
     executor = getattr(engine, "executor", None)  # the dummy engine has none

@@ -129,6 +129,22 @@ model_cards: Dict[str, Dict] = {
 }
 
 
+pretty_names: Dict[str, str] = {
+  "llama-3.3-70b": "Llama 3.3 70B",
+  "llama-3.2-1b": "Llama 3.2 1B",
+  "llama-3.1-8b": "Llama 3.1 8B",
+  "qwen-3-30b-a3b": "Qwen 3 30B A3B (MoE)",
+  "gemma2-2b": "Gemma2 2B",
+  "gemma2-9b": "Gemma2 9B",
+  "gemma2-27b": "Gemma2 27B",
+}
+
+
+def pretty_name(model_id: str) -> str:
+  """A card's display name (the model pool's `name`): JAX's table, else the id."""
+  return pretty_names.get(model_id, model_id)
+
+
 def split_adapter(model_id: str) -> tuple:
   """'base@adapter' -> (base_id, adapter_name); plain ids -> (id, None)."""
   base, sep, name = model_id.partition("@")

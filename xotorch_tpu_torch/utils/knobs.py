@@ -86,6 +86,33 @@ _DEFS: Tuple[Knob, ...] = (
   Knob("XOT_PROBE_TIMEOUT", "float", "120", "Timeout (s) for the device-capability probe; past it a node reports its host's capabilities."),
   Knob("XOT_MAX_INFLIGHT", "int", "0", "Bounded admission: max requests admitted into the ring concurrently by the origin node's API; 0 disables the gate (today's behavior)."),
   Knob("XOT_ADMIT_QUEUE_DEPTH", "int", "32", "Bounded admission queue: over-limit requests wait here (FIFO); beyond it they are rejected with HTTP 429 + Retry-After."),
+  Knob("XOT_ROUTER_POLL_S", "float", "2", "Router: cadence (s) for polling each replica's /v1/alerts, /v1/queue, and /healthcheck."),
+  Knob("XOT_ROUTER_PROBE_TOKENS", "int", "2", "Router: max_tokens of the synthetic canary completion sent to a probing replica."),
+  Knob("XOT_ROUTER_PROBES", "int", "2", "Router: consecutive successful canaries required before a drained replica is readmitted."),
+  Knob("XOT_ROUTER_MIN_OUT_S", "float", "10", "Router: minimum seconds a drained replica stays out before readmission; doubles (bounded 8x) when the replica flaps."),
+  Knob("XOT_ROUTER_FLAP_S", "float", "60", "Router: a re-drain within this many seconds of a readmission counts as flapping (escalates the out-time hysteresis)."),
+  Knob("XOT_ROUTER_SPILL_DEPTH", "int", "2", "Router: spill a request to the least-loaded healthy replica when its affinity replica's admission queue is at least this deep."),
+  Knob("XOT_ROUTER_TIMEOUT_S", "float", "300", "Router: total proxy timeout (s) for one forwarded request."),
+  Knob("XOT_ROUTER_DRIFT", "bool", "1", "Router: compare each replica's /v1/history trailing gauges against the fleet median and treat a chronic drifter as a drain-eligible perf_drift suspect."),
+  Knob("XOT_ROUTER_DRIFT_POLLS", "int", "3", "Router: consecutive poll ticks a replica must deviate from the fleet median before it is named perf_drift."),
+  Knob("XOT_ROUTER_HEDGE_PCT", "float", "0", "Router: request-hedging budget as a percentage of proxied requests (a still-unstarted request is duplicated to the least-loaded other replica, first byte wins); 0 disables hedging."),
+  Knob("XOT_ROUTER_HEDGE_FACTOR", "float", "2", "Router: hedge delay as a multiple of the fleet's trailing request p99 (median of routable replicas' /v1/history compacts)."),
+  Knob("XOT_ROUTER_HEDGE_MIN_S", "float", "0.5", "Router: hedge-delay floor (s); also the delay used while the fleet has no trailing p99 history yet."),
+  Knob("XOT_FLEET_MIN", "int", "1", "Fleet controller: minimum replica slots kept spawned (the template's initially-active set)."),
+  Knob("XOT_FLEET_MAX", "int", "0", "Fleet controller: maximum concurrently active replica slots; 0 means every slot in the template."),
+  Knob("XOT_FLEET_UP_QUEUE", "int", "1", "Fleet controller: scale up when the fleet-wide admission-queue high-water mark is at least this deep for XOT_FLEET_UP_POLLS consecutive ticks."),
+  Knob("XOT_FLEET_UP_POLLS", "int", "3", "Fleet controller: consecutive controller ticks the queue-depth signal must hold before a scale-up actuates."),
+  Knob("XOT_FLEET_IDLE_POLLS", "int", "60", "Fleet controller: consecutive idle ticks (no queue, no inflight fleet-wide) before a controller-scaled spare replica is retired via the drain path."),
+  Knob("XOT_FLEET_DEAD_POLLS", "int", "3", "Fleet controller: consecutive unreachable-or-scrape-failed polls before an ever-reachable replica is declared dead and respawned."),
+  Knob("XOT_FLEET_COOLDOWN_S", "float", "20", "Fleet controller: minimum seconds between scaling actuations (respawns of dead replicas are exempt)."),
+  Knob("XOT_FLEET_BOOT_TIMEOUT_S", "float", "180", "Fleet controller: seconds a freshly spawned replica gets to answer its healthcheck before the spawn counts as a respawn failure."),
+  Knob("XOT_FLEET_LEASE_TTL_S", "float", "15", "Fleet controller: TTL (s) of the actuation lease; a dead lease holder's lease expires and actuation hands over to a surviving router."),
+  Knob("XOT_FLEET_LEASE_PATH", "path", None, "Fleet controller: path of the shared TTL'd lease file gating actuation to one router; unset runs the controller solo (always holds)."),
+  Knob("XOT_FLEET_WARM_PREFIXES", "int", "4", "Fleet controller: recent request prefixes pre-announced (/v1/prefetch) at a fresh spawn before it enters rotation (PRESERVE-style warm cold-start)."),
+  Knob("XOT_FABRIC_PEERS", "str", "", "Fleet-wide KV fabric: comma-separated sibling replica base URLs to probe on a host-tier prefix miss; empty disables static peer probing (router offers still work)."),
+  Knob("XOT_FABRIC_ROLE", "str", "mixed", "Disaggregated serving role: `prefill` (compute KV, offer it, return a handle instead of streaming), `decode` (import offered KV, serve decode), or `mixed` (default: serve everything)."),
+  Knob("XOT_FABRIC_TIMEOUT_S", "float", "2", "KV fabric: per-request transport timeout (s) for peer match probes and entry fetches; a timed-out fetch degrades to a cold prefill."),
+  Knob("XOT_FABRIC_OFFER_TTL_S", "float", "120", "KV fabric: seconds an announced peer offer stays usable in the local directory before it expires."),
   Knob("XOT_TRACING", "bool", "1", "Record request/hop spans in the in-process tracer (served at /v1/traces)."),
   Knob("XOT_FLIGHT", "bool", "1", "Record runtime events in the per-node flight recorder (served at /v1/debug/flight)."),
   Knob("XOT_FLIGHT_EVENTS", "int", "4096", "Flight-recorder ring capacity (events)."),
