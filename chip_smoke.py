@@ -82,7 +82,19 @@ Phases, in order; any failure exits nonzero and prints no result line:
      process_prompt: temperature-0 tokens equal to phase 5's, K1 = 16 x fresh
      prefills and K2 = 16 x (decode steps + segments at pos > 0) summed over both
      engines, every hidden-state hop bfloat16 at 2 x T x 2048 bytes; TTFT, decode
-     rate, hop times and wire bytes a decode step;
+     rate, hop times and wire bytes a decode step; then (c) the fused in-process ring
+     (drive_ring_fused): two, then three Nodes in this process linked by
+     InProcessPeerHandle (8/8, then three ways) answer the same requests with the
+     default decode chunk: the last partition decodes the chain as replays of one
+     captured composite step (generate_chunk_ring), hidden states cross on the device;
+     temperature-0 streams equal to phase 5's, no per-token decode hop, K1 = 16 x fresh
+     prefills and K2 = 16 x (fused steps dispatched + segments at pos > 0), 0 hop bytes
+     copied to the host, hops kept on the device = prefills x (Nodes - 1), no decline,
+     the chunks run ahead and how they resolved, TPOT beside (a)'s per-token ring; on
+     the 2-Node ring four concurrent streams coalesce into batched fused dispatches (mean
+     width > 1) and a prompt-lookup request (XOT_SPECULATE 8, phase 18's looping prompt)
+     verifies through verify_draft_ring, its stream the plain one's up to a near tie
+     (`[time] phase 10 (c)`);
   11. ring, two processes: two `python -m xotorch_tpu_torch.main` peers with a manual
      config naming both and --wait-for-peers 1; the three requests go to the API of
      the peer holding layers 8-15 (each prompt forwarded to layers 0-7's owner) and
@@ -113,13 +125,14 @@ Phases, in order; any failure exits nonzero and prints no result line:
      segments through captured prefill_scan groups; this phase holds those programs
      against the eager body (models/generate) on synthetic-llama-1b at full width and
      depth in the five decode formats (bf16, int4 K5, int4 K5v4, int8 K6, bf16 over an
-     int8 KV cache) and gemma-2-2b's shape in bf16: 16 graph-replayed steps give the
+     int8 KV cache) and gemma-2-2b's shape in bf16: 8 graph-replayed steps give the
      eager body's tokens and cache bit for bit at B=1 and B=8 (gemma B=1), contiguous
      (K2/K2q) and paged (K3/K3q), at temperature 0, and with injected Gumbel noise (B=8
      contiguous in every format, paged in bf16; gemma both), the kernels' counters
      reading layers x steps (7 x layers x steps for a GEMV kernel) for the replays;
-     then eager against graph, 2 rounds in turn (contiguous B=1 and B=8 in every
-     format, paged in bf16, gemma B=1 both): wall ms, device ms and the idle share a
+     then eager against graph, 2 rounds in turn (B=1 and B=8 in bf16, contiguous and
+     paged, gemma B=1 both; the quantized formats' timing was cut with the smoke's clock,
+     their parity stays): wall ms, device ms and the idle share a
      step, device kernels a step; two fresh graph caches with generators seeded alike
      sampling the same tokens (another seed others); the slab copies' device time; the
      captures, their seconds and the graph pool and slab bytes; a 4096-token prompt
@@ -228,7 +241,16 @@ Phases, in order; any failure exits nonzero and prints no result line:
      (K6 = 4 x layers x steps); LLaVA answering two image requests (PNG data URIs) and
      a text one over HTTP, K1 = 32 x prefills, K2 = 32 x steps, the two image streams
      equal, TTFT split into preprocessing, tower, projector and merged prefill, weight
-     GB on the card;
+     GB on the card; (c) main.py train on both checkpoints (family_training, a corpus of
+     the word tokenizer's "t<id>" words): the MoE cut with LoRA rank 8 then eval, QLoRA
+     over int8 experts (B 4, rows of 511, 4 steps each) and a full fine-tune at B 1 (3
+     steps); LLaVA-1.5-7B with LoRA rank 8 on its text path then eval; step ms, tokens/s,
+     peak GiB, K1 and K1b = layers x steps exactly (`[time] phase 19 (c)`); (d) two-layer
+     training cuts of both published configs (check_training_cut: the MoE cut at T 64,
+     full fine-tune and LoRA on its attention slots, the CPU routed as the card routed;
+     llava's text stack at T 200 with LoRA), each gradient within 5e-2 of its norm of
+     the fp32 CPU's, with controls (a window forced, every B zeroed) that must miss
+     (`[time] phase 19 (d)`);
   20. multi-LoRA serving (check_adapters), with the prefix cache and the lane off and
      room for three model contexts: the two-layer cut with a seeded rank-16 adapter on
      all seven slots (B nonzero) in bf16 through K1/K2, then over int4 (K5) and int8
@@ -288,9 +310,10 @@ Phases, in order; any failure exits nonzero and prints no result line:
      respawns D1, the router announces its recent prompts there and D1 streams (a)'s
      answer again; every process stopped, the replicas' K1-K4 launches read from their
      shutdown lines;
-  23. the {"kernels": [...]} line (attention launches include phases 12's, 14's, 15's,
-     16's, 18's, 19's, 20's, 21's and 22's; K6's phase 19's too, K5's phase 20's; K1b's
-     phase 21's main-path runs, (c) and (d)), then the {"ok": true, ...} line last.
+  23. the {"kernels": [...]} line (attention launches include phases 10 (c)'s, 12's,
+     14's, 15's, 16's, 18's, 19's, 20's, 21's and 22's; K6's phase 19's too, K5's phase
+     20's; K1b's phase 19's (c) and (d) and phase 21's main-path runs, (c) and (d)), then
+     the {"ok": true, ...} line last.
 """
 from __future__ import annotations
 
@@ -2550,10 +2573,11 @@ def drive_ring_inprocess(torch, card: str, main_run: dict, device: str = "cuda",
       for e in engines.values():
         e.executor.shutdown(wait=True)
 
-  streams = {}
+  streams, tpots = {}, {}
   for j, (label, body, out) in enumerate(runs):
     n = len(out["tokens"])
     rate = (n - 1) / (out["last"] - out["first"]) if n > 1 else float("nan")
+    tpots[j] = 1e3 / rate
     ok = n == body["max_tokens"]
     print(f"[{tag}] {label}: {n} tokens, TTFT {out['first'] * 1e3:.1f} ms, decode {rate:.1f} tok/s "
           f"(main path: {main_run['timings'][j]}) ({card}) {'ok' if ok else 'FAIL'}", flush=True)
@@ -2593,6 +2617,7 @@ def drive_ring_inprocess(torch, card: str, main_run: dict, device: str = "cuda",
     "ack_bytes_per_step": acks / max(steps, 1),
     "hop_ms_median": 1e3 * hop_s[len(hop_s) // 2] if hop_s else float("nan"),
     "hop_ms_max": 1e3 * hop_s[-1] if hop_s else float("nan"),
+    "tpot_ms": tpots,
   }
   print(f"[{tag}] wire a decode step: {figures['hops_per_step']:.2f} SendTensor frames, "
         f"{figures['hop_bytes_per_step']:.0f} bytes; a sampled token: "
@@ -2600,6 +2625,260 @@ def drive_ring_inprocess(torch, card: str, main_run: dict, device: str = "cuda",
         f"{figures['result_bytes_per_token']:.0f} bytes; acks {figures['ack_bytes_per_step']:.0f} "
         f"bytes a step; SendTensor to ack median {figures['hop_ms_median']:.3f} ms, max "
         f"{figures['hop_ms_max']:.3f} ms (the prefill hops); calls {calls} ({card})", flush=True)
+  return figures
+
+
+RING_FUSED_NODES = (2, 3)  # synthetic-llama-1b's 16 layers over 2 Nodes, then 3
+RING_CONCURRENT_WORDS = (200, 300, 400, 500)  # four streams at once on the 2-Node ring
+RING_SPEC_NEW = 64  # tokens of the ring's speculative request
+
+
+async def ring_tie_check(torch, segs: list, ids: list, a: int, b: int) -> tuple:
+  """tie_check through a ring: `ids` from position 0 through every segment's layers
+  ([(engine, shard)] in ring order, K1 in each), the last segment's fp32 logits at the last
+  position. Returns (tie, |l[a] - l[b]|, the bound)."""
+  from xotorch_tpu_torch.models.transformer import forward_shard, init_kv_cache
+  last = segs[-1][0]
+
+  def body():
+    h = torch.tensor([ids], dtype=torch.int64, device=last.device)
+    for i, (eng, shard) in enumerate(segs):
+      ctx = eng._contexts[shard]
+      cache = init_kv_cache(ctx.cfg, shard.get_layer_count(), 1, len(ids), eng.dtype, eng.device)
+      h, _ = forward_shard(ctx.params, h, cache, 0, ctx.cfg, i == 0, shard.is_last_layer,
+                           use_flash=True, start_layer=shard.start_layer, route=eng.quant_route)
+    return h[0, -1].float().cpu()
+  with launches_kept():
+    row = await last._run(body)
+  gap, limit = abs(float(row[a] - row[b])), TIE_REL * float(row.abs().max())
+  return gap <= limit, gap, limit
+
+
+def drive_ring_fused(torch, card: str, main_run: dict, per_token: dict, device: str = "cuda",
+                     model: str = "synthetic-llama-1b") -> dict:
+  """Phase 10 (c): the fused in-process ring. Two, then three Nodes in this process, each
+  with its own engine on `device`, linked by InProcessPeerHandle, serve `model` split
+  8/8, then three ways, with the default decode chunk (XOT_DECODE_CHUNK 8, doubling to
+  64): the last partition decodes the whole chain as replays of one captured composite
+  step (the engine's generate_chunk_ring), hidden states cross on the device. The main
+  path's three requests: temperature-0 streams equal to phase 5's, no per-token decode
+  hop, K1 = layers x fresh prefills and K2 = layers x (fused steps dispatched + segments
+  at pos > 0) summed over the engines, no hidden state copied to the host, no decline;
+  TPOT fused against the per-token ring of phase 10 (a) in this call; the chunks run
+  ahead and how they resolved. On the 2-Node ring: four concurrent streams coalesce into
+  batched fused dispatches (mean width printed), then a prompt-lookup speculative request
+  (XOT_SPECULATE 8, phase 18's repeat-heavy prompt) through verify_draft_ring against the
+  plain stream: equal, or parting first at a near tie within 2^-6. Returns the figures."""
+  from xotorch_tpu_torch.api.chatgpt_api import build_prompt
+  from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer
+  from xotorch_tpu_torch.inference.torch_engine.engine import TorchShardInferenceEngine
+  from xotorch_tpu_torch.models.registry import build_base_shard
+  from xotorch_tpu_torch.networking.inprocess import InProcessPeerHandle
+  from xotorch_tpu_torch.orchestration.node import Node
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention
+  from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention
+  from xotorch_tpu_torch.topology.device_capabilities import device_capabilities_sync
+  from xotorch_tpu_torch.topology.partitioning import RingMemoryWeightedPartitioningStrategy
+
+  t_phase = time.perf_counter()
+  kernels = (flash_attention, flash_cached_attention)
+  tokenizer = DummyTokenizer()
+  caps = device_capabilities_sync()
+  figures = {}
+
+  def build(n_nodes: int):
+    ids = [f"ring-{chr(ord('a') + i)}" for i in range(n_nodes)]
+    engines = {i: TorchShardInferenceEngine(device=device) for i in ids}
+    nodes = {i: Node(i, None, engines[i], None, RingMemoryWeightedPartitioningStrategy(),
+                     default_sample_temp=0.6) for i in ids}
+    for node in nodes.values():
+      node.device_capabilities = caps
+      for other in ids:
+        node.topology.update_node(other, caps)
+      node.peers = [InProcessPeerHandle(o) for o in nodes.values() if o is not node]
+    return nodes, engines
+
+  async def serve(node, base, prompt: str, rid: str, max_tokens: int, temperature) -> dict:
+    done = asyncio.Event()
+    out = {"tokens": [], "first": None, "last": None}
+    t0 = time.perf_counter()
+
+    def on_token(r, toks, finished):
+      if r != rid:
+        return
+      out["tokens"] = list(toks)
+      if toks and out["first"] is None:
+        out["first"] = time.perf_counter() - t0
+      if finished:
+        out["last"] = time.perf_counter() - t0
+        done.set()
+    node.on_token.register(rid).on_next(on_token)
+    await node.process_prompt(base, prompt, rid, max_tokens=max_tokens, temperature=temperature)
+    await asyncio.wait_for(done.wait(), 600)
+    node.on_token.deregister(rid)
+    error = node.request_errors.pop(rid, None)
+    if error is not None:
+      raise AssertionError(f"ring fused: request {rid} failed: {error}")
+    return out
+
+  def tpot(out) -> float:
+    n = len(out["tokens"])
+    return 1e3 * (out["last"] - out["first"]) / (n - 1) if n > 1 else float("nan")
+
+  async def drive(n_nodes: int) -> dict:
+    tag = f"ring fused, {n_nodes} nodes"
+    nodes, engines = build(n_nodes)
+    t0 = time.perf_counter()
+    try:
+      first = next(iter(nodes.values()))
+      base = build_base_shard(model, "TorchShardInferenceEngine")
+      order = [p.node_id for p in first.partitioning_strategy.partition(first.topology)]
+      shards = {i: nodes[i].get_current_shard(base) for i in order}
+      await asyncio.gather(*(engines[i].ensure_shard(shards[i]) for i in order))
+      entry, driver = nodes[order[0]], engines[order[-1]]
+      split = "/".join(str(shards[i].get_layer_count()) for i in order)
+      print(f"[{tag}] layers {split} ({', '.join(f'{i} {shards[i].start_layer}-{shards[i].end_layer}' for i in order)}) "
+            f"on {device}, loaded in {time.perf_counter() - t0:.1f} s", flush=True)
+      token_hops = []
+      for node in nodes.values():
+        real = node.process_tensor
+
+        async def spy(base_shard, tensor, request_id=None, inference_state=None, _real=real):
+          if getattr(tensor, "ndim", 0) == 2:
+            token_hops.append(request_id)
+          return await _real(base_shard, tensor, request_id, inference_state)
+        node.process_tensor = spy
+      dispatched = [0]
+      for eng in engines.values():
+        real_dispatch = eng._ring_dispatch
+
+        def counted(members, toks_in, num_tokens, *a, _real=real_dispatch):
+          dispatched[0] += num_tokens
+          return _real(members, toks_in, num_tokens, *a)
+        eng._ring_dispatch = counted
+      for k in kernels:
+        k.launches = 0
+      runs, fresh, segments = [], 0, 0
+      for j, (label, body) in enumerate(main_requests(model)):
+        prompt = build_prompt(tokenizer, body["messages"])
+        out = await serve(entry, base, prompt, f"fused-{n_nodes}-{j}", body["max_tokens"],
+                          body.get("temperature"))
+        fresh += 1
+        segments += (len(tokenizer.encode(prompt)) - 1) // 1024
+        runs.append((label, body, out))
+      for e in engines.values():
+        await wait_idle(e)
+      counts = {k.__name__: k.launches for k in kernels}
+      layers = base.n_layers
+      decoded = sum(len(out["tokens"]) - 1 for _, _, out in runs)
+      streams = {}
+      for j, (label, body, out) in enumerate(runs):
+        n = len(out["tokens"])
+        was = per_token["tpot_ms"].get(j, float("nan"))
+        ok = n == body["max_tokens"]
+        print(f"[{tag}] {label}: {n} tokens, TTFT {out['first'] * 1e3:.1f} ms, TPOT {tpot(out):.3f} ms "
+              f"fused against {was:.3f} ms on phase 10's per-token ring (x{was / tpot(out):.1f}) "
+              f"({card}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+          raise AssertionError(f"{tag}: {label} returned {n} tokens")
+        streams[j] = out["tokens"]
+      greedy_streams_agree(tag, main_run, streams)
+      want = {"flash_attention": layers * fresh,
+              "flash_cached_attention": layers * (dispatched[0] + segments)}
+      stats = driver.ring_stats()
+      declines = {**stats["declines"]}
+      for node in nodes.values():
+        for reason, n in node.ring_declines.items():
+          declines[reason] = declines.get(reason, 0) + n
+      host_bytes = sum(e.host_hop_bytes for e in engines.values())
+      device_hops = sum(e.device_hops for e in engines.values())
+      ok = (counts == want and dispatched[0] >= decoded and not token_hops and host_bytes == 0
+            and not declines and device_hops == fresh * (n_nodes - 1))
+      print(f"[{tag}] launches over the engines {counts}: K1 = {layers} x {fresh} fresh prefills, "
+            f"K2 = {layers} x ({dispatched[0]} fused steps dispatched for {decoded} decoded + "
+            f"{segments} segment at pos > 0) ({want}); {stats['chunks']} fused chunks, overlap "
+            f"hits {stats['overlap_hits']} misses {stats['overlap_misses']}; per-token decode hops "
+            f"{len(token_hops)}; hidden-state hops kept on the device {device_hops}, hop bytes "
+            f"copied to the host {host_bytes}; declines {declines} {'ok' if ok else 'FAIL'}",
+            flush=True)
+      if not ok:
+        raise AssertionError(f"{tag}: launches {counts} (want {want}), dispatched {dispatched[0]} "
+                             f"for {decoded}, token hops {len(token_hops)}, host bytes {host_bytes}, "
+                             f"device hops {device_hops}, declines {declines}")
+      result = {"tpot_ms": {j: tpot(out) for j, (_, _, out) in enumerate(runs)},
+                "launches": counts, "overlap": (stats["overlap_hits"], stats["overlap_misses"])}
+      if n_nodes == 2:
+        result.update(await concurrent_and_spec(tag, nodes, engines, order, shards, base, entry,
+                                                driver))
+      return result
+    finally:
+      for e in engines.values():
+        e.executor.shutdown(wait=True)
+
+  async def concurrent_and_spec(tag, nodes, engines, order, shards, base, entry, driver) -> dict:
+    before = (driver._ring_batch_dispatches, driver._ring_batch_rows)
+    t0 = time.perf_counter()
+    words = lambda n, off: " ".join(f"w{(i + off) % 97}" for i in range(n))
+    outs = await asyncio.gather(*(
+      serve(entry, base, build_prompt(tokenizer, [{"role": "user", "content": words(n, 7 * k)}]),
+            f"fused-conc-{k}", 64, 0.0) for k, n in enumerate(RING_CONCURRENT_WORDS)))
+    secs = time.perf_counter() - t0
+    dispatches = driver._ring_batch_dispatches - before[0]
+    rows = driver._ring_batch_rows - before[1]
+    width = rows / max(dispatches, 1)
+    total = sum(len(o["tokens"]) for o in outs)
+    ok = dispatches > 0 and width > 1 and all(len(o["tokens"]) == 64 for o in outs)
+    print(f"[{tag}] {len(outs)} concurrent streams: {dispatches} batched fused dispatches, mean "
+          f"width {width:.2f} rows; {total} tokens in {secs:.2f} s = {total / secs:.1f} tok/s "
+          f"aggregate; TPOT {', '.join(f'{tpot(o):.3f}' for o in outs)} ms ({card}) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+      raise AssertionError(f"{tag}: concurrent streams did not coalesce ({dispatches} dispatches, "
+                           f"width {width})")
+    for e in engines.values():
+      await wait_idle(e)
+    # Prompt lookup over the ring: exact ids through the id tokenizer.
+    ids_tok = id_tokenizer()
+    for i in order:
+      engines[i]._contexts[shards[i]].tokenizer = ids_tok
+    phrase, times = DECODE_SIZES[model]["repeat"]
+    vocab = engines[order[0]]._contexts[shards[order[0]]].cfg.vocab_size
+    ids = kv_ids(95, phrase, vocab) * times
+    runs = {}
+    for spec in (0, SPEC_K):
+      for node in nodes.values():
+        node.speculate_tokens = spec
+      proposed, accepted = driver._spec_proposed, driver._spec_accepted
+      toks, ms = await node_stream(entry, model, ids, RING_SPEC_NEW, f"fused-spec-{spec}")
+      for e in engines.values():
+        await wait_idle(e)
+      runs[spec] = (toks, ms, driver._spec_proposed - proposed, driver._spec_accepted - accepted)
+    for node in nodes.values():
+      node.speculate_tokens = 0
+    (plain, plain_ms, _, _), (got, spec_ms, drafted, taken) = runs[0], runs[SPEC_K]
+    segs = [(engines[i], shards[i]) for i in order]
+    first_diff = next((k for k in range(min(len(plain), len(got))) if plain[k] != got[k]), None)
+    verdict = "identical"
+    if first_diff is not None:
+      tie, gap, limit = await ring_tie_check(torch, segs, ids + plain[:first_diff],
+                                             plain[first_diff], got[first_diff])
+      verdict = (f"first divergence at {first_diff}: logit gap {gap:.4g} against the near-tie "
+                 f"bound {limit:.4g} ({'a near tie' if tie else 'NOT a tie'})")
+    ok = drafted > 0 and len(got) == RING_SPEC_NEW and (first_diff is None or tie)
+    print(f"[{tag}] prompt lookup over the ring (XOT_SPECULATE {SPEC_K}, {len(ids)} prompt tokens): "
+          f"{taken}/{drafted} drafted tokens accepted through verify_draft_ring; TPOT {spec_ms:.3f} ms "
+          f"on, {plain_ms:.3f} ms off; streams {verdict} ({card}) {'ok' if ok else 'FAIL'}",
+          flush=True)
+    if not ok:
+      raise AssertionError(f"{tag}: speculation drafted {drafted}, stream {verdict}")
+    return {"width": width, "spec": (drafted, taken, spec_ms, plain_ms)}
+
+  with phase_env(XOT_PAGED_KV="0", XOT_PREFILL_CHUNK="1024"):
+    for n_nodes in RING_FUSED_NODES:
+      figures[n_nodes] = asyncio.run(drive(n_nodes))
+      gc.collect()
+      torch.cuda.empty_cache() if device == "cuda" else None
+  print(f"[time] phase 10 (c), the fused ring: {time.perf_counter() - t_phase:.1f} s", flush=True)
   return figures
 
 
@@ -3056,7 +3335,7 @@ FUSED_FORMATS = (("bf16", {}), ("int4 K5", {"XOT_QUANTIZE": "int4"}),
 # Decode steps a parity chunk runs, eager body against graph replays: 64 until the
 # training phase (21) needed the time; 16 steps still hold every format, path, batch
 # and kernel, and each step's tokens and cache, bit for bit.
-FUSED_STEPS = 16
+FUSED_STEPS = 8  # parity steps a case (16 until the smoke's clock needed the time)
 FUSED_PAGE = 128
 # The scan prefill against the per-segment loop over a 4096-token prompt: the two take
 # different kernels for the from-zero segment (K2 against K1), so bf16 rounds at other
@@ -3507,8 +3786,8 @@ def check_fused(torch, card: str, device: str = "cuda", make_cache=None,
       # is the same code over either cache).
       if not paged or label == "bf16":
         fused_parity(torch, m, 8, paged, True, card, tracked, device, steps)
-      # Eager against graph: contiguous in every format, paged in bf16.
-      if device == "cuda" and (not paged or label == "bf16"):
+      # Eager against graph: bf16 only (the quantized formats' steps are timed in phase 8).
+      if device == "cuda" and label == "bf16":
         for B in (1, 8):
           timing[(label, paged, B)] = fused_timing(torch, m, B, paged, card, tracked, device,
                                                    rounds)
@@ -6027,6 +6306,25 @@ def moe_recorder(torch):
 
 
 @contextlib.contextmanager
+def routing_recorded(torch):
+  """The experts the transformer's router picks, one [B, T, k] index tensor a call on the
+  host, in call order (empty for a model without experts); yields the list."""
+  from xotorch_tpu_torch.models import transformer
+  real = transformer._moe_route
+  chosen = []
+
+  def route(layer, h, cfg):
+    vals, idx = real(layer, h, cfg)
+    chosen.append(idx.cpu())
+    return vals, idx
+  transformer._moe_route = route
+  try:
+    yield chosen
+  finally:
+    transformer._moe_route = real
+
+
+@contextlib.contextmanager
 def forced_routing(torch, choices: list):
   """The transformer's router replaced by the experts in `choices` (one [B, T, k] index
   tensor a call, in call order), weighted by this side's own probabilities at them."""
@@ -6306,6 +6604,11 @@ def drive_moe(torch, card: str, device: str = "cuda") -> dict:
           raise AssertionError(f"{tag}: launches {counts}, wanted {want}; pool {pool}")
         for name, n in counts.items():
           launches[name] = launches.get(name, 0) + n
+      t0 = time.perf_counter()
+      for name, n in family_training(torch, card, MOE_CUT_CARD, layers, MOE_TRAIN_RUNS, device).items():
+        launches[name] = launches.get(name, 0) + n
+      print(f"[time] phase 19 (c), {MOE_CUT_CARD} training: {time.perf_counter() - t0:.1f} s",
+            flush=True)
     print(f"[moe] graph pool bytes: B=1 {pools.get(1)}, after B=8 {pools.get(8)} ({card})",
           flush=True)
   finally:
@@ -6448,19 +6751,101 @@ def drive_llava(torch, card: str, device: str = "cuda") -> dict:
           f"{held.get('vision', 0):.2f} GB ({card})", flush=True)
     if not ok:
       raise AssertionError(f"llava: launches {counts}, wanted {want}; streams equal {same}")
+    counts = dict(counts)
+    with phase_env(XOT_HOME=str(tmp / "home"), **FAMILY_ENV):
+      t0 = time.perf_counter()
+      for name, n in family_training(torch, card, LLAVA_CARD, layers, LLAVA_TRAIN_RUNS, device).items():
+        counts[name] = counts.get(name, 0) + n
+      print(f"[time] phase 19 (c), {LLAVA_CARD} training: {time.perf_counter() - t0:.1f} s",
+            flush=True)
   finally:
     shutil.rmtree(tmp, ignore_errors=True)
-  return dict(counts)
+  return counts
+
+
+# Phase 19 (c): main.py train on the family checkpoints phase 19 wrote. (tag, CLI flags,
+# batch rows, steps, evaluate after): Qwen3-30B-A3B's cut with LoRA and QLoRA at the
+# main training batch (B 4, rows of 511), its full fine-tune at one row (the gradients and
+# AdamW's two moments add three copies of the cut's 11.2 GB), LLaVA-1.5-7B's text path
+# with LoRA.
+MOE_TRAIN_RUNS = (("LoRA rank 8", ("--lora-rank", "8"), 4, 4, True),
+                  ("QLoRA rank 8 over int8", ("--lora-rank", "8", "--quantize", "int8"), 4, 4, False),
+                  ("full fine-tune", (), 1, 3, False))
+LLAVA_TRAIN_RUNS = (("LoRA rank 8 on the text path", ("--lora-rank", "8"), 4, 4, True),)
+FAMILY_LR = {"LoRA": "3e-3", "QLoRA": "3e-3", "full": "1e-5"}
+FAMILY_FIRST_ID = 200  # the family corpora's words t200..: ids the word tokenizer names
+
+
+def family_training(torch, card: str, model: str, layers: int, runs, device: str = "cuda") -> dict:
+  """Phase 19 (c): main.py's train command on `model`'s seeded checkpoint (already in
+  XOT_HOME: the phase's servers copied it there) over write_training_corpus's corpus in
+  "t<id>" words (the checkpoint's word tokenizer names them), one train_cli each of `runs`:
+  step ms, tokens/s after the first step and peak GiB; K1 = layers x steps and K1b =
+  layers x steps exactly (the losses printed, not asserted to fall: a few steps on seeded
+  random weights). A run with `evaluate` then runs the eval command on the trained model:
+  K1 = layers x its batches, the loss finite. Returns the K1 and K1b launches."""
+  import shutil
+  import tempfile
+  from xotorch_tpu_torch import main as port_main
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention
+  root = tempfile.mkdtemp(prefix="xot-family-train-")
+  launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+  try:
+    os.makedirs(os.path.join(root, "data"))
+    data = write_training_corpus(os.path.join(root, "data"), prefix="t", first=FAMILY_FIRST_ID)
+    for tag, extra, batch, iters, evaluate in runs:
+      argv = ["train", model, "--device", device, "--data", data, "--batch-size", str(batch),
+              "--sequence-length", str(TRAIN_SEQ), "--iters", str(iters), "--save-every", "0",
+              "--chatgpt-api-host", "127.0.0.1", "--chatgpt-api-port", "0", "--default-temp", "0",
+              *extra]
+
+      async def with_eval(node, engine, classname, api, a, run_train):
+        run = await run_train()
+        before = flash_attention.launches
+        run["eval"] = await port_main.eval_model_cli(node, classname, model, a)
+        run["eval_launches"] = flash_attention.launches - before
+        return run
+      run = train_cli(torch, argv, {"XOT_LR": FAMILY_LR[tag.split()[0]]}, with_eval if evaluate else None)
+      for name, n in _report_run(f"{model} {tag}, B={batch} T={TRAIN_SEQ - 1}", run, card, layers,
+                                 iters, falling=False).items():
+        launches[name] += n
+      if evaluate:
+        n_eval = 8 // batch
+        ok = run["eval_launches"] == layers * n_eval and math.isfinite(run["eval"] or math.nan)
+        print(f"[training] {model} eval after {tag}: loss {run['eval']:.4f} over {n_eval} batches; "
+              f"K1 {run['eval_launches']} = {layers} x {n_eval} {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+          raise AssertionError(f"training eval {model}: loss {run['eval']}, K1 {run['eval_launches']}")
+        launches["flash_attention"] += run["eval_launches"]
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+  return launches
 
 
 def check_families(torch, card: str, device: str = "cuda") -> dict:
   """Phase 19: the two families the port served last, qwen3-moe and llava (drive_moe,
-  drive_llava). Returns their attention launches summed by wrapper."""
+  drive_llava, each serving and then training its checkpoint), then (d) their two-layer
+  training cuts against the CPU (check_training_cut over the published configs: the
+  MoE cut at T 64, B*T 128 through the dense combine, full and with adapters on the
+  attention slots, JAX's sites; llava's text stack at T 200 with adapters). Returns their
+  attention launches summed by wrapper, K1b's included."""
+  from xotorch_tpu_torch.models.transformer import LORA_SLOTS
   t0 = time.perf_counter()
   launches = {}
   for drive in (drive_moe, drive_llava):
     for name, n in drive(torch, card, device).items():
       launches[name] = launches.get(name, 0) + n
+  t1 = time.perf_counter()
+  for label, config, seq, window, slots, modes in (
+      ("qwen3-moe", QWEN3_MOE_CONFIG, 64, 16, LORA_SLOTS[:4], ("full", "lora")),
+      # llava's text stack is a llama: phase 21 (b) holds that family's full fine-tune.
+      ("llava-1.5-7b", LLAVA_CONFIG, 200, 64, None, ("lora",))):
+    for mode in modes:
+      for name, n in check_training_cut(torch, mode, device, model=label, hf_config=config, seq=seq,
+                                        window=window, slots=slots).items():
+        launches[name] = launches.get(name, 0) + n
+  print(f"[time] phase 19 (d), the families' two-layer training cuts: {time.perf_counter() - t1:.1f} s",
+        flush=True)
   print(f"[families] phase 19 in {time.perf_counter() - t0:.1f} s ({card})", flush=True)
   return launches
 
@@ -6976,17 +7361,19 @@ def _window_forced(window: int):
 
 
 def check_training_cut(torch, mode: str, device: str = "cuda", model: str = "synthetic-llama-1b",
-                       limit: float = TRAIN_GRAD_REL, hf_config: Optional[dict] = None) -> dict:
+                       limit: float = TRAIN_GRAD_REL, hf_config: Optional[dict] = None,
+                       seq: int = 200, window: int = 64, slots=None) -> dict:
   """Phase 21 (b): a two-layer cut of `model` at full width (its registry card's
   synthetic config, or `hf_config`: gemma-2-2b's published one, whose two first layers
-  are one windowed and one global), B 2, T 200 (rows of 200 and
-  150), the loss and every trainable leaf's gradient (`mode` full: every float leaf,
-  the tied embedding included; lora: a seeded rank-8 adapter on the seven slots, B
-  nonzero; qlora: that adapter over an int8 base) on the card in bf16 through K1 and K1b
-  against the plain path in fp32 on the CPU from the same weights: the loss within
-  TRAIN_LOSS_REL, each gradient's error within `limit` of its norm. The control must
-  miss: a window of 64 forced on both layers (full), every adapter's B zeroed (lora,
-  qlora). Returns the card's K1 and K1b launches (2 each)."""
+  are one windowed and one global; phase 19 (d) gives Qwen3-30B-A3B's and LLaVA-1.5-7B's),
+  B 2, T `seq` (rows of seq and 3/4 of it), the loss and every trainable leaf's gradient
+  (`mode` full: every float leaf, the tied embedding included; lora: a seeded rank-8
+  adapter on `slots`, the seven by default, B nonzero; qlora: that adapter over an int8
+  base) on the card in bf16 through K1 and K1b against the plain path in fp32 on the
+  CPU from the same weights: the loss within TRAIN_LOSS_REL, each gradient's error
+  within `limit` of its norm. The control must miss: a window of `window` forced on both
+  layers (full), every adapter's B zeroed (lora, qlora). Returns the card's K1 and K1b
+  launches (2 each)."""
   import dataclasses
   import numpy as np
   from xotorch_tpu_torch.models import transformer
@@ -7004,12 +7391,12 @@ def check_training_cut(torch, mode: str, device: str = "cuda", model: str = "syn
   if mode == "qlora":
     params = quantize_params(params, "int8", scale_dtype=dtype, inplace=True)
   if mode != "full":
-    params["layers"].update(adapter_leaves(torch, cfg, 2, 8, transformer.LORA_SLOTS, seed=21,
-                                           device=dev, dtype=dtype))
+    params["layers"].update(adapter_leaves(torch, cfg, 2, 8, slots or transformer.LORA_SLOTS,
+                                           seed=21, device=dev, dtype=dtype))
   params_cpu = cpu_copy(torch, params)
   rng = np.random.default_rng(21)
-  x = rng.integers(3, cfg.vocab_size, size=(2, 201))
-  batch = {"inputs": x[:, :-1], "targets": x[:, 1:], "lengths": np.array([200, 150])}
+  x = rng.integers(3, cfg.vocab_size, size=(2, seq + 1))
+  batch = {"inputs": x[:, :-1], "targets": x[:, 1:], "lengths": np.array([seq, 3 * seq // 4])}
 
   def grads(p, on):
     b = {k: torch.as_tensor(v, device=on) for k, v in batch.items()}
@@ -7017,15 +7404,21 @@ def check_training_cut(torch, mode: str, device: str = "cuda", model: str = "syn
     loss, g = step.value_and_grad(lambda: step.full_model_loss(p, b, cfg), leaves)
     return loss.float().cpu(), [t.float().cpu() for t in g]
 
-  want_loss, want = grads(params_cpu, "cpu")
   counts = (flash_attention.launches, flash_attention_bwd.launches)
-  loss, got = grads(params, dev)
+  with routing_recorded(torch) as routes:
+    loss, got = grads(params, dev)
   launched = {"flash_attention": flash_attention.launches - counts[0],
               "flash_attention_bwd": flash_attention_bwd.launches - counts[1]}
+  # A MoE cut's CPU reference routes as the card routed (forced_routing): a bf16 router
+  # may pick another expert at a near tie, and a gradient is only comparable over the
+  # same experts. The choices' weights stay each side's own (the router's gradient).
+  with forced_routing(torch, list(routes)) if routes else contextlib.nullcontext():
+    want_loss, want = grads(params_cpu, "cpu")
+  names = ["/".join(path) for path, _ in lora.trainable_leaves(params)]
   if mode == "full":
-    with _window_forced(64):
+    with _window_forced(window):
       control = grads(params, dev)
-    dropped = "a window of 64 forced"
+    dropped = f"a window of {window} forced"
   else:
     control = grads(_drop_b(torch, params), dev)
     dropped = "every adapter's B zeroed"
@@ -7033,15 +7426,17 @@ def check_training_cut(torch, mode: str, device: str = "cuda", model: str = "syn
   def worst(g):
     if not all(bool(torch.isfinite(t).all()) for t in g):
       raise AssertionError(f"training cut ({mode}): non-finite gradients")
-    return max(((a - b).norm() / b.norm().clamp(min=1e-30)).item() for a, b in zip(g, want))
+    return max((((a - b).norm() / b.norm().clamp(min=1e-30)).item(), n)
+               for a, b, n in zip(g, want, names))
 
   loss_err = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
-  err, control_err = worst(got), worst(control[1])
+  (err, leaf), (control_err, _) = worst(got), worst(control[1])
   ok = (loss_err <= TRAIN_LOSS_REL and err <= limit and control_err > limit
         and (device != "cuda" or launched == {"flash_attention": 2, "flash_attention_bwd": 2}))
-  print(f"[training] 2-layer {model} cut, {mode} ({len(got)} trainable leaves), B=2 T=200: loss "
+  print(f"[training] 2-layer {model} cut, {mode} ({len(got)} trainable leaves), B=2 T={seq}: loss "
         f"{loss.item():.5f} against {want_loss.item():.5f} in fp32 on the CPU ({loss_err:.2e}, "
-        f"limit 2^-7); worst gradient error {err:.3e} of its norm (limit {limit:g}); control, "
+        f"limit 2^-7); worst gradient error {err:.3e} of its norm ({leaf}; limit {limit:g}"
+        f"{'; the CPU routed as the card' if routes else ''}); control, "
         f"{dropped}: {control_err:.3e} ({'caught' if control_err > limit else 'NOT caught'}); "
         f"launches {launched} {'ok' if ok else 'FAIL'}", flush=True)
   if not ok:
@@ -7066,20 +7461,21 @@ def word_ids():
 
 
 def write_training_corpus(root: str, words: int = TRAIN_WORDS, lines: int = 40,
-                          test_lines: int = 8) -> str:
+                          test_lines: int = 8, prefix: str = "w", first: int = 3) -> str:
   """train.jsonl, valid.jsonl and test.jsonl of seeded "w<id>" lines (TRAIN_LINE_WORDS
-  words each, ids 3.. drawn from a Zipf law over `words` of them): what a model can
+  words each, ids first.. drawn from a Zipf law over `words` of them; `prefix` "t" for
+  a checkpoint's word tokenizer, which names ids from 105 as t<id>): what a model can
   learn in a few steps is the words' frequencies."""
   import numpy as np
   rng = np.random.default_rng(21)
-  ids = rng.permutation(np.arange(3, 3 + words))
+  ids = rng.permutation(np.arange(first, first + words))
   p = 1.0 / np.arange(1, words + 1)
   p /= p.sum()
   for name, n in (("train", lines), ("valid", test_lines), ("test", test_lines)):
     with open(os.path.join(root, f"{name}.jsonl"), "w") as f:
       for _ in range(n):
         words = rng.choice(ids, size=TRAIN_LINE_WORDS, p=p)
-        f.write(json.dumps({"text": " ".join(f"w{i}" for i in words)}) + "\n")
+        f.write(json.dumps({"text": " ".join(f"{prefix}{i}" for i in words)}) + "\n")
   return root
 
 
@@ -7993,7 +8389,11 @@ def main(argv=None) -> int:
   # bf16 hidden states over TCP, first as two Nodes in this process (launches counted
   # over both engines, every hop's dtype and size read), then as two processes started
   # the way a user starts them; both must stream the main path's temperature-0 tokens.
-  drive_ring_inprocess(torch, card, main_run)
+  per_token = drive_ring_inprocess(torch, card, main_run)
+  fused = drive_ring_fused(torch, card, main_run, per_token)
+  launches["flash_attention"] += sum(f["launches"]["flash_attention"] for f in fused.values())
+  launches["flash_cached_attention"] += sum(f["launches"]["flash_cached_attention"]
+                                            for f in fused.values())
   drive_ring_processes(torch, card, main_run)
 
   # Phase 12: gemma-2-2b from an HF checkpoint on disk, at full width and depth: its
@@ -8039,7 +8439,7 @@ def main(argv=None) -> int:
   # Phase 19: the MoE and vision families from seeded checkpoints at their published
   # widths; their attention and K6 launches join the results line.
   for name, n in check_families(torch, card).items():
-    launches[name] += n
+    launches[name] = launches.get(name, 0) + n
   print(f"[time] phases 1-19: {time.perf_counter() - started:.1f} s", flush=True)
 
   # Phase 20: multi-LoRA serving (adapter cuts against the CPU, main.py --adapters, the

@@ -191,10 +191,11 @@ def test_masked_ce_loss_matches_jax():
     _close(got, want, what=f"lengths {lengths.tolist()}")
 
 
-@pytest.mark.parametrize("model", ["synthetic-tiny", "synthetic-tiny-gemma2"])
+@pytest.mark.parametrize("model", ["synthetic-tiny", "synthetic-tiny-gemma2", "synthetic-tiny-moe"])
 def test_full_model_loss_and_gradients_match_jax(model):
   """Every parameter's gradient; gemma2 brings the softcap, the window on alternate
-  layers, the (1 + w) norms and the tied embedding."""
+  layers, the (1 + w) norms and the tied embedding; the MoE card its router and
+  experts through the dense combine (B*T = 40)."""
   cfg, jcfg, jp, pp = _model(model)
   inputs, targets, lengths = _batch(vocab=cfg.vocab_size, T=20)
   jl, jg = jax.value_and_grad(j_step.full_model_loss)(jax.tree.map(jnp.asarray, jp),
@@ -567,15 +568,16 @@ async def test_training_updates_in_place_and_serving_reads_the_new_weights(jax_w
 
 
 async def test_engine_refusals(monkeypatch):
-  """MoE and vision training are refused before a step; a quantized base without
-  adapters in JAX's words."""
+  """A non-last shard without forward_fn and a quantized base without adapters are
+  refused before a step, in JAX's words; the MoE card, once refused here, trains and
+  evaluates (as JAX's engine does: no family is refused)."""
   eng = TorchShardInferenceEngine(device="cpu", seed=7)
   try:
     n = get_model_card("synthetic-tiny-moe")["layers"]
-    with pytest.raises(ValueError, match="MoE"):
-      await eng.train_example("m", Shard("synthetic-tiny-moe", 0, n - 1, n), *_batch())
-    with pytest.raises(ValueError, match="MoE"):
-      await eng.evaluate_example("m", Shard("synthetic-tiny-moe", 0, n - 1, n), *_batch())
+    loss, _ = await eng.train_example("m", Shard("synthetic-tiny-moe", 0, n - 1, n), *_batch())
+    assert np.isfinite(loss)
+    assert np.isfinite(await eng.evaluate_example("m", Shard("synthetic-tiny-moe", 0, n - 1, n),
+                                                  *_batch()))
     n = get_model_card("synthetic-tiny")["layers"]
     with pytest.raises(ValueError, match="forward_fn"):
       await eng.train_example("m", Shard("synthetic-tiny", 0, 1, n), *_batch())
@@ -1013,3 +1015,287 @@ async def test_train_command_runs_saves_and_resumes_on_the_cpu(monkeypatch, tmp_
 
 async def _hash_tokenizer(model_name, engine_classname):
   return HashTokenizer()
+
+
+# ------------------------------------------------ every family: qwen3-moe and llava
+#
+# The MoE card trains through its router and experts as JAX's forward_shard runs them:
+# the dense combine at B*T > 8 and the routed gather at or under it (the regime is
+# JAX's), int8 experts frozen under QLoRA; llava trains its text stack alone (the tower
+# sits outside the params in both packages). Tolerances as above.
+
+MOE = "synthetic-tiny-moe"
+
+
+def _jax_loss_and_grads(jp, jcfg, b):
+  return jax.value_and_grad(j_step.full_model_loss)(jax.tree.map(jnp.asarray, jp), _jbatch(*b), jcfg)
+
+
+def _port_loss_and_grads(pp, cfg, b):
+  paths = [p for p, _ in step.leaf_paths(pp)]
+  leaves = [t for _, t in step.leaf_paths(pp)]
+  loss, grads = step.value_and_grad(lambda: step.full_model_loss(pp, _pbatch(*b), cfg), leaves)
+  return loss, step.unflatten(paths, grads)
+
+
+@pytest.mark.parametrize("B,T,routed", [(2, 12, False), (1, 9, False), (2, 4, True), (1, 3, True)],
+                         ids=["dense 24", "dense 9", "routed 8", "routed 3"])
+def test_moe_loss_and_gradients_match_jax_in_both_regimes(B, T, routed, monkeypatch):
+  """synthetic-tiny-moe: the loss and every gradient (the router's through the sorted
+  top-k values, every expert slot's) against JAX's full_model_loss, on either side of
+  the B*T = 8 boundary; the port takes the routed gather exactly where JAX does."""
+  from xotorch_tpu_torch.models import transformer
+  cfg, jcfg, jp, pp = _model(MOE)
+  took = []
+  real = transformer._moe_mlp_routed
+  monkeypatch.setattr(transformer, "_moe_mlp_routed", lambda *a: took.append(1) or real(*a))
+  b = _batch(seed=4, B=B, T=T, vocab=cfg.vocab_size, short=B > 1)
+  jl, jg = _jax_loss_and_grads(jp, jcfg, b)
+  loss, grads = _port_loss_and_grads(pp, cfg, b)
+  assert bool(took) == routed
+  _close(loss, jl, what="loss")
+  _trees_close(grads, jg)
+  assert float(np.abs(_np(grads["layers"]["router"])).max()) > 0
+
+
+def _moe_variant(kind):
+  """(port cfg, JAX cfg, JAX params, port params) of synthetic-tiny-moe for `kind`: full,
+  lora, or qlora (int8 experts and attention, adapters on JAX's attention slots only)."""
+  cfg, jcfg, jp, _ = _model(MOE)
+  if kind == "qlora":
+    jp = jax.tree.map(np.asarray, jq.quantize_params(jax.tree.map(jnp.asarray, jp),
+                                                     scale_dtype=jnp.float32))
+  if kind != "full":
+    jp = j_lora.add_lora_params(jax.tree.map(jnp.asarray, jp), rank=4, key=jax.random.PRNGKey(7),
+                                targets=j_lora.ATTN_SLOTS + j_lora.MLP_SLOTS)
+    rng = np.random.default_rng(5)
+    layers = dict(jp["layers"])
+    for k in sorted(layers):
+      if k.endswith("_b"):
+        layers[k] = jnp.asarray((rng.standard_normal(layers[k].shape) * 0.05).astype(np.float32))
+    jp = jax.tree.map(np.asarray, {**jp, "layers": layers})
+  return cfg, jcfg, jp, params_from_jax(jp, cfg)
+
+
+@pytest.mark.parametrize("kind", ["full", "lora", "qlora"])
+def test_moe_adamw_steps_match_optax(kind, monkeypatch):
+  """Three AdamW steps on synthetic-tiny-moe against optax (dense and routed batches
+  mixed): losses within 1e-5, parameters within 1e-3 x lr a step; under LoRA and QLoRA
+  the experts carry no adapter (JAX's sites) and every base leaf, int8 experts and their
+  scales included, stays bit for bit."""
+  cfg, jcfg, jp, pp = _moe_variant(kind)
+  if kind != "full":
+    assert not any(k.startswith("lora_we") for k in pp["layers"])
+  if kind == "qlora":
+    assert pp["layers"]["we_gate"].dtype == torch.int8
+  batches = [_batch(seed=0, T=10, vocab=cfg.vocab_size), _batch(seed=1, B=2, T=4, short=False),
+             _batch(seed=2, T=10, vocab=cfg.vocab_size)]
+  lr, eps = 1e-2, 1e-4
+  monkeypatch.setattr(lora, "ADAMW_EPS", eps)
+  jparams = jax.tree.map(jnp.asarray, jp)
+  if kind == "full":
+    jopt = optax.adamw(lr, eps=eps)
+    popt = lora.adamw([t for _, t in lora.trainable_leaves(pp)], lr)
+  else:
+    jopt = j_lora.masked_optimizer(optax.adamw(lr, eps=eps), jparams)
+    popt = lora.masked_optimizer(pp, lr)
+  jparams, _, jlosses = _optax_run(jparams, jopt, jcfg, batches)
+  before = {k: v.clone() for k, v in pp["layers"].items()}
+  plosses = _port_run(pp, popt, cfg, batches)
+  np.testing.assert_allclose(plosses, jlosses, rtol=1e-5)
+  g, w = _flat(pp), _flat(jax.tree.map(np.asarray, jparams))
+  assert sorted(g) == sorted(w)
+  for path in w:
+    np.testing.assert_allclose(_np(g[path]).astype(np.float64), np.asarray(w[path], np.float64),
+                               rtol=0, atol=1e-3 * lr * len(batches), err_msg="/".join(path))
+  if kind != "full":
+    for k, v in pp["layers"].items():
+      if not k.startswith("lora_"):
+        assert torch.equal(v, before[k]), k
+
+
+@pytest.mark.parametrize("kind", ["full", "lora"])
+def test_moe_moments_file_crosses_between_the_packages(kind, tmp_path):
+  """A MoE card's moments file in JAX's flatten order (router, expert slots, their
+  adapters' neighbours), written by either package and read by the other."""
+  cfg, jcfg, jp, pp = _moe_variant(kind)
+  batches = [_batch(seed=s, T=8) for s in range(2)]
+  jparams = jax.tree.map(jnp.asarray, jp)
+  jopt = optax.adamw(1e-2) if kind == "full" else j_lora.masked_optimizer(optax.adamw(1e-2), jparams)
+  _, jstate, _ = _optax_run(jparams, jopt, jcfg, batches)
+  j_optstate.save_opt_state(jstate, tmp_path / "jax.safetensors")
+  leaves = [t for _, t in lora.trainable_leaves(pp)]
+  popt = lora.adamw(leaves, 1e-2)
+  optstate.load_opt_state(popt, leaves, tmp_path / "jax.safetensors")
+  jleaves = jax.tree_util.tree_leaves(jstate)
+  assert len(jleaves) == 1 + 2 * len(leaves)
+  for i, t in enumerate(leaves):
+    _close(popt.state[t]["exp_avg"], jleaves[1 + i], tol=0)
+    _close(popt.state[t]["exp_avg_sq"], jleaves[1 + len(leaves) + i], tol=0)
+  popt2 = lora.adamw(leaves, 1e-2)
+  _port_run(pp, popt2, cfg, batches)
+  optstate.save_opt_state(popt2, leaves, tmp_path / "port.safetensors")
+  template = jopt.init(j_step.trainable_subtree(jparams))
+  restored = jax.tree_util.tree_leaves(j_optstate.load_opt_state(template, tmp_path / "port.safetensors"))
+  assert int(restored[0]) == 2
+  for i, t in enumerate(leaves):
+    _close(restored[1 + i], popt2.state[t]["exp_avg"], tol=0)
+    _close(restored[1 + len(leaves) + i], popt2.state[t]["exp_avg_sq"], tol=0)
+
+
+@pytest.fixture(scope="module")
+def llava_dir(tmp_path_factory):
+  from tests.test_vision_llava import save_tiny_llava, tiny_llava_cfg
+  d = tmp_path_factory.mktemp("llava-train") / "llava"
+  d.mkdir()
+  save_tiny_llava(d, tiny_llava_cfg(), seed=7)
+  return d
+
+
+def _llava_params(llava_dir):
+  from xotorch_tpu.models.config import load_model_config as j_load_model_config
+  from xotorch_tpu.models.weights import load_shard_params as j_load_shard_params
+  from xotorch_tpu_torch.models.config import load_model_config
+  from xotorch_tpu_torch.models.weights import load_shard_params
+  cfg, jcfg = load_model_config(llava_dir), j_load_model_config(llava_dir)
+  n = cfg.num_layers
+  jp = jax.tree.map(np.asarray, j_load_shard_params(llava_dir, jcfg, JShard("llava", 0, n - 1, n),
+                                                    dtype=jnp.float32))
+  pp = load_shard_params(llava_dir, cfg, Shard("llava", 0, n - 1, n), dtype=torch.float32)
+  return cfg, jcfg, jp, pp
+
+
+def test_llava_text_loss_gradients_and_steps_match_jax(llava_dir, monkeypatch):
+  """llava's text path: the loss and every gradient against JAX's, the tower nowhere in
+  the params; then three LoRA steps against optax's masked AdamW."""
+  cfg, jcfg, jp, pp = _llava_params(llava_dir)
+  assert cfg.is_multimodal and not any("vision" in k or "projector" in k for k in pp)
+  b = _batch(seed=6, T=14, vocab=cfg.vocab_size)
+  jl, jg = _jax_loss_and_grads(jp, jcfg, b)
+  loss, grads = _port_loss_and_grads(pp, cfg, b)
+  _close(loss, jl, what="loss")
+  _trees_close(grads, jg)
+  monkeypatch.setattr(lora, "ADAMW_EPS", 1e-4)
+  jparams = j_lora.add_lora_params(jax.tree.map(jnp.asarray, jp), rank=4, key=jax.random.PRNGKey(3))
+  pp = params_from_jax(jax.tree.map(np.asarray, jparams), cfg)
+  jopt = j_lora.masked_optimizer(optax.adamw(1e-2, eps=1e-4), jparams)
+  batches = [_batch(seed=s, T=10, vocab=cfg.vocab_size) for s in range(3)]
+  _, _, jlosses = _optax_run(jparams, jopt, jcfg, batches)
+  np.testing.assert_allclose(_port_run(pp, lora.masked_optimizer(pp, 1e-2), cfg, batches), jlosses,
+                             rtol=1e-5)
+
+
+@pytest.fixture()
+def family_weights(monkeypatch):
+  """The port's synthetic init replaced by JAX's draw of the same card (dense or MoE)."""
+  def init(cfg, n, first, last, seed=0, dtype=torch.float32, device="cpu", start_layer=0, **_):
+    name = MOE if cfg.is_moe else "synthetic-tiny"
+    jcfg = j_config_from_hf_dict(j_registry.get_model_card(name)["synthetic_config"])
+    jp = j_init_random_params(jcfg, n, first, last, jax.random.PRNGKey(seed), dtype=jnp.float32,
+                              start_layer=start_layer)
+    return params_from_jax(jax.tree.map(np.asarray, jp), cfg, device=device, dtype=dtype)
+  monkeypatch.setattr(engine_mod, "init_random_params", init)
+
+
+def _family_engines(family, llava_dir):
+  if family == "moe":
+    n = get_model_card(MOE)["layers"]
+    return (TorchShardInferenceEngine(device="cpu", seed=7), JAXShardInferenceEngine(dtype="float32"),
+            MOE, n, 256)
+  from xotorch_tpu.download.shard_download import LocalShardDownloader as JLocalShardDownloader
+  from xotorch_tpu_torch.models.config import load_model_config
+  cfg = load_model_config(llava_dir)
+  return (TorchShardInferenceEngine(LocalShardDownloader({"llava": llava_dir}), device="cpu", seed=7),
+          JAXShardInferenceEngine(JLocalShardDownloader({"llava": llava_dir}), dtype="float32"),
+          "llava", cfg.num_layers, cfg.vocab_size)
+
+
+@pytest.mark.parametrize("family", ["moe", "llava"])
+async def test_engine_trains_moe_and_llava_like_the_jax_engine(family, family_weights, llava_dir,
+                                                               monkeypatch):
+  """train_example on one peer, three steps, then evaluate_example: losses within 1e-4
+  of the JAX engine's on the same weights and batches."""
+  monkeypatch.setenv("XOT_LR", "1e-2")
+  port, jeng, model, n, vocab = _family_engines(family, llava_dir)
+  try:
+    got, want = [], []
+    for i in range(3):
+      b = _batch(seed=i, T=14, vocab=vocab)
+      got.append((await port.train_example(f"p{i}", Shard(model, 0, n - 1, n), *b))[0])
+      want.append((await jeng.train_example(f"j{i}", JShard(model, 0, n - 1, n), *b))[0])
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    b = _batch(seed=9, T=14, vocab=vocab)
+    np.testing.assert_allclose(await port.evaluate_example("pe", Shard(model, 0, n - 1, n), *b),
+                               await jeng.evaluate_example("je", JShard(model, 0, n - 1, n), *b),
+                               rtol=1e-4)
+  finally:
+    port.executor.shutdown(wait=True)
+
+
+@pytest.mark.parametrize("family", ["moe", "llava"])
+async def test_two_shard_ring_trains_moe_and_llava_like_the_jax_engines(family, family_weights,
+                                                                        llava_dir, monkeypatch):
+  """Pipelined training over two shards (the first chains to the last through
+  forward_fn, as SendExample does): three steps' losses and an evaluation within 1e-4
+  of JAX's two engines chained the same way."""
+  monkeypatch.setenv("XOT_LR", "1e-2")
+  a, ja, model, n, vocab = _family_engines(family, llava_dir)
+  b_, jb, *_ = _family_engines(family, llava_dir)
+  h = n // 2
+  first, second = Shard(model, 0, h - 1, n), Shard(model, h, n - 1, n)
+  jfirst, jsecond = JShard(model, 0, h - 1, n), JShard(model, h, n - 1, n)
+
+  async def down(activations, target, lengths, train):
+    if train:
+      return await b_.train_example("r", second, activations, target, lengths)
+    return await b_.evaluate_example("r", second, activations, target, lengths), None
+
+  async def jdown(activations, target, lengths, train):
+    if train:
+      return await jb.train_example("r", jsecond, activations, target, lengths)
+    return await jb.evaluate_example("r", jsecond, activations, target, lengths), None
+
+  try:
+    got, want = [], []
+    for i in range(3):
+      batch = _batch(seed=i, T=12, vocab=vocab)
+      got.append((await a.train_example("r", first, *batch, forward_fn=down))[0])
+      want.append((await ja.train_example("r", jfirst, *batch, forward_fn=jdown))[0])
+    np.testing.assert_allclose(got, want, rtol=1e-4)
+    batch = _batch(seed=8, T=12, vocab=vocab)
+    np.testing.assert_allclose(await a.evaluate_example("e", first, *batch, forward_fn=down),
+                               await ja.evaluate_example("e", jfirst, *batch, forward_fn=jdown),
+                               rtol=1e-4)
+  finally:
+    for e in (a, b_):
+      e.executor.shutdown(wait=True)
+
+
+@pytest.mark.parametrize("extra", [[], ["--quantize", "int8"]], ids=["lora", "qlora"])
+async def test_train_command_trains_the_moe_card(monkeypatch, tmp_path, extra):
+  """`main.py train|eval synthetic-tiny-moe` on the CPU with JAX's flags: LoRA, and QLoRA
+  over int8 experts; the loss falls over four steps and the experts stay as loaded."""
+  monkeypatch.setenv("XOT_LR", "1e-2")
+  monkeypatch.setenv("XOT_LORA_RANK", "0")
+  monkeypatch.delenv("XOT_QUANTIZE", raising=False)
+  monkeypatch.setattr(port_main, "resolve_cli_tokenizer", _hash_tokenizer)
+
+  async def run(argv):
+    args = port_main.build_parser().parse_args(argv)
+    node, engine, classname, _ = port_main.build_node(args)
+    try:
+      if args.command == "train":
+        out = await port_main.train_model_cli(node, classname, MOE, args)
+        experts = engine._ctx.params["layers"]["we_up"]
+        return out, experts.dtype
+      return await port_main.eval_model_cli(node, classname, MOE, args)
+    finally:
+      engine.executor.shutdown(wait=True)
+
+  common = ["--device", "cpu", "--batch-size", "2", "--sequence-length", "24", "--lora-rank", "2",
+            "--save-checkpoint-dir", str(tmp_path), *extra]
+  steps, experts_dtype = await run(["train", MOE, "--iters", "4", "--save-every", "0", *common])
+  assert [it for it, _ in steps] == [1, 2, 3, 4]
+  assert steps[-1][1] < steps[0][1]
+  assert experts_dtype == (torch.int8 if extra else torch.float32)
+  assert np.isfinite(await run(["eval", MOE, *common]))

@@ -139,10 +139,28 @@ donor frees nothing that an adapter context still holds: the tensors go with the
 last reference. `load_checkpoint` / `save_checkpoint` move adapter-only files, shard
 saves and full checkpoints (the JAX engine's, without the optimizer's moments).
 
-Left out so far: the training leaf (train_example, evaluate_example, the optimizer),
-the fused in-process ring (`supports_ring_fusion`) and the ring's
-speculation (`verify_draft_ring`), device-resident hops, and the KV fabric between
-replicas.
+Training (the JAX engine's): `train_example`, `evaluate_example`, `save_session` and the
+moments file serve every family, as in JAX: qwen3-moe through its router and experts
+(the dense combine at B*T > 8, the routed gather at or under it; int8 experts frozen
+under QLoRA, never an adapter site) and llava on its text path (the tower stays in
+`ctx.vision`, outside the params).
+
+Co-located partitions (the JAX engine's `supports_device_io` and
+`supports_ring_fusion`): `infer_prompt` / `infer_tensor` with `keep_on_device` hand the
+output to a next partition in this process as the device tensor (counted in
+`device_hops`; a hop to the host counts its bytes in `host_hop_bytes`).
+`generate_chunk_ring`, driven from the last partition's engine, decodes a chain of
+partitions in this process in fused chunks: on the card replays of one captured
+composite step over every segment (models/graphs.decode_ring, a graph cache of its own
+that every segment's cache drops with it), with the solo overlap (`_ring_spec`), a
+batcher a chain (`_ring_batch_sync`) and the ring's verify (`verify_draft_ring`). It
+declines (`_ring_declines`), and the Node takes the per-token ring, only where JAX's
+does: a request with sampling extras, a chain that does not cover the layers
+contiguously, positions out of lockstep (and, batched, a member without room).
+
+Left out so far: `forward_paged` and XOT_PAGED_KERNEL (the card always takes the paged
+kernels), and everything that needs more than one card: tensor, sequence and expert
+parallelism, ring attention, multihost training.
 """
 from __future__ import annotations
 
@@ -151,6 +169,7 @@ import contextlib
 import hashlib
 import threading
 import time
+import weakref
 import zlib
 from collections import OrderedDict
 from concurrent.futures import ThreadPoolExecutor
@@ -174,8 +193,10 @@ from xotorch_tpu_torch.inference.torch_engine.paged_cache import (PagePool, comm
 from xotorch_tpu_torch.inference.torch_engine.vkv import VirtualKV
 from xotorch_tpu_torch.models.config import ModelConfig, config_from_hf_dict, load_model_config
 from xotorch_tpu_torch.models import graphs
-from xotorch_tpu_torch.models.generate import (decode_chunk_batched, decode_chunk_paged, forward_argmax,
-                                               forward_argmax_paged, forward_sample, prefill_scan,
+from xotorch_tpu_torch.models.generate import (decode_chunk_batched, decode_chunk_paged,
+                                               decode_chunk_ring, decode_chunk_ring_batched,
+                                               forward_argmax, forward_argmax_paged,
+                                               forward_argmax_ring, forward_sample, prefill_scan,
                                                scan_groups)
 from xotorch_tpu_torch.models.quantize import (QUANT_DTYPES, dequantize_params, is_quantized,
                                                quantize_params, quantized_bytes)
@@ -286,7 +307,7 @@ class _Pending(NamedTuple):
 
 class _DecodeBatcher:
   """Continuous batching at chunk granularity (the port of the JAX engine's
-  _DecodeBatcher, without its ring dispatch).
+  _DecodeBatcher).
 
   Concurrent requests each drive their own decode loop; this collector coalesces
   their generate_chunk calls into ONE batched dispatch per drain cycle. Coalescing
@@ -301,11 +322,18 @@ class _DecodeBatcher:
   slices (the engine's _prefill_and_sample cuts a long prompt into calls of
   XOT_PREFILL_CHUNK_BUDGET segments) and each cycle runs its decode dispatches first,
   then ONE slice, so the streams already decoding stall at most one slice a cycle,
-  never a whole prompt."""
+  never a whole prompt.
 
-  def __init__(self, engine: "TorchShardInferenceEngine", ctx: _ShardContext):
+  A fused ring's batcher (`generate_chunk_ring`, one a chain) has no context of its
+  own: `dispatch` is the engine's `_ring_batch_sync`, and a submitted item's `state`
+  slot carries the request's ring segments."""
+
+  def __init__(self, engine: "TorchShardInferenceEngine", ctx: Optional[_ShardContext],
+               dispatch=None):
     self.engine = engine
     self.ctx = ctx
+    # (items, num_tokens, top_k, top_p) -> one result a row (None: the row declined).
+    self.dispatch = dispatch or partial(engine._decode_batch_sync, ctx)
     self.pending: List[_Pending] = []
     # (call, future, enqueue time, tokens, dispatch key, start position) a slice
     self.pending_prefill: list = []
@@ -391,15 +419,15 @@ class _DecodeBatcher:
             chunk = items[off:off + cap]
             try:
               t0 = time.monotonic()
-              results = await self.engine._run(self.engine._decode_batch_sync, self.ctx, chunk,
-                                               num_tokens, top_k, top_p)
+              results = await self.engine._run(self.dispatch, chunk, num_tokens, top_k, top_p)
+              steps = max((len(r) for r in results if r is not None), default=0)
               fl = self.engine.flight
               if fl is not None:
                 fl.record("batcher.dispatch", None, lead=chunk[0].request_id, batch=len(chunk),
-                          tokens=len(results[0]), secs=round(time.monotonic() - t0, 6))
+                          tokens=steps, secs=round(time.monotonic() - t0, 6))
               self.dispatches += 1
-              self.rows += len(chunk)
-              self.steps += len(results[0])
+              self.rows += sum(r is not None for r in results)
+              self.steps += steps
               for it, toks in zip(chunk, results):
                 if not it.future.done():
                   it.future.set_result(toks)
@@ -413,7 +441,7 @@ class _DecodeBatcher:
         # Let the resolved requests' loops take their tokens and submit again before
         # the next take, so steady-state batches stay wide.
         await asyncio.sleep(0)
-      pool = self.ctx.page_pool
+      pool = self.ctx.page_pool if self.ctx is not None else None
       if pool is not None and self.engine.defrag and pool.fragmentation() > 0:
         try:
           await self.engine._run(self.engine._defrag_sync, self.ctx)
@@ -561,6 +589,19 @@ class TorchShardInferenceEngine(InferenceEngine):
     self._draft_retry_at = 0.0
     self._draft_generator = torch.Generator(device=self.device)
     self._draft_generator.manual_seed(0)
+    # The fused in-process ring, driven from the last partition's engine: the ring chunk
+    # dispatched ahead of each request, the batcher of each chain, the graph cache of
+    # each chain of contexts (on the card), chunks and batched dispatches run, and the
+    # chunks that declined to the per-token ring, by reason.
+    self._ring_spec: Dict[str, dict] = {}
+    self._ring_batchers: Dict[tuple, _DecodeBatcher] = {}
+    self._ring_graphs: Dict[tuple, Tuple[list, graphs.GraphCache]] = {}
+    self._ring_chunks = self._ring_batch_dispatches = self._ring_batch_rows = 0
+    self._ring_declines: Dict[str, int] = {}
+    # Device-resident hops: outputs handed to a co-located next partition on the
+    # device, and the bytes of hidden states copied to the host for a hop.
+    self.device_hops = 0
+    self.host_hop_bytes = 0
 
   # ------------------------------------------------------------- accessors
 
@@ -633,6 +674,7 @@ class TorchShardInferenceEngine(InferenceEngine):
     n_snap = n_state = n_spill = n_ctx = 0
     # A record must never resolve against a state made again after the recovery.
     self._spec_next.clear()
+    self._ring_spec.clear()
     for ctx in self._contexts.values():
       ctx.batch_spec = None
       if ctx.graphs is not None:
@@ -1241,12 +1283,11 @@ class TorchShardInferenceEngine(InferenceEngine):
     return ctx.optimizer
 
   def _check_example(self, ctx: _ShardContext, train: bool) -> None:
-    """Refuse, before any step, what the training forward does not serve."""
+    """Refuse, before any step, what the training forward does not serve. Every family
+    trains, as in JAX: qwen3-moe through its router and experts (the dense combine at
+    B*T > 8, the routed gather at or under it; int8 experts stay frozen), llava on its
+    text path (the tower lives in `ctx.vision`, outside the params)."""
     model = ctx.shard.model_id
-    if ctx.cfg.is_moe or ctx.cfg.is_multimodal:
-      raise ValueError(f"{model}: training and evaluation serve the dense text families; "
-                       f"{'MoE experts' if ctx.cfg.is_moe else 'the vision tower'} have no "
-                       f"training forward in xotorch_tpu_torch")
     if not train:
       return
     if self.device.type == "cuda":
@@ -1619,11 +1660,13 @@ class TorchShardInferenceEngine(InferenceEngine):
     or a contiguous buffer) goes back at once."""
     self._drop_state(ctx, request_id)
 
-  def _infer_sync(self, ctx: _ShardContext, request_id: str, input_data):
+  def _infer_sync(self, ctx: _ShardContext, request_id: str, input_data,
+                  keep_on_device: bool = False):
     """The shard's output on the host: fp32 logits from the last shard as numpy; a
     hidden state in the model's dtype, so a hop carries what the next shard computes
     in. numpy has no bfloat16, so a bf16 hidden state stays a CPU torch tensor, which
-    the wire codec sends as raw bf16."""
+    the wire codec sends as raw bf16. With `keep_on_device` (the next partition shares
+    this process) the output stays the device tensor: no host copy."""
     t0, captures = time.monotonic(), self._captures(ctx)
     start, paged = self._start_of(ctx, request_id, input_data)
     true_t = input_data.shape[1]
@@ -1640,19 +1683,33 @@ class TorchShardInferenceEngine(InferenceEngine):
     for off in range(off0, true_t, chunk):
       out, t = self._forward_segment(ctx, request_id, input_data[:, off:off + chunk])
       outs.append(out[:, :t])
-    out = (outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)).cpu()
+    out = outs[0] if len(outs) == 1 else torch.cat(outs, dim=1)
     self._observe_forward(ctx, ("infer", _bucket(true_t)), true_t, start, paged, t0, captures)
+    return self._hop_output(ctx, out, keep_on_device)
+
+  def _hop_output(self, ctx: _ShardContext, out: torch.Tensor, keep_on_device: bool):
+    """A forward's output as the caller takes it: the device tensor for a co-located
+    next partition (counted in `device_hops`), else on the host (a hidden state's bytes
+    counted in `host_hop_bytes`)."""
+    if keep_on_device:
+      self.device_hops += 1
+      return out
+    out = out.cpu()
+    if not ctx.shard.is_last_layer:
+      self.host_hop_bytes += out.numel() * out.element_size()
     return out if out.dtype == torch.bfloat16 else out.numpy()
 
   async def infer_prompt(self, request_id: str, shard: Shard, prompt: str,
                          inference_state: Optional[dict] = None, images: Optional[list] = None,
-                         **engine_kwargs) -> Tuple[Any, Optional[dict]]:
+                         keep_on_device: bool = False) -> Tuple[Any, Optional[dict]]:
     """The text path (encode, then infer_tensor), or with `images` the multimodal
     prefill (`_infer_multimodal_sync`): its logits, or hidden states on a first shard
-    that is not the last, come back to the host, which samples the first token."""
+    that is not the last, come back to the host, which samples the first token.
+    `keep_on_device`: see infer_tensor."""
     ctx = await self._ensure_ctx(shard)
     if not images:
-      return await super().infer_prompt(request_id, shard, prompt, inference_state)
+      return await super().infer_prompt(request_id, shard, prompt, inference_state,
+                                        keep_on_device=keep_on_device)
     if not ctx.cfg.is_multimodal:
       # The API refuses this earlier; never answer about an image the model cannot see.
       raise ValueError(f"model {shard.model_id} does not support image input")
@@ -1660,11 +1717,11 @@ class TorchShardInferenceEngine(InferenceEngine):
     with self._engine_span("engine.prefill", request_id,
                            {"tokens": int(tokens.size), "images": len(images)}):
       out = await self._run(self._infer_multimodal_sync, ctx, request_id, tokens.reshape(-1),
-                            images)
+                            images, keep_on_device)
     return out, inference_state
 
   def _infer_multimodal_sync(self, ctx: _ShardContext, request_id: str, token_ids: np.ndarray,
-                             images: list):
+                             images: list, keep_on_device: bool = False):
     """The multimodal prefill (JAX's): the images through the vision tower and the
     projector, their features spliced in at the `<image>` placeholders of the prompt's
     embeddings, and the merged sequence, padded to its bucket, through the text stack
@@ -1697,14 +1754,22 @@ class TorchShardInferenceEngine(InferenceEngine):
                            use_flash_decode=not use_flash, start_layer=ctx.shard.start_layer,
                            route=self.quant_route)
     self._advance(ctx, state, true_t)
-    out = out[:, :true_t].cpu()
     self._observe_forward(ctx, ("multimodal", bucket), true_t, start, False, t0, captures)
-    return out if out.dtype == torch.bfloat16 else out.numpy()
+    return self._hop_output(ctx, out[:, :true_t], keep_on_device)
+
+  # The Node hands a co-located next partition the device tensor when the engine has
+  # this flag (`keep_on_device`).
+  supports_device_io = True
 
   async def infer_tensor(self, request_id: str, shard: Shard, input_data,
-                         inference_state: Optional[dict] = None) -> Tuple[Any, Optional[dict]]:
+                         inference_state: Optional[dict] = None,
+                         keep_on_device: bool = False) -> Tuple[Any, Optional[dict]]:
+    """The shard's forward of `input_data` (tokens, or a hidden state: numpy, a CPU
+    tensor off the wire, or a device tensor from a co-located partition). With
+    `keep_on_device` the output stays on the device for the next partition in this
+    process (the JAX engine's device-resident hop), else it comes to the host."""
     ctx = await self._ensure_ctx(shard)
-    out = await self._run(self._infer_sync, ctx, request_id, input_data)
+    out = await self._run(self._infer_sync, ctx, request_id, input_data, keep_on_device)
     return out, inference_state
 
   async def infer_sample_tensor(
@@ -2422,6 +2487,343 @@ class TorchShardInferenceEngine(InferenceEngine):
     for state in states:
       state.last_used = now
     return [host[i] for i in range(len(states))]
+
+  # ------------------------------------------------------------ the fused ring
+  #
+  # A ring whose partitions all live in this process (the Node's _inprocess_chain)
+  # decodes a chunk as one composite program, driven from the last partition's engine:
+  # every partition keeps its params and its request's cache in its own engine's
+  # context, where the per-token ring keeps them, so entering or leaving the fused
+  # path moves nothing. The driving engine touches the other partitions' states only
+  # here, for the request's lifetime (the ring loop is its only driver).
+
+  # The Node's fusion check: every partition of a chain must be served, in this
+  # process, by an engine with this flag.
+  supports_ring_fusion = True
+
+  def _ring_decline(self, reason: str) -> None:
+    self._ring_declines[reason] = self._ring_declines.get(reason, 0) + 1
+
+  def ring_stats(self) -> Dict[str, Any]:
+    """The fused ring's counts on this (driving) engine: chunks run, batched dispatches
+    and their rows, chunks that declined to the per-token ring by reason, and the ring
+    chunks dispatched ahead that hit and missed (with the solo ones)."""
+    return {"chunks": self._ring_chunks, "batch_dispatches": self._ring_batch_dispatches,
+            "batch_rows": self._ring_batch_rows, "declines": dict(self._ring_declines),
+            "overlap_hits": self._overlap_hits, "overlap_misses": self._overlap_misses}
+
+  async def generate_chunk_ring(
+    self, request_id: str, chain, prev_token: int, num_tokens: int,
+    temp: float = DEFAULT_TEMP, top_k: int = DEFAULT_TOP_K, top_p: float = 0.0,
+    next_size: Optional[int] = None,
+  ) -> Optional[np.ndarray]:
+    """Up to `num_tokens` tokens of a co-located ring's request in one fused chunk:
+    `chain` is the ring-ordered [(engine, shard)] covering layers 0..N-1, every engine in
+    this process. On the card the chunk is replays of one captured composite step
+    (graphs.decode_ring), on the CPU the eager body (generate.decode_chunk_ring). With
+    XOT_DECODE_BATCH > 1 concurrent requests on the same chain coalesce into one batched
+    dispatch. Returns None where the chain or the request does not qualify
+    (`_resolve_ring_segs`) or its positions left lockstep: the caller takes the
+    per-token ring."""
+    if num_tokens < 1:
+      return None
+    segs = self._resolve_ring_segs(request_id, chain)
+    if segs is None:
+      return None
+    nxt = int(next_size) if next_size else None
+    if self.decode_batch > 1:
+      chain_key = tuple((id(eng), sh) for eng, sh in chain)
+      batcher = self._ring_batchers.get(chain_key)
+      if batcher is None:
+        batcher = self._ring_batchers[chain_key] = _DecodeBatcher(self, None,
+                                                                  dispatch=self._ring_batch_sync)
+      return await batcher.submit(request_id, segs, int(prev_token), int(num_tokens), float(temp),
+                                  int(top_k), float(top_p), nxt)
+    return await self._run(self._ring_chunk_sync, segs, request_id, int(prev_token),
+                           int(num_tokens), float(temp), int(top_k), float(top_p), nxt)
+
+  def _resolve_ring_segs(self, request_id: str, chain) -> Optional[list]:
+    """The [(engine, context, state)] segments of a co-located chain, or None (counted)
+    when it does not qualify: fewer than two partitions, partitions that do not cover
+    layers 0..N-1 contiguously, an engine that cannot fuse, or a request with sampling
+    extras (its sampler applies them per token). A segment whose context or request
+    state is gone raises RequestStateLost, as generate_chunk does. One rule for the
+    fused chunk, the batch and the ring's verify."""
+    shards = [s for _, s in chain]
+    if (len(chain) < 2 or not (shards[0].is_first_layer and shards[-1].is_last_layer)
+        or any(b.start_layer != a.end_layer + 1 for a, b in zip(shards, shards[1:]))):
+      self._ring_decline("chain")
+      return None
+    segs = []
+    for eng, sh in chain:
+      if not (getattr(eng, "supports_ring_fusion", False)
+              and isinstance(eng, TorchShardInferenceEngine)):
+        self._ring_decline("engine")
+        return None
+      ctx = eng._contexts.get(sh)
+      if ctx is None:
+        raise RequestStateLost(f"request {request_id}: model context {sh.model_id} "
+                               f"[{sh.start_layer}-{sh.end_layer}] evicted mid-generation")
+      state = ctx.states.get(request_id)
+      if state is None:
+        raise RequestStateLost(f"request {request_id}: device state for layers "
+                               f"[{sh.start_layer}-{sh.end_layer}] evicted mid-generation")
+      if state.extras is not None:
+        self._ring_decline("extras")
+        return None
+      eng._contexts.move_to_end(sh)
+      ctx.states.move_to_end(request_id)
+      segs.append((eng, ctx, state))
+    return segs
+
+  def _ring_graph_cache(self, segs: list) -> Optional[graphs.GraphCache]:
+    """The graph cache of this chain of contexts, made at its first use and listed in
+    every segment context's cache as a dependent (whatever clears a segment's graphs
+    clears the ring's); None where the contexts have no graph caches (the CPU)."""
+    ctxs = [ctx for _, ctx, _ in segs]
+    if any(c.graphs is None for c in ctxs):
+      return None
+    key = tuple(id(c) for c in ctxs)
+    entry = self._ring_graphs.get(key)
+    if entry is not None and all(r() is c for r, c in zip(entry[0], ctxs)):
+      return entry[1]
+    if entry is not None:  # another chain of contexts at recycled addresses
+      entry[1].clear()
+    gc = type(ctxs[-1].graphs)(self.device)
+    for c in ctxs:
+      c.graphs.dependents.add(gc)
+    self._ring_graphs[key] = ([weakref.ref(c) for c in ctxs], gc)
+    return gc
+
+  def _ring_dispatch(self, members: List[list], toks_in: torch.Tensor, num_tokens: int,
+                     temps: torch.Tensor, top_k: int, top_p: float) -> torch.Tensor:
+    """Enqueue one fused chunk for 1..B requests of one chain (`members`: each request's
+    segments) from `toks_in` [B, 1] on the device, and advance every segment's position;
+    returns the [B, num_tokens] tokens on the device, not yet read back. Every cache of
+    the chain first grows to one length that holds the chunk (one key for all the
+    segments)."""
+    n_seg = len(members[0])
+    states = [st for m in members for _, _, st in m]
+    target = max(max(st.pos + num_tokens for st in states),
+                 max(st.cache["k"].shape[2] for st in states))
+    for m in members:
+      for eng, ctx, st in m:
+        if st.cache["k"].shape[2] < target:
+          eng._grow_cache(ctx, st, target)
+    segs0 = members[0]
+    params_segs = [ctx.params for _, ctx, _ in segs0]
+    start_layers = [ctx.shard.start_layer for _, ctx, _ in segs0]
+    cfg = segs0[-1][1].cfg
+    seg_caches = [[m[i][2].cache for m in members] for i in range(n_seg)]
+    pos = self._device_values([m[0][2].pos for m in members], torch.int32)
+    gc = self._ring_graph_cache(segs0)
+    t0, captures = time.monotonic(), gc.captures if gc is not None else 0
+    if gc is not None:
+      toks = graphs.decode_ring(gc, params_segs, seg_caches, toks_in, pos, cfg, num_tokens, temps,
+                                top_k, top_p, start_layers, route=self.quant_route,
+                                generator=self.generator)
+    elif len(members) == 1:
+      toks, _ = decode_chunk_ring(params_segs, toks_in, [c[0] for c in seg_caches], pos, cfg,
+                                  num_tokens, temps, top_k, top_p, start_layers,
+                                  route=self.quant_route, generator=self.generator)
+    else:
+      B = len(members)
+      toks, split = decode_chunk_ring_batched(
+        params_segs, seg_caches, toks_in, pos, cfg, num_tokens, temps, top_k, top_p, start_layers,
+        pad_rows=_bucket(B, 1) - B, route=self.quant_route, generator=self.generator)
+      for i in range(n_seg):
+        for m, cache in zip(members, split[i]):
+          m[i][2].cache = cache
+    now = time.monotonic()
+    for st in states:
+      st.pos += num_tokens
+      st.last_used = now
+    self._ring_chunks += 1
+    self._observe_dispatch("decode", ("ring", n_seg, _bucket(len(members), 1), top_k, top_p),
+                           now - t0, batch=len(members), tokens=num_tokens,
+                           captured=(gc.captures - captures) if gc is not None else 0)
+    return toks
+
+  def _ring_chunk_sync(self, segs: list, request_id: str, prev_token: int, num_tokens: int,
+                       temp: float, top_k: int, top_p: float,
+                       next_size: Optional[int]) -> Optional[np.ndarray]:
+    """One request's fused ring chunk, with the solo overlap (XOT_OVERLAP_CHUNKS) over
+    the whole chain: the chunk the last call dispatched ahead is taken when it matches
+    (same states, input token, size and sampler, every position where it left them),
+    else every segment rolls back; then the caller's next chunk is dispatched from this
+    chunk's last token on the device before this one is read back. None (counted) when
+    the segments' positions left lockstep. Capacity is the shortest segment's
+    max_cache_len: a chunk past it shrinks to the largest power of two that fits."""
+    states = [st for _, _, st in segs]
+    spec = self._ring_spec.pop(request_id, None)
+    hit = (spec is not None and len(spec["states"]) == len(states)
+           and all(a is b for a, b in zip(spec["states"], states))
+           and spec["prev"] == prev_token and spec["n"] == num_tokens and spec["temp"] == temp
+           and spec["top_k"] == top_k and spec["top_p"] == top_p
+           and all(st.pos == spec["pos"] + spec["n"] for st in states))
+    if spec is not None:
+      self._overlap_hits += hit
+      self._overlap_misses += not hit
+      if not hit:
+        self._ring_rollback(spec)
+    max_len = min(ctx.max_cache_len for _, ctx, _ in segs)
+    if hit:
+      toks, temps = spec["toks"], spec["temps"]
+    else:
+      pos = states[0].pos
+      if any(st.pos != pos for st in states):
+        self._ring_decline("lockstep")
+        return None
+      if pos + num_tokens > max_len:
+        if pos + 1 > max_len:
+          raise CacheExhausted(f"request {request_id}: cache full at {pos}/{max_len}")
+        num_tokens = min(num_tokens, 1 << ((max_len - pos).bit_length() - 1))
+      temps = self._device_values([temp], torch.float32)
+      toks = self._ring_dispatch([segs], self._device_values([[prev_token]], torch.int64),
+                                 num_tokens, temps, top_k, top_p)
+    now = time.monotonic()
+    last_ctx, last_state = segs[-1][1], states[-1]
+    others_active = any(st is not last_state and now - st.last_used < 1.0
+                        for st in list(last_ctx.states.values()))
+    ahead = record = None
+    if next_size and self.overlap and not others_active and states[0].pos + next_size <= max_len:
+      gc = self._ring_graph_cache(segs)
+      if gc is not None and self.device.type == "cuda":
+        ahead = graphs.host_copy(gc, toks)
+      pos_before = states[0].pos
+      ntoks = self._ring_dispatch([segs], toks[:, -1:], next_size, temps, top_k, top_p)
+      record = {"toks": ntoks, "n": next_size, "pos": pos_before, "temp": temp, "top_k": top_k,
+                "top_p": top_p, "temps": temps, "states": list(states)}
+    host = self._read_back(None, toks, ahead)[0]
+    if record is not None:
+      record["prev"] = int(host[-1])
+      self._ring_spec[request_id] = record
+    return host
+
+  @staticmethod
+  def _ring_rollback(spec: dict) -> None:
+    """Roll back the states a ring chunk dispatched ahead advanced (the recorded ones:
+    a replaced state keeps its own position)."""
+    for st in spec["states"]:
+      if st.pos == spec["pos"] + spec["n"]:
+        st.pos = spec["pos"]
+
+  def _ring_batch_sync(self, items: List[_Pending], num_tokens: int, top_k: int,
+                       top_p: float) -> list:
+    """The ring batcher's dispatch (an item's `state` holds its segments). A batch of
+    one is `_ring_chunk_sync`, with its overlap; 2..B requests roll back any chunk
+    dispatched ahead for them and run one batched fused chunk
+    (decode_chunk_ring_batched's program). A member whose positions left lockstep, or
+    whose caches cannot hold the chunk, gets None (counted): its loop takes the
+    per-token ring, which drains the cache's tail."""
+    if len(items) == 1:
+      it = items[0]
+      return [self._ring_chunk_sync(it.state, it.request_id, it.prev_token, num_tokens, it.temp,
+                                    top_k, top_p, it.next_size)]
+    results: list = [None] * len(items)
+    members = []
+    for i, it in enumerate(items):
+      states = [st for _, _, st in it.state]
+      spec = self._ring_spec.pop(it.request_id, None)
+      if spec is not None:
+        self._overlap_misses += 1
+        self._ring_rollback(spec)
+      if any(st.pos != states[0].pos for st in states):
+        self._ring_decline("lockstep")
+        continue
+      if states[0].pos + num_tokens > min(ctx.max_cache_len for _, ctx, _ in it.state):
+        self._ring_decline("capacity")
+        continue
+      members.append((i, it))
+    if not members:
+      return results
+    temps = self._device_values([it.temp for _, it in members], torch.float32)
+    toks_in = self._device_values([[it.prev_token] for _, it in members], torch.int64)
+    toks = self._ring_dispatch([it.state for _, it in members], toks_in, num_tokens, temps,
+                               top_k, top_p)
+    host = self._read_back(None, toks, None)
+    for b, (i, _) in enumerate(members):
+      results[i] = host[b]
+    self._ring_batch_dispatches += 1
+    self._ring_batch_rows += len(members)
+    return results
+
+  async def verify_draft_ring(self, request_id: str, chain, prev_token: int,
+                              draft: list) -> Optional[list]:
+    """Greedy draft verification through every partition of a co-located ring in one
+    composite forward (JAX's): [prev_token] + draft, the longest agreeing prefix and the
+    bonus token, as verify_draft on one shard. None where the chain does not qualify or
+    there is no room: the caller decodes plainly."""
+    if not draft:
+      return None
+    segs = self._resolve_ring_segs(request_id, chain)
+    if segs is None:
+      return None
+    return await self._run(self._ring_verify_sync, segs, request_id, int(prev_token),
+                           [int(t) for t in draft])
+
+  def _ring_verify_sync(self, segs: list, request_id: str, prev_token: int,
+                        draft: list) -> Optional[list]:
+    """[prev_token] + draft padded to a power-of-two bucket through every segment from
+    the committed position (K2 at T > 1 in each; one graph replay on the card,
+    graphs.verify_ring, the eager forward_argmax_ring on the CPU). Room is judged from
+    the committed position before the chunk dispatched ahead is dropped (near the
+    cache's end every round would otherwise throw it away); a verify that runs rolls
+    it back first. Every segment moves to the accepted position."""
+    states = [st for _, _, st in segs]
+    T = 1 + len(draft)
+    T_pad = _bucket(T)
+    max_len = min(ctx.max_cache_len for _, ctx, _ in segs)
+    spec = self._ring_spec.get(request_id)
+    committed = (spec["pos"] if spec is not None
+                 and all(st.pos == spec["pos"] + spec["n"] for st in spec["states"])
+                 else states[0].pos)
+    if committed + T_pad > max_len:
+      return None
+    spec = self._ring_spec.pop(request_id, None)
+    if spec is not None:
+      self._overlap_misses += 1
+      self._ring_rollback(spec)
+    pos = states[0].pos
+    if any(st.pos != pos for st in states):
+      self._ring_decline("lockstep")
+      return None
+    for eng, ctx, st in segs:
+      if st.cache["k"].shape[2] < pos + T_pad:
+        eng._grow_cache(ctx, st, pos + T_pad)
+    t0 = time.monotonic()
+    row = [prev_token] + draft + [0] * (T_pad - T)
+    x = self._device_values([row], torch.int64)
+    params_segs = [ctx.params for _, ctx, _ in segs]
+    start_layers = [ctx.shard.start_layer for _, ctx, _ in segs]
+    caches = [st.cache for st in states]
+    gc = self._ring_graph_cache(segs)
+    captures = gc.captures if gc is not None else 0
+    if gc is not None:
+      preds = graphs.verify_ring(gc, params_segs, x, caches, pos, segs[-1][1].cfg, start_layers,
+                                 route=self.quant_route)
+    else:
+      preds, _ = forward_argmax_ring(params_segs, x, caches, pos, segs[-1][1].cfg, start_layers,
+                                     route=self.quant_route)
+    preds = preds[0, :T].cpu().numpy()
+    n_acc = 0
+    while n_acc < len(draft) and int(preds[n_acc]) == draft[n_acc]:
+      n_acc += 1
+    accepted = draft[:n_acc] + [int(preds[n_acc])]
+    now = time.monotonic()
+    for st in states:
+      st.pos = pos + 1 + n_acc
+      st.last_used = now
+    self._spec_proposed += len(draft)
+    self._spec_accepted += n_acc
+    self._observe_spec(len(draft), n_acc)
+    self._observe_dispatch("verify", ("verify", "ring", T_pad), now - t0, tokens=T_pad,
+                           captured=(gc.captures - captures) if gc is not None else 0,
+                           emitted=len(accepted))
+    if self.flight is not None:
+      self.flight.record("spec.verify", request_id, drafted=len(draft), accepted=n_acc,
+                         paged=False)
+    return accepted
 
   def _discard_spec(self, request_id: str, state: Optional[_RequestState] = None) -> None:
     """Drop a request's chunk dispatched ahead and roll its position back. Every other
@@ -3151,6 +3553,7 @@ class TorchShardInferenceEngine(InferenceEngine):
     under a running dispatch)."""
     def _clear() -> None:
       self._spec_next.pop(request_id, None)
+      self._ring_spec.pop(request_id, None)
       for ctx in list(self._contexts.values()):
         self._discard_batch_spec_for(ctx, request_id)
         for rid in (request_id, self._draft_rid(request_id)):

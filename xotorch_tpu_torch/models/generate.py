@@ -1,9 +1,11 @@
 """Forward + on-device sampling, multi-token decode alone or batched, the
-segment-scan prefill, and draft verification's forward + argmax.
+segment-scan prefill, draft verification's forward + argmax, and the fused ring of
+co-located partitions.
 
 The port of xotorch_tpu/models/generate.py (`forward_sample`, `decode_chunk`,
 `decode_chunk_batched`, `decode_chunk_paged`, `scan_groups`, `prefill_scan`,
-`forward_argmax_paged`). Where JAX
+`forward_argmax_paged`, `decode_chunk_ring`, `forward_argmax_ring`,
+`decode_chunk_ring_batched`). Where JAX
 runs a decode chunk as ONE XLA program (`lax.scan` over K steps under `jax.jit`), the
 port splits out the step: `decode_step` is one forward + sampling over buffers it
 updates in place (token in and out, positions, the cache or the page arena), with no
@@ -13,7 +15,9 @@ the counterpart of the jitted scan. `prefill_scan` runs a long prompt's equal
 segments, each through the cached-attention kernels (K2, or K4 on the page arena),
 and returns every position's last-layer hidden state; on the card a power-of-two
 group of segments is one captured graph. The cache, or the page arena, is updated in
-place where JAX donated it.
+place where JAX donated it. A ring of partitions that share one process decodes the
+same way: `decode_step_ring` chains every partition's layer stack (each over its own
+params and cache) and samples, one step of the composite program JAX scans.
 """
 from __future__ import annotations
 
@@ -369,3 +373,137 @@ def decode_chunk_paged(
     gumbel=gumbel, page_table=table.contiguous(), route=route, top_lp=top_lp,
     **_padded_extras(pad_rows, bias, counts, presence, frequency, min_p))
   return tuple([res[0][:B], res[1]] + _real_rows(res[2:], B))
+
+
+# ------------------------------------------------------------------ the fused ring
+
+def _ring_forward(params_segs: Sequence, x: torch.Tensor, caches: Sequence[Dict[str, torch.Tensor]],
+                  pos: Union[int, torch.Tensor], cfg: ModelConfig, start_layers: Sequence[int],
+                  route: Optional[QuantRoute]) -> torch.Tensor:
+  """x through every partition in ring order, each over its own params and cache (K2 at
+  every segment's attention), then the last partition's unembedding: fp32 logits."""
+  h = x
+  for i, (params, cache) in enumerate(zip(params_segs, caches)):
+    h, _ = forward_shard(params, h, cache, pos, cfg=cfg, is_first=i == 0, is_last=False,
+                         use_flash_decode=True, start_layer=start_layers[i], route=route)
+  return unembed(params_segs[-1], h, cfg)
+
+
+def decode_step_ring(
+  params_segs: Sequence,  # each partition's params, ring order (first .. last)
+  tok: torch.Tensor,  # [B, 1] int64: the token to forward; the sampled one on return
+  caches: Sequence[Dict[str, torch.Tensor]],  # each partition's [L_i, B, S, ...] cache
+  pos: torch.Tensor,  # [B] int32: each row's position of `tok`; advanced by one
+  cfg: ModelConfig,
+  temp: Union[float, torch.Tensor],
+  top_k: int,
+  top_p: float = 0.0,
+  start_layers: Sequence[int] = (0,),  # each partition's absolute first layer
+  route: Optional[QuantRoute] = None,
+  generator: Optional[torch.Generator] = None,
+  gumbel: Optional[torch.Tensor] = None,  # [R, B, V] noise; row `step[0]` is this step's
+  out: Optional[torch.Tensor] = None,  # [R, B] int64: row `step[0]` gets the sampled token
+  step: Optional[torch.Tensor] = None,  # [1] int64; advanced
+) -> torch.Tensor:
+  """One step of the composite ring program, over buffers updated in place: `tok`
+  through every partition's layer stack (segment 0 embeds, the last unembeds), sampled
+  on the device, the sampled token written into `tok` and `out[step]`, `pos` and `step`
+  advanced. The body JAX scans in `decode_chunk_ring`; models/graphs.py captures it
+  once and replays it a token. The ring carries no sampling extras (a request with
+  extras takes the per-token ring). Returns the sampled [B] token."""
+  logits = _ring_forward(params_segs, tok, caches, pos, cfg, start_layers, route)
+  noise = None if gumbel is None else gumbel.index_select(0, step)[0]
+  nxt = sample_logits(logits[:, -1, :], temp=temp, top_k=top_k, top_p=top_p,
+                      generator=generator, gumbel=noise)
+  tok.copy_(nxt[:, None])
+  pos.add_(1)
+  if out is not None:
+    out.index_copy_(0, step, nxt[None])
+  if step is not None:
+    step.add_(1)
+  return nxt
+
+
+def decode_chunk_ring(
+  params_segs: Sequence,
+  tok: torch.Tensor,  # [B, 1] last sampled token
+  caches: Sequence[Dict[str, torch.Tensor]],  # each partition's cache, ring order
+  start_pos: Union[int, torch.Tensor],  # absolute position of `tok`: int, or [B] per row
+  cfg: ModelConfig,
+  num_tokens: int,
+  temp: Union[float, torch.Tensor],
+  top_k: int,
+  top_p: float = 0.0,
+  start_layers: Sequence[int] = (0,),
+  route: Optional[QuantRoute] = None,
+  generator: Optional[torch.Generator] = None,
+  gumbel: Optional[torch.Tensor] = None,  # [num_tokens, B, V] noise, one slice a step
+):
+  """JAX's `decode_chunk_ring`: a co-located ring's whole chain decoded `num_tokens`
+  steps, every partition keeping its own params and cache (the per-token ring's layout,
+  so entering or leaving the fused path moves nothing), positions in lockstep.
+  `decode_step_ring` run eagerly that many times. Returns ([B, num_tokens] tokens, the
+  caches, updated in place)."""
+  B, device = tok.shape[0], tok.device
+  tok = tok.to(torch.int64).clone()
+  if torch.is_tensor(start_pos):
+    pos = start_pos.to(device=device, dtype=torch.int32).clone()
+  else:
+    pos = torch.full((B,), start_pos, dtype=torch.int32, device=device)
+  out = torch.empty((num_tokens, B), dtype=torch.int64, device=device)
+  step = torch.zeros((1,), dtype=torch.int64, device=device)
+  for _ in range(num_tokens):
+    decode_step_ring(params_segs, tok, caches, pos, cfg, temp, top_k, top_p, start_layers, route,
+                     generator, gumbel, out, step)
+  return out.t().contiguous(), list(caches)
+
+
+def forward_argmax_ring(
+  params_segs: Sequence,
+  x: torch.Tensor,  # [1, T_pad] tokens: [prev_token] + draft, zero-padded
+  caches: Sequence[Dict[str, torch.Tensor]],
+  start_pos: Union[int, torch.Tensor],
+  cfg: ModelConfig,
+  start_layers: Sequence[int] = (0,),
+  route: Optional[QuantRoute] = None,
+):
+  """JAX's `forward_argmax_ring`: draft verification through every co-located
+  partition in one forward (K2 at T > 1 in each), and every position's greedy argmax.
+  Returns ([1, T_pad] argmax, the caches, updated in place); positions past the true
+  draft are padding, past the position the caller rolls back to."""
+  logits = _ring_forward(params_segs, x, caches, start_pos, cfg, start_layers, route)
+  return torch.argmax(logits, dim=-1), list(caches)
+
+
+def decode_chunk_ring_batched(
+  params_segs: Sequence,
+  seg_caches: Sequence[Sequence[Dict[str, torch.Tensor]]],  # over segments, over B requests
+  toks: torch.Tensor,  # [B, 1] each request's last sampled token
+  pos_vec: torch.Tensor,  # [B] per-request positions
+  cfg: ModelConfig,
+  num_tokens: int,
+  temps: torch.Tensor,  # [B] per-request temperatures
+  top_k: int,
+  top_p: float = 0.0,
+  start_layers: Sequence[int] = (0,),
+  pad_rows: int = 0,  # dummy rows padding B to a power of two
+  route: Optional[QuantRoute] = None,
+  generator: Optional[torch.Generator] = None,
+  gumbel: Optional[torch.Tensor] = None,  # [num_tokens, B + pad_rows, V]
+):
+  """JAX's `decode_chunk_ring_batched`: B requests on one co-located chain in one
+  chunk. Each segment's member caches stacked along the batch axis (pad rows: zero
+  caches with row 0's token, position and temperature), the composite step with per-row
+  positions, every segment's caches split back. Returns ([B, num_tokens] tokens, over
+  segments the B updated caches)."""
+  B = len(seg_caches[0])
+  stacked = [{name: torch.cat([c[name] for c in caches]
+                              + [torch.zeros_like(caches[0][name])] * pad_rows, dim=1)
+              for name in caches[0]} for caches in seg_caches]
+  out, stacked = decode_chunk_ring(
+    params_segs, _pad_rows(toks, pad_rows, toks[:1]), stacked,
+    _pad_rows(pos_vec, pad_rows, pos_vec[:1]), cfg, num_tokens,
+    _pad_rows(temps, pad_rows, temps[:1]), top_k, top_p, start_layers, route, generator, gumbel)
+  split = [[{name: seg[name][:, i:i + 1].clone() for name in seg} for i in range(B)]
+           for seg in stacked]
+  return out[:B], split

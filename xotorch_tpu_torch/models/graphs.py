@@ -28,6 +28,17 @@ key, with the static buffers it was captured on.
   [1, width] page table over the arena (keys T_pad, the width and the arena, K4). It
   returns the [1, T_pad] argmax on the device, as JAX jits the verify forward once a
   bucket.
+- A ring graph is one step of a co-located ring (`decode_step_ring`: every segment's
+  decode step through K2, then the sampler), replayed a token (`decode_ring`, the
+  batched form at every B), and the ring's verify (`verify_ring`). It reads several
+  contexts' parameters and caches, so it lives in a cache of its own (the driving
+  engine's, one a chain of contexts) that each segment's cache lists in `dependents`:
+  whatever drops a segment's graphs (a checkpoint load, the context's eviction, OOM
+  recovery) drops the ring's with them. The slab: the ring cache has its own, holding
+  every segment's stacked caches side by side (leaves '<segment>.<leaf>'), sized to the
+  largest ring seen; no segment's own slab is shared or resized by it, so a solo
+  graph of a segment's context never drops because a ring grew, and growing the ring's
+  slab (a longer cache, a wider batch) drops only the ring's programs over it.
 - Static addresses. A replay reads and writes the addresses it was captured on. The
   page arena is static by construction; contiguous caches are per request and are
   reallocated when they grow, so the requests of a contiguous chunk are copied into
@@ -67,6 +78,7 @@ import gc as python_gc
 import math
 import threading
 import time
+import weakref
 from collections import OrderedDict
 from dataclasses import dataclass, field
 from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
@@ -74,7 +86,8 @@ from typing import Any, Callable, Dict, List, Optional, Sequence, Tuple
 import torch
 
 from xotorch_tpu_torch.models.config import ModelConfig
-from xotorch_tpu_torch.models.generate import decode_step, forward_argmax, prefill_scan, scan_groups
+from xotorch_tpu_torch.models.generate import (decode_step, decode_step_ring, forward_argmax,
+                                               forward_argmax_ring, prefill_scan, scan_groups)
 from xotorch_tpu_torch.models.transformer import QuantRoute
 from xotorch_tpu_torch.ops import flash_attention, flash_decode, int4_matmul, int8_matmul, paged_attention
 
@@ -192,6 +205,9 @@ class GraphCache:
     self.capture_seconds = 0.0
     self.replays = 0
     self.pool_bytes = 0
+    # Caches whose programs read this cache's context too (a fused ring's): cleared
+    # with this one.
+    self.dependents: "weakref.WeakSet[GraphCache]" = weakref.WeakSet()
 
   # --------------------------------------------------------------- buffers
 
@@ -301,12 +317,15 @@ class GraphCache:
 
   def clear(self) -> None:
     """Drop every program with its graph and the slab (the engine's OOM recovery: the
-    port's counterpart of `jax.clear_caches()`). Their memory goes back to the
-    allocator; the next use of a key captures it again, into a new pool."""
+    port's counterpart of `jax.clear_caches()`), and every dependent cache's. Their
+    memory goes back to the allocator; the next use of a key captures it again, into a
+    new pool."""
     for key in list(self.programs):
       self._drop(key)
     self.slab = None
     self._pool = None
+    for dep in list(self.dependents):
+      dep.clear()
 
   def _drop(self, key: tuple) -> None:
     prog = self.programs.pop(key)
@@ -598,6 +617,104 @@ def verify_paged(gc: GraphCache, params, x: torch.Tensor, arena: Cache, page_tab
     prog.statics["pos"].fill_(start_pos)
     prog.statics["table"].copy_(page_table)
     return gc.run(prog)
+
+
+# ------------------------------------------------------------------ the fused ring
+
+def _ring_slab(gc: GraphCache, seg_caches: Sequence[Sequence[Cache]], rows: int):
+  """Views over the ring cache's slab for every segment's `rows` stacked caches (leaves
+  named '<segment>.<leaf>' in one slab). Returns (the per-segment views, the key of
+  their shapes)."""
+  leaves = {f"{i}.{name}": spec for i, caches in enumerate(seg_caches)
+            for name, spec in slab_leaves(caches[0], rows).items()}
+  views = gc.slab_views(leaves)
+  slabs = [{name: views[f"{i}.{name}"] for name in caches[0]} for i, caches in enumerate(seg_caches)]
+  return slabs, tuple((n, s, d) for n, (s, d) in leaves.items())
+
+
+def decode_ring(gc: GraphCache, params_segs: Sequence, seg_caches: Sequence[Sequence[Cache]],
+                toks: torch.Tensor, pos_vec: torch.Tensor, cfg: ModelConfig, num_tokens: int,
+                temps: torch.Tensor, top_k: int, top_p: float = 0.0,
+                start_layers: Sequence[int] = (0,), route: Optional[QuantRoute] = None,
+                generator: Optional[torch.Generator] = None,
+                gumbel: Optional[torch.Tensor] = None) -> torch.Tensor:
+  """`decode_chunk_ring_batched` (and, at B=1, `decode_chunk_ring`) as replays of one
+  captured composite step (`decode_step_ring`: every segment's K2 step, then the
+  sampler). `seg_caches` holds, for each segment in ring order, the B requests'
+  contiguous caches (one shape a segment); they are stacked into the ring cache's slab
+  (pad rows to a power of two: zero caches with row 0's token, position and
+  temperature), `num_tokens` replays run, and every cache is copied back. Keys: the
+  bucketed batch, every segment's leaves, the segments' first layers and the sampler's
+  statics. Returns the [B, num_tokens] tokens on the device."""
+  B = len(seg_caches[0])
+  Bb = _bucket(B)
+  noise = gumbel is not None
+  with gc.on_stream():
+    slabs, leaves_key = _ring_slab(gc, seg_caches, Bb)
+    for slab, caches in zip(slabs, seg_caches):
+      stack_into(slab, caches)
+    key = (("decode", "ring", Bb, leaves_key, tuple(start_layers))
+           + _sampler_key(top_k, top_p, gumbel, generator, route))
+
+    def make_statics():
+      st = {"tok": torch.zeros((Bb, 1), dtype=torch.int64, device=gc.device),
+            "pos": torch.zeros((Bb,), dtype=torch.int32, device=gc.device),
+            "temps": torch.zeros((Bb,), dtype=torch.float32, device=gc.device),
+            "out": torch.zeros((OUT_ROWS, Bb), dtype=torch.int64, device=gc.device),
+            "step": torch.zeros((1,), dtype=torch.int64, device=gc.device)}
+      if noise:
+        st["gumbel"] = torch.zeros((OUT_ROWS, Bb, cfg.vocab_size), dtype=torch.float32,
+                                   device=gc.device)
+      return st
+
+    def make_body(st):
+      return lambda: decode_step_ring(params_segs, st["tok"], slabs, st["pos"], cfg, st["temps"],
+                                      top_k, top_p, start_layers, route,
+                                      generator=None if noise else generator,
+                                      gumbel=st.get("gumbel"), out=st["out"], step=st["step"])
+
+    prog = gc.program(key, make_statics, make_body, generator=None if noise else generator,
+                      uses_slab=True)
+    st = prog.statics
+    _fill_rows(st["tok"], toks.to(torch.int64), toks[:1].to(torch.int64))
+    _fill_rows(st["pos"], pos_vec.to(torch.int32), pos_vec[:1].to(torch.int32))
+    _fill_rows(st["temps"], temps.to(torch.float32), temps[:1].to(torch.float32))
+    records = _run_steps(gc, prog, num_tokens, gumbel)
+    for slab, caches in zip(slabs, seg_caches):
+      split_from(slab, caches)
+    return records["out"][:B]
+
+
+def verify_ring(gc: GraphCache, params_segs: Sequence, x: torch.Tensor, caches: Sequence[Cache],
+                start_pos: int, cfg: ModelConfig, start_layers: Sequence[int] = (0,),
+                route: Optional[QuantRoute] = None) -> torch.Tensor:
+  """`forward_argmax_ring` as one graph replay: every segment's cache copied into the
+  ring cache's slab at one row, [prev_token] + draft ([1, T_pad]) through every segment
+  (K2 at T > 1) from `start_pos`, the caches copied back. Keys: the bucket, every
+  segment's leaves and first layers. Returns the [1, T_pad] argmax on the device, the
+  program's output buffer: read it before the next replay."""
+  T_pad = x.shape[1]
+  with gc.on_stream():
+    slabs, leaves_key = _ring_slab(gc, [[c] for c in caches], 1)
+    for slab, c in zip(slabs, caches):
+      stack_into(slab, [c])
+    key = ("verify", "ring", T_pad, leaves_key, tuple(start_layers), route)
+
+    def make_statics():
+      return {"x": torch.zeros((1, T_pad), dtype=torch.int64, device=gc.device),
+              "pos": torch.zeros((1,), dtype=torch.int32, device=gc.device)}
+
+    def make_body(st):
+      return lambda: forward_argmax_ring(params_segs, st["x"], slabs, st["pos"], cfg,
+                                         start_layers, route)[0]
+
+    prog = gc.program(key, make_statics, make_body, uses_slab=True)
+    prog.statics["x"].copy_(x)
+    prog.statics["pos"].fill_(start_pos)
+    preds = gc.run(prog)
+    for slab, c in zip(slabs, caches):
+      split_from(slab, [c])
+    return preds
 
 
 # ------------------------------------------------------------------ prefill

@@ -1,7 +1,8 @@
 """In-process peer handle, for tests and for partitions that share one process.
 
 The port of xotorch_tpu/networking/inprocess.py: the hop hands the tensor straight to
-the target Node, with no framing and no socket. Prompt and tensor hops run detached,
+the target Node, with no framing and no socket: a hidden state kept on the device
+crosses as the device tensor (`accepts_device_arrays`). Prompt and tensor hops run detached,
 as the TCP server acks and processes in the background, so a hop never holds the
 sender's coroutine chain. Every RPC passes the fault injector's tap (faults.apply), as
 the TCP handle's do, so injected faults exercise the same retry, dedup and watchdog
@@ -24,6 +25,10 @@ from xotorch_tpu_torch.utils.helpers import spawn_detached
 
 
 class InProcessPeerHandle(PeerHandle):
+  # A hop hands the tensor over as it is: a device tensor stays on the device (the
+  # Node's keep_on_device and forward_tensor key off this).
+  accepts_device_arrays = True
+
   def __init__(self, node):
     self.node = node
     self._tasks: set = set()  # strong refs: the loop holds tasks only weakly

@@ -74,8 +74,15 @@ dropped when the example returns. `coordinate_save` saves this peer's shard as
 status bus to save its own (`save_checkpoint`); `coordinate_resume` loads this peer's
 range and asks the others to load theirs (`resume_checkpoint`).
 
-Not ported yet (ROADMAP): the fused in-process ring and its speculation
-(`verify_draft_ring`) and device-resident hops.
+Co-located partitions (the JAX Node's): where every partition of a request's ring is
+served in this process (this node or InProcessPeerHandle peers, `_inprocess_chain`),
+a hop to the next partition carries the device tensor (`_keep_on_device_kwargs`; a hop
+to any other peer is copied to the host first, in forward_tensor), and the last
+partition decodes the whole chain in fused chunks (`_ring_fused_gen`: the engine's
+generate_chunk_ring, with verify_draft_ring for speculation) instead of one hop a
+partition a token. A request with sampling extras keeps the per-token ring (counted in
+`ring_declines`). With speculation on, the first partition sends the prompt's ids to
+the sampler on the first hop (PROMPT_TOKENS_KEY), which alone consumes them.
 """
 from __future__ import annotations
 
@@ -120,6 +127,10 @@ RING_MAP_KEY = "xot_ring_map"
 # The request's remaining end-to-end budget in seconds at send time: every peer derives
 # its own absolute deadline from it (monotonic clocks do not compare across hosts).
 DEADLINE_KEY = "xot_deadline_s"
+# The prompt's token ids, for the sampler's prompt lookup on a co-located ring: mid-ring
+# hops carry hidden states, so the first partition sends the ids once, on the first
+# hop, and only the last partition consumes them. Set only with XOT_SPECULATE > 0.
+PROMPT_TOKENS_KEY = "xot_prompt_tokens"
 
 
 
@@ -246,6 +257,8 @@ class Node:
     self.speculate_tokens = knobs.get_int("XOT_SPECULATE", 8 if self.draft_model else 0)
     self.speculate_window = knobs.get_int("XOT_SPECULATE_WINDOW")
     self._request_ring_map: "OrderedDict[str, list]" = OrderedDict()
+    # Requests whose co-located ring declined the fused path here, by reason.
+    self.ring_declines: Dict[str, int] = {}
     # Training checkpoints this node saved: model -> {"start-end": iteration}.
     self.checkpoints: Dict[str, Dict[str, int]] = {}
     # Receiver-side hop dedup: per-request bounded sets of hop sequence ids.
@@ -592,8 +605,20 @@ class Node:
         **self._sampling_kwargs(request_id))
       await self.process_sampled_token(base_shard, int(token), request_id)
       return
-    result, inference_state = await self.inference_engine.infer_prompt(request_id, shard, prompt,
-                                                                       images=images)
+    result, inference_state = await self.inference_engine.infer_prompt(
+      request_id, shard, prompt, images=images, **self._keep_on_device_kwargs(shard, request_id))
+    if (self.speculate_tokens > 0 and not shard.is_last_layer and not images
+        and self._inprocess_chain(base_shard, request_id) is not None):
+      # The sampler drafts from the prompt's ids, which the hidden-state hops do not
+      # carry: they ride the first hop once. Only a co-located chain, whose fused ring
+      # is what speculates over a ring, pays for it.
+      try:
+        toks = await self.inference_engine.encode(shard, prompt)
+        inference_state = {**(inference_state or {}),
+                           PROMPT_TOKENS_KEY: [int(t) for t in np.asarray(toks).reshape(-1)]}
+      except Exception as e:  # the request goes on; speculation drafts from output only
+        if DEBUG >= 1:
+          print(f"[{request_id}] prompt tokenize for speculation failed: {e!r}")
     await self.process_inference_result(base_shard, result, request_id, inference_state)
 
   async def process_tensor(self, base_shard: Shard, tensor, request_id: Optional[str] = None,
@@ -636,6 +661,11 @@ class Node:
       self.metrics.active_requests.set(len(self.outstanding_requests))
       self.flight.record("hop.recv", request_id, layers=f"{shard.start_layer}-{shard.end_layer}")
       self._note_progress(request_id)
+      if inference_state and shard.is_last_layer and request_id not in self._request_prompt_tokens:
+        # The sampler consumes the prompt's ids; a mid-ring peer passes them on.
+        pt = inference_state.pop(PROMPT_TOKENS_KEY, None)
+        if pt:
+          self._request_prompt_tokens[request_id] = [int(t) for t in pt]
       d = inference_state.get(DEADLINE_KEY) if inference_state else None
       if d is not None and request_id not in self._request_deadline:
         # A hop-carried deadline is enforced here too, whatever this node's knobs say.
@@ -654,7 +684,8 @@ class Node:
             top_p=self._top_p_for(request_id), **self._sampling_kwargs(request_id))
         else:
           result, inference_state = await self.inference_engine.infer_tensor(
-            request_id, shard, tensor, inference_state)
+            request_id, shard, tensor, inference_state,
+            **self._keep_on_device_kwargs(shard, request_id))
       self.metrics.hop_latency.observe((time.perf_counter_ns() - start_ns) / 1e9)
       if shard.is_last_layer:
         await self.process_sampled_token(base_shard, int(token), request_id, inference_state)
@@ -696,30 +727,115 @@ class Node:
   async def process_sampled_token(self, base_shard: Shard, token_int: int, request_id: str,
                                   inference_state: Optional[dict] = None) -> None:
     """Buffer and broadcast a sampled token, then stop (EOS or the cap) or keep the
-    ring turning: the fused decode loop when this partition spans the whole model
-    (detached, so process_prompt returns after the first token), else the token goes
-    back to partition 0."""
+    ring turning: the fused decode loop when this partition spans the whole model, or
+    when every partition of the ring is co-located (the fused ring; detached, so
+    process_prompt returns after the first token), else the token goes back to
+    partition 0."""
     shard = self.get_current_shard(base_shard, request_id=request_id)
     buffered, _ = self.buffered_token_output.setdefault(request_id, ([], False))
     if self._ingest_sampled_tokens(request_id, [token_int], buffered, base_shard):
       await self._finish_generation(request_id)
       return
-    if self.decode_chunk_size > 1 and shard.is_first_layer:
-      self._spawn(self._fused_decode_loop(base_shard, shard, request_id, buffered))
-      return
+    if self.decode_chunk_size > 1:
+      if shard.is_first_layer:
+        self._spawn(self._fused_decode_loop(base_shard, shard, request_id, buffered))
+        return
+      ring = self._ring_fused_gen(base_shard, request_id)
+      if ring is not None:
+        gen, verify = ring
+        self._spawn(self._fused_decode_loop(base_shard, shard, request_id, buffered, gen=gen,
+                                            ring_verify=verify))
+        return
     await self._forward_next_token(base_shard, request_id, buffered, inference_state)
 
+  def _ring_fused_gen(self, base_shard: Shard, request_id: str):
+    """(a generate_chunk-shaped call that decodes the whole co-located ring in fused
+    chunks, the ring's draft verifier or None), or None when the ring does not qualify:
+    a partition not served in this process by an engine that fuses, or a request with
+    sampling extras (counted in `ring_declines`: the per-token ring's sampler applies
+    them). The chain binds the request's pinned partition table; a segment evicted
+    mid-generation fails the request loudly (RequestStateLost)."""
+    ring = getattr(self.inference_engine, "generate_chunk_ring", None)
+    chain = self._inprocess_chain(base_shard, request_id) if ring is not None else None
+    if chain is None:
+      return None
+    if self._request_sampling.get(request_id):
+      self.ring_declines["extras"] = self.ring_declines.get("extras", 0) + 1
+      return None
+
+    async def gen(rid, _shard, prev_token, num_tokens, temp, top_k, top_p=0.0, next_size=None):
+      return await ring(rid, chain, prev_token, num_tokens, temp=temp, top_k=top_k, top_p=top_p,
+                        next_size=next_size)
+
+    verify_ring = getattr(self.inference_engine, "verify_draft_ring", None)
+    verify = None
+    if verify_ring is not None:
+      async def verify(rid, _shard, prev_token, draft):
+        return await verify_ring(rid, chain, prev_token, draft)
+    return gen, verify
+
+  def _inprocess_chain(self, base_shard: Shard, request_id: Optional[str] = None):
+    """The ring-ordered [(engine, shard)] of the request's partitions when every one is
+    served in this process (this node, or an InProcessPeerHandle peer's node) by an
+    engine that fuses rings, else None. A request with a pinned map binds its map, not
+    the live view."""
+    entries = self._ring_entries(request_id)
+    if entries is not None:
+      node_ids = [n for n, _, _ in entries]
+    else:
+      try:
+        node_ids = [p.node_id for p in self.partitioning_strategy.partition(self.topology)]
+      except Exception:
+        return None
+    if len(node_ids) < 2:
+      return None
+    chain = []
+    for i, node_id in enumerate(node_ids):
+      if node_id == self.id:
+        eng = self.inference_engine
+      else:
+        peer = next((p for p in self.peers if p.id() == node_id), None)
+        node = getattr(peer, "node", None)  # an InProcessPeerHandle's
+        eng = getattr(node, "inference_engine", None)
+      if eng is None or not getattr(eng, "supports_ring_fusion", False):
+        return None
+      chain.append((eng, self.get_current_shard(base_shard, i, request_id=request_id)))
+    return chain
+
+  def _keep_on_device_kwargs(self, shard: Shard, request_id: Optional[str] = None) -> dict:
+    """The engine keywords of a mid-ring forward: keep the output on the device when the
+    engine can and the next partition is this node or an in-process peer (whose engine
+    takes the device tensor as it is)."""
+    if shard.is_last_layer or not getattr(self.inference_engine, "supports_device_io", False):
+      return {}
+    try:
+      target_id = self._ring_target_id(self.get_partition_index(offset=1, request_id=request_id),
+                                       request_id)
+    except Exception:
+      return {}
+    if target_id == self.id:
+      return {"keep_on_device": True}
+    peer = next((p for p in self.peers if p.id() == target_id), None)
+    if peer is not None and getattr(peer, "accepts_device_arrays", False):
+      return {"keep_on_device": True}
+    return {}
+
   async def _fused_decode_loop(self, base_shard: Shard, shard: Shard, request_id: str,
-                               buffered: List[int]) -> None:
-    """Chunked decode through the engine's generate_chunk until EOS or the cap;
-    tokens past EOS inside a chunk are discarded. With speculation on (see the module
-    docstring) each round first tries a draft: a verified draft yields up to its length
-    plus one tokens, each what greedy decode would produce. Speculation is for greedy
-    requests whose extras leave the greedy pick as it is: penalties and logit_bias
-    change it, and a verify records no logprobs; a seed or min_p does not change it."""
+                               buffered: List[int], gen=None, ring_verify=None) -> None:
+    """Chunked decode through `gen` (the engine's generate_chunk, or the fused ring's
+    call) until EOS or the cap; tokens past EOS inside a chunk are discarded. With
+    speculation on (see the module docstring) each round first tries a draft: a
+    verified draft yields up to its length plus one tokens, each what greedy decode
+    would produce, through the engine's verify_draft, or on the fused ring through
+    `ring_verify` alone (the one-shard verify must not touch a segment's state).
+    Speculation is for greedy requests whose extras leave the greedy pick as it is:
+    penalties and logit_bias change it, and a verify records no logprobs; a seed or
+    min_p does not change it."""
+    ring = gen is not None
+    gen = gen or self.inference_engine.generate_chunk
     s = self._request_sampling.get(request_id)
     attach = getattr(self.inference_engine, "attach_sampling", None)
-    if s and attach is not None:
+    if s and attach is not None and not ring:
       # A prefill that sampled on the host (multimodal) bound no extras to the request's
       # decode state: bind them now, the first token counted, so the chunks apply the
       # bias and seed and record logprobs like a text request's.
@@ -731,7 +847,7 @@ class Node:
     reshaping = set(s or ()) & {"presence_penalty", "frequency_penalty", "logit_bias", "logprobs"}
     verify = None
     if self.speculate_tokens > 0 and self._temp_for(request_id) == 0 and not reshaping:
-      verify = getattr(self.inference_engine, "verify_draft", None)
+      verify = ring_verify if ring else getattr(self.inference_engine, "verify_draft", None)
     # The draft's source, prompt and output, appended as tokens arrive.
     spec_context = (list(self._request_prompt_tokens.get(request_id, ())) + list(buffered)
                     if verify is not None else [])
@@ -778,11 +894,12 @@ class Node:
         rem_after = remaining - this_size
         next_hint = (min(min(size * 2, self.max_decode_chunk_size),
                          1 << (rem_after - 1).bit_length()) if rem_after >= 1 else None)
-        chunk = await self.inference_engine.generate_chunk(
+        chunk = await gen(
           request_id, shard, buffered[-1], this_size, temp=self._temp_for(request_id),
           top_k=self.default_sample_top_k, top_p=self._top_p_for(request_id), next_size=next_hint)
         if chunk is None:
-          # An engine that cannot decode this shard in chunks: the per-token ring.
+          # An engine that cannot decode this shard in chunks, or a fused ring that
+          # declined (lockstep broken, no room for the chunk): the per-token ring.
           await self._forward_next_token(base_shard, request_id, buffered, None)
           return
         new_tokens = np.asarray(chunk).reshape(-1).tolist()
@@ -1122,6 +1239,12 @@ class Node:
     peer = await self._peer_by_id(target_id)
     if peer is None:
       raise ValueError(f"Peer for {target_index} ({target_id}) not found")
+    if not getattr(peer, "accepts_device_arrays", False) and not isinstance(tensor, np.ndarray):
+      # A peer across a wire: a tensor kept on the device comes to the host here and
+      # only here (a bf16 hidden state stays a CPU tensor, the codec's bf16 frame).
+      tensor = tensor.detach().cpu()
+      if str(tensor.dtype) != "torch.bfloat16":
+        tensor = tensor.numpy()
     await peer.send_tensor(self.get_current_shard(base_shard, target_index, request_id=request_id),
                            tensor, request_id, state)
 
