@@ -228,8 +228,9 @@ Phases, in order; any failure exits nonzero and prints no result line:
      Node standing down after two bonus-only rounds, and two concurrent requests that
      make no draft call while both are outstanding;
   19. MoE and vision (check_families), with the prefix cache and the lane off:
-     Qwen3-30B-A3B's published config cut to 8 of its 48 layers at full width (128
-     experts, top 8; 11.2 GB) and LLaVA-1.5-7B's at full width and depth (14.1 GB),
+     Qwen3-30B-A3B's published config cut to 4 of its 48 layers at full width (128
+     experts, top 8; 6.2 GB; 8 layers until phase 23 needed the time) and
+     LLaVA-1.5-7B's at full width and depth (14.1 GB),
      each written as a seeded checkpoint by the port's writer. The MoE cut's two layers
      against the CPU: every MoE call recomputed in fp32 from the card's input with the
      card's experts within 2^-5, expert flips only at near ties, the logits routed as
@@ -310,10 +311,24 @@ Phases, in order; any failure exits nonzero and prints no result line:
      respawns D1, the router announces its recent prompts there and D1 streams (a)'s
      answer again; every process stopped, the replicas' K1-K4 launches read from their
      shutdown lines;
-  23. the {"kernels": [...]} line (attention launches include phases 10 (c)'s, 12's,
-     14's, 15's, 16's, 18's, 19's, 20's, 21's and 22's; K6's phase 19's too, K5's phase
-     20's; K1b's phase 19's (c) and (d) and phase 21's main-path runs, (c) and (d)), then
-     the {"ok": true, ...} line last.
+  23. parallelism (check_parallel), every mesh's positions on the one card
+     (XOT_VIRTUAL_DEVICES): (a) `main.py --serve-tp 2` answers the main path's three
+     requests, contiguous then XOT_PAGED_KV=1: greedy streams phase 5's or parting at a
+     near tie, K1-K4 launches 2 x the single-card formula, decode steps as graph
+     replays keyed by the mesh, each position's weight bytes the cost model's, TTFT,
+     TPOT and a B=1 profile; (b) two-layer cuts over tp 2 (bf16, int8 cache and arena,
+     int4 K5 and K5v4, int8 K6) against the same cut unsharded, each per-shard kernel
+     call against its plain version, a control dropping one position's all-reduce term;
+     (c) the 1502-token prompt over sp 2 x tp 2: one ring prefill, the logits against
+     one device's, each ring call against plain causal attention in fp32, with a control
+     that drops the last rotation's fold; (d) a two-layer cut at Qwen3-30B-A3B's widths
+     over ep 2, the dense
+     combine against one device's, each MoE call too, with a control; (e) a one-process
+     NCCL group's all-reduce (parallel/multihost.py);
+  24. the {"kernels": [...]} line (attention launches include phases 10 (c)'s, 12's,
+     14's, 15's, 16's, 18's, 19's, 20's, 21's, 22's and 23's; K6's phase 19's too, K5's
+     phase 20's; K1b's phase 19's (c) and (d) and phase 21's main-path runs, (c) and
+     (d)), then the {"ok": true, ...} line last.
 """
 from __future__ import annotations
 
@@ -5553,7 +5568,7 @@ async def tie_check(torch, engine, shard, ids: list, a: int, b: int) -> tuple:
 
   def body():
     cache = init_kv_cache(ctx.cfg, shard.get_layer_count(), 1, len(ids), engine.dtype, engine.device,
-                          kv_quant=engine.kv_quant is not None)
+                          kv_quant=engine.kv_quant is not None, mesh=ctx.mesh)
     x = torch.tensor([ids], dtype=torch.int64, device=engine.device)
     logits, _ = forward_shard(ctx.params, x, cache, 0, ctx.cfg, True, True, use_flash=True,
                               route=engine.quant_route)
@@ -6165,7 +6180,7 @@ def check_decode_paths(torch, card: str, device: str = "cuda", model: str = "syn
 # ------------------------------------------------------------------ phase 19: MoE and vision
 
 # The published config.json of Qwen/Qwen3-30B-A3B (huggingface.co/Qwen/Qwen3-30B-A3B,
-# config.json), as it stands except num_hidden_layers: the smoke writes and serves 8 of
+# config.json), as it stands except num_hidden_layers: the smoke writes and serves 4 of
 # its 48 layers at full width (all 48 would be ~61 GB of bf16 on disk).
 QWEN3_MOE_CONFIG = {
   "architectures": ["Qwen3MoeForCausalLM"], "attention_bias": False, "attention_dropout": 0.0,
@@ -6180,10 +6195,11 @@ QWEN3_MOE_CONFIG = {
   "tie_word_embeddings": False, "torch_dtype": "bfloat16", "use_cache": True,
   "use_sliding_window": False, "vocab_size": 151936,
 }
-MOE_LAYERS = 8  # of the card's 48
+MOE_LAYERS = 4  # of the card's 48 (8 until phase 23 needed the smoke's time)
 # The cut is served under a card of its own depth, added to the registry in this process
 # only (the package's qwen-3-30b-a3b card says 48 layers).
-MOE_CUT_CARD, MOE_CUT_REPO = "qwen-3-30b-a3b-cut8", "Qwen/Qwen3-30B-A3B-cut8"
+MOE_CUT_CARD = f"qwen-3-30b-a3b-cut{MOE_LAYERS}"
+MOE_CUT_REPO = f"Qwen/Qwen3-30B-A3B-cut{MOE_LAYERS}"
 
 # The published config.json of llava-hf/llava-1.5-7b-hf (huggingface.co/llava-hf/
 # llava-1.5-7b-hf, config.json), as it stands: its text_config states only what differs
@@ -6526,10 +6542,10 @@ def pool_line(engine, label: str) -> int:
 
 
 def drive_moe(torch, card: str, device: str = "cuda") -> dict:
-  """Qwen3-30B-A3B: 8 of its 48 layers at full width written as a seeded checkpoint
+  """Qwen3-30B-A3B: MOE_LAYERS of its 48 layers at full width written as a seeded checkpoint
   (write_text_checkpoint, four files), the two-layer cut held against the CPU
-  (check_moe_model), then served through main.py's entry points under a card of 8
-  layers added in this process: the main path's three requests (K1 and K2 held to the
+  (check_moe_model), then served through main.py's entry points under a card of
+  MOE_LAYERS layers added in this process: the main path's three requests (K1 and K2 held to the
   layers x (prefills, steps) formula), B=1 and B=8 lockstep decode chunks under the
   profiler (the routed gather at 1 and 8 rows) with the graph pool's bytes after each;
   then XOT_PAGED_KV=1 (K4 = layers x segments, K3 = layers x steps, pages back to 0);
@@ -6766,7 +6782,7 @@ def drive_llava(torch, card: str, device: str = "cuda") -> dict:
 # Phase 19 (c): main.py train on the family checkpoints phase 19 wrote. (tag, CLI flags,
 # batch rows, steps, evaluate after): Qwen3-30B-A3B's cut with LoRA and QLoRA at the
 # main training batch (B 4, rows of 511), its full fine-tune at one row (the gradients and
-# AdamW's two moments add three copies of the cut's 11.2 GB), LLaVA-1.5-7B's text path
+# AdamW's two moments add three copies of the cut's 6.2 GB), LLaVA-1.5-7B's text path
 # with LoRA.
 MOE_TRAIN_RUNS = (("LoRA rank 8", ("--lora-rank", "8"), 4, 4, True),
                   ("QLoRA rank 8 over int8", ("--lora-rank", "8", "--quantize", "int8"), 4, 4, False),
@@ -8227,6 +8243,577 @@ def check_front_door(torch, card: str, device: str = "cuda", config: Optional[di
   return out
 
 
+# ---------------------------------------------------------------- phase 23: parallelism
+
+PARALLEL_TP = 2  # the positions of phase 23's tensor-parallel mesh, on the one card
+PARALLEL_CUT_STEPS = 4  # decode steps of each phase 23 (b) cut
+
+
+def parallel_streams(torch, card: str, main_run: dict, paged: bool, device: str = "cuda",
+                     model: str = "synthetic-llama-1b") -> dict:
+  """Phase 23 (a): main.py --serve-tp 2 (XOT_VIRTUAL_DEVICES=2: both positions on the one
+  card) answers the main path's three requests, on contiguous caches or the page arena.
+  Greedy streams equal phase 5's, or part only at a near tie; the attention kernels'
+  launches are tp x the single-card formula for the steps the batchers ran (contiguous:
+  K1 = 16 layers x 3 fresh prefills, K2 = 16 x (decode steps + the 1502-token prompt's
+  second segment); paged: K4 = 16 x the prompts' 1024-token segments, K3 = 16 x decode
+  steps); each position holds CostModel.weight_bytes_per_device of weights; the decode
+  steps ran as replays of graphs whose keys name the mesh. The contiguous server's B=1
+  decode chunk runs under the profiler (device ms a step against phase 5's). Returns the
+  launches."""
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention
+  from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention
+  from xotorch_tpu_torch.ops.paged_attention import paged_decode_attention, paged_prefill_attention
+  from xotorch_tpu_torch.parallel.mesh import device_bytes
+
+  tag = f"tp{PARALLEL_TP} {'paged' if paged else 'contiguous'}"
+  kernels = ((paged_prefill_attention, paged_decode_attention) if paged
+             else (flash_attention, flash_cached_attention))
+  held = {}
+
+  async def after(engine, node, api, base):
+    ctx = engine._ctx
+    per_position = [device_bytes(piece) for piece in ctx.params.pieces]
+    gc = ctx.graphs
+    keyed = gc is None or any(("mesh",) + ctx.mesh.key() in key for key in gc.programs)
+    held.update(mesh=dict(ctx.mesh.shape), positions=per_position,
+                predicted=ctx.costmodel.weight_bytes_per_device(),
+                whole=ctx.costmodel.weight_bytes(),
+                graphs=(gc.captures, gc.replays, keyed) if gc is not None else None)
+  # XOT_SERVE_TP listed so that the phase restores it: main.py writes --serve-tp there.
+  env = {"XOT_VIRTUAL_DEVICES": str(PARALLEL_TP), "XOT_PREFIX_CACHE": "0",
+         "XOT_PREFILL_COSCHED": "0", "XOT_PAGED_KV": "1" if paged else "0",
+         "XOT_SERVE_TP": str(PARALLEL_TP)}
+  run = drive_main_path(torch, card, device=device, model=model, kernels=kernels, env=env,
+                        tag=tag, profiles=() if paged else (1,), focus="flash_cached_",
+                        cli=("--serve-tp", str(PARALLEL_TP)), after=after)
+  from xotorch_tpu_torch.models.registry import get_model_card
+  tp, layers, steps = PARALLEL_TP, get_model_card(model)["layers"], run["steps"]
+  if paged:
+    segments = sum(-(-n // 1024) for n in run["prompt_tokens"])
+    want = {"paged_prefill_attention": tp * layers * segments,
+            "paged_decode_attention": tp * layers * steps}
+  else:
+    want = {"flash_attention": tp * layers * 3, "flash_cached_attention": tp * layers * (steps + 1)}
+  ok_launch = run["launches"] == want
+  single = {k: tp * main_run["launches"][k] for k in want if k in main_run["launches"]}
+  print(f"[{tag}] launches {run['launches']}: tp x the single-card formula for {steps} decode "
+        f"steps {want} {'ok' if ok_launch else 'FAIL'}"
+        + (f"; tp x phase 5's counts {single} ({main_run['steps']} steps there)" if single else ""),
+        flush=True)
+  ok_bytes = held["mesh"] == {"tp": tp} and all(b == held["predicted"] for b in held["positions"])
+  print(f"[{tag}] mesh {held['mesh']}: weight bytes at each position {held['positions']} against "
+        f"CostModel.weight_bytes_per_device {held['predicted']} (the whole model "
+        f"{held['whole']}) {'ok' if ok_bytes else 'FAIL'}", flush=True)
+  print(f"[{tag}] {', '.join(run['timings'])} (TTFT / TPOT with both positions on one card, "
+        f"not a scaling figure; {card})", flush=True)
+  graphs = held["graphs"]
+  ok_graphs = graphs is None or (graphs[1] > 0 and graphs[2])
+  if graphs is not None:
+    print(f"[{tag}] decode as CUDA graphs of every position's kernels, copies and sums: "
+          f"{graphs[0]} captures, {graphs[1]} replays, keys naming the mesh "
+          f"{'ok' if ok_graphs else 'FAIL'}", flush=True)
+  prof, single = run["profiles"].get(1), main_run["profiles"].get(1)
+  if prof and single:
+    print(f"[{tag}] B=1 decode step: {prof['device_ms']:.3f} device ms, "
+          f"{prof['kernels_per_step']:.0f} kernels, {100 - prof['busy_pct']:.1f}% idle; one "
+          f"card (phase 5) {single['device_ms']:.3f} device ms, {single['kernels_per_step']:.0f} "
+          f"kernels: {prof['device_ms'] / single['device_ms']:.2f}x ({card})", flush=True)
+  if not (ok_launch and ok_bytes and ok_graphs):
+    raise AssertionError(f"{tag}: launches {run['launches']} (want {want}), bytes or graphs {held}")
+  greedy = {j: toks for j, toks in enumerate(run["tokens"])
+            if main_requests(model)[j][1].get("temperature") == 0}
+  parted = {j: toks for j, toks in greedy.items() if toks != main_run["tokens"][j]}
+  for j in greedy:
+    if j not in parted:
+      print(f"[{tag}] {main_requests(model)[j][0]}: {len(greedy[j])} temperature-0 tokens equal "
+            f"phase 5's ok", flush=True)
+  if parted:
+    parallel_ties(torch, parted, main_run, tag, card, device, model)
+  return run["launches"]
+
+
+def parallel_ties(torch, parted: dict, main_run: dict, tag: str, card: str, device: str,
+                  model: str) -> None:
+  """Streams of a tp server that parted from phase 5's: each must part only at a near
+  tie (streams_agree: the two tokens' logits within TIE_REL of the row's largest), read
+  on a fresh tp engine from each request's prompt ids, as the API built them."""
+  from xotorch_tpu_torch.api.chatgpt_api import build_prompt
+  from xotorch_tpu_torch.inference.torch_engine.engine import TorchShardInferenceEngine
+  from xotorch_tpu_torch.models.registry import build_full_shard
+
+  with phase_env(XOT_VIRTUAL_DEVICES=str(PARALLEL_TP), XOT_TP=str(PARALLEL_TP)):
+    engine = TorchShardInferenceEngine(device=device)
+
+  async def check():
+    shard = build_full_shard(model, type(engine).__name__)
+    await engine.ensure_shard(shard)
+    for j, got in parted.items():
+      body = main_requests(model)[j][1]
+      ids = (await engine.encode(shard, build_prompt(engine.tokenizer, body["messages"]))).tolist()
+      await streams_agree(torch, engine, shard, f"{tag} {main_requests(model)[j][0]}", ids,
+                          main_run["tokens"][j], got, card)
+  try:
+    asyncio.run(check())
+  finally:
+    engine.executor.shutdown(wait=True)
+
+
+def _held_calls(torch, transformer, names, calls: list):
+  """The transformer's kernel entry points `names` wrapped to record every call (its
+  inputs and output) into `calls`; returns the originals to restore."""
+  originals = {n: getattr(transformer, n) for n in names}
+
+  def wrap(name, fn):
+    def held(*args, **kw):
+      out = fn(*args, **kw)
+      calls.append((name, args, kw, out))
+      return out
+    return held
+  for n, fn in originals.items():
+    setattr(transformer, n, wrap(n, fn))
+  return originals
+
+
+def _plain_call(torch, fn, args, kw):
+  """A kernel wrapper's plain version on the same inputs: the wrapper given CPU copies
+  (a wrapper takes its plain version for tensors on the CPU)."""
+  cpu = lambda t: t.cpu() if torch.is_tensor(t) else t  # noqa: E731
+  return fn(*(cpu(a) for a in args), **{k: cpu(v) for k, v in kw.items()})
+
+
+def parallel_cut(torch, card: str, fmt=None, kv_quant: bool = False, paged: bool = False,
+                 env=None, limit: float = 5e-2, device: str = "cuda",
+                 model: str = "synthetic-llama-1b") -> dict:
+  """Phase 23 (b): a two-layer cut of `model` at full width, placed on a tp mesh of
+  PARALLEL_TP positions of the card (parallel/mesh.shard_params, a sharded cache or page
+  arena), prefill 100 tokens + PARALLEL_CUT_STEPS decode steps against the same cut
+  unsharded on the card. Every per-shard kernel call of the sharded run (the attention
+  kernels on Hq/tp heads over Hkv/tp cache heads, the GEMV kernels on each position's
+  column or row slice) is held against its plain version on its own inputs: within
+  rel_limit (2^-6 of the output's largest value) for attention, QUANT_REL_TOL for the
+  GEMVs. The sharded logits are held within `limit` of the logits' range of the
+  unsharded ones, and a control that drops the last position's term of every all-reduce
+  must miss it. Returns {kernel: calls held}."""
+  import dataclasses
+  import numpy as np
+  from xotorch_tpu_torch.inference.torch_engine.paged_cache import PagePool
+  from xotorch_tpu_torch.models import transformer
+  from xotorch_tpu_torch.models.config import config_from_hf_dict
+  from xotorch_tpu_torch.models.quantize import quantize_params
+  from xotorch_tpu_torch.models.registry import get_model_card
+  from xotorch_tpu_torch.models.transformer import forward_shard, init_kv_cache, init_random_params
+  from xotorch_tpu_torch.parallel.mesh import local_devices, make_mesh, shard_params
+
+  cfg = dataclasses.replace(config_from_hf_dict(get_model_card(model)["synthetic_config"]),
+                            num_layers=2)
+  dev = torch.device(device)
+  params = init_random_params(cfg, 2, True, True, seed=0, dtype=torch.bfloat16, device=dev)
+  if fmt:
+    params = quantize_params(params, fmt, scale_dtype=torch.bfloat16, inplace=True)
+  with phase_env(XOT_VIRTUAL_DEVICES=str(PARALLEL_TP)):
+    mesh = make_mesh({"tp": PARALLEL_TP}, local_devices(dev))
+  sharded = shard_params(params, mesh)
+  tokens = torch.as_tensor(np.random.default_rng(0).integers(0, cfg.vocab_size, size=(1, 100)),
+                           device=dev)
+  route = None  # the knobs' route, read inside the phase's environment below
+
+  def run(p, on_mesh: bool, fed=None):
+    """Logits of the prefill's last 8 positions and of the decode steps (feeding `fed`,
+    or the run's own greedy tokens)."""
+    m = mesh if on_mesh else None
+    if paged:
+      pool = PagePool(cfg, 2, 4, 128, dtype=torch.bfloat16, device=dev, kv_quant=kv_quant, mesh=m)
+      kw = {"page_table": torch.tensor([[1, 2, 3]], dtype=torch.int32, device=dev)}
+      cache = pool.arena
+    else:
+      cache = init_kv_cache(cfg, 2, 1, 256, torch.bfloat16, dev, kv_quant=kv_quant, mesh=m)
+      kw = {}
+    logits, _ = forward_shard(p, tokens, cache, 0, cfg, True, True, use_flash=not paged,
+                              route=route, **kw)
+    out, toks = [logits[0, -8:].float().cpu()], []
+    for i in range(PARALLEL_CUT_STEPS):
+      toks.append(fed[i] if fed else int(out[-1][-1].argmax()))
+      logits, _ = forward_shard(p, torch.tensor([[toks[-1]]], device=dev), cache, 100 + i, cfg,
+                                True, True, use_flash_decode=not paged, route=route, **kw)
+      out.append(logits[0].float().cpu())
+    return out, toks
+
+  names = ("flash_attention", "flash_cached_attention", "paged_decode_attention",
+           "paged_prefill_attention", "int4_grouped_matmul", "int8_rowquant_matmul")
+  calls: list = []
+  with phase_env(**(env or {})), torch.inference_mode():
+    route = transformer.quant_route(dev.type == "cuda")
+    want, fed = run(params, False)
+    originals = _held_calls(torch, transformer, names, calls)
+    try:
+      got, _ = run(sharded, True, fed)
+    finally:
+      for n, fn in originals.items():
+        setattr(transformer, n, fn)
+    real = transformer.all_reduce
+    transformer.all_reduce = lambda parts, devices: real(
+      list(parts[:-1]) + [torch.zeros_like(parts[-1])], devices)
+    try:
+      control, _ = run(sharded, True, fed)
+    finally:
+      transformer.all_reduce = real
+    held, worst_call = {}, {}
+    for name, args, kw, out in calls:
+      ref = _plain_call(torch, originals[name], args, kw).float()
+      err = ((out.float().cpu() - ref).abs().max() / ref.abs().max()).item()
+      key = {"int4_grouped_matmul": f"int4_v{args[3] if len(args) > 3 else 1}"}.get(name, name)
+      if kv_quant and name != "flash_attention":
+        key += "_int8"
+      held[key] = held.get(key, 0) + 1
+      worst_call[key] = max(worst_call.get(key, 0.0), err)
+
+  def error(logits):
+    if not all(bool(torch.isfinite(g).all()) for g in logits):
+      raise AssertionError("parallel: non-finite logits")
+    return max(((g - w).abs().max() / w.abs().max()).item() for g, w in zip(logits, want))
+
+  worst, missed = error(got), error(control)
+  call_ok = all(e <= (QUANT_REL_TOL if "int" in k and "attention" not in k else 2.0 ** -6)
+                for k, e in worst_call.items())
+  label = (f"{fmt or 'bf16'} weights, {'int8' if kv_quant else 'bf16'} "
+           f"{'page arena' if paged else 'cache'}" + (f", {env}" if env else ""))
+  ok = worst < limit and missed > limit and call_ok and held
+  print(f"[parallel cut] 2-layer {model} over tp={PARALLEL_TP} ({label}), prefill 100 + decode "
+        f"{PARALLEL_CUT_STEPS}: logits within {worst:.3e} of the logits' range of the unsharded "
+        f"cut's (limit {limit:g}); control, the last position's all-reduce term dropped: "
+        f"{missed:.3e} ({'caught' if missed > limit else 'NOT caught'}); per-shard kernel calls "
+        f"against their plain versions: {', '.join(f'{k} x{n} worst {worst_call[k]:.2e}' for k, n in held.items())} "
+        f"{'ok' if ok else 'FAIL'}", flush=True)
+  if not ok:
+    raise AssertionError(f"parallel cut {label}: {worst}, control {missed}, calls {worst_call}")
+  return held
+
+
+def ring_reference(torch, qs, ks, vs) -> "torch.Tensor":
+  """Plain causal GQA attention in fp32 over a ring call's chunks put back in order
+  (ops/ring_attention.ring_attention's plain version): [B, T, Hq, D]."""
+  dev = qs[0].device
+  q = torch.cat([t.to(dev) for t in qs], dim=1).float()
+  k = torch.cat([t.to(dev) for t in ks], dim=1).float()
+  v = torch.cat([t.to(dev) for t in vs], dim=1).float()
+  B, T, Hq, D = q.shape
+  g = Hq // k.shape[2]
+  k, v = k.repeat_interleave(g, dim=2), v.repeat_interleave(g, dim=2)
+  s = torch.einsum("bthd,bshd->bhts", q, k) / D ** 0.5
+  causal = torch.ones(T, T, dtype=torch.bool, device=dev).tril()
+  p = torch.softmax(s.masked_fill(~causal, float("-inf")), dim=-1)
+  return torch.einsum("bhts,bshd->bthd", p, v)
+
+
+def ring_row_err(torch, outs, ref) -> float:
+  """The worst query row's error: max |out - ref| over a (position, head) row against
+  that row's largest |ref| (a row that lost its earlier chunks reads O(1), however
+  small its values are beside another row's)."""
+  got = torch.cat([o.to(ref.device) for o in outs], dim=1).float()
+  return ((got - ref).abs().amax(-1) / ref.abs().amax(-1).clamp_min(1e-30)).max().item()
+
+
+@contextlib.contextmanager
+def ring_folds_dropped(torch):
+  """ops/ring_attention's fold of every chunk that comes round from an earlier position
+  dropped (at sp 2: the last rotation's): the ring control."""
+  from xotorch_tpu_torch.ops import ring_attention as ring_mod
+  real = ring_mod._fold_chunk
+
+  def fold(q, k, v, acc, m, l, q_pos, k_pos, scale):
+    if int(k_pos[0]) < int(q_pos[0]):
+      return acc, m, l
+    return real(q, k, v, acc, m, l, q_pos, k_pos, scale)
+  ring_mod._fold_chunk = fold
+  try:
+    yield
+  finally:
+    ring_mod._fold_chunk = real
+
+
+def parallel_ring_prefill(torch, card: str, device: str = "cuda", model: str = "synthetic-llama-1b",
+                          T: int = 1502) -> None:
+  """Phase 23 (c): synthetic-llama-1b at full width and depth over an sp=2 x tp=2 mesh
+  (four positions of the card) prefills a T-token prompt in 1024-token segments (the
+  engine reads XOT_PREFILL_CHUNK at each call, so it is held through the run): the
+  from-zero segment through ring attention (counted once; 512 positions a position),
+  the second through K2 on each tp position's cache piece. The last 8 positions' logits
+  are held within 5e-2 of the logits' range of the same prompt on one device. Every ring call
+  (one a layer and tp index) is held by itself against plain causal attention in fp32
+  on its own chunks, within 2^-7 of each query row's largest value (the ring's output
+  is bf16: 2^-8 at most). The control drops the last rotation's fold: it must miss that
+  limit on every call, and the logits' limit over the whole prefill."""
+  import numpy as np
+  from xotorch_tpu_torch.inference.torch_engine.engine import TorchShardInferenceEngine
+  from xotorch_tpu_torch.models.registry import build_full_shard, get_model_card
+  from xotorch_tpu_torch.ops import ring_attention as ring_mod
+
+  vocab = get_model_card(model)["synthetic_config"]["vocab_size"]
+  prompt = np.random.default_rng(23).integers(3, vocab, size=(1, T))
+
+  async def logits_of(engine):
+    shard = build_full_shard(model, type(engine).__name__)
+    t0 = time.perf_counter()
+    out, _ = await engine.infer_tensor("sp", shard, prompt)
+    secs = time.perf_counter() - t0
+    await engine.clear_request("sp")
+    return torch.as_tensor(np.asarray(out)[0, -8:]), secs, engine._ctx.mesh
+
+  calls = []
+  real_ring = ring_mod.ring_attention
+
+  def recorded(qs, ks, vs, devices):
+    outs = real_ring(qs, ks, vs, devices)
+    calls.append((qs, ks, vs, devices, outs))
+    return outs
+
+  runs = {}
+  mesh_env = {"XOT_VIRTUAL_DEVICES": "4", "XOT_TP": "2", "XOT_SERVE_SP": "2"}
+  for label, env in (("one device", {"XOT_TP": "0"}), ("sp=2 x tp=2", mesh_env),
+                     ("control", mesh_env)):
+    # The ring prefill is the contiguous path's (an earlier phase may leave the pool on).
+    with contextlib.ExitStack() as stack:
+      stack.enter_context(phase_env(XOT_PREFILL_CHUNK="1024", XOT_PREFIX_CACHE="0",
+                                    XOT_PAGED_KV="0", **env))
+      engine = TorchShardInferenceEngine(device=device)
+      if label == "control":
+        stack.enter_context(ring_folds_dropped(torch))
+      elif label != "one device":
+        ring_mod.ring_attention = recorded
+        stack.callback(setattr, ring_mod, "ring_attention", real_ring)
+      try:
+        runs[label] = asyncio.run(logits_of(engine)) + (engine.sp_ring_prefills,)
+      finally:
+        engine.executor.shutdown(wait=True)
+  want, _, _, _ = runs["one device"]
+  got, secs, mesh, rings = runs["sp=2 x tp=2"]
+  err = ((got - want).abs().max() / want.abs().max()).item()
+  control = runs["control"][0]
+  control_err = ((control - want).abs().max() / want.abs().max()).item()
+  call_errs, control_calls = [], []
+  with torch.inference_mode():
+    for qs, ks, vs, devices, outs in calls:
+      ref = ring_reference(torch, qs, ks, vs)
+      call_errs.append(ring_row_err(torch, outs, ref))
+      with ring_folds_dropped(torch):
+        control_calls.append(ring_row_err(torch, real_ring(qs, ks, vs, devices), ref))
+  chunk_len = calls[0][0][0].shape[1] if calls else 0
+  del calls
+  limit = 2.0 ** -7
+  calls_ok = (len(call_errs) == 2 * get_model_card(model)["layers"] and max(call_errs) <= limit
+              < min(control_calls))
+  ok = (bool(torch.isfinite(got).all()) and err < 5e-2 < control_err and rings == 1
+        and calls_ok and dict(mesh.shape) == {"sp": 2, "tp": 2})
+  print(f"[parallel sp] {len(call_errs)} ring calls (a layer and tp index each, 2 x "
+        f"{chunk_len} positions) against plain causal attention in fp32 on their own chunks: worst query "
+        f"row {max(call_errs):.3e} of its largest value (limit 2^-7); control, the last "
+        f"rotation's fold dropped: every call {min(control_calls):.3e} or more "
+        f"({'caught' if min(control_calls) > limit else 'NOT caught'}) "
+        f"{'ok' if calls_ok else 'FAIL'}", flush=True)
+  print(f"[parallel sp] {model} {T}-token prompt over {dict(mesh.shape)}: ring prefills {rings} "
+        f"(want 1: the from-zero segment), last 8 logits within {err:.3e} of the logits' range "
+        f"of one device's (limit 5e-2); control, the last rotation's fold dropped: "
+        f"{control_err:.3e} ({'caught' if control_err > 5e-2 else 'NOT caught'}); infer_tensor (every position's logits to the host) "
+        f"{secs * 1e3:.1f} ms with the four positions on one card, one device "
+        f"{runs['one device'][1] * 1e3:.1f} ms (not a scaling figure; "
+        f"{card}) {'ok' if ok else 'FAIL'}", flush=True)
+  if not ok:
+    raise AssertionError(f"parallel sp: err {err}, rings {rings}, mesh {mesh}, ring calls "
+                         f"{call_errs}, controls {control_calls}")
+
+
+def parallel_experts(torch, card: str, device: str = "cuda", config=None, T: int = 64) -> None:
+  """Phase 23 (d): a seeded two-layer cut at qwen3-moe's published widths (QWEN3_MOE_CONFIG:
+  128 experts of 768, top 8) placed on an ep=2 mesh of the card, each position holding 64
+  experts: a T-token prefill and two decode steps through the dense combine (JAX's form
+  under ep), each position's partial sums all-reduced, held within 5e-2 of the logits'
+  range of the same cut on one device through the single-device dense combine (its
+  decode steps too, where it would take the routed gather); a control that drops one
+  position's experts must miss. Prints the prefill's and the decode steps' errors, the
+  tokens at which the mesh chose other experts than one device with the router's gap
+  there, and one device's logits routed as the mesh routed (what is left once the
+  choices agree); the two ep positions must route alike. Each
+  MoE layer call is also held by itself: the two positions' partial sums added in fp32
+  against one device's dense combine on the same input (so the same routing), within
+  2^-6 of the output's largest value; the logits may move more, where an expert choice
+  at a near tie flips on the second layer."""
+  import dataclasses
+  import numpy as np
+  from xotorch_tpu_torch.models import transformer
+  from xotorch_tpu_torch.models.config import config_from_hf_dict
+  from xotorch_tpu_torch.models.transformer import forward_shard, init_kv_cache, init_random_params
+  from xotorch_tpu_torch.parallel.mesh import local_devices, make_mesh, shard_params
+
+  cfg = dataclasses.replace(config_from_hf_dict(config or QWEN3_MOE_CONFIG), num_layers=2)
+  dev = torch.device(device)
+  params = init_random_params(cfg, 2, True, True, seed=5, dtype=torch.bfloat16, device=dev)
+  with phase_env(XOT_VIRTUAL_DEVICES="2"):
+    mesh = make_mesh({"ep": 2, "tp": 1}, local_devices(dev))
+  sharded = shard_params(params, mesh)
+  tokens = torch.as_tensor(np.random.default_rng(4).integers(0, cfg.vocab_size, size=(1, T)),
+                           device=dev)
+
+  def run(p, m):
+    cache = init_kv_cache(cfg, 2, 1, T + 8, torch.bfloat16, dev, mesh=m)
+    logits, _ = forward_shard(p, tokens, cache, 0, cfg, True, True, use_flash=True)
+    out = [logits[0, -8:].float().cpu()]
+    for i in range(2):
+      tok = torch.tensor([[int(out[0][-1].argmax()) + i]], device=dev)
+      logits, _ = forward_shard(p, tok, cache, T + i, cfg, True, True, use_flash_decode=True)
+      out.append(logits[0].float().cpu())
+    return out
+
+  with torch.inference_mode():
+    dense = transformer._moe_mlp
+    want_h = []
+
+    def single(layer, h, c, **kw):
+      want_h.append(h)
+      return dense(layer, h, c, routed=False)
+    transformer._moe_mlp = single
+    try:
+      with routing_recorded(torch) as want_idx:
+        want = run(params, None)
+    finally:
+      transformer._moe_mlp = dense
+    calls = []
+
+    def recorded(layer, h, c, **kw):
+      out = dense(layer, h, c, **kw)
+      calls.append((h, out))
+      return out
+    transformer._moe_mlp = recorded
+    try:
+      with routing_recorded(torch) as got_idx:
+        got = run(sharded, mesh)
+    finally:
+      transformer._moe_mlp = dense
+    # Where the mesh chose other experts than one device: each call's tokens whose top-k
+    # set differs, and one device's router gap there between its k-th and (k+1)-th
+    # logits (a near tie flips under another order of the partial sums upstream).
+    # The mesh routes once an ep position: the two positions' choices must agree.
+    mesh_idx = got_idx[0::2]
+    flips = []
+    for k, (a, b) in enumerate(zip(want_idx, mesh_idx)):
+      differ = (a.sort(-1).values != b.sort(-1).values).any(-1).reshape(-1)
+      router = params["layers"]["router"][k % 2].float()
+      logits = (want_h[k].float() @ router).reshape(-1, cfg.num_experts).sort(-1, descending=True).values
+      gaps = (logits[:, cfg.num_experts_per_tok - 1] - logits[:, cfg.num_experts_per_tok]).cpu()
+      flips.append((int(differ.sum()), differ.numel(),
+                    gaps[differ].max().item() if differ.any() else None, gaps.median().item()))
+    positions_agree = all(torch.equal(a, b) for a, b in zip(got_idx[0::2], got_idx[1::2]))
+    # One device routed as the mesh routed: what is left is the partial sums' order.
+    transformer._moe_mlp = lambda layer, h, c, **kw: dense(layer, h, c, routed=False)
+    try:
+      with forced_routing(torch, list(mesh_idx)):
+        forced = run(params, None)
+    finally:
+      transformer._moe_mlp = dense
+    # Calls come two a layer (ep positions 0 and 1), two layers a forward.
+    call_errs = []
+    for k in range(len(calls) // 2):
+      (h, a), (_, b) = calls[2 * k], calls[2 * k + 1]
+      layer = {name: w[k % 2] for name, w in params["layers"].items()}
+      ref = dense(layer, h, cfg, routed=False).float()
+      call_errs.append(((a.float() + b.float() - ref).abs().max() / ref.abs().max()).item())
+    # The control: every ep position's term of the experts' all-reduce but the first dropped.
+    transformer._moe_mlp = lambda layer, h, c, **kw: (
+      dense(layer, h, c, **kw) * (0 if kw.get("experts", (0,))[0] else 1))
+    try:
+      control = run(sharded, mesh)
+    finally:
+      transformer._moe_mlp = dense
+  del params, sharded
+  errs = [((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, want)]
+  err = max(errs)
+  forced_errs = [((g - w).abs().max() / w.abs().max()).item() for g, w in zip(got, forced)]
+  missed = max(((g - w).abs().max() / w.abs().max()).item() for g, w in zip(control, want))
+  calls_ok = len(call_errs) == 6 and max(call_errs) <= 2.0 ** -6
+  ok = (err < 5e-2 < missed and calls_ok and positions_agree
+        and all(bool(torch.isfinite(g).all()) for g in got))
+  names = [f"{part} layer {k % 2}" for part in ("prefill", "step 1", "step 2") for k in range(2)]
+  print(f"[parallel ep] expert choices the mesh made otherwise than one device (tokens of "
+        f"the call; one device's router gap between its k-th and (k+1)-th largest logits, "
+        f"k = {cfg.num_experts_per_tok}, at those tokens, largest, against the median over "
+        f"all the call's tokens): "
+        + "; ".join(f"{n} {f}/{t}" + (f" (gap {g:.3e}, median {m:.3e})" if g is not None else "")
+                    for n, (f, t, g, m) in zip(names, flips))
+        + f"; the ep positions routed alike: {positions_agree}; one device routed as the mesh "
+        f"routed: logits within {max(forced_errs):.3e} (prefill {forced_errs[0]:.3e})",
+        flush=True)
+  print(f"[parallel ep] {len(call_errs)} MoE layer calls, the two positions' partial sums "
+        f"against one device's dense combine on the same input: worst {max(call_errs):.3e} of "
+        f"the output's largest value (limit 2^-6) {'ok' if calls_ok else 'FAIL'}", flush=True)
+  print(f"[parallel ep] 2-layer qwen3-moe cut ({cfg.num_experts} experts of "
+        f"{cfg.moe_intermediate_size}, top {cfg.num_experts_per_tok}) over ep=2, {T}-token "
+        f"prefill + 2 decode steps, dense combine: logits within {err:.3e} of the logits' range "
+        f"of one device's dense combine (prefill {errs[0]:.3e}, steps "
+        f"{', '.join(f'{e:.3e}' for e in errs[1:])}; limit 5e-2); control, the second "
+        f"position's experts dropped: "
+        f"{missed:.3e} ({'caught' if missed > 5e-2 else 'NOT caught'}) {'ok' if ok else 'FAIL'}",
+        flush=True)
+  if not ok:
+    raise AssertionError(f"parallel ep: {err}, calls {call_errs}, control {missed}")
+
+
+def parallel_multihost(torch, device: str = "cuda") -> None:
+  """Phase 23 (e): the multihost seam on the card: a one-process group (XOT_COORDINATOR
+  on a local port, XOT_NUM_PROCESSES=1; NCCL when CUDA is present) all-reduces a tensor
+  on this process's device. Two NCCL ranks need two cards."""
+  import socket
+  import torch.distributed as dist
+  from xotorch_tpu_torch.parallel import multihost
+
+  with socket.socket() as s:
+    s.bind(("127.0.0.1", 0))
+    port = s.getsockname()[1]
+  with phase_env(XOT_COORDINATOR=f"127.0.0.1:{port}", XOT_NUM_PROCESSES="1", XOT_PROCESS_ID="0"):
+    n, rank = multihost.init_multihost()
+  try:
+    x = torch.arange(4, dtype=torch.float32, device=device)
+    got = multihost.all_reduce(x.clone())
+    ok = (n, rank) == (1, 0) and bool(torch.equal(got, x)) and multihost.is_coordinator()
+    print(f"[parallel multihost] {dist.get_backend()} group of {n} process(es), rank {rank}: "
+          f"all-reduce of a {device} tensor {got.tolist()} {'ok' if ok else 'FAIL'}", flush=True)
+  finally:
+    dist.destroy_process_group()
+  if not ok:
+    raise AssertionError(f"parallel multihost: {(n, rank)}, {got}")
+
+
+def check_parallel(torch, card: str, main_run: dict, device: str = "cuda") -> dict:
+  """Phase 23: tensor, sequence and expert parallelism on the one card (every mesh's
+  positions repeat it: correctness and per-shard kernel calls at real widths, not
+  scaling), then the multihost seam. Returns the attention kernels' launches of (a)."""
+  from xotorch_tpu_torch.ops.int4_matmul import int4_w4a8_matmul, int4_w4a16_matmul
+  from xotorch_tpu_torch.ops.int8_matmul import int8_rowquant_matmul
+
+  t0 = time.perf_counter()
+  launches = dict(parallel_streams(torch, card, main_run, paged=False, device=device))
+  launches.update(parallel_streams(torch, card, main_run, paged=True, device=device))
+  parallel_cut(torch, card, device=device)
+  parallel_cut(torch, card, paged=True, device=device)
+  parallel_cut(torch, card, kv_quant=True, device=device)
+  parallel_cut(torch, card, kv_quant=True, paged=True, device=device)
+  # K5v4 and K6 quantize each position's activation slice with its own scale: twice the
+  # exact kernels' limit, as phase 4 gives them against the CPU.
+  for fmt, env, kernel in (("int4", {}, int4_w4a16_matmul), ("int4", {"XOT_INT4_V": "4"},
+                                                             int4_w4a8_matmul),
+                           ("int8", {"XOT_INT8_KERNEL": "1"}, int8_rowquant_matmul)):
+    before = kernel.launches
+    parallel_cut(torch, card, fmt=fmt, env=env, device=device,
+                 limit=5e-2 if kernel is int4_w4a16_matmul else 1e-1)
+    if kernel.launches - before < 7 * 2 * PARALLEL_TP * PARALLEL_CUT_STEPS:
+      raise AssertionError(f"parallel cut {fmt}: {kernel.__name__} launched "
+                           f"{kernel.launches - before} times")
+  parallel_ring_prefill(torch, card, device=device)
+  parallel_experts(torch, card, device=device)
+  parallel_multihost(torch, device=device)
+  print(f"[time] phase 23 (parallelism): {time.perf_counter() - t0:.1f} s", flush=True)
+  return launches
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--kernels-only", action="store_true",
@@ -8265,6 +8852,7 @@ def main(argv=None) -> int:
   check_quant_kernels(torch, results)
   check_gemma_kernels(torch)
   check_family_kernels(torch)
+  print(f"[time] phases 1-3: {time.perf_counter() - started:.1f} s", flush=True)
   if args.kernels_only:
     check_training_kernels(torch, results)
     print(f"kernels ok on {card}", flush=True)
@@ -8292,12 +8880,16 @@ def main(argv=None) -> int:
     a8 = kernel.__name__ != "int4_w4a16_matmul"
     check_model(torch, fmt, {**env, knob: "force"}, kernel, limit=1e-1 if a8 else 5e-2)
 
+  print(f"[time] phases 1-4: {time.perf_counter() - started:.1f} s", flush=True)
+
   # Phase 5: the main path, with the launch counters read around it.
   main_run = drive_main_path(torch, card, focus="flash_cached_")
   launches = dict(main_run["launches"])
   k1, k2 = launches["flash_attention"], launches["flash_cached_attention"]
   if k1 < 3 * 16 or k2 < 16 * main_run["decoded"]:
     raise AssertionError(f"main: kernel launches too few (K1 {k1}, K2 {k2})")
+
+  print(f"[time] phases 1-5: {time.perf_counter() - started:.1f} s", flush=True)
 
   # Phases 6 and 7: eight concurrent requests on the page pool (K4 prefill, K3
   # decode), then on stacked contiguous caches (K1/K2).
@@ -8313,6 +8905,8 @@ def main(argv=None) -> int:
   print(f"[concurrent] temperature-0 tokens the paged and contiguous phases agree on: "
         f"{same}/{total} = {100 * same / max(total, 1):.1f}% (bf16: streams may part at a "
         f"near-tie; not asserted)", flush=True)
+
+  print(f"[time] phases 1-7: {time.perf_counter() - started:.1f} s", flush=True)
 
   # Phase 8: quantized serving. Fresh servers under XOT_QUANTIZE answer the main
   # path's three requests through K5, K5v4 and K6 (launches = 7 x 16 x decode steps),
@@ -8338,6 +8932,8 @@ def main(argv=None) -> int:
   # then the formats' B=1 steps taken in turn.
   projection_host_us(torch, card)
   alternate_formats(torch, card)
+
+  print(f"[time] phases 1-8: {time.perf_counter() - started:.1f} s", flush=True)
 
   # Phase 9: the int8 KV cache. A fresh server with --kv-quantize int8 answers the main
   # path's three requests: K1 for each fresh prefill (over the fresh K/V), K2q for every
@@ -8385,6 +8981,8 @@ def main(argv=None) -> int:
   print(f"[int8 kv] page arena bytes per token: int8 {paged8['bytes_per_token']:.0f} against bf16 "
         f"{paged['bytes_per_token']:.0f} ({card})", flush=True)
 
+  print(f"[time] phases 1-9: {time.perf_counter() - started:.1f} s", flush=True)
+
   # Phases 10 and 11: the token ring. Two peers hold half the layers each and pass
   # bf16 hidden states over TCP, first as two Nodes in this process (launches counted
   # over both engines, every hop's dtype and size read), then as two processes started
@@ -8395,6 +8993,8 @@ def main(argv=None) -> int:
   launches["flash_cached_attention"] += sum(f["launches"]["flash_cached_attention"]
                                             for f in fused.values())
   drive_ring_processes(torch, card, main_run)
+
+  print(f"[time] phases 1-11: {time.perf_counter() - started:.1f} s", flush=True)
 
   # Phase 12: gemma-2-2b from an HF checkpoint on disk, at full width and depth: its
   # attention kernels' launches join the main path's in the results line.
@@ -8461,7 +9061,13 @@ def main(argv=None) -> int:
     launches[name] += n
   print(f"[time] phases 1-22: {time.perf_counter() - started:.1f} s", flush=True)
 
-  # Phase 23: results.
+  # Phase 23: tensor, sequence and expert parallelism over meshes of the one card, and the
+  # multihost seam; the tp servers' K1-K4 launches join the results line.
+  for name, n in check_parallel(torch, card, main_run).items():
+    launches[name] += n
+  print(f"[time] phases 1-23: {time.perf_counter() - started:.1f} s", flush=True)
+
+  # Phase 24: results.
   meta = {
     "flash_attention": ("xotorch_tpu_torch/csrc/flash_attention.cu",
                         "xotorch_tpu/ops/flash_attention.py:54"),

@@ -1,4 +1,4 @@
-"""Phase 19 of chip_smoke.py (the MoE and vision families: Qwen3-30B-A3B cut to 8 layers
+"""Phase 19 of chip_smoke.py (the MoE and vision families: Qwen3-30B-A3B cut to 4 layers
 and LLaVA-1.5-7B from seeded checkpoints) alone, on the card, after the kernel cases at
 their attention widths: `python3 scripts/families_probe.py` (the build, the cases, then
 the phase); `--kernels-only` stops after the cases."""

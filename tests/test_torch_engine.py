@@ -262,6 +262,11 @@ def test_port_imports_neither_jax_nor_the_jax_package():
           "xotorch_tpu_torch/download/shard_download.py",
           "xotorch_tpu_torch/download/hf_shard_download.py",
           "xotorch_tpu_torch/ops/paged_attention.py",
+          "xotorch_tpu_torch/ops/ring_attention.py",
+          "xotorch_tpu_torch/parallel/__init__.py",
+          "xotorch_tpu_torch/parallel/collectives.py",
+          "xotorch_tpu_torch/parallel/mesh.py",
+          "xotorch_tpu_torch/parallel/multihost.py",
           "xotorch_tpu_torch/inference/torch_engine/paged_cache.py",
           "xotorch_tpu_torch/inference/torch_engine/vkv.py",
           "xotorch_tpu_torch/topology/device_capabilities.py",

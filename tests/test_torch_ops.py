@@ -337,3 +337,21 @@ def test_lib_path_follows_the_shared_header(monkeypatch, tmp_path):
   (csrc / "flash_attention.cu").write_text((csrc / "flash_attention.cu").read_text() + "\n")
   assert _build._lib_path("flash_attention") != after["flash_attention"]
   assert _build._lib_path("flash_decode") == after["flash_decode"]
+
+
+@pytest.mark.parametrize("name", sorted(__import__("xotorch_tpu_torch.ops._build",
+                                                   fromlist=["PARTS"]).PARTS))
+def test_parts_split_the_entry_points(name):
+  """A source built in parts (_build.PARTS) guards each entry point with its part's
+  `#if`: every declared entry point lies in exactly the part its suffix names, and each
+  part's library has a name of its own. No nvcc needed."""
+  import re
+  from xotorch_tpu_torch.ops import _build
+  src = (_build.CSRC_DIR / f"{name}.cu").read_text()
+  guarded = dict((fn, int(part)) for part, fn in re.findall(
+    r'#if !defined\(XOT_PART\) \|\| XOT_PART == (\d)\nextern "C" int (\w+)\(', src))
+  assert sorted(guarded) == sorted(_build.SIGNATURES[name])
+  for fn, part in guarded.items():
+    assert [i for i, sfx in enumerate(_build.PARTS[name]) if fn.endswith(sfx)] == [part], fn
+  paths = {_build._lib_path(name, part) for part in _build._parts(name)}
+  assert len(paths) == len(_build.PARTS[name]) and _build._lib_path(name) not in paths

@@ -230,6 +230,9 @@ int dispatch(const void* q, const void* kc, const void* vc, const void* ks, cons
 
 }  // namespace
 
+// The source is built in two parts side by side (ops/_build.py PARTS): XOT_PART 0
+// holds the bf16 entry points, 1 the int8-KV ones; unset, both.
+
 // q [B, T, Hq, D], k/v cache [B, S, Hkv, D], o [B, T, Hq, D]: contiguous bf16 on the
 // device; q_start [B] int32 on the device. D in {16, 32, 64, 128, 256}, Hq / Hkv <= 64.
 // T == 1: `part` holds B * Hq * splits * (D + 2) floats of scratch on the device, and
@@ -237,6 +240,7 @@ int dispatch(const void* q, const void* kc, const void* vc, const void* ks, cons
 // 64; the last range reaches S). T > 1: block_q (query rows a block, positions x groups
 // flattened) is 64 or 128, and 64 at D = 256; part, splits and kps are not read. Returns a cudaError_t
 // value: nonzero when the arguments are refused or a launch failed.
+#if !defined(XOT_PART) || XOT_PART == 0
 extern "C" int xot_flash_cached_attention_bf16(const void* q, const void* kc, const void* vc,
                                                const void* q_start, void* o, void* part, int B,
                                                int T, int S, int Hq, int Hkv, int D,
@@ -245,9 +249,11 @@ extern "C" int xot_flash_cached_attention_bf16(const void* q, const void* kc, co
   return dispatch<false>(q, kc, vc, nullptr, nullptr, q_start, o, part, B, T, S, Hq, Hkv, D,
                          block_q, splits, kps, window, scale, softcap, stream);
 }
+#endif
 
 // K2q: as above over an int8 cache k/v [B, S, Hkv, D] with bf16 scales k/v_scale
 // [B, S, Hkv], all contiguous on the device.
+#if !defined(XOT_PART) || XOT_PART == 1
 extern "C" int xot_flash_cached_attention_kv8(const void* q, const void* kc, const void* vc,
                                               const void* k_scale, const void* v_scale,
                                               const void* q_start, void* o, void* part, int B,
@@ -257,3 +263,4 @@ extern "C" int xot_flash_cached_attention_kv8(const void* q, const void* kc, con
   return dispatch<true>(q, kc, vc, k_scale, v_scale, q_start, o, part, B, T, S, Hq, Hkv, D,
                         block_q, splits, kps, window, scale, softcap, stream);
 }
+#endif

@@ -288,12 +288,16 @@ int prefill(const void* q, const void* kp, const void* vp, const void* ksp, cons
 
 }  // namespace
 
+// The source is built in two parts side by side (ops/_build.py PARTS): XOT_PART 0
+// holds the bf16 entry points, 1 the int8-KV ones; unset, both.
+
 // q [B, 1, Hq, D], o [B, 1, Hq, D], k/v pages [P, page, Hkv, D]: contiguous bf16 on the
 // device; table [B, maxp] and lengths [B] int32 on the device. D in {16, 32, 64, 128, 256},
 // page in {16, 128}, Hq / Hkv <= 8. `part` holds B * Hq * splits * (D + 2) floats of scratch
 // on the device; the positions [0, maxp * page) are cut into `splits` ranges of `kps`
 // keys (a multiple of 64; the last range reaches the end). Returns a cudaError_t value:
 // nonzero when the arguments are refused or a launch failed.
+#if !defined(XOT_PART) || XOT_PART == 0
 extern "C" int xot_paged_decode_attention_bf16(const void* q, const void* kp, const void* vp,
                                                const void* table, const void* lengths, void* o,
                                                void* part, int B, int maxp, int P, int page,
@@ -303,9 +307,11 @@ extern "C" int xot_paged_decode_attention_bf16(const void* q, const void* kp, co
   return decode<false>(q, kp, vp, nullptr, nullptr, table, lengths, o, part, B, maxp, P, page, Hq,
                        Hkv, D, splits, kps, window, scale, softcap, stream);
 }
+#endif
 
 // K3q: as above over an int8 arena k/v pages [P, page, Hkv, D] with bf16 scale pages
 // k/v_scale_pages [P, page, Hkv], contiguous on the device.
+#if !defined(XOT_PART) || XOT_PART == 1
 extern "C" int xot_paged_decode_attention_kv8(const void* q, const void* kp, const void* vp,
                                               const void* ksp, const void* vsp,
                                               const void* table, const void* lengths, void* o,
@@ -316,12 +322,14 @@ extern "C" int xot_paged_decode_attention_kv8(const void* q, const void* kp, con
   return decode<true>(q, kp, vp, ksp, vsp, table, lengths, o, part, B, maxp, P, page, Hq, Hkv, D,
                       splits, kps, window, scale, softcap, stream);
 }
+#endif
 
 // q [B, T, Hq, D], o [B, T, Hq, D], k/v pages [P, page, Hkv, D]: contiguous bf16 on the
 // device; table [B, maxp] and kv_valid [B] int32 on the device (query t of row b sits
 // at kv_valid[b] - T + t). D in {16, 32, 64, 128, 256}, page in {16, 128}, Hq / Hkv <= 8;
 // block_q, the query rows a block (positions x groups flattened), is 64. Returns a
 // cudaError_t value.
+#if !defined(XOT_PART) || XOT_PART == 0
 extern "C" int xot_paged_prefill_attention_bf16(const void* q, const void* kp, const void* vp,
                                                 const void* table, const void* kv_valid,
                                                 void* o, int B, int T, int maxp, int P,
@@ -331,8 +339,10 @@ extern "C" int xot_paged_prefill_attention_bf16(const void* q, const void* kp, c
   return prefill<false>(q, kp, vp, nullptr, nullptr, table, kv_valid, o, B, T, maxp, P, page, Hq,
                         Hkv, D, block_q, window, scale, softcap, stream);
 }
+#endif
 
 // K4q: as above over an int8 arena with bf16 scale pages [P, page, Hkv].
+#if !defined(XOT_PART) || XOT_PART == 1
 extern "C" int xot_paged_prefill_attention_kv8(const void* q, const void* kp, const void* vp,
                                                const void* ksp, const void* vsp,
                                                const void* table, const void* kv_valid, void* o,
@@ -342,3 +352,4 @@ extern "C" int xot_paged_prefill_attention_kv8(const void* q, const void* kp, co
   return prefill<true>(q, kp, vp, ksp, vsp, table, kv_valid, o, B, T, maxp, P, page, Hq, Hkv, D,
                        block_q, window, scale, softcap, stream);
 }
+#endif

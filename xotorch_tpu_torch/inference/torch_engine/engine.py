@@ -158,9 +158,25 @@ declines (`_ring_declines`), and the Node takes the per-token ring, only where J
 does: a request with sampling extras, a chain that does not cover the layers
 contiguously, positions out of lockstep (and, batched, a member without room).
 
+Serving over a local mesh (the JAX engine's `_serving_mesh`): XOT_TP (over
+XOT_SERVE_TP; CLI --serve-tp), XOT_SERVE_SP and XOT_SERVE_EP build a mesh over
+parallel/mesh.local_devices() for each shard at its load, with JAX's clamps; unset, tp
+stays one position where JAX takes every local card (a mesh over distinct cards is
+unrun: the graph cache refuses to capture one). The weights are split per mesh position
+(parallel/mesh.shard_params), caches and the page arena over tp along the kv heads, and
+every forward runs the transformer's mesh path: each position's kernels on its own
+heads and slices, the collectives written out (models/transformer._forward_mesh). A
+whole-model shard under sp prefills its from-zero segment by ring attention
+(`_ring_prefill`, counted in `sp_ring_prefills`). What JAX's mesh tests do not cover is
+refused with a ValueError naming the knob: LoRA adapters (XOT_LORA_RANK, XOT_ADAPTERS)
+and the KV fabric (XOT_FABRIC_PEERS, XOT_FABRIC_ROLE) when the engine is built; vision
+when a multimodal shard loads; training, checkpoint loads and saves, the fused
+in-process ring and fabric transfers when called. A process group of more than one
+process (XOT_COORDINATOR, XOT_MULTIHOST) is refused when the engine is built: the
+serving mesh does not span processes yet, and each rank would serve its shard alone.
+
 Left out so far: `forward_paged` and XOT_PAGED_KERNEL (the card always takes the paged
-kernels), and everything that needs more than one card: tensor, sequence and expert
-parallelism, ring attention, multihost training.
+kernels), and training over a mesh.
 """
 from __future__ import annotations
 
@@ -210,6 +226,9 @@ from xotorch_tpu_torch.models.weights import load_shard_params, load_vision_towe
 from xotorch_tpu_torch.ops import flash_attention, flash_decode, paged_attention
 from xotorch_tpu_torch.ops.sampling import (DEFAULT_TEMP, DEFAULT_TOP_K, sample_logits,
                                             sample_logits_logprobs)
+from xotorch_tpu_torch.parallel.mesh import (Mesh, cache_device, device_bytes,
+                                             local_devices, make_mesh, piece_name, shard_params)
+from xotorch_tpu_torch.parallel.multihost import group_size
 from xotorch_tpu_torch.topology.device_capabilities import cuda_chip_peaks
 from xotorch_tpu_torch.train import lora, optstate
 from xotorch_tpu_torch.train import step as train_step
@@ -289,6 +308,10 @@ class _ShardContext:
   # order), made at the first step; a load resets it.
   optimizer: Optional[torch.optim.Optimizer] = None
   opt_leaves: Optional[List[torch.Tensor]] = None
+  # The serving mesh (`_serving_mesh`) the params are placed on, or None; the weights'
+  # bytes over every position (one replica), counted before the split.
+  mesh: Optional[Mesh] = None
+  weight_bytes: int = 0
 
 
 class _Pending(NamedTuple):
@@ -602,6 +625,90 @@ class TorchShardInferenceEngine(InferenceEngine):
     # device, and the bytes of hidden states copied to the host for a hop.
     self.device_hops = 0
     self.host_hop_bytes = 0
+    # The serving mesh's knobs (`_serving_mesh` builds it per shard at its load), the
+    # devices it may span, and the from-zero segments prefilled by ring attention.
+    tp_env = knobs.raw("XOT_TP")
+    self._tp_env = tp_env if tp_env is not None else knobs.raw("XOT_SERVE_TP")
+    self._sp_env = knobs.get_int("XOT_SERVE_SP")
+    self._ep_env = knobs.get_int("XOT_SERVE_EP")
+    self._local_devices = local_devices(self.device)
+    self.sp_ring_prefills = 0
+    n_proc = group_size()
+    if n_proc > 1:
+      raise ValueError(f"XOT_COORDINATOR/XOT_MULTIHOST: a process group of {n_proc} processes; "
+                       f"the serving mesh does not span processes yet (each rank would serve "
+                       f"its shard alone): start one process per peer")
+    if self._mesh_requested():
+      # Paths JAX's mesh tests do not cover, refused rather than served on one position.
+      for knob, on in (("XOT_LORA_RANK", knobs.get_int("XOT_LORA_RANK") > 0),
+                       ("XOT_ADAPTERS", bool(knobs.get_str("XOT_ADAPTERS", ""))),
+                       ("XOT_FABRIC_PEERS", bool(self._fabric_peers)),
+                       ("XOT_FABRIC_ROLE", knobs.get_str("XOT_FABRIC_ROLE") != "mixed")):
+        if on:
+          raise ValueError(f"{knob} under a serving mesh is not ported: {self._mesh_knobs()}")
+      # The fused in-process ring reads every segment's plain params and caches.
+      self.supports_ring_fusion = False
+
+  # ------------------------------------------------------------- serving mesh
+
+  def _mesh_knobs(self) -> str:
+    return (f"XOT_TP/XOT_SERVE_TP={self._tp_env}, XOT_SERVE_SP={self._sp_env}, "
+            f"XOT_SERVE_EP={self._ep_env}, {len(self._local_devices)} local devices; "
+            f"set XOT_TP=0 to serve on one device")
+
+  def _mesh_requested(self) -> bool:
+    """Whether the knobs may build a mesh (a shard's config may still clamp it away)."""
+    if self._sp_env > 1 or self._ep_env > 1:
+      return True
+    return self._tp_env is not None and int(self._tp_env) > 1
+
+  def _refuse_on_mesh(self, what: str) -> None:
+    if self._mesh_requested():
+      raise ValueError(f"{what} under a serving mesh is not ported: {self._mesh_knobs()}")
+
+  def _serving_mesh(self, cfg: ModelConfig, shard: Optional[Shard] = None) -> Optional[Mesh]:
+    """The shard's serving mesh over the local devices (JAX's `_serving_mesh`), or None.
+
+    Axes: 'tp' (XOT_TP, falling back to XOT_SERVE_TP: 0 = off, N = force, unset = off,
+    where JAX takes every local card), 'sp' (XOT_SERVE_SP: the from-zero
+    segment's positions over sp, ring attention; a power of two, and only for a
+    whole-model shard) and 'ep' (XOT_SERVE_EP, MoE only: the experts over ep, dividing
+    their count). Requested sizes reduce to the largest feasible divisors: tp divides
+    every dense dimension, so each split is even."""
+    sp_env, ep_env = self._sp_env, self._ep_env
+    if not cfg.is_moe:
+      ep_env = 0
+    # The ring prefill needs a whole-model shard (token input, from-zero context): a
+    # mid-shard must not reserve sp devices it can never use.
+    if shard is not None and not (shard.is_first_layer and shard.is_last_layer):
+      sp_env = 0
+    n_local = len(self._local_devices)
+    # Unset is one position: JAX's auto-tp over every local card waits for a run over
+    # distinct cards (ROADMAP), so a multi-card host serves as it did before the mesh.
+    t = min(max(int(self._tp_env), 1), n_local) if self._tp_env is not None else 1
+    dims = [cfg.num_kv_heads, cfg.num_heads, cfg.hidden_size,
+            cfg.num_heads * cfg.head_dim, cfg.intermediate_size, cfg.vocab_size]
+    if cfg.is_moe and cfg.moe_intermediate_size:
+      dims.append(cfg.moe_intermediate_size)
+    while t > 1 and any(d % t for d in dims):
+      t -= 1
+    ep = min(ep_env, n_local // t) if ep_env > 1 else 1
+    while ep > 1 and cfg.num_experts % ep:
+      ep -= 1
+    sp = min(sp_env, n_local // (t * ep)) if sp_env > 1 else 1
+    # Prefill segments are padded to power-of-two buckets: a sp that is not a power of
+    # two would never divide them.
+    while sp > 1 and sp & (sp - 1):
+      sp -= 1
+    if t <= 1 and sp <= 1 and ep <= 1:
+      return None
+    axes = {}
+    if ep > 1:
+      axes["ep"] = ep
+    if sp > 1:
+      axes["sp"] = sp
+    axes["tp"] = t
+    return make_mesh(axes, self._local_devices)
 
   # ------------------------------------------------------------- accessors
 
@@ -900,7 +1007,7 @@ class TorchShardInferenceEngine(InferenceEngine):
     ctx = self._active
     if ctx is not None and ctx.costmodel is not None:
       cm = ctx.costmodel
-      actual = quantized_bytes(ctx.params)  # numel x element size: metadata only
+      actual = ctx.weight_bytes  # numel x element size, counted at load: metadata only
       report["model"] = {
         "model_id": ctx.shard.model_id,
         "layers": [ctx.shard.start_layer, ctx.shard.end_layer],
@@ -912,7 +1019,7 @@ class TorchShardInferenceEngine(InferenceEngine):
         "weight_bytes_predicted": cm.weight_bytes(),
         "weight_bytes_actual": actual,
         "weight_bytes_per_device_predicted": cm.weight_bytes_per_device(),
-        "weight_bytes_per_device_actual": actual,
+        "weight_bytes_per_device_actual": device_bytes(ctx.params),
         "kv_write_bytes_per_token": cm.kv_write_bytes_per_token(),
         "kv_read_bytes_per_token_at_cache_len": cm.kv_read_bytes_per_token(
           ctx.cache_len, alloc_tokens=ctx.cache_len),
@@ -1038,6 +1145,7 @@ class TorchShardInferenceEngine(InferenceEngine):
     adapters (XOT_LORA_RANK, XOT_LORA_TARGETS=all for the MLP slots) attach only where
     no adapter checkpoint does: they would overwrite its trained leaves."""
     t0 = time.perf_counter()
+    mesh = None
     if donor is not None:
       cfg = donor.cfg
       params = {**donor.params, "layers": {k: v for k, v in donor.params["layers"].items()
@@ -1048,7 +1156,11 @@ class TorchShardInferenceEngine(InferenceEngine):
         cfg = config_from_hf_dict(get_model_card(shard.model_id)["synthetic_config"])
       else:
         cfg = load_model_config(model_dir)
-      self._check_kernel_shapes(shard.model_id, cfg)
+      mesh = self._serving_mesh(cfg, shard)
+      if mesh is not None and cfg.is_multimodal:
+        raise ValueError(f"{shard.model_id}: vision under a serving mesh is not ported: "
+                         f"{self._mesh_knobs()}")
+      self._check_kernel_shapes(shard.model_id, cfg, mesh)
       if model_dir is None:
         params = init_random_params(cfg, shard.get_layer_count(), shard.is_first_layer,
                                     shard.is_last_layer, seed=0, dtype=self.dtype,
@@ -1062,6 +1174,13 @@ class TorchShardInferenceEngine(InferenceEngine):
         # The tower and projector stay in the compute dtype whatever `quantize` says, as
         # in JAX: only the text stack's slots are quantized.
         vision = load_vision_tower(model_dir, cfg, dtype=self.dtype, device=self.device)
+    weight_bytes = quantized_bytes(params)
+    if mesh is not None:
+      # Each position's slices of the weights (parallel/mesh.spec_for_param); the
+      # quantized ones keep the port's kernels, run on each position's slice.
+      params = shard_params(params, mesh)
+      if DEBUG >= 1:
+        print(f"Serving {shard} over the mesh {mesh}", flush=True)
     if adapter_ckpt is not None:
       params = lora.load_lora_checkpoint(params, shard, adapter_ckpt)
       if DEBUG >= 1:
@@ -1086,18 +1205,23 @@ class TorchShardInferenceEngine(InferenceEngine):
             flush=True)
     costmodel = CostModel(cfg, shard.get_layer_count(), shard.is_first_layer, shard.is_last_layer,
                           quantize=self.quantize, dtype_bytes=dtype_width(self._dtype_name),
-                          kv_quant=self.kv_quant, start_layer=shard.start_layer)
+                          kv_quant=self.kv_quant, start_layer=shard.start_layer,
+                          tp=mesh.axis_size("tp") if mesh is not None else 1)
     return _ShardContext(shard=shard, cfg=cfg, params=params, cache_len=cache_len,
                          max_cache_len=max_cache_len, tokenizer=tokenizer,
                          states=OrderedDict(), model_dir=model_dir,
                          graphs=graphs.GraphCache(self.device) if self.device.type == "cuda" else None,
-                         costmodel=costmodel, vision=vision)
+                         costmodel=costmodel, vision=vision, mesh=mesh, weight_bytes=weight_bytes)
 
-  def _check_kernel_shapes(self, model_id: str, cfg: ModelConfig) -> None:
+  def _check_kernel_shapes(self, model_id: str, cfg: ModelConfig,
+                           mesh: Optional[Mesh] = None) -> None:
     """Refuse, when a shard is loaded, a model whose attention shapes the kernels are not
     built for: head_dim outside K1's and K2's builds or more q heads per kv head than
-    K2 takes, and under XOT_PAGED_KV=1 head_dim or groups outside K3's and K4's."""
-    groups = cfg.num_heads // cfg.num_kv_heads
+    K2 takes, and under XOT_PAGED_KV=1 head_dim or groups outside K3's and K4's. Under a
+    mesh each tp position's shard is checked: Hq/tp q heads over Hkv/tp kv heads keep
+    the group size, so the same rule holds for each."""
+    tp = mesh.axis_size("tp") if mesh is not None else 1
+    groups = (cfg.num_heads // tp) // (cfg.num_kv_heads // tp)
     dims = flash_decode.HEAD_DIMS
     if cfg.head_dim not in dims or groups > flash_decode.MAX_GROUPS:
       raise ValueError(f"{model_id}: head_dim {cfg.head_dim} with {groups} q heads per kv head; "
@@ -1167,6 +1291,7 @@ class TorchShardInferenceEngine(InferenceEngine):
     the moments saved beside it (`_opt_state_file`) are restored in the same executor
     call; a file that does not fit leaves the optimizer cold, with a message, and never
     blocks the weights."""
+    self._refuse_on_mesh("load_checkpoint")
     ctx = await self._ensure_ctx(shard)
     # The moments a resume may restore: set only where one save loads as it is (a
     # re-partitioned merge or a base reload lands at another parameter point).
@@ -1240,6 +1365,7 @@ class TorchShardInferenceEngine(InferenceEngine):
     it when the context has an optimizer and XOT_SAVE_OPT_STATE is on; otherwise a
     stale moments file beside it is removed (it would pair other moments with these
     weights on the next resume)."""
+    self._refuse_on_mesh("save_checkpoint")
     ctx = await self._ensure_ctx(shard)
 
     def _save():
@@ -1330,6 +1456,7 @@ class TorchShardInferenceEngine(InferenceEngine):
     `forward_fn(activations, target, lengths, train=True) -> (loss, grad)`, pulls the
     returned gradient back through its slice, steps its optimizer and returns (loss,
     the gradient of its input; zeros for a first shard: tokens have none)."""
+    self._refuse_on_mesh("train_example")
     ctx = await self._ensure_ctx(shard)
     if not shard.is_last_layer and forward_fn is None:
       raise ValueError("Non-last shard requires forward_fn to chain the ring")
@@ -1398,6 +1525,7 @@ class TorchShardInferenceEngine(InferenceEngine):
                              forward_fn=None) -> float:
     """The loss of an example through the training forward, with no gradient: the last
     shard's masked cross-entropy, chained through `forward_fn` from another shard."""
+    self._refuse_on_mesh("evaluate_example")
     ctx = await self._ensure_ctx(shard)
     if not shard.is_last_layer and forward_fn is None:
       raise ValueError("Non-last shard requires forward_fn to chain the ring")
@@ -1558,11 +1686,25 @@ class TorchShardInferenceEngine(InferenceEngine):
     """One segment's forward; returns (device output, true length). `fill` skips the
     unembedding (cache-fill segments whose logits nobody reads)."""
     x, true_t, state, cache, kw = self._segment_setup(ctx, request_id, input_data)
+    ring = "page_table" not in kw and true_t > 1 and self._ring_prefill(ctx, state.pos, x)
     out, _ = forward_shard(ctx.params, x, cache, state.pos, ctx.cfg, is_first=x.ndim == 2,
                            is_last=ctx.shard.is_last_layer and not fill,
-                           start_layer=ctx.shard.start_layer, **kw)
+                           start_layer=ctx.shard.start_layer, ring=ring, **kw)
+    self.sp_ring_prefills += ring
     self._advance(ctx, state, true_t)
     return out, true_t
+
+  @staticmethod
+  def _ring_prefill(ctx: _ShardContext, pos: int, x) -> bool:
+    """Whether a contiguous segment of `x` at `pos` prefills by ring attention over the
+    mesh's sp axis (JAX's "ring"/"ring_full" executables): a first-layer shard's token
+    segment from position 0 whose (padded) length sp divides, for a family with no
+    window, softcap or query_pre_attn_scalar. Later segments attend the cache."""
+    mesh, cfg = ctx.mesh, ctx.cfg
+    return (mesh is not None and mesh.axis_size("sp") > 1 and ctx.shard.is_first_layer
+            and pos == 0 and x.ndim == 2 and x.shape[1] % mesh.axis_size("sp") == 0
+            and not (cfg.uses_sliding_window or cfg.attn_logit_softcap
+                     or cfg.query_pre_attn_scalar))
 
   def _prefill_groups(self, ctx: _ShardContext, state: _RequestState, x: torch.Tensor, cache,
                       chunk: int, want_hidden: bool,
@@ -1598,6 +1740,10 @@ class TorchShardInferenceEngine(InferenceEngine):
     from-zero segment), and the caller loops over the segments."""
     total = input_data.shape[1]
     if not knobs.get_bool("XOT_SCAN_PREFILL") or total % chunk or total < 2 * chunk:
+      return None
+    # A from-zero prompt on a sp mesh rings its first segment: it outranks the scan.
+    st = ctx.states.get(request_id)
+    if self._ring_prefill(ctx, st.pos if st is not None else 0, input_data):
       return None
     state = self._prep_state(ctx, request_id, total)
     x = self._to_device_input(input_data)
@@ -2066,7 +2212,7 @@ class TorchShardInferenceEngine(InferenceEngine):
       length *= 2
     length = min(length, ctx.max_cache_len)
     cache = init_kv_cache(ctx.cfg, ctx.shard.get_layer_count(), 1, length, self.dtype, self.device,
-                          kv_quant=self.kv_quant is not None)
+                          kv_quant=self.kv_quant is not None, mesh=ctx.mesh)
     if len(state.pages):
       # Released (windowed) slots resolve to the scratch page: zeros no query reads.
       ids = vkv.resolve_page_table([state.pages], len(state.pages))[0]
@@ -2525,6 +2671,7 @@ class TorchShardInferenceEngine(InferenceEngine):
     dispatch. Returns None where the chain or the request does not qualify
     (`_resolve_ring_segs`) or its positions left lockstep: the caller takes the
     per-token ring."""
+    self._refuse_on_mesh("generate_chunk_ring")
     if num_tokens < 1:
       return None
     segs = self._resolve_ring_segs(request_id, chain)
@@ -2754,6 +2901,7 @@ class TorchShardInferenceEngine(InferenceEngine):
     composite forward (JAX's): [prev_token] + draft, the longest agreeing prefix and the
     bonus token, as verify_draft on one shard. None where the chain does not qualify or
     there is no room: the caller decodes plainly."""
+    self._refuse_on_mesh("verify_draft_ring")
     if not draft:
       return None
     segs = self._resolve_ring_segs(request_id, chain)
@@ -2883,7 +3031,7 @@ class TorchShardInferenceEngine(InferenceEngine):
       num_pages = -(-tokens // page) + 1  # +1: the scratch page 0
       ctx.page_pool = PagePool(ctx.cfg, ctx.shard.get_layer_count(), num_pages, page,
                                dtype=self.dtype, device=self.device,
-                               kv_quant=self.kv_quant is not None)
+                               kv_quant=self.kv_quant is not None, mesh=ctx.mesh)
       if DEBUG >= 1:
         print(f"KV page pool ready: {num_pages - 1} pages x {page} tokens")
     return ctx.page_pool
@@ -3262,16 +3410,24 @@ class TorchShardInferenceEngine(InferenceEngine):
     return {"bytes": store.total_bytes, "entries": len(store),
             "restore_fallbacks": self._host_restore_fallbacks}
 
-  def _cache_leaf_names(self) -> set:
+  def _cache_leaf_names(self, ctx: _ShardContext) -> set:
     """The leaves a restored entry must carry for the current cache config: K and V,
-    and their scales under an int8 KV cache."""
+    and their scales under an int8 KV cache; under a mesh each one's pieces."""
     names = {"k", "v"}
     if self.kv_quant is not None:
       names |= {"k_scale", "v_scale"}
-    return names
+    tp = ctx.mesh.axis_size("tp") if ctx.mesh is not None else 1
+    return {piece_name(n, j) for n in names for j in range(tp)}
 
   def _leaf_dtype(self, name: str) -> torch.dtype:
-    return torch.int8 if self.kv_quant is not None and name in ("k", "v") else self.dtype
+    base = name.split("@")[0]
+    return torch.int8 if self.kv_quant is not None and base in ("k", "v") else self.dtype
+
+  def _leaf_device(self, ctx: _ShardContext, name: str) -> torch.device:
+    """Where a cache leaf lives: a mesh piece on its tp index's device."""
+    if ctx.mesh is None:
+      return self.device
+    return cache_device(ctx.mesh, int(name.split("@")[1]) if "@" in name else 0)
 
   def _spill_prefix_entry(self, ctx: _ShardContext, toks, entry: dict) -> bool:
     """Copy one evicted prefix entry to the host tier, best effort (it runs inside
@@ -3337,9 +3493,10 @@ class TorchShardInferenceEngine(InferenceEngine):
     cfg = ctx.cfg
     try:
       leaf = entry.data.get("k")
-      if (set(entry.data) != self._cache_leaf_names() or leaf is None or leaf.ndim != 5
+      tp = ctx.mesh.axis_size("tp") if ctx.mesh is not None else 1
+      if (set(entry.data) != self._cache_leaf_names(ctx) or leaf is None or leaf.ndim != 5
           or leaf.shape[0] != ctx.shard.get_layer_count()
-          or leaf.shape[3:] != (cfg.num_kv_heads, cfg.head_dim)
+          or leaf.shape[3:] != (cfg.num_kv_heads // tp, cfg.head_dim)
           or any(a.shape[2] < entry.length for a in entry.data.values())):
         # Torn, or spilled under another cache config: unusable here, and keeping it
         # would shadow fresher entries.
@@ -3366,7 +3523,7 @@ class TorchShardInferenceEngine(InferenceEngine):
           return
         restored = (np.ascontiguousarray(entry.toks[:entry.length]),
                     {name: from_host(arr[:, :, :entry.length], self._leaf_dtype(name),
-                                     self.device)
+                                     self._leaf_device(ctx, name))
                      for name, arr in entry.data.items()})
     except CacheExhausted:
       # Live requests hold every page: the entry waits in the tier for a calmer moment.
@@ -3421,6 +3578,7 @@ class TorchShardInferenceEngine(InferenceEngine):
     """Record a sibling's announce (`POST /v1/kv/offer`): peer `url` holds a host-tier
     entry covering `toks`, so the next local miss resolves coverage without a probe.
     False when the host tier is off (an import would have nowhere to land)."""
+    self._refuse_on_mesh("fabric_offer")
     if self._host_kv_max_bytes <= 0:
       return False
     key = self._fabric_client(create=True).offers.record(shard, toks, length, nbytes, url)
@@ -3487,6 +3645,7 @@ class TorchShardInferenceEngine(InferenceEngine):
     a transfer handle, which the router offers at a decode replica. None when the
     prompt is too short to cache or the host tier or the prefix cache is off (the
     router then forwards plainly)."""
+    self._refuse_on_mesh("prefill_export")
     if self._host_kv_max_bytes <= 0 or self._prefix_cache_max <= 0:
       return None
     import uuid
@@ -3629,7 +3788,7 @@ class TorchShardInferenceEngine(InferenceEngine):
       length = min(length, ctx.max_cache_len)
       state = self._admit(ctx, request_id, _RequestState(
         cache=init_kv_cache(ctx.cfg, ctx.shard.get_layer_count(), 1, length, self.dtype,
-                            self.device, kv_quant=self.kv_quant is not None),
+                            self.device, kv_quant=self.kv_quant is not None, mesh=ctx.mesh),
         pos=0, last_used=time.monotonic()))
     ctx.states.move_to_end(request_id)
     return state

@@ -27,6 +27,7 @@ import numpy as np
 import torch
 
 from xotorch_tpu_torch.inference.engine import CacheExhausted
+from xotorch_tpu_torch.models.transformer import mesh_pieces
 
 
 class PagePool:
@@ -36,17 +37,25 @@ class PagePool:
   executor thread, so no locking is needed."""
 
   def __init__(self, cfg, num_layers: int, num_pages: int, page_size: int,
-               dtype=torch.bfloat16, device="cpu", kv_quant: bool = False):
+               dtype=torch.bfloat16, device="cpu", kv_quant: bool = False, mesh=None):
     if num_pages < 2:
       raise ValueError(f"page pool needs >= 2 pages (1 scratch + 1 usable), got {num_pages}")
-    shape = (num_layers, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
-    kv_dtype = torch.int8 if kv_quant else dtype
-    self.arena: Dict[str, torch.Tensor] = {
-      "k": torch.zeros(shape, dtype=kv_dtype, device=device),
-      "v": torch.zeros(shape, dtype=kv_dtype, device=device)}
-    if kv_quant:
-      self.arena["k_scale"] = torch.zeros(shape[:-1], dtype=dtype, device=device)
-      self.arena["v_scale"] = torch.zeros(shape[:-1], dtype=dtype, device=device)
+
+    def arena(cfg, device) -> Dict[str, torch.Tensor]:
+      shape = (num_layers, num_pages, page_size, cfg.num_kv_heads, cfg.head_dim)
+      kv_dtype = torch.int8 if kv_quant else dtype
+      out = {"k": torch.zeros(shape, dtype=kv_dtype, device=device),
+             "v": torch.zeros(shape, dtype=kv_dtype, device=device)}
+      if kv_quant:
+        out["k_scale"] = torch.zeros(shape[:-1], dtype=dtype, device=device)
+        out["v_scale"] = torch.zeros(shape[:-1], dtype=dtype, device=device)
+      return out
+
+    # Under a serving mesh the arena is split over tp along the kv heads: one piece per
+    # tp index (parallel/mesh.shard_cache's flat names), every piece indexed by the same
+    # page ids, so the table, the allocator and the refcounts below are shared.
+    self.arena: Dict[str, torch.Tensor] = (arena(cfg, device) if mesh is None
+                                           else mesh_pieces(mesh, arena, cfg))
     self.page_size = int(page_size)
     self.num_pages = int(num_pages)
     # Page 0 is permanently "allocated" (ref 1) so it can never be handed out.
@@ -164,9 +173,9 @@ def commit_pages(arena: Dict[str, torch.Tensor], cache: Dict[str, torch.Tensor],
   if n == 0:
     return arena
   page = arena["k"].shape[2]
-  ids = _ids(page_ids, arena["k"].device)
   lo, hi = start_page * page, (start_page + n) * page
   for name, buf in arena.items():
+    ids = _ids(page_ids, buf.device)
     src = cache[name][:, 0]  # [L, S, Hkv, D]
     seg = torch.zeros((src.shape[0], hi - lo) + tuple(src.shape[2:]), dtype=buf.dtype,
                       device=buf.device)
@@ -178,10 +187,9 @@ def commit_pages(arena: Dict[str, torch.Tensor], cache: Dict[str, torch.Tensor],
 
 def gather_pages(arena: Dict[str, torch.Tensor], page_ids) -> Dict[str, torch.Tensor]:
   """Gather `page_ids` back into contiguous form: leaves [L, 1, n*page, ...]."""
-  ids = _ids(page_ids, arena["k"].device)
   out = {}
   for name, buf in arena.items():
-    g = buf[:, ids]  # [L, n, page, Hkv, D]
+    g = buf[:, _ids(page_ids, buf.device)]  # [L, n, page, Hkv, D]
     out[name] = g.reshape(g.shape[0], 1, g.shape[1] * g.shape[2], *g.shape[3:])
   return out
 
@@ -194,9 +202,8 @@ def migrate_pages(arena: Dict[str, torch.Tensor], src_ids, dst_ids) -> Dict[str,
   the arena."""
   if len(src_ids) == 0:
     return arena
-  src = _ids(src_ids, arena["k"].device)
-  dst = _ids(dst_ids, arena["k"].device)
   for buf in arena.values():
+    src, dst = _ids(src_ids, buf.device), _ids(dst_ids, buf.device)
     buf[:, dst] = buf[:, src]  # advanced indexing gathers a copy before the write
   return arena
 
@@ -247,9 +254,8 @@ def scatter_pages(arena: Dict[str, torch.Tensor], host_kv: Dict[str, np.ndarray]
   if n == 0:
     return arena
   page = arena["k"].shape[2]
-  ids = _ids(page_ids, arena["k"].device)
   for name, buf in arena.items():
     a = np.asarray(host_kv[name])[:, 0, :n * page]  # [L, n*page, ...]
     rows = from_host(a.reshape(a.shape[0], n, page, *a.shape[2:]), buf.dtype, buf.device)
-    buf[:, ids] = rows
+    buf[:, _ids(page_ids, buf.device)] = rows
   return arena

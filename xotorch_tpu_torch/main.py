@@ -9,6 +9,9 @@ one completion.
         # multi-LoRA: requests name "<model>@fin" or "<model>@med" over one base
     python -m xotorch_tpu_torch.main run gemma2-2b --models-seed-dir /data/seed
     python -m xotorch_tpu_torch.main run dummy --inference-engine dummy   # no model, no device
+    python -m xotorch_tpu_torch.main --serve-tp 2 [--serve-sp 2] [--serve-ep 2]
+        # one peer over a mesh of its local cards (parallel/mesh.py); XOT_VIRTUAL_DEVICES=N
+        # repeats one card N times instead
     python -m xotorch_tpu_torch.main train synthetic-llama-1b --iters 8 --batch-size 4 \\
         --save-every 4 --save-checkpoint-dir ckpt [--lora-rank 8] [--quantize int8]
     python -m xotorch_tpu_torch.main train synthetic-llama-1b --iters 8 --batch-size 4 \\
@@ -66,6 +69,7 @@ from xotorch_tpu_torch.inference.engine import get_inference_engine
 from xotorch_tpu_torch.models.registry import build_base_shard, get_repo
 from xotorch_tpu_torch.networking.tcp import TCPPeerHandle, TCPServer
 from xotorch_tpu_torch.orchestration.node import Node
+from xotorch_tpu_torch.parallel.multihost import init_multihost, multihost_requested
 from xotorch_tpu_torch.topology.partitioning import RingMemoryWeightedPartitioningStrategy
 from xotorch_tpu_torch.train.dataset import DEFAULT_DATA
 from xotorch_tpu_torch.utils.helpers import DEBUG, find_available_port
@@ -109,6 +113,18 @@ def build_parser() -> argparse.ArgumentParser:
                       help="multi-LoRA serving registry: 'name=/path/to/adapter,name2=/dir'. "
                            "Requests select an adapter via the model id 'base@name'; all "
                            "adapters share one resident base (as XOT_ADAPTERS)")
+  parser.add_argument("--serve-tp", type=int, default=None,
+                      help="tensor-parallel width over this peer's local devices (default: every "
+                           "local card when there are several; 0/1 disables; as XOT_SERVE_TP)")
+  parser.add_argument("--serve-sp", type=int, default=None,
+                      help="sequence-parallel width for long-prompt prefill: the from-zero "
+                           "segment ring-attends over this many local devices (composes with "
+                           "--serve-tp; power of two; as XOT_SERVE_SP)")
+  parser.add_argument("--serve-ep", type=int, default=None,
+                      help="expert-parallel width for MoE models: expert weights distribute "
+                           "over this many local devices, each computing its resident experts "
+                           "(composes with --serve-tp; must divide the expert count; as "
+                           "XOT_SERVE_EP)")
   # train and eval (JAX's flags and defaults; --data defaults to the port's own copy)
   parser.add_argument("--data", type=str, default=DEFAULT_DATA)
   parser.add_argument("--iters", type=int, default=100)
@@ -122,13 +138,23 @@ def build_parser() -> argparse.ArgumentParser:
 
 def build_node(args) -> tuple:
   """Engine, node (with its TCP server and discovery, not started) and API for `args`;
-  the engine raises here when the device is missing. `--lora-rank` and `--adapters`
-  go to the environment (XOT_LORA_RANK, XOT_ADAPTERS), where the engine reads them when
-  it loads a shard and the registry and the API when they resolve an adapter id."""
+  the engine raises here when the device is missing. `--lora-rank`, `--adapters` and
+  `--serve-tp/-sp/-ep` go to the environment (XOT_LORA_RANK, XOT_ADAPTERS,
+  XOT_SERVE_TP/SP/EP), where the engine reads them when it is built or loads a shard and
+  the registry and the API when they resolve an adapter id. When the launcher gives a
+  process group (XOT_COORDINATOR or XOT_MULTIHOST), this process joins it before any
+  device use (parallel/multihost.py)."""
   if getattr(args, "lora_rank", 0):
     os.environ["XOT_LORA_RANK"] = str(args.lora_rank)
   if getattr(args, "adapters", None):
     os.environ["XOT_ADAPTERS"] = args.adapters
+  for flag, knob in (("serve_tp", "XOT_SERVE_TP"), ("serve_sp", "XOT_SERVE_SP"),
+                     ("serve_ep", "XOT_SERVE_EP")):
+    if getattr(args, flag, None) is not None:
+      os.environ[knob] = str(getattr(args, flag))
+  if multihost_requested():
+    n_proc, rank = init_multihost()
+    print(f"multi-host: process {rank}/{n_proc}", flush=True)
   engine = get_inference_engine(args.inference_engine, HFShardDownloader(), device=args.device,
                                 quantize=getattr(args, "quantize", None),
                                 kv_quant=getattr(args, "kv_quantize", None))

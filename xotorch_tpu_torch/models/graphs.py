@@ -58,6 +58,12 @@ key, with the static buffers it was captured on.
   cannot release cached memory to make room: it runs out instead. (No collection runs
   before the capture, as `torch.cuda.graph` skips it too: a full one costs hundreds of
   milliseconds in a serving process, and the collector off is enough.)
+- A serving mesh (parallel/mesh.py): a program over sharded params runs every
+  position's kernels, copies and sums in the one graph; its key carries the mesh
+  (`_mesh_key`), and the slab holds every cache piece as a leaf of its own. The slab
+  and the pool are on the cache's one device, and work on another card's stream may
+  not be recorded at all: a program whose mesh spans distinct devices is unrun, so its
+  capture is refused before its first run, naming its key.
 - Launch counters. The kernel wrappers count on the host when called, which under
   capture is once. A graph records the counters' change during its capture (which is
   then undone) and adds it at every replay.
@@ -90,6 +96,7 @@ from xotorch_tpu_torch.models.generate import (decode_step, decode_step_ring, fo
                                                forward_argmax_ring, prefill_scan, scan_groups)
 from xotorch_tpu_torch.models.transformer import QuantRoute
 from xotorch_tpu_torch.ops import flash_attention, flash_decode, int4_matmul, int8_matmul, paged_attention
+from xotorch_tpu_torch.parallel.mesh import MeshParams
 
 OUT_ROWS = 64  # decode steps a graph's token record holds before the host reads it
 SLAB_ALIGN = 256  # bytes between the slab's leaves
@@ -133,6 +140,18 @@ def capture_guard(device: torch.device):
     finally:
       if enabled:
         python_gc.enable()
+
+
+def _mesh_key(params) -> tuple:
+  """The mesh a sharded param tree lies on (parallel/mesh.MeshParams): every key of a
+  program over it carries ("mesh", axes, devices); () on one device."""
+  return (("mesh",) + params.mesh.key(),) if isinstance(params, MeshParams) else ()
+
+
+def _mesh_devices(key: tuple) -> set:
+  """The distinct devices of the meshes in a program's key (`_mesh_key`)."""
+  return {d for part in key if isinstance(part, tuple) and part[:1] == ("mesh",)
+          for d in part[2]}
 
 
 def _bucket(n: int) -> int:
@@ -271,6 +290,10 @@ class GraphCache:
     if prog.graph is not None:
       self._replay(prog)
       return prog.output
+    devices = _mesh_devices(prog.key)
+    if len(devices) > 1:
+      raise RuntimeError(f"CUDA graph capture of {prog.key} refused: its mesh spans "
+                         f"{len(devices)} devices, a capture across cards is unrun")
     out = prog.body()
     self._capture(prog)
     return out
@@ -497,7 +520,7 @@ def decode_contiguous(gc: GraphCache, params, caches: Sequence[Cache], toks: tor
   Bb = _bucket(B)
   leaves = slab_leaves(caches[0], Bb)
   key = (("decode", "contiguous", Bb, tuple((n, s, d) for n, (s, d) in leaves.items()))
-         + _sampler_key(top_k, top_p, gumbel, generator, route, extras))
+         + _sampler_key(top_k, top_p, gumbel, generator, route, extras) + _mesh_key(params))
   with gc.on_stream():
     slab = gc.slab_views(leaves)
     stack_into(slab, caches)
@@ -526,7 +549,7 @@ def decode_paged(gc: GraphCache, params, arena: Cache, page_table: torch.Tensor,
   Bb = _bucket(B)
   key = (("decode", "paged", Bb, width, arena["k"].data_ptr(),
           tuple((n, tuple(t.shape), t.dtype) for n, t in arena.items()))
-         + _sampler_key(top_k, top_p, gumbel, generator, route, extras))
+         + _sampler_key(top_k, top_p, gumbel, generator, route, extras) + _mesh_key(params))
   with gc.on_stream():
     prog = _decode_program(gc, key, params, arena, cfg, Bb, top_k, top_p, route, generator,
                            gumbel is not None, table_width=width, extras=extras)
@@ -587,7 +610,7 @@ def verify_contiguous(gc: GraphCache, params, x: torch.Tensor, cache: Cache, sta
   T_pad = x.shape[1]
   leaves = slab_leaves(cache, 1)
   key = ("verify", "contiguous", T_pad, tuple((n, s, d) for n, (s, d) in leaves.items()),
-         start_layer, route)
+         start_layer, route) + _mesh_key(params)
   with gc.on_stream():
     slab = gc.slab_views(leaves)
     stack_into(slab, [cache])
@@ -609,7 +632,8 @@ def verify_paged(gc: GraphCache, params, x: torch.Tensor, arena: Cache, page_tab
   device, the program's output buffer."""
   T_pad, width = x.shape[1], page_table.shape[1]
   key = ("verify", "paged", T_pad, width, arena["k"].data_ptr(),
-         tuple((n, tuple(t.shape), t.dtype) for n, t in arena.items()), start_layer, route)
+         tuple((n, tuple(t.shape), t.dtype) for n, t in arena.items()), start_layer,
+         route) + _mesh_key(params)
   with gc.on_stream():
     prog = _verify_program(gc, key, params, arena, cfg, T_pad, start_layer, route,
                            table_width=width)
@@ -742,7 +766,8 @@ def prefill(gc: GraphCache, params, x: torch.Tensor, cache: Cache, start_pos: in
                tuple((n, tuple(t.shape), t.dtype) for n, t in cache.items()))
     hs, pos = [], start_pos
     for off, g in scan_groups(n_segs):
-      key = ("prefill",) + where + (g, chunk, is_first, x.dtype, hidden, start_layer, route)
+      key = (("prefill",) + where + (g, chunk, is_first, x.dtype, hidden, start_layer, route)
+             + _mesh_key(params))
 
       def make_statics(g=g):
         st = {"x": torch.zeros((1, g * chunk) + hidden, dtype=x.dtype, device=gc.device),

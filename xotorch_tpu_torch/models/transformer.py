@@ -47,6 +47,13 @@ before.
 Training (train/step.py) runs `forward_shard` with no cache from position 0: attention
 through `flash_attention_train` (K1 forward, K1b backward on the card), quantized slots
 through the dequantized product (its route, `TRAIN_ROUTE`), every op differentiable.
+
+Over a serving mesh (parallel/mesh.py: params a `MeshParams`, the cache or arena split
+over tp by `shard_cache`) `forward_shard` runs `_forward_mesh`: JAX's forward under
+`tp_mesh` / `ring_mesh` with the collectives GSPMD inserts written out
+(parallel/collectives.py). Every kernel above runs once per position on its own heads
+or slices, quantized ones included (JAX turns its int4/int8 kernels off under a mesh,
+which GSPMD cannot partition; the port has no such limit).
 """
 from __future__ import annotations
 
@@ -65,6 +72,8 @@ from xotorch_tpu_torch.ops.int4_matmul import int4_grouped_matmul
 from xotorch_tpu_torch.ops.int8_matmul import int8_rowquant_matmul
 from xotorch_tpu_torch.ops.paged_attention import paged_decode_attention, paged_prefill_attention
 from xotorch_tpu_torch.ops.rope import apply_rope, rope_frequencies
+from xotorch_tpu_torch.parallel.collectives import all_gather, all_reduce
+from xotorch_tpu_torch.parallel.mesh import MeshParams, cache_device, cache_piece, piece_name
 from xotorch_tpu_torch.utils import knobs
 
 Params = Dict[str, Any]
@@ -125,8 +134,9 @@ def quant_route(on_card: bool) -> QuantRoute:
   """The route the knobs ask for, read once (the engine does so when it is built).
   On the card int4 decode projections always take K5/K5v4, whatever
   XOT_INT4_KERNEL says: the dequantized product is K5's own function, and `0`,
-  which the JAX package sets only for a tensor-parallel mesh, is reserved until
-  the port has one. Elsewhere `force` takes the kernels' functions. K6 rounds the
+  which the JAX package sets only under a tensor-parallel mesh because GSPMD cannot
+  split its kernel, stays reserved: the port's mesh runs the kernel on each
+  position's slice. Elsewhere `force` takes the kernels' functions. K6 rounds the
   activations to int8, so int8 takes it only when XOT_INT8_KERNEL asks (`1` on the
   card, `force` anywhere)."""
   k8 = knobs.get_str("XOT_INT8_KERNEL")
@@ -145,6 +155,15 @@ def _linear(layer: Params, slot: str, h: torch.Tensor, route: QuantRoute) -> tor
   gscale = layer.get(slot + "_gscale")
   B, T, _ = h.shape
   if gscale is not None:
+    rows = w.shape[0] * w.shape[1] * 2
+    if rows != h.shape[-1]:
+      # A row-parallel slot of a mesh whose groups do not split over tp stays whole at
+      # every position (parallel/mesh._int4_shape_guard): the position's input slice
+      # goes in at its own rows, zeros at the others, so the product is its partial sum.
+      j, tp = layer[TP_INDEX]
+      part = h.shape[-1]
+      h = F.pad(h, (j * part, rows - (j + 1) * part))
+      B, T, _ = h.shape
     if B * T <= 8 and route.int4_kernel:
       out = int4_grouped_matmul(h.reshape(B * T, h.shape[-1]).contiguous(), w, gscale,
                                 route.int4_variant)
@@ -159,6 +178,10 @@ def _linear(layer: Params, slot: str, h: torch.Tensor, route: QuantRoute) -> tor
     out = int8_rowquant_matmul(h.reshape(B * T, h.shape[-1]).contiguous(), w, scale)
     return out.reshape(B, T, -1).to(h.dtype)
   return (h @ w.to(h.dtype)) * scale.to(h.dtype)
+
+
+# The key of a mesh position's layer dict that holds its (tp index, tp width).
+TP_INDEX = "@tp"
 
 
 def rms_norm(x: torch.Tensor, weight: torch.Tensor, eps: float,
@@ -245,16 +268,21 @@ def _moe_mlp_routed(layer: Params, h: torch.Tensor, top_vals: torch.Tensor,
 _MOE_ROUTED_MAX_TOKENS = 8
 
 
-def _moe_mlp(layer: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-  """Top-k MoE (qwen3-moe): the routed gather for B*T <= 8, else every expert computed
-  and the unchosen ones zeroed by the combine weights (JAX's two regimes; the port
-  serves on one card, where JAX's `moe_routed` is always true)."""
+def _moe_mlp(layer: Params, h: torch.Tensor, cfg: ModelConfig, routed: bool = True,
+             experts: Optional[Tuple[int, int]] = None) -> torch.Tensor:
+  """Top-k MoE (qwen3-moe): the routed gather for B*T <= 8 when `routed`, else every
+  expert computed and the unchosen ones zeroed by the combine weights (JAX's two
+  regimes; JAX's `moe_routed` is false only over an expert-parallel mesh). `experts`
+  (lo, hi) is an ep position's resident experts, whose weights `layer` holds: the
+  combine then keeps their columns, and the result is the position's partial sum."""
   B, T, _ = h.shape
   top_vals, top_idx = _moe_route(layer, h, cfg)
-  if B * T <= _MOE_ROUTED_MAX_TOKENS:
+  if routed and B * T <= _MOE_ROUTED_MAX_TOKENS:
     return _moe_mlp_routed(layer, h, top_vals, top_idx)
   combine = torch.zeros(B, T, cfg.num_experts, dtype=top_vals.dtype, device=h.device)
   combine = combine.scatter(-1, top_idx, top_vals)  # [B, T, E]
+  if experts is not None:
+    combine = combine[..., experts[0]:experts[1]]
   gate = F.silu(_moe_einsum(layer, "we_gate", "bth,ehi->ebti", h))
   up = _moe_einsum(layer, "we_up", "bth,ehi->ebti", h)
   expert_out = _moe_einsum(layer, "we_down", "ebti,eih->ebth", gate * up)
@@ -262,10 +290,16 @@ def _moe_mlp(layer: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
 
 
 def init_kv_cache(cfg: ModelConfig, num_layers: int, batch: int, max_seq: int,
-                  dtype=torch.bfloat16, device="cpu", kv_quant: bool = False) -> Dict[str, torch.Tensor]:
+                  dtype=torch.bfloat16, device="cpu", kv_quant: bool = False,
+                  mesh=None) -> Dict[str, torch.Tensor]:
   """KV buffers [L, B, S, Hkv, D]. `kv_quant` stores K/V as int8 with one scale per
   (position, head), `k_scale`/`v_scale` [L, B, S, Hkv] in `dtype`: half the cache
-  bytes per token. The scale leaves are what marks the cache as int8."""
+  bytes per token. The scale leaves are what marks the cache as int8. With a `mesh`,
+  the pieces of parallel/mesh.shard_cache made in place: Hkv/tp heads each, piece j
+  on its tp index's device (`device` is then unused)."""
+  if mesh is not None:
+    return mesh_pieces(mesh, lambda local, d: init_kv_cache(local, num_layers, batch, max_seq,
+                                                            dtype, d, kv_quant), cfg)
   shape = (num_layers, batch, max_seq, cfg.num_kv_heads, cfg.head_dim)
   if not kv_quant:
     return {"k": torch.zeros(shape, dtype=dtype, device=device),
@@ -274,6 +308,18 @@ def init_kv_cache(cfg: ModelConfig, num_layers: int, batch: int, max_seq: int,
           "v": torch.zeros(shape, dtype=torch.int8, device=device),
           "k_scale": torch.zeros(shape[:-1], dtype=dtype, device=device),
           "v_scale": torch.zeros(shape[:-1], dtype=dtype, device=device)}
+
+
+def mesh_pieces(mesh, make, cfg: ModelConfig) -> Dict[str, torch.Tensor]:
+  """A flat sharded cache or arena: `make(local cfg, device)` for each tp index j,
+  with the kv heads of one position, its leaves renamed `piece_name(leaf, j)`."""
+  tp = mesh.axis_size("tp")
+  local = dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
+                              num_kv_heads=cfg.num_kv_heads // tp)
+  out = {}
+  for j in range(tp):
+    out.update({piece_name(n, j): t for n, t in make(local, cache_device(mesh, j)).items()})
+  return out
 
 
 def _quantize_kv(x: torch.Tensor, scale_dtype) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -318,16 +364,11 @@ def _cache_read(cache: Dict[str, torch.Tensor], layer_idx: int, dtype) -> Tuple[
   return k.to(dtype), v.to(dtype)
 
 
-def _attention_block(layer: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor], layer_idx: int,
-                     positions: torch.Tensor, kv_valid_len: torch.Tensor,
-                     start_pos: Union[int, torch.Tensor], q_start: torch.Tensor, cfg: ModelConfig,
-                     inv_freq: torch.Tensor, use_flash: bool, use_flash_decode: bool,
-                     route: QuantRoute, page_table: Optional[torch.Tensor] = None,
-                     slots: Any = None, window: int = 0) -> torch.Tensor:
-  """The attention half of a layer: the residual branch's output (after the sandwich
-  post-norm where the config has one). `window` is this layer's (0 = global)."""
-  B, T, _ = x.shape
-  h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps, cfg.norm_offset)
+def _qkv(layer: Params, h: torch.Tensor, cfg: ModelConfig, positions: torch.Tensor,
+         inv_freq: torch.Tensor, route: QuantRoute):
+  """The normed input's queries, keys and values [B, T, heads, D], biased, qk-normed
+  and rotated. `cfg`'s head counts are the caller's: a tp position's share."""
+  B, T, _ = h.shape
   q = _maybe_lora(layer, "wq", h, _linear(layer, "wq", h, route))
   k = _maybe_lora(layer, "wk", h, _linear(layer, "wk", h, route))
   v = _maybe_lora(layer, "wv", h, _linear(layer, "wv", h, route))
@@ -341,16 +382,27 @@ def _attention_block(layer: Params, x: torch.Tensor, cache: Dict[str, torch.Tens
   if cfg.qk_norm:
     q = rms_norm(q, layer["q_norm"], cfg.rms_norm_eps, cfg.norm_offset)
     k = rms_norm(k, layer["k_norm"], cfg.rms_norm_eps, cfg.norm_offset)
-  q = apply_rope(q, positions, inv_freq)
-  k = apply_rope(k, positions, inv_freq)
-  # The gemma family's score adjustments; 0 / None (1 / sqrt(D)) for the others.
-  adj = dict(window=window, softcap=cfg.attn_logit_softcap,
-             scale=cfg.query_pre_attn_scalar ** -0.5 if cfg.query_pre_attn_scalar else None)
+  return apply_rope(q, positions, inv_freq), apply_rope(k, positions, inv_freq), v
+
+
+def _score_adjustments(cfg: ModelConfig, window: int) -> dict:
+  """The gemma family's score adjustments; 0 / None (1 / sqrt(D)) for the others."""
+  return dict(window=window, softcap=cfg.attn_logit_softcap,
+              scale=cfg.query_pre_attn_scalar ** -0.5 if cfg.query_pre_attn_scalar else None)
+
+
+def _attend(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor, cache: Optional[Dict[str, torch.Tensor]],
+            layer_idx: int, positions: torch.Tensor, kv_valid_len: torch.Tensor,
+            start_pos: Union[int, torch.Tensor], q_start: torch.Tensor, use_flash: bool,
+            use_flash_decode: bool, page_table: Optional[torch.Tensor], slots: Any,
+            adj: dict) -> torch.Tensor:
+  """Write the fresh K/V into the cache (or the page arena) and attend [B, T, Hq, D]
+  through the kernel the path takes."""
+  B, T = q.shape[0], q.shape[1]
   if cache is None:
     # The training and evaluation forward (train/step.py): from position 0 over the
     # fresh K/V with nothing to write, differentiable through K1b on the card.
-    attn = flash_attention_train(q, k.contiguous(), v.contiguous(), **adj)
-    return _attention_out(layer, attn, cfg, route)
+    return flash_attention_train(q, k.contiguous(), v.contiguous(), **adj)
   scales = {name: cache[name][layer_idx] for name in ("k_scale", "v_scale") if name in cache}
   if page_table is not None:
     # Paged KV: `cache` is the shared page arena. Position p of row b lands at
@@ -364,41 +416,55 @@ def _attention_block(layer: Params, x: torch.Tensor, cache: Dict[str, torch.Tens
     k_pages, v_pages = cache["k"][layer_idx], cache["v"][layer_idx]
     ks, vs = scales.get("k_scale"), scales.get("v_scale")
     if T == 1:
-      attn = paged_decode_attention(q, k_pages, v_pages, page_table, kv_valid_len,
+      return paged_decode_attention(q, k_pages, v_pages, page_table, kv_valid_len,
                                     k_scale_pages=ks, v_scale_pages=vs, **adj)
-    else:
-      attn = paged_prefill_attention(q, k_pages, v_pages, page_table, kv_valid_len,
-                                     k_scale_pages=ks, v_scale_pages=vs, **adj)
-    return _attention_out(layer, attn, cfg, route)
+    return paged_prefill_attention(q, k_pages, v_pages, page_table, kv_valid_len,
+                                   k_scale_pages=ks, v_scale_pages=vs, **adj)
   _cache_write(cache, layer_idx, k, v, start_pos, slots)
   if use_flash:
     # Prefill from position 0: the fresh segment is the whole visible context, so
     # the kernel attends over the fresh k/v and never reads the cache (an int8
     # cache included).
-    attn = flash_attention(q, k.contiguous(), v.contiguous(), **adj)
-  elif use_flash_decode:
+    return flash_attention(q, k.contiguous(), v.contiguous(), **adj)
+  if use_flash_decode:
     # Decode steps and segments at pos > 0: the cache up to each row's last
     # visible position; an int8 cache passes its raw codes and scales (K2q).
-    attn = flash_cached_attention(q, cache["k"][layer_idx], cache["v"][layer_idx], q_start,
+    return flash_cached_attention(q, cache["k"][layer_idx], cache["v"][layer_idx], q_start,
                                   k_scale=scales.get("k_scale"), v_scale=scales.get("v_scale"),
                                   **adj)
-  elif x.device.type == "cpu":
+  if q.device.type == "cpu":
     k_all, v_all = _cache_read(cache, layer_idx, q.dtype)
-    attn = gqa_attention(q, k_all, v_all, positions, kv_valid_len, **adj)
-  else:
-    raise ValueError("attention on the card goes through a kernel: pass use_flash "
-                     "(prefill from 0) or use_flash_decode")
-  return _attention_out(layer, attn, cfg, route)
+    return gqa_attention(q, k_all, v_all, positions, kv_valid_len, **adj)
+  raise ValueError("attention on the card goes through a kernel: pass use_flash "
+                   "(prefill from 0) or use_flash_decode")
 
 
-def _attention_out(layer: Params, attn: torch.Tensor, cfg: ModelConfig,
-                   route: QuantRoute) -> torch.Tensor:
-  """The output projection of attention [B, T, Hq, D], then the sandwich post-norm."""
+def _attention_block(layer: Params, x: torch.Tensor, cache: Dict[str, torch.Tensor], layer_idx: int,
+                     positions: torch.Tensor, kv_valid_len: torch.Tensor,
+                     start_pos: Union[int, torch.Tensor], q_start: torch.Tensor, cfg: ModelConfig,
+                     inv_freq: torch.Tensor, use_flash: bool, use_flash_decode: bool,
+                     route: QuantRoute, page_table: Optional[torch.Tensor] = None,
+                     slots: Any = None, window: int = 0) -> torch.Tensor:
+  """The attention half of a layer up to its output projection (the sandwich post-norm
+  is the caller's). `window` is this layer's (0 = global)."""
+  h = rms_norm(x, layer["attn_norm"], cfg.rms_norm_eps, cfg.norm_offset)
+  q, k, v = _qkv(layer, h, cfg, positions, inv_freq, route)
+  attn = _attend(q, k, v, cache, layer_idx, positions, kv_valid_len, start_pos, q_start,
+                 use_flash, use_flash_decode, page_table, slots, _score_adjustments(cfg, window))
+  return _attention_out(layer, attn, route)
+
+
+def _attention_out(layer: Params, attn: torch.Tensor, route: QuantRoute) -> torch.Tensor:
+  """The output projection of attention [B, T, heads, D]."""
   B, T = attn.shape[0], attn.shape[1]
-  attn2d = attn.reshape(B, T, cfg.num_heads * cfg.head_dim)
-  out = _maybe_lora(layer, "wo", attn2d, _linear(layer, "wo", attn2d, route))
+  attn2d = attn.reshape(B, T, attn.shape[2] * attn.shape[3])
+  return _maybe_lora(layer, "wo", attn2d, _linear(layer, "wo", attn2d, route))
+
+
+def _post_norm(layer: Params, name: str, out: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+  """The sandwich post-norm `name` where the config has one."""
   if cfg.sandwich_norms:
-    out = rms_norm(out, layer["post_attn_norm"], cfg.rms_norm_eps, cfg.norm_offset)
+    return rms_norm(out, layer[name], cfg.rms_norm_eps, cfg.norm_offset)
   return out
 
 
@@ -414,8 +480,42 @@ def _page_slots(page_table: torch.Tensor, positions: torch.Tensor, page: int):
   return pidx.reshape(-1), (positions % page).reshape(-1)
 
 
+def _position_tensors(start_pos: Union[int, torch.Tensor], B: int, T: int, device):
+  """(positions [B, T], kv_valid_len [B], q_start [B]) of a segment of T tokens from
+  `start_pos` (an int, or [B] per row) on `device`."""
+  steps = torch.arange(T, device=device)
+  if torch.is_tensor(start_pos):
+    q_start = start_pos.to(device=device, dtype=torch.int32)
+    return q_start.to(torch.int64)[:, None] + steps[None, :], q_start + T, q_start
+  positions = (start_pos + steps)[None, :].expand(B, T)
+  return (positions, torch.full((B,), start_pos + T, dtype=torch.int32, device=device),
+          torch.full((B,), start_pos, dtype=torch.int32, device=device))
+
+
+def _write_slots(cache: Optional[Dict[str, torch.Tensor]], page_table: Optional[torch.Tensor],
+                 positions: torch.Tensor, start_pos: Union[int, torch.Tensor]):
+  """Where the fresh K/V go, for the tensor-indexed writes: page slots on the arena,
+  per-row positions for a [B] `start_pos`; None for one slice at an int."""
+  if page_table is not None:
+    return _page_slots(page_table, positions, cache["k"].shape[2])
+  if torch.is_tensor(start_pos):
+    # Per-row writes stay inside the buffer (JAX's dynamic_update_slice clamps too);
+    # the engine sizes the cache so that real rows never reach the clamp.
+    return torch.clamp(positions, max=cache["k"].shape[2] - 1)
+  return None
+
+
+def _windows(cfg: ModelConfig, start_layer: int, L: int) -> list:
+  """Each layer's window: which layers slide is a property of the absolute layer index
+  (gemma2 alternates), so a shard that starts mid-model windows by start_layer + i;
+  0 = global."""
+  if cfg.uses_sliding_window:
+    return [cfg.layer_window(start_layer + i) for i in range(L)]
+  return [0] * L
+
+
 def forward_shard(
-  params: Params,
+  params: Union[Params, MeshParams],
   x: torch.Tensor,  # [B, T] int tokens (first shard) or [B, T, H] hidden
   cache: Optional[Dict[str, torch.Tensor]],
   start_pos: Union[int, torch.Tensor],  # position of x[:, 0]: an int, or [B] per row
@@ -427,6 +527,7 @@ def forward_shard(
   start_layer: int = 0,
   page_table: Optional[torch.Tensor] = None,  # [B, max_pages] int32: `cache` is the arena
   route: Optional[QuantRoute] = None,
+  ring: bool = False,
 ) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
   """Run one shard. Returns (hidden, or fp32 logits on the last shard; the cache,
   updated in place). `use_flash` is valid only when start_pos == 0.
@@ -439,85 +540,253 @@ def forward_shard(
   `route` sends quantized decode projections to their kernels; by default the
   knobs' route (`quant_route`) for the device of `x`. With no `cache` (None, a prefill
   from 0 with `use_flash`: the training forward of train/step.py) nothing is written
-  and attention goes through `flash_attention_train`, which autograd differentiates."""
+  and attention goes through `flash_attention_train`, which autograd differentiates.
+
+  `params` placed on a mesh (parallel/mesh.MeshParams, with a cache split by
+  parallel/mesh.shard_cache) runs the mesh path (`_forward_mesh`); `ring` there is
+  JAX's `ring_mesh`: a prefill from 0 whose positions split over the sp axis and
+  whose attention is ring attention."""
   check_supported(cfg)
   if use_flash and not (isinstance(start_pos, int) and start_pos == 0):
     raise ValueError("use_flash serves a prefill from position 0 only")
   if cache is None and (not use_flash or page_table is not None):
     raise ValueError("a forward without a cache is a prefill from position 0 (use_flash)")
+  if isinstance(params, MeshParams):
+    return _forward_mesh(params, x, cache, start_pos, cfg, is_first, is_last, use_flash,
+                         use_flash_decode, start_layer, page_table, route, ring)
+  if ring:
+    raise ValueError("ring attention runs over a mesh's sp axis: params placed on a mesh")
   h = embed(params, x, cfg) if is_first else x
   B, T = h.shape[0], h.shape[1]
   device = h.device
-  steps = torch.arange(T, device=device)
-  if torch.is_tensor(start_pos):
-    q_start = start_pos.to(device=device, dtype=torch.int32)
-    positions = q_start.to(torch.int64)[:, None] + steps[None, :]
-    kv_valid_len = q_start + T
-  else:
-    positions = (start_pos + steps)[None, :].expand(B, T)
-    kv_valid_len = torch.full((B,), start_pos + T, dtype=torch.int32, device=device)
-    q_start = torch.full((B,), start_pos, dtype=torch.int32, device=device)
-  slots = None  # where the fresh K/V go, for the tensor-indexed writes
-  if page_table is not None:
-    slots = _page_slots(page_table, positions, cache["k"].shape[2])
-  elif torch.is_tensor(start_pos):
-    # Per-row writes stay inside the buffer (JAX's dynamic_update_slice clamps too);
-    # the engine sizes the cache so that real rows never reach the clamp.
-    slots = torch.clamp(positions, max=cache["k"].shape[2] - 1)
+  positions, kv_valid_len, q_start = _position_tensors(start_pos, B, T, device)
+  slots = _write_slots(cache, page_table, positions, start_pos)
   inv_freq = rope_frequencies(cfg.head_dim, cfg.rope_theta, cfg.rope_scaling, device=device)
   if route is None:
     route = quant_route(device.type == "cuda")
   stacked = params["layers"]
   _check_params(stacked)
   L = stacked["wq"].shape[0]
-  # Which layers slide is a property of the absolute layer index (gemma2 alternates),
-  # so a shard that starts mid-model windows by start_layer + i; 0 = global.
-  windows = ([cfg.layer_window(start_layer + i) for i in range(L)] if cfg.uses_sliding_window
-             else [0] * L)
+  windows = _windows(cfg, start_layer, L)
   for i in range(L):
     layer = {name: w[i] for name, w in stacked.items()}
-    h = h + _attention_block(layer, h, cache, i, positions, kv_valid_len, start_pos, q_start,
-                             cfg, inv_freq, use_flash, use_flash_decode, route, page_table, slots,
-                             windows[i])
+    attn = _attention_block(layer, h, cache, i, positions, kv_valid_len, start_pos, q_start,
+                            cfg, inv_freq, use_flash, use_flash_decode, route, page_table, slots,
+                            windows[i])
+    h = h + _post_norm(layer, "post_attn_norm", attn, cfg)
     mlp_in = rms_norm(h, layer["mlp_norm"], cfg.rms_norm_eps, cfg.norm_offset)
     mlp_out = _moe_mlp(layer, mlp_in, cfg) if cfg.is_moe else _dense_mlp(layer, mlp_in, cfg, route)
-    if cfg.sandwich_norms:
-      mlp_out = rms_norm(mlp_out, layer["post_mlp_norm"], cfg.rms_norm_eps, cfg.norm_offset)
-    h = h + mlp_out
+    h = h + _post_norm(layer, "post_mlp_norm", mlp_out, cfg)
   if not is_last:
     return h, cache
   return unembed(params, h, cfg), cache
 
 
-def unembed(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
-  """Final norm + (tied-embedding or lm_head) unembedding -> fp32 logits, soft-capped
-  in fp32 where the config says so."""
-  h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps, cfg.norm_offset)
+class _PerDevice(dict):
+  """Values computed once for each device (`make(device)`), as the mesh path needs its
+  positions, page tables and RoPE frequencies at every position's device."""
+
+  def __init__(self, make):
+    super().__init__()
+    self._make = make
+
+  def __missing__(self, device):
+    self[device] = value = self._make(device)
+    return value
+
+
+def _forward_mesh(mp: MeshParams, x: torch.Tensor, cache: Optional[Dict[str, torch.Tensor]],
+                  start_pos: Union[int, torch.Tensor], cfg: ModelConfig, is_first: bool,
+                  is_last: bool, use_flash: bool, use_flash_decode: bool, start_layer: int,
+                  page_table: Optional[torch.Tensor], route: Optional[QuantRoute],
+                  ring: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+  """forward_shard over a mesh (JAX's forward under `tp_mesh` / `ring_mesh`, with the
+  collectives GSPMD inserts written out, parallel/collectives.py).
+
+  Each tp position j runs its Hq/tp query heads over its Hkv/tp cache or arena heads
+  (`cache_piece(cache, j)`) through the same kernels as one device, with the group
+  size, grid and page table unchanged: no traffic inside attention. Its column slices
+  of wq/wk/wv/w_gate/w_up and row slices of wo/w_down give partial sums, which one
+  all-reduce over the tp positions completes (in rank order). The embedding's hidden
+  slices are all-gathered; the vocab-split logits too (a tied table's hidden slices
+  give partial logits, all-reduced). MoE experts run where they lie: each (ep, tp)
+  position its resident experts' inner slice, the combine's partial sums all-reduced
+  over every position; the routed gather only where ep is 1 (JAX's `_moe_routed_for`).
+  Positions that differ only along ep compute attention once, at ep 0; positions that
+  differ along sp compute only under `ring`, where chunk c of the prompt's positions
+  goes to the positions with sp index c, K/V chunks rotate round each tp index's ring
+  (ops/ring_attention.py) and are written into cache piece j, and the hidden chunks
+  are gathered at the end. Returns the output on the mesh's first device."""
+  from xotorch_tpu_torch.ops.ring_attention import ring_attention
+
+  mesh = mp.mesh
+  dev = mesh.devices
+  tp, ep, sp = mesh.axis_size("tp"), mesh.axis_size("ep"), mesh.axis_size("sp")
+  local = dataclasses.replace(cfg, num_heads=cfg.num_heads // tp,
+                              num_kv_heads=cfg.num_kv_heads // tp)
+  B, T = x.shape[0], x.shape[1]
+  chunks = sp if ring else 1
+  if ring:
+    if not (is_first and x.ndim == 2 and isinstance(start_pos, int) and start_pos == 0
+            and page_table is None and cache is not None and T % sp == 0):
+      raise ValueError("ring prefill: token input from position 0 on a contiguous cache, "
+                       f"T divisible by sp={sp}")
+    if cfg.uses_sliding_window or cfg.attn_logit_softcap or cfg.query_pre_attn_scalar:
+      raise ValueError("ring attention implements no window, softcap or query_pre_attn_scalar")
+  if cache is None:
+    raise ValueError("the mesh path serves with a cache (training over a mesh is not ported)")
+  Tl = T // chunks
+  att = [mesh.positions(ep=0, sp=c) for c in range(chunks)]  # attention: one per tp index
+  live = [mesh.positions(sp=c) if cfg.is_moe else att[c] for c in range(chunks)]
+  tp_of = {p: mesh.coord(p, "tp") for p in range(mesh.size)}
+  if route is None:
+    route = quant_route(dev[0].type == "cuda")
+  _check_params(mp.pieces[0]["layers"])
+  L = mp.pieces[0]["layers"]["wq"].shape[0]
+  windows = _windows(cfg, start_layer, L)
+  inv_freq = _PerDevice(lambda d: rope_frequencies(cfg.head_dim, cfg.rope_theta,
+                                                   cfg.rope_scaling, device=d))
+  # Per chunk: its positions' tensors at each device; the cache pieces' write slots.
+  pos_at = [_PerDevice(lambda d, c=c: _position_tensors(
+    c * Tl if ring else (start_pos.to(d) if torch.is_tensor(start_pos) else start_pos), B, Tl, d))
+            for c in range(chunks)]
+  pieces = [cache_piece(cache, j) for j in range(tp)]
+  tables = _PerDevice(lambda d: page_table.to(d) if page_table is not None else None)
+  slots = [None if ring else _write_slots(pieces[j], tables[dev[att[0][j]]],
+                                          pos_at[0][dev[att[0][j]]][0], start_pos)
+           for j in range(tp)]
+
+  # The residual stream: chunk c's hidden state at each of live[c]'s positions.
+  hs = []
+  for c in range(chunks):
+    xc = x[:, c * Tl:(c + 1) * Tl]
+    if is_first:
+      rows = [embed(mp.pieces[p], xc.to(dev[p]), cfg) for p in att[c]]
+      hs.append(all_gather(rows, [dev[p] for p in live[c]], dim=-1))
+    else:
+      hs.append([xc.to(dev[p]) for p in live[c]])
+
+  def at(c: int, p: int) -> torch.Tensor:
+    return hs[c][live[c].index(p)]
+
+  for i in range(L):
+    layers = {p: _mesh_layer(mp.pieces[p], i, tp_of[p], tp) for c in range(chunks) for p in live[c]}
+    adj = _score_adjustments(cfg, windows[i])
+    qkv = {}
+    for c in range(chunks):
+      for p in att[c]:
+        layer, d = layers[p], dev[p]
+        h = rms_norm(at(c, p), layer["attn_norm"], cfg.rms_norm_eps, cfg.norm_offset)
+        qkv[c, tp_of[p]] = _qkv(layer, h, local, pos_at[c][d][0], inv_freq[d], route)
+    attn = {}
+    for j in range(tp):
+      home_j = dev[att[0][j]]
+      if ring:
+        for c in range(chunks):
+          _, k, v = qkv[c, j]
+          _cache_write(pieces[j], i, k.to(home_j), v.to(home_j), c * Tl, None)
+        ring_devs = [dev[att[c][j]] for c in range(chunks)]
+        outs = ring_attention([qkv[c, j][0] for c in range(chunks)],
+                              [qkv[c, j][1] for c in range(chunks)],
+                              [qkv[c, j][2] for c in range(chunks)], ring_devs)
+        for c in range(chunks):
+          attn[c, j] = outs[c]
+      else:
+        q, k, v = qkv[0, j]
+        positions, kv_valid_len, q_start = pos_at[0][home_j]
+        attn[0, j] = _attend(q, k, v, pieces[j], i, positions, kv_valid_len,
+                             start_pos.to(home_j) if torch.is_tensor(start_pos) else start_pos,
+                             q_start, use_flash, use_flash_decode, tables[home_j], slots[j], adj)
+    for c in range(chunks):
+      parts = [_attention_out(layers[p], attn[c, tp_of[p]], route) for p in att[c]]
+      summed = all_reduce(parts, [dev[p] for p in live[c]])
+      hs[c] = [h + _post_norm(layers[p], "post_attn_norm", s, cfg)
+               for p, h, s in zip(live[c], hs[c], summed)]
+      if cfg.is_moe:
+        E = cfg.num_experts // ep
+        parts = []
+        for p in live[c]:
+          e = mesh.coord(p, "ep")
+          mlp_in = rms_norm(at(c, p), layers[p]["mlp_norm"], cfg.rms_norm_eps, cfg.norm_offset)
+          parts.append(_moe_mlp(layers[p], mlp_in, cfg, routed=ep == 1,
+                                experts=(e * E, (e + 1) * E)))
+      else:
+        parts = [_dense_mlp(layers[p], rms_norm(at(c, p), layers[p]["mlp_norm"], cfg.rms_norm_eps,
+                                                cfg.norm_offset), cfg, route) for p in att[c]]
+      summed = all_reduce(parts, [dev[p] for p in live[c]])
+      hs[c] = [h + _post_norm(layers[p], "post_mlp_norm", s, cfg)
+               for p, h, s in zip(live[c], hs[c], summed)]
+  if chunks > 1:
+    h = all_gather([hs[c][0] for c in range(chunks)], [dev[0]], dim=1)[0]
+  else:
+    h = hs[0][0]
+  if not is_last:
+    return h, cache
+  return unembed(mp, h, cfg), cache
+
+
+def _mesh_layer(piece: Params, i: int, j: int, tp: int) -> Params:
+  """Layer i of a mesh position's param tree, with its (tp index, tp width)."""
+  layer = {name: w[i] for name, w in piece["layers"].items()}
+  layer[TP_INDEX] = (j, tp)
+  return layer
+
+
+def _head_logits(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+  """h [B, T, H'] (normed) times the tied embedding's or lm_head's columns, in the
+  compute dtype; int8 tables rescale per vocab column."""
   if cfg.tie_word_embeddings and "lm_head" not in params:
     emb = params["embed"]["embedding"]
     row_scale = params["embed"].get("embedding_scale")
     if row_scale is None:
-      logits = h @ emb.T
-    else:
-      # Tied int8 table: the per-row scale becomes a per-vocab-column scale.
-      logits = (h @ emb.to(h.dtype).T) * row_scale.to(h.dtype)[None, None, :]
+      return h @ emb.T
+    # Tied int8 table: the per-row scale becomes a per-vocab-column scale.
+    return (h @ emb.to(h.dtype).T) * row_scale.to(h.dtype)[None, None, :]
+  head_scale = params.get("lm_head_scale")
+  if head_scale is None:
+    return h @ params["lm_head"]
+  return (h @ params["lm_head"].to(h.dtype)) * head_scale.to(h.dtype)[None, None, :]
+
+
+def unembed(params: Union[Params, MeshParams], h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+  """Final norm + (tied-embedding or lm_head) unembedding -> fp32 logits, soft-capped
+  in fp32 where the config says so. Over a mesh each tp position computes its vocab
+  columns (all-gathered) or, from a tied table's hidden slice, partial logits
+  (all-reduced in fp32), on the mesh's first device."""
+  if isinstance(params, MeshParams):
+    mesh = params.mesh
+    att = mesh.positions(ep=0, sp=0)
+    tied = cfg.tie_word_embeddings and "lm_head" not in params
+    parts = []
+    for j, p in enumerate(att):
+      piece = params.pieces[p]
+      hp = rms_norm(h.to(mesh.devices[p]), piece["final_norm"], cfg.rms_norm_eps, cfg.norm_offset)
+      if tied:
+        width = piece["embed"]["embedding"].shape[1]
+        hp = hp[..., j * width:(j + 1) * width]
+      parts.append(_head_logits(piece, hp, cfg).to(torch.float32))
+    combine = all_reduce(parts, mesh.devices[:1]) if tied else all_gather(parts, mesh.devices[:1], -1)
+    logits = combine[0]
   else:
-    head_scale = params.get("lm_head_scale")
-    if head_scale is None:
-      logits = h @ params["lm_head"]
-    else:
-      logits = (h @ params["lm_head"].to(h.dtype)) * head_scale.to(h.dtype)[None, None, :]
-  logits = logits.to(torch.float32)
+    h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps, cfg.norm_offset)
+    logits = _head_logits(params, h, cfg).to(torch.float32)
   if cfg.final_logit_softcap:
     cap = float(cfg.final_logit_softcap)
     logits = torch.tanh(logits / cap) * cap
   return logits
 
 
-def embed(params: Params, x: torch.Tensor, cfg: Optional[ModelConfig] = None) -> torch.Tensor:
+def embed(params: Union[Params, MeshParams], x: torch.Tensor,
+          cfg: Optional[ModelConfig] = None) -> torch.Tensor:
   """Token rows of the embedding; an int8 table rescales each looked-up row by its
   own scale, in the scale's (compute) dtype. Gemma scales the rows by sqrt(hidden),
-  the factor rounded to the rows' dtype first, as HF does."""
+  the factor rounded to the rows' dtype first, as HF does. Over a mesh the tp
+  positions' hidden slices are all-gathered on the mesh's first device."""
+  if isinstance(params, MeshParams):
+    mesh = params.mesh
+    rows = [embed(params.pieces[p], x.to(mesh.devices[p]), cfg)
+            for p in mesh.positions(ep=0, sp=0)]
+    return all_gather(rows, mesh.devices[:1], dim=-1)[0]
   emb = params["embed"]["embedding"]
   row_scale = params["embed"].get("embedding_scale")
   if row_scale is None:

@@ -17,8 +17,12 @@ carries scale pages [P, page, Hkv] (`k_scale_pages`/`v_scale_pages`), indexed by
 same page id and slot as the payload; K3q and K4q dequantize as they read. The plain PyTorch versions
 sit beside them: gather each row's pages into a contiguous view (dequantized), then
 the shared masked attention (`gqa_attention`), as the JAX package's XLA path does.
-The wrappers take the plain version only for tensors on the CPU. Not ported: the
-per-shard tensor-parallel call and the legacy gathered view (`ragged=False`).
+The wrappers take the plain version only for tensors on the CPU. Under a serving mesh
+(JAX's `_tp_sharded_call`) the transformer calls K3/K4 once per tp position, on its
+Hq/tp query heads over its own Hkv/tp arena heads with the one page table
+(models/transformer._forward_mesh): the group size and the grid's shape stay, and no
+traffic crosses positions inside the kernel. Not ported: the legacy gathered view
+(`ragged=False`).
 """
 from __future__ import annotations
 

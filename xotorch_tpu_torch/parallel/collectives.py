@@ -1,0 +1,58 @@
+"""The mesh's collectives, written out where GSPMD inserts JAX's.
+
+One process drives every position of a local mesh (parallel/mesh.py), so a collective
+is a function from the list of per-position pieces to the list of results, one per
+target device: each piece is copied to the target's device (a no-op where it already
+lies there, a peer copy between cards) and combined there in rank order, so every
+target computes the same bits and the result does not depend on how the mesh's
+positions map to devices. A target device that repeats computes once and every
+position on it shares the result.
+
+- `all_reduce`: the sum of the pieces, accumulated in fp32 from rank 0 up and cast
+  back to the pieces' dtype (after the row-parallel `wo`, `w_down` and the experts'
+  combine);
+- `all_gather`: the pieces concatenated along a dimension in rank order (the
+  hidden-split embedding rows, the vocab-split logits, the sequence chunks);
+- `send_next`: each piece moved to the next position of a ring, the last to the
+  first (JAX's `ppermute` with perm i -> i + 1; ring attention's rotation).
+
+NCCL's collectives come with a four-card cell; across processes (parallel/multihost.py)
+torch.distributed's are used.
+"""
+from __future__ import annotations
+
+from typing import Dict, List, Sequence
+
+import torch
+
+
+def all_reduce(parts: Sequence[torch.Tensor], devices: Sequence[torch.device]) -> List[torch.Tensor]:
+  """sum(parts) in rank order on each of `devices`."""
+  done: Dict[torch.device, torch.Tensor] = {}
+  out = []
+  for d in devices:
+    if d not in done:
+      acc = parts[0].to(device=d, dtype=torch.float32)
+      for x in parts[1:]:
+        acc = acc + x.to(device=d, dtype=torch.float32)
+      done[d] = acc.to(parts[0].dtype)
+    out.append(done[d])
+  return out
+
+
+def all_gather(parts: Sequence[torch.Tensor], devices: Sequence[torch.device],
+               dim: int) -> List[torch.Tensor]:
+  """The pieces concatenated along `dim` in rank order, on each of `devices`."""
+  done: Dict[torch.device, torch.Tensor] = {}
+  out = []
+  for d in devices:
+    if d not in done:
+      done[d] = torch.cat([x.to(d) for x in parts], dim=dim)
+    out.append(done[d])
+  return out
+
+
+def send_next(parts: Sequence[torch.Tensor], devices: Sequence[torch.device]) -> List[torch.Tensor]:
+  """Position i's piece moved to position i + 1 (the last to the first)."""
+  n = len(parts)
+  return [parts[(i - 1) % n].to(devices[i]) for i in range(n)]

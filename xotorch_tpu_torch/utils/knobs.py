@@ -63,9 +63,18 @@ _DEFS: Tuple[Knob, ...] = (
   Knob("XOT_SPEC_EWMA_S", "float", "60", "Time constant (s) of the xot_spec_accept_rate EWMA gauge."),
   Knob("XOT_QUANTIZE", "str", None, "Weight quantization mode (`int8` or `int4`); unset serves full precision."),
   Knob("XOT_KV_QUANT", "str", None, "KV-cache quantization mode (`int8`); unset keeps KV in compute dtype."),
-  Knob("XOT_INT4_KERNEL", "str", "1", "int4 decode GEMV kernel (K5/K5v4): always taken on the card; `force` takes its function on the CPU too (plain version); `0` is reserved for a tensor-parallel mesh (not ported) and acts as `1`."),
+  Knob("XOT_INT4_KERNEL", "str", "1", "int4 decode GEMV kernel (K5/K5v4): always taken on the card, a serving mesh's positions included (each on its own slice); `force` takes its function on the CPU too (plain version); `0`, which the JAX package sets only because GSPMD cannot split its kernel, is reserved and acts as `1`."),
   Knob("XOT_INT4_V", "int", "1", "int4 kernel variant: 1-3 the exact W4A16 kernel (K5), 4 the W4A8 kernel (K5v4)."),
   Knob("XOT_INT8_KERNEL", "str", "0", "W8A8 decode GEMV kernel (K6): `1` on the card, `0` off, `force` its function on the CPU too (plain version)."),
+  Knob("XOT_TP", "int", None, "Tensor-parallel width of each ring partition's serving mesh (primary knob; overrides XOT_SERVE_TP). 0 forces single-device; unset defers to XOT_SERVE_TP."),
+  Knob("XOT_SERVE_TP", "int", None, "Tensor-parallel degree for serving; unset auto-selects from local devices."),
+  Knob("XOT_SERVE_SP", "int", "0", "Sequence-parallel degree for long-prompt serving prefill."),
+  Knob("XOT_SERVE_EP", "int", "0", "Expert-parallel degree for MoE serving."),
+  Knob("XOT_VIRTUAL_DEVICES", "int", "0", "The port's local devices as the engine's one device repeated N times (a mesh whose positions share one card, or the CPU); 0 = the real devices (every CUDA card, or the CPU once)."),
+  Knob("XOT_COORDINATOR", "str", None, "Multi-host coordinator address (`host:port`) of process 0; setting it implies multi-host."),
+  Knob("XOT_MULTIHOST", "bool", "0", "Force multi-host initialization (torch.distributed's `env://`, which a launcher sets)."),
+  Knob("XOT_NUM_PROCESSES", "int", None, "Process count for multi-host init (required with XOT_COORDINATOR)."),
+  Knob("XOT_PROCESS_ID", "int", None, "This process's index for multi-host init (required with XOT_COORDINATOR)."),
   Knob("XOT_LORA_RANK", "int", "0", "LoRA adapter rank for training; 0 trains/serves without LoRA."),
   Knob("XOT_LORA_TARGETS", "str", None, "LoRA target set; `all` extends adapters to MLP slots (default attention-only)."),
   Knob("XOT_ADAPTERS", "str", None, "Comma-separated `name=path` list of LoRA adapters to serve (multi-LoRA)."),
