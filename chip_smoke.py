@@ -248,10 +248,10 @@ Phases, in order; any failure exits nonzero and prints no result line:
      steps); LLaVA-1.5-7B with LoRA rank 8 on its text path then eval; step ms, tokens/s,
      peak GiB, K1 and K1b = layers x steps exactly (`[time] phase 19 (c)`); (d) two-layer
      training cuts of both published configs (check_training_cut: the MoE cut at T 64,
-     full fine-tune and LoRA on its attention slots, the CPU routed as the card routed;
-     llava's text stack at T 200 with LoRA), each gradient within 5e-2 of its norm of
-     the fp32 CPU's, with controls (a window forced, every B zeroed) that must miss
-     (`[time] phase 19 (d)`);
+     full fine-tune and LoRA on its attention slots, the reference routed as the card
+     routed; llava's text stack at T 200 with LoRA), each gradient within 5e-2 of its
+     norm of the plain path's in fp32 on the card, with controls (a window forced, every
+     B zeroed) that must miss (`[time] phase 19 (d)`);
   20. multi-LoRA serving (check_adapters), with the prefix cache and the lane off and
      room for three model contexts: the two-layer cut with a seeded rank-16 adapter on
      all seven slots (B nonzero) in bf16 through K1/K2, then over int4 (K5) and int8
@@ -277,12 +277,13 @@ Phases, in order; any failure exits nonzero and prints no result line:
      or the window dropped must miss), at D 128, D 32 with groups 1, D 16 with groups 8
      and gemma-2-2b's widths (D 256, softcap 50; B 4, T 511 and, windowed, B 2, T 512);
      K1's log-sum-exp against its plain version, and K1's output with it requested the
-     same bits as without; timed beside the fp32 plain version, SDPA's backward (a
-     compiled flex_attention's backward with a softcap or a window), each of its two
+     same bits as without; timed beside the fp32 plain version, SDPA's backward (with a
+     softcap or a window, a compiled flex_attention's backward under --yardsticks), each of its two
      device kernels under the profiler, and the bound; ptxas's registers and spills of
      K1, K2, K4 and K1b; each wrapper once under set_sync_debug_mode("error"); (b) a
      two-layer cut at full width, the loss and every trainable leaf's gradient on the card
-     (bf16, K1 and K1b) against the plain path in fp32 on the CPU: synthetic-llama-1b's,
+     (bf16, K1 and K1b) against the plain path in fp32 on the card (TF32 off):
+     synthetic-llama-1b's,
      full fine-tune (control: a window forced), LoRA and QLoRA over int8 (control: B
      zeroed), then gemma-2-2b's published config (one windowed layer, one global), full
      fine-tune and LoRA; (c) main.py's train and eval
@@ -325,10 +326,30 @@ Phases, in order; any failure exits nonzero and prints no result line:
      over ep 2, the dense
      combine against one device's, each MoE call too, with a control; (e) a one-process
      NCCL group's all-reduce (parallel/multihost.py);
-  24. the {"kernels": [...]} line (attention launches include phases 10 (c)'s, 12's,
-     14's, 15's, 16's, 18's, 19's, 20's, 21's, 22's and 23's; K6's phase 19's too, K5's
-     phase 20's; K1b's phase 19's (c) and (d) and phase 21's main-path runs, (c) and
-     (d)), then the {"ok": true, ...} line last.
+  24. training over a mesh (check_mesh_training), every position on the one card
+     (XOT_VIRTUAL_DEVICES): (a) `main.py train --serve-tp 2` on synthetic-llama-1b at
+     full width and depth over phase 21's corpus (B 4, rows of 511): LoRA rank 8 for 4
+     steps with a save at step 4, then eval, and a full fine-tune of 2 steps; K1 = 2 x
+     16 x forwards and K1b = 2 x 16 x steps exactly, each loss within 2^-7 of phase 21
+     (c)'s single-card loss at the same step, step ms and tokens/s (both positions on
+     one card); a fresh single-card engine that loads the step-4 save streams the tp
+     engine's temperature-0 tokens (near-tie rule); (b) a two-layer cut at full width
+     over dp 2 x tp 2 with ZeRO-1: the gradients of the dp loss against one device's
+     (each within 5e-2 of its norm), controls that must miss (one dp replica's term
+     dropped; the loss divided per replica), two AdamW steps against the unsharded
+     cut's, every per-shard K1b call against its plain version on its own inputs
+     (2^-6), the moment bytes position 0 holds against the replicated state's; (c) sp 2
+     training on the cut: loss and gradients through ring attention against one
+     device's, with a control that drops the last rotation's fold; (d) `main.py
+     --serve-tp 2 --adapters ad1=...`: @ad1's greedy stream phase 20's single-card one
+     (near-tie rule), K1 and K2 2 x the single-card formula;
+  25. the {"kernels": [...]} line (attention launches include phases 10 (c)'s, 12's,
+     14's, 15's, 16's, 18's, 19's, 20's, 21's, 22's, 23's and 24's; K6's phase 19's too,
+     K5's phase 20's; K1b's phase 19's (c) and (d), phase 21's main-path runs, (c) and
+     (d), and phase 24 (a)'s), then the {"ok": true, ...} line last.
+
+`--yardsticks` adds the compiled flex_attention yardsticks (the softcapped and windowed
+cases' library times, a library call the port never makes) to phases 3 and 21.
 """
 from __future__ import annotations
 
@@ -483,6 +504,11 @@ def report(name, case, out, ref, ms, plain_ms, lib_ms, b_ms, b_by, limit=ATOL):
           "bound_ms": b_ms, "bound_by": b_by}
 
 
+# The compiled flex_attention yardsticks (library times of the softcapped and windowed
+# cases, a library call the port never makes) run only under --yardsticks: 3-5 s a case.
+YARDSTICKS = False
+
+
 def flex_ms(torch, case, q, k, v, q_pos, lens, window, softcap, ref, scale=None, limit=ATOL):
   """The library time of a softcapped case: one torch.compile'd flex_attention call (a
   yardstick the port never calls) over q [B, T, Hq, D] and bf16 K/V [B, S, Hkv, D],
@@ -603,8 +629,9 @@ def attention_case(torch, w, name, case, call, ref_call, q, view, q_pos, lens, w
   plain_ms = time_ms(ref_call, iters=5)
   k, v = view
   if softcap:
+    # A compiled flex_attention costs seconds a case: only with --yardsticks.
     lib = flex_ms(torch, f"{name} {case}", q, k, v, q_pos, lens, window or (1 << 30), softcap,
-                  ref, w.scale, limit)
+                  ref, w.scale, limit) if YARDSTICKS else None
   else:
     lib = sdpa_ms(torch, q, k, v, q_pos, lens, window, w.scale, causal)
   qp = q_pos.long().cpu()
@@ -1319,6 +1346,27 @@ def check_gemv_edges(torch) -> None:
   torch.cuda.synchronize()
   print("[gemv edges] int8_rowquant_matmul, int4_w4a16_matmul and int4_w4a8_matmul ran with "
         "torch.cuda.set_sync_debug_mode('error'): no host read of a device tensor", flush=True)
+
+
+def fp32_copy(torch, params, device):
+  """The same tree on `device`, floating leaves in fp32, quantized codes as they are."""
+  if isinstance(params, dict):
+    return {k: fp32_copy(torch, v, device) for k, v in params.items()}
+  return params.to(device=device, dtype=torch.float32 if params.is_floating_point() else params.dtype)
+
+
+@contextlib.contextmanager
+def plain_attention():
+  """The training forward's attention through its plain version (flash_attention_ref,
+  autograd through PyTorch ops, any dtype and device): the fp32 reference on the card."""
+  from xotorch_tpu_torch.models import transformer
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention_ref
+  real = transformer.flash_attention_train
+  transformer.flash_attention_train = flash_attention_ref
+  try:
+    yield
+  finally:
+    transformer.flash_attention_train = real
 
 
 def cpu_copy(torch, params):
@@ -6841,7 +6889,7 @@ def family_training(torch, card: str, model: str, layers: int, runs, device: str
 def check_families(torch, card: str, device: str = "cuda") -> dict:
   """Phase 19: the two families the port served last, qwen3-moe and llava (drive_moe,
   drive_llava, each serving and then training its checkpoint), then (d) their two-layer
-  training cuts against the CPU (check_training_cut over the published configs: the
+  training cuts against the plain path in fp32 (check_training_cut over the published configs: the
   MoE cut at T 64, B*T 128 through the dense combine, full and with adapters on the
   attention slots, JAX's sites; llava's text stack at T 200 with adapters). Returns their
   attention launches summed by wrapper, K1b's included."""
@@ -6905,7 +6953,7 @@ def shared_ptrs(base_params, params) -> tuple:
 
 
 def drive_adapters(torch, card: str, paths: dict, device: str = "cuda",
-                   model: str = "synthetic-llama-1b") -> dict:
+                   model: str = "synthetic-llama-1b", streams: Optional[dict] = None) -> dict:
   """Phase 20 (b): main.py --adapters serving `model` with `ad1` and `ad2` beside the base.
 
   - Loads: the base, then each adapter context, timed, with the card's allocated bytes
@@ -6972,10 +7020,12 @@ def drive_adapters(torch, card: str, paths: dict, device: str = "cuda",
     print(f"[adapters] /v1/models: {entries} {'ok' if ok else 'FAIL'}", flush=True)
     if not ok:
       raise AssertionError(f"adapters: /v1/models lists {sorted(listed)}")
-    streams = {mid: await kv_generate(engine, f"common-{mid}", ids, 32, shards[mid]) for mid in models}
-    distinct = len({tuple(v) for v in streams.values()}) == len(models)
-    print(f"[adapters] a {ADAPTER_WORDS}-token prompt, 32 greedy tokens: base {streams[model][:8]}..., "
-          + ", ".join(f"{mid} {streams[mid][:8]}..." for mid in models[1:])
+    common = {mid: await kv_generate(engine, f"common-{mid}", ids, 32, shards[mid]) for mid in models}
+    if streams is not None:
+      streams.update(common, ids=ids)
+    distinct = len({tuple(v) for v in common.values()}) == len(models)
+    print(f"[adapters] a {ADAPTER_WORDS}-token prompt, 32 greedy tokens: base {common[model][:8]}..., "
+          + ", ".join(f"{mid} {common[mid][:8]}..." for mid in models[1:])
           + f": three different streams {'ok' if distinct else 'FAIL'}", flush=True)
     if not distinct:
       raise AssertionError("adapters: an adapter streamed the base's tokens, or the two agreed")
@@ -6998,10 +7048,10 @@ def drive_adapters(torch, card: str, paths: dict, device: str = "cuda",
     swap_s = time.perf_counter() - t0
     swapped = await kv_generate(engine, "swapped", ids, 32, shards[ad1])
     await streams_agree(torch, engine, shards[ad2], f"adapters {ad1} after load_checkpoint of "
-                        f"ad2's file against {ad2}", ids, streams[ad2], swapped, card)
+                        f"ad2's file against {ad2}", ids, common[ad2], swapped, card)
     base_ctx = engine._contexts[shards[model]]
     shared, n_base, _ = shared_ptrs(base_ctx.params, engine._contexts[shards[ad1]].params)
-    fresh = swapped != streams[ad1] and shared == n_base
+    fresh = swapped != common[ad1] and shared == n_base
     print(f"[adapters] load_checkpoint in {swap_s:.3f} s: {ad1}'s stream is no longer its "
           f"old one, {shared}/{n_base} base tensors still shared ({card}) "
           f"{'ok' if fresh else 'FAIL (stale graphs or a copied base)'}", flush=True)
@@ -7091,13 +7141,15 @@ def _adapters_concurrent(torch, card: str, engine, jobs: list, counted: list, mo
     engine.executor.shutdown(wait=True)
 
 
-def check_adapters(torch, card: str, device: str = "cuda", model: str = "synthetic-llama-1b") -> dict:
+def check_adapters(torch, card: str, device: str = "cuda", model: str = "synthetic-llama-1b",
+                   streams: Optional[dict] = None) -> dict:
   """Phase 20: multi-LoRA serving. (a) The two-layer cut with a rank-16 adapter on all
   seven slots in bf16 (K1, K2), then over int4 (K5) and int8 (K6) bases, each kernel
   call held against its plain version, each with a B-dropped control that must miss;
   (b) main.py --adapters at full width and depth (drive_adapters), the eight concurrent
   paged streams (adapters_concurrent), and an int4 server whose @ad1 requests launch
-  K5 7 x 16 x steps. Returns the phase's launches."""
+  K5 7 x 16 x steps. Returns the phase's launches; `streams` takes (b)'s greedy streams
+  of its common prompt by model id, and the prompt's ids under "ids"."""
   import shutil
   import tempfile
   from xotorch_tpu_torch.models.registry import get_model_card
@@ -7116,7 +7168,8 @@ def check_adapters(torch, card: str, device: str = "cuda", model: str = "synthet
     paths = write_adapters(torch, root, model)
     sizes = {k: os.path.getsize(v) for k, v in paths.items()}
     print(f"[adapters] adapter files written by save_lora_checkpoint: {sizes} bytes", flush=True)
-    for name, k in drive_adapters(torch, card, paths, device=device, model=model).items():
+    for name, k in drive_adapters(torch, card, paths, device=device, model=model,
+                                  streams=streams).items():
       launches[name] = launches.get(name, 0) + k
     for name, k in adapters_concurrent(torch, card, paths, device=device, model=model).items():
       launches[name] = launches.get(name, 0) + k
@@ -7309,7 +7362,8 @@ def k1b_case(torch, w, draw, B, T, window, softcap, timed=True) -> Optional[dict
   ms = time_ms(call)
   plain_ms = time_ms(plain, iters=3)
   if window or softcap:
-    lib, lib_name = flex_bwd_ms(torch, q, k, v, dout, window, softcap, w.scale), "flex_attention backward"
+    lib = flex_bwd_ms(torch, q, k, v, dout, window, softcap, w.scale) if YARDSTICKS else None
+    lib_name = "flex_attention backward" + ("" if YARDSTICKS else ", timed with --yardsticks")
   else:
     lib, lib_name = sdpa_bwd_ms(torch, q, k, v, dout, w.scale), "SDPA backward"
   split = kernel_split_ms(torch, call, ("flash_bwd_dq_kernel", "flash_bwd_dkdv_kernel"))
@@ -7385,8 +7439,8 @@ def check_training_cut(torch, mode: str, device: str = "cuda", model: str = "syn
   B 2, T `seq` (rows of seq and 3/4 of it), the loss and every trainable leaf's gradient
   (`mode` full: every float leaf, the tied embedding included; lora: a seeded rank-8
   adapter on `slots`, the seven by default, B nonzero; qlora: that adapter over an int8
-  base) on the card in bf16 through K1 and K1b against the plain path in fp32 on the
-  CPU from the same weights: the loss within TRAIN_LOSS_REL, each gradient's error
+  base) on the card in bf16 through K1 and K1b against the plain path in fp32 (attention
+  by flash_attention_ref, TF32 off) on the card from the same weights: the loss within TRAIN_LOSS_REL, each gradient's error
   within `limit` of its norm. The control must miss: a window of `window` forced on both
   layers (full), every adapter's B zeroed (lora, qlora). Returns the card's K1 and K1b
   launches (2 each)."""
@@ -7409,7 +7463,9 @@ def check_training_cut(torch, mode: str, device: str = "cuda", model: str = "syn
   if mode != "full":
     params["layers"].update(adapter_leaves(torch, cfg, 2, 8, slots or transformer.LORA_SLOTS,
                                            seed=21, device=dev, dtype=dtype))
-  params_cpu = cpu_copy(torch, params)
+  # The fp32 plain path's weights: on the card itself (TF32 off, main() sets it), where a
+  # CPU reference took tens of seconds a cut.
+  params_ref = fp32_copy(torch, params, dev)
   rng = np.random.default_rng(21)
   x = rng.integers(3, cfg.vocab_size, size=(2, seq + 1))
   batch = {"inputs": x[:, :-1], "targets": x[:, 1:], "lengths": np.array([seq, 3 * seq // 4])}
@@ -7425,11 +7481,12 @@ def check_training_cut(torch, mode: str, device: str = "cuda", model: str = "syn
     loss, got = grads(params, dev)
   launched = {"flash_attention": flash_attention.launches - counts[0],
               "flash_attention_bwd": flash_attention_bwd.launches - counts[1]}
-  # A MoE cut's CPU reference routes as the card routed (forced_routing): a bf16 router
+  # A MoE cut's fp32 reference routes as the card routed (forced_routing): a bf16 router
   # may pick another expert at a near tie, and a gradient is only comparable over the
   # same experts. The choices' weights stay each side's own (the router's gradient).
   with forced_routing(torch, list(routes)) if routes else contextlib.nullcontext():
-    want_loss, want = grads(params_cpu, "cpu")
+    with plain_attention():
+      want_loss, want = grads(params_ref, dev)
   names = ["/".join(path) for path, _ in lora.trainable_leaves(params)]
   if mode == "full":
     with _window_forced(window):
@@ -7450,9 +7507,9 @@ def check_training_cut(torch, mode: str, device: str = "cuda", model: str = "syn
   ok = (loss_err <= TRAIN_LOSS_REL and err <= limit and control_err > limit
         and (device != "cuda" or launched == {"flash_attention": 2, "flash_attention_bwd": 2}))
   print(f"[training] 2-layer {model} cut, {mode} ({len(got)} trainable leaves), B=2 T={seq}: loss "
-        f"{loss.item():.5f} against {want_loss.item():.5f} in fp32 on the CPU ({loss_err:.2e}, "
+        f"{loss.item():.5f} against {want_loss.item():.5f} in fp32, plain ({loss_err:.2e}, "
         f"limit 2^-7); worst gradient error {err:.3e} of its norm ({leaf}; limit {limit:g}"
-        f"{'; the CPU routed as the card' if routes else ''}); control, "
+        f"{'; the reference routed as the card' if routes else ''}); control, "
         f"{dropped}: {control_err:.3e} ({'caught' if control_err > limit else 'NOT caught'}); "
         f"launches {launched} {'ok' if ok else 'FAIL'}", flush=True)
   if not ok:
@@ -7843,13 +7900,15 @@ def drive_training_ring(torch, card: str, device: str = "cuda", model: str = "sy
 
 
 def check_training(torch, card: str, results: dict, device: str = "cuda",
-                   model: str = "synthetic-llama-1b") -> dict:
+                   model: str = "synthetic-llama-1b", runs: Optional[dict] = None) -> dict:
   """Phase 21: training. (a) K1b against its plain version (check_training_kernels);
-  (b) the two-layer cuts' loss and gradients against the CPU (check_training_cut):
+  (b) the two-layer cuts' loss and gradients against the plain path in fp32 on the card
+  (check_training_cut):
   `model`'s full, LoRA and QLoRA, then gemma-2-2b's (GEMMA_CONFIG: head_dim 256, the
   softcap, a windowed layer) full and LoRA; (c) main.py train and eval (drive_training); (d) ring training
   over TCP against one peer (drive_training_ring). Returns the K1 and K1b launches of
-  (c) and (d), the phase's main path ((a) and (b) compare against plain versions)."""
+  (c) and (d), the phase's main path ((a) and (b) compare against plain versions);
+  `runs` takes (c)'s full and LoRA runs (phase 24 holds its tp runs to their losses)."""
   t0 = time.perf_counter()
   if device == "cuda":
     check_training_kernels(torch, results)
@@ -7861,6 +7920,8 @@ def check_training(torch, card: str, results: dict, device: str = "cuda",
   print(f"[time] phase 21 (a, b): {time.perf_counter() - t0:.1f} s, the gemma-2-2b cut "
         f"{time.perf_counter() - t1:.1f} s of it", flush=True)
   run = drive_training(torch, card, device=device, model=model)
+  if runs is not None:
+    runs.update(full=run["full"], lora=run["lora"])
   launches = dict(run["launches"])
   for name, n in drive_training_ring(torch, card, device=device, model=model).items():
     launches[name] += n
@@ -8814,11 +8875,380 @@ def check_parallel(torch, card: str, main_run: dict, device: str = "cuda") -> di
   return launches
 
 
+# ------------------------------------------------------- phase 24: training over a mesh
+
+MESH_TP = 2  # the tp width of phase 24's runs: both positions on the one card
+MESH_LORA_ITERS, MESH_FULL_ITERS = 4, 2  # (a)'s steps: LoRA with a save at the last, full
+MESH_STEP_REL = 0.5  # (b): a leaf after two AdamW steps against the unsharded cut's, over
+                     # the unsharded cut's own change (AdamW's first steps move each element
+                     # by about lr, its sign the gradient's: a bf16 gradient that rounds the
+                     # other way at an element near 0 flips that element's step)
+MESH_CUT_SEQ = 256  # (b) and (c): rows of the two-layer cut
+
+
+def mesh_train_cli(torch, card: str, trained: dict, device: str = "cuda",
+                   model: str = "synthetic-llama-1b") -> dict:
+  """Phase 24 (a): main.py's train command with --serve-tp 2 (XOT_VIRTUAL_DEVICES=2: both
+  positions on the one card) over phase 21's corpus: LoRA rank 8 for MESH_LORA_ITERS
+  steps with a save at the last, then eval; a full fine-tune of MESH_FULL_ITERS steps.
+  K1 = 2 x layers x forwards and K1b = 2 x layers x steps exactly; each loss within
+  TRAIN_LOSS_REL of phase 21 (c)'s single-card loss at the same step (`trained`: the same
+  batches, the same adapter draw); a fresh single-card engine that loads the save
+  streams the tp engine's temperature-0 tokens, or parts at a near tie. Returns the
+  launches."""
+  import shutil
+  import tempfile
+  from xotorch_tpu_torch import main as port_main
+  from xotorch_tpu_torch.api.chatgpt_api import build_prompt
+  from xotorch_tpu_torch.models.registry import build_base_shard, build_full_shard, get_model_card
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention
+  card_cfg = get_model_card(model)
+  layers = card_cfg["layers"]
+  words = min(TRAIN_WORDS, card_cfg["synthetic_config"]["vocab_size"] - 3)
+  prompt = " ".join(f"w{3 + i % min(500, words)}" for i in range(300))
+  env = {"XOT_VIRTUAL_DEVICES": str(MESH_TP), "XOT_SERVE_TP": str(MESH_TP)}
+  launches = {"flash_attention": 0, "flash_attention_bwd": 0}
+  root = tempfile.mkdtemp(prefix="xot-mesh-train-")
+
+  def same_losses(tag, run, want_run, n):
+    got = [l for _, l in run["losses"]]
+    want = [l for _, l in want_run["losses"][:n]]
+    rel = max(abs(g - w) / abs(w) for g, w in zip(got, want))
+    ok = len(got) == len(want) == n and rel <= TRAIN_LOSS_REL
+    print(f"[mesh training] {tag}: losses {' '.join(f'{l:.5f}' for l in got)} against phase 21 "
+          f"(c)'s single-card {' '.join(f'{l:.5f}' for l in want)}: {rel:.2e} (limit 2^-7) "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+      raise AssertionError(f"mesh training {tag}: losses {got} against {want}")
+
+  try:
+    os.makedirs(os.path.join(root, "data"))
+    data = write_training_corpus(os.path.join(root, "data"), words)
+    ckpt = os.path.join(root, "ckpt")
+    args = lambda iters, *extra: _train_args(model, device, data, "--iters", str(iters),
+                                             "--serve-tp", str(MESH_TP), *extra)
+    t0 = time.perf_counter()
+    with word_ids():
+      async def lora_body(node, engine, classname, api, a, run_train):
+        run = await run_train()
+        ctx = engine._contexts[build_full_shard(model, classname)]
+        run["mesh"] = dict(ctx.mesh.shape) if ctx.mesh is not None else None
+        before = flash_attention.launches
+        run["eval"] = await port_main.eval_model_cli(node, classname, model, a)
+        run["eval_launches"] = flash_attention.launches - before
+        run["stream"] = await _stream_ids(api, model, prompt)
+        return run
+      lora = train_cli(torch, args(MESH_LORA_ITERS, "--lora-rank", "8", "--save-every",
+                                   str(MESH_LORA_ITERS), "--save-checkpoint-dir", ckpt),
+                       {"XOT_LR": TRAIN_LR["lora"], **env}, lora_body)
+      for name, n in _report_run(f"{model} tp {MESH_TP} LoRA rank 8 (both positions on one card)",
+                                 lora, card, MESH_TP * layers, MESH_LORA_ITERS,
+                                 falling=False).items():
+        launches[name] += n
+      n_eval = 8 // TRAIN_BATCH
+      ok = (lora["mesh"] == {"tp": MESH_TP} and lora["eval_launches"] == MESH_TP * layers * n_eval
+            and math.isfinite(lora["eval"] or math.nan))
+      print(f"[mesh training] mesh {lora['mesh']}; eval after LoRA: loss {lora['eval']:.4f} over "
+            f"{n_eval} batches; K1 {lora['eval_launches']} = {MESH_TP} x {layers} x {n_eval} "
+            f"{'ok' if ok else 'FAIL'}", flush=True)
+      if not ok:
+        raise AssertionError(f"mesh training eval: mesh {lora['mesh']}, loss {lora['eval']}, "
+                             f"K1 {lora['eval_launches']}")
+      launches["flash_attention"] += lora["eval_launches"]
+      same_losses(f"tp {MESH_TP} LoRA", lora, trained["lora"], MESH_LORA_ITERS)
+      save = os.path.join(ckpt, model, f"0-{layers - 1}-{MESH_LORA_ITERS}.safetensors")
+
+      async def fresh_body(node, engine, classname, api, a, run_train):
+        shard = build_base_shard(model, classname)
+        await node.coordinate_resume(shard, save)
+        got = await _stream_ids(api, model, prompt)
+        full = build_full_shard(model, classname)
+        ctx = engine._contexts[full]
+        messages = [{"role": "user", "content": prompt}]
+        ids = (await engine.encode(full, build_prompt(engine.tokenizer, messages))).tolist()
+        await streams_agree(torch, engine, full, "tp 2 LoRA engine against a single-card engine "
+                            "that loaded its step-4 save", ids, got, lora["stream"], card)
+        return ctx.mesh
+      with phase_env(XOT_VIRTUAL_DEVICES="0", XOT_SERVE_TP="0"):
+        mesh = train_cli(torch, _train_args(model, device, data, "--lora-rank", "8"),
+                         {"XOT_LR": TRAIN_LR["lora"]}, fresh_body)
+      if mesh is not None:
+        raise AssertionError(f"mesh training: the fresh engine was to serve on one card, got {mesh}")
+      full = train_cli(torch, args(MESH_FULL_ITERS, "--save-every", "0"),
+                       {"XOT_LR": TRAIN_LR["full"], **env})
+      for name, n in _report_run(f"{model} tp {MESH_TP} full fine-tune (both positions on one card)",
+                                 full, card, MESH_TP * layers, MESH_FULL_ITERS,
+                                 falling=False).items():
+        launches[name] += n
+      same_losses(f"tp {MESH_TP} full fine-tune", full, trained["full"], MESH_FULL_ITERS)
+    print(f"[time] phase 24 (a), main.py train --serve-tp {MESH_TP}: {time.perf_counter() - t0:.1f} s",
+          flush=True)
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+  return launches
+
+
+def _cut_batch(torch, cfg, B: int, dev, seed: int):
+  import numpy as np
+  rng = np.random.default_rng(seed)
+  T = MESH_CUT_SEQ
+  x = rng.integers(3, cfg.vocab_size, size=(B, T + 1))
+  lengths = np.array([T, 3 * T // 4, T // 2, T // 5][:B])
+  return {k: torch.as_tensor(v, device=dev) for k, v in
+          (("inputs", x[:, :-1]), ("targets", x[:, 1:]), ("lengths", lengths))}
+
+
+def _cut_params(torch, model: str, dev, dtype):
+  import dataclasses
+  from xotorch_tpu_torch.models import transformer
+  from xotorch_tpu_torch.models.config import config_from_hf_dict
+  from xotorch_tpu_torch.models.registry import get_model_card
+  cfg = dataclasses.replace(config_from_hf_dict(get_model_card(model)["synthetic_config"]),
+                            num_layers=2)
+  return cfg, transformer.init_random_params(cfg, 2, True, True, seed=0, dtype=dtype, device=dev)
+
+
+def _clone_tree(tree):
+  return {k: _clone_tree(v) if isinstance(v, dict) else v.clone() for k, v in tree.items()}
+
+
+def _grad_errors(torch, got, want) -> tuple:
+  """(worst |got - want| / |want| over the leaves, its leaf); non-finite raises."""
+  if not all(bool(torch.isfinite(g).all()) for g in got):
+    raise AssertionError("mesh training: non-finite gradients")
+  return max((((a.float() - b.float()).norm() / b.float().norm().clamp(min=1e-30)).item(), i)
+             for i, (a, b) in enumerate(zip(got, want)))
+
+
+@contextlib.contextmanager
+def k1b_recorded(torch):
+  """Every K1b call (ops/flash_attention.flash_attention_bwd, which the training forward's
+  backward calls) recorded with its inputs and outputs; yields the list. Its launch
+  count carries over."""
+  from xotorch_tpu_torch.ops import flash_attention as fa
+  real = fa.flash_attention_bwd
+  calls = []
+
+  def held(q, k, v, out, dout, lse=None, **kw):
+    got = real(q, k, v, out, dout, lse, **kw)
+    calls.append((q, k, v, dout, kw, got))
+    return got
+  held.launches = real.launches
+  fa.flash_attention_bwd = held
+  try:
+    yield calls
+  finally:
+    real.launches = held.launches
+    fa.flash_attention_bwd = real
+
+
+def mesh_train_cut(torch, card: str, device: str = "cuda", model: str = "synthetic-llama-1b",
+                   lr: float = 1e-3) -> None:
+  """Phase 24 (b): a two-layer cut of `model` at full width in bf16 over dp 2 x tp 2 (four
+  positions of the card) with ZeRO-1, B 4 of unequal lengths, T MESH_CUT_SEQ:
+  - the gradients of the dp loss (each replica's masked sum over the global count),
+    summed per block and reassembled, against the unsharded cut's on the card: each
+    within TRAIN_GRAD_REL of its norm; the controls must miss it: one dp replica's
+    gradient term dropped, and the loss divided per replica;
+  - every per-shard K1b call of that backward (dp x tp x layers: Hq/tp heads over
+    Hkv/tp) against flash_attention_bwd_ref in fp32 on its own inputs (dq, dk, dv each
+    within BWD_REL of its largest |value|);
+  - two AdamW steps (ZeRO-1's moments split over dp, the slices gathered back into the
+    pieces) against the unsharded cut's: the losses within TRAIN_LOSS_REL, each leaf
+    within MESH_STEP_REL of the unsharded cut's change;
+  - the moment bytes position 0 holds against the replicated state's."""
+  from xotorch_tpu_torch.models import transformer
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention_bwd_ref
+  from xotorch_tpu_torch.parallel import (gather_params, make_mesh, moment_bytes_per_device,
+                                          shard_params, zero1_constraint, zero1_shard_opt_state)
+  from xotorch_tpu_torch.parallel.collectives import all_reduce
+  from xotorch_tpu_torch.parallel.mesh import dp_rows
+  from xotorch_tpu_torch.train import lora, step
+  t0 = time.perf_counter()
+  dev = torch.device(device)
+  dtype = torch.bfloat16 if device == "cuda" else torch.float32
+  cfg, plain = _cut_params(torch, model, dev, dtype)
+  start = _clone_tree(plain)
+  mesh = make_mesh({"dp": 2, "tp": MESH_TP}, [dev] * (2 * MESH_TP))
+  mp = shard_params(_clone_tree(plain), mesh)
+  b1, b2 = _cut_batch(torch, cfg, 4, dev, 24), _cut_batch(torch, cfg, 4, dev, 25)
+  paths = [p for p, _ in lora.trainable_leaves(plain)]
+  leaves = [t for _, t in lora.trainable_leaves(plain)]
+  names = ["/".join(p) for p in paths]
+  _, want = step.value_and_grad(lambda: step.full_model_loss(plain, b1, cfg), leaves)
+  with k1b_recorded(torch) as calls:
+    _, got = step.mesh_value_and_grad(lambda: step.full_model_loss(mp, b1, cfg), mp, paths)
+  count = step.unmasked_count(b1["lengths"], MESH_CUT_SEQ)
+
+  def replica_terms(per_replica_mean: bool):
+    outs = transformer.forward_replicas(mp, b1["inputs"], cfg, True, True, route=step.TRAIN_ROUTE)
+    rows = zip(outs, dp_rows(b1["targets"], mesh), dp_rows(b1["lengths"], mesh))
+    if per_replica_mean:
+      return [step.masked_ce_loss(o, t, n) / len(outs) for o, t, n in rows]
+    return [step.masked_ce_sum(o, t, n) / count.to(o.device) for o, t, n in rows]
+  _, dropped = step.mesh_value_and_grad(lambda: replica_terms(False)[0], mp, paths)
+  _, per_replica = step.mesh_value_and_grad(
+    lambda: all_reduce(replica_terms(True), [dev])[0], mp, paths)
+  err, worst = _grad_errors(torch, got, want)
+  errs = {label: _grad_errors(torch, g, want)[0] for label, g in
+          (("one dp replica's term dropped", dropped), ("the loss divided per replica", per_replica))}
+  ok = err <= TRAIN_GRAD_REL and all(e > TRAIN_GRAD_REL for e in errs.values())
+  print(f"[mesh training] 2-layer {model} cut over dp 2 x tp {MESH_TP}, B=4 T={MESH_CUT_SEQ} "
+        f"(lengths {b1['lengths'].tolist()}): worst gradient error {err:.3e} of its norm "
+        f"({names[worst]}; limit {TRAIN_GRAD_REL:g}) against the unsharded cut's; controls "
+        + ", ".join(f"{k}: {e:.3e} ({'caught' if e > TRAIN_GRAD_REL else 'NOT caught'})"
+                    for k, e in errs.items()) + f" {'ok' if ok else 'FAIL'}", flush=True)
+  if not ok:
+    raise AssertionError(f"mesh training cut: gradient error {err} or a control passed {errs}")
+  worst_k1b = 0.0
+  for q, k, v, dout, kw, grads in calls:
+    ref = flash_attention_bwd_ref(q.float(), k.float(), v.float(), dout.float(), **kw)
+    for g, r in zip(grads, ref):
+      e = (g.float() - r).abs().max().item() / max(r.abs().max().item(), 1e-30)
+      worst_k1b = max(worst_k1b, e if math.isfinite(e) else math.inf)
+  want_calls = 2 * MESH_TP * cfg.num_layers
+  heads = {(q.shape[2], k.shape[2]) for q, k, *_ in calls}
+  ok = len(calls) == want_calls and worst_k1b <= BWD_REL and (
+    not calls or heads == {(cfg.num_heads // MESH_TP, cfg.num_kv_heads // MESH_TP)})
+  print(f"[mesh training] per-shard K1b calls: {len(calls)} (dp 2 x tp {MESH_TP} x "
+        f"{cfg.num_layers} layers = {want_calls}) on (Hq, Hkv) {sorted(heads)}, worst dq/dk/dv "
+        f"error {worst_k1b:.3e} of its largest |value| (limit 2^-6) {'ok' if ok else 'FAIL'}",
+        flush=True)
+  if not ok:
+    raise AssertionError(f"mesh training cut: K1b calls {len(calls)}, error {worst_k1b}")
+  del got, want, dropped, per_replica, calls
+
+  opt = lora.optimizer_for(mp, lr)
+  repl_bytes = moment_bytes_per_device(opt)
+  opt = zero1_shard_opt_state(opt, mesh)
+  zstep = step.make_train_step(cfg, opt, opt_sharding_fn=zero1_constraint(mesh))
+  pstep = step.make_train_step(cfg, lora.optimizer_for(plain, lr))
+  losses = [(float(zstep(mp, b)), float(pstep(plain, b))) for b in (b1, b2)]
+  zero_bytes = moment_bytes_per_device(opt)
+  flat_got, flat_want, flat_start = (dict(step.leaf_paths(t)) for t in (gather_params(mp), plain, start))
+  step_err, step_leaf = max((((flat_got[p].float() - flat_want[p].float()).norm()
+                              / (flat_want[p].float() - flat_start[p].float()).norm().clamp(min=1e-30)).item(),
+                             "/".join(p)) for p in flat_want)
+  loss_err = max(abs(a - b) / abs(b) for a, b in losses)
+  split = any("dp" in s for s in opt.moment_specs)
+  ok = (loss_err <= TRAIN_LOSS_REL and step_err <= MESH_STEP_REL and split
+        and zero_bytes * 2 <= repl_bytes)
+  print(f"[mesh training] two AdamW steps (lr {lr:g}) with ZeRO-1: losses "
+        f"{' '.join(f'{a:.5f}/{b:.5f}' for a, b in losses)} (sharded/unsharded, {loss_err:.2e}, limit "
+        f"2^-7); worst leaf {step_err:.3e} of the unsharded cut's change ({step_leaf}; limit "
+        f"{MESH_STEP_REL:g}); moments split over dp: {split}; moment bytes at position 0 "
+        f"{zero_bytes} against the replicated state's {repl_bytes} "
+        f"({zero_bytes / max(repl_bytes, 1):.3f}x) {'ok' if ok else 'FAIL'} ({card})", flush=True)
+  if not ok:
+    raise AssertionError(f"mesh training ZeRO-1 steps: losses {losses}, leaf {step_err}, bytes "
+                         f"{zero_bytes}/{repl_bytes}")
+  print(f"[time] phase 24 (b), the dp x tp cut: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def mesh_ring_cut(torch, card: str, device: str = "cuda", model: str = "synthetic-llama-1b") -> None:
+  """Phase 24 (c): the two-layer cut trained sequence-parallel over sp 2 (ring attention
+  over the fresh K/V chunks, no cache): the loss within TRAIN_LOSS_REL and each gradient
+  within TRAIN_GRAD_REL of its norm of one device's (K1 and K1b); the control, the last
+  rotation's fold dropped, must miss."""
+  from xotorch_tpu_torch.parallel import make_mesh, shard_params
+  from xotorch_tpu_torch.train import lora, step
+  t0 = time.perf_counter()
+  dev = torch.device(device)
+  dtype = torch.bfloat16 if device == "cuda" else torch.float32
+  cfg, plain = _cut_params(torch, model, dev, dtype)
+  mesh = make_mesh({"sp": 2}, [dev] * 2)
+  mp = shard_params(_clone_tree(plain), mesh)
+  b = _cut_batch(torch, cfg, 2, dev, 26)
+  paths = [p for p, _ in lora.trainable_leaves(plain)]
+  names = ["/".join(p) for p in paths]
+  want_loss, want = step.value_and_grad(lambda: step.full_model_loss(plain, b, cfg),
+                                        [t for _, t in lora.trainable_leaves(plain)])
+  ring = lambda: step.full_model_loss(mp, b, cfg, ring_mesh=mesh)
+  loss, got = step.mesh_value_and_grad(ring, mp, paths)
+  with ring_folds_dropped(torch):
+    _, control = step.mesh_value_and_grad(ring, mp, paths)
+  err, worst = _grad_errors(torch, got, want)
+  control_err, _ = _grad_errors(torch, control, want)
+  loss_err = abs(loss.item() - want_loss.item()) / abs(want_loss.item())
+  ok = loss_err <= TRAIN_LOSS_REL and err <= TRAIN_GRAD_REL and control_err > TRAIN_GRAD_REL
+  print(f"[mesh training] 2-layer {model} cut over sp 2 (ring attention, B=2 T={MESH_CUT_SEQ}): "
+        f"loss {loss.item():.5f} against one device's {want_loss.item():.5f} ({loss_err:.2e}, limit "
+        f"2^-7); worst gradient error {err:.3e} of its norm ({names[worst]}; limit "
+        f"{TRAIN_GRAD_REL:g}); control, the last rotation's fold dropped: {control_err:.3e} "
+        f"({'caught' if control_err > TRAIN_GRAD_REL else 'NOT caught'}) {'ok' if ok else 'FAIL'} "
+        f"({card})", flush=True)
+  if not ok:
+    raise AssertionError(f"mesh training sp: loss {loss_err}, gradient {err}, control {control_err}")
+  print(f"[time] phase 24 (c), the sp cut: {time.perf_counter() - t0:.1f} s", flush=True)
+
+
+def mesh_adapters(torch, card: str, adapter_streams: dict, device: str = "cuda",
+                  model: str = "synthetic-llama-1b") -> dict:
+  """Phase 24 (d): `main.py --serve-tp 2 --adapters ad1=...` (phase 20's ad1, written
+  again from its seed) answers the main path's first request for @ad1; K1 and K2 are 2 x
+  the single-card formula; @ad1's greedy stream of phase 20's common prompt equals phase
+  20's single-card stream, or parts at a near tie. Returns the launches."""
+  import shutil
+  import tempfile
+  from xotorch_tpu_torch.models.registry import build_full_shard, get_model_card
+  layers = get_model_card(model)["layers"]
+  ad1 = f"{model}@ad1"
+  root = tempfile.mkdtemp(prefix="xot-mesh-adapters-")
+  try:
+    path = write_adapters(torch, root, model)["ad1"]
+    adapters = f"ad1={path}"
+
+    async def after(engine, node, api, base):
+      shard = build_full_shard(ad1, type(engine).__name__)
+      got = await kv_generate(engine, "mesh-ad1", adapter_streams["ids"], 32, shard)
+      ctx = engine._contexts[shard]
+      await streams_agree(torch, engine, shard, f"tp {MESH_TP} {ad1} against phase 20's single-card "
+                          f"stream", adapter_streams["ids"], adapter_streams[ad1], got, card)
+      return dict(ctx.mesh.shape) if ctx.mesh is not None else None
+    env = {"XOT_VIRTUAL_DEVICES": str(MESH_TP), "XOT_SERVE_TP": str(MESH_TP), **ADAPTER_ENV}
+    body = [(f"512-word prompt -> {ad1}", {**main_requests(model)[0][1], "model": ad1})]
+    with phase_env(XOT_ADAPTERS=adapters):
+      run = drive_main_path(torch, card, device=device, model=model, env=env, tag="mesh adapters",
+                            profiles=(), cli=("--serve-tp", str(MESH_TP), "--adapters", adapters),
+                            requests=body, after=after)
+  finally:
+    shutil.rmtree(root, ignore_errors=True)
+  want = {k: MESH_TP * n for k, n in contiguous_want(run, layers).items()}
+  ok = run["launches"] == want and run["after"] == {"tp": MESH_TP}
+  print(f"[mesh adapters] {ad1} over mesh {run['after']}: launches {run['launches']} against "
+        f"{MESH_TP} x the single-card formula {want} ({run['steps']} decode steps); "
+        f"{'; '.join(run['timings'])} ({card}) {'ok' if ok else 'FAIL'}", flush=True)
+  if not ok:
+    raise AssertionError(f"mesh adapters: launches {run['launches']}, wanted {want}; mesh {run['after']}")
+  return dict(run["launches"])
+
+
+def check_mesh_training(torch, card: str, trained: dict, adapter_streams: dict,
+                        device: str = "cuda", model: str = "synthetic-llama-1b") -> dict:
+  """Phase 24: training over meshes of the one card (every position repeats it: the
+  sharded training math and the per-shard K1/K1b calls at full width, not scaling).
+  Returns the launches of (a) and (d), the phase's main paths."""
+  t0 = time.perf_counter()
+  launches = dict(mesh_train_cli(torch, card, trained, device=device, model=model))
+  mesh_train_cut(torch, card, device=device, model=model)
+  mesh_ring_cut(torch, card, device=device, model=model)
+  for name, n in mesh_adapters(torch, card, adapter_streams, device=device, model=model).items():
+    launches[name] = launches.get(name, 0) + n
+  print(f"[time] phase 24 (training over a mesh): {time.perf_counter() - t0:.1f} s; launches "
+        f"{launches} ({card})", flush=True)
+  return launches
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--kernels-only", action="store_true",
                       help="stop after holding the kernels against their plain versions")
+  parser.add_argument("--yardsticks", action="store_true",
+                      help="also time the compiled flex_attention yardsticks of the softcapped "
+                           "and windowed cases (their library_ms; seconds a case)")
   args = parser.parse_args(argv)
+  global YARDSTICKS
+  YARDSTICKS = args.yardsticks
 
   import torch
   if not torch.cuda.is_available():
@@ -9044,13 +9474,15 @@ def main(argv=None) -> int:
 
   # Phase 20: multi-LoRA serving (adapter cuts against the CPU, main.py --adapters, the
   # paged streams, an adapter over int4); its attention and K5 launches join the line.
-  for name, n in check_adapters(torch, card).items():
+  adapter_streams: dict = {}
+  for name, n in check_adapters(torch, card, streams=adapter_streams).items():
     launches[name] += n
   print(f"[time] phases 1-20: {time.perf_counter() - started:.1f} s", flush=True)
 
   # Phase 21: training (K1b, the cut's gradients, main.py train and eval, the ring);
   # its K1 and K1b launches join the results line.
-  for name, n in check_training(torch, card, results).items():
+  trained: dict = {}
+  for name, n in check_training(torch, card, results, runs=trained).items():
     launches[name] = launches.get(name, 0) + n
   print(f"[time] phases 1-21: {time.perf_counter() - started:.1f} s", flush=True)
 
@@ -9067,7 +9499,13 @@ def main(argv=None) -> int:
     launches[name] += n
   print(f"[time] phases 1-23: {time.perf_counter() - started:.1f} s", flush=True)
 
-  # Phase 24: results.
+  # Phase 24: training over meshes of the one card; the tp runs' K1, K1b and K2 launches
+  # join the results line.
+  for name, n in check_mesh_training(torch, card, trained, adapter_streams).items():
+    launches[name] = launches.get(name, 0) + n
+  print(f"[time] phases 1-24: {time.perf_counter() - started:.1f} s", flush=True)
+
+  # Phase 25: results.
   meta = {
     "flash_attention": ("xotorch_tpu_torch/csrc/flash_attention.cu",
                         "xotorch_tpu/ops/flash_attention.py:54"),

@@ -267,6 +267,7 @@ def test_port_imports_neither_jax_nor_the_jax_package():
           "xotorch_tpu_torch/parallel/collectives.py",
           "xotorch_tpu_torch/parallel/mesh.py",
           "xotorch_tpu_torch/parallel/multihost.py",
+          "xotorch_tpu_torch/parallel/zero.py",
           "xotorch_tpu_torch/inference/torch_engine/paged_cache.py",
           "xotorch_tpu_torch/inference/torch_engine/vkv.py",
           "xotorch_tpu_torch/topology/device_capabilities.py",

@@ -15,10 +15,11 @@ same mesh on the same weights. The paged tests run for the bf16-layout arena and
 int8 one (K3/K4's plain versions, and K3q/K4q's): the port's counterpart of JAX's
 XLA-gather / Pallas-kernel parameter, whose legacy gathered read the port does not
 have. Each path the port does not serve under a mesh is refused, and a test below
-shows each refusal.
+shows each refusal; training and LoRA over a mesh are tests/test_torch_parallel_train.py's.
 """
 import asyncio
 import os
+from pathlib import Path
 
 import jax
 import jax.numpy as jnp
@@ -38,6 +39,8 @@ from xotorch_tpu_torch.models.config import config_from_hf_dict
 from xotorch_tpu_torch.models.registry import get_model_card
 from xotorch_tpu_torch.models.weights import params_from_jax
 from xotorch_tpu_torch.parallel.mesh import MeshParams, device_bytes, make_mesh, shard_params
+from xotorch_tpu_torch.parallel.zero import MeshAdamW
+from xotorch_tpu_torch.train import lora
 
 from tests.test_model_equivalence import TINY_LLAMA_CFG, make_hf_checkpoint
 
@@ -46,7 +49,8 @@ torch.set_num_threads(2)
 N_LAYERS = TINY_LLAMA_CFG["num_hidden_layers"]
 _PROMPT = np.array([[1, 5, 9, 200, 17, 3, 42]], dtype=np.int64)
 MESH_KNOBS = ("XOT_TP", "XOT_SERVE_TP", "XOT_SERVE_SP", "XOT_SERVE_EP", "XOT_PAGED_KV",
-              "XOT_KV_QUANT", "XOT_PREFILL_CHUNK", "XOT_QUANTIZE")
+              "XOT_KV_QUANT", "XOT_PREFILL_CHUNK", "XOT_QUANTIZE", "XOT_LORA_RANK", "XOT_ADAPTERS",
+              "XOT_LORA_TARGETS", "XOT_LR", "XOT_SAVE_OPT_STATE", "XOT_INT8_KERNEL")
 
 
 @pytest.fixture(autouse=True)
@@ -609,12 +613,12 @@ def test_serve_ep_cli_flag(monkeypatch):
 # ------------------------------------------------------------------ refusals
 
 
-@pytest.mark.parametrize("knob,value", [("XOT_LORA_RANK", "4"), ("XOT_ADAPTERS", "a=/nowhere"),
-                                        ("XOT_FABRIC_PEERS", "http://127.0.0.1:1"),
+@pytest.mark.parametrize("knob,value", [("XOT_FABRIC_PEERS", "http://127.0.0.1:1"),
                                         ("XOT_FABRIC_ROLE", "prefill")])
 def test_mesh_refuses_knob_paths_when_built(knob, value, monkeypatch):
-  """LoRA adapters and the KV fabric are not served over a mesh: the engine refuses
-  them when it is built, naming the knob; without a mesh it builds."""
+  """The KV fabric is not served over a mesh: the engine refuses it when it is built,
+  naming the knob; without a mesh it builds. (LoRA over a mesh serves and trains:
+  tests/test_torch_parallel_train.py.)"""
   monkeypatch.setenv(knob, value)
   monkeypatch.setenv("XOT_TP", "2")
   with pytest.raises(ValueError, match=knob):
@@ -624,17 +628,15 @@ def test_mesh_refuses_knob_paths_when_built(knob, value, monkeypatch):
 
 
 async def test_mesh_refuses_called_paths(monkeypatch):
-  """Training, checkpoint loads and saves, the fused in-process ring and the fabric's
-  transfers refuse under a mesh request with a ValueError naming the mesh knobs, and
-  the engine offers no ring fusion; a multimodal model refuses when its shard loads."""
+  """The fused in-process ring and the fabric's transfers refuse under a mesh request
+  with a ValueError naming the mesh knobs, and the engine offers no ring fusion; a
+  multimodal model refuses when its shard loads. (Training, evaluation and checkpoints
+  over a mesh run: tests/test_torch_parallel_train.py.)"""
   monkeypatch.setenv("XOT_TP", "2")
   eng = TorchShardInferenceEngine(device="cpu")
   shard = Shard("synthetic-tiny", 0, 3, 4)
   assert eng.supports_ring_fusion is False
-  calls = [eng.train_example("r", shard, np.zeros((1, 4)), np.zeros((1, 4)), np.array([4])),
-           eng.evaluate_example("r", shard, np.zeros((1, 4)), np.zeros((1, 4)), np.array([4])),
-           eng.load_checkpoint(shard, "/nowhere"), eng.save_checkpoint(shard, "/nowhere"),
-           eng.generate_chunk_ring("r", [(eng, shard)], 1, 4),
+  calls = [eng.generate_chunk_ring("r", [(eng, shard)], 1, 4),
            eng.verify_draft_ring("r", [(eng, shard)], 1, [2]),
            eng.prefill_export(shard, "hello")]
   for call in calls:
@@ -766,3 +768,184 @@ def test_shard_cache_and_batch_follow_jax_specs():
   batch = shard_batch({"x": torch.arange(16).reshape(2, 8)}, make_mesh({"dp": 2, "sp": 2}))
   assert [p.tolist() for p in batch["x"]] == [[[0, 1, 2, 3]], [[4, 5, 6, 7]],
                                              [[8, 9, 10, 11]], [[12, 13, 14, 15]]]
+
+
+# ------------------------------------------ training, checkpoints and LoRA over tp
+#
+# The JAX engine trains over its tp mesh (GSPMD partitions the gradient of its sharded
+# params); the port's engine over XOT_TP=2 runs the training forward on the mesh, each
+# tp position's K1/K1b on its heads, and parallel/zero.MeshAdamW over the pieces. Losses
+# are held within 1e-4 relative (the partial sums add in another order) of the port's
+# single-device engine and of JAX's tp=2 engine; files byte for byte.
+
+
+def _train_batch(seed):
+  rng = np.random.RandomState(seed)
+  x = rng.randint(3, TINY_LLAMA_CFG["vocab_size"], (2, 13))
+  return x[:, :-1], x[:, 1:], np.array([12, 7], np.int64)
+
+
+def _with_adapters(eng, layers):
+  """Replace the active context's adapter leaves (a plain tree's, or replicated over a
+  mesh) with `layers` (numpy), and drop its optimizer."""
+  from xotorch_tpu_torch.parallel.mesh import with_layers
+  ctx = eng._ctx
+  new = {k: torch.from_numpy(np.array(v)) for k, v in layers.items() if k.startswith("lora_")}
+  if isinstance(ctx.params, MeshParams):
+    ctx.params = with_layers(ctx.params, new)
+  else:
+    ctx.params = {**ctx.params, "layers": {**ctx.params["layers"], **new}}
+  ctx.optimizer = ctx.opt_leaves = None
+
+
+@pytest.mark.parametrize("kind", ["full", "lora", "qlora"])
+async def test_tp_engine_trains_like_one_device_and_jax(tiny_model_dir, monkeypatch, kind):
+  """train_example twice and evaluate_example over XOT_TP=2: full fine-tune, LoRA, and
+  QLoRA over int8 weights, each against the port's single-device engine and JAX's tp=2
+  engine on the same checkpoint and, under LoRA, JAX's adapter draw."""
+  extra = {"XOT_LR": "1e-2", "XOT_INT8_KERNEL": "0"}
+  if kind != "full":
+    extra["XOT_LORA_RANK"] = "2"
+  if kind == "qlora":
+    extra["XOT_QUANTIZE"] = "int8"
+  shard, jshard = _full_shard(), _full_shard(JShard)
+  _env(monkeypatch, 0, **extra)
+  one = _engine(tiny_model_dir)
+  _env(monkeypatch, 2, **extra)
+  tp = _engine(tiny_model_dir)
+  jeng = _jax_engine(tiny_model_dir)
+  for eng, s in ((one, shard), (tp, shard), (jeng, jshard)):
+    await eng.ensure_shard(s)
+  assert _tp(tp) == 2 and _tp(one) == 0
+  if kind != "full":
+    for eng in (one, tp):
+      _with_adapters(eng, jeng.params["layers"])
+  losses = {id(e): [] for e in (one, tp, jeng)}
+  for i in range(2):
+    for eng, s in ((one, shard), (tp, shard), (jeng, jshard)):
+      losses[id(eng)].append((await eng.train_example(f"t{i}", s, *_train_batch(i)))[0])
+  for eng, s in ((one, shard), (tp, shard), (jeng, jshard)):
+    losses[id(eng)].append(await eng.evaluate_example("e", s, *_train_batch(9)))
+  np.testing.assert_allclose(losses[id(tp)], losses[id(one)], rtol=1e-4)
+  np.testing.assert_allclose(losses[id(tp)], losses[id(jeng)], rtol=1e-4)
+  assert isinstance(tp._ctx.optimizer, MeshAdamW)
+  for eng in (one, tp):
+    eng.executor.shutdown(wait=True)
+
+
+async def test_tp_peer_in_a_training_ring(tiny_model_dir, monkeypatch):
+  """A two-shard LoRA training ring whose first peer serves over tp=2: the activations
+  go downstream, the gradient comes back through the mesh's pieces; losses and the
+  evaluation equal the same ring with both peers on one device."""
+  first, second = Shard("m", 0, N_LAYERS // 2 - 1, N_LAYERS), Shard("m", N_LAYERS // 2, N_LAYERS - 1, N_LAYERS)
+  runs = []
+  for tp in (2, 0):
+    _env(monkeypatch, tp, XOT_LR="1e-2", XOT_LORA_RANK="2")
+    eng_a = _engine(tiny_model_dir)
+    _env(monkeypatch, 0, XOT_LR="1e-2", XOT_LORA_RANK="2")
+    eng_b = _engine(tiny_model_dir)
+    await eng_a.ensure_shard(first)
+    await eng_b.ensure_shard(second)
+    assert _tp(eng_a) == tp
+
+    async def downstream(activations, target, lengths_, train, eng_b=eng_b):
+      if train:
+        return await eng_b.train_example("req", second, activations, target, lengths_)
+      return await eng_b.evaluate_example("req", second, activations, target, lengths_), None
+
+    losses = [(await eng_a.train_example("req", first, *_train_batch(i), forward_fn=downstream))[0]
+              for i in range(3)]
+    losses.append(await eng_a.evaluate_example("req", first, *_train_batch(9), forward_fn=downstream))
+    runs.append(losses)
+    for e in (eng_a, eng_b):
+      e.executor.shutdown(wait=True)
+  np.testing.assert_allclose(runs[0], runs[1], rtol=1e-4)
+
+
+def _files(d):
+  return {p.name: p.read_bytes() for p in sorted(Path(d).glob("*.safetensors"))}
+
+
+@pytest.mark.parametrize("kind", ["full", "lora"])
+async def test_tp_checkpoints_are_the_single_device_files(tiny_model_dir, monkeypatch, tmp_path, kind):
+  """save_checkpoint over tp=2 writes the single-device engine's files byte for byte: an
+  untrained save, and (a shard save or an adapter file with its moments file, in JAX's
+  layout) after load_checkpoint of a single-device engine's trained save; the loaded
+  tp engine streams the single-device engine's greedy tokens and resumes training with
+  the restored moments at its loss."""
+  extra = {"XOT_LR": "1e-2", "XOT_SAVE_OPT_STATE": "1"}
+  if kind == "lora":
+    extra["XOT_LORA_RANK"] = "2"
+  shard = _full_shard()
+  name = f"0-{N_LAYERS - 1}-2.safetensors"
+  _env(monkeypatch, 0, **extra)
+  one = _engine(tiny_model_dir)
+  _env(monkeypatch, 2, **extra)
+  tp = _engine(tiny_model_dir)
+  await one.save_checkpoint(shard, str(tmp_path / "u1" / name))
+  await tp.save_checkpoint(shard, str(tmp_path / "u2" / name))
+  assert _files(tmp_path / "u1") == _files(tmp_path / "u2")
+  for i in range(2):
+    await one.train_example(f"t{i}", shard, *_train_batch(i))
+  await one.save_checkpoint(shard, str(tmp_path / "a" / name))
+  assert (tmp_path / "a" / name.replace(".safetensors", "-opt.safetensors")).exists()
+  await tp.load_checkpoint(shard, str(tmp_path / "a" / name))
+  assert tp._ctx.optimizer is not None and _tp(tp) == 2
+  await tp.save_checkpoint(shard, str(tmp_path / "b" / name))
+  assert _files(tmp_path / "a") == _files(tmp_path / "b")
+  _env(monkeypatch, 0, **extra)
+  fresh = _engine(tiny_model_dir)
+  await fresh.load_checkpoint(shard, str(tmp_path / "a" / name))
+  assert await _greedy_stream(tp, "g", 10) == await _greedy_stream(fresh, "g", 10)
+  resumed = [(await e.train_example("t", shard, *_train_batch(5)))[0] for e in (one, tp, fresh)]
+  np.testing.assert_allclose(resumed[1], resumed[0], rtol=1e-4)
+  np.testing.assert_allclose(resumed[2], resumed[0], rtol=1e-4)
+  for e in (one, tp, fresh):
+    e.executor.shutdown(wait=True)
+
+
+@pytest.mark.parametrize("paged", ["0", "1"], ids=["contiguous", "paged"])
+async def test_tp_lora_serving(tiny_model_dir, monkeypatch, tmp_path, paged):
+  """LoRA serving over tp=2: a registered adapter (XOT_ADAPTERS, `m@ad`, seeded nonzero
+  B, written by JAX) streams the single-device engine's and JAX's tp=2 engine's greedy
+  tokens, its context aliasing the base context's pieces; fresh adapters
+  (XOT_LORA_RANK) stream the single-device engine's."""
+  from tests.test_torch_multi_lora import write_adapter
+  from xotorch_tpu.train import lora as j_lora
+  ad = write_adapter(tmp_path / "ad.safetensors", 1, j_lora.ATTN_SLOTS + j_lora.MLP_SLOTS, rank=4)
+  extra = {"XOT_PAGED_KV": paged, "XOT_ADAPTERS": f"ad={ad}", "XOT_MAX_RESIDENT_MODELS": "3"}
+  streams = {}
+  shards = (Shard("m", 0, N_LAYERS - 1, N_LAYERS), Shard("m@ad", 0, N_LAYERS - 1, N_LAYERS))
+  jshards = (JShard("m", 0, N_LAYERS - 1, N_LAYERS), JShard("m@ad", 0, N_LAYERS - 1, N_LAYERS))
+  for tp in (0, 2):
+    _env(monkeypatch, tp, **extra)
+    eng = _engine(tiny_model_dir)
+    streams[tp] = [await _lora_stream(eng, s, f"r{i}") for i, s in enumerate(shards)]
+    if tp:
+      base, adapted = eng._contexts[shards[0]], eng._contexts[shards[1]]
+      assert base.mesh is adapted.mesh and isinstance(adapted.params, MeshParams)
+      assert adapted.params.pieces[1]["layers"]["wq"] is base.params.pieces[1]["layers"]["wq"]
+    eng.executor.shutdown(wait=True)
+  assert streams[2] == streams[0] and streams[2][1] != streams[2][0], streams
+  from xotorch_tpu.inference.jax_engine import engine as j_engine_mod
+  monkeypatch.setattr(j_engine_mod, "MAX_RESIDENT_MODELS", 3)
+  jeng = _jax_engine(tiny_model_dir)
+  assert [await _lora_stream(jeng, s, f"r{i}") for i, s in enumerate(jshards)] == streams[2]
+  monkeypatch.delenv("XOT_ADAPTERS")
+  fresh = {}
+  for tp in (0, 2):
+    _env(monkeypatch, tp, XOT_PAGED_KV=paged, XOT_LORA_RANK="4")
+    eng = _engine(tiny_model_dir)
+    fresh[tp] = await _lora_stream(eng, shards[0], "f")
+    assert lora.has_lora(eng._ctx.params)
+    eng.executor.shutdown(wait=True)
+  assert fresh[2] == fresh[0]
+
+
+async def _lora_stream(eng, shard, rid, n=10):
+  tok, _ = await eng.infer_sample_tensor(rid, shard, _PROMPT, temp=0.0)
+  seq = [int(tok)]
+  out = await eng.generate_chunk(rid, shard, seq[-1], n - 1, temp=0.0)
+  seq.extend(int(t) for t in np.asarray(out).reshape(-1))
+  await eng.clear_request(rid)
+  return seq

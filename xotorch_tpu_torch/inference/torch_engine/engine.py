@@ -167,16 +167,22 @@ unrun: the graph cache refuses to capture one). The weights are split per mesh p
 every forward runs the transformer's mesh path: each position's kernels on its own
 heads and slices, the collectives written out (models/transformer._forward_mesh). A
 whole-model shard under sp prefills its from-zero segment by ring attention
-(`_ring_prefill`, counted in `sp_ring_prefills`). What JAX's mesh tests do not cover is
-refused with a ValueError naming the knob: LoRA adapters (XOT_LORA_RANK, XOT_ADAPTERS)
-and the KV fabric (XOT_FABRIC_PEERS, XOT_FABRIC_ROLE) when the engine is built; vision
-when a multimodal shard loads; training, checkpoint loads and saves, the fused
-in-process ring and fabric transfers when called. A process group of more than one
-process (XOT_COORDINATOR, XOT_MULTIHOST) is refused when the engine is built: the
-serving mesh does not span processes yet, and each rank would serve its shard alone.
+(`_ring_prefill`, counted in `sp_ring_prefills`). LoRA serves and trains over the mesh
+as in JAX: the adapters (XOT_LORA_RANK, XOT_ADAPTERS, a `base@name` context aliasing
+its donor's pieces) are whole leaves replicated to every position, attached after the
+base is split. `train_example` and `evaluate_example` run the training forward over the
+mesh (each tp position's K1 and K1b on its heads), the optimizer is a
+parallel/zero.MeshAdamW over the pieces, and `load_checkpoint` / `save_checkpoint`
+read and write the single device's files (whole leaves, gathered from the pieces; the
+moments file in JAX's layout). What JAX's mesh tests do not cover is refused with a
+ValueError naming the knob: the KV fabric (XOT_FABRIC_PEERS, XOT_FABRIC_ROLE) when the
+engine is built; vision when a multimodal shard loads; the fused in-process ring and
+fabric transfers when called. A process group of more than one process
+(XOT_COORDINATOR, XOT_MULTIHOST) is refused when the engine is built: the serving mesh
+does not span processes yet, and each rank would serve its shard alone.
 
 Left out so far: `forward_paged` and XOT_PAGED_KERNEL (the card always takes the paged
-kernels), and training over a mesh.
+kernels).
 """
 from __future__ import annotations
 
@@ -226,8 +232,9 @@ from xotorch_tpu_torch.models.weights import load_shard_params, load_vision_towe
 from xotorch_tpu_torch.ops import flash_attention, flash_decode, paged_attention
 from xotorch_tpu_torch.ops.sampling import (DEFAULT_TEMP, DEFAULT_TOP_K, sample_logits,
                                             sample_logits_logprobs)
-from xotorch_tpu_torch.parallel.mesh import (Mesh, cache_device, device_bytes,
-                                             local_devices, make_mesh, piece_name, shard_params)
+from xotorch_tpu_torch.parallel.mesh import (Mesh, MeshParams, cache_device, device_bytes,
+                                             gather_params, local_devices, make_mesh, piece_name,
+                                             shard_params, with_layers)
 from xotorch_tpu_torch.parallel.multihost import group_size
 from xotorch_tpu_torch.topology.device_capabilities import cuda_chip_peaks
 from xotorch_tpu_torch.train import lora, optstate
@@ -640,9 +647,7 @@ class TorchShardInferenceEngine(InferenceEngine):
                        f"its shard alone): start one process per peer")
     if self._mesh_requested():
       # Paths JAX's mesh tests do not cover, refused rather than served on one position.
-      for knob, on in (("XOT_LORA_RANK", knobs.get_int("XOT_LORA_RANK") > 0),
-                       ("XOT_ADAPTERS", bool(knobs.get_str("XOT_ADAPTERS", ""))),
-                       ("XOT_FABRIC_PEERS", bool(self._fabric_peers)),
+      for knob, on in (("XOT_FABRIC_PEERS", bool(self._fabric_peers)),
                        ("XOT_FABRIC_ROLE", knobs.get_str("XOT_FABRIC_ROLE") != "mixed")):
         if on:
           raise ValueError(f"{knob} under a serving mesh is not ported: {self._mesh_knobs()}")
@@ -1147,9 +1152,13 @@ class TorchShardInferenceEngine(InferenceEngine):
     t0 = time.perf_counter()
     mesh = None
     if donor is not None:
-      cfg = donor.cfg
-      params = {**donor.params, "layers": {k: v for k, v in donor.params["layers"].items()
-                                           if not k.startswith("lora_")}}
+      cfg, mesh = donor.cfg, donor.mesh
+      if mesh is not None:
+        params = with_layers(donor.params, {}, drop=[k for k in donor.params.tree["layers"]
+                                                     if k.startswith("lora_")])
+      else:
+        params = {**donor.params, "layers": {k: v for k, v in donor.params["layers"].items()
+                                             if not k.startswith("lora_")}}
       vision = donor.vision
     else:
       if model_dir is None:
@@ -1174,8 +1183,8 @@ class TorchShardInferenceEngine(InferenceEngine):
         # The tower and projector stay in the compute dtype whatever `quantize` says, as
         # in JAX: only the text stack's slots are quantized.
         vision = load_vision_tower(model_dir, cfg, dtype=self.dtype, device=self.device)
-    weight_bytes = quantized_bytes(params)
-    if mesh is not None:
+    weight_bytes = donor.weight_bytes if isinstance(params, MeshParams) else quantized_bytes(params)
+    if mesh is not None and not isinstance(params, MeshParams):
       # Each position's slices of the weights (parallel/mesh.spec_for_param); the
       # quantized ones keep the port's kernels, run on each position's slice.
       params = shard_params(params, mesh)
@@ -1291,7 +1300,6 @@ class TorchShardInferenceEngine(InferenceEngine):
     the moments saved beside it (`_opt_state_file`) are restored in the same executor
     call; a file that does not fit leaves the optimizer cold, with a message, and never
     blocks the weights."""
-    self._refuse_on_mesh("load_checkpoint")
     ctx = await self._ensure_ctx(shard)
     # The moments a resume may restore: set only where one save loads as it is (a
     # re-partitioned merge or a base reload lands at another parameter point).
@@ -1327,9 +1335,12 @@ class TorchShardInferenceEngine(InferenceEngine):
       if self.quantize:
         # Checkpoints are stored in the compute dtype (save_checkpoint dequantizes).
         params = quantize_params(params, self.quantize, scale_dtype=self.dtype, inplace=True)
-      lora_a_keys = sorted(k for k in ctx.params["layers"] if k.startswith("lora_") and k.endswith("_a"))
+      if ctx.mesh is not None:
+        params = shard_params(params, ctx.mesh)
+      old_layers = (ctx.params.tree if ctx.mesh is not None else ctx.params)["layers"]
+      lora_a_keys = sorted(k for k in old_layers if k.startswith("lora_") and k.endswith("_a"))
       if lora_a_keys:
-        rank = int(ctx.params["layers"][lora_a_keys[0]].shape[-1])
+        rank = int(old_layers[lora_a_keys[0]].shape[-1])
         targets = tuple(k[len("lora_"):-len("_a")] for k in lora_a_keys)
         params = lora.add_lora_params(params, rank, self._lora_generator(), targets)
         resume["opt"] = None  # fresh adapters: no saved moments belong to them
@@ -1365,14 +1376,14 @@ class TorchShardInferenceEngine(InferenceEngine):
     it when the context has an optimizer and XOT_SAVE_OPT_STATE is on; otherwise a
     stale moments file beside it is removed (it would pair other moments with these
     weights on the next resume)."""
-    self._refuse_on_mesh("save_checkpoint")
     ctx = await self._ensure_ctx(shard)
 
     def _save():
       if lora.has_lora(ctx.params):
         lora.save_lora_checkpoint(ctx.params, ctx.shard, Path(path))
         return
-      params = ctx.params
+      # Over a mesh the whole leaves, gathered from the pieces: the single device's files.
+      params = gather_params(ctx.params) if ctx.mesh is not None else ctx.params
       if is_quantized(params):
         params = dequantize_params(params, self.dtype)
       save_shard_params(params, ctx.cfg, ctx.shard, Path(path))
@@ -1402,10 +1413,12 @@ class TorchShardInferenceEngine(InferenceEngine):
   def _ensure_optimizer(self, ctx: _ShardContext) -> torch.optim.Optimizer:
     """The context's AdamW (lr XOT_LR, optax.adamw's other defaults) over its
     trainable leaves: the adapters alone when it has any (the base frozen), else every
-    float leaf. Made at the first step; loads reset it."""
+    float leaf; over a mesh a parallel/zero.MeshAdamW over those leaves' pieces (its
+    `leaves` are what the gradients are taken of). Made at the first step; loads reset
+    it."""
     if ctx.optimizer is None:
-      ctx.opt_leaves = [t for _, t in lora.trainable_leaves(ctx.params)]
-      ctx.optimizer = lora.adamw(ctx.opt_leaves, knobs.get_float("XOT_LR"))
+      ctx.optimizer = lora.optimizer_for(ctx.params, knobs.get_float("XOT_LR"))
+      ctx.opt_leaves = train_step.optimizer_leaves(ctx.optimizer)
     return ctx.optimizer
 
   def _check_example(self, ctx: _ShardContext, train: bool) -> None:
@@ -1418,7 +1431,8 @@ class TorchShardInferenceEngine(InferenceEngine):
       return
     if self.device.type == "cuda":
       flash_attention.check_bwd_head_dim(ctx.cfg.head_dim, f"{model}: training")
-    if is_quantized(ctx.params) and not lora.has_lora(ctx.params):
+    tree = ctx.params.tree if isinstance(ctx.params, MeshParams) else ctx.params
+    if is_quantized(tree) and not lora.has_lora(tree):
       raise ValueError(
         "Full-parameter training on an int8-quantized base is not supported; "
         "attach adapters (--lora-rank / XOT_LORA_RANK) for QLoRA fine-tuning"
@@ -1456,7 +1470,6 @@ class TorchShardInferenceEngine(InferenceEngine):
     `forward_fn(activations, target, lengths, train=True) -> (loss, grad)`, pulls the
     returned gradient back through its slice, steps its optimizer and returns (loss,
     the gradient of its input; zeros for a first shard: tokens have none)."""
-    self._refuse_on_mesh("train_example")
     ctx = await self._ensure_ctx(shard)
     if not shard.is_last_layer and forward_fn is None:
       raise ValueError("Non-last shard requires forward_fn to chain the ring")
@@ -1466,14 +1479,12 @@ class TorchShardInferenceEngine(InferenceEngine):
     if shard.is_last_layer:
       def _last():
         self._ensure_optimizer(ctx)
-        paths = [p for p, _ in lora.trainable_leaves(ctx.params)]
-        trainable = train_step.unflatten(paths, ctx.opt_leaves)
-        loss, x_grad, grads = train_step.shard_loss_and_grads(
+        loss, x_grad, grads = train_step.leaf_loss_and_grads(
           ctx.params, ctx.cfg, self._example_tensor(example), self._ints(target),
-          self._ints(np.asarray(lengths).reshape(-1)), first, True,
-          start_layer=shard.start_layer, trainable=trainable)
+          self._ints(np.asarray(lengths).reshape(-1)), first, ctx.opt_leaves,
+          start_layer=shard.start_layer)
         with torch.no_grad():
-          self._update(ctx, [g for _, g in train_step.leaf_paths(grads)])
+          self._update(ctx, grads)
         x_grad = x_grad.cpu().numpy() if first else self._to_host(x_grad.to(self.dtype))
         return float(loss), x_grad
       return await self._run(_last, oom_as_cache_exhausted=False, grad="train")
@@ -1525,7 +1536,6 @@ class TorchShardInferenceEngine(InferenceEngine):
                              forward_fn=None) -> float:
     """The loss of an example through the training forward, with no gradient: the last
     shard's masked cross-entropy, chained through `forward_fn` from another shard."""
-    self._refuse_on_mesh("evaluate_example")
     ctx = await self._ensure_ctx(shard)
     if not shard.is_last_layer and forward_fn is None:
       raise ValueError("Non-last shard requires forward_fn to chain the ring")

@@ -17,6 +17,9 @@ one completion.
     python -m xotorch_tpu_torch.main train synthetic-llama-1b --iters 8 --batch-size 4 \\
         --resume-checkpoint ckpt/synthetic-llama-1b/0-15-4.safetensors
     python -m xotorch_tpu_torch.main eval synthetic-llama-1b --batch-size 4
+    python -m xotorch_tpu_torch.main train synthetic-llama-1b --serve-tp 2 --lora-rank 8 ...
+        # train, eval, checkpoints and adapters over the peer's mesh, as JAX's main
+        # sets the mesh knobs for every command
 
 A card other than a synthetic one serves the HF checkpoint in
 `XOT_HOME/models/<org>--<name>` (XOT_HOME defaults to `~/.xot_tpu`; `--models-seed-dir`

@@ -51,7 +51,9 @@ through the dequantized product (its route, `TRAIN_ROUTE`), every op differentia
 Over a serving mesh (parallel/mesh.py: params a `MeshParams`, the cache or arena split
 over tp by `shard_cache`) `forward_shard` runs `_forward_mesh`: JAX's forward under
 `tp_mesh` / `ring_mesh` with the collectives GSPMD inserts written out
-(parallel/collectives.py). Every kernel above runs once per position on its own heads
+(parallel/collectives.py). With no cache it is the training forward over the mesh, a
+dp axis included (`forward_replicas`), and LoRA adapters are replicated leaves of which
+each tp position takes its views. Every kernel above runs once per position on its own heads
 or slices, quantized ones included (JAX turns its int4/int8 kernels off under a mesh,
 which GSPMD cannot partition; the port has no such limit).
 """
@@ -73,7 +75,8 @@ from xotorch_tpu_torch.ops.int8_matmul import int8_rowquant_matmul
 from xotorch_tpu_torch.ops.paged_attention import paged_decode_attention, paged_prefill_attention
 from xotorch_tpu_torch.ops.rope import apply_rope, rope_frequencies
 from xotorch_tpu_torch.parallel.collectives import all_gather, all_reduce
-from xotorch_tpu_torch.parallel.mesh import MeshParams, cache_device, cache_piece, piece_name
+from xotorch_tpu_torch.parallel.mesh import (MeshParams, cache_device, cache_piece, dp_rows,
+                                             piece_name)
 from xotorch_tpu_torch.utils import knobs
 
 Params = Dict[str, Any]
@@ -109,13 +112,31 @@ def _check_params(layer: Params) -> None:
       raise ValueError(f"parameter slot {name!r}: LoRA slot {slot} lacks its a/b pair")
 
 
+# The row-parallel slots: over a mesh their input is a tp position's slice.
+_ROW_SLOTS = ("wo", "w_down")
+
+
 def _maybe_lora(layer: Params, slot: str, h: torch.Tensor, base_out: torch.Tensor) -> torch.Tensor:
   """base_out + LORA_SCALE * (h @ A) @ B when `slot` carries LoRA tensors (JAX's
-  `_maybe_lora`): two plain products, the delta cast to the output's dtype."""
+  `_maybe_lora`): two plain products, the delta cast to the output's dtype.
+
+  At a mesh position (a layer with TP_INDEX) the adapters are the whole replicated
+  leaves, and the position takes views of them: a column-parallel slot its out-columns
+  of B, a row-parallel slot (`wo`, `w_down`) its in-rows of A, whose delta then adds to
+  the position's partial sum before the all-reduce completes it."""
   a = layer.get(f"lora_{slot}_a")
   if a is None:
     return base_out
-  delta = (h @ a) @ layer[f"lora_{slot}_b"]
+  b = layer[f"lora_{slot}_b"]
+  j, tp = layer.get(TP_INDEX, (0, 1))
+  if tp > 1:
+    if slot in _ROW_SLOTS:
+      part = a.shape[0] // tp
+      a = a[j * part:(j + 1) * part]
+    else:
+      part = b.shape[1] // tp
+      b = b[:, j * part:(j + 1) * part]
+  delta = (h @ a) @ b
   return base_out + delta.to(base_out.dtype) * LORA_SCALE
 
 
@@ -543,17 +564,26 @@ def forward_shard(
   and attention goes through `flash_attention_train`, which autograd differentiates.
 
   `params` placed on a mesh (parallel/mesh.MeshParams, with a cache split by
-  parallel/mesh.shard_cache) runs the mesh path (`_forward_mesh`); `ring` there is
-  JAX's `ring_mesh`: a prefill from 0 whose positions split over the sp axis and
-  whose attention is ring attention."""
+  parallel/mesh.shard_cache, or no cache: the training forward) runs the mesh path
+  (`_forward_mesh`); `ring` there is JAX's `ring_mesh`: a forward from 0 whose
+  positions split over the sp axis and whose attention is ring attention. A mesh with
+  a dp axis serves only the training forward: each dp index runs its rows of the
+  batch (`forward_replicas`), gathered here on the mesh's first device."""
   check_supported(cfg)
   if use_flash and not (isinstance(start_pos, int) and start_pos == 0):
     raise ValueError("use_flash serves a prefill from position 0 only")
   if cache is None and (not use_flash or page_table is not None):
     raise ValueError("a forward without a cache is a prefill from position 0 (use_flash)")
   if isinstance(params, MeshParams):
-    return _forward_mesh(params, x, cache, start_pos, cfg, is_first, is_last, use_flash,
-                         use_flash_decode, start_layer, page_table, route, ring)
+    mesh = params.mesh
+    if mesh.axis_size("dp") == 1:
+      return _forward_mesh(params, x, cache, start_pos, cfg, is_first, is_last, use_flash,
+                           use_flash_decode, start_layer, page_table, route, ring)
+    if cache is not None:
+      raise ValueError("a mesh with a dp axis runs the training forward (no cache): "
+                       "serving meshes have none")
+    outs = forward_replicas(params, x, cfg, is_first, is_last, start_layer, route, ring)
+    return all_gather(outs, mesh.devices[:1], dim=0)[0], None
   if ring:
     raise ValueError("ring attention runs over a mesh's sp axis: params placed on a mesh")
   h = embed(params, x, cfg) if is_first else x
@@ -595,13 +625,26 @@ class _PerDevice(dict):
     return value
 
 
+def forward_replicas(mp: MeshParams, x: torch.Tensor, cfg: ModelConfig, is_first: bool,
+                     is_last: bool, start_layer: int = 0, route: Optional[QuantRoute] = None,
+                     ring: bool = False) -> list:
+  """The training forward (from 0, no cache) over a mesh with a dp axis: dp index d runs
+  rows d of the batch (parallel/mesh.dp_rows) on its own positions, and its output
+  stays on its replica (the device of its first position), one per dp index in order.
+  The loss divides by the count over the whole batch (train/step.full_model_loss)."""
+  return [_forward_mesh(mp, xd, None, 0, cfg, is_first, is_last, True, False, start_layer,
+                        None, route, ring, replica=d)[0]
+          for d, xd in enumerate(dp_rows(x, mp.mesh))]
+
+
 def _forward_mesh(mp: MeshParams, x: torch.Tensor, cache: Optional[Dict[str, torch.Tensor]],
                   start_pos: Union[int, torch.Tensor], cfg: ModelConfig, is_first: bool,
                   is_last: bool, use_flash: bool, use_flash_decode: bool, start_layer: int,
                   page_table: Optional[torch.Tensor], route: Optional[QuantRoute],
-                  ring: bool) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
+                  ring: bool, replica: int = 0) -> Tuple[torch.Tensor, Dict[str, torch.Tensor]]:
   """forward_shard over a mesh (JAX's forward under `tp_mesh` / `ring_mesh`, with the
-  collectives GSPMD inserts written out, parallel/collectives.py).
+  collectives GSPMD inserts written out, parallel/collectives.py), on the positions of
+  dp index `replica`.
 
   Each tp position j runs its Hq/tp query heads over its Hkv/tp cache or arena heads
   (`cache_piece(cache, j)`) through the same kernels as one device, with the group
@@ -616,7 +659,10 @@ def _forward_mesh(mp: MeshParams, x: torch.Tensor, cache: Optional[Dict[str, tor
   differ along sp compute only under `ring`, where chunk c of the prompt's positions
   goes to the positions with sp index c, K/V chunks rotate round each tp index's ring
   (ops/ring_attention.py) and are written into cache piece j, and the hidden chunks
-  are gathered at the end. Returns the output on the mesh's first device."""
+  are gathered at the end. With no cache (the training forward, every op
+  differentiable) each tp position attends through `flash_attention_train` (K1, K1b in
+  the backward) over its fresh K/V, or the ring rotates the fresh chunks and writes
+  nothing. Returns the output on the device of the replica's first position."""
   from xotorch_tpu_torch.ops.ring_attention import ring_attention
 
   mesh = mp.mesh
@@ -628,16 +674,15 @@ def _forward_mesh(mp: MeshParams, x: torch.Tensor, cache: Optional[Dict[str, tor
   chunks = sp if ring else 1
   if ring:
     if not (is_first and x.ndim == 2 and isinstance(start_pos, int) and start_pos == 0
-            and page_table is None and cache is not None and T % sp == 0):
-      raise ValueError("ring prefill: token input from position 0 on a contiguous cache, "
-                       f"T divisible by sp={sp}")
+            and page_table is None and T % sp == 0):
+      raise ValueError("ring prefill: token input from position 0 on a contiguous cache or "
+                       f"none, T divisible by sp={sp}")
     if cfg.uses_sliding_window or cfg.attn_logit_softcap or cfg.query_pre_attn_scalar:
       raise ValueError("ring attention implements no window, softcap or query_pre_attn_scalar")
-  if cache is None:
-    raise ValueError("the mesh path serves with a cache (training over a mesh is not ported)")
   Tl = T // chunks
-  att = [mesh.positions(ep=0, sp=c) for c in range(chunks)]  # attention: one per tp index
-  live = [mesh.positions(sp=c) if cfg.is_moe else att[c] for c in range(chunks)]
+  # Attention: one position per tp index; MoE layers: every ep index too.
+  att = [mesh.positions(dp=replica, ep=0, sp=c) for c in range(chunks)]
+  live = [mesh.positions(dp=replica, sp=c) if cfg.is_moe else att[c] for c in range(chunks)]
   tp_of = {p: mesh.coord(p, "tp") for p in range(mesh.size)}
   if route is None:
     route = quant_route(dev[0].type == "cuda")
@@ -650,10 +695,10 @@ def _forward_mesh(mp: MeshParams, x: torch.Tensor, cache: Optional[Dict[str, tor
   pos_at = [_PerDevice(lambda d, c=c: _position_tensors(
     c * Tl if ring else (start_pos.to(d) if torch.is_tensor(start_pos) else start_pos), B, Tl, d))
             for c in range(chunks)]
-  pieces = [cache_piece(cache, j) for j in range(tp)]
+  pieces = [cache_piece(cache, j) if cache is not None else None for j in range(tp)]
   tables = _PerDevice(lambda d: page_table.to(d) if page_table is not None else None)
-  slots = [None if ring else _write_slots(pieces[j], tables[dev[att[0][j]]],
-                                          pos_at[0][dev[att[0][j]]][0], start_pos)
+  slots = [None if ring or cache is None else
+           _write_slots(pieces[j], tables[dev[att[0][j]]], pos_at[0][dev[att[0][j]]][0], start_pos)
            for j in range(tp)]
 
   # The residual stream: chunk c's hidden state at each of live[c]'s positions.
@@ -683,8 +728,9 @@ def _forward_mesh(mp: MeshParams, x: torch.Tensor, cache: Optional[Dict[str, tor
       home_j = dev[att[0][j]]
       if ring:
         for c in range(chunks):
-          _, k, v = qkv[c, j]
-          _cache_write(pieces[j], i, k.to(home_j), v.to(home_j), c * Tl, None)
+          if cache is not None:
+            _, k, v = qkv[c, j]
+            _cache_write(pieces[j], i, k.to(home_j), v.to(home_j), c * Tl, None)
         ring_devs = [dev[att[c][j]] for c in range(chunks)]
         outs = ring_attention([qkv[c, j][0] for c in range(chunks)],
                               [qkv[c, j][1] for c in range(chunks)],
@@ -716,13 +762,14 @@ def _forward_mesh(mp: MeshParams, x: torch.Tensor, cache: Optional[Dict[str, tor
       summed = all_reduce(parts, [dev[p] for p in live[c]])
       hs[c] = [h + _post_norm(layers[p], "post_mlp_norm", s, cfg)
                for p, h, s in zip(live[c], hs[c], summed)]
+  home = dev[att[0][0]]
   if chunks > 1:
-    h = all_gather([hs[c][0] for c in range(chunks)], [dev[0]], dim=1)[0]
+    h = all_gather([hs[c][0] for c in range(chunks)], [home], dim=1)[0]
   else:
     h = hs[0][0]
   if not is_last:
     return h, cache
-  return unembed(mp, h, cfg), cache
+  return unembed(mp, h, cfg, replica), cache
 
 
 def _mesh_layer(piece: Params, i: int, j: int, tp: int) -> Params:
@@ -748,14 +795,15 @@ def _head_logits(params: Params, h: torch.Tensor, cfg: ModelConfig) -> torch.Ten
   return (h @ params["lm_head"].to(h.dtype)) * head_scale.to(h.dtype)[None, None, :]
 
 
-def unembed(params: Union[Params, MeshParams], h: torch.Tensor, cfg: ModelConfig) -> torch.Tensor:
+def unembed(params: Union[Params, MeshParams], h: torch.Tensor, cfg: ModelConfig,
+            replica: int = 0) -> torch.Tensor:
   """Final norm + (tied-embedding or lm_head) unembedding -> fp32 logits, soft-capped
-  in fp32 where the config says so. Over a mesh each tp position computes its vocab
-  columns (all-gathered) or, from a tied table's hidden slice, partial logits
-  (all-reduced in fp32), on the mesh's first device."""
+  in fp32 where the config says so. Over a mesh the tp positions of dp index `replica`
+  each compute their vocab columns (all-gathered) or, from a tied table's hidden slice,
+  partial logits (all-reduced in fp32), on the replica's first device."""
   if isinstance(params, MeshParams):
     mesh = params.mesh
-    att = mesh.positions(ep=0, sp=0)
+    att = mesh.positions(dp=replica, ep=0, sp=0)
     tied = cfg.tie_word_embeddings and "lm_head" not in params
     parts = []
     for j, p in enumerate(att):
@@ -765,7 +813,8 @@ def unembed(params: Union[Params, MeshParams], h: torch.Tensor, cfg: ModelConfig
         width = piece["embed"]["embedding"].shape[1]
         hp = hp[..., j * width:(j + 1) * width]
       parts.append(_head_logits(piece, hp, cfg).to(torch.float32))
-    combine = all_reduce(parts, mesh.devices[:1]) if tied else all_gather(parts, mesh.devices[:1], -1)
+    home = [mesh.devices[att[0]]]
+    combine = all_reduce(parts, home) if tied else all_gather(parts, home, -1)
     logits = combine[0]
   else:
     h = rms_norm(h, params["final_norm"], cfg.rms_norm_eps, cfg.norm_offset)
@@ -785,7 +834,7 @@ def embed(params: Union[Params, MeshParams], x: torch.Tensor,
   if isinstance(params, MeshParams):
     mesh = params.mesh
     rows = [embed(params.pieces[p], x.to(mesh.devices[p]), cfg)
-            for p in mesh.positions(ep=0, sp=0)]
+            for p in mesh.positions(dp=0, ep=0, sp=0)]
     return all_gather(rows, mesh.devices[:1], dim=-1)[0]
   emb = params["embed"]["embedding"]
   row_scale = params["embed"].get("embedding_scale")

@@ -14,14 +14,20 @@ position on it shares the result.
 - `all_gather`: the pieces concatenated along a dimension in rank order (the
   hidden-split embedding rows, the vocab-split logits, the sequence chunks);
 - `send_next`: each piece moved to the next position of a ring, the last to the
-  first (JAX's `ppermute` with perm i -> i + 1; ring attention's rotation).
+  first (JAX's `ppermute` with perm i -> i + 1; ring attention's rotation);
+- `reduce_scatter`: the sum of the pieces cut along a dimension, each target given
+  its part (ZeRO-1's gradient of a dp slice, parallel/zero.py).
+
+Training sums the gradients of a replicated leaf's copies with `all_reduce`, once per
+distinct tensor (parallel/mesh.leaf_blocks): on a virtual mesh the positions of one
+device share one tensor, whose gradient already holds every position's term.
 
 NCCL's collectives come with a four-card cell; across processes (parallel/multihost.py)
 torch.distributed's are used.
 """
 from __future__ import annotations
 
-from typing import Dict, List, Sequence
+from typing import Dict, List, Sequence, Tuple
 
 import torch
 
@@ -56,3 +62,12 @@ def send_next(parts: Sequence[torch.Tensor], devices: Sequence[torch.device]) ->
   """Position i's piece moved to position i + 1 (the last to the first)."""
   n = len(parts)
   return [parts[(i - 1) % n].to(devices[i]) for i in range(n)]
+
+
+def reduce_scatter(parts: Sequence[torch.Tensor], targets: Sequence[Tuple[int, torch.device]],
+                   dim: int, n: int) -> List[torch.Tensor]:
+  """sum(parts) in rank order, cut into `n` equal parts along `dim`: for each target
+  (part index, device), that part on that device."""
+  sums = all_reduce(parts, [d for _, d in targets])
+  size = parts[0].shape[dim] // n
+  return [s.narrow(dim, c * size, size) for (c, _), s in zip(targets, sums)]

@@ -265,16 +265,29 @@ def place(x: torch.Tensor, spec: Spec, mesh: Mesh, positions: Optional[Sequence[
 
 class MeshParams:
   """A parameter tree placed on a mesh: `pieces[p]` is position p's tree, each leaf its
-  slice under the partition rules. The transformer's forward takes it where it takes a
-  plain tree and runs the mesh path."""
+  slice under the partition rules, and `specs` the tree of the specs it was split by.
+  The transformer's forward takes it where it takes a plain tree and runs the mesh
+  path."""
 
-  def __init__(self, mesh: Mesh, pieces: List[Params]):
+  def __init__(self, mesh: Mesh, pieces: List[Params], specs: Optional[Params] = None):
     self.mesh = mesh
     self.pieces = pieces
+    self.specs = specs if specs is not None else {}
 
   def __contains__(self, name: str) -> bool:
     """Whether every position's tree has the top-level entry `name` (`lm_head`, ...)."""
     return name in self.pieces[0]
+
+  @property
+  def tree(self) -> Params:
+    """Position 0's tree: the structure every position shares (leaf names, dtypes)."""
+    return self.pieces[0]
+
+
+def _at(tree: Params, path: Sequence[str]):
+  for k in path:
+    tree = tree[k]
+  return tree
 
 
 def shard_params(params: Params, mesh: Mesh) -> MeshParams:
@@ -284,14 +297,85 @@ def shard_params(params: Params, mesh: Mesh) -> MeshParams:
   memo: dict = {}
 
   def piece_tree(p: int) -> Params:
-    def one(path, leaf):
-      spec = specs
-      for k in path:
-        spec = spec[k]
-      return place(leaf, spec, mesh, [p], memo)[0]
-    return _walk(params, one)
+    return _walk(params, lambda path, leaf: place(leaf, _at(specs, path), mesh, [p], memo)[0])
 
-  return MeshParams(mesh, [piece_tree(p) for p in range(mesh.size)])
+  return MeshParams(mesh, [piece_tree(p) for p in range(mesh.size)], specs)
+
+
+def with_layers(mp: MeshParams, add: Dict[str, torch.Tensor],
+                drop: Sequence[str] = ()) -> MeshParams:
+  """A MeshParams over the same pieces with the `layers` leaves `drop` removed and the
+  whole leaves `add` (LoRA adapters: JAX's spec_for_param gives them None) replicated
+  to every position, one copy per device. The base tensors are shared, not copied."""
+  memo: dict = {}
+  pieces = []
+  for p, piece in enumerate(mp.pieces):
+    layers = {k: v for k, v in piece["layers"].items() if k not in drop}
+    layers.update({k: place(v, (), mp.mesh, [p], memo)[0] for k, v in add.items()})
+    pieces.append({**piece, "layers": layers})
+  spec_layers = {k: v for k, v in mp.specs["layers"].items() if k not in drop}
+  spec_layers.update({k: () for k in add})
+  return MeshParams(mp.mesh, pieces, {**mp.specs, "layers": spec_layers})
+
+
+def global_shape(mp: MeshParams, path: Sequence[str]) -> Tuple[int, ...]:
+  """The whole leaf's shape: position 0's piece times the axis size on every split
+  dimension."""
+  spec = _at(mp.specs, path)
+  shape = list(_at(mp.tree, path).shape)
+  for dim, ax in enumerate(spec):
+    if ax is not None:
+      shape[dim] *= mp.mesh.shape[ax]
+  return tuple(shape)
+
+
+def gather_leaf(mp: MeshParams, path: Sequence[str]) -> torch.Tensor:
+  """One whole leaf, its pieces concatenated in axis order on the mesh's first device."""
+  return assemble([_at(piece, path) for piece in mp.pieces], _at(mp.specs, path), mp.mesh)
+
+
+def gather_params(mp: MeshParams) -> Params:
+  """The whole param tree on the mesh's first device (checkpoint saves, tests)."""
+  return _walk(mp.tree, lambda path, _: gather_leaf(mp, path))
+
+
+class Block:
+  """The copies of one block of a leaf: `index` its slice of the whole leaf, `tensors`
+  the distinct tensors that hold it (one a device, in the rank order of their first
+  position) and `positions` the positions that read it."""
+
+  def __init__(self, index: Tuple[slice, ...]):
+    self.index = index
+    self.tensors: List[torch.Tensor] = []
+    self.positions: List[int] = []
+
+
+def leaf_blocks(mp: MeshParams, path: Sequence[str]) -> List[Block]:
+  """The blocks of one leaf in the rank order of their first position. Positions that
+  differ only along axes the leaf is not split over read one block; on a virtual mesh
+  they share one tensor, and a gradient of that tensor already sums their terms: sums
+  over copies go per distinct tensor, never per position."""
+  spec, shape = _at(mp.specs, path), global_shape(mp, path)
+  blocks: Dict[tuple, Block] = {}
+  for p, piece in enumerate(mp.pieces):
+    index = slice_for(shape, spec, mp.mesh, p)
+    key = tuple((s.start, s.stop) for s in index)
+    block = blocks.setdefault(key, Block(index))
+    block.positions.append(p)
+    t = _at(piece, path)
+    if not any(t is u for u in block.tensors):
+      block.tensors.append(t)
+  return list(blocks.values())
+
+
+def dp_rows(x: torch.Tensor, mesh: Mesh) -> List[torch.Tensor]:
+  """The rows of a batch leaf that each dp index runs (its leading axis cut into dp
+  equal parts, `batch_spec`'s split), in dp order; views of `x`."""
+  dp = mesh.axis_size("dp")
+  if x.shape[0] % dp:
+    raise ValueError(f"a batch of {x.shape[0]} rows does not split over dp={dp}")
+  part = x.shape[0] // dp
+  return [x[d * part:(d + 1) * part] for d in range(dp)]
 
 
 def device_bytes(tree) -> int:

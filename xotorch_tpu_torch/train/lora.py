@@ -20,6 +20,12 @@ Torch applies the decay to the parameter before the Adam step and optax adds it 
 update; both give p - lr * (m_hat / (sqrt(v_hat) + eps) + wd * p). `masked_optimizer`
 builds it over the adapter leaves alone: a frozen leaf gets no moments and no update,
 as optax's multi_transform with set_to_zero gives it none.
+
+Over a local mesh (params a parallel/mesh.MeshParams) the adapters are whole leaves
+replicated to every position, attached after the base is split, as JAX's engine attaches
+them to its sharded params: each tp position takes its views of them in the forward
+(models/transformer._maybe_lora). The optimizer is then parallel/zero.MeshAdamW over
+the same leaf paths, and adapter checkpoints read and write the whole leaves.
 """
 from __future__ import annotations
 
@@ -32,6 +38,8 @@ import torch
 from xotorch_tpu_torch.models.quantize import _leaves
 from xotorch_tpu_torch.models.transformer import LORA_SCALE, LORA_SLOTS  # noqa: F401 (re-exported)
 from xotorch_tpu_torch.models.weights import _read_header, _SafetensorsFile, _write_safetensors
+from xotorch_tpu_torch.parallel.mesh import MeshParams, global_shape, with_layers
+from xotorch_tpu_torch.parallel.zero import MeshAdamW
 
 Params = Dict[str, Any]
 
@@ -45,30 +53,37 @@ def lora_names(slot: str) -> Tuple[str, str]:
   return f"lora_{slot}_a", f"lora_{slot}_b"
 
 
-def add_lora_params(params: Params, rank: int, generator: torch.Generator,
-                    targets: Iterable[str] = ATTN_SLOTS, scale_init: float = 0.02) -> Params:
+def add_lora_params(params, rank: int, generator: torch.Generator,
+                    targets: Iterable[str] = ATTN_SLOTS, scale_init: float = 0.02):
   """Return params with stacked LoRA tensors added to the layers dict for every target
   slot present in this shard, on the base slot's device. A is drawn from `generator`
   (one draw a slot, in target order, in fp32 on the generator's device), B is zero.
-  Base tensors are untouched."""
-  layers = dict(params["layers"])
+  Base tensors are untouched. Over a MeshParams the adapters take the whole slot's
+  shape (the same draws as one device's) and are replicated to every position."""
+  mesh_params = params if isinstance(params, MeshParams) else None
+  tree = params.tree if mesh_params is not None else params
+  layers = dict(tree["layers"])
+  added: Params = {}
   for slot in targets:
     base = layers.get(slot)
     if base is None:
       continue
-    if base.dim() == 4:
+    shape = global_shape(mesh_params, ("layers", slot)) if mesh_params is not None else base.shape
+    if len(shape) == 4:
       # int4 grouped layout, PACKED uint8 [L, G, gs/2, out] (dense targets only;
       # experts are never a LoRA target): logical in = G * gs = G * 2 * (gs/2).
-      L, d_in, d_out = base.shape[0], base.shape[1] * base.shape[2] * 2, base.shape[3]
+      L, d_in, d_out = shape[0], shape[1] * shape[2] * 2, shape[3]
     else:
-      L, d_in, d_out = base.shape[0], base.shape[1], base.shape[2]
+      L, d_in, d_out = shape[0], shape[1], shape[2]
     a_name, b_name = lora_names(slot)
     dtype = _adapter_dtype(layers, slot)
     a = torch.randn((L, d_in, rank), generator=generator, device=generator.device,
                     dtype=torch.float32) * scale_init
-    layers[a_name] = a.to(device=base.device, dtype=dtype)
-    layers[b_name] = torch.zeros((L, rank, d_out), dtype=dtype, device=base.device)
-  return {**params, "layers": layers}
+    added[a_name] = a.to(device=base.device, dtype=dtype)
+    added[b_name] = torch.zeros((L, rank, d_out), dtype=dtype, device=base.device)
+  if mesh_params is not None:
+    return with_layers(mesh_params, added)
+  return {**params, "layers": {**layers, **added}}
 
 
 def _adapter_dtype(layers: Params, slot: str) -> torch.dtype:
@@ -84,8 +99,9 @@ def _adapter_dtype(layers: Params, slot: str) -> torch.dtype:
   return scale.dtype if scale is not None else torch.bfloat16
 
 
-def has_lora(params: Params) -> bool:
-  return any(k.startswith("lora_") for k in params.get("layers", {}))
+def has_lora(params) -> bool:
+  tree = params.tree if isinstance(params, MeshParams) else params
+  return any(k.startswith("lora_") for k in tree.get("layers", {}))
 
 
 def lora_mask(params: Params) -> Params:
@@ -107,18 +123,32 @@ def adamw(leaves, lr: float) -> torch.optim.AdamW:
                            weight_decay=ADAMW_WEIGHT_DECAY)
 
 
-def trainable_leaves(params: Params) -> list:
+def trainable_leaves(params) -> list:
   """(key path, tensor) of what an optimizer over `params` trains, in JAX's flatten
-  order: the adapter leaves when there are any, else every float leaf."""
+  order: the adapter leaves when there are any, else every float leaf. Over a
+  MeshParams the tensors are position 0's pieces (the paths are what counts)."""
   from xotorch_tpu_torch.train.step import leaf_paths, trainable_subtree
-  flat = leaf_paths(trainable_subtree(params))
-  if has_lora(params):
+  tree = params.tree if isinstance(params, MeshParams) else params
+  flat = leaf_paths(trainable_subtree(tree))
+  if has_lora(tree):
     flat = [(path, t) for path, t in flat if path[0] == "layers" and path[-1].startswith("lora_")]
   return flat
 
 
-def masked_optimizer(params: Params, lr: float) -> torch.optim.AdamW:
+def optimizer_for(params, lr: float):
+  """AdamW over what `params` trains (`trainable_leaves`): a torch AdamW over a plain
+  tree, a parallel/zero.MeshAdamW over a MeshParams (parallel/zero.zero1_shard_opt_state
+  then splits its moments over dp)."""
+  if isinstance(params, MeshParams):
+    return MeshAdamW(params, [path for path, _ in trainable_leaves(params)], lr)
+  return adamw([t for _, t in trainable_leaves(params)], lr)
+
+
+def masked_optimizer(params, lr: float):
   """AdamW over the adapter leaves alone (the base frozen: no moments, no update)."""
+  if isinstance(params, MeshParams):
+    paths = [path for path, _ in trainable_leaves(params) if path[-1].startswith("lora_")]
+    return MeshAdamW(params, paths, lr)
   return adamw([t for path, t in trainable_leaves(params) if path[-1].startswith("lora_")], lr)
 
 
@@ -129,11 +159,13 @@ def lora_param_counts(params: Params) -> Tuple[int, int]:
   return adapter, sum(int(t.numel()) for t in _leaves(params))
 
 
-def save_lora_checkpoint(params: Params, shard, out_path) -> None:
+def save_lora_checkpoint(params, shard, out_path) -> None:
   """Adapter-ONLY checkpoint: the `lora_*` leaves of this shard, each layer's slice
-  under its absolute index (`lora.layers.{i}.{slot}_{a|b}`), in their own dtype."""
+  under its absolute index (`lora.layers.{i}.{slot}_{a|b}`), in their own dtype (over
+  a mesh, the whole replicated leaves position 0 holds)."""
+  tree = params.tree if isinstance(params, MeshParams) else params
   flat: Dict[str, torch.Tensor] = {}
-  for k, v in params["layers"].items():
+  for k, v in tree["layers"].items():
     if not k.startswith("lora_"):
       continue
     for idx, i in enumerate(range(shard.start_layer, shard.end_layer + 1)):
@@ -230,12 +262,18 @@ def is_lora_checkpoint(path) -> bool:
   return bool(names) and all(n.startswith("lora.") for n in names)
 
 
-def load_lora_checkpoint(params: Params, shard, path) -> Params:
+def load_lora_checkpoint(params, shard, path):
   """Merge adapter-only checkpoint FILE(s) into `params`, restacking this shard's layer
   range, on the device of the shard's layers and in each slot's adapter dtype. `path`
   may be one file or a list: a node now serving layers 0-15 merges the 0-7 and 8-15
   files of a previous two-node split. The base tree is untouched; layers that the
-  file set does not cover raise with the missing range."""
+  file set does not cover raise with the missing range. Over a MeshParams the merged
+  leaves are replicated to every position."""
+  mesh_params = params if isinstance(params, MeshParams) else None
+  if mesh_params is not None:
+    merged = load_lora_checkpoint(mesh_params.tree, shard, path)["layers"]
+    return with_layers(mesh_params, {k: v for k, v in merged.items() if k.startswith("lora_")
+                                     and v is not mesh_params.tree["layers"].get(k)})
   paths = path if isinstance(path, (list, tuple)) else [path]
   raw: Dict[str, torch.Tensor] = {}
   for p in paths:

@@ -14,6 +14,15 @@ whatever B*T (TRAIN_ROUTE: the GEMV kernels have no backward).
 Loss: next-token cross-entropy in fp32 with a length mask, divided by the count of
 unmasked positions (at least 1). Gradients are taken over the float leaves only
 (`split_float`): an int8 or int4 base is frozen by construction.
+
+Over a local mesh (params a parallel/mesh.MeshParams) the same functions run the
+transformer's mesh path, and the optimizer is parallel/zero.MeshAdamW (train/lora's
+`optimizer_for`), which steps the pieces in place. With a dp axis each dp index runs
+its rows (`forward_replicas`): each replica's masked sum is divided by the count over
+the WHOLE batch and the replicas' terms are summed in rank order (JAX's
+`masked_ce_loss` over the global batch), never averaged per replica. `ring_mesh` (JAX's
+argument) trains sequence-parallel: attention rotates K/V chunks over the params'
+mesh's sp axis (ops/ring_attention.py).
 """
 from __future__ import annotations
 
@@ -23,7 +32,10 @@ import torch
 import torch.nn.functional as F
 
 from xotorch_tpu_torch.models.config import ModelConfig
-from xotorch_tpu_torch.models.transformer import QuantRoute, forward_shard
+from xotorch_tpu_torch.models.transformer import QuantRoute, forward_replicas, forward_shard
+from xotorch_tpu_torch.parallel.collectives import all_reduce
+from xotorch_tpu_torch.parallel.mesh import MeshParams, dp_rows, global_shape, leaf_blocks
+from xotorch_tpu_torch.parallel.zero import MeshAdamW
 
 Params = Dict[str, Any]
 
@@ -86,30 +98,63 @@ def unflatten(paths: Sequence[Tuple[str, ...]], values: Sequence[Any]) -> Params
   return out
 
 
-def masked_ce_loss(logits: torch.Tensor, targets: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
-  """logits [B, T, V] (fp32 on the way in), targets [B, T], lengths [B]: the mean fp32
-  cross-entropy over positions t < length."""
+def masked_ce_sum(logits: torch.Tensor, targets: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+  """logits [B, T, V] (fp32 on the way in), targets [B, T], lengths [B]: the fp32
+  cross-entropy summed over positions t < length."""
   B, T, V = logits.shape
   mask = torch.arange(T, device=logits.device)[None, :] < lengths.to(logits.device)[:, None]
   ce = F.cross_entropy(logits.to(torch.float32).reshape(B * T, V),
                        targets.to(device=logits.device, dtype=torch.int64).reshape(B * T),
                        reduction="none").reshape(B, T)
-  return (ce * mask).sum() / torch.clamp(mask.sum(), min=1)
+  return (ce * mask).sum()
+
+
+def unmasked_count(lengths: torch.Tensor, T: int) -> torch.Tensor:
+  """The count of positions t < length over the batch, at least 1 (the denominator)."""
+  return torch.clamp(torch.clamp(lengths.to(torch.int64), 0, T).sum(), min=1)
+
+
+def masked_ce_loss(logits: torch.Tensor, targets: torch.Tensor, lengths: torch.Tensor) -> torch.Tensor:
+  """The mean fp32 cross-entropy over positions t < length."""
+  count = unmasked_count(lengths, logits.shape[1]).to(logits.device)
+  return masked_ce_sum(logits, targets, lengths) / count
+
+
+def _ring_of(params, ring_mesh) -> bool:
+  """Whether to train sequence-parallel: `ring_mesh` must be the params' own mesh."""
+  if ring_mesh is None:
+    return False
+  if not isinstance(params, MeshParams) or params.mesh is not ring_mesh:
+    raise ValueError("ring_mesh: ring attention runs over the sp axis of the mesh the params "
+                     "are placed on (parallel/mesh.shard_params)")
+  return True
 
 
 def training_forward(params: Params, x: torch.Tensor, cfg: ModelConfig, is_first: bool,
-                     is_last: bool, start_layer: int = 0) -> torch.Tensor:
+                     is_last: bool, start_layer: int = 0, ring: bool = False) -> torch.Tensor:
   """One shard's forward from position 0 with no cache: hidden states, or fp32 logits on
-  the last shard."""
+  the last shard (over a dp mesh, every replica's rows gathered on its first device)."""
   out, _ = forward_shard(params, x, None, 0, cfg, is_first, is_last, use_flash=True,
-                         start_layer=start_layer, route=TRAIN_ROUTE)
+                         start_layer=start_layer, route=TRAIN_ROUTE, ring=ring)
   return out
 
 
-def full_model_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig) -> torch.Tensor:
-  """The loss when one shard holds the whole model (single-peer training)."""
-  logits = training_forward(params, batch["inputs"], cfg, True, True)
-  return masked_ce_loss(logits, batch["targets"], batch["lengths"])
+def full_model_loss(params: Params, batch: Dict[str, torch.Tensor], cfg: ModelConfig,
+                    ring_mesh=None) -> torch.Tensor:
+  """The loss when one shard holds the whole model (single-peer training). Over a mesh
+  with a dp axis each replica's logits stay on it: its masked sum over the global
+  count, the replicas' terms summed in rank order on the mesh's first device."""
+  ring = _ring_of(params, ring_mesh)
+  inputs, targets, lengths = batch["inputs"], batch["targets"], batch["lengths"]
+  if not (isinstance(params, MeshParams) and params.mesh.axis_size("dp") > 1):
+    return masked_ce_loss(training_forward(params, inputs, cfg, True, True, ring=ring),
+                          targets, lengths)
+  mesh = params.mesh
+  count = unmasked_count(lengths, inputs.shape[1])
+  outs = forward_replicas(params, inputs, cfg, True, True, route=TRAIN_ROUTE, ring=ring)
+  terms = [masked_ce_sum(o, t, n) / count.to(o.device)
+           for o, t, n in zip(outs, dp_rows(targets, mesh), dp_rows(lengths, mesh))]
+  return all_reduce(terms, mesh.devices[:1])[0]
 
 
 def value_and_grad(fn: Callable[[], torch.Tensor], wrt: Sequence[torch.Tensor],
@@ -132,9 +177,20 @@ def value_and_grad(fn: Callable[[], torch.Tensor], wrt: Sequence[torch.Tensor],
   return out.detach(), grads
 
 
-def apply_grads(optimizer: torch.optim.Optimizer, leaves: Sequence[torch.Tensor],
-                grads: Sequence[torch.Tensor]) -> None:
-  """One optimizer step with `grads` on `leaves` (updated in place)."""
+def optimizer_leaves(optimizer) -> List[torch.Tensor]:
+  """The tensors an optimizer's gradients are taken with respect to: a torch
+  optimizer's parameters, or a MeshAdamW's distinct pieces."""
+  if isinstance(optimizer, MeshAdamW):
+    return list(optimizer.leaves)
+  return [p for group in optimizer.param_groups for p in group["params"]]
+
+
+def apply_grads(optimizer, leaves: Sequence[torch.Tensor], grads: Sequence[torch.Tensor]) -> None:
+  """One optimizer step with `grads` on `leaves` (updated in place); a MeshAdamW sums
+  each block's copies first (parallel/zero.py)."""
+  if isinstance(optimizer, MeshAdamW):
+    optimizer.apply(grads)
+    return
   for t, g in zip(leaves, grads):
     t.grad = g.to(t.dtype)
   optimizer.step()
@@ -145,33 +201,37 @@ def apply_grads(optimizer: torch.optim.Optimizer, leaves: Sequence[torch.Tensor]
 def _check_trainable(params: Params) -> None:
   from xotorch_tpu_torch.models.quantize import is_quantized
   from xotorch_tpu_torch.train.lora import has_lora
-  if is_quantized(params) and not has_lora(params):
+  tree = params.tree if isinstance(params, MeshParams) else params
+  if is_quantized(tree) and not has_lora(tree):
     # Without a frozen-base mask the float scales and norms would train against
     # immutable int8 weights: neither a full fine-tune nor a clean freeze.
     raise ValueError("Training a quantized base requires LoRA adapters "
                      "(add_lora_params + masked_optimizer)")
 
 
-def make_train_step(cfg: ModelConfig, optimizer: torch.optim.Optimizer,
-                    loss_fn: Optional[Callable] = None) -> Callable:
+def make_train_step(cfg: ModelConfig, optimizer, loss_fn: Optional[Callable] = None,
+                    ring_mesh=None, opt_sharding_fn: Optional[Callable] = None) -> Callable:
   """(params, batch) -> loss: one eager step of `optimizer` (built over the params'
-  trainable leaves, train/lora.adamw or masked_optimizer), the parameters updated in
-  place."""
-  loss_fn = loss_fn or (lambda p, b: full_model_loss(p, b, cfg))
-  leaves = [p for group in optimizer.param_groups for p in group["params"]]
+  trainable leaves: train/lora.optimizer_for or masked_optimizer; a MeshAdamW over a
+  MeshParams), the parameters updated in place. `opt_sharding_fn` (ZeRO-1,
+  parallel/zero.zero1_constraint) is applied to the optimizer after each step."""
+  loss_fn = loss_fn or (lambda p, b: full_model_loss(p, b, cfg, ring_mesh=ring_mesh))
+  leaves = optimizer_leaves(optimizer)
 
   def train_step(params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     _check_trainable(params)
     loss, grads = value_and_grad(lambda: loss_fn(params, batch), leaves)
     with torch.no_grad():
       apply_grads(optimizer, leaves, grads)
+      if opt_sharding_fn is not None:
+        opt_sharding_fn(optimizer)
     return loss
 
   return train_step
 
 
-def make_eval_step(cfg: ModelConfig, loss_fn: Optional[Callable] = None) -> Callable:
-  loss_fn = loss_fn or (lambda p, b: full_model_loss(p, b, cfg))
+def make_eval_step(cfg: ModelConfig, loss_fn: Optional[Callable] = None, ring_mesh=None) -> Callable:
+  loss_fn = loss_fn or (lambda p, b: full_model_loss(p, b, cfg, ring_mesh=ring_mesh))
 
   def eval_step(params: Params, batch: Dict[str, torch.Tensor]) -> torch.Tensor:
     with torch.no_grad():
@@ -180,20 +240,45 @@ def make_eval_step(cfg: ModelConfig, loss_fn: Optional[Callable] = None) -> Call
   return eval_step
 
 
-def shard_loss_and_grads(params: Params, cfg: ModelConfig, x: torch.Tensor, back_grad_or_targets,
-                         lengths, is_first: bool, is_last: bool, start_layer: int = 0,
-                         trainable: Optional[Params] = None):
+def leaf_loss_and_grads(params, cfg: ModelConfig, x: torch.Tensor, targets, lengths,
+                        is_first: bool, leaves: Sequence[torch.Tensor], start_layer: int = 0):
+  """A last shard's (loss, gradient of its input, gradients of `leaves`): the tensors an
+  optimizer steps (`optimizer_leaves`; over a mesh, the distinct pieces), in their
+  order. A first shard's input gradient is zeros [B, T, hidden] fp32."""
+  B, T = x.shape[0], x.shape[1]
+  xin = x if is_first else x.detach().clone()
+  wrt = list(leaves) + ([] if is_first else [xin])
+
+  def fwd():
+    logits = training_forward(params, xin, cfg, is_first, True, start_layer)
+    return masked_ce_loss(logits, targets, lengths)
+
+  loss, grads = value_and_grad(fwd, wrt)
+  x_grad = (torch.zeros((B, T, cfg.hidden_size), dtype=torch.float32, device=x.device)
+            if is_first else grads.pop())
+  return loss, x_grad, grads
+
+
+def shard_loss_and_grads(params, cfg: ModelConfig, x: torch.Tensor, back_grad_or_targets,
+                         lengths, is_first: bool, is_last: bool, start_layer: int = 0):
   """One shard of pipelined training over the ring. The last shard takes the targets and
   returns (loss, gradient of the input, parameter gradients); another shard takes the
   downstream gradient of its output and pulls it back through its slice, returning
   (0.0, gradient of the input, parameter gradients). A first shard's input (tokens) is
   not differentiable: its input gradient is zeros [B, T, hidden] fp32.
 
-  Gradients come back in the structure of `trainable` (a subtree of `params`; by
-  default the float subtree, as JAX's do)."""
-  trainable = trainable_subtree(params) if trainable is None else trainable
-  paths = [p for p, _ in leaf_paths(trainable)]
-  leaves = [t for _, t in leaf_paths(trainable)]
+  Gradients come back in the structure of the float subtree, as JAX's do. Over a
+  MeshParams they are taken per distinct piece, each block's copies summed
+  (collectives.all_reduce, rank order), and returned as whole leaves on the mesh's
+  first device."""
+  mesh_params = params if isinstance(params, MeshParams) else None
+  flat = leaf_paths(trainable_subtree(mesh_params.tree if mesh_params else params))
+  paths = [p for p, _ in flat]
+  if mesh_params is not None:
+    blocks = [leaf_blocks(mesh_params, p) for p in paths]
+    leaves = [t for bl in blocks for b in bl for t in b.tensors]
+  else:
+    leaves = [t for _, t in flat]
   B, T = x.shape[0], x.shape[1]
   xin = x if is_first else x.detach().clone()
   wrt = leaves if is_first else leaves + [xin]
@@ -208,5 +293,31 @@ def shard_loss_and_grads(params: Params, cfg: ModelConfig, x: torch.Tensor, back
     x_grad = torch.zeros((B, T, cfg.hidden_size), dtype=torch.float32, device=x.device)
   else:
     x_grad = grads.pop()
+  if mesh_params is not None:
+    grads = _whole_grads(mesh_params, paths, blocks, leaves, grads)
   loss = value if is_last else torch.zeros((), dtype=torch.float32)
   return loss, x_grad, unflatten(paths, grads)
+
+
+def _whole_grads(mp: MeshParams, paths, blocks, pieces, grads) -> List[torch.Tensor]:
+  """Whole-leaf gradients on the mesh's first device from the gradients of the distinct
+  `pieces`: each block's copies summed in rank order (collectives.all_reduce)."""
+  by_id = {id(t): g for t, g in zip(pieces, grads)}
+  home = mp.mesh.devices[0]
+  out = []
+  for path, bl in zip(paths, blocks):
+    whole = torch.zeros(global_shape(mp, path), dtype=bl[0].tensors[0].dtype, device=home)
+    for b in bl:
+      whole[b.index] = all_reduce([by_id[id(t)] for t in b.tensors], [home])[0]
+    out.append(whole)
+  return out
+
+
+def mesh_value_and_grad(fn: Callable[[], torch.Tensor], mp: MeshParams,
+                        paths: Sequence[Tuple[str, ...]]):
+  """(fn(), the whole-leaf gradients of the leaves `paths` of `mp`, in that order),
+  taken per distinct piece and summed over each block's copies."""
+  blocks = [leaf_blocks(mp, p) for p in paths]
+  pieces = [t for bl in blocks for b in bl for t in b.tensors]
+  value, grads = value_and_grad(fn, pieces)
+  return value, _whole_grads(mp, paths, blocks, pieces, grads)
