@@ -762,6 +762,7 @@ def check_kernels(torch, results: dict) -> None:
   check_int8_kv_kernels(torch, results, randn)
   check_tile_edges(torch, randn)
   check_split_edges(torch, randn)
+  check_paged_edges(torch, randn, results)
 
   # The other head widths the kernels are built for, at the registry's other
   # llama shapes (synthetic-llama-8b: D 128; synthetic-tiny: Hq 4, Hkv 2, D 16),
@@ -1086,6 +1087,91 @@ def check_split_edges(torch, randn) -> None:
     torch.cuda.set_sync_debug_mode(0)
   torch.cuda.synchronize()
   print("[split edges] flash_cached_attention(_int8) and paged_decode_attention ran with "
+        "torch.cuda.set_sync_debug_mode('error'): no host read of a device tensor", flush=True)
+
+
+# Phase 3's paged edge cases: pages besides 16 and 128 (JAX's pool takes any page; its
+# tests run 8), and the group counts of the registry's largest cards (mistral-large:
+# Hq 96 over Hkv 8, 12 groups; llama-3.1-405b: Hq 128 over Hkv 8, 16 groups).
+EDGE_PAGES = (8, 24, 32, 64, 256)
+EDGE_GROUPS = ((96, 8), (128, 8))
+
+
+def check_paged_edges(torch, randn, results: dict) -> None:
+  """K3, K3q, K4 and K4q at every page the port now takes and at 12 and 16 q heads per
+  kv head, against their plain versions over shuffled page tables (ATOL; every int8 case
+  also bit for bit against its bf16 twin over the dequantized arena):
+  - pages 8, 24, 32, 64 and 256 at synthetic-llama-1b's heads: K3 at lengths 1 to 1000,
+    K4 segments from 0 and from mid-page, T on and off the 64-row block, with and without
+    a window and softcap;
+  - groups 12 and 16 at D 128 and D 64, pages 8 and 24: K3 at lengths around its split
+    edges, K4 at T 1, 17, 65 and 300 (a 64-row block holds 5 1/3 positions at 12 groups);
+  - the main cases timed beside the plain version, SDPA over the gathered view and the
+    bound (their report lines are PERF.md's rows), kept in results["paged_edges"];
+  - each wrapper once under torch.cuda.set_sync_debug_mode("error") at page 24, 12
+    groups."""
+  from xotorch_tpu_torch.ops.flash_decode import split_plan
+  from xotorch_tpu_torch.ops.paged_attention import (SPLIT_KEYS, paged_decode_attention,
+                                                     paged_decode_attention_int8,
+                                                     paged_prefill_attention,
+                                                     paged_prefill_attention_int8)
+  gen = torch.Generator(device="cuda")
+  gen.manual_seed(26)
+  sms = torch.cuda.get_device_properties(0).multi_processor_count
+  for pg in EDGE_PAGES:
+    for window, softcap in ((0, 0.0), (50, 20.0)):
+      for int8 in (False, True):
+        paged_case(torch, LLAMA_1B, randn, gen, [1, 200, 1000], pg, 1, window, softcap,
+                   int8=int8, timed=False)
+        for T, valid in ((20, [20, 137, 420]), (65, [65, 72, 700])):
+          paged_case(torch, LLAMA_1B, randn, gen, valid, pg, T, window, softcap, int8=int8,
+                     timed=False)
+  for hq, hkv in EDGE_GROUPS:
+    for d in (128, 64):
+      w = Widths(hq, hkv, d, f"Hq={hq} Hkv={hkv} D={d} ")
+      for pg in (8, 24):
+        _, kps = split_plan(6, hkv, 2048, sms, SPLIT_KEYS)
+        edges = [1, kps - 1, kps, kps + 1, kps + 2, 2048]
+        for window, softcap in ((0, 0.0), (kps // 2 + 3, 30.0)):
+          for int8 in (False, True):
+            paged_case(torch, w, randn, gen, edges, pg, 1, window, softcap, int8=int8,
+                       timed=False)
+            for T in (1, 17, 65, 300):
+              paged_case(torch, w, randn, gen, [T, T + 7, T + 250], pg, T, window, softcap,
+                         int8=int8, timed=False)
+  print(f"[paged edges] pages {EDGE_PAGES} and groups 12, 16: every case within its limit, "
+        f"every int8 case bit-identical to its bf16 twin", flush=True)
+
+  # The main cases, timed: decode over eight ragged rows and a 1024-token prefill from 0,
+  # at 16 groups on page 8 (phase 25 (a)'s shapes) and 12 groups on page 24.
+  ragged = [100, 300, 700, 1000, 1500, 2200, 3000, 4000]
+  timed = results.setdefault("paged_edges", {})
+  for (hq, hkv), pg in ((EDGE_GROUPS[1], 8), (EDGE_GROUPS[0], 24)):
+    w = Widths(hq, hkv, 128, f"Hq={hq} Hkv={hkv} D=128 ")
+    for int8 in (False, True):
+      suffix = "_int8" if int8 else ""
+      timed[f"paged_decode_attention{suffix} groups={hq // hkv} page={pg}"] = paged_case(
+        torch, w, randn, gen, ragged, pg, 1, 0, 0.0, int8=int8)
+      timed[f"paged_prefill_attention{suffix} groups={hq // hkv} page={pg}"] = paged_case(
+        torch, w, randn, gen, [1024], pg, 1024, 0, 0.0, int8=int8)
+
+  # No new shape reads a device tensor back.
+  hq, hkv = EDGE_GROUPS[0]
+  q, kp, vp, table, ln = paged_inputs(torch, randn, [100, 2000], 24, hq, hkv, 128)
+  qs, _, _, _, vl = paged_inputs(torch, randn, [100, 2000], 24, hq, hkv, 128, T=65)
+  (kq, ks), (vq, vs) = spread_quantize(torch, gen, kp), spread_quantize(torch, gen, vp)
+  vl = torch.tensor([165, 2000], dtype=torch.int32, device=q.device)
+  torch.cuda.synchronize()
+  torch.cuda.set_sync_debug_mode("error")
+  try:
+    paged_decode_attention(q, kp, vp, table, ln)
+    paged_decode_attention_int8(q, kq, vq, ks, vs, table, ln)
+    paged_prefill_attention(qs, kp, vp, table, vl)
+    paged_prefill_attention_int8(qs, kq, vq, ks, vs, table, vl)
+  finally:
+    torch.cuda.set_sync_debug_mode(0)
+  torch.cuda.synchronize()
+  print("[paged edges] K3, K3q, K4 and K4q at page 24 and 12 groups ran with "
         "torch.cuda.set_sync_debug_mode('error'): no host read of a device tensor", flush=True)
 
 
@@ -2390,6 +2476,33 @@ def greedy_streams_agree(tag: str, main_run: dict, streams: dict) -> None:
       raise AssertionError(f"{tag}: {label} streamed {got}, the main path {want}")
 
 
+async def ring_streams_agree(torch, tag: str, main_run: dict, streams: dict, prompts: list,
+                             segs: list) -> None:
+  """greedy_streams_agree with the near-tie rule: a temperature-0 stream that parts from
+  the single-peer main path's must part first where the two tokens' logits, read through
+  the ring's segments from position 0 (ring_tie_check), lie within TIE_REL of the row's
+  largest."""
+  from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer
+  tokenizer = DummyTokenizer()
+  for j, (label, body) in enumerate(main_requests("synthetic-llama-1b")):
+    if body.get("temperature") != 0 or j not in streams:
+      continue
+    want, got = main_run["tokens"][j], streams[j]
+    first = next((i for i in range(min(len(want), len(got))) if want[i] != got[i]), None)
+    verdict, ok = "equal", got == want
+    if first is not None:
+      ids = list(tokenizer.encode(prompts[j])) + want[:first]
+      tie, gap, limit = await ring_tie_check(torch, segs, ids, want[first], got[first])
+      ok = tie and len(got) == len(want)
+      verdict = (f"part at {first}: logit gap {gap:.4g} against the near-tie bound {limit:.4g} "
+                 f"({'a near tie' if tie else 'NOT a tie'})")
+    print(f"[{tag}] {label}: {sum(a == b for a, b in zip(want, got))}/{len(want)} temperature-0 "
+          f"tokens equal the single-peer main path's; the streams {verdict} "
+          f"{'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+      raise AssertionError(f"{tag}: {label} streamed {got}, the main path {want}")
+
+
 async def ring_observability(nodes: dict, engines: dict, base: str, rids: list, steps: int,
                              tag: str, card: str) -> dict:
   """The ring's observability, read at the API of the peer where the requests entered:
@@ -2707,7 +2820,8 @@ async def ring_tie_check(torch, segs: list, ids: list, a: int, b: int) -> tuple:
     h = torch.tensor([ids], dtype=torch.int64, device=last.device)
     for i, (eng, shard) in enumerate(segs):
       ctx = eng._contexts[shard]
-      cache = init_kv_cache(ctx.cfg, shard.get_layer_count(), 1, len(ids), eng.dtype, eng.device)
+      cache = init_kv_cache(ctx.cfg, shard.get_layer_count(), 1, len(ids), eng.dtype, eng.device,
+                            mesh=ctx.mesh)
       h, _ = forward_shard(ctx.params, h, cache, 0, ctx.cfg, i == 0, shard.is_last_layer,
                            use_flash=True, start_layer=shard.start_layer, route=eng.quant_route)
     return h[0, -1].float().cpu()
@@ -2718,7 +2832,8 @@ async def ring_tie_check(torch, segs: list, ids: list, a: int, b: int) -> tuple:
 
 
 def drive_ring_fused(torch, card: str, main_run: dict, per_token: dict, device: str = "cuda",
-                     model: str = "synthetic-llama-1b") -> dict:
+                     model: str = "synthetic-llama-1b", tp: int = 1,
+                     node_counts=RING_FUSED_NODES) -> dict:
   """Phase 10 (c): the fused in-process ring. Two, then three Nodes in this process, each
   with its own engine on `device`, linked by InProcessPeerHandle, serve `model` split
   8/8, then three ways, with the default decode chunk (XOT_DECODE_CHUNK 8, doubling to
@@ -2731,7 +2846,13 @@ def drive_ring_fused(torch, card: str, main_run: dict, per_token: dict, device: 
   ahead and how they resolved. On the 2-Node ring: four concurrent streams coalesce into
   batched fused dispatches (mean width printed), then a prompt-lookup speculative request
   (XOT_SPECULATE 8, phase 18's repeat-heavy prompt) through verify_draft_ring against the
-  plain stream: equal, or parting first at a near tie within 2^-6. Returns the figures."""
+  plain stream: equal, or parting first at a near tie within 2^-6. Returns the figures.
+
+  With `tp` > 1 (phase 25 (c)) every engine serves over a tp mesh of the card repeated
+  (XOT_VIRTUAL_DEVICES): K1 and K2 are tp x the one-card formula, the fused chunks must
+  be replays of graphs whose keys name each segment's mesh, TPOT is also read on the
+  per-token ring over the same mesh (fusion off), and the 2-Node ring runs the lookup
+  verify without the concurrent streams."""
   from xotorch_tpu_torch.api.chatgpt_api import build_prompt
   from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer
   from xotorch_tpu_torch.inference.torch_engine.engine import TorchShardInferenceEngine
@@ -2751,7 +2872,9 @@ def drive_ring_fused(torch, card: str, main_run: dict, per_token: dict, device: 
 
   def build(n_nodes: int):
     ids = [f"ring-{chr(ord('a') + i)}" for i in range(n_nodes)]
-    engines = {i: TorchShardInferenceEngine(device=device) for i in ids}
+    with (phase_env(XOT_VIRTUAL_DEVICES=str(tp), XOT_TP=str(tp)) if tp > 1
+          else contextlib.nullcontext()):
+      engines = {i: TorchShardInferenceEngine(device=device) for i in ids}
     nodes = {i: Node(i, None, engines[i], None, RingMemoryWeightedPartitioningStrategy(),
                      default_sample_temp=0.6) for i in ids}
     for node in nodes.values():
@@ -2789,7 +2912,7 @@ def drive_ring_fused(torch, card: str, main_run: dict, per_token: dict, device: 
     return 1e3 * (out["last"] - out["first"]) / (n - 1) if n > 1 else float("nan")
 
   async def drive(n_nodes: int) -> dict:
-    tag = f"ring fused, {n_nodes} nodes"
+    tag = f"ring fused, {n_nodes} nodes" + (f", tp {tp}" if tp > 1 else "")
     nodes, engines = build(n_nodes)
     t0 = time.perf_counter()
     try:
@@ -2821,7 +2944,7 @@ def drive_ring_fused(torch, card: str, main_run: dict, per_token: dict, device: 
         eng._ring_dispatch = counted
       for k in kernels:
         k.launches = 0
-      runs, fresh, segments = [], 0, 0
+      runs, prompts, fresh, segments = [], [], 0, 0
       for j, (label, body) in enumerate(main_requests(model)):
         prompt = build_prompt(tokenizer, body["messages"])
         out = await serve(entry, base, prompt, f"fused-{n_nodes}-{j}", body["max_tokens"],
@@ -2829,6 +2952,7 @@ def drive_ring_fused(torch, card: str, main_run: dict, per_token: dict, device: 
         fresh += 1
         segments += (len(tokenizer.encode(prompt)) - 1) // 1024
         runs.append((label, body, out))
+        prompts.append(prompt)
       for e in engines.values():
         await wait_idle(e)
       counts = {k.__name__: k.launches for k in kernels}
@@ -2845,9 +2969,15 @@ def drive_ring_fused(torch, card: str, main_run: dict, per_token: dict, device: 
         if not ok:
           raise AssertionError(f"{tag}: {label} returned {n} tokens")
         streams[j] = out["tokens"]
-      greedy_streams_agree(tag, main_run, streams)
-      want = {"flash_attention": layers * fresh,
-              "flash_cached_attention": layers * (dispatched[0] + segments)}
+      if tp > 1:
+        # A mesh sums its partial products in another order: a stream may part from the
+        # one card's at a near tie, read on this ring's own weights.
+        await ring_streams_agree(torch, tag, main_run, streams, prompts,
+                                 [(engines[i], shards[i]) for i in order])
+      else:
+        greedy_streams_agree(tag, main_run, streams)
+      want = {"flash_attention": tp * layers * fresh,
+              "flash_cached_attention": tp * layers * (dispatched[0] + segments)}
       stats = driver.ring_stats()
       declines = {**stats["declines"]}
       for node in nodes.values():
@@ -2855,10 +2985,22 @@ def drive_ring_fused(torch, card: str, main_run: dict, per_token: dict, device: 
           declines[reason] = declines.get(reason, 0) + n
       host_bytes = sum(e.host_hop_bytes for e in engines.values())
       device_hops = sum(e.device_hops for e in engines.values())
+      graphs_ok, replays = True, None
+      if tp > 1:
+        meshes = [e._contexts[shards[i]].mesh for i, e in engines.items()]
+        caches = [c for _, c in driver._ring_graphs.values()]
+        replays = sum(c.replays for c in caches) if caches else 0
+        keyed = all(any(("mesh",) + m.key() in k for c in caches for k in c.programs)
+                    for m in meshes if m is not None)
+        graphs_ok = (device != "cuda" or (replays > 0 and keyed)) and all(
+          m is not None and m.axis_size("tp") == tp for m in meshes)
       ok = (counts == want and dispatched[0] >= decoded and not token_hops and host_bytes == 0
-            and not declines and device_hops == fresh * (n_nodes - 1))
-      print(f"[{tag}] launches over the engines {counts}: K1 = {layers} x {fresh} fresh prefills, "
-            f"K2 = {layers} x ({dispatched[0]} fused steps dispatched for {decoded} decoded + "
+            and not declines and device_hops == fresh * (n_nodes - 1) and graphs_ok)
+      if replays is not None:
+        print(f"[{tag}] the fused chunks ran as {replays} replays of ring graphs keyed by each "
+              f"segment's tp-{tp} mesh {'ok' if graphs_ok else 'FAIL'}", flush=True)
+      print(f"[{tag}] launches over the engines {counts}: K1 = {tp} x {layers} x {fresh} fresh "
+            f"prefills, K2 = {tp} x {layers} x ({dispatched[0]} fused steps dispatched for {decoded} decoded + "
             f"{segments} segment at pos > 0) ({want}); {stats['chunks']} fused chunks, overlap "
             f"hits {stats['overlap_hits']} misses {stats['overlap_misses']}; per-token decode hops "
             f"{len(token_hops)}; hidden-state hops kept on the device {device_hops}, hop bytes "
@@ -2870,15 +3012,38 @@ def drive_ring_fused(torch, card: str, main_run: dict, per_token: dict, device: 
                              f"device hops {device_hops}, declines {declines}")
       result = {"tpot_ms": {j: tpot(out) for j, (_, _, out) in enumerate(runs)},
                 "launches": counts, "overlap": (stats["overlap_hits"], stats["overlap_misses"])}
+      if tp > 1:
+        # TPOT on the per-token ring over the same mesh: fusion off, the first request again.
+        for e in engines.values():
+          e.supports_ring_fusion = False
+        label, body = main_requests(model)[0]
+        with launches_kept():
+          plain = await serve(entry, base, build_prompt(tokenizer, body["messages"]),
+                              f"per-token-{n_nodes}", body["max_tokens"], body.get("temperature"))
+        for e in engines.values():
+          del e.supports_ring_fusion
+          await wait_idle(e)
+        print(f"[{tag}] {label}: TPOT {result['tpot_ms'][0]:.3f} ms fused against "
+              f"{tpot(plain):.3f} ms on the per-token ring over the same tp-{tp} mesh ({card})",
+              flush=True)
       if n_nodes == 2:
         result.update(await concurrent_and_spec(tag, nodes, engines, order, shards, base, entry,
-                                                driver))
+                                                driver, concurrent=tp == 1))
       return result
     finally:
       for e in engines.values():
         e.executor.shutdown(wait=True)
 
-  async def concurrent_and_spec(tag, nodes, engines, order, shards, base, entry, driver) -> dict:
+  async def concurrent_and_spec(tag, nodes, engines, order, shards, base, entry, driver,
+                                concurrent: bool = True) -> dict:
+    width = None
+    if concurrent:
+      width = await concurrent_streams(tag, entry, base, driver, engines)
+    # Prompt lookup over the ring: exact ids through the id tokenizer.
+    return {"width": width, "spec": await lookup_spec(tag, nodes, engines, order, shards, entry,
+                                                       driver)}
+
+  async def concurrent_streams(tag, entry, base, driver, engines) -> float:
     before = (driver._ring_batch_dispatches, driver._ring_batch_rows)
     t0 = time.perf_counter()
     words = lambda n, off: " ".join(f"w{(i + off) % 97}" for i in range(n))
@@ -2900,7 +3065,9 @@ def drive_ring_fused(torch, card: str, main_run: dict, per_token: dict, device: 
                            f"width {width})")
     for e in engines.values():
       await wait_idle(e)
-    # Prompt lookup over the ring: exact ids through the id tokenizer.
+    return width
+
+  async def lookup_spec(tag, nodes, engines, order, shards, entry, driver) -> tuple:
     ids_tok = id_tokenizer()
     for i in order:
       engines[i]._contexts[shards[i]].tokenizer = ids_tok
@@ -2934,14 +3101,15 @@ def drive_ring_fused(torch, card: str, main_run: dict, per_token: dict, device: 
           flush=True)
     if not ok:
       raise AssertionError(f"{tag}: speculation drafted {drafted}, stream {verdict}")
-    return {"width": width, "spec": (drafted, taken, spec_ms, plain_ms)}
+    return drafted, taken, spec_ms, plain_ms
 
   with phase_env(XOT_PAGED_KV="0", XOT_PREFILL_CHUNK="1024"):
-    for n_nodes in RING_FUSED_NODES:
+    for n_nodes in node_counts:
       figures[n_nodes] = asyncio.run(drive(n_nodes))
       gc.collect()
       torch.cuda.empty_cache() if device == "cuda" else None
-  print(f"[time] phase 10 (c), the fused ring: {time.perf_counter() - t_phase:.1f} s", flush=True)
+  print(f"[time] phase {'25 (c)' if tp > 1 else '10 (c)'}, the fused ring: "
+        f"{time.perf_counter() - t_phase:.1f} s", flush=True)
   return figures
 
 
@@ -6751,7 +6919,7 @@ def multimodal_timers(torch):
     engine_mod.TorchShardInferenceEngine._infer_multimodal_sync = real_sync
 
 
-def drive_llava(torch, card: str, device: str = "cuda") -> dict:
+def drive_llava(torch, card: str, device: str = "cuda", keep: Optional[dict] = None) -> dict:
   """LLaVA-1.5-7B at full width and depth written as a seeded checkpoint (the text
   stack by save_shard_params in four files, the tower and projector in a fifth), its
   tower, projector and a two-layer text cut held against the CPU (check_llava_model),
@@ -6759,7 +6927,9 @@ def drive_llava(torch, card: str, device: str = "cuda") -> dict:
   llava_requests over HTTP (the image as a PNG data URI), K1 = 32 x (image prefills +
   text prefills), K2 = 32 x decode steps, the two image requests' greedy streams equal,
   TTFT split into tower, projector and the merged prefill (multimodal_timers). Returns
-  the phase's launches."""
+  the phase's launches. Given `keep`, the checkpoint stays on disk for phase 25 (b) and
+  `keep` gets where it is, the image's URI and the first image request's tokens: the
+  caller removes keep["tmp"]."""
   import shutil
   import tempfile
   from pathlib import Path
@@ -6803,6 +6973,9 @@ def drive_llava(torch, card: str, device: str = "cuda") -> dict:
           f"streams {'equal' if same else 'DIFFER'}; prompt tokens {run['prompt_tokens']}; "
           f"{'; '.join(run['timings'])}; served in {served_s:.1f} s with the load ({card}) "
           f"{'ok' if ok else 'FAIL'}", flush=True)
+    if keep is not None:
+      keep.update(tmp=str(tmp), seed=str(seed), home=str(tmp / "home"), uri=uri,
+                  tokens=list(run["tokens"][0]), layers=layers)
     for r, timing in zip(measured, run["timings"]):
       rest = r["total"] - sum(r[n] for n in ("preprocess_images", "encode_images",
                                              "project_features", "forward_shard"))
@@ -6823,7 +6996,8 @@ def drive_llava(torch, card: str, device: str = "cuda") -> dict:
       print(f"[time] phase 19 (c), {LLAVA_CARD} training: {time.perf_counter() - t0:.1f} s",
             flush=True)
   finally:
-    shutil.rmtree(tmp, ignore_errors=True)
+    if keep is None or "tmp" not in keep:
+      shutil.rmtree(tmp, ignore_errors=True)
   return counts
 
 
@@ -6886,19 +7060,20 @@ def family_training(torch, card: str, model: str, layers: int, runs, device: str
   return launches
 
 
-def check_families(torch, card: str, device: str = "cuda") -> dict:
+def check_families(torch, card: str, device: str = "cuda", keep: Optional[dict] = None) -> dict:
   """Phase 19: the two families the port served last, qwen3-moe and llava (drive_moe,
   drive_llava, each serving and then training its checkpoint), then (d) their two-layer
   training cuts against the plain path in fp32 (check_training_cut over the published configs: the
   MoE cut at T 64, B*T 128 through the dense combine, full and with adapters on the
   attention slots, JAX's sites; llava's text stack at T 200 with adapters). Returns their
-  attention launches summed by wrapper, K1b's included."""
+  attention launches summed by wrapper, K1b's included. `keep`: drive_llava's."""
   from xotorch_tpu_torch.models.transformer import LORA_SLOTS
   t0 = time.perf_counter()
   launches = {}
-  for drive in (drive_moe, drive_llava):
-    for name, n in drive(torch, card, device).items():
-      launches[name] = launches.get(name, 0) + n
+  for name, n in drive_moe(torch, card, device).items():
+    launches[name] = launches.get(name, 0) + n
+  for name, n in drive_llava(torch, card, device, keep=keep).items():
+    launches[name] = launches.get(name, 0) + n
   t1 = time.perf_counter()
   for label, config, seq, window, slots, modes in (
       ("qwen3-moe", QWEN3_MOE_CONFIG, 64, 16, LORA_SLOTS[:4], ("full", "lora")),
@@ -9239,6 +9414,418 @@ def check_mesh_training(torch, card: str, trained: dict, adapter_streams: dict,
   return launches
 
 
+# Phase 25: the serving mesh's last paths. (a)'s model: Llama-3.1-405B's published
+# config.json (meta-llama/Llama-3.1-405B), written here as numbers, cut to two layers.
+LLAMA_405B_CONFIG = {
+  "architectures": ["LlamaForCausalLM"], "model_type": "llama", "hidden_size": 16384,
+  "intermediate_size": 53248, "num_attention_heads": 128, "num_key_value_heads": 8,
+  "head_dim": 128, "num_hidden_layers": 126, "vocab_size": 128256,
+  "max_position_embeddings": 131072, "rms_norm_eps": 1e-05, "rope_theta": 500000.0,
+  "rope_scaling": {"factor": 8.0, "low_freq_factor": 1.0, "high_freq_factor": 4.0,
+                   "original_max_position_embeddings": 8192, "rope_type": "llama3"},
+  "tie_word_embeddings": False, "bos_token_id": 128000, "eos_token_id": 128001,
+  "torch_dtype": "bfloat16"}
+MESH_CUT_CARD = "llama-3.1-405b-cut2"  # a card only the smoke's process adds
+MESH_PAGE = 8  # (a)'s XOT_KV_PAGE: JAX's own tests' page
+MESH_PROMPTS = (300, 700)  # (a)'s two requests' prompt tokens, decoded together (B=2)
+MESH_STEPS = 16  # (a)'s decode steps
+MESH_TP = 2  # the tp width of (b), (c) and (d), on the one card
+MESH_FABRIC_TOKENS = 2104  # (d)'s prompt: phase 22's long prompt's length
+MESH_FABRIC_NEW = 24  # (d)'s streamed tokens
+
+
+def _held_paged(torch, transformer, held: dict):
+  """transformer's K3/K4 entry points wrapped so that every call is held, as it returns,
+  against its plain version on its own inputs on the card (2^-6 of the output's largest
+  value, rel_limit's rule); `held` gets {name: [calls, worst relative error]}. Returns
+  the originals to restore."""
+  from xotorch_tpu_torch.ops import paged_attention as pa
+  refs = {"paged_decode_attention": pa.paged_decode_attention_ref,
+          "paged_prefill_attention": pa.paged_prefill_attention_ref}
+  originals = {n: getattr(transformer, n) for n in refs}
+
+  def wrap(name, fn):
+    def call(*args, **kw):
+      out = fn(*args, **kw)
+      ref = refs[name](*args, **kw).float()
+      err = ((out.float() - ref).abs().max() / ref.abs().max()).item()
+      n, worst = held.get(name, (0, 0.0))
+      held[name] = (n + 1, max(worst, err if math.isfinite(err) else float("inf")))
+      return out
+    return call
+  for n, fn in originals.items():
+    setattr(transformer, n, wrap(n, fn))
+  return originals
+
+
+def mesh_paged_cut(torch, card: str, device: str = "cuda", config: Optional[dict] = None,
+                   page: int = MESH_PAGE, prompts=MESH_PROMPTS, steps: int = MESH_STEPS) -> dict:
+  """Phase 25 (a): a paged server at 16 q heads per kv head. A two-layer cut of
+  Llama-3.1-405B at its published widths (LLAMA_405B_CONFIG: hidden 16384, 128 q heads over
+  8 kv heads, head_dim 128, intermediate 53248, vocab 128256, llama3 RoPE at 500000; seeded
+  bf16 weights made on the card, ~21 GB) under XOT_PAGED_KV=1 at page `page`: the engine
+  prefills two requests (K4) and decodes them together in its batcher (K3 at B=2, graph
+  replays), K4 = 2 layers x the prompts' segments and K3 = 2 x the batcher's steps. Then on
+  the engine's weights, eagerly: the same prompts through the page arena at page `page`
+  (K4, then `steps` B=2 decode steps through K3), each K3/K4 call held against its plain
+  version on its own inputs, against the same cut on contiguous caches (K1, then K2 at
+  B=1), fed the contiguous run's greedy tokens: the logits within 5e-2 of the range, and
+  where the two argmaxes part, a near tie (TIE_REL) in the contiguous logits. Returns the
+  launches."""
+  import numpy as np
+  from xotorch_tpu_torch.inference.shard import Shard
+  from xotorch_tpu_torch.inference.torch_engine.engine import TorchShardInferenceEngine
+  from xotorch_tpu_torch.inference.torch_engine.paged_cache import PagePool
+  from xotorch_tpu_torch.models import registry, transformer
+  from xotorch_tpu_torch.models.transformer import forward_shard, init_kv_cache
+  from xotorch_tpu_torch.ops.paged_attention import paged_decode_attention, paged_prefill_attention
+  t_phase = time.perf_counter()
+  config = {**(config or LLAMA_405B_CONFIG), "num_hidden_layers": 2}
+  registry.model_cards[MESH_CUT_CARD] = {"layers": 2, "repo": {registry.TORCH: "synthetic"},
+                                         "synthetic_config": config}
+  kernels = (paged_prefill_attention, paged_decode_attention)
+  shard = Shard(MESH_CUT_CARD, 0, 1, 2)
+  env = {"XOT_PAGED_KV": "1", "XOT_KV_PAGE": str(page), "XOT_PREFIX_CACHE": "0",
+         "XOT_PREFILL_COSCHED": "0", "XOT_PREFILL_CHUNK": "1024", "XOT_BATCH_WINDOW_MS": "50"}
+  with phase_env(**env):
+    engine = TorchShardInferenceEngine(device=device)
+  rng = np.random.default_rng(25)
+  ids = [rng.integers(3, config["vocab_size"], size=n).tolist() for n in prompts]
+  out = {}
+
+  async def serve():
+    t0 = time.perf_counter()
+    await engine.ensure_shard(shard)
+    out["load_s"] = time.perf_counter() - t0
+    for k in kernels:
+      k.launches = 0
+    t0 = time.perf_counter()
+    first = []
+    for j, p in enumerate(ids):
+      tok, _ = await engine.infer_sample_tensor(f"cut-{j}", shard, np.asarray([p]), temp=0.0)
+      first.append(int(tok))
+    chunks = await asyncio.gather(*(engine.generate_chunk(f"cut-{j}", shard, first[j], steps,
+                                                          temp=0.0)
+                                    for j in range(len(ids))))
+    out["serve_s"] = time.perf_counter() - t0
+    out["streams"] = [[first[j]] + [int(t) for t in np.asarray(c).reshape(-1)]
+                      for j, c in enumerate(chunks)]
+    out["launches"] = {k.__name__: k.launches for k in kernels}
+    ctx = engine._ctx
+    out["steps"] = ctx.batcher.steps if ctx.batcher is not None else None
+    out["page"] = ctx.page_pool.page_size
+    for j in range(len(ids)):
+      await engine.clear_request(f"cut-{j}")
+  try:
+    with phase_env(**env):
+      asyncio.run(serve())
+    ctx = engine._ctx
+    cfg, params = ctx.cfg, ctx.params
+    layers = 2
+    segments = sum(-(-n // 1024) for n in prompts)
+    want = {"paged_prefill_attention": layers * segments,
+            "paged_decode_attention": layers * (out["steps"] or 0)}
+    ok = out["launches"] == want and out["page"] == page and out["steps"] is not None
+    groups = cfg.num_heads // cfg.num_kv_heads
+    print(f"[mesh paged] {MESH_CUT_CARD} (Hq {cfg.num_heads} over Hkv {cfg.num_kv_heads}: {groups} "
+          f"groups, D {cfg.head_dim}) under XOT_PAGED_KV=1 at page {out['page']}: loaded in "
+          f"{out['load_s']:.1f} s; two requests of {prompts} tokens prefilled, then {steps} steps "
+          f"at B=2 in {out['serve_s']:.2f} s; launches {out['launches']} against {want} "
+          f"(K4 = {layers} layers x {segments} segments, K3 = {layers} x {out['steps']} batcher "
+          f"steps) ({card}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+      raise AssertionError(f"mesh paged: launches {out['launches']}, wanted {want}")
+    launches = dict(out["launches"])
+
+    dev = torch.device(device)
+    B = len(ids)
+    n_pages = [-(-(n + steps) // page) for n in prompts]
+    P = sum(n_pages) + 8
+    perm = (torch.randperm(P - 1, generator=torch.Generator().manual_seed(P)) + 1).tolist()
+    table = torch.zeros(B, max(n_pages), dtype=torch.int32)
+    used = 0
+    for b, k in enumerate(n_pages):
+      table[b, :k] = torch.tensor(perm[used:used + k], dtype=torch.int32)
+      used += k
+    table = table.to(dev)
+    held: dict = {}
+    with torch.inference_mode():
+      # The contiguous cut: K1, then K2 a row at a time; its greedy tokens feed both runs.
+      want_logits, fed = [], []
+      for b in range(B):
+        cache = init_kv_cache(cfg, layers, 1, prompts[b] + steps, engine.dtype, dev)
+        x = torch.tensor([ids[b]], dtype=torch.int64, device=dev)
+        lg, _ = forward_shard(params, x, cache, 0, cfg, True, True, use_flash=True)
+        rows, toks = [lg[0, -1].float()], []
+        for i in range(steps):
+          toks.append(int(rows[-1].argmax()))
+          lg, _ = forward_shard(params, torch.tensor([[toks[-1]]], device=dev), cache,
+                                prompts[b] + i, cfg, True, True, use_flash_decode=True)
+          rows.append(lg[0, -1].float())
+        want_logits.append(torch.stack(rows))
+        fed.append(toks)
+      # The paged cut at page `page`: K4 a row, then B=2 steps through K3.
+      for k in kernels:
+        k.launches = 0
+      pool = PagePool(cfg, layers, P, page, dtype=engine.dtype, device=dev)
+      originals = _held_paged(torch, transformer, held)
+      try:
+        got_rows = [[] for _ in range(B)]
+        for b in range(B):
+          x = torch.tensor([ids[b]], dtype=torch.int64, device=dev)
+          lg, _ = forward_shard(params, x, pool.arena, 0, cfg, True, True,
+                                page_table=table[b:b + 1].contiguous())
+          got_rows[b].append(lg[0, -1].float())
+        for i in range(steps):
+          toks = torch.tensor([[fed[b][i]] for b in range(B)], dtype=torch.int64, device=dev)
+          pos = torch.tensor([prompts[b] + i for b in range(B)], dtype=torch.int32, device=dev)
+          lg, _ = forward_shard(params, toks, pool.arena, pos, cfg, True, True, page_table=table)
+          for b in range(B):
+            got_rows[b].append(lg[b, -1].float())
+      finally:
+        for n, fn in originals.items():
+          setattr(transformer, n, fn)
+      eager = {k.__name__: k.launches for k in kernels}
+    worst, parted = 0.0, []
+    for b in range(B):
+      got, ref = torch.stack(got_rows[b]), want_logits[b]
+      if not bool(torch.isfinite(got).all()):
+        raise AssertionError("mesh paged: non-finite logits")
+      worst = max(worst, ((got - ref).abs().max() / ref.abs().max()).item())
+      for i in range(steps + 1):
+        a, c = int(ref[i].argmax()), int(got[i].argmax())
+        if a != c:
+          gap, limit = abs(float(ref[i, a] - ref[i, c])), TIE_REL * float(ref[i].abs().max())
+          parted.append((b, i, gap <= limit, gap, limit))
+    want_eager = {"paged_prefill_attention": layers * B, "paged_decode_attention": layers * steps}
+    calls_ok = all(e <= 2.0 ** -6 for _, e in held.values()) and set(held) == set(want_eager)
+    ok = (worst < 5e-2 and all(t for _, _, t, _, _ in parted) and eager == want_eager
+          and calls_ok)
+    print(f"[mesh paged] eager cut at page {page}, B={B}: every K3/K4 call against its plain "
+          f"version on its own inputs: {', '.join(f'{n} x{c} worst {e:.2e}' for n, (c, e) in held.items())} "
+          f"(limit 2^-6 of the largest |output|); launches {eager} against {want_eager}; logits "
+          f"within {worst:.3e} of the range of the contiguous cut's (K1/K2; limit 5e-2); "
+          f"argmaxes part at {len(parted)} of {B * (steps + 1)} positions"
+          + (f", each a near tie: {[(b, i, round(g, 4), round(l, 4)) for b, i, _, g, l in parted]}"
+             if parted else "") + f" ({card}) {'ok' if ok else 'FAIL'}", flush=True)
+    if not ok:
+      raise AssertionError(f"mesh paged: logits {worst}, parted {parted}, launches {eager}, "
+                           f"calls {held}")
+    for name, n in eager.items():
+      launches[name] += n
+  finally:
+    engine.executor.shutdown(wait=True)
+    registry.model_cards.pop(MESH_CUT_CARD, None)
+    del engine
+    gc.collect()
+    if device == "cuda":
+      torch.cuda.empty_cache()
+  print(f"[time] phase 25 (a), the paged cut at {MESH_PAGE}: {time.perf_counter() - t_phase:.1f} s",
+        flush=True)
+  return launches
+
+
+def mesh_vision(torch, card: str, llava: dict, device: str = "cuda") -> dict:
+  """Phase 25 (b): vision over tp 2. main.py --serve-tp 2 (XOT_VIRTUAL_DEVICES=2) serves
+  phase 19's seeded LLaVA-1.5-7B checkpoint (`llava`: what drive_llava kept; phase 19's
+  --models-seed-dir moved it into its XOT_HOME) and answers
+  one of phase 19's image requests over HTTP: its greedy stream phase 19's single-card one,
+  or parting from it only at a near tie (TIE_REL, read from this server's logits along
+  phase 19's stream: the image prefill, then phase 19's tokens as one segment); K1 = 2 x
+  32 x prefills, K2 = 2 x 32 x decode steps; the TTFT split printed. Returns the
+  launches."""
+  import numpy as np
+  from xotorch_tpu_torch.api.chatgpt_api import extract_images
+  from xotorch_tpu_torch.models.registry import build_base_shard
+  t0 = time.perf_counter()
+  layers = llava["layers"]
+  label, body = llava_requests(LLAVA_CARD, llava["uri"])[0]
+  want = llava["tokens"]
+  seen = {}
+
+  async def along(engine, node, api, base):
+    seen["row"] = rows[-1] if rows else None
+    shard = node.get_current_shard(build_base_shard(LLAVA_CARD, "TorchShardInferenceEngine"))
+    ctx = engine._ctx
+    seen["mesh"] = dict(ctx.mesh.shape) if ctx.mesh is not None else None
+    prompt, _ = await api._request_prompt(LLAVA_CARD, body["messages"], None)
+    with launches_kept():
+      first, _ = await engine.infer_prompt("tie-read", shard, prompt,
+                                           images=extract_images(body["messages"]))
+      rest, _ = await engine.infer_tensor("tie-read", shard, np.asarray([want[:-1]]))
+      await engine.clear_request("tie-read")
+    seen["logits"] = np.concatenate([np.asarray(first)[0, -1:], np.asarray(rest)[0]], axis=0)
+  with phase_env(XOT_HOME=llava["home"], XOT_VIRTUAL_DEVICES=str(MESH_TP),
+                 XOT_SERVE_TP=str(MESH_TP), **FAMILY_ENV), multimodal_timers(torch) as rows:
+    run = drive_main_path(torch, card, device=device, model=LLAVA_CARD, env={}, tag="llava tp2",
+                          profiles=(), cli=("--serve-tp", str(MESH_TP)),
+                          requests=[(label, body)], focus="flash_cached_", after=along)
+  counts, steps = run["launches"], run["steps"]
+  got = run["tokens"][0]
+  first = next((i for i in range(min(len(got), len(want))) if got[i] != want[i]), None)
+  verdict, tie = "equal", True
+  if first is not None:
+    row = seen["logits"][first]
+    gap, limit = abs(float(row[want[first]] - row[got[first]])), TIE_REL * float(np.abs(row).max())
+    tie = gap <= limit
+    verdict = (f"parts at {first}: logit gap {gap:.4g} against the near-tie bound {limit:.4g} "
+               f"({'a near tie' if tie else 'NOT a tie'})")
+  want_counts = {"flash_attention": MESH_TP * layers, "flash_cached_attention": MESH_TP * layers * steps}
+  ok = (counts == want_counts and tie and len(got) == len(want) and seen["mesh"] == {"tp": MESH_TP}
+        and steps >= run["decoded"])
+  print(f"[mesh vision] {LLAVA_CARD} over tp {MESH_TP} (mesh {seen['mesh']}): {label}: "
+        f"{len(got)} tokens, phase 19's single-card stream {verdict}; launches {counts} against "
+        f"{want_counts} (K1 = {MESH_TP} x {layers} x 1 prefill, K2 = {MESH_TP} x {layers} x "
+        f"{steps} decode steps); {'; '.join(run['timings'])} ({card}) {'ok' if ok else 'FAIL'}",
+        flush=True)
+  r = seen.get("row")
+  if r:
+    rest = r["total"] - sum(r[n] for n in ("preprocess_images", "encode_images",
+                                           "project_features", "forward_shard"))
+    print(f"[mesh vision] image TTFT split over tp {MESH_TP}: preprocessing on the host "
+          f"{r['preprocess_images']:.1f} ms, tower {r['encode_images']:.1f} ms, projector "
+          f"{r['project_features']:.1f} ms, merged prefill ({layers} layers, K1 at each "
+          f"position) {r['forward_shard']:.1f} ms, the rest of the call {rest:.1f} ms: the "
+          f"prefill call {r['total']:.1f} ms ({card})", flush=True)
+  if not ok:
+    raise AssertionError(f"mesh vision: launches {counts} (want {want_counts}), stream {verdict}")
+  print(f"[time] phase 25 (b), vision over tp {MESH_TP}: {time.perf_counter() - t0:.1f} s",
+        flush=True)
+  return counts
+
+
+def mesh_fabric(torch, card: str, device: str = "cuda", model: str = "synthetic-llama-1b",
+                tokens: int = MESH_FABRIC_TOKENS) -> dict:
+  """Phase 25 (d): the KV fabric over a mesh. Two servers (main.build_node, their APIs on
+  loopback): T over tp 2 (XOT_VIRTUAL_DEVICES=2, --serve-tp 2) and S on one card. T
+  prefills a `tokens`-token prompt and spills it to its host tier (whole leaves, JAX's
+  layout); S, given XOT_FABRIC_PEERS=T, streams a prompt sharing its head: one fabric
+  hit over /v1/kv, the imported entry's digest T's manifest's, and S's cold reference's
+  tokens (near-tie rule). Then the other way round: S spills another prompt and T imports
+  it from S's /v1/kv and streams its own cold reference's tokens. Returns K1/K2's
+  launches."""
+  import numpy as np
+  import xotorch_tpu_torch.fabric as fabric
+  from xotorch_tpu_torch import main as port_main
+  from xotorch_tpu_torch.models.registry import build_full_shard, get_model_card
+  from xotorch_tpu_torch.ops.flash_attention import flash_attention
+  from xotorch_tpu_torch.ops.flash_decode import flash_cached_attention
+  t_phase = time.perf_counter()
+  kernels = (flash_attention, flash_cached_attention)
+  for k in kernels:
+    k.launches = 0
+  env = {"XOT_PREFILL_CHUNK": "1024", "XOT_PREFIX_CACHE": "2", "XOT_PREFILL_COSCHED": "0",
+         "XOT_PAGED_KV": "0", "XOT_SERVE_TP": "0", "XOT_FABRIC_PEERS": ""}
+
+  def server(tp: int, peers: str = ""):
+    with phase_env(XOT_VIRTUAL_DEVICES=str(tp) if tp > 1 else "0", XOT_FABRIC_PEERS=peers):
+      args = port_main.build_parser().parse_args(
+        ["--device", device, "--default-model", model, "--chatgpt-api-host", "127.0.0.1",
+         "--chatgpt-api-port", "0", "--chatgpt-api-response-timeout", "600"]
+        + (["--serve-tp", str(tp)] if tp > 1 else []))
+      node, engine, _, api = port_main.build_node(args)
+    return node, engine, api
+
+  vocab = get_model_card(model)["synthetic_config"]["vocab_size"]
+  head_t = kv_ids(251, tokens, vocab)
+  head_s = kv_ids(252, tokens, vocab)
+  tail = kv_ids(253, 8, vocab)
+  lines = []
+
+  async def drive():
+    t_node, t_eng, t_api = server(MESH_TP)
+    t_srv = await t_api.start("127.0.0.1", 0)
+    t_url = f"http://127.0.0.1:{t_srv.sockets[0].getsockname()[1]}"
+    s_node, s_eng, s_api = server(1, peers=t_url)
+    s_srv = await s_api.start("127.0.0.1", 0)
+    s_url = f"http://127.0.0.1:{s_srv.sockets[0].getsockname()[1]}"
+    try:
+      for eng in (t_eng, s_eng):
+        await eng.ensure_shard(build_full_shard(model, type(eng).__name__))
+        eng._ctx.tokenizer = id_tokenizer()
+      tp = t_eng._ctx.mesh.axis_size("tp") if t_eng._ctx.mesh is not None else 1
+      if tp != MESH_TP or s_eng._ctx.mesh is not None:
+        raise AssertionError(f"mesh fabric: T's tp {tp}, S's mesh {s_eng._ctx.mesh}")
+      # T's peer list points at S for the way back: the client reads it when first built.
+      t_eng._fabric_peers = [s_url]
+      for src, dst, src_url, head, tag in ((t_eng, s_eng, t_url, head_t, "tp 2 -> one card"),
+                                           (s_eng, t_eng, s_url, head_s, "one card -> tp 2")):
+        prompt = head + tail
+        with cache_off(dst):
+          cold = await kv_generate(dst, "cold", prompt, MESH_FABRIC_NEW)
+        await kv_generate(src, "spill", head, 2)
+        await src._run(src._free_device_memory)
+        ctx_key, toks = next((c, t) for c, t in src._host_kv.snapshot_keys()
+                             if list(t[:len(head)]) == head)
+        key = fabric.entry_key(ctx_key, toks)
+        manifest = await asyncio.get_running_loop().run_in_executor(
+          None, http_json, f"{src_url}/v1/kv/{key}")
+        hits, nbytes = dst._fabric_hits, dst._fabric_bytes
+        t0 = time.perf_counter()
+        got = await kv_generate(dst, "warm", prompt, MESH_FABRIC_NEW)
+        secs = time.perf_counter() - t0
+        entry, _ = dst._host_kv.match(dst.shard, np.asarray(prompt), len(prompt) - 1)
+        same_digest = entry is not None and entry.digest == manifest["digest"]
+        share = await streams_agree(torch, dst, dst.shard, f"mesh fabric {tag}", prompt, cold, got,
+                                    card)
+        leaves = {leaf["name"]: leaf["shape"] for leaf in manifest["leaves"]}
+        whole = leaves.get("k", [0] * 5)[3] == dst._ctx.cfg.num_kv_heads
+        ok = dst._fabric_hits == hits + 1 and same_digest and entry.source == "fabric" and whole
+        lines.append(f"[mesh fabric] {tag}: a {len(head)}-token prefix spilled by "
+                     f"{'T' if src is t_eng else 'S'} (leaves {leaves}, "
+                     f"{sum(leaf['nbytes'] for leaf in manifest['leaves'])} bytes, digest "
+                     f"{manifest['digest'][:12]}), pulled over /v1/kv: fabric hits +"
+                     f"{dst._fabric_hits - hits}, {dst._fabric_bytes - nbytes} bytes, the imported "
+                     f"entry's digest the manifest's: {same_digest}; warm stream in {secs:.2f} s, "
+                     f"{100 * share:.1f}% of the cold reference's tokens ({card}) "
+                     f"{'ok' if ok else 'FAIL'}")
+        print(lines[-1], flush=True)
+        if not ok:
+          raise AssertionError(f"mesh fabric {tag}: hits {dst._fabric_hits - hits}, digest "
+                               f"{same_digest}")
+    finally:
+      for srv, node in ((t_srv, t_node), (s_srv, s_node)):
+        srv.close()
+        await srv.wait_closed()
+        await node.stop()
+      for eng in (t_eng, s_eng):
+        eng.executor.shutdown(wait=True)
+  with phase_env(**env):
+    asyncio.run(drive())
+  counts = {k.__name__: k.launches for k in kernels}
+  print(f"[time] phase 25 (d), the fabric over tp {MESH_TP}: {time.perf_counter() - t_phase:.1f} s; "
+        f"launches {counts}", flush=True)
+  return counts
+
+
+def check_mesh_paths(torch, card: str, main_run: dict, per_token: dict, llava: dict,
+                     device: str = "cuda") -> dict:
+  """Phase 25: the serving mesh's last paths, each mesh the one card repeated
+  (XOT_VIRTUAL_DEVICES): (a) mesh_paged_cut, (b) mesh_vision, (c) the fused ring over tp 2
+  (drive_ring_fused with tp=2: two Nodes, synthetic-llama-1b 8/8, graph replays, no
+  decline, phase 10 (c)'s streams, K2 = 2 x the one-card formula, the ring's verify of a
+  lookup draft, TPOT against the per-token ring on the same mesh), (d) mesh_fabric.
+  Returns the launches summed by wrapper."""
+  launches: dict = {}
+
+  def add(counts):
+    for name, n in counts.items():
+      launches[name] = launches.get(name, 0) + n
+  t0 = time.perf_counter()
+  add(mesh_paged_cut(torch, card, device))
+  add(mesh_vision(torch, card, llava, device))
+  # As phase 10 (c): cold one-call prefills (its launch formula), whatever phase 16 left.
+  with phase_env(XOT_PREFIX_CACHE="0", XOT_PREFILL_COSCHED="0"):
+    fused = drive_ring_fused(torch, card, main_run, per_token, device, tp=MESH_TP,
+                             node_counts=(2,))
+  for f in fused.values():
+    add(f["launches"])
+  add(mesh_fabric(torch, card, device))
+  print(f"[time] phase 25, the mesh's last paths: {time.perf_counter() - t0:.1f} s ({card})",
+        flush=True)
+  return launches
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--kernels-only", action="store_true",
@@ -9467,45 +10054,58 @@ def main(argv=None) -> int:
   print(f"[time] phases 1-18: {time.perf_counter() - started:.1f} s", flush=True)
 
   # Phase 19: the MoE and vision families from seeded checkpoints at their published
-  # widths; their attention and K6 launches join the results line.
-  for name, n in check_families(torch, card).items():
-    launches[name] = launches.get(name, 0) + n
-  print(f"[time] phases 1-19: {time.perf_counter() - started:.1f} s", flush=True)
+  # widths; their attention and K6 launches join the results line. The LLaVA checkpoint
+  # stays on disk for phase 25 (b), which removes it.
+  llava: dict = {}
+  try:
+    for name, n in check_families(torch, card, keep=llava).items():
+      launches[name] = launches.get(name, 0) + n
+    print(f"[time] phases 1-19: {time.perf_counter() - started:.1f} s", flush=True)
 
-  # Phase 20: multi-LoRA serving (adapter cuts against the CPU, main.py --adapters, the
-  # paged streams, an adapter over int4); its attention and K5 launches join the line.
-  adapter_streams: dict = {}
-  for name, n in check_adapters(torch, card, streams=adapter_streams).items():
-    launches[name] += n
-  print(f"[time] phases 1-20: {time.perf_counter() - started:.1f} s", flush=True)
+    # Phase 20: multi-LoRA serving (adapter cuts against the CPU, main.py --adapters, the
+    # paged streams, an adapter over int4); its attention and K5 launches join the line.
+    adapter_streams: dict = {}
+    for name, n in check_adapters(torch, card, streams=adapter_streams).items():
+      launches[name] += n
+    print(f"[time] phases 1-20: {time.perf_counter() - started:.1f} s", flush=True)
 
-  # Phase 21: training (K1b, the cut's gradients, main.py train and eval, the ring);
-  # its K1 and K1b launches join the results line.
-  trained: dict = {}
-  for name, n in check_training(torch, card, results, runs=trained).items():
-    launches[name] = launches.get(name, 0) + n
-  print(f"[time] phases 1-21: {time.perf_counter() - started:.1f} s", flush=True)
+    # Phase 21: training (K1b, the cut's gradients, main.py train and eval, the ring);
+    # its K1 and K1b launches join the results line.
+    trained: dict = {}
+    for name, n in check_training(torch, card, results, runs=trained).items():
+      launches[name] = launches.get(name, 0) + n
+    print(f"[time] phases 1-21: {time.perf_counter() - started:.1f} s", flush=True)
 
-  # Phase 22: the front door (the router over three replica processes: the KV fabric,
-  # prefill/decode chaining, failover and respawn); the replicas' K1-K4 launches join the
-  # results line.
-  for name, n in check_front_door(torch, card)["launches"].items():
-    launches[name] += n
-  print(f"[time] phases 1-22: {time.perf_counter() - started:.1f} s", flush=True)
+    # Phase 22: the front door (the router over three replica processes: the KV fabric,
+    # prefill/decode chaining, failover and respawn); the replicas' K1-K4 launches join the
+    # results line.
+    for name, n in check_front_door(torch, card)["launches"].items():
+      launches[name] += n
+    print(f"[time] phases 1-22: {time.perf_counter() - started:.1f} s", flush=True)
 
-  # Phase 23: tensor, sequence and expert parallelism over meshes of the one card, and the
-  # multihost seam; the tp servers' K1-K4 launches join the results line.
-  for name, n in check_parallel(torch, card, main_run).items():
-    launches[name] += n
-  print(f"[time] phases 1-23: {time.perf_counter() - started:.1f} s", flush=True)
+    # Phase 23: tensor, sequence and expert parallelism over meshes of the one card, and the
+    # multihost seam; the tp servers' K1-K4 launches join the results line.
+    for name, n in check_parallel(torch, card, main_run).items():
+      launches[name] += n
+    print(f"[time] phases 1-23: {time.perf_counter() - started:.1f} s", flush=True)
 
-  # Phase 24: training over meshes of the one card; the tp runs' K1, K1b and K2 launches
-  # join the results line.
-  for name, n in check_mesh_training(torch, card, trained, adapter_streams).items():
-    launches[name] = launches.get(name, 0) + n
-  print(f"[time] phases 1-24: {time.perf_counter() - started:.1f} s", flush=True)
+    # Phase 24: training over meshes of the one card; the tp runs' K1, K1b and K2 launches
+    # join the results line.
+    for name, n in check_mesh_training(torch, card, trained, adapter_streams).items():
+      launches[name] = launches.get(name, 0) + n
+    print(f"[time] phases 1-24: {time.perf_counter() - started:.1f} s", flush=True)
 
-  # Phase 25: results.
+    # Phase 25: the serving mesh's last paths (a paged cut at 16 groups and page 8, vision,
+    # the fused ring and the KV fabric over tp 2); their kernels' launches join the line.
+    for name, n in check_mesh_paths(torch, card, main_run, per_token, llava).items():
+      launches[name] = launches.get(name, 0) + n
+    print(f"[time] phases 1-25: {time.perf_counter() - started:.1f} s", flush=True)
+  finally:
+    if llava.get("tmp"):
+      import shutil
+      shutil.rmtree(llava["tmp"], ignore_errors=True)
+
+  # Phase 26: results.
   meta = {
     "flash_attention": ("xotorch_tpu_torch/csrc/flash_attention.cu",
                         "xotorch_tpu/ops/flash_attention.py:54"),

@@ -278,11 +278,11 @@ def test_paged_kernel_wrappers_refuse_what_they_cannot_launch():
   assert paged_attention.paged_prefill_attention.launches == 0
 
 
-@pytest.mark.parametrize("Hq,refusal", [(32, "q heads per kv head exceed 8"), (16, "cuda or cpu")])
+@pytest.mark.parametrize("Hq,refusal", [(130, "q heads per kv head exceed 64"), (32, "cuda or cpu"),
+                                         (16, "cuda or cpu")])
 def test_paged_prefill_takes_at_most_eight_groups(Hq, refusal):
-  """K4's blocks pack at most 8 query heads per kv head (as K3's): more raise
-  ValueError in the wrapper before the device is looked at; 8 pass on to the device
-  check."""
+  """K4 (as K3, and K2) takes at most 64 query heads per kv head: more raise ValueError
+  in the wrapper before the device is looked at; 16 and 8 pass on to the device check."""
   q = torch.empty(2, 20, Hq, 16, dtype=torch.bfloat16, device="meta")
   pages = torch.empty(8, 16, 2, 16, dtype=torch.bfloat16, device="meta")
   table = torch.zeros(2, 4, dtype=torch.int32, device="meta")
@@ -290,3 +290,40 @@ def test_paged_prefill_takes_at_most_eight_groups(Hq, refusal):
   with pytest.raises(ValueError, match=refusal):
     paged_attention.paged_prefill_attention(q, pages, pages, table, lens)
   assert paged_attention.paged_prefill_attention.launches == 0
+
+
+
+@pytest.mark.parametrize("page", [8, 24])
+@pytest.mark.parametrize("Hq,Hkv", [(24, 2), (32, 2)], ids=["groups12", "groups16"])
+@pytest.mark.parametrize("kind", ["decode", "prefill"])
+def test_paged_plain_versions_at_any_page_and_group_count(kind, Hq, Hkv, page):
+  """K3's and K4's plain versions at pages 8 and 24 (JAX's pool takes any page; its own
+  tests run 8) and at 12 and 16 q heads per kv head (mistral-large's and
+  llama-3.1-405b's groups) against JAX's Pallas kernels in interpret mode (every case
+  here is one JAX's kernel takes) and JAX's XLA path, over shuffled tables, windowed and
+  softcapped: within ATOL in fp32. K4's segments start from 0 and mid-page, and T = 13
+  rows times 12 groups cross the card kernel's 64-row blocks mid-position."""
+  rng = np.random.default_rng(26 + page + Hq)
+  D, maxp = 16, -(-130 // page) + 1
+  P = 3 * maxp + 2
+  kp, vp = _arena(rng, P, page, Hkv, D)
+  for window, softcap in ((0, 0.0), (9, 20.0)):
+    win = jnp.int32(window) if window else None
+    if kind == "decode":
+      lengths = np.array([1, page + 1, 130], np.int32)
+      fn, port = j_paged.paged_decode_attention, paged_attention.paged_decode_attention
+      q = rng.standard_normal((3, 1, Hq, D)).astype(np.float32)
+      extra = ()
+    else:
+      T, lengths = 13, np.array([13, page + 20, 130], np.int32)
+      fn, port = j_paged.paged_prefill_attention, paged_attention.paged_prefill_attention
+      q = rng.standard_normal((3, T, Hq, D)).astype(np.float32)
+      extra = ((lengths[:, None] - T + np.arange(T)[None, :]).astype(np.int32),)
+    table = _shuffled_table(rng, P, lengths, page, maxp)
+    jargs = tuple(jnp.asarray(a) for a in (q, kp, vp, table) + extra + (lengths,))
+    want_kernel = fn(*jargs, softcap=softcap, use_kernel=True, interpret=True, window=win)
+    want_xla = fn(*jargs, softcap=softcap, window=win)
+    got = port(*(torch.from_numpy(a) for a in (q, kp, vp, table, lengths)), window=window,
+               softcap=softcap)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_kernel), atol=ATOL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(want_xla), atol=ATOL)

@@ -14,8 +14,9 @@ the partial sums of a tp position add in another order), and to JAX's engine ove
 same mesh on the same weights. The paged tests run for the bf16-layout arena and the
 int8 one (K3/K4's plain versions, and K3q/K4q's): the port's counterpart of JAX's
 XLA-gather / Pallas-kernel parameter, whose legacy gathered read the port does not
-have. Each path the port does not serve under a mesh is refused, and a test below
-shows each refusal; training and LoRA over a mesh are tests/test_torch_parallel_train.py's.
+have. The paths served over a mesh since (the fused ring, the KV fabric, vision) and an
+engine inside a process group are tests/test_torch_mesh_paths.py's; training and LoRA
+over a mesh are tests/test_torch_parallel_train.py's.
 """
 import asyncio
 import os
@@ -169,16 +170,16 @@ async def test_tp_paged_stream_byte_identical(tiny_model_dir, monkeypatch, kv_qu
   """Paged path: tp=2 equals tp-off byte for byte (and JAX's tp=2 engine on the bf16
   arena), the request stays page-native on the SHARDED arena (zero unpage gathers,
   zero commit-copy bytes), and the pool invariants hold."""
-  extra = {"XOT_PAGED_KV": "1", **({"XOT_KV_QUANT": kv_quant} if kv_quant else {})}
+  extra = {"XOT_PAGED_KV": "1", "XOT_KV_PAGE": "8",  # JAX's own tests' page, both packages
+           **({"XOT_KV_QUANT": kv_quant} if kv_quant else {})}
   _env(monkeypatch, 0, **extra)
   off = await _greedy_stream(_engine(tiny_model_dir), "r", 12)
   _env(monkeypatch, 2, **extra)
   eng = _engine(tiny_model_dir)
   got = await _greedy_stream(eng, "r", 12)
-  assert _tp(eng) == 2
+  assert _tp(eng) == 2 and eng._ctx.page_pool.page_size == 8
   assert got == off, f"{got} != {off}"
   if not kv_quant:
-    monkeypatch.setenv("XOT_KV_PAGE", "8")  # JAX's page; the port's kernels take 16 or 128
     assert got == await _greedy_stream(_jax_engine(tiny_model_dir), "r", 12)
   ctx = eng._contexts[_full_shard()]
   state, pool = ctx.states["r"], ctx.page_pool
@@ -610,74 +611,19 @@ def test_serve_ep_cli_flag(monkeypatch):
           os.environ["XOT_SERVE_SP"]) == ("4", "2", "2")
 
 
-# ------------------------------------------------------------------ refusals
-
-
-@pytest.mark.parametrize("knob,value", [("XOT_FABRIC_PEERS", "http://127.0.0.1:1"),
-                                        ("XOT_FABRIC_ROLE", "prefill")])
-def test_mesh_refuses_knob_paths_when_built(knob, value, monkeypatch):
-  """The KV fabric is not served over a mesh: the engine refuses it when it is built,
-  naming the knob; without a mesh it builds. (LoRA over a mesh serves and trains:
-  tests/test_torch_parallel_train.py.)"""
-  monkeypatch.setenv(knob, value)
-  monkeypatch.setenv("XOT_TP", "2")
-  with pytest.raises(ValueError, match=knob):
-    TorchShardInferenceEngine(device="cpu")
-  monkeypatch.setenv("XOT_TP", "0")
-  TorchShardInferenceEngine(device="cpu").executor.shutdown(wait=True)
-
-
-async def test_mesh_refuses_called_paths(monkeypatch):
-  """The fused in-process ring and the fabric's transfers refuse under a mesh request
-  with a ValueError naming the mesh knobs, and the engine offers no ring fusion; a
-  multimodal model refuses when its shard loads. (Training, evaluation and checkpoints
-  over a mesh run: tests/test_torch_parallel_train.py.)"""
-  monkeypatch.setenv("XOT_TP", "2")
-  eng = TorchShardInferenceEngine(device="cpu")
-  shard = Shard("synthetic-tiny", 0, 3, 4)
-  assert eng.supports_ring_fusion is False
-  calls = [eng.generate_chunk_ring("r", [(eng, shard)], 1, 4),
-           eng.verify_draft_ring("r", [(eng, shard)], 1, [2]),
-           eng.prefill_export(shard, "hello")]
-  for call in calls:
-    with pytest.raises(ValueError, match="XOT_TP"):
-      await call
-  with pytest.raises(ValueError, match="XOT_TP"):
-    eng.fabric_offer(shard, np.arange(4), 4, 16, "http://127.0.0.1:1")
-  cfg = config_from_hf_dict(get_model_card("synthetic-tiny")["synthetic_config"])
-  import dataclasses
-  with pytest.raises(ValueError, match="vision"):
-    monkeypatch.setattr(engine_mod, "config_from_hf_dict",
-                        lambda d: dataclasses.replace(cfg, vision=object()))
-    await eng.ensure_shard(shard)
-  eng.executor.shutdown(wait=True)
+# ------------------------------------------------------------------ no mesh by default
 
 
 async def test_unset_tp_serves_one_position(tiny_model_dir, monkeypatch):
   """With no mesh knob set, eight local devices leave the engine on one position (JAX
-  takes every local card; the port's auto-tp waits for a run over distinct cards), and
-  nothing is refused."""
+  takes every local card; the port's auto-tp waits for a run over distinct cards)."""
   for knob in ("XOT_TP", "XOT_SERVE_TP"):
     monkeypatch.delenv(knob, raising=False)
   eng = _engine(tiny_model_dir)
-  assert len(eng._local_devices) == 8 and not eng._mesh_requested()
-  assert eng.supports_ring_fusion is not False
+  assert len(eng._local_devices) == 8
   await eng.ensure_shard(_full_shard())
   assert eng._ctx.mesh is None
   eng.executor.shutdown(wait=True)
-
-
-def test_process_group_refused_when_built(monkeypatch):
-  """A process group of more than one process (XOT_COORDINATOR, XOT_MULTIHOST) is
-  refused when the engine is built: the serving mesh does not span processes, and each
-  rank would serve its shard alone. A group of one builds."""
-  import torch.distributed as dist
-  monkeypatch.setattr(dist, "is_initialized", lambda: True)
-  monkeypatch.setattr(dist, "get_world_size", lambda group=None: 2)
-  with pytest.raises(ValueError, match="XOT_COORDINATOR/XOT_MULTIHOST"):
-    TorchShardInferenceEngine(device="cpu")
-  monkeypatch.setattr(dist, "get_world_size", lambda group=None: 1)
-  TorchShardInferenceEngine(device="cpu").executor.shutdown(wait=True)
 
 
 def test_graph_capture_refused_across_devices():

@@ -1,8 +1,8 @@
 """What the port refuses, and where, on the CPU.
 
 - Kernel shape limits (no CUDA kernel takes them) raise ValueError when the engine
-  is built (tile knobs, the page size) or when a shard is loaded (head_dim and q heads
-  per kv head, which only the model's config knows), never at a launch in the middle
+  is built (tile knobs, a page of no position) or when a shard is loaded (head_dim and
+  q heads per kv head, which only the model's config knows), never at a launch in the middle
   of a request: the CPU runs the plain versions and would never see them there.
 - The chat API serves every request field the JAX package serves (stop, seed, the
   sampling extras, logprobs, n, tools) with the JAX handler's validation: an invalid
@@ -41,8 +41,8 @@ def _clean_env(monkeypatch):
 # ------------------------------------------------------------------ F1: engine build
 
 @pytest.mark.parametrize("env,refusal", [
-  ({"XOT_PAGED_KV": "1", "XOT_KV_PAGE": "8"}, "XOT_KV_PAGE=8"),
-  ({"XOT_PAGED_KV": "1", "XOT_KV_PAGE": "64"}, "XOT_KV_PAGE=64"),
+  ({"XOT_PAGED_KV": "1", "XOT_KV_PAGE": "0"}, "XOT_KV_PAGE=0"),
+  ({"XOT_PAGED_KV": "1", "XOT_KV_PAGE": "-8"}, "XOT_KV_PAGE=-8"),
   ({"XOT_FLASH_BLOCK_Q": "32"}, "XOT_FLASH_BLOCK_Q=32"),
   ({"XOT_FLASH_BLOCK_K": "256"}, "XOT_FLASH_BLOCK_K=256"),
   ({"XOT_FD_BLOCK_Q": "256"}, "XOT_FD_BLOCK_Q=256"),
@@ -60,6 +60,9 @@ def test_engine_refuses_kernel_knobs_when_built(monkeypatch, env, refusal):
 @pytest.mark.parametrize("env", [
   {"XOT_PAGED_KV": "1", "XOT_KV_PAGE": "16"},
   {"XOT_PAGED_KV": "0", "XOT_KV_PAGE": "8"},  # no pool, no paged kernel
+  {"XOT_PAGED_KV": "1", "XOT_KV_PAGE": "8"},  # K3/K4 take any page, as JAX's pool
+  {"XOT_PAGED_KV": "1", "XOT_KV_PAGE": "24"},
+  {"XOT_PAGED_KV": "1", "XOT_KV_PAGE": "64"},
   {"XOT_FLASH_BLOCK_Q": "64", "XOT_FLASH_BLOCK_K": "64"},
   {"XOT_FD_BLOCK_Q": "64", "XOT_FD_BLOCK_K": "64"},
   {"XOT_FD_BLOCK_K": "4096"},
@@ -83,7 +86,7 @@ def _card(heads: int, kv_heads: int, head_dim: int) -> dict:
   ("0", 4, 2, 48, "head_dim 48"),  # K1/K2 are built for 16, 32, 64, 128, 256
   ("0", 130, 2, 16, "65 q heads per kv head"),  # K2 takes at most 64
   ("1", 4, 2, 48, "head_dim 48"),  # K3/K4 are built for the same head_dims as K1/K2
-  ("1", 32, 2, 16, "16 q heads per kv head under XOT_PAGED_KV=1"),  # K3/K4 take at most 8
+  ("1", 130, 2, 16, "65 q heads per kv head under XOT_PAGED_KV=1"),  # K3/K4 take K2's 64
 ])
 async def test_shard_load_refuses_shapes_the_kernels_lack(monkeypatch, paged, heads, kv_heads,
                                                           head_dim, refusal):
@@ -102,9 +105,10 @@ async def test_shard_load_refuses_shapes_the_kernels_lack(monkeypatch, paged, he
 
 @pytest.mark.parametrize("paged", ["0", "1"])
 async def test_shard_load_takes_the_kernels_shapes(monkeypatch, paged):
-  """32 heads over 2 kv heads (16 groups) load contiguous, 8 groups load paged too."""
+  """32 heads over 2 kv heads (16 groups, llama-3.1-405b's) load contiguous; 24 over 2
+  (12 groups, mistral-large's, which 64-row K4 blocks cut mid-position) load paged."""
   monkeypatch.setitem(registry.model_cards, "synthetic-taken",
-                      _card(16 if paged == "1" else 32, 2, 32 if paged == "0" else 16))
+                      _card(24 if paged == "1" else 32, 2, 32 if paged == "0" else 16))
   monkeypatch.setenv("XOT_PAGED_KV", paged)
   monkeypatch.setenv("XOT_KV_PAGE", "16")
   engine = TorchShardInferenceEngine(device="cpu", dtype="float32", seed=0)

@@ -27,6 +27,10 @@
 //   dimensions and reads V rows from the tile. Every warp keeps an online-softmax state
 //   per row in registers; the block merges its warps' states in shared memory and
 //   writes one fp32 partial (m, l, acc[D]) per (row, split).
+// - More q heads than 8 a kv head (K3's groups of 12, 16, ... up to 32 a block): the
+//   block holds `nb` row blocks of 8 rows, two warps each (64 nb threads). The first
+//   two warps stage each tile once and every warp pair scores it against its own row
+//   block, so a tile is read from memory once for all of them, not once a row block.
 // - merge_splits_kernel, launched next on the same stream, combines a row's partials
 //   (one warp a row): M = max m, L = sum l e^(m - M), O = sum acc e^(m - M), out = O / L
 //   with JAX's l == 0 -> 1 guard, rounded once to bf16.
@@ -41,17 +45,21 @@ using bf16 = __nv_bfloat16;
 constexpr int KT = 64;             // keys a staged tile; a split is whole tiles
 constexpr int WARPS = KT / 32;     // warp w scores keys [32 w, 32 w + 32) of a tile
 constexpr int THREADS = WARPS * 32;
-constexpr int RB = 8;              // q rows (q heads of one kv head) a block
+constexpr int RB = 8;              // q rows (q heads of one kv head) a row block
+constexpr int MAX_NB = 4;          // row blocks one block holds (two warps each)
 constexpr unsigned FULL = 0xffffffffu;
 
 template <int D>
 struct Smem {
   static constexpr int DS = D + 8;           // bf16 row stride of a tile
   static constexpr int STAGE = 2 * KT * DS;  // K tile, then V tile
-  // Two stages, then the q rows in fp32. The warps' merge reuses the first stage.
-  static constexpr size_t BYTES =
-      2 * (size_t)STAGE * sizeof(bf16) + (size_t)RB * D * sizeof(float);
-  static_assert((size_t)WARPS * RB * (D + 2) * sizeof(float) <= STAGE * sizeof(bf16),
+  // Two stages, then the q rows of nb row blocks in fp32. The warps' merge reuses the
+  // first stage.
+  static constexpr size_t bytes(int nb) {
+    return 2 * (size_t)STAGE * sizeof(bf16) + (size_t)nb * RB * D * sizeof(float);
+  }
+  static constexpr size_t BYTES = bytes(1);
+  static_assert((size_t)WARPS * MAX_NB * RB * (D + 2) * sizeof(float) <= STAGE * sizeof(bf16),
                 "the warps' states fit one stage");
 };
 
@@ -67,13 +75,15 @@ __device__ __forceinline__ float warp_sum(float x) {
   return x;
 }
 
-// Attend q rows [0, rows) (rows <= R <= RB, row r's bf16 vector at q + r * D) of the
-// query at position p over the visible keys [max(lo, s0), min(p + 1, s1)) of one split,
-// s0 a multiple of KT. The block computes R rows (the q rows past `rows` read as zeros),
-// so no row loop holds a branch and the rows' shuffles overlap; it writes rows
-// [0, rows). Row r's partial goes to part_acc[(idx0 + r * stride) * D + d] and
-// part_ml[(idx0 + r * stride) * 2 + {0: m, 1: l}]. load(ks, vs, k0, a, e) stages the
-// tile of positions [k0, k0 + KT) into one stage (ks, then vs), every position outside
+// Attend q rows [0, rows) (rows <= nb * R, R <= RB, row r's bf16 vector at q + r * D)
+// of the query at position p over the visible keys [max(lo, s0), min(p + 1, s1)) of one
+// split, s0 a multiple of KT. The block holds nb row blocks of R rows (nb * THREADS
+// threads; nb > 1 only at R = RB): warps 2 b and 2 b + 1 compute rows [b R, b R + R)
+// (the q rows past `rows` read as zeros), so no row loop holds a branch and the rows'
+// shuffles overlap; it writes rows [0, rows). Row r's partial goes to
+// part_acc[(idx0 + r * stride) * D + d] and part_ml[(idx0 + r * stride) * 2 + {0: m,
+// 1: l}]. load(ks, vs, k0, a, e), called by the first THREADS threads, stages the tile
+// of positions [k0, k0 + KT) into one stage (ks, then vs), every position outside
 // [a, e) zeroed, by cp.async (it commits nothing itself), or fetches it into registers
 // for land(ks, vs) to store once the tile before it is computed.
 template <int D, int R, class Load, class Land>
@@ -82,18 +92,23 @@ __device__ __forceinline__ void attend_split(const bf16* __restrict__ q, int row
                                              float softcap, float* __restrict__ part_acc,
                                              float* __restrict__ part_ml, size_t idx0,
                                              int stride, unsigned char* smem,
-                                             const Load& load, const Land& land) {
-  static_assert(R >= 1 && R <= RB, "rows a block");
+                                             const Load& load, const Land& land,
+                                             int nb = 1) {
+  static_assert(R >= 1 && R <= RB, "rows a row block");
   using SM = Smem<D>;
   constexpr int DS = SM::DS;
   constexpr int NP = (D / 2 + 31) / 32;  // dimension pairs a lane owns in P.V
   const int tid = threadIdx.x;
+  const int nthreads = nb * THREADS;
   const int warp = tid / 32;
+  const int kw = warp % WARPS;  // the warp's keys of each tile: [32 kw, 32 kw + 32)
+  const int gb = warp / WARPS;  // the warp's row block: rows [gb R, gb R + R)
   const int lane = tid % 32;
+  const bool loader = tid < THREADS;
   const int a = max(lo, s0);
   const int e = min(p + 1, s1);
   if (a >= e) {  // no visible key in this split (uniform across the block)
-    for (int r = tid; r < rows; r += THREADS) {
+    for (int r = tid; r < rows; r += nthreads) {
       part_ml[(idx0 + (size_t)r * stride) * 2] = -INFINITY;
       part_ml[(idx0 + (size_t)r * stride) * 2 + 1] = 0.f;
     }
@@ -101,17 +116,21 @@ __device__ __forceinline__ void attend_split(const bf16* __restrict__ q, int row
   }
   bf16* stage0 = reinterpret_cast<bf16*>(smem);
   bf16* stage1 = stage0 + SM::STAGE;
-  float* qs = reinterpret_cast<float*>(stage1 + SM::STAGE);  // [R][D]
+  float* qs = reinterpret_cast<float*>(stage1 + SM::STAGE);  // [nb R][D]
+  const float* qw = qs + gb * R * D;                          // the warp's row block
 
   int k0 = a - (a - s0) % KT;  // the tile that holds a
-  load(stage0, stage0 + KT * DS, k0, a, e);
-  land(stage0, stage0 + KT * DS);
+  if (loader) {
+    load(stage0, stage0 + KT * DS, k0, a, e);
+    land(stage0, stage0 + KT * DS);
+  }
   xot_mma::cp_async_commit();
-  // q rows to fp32, 8 values a 16-byte load; a fixed trip count keeps the loads together.
+  // q rows to fp32, 8 values a 16-byte load; a fixed trip count keeps the loads together
+  // (nb row blocks take nb times the threads: the same count).
 #pragma unroll
   for (int i0 = 0; i0 < R * D / 8; i0 += THREADS) {
-    const int i = i0 + tid;
-    if (i < R * D / 8) {
+    const int i = i0 * nb + tid;
+    if (i < nb * R * D / 8) {
       uint4 raw = make_uint4(0u, 0u, 0u, 0u);
       if (i < rows * D / 8) raw = *reinterpret_cast<const uint4*>(q + 8 * i);
       const __nv_bfloat162* h2 = reinterpret_cast<const __nv_bfloat162*>(&raw);
@@ -136,7 +155,7 @@ __device__ __forceinline__ void attend_split(const bf16* __restrict__ q, int row
     const bf16* cur = (it & 1) ? stage1 : stage0;
     if (k0 + KT < e) {
       bf16* nxt = (it & 1) ? stage0 : stage1;
-      load(nxt, nxt + KT * DS, k0 + KT, a, e);
+      if (loader) load(nxt, nxt + KT * DS, k0 + KT, a, e);
       xot_mma::cp_async_commit();
       xot_mma::cp_async_wait<1>();
     } else {
@@ -144,11 +163,11 @@ __device__ __forceinline__ void attend_split(const bf16* __restrict__ q, int row
     }
     __syncthreads();  // tile k0 (and, the first time, q) is in shared memory
 
-    const int c0 = k0 + 32 * warp;  // this warp's chunk
+    const int c0 = k0 + 32 * kw;  // this warp's chunk
     if (c0 < e && c0 + 32 > a) {    // it holds a visible key, so every max below is finite
       const int kp = c0 + lane;
       const bool vis = kp >= a && kp < e;
-      const bf16* krow = cur + (32 * warp + lane) * DS;
+      const bf16* krow = cur + (32 * kw + lane) * DS;
       float s[R];
 #pragma unroll
       for (int r = 0; r < R; ++r) s[r] = 0.f;
@@ -165,8 +184,8 @@ __device__ __forceinline__ void attend_split(const bf16* __restrict__ q, int row
         }
 #pragma unroll
         for (int r = 0; r < R; ++r) {
-          const float4 qa = *reinterpret_cast<const float4*>(qs + r * D + 8 * w);
-          const float4 qb = *reinterpret_cast<const float4*>(qs + r * D + 8 * w + 4);
+          const float4 qa = *reinterpret_cast<const float4*>(qw + r * D + 8 * w);
+          const float4 qb = *reinterpret_cast<const float4*>(qw + r * D + 8 * w + 4);
           float x = s[r];
           x = fmaf(qa.x, kf[0], x);
           x = fmaf(qa.y, kf[1], x);
@@ -195,7 +214,7 @@ __device__ __forceinline__ void attend_split(const bf16* __restrict__ q, int row
         for (int i = 0; i < 2 * NP; ++i) acc[r][i] *= alpha;
         m[r] = m_new;
       }
-      const bf16* vt = cur + KT * DS + 32 * warp * DS;
+      const bf16* vt = cur + KT * DS + 32 * kw * DS;
 #pragma unroll 4
       for (int j = 0; j < 32; ++j) {
         float2 vf[NP];
@@ -218,44 +237,49 @@ __device__ __forceinline__ void attend_split(const bf16* __restrict__ q, int row
       }
     }
     // A fetched tile lands in the stage the previous iteration consumed.
-    if (k0 + KT < e) land((it & 1) ? stage0 : stage1, ((it & 1) ? stage0 : stage1) + KT * DS);
+    if (loader && k0 + KT < e) {
+      land((it & 1) ? stage0 : stage1, ((it & 1) ? stage0 : stage1) + KT * DS);
+    }
     __syncthreads();  // this stage is consumed: the next prefetch may overwrite it
   }
 
   // Merge the warps' states in the first stage. A warp that took no chunk holds
-  // m = -inf and weighs nothing; at least one warp holds the split's first visible key.
-  float* wml = reinterpret_cast<float*>(stage0);  // [WARPS][R][2]
-  float* wacc = wml + 2 * WARPS * R;              // [WARPS][R][D]
+  // m = -inf and weighs nothing; at least one warp of each row block holds the split's
+  // first visible key. Row r of the block's nb R rows is (row block r / R, row r % R).
+  const int RT = nb * R;
+  float* wml = reinterpret_cast<float*>(stage0);  // [WARPS][nb R][2]
+  float* wacc = wml + 2 * WARPS * RT;             // [WARPS][nb R][D]
 #pragma unroll
   for (int r = 0; r < R; ++r) {
+    const int row = gb * R + r;
     if (lane == 0) {
-      wml[(warp * R + r) * 2] = m[r];
-      wml[(warp * R + r) * 2 + 1] = l[r];
+      wml[(kw * RT + row) * 2] = m[r];
+      wml[(kw * RT + row) * 2 + 1] = l[r];
     }
 #pragma unroll
     for (int i = 0; i < NP; ++i) {
       const int dp = lane + 32 * i;
       if (dp < D / 2) {
-        reinterpret_cast<float2*>(wacc + (size_t)(warp * R + r) * D)[dp] =
+        reinterpret_cast<float2*>(wacc + (size_t)(kw * RT + row) * D)[dp] =
             make_float2(acc[r][2 * i], acc[r][2 * i + 1]);
       }
     }
   }
   __syncthreads();
-  for (int i = tid; i < rows * D; i += THREADS) {
+  for (int i = tid; i < rows * D; i += nthreads) {
     const int r = i / D;
     const int d = i % D;
     float M = -INFINITY;
 #pragma unroll
-    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, wml[(w * R + r) * 2]);
+    for (int w = 0; w < WARPS; ++w) M = fmaxf(M, wml[(w * RT + r) * 2]);
     float L = 0.f, O = 0.f;
 #pragma unroll
     for (int w = 0; w < WARPS; ++w) {
-      const float mw = wml[(w * R + r) * 2];
+      const float mw = wml[(w * RT + r) * 2];
       if (mw == -INFINITY) continue;
       const float wt = __expf(mw - M);
-      L += wml[(w * R + r) * 2 + 1] * wt;
-      O += wacc[(size_t)(w * R + r) * D + d] * wt;
+      L += wml[(w * RT + r) * 2 + 1] * wt;
+      O += wacc[(size_t)(w * RT + r) * D + d] * wt;
     }
     const size_t idx = idx0 + (size_t)r * stride;
     part_acc[idx * D + d] = O;
@@ -266,10 +290,18 @@ __device__ __forceinline__ void attend_split(const bf16* __restrict__ q, int row
   }
 }
 
-// The rows one split block computes for `groups` q heads per kv head: the power of two
-// at or above min(groups, RB), so a block pads at most to the next power of two.
+// The rows one split block's row blocks hold for `groups` q heads per kv head: the power
+// of two at or above min(groups, RB), so a row block pads at most to the next power of
+// two.
 __host__ __forceinline__ int rows_per_block(int groups) {
   return groups <= 1 ? 1 : groups <= 2 ? 2 : groups <= 4 ? 4 : RB;
+}
+
+// The row blocks of RB rows one block holds for `groups` q heads per kv head (1 up to RB
+// groups), at most MAX_NB: above MAX_NB * RB groups a kv head's rows take several
+// blocks, each reading the tiles once.
+__host__ __forceinline__ int row_blocks(int groups) {
+  return groups <= RB ? 1 : min(MAX_NB, (groups + RB - 1) / RB);
 }
 
 // Row bh in [0, rows_total) (b * Hq + h) of the output o [B, 1, Hq, D]: its `splits`

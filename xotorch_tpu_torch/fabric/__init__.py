@@ -5,7 +5,10 @@ KV tier (kv_offload.HostKVStore); the fabric makes them one warm set. A replica 
 a spilled prefix entry in the canonical contiguous [L, 1, T, Hkv, D] layout, a sibling
 imports it with its content digest verified and restores it through the engine's own
 host-tier path (engine._host_promote: fresh pool pages or a snapshot), so a remote hit
-is the same restore as a local one.
+is the same restore as a local one. An engine on a serving mesh keeps whole leaves in
+its tier too (its tp pieces joined along the kv heads on spill, split again on
+restore: kv_offload.join_pieces / split_pieces), so an entry, its digest and its blob
+do not depend on either side's mesh.
 
 Everything here is numpy and JSON over bytes, testable without a socket:
 

@@ -174,12 +174,15 @@ base is split. `train_example` and `evaluate_example` run the training forward o
 mesh (each tp position's K1 and K1b on its heads), the optimizer is a
 parallel/zero.MeshAdamW over the pieces, and `load_checkpoint` / `save_checkpoint`
 read and write the single device's files (whole leaves, gathered from the pieces; the
-moments file in JAX's layout). What JAX's mesh tests do not cover is refused with a
-ValueError naming the knob: the KV fabric (XOT_FABRIC_PEERS, XOT_FABRIC_ROLE) when the
-engine is built; vision when a multimodal shard loads; the fused in-process ring and
-fabric transfers when called. A process group of more than one process
-(XOT_COORDINATOR, XOT_MULTIHOST) is refused when the engine is built: the serving mesh
-does not span processes yet, and each rank would serve its shard alone.
+moments file in JAX's layout). Every path JAX serves under its mesh serves here too:
+vision (the tower and projector once on the engine's device, unsharded; the merged
+sequence a replicated hidden input, by ring attention under sp), the fused in-process
+ring (segments on meshes or not, each program keyed by every segment's mesh) and the
+KV fabric (the host tier holds whole leaves, JAX's layout: kv_offload.join_pieces on
+spill, split_pieces on restore, so a tp replica and a single-card one, of either
+package, import each other's entries). An engine inside a process group (XOT_COORDINATOR,
+XOT_MULTIHOST; main.py joins it) serves its own local mesh as its own peer, as every
+rank of JAX's main.py does.
 
 Left out so far: `forward_paged` and XOT_PAGED_KERNEL (the card always takes the paged
 kernels).
@@ -208,7 +211,8 @@ from xotorch_tpu_torch.inference.shard import Shard
 from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer, tokenizer_for_dir
 from xotorch_tpu_torch.inference.torch_engine import vkv
 from xotorch_tpu_torch.inference.torch_engine.costmodel import CostModel, PerfAttribution, _Ewma, dtype_width
-from xotorch_tpu_torch.inference.torch_engine.kv_offload import HostKVStore, common_prefix_len
+from xotorch_tpu_torch.inference.torch_engine.kv_offload import (HostKVStore, common_prefix_len,
+                                                                join_pieces, split_pieces)
 from xotorch_tpu_torch.inference.torch_engine.paged_cache import (PagePool, commit_pages, from_host,
                                                                   gather_pages, migrate_pages,
                                                                   scatter_pages, to_host)
@@ -233,9 +237,8 @@ from xotorch_tpu_torch.ops import flash_attention, flash_decode, paged_attention
 from xotorch_tpu_torch.ops.sampling import (DEFAULT_TEMP, DEFAULT_TOP_K, sample_logits,
                                             sample_logits_logprobs)
 from xotorch_tpu_torch.parallel.mesh import (Mesh, MeshParams, cache_device, device_bytes,
-                                             gather_params, local_devices, make_mesh, piece_name,
+                                             gather_params, local_devices, make_mesh,
                                              shard_params, with_layers)
-from xotorch_tpu_torch.parallel.multihost import group_size
 from xotorch_tpu_torch.topology.device_capabilities import cuda_chip_peaks
 from xotorch_tpu_torch.train import lora, optstate
 from xotorch_tpu_torch.train import step as train_step
@@ -536,9 +539,9 @@ class TorchShardInferenceEngine(InferenceEngine):
     self.batch_window_s = knobs.get_float("XOT_BATCH_WINDOW_MS") / 1000.0
     self.paged = knobs.get_bool("XOT_PAGED_KV")
     self.kv_page = knobs.get_int("XOT_KV_PAGE")
-    if self.paged and self.kv_page not in paged_attention.PAGE_SIZES:
-      raise ValueError(f"XOT_KV_PAGE={self.kv_page} with XOT_PAGED_KV=1: the paged kernels "
-                       f"(K3, K4) are built for pages of {paged_attention.PAGE_SIZES} tokens")
+    if self.paged and self.kv_page < 1:
+      raise ValueError(f"XOT_KV_PAGE={self.kv_page} with XOT_PAGED_KV=1: a page holds one "
+                       f"or more positions (the paged kernels K3/K4 take any such page)")
     self.paged_prefill = knobs.get_bool("XOT_PAGED_PREFILL")
     self.defrag = knobs.get_bool("XOT_KV_DEFRAG")
     self.defrag_moves = 0
@@ -640,36 +643,8 @@ class TorchShardInferenceEngine(InferenceEngine):
     self._ep_env = knobs.get_int("XOT_SERVE_EP")
     self._local_devices = local_devices(self.device)
     self.sp_ring_prefills = 0
-    n_proc = group_size()
-    if n_proc > 1:
-      raise ValueError(f"XOT_COORDINATOR/XOT_MULTIHOST: a process group of {n_proc} processes; "
-                       f"the serving mesh does not span processes yet (each rank would serve "
-                       f"its shard alone): start one process per peer")
-    if self._mesh_requested():
-      # Paths JAX's mesh tests do not cover, refused rather than served on one position.
-      for knob, on in (("XOT_FABRIC_PEERS", bool(self._fabric_peers)),
-                       ("XOT_FABRIC_ROLE", knobs.get_str("XOT_FABRIC_ROLE") != "mixed")):
-        if on:
-          raise ValueError(f"{knob} under a serving mesh is not ported: {self._mesh_knobs()}")
-      # The fused in-process ring reads every segment's plain params and caches.
-      self.supports_ring_fusion = False
 
   # ------------------------------------------------------------- serving mesh
-
-  def _mesh_knobs(self) -> str:
-    return (f"XOT_TP/XOT_SERVE_TP={self._tp_env}, XOT_SERVE_SP={self._sp_env}, "
-            f"XOT_SERVE_EP={self._ep_env}, {len(self._local_devices)} local devices; "
-            f"set XOT_TP=0 to serve on one device")
-
-  def _mesh_requested(self) -> bool:
-    """Whether the knobs may build a mesh (a shard's config may still clamp it away)."""
-    if self._sp_env > 1 or self._ep_env > 1:
-      return True
-    return self._tp_env is not None and int(self._tp_env) > 1
-
-  def _refuse_on_mesh(self, what: str) -> None:
-    if self._mesh_requested():
-      raise ValueError(f"{what} under a serving mesh is not ported: {self._mesh_knobs()}")
 
   def _serving_mesh(self, cfg: ModelConfig, shard: Optional[Shard] = None) -> Optional[Mesh]:
     """The shard's serving mesh over the local devices (JAX's `_serving_mesh`), or None.
@@ -1166,9 +1141,6 @@ class TorchShardInferenceEngine(InferenceEngine):
       else:
         cfg = load_model_config(model_dir)
       mesh = self._serving_mesh(cfg, shard)
-      if mesh is not None and cfg.is_multimodal:
-        raise ValueError(f"{shard.model_id}: vision under a serving mesh is not ported: "
-                         f"{self._mesh_knobs()}")
       self._check_kernel_shapes(shard.model_id, cfg, mesh)
       if model_dir is None:
         params = init_random_params(cfg, shard.get_layer_count(), shard.is_first_layer,
@@ -1225,22 +1197,23 @@ class TorchShardInferenceEngine(InferenceEngine):
   def _check_kernel_shapes(self, model_id: str, cfg: ModelConfig,
                            mesh: Optional[Mesh] = None) -> None:
     """Refuse, when a shard is loaded, a model whose attention shapes the kernels are not
-    built for: head_dim outside K1's and K2's builds or more q heads per kv head than
-    K2 takes, and under XOT_PAGED_KV=1 head_dim or groups outside K3's and K4's. Under a
-    mesh each tp position's shard is checked: Hq/tp q heads over Hkv/tp kv heads keep
-    the group size, so the same rule holds for each."""
+    built for: under XOT_PAGED_KV=1 head_dim or groups outside K3's and K4's builds (K2's
+    64 q heads per kv head, any page), then head_dim outside K1's and K2's or more q
+    heads per kv head than K2 takes. Under a mesh each tp position's shard is checked:
+    Hq/tp q heads over Hkv/tp kv heads keep the group size, so the same rule holds for
+    each."""
     tp = mesh.axis_size("tp") if mesh is not None else 1
     groups = (cfg.num_heads // tp) // (cfg.num_kv_heads // tp)
-    dims = flash_decode.HEAD_DIMS
-    if cfg.head_dim not in dims or groups > flash_decode.MAX_GROUPS:
-      raise ValueError(f"{model_id}: head_dim {cfg.head_dim} with {groups} q heads per kv head; "
-                       f"the attention kernels K1/K2 are built for head_dim {dims} and at most "
-                       f"{flash_decode.MAX_GROUPS} q heads per kv head")
     dims = paged_attention.HEAD_DIMS
     if self.paged and (cfg.head_dim not in dims or groups > paged_attention.MAX_GROUPS):
       raise ValueError(f"{model_id}: head_dim {cfg.head_dim} with {groups} q heads per kv head "
                        f"under XOT_PAGED_KV=1; the paged kernels K3/K4 are built for head_dim "
                        f"{dims} and at most {paged_attention.MAX_GROUPS} q heads per kv head")
+    dims = flash_decode.HEAD_DIMS
+    if cfg.head_dim not in dims or groups > flash_decode.MAX_GROUPS:
+      raise ValueError(f"{model_id}: head_dim {cfg.head_dim} with {groups} q heads per kv head; "
+                       f"the attention kernels K1/K2 are built for head_dim {dims} and at most "
+                       f"{flash_decode.MAX_GROUPS} q heads per kv head")
 
   def eos_token_ids_for(self, shard: Shard) -> Tuple[int, ...]:
     """The EOS ids of `shard`'s own model, whichever context is active."""
@@ -1707,12 +1680,13 @@ class TorchShardInferenceEngine(InferenceEngine):
   @staticmethod
   def _ring_prefill(ctx: _ShardContext, pos: int, x) -> bool:
     """Whether a contiguous segment of `x` at `pos` prefills by ring attention over the
-    mesh's sp axis (JAX's "ring"/"ring_full" executables): a first-layer shard's token
-    segment from position 0 whose (padded) length sp divides, for a family with no
-    window, softcap or query_pre_attn_scalar. Later segments attend the cache."""
+    mesh's sp axis (JAX's "ring"/"ring_full" executables): a first-layer shard's segment
+    from position 0 whose (padded) length sp divides, for a family with no window,
+    softcap or query_pre_attn_scalar: its tokens, or the merged sequence of a
+    multimodal prompt (a hidden input). Later segments attend the cache."""
     mesh, cfg = ctx.mesh, ctx.cfg
     return (mesh is not None and mesh.axis_size("sp") > 1 and ctx.shard.is_first_layer
-            and pos == 0 and x.ndim == 2 and x.shape[1] % mesh.axis_size("sp") == 0
+            and pos == 0 and x.shape[1] % mesh.axis_size("sp") == 0
             and not (cfg.uses_sliding_window or cfg.attn_logit_softcap
                      or cfg.query_pre_attn_scalar))
 
@@ -1884,7 +1858,14 @@ class TorchShardInferenceEngine(InferenceEngine):
     as a hidden input in one forward: from position 0 through K1 on the card. The
     request's state is a contiguous cache (`_prep_state`); under XOT_PAGED_KV its first
     decode chunk commits it to pool pages. Returns the real positions' fp32 logits
-    (numpy) on the last shard, else their hidden states as `_infer_sync` returns them."""
+    (numpy) on the last shard, else their hidden states as `_infer_sync` returns them.
+
+    Over a serving mesh (JAX's tower runs replicated and feeds the sharded stack) the
+    tower and the projector run once, unsharded, on the engine's device (the mesh's first
+    position's); the prompt's embedding comes from the sharded params (gathered there),
+    and the merged sequence enters the mesh forward as a replicated hidden input: each
+    tp position's K1 on its heads, the from-zero segment by ring attention over sp where
+    `_ring_prefill` takes it, the experts over ep."""
     if ctx.vision is None:
       raise RuntimeError("vision weights unavailable for multimodal request")
     t0, captures = time.monotonic(), self._captures(ctx)
@@ -1904,11 +1885,13 @@ class TorchShardInferenceEngine(InferenceEngine):
     if bucket != true_t:
       x = torch.cat([x, x.new_zeros((1, bucket - true_t, x.shape[-1]))], dim=1)
     use_flash = true_t > 1 and state.pos == 0
+    ring = true_t > 1 and self._ring_prefill(ctx, state.pos, x)
     start = state.pos
     out, _ = forward_shard(ctx.params, x, state.cache, state.pos, cfg, is_first=False,
                            is_last=ctx.shard.is_last_layer, use_flash=use_flash,
                            use_flash_decode=not use_flash, start_layer=ctx.shard.start_layer,
-                           route=self.quant_route)
+                           route=self.quant_route, ring=ring)
+    self.sp_ring_prefills += ring
     self._advance(ctx, state, true_t)
     self._observe_forward(ctx, ("multimodal", bucket), true_t, start, False, t0, captures)
     return self._hop_output(ctx, out[:, :true_t], keep_on_device)
@@ -2681,7 +2664,6 @@ class TorchShardInferenceEngine(InferenceEngine):
     dispatch. Returns None where the chain or the request does not qualify
     (`_resolve_ring_segs`) or its positions left lockstep: the caller takes the
     per-token ring."""
-    self._refuse_on_mesh("generate_chunk_ring")
     if num_tokens < 1:
       return None
     segs = self._resolve_ring_segs(request_id, chain)
@@ -2911,7 +2893,6 @@ class TorchShardInferenceEngine(InferenceEngine):
     composite forward (JAX's): [prev_token] + draft, the longest agreeing prefix and the
     bonus token, as verify_draft on one shard. None where the chain does not qualify or
     there is no room: the caller decodes plainly."""
-    self._refuse_on_mesh("verify_draft_ring")
     if not draft:
       return None
     segs = self._resolve_ring_segs(request_id, chain)
@@ -3420,14 +3401,14 @@ class TorchShardInferenceEngine(InferenceEngine):
     return {"bytes": store.total_bytes, "entries": len(store),
             "restore_fallbacks": self._host_restore_fallbacks}
 
-  def _cache_leaf_names(self, ctx: _ShardContext) -> set:
+  def _cache_leaf_names(self) -> set:
     """The leaves a restored entry must carry for the current cache config: K and V,
-    and their scales under an int8 KV cache; under a mesh each one's pieces."""
+    and their scales under an int8 KV cache (whole leaves: a mesh's pieces are joined
+    on spill, kv_offload.join_pieces)."""
     names = {"k", "v"}
     if self.kv_quant is not None:
       names |= {"k_scale", "v_scale"}
-    tp = ctx.mesh.axis_size("tp") if ctx.mesh is not None else 1
-    return {piece_name(n, j) for n in names for j in range(tp)}
+    return names
 
   def _leaf_dtype(self, name: str) -> torch.dtype:
     base = name.split("@")[0]
@@ -3442,7 +3423,8 @@ class TorchShardInferenceEngine(InferenceEngine):
   def _spill_prefix_entry(self, ctx: _ShardContext, toks, entry: dict) -> bool:
     """Copy one evicted prefix entry to the host tier, best effort (it runs inside
     eviction and OOM recovery: a failed spill only means the entry dies). A paged
-    entry's pages are gathered into the canonical contiguous layout first."""
+    entry's pages are gathered into the canonical contiguous layout first, and a mesh's
+    cache pieces joined into whole leaves (JAX's layout)."""
     store = self._host_kv_store()
     if store is None:
       return False
@@ -3458,7 +3440,7 @@ class TorchShardInferenceEngine(InferenceEngine):
       else:
         data = {name: to_host(buf) for name, buf in entry.items()}
         length = int(data["k"].shape[2])
-      n = store.put(ctx.shard, toks, data, length)
+      n = store.put(ctx.shard, toks, join_pieces(data), length)
       if n > 0:
         self._host_spill_bytes += n
         if self.flight is not None:
@@ -3503,16 +3485,17 @@ class TorchShardInferenceEngine(InferenceEngine):
     cfg = ctx.cfg
     try:
       leaf = entry.data.get("k")
-      tp = ctx.mesh.axis_size("tp") if ctx.mesh is not None else 1
-      if (set(entry.data) != self._cache_leaf_names(ctx) or leaf is None or leaf.ndim != 5
+      if (set(entry.data) != self._cache_leaf_names() or leaf is None or leaf.ndim != 5
           or leaf.shape[0] != ctx.shard.get_layer_count()
-          or leaf.shape[3:] != (cfg.num_kv_heads // tp, cfg.head_dim)
+          or leaf.shape[3:] != (cfg.num_kv_heads, cfg.head_dim)
           or any(a.shape[2] < entry.length for a in entry.data.values())):
         # Torn, or spilled under another cache config: unusable here, and keeping it
         # would shadow fresher entries.
         store.drop(ctx.shard, entry.toks)
         self._host_restore_fallbacks += 1
         return
+      # A mesh's cache takes the whole leaves back as its pieces.
+      data = split_pieces(entry.data, ctx.mesh.axis_size("tp") if ctx.mesh is not None else 1)
       if self.paged:
         pool = self._ensure_page_pool(ctx)
         page = pool.page_size
@@ -3523,7 +3506,7 @@ class TorchShardInferenceEngine(InferenceEngine):
           return
         ids = self._pool_alloc(ctx, pool, n_full)
         try:
-          scatter_pages(pool.arena, entry.data, ids)
+          scatter_pages(pool.arena, data, ids)
         except Exception:
           pool.decref(ids)
           raise
@@ -3534,7 +3517,7 @@ class TorchShardInferenceEngine(InferenceEngine):
         restored = (np.ascontiguousarray(entry.toks[:entry.length]),
                     {name: from_host(arr[:, :, :entry.length], self._leaf_dtype(name),
                                      self._leaf_device(ctx, name))
-                     for name, arr in entry.data.items()})
+                     for name, arr in data.items()})
     except CacheExhausted:
       # Live requests hold every page: the entry waits in the tier for a calmer moment.
       self._host_restore_fallbacks += 1
@@ -3588,7 +3571,6 @@ class TorchShardInferenceEngine(InferenceEngine):
     """Record a sibling's announce (`POST /v1/kv/offer`): peer `url` holds a host-tier
     entry covering `toks`, so the next local miss resolves coverage without a probe.
     False when the host tier is off (an import would have nowhere to land)."""
-    self._refuse_on_mesh("fabric_offer")
     if self._host_kv_max_bytes <= 0:
       return False
     key = self._fabric_client(create=True).offers.record(shard, toks, length, nbytes, url)
@@ -3655,7 +3637,6 @@ class TorchShardInferenceEngine(InferenceEngine):
     a transfer handle, which the router offers at a decode replica. None when the
     prompt is too short to cache or the host tier or the prefix cache is off (the
     router then forwards plainly)."""
-    self._refuse_on_mesh("prefill_export")
     if self._host_kv_max_bytes <= 0 or self._prefix_cache_max <= 0:
       return None
     import uuid

@@ -23,6 +23,13 @@ shapes against the live cache config before restoring; a mismatch drops the entr
 the request prefills cold. Across a process boundary (the KV fabric) an entry travels
 with `entry_digest`, which the importer recomputes: a torn or stale transfer is refused
 as a torn local entry is.
+
+An engine serving over a mesh holds its cache as tp pieces along the kv heads ("k",
+"k@1", ...: parallel/mesh.shard_cache). Its spills are joined into whole leaves
+(`join_pieces`) and its restores split again (`split_pieces`), so the tier holds JAX's
+layout whatever the mesh (JAX's device_get hands the tier whole arrays): an entry, its
+digest and its blob on the fabric's wire are the same from a tp-2 replica and from a
+single-card one, and either imports the other's.
 """
 from __future__ import annotations
 
@@ -41,6 +48,34 @@ def leaf_dtype_name(arr: np.ndarray) -> str:
   and go by JAX's name for it, "bfloat16". So the same entry digests and packs to the
   same bytes in both packages, and each verifies the other's blobs."""
   return "bfloat16" if arr.dtype == np.uint16 else str(arr.dtype)
+
+
+def join_pieces(data: Dict[str, np.ndarray]) -> Dict[str, np.ndarray]:
+  """Host leaves of a mesh engine's cache, piece j of leaf `n` named "n@j" (piece 0
+  "n"), as whole leaves: the pieces concatenated along the kv-head axis (axis 3 of
+  [L, 1, T, Hkv, D] and of the int8 scales' [L, 1, T, Hkv]) in tp order. A leaf with
+  no pieces passes as it is."""
+  out = {}
+  for base in (n for n in data if "@" not in n):
+    pieces, j = [data[base]], 1
+    while f"{base}@{j}" in data:
+      pieces.append(data[f"{base}@{j}"])
+      j += 1
+    out[base] = pieces[0] if len(pieces) == 1 else np.concatenate(pieces, axis=3)
+  return out
+
+
+def split_pieces(data: Dict[str, np.ndarray], tp: int) -> Dict[str, np.ndarray]:
+  """Whole host leaves cut into the tp pieces of a mesh engine's cache (the inverse of
+  `join_pieces`): piece j holds kv heads [j Hkv/tp, (j + 1) Hkv/tp), as views."""
+  if tp <= 1:
+    return dict(data)
+  out = {}
+  for base, arr in data.items():
+    n = arr.shape[3] // tp
+    for j in range(tp):
+      out[base if j == 0 else f"{base}@{j}"] = arr[:, :, :, j * n:(j + 1) * n]
+  return out
 
 
 def entry_digest(toks: np.ndarray, length: int, data: Dict[str, np.ndarray]) -> str:

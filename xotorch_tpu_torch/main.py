@@ -146,7 +146,8 @@ def build_node(args) -> tuple:
   XOT_SERVE_TP/SP/EP), where the engine reads them when it is built or loads a shard and
   the registry and the API when they resolve an adapter id. When the launcher gives a
   process group (XOT_COORDINATOR or XOT_MULTIHOST), this process joins it before any
-  device use (parallel/multihost.py)."""
+  device use (parallel/multihost.py); its engine then serves over its own local devices
+  and its Node is a peer of its own, as every rank of JAX's main.py is."""
   if getattr(args, "lora_rank", 0):
     os.environ["XOT_LORA_RANK"] = str(args.lora_rank)
   if getattr(args, "adapters", None):

@@ -668,8 +668,10 @@ def decode_ring(gc: GraphCache, params_segs: Sequence, seg_caches: Sequence[Sequ
   contiguous caches (one shape a segment); they are stacked into the ring cache's slab
   (pad rows to a power of two: zero caches with row 0's token, position and
   temperature), `num_tokens` replays run, and every cache is copied back. Keys: the
-  bucketed batch, every segment's leaves, the segments' first layers and the sampler's
-  statics. Returns the [B, num_tokens] tokens on the device."""
+  bucketed batch, every segment's leaves (a mesh segment's cache pieces among them),
+  the segments' first layers, the sampler's statics and each mesh segment's mesh
+  (`_mesh_key`: segments may differ, some on a mesh, some not). Returns the
+  [B, num_tokens] tokens on the device."""
   B = len(seg_caches[0])
   Bb = _bucket(B)
   noise = gumbel is not None
@@ -678,7 +680,8 @@ def decode_ring(gc: GraphCache, params_segs: Sequence, seg_caches: Sequence[Sequ
     for slab, caches in zip(slabs, seg_caches):
       stack_into(slab, caches)
     key = (("decode", "ring", Bb, leaves_key, tuple(start_layers))
-           + _sampler_key(top_k, top_p, gumbel, generator, route))
+           + _sampler_key(top_k, top_p, gumbel, generator, route)
+           + tuple(part for p in params_segs for part in _mesh_key(p)))
 
     def make_statics():
       st = {"tok": torch.zeros((Bb, 1), dtype=torch.int64, device=gc.device),
@@ -715,14 +718,15 @@ def verify_ring(gc: GraphCache, params_segs: Sequence, x: torch.Tensor, caches: 
   """`forward_argmax_ring` as one graph replay: every segment's cache copied into the
   ring cache's slab at one row, [prev_token] + draft ([1, T_pad]) through every segment
   (K2 at T > 1) from `start_pos`, the caches copied back. Keys: the bucket, every
-  segment's leaves and first layers. Returns the [1, T_pad] argmax on the device, the
+  segment's leaves and first layers, each mesh segment's mesh. Returns the [1, T_pad] argmax on the device, the
   program's output buffer: read it before the next replay."""
   T_pad = x.shape[1]
   with gc.on_stream():
     slabs, leaves_key = _ring_slab(gc, [[c] for c in caches], 1)
     for slab, c in zip(slabs, caches):
       stack_into(slab, [c])
-    key = ("verify", "ring", T_pad, leaves_key, tuple(start_layers), route)
+    key = (("verify", "ring", T_pad, leaves_key, tuple(start_layers), route)
+           + tuple(part for p in params_segs for part in _mesh_key(p)))
 
     def make_statics():
       return {"x": torch.zeros((1, T_pad), dtype=torch.int64, device=gc.device),

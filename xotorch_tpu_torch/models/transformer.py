@@ -673,10 +673,11 @@ def _forward_mesh(mp: MeshParams, x: torch.Tensor, cache: Optional[Dict[str, tor
   B, T = x.shape[0], x.shape[1]
   chunks = sp if ring else 1
   if ring:
-    if not (is_first and x.ndim == 2 and isinstance(start_pos, int) and start_pos == 0
+    if not (x.ndim == (2 if is_first else 3) and isinstance(start_pos, int) and start_pos == 0
             and page_table is None and T % sp == 0):
-      raise ValueError("ring prefill: token input from position 0 on a contiguous cache or "
-                       f"none, T divisible by sp={sp}")
+      raise ValueError("ring prefill: tokens (or a hidden input, as a multimodal prompt's "
+                       "merged sequence) from position 0 on a contiguous cache or none, T "
+                       f"divisible by sp={sp}")
     if cfg.uses_sliding_window or cfg.attn_logit_softcap or cfg.query_pre_attn_scalar:
       raise ValueError("ring attention implements no window, softcap or query_pre_attn_scalar")
   Tl = T // chunks

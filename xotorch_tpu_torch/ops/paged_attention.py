@@ -8,11 +8,14 @@ fixed-size pages in ONE arena per layer; each batch row reaches its tokens throu
 page table and is read only up to its own occupied pages, not the batch maximum.
 
 The kernels are hand-written CUDA for Hopper (csrc/paged_attention.cu) and read each
-layer's arena [P, page, Hkv, D] in place: K3 and K3q as split-K flash-decoding on the
-core of csrc/decode_split.cuh (each row's table positions cut into ranges of whole
-64-key tiles by `flash_decode.split_plan`, from the table's width and the SM count,
-never from the lengths, then merged by a second kernel), K4 and K4q on the
-tensor-core tile core of csrc/attention_mma.cuh, 64 query rows a block. An int8 arena
+layer's arena [P, page, Hkv, D] in place, at any page size (as JAX's pool: a page that
+is a multiple of 64 is read one page a tile, any other one page id a row) and up to
+64 q heads per kv head: K3 and K3q as split-K flash-decoding on the core of
+csrc/decode_split.cuh (each row's table positions cut into ranges of whole 64-key
+tiles by `flash_decode.split_plan`, from the table's width and the SM count, never
+from the lengths, then merged by a second kernel; above 8 groups a kv head's row
+blocks of 8 share each staged tile), K4 and K4q on the tensor-core tile core of
+csrc/attention_mma.cuh, 64 query rows (positions x groups) a block. An int8 arena
 carries scale pages [P, page, Hkv] (`k_scale_pages`/`v_scale_pages`), indexed by the
 same page id and slot as the payload; K3q and K4q dequantize as they read. The plain PyTorch versions
 sit beside them: gather each row's pages into a contiguous view (dequantized), then
@@ -36,8 +39,7 @@ from xotorch_tpu_torch.ops.attention import gqa_attention
 from xotorch_tpu_torch.ops.flash_decode import _plan, check_kv_quant, dequantize_kv
 
 HEAD_DIMS = (16, 32, 64, 128, 256)
-PAGE_SIZES = (16, 128)
-MAX_GROUPS = 8  # K3, K4: q heads per kv head one block holds
+MAX_GROUPS = 64  # K3, K4: q heads per kv head (K2's)
 ROWS = 64  # K4: query rows (positions x groups) a block, 4 warps of 16
 SPLIT_KEYS = 256  # K3: the most keys one decode split reads
 
@@ -113,9 +115,9 @@ def _check(name: str, q, k_pages, v_pages, page_table, rows, k_scale_pages=None,
   for what, t in (("page_table", page_table), ("lengths", rows)):
     if t.dtype != torch.int32 or t.device != q.device or not t.is_contiguous():
       raise ValueError(f"{name}: {what} must be contiguous int32 on {q.device}")
-  if D not in HEAD_DIMS or page not in PAGE_SIZES:
-    raise ValueError(f"{name}: built for head_dim {HEAD_DIMS} and page {PAGE_SIZES}, "
-                     f"got head_dim {D}, page {page}")
+  if D not in HEAD_DIMS or page < 1:
+    raise ValueError(f"{name}: built for head_dim {HEAD_DIMS} and pages of one or more "
+                     f"positions, got head_dim {D}, page {page}")
   if Hq // Hkv > MAX_GROUPS:
     raise ValueError(f"{name}: {Hq // Hkv} q heads per kv head exceed {MAX_GROUPS}")
   return B, T, Hq, D, P, page, Hkv

@@ -22,8 +22,9 @@ Training sums the gradients of a replicated leaf's copies with `all_reduce`, onc
 distinct tensor (parallel/mesh.leaf_blocks): on a virtual mesh the positions of one
 device share one tensor, whose gradient already holds every position's term.
 
-NCCL's collectives come with a four-card cell; across processes (parallel/multihost.py)
-torch.distributed's are used.
+NCCL's collectives come with a four-card cell. A process group (parallel/multihost.py)
+changes nothing here: each rank's serving mesh spans its own devices, as JAX's does, and
+only multihost.all_reduce crosses processes, through torch.distributed.
 """
 from __future__ import annotations
 

@@ -11,9 +11,11 @@ environment (the launcher knows it):
 (gloo on the CPU, NCCL when CUDA is present); XOT_MULTIHOST=1 alone takes torch's
 `env://`, whose MASTER_ADDR, MASTER_PORT, WORLD_SIZE and RANK a launcher sets. After
 it, `slice_mesh` builds a mesh over every process's devices and `all_reduce` sums across
-the processes: rank 0 is the coordinator that owns the ring-facing Node (JAX's
-multi-controller model, where every rank runs the same program). The serving engine
-does not span processes yet: it refuses a group of more than one (`group_size`).
+the processes. The serving engine does not use that mesh, as JAX's does not: JAX's
+`_serving_mesh` spans `jax.local_devices()` and every rank of its main.py builds its own
+engine and Node, so each rank serves over its own devices as a peer of the ring
+(main.py joins the group first). A serving mesh across processes would be a feature
+JAX lacks; `slice_mesh` and `all_reduce` are the seam for one.
 
 Simulatable without hardware: two CPU processes on one local port form a two-process
 group and all-reduce across the process boundary (tests/test_torch_multihost.py).
@@ -84,13 +86,6 @@ def all_reduce(x: torch.Tensor) -> torch.Tensor:
 
   dist.all_reduce(x, op=dist.ReduceOp.SUM)
   return x
-
-
-def group_size() -> int:
-  """The processes of the default group; 1 when none was joined."""
-  import torch.distributed as dist
-
-  return dist.get_world_size() if dist.is_available() and dist.is_initialized() else 1
 
 
 def is_coordinator() -> bool:

@@ -44,7 +44,7 @@ _DEFS: Tuple[Knob, ...] = (
   Knob("XOT_DECODE_BATCH", "int", "8", "Max concurrent requests fused into one batched decode dispatch."),
   Knob("XOT_BATCH_WINDOW_MS", "float", "0", "Batching window (ms) the decode batcher waits to coalesce submitters; 0 = one event-loop tick."),
   Knob("XOT_PAGED_KV", "bool", "0", "Serve decode from the shared paged KV pool instead of contiguous per-request caches."),
-  Knob("XOT_KV_PAGE", "int", "128", "Page size (tokens) of the paged KV pool: 16 or 128 (the paged kernels' builds)."),
+  Knob("XOT_KV_PAGE", "int", "128", "Page size (tokens) of the paged KV pool: any page of one or more tokens (K3/K4 read a multiple of 64 a page a tile, any other page an id a row)."),
   Knob("XOT_KV_POOL_TOKENS", "int", "0", "Total paged-pool capacity in tokens; 0 sizes it automatically."),
   Knob("XOT_PAGED_PREFILL", "bool", "1", "Prefill straight into pool pages under XOT_PAGED_KV (no contiguous commit copy)."),
   Knob("XOT_RAGGED_PREFILL", "bool", "1", "Paged T>1 segments read pages natively through K4 (K4q). Reserved: `0` (the JAX package's gathered view) is not ported and the engine raises."),
