@@ -343,10 +343,27 @@ Phases, in order; any failure exits nonzero and prints no result line:
      device's, with a control that drops the last rotation's fold; (d) `main.py
      --serve-tp 2 --adapters ad1=...`: @ad1's greedy stream phase 20's single-card one
      (near-tie rule), K1 and K2 2 x the single-card formula;
-  25. the {"kernels": [...]} line (attention launches include phases 10 (c)'s, 12's,
-     14's, 15's, 16's, 18's, 19's, 20's, 21's, 22's, 23's and 24's; K6's phase 19's too,
-     K5's phase 20's; K1b's phase 19's (c) and (d), phase 21's main-path runs, (c) and
-     (d), and phase 24 (a)'s), then the {"ok": true, ...} line last.
+  25. the serving mesh's last paths (check_mesh_paths): a paged cut at 16 groups and
+     page 8, vision, the fused ring and the KV fabric over tp 2;
+  26. the control plane's last modules (check_last_modules): (a) a Llama-3.2-1B-shaped
+     checkpoint (synthetic-llama-1b's seeded bf16 weights at full width and depth, two
+     files split at layer 8, an index, the word-level tokenizer) served as the
+     llama-3.2-1b card's repo by a loopback HF endpoint (download/hf_mirror.py: the tree
+     API, resolve/main with Range and sha256 ETags); a `python -m xotorch_tpu_torch.main`
+     process with a fresh XOT_HOME, HF_ENDPOINT the mirror's, the TUI on and stdout a
+     pipe: POST /v1/download until /v1/download/progress reads complete, every file's
+     sha256 the written one's, the main path's three requests (TTFT and decode rate
+     beside phase 5's; the first request's tokens against the port's engine loading the
+     written directory, near-tie rule), GET / the web UI, /v1/image/generations 501,
+     DELETE /models/llama-3.2-1b removing the directory; K1 = 16 x prefills from 0 and
+     K2 = 16 x (decode steps + segments at pos > 0) exactly, from the server's shutdown
+     lines; (b) `make -C native` builds the sidecar on this host and `main.py
+     --inference-engine native` answers a temperature-0 request on a two-layer narrow
+     llama with the torch engine's fp32 CPU tokens;
+  27. the {"kernels": [...]} line (attention launches include phases 10 (c)'s, 12's,
+     14's, 15's, 16's, 18's, 19's, 20's, 21's, 22's, 23's, 24's, 25's and 26's; K6's
+     phase 19's too, K5's phase 20's; K1b's phase 19's (c) and (d), phase 21's main-path
+     runs, (c) and (d), and phase 24 (a)'s), then the {"ok": true, ...} line last.
 
 `--yardsticks` adds the compiled flex_attention yardsticks (the softcapped and windowed
 cases' library times, a library call the port never makes) to phases 3 and 21.
@@ -3367,6 +3384,19 @@ def write_gemma_checkpoint(torch, model_dir, device: str = "cuda") -> float:
                                                       2, device))
 
 
+WORD_SPECIAL = ("<pad>", "<eos>", "<bos>", "<unk>")
+
+
+def word_vocab(vocab_size: int, extra: Optional[dict] = None) -> dict:
+  """write_word_tokenizer's vocabulary, token -> id."""
+  words = list(WORD_SPECIAL) + [f"w{i}" for i in range(97)] + ["user", "assistant", "system", ":"]
+  vocab = {t: i for i, t in enumerate(words)}
+  taken = set((extra or {}).values())
+  vocab.update((f"t{i}", i) for i in range(len(words), vocab_size) if i not in taken)
+  vocab.update(extra or {})
+  return vocab
+
+
 def write_word_tokenizer(model_dir, vocab_size: int, extra: Optional[dict] = None) -> None:
   """A word-level tokenizer over the whole vocabulary (tokenizer.json and
   tokenizer_config.json): gemma's special tokens at its ids (<eos> 1, <bos> 2), the
@@ -3375,13 +3405,8 @@ def write_word_tokenizer(model_dir, vocab_size: int, extra: Optional[dict] = Non
   `<image>` at 32000: one token wherever it stands in a prompt). With `transformers`
   the engine and the API build it; without, they serve the DummyTokenizer and the
   config's eos (one token a word either way, plus the roles)."""
-  special = ["<pad>", "<eos>", "<bos>", "<unk>"]
-  words = special + [f"w{i}" for i in range(97)] + ["user", "assistant", "system", ":"]
-  vocab = {t: i for i, t in enumerate(words)}
-  taken = set((extra or {}).values())
-  vocab.update((f"t{i}", i) for i in range(len(words), vocab_size) if i not in taken)
-  vocab.update(extra or {})
-  special += list(extra or {})
+  vocab = word_vocab(vocab_size, extra)
+  special = list(WORD_SPECIAL) + list(extra or {})
   (model_dir / "tokenizer.json").write_text(json.dumps({
     "version": "1.0", "truncation": None, "padding": None, "normalizer": None,
     "added_tokens": [{"id": vocab[t], "content": t, "single_word": False, "lstrip": False,
@@ -9826,6 +9851,342 @@ def check_mesh_paths(torch, card: str, main_run: dict, per_token: dict, llava: d
   return launches
 
 
+# Phase 26: the control plane's last modules. (a) llama-3.2-1b downloaded from a loopback
+# HF endpoint and served; (b) the native sidecar engine.
+DL_CARD = "llama-3.2-1b"
+DL_FILES = 2  # safetensors files of the checkpoint: layers 0-7 and 8-15
+DL_NODE = "dl"
+NATIVE_CARD = "native-llama-cut2"  # a card only the smoke's process adds
+NATIVE_REPO = "xot/native-llama-cut2"
+# A two-layer narrow llama for the sidecar, a CPU engine.
+NATIVE_CONFIG = {
+  "model_type": "llama", "hidden_size": 256, "intermediate_size": 512, "num_attention_heads": 8,
+  "num_key_value_heads": 4, "head_dim": 32, "num_hidden_layers": 2, "vocab_size": 1024,
+  "max_position_embeddings": 4096, "rope_theta": 10000.0, "rms_norm_eps": 1e-5,
+  "tie_word_embeddings": False, "eos_token_id": 1,
+}
+NATIVE_TOKENS = 16
+
+
+def sha256_of(path) -> str:
+  import hashlib
+  h = hashlib.sha256()
+  with open(path, "rb") as f:
+    for block in iter(lambda: f.read(1 << 24), b""):
+      h.update(block)
+  return h.hexdigest()
+
+
+def text_ids(text: str, vocab: dict) -> list:
+  """The ids of a word-level tokenizer's decoded text (one word a token)."""
+  return [vocab[w] for w in text.split()]
+
+
+def digests_equal(tag: str, src, target, names, card: str) -> None:
+  """Each of `names` in `target` has the sha256 of the file written in `src`."""
+  bad = [n for n in names if sha256_of(target / n) != sha256_of(src / n)]
+  total = sum((target / n).stat().st_size for n in names)
+  print(f"[{tag}] {len(names) - len(bad)}/{len(names)} files' sha256 equal what was written "
+        f"({total / 1e9:.3f} GB: {', '.join(sorted(names))}) {'ok' if not bad else 'FAIL'} "
+        f"({card})", flush=True)
+  if bad:
+    raise AssertionError(f"{tag}: sha256 differs for {bad}")
+
+
+def greedy_reference(torch, model_dir, card_id: str, messages: list, n: int, device: str,
+                     dtype: Optional[str] = None):
+  """A temperature-0 stream of `n` tokens from the port's torch engine loading `model_dir`
+  directly (prefill, then decode chunks of 8), with the prompt the API builds. Returns
+  (engine, shard, prompt ids, tokens); the caller stops the engine's executor."""
+  import numpy as np
+  from xotorch_tpu_torch.api.chatgpt_api import build_prompt
+  from xotorch_tpu_torch.download.shard_download import LocalShardDownloader
+  from xotorch_tpu_torch.inference.torch_engine.engine import TorchShardInferenceEngine
+  from xotorch_tpu_torch.models.registry import TORCH, build_full_shard
+  engine = TorchShardInferenceEngine(LocalShardDownloader({card_id: model_dir}), device=device,
+                                     dtype=dtype)
+  shard = build_full_shard(card_id, TORCH)
+
+  async def run():
+    await engine.ensure_shard(shard)
+    ids = [int(t) for t in np.asarray(await engine.encode(
+      shard, build_prompt(engine.tokenizer, messages))).reshape(-1)]
+    tok, _ = await engine.infer_sample_tensor("reference", shard, np.asarray(ids).reshape(1, -1),
+                                              temp=0.0, top_k=35)
+    out = [int(tok)]
+    while len(out) < n:
+      chunk = await engine.generate_chunk("reference", shard, out[-1], min(8, n - len(out)),
+                                          temp=0.0, top_k=35)
+      out += [int(t) for t in chunk]
+    await engine.clear_request("reference")
+    return ids, out[:n]
+  with launches_kept():
+    ids, out = asyncio.run(run())
+  return engine, shard, ids, out
+
+
+def serve_downloaded(torch, card: str, main_run: dict, device: str = "cuda",
+                     config: Optional[dict] = None, timeout: float = 240.0) -> dict:
+  """Phase 26 (a): llama-3.2-1b downloaded over loopback and served. A checkpoint of
+  `config` (synthetic-llama-1b's: Llama-3.2-1B's widths and depth) with seeded bf16
+  weights, written by save_shard_params as two files split at layer 8 with an index,
+  config.json and the word-level tokenizer, is the card's repo on a loopback HF endpoint
+  (download/hf_mirror.py). A `python -m xotorch_tpu_torch.main` process with a fresh
+  XOT_HOME, HF_ENDPOINT the mirror's, the TUI on and stdout a pipe: POST /v1/download
+  fetches the base shard's files (config, index, tokenizer, layers 0-7), polled at
+  /v1/download/progress until complete; their sha256 are the written files'. A warm-up
+  pass of the main path's requests makes the engine fetch the rest (layers 8-15, the
+  downloader's own network path) and pay first uses; then every file's sha256 is
+  checked, and the three requests (temperature 0 where phase 5's are) run: TTFT and
+  decode rate beside phase 5's, the first request's tokens against the port's engine
+  loading the written directory directly on the card (near-tie rule), GET / is the web
+  UI's page, /v1/image/generations answers 501, DELETE /models/llama-3.2-1b removes the
+  directory. The child is stopped with SIGTERM and must exit 0, its TUI's last frame in
+  its log; its shutdown lines give K1 = 16 x 6 prefills from 0 (warm-up and measured)
+  and K2 = 16 x (decode steps + 2 segments at pos > 0), exactly. Returns those
+  launches."""
+  import re
+  import signal
+  import tempfile
+  import urllib.request
+  from pathlib import Path
+  from xotorch_tpu_torch.download.hf_mirror import HFMirror
+  from xotorch_tpu_torch.models.registry import TORCH, get_model_card, get_repo
+  from xotorch_tpu_torch.topology.device_capabilities import device_capabilities_sync
+  from xotorch_tpu_torch.utils.helpers import find_available_port
+  tag = "download"
+  config = config or get_model_card("synthetic-llama-1b")["synthetic_config"]
+  layers = config["num_hidden_layers"]
+  repo = get_repo(DL_CARD, TORCH)
+  requests = main_requests(DL_CARD)
+  with tempfile.TemporaryDirectory() as tmp:
+    tmp = Path(tmp)
+    src = tmp / "src"
+    t0 = time.perf_counter()
+    weight_map = write_text_checkpoint(torch, src, config, DL_CARD, DL_FILES, device=device)
+    gb = write_index(src, weight_map)
+    gc.collect()
+    if device == "cuda":
+      torch.cuda.empty_cache()
+    written = sorted(p.name for p in src.iterdir())
+    print(f"[{tag}] {repo}: {len(written)} files, {gb:.3f} GB of weights in {DL_FILES} files "
+          f"written in {time.perf_counter() - t0:.1f} s", flush=True)
+    vocab = word_vocab(config["vocab_size"])
+    mirror = HFMirror({repo: src})
+    url = mirror.start()
+    home = tmp / "home"
+    target = home / "models" / repo.replace("/", "--")
+    node_port, api_port = find_available_port("127.0.0.1"), find_available_port("127.0.0.1")
+    cfg = str(tmp / "peers.json")
+    write_ring_config(cfg, {DL_NODE: node_port}, device_capabilities_sync().to_dict())
+    base = f"http://127.0.0.1:{api_port}"
+    log_path = tmp / "dl.log"
+    cmd = [sys.executable, "-m", "xotorch_tpu_torch.main", "--device", device, "--default-model",
+           DL_CARD, "--node-id", DL_NODE, "--node-host", "127.0.0.1", "--node-port", str(node_port),
+           "--chatgpt-api-host", "127.0.0.1", "--chatgpt-api-port", str(api_port),
+           "--chatgpt-api-response-timeout", "600", "--discovery-module", "manual",
+           "--discovery-config-path", cfg]
+    env = {**os.environ, "XOT_HOME": str(home), "HF_ENDPOINT": url, "DEBUG": "1",
+           "PYTHONUNBUFFERED": "1", "XOT_ALERT": "0", "XOT_PREFIX_CACHE": "0",
+           "XOT_PREFILL_COSCHED": "0", "XOT_PAGED_KV": "0", "XOT_PREFILL_CHUNK": "1024"}
+    proc, out, text = None, {}, ""
+    try:
+      with open(log_path, "w") as log:
+        proc = subprocess.Popen(cmd, cwd=ROOT, env=env, stdout=log, stderr=subprocess.STDOUT)
+      front_wait({DL_NODE: base}, {DL_NODE: proc}, timeout, tag)
+      # The base shard's files: all but the weight files of layers 8-15. A progress event
+      # counts the files that have reported so far (JAX's _emit), so "complete" is read
+      # once every one of them has.
+      base_files = {n for n in written if not n.startswith("model-text-") or n == "model-text-1.safetensors"}
+      t0 = time.perf_counter()
+      started = http_json(base + "/v1/download", {"model": DL_CARD})
+      progress = {}
+      while progress.get("status") != "complete" or set(progress.get("file_progress", {})) != base_files:
+        if time.perf_counter() - t0 > timeout:
+          raise AssertionError(f"{tag}: progress {progress} after {timeout:.0f} s")
+        time.sleep(0.05)
+        progress = http_json(base + "/v1/download/progress").get(DL_NODE) or {}
+      secs = time.perf_counter() - t0
+      fetched = sorted(p.relative_to(target).as_posix() for p in target.rglob("*") if p.is_file())
+      print(f"[{tag}] POST /v1/download: {started}; /v1/download/progress complete after "
+            f"{secs:.2f} s: {progress['completed_files']}/{progress['total_files']} files, "
+            f"{progress['downloaded_bytes'] / 1e9:.3f} GB, {progress['downloaded_bytes'] / 1e9 / secs:.2f} "
+            f"GB/s with the sha256 checks ({card})", flush=True)
+      if set(fetched) != base_files:
+        raise AssertionError(f"{tag}: the base shard fetched {fetched}, wanted {sorted(base_files)}")
+      digests_equal(tag, src, target, fetched, card)
+      # Warm-up: the engine loads the whole model (fetching layers 8-15) and pays first uses.
+      t0 = time.perf_counter()
+      for _, body in requests:
+        http_json(base + "/v1/chat/completions", {**body, "max_tokens": 2, "stream": False})
+      print(f"[{tag}] warm-up, the engine's fetch of layers 8-{layers - 1} included: "
+            f"{time.perf_counter() - t0:.2f} s", flush=True)
+      digests_equal(tag, src, target, written, card)
+      got, timings = {}, []
+      for j, (label, body) in enumerate(requests):
+        url_c = base + "/v1/chat/completions"
+        t1 = time.perf_counter()
+        if body.get("stream"):
+          events, first, last = http_stream(url_c, body)
+          n = (events[-1].get("usage") or {}).get("completion_tokens", 0)
+          rate = (n - 1) / (last - first) if n > 1 and last > first else float("nan")
+          timing = f"TTFT {first * 1e3:.1f} ms, decode {rate:.1f} tok/s"
+          content = "".join(c.get("delta", {}).get("content") or "" for e in events
+                            for c in e.get("choices", []))
+        else:
+          resp = http_json(url_c, body)
+          n = resp["usage"]["completion_tokens"]
+          timing = f"end to end {(time.perf_counter() - t1) * 1e3:.1f} ms"
+          content = resp["choices"][0]["message"]["content"]
+        ok = n == body["max_tokens"]
+        print(f"[{tag}] {label}: {n} tokens, {timing} (phase 5: {main_run['timings'][j]}) "
+              f"({card}) {'ok' if ok else 'FAIL'}", flush=True)
+        if not ok:
+          raise AssertionError(f"{tag}: {label} returned {n} tokens, wanted {body['max_tokens']}")
+        got[j] = content
+      with urllib.request.urlopen(base + "/", timeout=60) as resp:
+        page = resp.read()
+      want_page = (Path(ROOT) / "xotorch_tpu_torch" / "tinychat" / "index.html").read_bytes()
+      status, _, body = http_status(base + "/v1/image/generations", {"prompt": "a cat"})
+      ok = page == want_page and status == 501 and "not supported" in body["error"]["message"]
+      print(f"[{tag}] GET / {len(page)} bytes, the web UI's page; POST /v1/image/generations "
+            f"{status} {'ok' if ok else 'FAIL'}", flush=True)
+      if not ok:
+        raise AssertionError(f"{tag}: GET / ({len(page)} bytes) or image route {status} {body}")
+      body = http_delete(base + f"/models/{DL_CARD}")  # an error status raises
+      ok = body.get("status") == "success" and not target.exists()
+      print(f"[{tag}] DELETE /models/{DL_CARD}: {body}, the directory gone: "
+            f"{not target.exists()} {'ok' if ok else 'FAIL'}", flush=True)
+      if not ok:
+        raise AssertionError(f"{tag}: DELETE answered {body}; {target} exists: {target.exists()}")
+    finally:
+      if proc is not None and proc.poll() is None:
+        proc.send_signal(signal.SIGTERM)
+      if proc is not None:
+        try:
+          proc.wait(timeout=60)
+        except subprocess.TimeoutExpired:
+          proc.kill()
+          proc.wait(timeout=60)
+      mirror.stop()
+      text = log_path.read_text() if log_path.exists() else ""
+    if proc.returncode != 0:
+      raise AssertionError(f"{tag}: the server exited {proc.returncode}\n{text[-3000:]}")
+    # The first request's tokens against the engine loading the written directory.
+    engine, shard, prompt_ids, want_ids = greedy_reference(
+      torch, src, DL_CARD, requests[0][1]["messages"], requests[0][1]["max_tokens"], device)
+    try:
+      asyncio.run(streams_agree(torch, engine, shard, f"{tag}, the first request", prompt_ids,
+                                want_ids, text_ids(got[0], vocab), card))
+    finally:
+      engine.executor.shutdown(wait=True)
+      del engine
+      gc.collect()
+      if device == "cuda":
+        torch.cuda.empty_cache()
+    launches = json.loads(re.search(rf"^launches {DL_NODE}: (\{{.*\}})$", text, re.M).group(1))
+    steps = int(re.search(rf"^decode steps {DL_NODE}: (\d+)$", text, re.M).group(1))
+    tui = "xot cluster" in text and "layers[0..15]" in text and "\x1b[" not in text
+    prefills = 2 * len(requests)
+    want = {"flash_attention": layers * prefills, "flash_cached_attention": layers * (steps + 2)}
+    counted = {k: launches.get(k, 0) for k in want}
+    print(f"[{tag}] the server exited 0, its TUI's last frame in its log as plain text "
+          f"{'ok' if tui else 'FAIL'}; launches {counted}: K1 = {layers} layers x {prefills} "
+          f"prefills from 0, K2 = {layers} x ({steps} decode steps + 2 segments at pos > 0) "
+          f"({want}) {'ok' if counted == want else 'FAIL'}", flush=True)
+    if not tui or counted != want:
+      raise AssertionError(f"{tag}: TUI frame {tui}, launches {counted}, wanted {want}\n"
+                           f"{text[-3000:]}")
+    return counted
+
+
+def check_native(torch, card: str) -> None:
+  """Phase 26 (b): the native sidecar. `make -C native` builds xot-sidecar on this host
+  (into a temporary directory, XOT_SIDECAR_BIN); a two-layer narrow llama (NATIVE_CONFIG,
+  seeded bf16 weights, the word-level tokenizer) is a card's checkpoint in a fresh
+  XOT_HOME, and the server main.py builds with `--inference-engine native` answers one
+  request at temperature 0 over HTTP. Its tokens must equal the port's torch engine's,
+  in fp32 on the CPU, on the same checkpoint."""
+  import shutil
+  import tempfile
+  from pathlib import Path
+  from xotorch_tpu_torch import main as port_main
+  from xotorch_tpu_torch.models import registry
+  tag = "native"
+  t0 = time.perf_counter()
+  with tempfile.TemporaryDirectory() as tmp:
+    tmp = Path(tmp)
+    build = tmp / "sidecar"
+    for tool in ("make", os.environ.get("CXX", "g++")):
+      if shutil.which(tool) is None:
+        raise AssertionError(f"{tag}: no `{tool}` on this host: the sidecar cannot be built")
+    done = subprocess.run(["make", "-C", os.path.join(ROOT, "native"), f"BUILD_DIR={build}"],
+                          capture_output=True, text=True, timeout=600)
+    binary = build / "xot-sidecar"
+    if done.returncode != 0 or not binary.exists():
+      raise AssertionError(f"{tag}: make -C native failed ({done.returncode})\n{done.stderr[-3000:]}")
+    print(f"[{tag}] make -C native built {binary.name} in {time.perf_counter() - t0:.1f} s "
+          f"({done.stdout.strip().splitlines()[-2] if done.stdout.strip() else ''})", flush=True)
+    model_dir = tmp / "home" / "models" / NATIVE_REPO.replace("/", "--")
+    write_index(model_dir, write_text_checkpoint(torch, model_dir, NATIVE_CONFIG, NATIVE_CARD, 1,
+                                                 device="cpu"))
+    registry.model_cards[NATIVE_CARD] = {"layers": NATIVE_CONFIG["num_hidden_layers"],
+                                         "repo": {registry.TORCH: NATIVE_REPO}}
+    messages = [{"role": "user", "content": front_words(26, 40)}]
+    body = {"model": NATIVE_CARD, "messages": messages, "temperature": 0,
+            "max_tokens": NATIVE_TOKENS, "stream": False}
+    try:
+      with phase_env(XOT_HOME=str(tmp / "home"), XOT_SIDECAR_BIN=str(binary)):
+        args = port_main.build_parser().parse_args(
+          ["--inference-engine", "native", "--default-model", NATIVE_CARD, "--chatgpt-api-host",
+           "127.0.0.1", "--chatgpt-api-port", "0", "--disable-tui"])
+        node, engine, classname, api = port_main.build_node(args)
+
+        async def drive():
+          server = await api.start("127.0.0.1", 0)
+          url = f"http://127.0.0.1:{server.sockets[0].getsockname()[1]}/v1/chat/completions"
+          try:
+            t1 = time.perf_counter()
+            resp = await asyncio.get_running_loop().run_in_executor(None, http_json, url, body)
+            return resp, time.perf_counter() - t1
+          finally:
+            server.close()
+            await server.wait_closed()
+            await node.stop()
+            await engine.stop()
+        resp, secs = asyncio.run(drive())
+      got = text_ids(resp["choices"][0]["message"]["content"], word_vocab(NATIVE_CONFIG["vocab_size"]))
+      ref, _, _, want = greedy_reference(torch, model_dir, NATIVE_CARD, messages, NATIVE_TOKENS,
+                                         "cpu", dtype="float32")
+      ref.executor.shutdown(wait=True)
+    finally:
+      registry.model_cards.pop(NATIVE_CARD, None)
+    eos = NATIVE_CONFIG["eos_token_id"]
+    want = want[:want.index(eos)] if eos in want else want  # the API stops at eos
+    ok = classname == "NativeSidecarInferenceEngine" and got == want
+    print(f"[{tag}] main.py --inference-engine native answered {len(got)} tokens at temperature 0 "
+          f"in {secs * 1e3:.1f} ms (a two-layer {NATIVE_CONFIG['hidden_size']}-wide llama on the "
+          f"host's CPU); they equal the torch engine's fp32 CPU tokens: {got == want} "
+          f"{'ok' if ok else 'FAIL'} ({card})", flush=True)
+    if not ok:
+      raise AssertionError(f"{tag}: {classname} streamed {got}, the torch engine {want}")
+
+
+def check_last_modules(torch, card: str, main_run: dict, device: str = "cuda",
+                       config: Optional[dict] = None) -> dict:
+  """Phase 26: the control plane's last modules, (a) serve_downloaded, (b) check_native.
+  Returns (a)'s launches."""
+  t0 = time.perf_counter()
+  launches = serve_downloaded(torch, card, main_run, device, config)
+  print(f"[time] phase 26 (a), downloaded and served: {time.perf_counter() - t0:.1f} s", flush=True)
+  t1 = time.perf_counter()
+  check_native(torch, card)
+  print(f"[time] phase 26 (b), the native sidecar: {time.perf_counter() - t1:.1f} s", flush=True)
+  print(f"[time] phase 26, the control plane's last modules: {time.perf_counter() - t0:.1f} s "
+        f"({card})", flush=True)
+  return launches
+
+
 def main(argv=None) -> int:
   parser = argparse.ArgumentParser(description=__doc__.splitlines()[0])
   parser.add_argument("--kernels-only", action="store_true",
@@ -9845,6 +10206,9 @@ def main(argv=None) -> int:
     print(f"chip_smoke: no xotorch_tpu_torch package beside {__file__}", file=sys.stderr)
     return 2
   sys.path.insert(0, ROOT)
+  # No phase fetches from the internet: a model file missing on disk fails at once on
+  # loopback (phase 26 serves its own endpoint).
+  os.environ.setdefault("HF_ENDPOINT", "http://127.0.0.1:9")
 
   # Phase 1: device.
   started = time.perf_counter()
@@ -10105,7 +10469,13 @@ def main(argv=None) -> int:
       import shutil
       shutil.rmtree(llava["tmp"], ignore_errors=True)
 
-  # Phase 26: results.
+  # Phase 26: the control plane's last modules (llama-3.2-1b downloaded over loopback and
+  # served by main.py, the native sidecar); the server's K1 and K2 launches join the line.
+  for name, n in check_last_modules(torch, card, main_run).items():
+    launches[name] += n
+  print(f"[time] phases 1-26: {time.perf_counter() - started:.1f} s", flush=True)
+
+  # Phase 27: results.
   meta = {
     "flash_attention": ("xotorch_tpu_torch/csrc/flash_attention.cu",
                         "xotorch_tpu/ops/flash_attention.py:54"),

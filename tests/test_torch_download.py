@@ -2,8 +2,9 @@
 directories: the tokenizer-artifact and completeness rules, the layer-aware file
 filter, the model status, seeding, the local downloader and HFShardDownloader's fast
 path for a checkpoint already on disk (which the port's engine and `main.py run` then
-serve). Nothing here touches a network: a shard whose checkpoint is incomplete makes
-the port raise, naming the directory to seed.
+serve). A checkpoint that is not on disk is fetched from HF_ENDPOINT, here always a
+local mirror (download/hf_mirror.py); tests/test_torch_hf_download.py holds the fetch
+against JAX's.
 """
 import asyncio
 import json
@@ -19,6 +20,7 @@ from xotorch_tpu.download.shard_download import LocalShardDownloader as JLocalSh
 from xotorch_tpu.inference.shard import Shard as JShard
 from xotorch_tpu_torch import main as port_main
 from xotorch_tpu_torch.download import hf_shard_download as hf
+from xotorch_tpu_torch.download.hf_mirror import HFMirror
 from xotorch_tpu_torch.download.shard_download import LocalShardDownloader
 from xotorch_tpu_torch.inference.shard import Shard
 from xotorch_tpu_torch.models import registry
@@ -169,22 +171,29 @@ def seeded_card(tmp_path, monkeypatch):
   return model_dir
 
 
-async def test_offline_fast_path_serves_a_seeded_checkpoint(seeded_card, tmp_path):
+async def test_offline_fast_path_serves_a_seeded_checkpoint(seeded_card, tmp_path, monkeypatch):
+  """A checkpoint missing on disk is fetched from HF_ENDPOINT (a local mirror of the
+  seeded one), as JAX's downloader fetches it; once complete, a fresh downloader's fast
+  path serves it without a request."""
   dl = hf.HFShardDownloader()
   shard = Shard("tiny-llama", 0, 3, 4)
-  with pytest.raises(FileNotFoundError, match="not ported") as err:
-    await dl.ensure_shard(shard, TORCH)
   target = tmp_path / "home" / "models" / "test--tiny-llama"
-  assert str(target) in str(err.value)
-  with pytest.raises(ValueError, match="No repo"):
-    await dl.ensure_shard(Shard("synthetic-tiny", 0, 3, 4), TORCH)
-  target.rmdir()
-  shutil.copytree(seeded_card, target)
-  assert j_hf.HFShardDownloader._local_complete(target, JShard("tiny-llama", 0, 3, 4))
-  # Concurrent calls share one task; the finished path is remembered.
-  paths = await asyncio.gather(*(dl.ensure_shard(shard, TORCH) for _ in range(3)))
-  assert paths == [target] * 3 and dl.completed[("tiny-llama", "0-3")] == target
-  assert not dl.active_downloads
+  with HFMirror({"test/tiny-llama": seeded_card}) as mirror:
+    monkeypatch.setenv("HF_ENDPOINT", mirror.url)
+    with pytest.raises(ValueError, match="No repo"):
+      await dl.ensure_shard(Shard("synthetic-tiny", 0, 3, 4), TORCH)
+    # Concurrent calls share one task; the finished path is remembered.
+    paths = await asyncio.gather(*(dl.ensure_shard(shard, TORCH) for _ in range(3)))
+    assert paths == [target] * 3 and dl.completed[("tiny-llama", "0-3")] == target
+    assert not dl.active_downloads
+    served = sorted(p.name for p in seeded_card.iterdir())
+    assert sorted(p.name for p in target.iterdir()) == sorted(served + [hf.MANIFEST_NAME])
+    for name in served:
+      assert (target / name).read_bytes() == (seeded_card / name).read_bytes()
+    assert j_hf.HFShardDownloader._local_complete(target, JShard("tiny-llama", 0, 3, 4))
+    requests = len(mirror.log)
+    assert await hf.HFShardDownloader().ensure_shard(shard, TORCH) == target
+    assert len(mirror.log) == requests
 
 
 async def test_engine_and_run_command_serve_the_seeded_checkpoint(seeded_card, tmp_path, capsys):

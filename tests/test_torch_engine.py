@@ -251,6 +251,25 @@ def _function_imports(path: Path):
           yield node.module
 
 
+def test_chip_smoke_defines_each_function_once():
+  """A second top-level def of a name shadows the first for every phase that calls it."""
+  tree = ast.parse((ROOT / "chip_smoke.py").read_text())
+  names = [n.name for n in tree.body if isinstance(n, (ast.FunctionDef, ast.AsyncFunctionDef,
+                                                        ast.ClassDef))]
+  assert sorted({n for n in names if names.count(n) > 1}) == []
+
+
+def test_every_jax_module_has_a_counterpart():
+  """Each .py file of the JAX package has one at the same path in the port, with
+  torch_engine/ for jax_engine/ and networking/tcp/ for networking/grpc/."""
+  jax_files = sorted(p.relative_to(ROOT / "xotorch_tpu").as_posix()
+                     for p in (ROOT / "xotorch_tpu").rglob("*.py"))
+  assert len(jax_files) >= 92
+  renamed = [f.replace("inference/jax_engine/", "inference/torch_engine/")
+              .replace("networking/grpc/", "networking/tcp/") for f in jax_files]
+  assert [f for f in renamed if not (ROOT / "xotorch_tpu_torch" / f).is_file()] == []
+
+
 def test_port_imports_neither_jax_nor_the_jax_package():
   files = sorted((ROOT / "xotorch_tpu_torch").rglob("*.py")) + [ROOT / "chip_smoke.py"]
   assert len(files) > 20
@@ -289,15 +308,21 @@ def test_port_imports_neither_jax_nor_the_jax_package():
           "xotorch_tpu_torch/fleet/__init__.py",
           "xotorch_tpu_torch/fleet/spawner.py",
           "xotorch_tpu_torch/fleet/controller.py",
-          "xotorch_tpu_torch/api/http.py"} <= walked
+          "xotorch_tpu_torch/api/http.py",
+          "xotorch_tpu_torch/download/hf_mirror.py",
+          "xotorch_tpu_torch/viz/__init__.py",
+          "xotorch_tpu_torch/viz/chat_tui.py",
+          "xotorch_tpu_torch/viz/topology_viz.py",
+          "xotorch_tpu_torch/inference/native/__init__.py",
+          "xotorch_tpu_torch/inference/native/engine.py"} <= walked
   bad = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
          if name.split(".")[0] in ("jax", "jaxlib", "xotorch_tpu", "safetensors", "optax")]
   assert bad == []
-  # The card's machine is not known to have aiohttp: the router and the API speak the
-  # port's own HTTP (api/http.py), and the control plane (fabric, router, fleet) needs
-  # no torch either.
+  # The card's machine is not known to have aiohttp or rich: the router, the API and the
+  # downloader speak the port's own HTTP (api/http.py) or urllib, the TUI draws ANSI
+  # text, and the control plane (fabric, router, fleet) needs no torch either.
   aio = [(str(f.relative_to(ROOT)), name) for f in files for name in _imports(f)
-         if name.split(".")[0] == "aiohttp"]
+         if name.split(".")[0] in ("aiohttp", "rich")]
   assert aio == []
   control = [f for f in files if f.parent.name in ("fabric", "router", "fleet")]
   assert len(control) == 9

@@ -153,8 +153,12 @@ async def test_paged_verify_matches_contiguous(model_dir, monkeypatch, kernel):
   kernel in interpret mode): the rounds give sequential greedy's stream, the request
   stays page-backed with pages_for(pos) pages, and nothing is gathered or copied."""
   ref = await _greedy(_port(model_dir), "ref", PAGED_PROMPT, 8)
-  _paged_env(monkeypatch, XOT_PAGED_KV="1", XOT_PAGED_KERNEL=kernel)
-  port, jeng = _port(model_dir), _jax(model_dir)
+  _paged_env(monkeypatch, XOT_PAGED_KV="1")
+  port = _port(model_dir)
+  # JAX's engine reads XOT_PAGED_KERNEL at each call; the port's, built first, reads it
+  # when it is built and refuses 0 (its paged path is always K3/K4).
+  monkeypatch.setenv("XOT_PAGED_KERNEL", kernel)
+  jeng = _jax(model_dir)
   got = await _paged_rounds(port, ref)
   assert got == await _paged_rounds(jeng, ref) == ref
   ctx = port._contexts[FULL]
@@ -363,8 +367,10 @@ async def test_node_paged_spec_stream_identical(model_dir, monkeypatch, kernel):
   monkeypatch.setenv("XOT_SPECULATE", "6")
   contig = _port(model_dir)
   assert (await _node_stream(contig, prompt, "r"))[0] == plain and contig._spec_proposed > 0
-  _paged_env(monkeypatch, XOT_PAGED_KV="1", XOT_PAGED_KERNEL=kernel)
-  paged, jpaged = _port(model_dir), _jax(model_dir)
+  _paged_env(monkeypatch, XOT_PAGED_KV="1")
+  paged = _port(model_dir)
+  monkeypatch.setenv("XOT_PAGED_KERNEL", kernel)  # JAX's only: read at each JAX call
+  jpaged = _jax(model_dir)
   got, _ = await _node_stream(paged, prompt, "r")
   jgot, _ = await _node_stream(jpaged, prompt, "r")
   assert got == plain == jgot

@@ -56,7 +56,16 @@ The port of the serving core of xotorch_tpu/api/chatgpt_api.py on
   (served normally when the export fails); /v1/queue reports the role;
 - GET /modelpool (server-sent events: each servable card's download status, then
   [DONE]), GET /initial_models (the same as one JSON object) and GET or POST /quit
-  (answers, then interrupts the process as SIGINT does).
+  (answers, then interrupts the process as SIGINT does);
+- downloads (the JAX handler's answers): POST /download and /v1/download ({"model"})
+  start the node's downloader on the card's base shard, detached (400 for a card this
+  engine does not serve, 503 without a downloader); GET /v1/download/progress is each
+  node's latest progress off the status bus; DELETE /models/{name} and
+  /v1/models/{name} remove the card's model dir (400 for an adapter id, whose repo is
+  the shared base's, or without a downloader that can delete; 404 when there is none);
+- POST /v1/image/generations answers 501: no diffusion family is registered;
+- the web UI: GET / is tinychat's page (the port's byte copy of the JAX package's),
+  GET /static/<path> a file beside it; a path that leaves its directory is refused 403.
 
 Synthetic models use DummyTokenizer, with the model's own EOS id, as the dummy card does.
 """
@@ -68,15 +77,18 @@ import math
 import os
 import signal
 import time
+import mimetypes
+import re
 import uuid
 from pathlib import Path
-from typing import Dict, List, NamedTuple, Optional, Tuple
+from typing import Callable, Dict, List, NamedTuple, Optional, Tuple
+from urllib.parse import unquote
 
 from xotorch_tpu_torch.api import http
 from xotorch_tpu_torch.inference.tokenizers import DummyTokenizer, resolve_tokenizer, tokenizer_for_dir
 from xotorch_tpu_torch.models.registry import (build_base_shard, get_model_card, get_repo,
                                                get_supported_models, pretty_name,
-                                               registered_adapters)
+                                               registered_adapters, split_adapter)
 from xotorch_tpu_torch.networking import faults
 from xotorch_tpu_torch.orchestration.admission import AdmissionRejected
 from xotorch_tpu_torch.orchestration.anatomy import chrome_trace
@@ -127,6 +139,15 @@ ENGINE_COUNTERS = (
   ("_jit_cached_dispatches", "xot_jit_cached_dispatch_total",
    "Device dispatches that hit an already-compiled executable"),
 )
+
+
+# tinychat, the web UI: the page and the files /static serves.
+WEB_DIR = Path(__file__).resolve().parent.parent / "tinychat"
+# /v1/image/generations' answer, the JAX handler's.
+IMAGE_GENERATIONS_501 = {"error": {
+  "type": "invalid_request_error",
+  "message": "image generation is not supported: no diffusion model family is registered "
+             "(text and vision-language models only)"}}
 
 
 class HTTPError(Exception):
@@ -221,8 +242,11 @@ def build_prompt(tokenizer, messages: List[dict], tools: Optional[list] = None) 
 
 class ChatGPTAPI:
   def __init__(self, node, inference_engine_classname: str, response_timeout: int = 90,
-               default_model: Optional[str] = None, system_prompt: Optional[str] = None):
+               default_model: Optional[str] = None, system_prompt: Optional[str] = None,
+               on_chat_completion_request: Optional[Callable[[str, dict, str], None]] = None):
     self.node = node
+    # Called with (request id, body, prompt) as a completion starts (the TUI's chat panel).
+    self.on_chat_completion_request = on_chat_completion_request
     self.inference_engine_classname = inference_engine_classname
     self.response_timeout = response_timeout
     self.default_model = default_model or "synthetic-llama-1b"
@@ -313,6 +337,21 @@ class ChatGPTAPI:
       await self._write(writer, 200, await self.handle_model_pool(), "text/event-stream")
     elif path == "/initial_models" and method == "GET":
       await self._write_json(writer, 200, await self.handle_get_initial_models())
+    elif path in ("/download", "/v1/download"):
+      if method != "POST":
+        raise HTTPError(405, {"detail": f"{method} not allowed on {path}"})
+      await self._write_json(writer, *self.handle_post_download(body))
+    elif path == "/v1/download/progress" and method == "GET":
+      await self._write_json(writer, 200, dict(self.node.node_download_progress))
+    elif path.startswith(("/models/", "/v1/models/")) and method == "DELETE":
+      name = unquote(path.split("/models/", 1)[1])
+      await self._write_json(writer, *await self.handle_delete_model(name))
+    elif path == "/v1/image/generations":
+      if method != "POST":
+        raise HTTPError(405, {"detail": f"{method} not allowed on {path}"})
+      await self._write_json(writer, 501, IMAGE_GENERATIONS_501)
+    elif method == "GET" and (path == "/" or path.startswith("/static/")):
+      await self._write(writer, 200, *self.static_file("index.html" if path == "/" else path[8:]))
     elif path == "/quit" and method in ("GET", "POST"):
       await self._write_json(writer, 200, {"detail": "Quit signal received"})
       os.kill(os.getpid(), signal.SIGINT)
@@ -862,6 +901,65 @@ class ChatGPTAPI:
       spawn_detached(eng.prefetch_fabric_offer(cur, tokens), self._tasks)
     return {"accepted": accepted, "model": model}
 
+  # ------------------------------------------------------- downloads, web UI
+
+  def handle_post_download(self, body: bytes) -> Tuple[int, dict]:
+    """Start the downloader on the card's base shard, detached (the JAX handler's
+    answers)."""
+    try:
+      data = json.loads(body or b"{}")
+    except json.JSONDecodeError as e:
+      raise _invalid(f"request body is not JSON: {e}") from None
+    model_id = data.get("model") if isinstance(data, dict) else None
+    card = get_model_card(model_id) if isinstance(model_id, str) else None
+    if not card or self.inference_engine_classname not in card.get("repo", {}):
+      return 400, {"detail": f"Invalid model: {model_id}"}
+    downloader = self.node.shard_downloader
+    if downloader is None:
+      return 503, {"detail": "No shard downloader configured on this node"}
+    shard = build_base_shard(model_id, self.inference_engine_classname)
+    spawn_detached(downloader.ensure_shard(shard, self.inference_engine_classname), self._tasks)
+    return 200, {"status": "success", "message": f"Download started: {model_id}"}
+
+  async def handle_delete_model(self, model_name: str) -> Tuple[int, dict]:
+    """Remove the card's model dir through the node's downloader (the JAX handler's
+    answers)."""
+    if split_adapter(model_name)[1] is not None:
+      # An adapter id resolves to its base's repo: deleting it would remove the weights
+      # every adapter of that base shares.
+      return 400, {"detail": f"{model_name} is a LoRA adapter variant; deleting it would "
+                             "remove the shared base weights. Unregister it from "
+                             "XOT_ADAPTERS instead."}
+    downloader = self.node.shard_downloader
+    if downloader is None:
+      return 400, {"detail": "No downloader"}
+    delete = getattr(downloader, "delete_model", None)
+    if delete is None:
+      return 400, {"detail": "Downloader cannot delete"}
+    if await delete(model_name, self.inference_engine_classname):
+      return 200, {"status": "success", "message": f"Model {model_name} deleted"}
+    return 404, {"detail": f"Model {model_name} not found"}
+
+  @staticmethod
+  def static_file(rel: str) -> Tuple[bytes, str]:
+    """(bytes, content type) of a file of the web UI. A path that could leave WEB_DIR
+    (`..` out of it, an absolute path, a backslash, an encoded slash or backslash) is
+    refused 403; a missing file is 404."""
+    if re.search(r"%(2f|5c)", rel, re.I):
+      raise HTTPError(403, {"detail": "forbidden path"})
+    rel = unquote(rel)
+    root = WEB_DIR.resolve()
+    target = (root / rel).resolve()
+    outside = target != root and root not in target.parents
+    if outside or rel.startswith("/") or "\\" in rel or "\x00" in rel:
+      raise HTTPError(403, {"detail": "forbidden path"})
+    if not target.is_file():
+      raise HTTPError(404, {"detail": f"no file {rel}"})
+    content_type = mimetypes.guess_type(target.name)[0] or "application/octet-stream"
+    if content_type.startswith("text/") or content_type.endswith(("javascript", "json")):
+      content_type += "; charset=utf-8"
+    return target.read_bytes(), content_type
+
   # ------------------------------------------------------------ model pool
 
   def _pool_models(self) -> List[str]:
@@ -1016,6 +1114,12 @@ class ChatGPTAPI:
     # n completions of one prompt: sub-requests "rid#0".."rid#n-1" (seeded siblings
     # draw distinct streams; plain ones coalesce in the engine's batcher).
     base = str(uuid.uuid4())
+    if self.on_chat_completion_request is not None:
+      try:
+        self.on_chat_completion_request(base, data, prompt)
+      except Exception as e:  # a display hook never fails the request
+        if DEBUG >= 1:
+          print(f"on_chat_completion_request callback error: {e!r}")
     # Bounded admission (XOT_MAX_INFLIGHT, 0 = off): one slot for the whole HTTP request
     # (all n sub-completions), taken before the request touches the ring. Over the cap
     # it waits in the gate's queue (its warm prefix prefetched from the host tier the

@@ -12,7 +12,7 @@ import json
 from typing import AsyncIterator, Dict, Optional, Tuple
 from urllib.parse import parse_qsl, urlsplit
 
-REASONS = {200: "OK", 202: "Accepted", 400: "Bad Request", 404: "Not Found",
+REASONS = {200: "OK", 202: "Accepted", 400: "Bad Request", 403: "Forbidden", 404: "Not Found",
            405: "Method Not Allowed", 429: "Too Many Requests", 500: "Internal Server Error",
            501: "Not Implemented", 502: "Bad Gateway", 503: "Service Unavailable"}
 

@@ -1,30 +1,46 @@
-"""The HF shard downloader's offline half: XOT_HOME's model directories, the
-layer-aware file filter, the on-disk completeness rule, seeding, and `ensure_shard`'s
-fast path for a checkpoint already on disk.
+"""The HF shard downloader: layer-filtered, resumable, hash-checked.
 
-The port of xotorch_tpu/download/hf_shard_download.py without the network fetch (the
-HF tree listing, ranged downloads and hash checks over aiohttp, which the card does
-not have). A model's files live in `XOT_HOME/models/<org>--<name>` (XOT_HOME defaults
-to `~/.xot_tpu`); `--models-seed-dir` moves prepared directories there. A shard whose
-checkpoint is not complete on disk raises, naming the directory to seed.
+The port of xotorch_tpu/download/hf_shard_download.py on the standard library: the HF
+tree API and `resolve/main` fetched with urllib in worker threads, where JAX uses
+aiohttp. A model's files live in `XOT_HOME/models/<org>--<name>` (XOT_HOME defaults
+to `~/.xot_tpu`); `--models-seed-dir` moves prepared directories there. `ensure_shard`
+serves a checkpoint already complete on disk without touching the network; otherwise
+it lists the repo (recursively, three attempts, cached under `XOT_HOME/file_lists`),
+keeps the files the shard's layer range needs (through the safetensors index), and
+fetches them at most `max_parallel_downloads` at a time. A fetch resumes a `.partial`
+with `Range: bytes=N-` (206 appends, 200 rewrites, 416 is complete) and checks an
+`X-Linked-ETag`/`ETag` of 40 hex digits as a git-blob sha1 and of 64 as a sha256; a
+mismatch deletes the partial and raises. `HF_ENDPOINT` and `HF_TOKEN` (or the token
+file under `HF_HOME`) work as in JAX. The opener ignores proxy settings, as aiohttp's
+default does, so an endpoint on loopback is reached directly. Progress events go to
+`on_progress` on the event loop's thread.
 """
 from __future__ import annotations
 
 import asyncio
 import fnmatch
+import hashlib
 import json
 import os
 import re
 import shutil
+import time
+import urllib.error
+import urllib.request
 from pathlib import Path
-from typing import Dict, List, Optional, Tuple
+from typing import AsyncIterator, Dict, List, Optional, Tuple
 
+from xotorch_tpu_torch.download.download_progress import RepoFileProgressEvent, RepoProgressEvent
 from xotorch_tpu_torch.download.shard_download import ShardDownloader
 from xotorch_tpu_torch.inference.shard import Shard
 from xotorch_tpu_torch.models.registry import get_repo
 from xotorch_tpu_torch.models.vision import is_vision_tensor
 from xotorch_tpu_torch.utils import knobs
 from xotorch_tpu_torch.utils.helpers import DEBUG, spawn_detached
+
+_CHUNK = 1024 * 1024
+_TIMEOUT_S = 60.0  # a socket operation's (connect, a read); JAX's connect timeout is 30 s
+_OPENER = urllib.request.build_opener(urllib.request.ProxyHandler({}))
 
 
 def xot_home() -> Path:
@@ -33,6 +49,60 @@ def xot_home() -> Path:
 
 def models_dir() -> Path:
   return xot_home() / "models"
+
+
+def hf_endpoint() -> str:
+  return os.getenv("HF_ENDPOINT", "https://huggingface.co")
+
+
+def _auth_headers() -> Dict[str, str]:
+  token = os.getenv("HF_TOKEN")
+  if not token:
+    token_file = Path(os.getenv("HF_HOME", Path.home() / ".cache/huggingface")) / "token"
+    if token_file.exists():
+      token = token_file.read_text().strip()
+  return {"Authorization": f"Bearer {token}"} if token else {}
+
+
+def _open(url: str, headers: Optional[Dict[str, str]] = None):
+  """One GET (blocking: a worker thread's). An HTTP error status raises
+  urllib.error.HTTPError, as aiohttp's raise_for_status does."""
+  return _OPENER.open(urllib.request.Request(url, headers={**_auth_headers(), **(headers or {})}),
+                      timeout=_TIMEOUT_S)
+
+
+async def fetch_file_list(repo_id: str, revision: str = "main", path: str = "") -> List[Dict]:
+  """The repo's files ({"path", "size"}), walked recursively through the HF tree API
+  with three attempts, cached in XOT_HOME/file_lists."""
+  cache_file = xot_home() / "file_lists" / f"{repo_id.replace('/', '--')}--{revision}.json"
+  if cache_file.exists():
+    try:
+      return json.loads(cache_file.read_text())
+    except json.JSONDecodeError:
+      pass
+  url = f"{hf_endpoint()}/api/models/{repo_id}/tree/{revision}"
+
+  def walk(subpath: str, files: List[Dict]) -> None:
+    with _open(f"{url}/{subpath}" if subpath else url) as resp:
+      entries = json.loads(resp.read())
+    for entry in entries:
+      if entry["type"] == "file":
+        files.append({"path": entry["path"], "size": entry["size"]})
+      elif entry["type"] == "directory":
+        walk(entry["path"], files)
+
+  for attempt in range(3):
+    files: List[Dict] = []
+    try:
+      await asyncio.to_thread(walk, path, files)
+      break
+    except (OSError, ValueError, KeyError):  # urllib's errors are OSErrors
+      if attempt == 2:
+        raise
+      await asyncio.sleep(1.5 ** attempt)
+  cache_file.parent.mkdir(parents=True, exist_ok=True)
+  cache_file.write_text(json.dumps(files))
+  return files
 
 
 def get_allow_patterns(weight_map: Dict[str, str], shard: Shard) -> List[str]:
@@ -70,7 +140,8 @@ def _matches(path: str, patterns: List[str]) -> bool:
 
 
 class HFShardDownloader(ShardDownloader):
-  def __init__(self):
+  def __init__(self, max_parallel_downloads: int = 8):
+    self.max_parallel_downloads = max_parallel_downloads
     self.active_downloads: Dict[Tuple[str, str], asyncio.Task] = {}
     self.completed: Dict[Tuple[str, str], Path] = {}
 
@@ -101,15 +172,130 @@ class HFShardDownloader(ShardDownloader):
       if DEBUG >= 2:
         print(f"Local checkpoint complete for {shard}; skipping download")
       return target_dir
-    raise FileNotFoundError(
-      f"{shard.model_id}: the checkpoint of {repo_id} is not complete in {target_dir} "
-      f"(config.json, a tokenizer file and the safetensors files of layers "
-      f"{shard.start_layer}-{shard.end_layer}); fetching over the network is not ported "
-      f"to xotorch_tpu_torch yet: seed that directory (--models-seed-dir)")
+    file_list = await fetch_file_list(repo_id)
+    weight_map = await self._weight_map(repo_id, target_dir, file_list)
+    patterns = get_allow_patterns(weight_map, shard) if weight_map else ["*"]
+    wanted = [f for f in file_list if _matches(f["path"], patterns)]
+    if not weight_map:
+      # A repo without an index: the whole intended file set is recorded before any
+      # fetch, so a download killed between files never passes as complete.
+      write_download_manifest(target_dir, [f["path"] for f in wanted])
+    if DEBUG >= 2:
+      print(f"Downloading {len(wanted)}/{len(file_list)} files for {shard}")
+    semaphore = asyncio.Semaphore(self.max_parallel_downloads)
+    progress: Dict[str, RepoFileProgressEvent] = {}
+    started = time.monotonic()
+
+    async def fetch(f):
+      async with semaphore:
+        await self._download_file(repo_id, f["path"], f["size"], target_dir, progress, shard, started)
+
+    await asyncio.gather(*(fetch(f) for f in wanted))
+    return target_dir
 
   @staticmethod
   def _local_complete(target_dir: Path, shard: Shard) -> bool:
     return checkpoint_complete(target_dir, shard)
+
+  async def _weight_map(self, repo_id: str, target_dir: Path,
+                        file_list: List[Dict]) -> Optional[Dict[str, str]]:
+    index_name = "model.safetensors.index.json"
+    if not any(f["path"] == index_name for f in file_list):
+      return None
+    index_path = target_dir / index_name
+    if not index_path.exists():
+      def fetch() -> bytes:
+        with _open(f"{hf_endpoint()}/{repo_id}/resolve/main/{index_name}") as resp:
+          return resp.read()
+      index_path.write_bytes(await asyncio.to_thread(fetch))
+    try:
+      return json.loads(index_path.read_text()).get("weight_map", {})
+    except json.JSONDecodeError:
+      return None
+
+  async def _download_file(self, repo_id: str, file_path: str, total: int, target_dir: Path,
+                           progress: Dict, shard: Shard, started: float) -> None:
+    """One file, resumed from its `.partial` and hash-checked, in a worker thread that
+    reports its progress to the loop's thread."""
+    out_path = target_dir / file_path
+    out_path.parent.mkdir(parents=True, exist_ok=True)
+    loop = asyncio.get_running_loop()
+
+    def report(downloaded: int, speed: float, status: str) -> None:
+      progress[file_path] = RepoFileProgressEvent(repo_id, file_path, downloaded, total, speed, status)
+      self._emit(repo_id, progress, shard, started)
+
+    if out_path.exists() and out_path.stat().st_size == total:
+      report(total, 0, "complete")
+      return
+    partial_path = out_path.with_suffix(out_path.suffix + ".partial")
+
+    def fetch() -> None:
+      downloaded = partial_path.stat().st_size if partial_path.exists() else 0
+      headers = {"Range": f"bytes={downloaded}-"} if downloaded else {}
+      t0 = time.monotonic()
+      try:
+        resp = _open(f"{hf_endpoint()}/{repo_id}/resolve/main/{file_path}", headers)
+      except urllib.error.HTTPError as e:
+        if e.code != 416:  # 416: the partial already holds the whole file
+          raise
+        e.close()
+        return
+      with resp:
+        etag = (resp.headers.get("X-Linked-ETag") or resp.headers.get("ETag") or "").strip('"')
+        mode = "ab" if downloaded and resp.status == 206 else "wb"
+        if mode == "wb":
+          downloaded = 0
+        with open(partial_path, mode) as f:
+          for chunk in iter(lambda: resp.read(_CHUNK), b""):
+            f.write(chunk)
+            downloaded += len(chunk)
+            speed = downloaded / max(time.monotonic() - t0, 1e-9)
+            loop.call_soon_threadsafe(report, downloaded, speed, "in_progress")
+      if etag and len(etag) in (40, 64) and all(c in "0123456789abcdef" for c in etag.lower()):
+        h = hashlib.sha1() if len(etag) == 40 else hashlib.sha256()
+        if len(etag) == 40:  # a git blob's sha1
+          h.update(f"blob {partial_path.stat().st_size}\0".encode())
+        with open(partial_path, "rb") as f:
+          for block in iter(lambda: f.read(_CHUNK), b""):
+            h.update(block)
+        if h.hexdigest() != etag:
+          partial_path.unlink(missing_ok=True)
+          raise ValueError(f"Hash mismatch for {file_path}: {h.hexdigest()} != {etag}")
+
+    await asyncio.to_thread(fetch)
+    if partial_path.exists():
+      partial_path.rename(out_path)
+    report(total, 0, "complete")
+
+  def _emit(self, repo_id: str, progress: Dict, shard: Shard, started: float) -> None:
+    files = list(progress.values())
+    downloaded = sum(f.downloaded for f in files)
+    total = sum(f.total for f in files)
+    completed = sum(1 for f in files if f.status == "complete")
+    elapsed = max(time.monotonic() - started, 1e-9)
+    event = RepoProgressEvent(
+      repo_id, completed, len(files), downloaded, total, downloaded / elapsed,
+      "complete" if completed == len(files) else "in_progress",
+      {f.file_path: f for f in files},
+    )
+    self.on_progress.trigger_all(shard, event)
+
+  async def get_shard_download_status(self, inference_engine_name: str) -> AsyncIterator[tuple]:
+    for (model_id, _layers), path in self.completed.items():
+      yield (path, RepoProgressEvent(model_id, 1, 1, 0, 0, 0, "complete"))
+
+  async def delete_model(self, model_id: str, inference_engine_name: str) -> bool:
+    """Remove the card's model dir (True), or False when there is none."""
+    repo_id = get_repo(model_id, inference_engine_name)
+    if repo_id is None:
+      return False
+    target = models_dir() / repo_id.replace("/", "--")
+    if target.exists():
+      shutil.rmtree(target)
+      self.completed = {k: v for k, v in self.completed.items() if k[0] != model_id}
+      return True
+    return False
 
 
 # Completion manifest for repos without a safetensors index: the downloader writes it

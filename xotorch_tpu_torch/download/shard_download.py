@@ -8,11 +8,12 @@ from __future__ import annotations
 
 from abc import ABC, abstractmethod
 from pathlib import Path
-from typing import Dict, Optional
+from typing import AsyncIterator, Dict, Optional
 
 from xotorch_tpu_torch.inference.shard import Shard
 from xotorch_tpu_torch.models.registry import split_adapter
 from xotorch_tpu_torch.utils import knobs
+from xotorch_tpu_torch.utils.helpers import AsyncCallbackSystem
 
 
 class ShardDownloader(ABC):
@@ -21,6 +22,20 @@ class ShardDownloader(ABC):
     """Make the weight files for `shard` available locally, returning the model
     directory. Must dedupe concurrent calls for the same shard."""
     ...
+
+  @property
+  def on_progress(self) -> AsyncCallbackSystem:
+    """The downloader's progress events, (shard, RepoProgressEvent) a callback; one that
+    fetches nothing never fires them."""
+    callbacks = self.__dict__.get("_on_progress")
+    if callbacks is None:
+      callbacks = self.__dict__["_on_progress"] = AsyncCallbackSystem()
+    return callbacks
+
+  async def get_shard_download_status(self, inference_engine_name: str) -> AsyncIterator[tuple]:
+    """(model dir, RepoProgressEvent) of each finished download; none by default."""
+    return
+    yield  # an async generator that yields nothing
 
 
 class LocalShardDownloader(ShardDownloader):

@@ -162,6 +162,10 @@ inference_engine_classes: Dict[str, str] = {
   "TorchShardInferenceEngine": "TorchShardInferenceEngine",
   "dummy": "DummyInferenceEngine",
   "DummyInferenceEngine": "DummyInferenceEngine",
+  # The native C++ sidecar (native/sidecar/), reached over a Unix socket.
+  "native": "NativeSidecarInferenceEngine",
+  "sidecar": "NativeSidecarInferenceEngine",
+  "NativeSidecarInferenceEngine": "NativeSidecarInferenceEngine",
 }
 
 
@@ -176,4 +180,7 @@ def get_inference_engine(inference_engine_name: str, shard_downloader=None,
   if classname == "DummyInferenceEngine":
     from xotorch_tpu_torch.inference.dummy import DummyInferenceEngine
     return DummyInferenceEngine()
+  if classname == "NativeSidecarInferenceEngine":
+    from xotorch_tpu_torch.inference.native.engine import NativeSidecarInferenceEngine
+    return NativeSidecarInferenceEngine(shard_downloader)
   raise ValueError(f"Unsupported inference engine: {inference_engine_name}")

@@ -184,8 +184,9 @@ package, import each other's entries). An engine inside a process group (XOT_COO
 XOT_MULTIHOST; main.py joins it) serves its own local mesh as its own peer, as every
 rank of JAX's main.py does.
 
-Left out so far: `forward_paged` and XOT_PAGED_KERNEL (the card always takes the paged
-kernels).
+Paged attention always reads the pages in place through K3/K4 (K3q/K4q): XOT_PAGED_KERNEL
+unset or `1` is that, and `0`, the JAX package's XLA gather, is refused when the engine
+is built, as XOT_RAGGED_PREFILL=0 is.
 """
 from __future__ import annotations
 
@@ -516,6 +517,9 @@ class TorchShardInferenceEngine(InferenceEngine):
     self.kv_quant = (kv_quant or knobs.get_str("XOT_KV_QUANT", "")).lower() or None
     if self.kv_quant not in (None, "int8"):
       raise ValueError(f"Unsupported KV quantization {self.kv_quant!r}; have ['int8']")
+    if knobs.get_bool("XOT_PAGED_KERNEL", None) is False:
+      raise ValueError("XOT_PAGED_KERNEL=0 (the gathered paged view) is not ported: paged "
+                       "attention reads the pages in place through K3/K4 (K3q/K4q)")
     if not knobs.get_bool("XOT_RAGGED_PREFILL"):
       raise ValueError("XOT_RAGGED_PREFILL=0 (the gathered paged view) is not ported: paged "
                        "segments read the pages in place through K4/K4q")

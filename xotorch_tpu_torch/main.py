@@ -9,6 +9,8 @@ one completion.
         # multi-LoRA: requests name "<model>@fin" or "<model>@med" over one base
     python -m xotorch_tpu_torch.main run gemma2-2b --models-seed-dir /data/seed
     python -m xotorch_tpu_torch.main run dummy --inference-engine dummy   # no model, no device
+    python -m xotorch_tpu_torch.main --inference-engine native   # the C++ sidecar (native/)
+    python -m xotorch_tpu_torch.main --chat-tui --default-model llama-3.2-1b  # chat in the terminal
     python -m xotorch_tpu_torch.main --serve-tp 2 [--serve-sp 2] [--serve-ep 2]
         # one peer over a mesh of its local cards (parallel/mesh.py); XOT_VIRTUAL_DEVICES=N
         # repeats one card N times instead
@@ -23,9 +25,17 @@ one completion.
 
 A card other than a synthetic one serves the HF checkpoint in
 `XOT_HOME/models/<org>--<name>` (XOT_HOME defaults to `~/.xot_tpu`; `--models-seed-dir`
-moves prepared directories there first). Fetching a checkpoint over the network is
-not ported yet: the directory must hold config.json, a tokenizer file and the
-safetensors files of the peer's layers.
+moves prepared directories there first); the files of the peer's layers that are not
+there are fetched from `HF_ENDPOINT` (download/hf_shard_download.py), and every
+peer's download progress goes to the others over the status bus, at most 5 times a
+second but always the last event. When a peer starts a prompt, every other peer loads
+its own layers of that model at once.
+
+The topology TUI (viz/topology_viz.py) draws the ring on a terminal unless
+`--disable-tui` or `--chat-tui` is given (on a pipe it writes its last frame once, at
+exit); `--chat-tui` chats on the terminal instead of serving the API.
+`--draft-model` names the speculative draft model (as XOT_DRAFT_MODEL); `--run-gc` is
+accepted and does nothing, as in the JAX package.
 
 The names and defaults follow xotorch_tpu/main.py. A peer finds the others by UDP
 broadcast (`--discovery-module udp`, the default) or from a JSON file
@@ -68,14 +78,19 @@ from typing import Optional
 from xotorch_tpu_torch import VERSION
 from xotorch_tpu_torch.api.chatgpt_api import ChatGPTAPI
 from xotorch_tpu_torch.download.hf_shard_download import HFShardDownloader, seed_models
-from xotorch_tpu_torch.inference.engine import get_inference_engine
+from xotorch_tpu_torch.download.shard_download import NoopShardDownloader
+from xotorch_tpu_torch.inference.engine import get_inference_engine, inference_engine_classes
+from xotorch_tpu_torch.inference.shard import Shard
 from xotorch_tpu_torch.models.registry import build_base_shard, get_repo
 from xotorch_tpu_torch.networking.tcp import TCPPeerHandle, TCPServer
 from xotorch_tpu_torch.orchestration.node import Node
 from xotorch_tpu_torch.parallel.multihost import init_multihost, multihost_requested
 from xotorch_tpu_torch.topology.partitioning import RingMemoryWeightedPartitioningStrategy
 from xotorch_tpu_torch.train.dataset import DEFAULT_DATA
-from xotorch_tpu_torch.utils.helpers import DEBUG, find_available_port
+from xotorch_tpu_torch.utils.helpers import DEBUG, find_available_port, get_all_ip_addresses_and_interfaces
+
+# The download-progress broadcast's least interval (s): at most 5 a second.
+PROGRESS_INTERVAL_S = 0.2
 
 
 def build_parser() -> argparse.ArgumentParser:
@@ -94,7 +109,8 @@ def build_parser() -> argparse.ArgumentParser:
   parser.add_argument("--discovery-config-path", type=str, default=None)
   parser.add_argument("--wait-for-peers", type=int, default=0)
   parser.add_argument("--device", type=str, default="cuda", choices=["cuda", "cpu"])
-  parser.add_argument("--inference-engine", type=str, default="torch", help="torch | dummy")
+  parser.add_argument("--inference-engine", type=str, default="torch",
+                      help="torch | native (sidecar) | dummy")
   parser.add_argument("--chatgpt-api-host", type=str, default="0.0.0.0")
   parser.add_argument("--chatgpt-api-port", type=int, default=52415)
   parser.add_argument("--chatgpt-api-response-timeout", type=int, default=90)
@@ -103,7 +119,15 @@ def build_parser() -> argparse.ArgumentParser:
   parser.add_argument("--default-top-k", type=int, default=35)
   parser.add_argument("--system-prompt", type=str, default=None)
   parser.add_argument("--default-model", type=str, default=None)
+  parser.add_argument("--disable-tui", action="store_true", help="do not draw the topology TUI")
+  parser.add_argument("--chat-tui", action="store_true",
+                      help="chat on the terminal with live tok/s instead of serving the API")
   parser.add_argument("--prompt", type=str, default="Who are you?")
+  parser.add_argument("--run-gc", action="store_true",
+                      help="accepted for the JAX package's command line; does nothing")
+  parser.add_argument("--draft-model", type=str, default=None,
+                      help="model id to greedy-draft speculative tokens with (sharing the "
+                           "target's tokenizer); implies speculation on (as XOT_DRAFT_MODEL)")
   parser.add_argument("--models-seed-dir", type=str, default=None,
                       help="move the model dirs in this directory into XOT_HOME/models first")
   parser.add_argument("--quantize", type=str, default=None, choices=["int8", "int4"],
@@ -141,17 +165,21 @@ def build_parser() -> argparse.ArgumentParser:
 
 def build_node(args) -> tuple:
   """Engine, node (with its TCP server and discovery, not started) and API for `args`;
-  the engine raises here when the device is missing. `--lora-rank`, `--adapters` and
-  `--serve-tp/-sp/-ep` go to the environment (XOT_LORA_RANK, XOT_ADAPTERS,
-  XOT_SERVE_TP/SP/EP), where the engine reads them when it is built or loads a shard and
-  the registry and the API when they resolve an adapter id. When the launcher gives a
-  process group (XOT_COORDINATOR or XOT_MULTIHOST), this process joins it before any
-  device use (parallel/multihost.py); its engine then serves over its own local devices
-  and its Node is a peer of its own, as every rank of JAX's main.py is."""
+  the engine raises here when the device is missing. `--lora-rank`, `--adapters`,
+  `--draft-model` and `--serve-tp/-sp/-ep` go to the environment (XOT_LORA_RANK,
+  XOT_ADAPTERS, XOT_DRAFT_MODEL, XOT_SERVE_TP/SP/EP), where the engine reads them when it
+  is built or loads a shard and the registry and the API when they resolve an adapter
+  id. When the launcher gives a process group (XOT_COORDINATOR or XOT_MULTIHOST), this
+  process joins it before any device use (parallel/multihost.py); its engine then
+  serves over its own local devices and its Node is a peer of its own, as every rank of
+  JAX's main.py is. The node's topology TUI (not started), when there is one, is
+  `node.topology_viz`."""
   if getattr(args, "lora_rank", 0):
     os.environ["XOT_LORA_RANK"] = str(args.lora_rank)
   if getattr(args, "adapters", None):
     os.environ["XOT_ADAPTERS"] = args.adapters
+  if getattr(args, "draft_model", None):
+    os.environ["XOT_DRAFT_MODEL"] = args.draft_model
   for flag, knob in (("serve_tp", "XOT_SERVE_TP"), ("serve_sp", "XOT_SERVE_SP"),
                      ("serve_ep", "XOT_SERVE_EP")):
     if getattr(args, flag, None) is not None:
@@ -159,7 +187,9 @@ def build_node(args) -> tuple:
   if multihost_requested():
     n_proc, rank = init_multihost()
     print(f"multi-host: process {rank}/{n_proc}", flush=True)
-  engine = get_inference_engine(args.inference_engine, HFShardDownloader(), device=args.device,
+  is_dummy = inference_engine_classes.get(args.inference_engine) == "DummyInferenceEngine"
+  downloader = NoopShardDownloader() if is_dummy else HFShardDownloader()
+  engine = get_inference_engine(args.inference_engine, downloader, device=args.device,
                                 quantize=getattr(args, "quantize", None),
                                 kv_quant=getattr(args, "kv_quantize", None))
   engine_classname = type(engine).__name__
@@ -174,14 +204,56 @@ def build_node(args) -> tuple:
     if not args.discovery_config_path:
       raise SystemExit("--discovery-config-path is required with --discovery-module manual")
     discovery = ManualDiscovery(args.discovery_config_path, node_id, TCPPeerHandle)
+  # The chat TUI owns the terminal: the topology TUI is not drawn under it.
+  topology_viz = None
+  if not getattr(args, "disable_tui", False) and not getattr(args, "chat_tui", False):
+    from xotorch_tpu_torch.viz.topology_viz import TopologyViz
+    ips = [ip for ip, _ in get_all_ip_addresses_and_interfaces()][:2]
+    topology_viz = TopologyViz(
+      chatgpt_api_endpoints=[f"http://{ip}:{args.chatgpt_api_port}/v1/chat/completions" for ip in ips],
+      web_chat_urls=[f"http://{ip}:{args.chatgpt_api_port}" for ip in ips])
   node = Node(node_id, None, engine, discovery, RingMemoryWeightedPartitioningStrategy(),
               max_generate_tokens=args.max_generate_tokens,
               default_sample_temp=args.default_temp,
-              default_sample_top_k=args.default_top_k)
+              default_sample_top_k=args.default_top_k,
+              shard_downloader=downloader, topology_viz=topology_viz)
   node.server = TCPServer(node, args.node_host, node_port)
   api = ChatGPTAPI(node, engine_classname, response_timeout=args.chatgpt_api_response_timeout,
-                   default_model=args.default_model, system_prompt=args.system_prompt)
+                   default_model=args.default_model, system_prompt=args.system_prompt,
+                   on_chat_completion_request=None if topology_viz is None else (
+                     lambda rid, _body, prompt: topology_viz.update_prompt(rid, prompt)))
+  wire_events(node, engine, downloader)
   return node, engine, engine_classname, api
+
+
+def wire_events(node: Node, engine, downloader) -> None:
+  """The status bus's two uses in a peer (JAX main's `_wire_events`): when another peer
+  starts a prompt, this one loads its own layers of that model at once (the preemptive
+  shard load); and the downloader's progress goes to every peer as `download_progress`,
+  at most every PROGRESS_INTERVAL_S, the final event always."""
+  def on_opaque_status(request_id: str, status: str) -> None:
+    try:
+      data = json.loads(status)
+      if (data.get("type") == "node_status" and data.get("status") == "start_process_prompt"
+          and data.get("node_id") != node.id):
+        current = node.get_current_shard(Shard.from_dict(data.get("base_shard", {})))
+        node._spawn(engine.ensure_shard(current))
+    except Exception as e:  # a malformed status never breaks the bus
+      if DEBUG >= 2:
+        print(f"preemptive load error: {e!r}")
+
+  node.on_opaque_status.register("main-preemptive-load").on_next(on_opaque_status)
+  last = {"t": float("-inf")}
+
+  def on_progress(shard, event) -> None:
+    now = time.monotonic()
+    if now - last["t"] < PROGRESS_INTERVAL_S and not event.is_complete:
+      return
+    last["t"] = now
+    node._spawn(node.broadcast_opaque_status("", json.dumps({
+      "type": "download_progress", "node_id": node.id, "progress": event.to_dict()})))
+
+  downloader.on_progress.register("main-progress").on_next(on_progress)
 
 
 async def run_model_cli(node: Node, engine_classname: str, model_name: str, prompt: str) -> list:
@@ -304,6 +376,12 @@ def kernel_launches() -> dict:
   return {fn.__name__: fn.launches for fn in graphs.counted_wrappers()}
 
 
+def decode_steps(engine) -> int:
+  """The decode steps the engine's batchers ran, over every model context (each step
+  launches K2, or K3 on the page pool, once a layer)."""
+  return sum(c.batcher.steps for c in engine._contexts.values() if c.batcher is not None)
+
+
 async def async_main(args) -> None:
   if args.models_seed_dir:
     # Before anything resolves a model, so that ensure_shard's offline fast path and
@@ -316,6 +394,13 @@ async def async_main(args) -> None:
     loop.add_signal_handler(sig, main_task.cancel)
   try:
     await node.start(wait_for_peers=args.wait_for_peers)
+    if node.topology_viz is not None:
+      node.topology_viz.start()
+    if args.chat_tui:
+      from xotorch_tpu_torch.viz.chat_tui import run_chat_tui
+      model = args.model_name or args.default_model or "llama-3.2-1b"
+      await run_chat_tui(node, engine_classname, model, await resolve_cli_tokenizer(model, engine_classname))
+      return
     if args.command == "run":
       await run_model_cli(node, engine_classname, args.model_name or args.default_model
                           or "synthetic-llama-1b", args.prompt)
@@ -334,8 +419,14 @@ async def async_main(args) -> None:
       print(f"wire {node.id}: {json.dumps(wire_counts(node))}", flush=True)
       if engine_classname == "TorchShardInferenceEngine":
         print(f"launches {node.id}: {json.dumps(kernel_launches())}", flush=True)
+        print(f"decode steps {node.id}: {decode_steps(engine)}", flush=True)
     node.spool_flight(reason="shutdown")  # XOT_FLIGHT_DUMP_DIR, when set
+    if node.topology_viz is not None:
+      node.topology_viz.stop()
     await node.stop()
+    stop = getattr(engine, "stop", None)  # the native engine's sidecar process
+    if stop is not None:
+      await stop()
     executor = getattr(engine, "executor", None)  # the dummy engine has none
     if executor is not None:
       executor.shutdown(wait=False)

@@ -4,7 +4,7 @@ co-located partitions.
 
 The port of xotorch_tpu/models/generate.py (`forward_sample`, `decode_chunk`,
 `decode_chunk_batched`, `decode_chunk_paged`, `scan_groups`, `prefill_scan`,
-`forward_argmax_paged`, `decode_chunk_ring`, `forward_argmax_ring`,
+`forward_argmax_paged`, `forward_paged`, `decode_chunk_ring`, `forward_argmax_ring`,
 `decode_chunk_ring_batched`). Where JAX
 runs a decode chunk as ONE XLA program (`lax.scan` over K steps under `jax.jit`), the
 port splits out the step: `decode_step` is one forward + sampling over buffers it
@@ -103,6 +103,20 @@ def forward_argmax_paged(params, x: torch.Tensor, arena: Dict[str, torch.Tensor]
   ([1, T_pad] argmax, the arena)."""
   return forward_argmax(params, x, arena, start_pos, cfg, page_table=page_table,
                         start_layer=start_layer, route=route)
+
+
+def forward_paged(params, x: torch.Tensor, arena: Dict[str, torch.Tensor],
+                  page_table: torch.Tensor, start_pos: Union[int, torch.Tensor],
+                  cfg: ModelConfig, start_layer: int = 0,
+                  route: Optional[QuantRoute] = None):
+  """JAX's `forward_paged`: the full-logits forward over the page arena, the K/V of `x`
+  ([B, T] tokens at `start_pos`, an int or [B]) written into the requests' pages of
+  `page_table` ([B, max_pages]), which the caller has already extended over them. Decode
+  steps (T == 1) attend through K3, segments (T > 1, B == 1) through K4 (K3q/K4q on an
+  int8 arena); on the CPU their plain versions. Returns ([B, T, vocab] fp32 logits, the
+  arena)."""
+  return forward_shard(params, x, arena, start_pos, cfg=cfg, is_first=True, is_last=True,
+                       start_layer=start_layer, page_table=page_table, route=route)
 
 
 def decode_step(

@@ -173,9 +173,20 @@ def get_model_card(model_id: str) -> Optional[Dict]:
   return model_cards.get(model_id) or model_cards.get(split_adapter(model_id)[0])
 
 
+NATIVE = "NativeSidecarInferenceEngine"
+
+
 def get_repo(model_id: str, inference_engine_classname: str) -> Optional[str]:
+  """The card's repo under the engine. The native sidecar reads the same HF safetensors
+  layout as the torch engine, so it falls back to the TORCH repo: dense cards only (its
+  C++ forward has no expert routing)."""
   model_id = split_adapter(model_id)[0]
-  return model_cards.get(model_id, {}).get("repo", {}).get(inference_engine_classname)
+  repos = model_cards.get(model_id, {}).get("repo", {})
+  repo = repos.get(inference_engine_classname)
+  if repo is None and inference_engine_classname == NATIVE:
+    if not model_cards.get(model_id, {}).get("moe"):
+      repo = repos.get(TORCH)
+  return repo
 
 
 def build_base_shard(model_id: str, inference_engine_classname: str) -> Optional[Shard]:
@@ -193,5 +204,5 @@ def build_full_shard(model_id: str, inference_engine_classname: str) -> Optional
 
 
 def get_supported_models(engine_classname: str = TORCH) -> List[str]:
-  return [m for m, card in model_cards.items() if engine_classname in card.get("repo", {})]
+  return [m for m in model_cards if get_repo(m, engine_classname) is not None]
 

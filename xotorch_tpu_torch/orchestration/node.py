@@ -178,12 +178,20 @@ class Node:
     default_sample_temp: float = 0.6,
     default_sample_top_k: int = 35,
     decode_chunk_size: Optional[int] = None,
+    shard_downloader=None,
+    topology_viz=None,
   ):
     self.id = _id
     self.server = server
     self.inference_engine = inference_engine
     self.discovery = discovery
     self.partitioning_strategy = partitioning_strategy
+    # The downloader the API's download routes drive (None: they answer so), and the
+    # topology TUI the status bus repaints (viz/topology_viz.py; None: no TUI).
+    self.shard_downloader = shard_downloader
+    self.topology_viz = topology_viz
+    # Each node's latest download progress off the status bus (/v1/download/progress).
+    self.node_download_progress: Dict[str, Any] = {}
     self.max_generate_tokens = max_generate_tokens
     self.default_sample_temp = default_sample_temp
     self.default_sample_top_k = default_sample_top_k
@@ -560,6 +568,7 @@ class Node:
       self._request_top_p[request_id] = min(1.0, max(0.0, float(top_p)))
     if sampling:
       self._request_sampling[request_id] = dict(sampling)
+    start_ns = time.perf_counter_ns()
     parent_ctx = TraceContext.from_traceparent(traceparent)
     with self.tracer.start_span(
       "process_prompt" if parent_ctx is None else "process_prompt.forwarded", parent=parent_ctx,
@@ -573,6 +582,14 @@ class Node:
             self._set_ring_map(request_id, ring_map)
         else:
           self._pin_ring_map(base_shard, request_id)
+        # Every peer learns the active node and model (the TUI's ring, and main.py's
+        # preemptive load of each peer's own layers).
+        self._spawn(self.broadcast_opaque_status(request_id, json.dumps({
+          "type": "node_status", "node_id": self.id, "status": "start_process_prompt",
+          "base_shard": base_shard.to_dict(),
+          "shard": self.get_current_shard(base_shard, request_id=request_id).to_dict(),
+          "prompt": prompt, "request_id": request_id,
+          "traceparent": span.context().traceparent()})))
         await self._process_prompt(base_shard, prompt, request_id, images)
       except CacheExhausted as e:
         # The prompt itself does not fit the KV budget: a client error, answered 400.
@@ -583,6 +600,9 @@ class Node:
           import traceback
           traceback.print_exc()
         await self._abort_request(request_id, f"prompt processing failed on {self.id}: {e!r}")
+    self._spawn(self.broadcast_opaque_status(request_id, json.dumps({
+      "type": "node_status", "node_id": self.id, "status": "end_process_prompt",
+      "request_id": request_id, "elapsed_time_ns": time.perf_counter_ns() - start_ns})))
 
   async def _process_prompt(self, base_shard: Shard, prompt: str, request_id: str,
                             images: Optional[List[np.ndarray]] = None) -> None:
@@ -1466,7 +1486,9 @@ class Node:
       for node_id, caps in other.nodes.items():
         if node_id not in next_topology.nodes:
           next_topology.update_node(node_id, caps)
+    next_topology.active_node_id = self.topology.active_node_id
     self.topology = next_topology
+    self._repaint_viz()
     return next_topology
 
   # ------------------------------------------------------------ broadcast
@@ -1541,19 +1563,36 @@ class Node:
   # ------------------------------------------------------- status bus, rollups
 
   def on_node_status(self, request_id, opaque_status) -> None:
-    """The opaque-status bus: a peer's spans of a finished request (the cluster trace
-    rollup) and its metric summary (the cluster metrics rollup). A node's own broadcasts
-    echo locally and are skipped."""
+    """The opaque-status bus. Every node's own broadcasts echo here too: each node's
+    download progress (/v1/download/progress) and which node is active with which
+    model (node_status start_* / end_*; the TUI's ring and its layer ranges, from the
+    model's real depth). Then, from peers only, their spans of a finished request (the
+    cluster trace rollup), their metric summaries (the cluster metrics rollup) and the
+    ring-wide checkpoint saves and resumes. The TUI, when there is one, is repainted
+    after each status."""
     try:
       status = json.loads(opaque_status)
     except (TypeError, ValueError) as e:
       if DEBUG >= 2:
         print(f"on_node_status: not JSON: {e!r}")
       return
-    if not isinstance(status, dict) or status.get("node_id") == self.id:
+    if not isinstance(status, dict):
       return
     kind = status.get("type", "")
-    if kind == "trace_spans":
+    if kind == "download_progress":
+      self.node_download_progress[status.get("node_id")] = status.get("progress")
+    elif kind == "node_status":
+      phase = status.get("status", "")
+      if phase.startswith("start_"):
+        self.topology.active_node_id = status.get("node_id")
+        base = status.get("base_shard") or {}
+        if self.topology_viz is not None and base.get("n_layers"):
+          self.topology_viz.update_model(base.get("model_id"), base.get("n_layers"))
+      elif phase.startswith("end_") and status.get("node_id") == self.topology.active_node_id:
+        self.topology.active_node_id = None
+    elif status.get("node_id") == self.id:
+      pass
+    elif kind == "trace_spans":
       self.tracer.ingest(status.get("spans") or [])
     elif kind == "node_metrics" and status.get("node_id"):
       self.ingest_peer_metrics(status["node_id"], status.get("metrics") or {})
@@ -1564,6 +1603,20 @@ class Node:
     elif kind == "save_checkpoint":
       self._spawn(self._save_local(Shard.from_dict(status.get("base_shard", {})),
                                    int(status.get("iteration", 0)), status.get("destination", "")))
+    self._repaint_viz()
+
+  def _repaint_viz(self) -> None:
+    """The TUI's ring from this node's topology; a paint error is logged, never raised
+    into the status bus or the topology crawl."""
+    if self.topology_viz is None:
+      return
+    try:
+      self.topology_viz.update_visualization(self.topology,
+                                             self.partitioning_strategy.partition(self.topology),
+                                             self.id, self.node_download_progress)
+    except Exception as e:  # the TUI is cosmetic
+      if DEBUG >= 2:
+        print(f"topology viz update failed: {e!r}")
 
   async def broadcast_opaque_status(self, request_id: str, status: str) -> None:
     async def send(peer):

@@ -47,6 +47,7 @@ _DEFS: Tuple[Knob, ...] = (
   Knob("XOT_KV_PAGE", "int", "128", "Page size (tokens) of the paged KV pool: any page of one or more tokens (K3/K4 read a multiple of 64 a page a tile, any other page an id a row)."),
   Knob("XOT_KV_POOL_TOKENS", "int", "0", "Total paged-pool capacity in tokens; 0 sizes it automatically."),
   Knob("XOT_PAGED_PREFILL", "bool", "1", "Prefill straight into pool pages under XOT_PAGED_KV (no contiguous commit copy)."),
+  Knob("XOT_PAGED_KERNEL", "bool", None, "Paged attention through K3/K4 (K3q/K4q); unset and `1` take the kernels. `0` (the JAX package's gathered view) is not ported and the engine raises when it is built."),
   Knob("XOT_RAGGED_PREFILL", "bool", "1", "Paged T>1 segments read pages natively through K4 (K4q). Reserved: `0` (the JAX package's gathered view) is not ported and the engine raises."),
   Knob("XOT_PAGED_SPEC", "bool", "1", "Draft verification runs native to the page arena (ragged query over the request's page table); 0 restores unpage-then-verify."),
   Knob("XOT_KV_DEFRAG", "bool", "1", "Page-pool defragmentation in batcher-idle slots: migrate high pages into low free holes and rewrite only the virtual maps."),
@@ -167,9 +168,32 @@ _DEFS: Tuple[Knob, ...] = (
   Knob("XOT_DRIFT_MIN_SAMPLES", "int", "3", "Minimum samples carrying the gauge in each compared window before a drift rule may evaluate (thin evidence never pages)."),
   Knob("XOT_DRIFT_PENDING_S", "float", "30", "Seconds a drift condition must hold before the pending perf_drift alert transitions to firing."),
   Knob("XOT_DRIFT_RESOLVE_S", "float", "60", "Hysteresis: seconds a drift condition must stay clear before a firing perf_drift alert resolves."),
+  Knob("XOT_SIDECAR_BIN", "path", None, "Path to a prebuilt native sidecar binary (skips the make step)."),
+  Knob("XOT_SIDECAR_QUANT", "str", None, "Native sidecar weight quantization (`int8`); read by the C++ engine."),
 )
 
 REGISTRY: Dict[str, Knob] = {k.name: k for k in _DEFS}
+
+# The JAX package's knobs the port does not register, each with its reason.
+EXCLUDED: Dict[str, str] = {
+  "XOT_UUID": "the port's node id is --node-id or a fresh uuid4 a process; it keeps no "
+              "per-machine id file to override",
+  "XOT_PLATFORM": "pins JAX's platform; the port picks its device with --device (cuda or cpu)",
+  "XOT_SKIP_JAX_PROBE": "skips JAX's accelerator probe; the port's probe asks torch.cuda, "
+                        "which costs nothing",
+  "XOT_COMPILE_CACHE_DIR": "JAX's persistent XLA compilation cache; the port compiles its "
+                           "kernels with nvcc once a process and captures CUDA graphs in "
+                           "memory",
+  "XOT_FLASH_ATTENTION": "turns JAX's Pallas prefill kernel on or off; on the card the port "
+                         "always takes K1, and on the CPU its plain version",
+  "XOT_FLASH_DECODE": "turns JAX's Pallas decode kernel on or off; on the card the port always "
+                      "takes K2, and on the CPU its plain version",
+  "XOT_FLASH_DECODE_MIN": "the cache length below which JAX decodes through XLA instead of "
+                          "its kernel; the port takes K2 at every length",
+  **{f"XOT_SOAK_{name}": "read by tools/soak, which drives the JAX package's main, not the port"
+     for name in ("SECONDS", "RPS", "PROCS", "STREAM_FRACTION", "SESSION_REUSE", "RECON_TOL_S",
+                  "SEED")},
+}
 
 _UNSET = object()
 _FALSE_STRINGS = frozenset(("", "0", "false", "no", "off"))
